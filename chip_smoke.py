@@ -20,6 +20,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. cross-check: one window batch of that workload digitized on the card and
    by the twins on the CPU, records bitwise equal.
 
+Then the realistic configuration (noise overlay, PMT afterpulses, electron
+afterpulses; the JAX package's ``bench.py`` "production realism" line):
+
+3b. kernels at realistic shapes, bitwise against their twins on the card,
+    with median CUDA-event times: PMT-afterpulse select+emit on ~1.5 M
+    S2-like photons with the synthetic tables, the photon summaries, and
+    ``superpose_adc`` with the noise bank and offsets that wrap its end;
+4b. main path: ``Simulator(default_config(..., enable_noise=True,
+    enable_pmt_afterpulses=True, enable_electron_afterpulses=True),
+    device='cuda').get_arrays(inst)`` on the same workload, warm-up then
+    timed, with the launch counts of every kernel on that path; checks the
+    truth (type-4 rows included), the afterpulse photon fraction, the strax
+    invariants and the noise on quiet in-window samples;
+5b. cross-check: one realistic window batch, with its afterpulse pieces and
+    noise offsets, on the card and by the CPU twins, records bitwise equal.
+
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -33,6 +49,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+
+#: the kernel entries each main path must launch
+DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', 'wfsim_zle_intervals',
+                        'wfsim_pack_records')
+REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + (
+    'wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit', 'wfsim_ap_photon_summaries')
 
 
 def sh(cmd):
@@ -74,6 +96,42 @@ def s2_like_arena(rng, n_win, n_ch, n_samples):
         pieces[w, 0] = (lo, n, 0)
         lo += n
     return np.concatenate(t), np.concatenate(ch), np.concatenate(g), pieces
+
+
+def strax_valid(rr, n_ch):
+    return bool(len(rr) and np.all(np.diff(rr['time']) >= 0)
+                and rr['length'].max() <= 110 and rr['channel'].max() < n_ch
+                and rr['channel'].min() >= 0 and rr['data'].min() >= 0
+                and np.all(rr['pulse_length'] >= rr['length']))
+
+
+def s2_like_photons(rng, n, n_ch, n_rows, dev):
+    """A primary photon batch shaped like the bench S2 batch: ``n``
+    photons over ``n_rows`` truth rows, uniform channels, 21.9 % double-PE,
+    a few without a channel."""
+    import torch
+    ch = rng.integers(0, n_ch, n).astype(np.int32)
+    ch[rng.random(n) < 0.01] = -1
+    ph = dict(t=rng.integers(0, 3_000_000, n).astype(np.int32), ch=ch,
+              is_dpe=rng.random(n) < 0.219, valid=ch >= 0,
+              truth_row=np.sort(rng.integers(0, n_rows, n)).astype(np.int64))
+    return {k: torch.as_tensor(v, device=dev) for k, v in ph.items()}
+
+
+def max_diff(a, b):
+    """max |a - b| over matching outputs (float32 compared as values, -0.0
+    and +0.0 apart by their bits); raises on a shape mismatch."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f'{tuple(a.shape)} {a.dtype} vs '
+                             f'{tuple(b.shape)} {b.dtype}')
+    if not a.numel():
+        return 0.0
+    if a.dtype == torch.float32:
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            return max(float((a - b).abs().max()), 1e-45)
+        return 0.0
+    return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
 def main():
@@ -195,15 +253,12 @@ def main():
     peak = torch.cuda.max_memory_allocated(dev)
     rr, truth = out['raw_records'], out['truth']
     print(f'[main] launches {launches}')
-    for name, n in launches.items():
-        if n <= 0:
+    for name in DEFAULT_PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f'kernel {name} not launched on the main path')
     if len(truth) != len(inst):
         raise AssertionError(f'truth rows {len(truth)} != {len(inst)}')
-    if not (len(rr) and np.all(np.diff(rr['time']) >= 0)
-            and rr['length'].max() <= 110 and rr['channel'].max() < C
-            and rr['channel'].min() >= 0 and rr['data'].min() >= 0
-            and np.all(rr['pulse_length'] >= rr['length'])):
+    if not strax_valid(rr, C):
         raise AssertionError('raw_records violate the strax invariants')
     s1 = truth[truth['type'] == 1]
     s2 = truth[truth['type'] == 2]
@@ -227,7 +282,8 @@ def main():
     rd = RawData(cfg, device=dev)
     rd.simulate(inst)
     wins, arena_d, batches = rd.plan_digitize()
-    batch, T_cap, pieces = max(batches, key=lambda b: (b[1], len(b[0])))
+    batch, T_cap, pieces, _nix = max(batches,
+                                     key=lambda b: (b[1], len(b[0])))
     arena_c = [a.cpu() for a in arena_d]
     res = {}
     for name, d, ar in (('cuda', dev, arena_d), ('cpu', torch.device('cpu'),
@@ -244,11 +300,162 @@ def main():
     if not same:
         raise AssertionError('digitize on the card differs from the CPU twins')
 
+    # ---- 3b. realistic-config kernels against their twins -----------------
+    from wfsim_tpu_torch.models.afterpulse import (
+        pmt_ap_draws, pmt_afterpulse_photons, pmt_afterpulse_photons_ref,
+        summary_draws, photon_summaries, photon_summaries_ref)
+    cfg_r = default_config(seed=1234, chunk_size=100, enable_noise=True,
+                           enable_pmt_afterpulses=True,
+                           enable_electron_afterpulses=True)
+    params_r = build_params(cfg_r, load_config(cfg_r), dev)
+    const_r = build_constants(cfg_r)        # after build_params (AP metadata)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261016)
+    n_ph, n_rows = 1_500_000, 512
+    ph_ap = s2_like_photons(rng, n_ph, C, n_rows, dev)
+    E = int(params_r.pmt_ap_delay_cdf.shape[0])
+    draws = pmt_ap_draws(gen, E, n_ph, dev)
+    ap_k, info_k = pmt_afterpulse_photons(params_r, const_r, ph_ap, draws,
+                                          n_truth_rows=n_rows)
+    ap_r, info_r = pmt_afterpulse_photons_ref(params_r, const_r, ph_ap, draws,
+                                              n_truth_rows=n_rows)
+    if info_k['total'] != info_r['total']:
+        raise AssertionError(f'afterpulse totals {info_k["total"]} vs '
+                             f'{info_r["total"]}')
+    err4 = max([max_diff(ap_k[k], ap_r[k]) for k in ap_k]
+               + [max_diff(info_k[k], info_r[k])
+                  for k in ('counts', 't_min', 't_max')])
+    print(f'[kernels-r] pmt_afterpulse: photons {n_ph} elements {E} '
+          f'selected {info_k["total"]} ({info_k["total"] / n_ph:.4f} per '
+          f'photon), max|diff| {err4}')
+    if err4:
+        raise AssertionError('pmt_afterpulse differs from its twin')
+    u_s = summary_draws(gen, n_rows, dev)
+    sk, sr = (f(ph_ap, u_s, n_inst=n_rows)
+              for f in (photon_summaries, photon_summaries_ref))
+    err5 = max(max_diff(a, b) for a, b in zip(sk, sr))
+    print(f'[kernels-r] ap_photon_summaries: instructions {n_rows} '
+          f'candidates {u_s.shape[1]}, max|diff| {err5}')
+    if err5:
+        raise AssertionError('ap_photon_summaries differs from its twin')
+    L = int(params_r.noise_bank.shape[1])
+    nix = torch.as_tensor(L - T // 2 + np.arange(B) * 7, dtype=torch.int32,
+                          device=dev)           # every window wraps the bank
+    nkw = dict(skw, noise_bank=params_r.noise_bank, noise_ix=nix,
+               n_channels=C)
+    grid_n = superpose_adc(*sargs, **nkw)
+    grid_nr = superpose_adc_ref(*sargs, **nkw)
+    err6 = max_diff(grid_n, grid_nr)
+    in_win = grid_nr[(grid_nr > 15900) & (grid_nr < 16100)].to(torch.float32)
+    print(f'[kernels-r] superpose_adc+noise: noise_ix {nix[0].item()}.. of '
+          f'L={L}, differing samples {int((grid_n != grid_nr).sum())}, '
+          f'max|diff| {err6}, quiet in-window std {in_win.std().item():.3f}')
+    if err6 or not in_win.std().item() > 0.5:
+        raise AssertionError('superpose_adc with noise differs from its twin '
+                             'or shows no noise')
+    times.update(
+        pmt_afterpulse=(
+            cuda_ms(lambda: pmt_afterpulse_photons(
+                params_r, const_r, ph_ap, draws, n_truth_rows=n_rows)),
+            cuda_ms(lambda: pmt_afterpulse_photons_ref(
+                params_r, const_r, ph_ap, draws, n_truth_rows=n_rows))),
+        ap_photon_summaries=(
+            cuda_ms(lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows)),
+            cuda_ms(lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows))),
+        superpose_adc_noise=(
+            cuda_ms(lambda: superpose_adc(*sargs, **nkw)),
+            cuda_ms(lambda: superpose_adc_ref(*sargs, **nkw), reps=5)))
+    for name in ('pmt_afterpulse', 'ap_photon_summaries',
+                 'superpose_adc_noise'):
+        ms, plain = times[name]
+        print(f'[kernels-r] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms '
+              f'({smi})')
+    del ph_ap, draws, ap_k, ap_r, grid_n, grid_nr
+
+    # ---- 4b. realistic main path -----------------------------------------
+    Simulator(cfg_r, device=dev).get_arrays(inst)        # warm-up
+    torch.cuda.synchronize()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim = Simulator(cfg_r, device=dev)
+    t0 = time.perf_counter()
+    out = sim.get_arrays(inst)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    launches_r = {name: k.launches for name, k in _build.KERNELS.items()}
+    peak_r = torch.cuda.max_memory_allocated(dev)
+    rr, truth = out['raw_records'], out['truth']
+    diag = sim.sim.rawdata.diag.summary()
+    print(f'[realistic] launches {launches_r}')
+    for name in REALISTIC_PATH_KERNELS:
+        if launches_r[name] <= 0:
+            raise AssertionError(f'kernel {name} not launched on the '
+                                 f'realistic path')
+    n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2, 4, 6)}
+    if n_type[1] != 512 or n_type[2] != 512 or n_type[4] <= 0:
+        raise AssertionError(f'truth rows by type {n_type}')
+    n_photons = int(truth['n_photon'].sum())
+    ap_frac = diag['pmt_ap_photons'] / n_photons
+    if not 0.012 < ap_frac < 0.05:
+        raise AssertionError(f'afterpulse photon fraction {ap_frac}')
+    if not strax_valid(rr, C):
+        raise AssertionError('realistic raw_records violate the strax '
+                             'invariants')
+    j = np.arange(110)[None, :]
+    inside = rr['data'][j < rr['length'][:, None]].astype(np.float64)
+    quiet = inside[np.abs(inside - 16000) < 30]
+    print(f'[realistic] truth rows by type {n_type}, afterpulse photons '
+          f'{diag["pmt_ap_photons"]} of {n_photons} ({ap_frac:.4f}), quiet '
+          f'samples mean {quiet.mean():.3f} std {quiet.std():.3f}')
+    if not (15900 < quiet.mean() < 16100 and quiet.std() > 0.5):
+        raise AssertionError('no noise on quiet in-window samples')
+    print(f'[realistic] events/s {512 / wall_r:.2f} wall {wall_r:.3f} s '
+          f'records {len(rr)} photons {n_photons} peak_mem '
+          f'{peak_r / 2 ** 20:.1f} MiB ({smi})')
+    print(f'[realistic] phases {diag}')
+
+    # ---- 5b. one realistic window batch: card against the CPU twins -------
+    rd = RawData(cfg_r, device=dev)
+    rd.simulate(inst)
+    wins, arena_d, batches = rd.plan_digitize()
+    # the batch with the most pieces beyond one per window (afterpulse
+    # pulses join their S2's window as pieces of their own), cut to its 16
+    # windows with the most pieces so the CPU twins stay quick
+    batch, T_cap, pieces, nix = max(
+        batches, key=lambda b: int((b[2][:, :, 1] > 0).sum()) - len(b[0]))
+    top = np.argsort(-(pieces[:, :, 1] > 0).sum(axis=1), kind='stable')[:16]
+    batch, pieces, nix = batch[top], pieces[top], nix[top]
+    n_pieces = int((pieces[:, :, 1] > 0).sum())
+    arena_c = [a.cpu() for a in arena_d]
+    res = {}
+    for name, d, ar in (('cuda', dev, arena_d), ('cpu', torch.device('cpu'),
+                                                 arena_c)):
+        prm = build_params(cfg_r, load_config(cfg_r), d)
+        g = gather_digitize(prm, const_r, *ar,
+                            torch.as_tensor(pieces, device=d),
+                            torch.as_tensor(nix, device=d),
+                            n_samples=T_cap, max_intervals=K)
+        rec = pack_records(g['data'], g['left_all'], g['starts'], g['ends'],
+                           g['counts'])
+        res[name] = [x.cpu().numpy() for x in rec]
+    same = all(a.shape == b.shape and np.array_equal(a, b)
+               for a, b in zip(res['cuda'], res['cpu']))
+    print(f'[cross-r] windows {len(batch)} pieces {n_pieces} T_cap {T_cap} '
+          f'noise_ix {nix.tolist()[:4]}.. records {len(res["cuda"][0])} '
+          f'cuda==cpu {same}')
+    if not same or n_pieces <= len(batch):
+        raise AssertionError('realistic digitize on the card differs from '
+                             'the CPU twins (or the batch has no '
+                             'afterpulse pieces)')
+
     src = 'wfsim_tpu_torch/csrc/'
     rows = [
         dict(name='superpose_adc', route='cuda', source=src + 'superpose_adc.cu',
-             replaces='wfsim_tpu/ops/waveform.py:68',
-             launches=launches['wfsim_superpose_adc'], max_abs_err=err1,
+             replaces='wfsim_tpu/ops/waveform.py:68; '
+                      'wfsim_tpu/pipeline/digitize.py:67',
+             launches=launches['wfsim_superpose_adc'],
+             max_abs_err=max(err1, err6),
              ms=times['superpose_adc'][0], plain_ms=times['superpose_adc'][1]),
         dict(name='zle_intervals', route='cuda', source=src + 'zle_intervals.cu',
              replaces='wfsim_tpu/ops/zle.py:119',
@@ -258,6 +465,19 @@ def main():
              replaces='wfsim_tpu/pipeline/digitize.py:471',
              launches=launches['wfsim_pack_records'], max_abs_err=err3,
              ms=times['pack_records'][0], plain_ms=times['pack_records'][1]),
+        dict(name='pmt_afterpulse', route='cuda',
+             source=src + 'pmt_afterpulse.cu',
+             replaces='wfsim_tpu/models/afterpulse.py:56',
+             launches=min(launches_r['wfsim_pmt_ap_select'],
+                          launches_r['wfsim_pmt_ap_emit']),
+             max_abs_err=err4, ms=times['pmt_afterpulse'][0],
+             plain_ms=times['pmt_afterpulse'][1]),
+        dict(name='ap_photon_summaries', route='cuda',
+             source=src + 'pmt_afterpulse.cu',
+             replaces='wfsim_tpu/models/afterpulse.py:184',
+             launches=launches_r['wfsim_ap_photon_summaries'],
+             max_abs_err=err5, ms=times['ap_photon_summaries'][0],
+             plain_ms=times['ap_photon_summaries'][1]),
     ]
     print(smi)
     print(json.dumps({'kernels': rows}))

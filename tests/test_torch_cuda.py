@@ -23,6 +23,8 @@ from wfsim_tpu_torch.pipeline.digitize import (gather_digitize, pack_records,
                                                window_photons)
 from wfsim_tpu_torch.resources import load_config
 
+from .ap_inputs import ap_tables, photon_set
+
 pytestmark = pytest.mark.cuda
 
 
@@ -116,3 +118,94 @@ def test_wrappers_count_launches_and_check_inputs(setup, dev):
     with pytest.raises(TypeError):
         superpose_adc(*bad, **kw)
     assert k.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# realistic configuration: noise-fused superpose_adc and the afterpulse
+# kernels
+
+
+@pytest.fixture(scope='module')
+def realistic(dev):
+    c = default_config(enable_noise=True, enable_pmt_afterpulses=True,
+                       photon_ap_cdfs=ap_tables())
+    params = build_params(c, load_config(c), dev)
+    return c, params, build_constants(c)
+
+
+@pytest.mark.parametrize('T,wrap', [(512, False), (2048, True)])
+def test_noise_superpose_matches_twin(realistic, dev, T, wrap):
+    c, params, const = realistic
+    (t, ch, g), pieces = arena(T + 1, 4, 494, T, 4000, dev)
+    ph = window_photons(const, t, ch, g, pieces, n_samples=T)
+    L = params.noise_bank.shape[1]
+    nix = torch.tensor([L - T // 3, L - 1, 5, L // 2] if wrap
+                       else [0, 17, 999, L // 2], dtype=torch.int32, device=dev)
+    kw = dict(current_2_adc=const.current_2_adc,
+              baseline=const.digitizer_reference_baseline, n_samples=T,
+              noise_bank=params.noise_bank, noise_ix=nix, n_channels=494)
+    args = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+            ph['ch_left'], ph['ch_right'], ph['has'])
+    assert torch.equal(superpose_adc(*args, **kw),
+                       superpose_adc_ref(*args, **kw))
+
+
+def test_noisy_gather_digitize_card_matches_cpu(realistic, dev):
+    c, params, const = realistic
+    (t, ch, g), pieces = arena(11, 3, 494, 1024, 5000, dev)
+    nix = torch.tensor([3, 50_000, 99_500], dtype=torch.int32)
+    params_cpu = build_params(c, load_config(c), 'cpu')
+    out = []
+    for p, d in ((params, dev), (params_cpu, torch.device('cpu'))):
+        r = gather_digitize(p, const, t.to(d), ch.to(d), g.to(d),
+                            pieces.to(d), nix.to(d), n_samples=1024,
+                            max_intervals=64)
+        out.append([x.cpu() for x in pack_records(
+            r['data'], r['left_all'], r['starts'], r['ends'], r['counts'])])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_pmt_afterpulse_kernels_match_twins(realistic, dev, seed):
+    """Select, emit and the whole generator, with a uniform element so both
+    branches of emit run."""
+    from wfsim_tpu_torch.models import afterpulse as ap
+    c, params, const = realistic
+    n = 200_000
+    ph = {k: torch.as_tensor(v, device=dev)
+          for k, v in photon_set(seed, n).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    draws = ap.pmt_ap_draws(gen, params.pmt_ap_delay_cdf.shape[0], n, dev)
+    sel = ap._select(params, const, ph, draws)
+    assert torch.equal(sel, ap._select_ref(params, const, ph, draws))
+    take = torch.nonzero(sel.reshape(-1)).squeeze(1)
+    for a, b in zip(ap._emit(params, const, ph, draws, take),
+                    ap._emit_ref(params, const, ph, draws, take)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    k = _build.KERNELS['wfsim_pmt_ap_emit']
+    before = k.launches
+    out, info = ap.pmt_afterpulse_photons(params, const, ph, draws,
+                                          n_truth_rows=8)
+    assert k.launches == before + 1
+    ref, info_r = ap.pmt_afterpulse_photons_ref(params, const, ph, draws,
+                                                n_truth_rows=8)
+    assert info['total'] == info_r['total'] > 0
+    for key in out:
+        assert torch.equal(out[key], ref[key]), key
+    for key in ('counts', 't_min', 't_max'):
+        assert torch.equal(info[key], info_r[key]), key
+
+
+def test_photon_summaries_kernel_matches_twin(dev):
+    from wfsim_tpu_torch.models import afterpulse as ap
+    ph = {k: torch.as_tensor(v, device=dev)
+          for k, v in photon_set(7, 100_000).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    u = ap.summary_draws(gen, 10, dev)
+    a = ap.photon_summaries(ph, u, n_inst=10)
+    b = ap.photon_summaries_ref(ph, u, n_inst=10)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -126,7 +126,13 @@ def test_params_from_numpy_refuses_unported_fields():
 
 def test_unported_resources_raise():
     with pytest.raises(NotImplementedError):
-        load_config(default_config(enable_noise=True))
+        load_config(default_config(enable_noise=True, noise_file='noise.npz'))
+    with pytest.raises(NotImplementedError):
+        load_config(default_config(enable_pmt_afterpulses=True,
+                                   photon_ap_cdfs='pmt_ap.json.gz'))
+    with pytest.raises(NotImplementedError):
+        load_config(default_config(enable_electron_afterpulses=True,
+                                   ele_ap_pdfs='ele_ap.pkl'))
     with pytest.raises(NotImplementedError):
         load_config(default_config(s1_pattern_map='map.json'))
 

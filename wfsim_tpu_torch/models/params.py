@@ -27,10 +27,12 @@ __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
 
 @dataclasses.dataclass
 class SimParams:
-    """Device tensors of one configuration (the main-path fields of
-    wfsim_tpu's SimParams; the optional tables it holds for noise,
-    afterpulses, NEST, garfield, field maps and optical splines are not
-    ported yet)."""
+    """Device tensors of one configuration (the main-path and
+    realistic-config fields of wfsim_tpu's SimParams; the optional tables it
+    holds for NEST, garfield, field maps and optical splines are not ported
+    yet).  The noise bank is channel-major int16 (Cn, L): wfsim_tpu keeps
+    it (L, Cn) int32 plus a wrap-extended copy (``noise_ext``) so a TPU can
+    read one contiguous span per row, which the card does not need."""
     gains: torch.Tensor                # (C,) f32 electrons/PE
     uniform_to_pe: torch.Tensor        # (C, 2001) f32
     templates: torch.Tensor            # (dt, L) f32 SPE current templates
@@ -46,6 +48,13 @@ class SimParams:
     s2_pattern: GridMap
     s2_correction: GridMap
     se_gain: ty.Optional[GridMap]
+    # afterpulses (None when off)
+    pmt_ap_delay_cdf: ty.Optional[torch.Tensor] = None   # (E, C, Td) f32
+    pmt_ap_amp_cdf: ty.Optional[torch.Tensor] = None     # (E, C, Ta) f32
+    ele_ap_bin_centers: ty.Optional[torch.Tensor] = None  # (B,) f32
+    ele_ap_cdf: ty.Optional[torch.Tensor] = None          # (B,) f32
+    # noise (None when off)
+    noise_bank: ty.Optional[torch.Tensor] = None         # (Cn, L) i16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,6 +323,23 @@ def build_params(config, resource: Resource, device) -> SimParams:
         gm = as_gridmap(m, ndim_in=ndim)
         return gm.to(device) if gm is not None else None
 
+    ap_delay, ap_amp = _pmt_ap_tables(config, resource, n_pmts)
+    ele_bins = ele_cdf = None
+    if resource.uniform_to_ele_ap is not None:
+        h = resource.uniform_to_ele_ap
+        config['_ele_ap_n'] = float(h.n)
+        ele_bins = np.asarray(h.bin_centers, dtype=np.float32)
+        if hasattr(h, 'cdf'):
+            ele_cdf = np.asarray(h.cdf, dtype=np.float32)
+        else:
+            pmf = np.asarray(getattr(h, 'histogram', getattr(h, 'pmf', None)),
+                             dtype=np.float64)
+            ele_cdf = np.cumsum(pmf)
+            ele_cdf = (ele_cdf / ele_cdf[-1]).astype(np.float32)
+
+    def opt(a):
+        return None if a is None else t(a)
+
     return SimParams(
         gains=t(gains),
         uniform_to_pe=t(np.asarray(resource.uniform_to_pe, np.float32)),
@@ -330,7 +356,48 @@ def build_params(config, resource: Resource, device) -> SimParams:
         s2_pattern=g(resource.s2_pattern_map, 2),
         s2_correction=g(resource.s2_correction_map, 2),
         se_gain=g(getattr(resource, 'se_gain_map', None), 2),
+        pmt_ap_delay_cdf=opt(ap_delay),
+        pmt_ap_amp_cdf=opt(ap_amp),
+        ele_ap_bin_centers=opt(ele_bins),
+        ele_ap_cdf=opt(ele_cdf),
+        # a copy: the resource's bank is a shared read-only array
+        noise_bank=(None if resource.noise_bank is None
+                    else torch.tensor(resource.noise_bank, device=device)),
     )
+
+
+def _pmt_ap_tables(config, resource, n_pmts):
+    """(E, C, Td) delay and (E, C, Ta) amplitude CDFs, one element per ion
+    species in sorted name order, each row edge-padded to the longest
+    table (wfsim_tpu params.py:391-420).  The element metadata goes into
+    ``config['_pmt_ap_elements']``, which :func:`build_constants` reads."""
+    tables = resource.uniform_to_pmt_ap
+    if not tables:
+        return None, None
+    elements = sorted(tables)
+    max_td = max(np.asarray(tables[e]['delaytime_cdf']).shape[-1]
+                 for e in elements)
+    max_ta = max(np.atleast_2d(np.asarray(tables[e]['amplitude_cdf'])).shape[-1]
+                 for e in elements)
+    d_list, a_list, meta = [], [], []
+    for e in elements:
+        d = np.asarray(tables[e]['delaytime_cdf'], dtype=np.float32)
+        if d.ndim == 1:
+            d = np.tile(d, (n_pmts, 1))
+        d_list.append(np.pad(d, [(0, 0), (0, max_td - d.shape[-1])],
+                             mode='edge'))
+        a = np.atleast_2d(np.asarray(tables[e]['amplitude_cdf'],
+                                     dtype=np.float32))
+        if a.shape[0] == 1:
+            a = np.tile(a, (n_pmts, 1))
+        a_list.append(np.pad(a, [(0, 0), (0, max_ta - a.shape[-1])],
+                             mode='edge'))
+        meta.append(dict(
+            uniform='Uniform' in e,
+            delaytime_bin_size=float(tables[e]['delaytime_bin_size']),
+            amplitude_bin_size=float(tables[e]['amplitude_bin_size'])))
+    config['_pmt_ap_elements'] = meta
+    return np.stack(d_list), np.stack(a_list)
 
 
 def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
@@ -338,10 +405,17 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
     """Rebuild (SimParams, SimConstants) from wfsim_tpu's bundle exported
     as numpy: ``tree[name]`` for array fields and ``tree[name + '.values']``,
     ``'.lows'``, ``'.highs'`` for GridMap fields (the GridMap pytree leaf
-    order); absent names are None.  Raises if the tree holds a field the
-    port does not carry."""
+    order); absent names are None.  wfsim_tpu's (L, Cn) int32
+    ``noise_data`` becomes the channel-major int16 ``noise_bank``.  Raises
+    if the tree holds a field the port does not carry."""
     device = torch.device(device)
     names = {f.name for f in dataclasses.fields(SimParams)}
+    tree = dict(tree)
+    if 'noise_data' in tree:
+        bank = np.asarray(tree.pop('noise_data'))
+        if bank.min() < -2 ** 15 or bank.max() >= 2 ** 15:
+            raise ValueError('noise bank values do not fit int16')
+        tree['noise_bank'] = np.ascontiguousarray(bank.T.astype(np.int16))
     extra = {k.split('.')[0] for k in tree} - names
     if extra:
         raise NotImplementedError(f'fields not ported: {sorted(extra)}')

@@ -5,9 +5,9 @@ This is the reference's innermost hot loop ``Pulse.add_current``
 ``t`` adds ``gain * templates[t % dt]`` (a 22-sample SPE current template,
 one per 1-ns sub-sample phase) starting at sample ``t // dt``.
 
-On the card the superposition, the ADC conversion and the window epilogue
-run fused in one hand-written kernel (``csrc/superpose_adc.cu``), which
-stores the int16 grid directly.  ``superpose_adc_ref`` is its plain
+On the card the superposition, the ADC conversion, the noise overlay
+(realistic config) and the window epilogue run fused in one hand-written
+kernel (``csrc/superpose_adc.cu``), which stores the int16 grid directly.  ``superpose_adc_ref`` is its plain
 PyTorch twin: it adds the same float32 products in the same per-sample
 order (photon order within each row), so the two agree bitwise.
 """
@@ -18,8 +18,8 @@ import torch
 
 from .._build import Kernel, P, I, F, ptr, stream_of
 
-__all__ = ['make_templates', 'photons_to_waveform_ref', 'superpose_adc',
-           'superpose_adc_ref']
+__all__ = ['make_templates', 'photons_to_waveform_ref', 'noise_overlay_ref',
+           'superpose_adc', 'superpose_adc_ref']
 
 
 def make_templates(pe_pulse_ts, pe_pulse_ys,
@@ -82,12 +82,35 @@ def photons_to_waveform_ref(t, gain, row_ptr, templates, *, n_samples: int):
     return W[:, :n_samples]
 
 
+def noise_overlay_ref(bank, noise_ix, ch_left, *, n_channels: int,
+                      n_samples: int):
+    """(rows, n_samples) int32 noise of each row's trace: row ``w * C + c``
+    reads ``bank[c, (noise_ix[w] + u - ch_left[row]) % L]`` for ``c < Cn``
+    and is 0 on rows past the bank (wfsim_tpu/pipeline/digitize.py:67
+    _noise_gather; reference rawdata.py:407-431)."""
+    Cn, L = bank.shape
+    dev = ch_left.device
+    n_rows = ch_left.shape[0]
+    rows = torch.arange(n_rows, device=dev)
+    c = rows % n_channels
+    on = torch.nonzero(c < Cn).squeeze(1)
+    out = torch.zeros((n_rows, n_samples), dtype=torch.int32, device=dev)
+    u = torch.arange(n_samples, dtype=torch.int64, device=dev)
+    x = (noise_ix.to(torch.int64)[on // n_channels, None] + u[None, :]
+         - ch_left.to(torch.int64)[on, None])
+    flat = c[on, None] * L + torch.remainder(x, L)
+    out[on] = bank.reshape(-1)[flat].to(torch.int32)
+    return out
+
+
 def superpose_adc_ref(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
-                      current_2_adc: float, baseline: int, n_samples: int):
+                      current_2_adc: float, baseline: int, n_samples: int,
+                      noise_bank=None, noise_ix=None, n_channels: int = 0):
     """Plain twin of the superpose_adc kernel: waveform, then
-    ``-round_half_even(W * current_2_adc)`` (int32), plus the baseline and a
-    clip at 0 inside each row's window ``[ch_left, ch_right]`` for rows with
-    ``has``, then int16 (wfsim_tpu/pipeline/digitize.py:299-319)."""
+    ``-round_half_even(W * current_2_adc)`` (int32), plus the noise overlay
+    (with a bank), the baseline and a clip at 0 inside each row's window
+    ``[ch_left, ch_right]`` for rows with ``has``, then int16
+    (wfsim_tpu/pipeline/digitize.py:299-319)."""
     W = photons_to_waveform_ref(t, gain, row_ptr, templates,
                                 n_samples=n_samples)
     c2a = float(np.float32(current_2_adc))
@@ -95,13 +118,18 @@ def superpose_adc_ref(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     idx = torch.arange(n_samples, dtype=torch.int32, device=t.device)
     in_win = ((idx[None, :] >= ch_left[:, None])
               & (idx[None, :] <= ch_right[:, None]) & has[:, None])
-    data = adc + torch.where(in_win, baseline, 0).to(torch.int32)
+    add = torch.full_like(adc, baseline)
+    if noise_bank is not None:
+        add = add + noise_overlay_ref(noise_bank, noise_ix, ch_left,
+                                      n_channels=n_channels,
+                                      n_samples=n_samples)
+    data = adc + torch.where(in_win, add, 0)
     data = torch.where(in_win, torch.clamp_min(data, 0), data)
     return data.to(torch.int16)
 
 
 _kernel = Kernel('wfsim_superpose_adc',
-                 [P, P, P, I, I, P, I, I, P, P, P, F, I, P, P])
+                 [P, P, P, I, I, P, I, I, P, P, P, F, I, P, I, I, P, I, P, P])
 
 
 def _check(name, x, dtype, shape, device):
@@ -116,8 +144,14 @@ def _check(name, x, dtype, shape, device):
 
 
 def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
-                  current_2_adc: float, baseline: int, n_samples: int):
+                  current_2_adc: float, baseline: int, n_samples: int,
+                  noise_bank=None, noise_ix=None, n_channels: int = 0):
     """(rows, n_samples) int16 digitized grid of row-sorted photons.
+
+    With ``noise_bank`` ((Cn, L) int16, channel-major), ``noise_ix`` ((B,)
+    int32, one bank offset per window, 0 <= noise_ix < 2^30) and
+    ``n_channels`` (C, rows per window: row = w * C + c), rows with c < Cn
+    get the noise overlay in their window.
 
     CPU tensors go to :func:`superpose_adc_ref`; CUDA tensors launch the
     hand-written kernel (``csrc/superpose_adc.cu``)."""
@@ -133,8 +167,24 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     _check('has', has, torch.bool, (n_rows,), dev)
     if n and int(t.min()) < 0:
         raise ValueError('photon times must be window-relative and >= 0')
+    bank_args = (None, 0, 0, None, 0)
+    if noise_bank is not None:
+        Cn, L = noise_bank.shape
+        if n_channels <= 0 or n_rows % n_channels:
+            raise ValueError(f'{n_rows} rows are not whole windows of '
+                             f'{n_channels} channels')
+        _check('noise_bank', noise_bank, torch.int16, (Cn, L), dev)
+        _check('noise_ix', noise_ix, torch.int32, (n_rows // n_channels,),
+               dev)
+        if not 0 < L < 2 ** 30:
+            raise ValueError(f'noise bank length {L} out of range')
+        if noise_ix.numel() and not (0 <= int(noise_ix.min())
+                                     and int(noise_ix.max()) < 2 ** 30):
+            raise ValueError('noise_ix must lie in [0, 2^30)')
+        bank_args = (ptr(noise_bank), L, Cn, ptr(noise_ix), n_channels)
     kw = dict(current_2_adc=current_2_adc, baseline=baseline,
-              n_samples=n_samples)
+              n_samples=n_samples, noise_bank=noise_bank, noise_ix=noise_ix,
+              n_channels=n_channels)
     if dev.type == 'cpu':
         return superpose_adc_ref(t, gain, row_ptr, templates, ch_left,
                                  ch_right, has, **kw)
@@ -146,6 +196,6 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     dt, L = templates.shape
     _kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
             ptr(templates), dt, L, ptr(ch_left), ptr(ch_right), ptr(has),
-            float(np.float32(current_2_adc)), int(baseline), ptr(out),
-            stream_of(dev))
+            float(np.float32(current_2_adc)), int(baseline), *bank_args,
+            ptr(out), stream_of(dev))
     return out

@@ -1,7 +1,7 @@
 """Window digitization: photon arena -> int16 grid -> ZLE -> strax records
 (counterpart of wfsim_tpu/pipeline/digitize.py: gather_digitize's slim-grid
-branch, :290-340, and the dense pack_records, :469-519; reference:
-wfsim/core/rawdata.py:204-311).
+branch with its noise overlay, :287-340, and the dense pack_records,
+:469-519; reference: wfsim/core/rawdata.py:204-311, 398-458).
 
 A batch of B windows is one grid of B*C rows (window w, TPC channel c ->
 row w*C + c).  The glue here is plain torch: gathering each window's
@@ -10,9 +10,11 @@ row sort, and the record cumsum.  The three device passes are hand-written
 kernels with plain twins: ``ops.waveform.superpose_adc``,
 ``ops.zle.zle_all_channels`` and :func:`pack_records`.
 
-Left out by design (wfsim_tpu's relay transport): ``_pack_streams``,
-``pack_records_encoded``, ``pack_records_accumulate``, ``decode_records``
-and ``compact_mask4``/``expand_mask4``.  The port ships dense records.
+With noise on, the grid is the noisy waveform itself and the dense
+records carry it.  Left out by design (wfsim_tpu's relay transport):
+``_pack_streams``, ``pack_records_encoded``, ``pack_records_accumulate``,
+``decode_records``, ``compact_mask4``/``expand_mask4`` and the noise
+strip/re-add pair (the residual grid and ``add_noise_host``).
 """
 from __future__ import annotations
 
@@ -88,30 +90,45 @@ def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
                 row_ptr=row_ptr, ch_left=ch_left, ch_right=ch_right, has=has)
 
 
-def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces, *,
-                    n_samples: int, max_intervals: int = 64):
+def noise_on(params, const) -> bool:
+    return bool(const.enable_noise and params.noise_bank is not None)
+
+
+def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces,
+                    noise_ix=None, *, n_samples: int, max_intervals: int = 64):
     """Digitize a batch of B windows straight from the device photon arena
     (arguments as :func:`window_photons`).
 
+    :param noise_ix: (B,) int32 host-drawn noise-bank offset per window
+        (required with noise on, ignored otherwise)
     :returns: dict of data (B, C, T) int16, left_all/right_all (B, C) int32,
         has (B, C) bool, starts/ends (B, C, K) int32 (relative to left_all),
         counts (B, C) int32
     """
-    if const.high_energy_deamp_int != 0 or const.enable_noise:
+    noisy = noise_on(params, const)
+    if const.high_energy_deamp_int != 0 or (
+            noisy and params.noise_bank.shape[0] > const.n_tpc_pmts):
         raise NotImplementedError(
-            'the full digitizer grid (HE copies, sum channel, noise) is not '
-            'ported; the port runs the slim-grid branch only')
+            'the full digitizer grid (HE copies, sum channel, a noise bank '
+            'wider than the TPC) is not ported; the port runs the slim-grid '
+            'branch only')
     B = int(pieces.shape[0])
     C = const.n_tpc_pmts
     T = n_samples
     K = max_intervals
     ph = window_photons(const, arena_t, arena_ch, arena_gain, pieces,
                         n_samples=T)
+    noise = {}
+    if noisy:
+        if noise_ix is None:
+            raise ValueError('noise is on: gather_digitize needs noise_ix')
+        noise = dict(noise_bank=params.noise_bank, n_channels=C,
+                     noise_ix=noise_ix.to(ph['t'].device, torch.int32))
     data = superpose_adc(ph['t'], ph['gain'], ph['row_ptr'], params.templates,
                          ph['ch_left'], ph['ch_right'], ph['has'],
                          current_2_adc=const.current_2_adc,
                          baseline=const.digitizer_reference_baseline,
-                         n_samples=T)
+                         n_samples=T, **noise)
     zthr = params.zle_thresholds[:C].repeat(B).contiguous()
     starts, ends, counts = zle_all_channels(
         data, zthr, ph['ch_left'], ph['ch_right'], ph['has'],

@@ -4,17 +4,28 @@ wfsim/core/rawdata.py:38-157).
 
 One pass over the instructions, ordered by signal arrival time:
 
-A) same-type batches (S1, S2) are simulated on the device with one
+A) same-type batches (S1, S2, and the electron-afterpulse kinds pi_el and
+   pe_el, which share the S2 chain) are simulated on the device with one
    ``torch.Generator`` per ``RawData`` (seeded from ``config['seed']``);
    their photons stay on the device as buffers and their truth rows come
-   back to the host;
+   back to the host.  With PMT afterpulses on, every batch also gets its
+   afterpulse photons as a buffer of their own (one pulse per truth row,
+   no truth row of their own).  With electron afterpulses on, each S2
+   batch's photon summaries seed secondary pi_el / pe_el instructions on
+   the host, which are simulated once after the primaries (one level of
+   feedback: secondaries spawn nothing);
 B) pulses are grouped into digitization windows with the reference's
    flush-on-gap rule (rawdata.py:96-98), and each group is sub-split at
    internal gaps that no ZLE interval can bridge (PARITY.md deviation 1);
+   with noise on, each window draws its noise-bank offset on the host;
 C) windows are bucketed by their power-of-two length ``T_cap`` and
    digitized in batches straight from the device photon arena
    (``gather_digitize`` -> ``pack_records``), and the records come back
    to the host as strax ``raw_records``.
+
+The host numpy generator (``self.rng``) is used in one fixed order:
+secondary-instruction synthesis during the simulation, then the windows'
+noise offsets, so a rerun with the same seed is identical.
 
 In eager PyTorch every photon count is known before its buffer is
 allocated, so wfsim_tpu's demand pre-pass (``s1_photon_demand`` /
@@ -38,11 +49,15 @@ import torch
 from ..config import finalize_config
 from ..diagnostics import Timers
 from ..dtypes import raw_record_dtype, DEFAULT_RECORD_LENGTH
+from ..models.afterpulse import (pmt_ap_draws, pmt_afterpulse_photons,
+                                 summary_draws, photon_summaries,
+                                 generate_pi_el_instructions,
+                                 generate_pe_el_instructions)
 from ..models.params import build_params, build_constants
 from ..models.s1 import simulate_s1
 from ..models.s2 import simulate_s2
 from ..resources.loader import load_config
-from .digitize import gather_digitize, pack_records
+from .digitize import gather_digitize, pack_records, noise_on
 
 log = logging.getLogger('wfsim_tpu_torch.core')
 
@@ -50,6 +65,10 @@ __all__ = ['RawData']
 
 #: digitize working-set budget on a CPU device (bytes)
 CPU_MEMORY_BUDGET = 2 * 10 ** 9
+
+#: instruction type -> simulation kind; pi_el and pe_el run the S2 chain
+KIND_OF_TYPE = {1: 's1', 2: 's2', 4: 'pi_el', 6: 'pe_el'}
+TYPE_OF_KIND = {k: t for t, k in KIND_OF_TYPE.items()}
 
 
 def _bucket(n, lo=256, hi=2 ** 26):
@@ -107,14 +126,13 @@ class RawData:
         MAX_BATCH_INST = 1024
         MAX_BATCH_AMP = {'s1': 3_000_000, 's2': 200_000}
         MAX_SPAN_NS = int(15e8)
-        kind_of = {1: 's1', 2: 's2'}
-        batches: ty.Dict[str, list] = {'s1': [], 's2': []}
+        batches: ty.Dict[str, list] = {k: [] for k in TYPE_OF_KIND}
         for i in order:
-            k = kind_of.get(int(instructions['type'][i]))
+            k = KIND_OF_TYPE.get(int(instructions['type'][i]))
             if k is None:
                 raise NotImplementedError(
                     f'instruction type {int(instructions["type"][i])}: the '
-                    f'port simulates S1 (1) and S2 (2) only')
+                    f'port simulates types {sorted(KIND_OF_TYPE)} only')
             batches[k].append(i)
         batch_list = []
         for kind, idxs in batches.items():
@@ -126,7 +144,8 @@ class RawData:
             cur, cur_amp, cur_t0 = [], 0.0, None
             for j, i in enumerate(idxs):
                 if cur and (len(cur) >= MAX_BATCH_INST
-                            or cur_amp + amps[j] > MAX_BATCH_AMP[kind]
+                            or cur_amp + amps[j] > MAX_BATCH_AMP[
+                                's1' if kind == 's1' else 's2']
                             or t0[j] - cur_t0 > MAX_SPAN_NS):
                     batch_list.append((kind, np.asarray(cur)))
                     cur, cur_amp, cur_t0 = [], 0.0, None
@@ -141,18 +160,27 @@ class RawData:
     def _truth_rows(self, instructions, idx, kind):
         """One truth row per instruction (save_full_truth), or S1s within
         100 ns / S2s within 2 mm of drift grouped (reference:
-        rawdata.py:110-123)."""
-        if self.config.get('save_full_truth', True):
+        rawdata.py:110-123); afterpulse kinds get one row per arrival
+        cluster, split at gaps over ``right_raw_extension`` (reference
+        rawdata.py:124-125, wfsim_tpu rawdata.py:427-437)."""
+        if kind in ('s1', 's2') and self.config.get('save_full_truth', True):
             return np.arange(len(idx), dtype=np.int64)
         arrival = self._arrival_times(instructions[idx])
-        gap = 100 if kind == 's1' else int(
-            0.2 / self.config['drift_velocity_liquid'])
+        if kind == 's1':
+            gap = 100
+        elif kind == 's2':
+            gap = int(0.2 / self.config['drift_velocity_liquid'])
+        else:
+            gap = int(self.config['right_raw_extension'])
         new_grp = np.concatenate([[True], np.diff(arrival) > gap])
         return (np.cumsum(new_grp) - 1).astype(np.int64)
 
-    def _simulate_batch(self, instructions, idx, kind, truth_sink):
-        """Simulate one batch on the device, register its photons as a
-        buffer and its pulses, and append its truth rows."""
+    def _simulate_batch(self, instructions, idx, kind, truth_sink,
+                        gen_sink=None):
+        """Simulate one batch on the device, register its photons (and its
+        PMT-afterpulse photons) as buffers and their pulses, append its
+        truth rows and, for an S2 batch with ``gen_sink``, the secondary
+        electron-afterpulse instructions it seeds."""
         dev = self.device
         sel = instructions[idx]
         base_time = int(np.min(sel['time']))
@@ -174,14 +202,56 @@ class RawData:
             req = req.cpu().numpy()
         self.diag.add('photons_' + kind, int(truth_h['photon_count'].sum()))
 
+        ap_h = None
+        if self.const.enable_pmt_afterpulses \
+                and self.params.pmt_ap_delay_cdf is not None:
+            with self.diag.phase('pmt_afterpulses'):
+                E = int(self.params.pmt_ap_delay_cdf.shape[0])
+                draws = pmt_ap_draws(self.gen, E, int(photons['t'].shape[0]),
+                                     dev)
+                ap_photons, ap_info = pmt_afterpulse_photons(
+                    self.params, self.const, photons, draws,
+                    n_truth_rows=n_rows)
+                ap_h = {k: ap_info[k].cpu().numpy()
+                        for k in ('counts', 't_min', 't_max')}
+            # these photons ride the digitizer but not the truth n_photon
+            self.diag.add('pmt_ap_photons', ap_info['total'])
+
+        # electron-afterpulse feedback: only true S2 pulses spawn it
+        # (reference: rawdata.py:193-201; wfsim_tpu rawdata.py:645-658)
+        if gen_sink is not None and kind == 's2' and (
+                self.const.enable_electron_afterpulses
+                or self.const.enable_gate_afterpulses):
+            with self.diag.phase('electron_afterpulses'):
+                counts, tz = photon_summaries(
+                    photons, summary_draws(self.gen, n_rows, dev),
+                    n_inst=n_rows)
+                counts = counts.cpu().numpy()[:len(idx)]
+                tz = tz.cpu().numpy()[:len(idx)]
+                if self.const.enable_electron_afterpulses \
+                        and self.resource.uniform_to_ele_ap is not None:
+                    gen_sink.append(generate_pi_el_instructions(
+                        self.config, self.resource, self.rng, counts, tz,
+                        sel, base_time))
+                if self.const.enable_gate_afterpulses:
+                    gen_sink.append(generate_pe_el_instructions(
+                        self.config, self.rng, counts, tz, sel, base_time))
+
         buf = len(self._buffers)
         self._buffers.append(photons)
         off = np.concatenate([[0], np.cumsum(req)]).astype(np.int64)
+        if ap_h is not None:
+            ap_buf = len(self._buffers)
+            self._buffers.append(ap_photons)
+            ap_off = np.concatenate([[0], np.cumsum(ap_h['counts'])]).astype(
+                np.int64)
         for r in range(n_rows):
             members = np.flatnonzero(truth_rows == r)
             n_primary = int(truth_h['photon_count'][r])
-            truth_sink.append(self._assemble_truth_row(
-                kind, truth_h, r, base_time, sel[members]))
+            row = self._assemble_truth_row(kind, truth_h, r, base_time,
+                                           sel[members])
+            if row is not None:
+                truth_sink.append(row)
             if n_primary > 0:
                 slot_lo = int(off[members[0]])
                 self._pulses.append(_Pulse(
@@ -190,12 +260,22 @@ class RawData:
                     t_min=int(truth_h['photon_t_min'][r]) + base_time,
                     t_max=int(truth_h['photon_t_max'][r]) + base_time,
                     base_time=base_time))
+            if ap_h is not None and int(ap_h['counts'][r]) > 0:
+                self._pulses.append(_Pulse(
+                    buf=ap_buf, buf_start=int(ap_off[r]),
+                    pool_count=int(ap_h['counts'][r]),
+                    t_min=int(ap_h['t_min'][r]) + base_time,
+                    t_max=int(ap_h['t_max'][r]) + base_time,
+                    base_time=base_time))
 
     def _assemble_truth_row(self, kind, truth_h, r, base_time, insts):
         """One truth dict (reference: rawdata.py:313-375; wfsim_tpu
-        rawdata.py:766-836)."""
+        rawdata.py:766-836); None for an afterpulse row without photons
+        (reference rawdata.py:334-337)."""
+        if truth_h['photon_count'][r] == 0 and kind not in ('s1', 's2'):
+            return None
         dt = self.const.sample_duration
-        row = {'type': {'s1': 1, 's2': 2}[kind]}
+        row = {'type': TYPE_OF_KIND[kind]}
         if truth_h['photon_count'][r] > 0:
             tmin = float(truth_h['photon_t_min'][r]) + base_time
             tmax = float(truth_h['photon_t_max'][r]) + base_time
@@ -266,15 +346,24 @@ class RawData:
         self.source_finished = True
 
     def simulate(self, instructions) -> ty.List[dict]:
-        """Simulate every instruction in arrival order; the photons stay on
-        the device as pending pulses.  Returns the truth rows."""
+        """Simulate every instruction in arrival order, then the secondary
+        electron-afterpulse instructions the S2s seeded; the photons stay
+        on the device as pending pulses.  Returns the truth rows."""
         self._buffers: ty.List[dict] = []
         self._pulses: ty.List[_Pulse] = []
         instructions = np.asarray(instructions)
         order = np.argsort(self._arrival_times(instructions), kind='stable')
         truth_rows: ty.List[dict] = []
+        gen_sink: ty.List[np.ndarray] = []
         for kind, idx in self._sim_batch_list(instructions, order):
-            self._simulate_batch(instructions, idx, kind, truth_rows)
+            self._simulate_batch(instructions, idx, kind, truth_rows,
+                                 gen_sink)
+        sec = [g for g in gen_sink if len(g)]
+        if sec:
+            sec = np.concatenate(sec)
+            order = np.argsort(self._arrival_times(sec), kind='stable')
+            for kind, idx in self._sim_batch_list(sec, order):
+                self._simulate_batch(sec, idx, kind, truth_rows)
         return truth_rows
 
     def _drain_truth(self, truth_buffer, truth_rows):
@@ -338,6 +427,10 @@ class RawData:
         return wins
 
     def _window(self, grp, flush, margin_l, margin_r):
+        """One window descriptor; with noise on, its noise-bank offset is
+        drawn here on the host, in window time order, with the window's
+        exact length (wfsim_tpu rawdata.py:1337-1359; PARITY.md deviation
+        3)."""
         dt = self.const.sample_duration
         win_left = min(p.t_min for p in grp) // dt - margin_l
         if win_left % 2 != 0:
@@ -346,8 +439,13 @@ class RawData:
         T = int(win_right - win_left + 1)
         if T >= 1_000_000:
             raise RuntimeError('Pulse cache too long')
+        nix = 0
+        if noise_on(self.params, self.const):
+            L = int(self.params.noise_bank.shape[1])
+            nix = int(self.rng.integers(0, max(L - T - 1, 1)))
         return dict(grp=grp, win_left=int(win_left), win_right=int(win_right),
-                    T_cap=_bucket(T, lo=512, hi=2 ** 20), flush=flush)
+                    T_cap=_bucket(T, lo=512, hi=2 ** 20), flush=flush,
+                    noise_ix=nix)
 
     def _memory_budget(self):
         """Bytes a digitize batch may use: half the free device memory on a
@@ -360,9 +458,10 @@ class RawData:
     def plan_digitize(self):
         """Windows of the pending pulses, the device photon arena and the
         digitize batches: ``(wins, arena, batches)`` with arena =
-        (t, ch, gain) tensors and each batch ``(window ids, T_cap, pieces)``
-        — windows bucketed by T_cap, at most 128 per batch, pieces
-        ``(B, P, 3)`` int64 ``[arena_lo, count, t_offset]``."""
+        (t, ch, gain) tensors and each batch ``(window ids, T_cap, pieces,
+        noise_ix)`` — windows bucketed by T_cap, at most 128 per batch,
+        pieces ``(B, P, 3)`` int64 ``[arena_lo, count, t_offset]``,
+        noise_ix ``(B,)`` int32 (zeros with noise off)."""
         c = self.const
         dt = c.sample_duration
         wins = self._windows()
@@ -375,8 +474,12 @@ class RawData:
             by_t.setdefault(w['T_cap'], []).append(i)
         budget = self._memory_budget()
         # the grid and its ZLE working set dominate: ~8 bytes per
-        # (row, sample) with the kernels, ~40 with the CPU twins
-        per_sample = 8 if self.device.type == 'cuda' else 40
+        # (row, sample) with the kernels, ~40 with the CPU twins (~64 with
+        # the twin's noise gather)
+        if self.device.type == 'cuda':
+            per_sample = 8
+        else:
+            per_sample = 64 if noise_on(self.params, c) else 40
         batches = []
         for T_cap, indices in sorted(by_t.items()):
             b_max = max(1, budget // (c.n_tpc_pmts * T_cap * per_sample))
@@ -391,7 +494,9 @@ class RawData:
                         pieces[bi, pi] = (base_of[p.buf] + p.buf_start,
                                           p.pool_count,
                                           p.base_time - win_base)
-                batches.append((batch, T_cap, pieces))
+                nix = np.asarray([wins[i]['noise_ix'] for i in batch],
+                                 np.int32)
+                batches.append((batch, T_cap, pieces, nix))
         return wins, arena, batches
 
     def _digitize(self):
@@ -405,10 +510,11 @@ class RawData:
         max_itv = int(self.config.get('zle_max_intervals', 64))
         parts = []
         with self.diag.phase('digitize_batches'):     # ends in host copies
-            for batch, T_cap, pieces in batches:
+            for batch, T_cap, pieces, nix in batches:
                 res = gather_digitize(
                     self.params, self.const, *arena,
                     torch.as_tensor(pieces, device=self.device),
+                    torch.as_tensor(nix, device=self.device),
                     n_samples=T_cap, max_intervals=max_itv)
                 rec_data, rec_meta = pack_records(
                     res['data'], res['left_all'], res['starts'], res['ends'],

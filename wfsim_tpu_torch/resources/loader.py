@@ -1,18 +1,22 @@
 """Resource resolution for the port: config -> in-memory detector assets.
 
-Counterpart of ``wfsim_tpu/resources/loader.py``, cut to the path that
-``default_config()`` reaches (``Resource`` construction with
-``['constant dummy', value, shape]`` map entries and the synthetic SPE
-table, wfsim_tpu/resources/loader.py:368-575).  Every map is a
-:class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 arrays; the
-device copy is made by ``models.params.build_params``.
+Counterpart of ``wfsim_tpu/resources/loader.py``, cut to the paths that
+``default_config()`` and its realistic switches reach (``Resource``
+construction with ``['constant dummy', value, shape]`` map entries, the
+synthetic SPE table and, when enabled, the synthetic PMT-afterpulse CDFs,
+electron-afterpulse PMF and noise bank; wfsim_tpu/resources/loader.py:
+368-575).  Every map is a :class:`~wfsim_tpu_torch.ops.interp.GridMap` of
+host float32 arrays; the device copy is made by
+``models.params.build_params``.
 
-Not ported yet (each raises ``NotImplementedError``): real map files
-(straxen InterpolatingMap JSON, npz, pickle), field-distortion maps,
-field-dependency maps, gas-gap maps, luminescence tables, optical
-propagation splines, afterpulse tables and the noise bank.
+Not ported yet (each raises ``NotImplementedError``): real map and table
+files (straxen InterpolatingMap JSON, npz, pickle; afterpulse and noise
+files named by a string entry), field-distortion maps, field-dependency
+maps, gas-gap maps, luminescence tables and optical propagation splines.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -71,9 +75,6 @@ _UNSUPPORTED = (
     ('field_distortion_model', lambda v: v not in (None, 'none'),
      'field distortion maps'),
     ('enable_gas_gap_warping', bool, 'gas-gap map'),
-    ('enable_pmt_afterpulses', bool, 'PMT afterpulse tables'),
-    ('enable_electron_afterpulses', bool, 'electron afterpulse tables'),
-    ('enable_noise', bool, 'noise bank'),
     ('photon_area_distribution', lambda v: isinstance(v, str),
      'measured SPE spectrum file'),
     ('s1_time_spline', bool, 'S1 optical propagation spline'),
@@ -119,3 +120,46 @@ class Resource:
 
         charge, pdfs = synth.synthetic_spe_distribution(n_pmts)
         self.uniform_to_pe = build_uniform_to_pe(charge, pdfs)
+
+        # afterpulse tables and noise bank (wfsim_tpu loader.py:511-535,
+        # 564-573): an in-memory entry or the synthetic asset
+        self.uniform_to_pmt_ap = None
+        if config.get('enable_pmt_afterpulses', False):
+            entry = _in_memory(config, 'photon_ap_cdfs')
+            self.uniform_to_pmt_ap = (entry if isinstance(entry, dict)
+                                      else synth.synthetic_pmt_ap_cdfs(n_pmts))
+        self.uniform_to_ele_ap = None
+        if config.get('enable_electron_afterpulses', False):
+            entry = _in_memory(config, 'ele_ap_pdfs')
+            self.uniform_to_ele_ap = (entry if entry is not None
+                                      else synth.synthetic_ele_ap_pmf())
+        self.noise_bank = None
+        if config.get('enable_noise', False):
+            _in_memory(config, 'noise_file')
+            self.noise_bank = synthetic_noise_bank(n_pmts)
+
+
+def _in_memory(config, key):
+    """A resource entry that is not a file name (None when absent)."""
+    entry = config.get(key)
+    if isinstance(entry, str) and entry:
+        raise NotImplementedError(
+            f'{key}={entry!r}: the port does not read resource files yet; '
+            f'leave it unset for the synthetic asset')
+    return entry
+
+
+@functools.lru_cache(maxsize=2)
+def synthetic_noise_bank(n_channels: int) -> np.ndarray:
+    """The synthetic noise bank channel-major, (Cn, L) int16, read-only.
+
+    It is the transpose of ``synthetic.synthetic_noise`` (L, Cn): one
+    channel's trace is contiguous, which is how the digitizer reads it.
+    Drawing it takes seconds at 494 channels, so the array is made once
+    per process and shared (hence read-only)."""
+    bank = synth.synthetic_noise(n_channels)
+    if bank.min() < -2 ** 15 or bank.max() >= 2 ** 15:
+        raise ValueError('noise bank values do not fit int16')
+    out = np.ascontiguousarray(bank.T.astype(np.int16))
+    out.setflags(write=False)
+    return out
