@@ -36,6 +36,22 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
 5b. cross-check: one realistic window batch, with its afterpulse pieces and
     noise offsets, on the card and by the CPU twins, records bitwise equal.
 
+Then the physics passes (S1, S2 and the PMT response) of the default
+configuration, on the bench workload's 512 S1 and 512 S2 instructions as
+one batch each, with their draws made on the card:
+
+3c. each physics kernel against its twin on the card, with median
+    CUDA-event times of both: the channel draw (~1.57 M S2 photons over 512
+    rows), the luminescence tables of 512 instructions (also held against
+    the twin run on a CPU copy), the S1 photon, S2 electron and S2 photon
+    time passes, the PMT photon pass and the row kernel (truth sums and
+    time statistics); outputs bitwise equal, the float64 raw-area sums
+    within rtol 1e-12;
+5c. cross-check: the S1 and the S2 batch through the kernels on the card
+    and, with the same draws copied to the CPU, through the CPU twins:
+    photons bitwise equal, truth exact for the integer-valued fields and
+    within rtol 1e-12 for the float sums.
+
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -50,9 +66,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
+#: the physics kernel entries (K5, K6, K8, K9), on both main paths
+PHYSICS_KERNELS = ('wfsim_channel_draw', 'wfsim_lumi_tables',
+                   'wfsim_s1_photon_times', 'wfsim_s2_electron_times',
+                   'wfsim_s2_photon_times', 'wfsim_pmt_photon_pass',
+                   'wfsim_pmt_row_truth')
 #: the kernel entries each main path must launch
 DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', 'wfsim_zle_intervals',
-                        'wfsim_pack_records')
+                        'wfsim_pack_records') + PHYSICS_KERNELS
 REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + (
     'wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit', 'wfsim_ap_photon_summaries')
 
@@ -119,8 +140,9 @@ def s2_like_photons(rng, n, n_ch, n_rows, dev):
 
 
 def max_diff(a, b):
-    """max |a - b| over matching outputs (float32 compared as values, -0.0
-    and +0.0 apart by their bits); raises on a shape mismatch."""
+    """max |a - b| over matching outputs (floats compared by their bits, so
+    -0.0 and +0.0 differ; a difference is reported as at least the
+    smallest positive value); raises on a shape mismatch."""
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f'{tuple(a.shape)} {a.dtype} vs '
@@ -131,7 +153,208 @@ def max_diff(a, b):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             return max(float((a - b).abs().max()), 1e-45)
         return 0.0
+    if a.dtype == torch.float64:
+        if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
+            return max(float((a - b).abs().max()), 1e-300)
+        return 0.0
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def physics_phases(sim):
+    """The simulate_* Timers phases (seconds) of a Simulator's last run."""
+    return {k: v for k, v in sim.sim.rawdata.diag.summary().items()
+            if k.startswith('simulate_')}
+
+
+def to_device(x, dev):
+    """A (nested) dict of tensors, or a tensor, on ``dev`` (None kept)."""
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    return None if x is None else x.to(dev)
+
+
+def compare(a, b, what, rtol_keys=()):
+    """Largest difference between two dicts (or tuples) of tensors: bitwise
+    (``max_diff``) for every entry, relative for ``rtol_keys``, where it
+    must stay within 1e-12.  Raises on a mismatch; returns the largest
+    absolute difference."""
+    import torch
+    if not isinstance(a, dict):
+        a, b = dict(enumerate(a)), dict(enumerate(b))
+    if a.keys() != b.keys():
+        raise AssertionError(f'{what}: keys {sorted(a)} vs {sorted(b)}')
+    worst = 0.0
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if k in rtol_keys:
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise AssertionError(f'{what} {k}: {x.shape} {x.dtype} vs '
+                                     f'{y.shape} {y.dtype}')
+            d = (x - y).abs()
+            rel = float((d / torch.clamp_min(y.abs(), 1e-300)).max()) \
+                if x.numel() else 0.0
+            if rel > 1e-12:
+                raise AssertionError(f'{what} {k}: relative difference {rel}')
+            worst = max(worst, float(d.max()) if x.numel() else 0.0)
+            continue
+        d = max_diff(x, y)
+        if d:
+            raise AssertionError(f'{what} {k}: max|diff| {d}')
+    return worst
+
+
+#: truth sums compared with rtol 1e-12 (float64 sums of float32 areas, and
+#: the moments derived from the float64 time sums); the rest are exact
+FLOAT_TRUTH = ('raw_area', 'raw_area_trigger', 'raw_area_bottom',
+               'raw_area_trigger_bottom', 'photon_t_mean_offset',
+               'photon_t_sigma', 'electron_t_mean_offset', 'electron_t_sigma',
+               't_mean_offset', 't_sigma')
+
+
+def physics_batches(cfg, inst, dev, seed):
+    """Every S1 and every S2 instruction of ``inst`` as one batch each (512
+    instructions, ~1.57 M S2 photons on the bench workload; the simulator
+    cuts its S2 batches at 1.5 s of span, so this one is a little larger
+    than its largest), with their draws made on the card from one
+    generator: ``{kind: (inst dict, n_rows, draws)}``."""
+    import torch
+    from wfsim_tpu_torch.models.s1 import s1_draws
+    from wfsim_tpu_torch.models.s2 import s2_draws
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    rd = RawData(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for kind, typ, draw in (('s1', 1, s1_draws), ('s2', 2, s2_draws)):
+        x, _base, _rows, n_rows = rd.batch_inputs(
+            inst, np.flatnonzero(inst['type'] == typ), kind)
+        out[kind] = (x, n_rows, draw(rd.params, rd.const, x, gen))
+    return rd.params, rd.const, out
+
+
+def phase_3c(params, const, batches, dev, smi):
+    """Each physics kernel against its twin on the card (see the module
+    docstring); returns {name: (max_abs_err, ms, plain_ms)}."""
+    import torch
+    from wfsim_tpu_torch.models import pmt
+    from wfsim_tpu_torch.models.s1 import (masked_pattern, row_edges_of,
+                                           s1_photon_times,
+                                           s1_photon_times_ref)
+    from wfsim_tpu_torch.models.s2 import (
+        get_s2_drift_time_params, luminescence_tables,
+        luminescence_tables_ref, s2_edges, s2_electron_times,
+        s2_electron_times_ref, s2_photon_times, s2_photon_times_ref)
+    from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
+    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    x1, _n1, d1 = batches['s1']
+    x2, n_rows, d2 = batches['s2']
+    n_inst = int(x2['x'].shape[0])
+    e_edges, e_ph_edges, ph_edges = s2_edges(d2)
+    n_ph = int(ph_edges[-1])
+    res = {}
+
+    def check(name, kernel, twin, rtol_keys=(), reps=20):
+        err = compare(kernel(), twin(), name, rtol_keys)
+        res[name] = (err, cuda_ms(kernel, reps=reps), cuda_ms(twin, reps=reps))
+        print(f'[kernels-p] {name}: max|diff| {err}, {res[name][1]:.4f} ms, '
+              f'plain twin {res[name][2]:.4f} ms ({smi})')
+
+    pattern = masked_pattern(params, params.s2_pattern,
+                             torch.stack([x2['x'], x2['y']], dim=1))
+    print(f'[kernels-p] S2 batch: {n_inst} instructions, '
+          f'{int(e_edges[-1])} electrons, {n_ph} photons; S1 batch: '
+          f'{int(x1["x"].shape[0])} instructions, {int(d1["n_hits"].sum())} '
+          f'photons')
+    check('channel_draw', lambda: (channel_draw(pattern, ph_edges,
+                                                d2['u_ch']),),
+          lambda: (channel_draw_ref(pattern, ph_edges, d2['u_ch']),))
+
+    inv = luminescence_tables(const, n_inst, dev)
+    inv_cpu = luminescence_tables_ref(const, n_inst, 'cpu')
+    compare((inv,), (inv_cpu,), 'lumi_tables against the CPU twin')
+    check('lumi_tables', lambda: (luminescence_tables(const, n_inst, dev),),
+          lambda: (luminescence_tables_ref(const, n_inst, dev),))
+
+    s1_args = (x1['time'], edges_from_counts(d1['n_hits']), x1['truth_row'],
+               d1['exp'], d1['normal'])
+    s1_kw = dict(decay_time=const.s1_decay_time,
+                 decay_spread=const.s1_decay_spread)
+    check('s1_photon_times', lambda: s1_photon_times(*s1_args, **s1_kw),
+          lambda: s1_photon_times_ref(*s1_args, **s1_kw))
+
+    mean, spread = get_s2_drift_time_params(const, x2['z'])
+    e_args = (x2['time'], e_edges, mean, spread, d2['e_exp'], d2['e_normal'],
+              x2['truth_row'])
+    e_kw = dict(trapping=const.electron_trapping_time)
+    check('s2_electron_times', lambda: s2_electron_times(*e_args, **e_kw),
+          lambda: s2_electron_times_ref(*e_args, **e_kw))
+    e_t, _e_inst, e_row = s2_electron_times(*e_args, **e_kw)
+
+    p_args = (inv, e_edges, e_ph_edges, e_t, x2['truth_row'], d2['u_lum'],
+              d2['u_st'], d2['exp_st'], d2['t_spread'])
+    p_kw = dict(singlet_fraction=const.singlet_fraction_gas,
+                t_singlet=const.singlet_lifetime_gas,
+                t_triplet=const.triplet_lifetime_gas,
+                time_spread=const.s2_time_spread)
+    check('s2_photon_times', lambda: s2_photon_times(*p_args, **p_kw),
+          lambda: s2_photon_times_ref(*p_args, **p_kw))
+    t, _ph_inst, truth_row = s2_photon_times(*p_args, **p_kw)
+
+    ch = channel_draw(pattern, ph_edges, d2['u_ch'])
+    pp_args = (params, const, t, ch, ch >= 0, truth_row, d2['pmt'])
+    check('pmt_photon_pass', lambda: pmt._photon_pass(*pp_args),
+          lambda: pmt.photon_pass_ref(*pp_args))
+    ph = pmt._photon_pass(*pp_args)
+    row_edges = row_edges_of(x2['truth_row'], ph_edges, n_rows)
+
+    def row_ref():
+        out = pmt.pulse_truth_ref(params, const, ph, row_edges)
+        out.update(pmt.photon_time_stats_ref(ph['t'], ph['valid'], truth_row,
+                                             n_rows, row_edges))
+        return out
+    check('pmt_row_truth',
+          lambda: pmt._row_truth(params, const, ph['t'], ph['valid'],
+                                 row_edges, ph=ph), row_ref, FLOAT_TRUTH)
+    e_row_edges = row_edges_of(x2['truth_row'], e_edges, n_rows)
+    err = compare(pmt._row_truth(None, None, e_t, None, e_row_edges),
+                  pmt.photon_time_stats_ref(e_t, None, e_row, n_rows,
+                                            e_row_edges),
+                  'pmt_row_truth (electron times)', FLOAT_TRUTH)
+    res['pmt_row_truth'] = (max(err, res['pmt_row_truth'][0]),
+                            *res['pmt_row_truth'][1:])
+    print(f'[kernels-p] pmt_row_truth on the electron times: '
+          f'max|diff| {err}')
+    return res
+
+
+def phase_5c(params_d, const, batches, smi):
+    """The S1 and S2 batches through the kernels on the card and, from the
+    same draws, through the twins on the CPU (see the module docstring)."""
+    import torch
+    from wfsim_tpu_torch.models.params import build_params
+    from wfsim_tpu_torch.models.s1 import s1_photon_pass
+    from wfsim_tpu_torch.models.s2 import s2_photon_pass
+    from wfsim_tpu_torch.resources import load_config
+    from wfsim_tpu_torch.config import default_config
+    cfg = default_config(seed=1234, chunk_size=100)
+    params_c = build_params(cfg, load_config(cfg), 'cpu')
+    cpu = torch.device('cpu')
+    for kind, fn in (('s1', s1_photon_pass), ('s2', s2_photon_pass)):
+        x, n_rows, draws = batches[kind]
+        t0 = time.perf_counter()
+        ph_d, tr_d, req_d = fn(params_d, const, x, draws, n_truth_rows=n_rows)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ph_c, tr_c, req_c = fn(params_c, const, to_device(x, cpu),
+                               to_device(draws, cpu), n_truth_rows=n_rows)
+        t_cpu = time.perf_counter() - t0
+        compare(ph_d, ph_c, f'{kind} photons card vs CPU')
+        compare((req_d,), (req_c,), f'{kind} photon counts card vs CPU')
+        err = compare(tr_d, tr_c, f'{kind} truth card vs CPU', FLOAT_TRUTH)
+        print(f'[cross-p] {kind}: photons {int(ph_d["t"].shape[0])} rows '
+              f'{n_rows}: photons bitwise equal, truth max|diff| {err} '
+              f'(card {t_card:.3f} s, CPU twins {t_cpu:.3f} s; {smi})')
 
 
 def main():
@@ -277,6 +500,7 @@ def main():
           f'{len(rr)} photons {n_photons} peak_mem '
           f'{peak / 2 ** 20:.1f} MiB ({smi})')
     print(f'[main] phases {sim.sim.rawdata.diag.summary()}')
+    print(f'[main] physics phases {physics_phases(sim)}')
 
     # ---- 5. one window batch: card against the CPU twins -------------------
     rd = RawData(cfg, device=dev)
@@ -414,6 +638,7 @@ def main():
           f'records {len(rr)} photons {n_photons} peak_mem '
           f'{peak_r / 2 ** 20:.1f} MiB ({smi})')
     print(f'[realistic] phases {diag}')
+    print(f'[realistic] physics phases {physics_phases(sim)}')
 
     # ---- 5b. one realistic window batch: card against the CPU twins -------
     rd = RawData(cfg_r, device=dev)
@@ -449,7 +674,24 @@ def main():
                              'the CPU twins (or the batch has no '
                              'afterpulse pieces)')
 
+    # ---- 3c / 5c. the physics kernels and passes ---------------------------
+    params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
+    ptimes = phase_3c(params_p, const_p, batches, dev, smi)
+    phase_5c(params_p, const_p, batches, smi)
+
     src = 'wfsim_tpu_torch/csrc/'
+    physics_rows = [
+        ('channel_draw', 'channel_draw.cu',
+         'wfsim_tpu/ops/randsample.py:120; wfsim_tpu/ops/randsample.py:99'),
+        ('lumi_tables', 'luminescence.cu',
+         'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141'),
+        ('s1_photon_times', 'photon_times.cu', 'wfsim_tpu/models/s1.py:143'),
+        ('s2_electron_times', 'photon_times.cu',
+         'wfsim_tpu/models/s2.py:381'),
+        ('s2_photon_times', 'photon_times.cu', 'wfsim_tpu/models/s2.py:441'),
+        ('pmt_photon_pass', 'pmt_response.cu', 'wfsim_tpu/models/pmt.py:19'),
+        ('pmt_row_truth', 'pmt_response.cu',
+         'wfsim_tpu/models/pmt.py:89; wfsim_tpu/models/pmt.py:171')]
     rows = [
         dict(name='superpose_adc', route='cuda', source=src + 'superpose_adc.cu',
              replaces='wfsim_tpu/ops/waveform.py:68; '
@@ -478,7 +720,10 @@ def main():
              launches=launches_r['wfsim_ap_photon_summaries'],
              max_abs_err=err5, ms=times['ap_photon_summaries'][0],
              plain_ms=times['ap_photon_summaries'][1]),
-    ]
+    ] + [dict(name=name, route='cuda', source=src + cu, replaces=rep,
+              launches=launches['wfsim_' + name], max_abs_err=ptimes[name][0],
+              ms=ptimes[name][1], plain_ms=ptimes[name][2])
+         for name, cu, rep in physics_rows]
     print(smi)
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

@@ -209,3 +209,174 @@ def test_photon_summaries_kernel_matches_twin(dev):
     b = ap.photon_summaries_ref(ph, u, n_inst=10)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the physics kernels: channel draw, luminescence tables, time passes, PMT
+# response (the float64 raw-area sums and the moments within rtol 1e-12, the
+# rest bitwise)
+
+
+def _same(a, b, rtol_keys=()):
+    if not isinstance(a, dict):
+        a, b = dict(enumerate(a)), dict(enumerate(b))
+    assert a.keys() == b.keys()
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        if k in rtol_keys:
+            torch.testing.assert_close(x, y, rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(x, y), k
+
+
+FLOAT_TRUTH = ('raw_area', 'raw_area_trigger', 'raw_area_bottom',
+               'raw_area_trigger_bottom', 't_mean_offset', 't_sigma',
+               'photon_t_mean_offset', 'photon_t_sigma',
+               'electron_t_mean_offset', 'electron_t_sigma')
+
+
+def test_channel_draw_matches_twins(dev):
+    from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
+    rng = np.random.default_rng(21)
+    I, C = 37, 494
+    pat = (rng.random((I, C)) * (rng.random((I, C)) > 0.2)).astype(np.float32)
+    pat[5] = 0.0                                   # a row without mass
+    pat[:, 17] = 0.0                               # a channel never drawn
+    counts = rng.integers(0, 3000, I)
+    counts[3] = 0
+    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
+    u = torch.as_tensor(rng.random(int(counts.sum())).astype(np.float32))
+    args = [torch.as_tensor(pat), edges, u]
+    cpu = channel_draw(*args)
+    k = _build.KERNELS['wfsim_channel_draw']
+    before = k.launches
+    card = channel_draw(*[a.to(dev) for a in args])
+    assert k.launches == before + 1
+    assert torch.equal(card.cpu(), cpu)
+    assert torch.equal(card, channel_draw_ref(*[a.to(dev) for a in args]))
+
+
+def test_lumi_tables_match_twins(setup, dev):
+    from wfsim_tpu_torch.models.s2 import (luminescence_tables,
+                                           luminescence_tables_ref)
+    _c, _params, const = setup
+    card = luminescence_tables(const, 9, dev)
+    assert torch.equal(card.cpu(), luminescence_tables_ref(const, 9, 'cpu'))
+    assert torch.equal(card, luminescence_tables_ref(const, 9, dev))
+
+
+def test_time_passes_match_twins(setup, dev):
+    from wfsim_tpu_torch.models import s1, s2
+    _c, _params, const = setup
+    rng = np.random.default_rng(22)
+    I = 23
+    n_e = rng.integers(0, 400, I)
+    n_ph = rng.integers(0, 30, int(n_e.sum()))
+    e_edges = np.concatenate([[0], np.cumsum(n_e)])
+    e_ph_edges = np.concatenate([[0], np.cumsum(n_ph)])
+    E, N = int(e_edges[-1]), int(e_ph_edges[-1])
+
+    def f(n):
+        return rng.random(n).astype(np.float32)
+
+    time_ = rng.integers(0, 10 ** 8, I).astype(np.int32)
+    row = np.sort(rng.integers(0, 9, I)).astype(np.int64)
+    kw1 = dict(decay_time=const.s1_decay_time,
+               decay_spread=const.s1_decay_spread)
+    a1 = [time_, e_edges, row, f(E), rng.normal(size=E).astype(np.float32)]
+    kwe = dict(trapping=const.electron_trapping_time)
+    ae = [time_, e_edges, rng.uniform(0, 2e5, I).astype(np.float32),
+          rng.uniform(0, 300, I).astype(np.float32), f(E),
+          rng.normal(size=E).astype(np.float32), row]
+    for fn, ref, args, kw in ((s1.s1_photon_times, s1.s1_photon_times_ref,
+                               a1, kw1),
+                              (s2.s2_electron_times,
+                               s2.s2_electron_times_ref, ae, kwe)):
+        cpu = [torch.as_tensor(a) for a in args]
+        card = [a.to(dev) for a in cpu]
+        _same(fn(*card, **kw), fn(*cpu, **kw))
+        _same(fn(*card, **kw), ref(*card, **kw))
+    e_t = s2.s2_electron_times(*[torch.as_tensor(a) for a in ae], **kwe)[0]
+    inv = s2.luminescence_tables(const, I, 'cpu')
+    u = f(N)
+    u[:3] = np.nextafter(np.float32(1), np.float32(0))  # u*(Q-1) -> Q-1
+    ap = [inv, torch.as_tensor(e_edges), torch.as_tensor(e_ph_edges), e_t,
+          torch.as_tensor(row), torch.as_tensor(u), torch.as_tensor(f(N)),
+          torch.as_tensor(f(N) * 300),
+          torch.as_tensor(rng.normal(size=N).astype(np.float32))]
+    kwp = dict(singlet_fraction=const.singlet_fraction_gas,
+               t_singlet=const.singlet_lifetime_gas,
+               t_triplet=const.triplet_lifetime_gas, time_spread=25.0)
+    card = [a.to(dev) for a in ap]
+    _same(s2.s2_photon_times(*card, **kwp), s2.s2_photon_times(*ap, **kwp))
+    _same(s2.s2_photon_times(*card, **kwp),
+          s2.s2_photon_times_ref(*card, **kwp))
+    card[-1] = None                                 # zero_delay: no spread
+    ap[-1] = None
+    _same(s2.s2_photon_times(*card, **kwp), s2.s2_photon_times(*ap, **kwp))
+
+
+def test_pmt_kernels_match_twins(setup, dev):
+    from wfsim_tpu_torch.models import pmt
+    c, params, const = setup
+    params_cpu = build_params(c, load_config(c), 'cpu')
+    rng = np.random.default_rng(23)
+    n, rows = 60_000, 11
+    counts = rng.multinomial(n, np.ones(rows) / rows)
+    counts[4] = 0                                   # an empty row
+    n = int(counts.sum())
+    ch = rng.integers(-1, 494, n).astype(np.int32)
+    args = dict(t=rng.integers(-50, 3_000_000, n).astype(np.int32), ch=ch,
+                valid=ch >= 0, truth_row=np.repeat(np.arange(rows), counts))
+    gen = torch.Generator().manual_seed(23)
+    draws = pmt.pmt_draws(gen, n, 'cpu')
+    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
+    cpu = {k: torch.as_tensor(v) for k, v in args.items()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    kw = dict(n_truth_rows=rows)
+    ph_c, tr_c = pmt.pmt_response(params_cpu, const, *cpu.values(), draws,
+                                  row_edges=edges, **kw)
+    ph_d, tr_d = pmt.pmt_response(params, const, *card.values(),
+                                  {k: v.to(dev) for k, v in draws.items()},
+                                  row_edges=edges.to(dev), **kw)
+    _same(ph_d, ph_c)
+    _same(tr_d, tr_c, FLOAT_TRUTH)
+    assert int(tr_d['photon_t_min'][4]) == 2 ** 31 - 1
+    st_c = pmt.photon_time_stats(ph_c['t'], None, cpu['truth_row'], rows,
+                                 edges)
+    st_d = pmt.photon_time_stats(ph_d['t'], None, card['truth_row'], rows,
+                                 edges.to(dev))
+    _same(st_d, st_c, FLOAT_TRUTH)
+
+
+@pytest.mark.parametrize('kind', ['s1', 's2'])
+def test_photon_pass_card_matches_cpu(setup, dev, kind):
+    """One S1 or S2 batch of the bench workload (32 events): draws made on
+    the card, the pass through the kernels on the card and through the
+    twins on the CPU."""
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    c, params, const = setup
+    rd = RawData(c, device=dev)
+    inst = bench_instructions(32, 2000, 300)
+    idx = np.flatnonzero(inst['type'] == (1 if kind == 's1' else 2))
+    x, _base, _rows, n_rows = rd.batch_inputs(inst, idx, kind)
+    draw, fn = ((s1.s1_draws, s1.s1_photon_pass) if kind == 's1'
+                else (s2.s2_draws, s2.s2_photon_pass))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    d = draw(params, const, x, gen)
+
+    def cpu(v):
+        if isinstance(v, dict):
+            return {k: cpu(w) for k, w in v.items()}
+        return None if v is None else v.cpu()
+
+    ph_d, tr_d, req_d = fn(params, const, x, d, n_truth_rows=n_rows)
+    ph_c, tr_c, req_c = fn(build_params(c, load_config(c), 'cpu'), const,
+                           cpu(x), cpu(d), n_truth_rows=n_rows)
+    _same(ph_d, ph_c)
+    _same(tr_d, tr_c, FLOAT_TRUTH)
+    assert torch.equal(req_d.cpu(), req_c)

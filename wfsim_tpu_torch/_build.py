@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels of ``wfsim_tpu_torch/csrc``.
 
-The sources have a plain C interface.  ``nvcc`` compiles all of them into
-one shared library, ``build/wfsim_tpu_torch/libkernels.so`` under the
-repository root, at first use; the library is rebuilt whenever the
-sha256 of the sources and flags changes.  ``ctypes`` binds each entry
+The sources have a plain C interface.  At first use one ``nvcc -c`` per
+source runs, all started together, and their objects are linked into one
+shared library, ``build/wfsim_tpu_torch/libkernels.so`` under the
+repository root; the library is rebuilt whenever the sha256 of the
+sources and flags changes.  ``ctypes`` binds each entry
 point: pointers travel as ``c_void_p`` from ``tensor.data_ptr()``, the
 stream is ``torch.cuda.current_stream().cuda_stream``, and every entry
 point returns ``cudaGetLastError()`` right after its launch.
@@ -22,15 +23,18 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ['Kernel', 'KERNELS', 'build', 'load_library', 'LIB_PATH']
+__all__ = ['Kernel', 'KERNELS', 'build', 'load_library', 'LIB_PATH',
+           'check_tensor']
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'wfsim_tpu_torch'
 LIB_PATH = BUILD_DIR / 'libkernels.so'
 _HASH_PATH = BUILD_DIR / 'libkernels.sha256'
+#: compile flags of every source; never --use_fast_math: the kernels
+#: reproduce their twins' float rounding bit for bit
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-Xcompiler', '-fPIC')
 
 #: every Kernel by its C symbol; chip_smoke.py reads the launch counts here
 KERNELS: dict = {}
@@ -69,21 +73,41 @@ def build(force: bool = False, ptxas_verbose: bool = False) -> dict:
             and _HASH_PATH.read_text().strip() == digest):
         return dict(path=str(LIB_PATH), built=False, seconds=0.0, log='')
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f'libkernels.{os.getpid()}.so'
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if ptxas_verbose:
-        cmd += ['-Xptxas', '-v']
-    cmd += ['-o', str(tmp), *[str(s) for s in _sources()]]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f'{src.stem}.{tag}.o'
+        cmd = [nvcc, *NVCC_FLAGS, *(['-Xptxas', '-v'] if ptxas_verbose else []),
+               '-c', '-o', str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f'{src.name} ({proc.returncode}):\n{out}')
+    objs = [obj for _src, obj, _proc in jobs]
+    try:
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        tmp = BUILD_DIR / f'libkernels.{tag}.so'
+        link = subprocess.run([nvcc, '-shared', '-o', str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({link.returncode}):\n'
+                               f'{link.stdout}\n{link.stderr}')
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stdout}\n{proc.stderr}')
     os.replace(tmp, LIB_PATH)
     _HASH_PATH.write_text(digest + '\n')
     return dict(path=str(LIB_PATH), built=True, seconds=seconds,
-                log=proc.stdout + proc.stderr)
+                log=''.join(logs) + link.stdout + link.stderr)
 
 
 @functools.lru_cache(maxsize=1)
@@ -124,6 +148,19 @@ class Kernel:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+
+
+def check_tensor(name, x, dtype, shape, device):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what a kernel's pointer argument takes)."""
+    if x.dtype != dtype:
+        raise TypeError(f'{name}: dtype {x.dtype}, expected {dtype}')
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f'{name}: shape {tuple(x.shape)}, expected {shape}')
+    if x.device != device:
+        raise ValueError(f'{name}: on {x.device}, expected {device}')
+    if not x.is_contiguous():
+        raise ValueError(f'{name}: not contiguous')
 
 
 def ptr(t) -> int:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import Kernel, P, I, F, ptr, stream_of
+from .._build import Kernel, P, I, F, ptr, stream_of, check_tensor as _check
 
 __all__ = ['make_templates', 'photons_to_waveform_ref', 'noise_overlay_ref',
            'superpose_adc', 'superpose_adc_ref']
@@ -130,17 +130,6 @@ def superpose_adc_ref(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
 
 _kernel = Kernel('wfsim_superpose_adc',
                  [P, P, P, I, I, P, I, I, P, P, P, F, I, P, I, I, P, I, P, P])
-
-
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype:
-        raise TypeError(f'{name}: dtype {x.dtype}, expected {dtype}')
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f'{name}: shape {tuple(x.shape)}, expected {shape}')
-    if x.device != device:
-        raise ValueError(f'{name}: on {x.device}, expected {device}')
-    if not x.is_contiguous():
-        raise ValueError(f'{name}: not contiguous')
 
 
 def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,

@@ -175,17 +175,15 @@ class RawData:
         new_grp = np.concatenate([[True], np.diff(arrival) > gap])
         return (np.cumsum(new_grp) - 1).astype(np.int64)
 
-    def _simulate_batch(self, instructions, idx, kind, truth_sink,
-                        gen_sink=None):
-        """Simulate one batch on the device, register its photons (and its
-        PMT-afterpulse photons) as buffers and their pulses, append its
-        truth rows and, for an S2 batch with ``gen_sink``, the secondary
-        electron-afterpulse instructions it seeds."""
+    def batch_inputs(self, instructions, idx, kind):
+        """The device inputs of one batch: ``(inst, base_time, truth_rows,
+        n_rows)`` with ``inst`` the dict of (I,) tensors the physics takes
+        (times relative to ``base_time``) and ``truth_rows`` the host truth
+        row of each instruction."""
         dev = self.device
         sel = instructions[idx]
         base_time = int(np.min(sel['time']))
         truth_rows = self._truth_rows(instructions, idx, kind)
-        n_rows = int(truth_rows.max()) + 1
         inst = dict(
             time=torch.as_tensor((sel['time'] - base_time).astype(np.int32),
                                  device=dev),
@@ -194,6 +192,18 @@ class RawData:
             z=torch.as_tensor(sel['z'].astype(np.float32), device=dev),
             amp=torch.as_tensor(sel['amp'].astype(np.int32), device=dev),
             truth_row=torch.as_tensor(truth_rows, device=dev))
+        return inst, base_time, truth_rows, int(truth_rows.max()) + 1
+
+    def _simulate_batch(self, instructions, idx, kind, truth_sink,
+                        gen_sink=None):
+        """Simulate one batch on the device, register its photons (and its
+        PMT-afterpulse photons) as buffers and their pulses, append its
+        truth rows and, for an S2 batch with ``gen_sink``, the secondary
+        electron-afterpulse instructions it seeds."""
+        dev = self.device
+        sel = instructions[idx]
+        inst, base_time, truth_rows, n_rows = self.batch_inputs(
+            instructions, idx, kind)
         sim = simulate_s1 if kind == 's1' else simulate_s2
         with self.diag.phase('simulate_' + kind):
             photons, truth, req = sim(self.params, self.const, inst, self.gen,
