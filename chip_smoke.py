@@ -52,13 +52,46 @@ one batch each, with their draws made on the card:
     photons bitwise equal, truth exact for the integer-valued fields and
     within rtol 1e-12 for the float sums.
 
+Then the ``detector_physics`` configuration (NEST S1 timing, garfield
+gas-gap luminescence, transverse diffusion 5e-8 cm^2/ns, AFT smearing,
+inverse FDC with a constant dummy map, an S2 pattern map written from a
+seed into a temporary directory in straxen's regular-grid JSON layout) on
+the bench workload with ``local_field`` = 82 V/cm and ``e_dep`` = amp x
+13.7 eV on every instruction:
+
+3d. each new kernel against its twin on the card, with median CUDA-event
+    times of both: the map lookup (1,024 points, on the 3-d FDC map with
+    one output and on the 30 x 30 x 494 file pattern map), the diffused
+    pattern of the 512-instruction S2 batch (~90 k electrons), the gas-gap
+    luminescence times (~1.5 M photons) and the NEST delays (~7 k S1
+    photons); max |diff| must be 0;
+4d. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
+    **detector_physics_overrides(map)), device='cuda').get_arrays(inst)``,
+    warm-up then timed with the launch counts reset just before; every new
+    entry point launched; one-off host costs (NEST table build, map read);
+5d. cross-check: that workload's S1 and S2 batches through the kernels on
+    the card and, from the same draws, through the twins on the CPU:
+    photons bitwise equal, truth exact or within rtol 1e-12.
+
+Every kernel row of the JSON table carries its bound: the least time the
+card could take for the same work, the larger of the bytes its wrapper
+must move (each input read once, each output written once, counted from
+this run's tensors) over 3.35 TB/s and its arithmetic (counted from the
+code on this run's sizes) over 67 TFLOP/s float32 plus 34 TFLOP/s
+float64 (H100 SXM data sheet, non-tensor rates); and, where one PyTorch
+call computes the same function, that call's time (``library_ms``: the
+channel draw against ``torch.searchsorted`` over the CDF rows, the map
+lookup against ``grid_sample``).
+
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -73,9 +106,47 @@ PHYSICS_KERNELS = ('wfsim_channel_draw', 'wfsim_lumi_tables',
                    'wfsim_pmt_row_truth')
 #: the kernel entries each main path must launch
 DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', 'wfsim_zle_intervals',
-                        'wfsim_pack_records') + PHYSICS_KERNELS
+                        'wfsim_pack_records', 'wfsim_grid_lookup'
+                        ) + PHYSICS_KERNELS
 REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + (
     'wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit', 'wfsim_ap_photon_summaries')
+#: the detector_physics path: the gas-gap sampler replaces the simple
+#: luminescence tables
+DETECTOR_PATH_KERNELS = tuple(
+    k for k in DEFAULT_PATH_KERNELS if k != 'wfsim_lumi_tables') + (
+    'wfsim_pattern_diffuse', 'wfsim_lumi_gasgap_times', 'wfsim_nest_delays')
+
+#: H100 SXM peaks (NVIDIA data sheet; at the 700 W limit): HBM3 bytes/s,
+#: float32 and float64 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+
+
+def nbytes(*xs):
+    """Bytes of the tensors in ``xs`` (nested dicts, tuples and GridMaps
+    walked; None and non-tensors count 0)."""
+    import torch
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif hasattr(x, 'values') and hasattr(x, 'lows'):
+            total += nbytes(x.values, x.lows, x.highs)
+    return total
+
+
+def bound(n_bytes, ops32=0, ops64=0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rates."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = ops32 / PEAK_F32 + ops64 / PEAK_F64
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
 
 
 def sh(cmd):
@@ -232,9 +303,50 @@ def physics_batches(cfg, inst, dev, seed):
     return rd.params, rd.const, out
 
 
+def make_check(res, tag, smi):
+    """A function that holds a kernel against its twin, times both and
+    stores ``res[name] = dict(err, ms, plain_ms, bytes, ops32, ops64,
+    library_ms)``; ``inputs`` are the tensors the kernel reads (its outputs
+    are added to the byte count), ``library`` one PyTorch call computing
+    the same function, timed beside it."""
+    def check(name, kernel, twin, inputs, ops32, ops64=0, rtol_keys=(),
+              reps=20, library=None):
+        out = kernel()
+        err = compare(out, twin(), name, rtol_keys)
+        res[name] = dict(err=err, ms=cuda_ms(kernel, reps=reps),
+                         plain_ms=cuda_ms(twin, reps=reps),
+                         bytes=nbytes(inputs, out), ops32=ops32, ops64=ops64,
+                         library_ms=(None if library is None
+                                     else cuda_ms(library, reps=reps)))
+        r = res[name]
+        lib = ('' if library is None
+               else f', library call {r["library_ms"]:.4f} ms')
+        print(f'[{tag}] {name}: max|diff| {err}, {r["ms"]:.4f} ms, plain '
+              f'twin {r["plain_ms"]:.4f} ms{lib}, bound '
+              f'{bound(r["bytes"], ops32, ops64)[0]:.4f} ms ({smi})')
+    return check
+
+
+def searchsorted_library(pattern, ph_edges, u):
+    """One ``torch.searchsorted`` over the CDF rows, the photons' targets
+    padded per row: the library form of the channel draw."""
+    import torch
+    from wfsim_tpu_torch.ops.randsample import cumsum_f64
+    cdf = cumsum_f64(pattern, 1)
+    counts = (ph_edges[1:] - ph_edges[:-1]).cpu().numpy()
+    width = max(int(counts.max()), 1)
+    pos = torch.as_tensor(np.arange(int(counts.sum())) - np.repeat(
+        ph_edges[:-1].cpu().numpy(), counts), device=u.device)
+    rows = torch.as_tensor(np.repeat(np.arange(len(counts)), counts),
+                           device=u.device)
+    targets = torch.zeros((len(counts), width), device=u.device)
+    targets[rows, pos] = u * cdf[rows, -1]
+    return lambda: torch.searchsorted(cdf, targets, right=True)
+
+
 def phase_3c(params, const, batches, dev, smi):
     """Each physics kernel against its twin on the card (see the module
-    docstring); returns {name: (max_abs_err, ms, plain_ms)}."""
+    docstring); returns {name: measurements} (see make_check)."""
     import torch
     from wfsim_tpu_torch.models import pmt
     from wfsim_tpu_torch.models.s1 import (masked_pattern, row_edges_of,
@@ -243,7 +355,7 @@ def phase_3c(params, const, batches, dev, smi):
     from wfsim_tpu_torch.models.s2 import (
         get_s2_drift_time_params, luminescence_tables,
         luminescence_tables_ref, s2_edges, s2_electron_times,
-        s2_electron_times_ref, s2_photon_times, s2_photon_times_ref)
+        s2_electron_times_ref, s2_photon_times, s2_photon_times_ref, Q)
     from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
     from wfsim_tpu_torch.ops.segment import edges_from_counts
     x1, _n1, d1 = batches['s1']
@@ -251,43 +363,49 @@ def phase_3c(params, const, batches, dev, smi):
     n_inst = int(x2['x'].shape[0])
     e_edges, e_ph_edges, ph_edges = s2_edges(d2)
     n_ph = int(ph_edges[-1])
+    n_e = int(e_edges[-1])
+    n_s1 = int(d1['n_hits'].sum())
+    C = int(params.gains.shape[0])
     res = {}
-
-    def check(name, kernel, twin, rtol_keys=(), reps=20):
-        err = compare(kernel(), twin(), name, rtol_keys)
-        res[name] = (err, cuda_ms(kernel, reps=reps), cuda_ms(twin, reps=reps))
-        print(f'[kernels-p] {name}: max|diff| {err}, {res[name][1]:.4f} ms, '
-              f'plain twin {res[name][2]:.4f} ms ({smi})')
+    check = make_check(res, 'kernels-p', smi)
 
     pattern = masked_pattern(params, params.s2_pattern,
                              torch.stack([x2['x'], x2['y']], dim=1))
     print(f'[kernels-p] S2 batch: {n_inst} instructions, '
-          f'{int(e_edges[-1])} electrons, {n_ph} photons; S1 batch: '
-          f'{int(x1["x"].shape[0])} instructions, {int(d1["n_hits"].sum())} '
-          f'photons')
+          f'{n_e} electrons, {n_ph} photons; S1 batch: '
+          f'{int(x1["x"].shape[0])} instructions, {n_s1} photons')
     check('channel_draw', lambda: (channel_draw(pattern, ph_edges,
                                                 d2['u_ch']),),
-          lambda: (channel_draw_ref(pattern, ph_edges, d2['u_ch']),))
+          lambda: (channel_draw_ref(pattern, ph_edges, d2['u_ch']),),
+          (pattern, ph_edges, d2['u_ch']),
+          ops32=n_ph * (int(np.log2(C)) + 2), ops64=n_inst * C,
+          library=searchsorted_library(pattern, ph_edges, d2['u_ch']))
 
     inv = luminescence_tables(const, n_inst, dev)
     inv_cpu = luminescence_tables_ref(const, n_inst, 'cpu')
     compare((inv,), (inv_cpu,), 'lumi_tables against the CPU twin')
+    R = int(round((const.gate_to_anode_distance - const.anode_wire_radius)
+                  / 1e-4))
     check('lumi_tables', lambda: (luminescence_tables(const, n_inst, dev),),
-          lambda: (luminescence_tables_ref(const, n_inst, dev),))
+          lambda: (luminescence_tables_ref(const, n_inst, dev),), (),
+          ops32=n_inst * (R * 8 + Q * (int(np.log2(R)) + 6)),
+          ops64=n_inst * R * 4)
 
     s1_args = (x1['time'], edges_from_counts(d1['n_hits']), x1['truth_row'],
                d1['exp'], d1['normal'])
     s1_kw = dict(decay_time=const.s1_decay_time,
                  decay_spread=const.s1_decay_spread)
     check('s1_photon_times', lambda: s1_photon_times(*s1_args, **s1_kw),
-          lambda: s1_photon_times_ref(*s1_args, **s1_kw))
+          lambda: s1_photon_times_ref(*s1_args, **s1_kw), s1_args,
+          ops32=n_s1 * 4)
 
     mean, spread = get_s2_drift_time_params(const, x2['z'])
     e_args = (x2['time'], e_edges, mean, spread, d2['e_exp'], d2['e_normal'],
               x2['truth_row'])
     e_kw = dict(trapping=const.electron_trapping_time)
     check('s2_electron_times', lambda: s2_electron_times(*e_args, **e_kw),
-          lambda: s2_electron_times_ref(*e_args, **e_kw))
+          lambda: s2_electron_times_ref(*e_args, **e_kw), e_args,
+          ops32=n_e * 5)
     e_t, _e_inst, e_row = s2_electron_times(*e_args, **e_kw)
 
     p_args = (inv, e_edges, e_ph_edges, e_t, x2['truth_row'], d2['u_lum'],
@@ -297,13 +415,16 @@ def phase_3c(params, const, batches, dev, smi):
                 t_triplet=const.triplet_lifetime_gas,
                 time_spread=const.s2_time_spread)
     check('s2_photon_times', lambda: s2_photon_times(*p_args, **p_kw),
-          lambda: s2_photon_times_ref(*p_args, **p_kw))
+          lambda: s2_photon_times_ref(*p_args, **p_kw), p_args,
+          ops32=n_ph * (12 + int(np.log2(max(n_e // n_inst, 2)))))
     t, _ph_inst, truth_row = s2_photon_times(*p_args, **p_kw)
 
     ch = channel_draw(pattern, ph_edges, d2['u_ch'])
     pp_args = (params, const, t, ch, ch >= 0, truth_row, d2['pmt'])
     check('pmt_photon_pass', lambda: pmt._photon_pass(*pp_args),
-          lambda: pmt.photon_pass_ref(*pp_args))
+          lambda: pmt.photon_pass_ref(*pp_args),
+          (t, ch, truth_row, d2['pmt'], params.chan_pack,
+           params.uniform_to_pe), ops32=n_ph * 16)
     ph = pmt._photon_pass(*pp_args)
     row_edges = row_edges_of(x2['truth_row'], ph_edges, n_rows)
 
@@ -314,20 +435,105 @@ def phase_3c(params, const, batches, dev, smi):
         return out
     check('pmt_row_truth',
           lambda: pmt._row_truth(params, const, ph['t'], ph['valid'],
-                                 row_edges, ph=ph), row_ref, FLOAT_TRUTH)
+                                 row_edges, ph=ph), row_ref,
+          (ph, row_edges, params.chan_pack, params.current_max),
+          ops32=n_ph * 8, ops64=n_ph * 14, rtol_keys=FLOAT_TRUTH)
     e_row_edges = row_edges_of(x2['truth_row'], e_edges, n_rows)
     err = compare(pmt._row_truth(None, None, e_t, None, e_row_edges),
                   pmt.photon_time_stats_ref(e_t, None, e_row, n_rows,
                                             e_row_edges),
                   'pmt_row_truth (electron times)', FLOAT_TRUTH)
-    res['pmt_row_truth'] = (max(err, res['pmt_row_truth'][0]),
-                            *res['pmt_row_truth'][1:])
+    res['pmt_row_truth']['err'] = max(err, res['pmt_row_truth']['err'])
     print(f'[kernels-p] pmt_row_truth on the electron times: '
           f'max|diff| {err}')
     return res
 
 
-def phase_5c(params_d, const, batches, smi):
+def grid_sample_library(gmap, points):
+    """One ``torch.nn.functional.grid_sample`` (align_corners=True, border
+    padding) computing the same multilinear lookup as the kernel: the map
+    as (1, C, [gz,] gy, gx), the points normalised to [-1, 1]."""
+    import torch
+    d = gmap.values.dim() - 1
+    inp = gmap.values.permute(*range(d, -1, -1)).unsqueeze(0).contiguous()
+    norm = (points - gmap.lows) / (gmap.highs - gmap.lows) * 2 - 1
+    grid = norm.reshape((1,) * d + (points.shape[0], d)).contiguous()
+    return lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode='bilinear', padding_mode='border',
+        align_corners=True)
+
+
+def phase_3d(params, const, batches, dev, smi):
+    """Each detector_physics kernel against its twin on the card (see the
+    module docstring); returns {name: measurements} (see make_check)."""
+    import torch
+    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.ops.interp import grid_lookup, grid_lookup_ref
+    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    x1, _n1, d1 = batches['s1']
+    x2, _n_rows, d2 = batches['s2']
+    n_inst = int(x2['x'].shape[0])
+    e_edges, _e_ph_edges, ph_edges = s2.s2_edges(d2)
+    n_e, n_ph = int(e_edges[-1]), int(ph_edges[-1])
+    n_s1 = int(d1['n_hits'].sum())
+    C = int(params.gains.shape[0])
+    res = {}
+    check = make_check(res, 'kernels-d', smi)
+    print(f'[kernels-d] S2 batch: {n_inst} instructions, {n_e} electrons, '
+          f'{n_ph} photons; S1 batch: {int(x1["x"].shape[0])} '
+          f'instructions, {n_s1} photons')
+
+    rng = np.random.default_rng(20261016)
+    n_pts = 1024
+    r = np.sqrt(rng.uniform(0, 45 ** 2, n_pts))
+    phi = rng.uniform(-np.pi, np.pi, n_pts)
+    pts3 = torch.as_tensor(np.stack([r * np.cos(phi), r * np.sin(phi),
+                                     rng.uniform(-90, -10, n_pts)], 1),
+                           dtype=torch.float32, device=dev)
+    pts2 = pts3[:, :2].contiguous()
+    for name, gmap, pts in (('grid_lookup_3d', params.fdc_3d, pts3),
+                            ('grid_lookup', params.s2_pattern, pts2)):
+        d = pts.shape[1]
+        out_dim = int(gmap.values.shape[-1])
+        args = (gmap.values, gmap.lows, gmap.highs, pts)
+        check(name, lambda a=args: (grid_lookup(*a),),
+              lambda a=args: (grid_lookup_ref(*a),), args,
+              ops32=n_pts * (d * 6 + out_dim * 2 ** d * (d + 1)),
+              library=grid_sample_library(gmap, pts))
+        print(f'[kernels-d] {name}: map {tuple(gmap.values.shape)}, '
+              f'{n_pts} points')
+
+    z, xy = s2.s2_positions(params, const, x2)
+    dif = s2.diffusion_inputs(const, z, xy)
+    pd_args = (params.s2_pattern, xy[:, 0].contiguous(),
+               xy[:, 1].contiguous(), *dif, const.tpc_radius ** 2, e_edges,
+               d2['diff_r'], d2['diff_a'], C)
+    check('pattern_diffuse', lambda: (s2.pattern_diffuse(*pd_args),),
+          lambda: (s2.pattern_diffuse_ref(*pd_args),), pd_args,
+          ops32=n_e * (40 + C * 8), ops64=n_e * C, reps=10)
+
+    gg_args = (params.gg_inv_cdf, *s2.gasgap_rows(params, xy), ph_edges,
+               d2['u_lum'])
+    check('lumi_gasgap_times', lambda: (s2.lumi_gasgap_times(*gg_args),),
+          lambda: (s2.lumi_gasgap_times_ref(*gg_args),), gg_args,
+          ops32=n_ph * 16, ops64=n_ph * 2)
+
+    nest_args = (*s1.nest_inputs(params, const, x1),
+                 edges_from_counts(d1['n_hits']), d1['u_nest'])
+    # the table rows this batch reads: its (class, field, energy) corners
+    tbl, cls, fi0, fi1, _fw, ei0, ei1, _ew = nest_args[:8]
+    corners = torch.cat([torch.stack([cls, fi, ei], 1)
+                         for fi in (fi0, fi1) for ei in (ei0, ei1)])
+    rows = tbl[tuple(torch.unique(corners, dim=0).T)]
+    print(f'[kernels-d] nest_delays: {rows.shape[0]} table rows of '
+          f'{rows.shape[1]} quantiles read')
+    check('nest_delays', lambda: (s1.nest_delays(*nest_args),),
+          lambda: (s1.nest_delays_ref(*nest_args),),
+          nest_args[1:] + (rows,), ops32=n_s1 * 32)
+    return res
+
+
+def phase_5c(cfg, params_d, const, batches, smi, tag='cross-p'):
     """The S1 and S2 batches through the kernels on the card and, from the
     same draws, through the twins on the CPU (see the module docstring)."""
     import torch
@@ -335,8 +541,6 @@ def phase_5c(params_d, const, batches, smi):
     from wfsim_tpu_torch.models.s1 import s1_photon_pass
     from wfsim_tpu_torch.models.s2 import s2_photon_pass
     from wfsim_tpu_torch.resources import load_config
-    from wfsim_tpu_torch.config import default_config
-    cfg = default_config(seed=1234, chunk_size=100)
     params_c = build_params(cfg, load_config(cfg), 'cpu')
     cpu = torch.device('cpu')
     for kind, fn in (('s1', s1_photon_pass), ('s2', s2_photon_pass)):
@@ -352,7 +556,7 @@ def phase_5c(params_d, const, batches, smi):
         compare(ph_d, ph_c, f'{kind} photons card vs CPU')
         compare((req_d,), (req_c,), f'{kind} photon counts card vs CPU')
         err = compare(tr_d, tr_c, f'{kind} truth card vs CPU', FLOAT_TRUTH)
-        print(f'[cross-p] {kind}: photons {int(ph_d["t"].shape[0])} rows '
+        print(f'[{tag}] {kind}: photons {int(ph_d["t"].shape[0])} rows '
               f'{n_rows}: photons bitwise equal, truth max|diff| {err} '
               f'(card {t_card:.3f} s, CPU twins {t_cpu:.3f} s; {smi})')
 
@@ -456,9 +660,18 @@ def main():
                        cuda_ms(lambda: zle_all_channels_ref(*zargs, **zkw))),
         pack_records=(cuda_ms(lambda: pack_records(*pargs)),
                       cuda_ms(lambda: pack_records_ref(*pargs))))
+    # bytes moved and operations of each call (see bound()): the grid's
+    # samples get a template tap per photon and the ADC epilogue; ZLE a
+    # compare and a few index updates per sample; the pack one copy
+    L = int(params.templates.shape[1])
+    work = dict(
+        superpose_adc=(nbytes(sargs, grid), len(t_np) * L * 2 + B * C * T * 3),
+        zle_intervals=(nbytes(zargs, zk), B * C * T * 4),
+        pack_records=(nbytes(pargs, pk), int(pk[0].shape[0]) * 110))
     for name, (ms, plain) in times.items():
-        print(f'[kernels] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms '
-              f'({smi})')
+        b_ms, b_by = bound(*work[name])
+        print(f'[kernels] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms, '
+              f'bound {b_ms:.4f} ms by {b_by} ({smi})')
 
     # ---- 4. main path ------------------------------------------------------
     inst = bench_instructions(512, 2000, 300)
@@ -562,9 +775,9 @@ def main():
           f'candidates {u_s.shape[1]}, max|diff| {err5}')
     if err5:
         raise AssertionError('ap_photon_summaries differs from its twin')
-    L = int(params_r.noise_bank.shape[1])
-    nix = torch.as_tensor(L - T // 2 + np.arange(B) * 7, dtype=torch.int32,
-                          device=dev)           # every window wraps the bank
+    L_noise = int(params_r.noise_bank.shape[1])
+    nix = torch.as_tensor(L_noise - T // 2 + np.arange(B) * 7,
+                          dtype=torch.int32, device=dev)  # all wrap the bank
     nkw = dict(skw, noise_bank=params_r.noise_bank, noise_ix=nix,
                n_channels=C)
     grid_n = superpose_adc(*sargs, **nkw)
@@ -572,7 +785,7 @@ def main():
     err6 = max_diff(grid_n, grid_nr)
     in_win = grid_nr[(grid_nr > 15900) & (grid_nr < 16100)].to(torch.float32)
     print(f'[kernels-r] superpose_adc+noise: noise_ix {nix[0].item()}.. of '
-          f'L={L}, differing samples {int((grid_n != grid_nr).sum())}, '
+          f'L={L_noise}, differing samples {int((grid_n != grid_nr).sum())}, '
           f'max|diff| {err6}, quiet in-window std {in_win.std().item():.3f}')
     if err6 or not in_win.std().item() > 0.5:
         raise AssertionError('superpose_adc with noise differs from its twin '
@@ -589,11 +802,19 @@ def main():
         superpose_adc_noise=(
             cuda_ms(lambda: superpose_adc(*sargs, **nkw)),
             cuda_ms(lambda: superpose_adc_ref(*sargs, **nkw), reps=5)))
+    work.update(
+        pmt_afterpulse=(nbytes(ph_ap, draws, params_r.pmt_ap_delay_cdf,
+                               params_r.pmt_ap_amp_cdf, ap_k, info_k),
+                        n_ph * E * 6),
+        ap_photon_summaries=(nbytes(ph_ap, u_s, sk), n_ph * 4),
+        superpose_adc_noise=(nbytes(sargs, grid_n) + B * C * T * 2,
+                             len(t_np) * L * 2 + B * C * T * 4))
     for name in ('pmt_afterpulse', 'ap_photon_summaries',
                  'superpose_adc_noise'):
         ms, plain = times[name]
-        print(f'[kernels-r] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms '
-              f'({smi})')
+        b_ms, b_by = bound(*work[name])
+        print(f'[kernels-r] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms, '
+              f'bound {b_ms:.4f} ms by {b_by} ({smi})')
     del ph_ap, draws, ap_k, ap_r, grid_n, grid_nr
 
     # ---- 4b. realistic main path -----------------------------------------
@@ -677,53 +898,151 @@ def main():
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
     ptimes = phase_3c(params_p, const_p, batches, dev, smi)
-    phase_5c(params_p, const_p, batches, smi)
+    phase_5c(cfg, params_p, const_p, batches, smi)
+    del params_p, batches
+
+    # ---- 3d / 4d / 5d. the detector_physics configuration -----------------
+    from wfsim_tpu_torch.config import detector_physics_overrides
+    from wfsim_tpu_torch.interface import detector_physics_instructions
+    from wfsim_tpu_torch.resources.nest_tables import build_nest_timing_tables
+    from wfsim_tpu_torch.resources.synthetic import write_pattern_map
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_')
+    try:
+        t0 = time.perf_counter()
+        map_path = write_pattern_map(Path(tmp) / 's2_pattern_map.json', 1234)
+        t_write = time.perf_counter() - t0
+        cfg_d = default_config(seed=1234, chunk_size=100,
+                               **detector_physics_overrides(map_path))
+        t0 = time.perf_counter()
+        build_nest_timing_tables(cfg_d)
+        t_nest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_config(cfg_d)
+        t_map = time.perf_counter() - t0
+        print(f'[detector] one-off host costs: NEST table build {t_nest:.3f} '
+              f's, map read {t_map:.3f} s (map file written in '
+              f'{t_write:.3f} s)')
+        inst_d = detector_physics_instructions(512, 2000, 300)
+        params_d, const_d, batches_d = physics_batches(cfg_d, inst_d, dev,
+                                                       20261016)
+        dtimes = phase_3d(params_d, const_d, batches_d, dev, smi)
+
+        Simulator(cfg_d, device=dev).get_arrays(inst_d)      # warm-up
+        torch.cuda.synchronize()
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = Simulator(cfg_d, device=dev)
+        t0 = time.perf_counter()
+        out = sim.get_arrays(inst_d)
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t0
+        launches_d = {name: k.launches for name, k in _build.KERNELS.items()}
+        peak_d = torch.cuda.max_memory_allocated(dev)
+        rr, truth = out['raw_records'], out['truth']
+        diag = sim.sim.rawdata.diag.summary()
+        print(f'[detector] launches {launches_d}')
+        for name in DETECTOR_PATH_KERNELS:
+            if launches_d[name] <= 0:
+                raise AssertionError(f'kernel {name} not launched on the '
+                                     f'detector_physics path')
+        s2_rows = truth[truth['type'] == 2]
+        n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2)}
+        r_shift = (np.hypot(s2_rows['x'], s2_rows['y'])
+                   - np.hypot(s2_rows['x_mean_electron'],
+                              s2_rows['y_mean_electron']))
+        if n_type != {1: 512, 2: 512} or len(truth) != len(inst_d):
+            raise AssertionError(f'detector_physics truth rows {n_type}')
+        if not (np.all(np.isfinite(r_shift))
+                and np.all(np.abs(r_shift - 0.5) < 0.05)):
+            raise AssertionError('mean electron positions off the 0.5 cm '
+                                 'inverse FDC')
+        if not strax_valid(rr, C):
+            raise AssertionError('detector_physics raw_records violate the '
+                                 'strax invariants')
+        n_photons = int(truth['n_photon'].sum())
+        print(f'[detector] truth rows by type {n_type}, S2 photons '
+              f'{int(s2_rows["n_photon"].sum())}, S1 photons '
+              f'{n_photons - int(s2_rows["n_photon"].sum())}, electrons '
+              f'{int(s2_rows["n_electron"].sum())}, mean r shift '
+              f'{r_shift.mean():.4f} cm')
+        print(f'[detector] events/s {512 / wall_d:.2f} wall {wall_d:.3f} s '
+              f'records {len(rr)} photons {n_photons} peak_mem '
+              f'{peak_d / 2 ** 20:.1f} MiB ({smi})')
+        print(f'[detector] phases {diag}')
+        print(f'[detector] physics phases {physics_phases(sim)}')
+        phase_5c(cfg_d, params_d, const_d, batches_d, smi, tag='cross-d')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     src = 'wfsim_tpu_torch/csrc/'
-    physics_rows = [
-        ('channel_draw', 'channel_draw.cu',
-         'wfsim_tpu/ops/randsample.py:120; wfsim_tpu/ops/randsample.py:99'),
-        ('lumi_tables', 'luminescence.cu',
-         'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141'),
-        ('s1_photon_times', 'photon_times.cu', 'wfsim_tpu/models/s1.py:143'),
-        ('s2_electron_times', 'photon_times.cu',
-         'wfsim_tpu/models/s2.py:381'),
-        ('s2_photon_times', 'photon_times.cu', 'wfsim_tpu/models/s2.py:441'),
-        ('pmt_photon_pass', 'pmt_response.cu', 'wfsim_tpu/models/pmt.py:19'),
-        ('pmt_row_truth', 'pmt_response.cu',
-         'wfsim_tpu/models/pmt.py:89; wfsim_tpu/models/pmt.py:171')]
-    rows = [
-        dict(name='superpose_adc', route='cuda', source=src + 'superpose_adc.cu',
-             replaces='wfsim_tpu/ops/waveform.py:68; '
-                      'wfsim_tpu/pipeline/digitize.py:67',
-             launches=launches['wfsim_superpose_adc'],
-             max_abs_err=max(err1, err6),
-             ms=times['superpose_adc'][0], plain_ms=times['superpose_adc'][1]),
-        dict(name='zle_intervals', route='cuda', source=src + 'zle_intervals.cu',
-             replaces='wfsim_tpu/ops/zle.py:119',
-             launches=launches['wfsim_zle_intervals'], max_abs_err=err2,
-             ms=times['zle_intervals'][0], plain_ms=times['zle_intervals'][1]),
-        dict(name='pack_records', route='cuda', source=src + 'pack_records.cu',
-             replaces='wfsim_tpu/pipeline/digitize.py:471',
-             launches=launches['wfsim_pack_records'], max_abs_err=err3,
-             ms=times['pack_records'][0], plain_ms=times['pack_records'][1]),
-        dict(name='pmt_afterpulse', route='cuda',
-             source=src + 'pmt_afterpulse.cu',
-             replaces='wfsim_tpu/models/afterpulse.py:56',
-             launches=min(launches_r['wfsim_pmt_ap_select'],
-                          launches_r['wfsim_pmt_ap_emit']),
-             max_abs_err=err4, ms=times['pmt_afterpulse'][0],
-             plain_ms=times['pmt_afterpulse'][1]),
-        dict(name='ap_photon_summaries', route='cuda',
-             source=src + 'pmt_afterpulse.cu',
-             replaces='wfsim_tpu/models/afterpulse.py:184',
-             launches=launches_r['wfsim_ap_photon_summaries'],
-             max_abs_err=err5, ms=times['ap_photon_summaries'][0],
-             plain_ms=times['ap_photon_summaries'][1]),
-    ] + [dict(name=name, route='cuda', source=src + cu, replaces=rep,
-              launches=launches['wfsim_' + name], max_abs_err=ptimes[name][0],
-              ms=ptimes[name][1], plain_ms=ptimes[name][2])
-         for name, cu, rep in physics_rows]
+    rows = []
+
+    def row(name, cu, replaces, entries, launches, err, ms, plain_ms,
+            n_bytes, ops32, ops64=0, library_ms=None):
+        b_ms, b_by = bound(n_bytes, ops32, ops64)
+        rows.append(dict(name=name, route='cuda', source=src + cu,
+                         replaces=replaces, entry_points=list(entries),
+                         launches=launches, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms))
+
+    def measured(name, cu, replaces, entries, launch_counts, m):
+        row(name, cu, replaces, entries,
+            min(launch_counts[e] for e in entries), m['err'], m['ms'],
+            m['plain_ms'], m['bytes'], m['ops32'], m['ops64'],
+            m['library_ms'])
+
+    row('superpose_adc', 'superpose_adc.cu',
+        'wfsim_tpu/ops/waveform.py:68; wfsim_tpu/pipeline/digitize.py:67',
+        ['wfsim_superpose_adc'], launches['wfsim_superpose_adc'],
+        max(err1, err6), *times['superpose_adc'], *work['superpose_adc'])
+    row('zle_intervals', 'zle_intervals.cu', 'wfsim_tpu/ops/zle.py:119',
+        ['wfsim_zle_intervals'], launches['wfsim_zle_intervals'], err2,
+        *times['zle_intervals'], *work['zle_intervals'])
+    row('pack_records', 'pack_records.cu',
+        'wfsim_tpu/pipeline/digitize.py:471', ['wfsim_pack_records'],
+        launches['wfsim_pack_records'], err3, *times['pack_records'],
+        *work['pack_records'])
+    row('pmt_afterpulse', 'pmt_afterpulse.cu',
+        'wfsim_tpu/models/afterpulse.py:56',
+        ['wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit'],
+        min(launches_r['wfsim_pmt_ap_select'],
+            launches_r['wfsim_pmt_ap_emit']), err4,
+        *times['pmt_afterpulse'], *work['pmt_afterpulse'])
+    row('ap_photon_summaries', 'pmt_afterpulse.cu',
+        'wfsim_tpu/models/afterpulse.py:184', ['wfsim_ap_photon_summaries'],
+        launches_r['wfsim_ap_photon_summaries'], err5,
+        *times['ap_photon_summaries'], *work['ap_photon_summaries'])
+    for name, cu, rep in (
+            ('channel_draw', 'channel_draw.cu',
+             'wfsim_tpu/ops/randsample.py:120; '
+             'wfsim_tpu/ops/randsample.py:99'),
+            ('lumi_tables', 'luminescence.cu',
+             'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141'),
+            ('s1_photon_times', 'photon_times.cu',
+             'wfsim_tpu/models/s1.py:143'),
+            ('s2_electron_times', 'photon_times.cu',
+             'wfsim_tpu/models/s2.py:381'),
+            ('s2_photon_times', 'photon_times.cu',
+             'wfsim_tpu/models/s2.py:441'),
+            ('pmt_photon_pass', 'pmt_response.cu',
+             'wfsim_tpu/models/pmt.py:19'),
+            ('pmt_row_truth', 'pmt_response.cu',
+             'wfsim_tpu/models/pmt.py:89; wfsim_tpu/models/pmt.py:171')):
+        measured(name, cu, rep, ['wfsim_' + name], launches, ptimes[name])
+    for name, entry, cu, rep in (
+            ('grid_lookup', 'wfsim_grid_lookup', 'grid_lookup.cu',
+             'wfsim_tpu/ops/interp.py:85'),
+            ('grid_lookup_3d', 'wfsim_grid_lookup', 'grid_lookup.cu',
+             'wfsim_tpu/ops/interp.py:85'),
+            ('pattern_diffuse', 'wfsim_pattern_diffuse', 'grid_lookup.cu',
+             'wfsim_tpu/models/s2.py:300'),
+            ('lumi_gasgap_times', 'wfsim_lumi_gasgap_times',
+             'table_samplers.cu', 'wfsim_tpu/models/s2.py:255'),
+            ('nest_delays', 'wfsim_nest_delays', 'table_samplers.cu',
+             'wfsim_tpu/models/s1.py:108')):
+        measured(name, cu, rep, [entry], launches_d, dtimes[name])
     print(smi)
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

@@ -380,3 +380,65 @@ def test_photon_pass_card_matches_cpu(setup, dev, kind):
     _same(ph_d, ph_c)
     _same(tr_d, tr_c, FLOAT_TRUTH)
     assert torch.equal(req_d.cpu(), req_c)
+
+
+@pytest.mark.parametrize('shape,out_dim', [((7,), 1), ((30, 30), 494),
+                                           ((5, 6, 4), 1)])
+def test_grid_lookup_matches_twins(dev, shape, out_dim):
+    from wfsim_tpu_torch.ops.interp import GridMap, grid_lookup_ref
+    rng = np.random.default_rng(25)
+    d = len(shape)
+    gmap = GridMap(torch.as_tensor(rng.random(shape + (out_dim,),
+                                              dtype=np.float32)),
+                   torch.as_tensor(-rng.random(d, dtype=np.float32) * 40),
+                   torch.as_tensor(rng.random(d, dtype=np.float32) * 40 + 1))
+    pts = torch.as_tensor(rng.uniform(-50, 50, (1000, d)).astype(np.float32))
+    cpu = gmap(pts)
+    card_map = gmap.to(dev)
+    k = _build.KERNELS['wfsim_grid_lookup']
+    before = k.launches
+    card = card_map(pts.to(dev))
+    assert k.launches == before + 1
+    assert torch.equal(card.cpu(), cpu)
+    assert torch.equal(card, grid_lookup_ref(card_map.values, card_map.lows,
+                                             card_map.highs, pts.to(dev)))
+
+
+@pytest.mark.parametrize('kind', ['s1', 's2'])
+def test_detector_physics_pass_card_matches_cpu(dev, tmp_path, kind):
+    """One S1 or S2 batch of the detector_physics workload (32 events)
+    through the NEST, gas-gap, diffused-pattern and map-lookup kernels on
+    the card and through the twins on the CPU, from the same draws."""
+    from wfsim_tpu_torch.config import detector_physics_overrides
+    from wfsim_tpu_torch.interface import detector_physics_instructions
+    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    from wfsim_tpu_torch.resources.synthetic import write_pattern_map
+    c = default_config(**detector_physics_overrides(
+        write_pattern_map(tmp_path / 'pmap.json', 3)))
+    rd = RawData(c, device=dev)
+    inst = detector_physics_instructions(32, 2000, 300)
+    idx = np.flatnonzero(inst['type'] == (1 if kind == 's1' else 2))
+    x, _base, _rows, n_rows = rd.batch_inputs(inst, idx, kind)
+    draw, fn, entries = (
+        (s1.s1_draws, s1.s1_photon_pass, ('wfsim_nest_delays',))
+        if kind == 's1' else
+        (s2.s2_draws, s2.s2_photon_pass, ('wfsim_pattern_diffuse',
+                                          'wfsim_lumi_gasgap_times')))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    d = draw(rd.params, rd.const, x, gen)
+
+    def cpu(v):
+        if isinstance(v, dict):
+            return {k: cpu(w) for k, w in v.items()}
+        return None if v is None else v.cpu()
+
+    before = {e: _build.KERNELS[e].launches for e in entries}
+    ph_d, tr_d, req_d = fn(rd.params, rd.const, x, d, n_truth_rows=n_rows)
+    assert all(_build.KERNELS[e].launches > before[e] for e in entries)
+    ph_c, tr_c, req_c = fn(build_params(c, load_config(c), 'cpu'), rd.const,
+                           cpu(x), cpu(d), n_truth_rows=n_rows)
+    _same(ph_d, ph_c)
+    _same(tr_d, tr_c, FLOAT_TRUTH)
+    assert torch.equal(req_d.cpu(), req_c)

@@ -134,6 +134,11 @@ def test_unported_resources_raise():
         load_config(default_config(enable_electron_afterpulses=True,
                                    ele_ap_pdfs='ele_ap.pkl'))
     with pytest.raises(NotImplementedError):
+        load_config(default_config(enable_gas_gap_warping=True))
+    with pytest.raises(NotImplementedError):
+        load_config(default_config(field_distortion_model='comsol'))
+    # map files are read now; one that is not there raises
+    with pytest.raises(FileNotFoundError):
         load_config(default_config(s1_pattern_map='map.json'))
 
 

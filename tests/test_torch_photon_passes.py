@@ -150,7 +150,8 @@ def test_s2_draw_order(both):
     gain = pt.s2_correction(torch.stack([inst['x'], inst['y']], 1)) \
         * kt.s2_secondary_sc_gain / torch.tensor(1 + kt.p_double_pe_emision)
     E = int(n_el.sum())
-    d = dict(n_electron=n_el,
+    d = dict(zip(('z_obs', 'xy_obs'), s2.s2_positions(pt, kt, inst)),
+             n_electron=n_el,
              e_exp=torch.empty(E).exponential_(1.0, generator=gen),
              e_normal=torch.randn(E, generator=gen))
     d['n_ph_per_e'] = rs.poisson(gen, torch.repeat_interleave(gain, n_el))
@@ -244,6 +245,8 @@ def test_s2_pass_matches_jax_given_draws(both):
         exp_st=jax.random.exponential(keys[13], (n,)),
         t_spread=jax.random.normal(keys[14], (n,)),
         pmt=_jax_pmt_draws(keys[15:19], n)))
+    draws.update(zip(('z_obs', 'xy_obs'),
+                     s2.s2_positions(pt, kt, port_inst(ji))))
     pht, trt, req = s2.s2_photon_pass(pt, kt, port_inst(ji), draws,
                                       n_truth_rows=5)
     assert n > 10000 and int(req.sum()) == n

@@ -4,8 +4,9 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 Same I/O contracts as wfsim_tpu: energy-deposit instructions in, strax
 ``raw_records`` and per-interaction ``truth`` out, with the same dtypes,
 config keys and public names.  Every tensor lives on the ``torch.device``
-passed to :class:`Simulator`; CPU tensors run the kernels' plain PyTorch
-twins, CUDA tensors the kernels of ``csrc/``.  The package never imports
+passed to :class:`Simulator` (the card, ``'cuda'``, unless the caller asks
+for another); CPU tensors run the kernels' plain PyTorch twins, CUDA
+tensors the kernels of ``csrc/``.  The package never imports
 JAX or wfsim_tpu.
 """
 __version__ = '0.1.0'

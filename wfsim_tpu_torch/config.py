@@ -28,6 +28,7 @@ import numpy as np
 __all__ = [
     'load_fax_config', 'default_config', 'finalize_config',
     'deterministic_hash', 'strip_json_comments', 'CHANNEL_MAPS',
+    'detector_physics_overrides',
 ]
 
 # Per-detector channel layout (matches the straxen-provided channel maps the
@@ -252,6 +253,23 @@ def default_config(detector: str = 'XENONnT', **overrides) -> dict:
     c['channel_map'] = dict(layout['channel_map'])
     c.update(overrides)
     return finalize_config(c)
+
+
+def detector_physics_overrides(s2_pattern_map: str) -> dict:
+    """The ``detector_physics`` switches on top of :func:`default_config`:
+    NEST S1 timing, garfield gas-gap luminescence (synthetic table),
+    transverse diffusion, AFT smearing, inverse FDC with a constant dummy
+    map and an S2 pattern map read from the file ``s2_pattern_map`` (see
+    ``resources.synthetic.write_pattern_map``).  The diffusion constant is
+    an order-of-magnitude liquid-xenon value (~50 cm^2/s), the AFT values
+    illustrative; neither is a calibration."""
+    return dict(s1_model_type='nest',
+                s2_luminescence_model='garfield_gas_gap',
+                diffusion_constant_transverse=5.0e-8,     # cm^2/ns
+                s2_aft_sigma=0.02, s2_aft_skewness=-1.4,
+                field_distortion_model='inverse_fdc',
+                fdc_3d=['constant dummy', 0.5, []],
+                s2_pattern_map=str(s2_pattern_map))
 
 
 def finalize_config(c: dict) -> dict:

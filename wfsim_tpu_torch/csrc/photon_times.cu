@@ -15,13 +15,17 @@
 // times, the segment id and the broadcast truth row of each element; that
 // takes the place of repeat_interleave on the path:
 //   wfsim_s1_photon_times    t = time[i] + trunc(exp * s1_decay_time)
-//                                + trunc(normal * s1_decay_spread);
+//                                + trunc(normal * s1_decay_spread) (simple
+//                                model, skipped where exp is null)
+//                                + trunc(nest) (NEST model, where the
+//                                delays of table_samplers.cu are given);
 //   wfsim_s2_electron_times  e_t = time[i] + trunc(exp * trapping
 //                                + (normal * spread[i] + mean[i]));
 //                                the truth rows feed the electron-time
 //                                statistics;
 //   wfsim_s2_photon_times    t = trunc(lerp of the instruction's inverse
-//                                CDF) + trunc(exp * singlet or triplet
+//                                CDF), or the given gas-gap luminescence
+//                                time t_lum, + trunc(exp * singlet or triplet
 //                                lifetime) + trunc(normal * s2_time_spread)
 //                                + e_t[electron]; a photon finds its electron
 //                                by a binary search of the photon edges of
@@ -49,16 +53,20 @@ constexpr int kThreads = 256;
 __global__ void s1_photon_times_kernel(
     const int* __restrict__ time, const long long* __restrict__ edges,
     const long long* __restrict__ truth_row, const float* __restrict__ ex,
-    const float* __restrict__ nrm, float decay_time, float decay_spread,
-    int* __restrict__ t, long long* __restrict__ ph_inst,
-    long long* __restrict__ ph_row) {
+    const float* __restrict__ nrm, const float* __restrict__ nest,
+    float decay_time, float decay_spread, int* __restrict__ t,
+    long long* __restrict__ ph_inst, long long* __restrict__ ph_row) {
   const int i = blockIdx.x;
   const long long lo = edges[i], hi = edges[i + 1];
   const int ti = time[i];
   const long long row = truth_row[i];
   for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    t[j] = ti + static_cast<int>(__fmul_rn(ex[j], decay_time)) +
-           static_cast<int>(__fmul_rn(nrm[j], decay_spread));
+    int tt = ti;
+    if (ex != nullptr)
+      tt += static_cast<int>(__fmul_rn(ex[j], decay_time)) +
+            static_cast<int>(__fmul_rn(nrm[j], decay_spread));
+    if (nest != nullptr) tt += static_cast<int>(nest[j]);
+    t[j] = tt;
     ph_inst[j] = i;
     ph_row[j] = row;
   }
@@ -90,7 +98,8 @@ __global__ void s2_photon_times_kernel(
     const long long* __restrict__ e_edges,
     const long long* __restrict__ e_ph_edges, const int* __restrict__ e_t,
     const long long* __restrict__ truth_row, const float* __restrict__ u_lum,
-    const float* __restrict__ u_st, const float* __restrict__ ex_st,
+    const int* __restrict__ t_lum, const float* __restrict__ u_st,
+    const float* __restrict__ ex_st,
     const float* __restrict__ nrm_ts, float singlet_fraction,
     float t_singlet, float t_triplet, float time_spread,
     int* __restrict__ t, long long* __restrict__ ph_inst,
@@ -109,15 +118,20 @@ __global__ void s2_photon_times_kernel(
       if (e_ph_edges[mid] <= j) a = mid + 1; else b = mid;
     }
     const long long k = a - 1;
-    const float uq = __fmul_rn(u_lum[j], static_cast<float>(Q - 1));
-    long long i0 = static_cast<long long>(floorf(uq));
-    i0 = i0 < Q - 2 ? i0 : Q - 2;
-    const float w = __fsub_rn(uq, static_cast<float>(i0));
-    const float t_lum = __fadd_rn(__fmul_rn(row_inv[i0], __fsub_rn(1.0f, w)),
-                                  __fmul_rn(row_inv[i0 + 1], w));
+    int tt;
+    if (t_lum != nullptr) {
+      tt = t_lum[j];
+    } else {
+      const float uq = __fmul_rn(u_lum[j], static_cast<float>(Q - 1));
+      long long i0 = static_cast<long long>(floorf(uq));
+      i0 = i0 < Q - 2 ? i0 : Q - 2;
+      const float w = __fsub_rn(uq, static_cast<float>(i0));
+      tt = static_cast<int>(
+          __fadd_rn(__fmul_rn(row_inv[i0], __fsub_rn(1.0f, w)),
+                    __fmul_rn(row_inv[i0 + 1], w)));
+    }
     const float life = u_st[j] < singlet_fraction ? t_singlet : t_triplet;
-    int tt = static_cast<int>(t_lum) +
-             static_cast<int>(__fmul_rn(ex_st[j], life));
+    tt += static_cast<int>(__fmul_rn(ex_st[j], life));
     if (nrm_ts != nullptr)
       tt += static_cast<int>(__fmul_rn(nrm_ts[j], time_spread));
     t[j] = tt + e_t[k];
@@ -131,16 +145,19 @@ __global__ void s2_photon_times_kernel(
 extern "C" int wfsim_s1_photon_times(const void* time, const void* edges,
                                      const void* truth_row, int n_inst,
                                      const void* ex, const void* nrm,
-                                     float decay_time, float decay_spread,
-                                     void* t, void* ph_inst, void* ph_row,
+                                     const void* nest, float decay_time,
+                                     float decay_spread, void* t,
+                                     void* ph_inst, void* ph_row,
                                      void* stream) {
-  if (n_inst <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_inst <= 0 || (ex == nullptr) != (nrm == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   s1_photon_times_kernel<<<n_inst, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(time), static_cast<const long long*>(edges),
       static_cast<const long long*>(truth_row),
       static_cast<const float*>(ex), static_cast<const float*>(nrm),
-      decay_time, decay_spread, static_cast<int*>(t),
+      static_cast<const float*>(nest), decay_time, decay_spread,
+      static_cast<int*>(t),
       static_cast<long long*>(ph_inst), static_cast<long long*>(ph_row));
   return static_cast<int>(cudaGetLastError());
 }
@@ -167,18 +184,21 @@ extern "C" int wfsim_s2_electron_times(const void* time, const void* e_edges,
 extern "C" int wfsim_s2_photon_times(
     const void* inv, int Q, const void* e_edges, int n_inst,
     const void* e_ph_edges, const void* e_t, const void* truth_row,
-    const void* u_lum, const void* u_st, const void* ex_st,
-    const void* nrm_ts, float singlet_fraction, float t_singlet,
-    float t_triplet, float time_spread, void* t, void* ph_inst, void* ph_row,
-    void* stream) {
-  if (n_inst <= 0 || Q < 2) return static_cast<int>(cudaErrorInvalidValue);
+    const void* u_lum, const void* t_lum, const void* u_st,
+    const void* ex_st, const void* nrm_ts, float singlet_fraction,
+    float t_singlet, float t_triplet, float time_spread, void* t,
+    void* ph_inst, void* ph_row, void* stream) {
+  if (n_inst <= 0 || (t_lum == nullptr && (Q < 2 || inv == nullptr ||
+                                           u_lum == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   s2_photon_times_kernel<<<n_inst, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(inv), Q,
       static_cast<const long long*>(e_edges),
       static_cast<const long long*>(e_ph_edges),
       static_cast<const int*>(e_t), static_cast<const long long*>(truth_row),
-      static_cast<const float*>(u_lum), static_cast<const float*>(u_st),
+      static_cast<const float*>(u_lum), static_cast<const int*>(t_lum),
+      static_cast<const float*>(u_st),
       static_cast<const float*>(ex_st), static_cast<const float*>(nrm_ts),
       singlet_fraction, t_singlet, t_triplet, time_spread,
       static_cast<int*>(t), static_cast<long long*>(ph_inst),

@@ -1,2 +1,3 @@
 from .simulator import Simulator  # noqa: F401
-from .instructions import bench_instructions  # noqa: F401
+from .instructions import (bench_instructions,  # noqa: F401
+                           detector_physics_instructions)

@@ -1,13 +1,18 @@
-"""Instruction builders.  Only the bench workload of wfsim_tpu (bench.py:76-90
-``_make_inst``) is ported; ``rand_instructions``, csv and optical input are
-not."""
+"""Instruction builders and the analytic quanta partition.  Only the bench
+workload of wfsim_tpu (bench.py:76-90 ``_make_inst``) is ported, with its
+``detector_physics`` variant; ``rand_instructions``, csv and optical input
+are not."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..dtypes import instruction_dtype
 
-__all__ = ['bench_instructions']
+__all__ = ['bench_instructions', 'detector_physics_instructions',
+           'analytic_yields']
+
+#: liquid-xenon W-value, keV per quantum
+W_KEV = 13.7e-3
 
 
 def bench_instructions(n: int = 512, amp_s1: int = 2000, amp_s2: int = 300):
@@ -27,3 +32,42 @@ def bench_instructions(n: int = 512, amp_s1: int = 2000, amp_s2: int = 300):
     inst['amp'] = np.tile([amp_s1, amp_s2], n)
     inst['recoil'] = 7
     return inst
+
+
+def detector_physics_instructions(n: int = 512, amp_s1: int = 2000,
+                                  amp_s2: int = 300):
+    """:func:`bench_instructions` with the inputs of the NEST S1 model set:
+    ``local_field`` the default config's drift field, 82 V/cm, and
+    ``e_dep`` the amplitude times the W-value (keV; 27.4 keV for the
+    default S1s)."""
+    inst = bench_instructions(n, amp_s1, amp_s2)
+    inst['local_field'] = 82.0
+    inst['e_dep'] = inst['amp'] * W_KEV
+    return inst
+
+
+def analytic_yields(energy_kev, drift_field, interaction_type=7, rng=None):
+    """Approximate NEST total-quanta partition for ER (and crudely NR)
+    (wfsim_tpu/interface/instructions.py:35, used when nestpy is missing).
+
+    Thomas-Imel box recombination on top of W = 13.7 eV quanta production.
+    Returns (photons, electrons, excitons) as integers."""
+    W = W_KEV
+    if interaction_type == 0:  # NR: Lindhard quenching
+        eps = 11.5 * energy_kev * 54 ** (-7 / 3)
+        g = 3 * eps ** 0.15 + 0.7 * eps ** 0.6 + eps
+        L = 0.166 * g / (1 + 0.166 * g)
+        n_q = int(energy_kev * L / W)
+        exciton_ratio = 1.24 * (drift_field ** -0.0472) * (1 - np.exp(-239 * eps))
+    else:
+        n_q = int(energy_kev / W)
+        exciton_ratio = 0.096
+    n_ex = int(n_q * exciton_ratio / (1 + exciton_ratio))
+    n_i = n_q - n_ex
+    # Thomas-Imel recombination probability
+    tib = 0.6347 * np.exp(-0.00014 * drift_field)
+    xi = tib * max(n_i, 1) / 4.0
+    r = 1.0 - np.log(1.0 + xi) / xi if xi > 1e-6 else 0.0
+    n_ph = int(n_ex + r * n_i)
+    n_el = max(n_q - n_ph, 0)
+    return n_ph, n_el, n_ex

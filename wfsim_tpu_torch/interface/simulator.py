@@ -2,8 +2,8 @@
 wfsim_tpu/interface/simulator.py; reference: wfsim/strax_interface.py:506-714).
 
 Config resolution, instruction checks and chunked iteration over
-``ChunkRawRecords``, with the device every tensor lives on passed
-explicitly.  Generating instructions (``rand_instructions``, csv input) is
+``ChunkRawRecords`` on one device: the card (``'cuda'``) unless the caller
+asks for another; construction raises where there is no card.  Generating instructions (``rand_instructions``, csv input) is
 not ported: pass the instruction array.
 """
 from __future__ import annotations
@@ -12,11 +12,11 @@ import logging
 import typing as ty
 
 import numpy as np
-import torch
 
 from ..config import default_config, finalize_config, load_fax_config
 from ..dtypes import concat_records
 from ..pipeline.chunker import ChunkRawRecords
+from ..pipeline.rawdata import resolve_device
 
 log = logging.getLogger('wfsim_tpu_torch.interface')
 
@@ -28,14 +28,15 @@ class Simulator:
 
     Usage::
 
-        sim = Simulator(default_config(seed=1), device=torch.device('cuda'))
+        sim = Simulator(default_config(seed=1))        # on the card
         out = sim.get_arrays(instructions)
+        Simulator(default_config(seed=1), device='cpu')  # the plain twins
     """
 
     def __init__(self, config: ty.Optional[dict] = None,
                  fax_config: ty.Optional[str] = None,
                  fax_config_override: ty.Optional[dict] = None,
-                 *, device, **overrides):
+                 *, device='cuda', **overrides):
         config = default_config() if config is None else dict(config)
         if fax_config:
             config.update(load_fax_config(fax_config))
@@ -43,7 +44,7 @@ class Simulator:
             config.update(fax_config_override)
         config.update(overrides)
         self.config = finalize_config(config)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sim = ChunkRawRecords(self.config, device=self.device)
 
     # -- instruction handling (reference: strax_interface.py:674-693) -------

@@ -1,9 +1,11 @@
 """Shared physics helpers (counterpart of wfsim_tpu/models/common.py)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ['trunc_int', 'f32', 'singlet_triplet_delays']
+__all__ = ['trunc_int', 'f32', 'sqrt_f32', 'singlet_triplet_delays',
+           'skew_normal']
 
 
 def trunc_int(x: torch.Tensor) -> torch.Tensor:
@@ -20,6 +22,15 @@ def f32(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of float32 ``x``, on any
+    device: the float64 root rounded once (a float64 root within one ulp
+    rounds to the correct float32).  CPU torch's vectorised float32 root
+    is one ulp off for some values; CUDA torch's float32 root and JAX's
+    are correctly rounded."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def singlet_triplet_delays(u, exp, singlet_ratio, t1, t3):
     """Excimer decay delays from a uniform and an exponential draw per
     sample: the singlet lifetime where ``u < singlet_ratio``, else the
@@ -28,3 +39,17 @@ def singlet_triplet_delays(u, exp, singlet_ratio, t1, t3):
                            torch.tensor(float(t1), device=u.device),
                            torch.tensor(float(t3), device=u.device))
     return trunc_int(exp * lifetime)
+
+
+def skew_normal(u0, v, loc, scale, a):
+    """Azzalini skew-normal values from two standard normals per sample
+    (wfsim_tpu/models/common.py skew_normal; scipy.stats.skewnorm.rvs, the
+    reference's S2 area-fraction-top smearing, s2.py:660-665):
+    ``loc + scale * (delta * |u0| + sqrt(1 - delta^2) * v)`` with
+    ``delta = a / sqrt(1 + a^2)``.  The two coefficients are float32
+    values rounded on the host as JAX rounds them."""
+    f = np.float32
+    delta = f(a) / np.sqrt(f(1.0 + a ** 2))
+    comp = np.sqrt(f(1) - delta * delta)
+    z = float(delta) * torch.abs(u0) + float(comp) * v
+    return loc + scale * z

@@ -20,6 +20,7 @@ from .. import units
 from ..ops.interp import GridMap
 from ..ops.waveform import make_templates
 from ..resources.loader import Resource, as_gridmap
+from ..resources.nest_tables import build_nest_timing_tables
 
 __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
            'params_from_numpy']
@@ -27,10 +28,10 @@ __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
 
 @dataclasses.dataclass
 class SimParams:
-    """Device tensors of one configuration (the main-path and
-    realistic-config fields of wfsim_tpu's SimParams; the optional tables it
-    holds for NEST, garfield, field maps and optical splines are not ported
-    yet).  The noise bank is channel-major int16 (Cn, L): wfsim_tpu keeps
+    """Device tensors of one configuration (the fields of wfsim_tpu's
+    SimParams that the ported paths read; its COMSOL, field-dependency,
+    gas-gap-warping and optical-spline maps and the garfield wire table are
+    not ported yet).  The noise bank is channel-major int16 (Cn, L): wfsim_tpu keeps
     it (L, Cn) int32 plus a wrap-extended copy (``noise_ext``) so a TPU can
     read one contiguous span per row, which the card does not need."""
     gains: torch.Tensor                # (C,) f32 electrons/PE
@@ -48,6 +49,14 @@ class SimParams:
     s2_pattern: GridMap
     s2_correction: GridMap
     se_gain: ty.Optional[GridMap]
+    # detector physics (None when off)
+    fdc_3d: ty.Optional[GridMap] = None                  # inverse FDC (r, z)
+    garfield_gas_gap_map: ty.Optional[GridMap] = None    # (x, y) -> gas gap
+    gg_gas_gap: ty.Optional[torch.Tensor] = None         # (G,) f32 gas gaps
+    gg_inv_cdf: ty.Optional[torch.Tensor] = None         # (G, M) f32
+    nest_inv_cdf: ty.Optional[torch.Tensor] = None       # (4, F, En, M) f32
+    nest_fields: ty.Optional[torch.Tensor] = None        # (F,) f32
+    nest_energies: ty.Optional[torch.Tensor] = None      # (En,) f32
     # afterpulses (None when off)
     pmt_ap_delay_cdf: ty.Optional[torch.Tensor] = None   # (E, C, Td) f32
     pmt_ap_amp_cdf: ty.Optional[torch.Tensor] = None     # (E, C, Ta) f32
@@ -340,6 +349,16 @@ def build_params(config, resource: Resource, device) -> SimParams:
     def opt(a):
         return None if a is None else t(a)
 
+    # luminescence and NEST tables (wfsim_tpu params.py:380-385, 465-471)
+    gg_gas_gap = gg_inv_cdf = None
+    if 'garfield_gas_gap' in str(config.get('s2_luminescence_model', '')):
+        gg = resource.s2_luminescence_gg
+        gg_gas_gap = np.asarray(gg['gas_gap'], dtype=np.float32)
+        gg_inv_cdf = np.asarray(gg['timing_inv_cdf'], dtype=np.float32)
+    nest = (None, None, None)
+    if 'nest' in str(config.get('s1_model_type', '')):
+        nest = build_nest_timing_tables(config)
+
     return SimParams(
         gains=t(gains),
         uniform_to_pe=t(np.asarray(resource.uniform_to_pe, np.float32)),
@@ -356,6 +375,13 @@ def build_params(config, resource: Resource, device) -> SimParams:
         s2_pattern=g(resource.s2_pattern_map, 2),
         s2_correction=g(resource.s2_correction_map, 2),
         se_gain=g(getattr(resource, 'se_gain_map', None), 2),
+        fdc_3d=g(resource.fdc_3d, 3),
+        garfield_gas_gap_map=g(resource.garfield_gas_gap_map, 2),
+        gg_gas_gap=opt(gg_gas_gap),
+        gg_inv_cdf=opt(gg_inv_cdf),
+        nest_inv_cdf=opt(nest[0]),
+        nest_fields=opt(nest[1]),
+        nest_energies=opt(nest[2]),
         pmt_ap_delay_cdf=opt(ap_delay),
         pmt_ap_amp_cdf=opt(ap_amp),
         ele_ap_bin_centers=opt(ele_bins),

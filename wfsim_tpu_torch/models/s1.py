@@ -1,16 +1,20 @@
-"""S1 scintillation, ``simple`` model (counterpart of wfsim_tpu/models/s1.py
-simulate_s1, s1.py:143-228; reference: wfsim/core/s1.py:60-238).
+"""S1 scintillation, ``simple`` and ``nest`` timing models (counterpart of
+wfsim_tpu/models/s1.py simulate_s1, s1.py:143-228; reference:
+wfsim/core/s1.py:60-238).
 
 Detected photons per instruction are Binomial(amp, LCE/(1+p_dpe) * eff);
-channels come from an inverse-CDF draw on the pattern map; times add an
-exponential decay and a Gaussian spread, then the PMT response.  The photon
-axis is allocated at its exact size once the yields are drawn.
+channels come from an inverse-CDF draw on the pattern map; times add, per
+model, an exponential decay and a Gaussian spread (``simple``) and a
+sample of the tabulated NEST photon-time distribution of the
+instruction's recoil class, field and energy (``nest``), then the PMT
+response.  The photon axis is allocated at its exact size once the yields
+are drawn.
 
 :func:`simulate_s1` is :func:`s1_draws`, which makes the yields and every
 per-photon draw from the generator, followed by :func:`s1_photon_pass`, a
 pure function of those draws.  On a CUDA device the pass runs the
-hand-written kernels (photon times, channel draw, PMT response); on the
-CPU their plain twins.
+hand-written kernels (photon times, NEST delays, channel draw, PMT
+response, map lookups); on the CPU their plain twins.
 """
 from __future__ import annotations
 
@@ -25,7 +29,65 @@ from .common import f32, trunc_int
 from .pmt import pmt_draws, pmt_response
 
 __all__ = ['simulate_s1', 's1_draws', 's1_photon_pass', 's1_n_photon_hits',
-           's1_photon_times', 's1_photon_times_ref', 'masked_pattern']
+           's1_photon_times', 's1_photon_times_ref', 'masked_pattern',
+           'live_pattern', 'nest_inputs',
+           's1_models', 'recoil_class', 'grid_pos', 'nest_delays',
+           'nest_delays_ref', 'NestId']
+
+#: the parts of an ``s1_model_type`` string (wfsim_tpu
+#: pipeline/rawdata.py:299-321); the port runs ``simple`` and ``nest``
+S1_MODEL_PARTS = frozenset({'', 'simple', 'custom', 'optical_propagation',
+                            'nest'})
+PORTED_S1_MODELS = frozenset({'simple', 'nest'})
+
+
+def s1_models(model: str) -> frozenset:
+    """The timing models named by ``model``: its parts split at '+',
+    spaces and commas, as wfsim_tpu validates them.  Raises ValueError on
+    an unknown part and NotImplementedError on ``custom`` and
+    ``optical_propagation``, which the port does not run."""
+    parts = set()
+    for part0 in str(model).split('+'):
+        for part1 in part0.split(' '):
+            parts.update(part1.split(','))
+    bad = parts - S1_MODEL_PARTS
+    if bad:
+        raise ValueError(f'Model type {sorted(bad)} not in '
+                         f'{sorted(S1_MODEL_PARTS)}')
+    parts.discard('')
+    if parts - PORTED_S1_MODELS:
+        raise NotImplementedError(
+            f's1_model_type {model!r}: the port runs '
+            f'{sorted(PORTED_S1_MODELS)} and their combinations only')
+    return frozenset(parts)
+
+
+class NestId:
+    """NEST interaction-type ids per recoil class (reference: s1.py:21-30)."""
+    NR = (0,)
+    ALPHA = (6,)
+    ER = (7, 8, 11, 12)
+    LED = (20,)
+
+
+def recoil_class(recoil: torch.Tensor) -> torch.Tensor:
+    """0=ER, 1=NR, 2=alpha, 3=LED (ER where the id is none of these, like
+    the reference's lookup; wfsim_tpu s1.py:33)."""
+    cls = torch.zeros_like(recoil, dtype=torch.int64)
+    for ids, c in ((NestId.NR, 1), (NestId.ALPHA, 2), (NestId.LED, 3)):
+        for v in ids:
+            cls = torch.where(recoil == v, c, cls)
+    return cls
+
+
+def grid_pos(axis: torch.Tensor, x: torch.Tensor):
+    """Fractional position of x on a 1-d grid: (i0, i1, w), the lower
+    search of ``axis`` clamped to [1, n-1] (wfsim_tpu s1.py:99)."""
+    n = axis.shape[0]
+    i1 = torch.clamp(torch.searchsorted(axis, x.contiguous()), 1, n - 1)
+    i0 = i1 - 1
+    w = (x - axis[i0]) / torch.clamp_min(axis[i1] - axis[i0], 1e-30)
+    return i0, i1, torch.clamp(w, 0.0, 1.0)
 
 
 def s1_n_photon_hits(params, const, positions, amp, gen):
@@ -49,13 +111,18 @@ def row_edges_of(truth_row: torch.Tensor, inst_edges: torch.Tensor,
     return inst_edges[first_inst]
 
 
-def masked_pattern(params, pattern_map, positions):
-    """(I, C) float32 pattern of each instruction times the live mask."""
-    pattern = pattern_map(positions)
+def live_pattern(params, pattern):
+    """(I, C) float32 pattern times the live mask; a (I,) pattern (a map
+    with one output) is broadcast over the channels."""
     if pattern.dim() == 1:
         pattern = pattern[:, None] * torch.ones(
-            (1, params.gains.shape[0]), device=positions.device)
+            (1, params.gains.shape[0]), device=pattern.device)
     return pattern * params.live_mask[None, :].to(pattern.dtype)
+
+
+def masked_pattern(params, pattern_map, positions):
+    """(I, C) float32 pattern of each instruction times the live mask."""
+    return live_pattern(params, pattern_map(positions))
 
 
 def _positions(inst):
@@ -65,36 +132,125 @@ def _positions(inst):
 def s1_draws(params, const, inst, gen) -> dict:
     """The yields and per-photon draws of an S1 batch, in the generator's
     order: the binomial photon counts ``n_hits``, then per photon the
-    channel uniform ``u_ch``, the decay exponential ``exp``, the spread
-    normal ``normal`` and the PMT draws ``pmt`` (:func:`pmt_draws`)."""
+    channel uniform ``u_ch``, with ``simple`` timing the decay exponential
+    ``exp`` and the spread normal ``normal``, with ``nest`` timing the
+    table uniform ``u_nest``, and the PMT draws ``pmt``
+    (:func:`pmt_draws`).  A model that is off takes no draws (None)."""
+    models = s1_models(const.s1_model_type)
     dev = inst['x'].device
     n_hits = s1_n_photon_hits(params, const, _positions(inst), inst['amp'],
                               gen)
     n = int(n_hits.sum())
-    return dict(n_hits=n_hits, u_ch=uniform(gen, n, dev),
-                exp=exponential(gen, n, dev), normal=normal(gen, n, dev),
-                pmt=pmt_draws(gen, n, dev))
+    d = dict(n_hits=n_hits, u_ch=uniform(gen, n, dev), exp=None,
+             normal=None, u_nest=None)
+    if 'simple' in models:
+        d['exp'] = exponential(gen, n, dev)
+        d['normal'] = normal(gen, n, dev)
+    if 'nest' in models:
+        d['u_nest'] = uniform(gen, n, dev)
+    d['pmt'] = pmt_draws(gen, n, dev)
+    return d
 
 
-def s1_photon_times_ref(time, edges, truth_row, exp, nrm, *, decay_time,
-                        decay_spread):
+# ---------------------------------------------------------------------------
+# NEST photon delays (K13b)
+
+
+def nest_delays_ref(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
+    """Plain twin of :func:`nest_delays`."""
+    ph = segment_ids_from_counts(edges[1:] - edges[:-1])
+    M = table.shape[-1]
+    s = u * (M - 1)
+    k0 = torch.floor(s).to(torch.int64)
+    k1 = torch.clamp_max(k0 + 1, M - 1)
+    kw = s - k0.to(torch.float32)
+    c = cls[ph]
+    out = 0.0
+    for fi, fwgt in ((fi0[ph], 1 - fw[ph]), (fi1[ph], fw[ph])):
+        for ei, ewgt in ((ei0[ph], 1 - ew[ph]), (ei1[ph], ew[ph])):
+            q = table[c, fi, ei, k0] * (1 - kw) + table[c, fi, ei, k1] * kw
+            out = out + fwgt * ewgt * q
+    return out
+
+
+_nest_kernel = Kernel('wfsim_nest_delays',
+                      [P, I, I, I, I, P, P, P, P, P, P, P, I, P, P, P, P])
+
+
+def nest_delays(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
+    """NEST photon emission delays (wfsim_tpu/models/s1.py:108
+    _nest_table_delays): photon j of instruction i samples the (class,
+    field, energy) quantile table at ``u[j] * (M-1)``, linear in the
+    quantile and bilinear in field and energy, summed in the order (field
+    lower, energy lower), (lower, upper), (upper, lower), (upper, upper).
+
+    :param table: (4, F, En, M) float32 inverse CDFs
+    :param cls: (I,) int64 recoil class (:func:`recoil_class`)
+    :param fi0, fi1, fw: (I,) int64, int64, float32 :func:`grid_pos` of the
+        instruction's field; ``ei0, ei1, ew`` the same of its energy
+    :param edges: (I+1,) int64: instruction i owns photons [edges[i],
+        edges[i+1])
+    :param u: (N,) float32 uniforms
+    :returns: (N,) float32 delays (ns)
+
+    CPU tensors run :func:`nest_delays_ref`; CUDA tensors launch
+    ``csrc/table_samplers.cu``."""
+    dev = table.device
+    n_inst = cls.shape[0]
+    n = u.shape[0]
+    check_tensor('table', table, torch.float32, table.shape, dev)
+    if table.dim() != 4:
+        raise ValueError(f'table of shape {tuple(table.shape)}')
+    for name, x, dt in (('cls', cls, torch.int64), ('fi0', fi0, torch.int64),
+                        ('fi1', fi1, torch.int64), ('fw', fw, torch.float32),
+                        ('ei0', ei0, torch.int64), ('ei1', ei1, torch.int64),
+                        ('ew', ew, torch.float32)):
+        check_tensor(name, x, dt, (n_inst,), dev)
+    check_tensor('edges', edges, torch.int64, (n_inst + 1,), dev)
+    check_tensor('u', u, torch.float32, (n,), dev)
+    if int(edges[-1]) != n:
+        raise ValueError(f'{n} uniforms for {int(edges[-1])} photons')
+    args = (table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u)
+    if dev.type == 'cpu':
+        return nest_delays_ref(*args)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'nest_delays on {dev}')
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n:
+        _nest_kernel(ptr(table), *table.shape, ptr(cls), ptr(fi0), ptr(fi1),
+                     ptr(fw), ptr(ei0), ptr(ei1), ptr(ew), n_inst,
+                     ptr(edges), ptr(u), ptr(out), stream_of(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# photon times (K9)
+
+
+def s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest=None, *,
+                        decay_time, decay_spread):
     """Plain twin of :func:`s1_photon_times`."""
     ph_inst = segment_ids_from_counts(edges[1:] - edges[:-1])
     t = time[ph_inst]
-    t = t + trunc_int(exp * decay_time)
-    t = t + trunc_int(nrm * decay_spread)
+    if exp is not None:
+        t = t + trunc_int(exp * decay_time)
+        t = t + trunc_int(nrm * decay_spread)
+    if nest is not None:
+        t = t + trunc_int(nest)
     return t, ph_inst, truth_row[ph_inst]
 
 
 _times_kernel = Kernel('wfsim_s1_photon_times',
-                       [P, P, P, I, P, P, F, F, P, P, P, P])
+                       [P, P, P, I, P, P, P, F, F, P, P, P, P])
 
 
-def s1_photon_times(time, edges, truth_row, exp, nrm, *, decay_time,
-                    decay_spread):
-    """Photon times of the simple S1 model (reference: s1.py:191-194):
-    ``time[i] + trunc(exp * decay_time) + trunc(normal * decay_spread)``
-    for the photons [edges[i], edges[i+1]) of instruction i.
+def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None, *,
+                    decay_time, decay_spread):
+    """Photon times of the S1 timing models (reference: s1.py:191-234):
+    ``time[i]``, plus ``trunc(exp * decay_time) + trunc(normal *
+    decay_spread)`` with ``simple`` timing (``exp`` and ``nrm`` given) and
+    ``trunc(nest)`` with ``nest`` timing (:func:`nest_delays`), for the
+    photons [edges[i], edges[i+1]) of instruction i.
 
     :returns: (t (N,) int32, ph_inst (N,) int64, truth row (N,) int64)
 
@@ -102,28 +258,52 @@ def s1_photon_times(time, edges, truth_row, exp, nrm, *, decay_time,
     ``csrc/photon_times.cu``."""
     dev = time.device
     n_inst = time.shape[0]
-    n = exp.shape[0]
+    n = int(edges[-1])
     check_tensor('time', time, torch.int32, (n_inst,), dev)
     check_tensor('edges', edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
-    check_tensor('exp', exp, torch.float32, (n,), dev)
-    check_tensor('normal', nrm, torch.float32, (n,), dev)
-    if int(edges[-1]) != n:
-        raise ValueError(f'{n} draws for {int(edges[-1])} photons')
+    if (exp is None) != (nrm is None):
+        raise ValueError('the simple model takes both exp and normal draws')
+    for name, x in (('exp', exp), ('normal', nrm), ('nest', nest)):
+        if x is not None:
+            check_tensor(name, x, torch.float32, (n,), dev)
     kw = dict(decay_time=decay_time, decay_spread=decay_spread)
     if dev.type == 'cpu':
-        return s1_photon_times_ref(time, edges, truth_row, exp, nrm, **kw)
+        return s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest,
+                                   **kw)
     if dev.type != 'cuda':
         raise NotImplementedError(f's1_photon_times on {dev}')
     t = torch.empty(n, dtype=torch.int32, device=dev)
     ph_inst = torch.empty(n, dtype=torch.int64, device=dev)
     ph_row = torch.empty(n, dtype=torch.int64, device=dev)
+
+    def opt(x):
+        return None if x is None else ptr(x)
     if n:
         _times_kernel(ptr(time), ptr(edges), ptr(truth_row), n_inst,
-                      ptr(exp), ptr(nrm), float(np.float32(decay_time)),
+                      opt(exp), opt(nrm), opt(nest),
+                      float(np.float32(decay_time)),
                       float(np.float32(decay_spread)), ptr(t), ptr(ph_inst),
                       ptr(ph_row), stream_of(dev))
     return t, ph_inst, ph_row
+
+
+def nest_inputs(params, const, inst):
+    """The per-instruction inputs of :func:`nest_delays`: the table, the
+    recoil class and the grid positions of the local field and the energy
+    (the drift field and 10 keV where the batch has none; wfsim_tpu
+    s1.py:193-201)."""
+    x = inst['x']
+    fld = inst.get('local_field')
+    if fld is None:
+        fld = torch.full_like(x, const.drift_field)
+    edep = inst.get('e_dep')
+    if edep is None:
+        edep = torch.full_like(x, 10.0)
+    fi0, fi1, fw = grid_pos(params.nest_fields, fld)
+    ei0, ei1, ew = grid_pos(params.nest_energies, edep)
+    return (params.nest_inv_cdf, recoil_class(inst['recoil']), fi0, fi1, fw,
+            ei0, ei1, ew)
 
 
 def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
@@ -131,15 +311,22 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     (:func:`s1_draws`); a pure function of its arguments.
 
     :param inst: dict of (I,) tensors: time (int32, batch-relative ns), x, y,
-        z (float32), amp (int32), truth_row (int64, ascending)
+        z (float32), amp (int32), truth_row (int64, ascending); for
+        ``nest`` timing also recoil (int32), local_field and e_dep
+        (float32)
     :returns: (photons, truth, req_counts) — ``req_counts`` (I,) is each
         instruction's photon count; photons are grouped by instruction
     """
+    models = s1_models(const.s1_model_type)
     n_hits = draws['n_hits']
     inst_edges = edges_from_counts(n_hits)
+    nest = None
+    if 'nest' in models:
+        nest = nest_delays(*nest_inputs(params, const, inst), inst_edges,
+                           draws['u_nest'])
     t, _ph_inst, truth_row = s1_photon_times(
         inst['time'], inst_edges, inst['truth_row'], draws['exp'],
-        draws['normal'], decay_time=const.s1_decay_time,
+        draws['normal'], nest, decay_time=const.s1_decay_time,
         decay_spread=const.s1_decay_spread)
     # channels from the pattern map (reference: s1.py:137-159)
     ch = channel_draw(masked_pattern(params, params.s1_pattern,
@@ -157,10 +344,6 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
 def simulate_s1(params, const, inst, gen, *, n_truth_rows: int):
     """Simulate a batch of S1 instructions: :func:`s1_draws`, then
     :func:`s1_photon_pass` (inst and returns as there)."""
-    if str(const.s1_model_type) != 'simple':
-        raise NotImplementedError(
-            f's1_model_type {const.s1_model_type!r}: the port has the '
-            f'simple model only')
     return s1_photon_pass(params, const, inst,
                           s1_draws(params, const, inst, gen),
                           n_truth_rows=n_truth_rows)

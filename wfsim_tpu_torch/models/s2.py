@@ -1,21 +1,25 @@
-"""S2 electroluminescence (counterpart of wfsim_tpu/models/s2.py on the
-main path: no field distortion, ``simple`` luminescence, AFT smearing and
-transverse diffusion off, ``s2_time_spread`` timing; reference:
-wfsim/core/s2.py).
+"""S2 electroluminescence (counterpart of wfsim_tpu/models/s2.py: inverse
+field-distortion correction, ``simple`` and ``garfield_gas_gap``
+luminescence, transverse diffusion of the pattern, AFT smearing,
+``s2_time_spread`` timing; reference: wfsim/core/s2.py).
 
 Electrons per instruction survive extraction and the drift lifetime
 (binomial), arrive with trapping and longitudinal diffusion, and each
 makes Poisson(sc_gain) photons; photons get a channel from the pattern
-map, a luminescence time, a gas-excimer delay and the S2 time spread.
+map (averaged over the transversely diffused electron positions, its
+area fraction top smeared), a luminescence time, a gas-excimer delay and
+the S2 time spread.
 
 :func:`simulate_s2` is :func:`s2_draws`, which makes the yields and every
-per-electron and per-photon draw from the generator, followed by
-:func:`s2_photon_pass`, a pure function of those draws.  On a CUDA device
-the pass runs the hand-written kernels (electron and photon times,
-luminescence tables, channel draw, PMT response); on the CPU their plain
-twins.  Every reduction and division of the twins gives the same bits on
-either device (float64 accumulations, divisions by float32 tensors), so a
-kernel is held against its twin on the card and on the CPU alike.
+per-electron, per-instruction and per-photon draw from the generator,
+followed by :func:`s2_photon_pass`, a pure function of those draws.  On a
+CUDA device the pass runs the hand-written kernels (electron and photon
+times, luminescence tables and gas-gap sampler, diffused pattern, map
+lookups, channel draw, PMT response); on the CPU their plain twins.  Every
+reduction and division of the twins gives the same bits on either device
+(float64 or fixed-point accumulations, divisions by float32 tensors, no
+transcendental functions at instruction width), so a kernel is held
+against its twin on the card and on the CPU alike.
 """
 from __future__ import annotations
 
@@ -24,43 +28,95 @@ import torch
 
 from .. import units
 from .._build import Kernel, P, I, F, check_tensor, ptr, stream_of
+from ..ops.interp import grid_lookup_ref
 from ..ops.randsample import (channel_draw, search_sorted_rows, binomial,
                               poisson, uniform, normal, exponential)
 from ..ops.segment import segment_ids_from_counts, edges_from_counts
-from .common import f32, singlet_triplet_delays, trunc_int
+from .common import (f32, singlet_triplet_delays, skew_normal, sqrt_f32,
+                     trunc_int)
 from .pmt import pmt_draws, pmt_response, photon_time_stats
-from .s1 import masked_pattern, row_edges_of
+from .s1 import live_pattern, row_edges_of
 
 __all__ = ['simulate_s2', 's2_draws', 's2_photon_pass', 's2_edges',
            'luminescence_simple', 'luminescence_tables',
            'luminescence_tables_ref', 's2_electron_times',
            's2_electron_times_ref', 's2_photon_times', 's2_photon_times_ref',
-           'get_s2_drift_time_params']
+           'get_s2_drift_time_params', 'inverse_field_distortion_correction',
+           's2_positions', 'gasgap_rows', 'lumi_gasgap_times',
+           'lumi_gasgap_times_ref', 'diffusion_inputs', 'pattern_diffuse',
+           'pattern_diffuse_ref', 's2_pattern', 'aft_smear']
 
 #: quantile resolution of the per-instruction luminescence inverse CDFs
 Q = 1024
 
+#: the gas-gap sampler's per-instruction time sums are int64 in units of
+#: 2^-32 ns, so they are exact and the same in any order on any device
+FIXED_POINT_SCALE = 2.0 ** 32
+
 
 def check_supported(const):
+    """Raise on an S2 switch the port does not run."""
     for ok, what in (
-            (const.field_distortion_model == 'none', 'field distortion'),
+            (const.field_distortion_model in ('none', 'inverse_fdc'),
+             'COMSOL field distortion'),
             (not const.enable_gas_gap_warping, 'gas-gap warping'),
             (not (const.en_drift_speed or const.en_diff_long
                   or const.en_survival_prob or const.en_diff_trans),
              'field-dependency maps'),
             (not const.se_gain_from_map and not const.ext_eff_from_map,
              'se-gain / extraction maps'),
-            (const.diffusion_constant_transverse == 0,
-             'transverse diffusion'),
-            (const.s2_aft_sigma == 0, 'AFT smearing'),
-            (const.s2_luminescence_model == 'simple', 'garfield luminescence'),
+            (const.s2_luminescence_model != 'garfield',
+             'garfield wire-table luminescence'),
             ('optical_propagation' not in const.s2_time_model,
              'S2 optical propagation')):
         if not ok:
             raise NotImplementedError(f'the port has no {what} yet')
+    if const.s2_luminescence_model not in ('simple', 'garfield_gas_gap'):
+        raise KeyError(f'{const.s2_luminescence_model} is not a valid '
+                       f's2_luminescence_model')
     if 's2_time_spread around zero' not in const.s2_time_model \
             and 'zero_delay' not in const.s2_time_model:
         raise KeyError(f'{const.s2_time_model} is not a valid s2_time_model')
+
+
+def diffusion_on(const) -> bool:
+    """Transverse diffusion of the pattern (reference: s2.py:637-640)."""
+    return const.diffusion_constant_transverse > 0
+
+
+# ---------------------------------------------------------------------------
+# field distortion and positions
+
+
+def inverse_field_distortion_correction(params, x, y, z):
+    """6-iteration fixed-point inversion of the field-distortion correction
+    (reference: s2.py:29-53; wfsim_tpu s2.py:37): ``(z_obs, xy_obs (I, 2))``."""
+    positions = torch.stack([x, y, z], dim=1)
+    dr_pre = torch.zeros_like(x)
+    for i_iter in range(6):
+        dr = params.fdc_3d(positions)
+        if dr.dim() > 1:
+            dr = dr[..., 0]
+        if i_iter > 0:
+            dr = 0.5 * dr + 0.5 * dr_pre
+        dr_pre = dr
+        r_obs = sqrt_f32(x * x + y * y) - dr
+        x_obs = x * r_obs / (r_obs + dr)
+        y_obs = y * r_obs / (r_obs + dr)
+        z_obs = -sqrt_f32(z * z + dr * dr)
+        positions = torch.stack([x_obs, y_obs, z_obs], dim=1)
+    return z_obs, torch.stack([x_obs, y_obs], dim=1)
+
+
+def s2_positions(params, const, inst):
+    """(z, xy (I, 2)) where the electrons are observed: after the inverse
+    field-distortion correction when it is on, else the interaction
+    position (wfsim_tpu s2.py:397-404)."""
+    if const.field_distortion_model == 'inverse_fdc' \
+            and params.fdc_3d is not None:
+        return inverse_field_distortion_correction(params, inst['x'],
+                                                   inst['y'], inst['z'])
+    return inst['z'], torch.stack([inst['x'], inst['y']], dim=1)
 
 
 def get_s2_drift_time_params(const, z_int):
@@ -69,7 +125,7 @@ def get_s2_drift_time_params(const, z_int):
     v = f32(const.drift_velocity_liquid, z_int)
     dlong = const.diffusion_constant_longitudinal
     drift_time_mean = torch.clamp_min(-z_int / v + const.drift_time_gate, 0.0)
-    drift_time_spread = torch.sqrt(2 * dlong * drift_time_mean) / v
+    drift_time_spread = sqrt_f32(2 * dlong * drift_time_mean) / v
     return drift_time_mean, drift_time_spread
 
 
@@ -195,25 +251,313 @@ def luminescence_simple(inv, ph_inst, u):
 
 
 # ---------------------------------------------------------------------------
+# garfield gas-gap luminescence (K13a)
+
+
+def gasgap_rows(params, xy):
+    """Per instruction, the two gas-gap rows of the luminescence table and
+    the fraction between them (wfsim_tpu s2.py:255-265): ``(lower (I,),
+    upper (I,) int64, frac (I,) float32)``."""
+    gg = params.garfield_gas_gap_map(xy)
+    if gg.dim() > 1:
+        gg = gg[..., 0]
+    gaps = params.gg_gas_gap
+    G = gaps.shape[0]
+    ind = torch.clamp(torch.searchsorted(gaps, gg.contiguous(), right=True)
+                      - 1, 0, G - 1)
+    upper = torch.clamp(ind + 1, 0, G - 1)
+    frac = (gg - gaps[ind]) / (gaps[1:2] - gaps[0:1])
+    return ind, upper, frac
+
+
+def lumi_gasgap_times_ref(inv_cdf, lower, upper, frac, ph_edges, u):
+    """Plain twin of :func:`lumi_gasgap_times`."""
+    ph = segment_ids_from_counts(ph_edges[1:] - ph_edges[:-1])
+    M = inv_cdf.shape[1]
+    s = u * (M - 2)
+    i0 = torch.floor(s).to(torch.int64)
+    i1 = torch.ceil(s).to(torch.int64)
+    w = s - i0.to(torch.float32)
+    lo, hi, f = lower[ph], upper[ph], frac[ph]
+
+    def grab(i):
+        a, b = inv_cdf[lo, i], inv_cdf[hi, i]
+        return (b - a) * f + a
+    t1 = grab(i0)
+    t2 = grab(i1)
+    T = (t2 - t1) * w + t1
+    q = torch.round(T.to(torch.float64) * FIXED_POINT_SCALE).to(torch.int64)
+    sums = torch.zeros(lower.shape[0], dtype=torch.int64, device=u.device)
+    sums.index_add_(0, ph, q)
+    cnt = torch.clamp_min(ph_edges[1:] - ph_edges[:-1], 1)
+    mean = (sums.to(torch.float64) / FIXED_POINT_SCALE
+            / cnt.to(torch.float64)).to(torch.float32)
+    return trunc_int(T - mean[ph])
+
+
+def check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges):
+    """Raise ``OverflowError`` where an instruction's int64 fixed-point time
+    sum (:data:`FIXED_POINT_SCALE`) could wrap: its photon count times the
+    largest |T| it can sample must stay below 2^63 / 2^32 = 2^31 ns.  An
+    instruction's times are lerps of its row pair at ``frac`` over the
+    sampled columns 0..M-2, so their largest magnitude bounds |T|; the
+    factor 1 + 2^-16 covers the float32 rounding of T and of this product,
+    the + 1 ns the rounding of each term to 2^-32 ns."""
+    if lower.shape[0] == 0:
+        return
+    M = inv_cdf.shape[1]
+    lo, hi = inv_cdf[lower, :M - 1], inv_cdf[upper, :M - 1]
+    t_max = ((hi - lo) * frac[:, None] + lo).abs().amax(dim=1)
+    worst = ((ph_edges[1:] - ph_edges[:-1]) * t_max).max().item()
+    if worst * (1 + 2.0 ** -16) + 1 >= 2.0 ** 31:
+        raise OverflowError(
+            f'an instruction\'s photons sum to ~{worst:.4g} ns, past the '
+            f'int64 fixed-point range of its mean time ({2.0 ** 31:.4g} ns)')
+
+
+_gasgap_kernel = Kernel('wfsim_lumi_gasgap_times',
+                        [P, I, I, P, P, P, I, P, P, P, P, P])
+
+
+def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u):
+    """Luminescence times of the ``garfield_gas_gap`` model (wfsim_tpu
+    s2.py:255 luminescence_garfield_gasgap; reference s2.py:411-483):
+    photon j of instruction i interpolates the rows ``lower[i]`` and
+    ``upper[i]`` of the gas-gap inverse CDFs at ``frac[i]`` and the
+    quantile ``u[j] * (M-2)`` (the last, odd tail bin is not sampled), and
+    the instruction's mean time is subtracted before the truncation.
+
+    The mean is the photons' sum taken in int64 fixed point (2^-32 ns, each
+    time rounded half to even), divided by the count in float64 and rounded
+    to float32 once: exact, and the same in any order, so the kernel's
+    parallel sum equals the twin's on either device.  wfsim_tpu sums in
+    float32 (ROADMAP Queue 3 F12).  An instruction whose sum could pass
+    int64 raises (:func:`check_fixed_point_range`: about 2^31 ns summed
+    over its photons, e.g. 1.2e7 photons at the synthetic table's ~175 ns).
+
+    :param inv_cdf: (G, M) float32 per-gas-gap inverse CDFs
+    :param lower, upper: (I,) int64 rows, ``frac`` (I,) float32
+        (:func:`gasgap_rows`)
+    :param ph_edges: (I+1,) int64: instruction i owns photons
+        [ph_edges[i], ph_edges[i+1])
+    :param u: (N,) float32 uniforms
+    :returns: (N,) int32 times (ns)
+
+    CPU tensors run :func:`lumi_gasgap_times_ref`; CUDA tensors launch
+    ``csrc/table_samplers.cu`` (one block per instruction)."""
+    dev = inv_cdf.device
+    n_inst = lower.shape[0]
+    n = u.shape[0]
+    check_tensor('inv_cdf', inv_cdf, torch.float32, inv_cdf.shape, dev)
+    if inv_cdf.dim() != 2 or inv_cdf.shape[1] < 3:
+        raise ValueError(f'inv_cdf of shape {tuple(inv_cdf.shape)}')
+    check_tensor('lower', lower, torch.int64, (n_inst,), dev)
+    check_tensor('upper', upper, torch.int64, (n_inst,), dev)
+    check_tensor('frac', frac, torch.float32, (n_inst,), dev)
+    check_tensor('ph_edges', ph_edges, torch.int64, (n_inst + 1,), dev)
+    check_tensor('u', u, torch.float32, (n,), dev)
+    if int(ph_edges[-1]) != n:
+        raise ValueError(f'{n} uniforms for {int(ph_edges[-1])} photons')
+    check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges)
+    if dev.type == 'cpu':
+        return lumi_gasgap_times_ref(inv_cdf, lower, upper, frac, ph_edges, u)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'lumi_gasgap_times on {dev}')
+    t = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(n, dtype=torch.float32, device=dev)
+    if n:
+        _gasgap_kernel(ptr(inv_cdf), *inv_cdf.shape, ptr(lower), ptr(upper),
+                       ptr(frac), n_inst, ptr(ph_edges), ptr(u), ptr(scratch),
+                       ptr(t), stream_of(dev))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# transverse diffusion of the pattern (K12b) and AFT smearing
+
+
+def diffusion_inputs(const, z, xy):
+    """Per instruction the radial and azimuthal spreads of the electrons
+    after the drift, and the cosine and sine of the azimuth (wfsim_tpu
+    s2.py:309-327): ``(std_r, std_a, cos, sin)`` float32.  The azimuth
+    enters as x / r and y / r, not as cos(arctan2(y, x)): IEEE division and
+    square root give the same bits on the CPU and the card, torch's
+    transcendental functions do not (they differ from wfsim_tpu's in the
+    last bit)."""
+    x, y = xy[:, 0], xy[:, 1]
+    d_t = torch.full_like(z, const.diffusion_constant_transverse)
+    drift_time_mean = -z / f32(const.drift_velocity_liquid, z)
+    std = sqrt_f32(2 * d_t * torch.clamp_min(drift_time_mean, 0.0))
+    r = sqrt_f32(x * x + y * y)
+    inner = r > 0
+    safe_r = torch.where(inner, r, 1.0)
+    cos_t = torch.where(inner, x / safe_r, 1.0)
+    sin_t = torch.where(inner, y / safe_r, 0.0)
+    return std, std, cos_t, sin_t
+
+
+def pattern_diffuse_ref(pattern_map, x, y, std_r, std_a, cos_t, sin_t,
+                        r2_max, e_edges, n_r, n_a, n_channels: int):
+    """Plain twin of :func:`pattern_diffuse`: materialises the (E, C)
+    per-electron patterns."""
+    counts = e_edges[1:] - e_edges[:-1]
+    e_inst = segment_ids_from_counts(counts)
+    hr = n_r * std_r[e_inst]
+    ha = n_a * std_a[e_inst]
+    ct, st = cos_t[e_inst], sin_t[e_inst]
+    dx = hr * ct - ha * st
+    dy = hr * st + ha * ct
+    xe = x[e_inst] + dx
+    ye = y[e_inst] + dy
+    inside = (xe * xe + ye * ye <= r2_max).to(torch.float64)
+    pat = grid_lookup_ref(pattern_map.values, pattern_map.lows,
+                          pattern_map.highs, torch.stack([xe, ye], dim=1))
+    if pat.dim() == 1:
+        pat = pat[:, None].expand(-1, n_channels)
+    n_inst = x.shape[0]
+    num = torch.zeros((n_inst, n_channels), dtype=torch.float64,
+                      device=x.device)
+    num.index_add_(0, e_inst, pat.to(torch.float64) * inside[:, None])
+    den = torch.zeros(n_inst, dtype=torch.float64, device=x.device)
+    den.index_add_(0, e_inst, inside)
+    return (num / torch.clamp_min(den, 1.0)[:, None]).to(torch.float32)
+
+
+_diffuse_kernel = Kernel('wfsim_pattern_diffuse',
+                         [P, I, I, I, I, P, P, P, P, P, P, P, P, F, I, P, P,
+                          P, P, P])
+
+
+def pattern_diffuse(pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max,
+                    e_edges, n_r, n_a, n_channels: int):
+    """The S2 pattern of each instruction averaged over its transversely
+    diffused electrons (wfsim_tpu/models/s2.py:300 s2_pattern_map_diffuse;
+    reference s2.py:559-613).  Electron k of instruction i sits at
+    ``(x[i], y[i]) + R(theta_i) (n_r[k] std_r[i], n_a[k] std_a[i])``;
+    electrons outside the TPC radius (``r^2 > r2_max``) are left out; the
+    pattern map is looked up at each electron and the inside electrons'
+    patterns are averaged.
+
+    The per-channel sums are float64; a float32 pattern value within a
+    dynamic range of 2^k adds exactly while k + log2(electrons) <= 29, so
+    the sum is then the same in any order (the twin's index_add_ on the
+    card adds in another order than the kernel).  wfsim_tpu sums in
+    float32 (ROADMAP Queue 3 F12).
+
+    :param pattern_map: a 2-d :class:`~wfsim_tpu_torch.ops.interp.GridMap`
+        with 1 or ``n_channels`` outputs
+    :param x, y, std_r, std_a, cos_t, sin_t: (I,) float32
+        (:func:`diffusion_inputs`)
+    :param e_edges: (I+1,) int64 electron boundaries; ``n_r``, ``n_a`` (E,)
+        float32 standard normals
+    :returns: (I, n_channels) float32
+
+    CPU tensors run :func:`pattern_diffuse_ref`; CUDA tensors launch
+    ``csrc/grid_lookup.cu`` (one block per instruction, a thread per
+    channel; no (E, C) array is written)."""
+    vals = pattern_map.values
+    dev = vals.device
+    n_inst = x.shape[0]
+    n_e = n_r.shape[0]
+    if vals.dim() != 3 or vals.shape[-1] not in (1, n_channels):
+        raise ValueError(f'pattern map of shape {tuple(vals.shape)}')
+    check_tensor('values', vals, torch.float32, vals.shape, dev)
+    for name, a in (('lows', pattern_map.lows), ('highs', pattern_map.highs)):
+        check_tensor(name, a, torch.float32, (2,), dev)
+    for name, a in (('x', x), ('y', y), ('std_r', std_r), ('std_a', std_a),
+                    ('cos_t', cos_t), ('sin_t', sin_t)):
+        check_tensor(name, a, torch.float32, (n_inst,), dev)
+    check_tensor('e_edges', e_edges, torch.int64, (n_inst + 1,), dev)
+    check_tensor('n_r', n_r, torch.float32, (n_e,), dev)
+    check_tensor('n_a', n_a, torch.float32, (n_e,), dev)
+    if int(e_edges[-1]) != n_e:
+        raise ValueError(f'{n_e} normals for {int(e_edges[-1])} electrons')
+    args = (pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max, e_edges,
+            n_r, n_a, n_channels)
+    if dev.type == 'cpu':
+        return pattern_diffuse_ref(*args)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'pattern_diffuse on {dev}')
+    out = torch.empty((n_inst, n_channels), dtype=torch.float32, device=dev)
+    if n_inst:
+        _diffuse_kernel(ptr(vals), vals.shape[0], vals.shape[1],
+                        vals.shape[2], n_channels, ptr(pattern_map.lows),
+                        ptr(pattern_map.highs), ptr(x), ptr(y), ptr(std_r),
+                        ptr(std_a), ptr(cos_t), ptr(sin_t),
+                        float(np.float32(r2_max)), n_inst, ptr(e_edges),
+                        ptr(n_r), ptr(n_a), ptr(out), stream_of(dev))
+    return out
+
+
+def s2_pattern(params, const, z, xy, e_edges, draws):
+    """(I, C) live-masked S2 pattern of each instruction: the pattern map
+    at ``xy``, or averaged over the diffused electrons when transverse
+    diffusion is on, then AFT-smeared when ``s2_aft_sigma`` is set
+    (wfsim_tpu s2.py:355-374, 470-475)."""
+    if diffusion_on(const):
+        std_r, std_a, cos_t, sin_t = diffusion_inputs(const, z, xy)
+        pattern = pattern_diffuse(
+            params.s2_pattern, xy[:, 0].contiguous(), xy[:, 1].contiguous(),
+            std_r, std_a, cos_t, sin_t, const.tpc_radius ** 2, e_edges,
+            draws['diff_r'], draws['diff_a'], int(params.gains.shape[0]))
+    else:
+        pattern = params.s2_pattern(xy)
+    pattern = live_pattern(params, pattern)
+    if const.s2_aft_sigma != 0:
+        pattern = aft_smear(params, const, pattern, draws['aft_u0'],
+                            draws['aft_v'])
+    return pattern
+
+
+def aft_smear(params, const, pattern, u0, v):
+    """Skew-normal smearing of each instruction's area fraction top
+    (wfsim_tpu s2.py:360-370; reference s2.py:650-672): the top and bottom
+    channels are rescaled so the top fraction becomes ``aft * skewnorm``,
+    clipped to [0, 1].  The two pattern sums are float64 rounded to float32
+    once (exact, so the same on either device, for 494 positive float32
+    values within a 2^20 dynamic range)."""
+    top = params.top_mask[None, :].to(pattern.dtype)
+    sum_all = pattern.to(torch.float64).sum(dim=1).to(torch.float32)
+    sum_top = (pattern * top).to(torch.float64).sum(dim=1).to(torch.float32)
+    cur_aft = sum_top / torch.clamp_min(sum_all, 1e-30)
+    new_aft = cur_aft * skew_normal(u0, v, 1.0, const.s2_aft_sigma,
+                                    const.s2_aft_skewness)
+    new_aft = torch.clamp(new_aft, 0.0, 1.0)
+    scale_top = new_aft / torch.clamp_min(cur_aft, 1e-30)
+    scale_bot = (1 - new_aft) / torch.clamp_min(1 - cur_aft, 1e-30)
+    return pattern * torch.where(top > 0, scale_top[:, None],
+                                 scale_bot[:, None])
+
+
+# ---------------------------------------------------------------------------
 # draws
 
 
 def s2_draws(params, const, inst, gen) -> dict:
-    """The yields and per-electron and per-photon draws of an S2 batch, in
-    the generator's order (reference: s2.py:211-315, 503-557):
+    """The yields and per-electron, per-instruction and per-photon draws of
+    an S2 batch, in the generator's order (reference: s2.py:211-315,
+    503-557, 559-672):
 
     - ``n_electron`` (I,): Binomial(amp, extraction x lifetime survival);
     - per electron ``e_exp`` (trapping) and ``e_normal`` (diffusion);
     - ``n_ph_per_e`` (E,): Poisson(sc_gain), plus the truncated
       ``s2_gain_spread`` normal where it is on, clamped at 0 (the photon
       count sizes every photon draw after it, so it is part of the draw);
+    - with transverse diffusion, per electron the radial and azimuthal
+      normals ``diff_r`` and ``diff_a``;
+    - with AFT smearing, per instruction the skew-normal's two normals
+      ``aft_u0`` and ``aft_v``;
     - per photon ``u_ch`` (channel), ``u_lum`` (luminescence), ``u_st`` and
       ``exp_st`` (singlet/triplet), ``t_spread`` (the s2_time_spread
       normal, None under ``zero_delay``) and ``pmt`` (:func:`pmt_draws`).
-    """
+
+    A switch that is off takes no draws (None).  The dict also carries the
+    observed position ``z_obs``, ``xy_obs`` (:func:`s2_positions`): no draw,
+    but the S2 correction gain needs it here and the pass reads it, so the
+    inverse field-distortion correction runs once."""
     dev = inst['x'].device
     z = inst['z']
-    positions = torch.stack([inst['x'], inst['y']], dim=1)
+    z_obs, positions = s2_positions(params, const, inst)
     drift_time_mean, _ = get_s2_drift_time_params(const, z)
     cy = torch.full_like(z, const.electron_extraction_yield)
     cy = cy * torch.exp(-drift_time_mean
@@ -228,6 +572,7 @@ def s2_draws(params, const, inst, gen) -> dict:
         sc_gain / f32(1 + const.p_double_pe_emision, sc_gain), nan=0.0)
 
     n_e = int(n_electron.sum())
+    n_inst = int(z.shape[0])
     e_exp = exponential(gen, n_e, dev)
     e_normal = normal(gen, n_e, dev)
     # the per-electron Poisson mean is the library sampler's input
@@ -236,12 +581,19 @@ def s2_draws(params, const, inst, gen) -> dict:
         n_ph_per_e = n_ph_per_e + trunc_int(normal(gen, n_e, dev)
                                             * const.s2_gain_spread)
     n_ph_per_e = torch.clamp_min(n_ph_per_e, 0)
+    d = dict(z_obs=z_obs, xy_obs=positions, n_electron=n_electron,
+             e_exp=e_exp, e_normal=e_normal, n_ph_per_e=n_ph_per_e,
+             diff_r=None, diff_a=None, aft_u0=None, aft_v=None)
+    if diffusion_on(const):
+        d['diff_r'] = normal(gen, n_e, dev)
+        d['diff_a'] = normal(gen, n_e, dev)
+    if const.s2_aft_sigma != 0:
+        d['aft_u0'] = normal(gen, n_inst, dev)
+        d['aft_v'] = normal(gen, n_inst, dev)
 
     n = int(n_ph_per_e.sum())
-    d = dict(n_electron=n_electron, e_exp=e_exp, e_normal=e_normal,
-             n_ph_per_e=n_ph_per_e, u_ch=uniform(gen, n, dev),
-             u_lum=uniform(gen, n, dev), u_st=uniform(gen, n, dev),
-             exp_st=exponential(gen, n, dev))
+    d.update(u_ch=uniform(gen, n, dev), u_lum=uniform(gen, n, dev),
+             u_st=uniform(gen, n, dev), exp_st=exponential(gen, n, dev))
     d['t_spread'] = (normal(gen, n, dev)
                      if 's2_time_spread around zero' in const.s2_time_model
                      else None)
@@ -306,12 +658,12 @@ def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
 
 def s2_photon_times_ref(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum,
                         u_st, exp_st, t_spread, *, singlet_fraction,
-                        t_singlet, t_triplet, time_spread):
+                        t_singlet, t_triplet, time_spread, t_lum=None):
     """Plain twin of :func:`s2_photon_times`."""
     e_inst = segment_ids_from_counts(e_edges[1:] - e_edges[:-1])
     ph_e = segment_ids_from_counts(e_ph_edges[1:] - e_ph_edges[:-1])
     ph_inst = e_inst[ph_e]
-    t = luminescence_simple(inv, ph_inst, u_lum)
+    t = luminescence_simple(inv, ph_inst, u_lum) if t_lum is None else t_lum
     t = t + singlet_triplet_delays(u_st, exp_st, singlet_fraction, t_singlet,
                                    t_triplet)
     if t_spread is not None:
@@ -321,55 +673,69 @@ def s2_photon_times_ref(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum,
 
 
 _ph_kernel = Kernel('wfsim_s2_photon_times',
-                    [P, I, P, I, P, P, P, P, P, P, P, F, F, F, F, P, P, P,
+                    [P, I, P, I, P, P, P, P, P, P, P, P, F, F, F, F, P, P, P,
                      P])
 
 
 def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
                     exp_st, t_spread, *, singlet_fraction, t_singlet,
-                    t_triplet, time_spread):
-    """S2 photon times (reference: s2.py:503-557): the luminescence lerp
-    into the instruction's row of ``inv`` (:func:`luminescence_simple`),
+                    t_triplet, time_spread, t_lum=None):
+    """S2 photon times (reference: s2.py:503-557): the luminescence time,
     the gas singlet/triplet delay, ``trunc(t_spread * s2_time_spread)``
     (skipped where ``t_spread`` is None) and the electron's arrival time.
-    Instruction i owns the electrons [e_edges[i], e_edges[i+1]); electron
-    k the photons [e_ph_edges[k], e_ph_edges[k+1]).
+    The luminescence time is the lerp into the instruction's row of the
+    simple model's ``inv`` at ``u_lum`` (:func:`luminescence_simple`), or,
+    where ``t_lum`` (N,) int32 is given, that (``inv`` and ``u_lum`` are
+    then None; :func:`lumi_gasgap_times`).  Instruction i owns the
+    electrons [e_edges[i], e_edges[i+1]); electron k the photons
+    [e_ph_edges[k], e_ph_edges[k+1]).
 
     :returns: (t (N,) int32, ph_inst (N,) int64, truth row (N,) int64)
 
     CPU tensors run :func:`s2_photon_times_ref`; CUDA tensors launch
     ``csrc/photon_times.cu``."""
-    dev = inv.device
-    n_inst, q = inv.shape
+    dev = e_t.device
+    n_inst = truth_row.shape[0]
     n_e = e_t.shape[0]
-    n = u_lum.shape[0]
-    check_tensor('inv', inv, torch.float32, (n_inst, q), dev)
+    n = u_st.shape[0]
+    if (t_lum is None) == (inv is None) or (inv is None) != (u_lum is None):
+        raise ValueError('pass either inv and u_lum, or t_lum')
+    q = 0
+    if inv is not None:
+        q = inv.shape[1]
+        check_tensor('inv', inv, torch.float32, (n_inst, q), dev)
+        check_tensor('u_lum', u_lum, torch.float32, (n,), dev)
+    else:
+        check_tensor('t_lum', t_lum, torch.int32, (n,), dev)
     check_tensor('e_edges', e_edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('e_ph_edges', e_ph_edges, torch.int64, (n_e + 1,), dev)
     check_tensor('e_t', e_t, torch.int32, (n_e,), dev)
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
-    for name, x in (('u_lum', u_lum), ('u_st', u_st), ('exp_st', exp_st),
+    for name, x in (('u_st', u_st), ('exp_st', exp_st),
                     *((('t_spread', t_spread),) if t_spread is not None
                       else ())):
         check_tensor(name, x, torch.float32, (n,), dev)
     if int(e_edges[-1]) != n_e or int(e_ph_edges[-1]) != n:
         raise ValueError('edges do not match the electron and photon draws')
     kw = dict(singlet_fraction=singlet_fraction, t_singlet=t_singlet,
-              t_triplet=t_triplet, time_spread=time_spread)
+              t_triplet=t_triplet, time_spread=time_spread, t_lum=t_lum)
     if dev.type == 'cpu':
         return s2_photon_times_ref(inv, e_edges, e_ph_edges, e_t, truth_row,
                                    u_lum, u_st, exp_st, t_spread, **kw)
     if dev.type != 'cuda':
         raise NotImplementedError(f's2_photon_times on {dev}')
-    if q < 2:
+    if inv is not None and q < 2:
         raise ValueError('the inverse CDFs need >= 2 quantiles')
     t = torch.empty(n, dtype=torch.int32, device=dev)
     ph_inst = torch.empty(n, dtype=torch.int64, device=dev)
     ph_row = torch.empty(n, dtype=torch.int64, device=dev)
+
+    def opt(x):
+        return None if x is None else ptr(x)
     if n:
-        _ph_kernel(ptr(inv), q, ptr(e_edges), n_inst, ptr(e_ph_edges),
-                   ptr(e_t), ptr(truth_row), ptr(u_lum), ptr(u_st),
-                   ptr(exp_st), None if t_spread is None else ptr(t_spread),
+        _ph_kernel(opt(inv), q, ptr(e_edges), n_inst, ptr(e_ph_edges),
+                   ptr(e_t), ptr(truth_row), opt(u_lum), opt(t_lum),
+                   ptr(u_st), ptr(exp_st), opt(t_spread),
                    *(float(np.float32(v)) for v in (
                        singlet_fraction, t_singlet, t_triplet, time_spread)),
                    ptr(t), ptr(ph_inst), ptr(ph_row), stream_of(dev))
@@ -389,6 +755,21 @@ def s2_edges(draws):
     return e_edges, e_ph_edges, e_ph_edges[e_edges]
 
 
+def mean_electron_position(xy, truth_row, n_truth_rows: int):
+    """Per truth row, the mean observed (field-distorted) position of its
+    instructions (wfsim_tpu s2.py:559-567): ``(x, y)`` float32, float64
+    sums."""
+    dev = xy.device
+    cnt = torch.zeros(n_truth_rows, dtype=torch.float64, device=dev)
+    cnt.index_add_(0, truth_row, torch.ones_like(xy[:, 0], dtype=torch.float64))
+    out = []
+    for k in (0, 1):
+        s = torch.zeros(n_truth_rows, dtype=torch.float64, device=dev)
+        s.index_add_(0, truth_row, xy[:, k].to(torch.float64))
+        out.append((s / torch.clamp_min(cnt, 1.0)).to(torch.float32))
+    return out
+
+
 def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     """The S2 photons and truth of a batch given its draws
     (:func:`s2_draws`); a pure function of its arguments (inst as in
@@ -399,7 +780,7 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     check_supported(const)
     dev = inst['x'].device
     n_inst = inst['x'].shape[0]
-    positions = torch.stack([inst['x'], inst['y']], dim=1)
+    z_obs, positions = draws['z_obs'], draws['xy_obs']
     e_edges, e_ph_edges, ph_edges = s2_edges(draws)
     mean, spread = get_s2_drift_time_params(const, inst['z'])
     e_t, _e_inst, e_row = s2_electron_times(
@@ -407,18 +788,25 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
         draws['e_normal'], inst['truth_row'],
         trapping=const.electron_trapping_time)
 
-    # channels from the pattern map (reference: s2.py:615-682 without AFT
-    # smearing)
-    ch = channel_draw(masked_pattern(params, params.s2_pattern, positions),
-                      ph_edges, draws['u_ch'])
+    # channels from the pattern (reference: s2.py:615-682)
+    ch = channel_draw(s2_pattern(params, const, z_obs, positions, e_edges,
+                                 draws), ph_edges, draws['u_ch'])
     # photon timing (reference: s2.py:503-557)
+    lum = dict(inv=None, u_lum=None, t_lum=None)
+    if const.s2_luminescence_model == 'garfield_gas_gap':
+        lum['t_lum'] = lumi_gasgap_times(
+            params.gg_inv_cdf, *gasgap_rows(params, positions), ph_edges,
+            draws['u_lum'])
+    else:
+        lum['inv'] = luminescence_tables(const, n_inst, dev)
+        lum['u_lum'] = draws['u_lum']
     t, _ph_inst, truth_row = s2_photon_times(
-        luminescence_tables(const, n_inst, dev), e_edges, e_ph_edges, e_t,
-        inst['truth_row'], draws['u_lum'], draws['u_st'], draws['exp_st'],
-        draws['t_spread'], singlet_fraction=const.singlet_fraction_gas,
+        lum['inv'], e_edges, e_ph_edges, e_t, inst['truth_row'],
+        lum['u_lum'], draws['u_st'], draws['exp_st'], draws['t_spread'],
+        singlet_fraction=const.singlet_fraction_gas,
         t_singlet=const.singlet_lifetime_gas,
         t_triplet=const.triplet_lifetime_gas,
-        time_spread=const.s2_time_spread)
+        time_spread=const.s2_time_spread, t_lum=lum['t_lum'])
 
     row_edges = row_edges_of(inst['truth_row'], ph_edges, n_truth_rows)
     photons, truth = pmt_response(params, const, t, ch, ch >= 0, truth_row,
@@ -431,6 +819,9 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     n_el = torch.zeros(n_truth_rows, dtype=torch.int64, device=dev)
     n_el.index_add_(0, inst['truth_row'], draws['n_electron'].to(torch.int64))
     truth['n_electron'] = n_el
+    if const.field_distortion_model == 'inverse_fdc':
+        truth['x_mean_electron'], truth['y_mean_electron'] = \
+            mean_electron_position(positions, inst['truth_row'], n_truth_rows)
     return photons, truth, ph_edges[1:] - ph_edges[:-1]
 
 

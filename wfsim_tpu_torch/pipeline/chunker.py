@@ -27,7 +27,7 @@ __all__ = ['ChunkRawRecords']
 
 
 class ChunkRawRecords:
-    def __init__(self, config, *, device, rawdata_generator=RawData,
+    def __init__(self, config, *, device='cuda', rawdata_generator=RawData,
                  **kwargs):
         self.config = finalize_config(dict(config))
         self.rawdata = rawdata_generator(self.config, device=device, **kwargs)

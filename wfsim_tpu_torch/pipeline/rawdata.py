@@ -54,14 +54,14 @@ from ..models.afterpulse import (pmt_ap_draws, pmt_afterpulse_photons,
                                  generate_pi_el_instructions,
                                  generate_pe_el_instructions)
 from ..models.params import build_params, build_constants
-from ..models.s1 import simulate_s1
-from ..models.s2 import simulate_s2
+from ..models.s1 import simulate_s1, s1_models
+from ..models.s2 import simulate_s2, check_supported
 from ..resources.loader import load_config
 from .digitize import gather_digitize, pack_records, noise_on
 
 log = logging.getLogger('wfsim_tpu_torch.core')
 
-__all__ = ['RawData']
+__all__ = ['RawData', 'resolve_device']
 
 #: digitize working-set budget on a CPU device (bytes)
 CPU_MEMORY_BUDGET = 2 * 10 ** 9
@@ -69,6 +69,17 @@ CPU_MEMORY_BUDGET = 2 * 10 ** 9
 #: instruction type -> simulation kind; pi_el and pe_el run the S2 chain
 KIND_OF_TYPE = {1: 's1', 2: 's2', 4: 'pi_el', 6: 'pe_el'}
 TYPE_OF_KIND = {k: t for t, k in KIND_OF_TYPE.items()}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (no silent
+    fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'wfsim_tpu_torch runs on a CUDA device by default and none is '
+            'available; pass device="cpu" to run the plain PyTorch twins')
+    return device
 
 
 def _bucket(n, lo=256, hi=2 ** 26):
@@ -93,17 +104,22 @@ class RawData:
     """Behavioural counterpart of the reference ``RawData`` on one device.
 
     :param config: configuration dict (see :func:`config.default_config`)
-    :param device: the torch device every tensor lives on (required)
+    :param device: the torch device every tensor lives on: the card unless
+        the caller asks for another; there is no fallback to the CPU
     """
 
-    def __init__(self, config, *, device):
+    def __init__(self, config, *, device='cuda'):
         self.config = finalize_config(dict(config))
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.resource = load_config(self.config)
         self.params = build_params(self.config, self.resource, self.device)
         self.const = build_constants(self.config)
         if self.const.per_pmt_truth:
             raise NotImplementedError('per_pmt_truth is not ported')
+        # model strings fail here, not mid-batch (wfsim_tpu
+        # rawdata.py:299-321)
+        s1_models(self.const.s1_model_type)
+        check_supported(self.const)
         seed = self.config.get('seed') or 0
         self.rng = np.random.default_rng(seed if seed else None)
         self.gen = torch.Generator(device=self.device)
@@ -191,6 +207,10 @@ class RawData:
             y=torch.as_tensor(sel['y'].astype(np.float32), device=dev),
             z=torch.as_tensor(sel['z'].astype(np.float32), device=dev),
             amp=torch.as_tensor(sel['amp'].astype(np.int32), device=dev),
+            recoil=torch.as_tensor(sel['recoil'].astype(np.int32), device=dev),
+            local_field=torch.as_tensor(sel['local_field'].astype(np.float32),
+                                        device=dev),
+            e_dep=torch.as_tensor(sel['e_dep'].astype(np.float32), device=dev),
             truth_row=torch.as_tensor(truth_rows, device=dev))
         return inst, base_time, truth_rows, int(truth_rows.max()) + 1
 
@@ -331,8 +351,12 @@ class RawData:
                 row[field] = int(np.sum(v))
             else:
                 row[field] = v[0]
-        row['x_mean_electron'] = np.nan
-        row['y_mean_electron'] = np.nan
+        if 'x_mean_electron' in truth_h:
+            row['x_mean_electron'] = float(truth_h['x_mean_electron'][r])
+            row['y_mean_electron'] = float(truth_h['y_mean_electron'][r])
+        else:
+            row['x_mean_electron'] = np.nan
+            row['y_mean_electron'] = np.nan
         return row
 
     # -- main generator --------------------------------------------------------

@@ -1,36 +1,107 @@
 """Resource resolution for the port: config -> in-memory detector assets.
 
-Counterpart of ``wfsim_tpu/resources/loader.py``, cut to the paths that
-``default_config()`` and its realistic switches reach (``Resource``
-construction with ``['constant dummy', value, shape]`` map entries, the
-synthetic SPE table and, when enabled, the synthetic PMT-afterpulse CDFs,
-electron-afterpulse PMF and noise bank; wfsim_tpu/resources/loader.py:
-368-575).  Every map is a :class:`~wfsim_tpu_torch.ops.interp.GridMap` of
-host float32 arrays; the device copy is made by
-``models.params.build_params``.
+Counterpart of ``wfsim_tpu/resources/loader.py`` for the paths the port
+runs: ``['constant dummy', value, shape]`` map entries and map files
+(straxen InterpolatingMap JSON, regular-grid or scattered, compressed
+pattern maps; npy/npz/pkl payloads), the derived S1 LCE and S2
+correction maps and the S2 area-fraction-top rescale, the synthetic SPE
+table, the ``garfield_gas_gap`` luminescence tables, the inverse-FDC map
+and, when enabled, the synthetic PMT-afterpulse CDFs, electron-afterpulse
+PMF and noise bank (wfsim_tpu/resources/loader.py:141-575).  Every map is
+a :class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 tensors;
+the device copy is made by ``models.params.build_params``.
 
-Not ported yet (each raises ``NotImplementedError``): real map and table
-files (straxen InterpolatingMap JSON, npz, pickle; afterpulse and noise
-files named by a string entry), field-distortion maps, field-dependency
-maps, gas-gap maps, luminescence tables and optical propagation splines.
+Files resolve from an absolute path or a local search directory
+(``url_base`` when it is a directory, ``$WFSIM_TPU_AUX_DIR``); the remote
+fetch of wfsim_tpu is not ported, so a file found nowhere raises
+``FileNotFoundError``.  Not ported yet (each raises
+``NotImplementedError``): afterpulse and noise files named by a string
+entry, COMSOL field distortion, field-dependency maps, gas-gap warping,
+the garfield wire table, optical propagation splines and measured SPE
+spectra.
 """
 from __future__ import annotations
 
 import functools
+import gzip
+import json
+import os
+import os.path as osp
+import pickle
 
 import numpy as np
+import torch
 
-from ..ops.interp import GridMap
+from ..ops.interp import GridMap, regrid_scattered
 from .spe import build_uniform_to_pe
 from . import synthetic as synth
 
-__all__ = ['Resource', 'load_config', 'make_map', 'DummyMap']
+__all__ = ['Resource', 'load_config', 'make_map', 'make_patternmap',
+           'DummyMap', 'MultiMap', 'get_file_path',
+           'interpolating_map_to_grid']
 
 
 def load_config(config) -> 'Resource':
     """Resource factory (same name as wfsim_tpu.resources.load_config).
-    Building the dummy-map resource takes milliseconds, so no cache."""
+    Not cached: a dummy-map resource takes milliseconds, and a file map is
+    read once per simulator."""
     return Resource(config)
+
+
+# ---------------------------------------------------------------------------
+# File access
+
+
+def _search_dirs(config):
+    dirs = []
+    base = config.get('url_base', '')
+    if isinstance(base, str) and base.startswith('/'):
+        dirs.append(base)
+    env = os.environ.get('WFSIM_TPU_AUX_DIR')
+    if env:
+        dirs.append(env)
+    return dirs
+
+
+def get_file_path(config, fname):
+    """Resolve a resource file name to a local path, or None: an absolute
+    path, else the local ``url_base`` directory, else $WFSIM_TPU_AUX_DIR
+    (wfsim_tpu loader.py:141 without its remote fetch)."""
+    if not fname or not isinstance(fname, str):
+        return None
+    if fname.startswith('/'):
+        return fname if osp.exists(fname) else None
+    for d in _search_dirs(config):
+        p = osp.join(d, fname)
+        if osp.exists(p):
+            return p
+    return None
+
+
+def _read_any(path):
+    """Load a resource file by extension (wfsim_tpu loader.py:159)."""
+    if path.endswith('.json'):
+        with open(path) as f:
+            return json.load(f)
+    if path.endswith('.json.gz'):
+        with gzip.open(path, 'rt') as f:
+            return json.load(f)
+    if path.endswith('.npy'):
+        return np.load(path, allow_pickle=True)
+    if path.endswith('.npz'):
+        d = np.load(path, allow_pickle=True)
+        return d['arr_0'] if 'arr_0' in d else d
+    if path.endswith('.pkl'):
+        with open(path, 'rb') as f:
+            return pickle.load(f)
+    if path.endswith(('.pkl.gz', '.pklz')):
+        with gzip.open(path, 'rb') as f:
+            return pickle.load(f)
+    raise ValueError(f'Unknown resource format: {path}')
+
+
+# ---------------------------------------------------------------------------
+# Map construction
 
 
 class DummyMap:
@@ -50,37 +121,159 @@ class DummyMap:
         return DummyMap(const, shape)
 
 
-def make_map(entry):
-    """Resolve one config map entry: dummy list or None."""
+class MultiMap:
+    """Named-submap container (straxen InterpolatingMap files may hold
+    several maps); ``default`` names the one the simulator reads."""
+
+    def __init__(self, maps: dict, default: str = 'map'):
+        self.maps = maps
+        self.default = default
+
+
+def _axes_are_regular_spec(cs):
+    # straxen regular-grid spec: [['x', [min, max, n]], ...]
+    return (len(cs) > 0 and isinstance(cs[0], (list, tuple)) and len(cs[0]) == 2
+            and isinstance(cs[0][0], str))
+
+
+def interpolating_map_to_grid(map_data: dict, n_grid: int = 50) -> MultiMap:
+    """Convert a straxen InterpolatingMap payload into GridMaps: the
+    regular-grid layout directly (non-uniform axes resampled), the
+    scattered-point layout re-gridded (wfsim_tpu loader.py:235)."""
+    cs = map_data['coordinate_system']
+    ignore = {'coordinate_system', 'name', 'description', 'timestamp',
+              'compressed', 'quantized', 'irregular', 'deviation_matrix'}
+    map_names = [k for k in map_data if k not in ignore]
+    out = {}
+    if _axes_are_regular_spec(cs):
+        axes = []
+        for _, spec in cs:
+            if len(spec) == 3:
+                axes.append(np.linspace(spec[0], spec[1], int(spec[2])))
+            else:
+                axes.append(np.asarray(spec, dtype=np.float64))
+        for name in map_names:
+            vals = np.asarray(map_data[name], dtype=np.float32)
+            vals, axes_u = _uniformize(vals, axes)
+            out[name] = GridMap.from_axes(vals, axes_u)
+    else:
+        pts = np.asarray(cs, dtype=np.float64)
+        if pts.ndim == 1:
+            pts = pts[:, None]
+        for name in map_names:
+            vals = np.asarray(map_data[name], dtype=np.float64)
+            out[name] = regrid_scattered(pts, vals, n_grid=n_grid)
+    default = 'map' if 'map' in out else map_names[0]
+    return MultiMap(out, default=default)
+
+
+def _uniformize(vals, axes):
+    """Resample map values on possibly non-uniform axes onto uniform axes
+    (the lookup assumes uniform spacing; wfsim_tpu loader.py:269)."""
+    new_axes = []
+    need = False
+    for a in axes:
+        d = np.diff(a)
+        if len(d) and not np.allclose(d, d[0], rtol=1e-3):
+            need = True
+        new_axes.append(np.linspace(a[0], a[-1], len(a)))
+    if not need:
+        return vals, axes
+    from scipy.interpolate import RegularGridInterpolator
+    extra = vals.shape[len(axes):]
+    rgi = RegularGridInterpolator(tuple(axes), vals, bounds_error=False,
+                                  fill_value=None)
+    mesh = np.meshgrid(*new_axes, indexing='ij')
+    q = np.stack([mm.ravel() for mm in mesh], axis=1)
+    newvals = rgi(q).reshape(*[len(a) for a in new_axes], *extra)
+    return newvals.astype(np.float32), new_axes
+
+
+def _decompress_pattern(map_data: dict) -> dict:
+    """Undo a pattern map's compression and quantization (wfsim_tpu
+    loader.py:291)."""
+    map_data = dict(map_data)
+    if 'compressed' in map_data:
+        compressor, dtype, shape = map_data['compressed']
+        raw = map_data['map']
+        if compressor in ('zstd', 'blosc'):
+            try:
+                if compressor == 'zstd':
+                    import zstandard
+                    raw = zstandard.ZstdDecompressor().decompress(raw)
+                else:
+                    import blosc
+                    raw = blosc.decompress(raw)
+            except ImportError as e:
+                raise RuntimeError(
+                    f'Pattern map uses {compressor} compression but the codec '
+                    f'is not installed') from e
+        map_data['map'] = np.frombuffer(raw, dtype=dtype).reshape(*shape)
+        del map_data['compressed']
+    if 'quantized' in map_data:
+        map_data['map'] = map_data['quantized'] * map_data['map'].astype(np.float32)
+        del map_data['quantized']
+    return map_data
+
+
+def make_map(entry, config=None, n_grid: int = 50):
+    """Resolve one config map entry: dummy list, file name or None."""
+    config = config or {}
     if entry is None or entry is False or entry == '':
         return None
     if isinstance(entry, list) and entry and entry[0] == 'constant dummy':
         return DummyMap(entry[1], entry[2] if len(entry) > 2 else ())
     if isinstance(entry, str):
-        raise NotImplementedError(
-            f'map file {entry!r}: the port reads only ["constant dummy", '
-            f'value, shape] map entries so far')
+        path = get_file_path(config, entry)
+        if path is None:
+            raise FileNotFoundError(
+                f'Resource file {entry!r} not found locally. Set url_base to a '
+                f'local directory or $WFSIM_TPU_AUX_DIR, or use a '
+                f'["constant dummy", value, shape] entry.')
+        data = _read_any(path)
+        if isinstance(data, dict) and 'coordinate_system' in data:
+            return interpolating_map_to_grid(_decompress_pattern(data), n_grid)
+        raise ValueError(f'Unsupported map payload in {path}')
     raise TypeError(f"Can't handle map entry {entry!r}")
 
 
+def make_patternmap(entry, config=None, pmt_mask=None, n_grid: int = 30):
+    """Pattern-map variant: decompressed and dequantized, masked PMTs
+    zeroed (reference: wfsim/load_resource.py:403-435)."""
+    m = make_map(entry, config, n_grid=n_grid)
+    if isinstance(m, MultiMap) and pmt_mask is not None:
+        dead = torch.from_numpy(~np.asarray(pmt_mask))
+        for g in m.maps.values():
+            if g.values.shape[-1] == len(pmt_mask):
+                g.values[..., dead] = 0.0
+    return m
+
+
 def as_gridmap(m, ndim_in=2):
-    """DummyMap / None -> GridMap / None (wfsim_tpu loader ``_as_gridmap``)."""
+    """DummyMap / MultiMap / GridMap / None -> GridMap / None (wfsim_tpu
+    loader ``_as_gridmap``)."""
     if m is None:
         return None
-    want = int(np.prod(m.shape)) if m.shape else 1
-    return GridMap.constant(m.const, out_dim=max(want, 1), ndim_in=ndim_in)
+    if isinstance(m, DummyMap):
+        want = int(np.prod(m.shape)) if m.shape else 1
+        return GridMap.constant(m.const, out_dim=max(want, 1),
+                                ndim_in=ndim_in)
+    if isinstance(m, MultiMap):
+        return m.maps[m.default]
+    return m
 
 
 _UNSUPPORTED = (
-    ('field_distortion_model', lambda v: v not in (None, 'none'),
-     'field distortion maps'),
+    ('field_distortion_model', lambda v: v not in (None, 'none',
+                                                   'inverse_fdc'),
+     'COMSOL field-distortion map'),
     ('enable_gas_gap_warping', bool, 'gas-gap map'),
     ('photon_area_distribution', lambda v: isinstance(v, str),
      'measured SPE spectrum file'),
     ('s1_time_spline', bool, 'S1 optical propagation spline'),
     ('s2_time_spline', bool, 'S2 optical propagation spline'),
-    ('s2_luminescence_model', lambda v: v != 'simple',
-     'garfield luminescence tables'),
+    ('s2_luminescence_model', lambda v: v == 'garfield',
+     'garfield wire-distance luminescence table'),
     ('enable_field_dependencies',
      lambda v: isinstance(v, dict) and any(bool(x) for x in v.values()),
      'field-dependency maps'),
@@ -88,8 +281,8 @@ _UNSUPPORTED = (
 
 
 class Resource:
-    """All in-memory assets for one configuration (dummy-map path of
-    wfsim_tpu.resources.loader.Resource)."""
+    """All in-memory assets for one configuration (wfsim_tpu
+    resources.loader.Resource for the ported paths)."""
 
     def __init__(self, config):
         for key, bad, what in _UNSUPPORTED:
@@ -98,25 +291,86 @@ class Resource:
                     f'{key}={config.get(key)!r} needs the {what}, which the '
                     f'port does not load yet')
         n_pmts = int(config['n_tpc_pmts'])
+        n_top = int(config['n_top_pmts'])
+        pmt_mask = np.asarray(config['gains'], dtype=np.float64) > 0
 
-        self.s1_pattern_map = make_map(config.get('s1_pattern_map'))
-        self.s2_pattern_map = make_map(config.get('s2_pattern_map'))
-        self.se_gain_map = make_map(config.get('se_gain_map'))
+        self.s1_pattern_map = make_patternmap(config.get('s1_pattern_map'),
+                                              config, pmt_mask)
+        self.s2_pattern_map = make_patternmap(config.get('s2_pattern_map'),
+                                              config, pmt_mask)
+        self.se_gain_map = make_map(config.get('se_gain_map'), config)
 
-        # S1 LCE: sum of the pattern map (reference: load_resource.py:243-250)
+        # S1 LCE: a data-driven map, else the sum of the pattern map over
+        # live PMTs (reference: load_resource.py:243-250)
         lce = config.get('s1_lce_correction_map')
         if lce:
-            self.s1_lce_correction_map = make_map(lce)
-        else:
+            self.s1_lce_correction_map = make_map(lce, config)
+        elif isinstance(self.s1_pattern_map, DummyMap):
             self.s1_lce_correction_map = self.s1_pattern_map.reduce_last_dim()
+        else:
+            self.s1_lce_correction_map = _pattern_sum(
+                as_gridmap(self.s1_pattern_map), pmt_mask)
 
-        # S2 AFT rescale (reference: load_resource.py:252-267) leaves a
-        # dummy pattern map untouched, as wfsim_tpu does
+        # S2 AFT rescale (reference: load_resource.py:252-267); a dummy
+        # pattern map is left as it is, as wfsim_tpu does
+        aft = config.get('s2_mean_area_fraction_top', -1)
+        if aft is not None and aft >= 0 \
+                and not isinstance(self.s2_pattern_map, DummyMap):
+            g = as_gridmap(self.s2_pattern_map)
+            vals = g.values.numpy().copy()
+            top_eff = vals[..., :n_top].sum(axis=-1)
+            tot_eff = vals.sum(axis=-1)
+            orig = np.mean((top_eff / tot_eff)[tot_eff > 0])
+            vals[..., :n_top] *= aft / orig
+            vals[..., n_top:n_pmts] *= (1 - aft) / (1 - orig)
+            g.values = torch.from_numpy(vals)
+
+        # S2 correction: a data-driven map, else the pattern sum over its
+        # median (reference: load_resource.py:269-280)
         s2c = config.get('s2_correction_map')
         if s2c:
-            self.s2_correction_map = make_map(s2c)
-        else:
+            self.s2_correction_map = make_map(s2c, config)
+        elif isinstance(self.s2_pattern_map, DummyMap):
             self.s2_correction_map = self.s2_pattern_map.reduce_last_dim()
+        else:
+            g = _pattern_sum(as_gridmap(self.s2_pattern_map), pmt_mask)
+            summed = g.values.numpy()
+            g.values = torch.from_numpy(summed / np.median(summed[summed > 0]))
+            self.s2_correction_map = g
+
+        # garfield gas-gap luminescence tables (wfsim_tpu loader.py:430-444)
+        self.s2_luminescence_gg = None
+        self.garfield_gas_gap_map = None
+        if 'garfield_gas_gap' in str(config.get('s2_luminescence_model')):
+            entry = config.get('s2_luminescence_gg')
+            if isinstance(entry, str):
+                path = get_file_path(config, entry)
+                self.s2_luminescence_gg = (_read_any(path) if path else
+                                           synth.synthetic_garfield_gas_gap())
+            elif isinstance(entry, dict):
+                self.s2_luminescence_gg = entry
+            else:
+                self.s2_luminescence_gg = synth.synthetic_garfield_gas_gap()
+            ggm = config.get(
+                'garfield_gas_gap_map',
+                ['constant dummy',
+                 float(np.mean(self.s2_luminescence_gg['gas_gap'])), []])
+            self.garfield_gas_gap_map = make_map(ggm, config)
+
+        # inverse FDC (wfsim_tpu loader.py:465-479): the map is stored
+        # against drift time, so its z axis is scaled by -drift_velocity
+        # (reference load_resource.py:311-313)
+        self.fdc_3d = None
+        if config.get('field_distortion_model') == 'inverse_fdc':
+            self.fdc_3d = as_gridmap(make_map(config.get('fdc_3d'), config),
+                                     ndim_in=3)
+            if self.fdc_3d is not None:
+                v = config['drift_velocity_liquid']
+                scale = torch.tensor([1.0, 1.0, -v], dtype=torch.float32)
+                lo = self.fdc_3d.lows * scale
+                hi = self.fdc_3d.highs * scale
+                self.fdc_3d.lows = torch.minimum(lo, hi)
+                self.fdc_3d.highs = torch.maximum(lo, hi)
 
         charge, pdfs = synth.synthetic_spe_distribution(n_pmts)
         self.uniform_to_pe = build_uniform_to_pe(charge, pdfs)
@@ -137,6 +391,14 @@ class Resource:
         if config.get('enable_noise', False):
             _in_memory(config, 'noise_file')
             self.noise_bank = synthetic_noise_bank(n_pmts)
+
+
+def _pattern_sum(g: GridMap, pmt_mask) -> GridMap:
+    """The sum of a pattern map over the live PMTs, as a one-output map on
+    the same grid (numpy's float32 sum, as wfsim_tpu computes it)."""
+    vals = g.values.numpy()[..., np.asarray(pmt_mask)]
+    return GridMap(torch.from_numpy(vals.sum(axis=-1, keepdims=True)),
+                   g.lows.clone(), g.highs.clone())
 
 
 def _in_memory(config, key):

@@ -14,6 +14,7 @@ import numpy as np
 __all__ = [
     'synthetic_spe_distribution', 'synthetic_noise', 'synthetic_pmt_ap_cdfs',
     'synthetic_ele_ap_pmf', 'synthetic_garfield_gas_gap',
+    'write_pattern_map',
 ]
 
 
@@ -130,3 +131,39 @@ def synthetic_garfield_gas_gap(n_gaps: int = 10, inv_cdf_len: int = 1000):
         'gas_gap': gas_gap,
         'timing_inv_cdf': inv_cdf.astype(np.float64),
     }
+
+
+def write_pattern_map(path, seed: int):
+    """Write a smooth, positive S2 pattern map to ``path`` in straxen's
+    regular-grid InterpolatingMap JSON layout: x, y in [-50, 50] cm on a
+    30 x 30 grid, one value per XENONnT TPC channel (494).
+
+    Each channel sees a Gaussian light spot (sigma 15 cm) around a seeded
+    position plus a floor of 0.2 of its peak; the values at each grid
+    point are scaled to sum to the default dummy pattern's sum (494 x
+    30e-5) times a smooth factor between 0.95 and 1.05, and stored as
+    float32.  Values span a factor of ~6, so float64 sums of them are
+    exact."""
+    import json
+    n_channels, n_grid, half_width = 494, 30, 50.0
+    total = n_channels * 30e-5
+    rng = np.random.default_rng(seed)
+    ax = np.linspace(-half_width, half_width, n_grid)
+    gx, gy = np.meshgrid(ax, ax, indexing='ij')
+    centre = rng.uniform(-half_width, half_width, (n_channels, 2))
+    d2 = ((gx[..., None] - centre[:, 0]) ** 2
+          + (gy[..., None] - centre[:, 1]) ** 2)
+    vals = 0.2 + np.exp(-d2 / (2 * 15.0 ** 2))
+    vals *= total / vals.sum(axis=-1, keepdims=True)
+    vals *= (1 + 0.05 * np.sin(gx / 20.0) * np.cos(gy / 20.0))[..., None]
+    vals = vals.astype(np.float32)
+    payload = {
+        'coordinate_system': [['x', [-half_width, half_width, n_grid]],
+                              ['y', [-half_width, half_width, n_grid]]],
+        'map': vals.tolist(),
+        'name': 'synthetic S2 pattern map',
+        'description': f'write_pattern_map(seed={seed})',
+    }
+    with open(path, 'w') as f:
+        json.dump(payload, f)
+    return str(path)
