@@ -73,6 +73,27 @@ the bench workload with ``local_field`` = 82 V/cm and ``e_dep`` = amp x
     the card and, from the same draws, through the twins on the CPU:
     photons bitwise equal, truth exact or within rtol 1e-12.
 
+Then the ``he_full_grid`` configuration: the realistic switches, the three
+resource files of a production configuration (an 801-channel noise bank,
+the PMT-afterpulse CDFs and an SPE spectrum csv, written from a seed into
+a temporary directory by ``write_production_files``) and a high-energy
+deamplification factor of 1, so every digitize batch runs the full
+XENONnT digitizer grid (494 TPC rows, 253 HE copies, the bottom-array sum
+row; 801 rows a window):
+
+3e. ``superpose_adc_full`` against its twin on the card, bitwise, at 16
+    windows x 801 rows x 2048 samples with the 801-wide bank and offsets
+    that wrap it, and the ZLE kernel in its full-grid mode on that grid;
+    median CUDA-event times of both, the bound by bytes;
+4e. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
+    **he_full_grid_overrides(dir)), device='cuda').get_arrays(inst)``,
+    warm-up then timed; launches of every kernel on the path (the
+    full-grid entry once per digitize batch, the slim one never), records
+    per split; ``raw_records_he`` non-empty and within 5 % of the
+    top-array TPC record count, ``raw_records_aqmon`` empty;
+5e. cross-check: one full-grid window batch on the card and by the CPU
+    twins, records bitwise equal.
+
 Every kernel row of the JSON table carries its bound: the least time the
 card could take for the same work, the larger of the bytes its wrapper
 must move (each input read once, each output written once, counted from
@@ -115,6 +136,11 @@ REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + (
 DETECTOR_PATH_KERNELS = tuple(
     k for k in DEFAULT_PATH_KERNELS if k != 'wfsim_lumi_tables') + (
     'wfsim_pattern_diffuse', 'wfsim_lumi_gasgap_times', 'wfsim_nest_delays')
+
+#: the he_full_grid path: the full-grid entry replaces superpose_adc
+FULL_GRID_PATH_KERNELS = tuple(
+    k for k in REALISTIC_PATH_KERNELS if k != 'wfsim_superpose_adc') + (
+    'wfsim_superpose_adc_full',)
 
 #: H100 SXM peaks (NVIDIA data sheet; at the 700 W limit): HBM3 bytes/s,
 #: float32 and float64 operations/s outside the tensor cores
@@ -561,6 +587,186 @@ def phase_5c(cfg, params_d, const, batches, smi, tag='cross-p'):
               f'(card {t_card:.3f} s, CPU twins {t_cpu:.3f} s; {smi})')
 
 
+def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
+    """Phases 3e, 4e and 5e (see the module docstring); returns the
+    measurements of the superpose_adc_full row (see make_check) and the
+    launch counts of the 4e run."""
+    import torch
+    from wfsim_tpu_torch import Simulator, _build
+    from wfsim_tpu_torch.config import default_config, he_full_grid_overrides
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.ops.waveform import (superpose_adc_full,
+                                              superpose_adc_full_ref)
+    from wfsim_tpu_torch.ops.zle import zle_all_channels, zle_all_channels_ref
+    from wfsim_tpu_torch.pipeline.digitize import (
+        full_grid_rows, gather_digitize, pack_records)
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    from wfsim_tpu_torch.resources import load_config
+    from wfsim_tpu_torch.resources.synthetic import write_production_files
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_he_')
+    try:
+        t0 = time.perf_counter()
+        write_production_files(tmp, 1234)
+        t_write = time.perf_counter() - t0
+        cfg = default_config(seed=1234, chunk_size=100,
+                             **he_full_grid_overrides(tmp))
+        t0 = time.perf_counter()
+        params = build_params(cfg, load_config(cfg), dev)
+        t_load = time.perf_counter() - t0
+        const = build_constants(cfg)
+        C, R, n_top = (const.n_tpc_pmts, const.n_channels_total,
+                       const.n_top_pmts)
+        Cn, L = params.noise_bank.shape
+        print(f'[full] one-off host costs: resource files written in '
+              f'{t_write:.3f} s, read and moved to the card in {t_load:.3f} '
+              f's; bank {Cn} x {L}, factor {const.high_energy_deamp_int}')
+
+        # ---- 3e. the full-grid kernel against its twin -------------------
+        nix = torch.as_tensor(L - T // 2 + np.arange(B) * 7,
+                              dtype=torch.int32, device=dev)  # all wrap
+        fkw = dict(skw, n_channels=C, n_channels_total=R, n_top=n_top,
+                   he_start=const.he_channel_start,
+                   sum_channel=const.sum_signal_channel,
+                   deamp=const.high_energy_deamp_int,
+                   noise_bank=params.noise_bank, noise_ix=nix)
+        grid = superpose_adc_full(*sargs, **fkw)
+        grid_ref = superpose_adc_full_ref(*sargs, **fkw)
+        err = max_diff(grid, grid_ref)
+        he = slice(const.he_channel_start, const.he_channel_start + n_top)
+        print(f'[kernels-f] superpose_adc_full: {B} x {R} x {T}, noise_ix '
+              f'{nix[0].item()}.. of L={L}, differing samples '
+              f'{int((grid != grid_ref).sum())}, max|diff| {err}, HE rows '
+              f'non-zero {int((grid[:, he] != 0).sum())}, sum row non-zero '
+              f'{int((grid[:, const.sum_signal_channel] != 0).sum())}')
+        if err or not grid[:, he].any():
+            raise AssertionError('superpose_adc_full differs from its twin '
+                                 'or leaves the HE rows empty')
+        rows = [full_grid_rows(ph[k].reshape(B, C), const).reshape(-1)
+                for k in ('ch_left', 'ch_right', 'has')]
+        zthr = params.zle_thresholds[:R].repeat(B).contiguous()
+        zkw = dict(holdoff=2 * const.trigger_window + 1,
+                   trigger_window=const.trigger_window, max_intervals=K,
+                   nonneg=True)
+        zargs = (grid.reshape(B * R, T), zthr, *rows)
+        zk = zle_all_channels(*zargs, **zkw)
+        zr = zle_all_channels_ref(*zargs, **zkw)
+        zerr = max(max_diff(a, b) for a, b in zip(zk, zr))
+        print(f'[kernels-f] zle_intervals (full grid, nonneg): intervals '
+              f'{int(zr[2].sum())} (HE rows '
+              f'{int(zr[2].reshape(B, R)[:, he].sum())}), max|diff| {zerr}')
+        if zerr:
+            raise AssertionError('zle_intervals (nonneg) differs from its '
+                                 'twin')
+        ms = cuda_ms(lambda: superpose_adc_full(*sargs, **fkw))
+        plain_ms = cuda_ms(lambda: superpose_adc_full_ref(*sargs, **fkw),
+                           reps=5)
+        # bytes: the inputs, the int16 grid, and one int16 bank read per
+        # in-window sample of every banked row (the TPC rows and their HE
+        # copies; the bank covers all 801); operations: a template tap per
+        # photon and sample, the TPC epilogue, the HE epilogue or the sum
+        span = torch.where(ph['has'], ph['ch_right'] - ph['ch_left'] + 1,
+                           0).reshape(B, C)
+        n_reads = int(span.sum()) + int(span[:, :n_top].sum())
+        n_bytes = nbytes(sargs, nix, grid) + 2 * n_reads
+        L_t = int(params.templates.shape[1])
+        ops = (int(sargs[0].shape[0]) * L_t * 2 + B * C * T * 3
+               + B * n_top * T * 4 + B * (C - n_top) * T * 2)
+        b_ms, b_by = bound(n_bytes, ops)
+        print(f'[kernels-f] superpose_adc_full: {ms:.4f} ms, plain twin '
+              f'{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library '
+              f'call none ({smi})')
+        m = dict(err=max(err, zerr), ms=ms, plain_ms=plain_ms,
+                 bytes=n_bytes, ops32=ops, ops64=0, library_ms=None)
+        del grid, grid_ref, zk, zr
+
+        # ---- 4e. the he_full_grid main path ------------------------------
+        Simulator(cfg, device=dev).get_arrays(inst)          # warm-up
+        torch.cuda.synchronize()
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = Simulator(cfg, device=dev)
+        t0 = time.perf_counter()
+        out = sim.get_arrays(inst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        diag = sim.sim.rawdata.diag.summary()
+        print(f'[full] launches {launches}')
+        for name in FULL_GRID_PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f'kernel {name} not launched on the '
+                                     f'he_full_grid path')
+        if (launches['wfsim_superpose_adc_full'] != diag['digitize_calls']
+                or launches['wfsim_superpose_adc']):
+            raise AssertionError('not every digitize batch ran the full grid')
+        rr, rr_he, rr_aq = (out['raw_records'], out['raw_records_he'],
+                            out['raw_records_aqmon'])
+        truth = out['truth']
+        n_top_rec = int((rr['channel'] < n_top).sum())
+        n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2, 4, 6)}
+        print(f'[full] records per split: raw_records {len(rr)} (top array '
+              f'{n_top_rec}), raw_records_he {len(rr_he)}, raw_records_aqmon '
+              f'{len(rr_aq)}; truth rows by type {n_type}; windows '
+              f'{diag["windows"]} in {diag["digitize_calls"]} batches')
+        if not strax_valid(rr, C) or not len(rr_he) or len(rr_aq):
+            raise AssertionError('he_full_grid records: invalid raw_records, '
+                                 'empty raw_records_he or non-empty '
+                                 'raw_records_aqmon')
+        if not (rr_he['channel'].min() >= const.he_channel_start
+                and rr_he['channel'].max() < he.stop
+                and np.all(np.diff(rr_he['time']) >= 0)
+                and rr_he['data'].min() >= 0):
+            raise AssertionError('raw_records_he violate the strax '
+                                 'invariants or leave channels 500-752')
+        if abs(len(rr_he) - n_top_rec) > 0.05 * n_top_rec:
+            raise AssertionError(f'HE records {len(rr_he)} not within 5 % of '
+                                 f'the top-array records {n_top_rec}')
+        if n_type[1] != 512 or n_type[2] != 512 or n_type[4] <= 0:
+            raise AssertionError(f'truth rows by type {n_type}')
+        n_photons = int(truth['n_photon'].sum())
+        print(f'[full] events/s {512 / wall:.2f} wall {wall:.3f} s records '
+              f'{len(rr) + len(rr_he) + len(rr_aq)} photons {n_photons} '
+              f'peak_mem {peak / 2 ** 20:.1f} MiB ({smi})')
+        print(f'[full] phases {diag}')
+
+        # ---- 5e. one full-grid window batch: card against the CPU twins ---
+        rd = RawData(cfg, device=dev)
+        rd.simulate(inst)
+        wins, arena_d, batches = rd.plan_digitize()
+        # the longest windows up to T_cap 4096 (S2 windows), the batch with
+        # the most of them, cut to 16 windows so the CPU twins stay quick
+        cand = [b for b in batches if b[1] <= 4096] or batches
+        batch, T_cap, pieces, nix_b = max(cand, key=lambda b: (b[1],
+                                                               len(b[0])))
+        batch, pieces, nix_b = batch[:16], pieces[:16], nix_b[:16]
+        arena_c = [a.cpu() for a in arena_d]
+        res = {}
+        for name, d, ar in (('cuda', dev, arena_d),
+                            ('cpu', torch.device('cpu'), arena_c)):
+            prm = build_params(cfg, load_config(cfg), d)
+            g = gather_digitize(prm, const, *ar,
+                                torch.as_tensor(pieces, device=d),
+                                torch.as_tensor(nix_b, device=d),
+                                n_samples=T_cap, max_intervals=K)
+            rec = pack_records(g['data'], g['left_all'], g['starts'],
+                               g['ends'], g['counts'])
+            res[name] = [x.cpu().numpy() for x in rec]
+        same = all(a.shape == b.shape and np.array_equal(a, b)
+                   for a, b in zip(res['cuda'], res['cpu']))
+        meta = res['cuda'][1]
+        n_he = int(((meta[:, 1] >= he.start) & (meta[:, 1] < he.stop)).sum())
+        print(f'[cross-f] windows {len(batch)} T_cap {T_cap} rows {R} '
+              f'records {len(meta)} (HE {n_he}) cuda==cpu {same}')
+        if not same or not n_he:
+            raise AssertionError('full-grid digitize on the card differs '
+                                 'from the CPU twins (or has no HE record)')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return m, launches
+
+
 def main():
     if not (ROOT / 'wfsim_tpu_torch' / '_build.py').exists():
         raise SystemExit('chip_smoke.py runs from the root of a wfsim_tpu '
@@ -975,6 +1181,10 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 3e / 4e / 5e. the he_full_grid configuration ----------------------
+    ftimes, launches_f = phase_full_grid(sargs, skw, ph, B, T, K, inst, dev,
+                                         smi)
+
     src = 'wfsim_tpu_torch/csrc/'
     rows = []
 
@@ -997,6 +1207,10 @@ def main():
         'wfsim_tpu/ops/waveform.py:68; wfsim_tpu/pipeline/digitize.py:67',
         ['wfsim_superpose_adc'], launches['wfsim_superpose_adc'],
         max(err1, err6), *times['superpose_adc'], *work['superpose_adc'])
+    measured('superpose_adc_full', 'superpose_adc.cu',
+             'wfsim_tpu/pipeline/digitize.py:341; '
+             'wfsim_tpu/pipeline/digitize.py:96',
+             ['wfsim_superpose_adc_full'], launches_f, ftimes)
     row('zle_intervals', 'zle_intervals.cu', 'wfsim_tpu/ops/zle.py:119',
         ['wfsim_zle_intervals'], launches['wfsim_zle_intervals'], err2,
         *times['zle_intervals'], *work['zle_intervals'])

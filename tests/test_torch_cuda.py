@@ -442,3 +442,108 @@ def test_detector_physics_pass_card_matches_cpu(dev, tmp_path, kind):
     _same(ph_d, ph_c)
     _same(tr_d, tr_c, FLOAT_TRUTH)
     assert torch.equal(req_d.cpu(), req_c)
+
+
+# ---------------------------------------------------------------------------
+# the full XENONnT digitizer grid: superpose_adc_full and ZLE in its
+# nonneg mode
+
+
+def full_grid_inputs(seed, dev, neg_frac, neg_scale, T=1024, B=4, per=1500):
+    """B windows of ``per`` photons over the 494 TPC channels, window 2
+    without photons; a fraction ``neg_frac`` of negative gains (positive
+    ADC) of ``neg_scale`` times the usual magnitude; an 801-wide bank."""
+    from wfsim_tpu_torch.resources.synthetic import synthetic_noise
+    c = default_config()
+    const = build_constants(c)
+    params = build_params(c, load_config(c), dev)
+    rng = np.random.default_rng(seed)
+    n = B * per
+    t = rng.integers(1500, T * 10 - 3000, n).astype(np.int32)
+    ch = rng.integers(0, 494, n).astype(np.int32)
+    g = rng.uniform(1e6, 3e6, n)
+    g = np.where(rng.random(n) < neg_frac, -neg_scale * g, g).astype(np.float32)
+    pieces = np.zeros((B, 1, 3), np.int64)
+    for w in range(B):
+        pieces[w, 0] = (w * per, 0 if w == 2 else per, 0)
+    ph = window_photons(const, *(torch.as_tensor(a, device=dev)
+                                 for a in (t, ch, g)),
+                        torch.as_tensor(pieces, device=dev), n_samples=T)
+    bank = torch.as_tensor(np.ascontiguousarray(
+        synthetic_noise(801, 5000, seed=3).T.astype(np.int16)), device=dev)
+    nix = torch.tensor([5000 - 100, 0, 17, 2500], dtype=torch.int32,
+                       device=dev)
+    args = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+            ph['ch_left'], ph['ch_right'], ph['has'])
+    kw = dict(current_2_adc=const.current_2_adc,
+              baseline=const.digitizer_reference_baseline, n_samples=T,
+              n_channels=494, n_channels_total=801, n_top=253, he_start=500,
+              sum_channel=800, noise_bank=bank, noise_ix=nix)
+    return args, kw, ph
+
+
+@pytest.mark.parametrize('deamp,neg_frac', [(1, 0.0), (2000, 0.1)],
+                         ids=['factor 1', 'int16 wrap'])
+def test_full_grid_kernel_matches_twin(dev, deamp, neg_frac):
+    from wfsim_tpu_torch.ops.waveform import (superpose_adc_full,
+                                              superpose_adc_full_ref)
+    args, kw, ph = full_grid_inputs(deamp, dev, neg_frac, 0.2)
+    kw['deamp'] = deamp
+    k = _build.KERNELS['wfsim_superpose_adc_full']
+    before = k.launches
+    out = superpose_adc_full(*args, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    ref = superpose_adc_full_ref(*args, **kw)
+    assert out.shape == (4, 801, 1024) and torch.equal(out, ref)
+    assert not out[2].any()                      # the window without photons
+    assert out[:, 500:753].any() and out[:, 800].any()
+    if deamp == 2000:
+        assert (out[:, 500:753] < 0).any()                   # HE rows wrapped
+        assert (out[:, 800].to(torch.int64) % 2000 != 0).any()   # sum wrapped
+
+    # ZLE of the full grid (nonneg mode) against its twin
+    from wfsim_tpu_torch.pipeline.digitize import full_grid_rows
+    B, R, T = out.shape
+    const = build_constants(default_config())
+    rows = [full_grid_rows(ph[k].reshape(B, 494), const).reshape(-1)
+            for k in ('ch_left', 'ch_right', 'has')]
+    zthr = torch.full((B * R,), 15984, dtype=torch.int32, device=dev)
+    zkw = dict(holdoff=101, trigger_window=50, max_intervals=32, nonneg=True)
+    zargs = (out.reshape(B * R, T), zthr, *rows)
+    for a, b in zip(zle_all_channels(*zargs, **zkw),
+                    zle_all_channels_ref(*zargs, **zkw)):
+        assert torch.equal(a, b)
+
+
+def test_full_grid_kernel_raises_past_16_bits(dev):
+    from wfsim_tpu_torch.ops.waveform import superpose_adc_full
+    args, kw, _ = full_grid_inputs(5, dev, 0.2, 1.0)
+    with pytest.raises(OverflowError):
+        superpose_adc_full(*args, deamp=2000, **kw)
+
+
+def test_full_grid_gather_digitize_card_matches_cpu(dev):
+    """The full grid through gather_digitize and pack_records on the card
+    and on the CPU twins, 801-wide bank, factor 1: records bitwise."""
+    import dataclasses
+    from wfsim_tpu_torch.resources.synthetic import synthetic_noise
+    c = default_config(enable_noise=True)
+    const = dataclasses.replace(build_constants(c), high_energy_deamp_int=1)
+    bank = np.ascontiguousarray(
+        synthetic_noise(801, 20_000, seed=4).T.astype(np.int16))
+    (t, ch, g), pieces = arena(13, 3, 494, 1024, 5000, dev)
+    nix = torch.tensor([3, 10_000, 19_500], dtype=torch.int32)
+    out = []
+    for d in (dev, torch.device('cpu')):
+        p = dataclasses.replace(build_params(c, load_config(c), d),
+                                noise_bank=torch.as_tensor(bank, device=d))
+        r = gather_digitize(p, const, t.to(d), ch.to(d), g.to(d),
+                            pieces.to(d), nix.to(d), n_samples=1024,
+                            max_intervals=64)
+        assert r['data'].shape == (3, 801, 1024)
+        out.append([x.cpu() for x in pack_records(
+            r['data'], r['left_all'], r['starts'], r['ends'], r['counts'])])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert ((out[0][1][:, 1] >= 500) & (out[0][1][:, 1] < 753)).sum() > 100

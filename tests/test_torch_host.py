@@ -125,11 +125,9 @@ def test_params_from_numpy_refuses_unported_fields():
 
 
 def test_unported_resources_raise():
-    with pytest.raises(NotImplementedError):
-        load_config(default_config(enable_noise=True, noise_file='noise.npz'))
-    with pytest.raises(NotImplementedError):
-        load_config(default_config(enable_pmt_afterpulses=True,
-                                   photon_ap_cdfs='pmt_ap.json.gz'))
+    """Electron-afterpulse files, gas-gap warping and COMSOL are not
+    ported; a resource file that resolves nowhere raises
+    FileNotFoundError (wfsim_tpu falls back to the synthetic asset)."""
     with pytest.raises(NotImplementedError):
         load_config(default_config(enable_electron_afterpulses=True,
                                    ele_ap_pdfs='ele_ap.pkl'))
@@ -137,9 +135,13 @@ def test_unported_resources_raise():
         load_config(default_config(enable_gas_gap_warping=True))
     with pytest.raises(NotImplementedError):
         load_config(default_config(field_distortion_model='comsol'))
-    # map files are read now; one that is not there raises
-    with pytest.raises(FileNotFoundError):
-        load_config(default_config(s1_pattern_map='map.json'))
+    for entry in (dict(enable_noise=True, noise_file='noise.npz'),
+                  dict(enable_pmt_afterpulses=True,
+                       photon_ap_cdfs='pmt_ap.json.gz'),
+                  dict(photon_area_distribution='spe.csv'),
+                  dict(s1_pattern_map='map.json')):
+        with pytest.raises(FileNotFoundError):
+            load_config(default_config(**entry))
 
 
 def test_package_imports_neither_jax_nor_wfsim_tpu():

@@ -206,19 +206,24 @@ def test_overlay_is_the_only_difference_to_the_noise_free_grid(setups):
 
 
 def test_unported_noise_paths_raise(setups):
+    """What still raises on the noise path: a missing noise_ix, a noise
+    file found nowhere, the full grid of a detector other than XENONnT.
+    A bank wider than the TPC now takes the full digitizer grid."""
     (_, _, _), (c, pt, kt) = setups
     args = (torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
             torch.ones(1), torch.tensor([[[0, 1, 0]]]),
             torch.zeros(1, dtype=torch.int32))
-    wide = dataclasses.replace(pt, noise_bank=torch.zeros((500, 8),
-                                                          dtype=torch.int16))
-    with pytest.raises(NotImplementedError):
-        gather_digitize(wide, kt, *args, n_samples=512)
-    he = dataclasses.replace(kt, high_energy_deamp_int=2)
-    with pytest.raises(NotImplementedError):
-        gather_digitize(pt, he, *args, n_samples=512)
     with pytest.raises(ValueError):
         gather_digitize(pt, kt, *args[:4], n_samples=512)   # no noise_ix
-    with pytest.raises(NotImplementedError):
+    wide = dataclasses.replace(pt, noise_bank=torch.zeros((801, 8),
+                                                          dtype=torch.int16))
+    assert gather_digitize(wide, kt, *args, n_samples=512)['data'].shape \
+        == (1, 801, 512)
+    with pytest.raises(FileNotFoundError):
         load_config(default_config(enable_noise=True,
                                    noise_file='noise_bank.npz'))
+    x1t = dataclasses.replace(kt, detector='XENON1T', n_tpc_pmts=248,
+                              n_top_pmts=127, he_channel_start=0,
+                              he_channel_end=-1, high_energy_deamp_int=1)
+    with pytest.raises(NotImplementedError):
+        gather_digitize(pt, x1t, *args, n_samples=512)

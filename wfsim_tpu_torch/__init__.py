@@ -19,5 +19,5 @@ from .dtypes import (                       # noqa: F401
 from .config import (                       # noqa: F401
     default_config, load_fax_config, finalize_config, deterministic_hash)
 from .resources import Resource, load_config, make_map, DummyMap  # noqa: F401
-from .pipeline import RawData, ChunkRawRecords  # noqa: F401
+from .pipeline import RawData, ChunkRawRecords, digitize_window  # noqa: F401
 from .interface import Simulator            # noqa: F401

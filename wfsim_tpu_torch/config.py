@@ -28,7 +28,7 @@ import numpy as np
 __all__ = [
     'load_fax_config', 'default_config', 'finalize_config',
     'deterministic_hash', 'strip_json_comments', 'CHANNEL_MAPS',
-    'detector_physics_overrides',
+    'detector_physics_overrides', 'he_full_grid_overrides',
 ]
 
 # Per-detector channel layout (matches the straxen-provided channel maps the
@@ -270,6 +270,25 @@ def detector_physics_overrides(s2_pattern_map: str) -> dict:
                 field_distortion_model='inverse_fdc',
                 fdc_3d=['constant dummy', 0.5, []],
                 s2_pattern_map=str(s2_pattern_map))
+
+
+def he_full_grid_overrides(aux_dir) -> dict:
+    """The ``he_full_grid`` switches on top of :func:`default_config`: the
+    realistic detector effects (noise, PMT and electron afterpulses), the
+    three resource files of ``resources.synthetic.write_production_files``
+    read from ``aux_dir`` (an 801-channel noise bank, the PMT-afterpulse
+    CDFs, an SPE spectrum csv) and a high-energy deamplification factor of
+    1.0.  The factor goes through the reference's integer cast
+    (rawdata.py:242), so 1.0 is the smallest value that keeps the HE
+    copies and the bottom-array sum alive; it is not a calibration (the
+    default 0.05 casts to 0)."""
+    from pathlib import Path
+    from .resources.synthetic import PRODUCTION_FILES
+    return dict(enable_noise=True, enable_pmt_afterpulses=True,
+                enable_electron_afterpulses=True,
+                url_base=str(Path(aux_dir).resolve()),
+                high_energy_deamplification_factor=1.0,
+                **PRODUCTION_FILES)
 
 
 def finalize_config(c: dict) -> dict:

@@ -5,17 +5,20 @@
 // slim-grid epilogue of wfsim_tpu/pipeline/digitize.py:299-319 (ADC
 // conversion, noise overlay, baseline inside the channel window, clip at 0,
 // int16 cast), and the noise-bank read of digitize.py:67 _noise_gather
-// (with ops/gather.py:53 gather_spans).
+// (with ops/gather.py:53 gather_spans).  The second entry point,
+// wfsim_superpose_adc_full, replaces the full-grid branch of
+// wfsim_tpu/pipeline/digitize.py:341-435 (and the one-window
+// digitize_window of :96): the whole XENONnT digitizer, 801 rows a window.
 //
 // What bounds it on the H100: writing the int16 grid (B*494 rows x T
-// samples, 2 bytes each) and, per output sample, one pass over its row's
-// photons.  The TPU form built a float32 (rows, 10, T) histogram in HBM and
-// contracted it on the MXU; here no float grid ever reaches device memory:
-// each thread owns one output sample, keeps its sum in a register and
-// stores the final int16 once.  Photons arrive sorted by row with row
-// offsets, so a block reads only its own row's photons (the same address
-// for every thread of the block: a broadcast load).  The 10 x 22 template
-// bank sits in shared memory.
+// samples, 2 bytes each; B*801 rows on the full grid) and, per output
+// sample, one pass over its row's photons.  The TPU form built a float32
+// (rows, 10, T) histogram in HBM and contracted it on the MXU; here no
+// float grid ever reaches device memory: each thread owns one output
+// sample, keeps its sum in a register and stores the final int16 once.
+// Photons arrive sorted by row with row offsets, so a block reads only its
+// own row's photons (the same address for every thread of the block: a
+// broadcast load).  The 10 x 22 template bank sits in shared memory.
 //
 // Numerics: each sample sums gain*T[t%10][u - t/10] over its row's photons
 // in their sorted order with __fmul_rn/__fadd_rn (no FMA contraction and
@@ -36,6 +39,31 @@
 // adc + noise + baseline is bitwise the twin's sum in any order.  With no
 // bank (bank == nullptr) the kernel is the noise-free one.
 //
+// Full grid (wfsim_superpose_adc_full).  Rows of window w: the TPC
+// channels 0..C-1; the high-energy copies of the n_top top-array channels
+// on he_lo..he_lo+n_top-1 (adc * deamp with TPC row c's window, noise from
+// bank column he_lo + c, baseline, clip); the bottom-array sum on sum_ch
+// (the sum over c >= n_top of adc * deamp, unmasked: no noise, no
+// baseline, no clip); every other row 0.  The JAX package concatenates
+// int32 (B, rows, T) blocks and takes elementwise passes over the whole
+// int32 grid.  Here the thread that owns TPC sample (w, c, u) computes the
+// superposition once and writes both TPC row c and, for c < n_top, HE row
+// he_lo + c; for c >= n_top it adds adc * deamp into the window's int32
+// sum row by integer atomics (skipped where it is 0).  Integer addition is
+// associative modulo 2^32, so the sum is bitwise the twin's in any order.
+// One small follow-on launch casts the sum row to int16 and zeroes the
+// gap rows, so no int32 (B, 801, T) grid ever reaches device memory: only
+// the (B, T) int32 sum scratch.  Integer semantics are XLA's: adc * deamp
+// and the adds wrap modulo 2^32 (done in unsigned arithmetic, where C++
+// defines the wrap) and the int16 stores keep the low 16 bits, as
+// astype(int16) does.  What bounds it: the 801 int16 rows a window (1.6x
+// the slim grid) plus the noise reads of both the TPC and the HE rows.
+// wfsim_tpu runs ZLE on the int32 grid; the port's ZLE reads the int16
+// grid with in-window negatives taken as never below threshold
+// (zle_intervals.cu), which is exact while every in-window value is below
+// 2^16.  A value at or above 2^16 sets the overflow word of the scratch,
+// and the wrapper raises.
+//
 // Window-relative photon times are >= 0 (the window starts margin_l
 // samples before its first photon); the wrapper checks it, because C's / and
 // % truncate where jnp's floor.
@@ -46,26 +74,17 @@ namespace {
 constexpr int kTile = 128;
 constexpr int kMaxTemplate = 1024;
 
-__global__ void superpose_adc_kernel(
-    const int* __restrict__ t, const float* __restrict__ gain,
-    const int* __restrict__ row_ptr, int n_rows, int n_samples,
-    const float* __restrict__ templates, int dt, int tlen,
-    const int* __restrict__ ch_left, const int* __restrict__ ch_right,
-    const unsigned char* __restrict__ has, float current_2_adc, int baseline,
-    const short* __restrict__ bank, int bank_len, int bank_ch,
-    const int* __restrict__ noise_ix, int n_ch, short* __restrict__ out) {
-  __shared__ float tmpl[kMaxTemplate];
-  for (int i = threadIdx.x; i < dt * tlen; i += blockDim.x) tmpl[i] = templates[i];
+__device__ __forceinline__ void load_templates(float* tmpl,
+                                               const float* templates, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tmpl[i] = templates[i];
   __syncthreads();
+}
 
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long bid = blockIdx.x;
-  const int row = static_cast<int>(bid / tiles);
-  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
-  if (row >= n_rows || u >= n_samples) return;
-
-  const int p0 = row_ptr[row];
-  const int p1 = row_ptr[row + 1];
+// -round_half_even(W * current_2_adc) of sample u, as digitize.py:299, W
+// summed over photons p0..p1-1 in their order
+__device__ __forceinline__ int superposed_adc(
+    const int* __restrict__ t, const float* __restrict__ gain, int p0, int p1,
+    int u, int dt, int tlen, const float* tmpl, float current_2_adc) {
   float acc = 0.0f;
   for (int p = p0; p < p1; ++p) {
     const int tt = t[p];
@@ -76,26 +95,138 @@ __global__ void superpose_adc_kernel(
       acc = __fadd_rn(acc, __fmul_rn(gain[p], tmpl[r * tlen + k]));
     }
   }
-  // -round_half_even(W * current_2_adc), as digitize.py:299
-  int v = -static_cast<int>(rintf(__fmul_rn(acc, current_2_adc)));
+  return -static_cast<int>(rintf(__fmul_rn(acc, current_2_adc)));
+}
+
+// bank[col, x % L]; 0 <= noise_ix < 2^30 and L < 2^30 (wrapper), so the
+// 32-bit unsigned index x cannot have wrapped
+__device__ __forceinline__ int bank_at(const short* __restrict__ bank,
+                                       int bank_len, int col, unsigned x) {
+  return bank[static_cast<long long>(col) * bank_len +
+              x % static_cast<unsigned>(bank_len)];
+}
+
+// int32 add and multiply that wrap modulo 2^32, as XLA's do
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wrap_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+__global__ void superpose_adc_kernel(
+    const int* __restrict__ t, const float* __restrict__ gain,
+    const int* __restrict__ row_ptr, int n_rows, int n_samples,
+    const float* __restrict__ templates, int dt, int tlen,
+    const int* __restrict__ ch_left, const int* __restrict__ ch_right,
+    const unsigned char* __restrict__ has, float current_2_adc, int baseline,
+    const short* __restrict__ bank, int bank_len, int bank_ch,
+    const int* __restrict__ noise_ix, int n_ch, short* __restrict__ out) {
+  __shared__ float tmpl[kMaxTemplate];
+  load_templates(tmpl, templates, dt * tlen);
+
+  const int tiles = (n_samples + kTile - 1) / kTile;
+  const long long bid = blockIdx.x;
+  const int row = static_cast<int>(bid / tiles);
+  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
+  if (row >= n_rows || u >= n_samples) return;
+
+  int v = superposed_adc(t, gain, row_ptr[row], row_ptr[row + 1], u, dt, tlen,
+                         tmpl, current_2_adc);
   const int left = ch_left[row];
   if (has[row] && u >= left && u <= ch_right[row]) {
     if (bank != nullptr) {
       const int w = row / n_ch;
       const int c = row - w * n_ch;
-      if (c < bank_ch) {
-        // 0 <= noise_ix < 2^30 and bank_len < 2^30 (wrapper), so the
-        // 32-bit unsigned sum cannot wrap
-        const unsigned x = static_cast<unsigned>(noise_ix[w]) +
-                           static_cast<unsigned>(u - left);
-        v += bank[static_cast<long long>(c) * bank_len +
-                  x % static_cast<unsigned>(bank_len)];
-      }
+      if (c < bank_ch)
+        v += bank_at(bank, bank_len, c,
+                     static_cast<unsigned>(noise_ix[w]) +
+                         static_cast<unsigned>(u - left));
     }
     v += baseline;
     v = v < 0 ? 0 : v;
   }
   out[static_cast<long long>(row) * n_samples + u] = static_cast<short>(v);
+}
+
+// one thread per TPC sample (w, c, u): TPC row c, HE row he_lo + c (c <
+// n_top) or the atomic bottom sum (c >= n_top); out is (B, n_all, T)
+__global__ void superpose_adc_full_kernel(
+    const int* __restrict__ t, const float* __restrict__ gain,
+    const int* __restrict__ row_ptr, int n_rows, int n_samples,
+    const float* __restrict__ templates, int dt, int tlen,
+    const int* __restrict__ ch_left, const int* __restrict__ ch_right,
+    const unsigned char* __restrict__ has, float current_2_adc, int baseline,
+    const short* __restrict__ bank, int bank_len, int bank_ch,
+    const int* __restrict__ noise_ix, int n_ch, int n_all, int n_top,
+    int he_lo, int deamp, int* __restrict__ sum32, int* __restrict__ overflow,
+    short* __restrict__ out) {
+  __shared__ float tmpl[kMaxTemplate];
+  load_templates(tmpl, templates, dt * tlen);
+
+  const int tiles = (n_samples + kTile - 1) / kTile;
+  const long long bid = blockIdx.x;
+  const int row = static_cast<int>(bid / tiles);
+  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
+  if (row >= n_rows || u >= n_samples) return;
+  const int w = row / n_ch;
+  const int c = row - w * n_ch;
+
+  const int adc = superposed_adc(t, gain, row_ptr[row], row_ptr[row + 1], u,
+                                 dt, tlen, tmpl, current_2_adc);
+  const int left = ch_left[row];
+  const bool in_win = has[row] && u >= left && u <= ch_right[row];
+  const unsigned x = in_win ? static_cast<unsigned>(noise_ix == nullptr
+                                                        ? 0 : noise_ix[w]) +
+                                  static_cast<unsigned>(u - left)
+                            : 0u;
+  const long long win_row = static_cast<long long>(w) * n_all;
+
+  int v = adc;
+  if (in_win) {
+    if (bank != nullptr && c < bank_ch) v += bank_at(bank, bank_len, c, x);
+    v += baseline;
+    v = v < 0 ? 0 : v;
+    if (v >= 65536) atomicOr(overflow, 1);
+  }
+  out[(win_row + c) * n_samples + u] = static_cast<short>(v);
+
+  const int he = wrap_mul(adc, deamp);
+  if (c < n_top) {
+    int h = he;
+    if (in_win) {
+      if (bank != nullptr && he_lo + c < bank_ch)
+        h = wrap_add(h, bank_at(bank, bank_len, he_lo + c, x));
+      h = wrap_add(h, baseline);
+      h = h < 0 ? 0 : h;
+      if (h >= 65536) atomicOr(overflow, 1);
+    }
+    out[(win_row + he_lo + c) * n_samples + u] = static_cast<short>(h);
+  } else if (he != 0) {
+    atomicAdd(sum32 + static_cast<long long>(w) * n_samples + u, he);
+  }
+}
+
+// the rows the main kernel does not write: the gap rows (0) and the sum
+// row (its int32 sum, low 16 bits)
+__global__ void full_grid_rest_kernel(int n_win, int n_samples, int n_ch,
+                                      int n_all, int n_top, int he_lo,
+                                      int sum_ch, const int* __restrict__ sum32,
+                                      short* __restrict__ out) {
+  const int gap1 = he_lo - n_ch;
+  const int n_rest = gap1 + (n_all - he_lo - n_top);
+  const int tiles = (n_samples + kTile - 1) / kTile;
+  const long long bid = blockIdx.x;
+  const long long wj = bid / tiles;
+  const int w = static_cast<int>(wj / n_rest);
+  const int j = static_cast<int>(wj - static_cast<long long>(w) * n_rest);
+  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
+  if (w >= n_win || u >= n_samples) return;
+  const int row = j < gap1 ? n_ch + j : he_lo + n_top + (j - gap1);
+  const short v = row == sum_ch
+      ? static_cast<short>(sum32[static_cast<long long>(w) * n_samples + u])
+      : static_cast<short>(0);
+  out[(static_cast<long long>(w) * n_all + row) * n_samples + u] = v;
 }
 
 }  // namespace
@@ -125,5 +256,51 @@ extern "C" int wfsim_superpose_adc(
       static_cast<const unsigned char*>(has), current_2_adc, baseline,
       static_cast<const short*>(bank), bank_len, bank_ch,
       static_cast<const int*>(noise_ix), n_ch, static_cast<short*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n_rows = B * n_ch TPC rows in; out (B, n_all, n_samples) int16; scratch
+// B * n_samples + 1 int32, zeroed here: the (B, n_samples) sum rows, then
+// the overflow word (non-zero where an in-window value reached 2^16)
+extern "C" int wfsim_superpose_adc_full(
+    const void* t, const void* gain, const void* row_ptr, int n_rows,
+    int n_samples, const void* templates, int dt, int tlen,
+    const void* ch_left, const void* ch_right, const void* has,
+    float current_2_adc, int baseline, const void* bank, int bank_len,
+    int bank_ch, const void* noise_ix, int n_ch, int n_all, int n_top,
+    int he_lo, int sum_ch, int deamp, void* scratch, void* out, void* stream) {
+  if (dt * tlen > kMaxTemplate) return static_cast<int>(cudaErrorInvalidValue);
+  if (bank != nullptr && (bank_len <= 0 || noise_ix == nullptr || bank_ch > n_all))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_ch <= 0 || n_rows % n_ch != 0 || n_top < 0 || n_top > n_ch ||
+      he_lo < n_ch || he_lo + n_top > sum_ch || sum_ch >= n_all)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_win = n_rows / n_ch;
+  const int n_rest = n_all - n_ch - n_top;
+  const int tiles = (n_samples + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>(n_rows) * tiles;
+  const long long rest_blocks = static_cast<long long>(n_win) * n_rest * tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL || rest_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* sum32 = static_cast<int*>(scratch);
+  int* overflow = sum32 + static_cast<long long>(n_win) * n_samples;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (static_cast<size_t>(n_win) * n_samples + 1) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  superpose_adc_full_kernel<<<static_cast<unsigned>(blocks), kTile, 0, s>>>(
+      static_cast<const int*>(t), static_cast<const float*>(gain),
+      static_cast<const int*>(row_ptr), n_rows, n_samples,
+      static_cast<const float*>(templates), dt, tlen,
+      static_cast<const int*>(ch_left), static_cast<const int*>(ch_right),
+      static_cast<const unsigned char*>(has), current_2_adc, baseline,
+      static_cast<const short*>(bank), bank_len, bank_ch,
+      static_cast<const int*>(noise_ix), n_ch, n_all, n_top, he_lo, deamp,
+      sum32, overflow, static_cast<short*>(out));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || rest_blocks == 0) return static_cast<int>(err);
+  full_grid_rest_kernel<<<static_cast<unsigned>(rest_blocks), kTile, 0, s>>>(
+      n_win, n_samples, n_ch, n_all, n_top, he_lo, sum_ch, sum32,
+      static_cast<short*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,15 @@
 // values JAX gives its sentinels (start 2^30, end -2^30 before the shift,
 // clip and rounding), so the whole (rows, K) arrays compare bitwise; the
 // count is capped at K and 0 for rows without photons.
+//
+// nonneg (the full digitizer grid): wfsim_tpu runs ZLE there on the int32
+// grid before its int16 cast (digitize.py:409-435), where every in-window
+// value is >= 0 after the clip.  A negative int16 sample in the window is
+// then the wrap of a value in [2^15, 2^16), which is never below a
+// threshold, so with nonneg set a sample is below only if 0 <= x < thr.
+// (Values >= 2^16 are refused before this kernel: superpose_adc_full
+// raises.)  On the slim grid wfsim_tpu casts first and compares the int16
+// samples, which is the plain x < thr.
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,7 +49,7 @@ __global__ void zle_intervals_kernel(
     const short* __restrict__ data, int n_rows, int n_samples,
     const int* __restrict__ thresholds, const int* __restrict__ ch_left,
     const int* __restrict__ ch_right, const unsigned char* __restrict__ has,
-    int holdoff, int trigger_window, int max_intervals,
+    int holdoff, int trigger_window, int max_intervals, int nonneg,
     int* __restrict__ starts, int* __restrict__ ends, int* __restrict__ counts) {
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   if (row >= n_rows || (threadIdx.x & 31) != 0) return;
@@ -60,7 +69,7 @@ __global__ void zle_intervals_kernel(
     int s = -1, e = -1;
     for (int i = left; i <= right; ++i) {
       const int x = d[i];
-      const bool below = x < thr;
+      const bool below = x < thr && (nonneg == 0 || x >= 0);
       if (below) {
         if (!inside) { inside = true; s = i; }
         e = i;
@@ -90,8 +99,8 @@ __global__ void zle_intervals_kernel(
 extern "C" int wfsim_zle_intervals(
     const void* data, int n_rows, int n_samples, const void* thresholds,
     const void* ch_left, const void* ch_right, const void* has, int holdoff,
-    int trigger_window, int max_intervals, void* starts, void* ends,
-    void* counts, void* stream) {
+    int trigger_window, int max_intervals, int nonneg, void* starts,
+    void* ends, void* counts, void* stream) {
   if (n_rows <= 0 || max_intervals <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   zle_intervals_kernel<<<blocks, 32 * kWarpsPerBlock, 0,
@@ -99,7 +108,7 @@ extern "C" int wfsim_zle_intervals(
       static_cast<const short*>(data), n_rows, n_samples,
       static_cast<const int*>(thresholds), static_cast<const int*>(ch_left),
       static_cast<const int*>(ch_right), static_cast<const unsigned char*>(has),
-      holdoff, trigger_window, max_intervals, static_cast<int*>(starts),
+      holdoff, trigger_window, max_intervals, nonneg, static_cast<int*>(starts),
       static_cast<int*>(ends), static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,9 @@ On the card the superposition, the ADC conversion, the noise overlay
 kernel (``csrc/superpose_adc.cu``), which stores the int16 grid directly.  ``superpose_adc_ref`` is its plain
 PyTorch twin: it adds the same float32 products in the same per-sample
 order (photon order within each row), so the two agree bitwise.
+``superpose_adc_full`` and its twin ``superpose_adc_full_ref`` digitize
+the whole XENONnT digitizer grid (high-energy copies, bottom-array sum)
+from the same single pass over the photons.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 from .._build import Kernel, P, I, F, ptr, stream_of, check_tensor as _check
 
 __all__ = ['make_templates', 'photons_to_waveform_ref', 'noise_overlay_ref',
-           'superpose_adc', 'superpose_adc_ref']
+           'superpose_adc', 'superpose_adc_ref', 'superpose_adc_full',
+           'superpose_adc_full_ref']
 
 
 def make_templates(pe_pulse_ts, pe_pulse_ys,
@@ -82,25 +86,48 @@ def photons_to_waveform_ref(t, gain, row_ptr, templates, *, n_samples: int):
     return W[:, :n_samples]
 
 
+def bank_reads_ref(bank, noise_ix, ch_left, cols, *, n_samples: int):
+    """(R, n_samples) int32: row r reads ``bank[cols[r], (noise_ix[r] + u -
+    ch_left[r]) % L]`` (one noise offset and one bank column per row)."""
+    L = bank.shape[1]
+    u = torch.arange(n_samples, dtype=torch.int64, device=ch_left.device)
+    x = noise_ix.to(torch.int64)[:, None] + u[None, :] \
+        - ch_left.to(torch.int64)[:, None]
+    flat = cols.to(torch.int64)[:, None] * L + torch.remainder(x, L)
+    return bank.reshape(-1)[flat].to(torch.int32)
+
+
 def noise_overlay_ref(bank, noise_ix, ch_left, *, n_channels: int,
                       n_samples: int):
     """(rows, n_samples) int32 noise of each row's trace: row ``w * C + c``
     reads ``bank[c, (noise_ix[w] + u - ch_left[row]) % L]`` for ``c < Cn``
     and is 0 on rows past the bank (wfsim_tpu/pipeline/digitize.py:67
     _noise_gather; reference rawdata.py:407-431)."""
-    Cn, L = bank.shape
+    Cn = bank.shape[0]
     dev = ch_left.device
     n_rows = ch_left.shape[0]
     rows = torch.arange(n_rows, device=dev)
     c = rows % n_channels
     on = torch.nonzero(c < Cn).squeeze(1)
     out = torch.zeros((n_rows, n_samples), dtype=torch.int32, device=dev)
-    u = torch.arange(n_samples, dtype=torch.int64, device=dev)
-    x = (noise_ix.to(torch.int64)[on // n_channels, None] + u[None, :]
-         - ch_left.to(torch.int64)[on, None])
-    flat = c[on, None] * L + torch.remainder(x, L)
-    out[on] = bank.reshape(-1)[flat].to(torch.int32)
+    out[on] = bank_reads_ref(bank, noise_ix[on // n_channels], ch_left[on],
+                             c[on], n_samples=n_samples)
     return out
+
+
+def _adc_and_window_ref(t, gain, row_ptr, templates, ch_left, ch_right, has,
+                        *, current_2_adc: float, n_samples: int):
+    """(adc, in_win): ``-round_half_even(W * current_2_adc)`` (int32) of
+    every row and the mask of each row's window ``[ch_left, ch_right]``
+    (rows with ``has`` only)."""
+    W = photons_to_waveform_ref(t, gain, row_ptr, templates,
+                                n_samples=n_samples)
+    c2a = float(np.float32(current_2_adc))
+    adc = (-torch.round(W * c2a)).to(torch.int32)
+    idx = torch.arange(n_samples, dtype=torch.int32, device=t.device)
+    in_win = ((idx[None, :] >= ch_left[:, None])
+              & (idx[None, :] <= ch_right[:, None]) & has[:, None])
+    return adc, in_win
 
 
 def superpose_adc_ref(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
@@ -111,21 +138,128 @@ def superpose_adc_ref(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     (with a bank), the baseline and a clip at 0 inside each row's window
     ``[ch_left, ch_right]`` for rows with ``has``, then int16
     (wfsim_tpu/pipeline/digitize.py:299-319)."""
-    W = photons_to_waveform_ref(t, gain, row_ptr, templates,
-                                n_samples=n_samples)
-    c2a = float(np.float32(current_2_adc))
-    adc = (-torch.round(W * c2a)).to(torch.int32)
-    idx = torch.arange(n_samples, dtype=torch.int32, device=t.device)
-    in_win = ((idx[None, :] >= ch_left[:, None])
-              & (idx[None, :] <= ch_right[:, None]) & has[:, None])
+    adc, in_win = _adc_and_window_ref(t, gain, row_ptr, templates, ch_left,
+                                      ch_right, has,
+                                      current_2_adc=current_2_adc,
+                                      n_samples=n_samples)
+    return _epilogue_ref(adc, in_win, ch_left, baseline=baseline,
+                         noise_bank=noise_bank, noise_ix=noise_ix,
+                         n_channels=n_channels)
+
+
+def _epilogue_ref(adc, in_win, ch_left, *, baseline, noise_bank, noise_ix,
+                  n_channels, wide=False):
+    """int16 rows (int32 with ``wide``): adc plus, inside the window, the
+    noise overlay (with a bank) and the baseline, clipped at 0."""
     add = torch.full_like(adc, baseline)
     if noise_bank is not None:
         add = add + noise_overlay_ref(noise_bank, noise_ix, ch_left,
                                       n_channels=n_channels,
-                                      n_samples=n_samples)
+                                      n_samples=adc.shape[1])
     data = adc + torch.where(in_win, add, 0)
     data = torch.where(in_win, torch.clamp_min(data, 0), data)
-    return data.to(torch.int16)
+    return data if wide else data.to(torch.int16)
+
+
+_OVERFLOW = ('an in-window sample of the full grid reached 2^16 (|adc x '
+             'deamplification factor| too large): its int16 sample no '
+             'longer tells whether the int32 value is below the ZLE '
+             'threshold, as wfsim_tpu compares it')
+
+
+def _wrap_i32(x):
+    """int64 values reduced to int32 modulo 2^32 (XLA's wrapping int32
+    arithmetic), kept as int64."""
+    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def superpose_adc_full_ref(t, gain, row_ptr, templates, ch_left, ch_right,
+                           has, *, current_2_adc: float, baseline: int,
+                           n_samples: int, n_channels: int,
+                           n_channels_total: int, n_top: int, he_start: int,
+                           sum_channel: int, deamp: int, noise_bank=None,
+                           noise_ix=None):
+    """Plain twin of the superpose_adc_full kernel: the (B, C_all, T) int16
+    digitizer grid of B windows (wfsim_tpu/pipeline/digitize.py:341-435).
+
+    Rows 0..C-1 are :func:`superpose_adc_ref`'s.  HE row ``he_start + c``
+    (c < n_top) is ``adc * deamp`` of TPC row c, plus (inside TPC row c's
+    window) the noise of bank column ``he_start + c`` when the bank has
+    it, the baseline and a clip at 0.  Row ``sum_channel`` is the sum over
+    the bottom rows (c >= n_top) of ``adc * deamp``, with no window.
+    Every other row is 0.  Products and sums wrap as int32 and the int16
+    cast keeps the low 16 bits, as wfsim_tpu's int32 arithmetic and
+    ``astype(int16)`` do (the sum is exact in int64 here; its low 16 bits
+    are those of the wrapped int32 sum).  Raises ``OverflowError`` where
+    an in-window value reaches 2^16 (see :func:`superpose_adc_full`)."""
+    C, T = n_channels, n_samples
+    n_rows = row_ptr.shape[0] - 1
+    B = n_rows // C
+    dev = t.device
+    adc, in_win = _adc_and_window_ref(t, gain, row_ptr, templates, ch_left,
+                                      ch_right, has,
+                                      current_2_adc=current_2_adc,
+                                      n_samples=T)
+    out = torch.zeros((B, n_channels_total, T), dtype=torch.int16, device=dev)
+    tpc = _epilogue_ref(adc, in_win, ch_left, baseline=baseline,
+                        noise_bank=noise_bank, noise_ix=noise_ix,
+                        n_channels=C, wide=True)
+    overflow = bool((tpc[in_win] >= 2 ** 16).any())
+    out[:, :C] = tpc.to(torch.int16).reshape(B, C, T)
+
+    rows = torch.arange(n_rows, device=dev)
+    top = rows[rows % C < n_top]
+    add = torch.full((top.shape[0], T), baseline, dtype=torch.int64,
+                     device=dev)
+    if noise_bank is not None:
+        cols = he_start + top % C
+        on = cols < noise_bank.shape[0]
+        add[on] += bank_reads_ref(noise_bank, noise_ix[top[on] // C],
+                                  ch_left[top[on]], cols[on], n_samples=T)
+    win = in_win[top]
+    he = _wrap_i32(adc[top].to(torch.int64) * deamp
+                   + torch.where(win, add, 0))
+    he = torch.where(win, torch.clamp_min(he, 0), he)
+    if overflow or bool((he[win] >= 2 ** 16).any()):
+        raise OverflowError(_OVERFLOW)
+    out[:, he_start:he_start + n_top] = he.to(torch.int16).reshape(
+        B, n_top, T)
+    bottom = adc.reshape(B, C, T)[:, n_top:].to(torch.int64)
+    out[:, sum_channel] = _wrap_i32(bottom * deamp).sum(dim=1).to(
+        torch.int16)
+    return out
+
+
+def _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right, has,
+                  noise_bank, noise_ix, n_channels):
+    """Raise on what the superpose kernels do not take; return the
+    ctypes arguments of the bank ``(bank, L, Cn, noise_ix)``."""
+    dev = t.device
+    n = t.shape[0]
+    n_rows = row_ptr.shape[0] - 1
+    _check('t', t, torch.int32, (n,), dev)
+    _check('gain', gain, torch.float32, (n,), dev)
+    _check('row_ptr', row_ptr, torch.int32, (n_rows + 1,), dev)
+    _check('templates', templates, torch.float32, tuple(templates.shape), dev)
+    _check('ch_left', ch_left, torch.int32, (n_rows,), dev)
+    _check('ch_right', ch_right, torch.int32, (n_rows,), dev)
+    _check('has', has, torch.bool, (n_rows,), dev)
+    if n and int(t.min()) < 0:
+        raise ValueError('photon times must be window-relative and >= 0')
+    if noise_bank is None:
+        return (None, 0, 0, None)
+    Cn, L = noise_bank.shape
+    if n_channels <= 0 or n_rows % n_channels:
+        raise ValueError(f'{n_rows} rows are not whole windows of '
+                         f'{n_channels} channels')
+    _check('noise_bank', noise_bank, torch.int16, (Cn, L), dev)
+    _check('noise_ix', noise_ix, torch.int32, (n_rows // n_channels,), dev)
+    if not 0 < L < 2 ** 30:
+        raise ValueError(f'noise bank length {L} out of range')
+    if noise_ix.numel() and not (0 <= int(noise_ix.min())
+                                 and int(noise_ix.max()) < 2 ** 30):
+        raise ValueError('noise_ix must lie in [0, 2^30)')
+    return (ptr(noise_bank), L, Cn, ptr(noise_ix))
 
 
 _kernel = Kernel('wfsim_superpose_adc',
@@ -145,32 +279,9 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     CPU tensors go to :func:`superpose_adc_ref`; CUDA tensors launch the
     hand-written kernel (``csrc/superpose_adc.cu``)."""
     dev = t.device
-    n = t.shape[0]
     n_rows = row_ptr.shape[0] - 1
-    _check('t', t, torch.int32, (n,), dev)
-    _check('gain', gain, torch.float32, (n,), dev)
-    _check('row_ptr', row_ptr, torch.int32, (n_rows + 1,), dev)
-    _check('templates', templates, torch.float32, tuple(templates.shape), dev)
-    _check('ch_left', ch_left, torch.int32, (n_rows,), dev)
-    _check('ch_right', ch_right, torch.int32, (n_rows,), dev)
-    _check('has', has, torch.bool, (n_rows,), dev)
-    if n and int(t.min()) < 0:
-        raise ValueError('photon times must be window-relative and >= 0')
-    bank_args = (None, 0, 0, None, 0)
-    if noise_bank is not None:
-        Cn, L = noise_bank.shape
-        if n_channels <= 0 or n_rows % n_channels:
-            raise ValueError(f'{n_rows} rows are not whole windows of '
-                             f'{n_channels} channels')
-        _check('noise_bank', noise_bank, torch.int16, (Cn, L), dev)
-        _check('noise_ix', noise_ix, torch.int32, (n_rows // n_channels,),
-               dev)
-        if not 0 < L < 2 ** 30:
-            raise ValueError(f'noise bank length {L} out of range')
-        if noise_ix.numel() and not (0 <= int(noise_ix.min())
-                                     and int(noise_ix.max()) < 2 ** 30):
-            raise ValueError('noise_ix must lie in [0, 2^30)')
-        bank_args = (ptr(noise_bank), L, Cn, ptr(noise_ix), n_channels)
+    bank_args = _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right,
+                              has, noise_bank, noise_ix, n_channels)
     kw = dict(current_2_adc=current_2_adc, baseline=baseline,
               n_samples=n_samples, noise_bank=noise_bank, noise_ix=noise_ix,
               n_channels=n_channels)
@@ -186,5 +297,75 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     _kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
             ptr(templates), dt, L, ptr(ch_left), ptr(ch_right), ptr(has),
             float(np.float32(current_2_adc)), int(baseline), *bank_args,
-            ptr(out), stream_of(dev))
+            n_channels, ptr(out), stream_of(dev))
+    return out
+
+
+_full_kernel = Kernel('wfsim_superpose_adc_full',
+                      [P, P, P, I, I, P, I, I, P, P, P, F, I, P, I, I, P,
+                       I, I, I, I, I, I, P, P, P])
+
+
+def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
+                       *, current_2_adc: float, baseline: int, n_samples: int,
+                       n_channels: int, n_channels_total: int, n_top: int,
+                       he_start: int, sum_channel: int, deamp: int,
+                       noise_bank=None, noise_ix=None):
+    """(B, n_channels_total, n_samples) int16 full digitizer grid of B
+    windows of ``n_channels`` TPC rows each (row = w * C + c; arguments as
+    :func:`superpose_adc`): TPC rows, high-energy copies of the ``n_top``
+    top rows on ``he_start..``, the bottom-array sum on ``sum_channel``
+    (see :func:`superpose_adc_full_ref`).  ``noise_bank`` may be as wide as
+    the grid; its columns past the TPC feed the HE rows.
+
+    CPU tensors go to :func:`superpose_adc_full_ref`; CUDA tensors launch
+    the hand-written kernel (``csrc/superpose_adc.cu``,
+    ``wfsim_superpose_adc_full``: one pass over the photons, atomic int32
+    bottom sum, one follow-on launch for the sum and gap rows).
+
+    Raises ``OverflowError`` where an in-window sample reaches 2^16: the
+    port's ZLE reads the int16 grid (``zle_all_channels(nonneg=True)``),
+    which is exact below that (wfsim_tpu compares the int32 values); with
+    the SPE gains >= 0 of the synthetic spectrum the HE values never pass
+    the baseline."""
+    dev = t.device
+    n_rows = row_ptr.shape[0] - 1
+    C, C_all = n_channels, n_channels_total
+    if C <= 0 or n_rows % C:
+        raise ValueError(f'{n_rows} rows are not whole windows of {C} '
+                         f'channels')
+    if not (0 <= n_top <= C <= he_start and he_start + n_top <= sum_channel
+            < C_all):
+        raise ValueError(f'grid layout C={C} n_top={n_top} he_start='
+                         f'{he_start} sum_channel={sum_channel} C_all={C_all}'
+                         f' is not TPC < HE <= sum < total')
+    if not -2 ** 31 <= int(deamp) < 2 ** 31:
+        raise ValueError(f'deamplification factor {deamp} does not fit int32')
+    if noise_bank is not None and noise_bank.shape[0] > C_all:
+        raise ValueError(f'noise bank of {noise_bank.shape[0]} channels is '
+                         f'wider than the {C_all}-row grid')
+    bank_args = _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right,
+                              has, noise_bank, noise_ix, C)
+    kw = dict(current_2_adc=current_2_adc, baseline=baseline,
+              n_samples=n_samples, n_channels=C, n_channels_total=C_all,
+              n_top=n_top, he_start=he_start, sum_channel=sum_channel,
+              deamp=int(deamp), noise_bank=noise_bank, noise_ix=noise_ix)
+    if dev.type == 'cpu':
+        return superpose_adc_full_ref(t, gain, row_ptr, templates, ch_left,
+                                      ch_right, has, **kw)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'superpose_adc_full on {dev}')
+    B = n_rows // C
+    out = torch.empty((B, C_all, n_samples), dtype=torch.int16, device=dev)
+    if n_rows == 0 or n_samples == 0:
+        return out
+    scratch = torch.empty(B * n_samples + 1, dtype=torch.int32, device=dev)
+    dt, L = templates.shape
+    _full_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
+                 ptr(templates), dt, L, ptr(ch_left), ptr(ch_right),
+                 ptr(has), float(np.float32(current_2_adc)), int(baseline),
+                 *bank_args, C, C_all, n_top, he_start, sum_channel,
+                 int(deamp), ptr(scratch), ptr(out), stream_of(dev))
+    if int(scratch[-1]):
+        raise OverflowError(_OVERFLOW)
     return out

@@ -65,21 +65,26 @@ def _clip(x, lo, hi):
 
 def zle_all_channels_ref(data, thresholds, ch_left, ch_right, ch_mask, *,
                          holdoff: int, trigger_window: int,
-                         max_intervals: int):
+                         max_intervals: int, nonneg: bool = False):
     """Plain twin of the zle_intervals kernel.
 
     :param data: (R, T) int16 digitized grid
     :param thresholds: (R,) int32 ZLE threshold per row (ADC)
     :param ch_left/ch_right: (R,) int32 active window per row
     :param ch_mask: (R,) bool rows that hold photons
+    :param nonneg: the grid is the int16 cast of values that are >= 0 in
+        the window (the full digitizer grid), so a negative sample is never
+        below threshold
     :returns: starts, ends (R, K) int32 relative to ``ch_left``, counts (R,)
     """
     R, T = data.shape
     idx = torch.arange(T, dtype=torch.int32, device=data.device)
     in_window = ((idx[None, :] >= ch_left[:, None])
                  & (idx[None, :] <= ch_right[:, None]))
-    below = (data.to(torch.int32) < thresholds[:, None]) & in_window \
-        & ch_mask[:, None]
+    x = data.to(torch.int32)
+    below = (x < thresholds[:, None]) & in_window & ch_mask[:, None]
+    if nonneg:
+        below &= x >= 0
     starts, ends, counts = find_intervals(below, holdoff=holdoff,
                                           max_intervals=max_intervals)
     zero = torch.zeros((), dtype=torch.int32, device=data.device)
@@ -92,14 +97,16 @@ def zle_all_channels_ref(data, thresholds, ch_left, ch_right, ch_mask, *,
     return starts.to(torch.int32), ends.to(torch.int32), counts
 
 
-_kernel = Kernel('wfsim_zle_intervals', [P, I, I, P, P, P, P, I, I, I, P, P, P, P])
+_kernel = Kernel('wfsim_zle_intervals',
+                 [P, I, I, P, P, P, P, I, I, I, I, P, P, P, P])
 
 
 def zle_all_channels(data, thresholds, ch_left, ch_right, ch_mask, *,
-                     holdoff: int, trigger_window: int, max_intervals: int):
-    """ZLE intervals of every row: CPU tensors go to
-    :func:`zle_all_channels_ref`; CUDA tensors launch the hand-written kernel
-    (``csrc/zle_intervals.cu``)."""
+                     holdoff: int, trigger_window: int, max_intervals: int,
+                     nonneg: bool = False):
+    """ZLE intervals of every row (arguments as
+    :func:`zle_all_channels_ref`): CPU tensors go to the twin; CUDA tensors
+    launch the hand-written kernel (``csrc/zle_intervals.cu``)."""
     R, T = data.shape
     dev = data.device
     if data.dtype != torch.int16 or not data.is_contiguous():
@@ -113,7 +120,7 @@ def zle_all_channels(data, thresholds, ch_left, ch_right, ch_mask, *,
             raise TypeError(f'{name}: need contiguous {dt} ({R},) on {dev}, '
                             f'got {x.dtype} {tuple(x.shape)} on {x.device}')
     kw = dict(holdoff=holdoff, trigger_window=trigger_window,
-              max_intervals=max_intervals)
+              max_intervals=max_intervals, nonneg=nonneg)
     if dev.type == 'cpu':
         return zle_all_channels_ref(data, thresholds, ch_left, ch_right,
                                     ch_mask, **kw)
@@ -126,6 +133,6 @@ def zle_all_channels(data, thresholds, ch_left, ch_right, ch_mask, *,
     if R == 0:
         return starts, ends, counts
     _kernel(ptr(data), R, T, ptr(thresholds), ptr(ch_left), ptr(ch_right),
-            ptr(ch_mask), holdoff, trigger_window, K, ptr(starts), ptr(ends),
-            ptr(counts), stream_of(dev))
+            ptr(ch_mask), holdoff, trigger_window, K, int(nonneg),
+            ptr(starts), ptr(ends), ptr(counts), stream_of(dev))
     return starts, ends, counts

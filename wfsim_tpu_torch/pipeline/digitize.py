@@ -1,14 +1,23 @@
 """Window digitization: photon arena -> int16 grid -> ZLE -> strax records
-(counterpart of wfsim_tpu/pipeline/digitize.py: gather_digitize's slim-grid
-branch with its noise overlay, :287-340, and the dense pack_records,
-:469-519; reference: wfsim/core/rawdata.py:204-311, 398-458).
+(counterpart of wfsim_tpu/pipeline/digitize.py: gather_digitize with its
+noise overlay, :183-466, the one-window digitize_window, :96-178, and the
+dense pack_records, :469-519; reference: wfsim/core/rawdata.py:204-311,
+398-458).
 
 A batch of B windows is one grid of B*C rows (window w, TPC channel c ->
 row w*C + c).  The glue here is plain torch: gathering each window's
 photons from the arena through its piece table, the per-row extents, the
 row sort, and the record cumsum.  The three device passes are hand-written
-kernels with plain twins: ``ops.waveform.superpose_adc``,
-``ops.zle.zle_all_channels`` and :func:`pack_records`.
+kernels with plain twins: ``ops.waveform.superpose_adc`` (or
+``superpose_adc_full`` on the full digitizer grid), ``ops.zle.zle_all_channels``
+and :func:`pack_records`.
+
+Two grids, chosen where wfsim_tpu chooses them (digitize.py:290): the slim
+grid of the C TPC rows, and the full XENONnT digitizer grid of
+``n_channels_total`` rows a window (TPC rows, high-energy copies of the
+top array, the bottom-array sum) when the integer deamplification factor
+is not 0 or the noise bank is wider than the TPC.  Record channels are
+grid rows, so HE records carry channels 500-752.
 
 With noise on, the grid is the noisy waveform itself and the dense
 records carry it.  Left out by design (wfsim_tpu's relay transport):
@@ -21,11 +30,12 @@ from __future__ import annotations
 import torch
 
 from .._build import Kernel, P, I, ptr, stream_of
-from ..ops.waveform import superpose_adc
+from ..ops.waveform import superpose_adc, superpose_adc_full
 from ..ops.zle import zle_all_channels
 
-__all__ = ['gather_digitize', 'window_photons', 'pack_records',
-           'pack_records_ref', 'SAMPLES_PER_RECORD']
+__all__ = ['gather_digitize', 'digitize_window', 'window_photons',
+           'full_grid', 'full_grid_rows', 'pack_records', 'pack_records_ref',
+           'SAMPLES_PER_RECORD']
 
 SAMPLES_PER_RECORD = 110
 
@@ -94,52 +104,127 @@ def noise_on(params, const) -> bool:
     return bool(const.enable_noise and params.noise_bank is not None)
 
 
+def full_grid(params, const) -> bool:
+    """Whether a batch digitizes the full digitizer grid: the integer
+    deamplification factor is not 0 (reference rawdata.py:242 casts it),
+    or the noise bank covers rows past the TPC (wfsim_tpu
+    digitize.py:290)."""
+    return const.high_energy_deamp_int != 0 or (
+        noise_on(params, const)
+        and params.noise_bank.shape[0] > const.n_tpc_pmts)
+
+
+def full_grid_rows(x, const):
+    """(B, C) per-row values of the TPC rows -> (B, n_channels_total) of
+    the full grid: the HE row of top channel c takes TPC row c's value;
+    the sum row and the gap rows are 0 (False) — they have no window
+    (reference rawdata.py:250-254)."""
+    B, C = x.shape
+    n_top = const.n_top_pmts
+    out = torch.zeros((B, const.n_channels_total), dtype=x.dtype,
+                      device=x.device)
+    out[:, :C] = x
+    out[:, const.he_channel_start:const.he_channel_start + n_top] = \
+        x[:, :n_top]
+    return out
+
+
 def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces,
-                    noise_ix=None, *, n_samples: int, max_intervals: int = 64):
+                    noise_ix=None, *, n_samples: int, max_intervals: int = 64,
+                    full: bool | None = None):
     """Digitize a batch of B windows straight from the device photon arena
     (arguments as :func:`window_photons`).
 
     :param noise_ix: (B,) int32 host-drawn noise-bank offset per window
         (required with noise on, ignored otherwise)
-    :returns: dict of data (B, C, T) int16, left_all/right_all (B, C) int32,
-        has (B, C) bool, starts/ends (B, C, K) int32 (relative to left_all),
-        counts (B, C) int32
+    :param full: digitize the full grid (default: :func:`full_grid`)
+    :returns: dict of data (B, R, T) int16, left_all/right_all (B, R)
+        int32, has (B, R) bool, starts/ends (B, R, K) int32 (relative to
+        left_all), counts (B, R) int32, with R = C TPC rows on the slim
+        grid and ``n_channels_total`` on the full one
     """
     noisy = noise_on(params, const)
-    if const.high_energy_deamp_int != 0 or (
-            noisy and params.noise_bank.shape[0] > const.n_tpc_pmts):
+    if full is None:
+        full = full_grid(params, const)
+    if full and (const.detector != 'XENONnT'
+                 or const.he_channel_end < const.he_channel_start):
         raise NotImplementedError(
-            'the full digitizer grid (HE copies, sum channel, a noise bank '
-            'wider than the TPC) is not ported; the port runs the slim-grid '
-            'branch only')
+            f'the full digitizer grid is ported for XENONnT only, not '
+            f'{const.detector}')
     B = int(pieces.shape[0])
     C = const.n_tpc_pmts
     T = n_samples
     K = max_intervals
     ph = window_photons(const, arena_t, arena_ch, arena_gain, pieces,
                         n_samples=T)
+    dev = ph['t'].device
     noise = {}
     if noisy:
         if noise_ix is None:
             raise ValueError('noise is on: gather_digitize needs noise_ix')
-        noise = dict(noise_bank=params.noise_bank, n_channels=C,
-                     noise_ix=noise_ix.to(ph['t'].device, torch.int32))
-    data = superpose_adc(ph['t'], ph['gain'], ph['row_ptr'], params.templates,
-                         ph['ch_left'], ph['ch_right'], ph['has'],
-                         current_2_adc=const.current_2_adc,
-                         baseline=const.digitizer_reference_baseline,
-                         n_samples=T, **noise)
-    zthr = params.zle_thresholds[:C].repeat(B).contiguous()
+        noise = dict(noise_bank=params.noise_bank,
+                     noise_ix=noise_ix.to(dev, torch.int32))
+    args = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+            ph['ch_left'], ph['ch_right'], ph['has'])
+    kw = dict(current_2_adc=const.current_2_adc,
+              baseline=const.digitizer_reference_baseline, n_samples=T,
+              n_channels=C, **noise)
+    left = ph['ch_left'].reshape(B, C)
+    right = ph['ch_right'].reshape(B, C)
+    has = ph['has'].reshape(B, C)
+    if full:
+        R = const.n_channels_total
+        data = superpose_adc_full(
+            *args, n_channels_total=R, n_top=const.n_top_pmts,
+            he_start=const.he_channel_start,
+            sum_channel=const.sum_signal_channel,
+            deamp=const.high_energy_deamp_int, **kw)
+        left, right, has = (full_grid_rows(x, const)
+                            for x in (left, right, has))
+    else:
+        R = C
+        data = superpose_adc(*args, **kw).reshape(B, C, T)
+    zthr = params.zle_thresholds[:R].repeat(B).contiguous()
     starts, ends, counts = zle_all_channels(
-        data, zthr, ph['ch_left'], ph['ch_right'], ph['has'],
-        holdoff=2 * const.trigger_window + 1,
-        trigger_window=const.trigger_window, max_intervals=K)
-    return dict(data=data.reshape(B, C, T),
-                left_all=ph['ch_left'].reshape(B, C),
-                right_all=ph['ch_right'].reshape(B, C),
-                has=ph['has'].reshape(B, C),
-                starts=starts.reshape(B, C, K), ends=ends.reshape(B, C, K),
-                counts=counts.reshape(B, C))
+        data.reshape(B * R, T), zthr, left.reshape(-1), right.reshape(-1),
+        has.reshape(-1), holdoff=2 * const.trigger_window + 1,
+        trigger_window=const.trigger_window, max_intervals=K, nonneg=full)
+    return dict(data=data, left_all=left, right_all=right, has=has,
+                starts=starts.reshape(B, R, K), ends=ends.reshape(B, R, K),
+                counts=counts.reshape(B, R))
+
+
+def digitize_window(params, const, t, ch, gain, valid, noise_ix=None, *,
+                    n_samples: int, max_intervals: int = 128):
+    """Digitize one window on the full XENONnT digitizer grid (wfsim_tpu's
+    public digitize_window, digitize.py:96-178): the HE copies are masked
+    whatever the deamplification factor, the grid has
+    ``n_channels_total`` rows and carries the noise overlay.  wfsim_tpu's
+    ``key`` argument, which it never reads, is dropped.
+
+    :param t: (N,) int32 photon times, ns relative to the window's left
+        edge, >= 0
+    :param ch/gain/valid: (N,) int32 channels, float32 gains, bool photons
+        to keep
+    :param noise_ix: int noise-bank start offset (needed with noise on)
+    :returns: dict with data (C_all, T) int16, ch_mask/ch_left/ch_right
+        (C_all,), zle_starts/zle_ends (C_all, K) relative to ch_left,
+        zle_counts (C_all,)
+    """
+    dev = t.device
+    ch = torch.where(valid, ch, -1).to(torch.int32)
+    pieces = torch.tensor([[[0, int(t.shape[0]), 0]]], dtype=torch.int64,
+                          device=dev)
+    nix = (None if noise_ix is None else
+           torch.as_tensor(noise_ix, dtype=torch.int32, device=dev).reshape(1))
+    out = gather_digitize(params, const, t.to(torch.int32), ch,
+                          gain.to(torch.float32), pieces, nix,
+                          n_samples=n_samples, max_intervals=max_intervals,
+                          full=True)
+    return dict(data=out['data'][0], ch_mask=out['has'][0],
+                ch_left=out['left_all'][0], ch_right=out['right_all'][0],
+                zle_starts=out['starts'][0], zle_ends=out['ends'][0],
+                zle_counts=out['counts'][0])
 
 
 def _record_plan(left_all, starts, ends, counts):

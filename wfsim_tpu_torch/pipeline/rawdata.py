@@ -16,12 +16,15 @@ A) same-type batches (S1, S2, and the electron-afterpulse kinds pi_el and
    feedback: secondaries spawn nothing);
 B) pulses are grouped into digitization windows with the reference's
    flush-on-gap rule (rawdata.py:96-98), and each group is sub-split at
-   internal gaps that no ZLE interval can bridge (PARITY.md deviation 1);
-   with noise on, each window draws its noise-bank offset on the host;
+   internal gaps that no ZLE interval can bridge (PARITY.md deviation 1)
+   unless the high-energy copies are live (integer deamplification factor
+   not 0, wfsim_tpu rawdata.py:1254-1259); with noise on, each window
+   draws its noise-bank offset on the host;
 C) windows are bucketed by their power-of-two length ``T_cap`` and
    digitized in batches straight from the device photon arena
-   (``gather_digitize`` -> ``pack_records``), and the records come back
-   to the host as strax ``raw_records``.
+   (``gather_digitize`` -> ``pack_records``, on the slim or the full
+   digitizer grid), and the records come back to the host as strax
+   ``raw_records``.
 
 The host numpy generator (``self.rng``) is used in one fixed order:
 secondary-instruction synthesis during the simulation, then the windows'
@@ -57,7 +60,7 @@ from ..models.params import build_params, build_constants
 from ..models.s1 import simulate_s1, s1_models
 from ..models.s2 import simulate_s2, check_supported
 from ..resources.loader import load_config
-from .digitize import gather_digitize, pack_records, noise_on
+from .digitize import gather_digitize, pack_records, noise_on, full_grid
 
 log = logging.getLogger('wfsim_tpu_torch.core')
 
@@ -430,7 +433,9 @@ class RawData:
         holdoff_w = 2 * c.trigger_window + 1
         split_gap = self.config.get('split_digitize_gap_ns')
         if split_gap is None:
-            split_gap = max(4 * (margin_l + margin_r + holdoff_w) * dt, 20_000)
+            split_gap = (max(4 * (margin_l + margin_r + holdoff_w) * dt,
+                             20_000)
+                         if c.high_energy_deamp_int == 0 else 0)
 
         groups: ty.List[ty.List[_Pulse]] = []
         cur = [pulses[0]]
@@ -509,14 +514,16 @@ class RawData:
         budget = self._memory_budget()
         # the grid and its ZLE working set dominate: ~8 bytes per
         # (row, sample) with the kernels, ~40 with the CPU twins (~64 with
-        # the twin's noise gather)
+        # the twin's noise gather); the full grid has n_channels_total rows
         if self.device.type == 'cuda':
             per_sample = 8
         else:
             per_sample = 64 if noise_on(self.params, c) else 40
+        rows = (c.n_channels_total if full_grid(self.params, c)
+                else c.n_tpc_pmts)
         batches = []
         for T_cap, indices in sorted(by_t.items()):
-            b_max = max(1, budget // (c.n_tpc_pmts * T_cap * per_sample))
+            b_max = max(1, budget // (rows * T_cap * per_sample))
             b_max = min(2 ** int(np.log2(b_max)), 128)
             for lo in range(0, len(indices), b_max):
                 batch = np.asarray(indices[lo:lo + b_max])

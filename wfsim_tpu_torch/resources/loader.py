@@ -4,21 +4,23 @@ Counterpart of ``wfsim_tpu/resources/loader.py`` for the paths the port
 runs: ``['constant dummy', value, shape]`` map entries and map files
 (straxen InterpolatingMap JSON, regular-grid or scattered, compressed
 pattern maps; npy/npz/pkl payloads), the derived S1 LCE and S2
-correction maps and the S2 area-fraction-top rescale, the synthetic SPE
-table, the ``garfield_gas_gap`` luminescence tables, the inverse-FDC map
-and, when enabled, the synthetic PMT-afterpulse CDFs, electron-afterpulse
-PMF and noise bank (wfsim_tpu/resources/loader.py:141-575).  Every map is
-a :class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 tensors;
-the device copy is made by ``models.params.build_params``.
+correction maps and the S2 area-fraction-top rescale, the SPE table (a
+measured spectrum csv or the synthetic one), the ``garfield_gas_gap``
+luminescence tables, the inverse-FDC map and, when enabled, the
+PMT-afterpulse CDFs and the noise bank (a resource file or the synthetic
+asset) and the synthetic electron-afterpulse PMF
+(wfsim_tpu/resources/loader.py:141-575).  Every map is a
+:class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 tensors; the
+device copy is made by ``models.params.build_params``.
 
 Files resolve from an absolute path or a local search directory
 (``url_base`` when it is a directory, ``$WFSIM_TPU_AUX_DIR``); the remote
 fetch of wfsim_tpu is not ported, so a file found nowhere raises
-``FileNotFoundError``.  Not ported yet (each raises
-``NotImplementedError``): afterpulse and noise files named by a string
-entry, COMSOL field distortion, field-dependency maps, gas-gap warping,
-the garfield wire table, optical propagation splines and measured SPE
-spectra.
+``FileNotFoundError``, where wfsim_tpu falls back to the synthetic asset.
+Not ported yet (each raises ``NotImplementedError``): electron-afterpulse
+files (pickles of a class object), COMSOL field distortion,
+field-dependency maps, gas-gap warping, the garfield wire table and
+optical propagation splines.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.interp import GridMap, regrid_scattered
-from .spe import build_uniform_to_pe
+from .spe import build_uniform_to_pe, spe_table_from_csv
 from . import synthetic as synth
 
 __all__ = ['Resource', 'load_config', 'make_map', 'make_patternmap',
@@ -268,8 +270,6 @@ _UNSUPPORTED = (
                                                    'inverse_fdc'),
      'COMSOL field-distortion map'),
     ('enable_gas_gap_warping', bool, 'gas-gap map'),
-    ('photon_area_distribution', lambda v: isinstance(v, str),
-     'measured SPE spectrum file'),
     ('s1_time_spline', bool, 'S1 optical propagation spline'),
     ('s2_time_spline', bool, 'S2 optical propagation spline'),
     ('s2_luminescence_model', lambda v: v == 'garfield',
@@ -372,25 +372,47 @@ class Resource:
                 self.fdc_3d.lows = torch.minimum(lo, hi)
                 self.fdc_3d.highs = torch.maximum(lo, hi)
 
-        charge, pdfs = synth.synthetic_spe_distribution(n_pmts)
-        self.uniform_to_pe = build_uniform_to_pe(charge, pdfs)
+        # SPE gain table (wfsim_tpu loader.py:552-562): a measured
+        # spectrum csv, else the synthetic spectrum
+        if _names_file(config, 'photon_area_distribution'):
+            self.uniform_to_pe = spe_table_from_csv(
+                _required_path(config, 'photon_area_distribution'), n_pmts)
+        else:
+            charge, pdfs = synth.synthetic_spe_distribution(n_pmts)
+            self.uniform_to_pe = build_uniform_to_pe(charge, pdfs)
 
         # afterpulse tables and noise bank (wfsim_tpu loader.py:511-535,
-        # 564-573): an in-memory entry or the synthetic asset
+        # 564-573): a resource file, an in-memory entry or the synthetic
+        # asset
         self.uniform_to_pmt_ap = None
         if config.get('enable_pmt_afterpulses', False):
-            entry = _in_memory(config, 'photon_ap_cdfs')
-            self.uniform_to_pmt_ap = (entry if isinstance(entry, dict)
-                                      else synth.synthetic_pmt_ap_cdfs(n_pmts))
+            entry = config.get('photon_ap_cdfs')
+            if _names_file(config, 'photon_ap_cdfs'):
+                self.uniform_to_pmt_ap = _read_pmt_ap(
+                    _required_path(config, 'photon_ap_cdfs'))
+            elif isinstance(entry, dict):
+                self.uniform_to_pmt_ap = entry
+            else:
+                self.uniform_to_pmt_ap = synth.synthetic_pmt_ap_cdfs(n_pmts)
         self.uniform_to_ele_ap = None
         if config.get('enable_electron_afterpulses', False):
-            entry = _in_memory(config, 'ele_ap_pdfs')
-            self.uniform_to_ele_ap = (entry if entry is not None
-                                      else synth.synthetic_ele_ap_pmf())
+            entry = config.get('ele_ap_pdfs')
+            if _names_file(config, 'ele_ap_pdfs'):
+                raise NotImplementedError(
+                    f'ele_ap_pdfs={entry!r}: electron-afterpulse files are '
+                    f'pickles of a class object, which the port does not '
+                    f'read; leave it unset for the synthetic asset')
+            self.uniform_to_ele_ap = (
+                entry if entry is not None and not isinstance(entry, str)
+                else synth.synthetic_ele_ap_pmf())
         self.noise_bank = None
         if config.get('enable_noise', False):
-            _in_memory(config, 'noise_file')
-            self.noise_bank = synthetic_noise_bank(n_pmts)
+            if _names_file(config, 'noise_file'):
+                self.noise_bank = noise_bank_from_file(
+                    _required_path(config, 'noise_file'),
+                    int(config.get('n_digitizer_channels', n_pmts)))
+            else:
+                self.noise_bank = synthetic_noise_bank(n_pmts)
 
 
 def _pattern_sum(g: GridMap, pmt_mask) -> GridMap:
@@ -401,14 +423,70 @@ def _pattern_sum(g: GridMap, pmt_mask) -> GridMap:
                    g.lows.clone(), g.highs.clone())
 
 
-def _in_memory(config, key):
-    """A resource entry that is not a file name (None when absent)."""
+def _names_file(config, key) -> bool:
     entry = config.get(key)
-    if isinstance(entry, str) and entry:
-        raise NotImplementedError(
-            f'{key}={entry!r}: the port does not read resource files yet; '
-            f'leave it unset for the synthetic asset')
-    return entry
+    return isinstance(entry, str) and bool(entry)
+
+
+def _required_path(config, key):
+    """The local path of the file that ``config[key]`` names; raises
+    ``FileNotFoundError`` where it resolves nowhere."""
+    entry = config[key]
+    path = get_file_path(config, entry)
+    if path is None:
+        raise FileNotFoundError(
+            f'{key}={entry!r}: resource file not found locally. Set url_base '
+            f'to a local directory or $WFSIM_TPU_AUX_DIR, or leave it unset '
+            f'for the synthetic asset.')
+    return path
+
+
+def _read_pmt_ap(path):
+    """PMT-afterpulse CDFs from a json, json.gz or pkl file: a dict of
+    element -> dict of fields, lists turned into arrays (wfsim_tpu
+    loader.py:511-522)."""
+    data = _read_any(path)
+    if not isinstance(data, dict):
+        raise ValueError(f'{path}: PMT-afterpulse file holds '
+                         f'{type(data).__name__}, expected a dict')
+    for element in data.values():
+        for k, v in element.items():
+            if isinstance(v, list):
+                element[k] = np.array(v)
+    return data
+
+
+@functools.lru_cache(maxsize=2)
+def _noise_file_bank(path, mtime_ns, size, n_channels_max):
+    data = _read_any(path)
+    if not isinstance(data, np.ndarray):
+        data = data['arr_0']
+    bank = np.asarray(data)
+    if bank.ndim != 2 or not 0 < bank.shape[1] <= n_channels_max:
+        raise ValueError(f'{path}: noise bank of shape {bank.shape}; expected '
+                         f'(length, channels) with at most {n_channels_max} '
+                         f'channels')
+    return _channel_major_int16(bank)
+
+
+def noise_bank_from_file(path, n_channels_max: int) -> np.ndarray:
+    """A noise bank file (npz ``arr_0`` or npy, shaped (L, Cn) with Cn up
+    to ``n_channels_max``, wfsim_tpu loader.py:564-573) channel-major,
+    (Cn, L) int16, read-only; read once per process while the file is
+    unchanged."""
+    st = os.stat(path)
+    return _noise_file_bank(str(path), st.st_mtime_ns, st.st_size,
+                            n_channels_max)
+
+
+def _channel_major_int16(bank):
+    """(L, Cn) integer bank -> (Cn, L) int16, read-only; raises where the
+    values do not fit int16."""
+    if bank.min() < -2 ** 15 or bank.max() >= 2 ** 15:
+        raise ValueError('noise bank values do not fit int16')
+    out = np.ascontiguousarray(bank.T.astype(np.int16))
+    out.setflags(write=False)
+    return out
 
 
 @functools.lru_cache(maxsize=2)
@@ -419,9 +497,4 @@ def synthetic_noise_bank(n_channels: int) -> np.ndarray:
     channel's trace is contiguous, which is how the digitizer reads it.
     Drawing it takes seconds at 494 channels, so the array is made once
     per process and shared (hence read-only)."""
-    bank = synth.synthetic_noise(n_channels)
-    if bank.min() < -2 ** 15 or bank.max() >= 2 ** 15:
-        raise ValueError('noise bank values do not fit int16')
-    out = np.ascontiguousarray(bank.T.astype(np.int16))
-    out.setflags(write=False)
-    return out
+    return _channel_major_int16(synth.synthetic_noise(n_channels))

@@ -6,6 +6,7 @@ The port keeps that representation (one table read per photon): ``uniform_to_pe[
 """
 from __future__ import annotations
 
+import csv
 import io
 
 import numpy as np
@@ -42,17 +43,35 @@ def build_uniform_to_pe(charge: np.ndarray, pdfs: np.ndarray) -> np.ndarray:
     return out
 
 
+def _read_csv_columns(path_or_buf):
+    """(header, float64 rows) of a csv file, path or csv text (the csv
+    module and Python's correctly rounded float parsing; no pandas)."""
+    if isinstance(path_or_buf, bytes):
+        path_or_buf = path_or_buf.decode()
+    if isinstance(path_or_buf, str) and not path_or_buf.endswith('.csv'):
+        rows = list(csv.reader(io.StringIO(path_or_buf)))
+    elif hasattr(path_or_buf, 'read'):
+        rows = list(csv.reader(path_or_buf))
+    else:
+        with open(path_or_buf, newline='') as f:
+            rows = list(csv.reader(f))
+    rows = [r for r in rows if r]
+    header = [h.strip() for h in rows[0]]
+    values = np.array([[float(x) for x in r] for r in rows[1:]],
+                      dtype=np.float64).reshape(-1, len(header))
+    return header, values
+
+
 def spe_table_from_csv(path_or_buf, n_channels: int) -> np.ndarray:
     """Load a reference-format SPE distribution CSV (a 'charge' column plus
-    one pdf column per channel; single-channel files are broadcast to all
-    channels, like the reference tests do at tests/test_wfsim.py:82-88)."""
-    import pandas as pd
-    if isinstance(path_or_buf, (bytes, str)) and not str(path_or_buf).endswith('.csv'):
-        path_or_buf = io.StringIO(path_or_buf)
-    df = pd.read_csv(path_or_buf)
-    cols = [c for c in df.columns if c not in ('charge',) and not str(c).startswith('Unnamed')]
-    charge = df['charge'].values.astype(np.float64)
-    pdfs = df[cols].values.T.astype(np.float64)
+    one pdf column per channel; an unnamed leading index column is
+    skipped; single-channel files are broadcast to all channels, like the
+    reference tests do at tests/test_wfsim.py:82-88)."""
+    header, values = _read_csv_columns(path_or_buf)
+    cols = [i for i, h in enumerate(header)
+            if h != 'charge' and h and not h.startswith('Unnamed')]
+    charge = values[:, header.index('charge')]
+    pdfs = values[:, cols].T
     if pdfs.shape[0] == 1 and n_channels > 1:
         pdfs = np.tile(pdfs, (n_channels, 1))
     if pdfs.shape[0] < n_channels:

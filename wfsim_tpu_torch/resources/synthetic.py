@@ -14,7 +14,7 @@ import numpy as np
 __all__ = [
     'synthetic_spe_distribution', 'synthetic_noise', 'synthetic_pmt_ap_cdfs',
     'synthetic_ele_ap_pmf', 'synthetic_garfield_gas_gap',
-    'write_pattern_map',
+    'write_pattern_map', 'write_production_files', 'PRODUCTION_FILES',
 ]
 
 
@@ -167,3 +167,58 @@ def write_pattern_map(path, seed: int):
     with open(path, 'w') as f:
         json.dump(payload, f)
     return str(path)
+
+
+#: file names of :func:`write_production_files`, by config key
+PRODUCTION_FILES = dict(noise_file='noise_801.npz',
+                        photon_ap_cdfs='pmt_ap_cdfs.json',
+                        photon_area_distribution='spe.csv')
+
+
+def write_production_files(aux_dir, seed: int, *, noise_length: int = 100_000):
+    """Write the three resource files a production XENONnT configuration
+    names into ``aux_dir`` (see ``config.he_full_grid_overrides``), each
+    holding the synthetic asset the simulator would otherwise draw:
+
+    - ``noise_801.npz``: ``synthetic_noise(801, noise_length, seed=seed)``
+      as int16 under ``arr_0``, shaped (L, 801):
+      a noise trace for every digitizer channel, the HE copies and the sum
+      channel included;
+    - ``pmt_ap_cdfs.json``: ``synthetic_pmt_ap_cdfs(494)``, each
+      element's delay-time CDF stored as its single row (every channel's
+      row is the same; the loaders tile a 1-d CDF over the channels);
+    - ``spe.csv``: ``synthetic_spe_distribution(494)`` in the
+      reference's layout, a ``charge`` column and one pdf column per
+      channel, values written with ``repr`` (exact round trip).
+
+    Returns {config key: path}."""
+    import csv
+    import json
+    from pathlib import Path
+    n_pmts, n_digitizer_channels = 494, 801      # XENONnT
+    aux = Path(aux_dir)
+    aux.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(aux / name) for k, name in PRODUCTION_FILES.items()}
+
+    noise = synthetic_noise(n_digitizer_channels, noise_length, seed=seed)
+    if noise.min() < -2 ** 15 or noise.max() >= 2 ** 15:
+        raise ValueError('synthetic noise does not fit int16')
+    np.savez(paths['noise_file'], noise.astype(np.int16))
+
+    ap = {}
+    for name, el in synthetic_pmt_ap_cdfs(n_pmts).items():
+        ap[name] = dict(delaytime_cdf=el['delaytime_cdf'][0].tolist(),
+                        amplitude_cdf=el['amplitude_cdf'].tolist(),
+                        delaytime_bin_size=el['delaytime_bin_size'],
+                        amplitude_bin_size=el['amplitude_bin_size'])
+    with open(paths['photon_ap_cdfs'], 'w') as f:
+        json.dump(ap, f)
+
+    charge, pdfs = synthetic_spe_distribution(n_pmts)
+    with open(paths['photon_area_distribution'], 'w', newline='') as f:
+        out = csv.writer(f)
+        out.writerow(['charge'] + [str(c) for c in range(n_pmts)])
+        for i, q in enumerate(charge):
+            out.writerow([repr(float(q))] + [repr(float(v))
+                                             for v in pdfs[:, i]])
+    return paths
