@@ -94,6 +94,42 @@ row; 801 rows a window):
 5e. cross-check: one full-grid window batch on the card and by the CPU
     twins, records bitwise equal.
 
+Then the ``timing_models`` configuration: the ``custom`` S1 timing model
+(a delay by recoil class) and the ``garfield`` S2 luminescence model (a
+wire-distance table, written from a seed into a temporary directory by
+``write_garfield_table`` with three liquid levels, the nearest one read)
+on the bench workload with the recoil ids cycling ER, NR, alpha, LED over
+the events:
+
+3f. ``custom_delays`` on the 512-instruction S1 batch and
+    ``lumi_garfield_times`` on the 512-instruction S2 batch (~1.57 M
+    photons), in its wire-rotation mode and in its confine mode, each
+    against its twin on the card, bitwise; median CUDA-event times of
+    both, the bound by bytes;
+4f. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
+    **timing_models_overrides(file)), device='cuda').get_arrays(inst)``,
+    warm-up then timed; every entry point of the path launched (the two
+    new ones included, the simple luminescence tables never); truth rows
+    by type, the S1 photon-time mean by recoil class with NR below ER, a
+    positive photon time spread on every S2 truth row with photons;
+5f. cross-check: the S1 and S2 batches through the kernels on the card
+    and, from the same draws, through the twins on the CPU: photons
+    bitwise equal, truth exact or within rtol 1e-12.
+
+Last, the stream (4s): the default configuration on 10,000 bench events
+(20,000 instructions) with ``pipeline_depth`` = ceil(instructions / 1024),
+super-batches of 1,000 instructions, and 1 s chunks; ``Simulator.run`` is
+iterated and each chunk dropped.  Printed: super-batches and digitize
+rounds, the time of the first chunk and the wall time, events/s, the peak
+device memory (``torch.cuda.max_memory_allocated``, reset before the run;
+also less what earlier phases still hold) and the host RSS high-water
+(``VmRSS`` of /proc/self/status sampled per chunk, each sample after
+``malloc_trim`` returns the heap's free pages).  The same run at 2,000
+events, with the same super-batch size, goes first.  The phase fails
+unless the long run's first chunk comes out before its last super-batch
+is simulated, its device peak is at most 1.10 times the short run's, and
+its RSS growth at most 1.25 times the short run's.
+
 Every kernel row of the JSON table carries its bound: the least time the
 card could take for the same work, the larger of the bytes its wrapper
 must move (each input read once, each output written once, counted from
@@ -141,6 +177,12 @@ DETECTOR_PATH_KERNELS = tuple(
 FULL_GRID_PATH_KERNELS = tuple(
     k for k in REALISTIC_PATH_KERNELS if k != 'wfsim_superpose_adc') + (
     'wfsim_superpose_adc_full',)
+
+#: the timing_models path: the custom delays and the garfield times take
+#: the place of the simple luminescence tables
+TIMING_PATH_KERNELS = tuple(
+    k for k in DEFAULT_PATH_KERNELS if k != 'wfsim_lumi_tables') + (
+    'wfsim_s1_custom_delays', 'wfsim_lumi_garfield_times')
 
 #: H100 SXM peaks (NVIDIA data sheet; at the 700 W limit): HBM3 bytes/s,
 #: float32 and float64 operations/s outside the tensor cores
@@ -767,7 +809,237 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
     return m, launches
 
 
+def phase_timing_models(dev, smi):
+    """Phases 3f, 4f and 5f (see the module docstring); returns the
+    measurements of the custom_delays and lumi_garfield_times rows (see
+    make_check) and the launch counts of the 4f run."""
+    import torch
+    from wfsim_tpu_torch import Simulator, _build
+    from wfsim_tpu_torch.config import default_config, timing_models_overrides
+    from wfsim_tpu_torch.interface import (timing_models_instructions,
+                                           TIMING_MODEL_RECOILS)
+    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    from wfsim_tpu_torch.resources.synthetic import write_garfield_table
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_tm_')
+    try:
+        path = write_garfield_table(Path(tmp) / 'garfield.npz', 1234)
+        cfg = default_config(seed=1234, chunk_size=100,
+                             **timing_models_overrides(path))
+        inst = timing_models_instructions(512, 2000, 300)
+        params, const, batches = physics_batches(cfg, inst, dev, 20261016)
+        print(f'[timing] garfield table {tuple(params.garfield_t.shape)} '
+              f'(liquid level of {path}), int mean {params.garfield_avgt}')
+
+        # ---- 3f. the two kernels against their twins ----------------------
+        res = {}
+        check = make_check(res, 'kernels-t', smi)
+        x1, _n1, d1 = batches['s1']
+        x2, _n2, d2 = batches['s2']
+        cls = s1.recoil_class(x1['recoil'])
+        edges = edges_from_counts(d1['n_hits'])
+        n_s1, n_i1 = int(edges[-1]), int(cls.shape[0])
+        # the draws the kernel reads: its class's only (ER: the primary
+        # uniform and a primary pair or the recombination uniform and a
+        # secondary pair; NR, alpha: a pair; LED: one uniform)
+        ph_cls = cls[torch.repeat_interleave(
+            torch.arange(n_i1, device=dev), d1['n_hits'].long())]
+        prim = d1['custom']['u_prim'] < float(
+            np.float32(const.er_primary_excimer_fraction))
+        reads = torch.where(ph_cls == 0, torch.where(prim, 3, 4),
+                            torch.where(ph_cls == 3, 1, 2))
+        c_args = (cls, edges, d1['custom'])
+        check('custom_delays',
+              lambda: (s1.custom_delays(*c_args, const=const),),
+              lambda: (s1.custom_delays_ref(*c_args, const=const),),
+              (cls, edges), ops32=n_s1 * (12 + int(np.log2(n_i1)) + 1))
+        res['custom_delays']['bytes'] += 4 * int(reads.sum())
+        per_cls = [int((ph_cls == c).sum()) for c in range(4)]
+        print(f'[kernels-t] custom_delays: {n_s1} photons of {n_i1} '
+              f'instructions, per class {per_cls}')
+
+        _e, _eph, ph_edges = s2.s2_edges(d2)
+        _z, xy = s2.s2_positions(params, const, x2)
+        n_ph, n_i2 = int(ph_edges[-1]), int(xy.shape[0])
+        R, M = params.garfield_t.shape
+        g_kw = dict(avgt=params.garfield_avgt, tilt=const.anode_xaxis_angle,
+                    pitch=const.anode_pitch)
+        u_wire = torch.rand(n_i2, device=dev)
+        for name, u, conf in (('lumi_garfield_times', None, -1.0),
+                              ('lumi_garfield_times_confine', u_wire, 0.1)):
+            g_args = (params.garfield_t, params.garfield_x, xy, ph_edges,
+                      d2['col'], u)
+            check(name,
+                  lambda a=g_args, c=conf: (s2.lumi_garfield_times(
+                      *a, **g_kw, confine=c),),
+                  lambda a=g_args, c=conf: (s2.lumi_garfield_times_ref(
+                      *a, **g_kw, confine=c),),
+                  g_args, ops32=n_i2 * R * 3 + n_ph * (
+                      3 + int(np.log2(n_i2)) + 1))
+        print(f'[kernels-t] lumi_garfield_times: {n_ph} photons of {n_i2} '
+              f'instructions, table {R} x {M}')
+
+        # ---- 4f. the timing_models main path --------------------------------
+        Simulator(cfg, device=dev).get_arrays(inst)            # warm-up
+        torch.cuda.synchronize()
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = Simulator(cfg, device=dev)
+        t0 = time.perf_counter()
+        out = sim.get_arrays(inst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        diag = sim.sim.rawdata.diag.summary()
+        print(f'[timing] launches {launches}')
+        for name in TIMING_PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f'kernel {name} not launched on the '
+                                     f'timing_models path')
+        if launches['wfsim_lumi_tables']:
+            raise AssertionError('the simple luminescence tables ran')
+        rr, truth = out['raw_records'], out['truth']
+        n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2)}
+        if n_type != {1: 512, 2: 512} or len(truth) != len(inst):
+            raise AssertionError(f'timing_models truth rows {n_type}')
+        s1_rows = truth[truth['type'] == 1]
+        dt = s1_rows['t_mean_photon'] - s1_rows['time']
+        by_cls = {int(r): float(np.mean(dt[s1_rows['recoil'] == r]))
+                  for r in TIMING_MODEL_RECOILS}
+        s2_rows = truth[truth['type'] == 2]
+        lit = s2_rows['n_photon'] > 0
+        print(f'[timing] truth rows by type {n_type}; S1 photon-time mean '
+              f'after the instruction by recoil id {by_cls} ns; S2 rows with '
+              f'photons {int(lit.sum())}, t_sigma_photon min '
+              f'{float(s2_rows["t_sigma_photon"][lit].min()):.3f} ns')
+        if not by_cls[0] < by_cls[7]:
+            raise AssertionError('NR S1 photons not earlier than ER ones')
+        if not np.all(s2_rows['t_sigma_photon'][lit] > 0):
+            raise AssertionError('an S2 truth row with photons has no time '
+                                 'spread')
+        if not strax_valid(rr, const.n_tpc_pmts):
+            raise AssertionError('timing_models raw_records violate the '
+                                 'strax invariants')
+        n_photons = int(truth['n_photon'].sum())
+        print(f'[timing] events/s {512 / wall:.2f} wall {wall:.3f} s '
+              f'records {len(rr)} photons {n_photons} peak_mem '
+              f'{peak / 2 ** 20:.1f} MiB ({smi})')
+        print(f'[timing] phases {diag}')
+
+        # ---- 5f. the passes: card against the CPU twins ---------------------
+        phase_5c(cfg, params, const, batches, smi, tag='cross-t')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, launches
+
+
+def trim_host_heap():
+    """Hand the heap's free pages back to the system (glibc
+    ``malloc_trim``), so an RSS sample counts what the process holds, not
+    the free pages its heap happens to keep (they move the samples by
+    ~50-150 MiB from chunk to chunk); False where the C library has no
+    such call."""
+    import ctypes
+    import ctypes.util
+    try:
+        ctypes.CDLL(ctypes.util.find_library('c')).malloc_trim(0)
+        return True
+    except (OSError, AttributeError, TypeError):
+        return False
+
+
+def rss_mib():
+    """This process's resident set (VmRSS of /proc/self/status) in MiB,
+    read after :func:`trim_host_heap`."""
+    trim_host_heap()
+    for line in Path('/proc/self/status').read_text().splitlines():
+        if line.startswith('VmRSS:'):
+            return int(line.split()[1]) / 1024
+    raise RuntimeError('/proc/self/status has no VmRSS')
+
+
+def stream_run(n_events, dev, smi):
+    """One run of phase 4s (see the module docstring) on ``n_events``
+    bench events; returns its measurements."""
+    import gc
+    import torch
+    from wfsim_tpu_torch import Simulator, default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    inst = bench_instructions(n_events, 2000, 300)
+    depth = -(-len(inst) // 1024)
+    cfg = default_config(seed=1234, chunk_size=1, pipeline_depth=depth)
+    sim = Simulator(cfg, device=dev)
+    rd = sim.sim.rawdata
+    arrival = rd._arrival_times(inst)
+    sizes = [len(o) for o, _ in rd._split_super_batches(
+        arrival, np.argsort(arrival, kind='stable'))]
+    gc.collect()
+    trimmed = trim_host_heap()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2 ** 20   # earlier phases'
+    rss0 = rss_mib()
+    rss_hw = rss0
+    n_chunks = n_rec = n_truth = 0
+    first = first_sb = None
+    t0 = time.perf_counter()
+    for chunk in sim.run(inst):
+        if first is None:
+            first = time.perf_counter() - t0
+            first_sb = rd.diag.counts['super_batches']
+        n_chunks += 1
+        n_rec += len(chunk['raw_records'])
+        n_truth += len(chunk['truth'])
+        del chunk
+        rss_hw = max(rss_hw, rss_mib())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    m = dict(events=n_events, depth=depth, super_batches=len(sizes),
+             batch_sizes=(min(sizes), max(sizes)),
+             rounds=rd.diag.counts['rounds'], chunks=n_chunks,
+             first_chunk_s=first, first_chunk_after_super_batches=first_sb,
+             wall_s=wall, ev_s=n_events / wall, records=n_rec,
+             peak_mib=peak, held_at_start_mib=held,
+             run_peak_mib=peak - held, heap_trimmed=trimmed,
+             rss_start_mib=rss0,
+             rss_high_mib=rss_hw,
+             rss_growth_mib=rss_hw - rss0)
+    print(f'[stream] {n_events} events: {json.dumps(m)} ({smi})')
+    if n_truth != len(inst):
+        raise AssertionError(f'stream truth rows {n_truth} != {len(inst)}')
+    if not first_sb < len(sizes):
+        raise AssertionError('the first chunk came after the last '
+                             'super-batch was simulated')
+    return m
+
+
+def phase_4s(dev, smi):
+    """Phase 4s (see the module docstring); returns both runs'
+    measurements."""
+    short = stream_run(2_000, dev, smi)
+    long = stream_run(10_000, dev, smi)
+    # the peak counts the tensors earlier phases still hold; the run's own
+    # peak is the part above them, and both ratios must hold
+    peak_ratio = long['peak_mib'] / short['peak_mib']
+    run_ratio = long['run_peak_mib'] / short['run_peak_mib']
+    rss_ratio = long['rss_growth_mib'] / max(short['rss_growth_mib'], 1e-9)
+    print(f'[stream] 10,000 / 2,000 events: device peak ratio '
+          f'{peak_ratio:.4f}, above the tensors held before the runs '
+          f'{run_ratio:.4f} (limit 1.10 for both), RSS growth ratio '
+          f'{rss_ratio:.4f} (limit 1.25) ({smi})')
+    if long['batch_sizes'] != short['batch_sizes']:
+        print(f'[stream] super-batch sizes {long["batch_sizes"]} vs '
+              f'{short["batch_sizes"]}')
+    if max(peak_ratio, run_ratio) > 1.10 or rss_ratio > 1.25:
+        raise AssertionError('memory grows with the run length')
+    return short, long
+
+
 def main():
+    t_start = time.perf_counter()
     if not (ROOT / 'wfsim_tpu_torch' / '_build.py').exists():
         raise SystemExit('chip_smoke.py runs from the root of a wfsim_tpu '
                          'checkout (wfsim_tpu_torch/ not found)')
@@ -1185,6 +1457,12 @@ def main():
     ftimes, launches_f = phase_full_grid(sargs, skw, ph, B, T, K, inst, dev,
                                          smi)
 
+    # ---- 3f / 4f / 5f. the timing_models configuration ---------------------
+    ttimes, launches_t = phase_timing_models(dev, smi)
+
+    # ---- 4s. the stream ----------------------------------------------------
+    phase_4s(dev, smi)
+
     src = 'wfsim_tpu_torch/csrc/'
     rows = []
 
@@ -1257,6 +1535,17 @@ def main():
             ('nest_delays', 'wfsim_nest_delays', 'table_samplers.cu',
              'wfsim_tpu/models/s1.py:108')):
         measured(name, cu, rep, [entry], launches_d, dtimes[name])
+    for name, entry, rep in (
+            ('custom_delays', 'wfsim_s1_custom_delays',
+             'wfsim_tpu/models/s1.py:56'),
+            ('lumi_garfield_times', 'wfsim_lumi_garfield_times',
+             'wfsim_tpu/models/s2.py:234'),
+            ('lumi_garfield_times_confine', 'wfsim_lumi_garfield_times',
+             'wfsim_tpu/models/s2.py:234')):
+        measured(name, 'table_samplers.cu', rep, [entry], launches_t,
+                 ttimes[name])
+    print(f'[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s '
+          f'after its start ({smi})')
     print(smi)
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

@@ -547,3 +547,101 @@ def test_full_grid_gather_digitize_card_matches_cpu(dev):
     for a, b in zip(*out):
         assert torch.equal(a, b)
     assert ((out[0][1][:, 1] >= 500) & (out[0][1][:, 1] < 753)).sum() > 100
+
+
+# ---------------------------------------------------------------------------
+# the timing models: custom S1 delays (K15) and garfield luminescence (K13c)
+
+
+@pytest.mark.parametrize('counts', [[], [0], [0, 5000, 3, 0],
+                                    [1] * 7 + [0] + [40_000] * 5])
+def test_custom_delays_match_twin(dev, counts):
+    """Every recoil class (ER 7 and 8, NR, alpha, LED), recombination
+    uniforms of 0, an empty batch and instructions without photons."""
+    from wfsim_tpu_torch.models import s1
+    const = build_constants(default_config(s1_model_type='custom'))
+    rng = np.random.default_rng(len(counts))
+    counts = np.asarray(counts, np.int64)
+    n = int(counts.sum())
+    recoil = np.resize(np.array([7, 0, 6, 20, 8], np.int32), len(counts))
+    draws = {k: torch.as_tensor(
+        (rng.exponential(1.0, n) if k.startswith('exp')
+         else rng.random(n)).astype(np.float32), device=dev)
+        for k in s1.CUSTOM_DRAWS}
+    draws['u_reco'][::50] = 0.0
+    cls = s1.recoil_class(torch.as_tensor(recoil, device=dev))
+    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                            device=dev)
+    k = _build.KERNELS['wfsim_s1_custom_delays']
+    before = k.launches
+    got = s1.custom_delays(cls, edges, draws, const=const)
+    assert k.launches == before + (1 if n else 0)
+    want = s1.custom_delays_ref(cls, edges, draws, const=const)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize('confine,counts', [
+    (-1.0, []), (-1.0, [0]), (-1.0, [300] * 64 + [0] + [7]),
+    (0.1, [1000] * 20 + [0])])
+def test_garfield_times_match_twin(dev, confine, counts):
+    """Both wire-distance modes, positions on both sides of the wires, an
+    empty batch and instructions without photons."""
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.models.params import table_mean_int
+    from wfsim_tpu_torch.resources.synthetic import synthetic_garfield_table
+    tbl = synthetic_garfield_table(3)
+    rng = np.random.default_rng(len(counts))
+    counts = np.asarray(counts, np.int64)
+    n_i, n = len(counts), int(counts.sum())
+    xy = rng.uniform(-60, 60, (n_i, 2)).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (
+        tbl['t'], tbl['x'], xy, np.concatenate([[0], np.cumsum(counts)]),
+        rng.integers(0, tbl['t'].shape[1], n))]
+    u_wire = (torch.as_tensor(rng.random(n_i).astype(np.float32), device=dev)
+              if confine > 0 else None)
+    kw = dict(avgt=table_mean_int(tbl['t']), tilt=np.pi / 4, pitch=0.5,
+              confine=confine)
+    k = _build.KERNELS['wfsim_lumi_garfield_times']
+    before = k.launches
+    got = s2.lumi_garfield_times(*args, u_wire, **kw)
+    assert k.launches == before + (1 if n else 0)
+    assert torch.equal(got, s2.lumi_garfield_times_ref(*args, u_wire, **kw))
+
+
+@pytest.mark.parametrize('kind', ['s1', 's2'])
+def test_timing_models_pass_card_matches_cpu(dev, tmp_path, kind):
+    """One S1 or S2 batch of the timing_models workload (32 events, all
+    four recoil classes) through the custom-delay and garfield kernels on
+    the card and through the twins on the CPU, from the same draws."""
+    from wfsim_tpu_torch.config import timing_models_overrides
+    from wfsim_tpu_torch.interface import timing_models_instructions
+    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    from wfsim_tpu_torch.resources.synthetic import write_garfield_table
+    c = default_config(**timing_models_overrides(
+        write_garfield_table(tmp_path / 'garfield.npz', 3)))
+    rd = RawData(c, device=dev)
+    inst = timing_models_instructions(32, 2000, 300)
+    idx = np.flatnonzero(inst['type'] == (1 if kind == 's1' else 2))
+    x, _base, _rows, n_rows = rd.batch_inputs(inst, idx, kind)
+    draw, fn, entry = (
+        (s1.s1_draws, s1.s1_photon_pass, 'wfsim_s1_custom_delays')
+        if kind == 's1' else
+        (s2.s2_draws, s2.s2_photon_pass, 'wfsim_lumi_garfield_times'))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    d = draw(rd.params, rd.const, x, gen)
+
+    def cpu(v):
+        if isinstance(v, dict):
+            return {k: cpu(w) for k, w in v.items()}
+        return None if v is None else v.cpu()
+
+    before = _build.KERNELS[entry].launches
+    ph_d, tr_d, req_d = fn(rd.params, rd.const, x, d, n_truth_rows=n_rows)
+    assert _build.KERNELS[entry].launches == before + 1
+    ph_c, tr_c, req_c = fn(build_params(c, load_config(c), 'cpu'), rd.const,
+                           cpu(x), cpu(d), n_truth_rows=n_rows)
+    _same(ph_d, ph_c)
+    _same(tr_d, tr_c, FLOAT_TRUTH)
+    assert torch.equal(req_d.cpu(), req_c)

@@ -120,14 +120,16 @@ def test_s1_model_strings():
     assert s1.s1_models('nest') == {'nest'}
     assert s1.s1_models('simple+nest') == s1.s1_models('nest, simple') \
         == {'simple', 'nest'}
-    for bad, err in (('custom', NotImplementedError),
-                     ('simple+optical_propagation', NotImplementedError),
+    assert s1.s1_models('custom+nest') == {'custom', 'nest'}
+    for bad, err in (('simple+optical_propagation', NotImplementedError),
                      ('nets', ValueError)):
         with pytest.raises(err):
             s1.s1_models(bad)
     with pytest.raises(NotImplementedError):
-        RawData(default_config(s1_model_type='custom'), device='cpu')
-    with pytest.raises(NotImplementedError):
+        RawData(default_config(s1_model_type='optical_propagation'),
+                device='cpu')
+    # garfield runs, given its table
+    with pytest.raises(ValueError):
         load_config(default_config(s2_luminescence_model='garfield'))
 
 

@@ -29,7 +29,15 @@ __all__ = [
     'load_fax_config', 'default_config', 'finalize_config',
     'deterministic_hash', 'strip_json_comments', 'CHANNEL_MAPS',
     'detector_physics_overrides', 'he_full_grid_overrides',
+    'timing_models_overrides', 'PIPELINE_DEFAULTS',
 ]
+
+#: the super-batch keys of the raw-data stream and wfsim_tpu's defaults for
+#: them (wfsim_tpu rawdata.py:1088-1089, read with ``config.get``; like
+#: there they are not keys of :func:`default_config`): a run of n
+#: instructions is cut into super-batches of about ceil(n /
+#: pipeline_depth) instructions, at least pipeline_min_batch
+PIPELINE_DEFAULTS = {'pipeline_depth': 3, 'pipeline_min_batch': 64}
 
 # Per-detector channel layout (matches the straxen-provided channel maps the
 # reference receives from its context; reference: wfsim/strax_interface.py:524-530)
@@ -289,6 +297,19 @@ def he_full_grid_overrides(aux_dir) -> dict:
                 url_base=str(Path(aux_dir).resolve()),
                 high_energy_deamplification_factor=1.0,
                 **PRODUCTION_FILES)
+
+
+def timing_models_overrides(s2_luminescence) -> dict:
+    """The ``timing_models`` switches on top of :func:`default_config`:
+    the ``custom`` S1 timing model (a delay per recoil class: ER excimers
+    and recombination, NR, alpha, LED) and the ``garfield`` S2
+    luminescence model, whose wire-distance table is ``s2_luminescence``:
+    a file (see ``resources.synthetic.write_garfield_table``) or an
+    in-memory ``{'t': (R, M), 'x': (R,)}`` table."""
+    return dict(s1_model_type='custom', s2_luminescence_model='garfield',
+                s2_luminescence=(str(s2_luminescence)
+                                 if not isinstance(s2_luminescence, dict)
+                                 else s2_luminescence))
 
 
 def finalize_config(c: dict) -> dict:

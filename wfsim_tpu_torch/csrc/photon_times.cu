@@ -17,8 +17,10 @@
 //   wfsim_s1_photon_times    t = time[i] + trunc(exp * s1_decay_time)
 //                                + trunc(normal * s1_decay_spread) (simple
 //                                model, skipped where exp is null)
-//                                + trunc(nest) (NEST model, where the
-//                                delays of table_samplers.cu are given);
+//                                + trunc(custom) (custom model) and
+//                                + trunc(nest) (NEST model), in that order,
+//                                where the delays of table_samplers.cu are
+//                                given;
 //   wfsim_s2_electron_times  e_t = time[i] + trunc(exp * trapping
 //                                + (normal * spread[i] + mean[i]));
 //                                the truth rows feed the electron-time
@@ -54,6 +56,7 @@ __global__ void s1_photon_times_kernel(
     const int* __restrict__ time, const long long* __restrict__ edges,
     const long long* __restrict__ truth_row, const float* __restrict__ ex,
     const float* __restrict__ nrm, const float* __restrict__ nest,
+    const float* __restrict__ custom,
     float decay_time, float decay_spread, int* __restrict__ t,
     long long* __restrict__ ph_inst, long long* __restrict__ ph_row) {
   const int i = blockIdx.x;
@@ -65,6 +68,7 @@ __global__ void s1_photon_times_kernel(
     if (ex != nullptr)
       tt += static_cast<int>(__fmul_rn(ex[j], decay_time)) +
             static_cast<int>(__fmul_rn(nrm[j], decay_spread));
+    if (custom != nullptr) tt += static_cast<int>(custom[j]);
     if (nest != nullptr) tt += static_cast<int>(nest[j]);
     t[j] = tt;
     ph_inst[j] = i;
@@ -145,7 +149,8 @@ __global__ void s2_photon_times_kernel(
 extern "C" int wfsim_s1_photon_times(const void* time, const void* edges,
                                      const void* truth_row, int n_inst,
                                      const void* ex, const void* nrm,
-                                     const void* nest, float decay_time,
+                                     const void* nest, const void* custom,
+                                     float decay_time,
                                      float decay_spread, void* t,
                                      void* ph_inst, void* ph_row,
                                      void* stream) {
@@ -156,7 +161,8 @@ extern "C" int wfsim_s1_photon_times(const void* time, const void* edges,
       static_cast<const int*>(time), static_cast<const long long*>(edges),
       static_cast<const long long*>(truth_row),
       static_cast<const float*>(ex), static_cast<const float*>(nrm),
-      static_cast<const float*>(nest), decay_time, decay_spread,
+      static_cast<const float*>(nest), static_cast<const float*>(custom),
+      decay_time, decay_spread,
       static_cast<int*>(t),
       static_cast<long long*>(ph_inst), static_cast<long long*>(ph_row));
   return static_cast<int>(cudaGetLastError());

@@ -1,3 +1,4 @@
 from .simulator import Simulator  # noqa: F401
 from .instructions import (bench_instructions,  # noqa: F401
-                           detector_physics_instructions)
+                           detector_physics_instructions,
+                           timing_models_instructions, TIMING_MODEL_RECOILS)

@@ -1,6 +1,6 @@
 """Instruction builders and the analytic quanta partition.  Only the bench
 workload of wfsim_tpu (bench.py:76-90 ``_make_inst``) is ported, with its
-``detector_physics`` variant; ``rand_instructions``, csv and optical input
+``detector_physics`` and ``timing_models`` variants; ``rand_instructions``, csv and optical input
 are not."""
 from __future__ import annotations
 
@@ -9,7 +9,12 @@ import numpy as np
 from ..dtypes import instruction_dtype
 
 __all__ = ['bench_instructions', 'detector_physics_instructions',
+           'timing_models_instructions', 'TIMING_MODEL_RECOILS',
            'analytic_yields']
+
+#: the recoil ids ``timing_models_instructions`` cycles through, one per
+#: class of the custom S1 model: ER (7), NR (0), alpha (6), LED (20)
+TIMING_MODEL_RECOILS = (7, 0, 6, 20)
 
 #: liquid-xenon W-value, keV per quantum
 W_KEV = 13.7e-3
@@ -43,6 +48,17 @@ def detector_physics_instructions(n: int = 512, amp_s1: int = 2000,
     inst = bench_instructions(n, amp_s1, amp_s2)
     inst['local_field'] = 82.0
     inst['e_dep'] = inst['amp'] * W_KEV
+    return inst
+
+
+def timing_models_instructions(n: int = 512, amp_s1: int = 2000,
+                               amp_s2: int = 300):
+    """:func:`bench_instructions` with the recoil id of event k
+    ``TIMING_MODEL_RECOILS[k % 4]`` (on its S1 and its S2), so the
+    ``custom`` S1 model runs all four of its classes."""
+    inst = bench_instructions(n, amp_s1, amp_s2)
+    inst['recoil'] = np.repeat(np.resize(np.asarray(TIMING_MODEL_RECOILS),
+                                         n), 2)
     return inst
 
 

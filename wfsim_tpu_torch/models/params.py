@@ -23,17 +23,18 @@ from ..resources.loader import Resource, as_gridmap
 from ..resources.nest_tables import build_nest_timing_tables
 
 __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
-           'params_from_numpy']
+           'params_from_numpy', 'table_mean_int']
 
 
 @dataclasses.dataclass
 class SimParams:
     """Device tensors of one configuration (the fields of wfsim_tpu's
     SimParams that the ported paths read; its COMSOL, field-dependency,
-    gas-gap-warping and optical-spline maps and the garfield wire table are
-    not ported yet).  The noise bank is channel-major int16 (Cn, L): wfsim_tpu keeps
-    it (L, Cn) int32 plus a wrap-extended copy (``noise_ext``) so a TPU can
-    read one contiguous span per row, which the card does not need."""
+    gas-gap-warping and optical-spline maps are not ported yet), plus the
+    garfield table's int mean, computed once on the host.  The noise bank
+    is channel-major int16 (Cn, L): wfsim_tpu keeps it (L, Cn) int32 plus
+    a wrap-extended copy (``noise_ext``) so a TPU can read one contiguous
+    span per row, which the card does not need."""
     gains: torch.Tensor                # (C,) f32 electrons/PE
     uniform_to_pe: torch.Tensor        # (C, 2001) f32
     templates: torch.Tensor            # (dt, L) f32 SPE current templates
@@ -54,6 +55,9 @@ class SimParams:
     garfield_gas_gap_map: ty.Optional[GridMap] = None    # (x, y) -> gas gap
     gg_gas_gap: ty.Optional[torch.Tensor] = None         # (G,) f32 gas gaps
     gg_inv_cdf: ty.Optional[torch.Tensor] = None         # (G, M) f32
+    garfield_t: ty.Optional[torch.Tensor] = None         # (R, M) f32
+    garfield_x: ty.Optional[torch.Tensor] = None         # (R,) f32
+    garfield_avgt: ty.Optional[int] = None               # int mean of t
     nest_inv_cdf: ty.Optional[torch.Tensor] = None       # (4, F, En, M) f32
     nest_fields: ty.Optional[torch.Tensor] = None        # (F,) f32
     nest_energies: ty.Optional[torch.Tensor] = None      # (En,) f32
@@ -355,6 +359,12 @@ def build_params(config, resource: Resource, device) -> SimParams:
         gg = resource.s2_luminescence_gg
         gg_gas_gap = np.asarray(gg['gas_gap'], dtype=np.float32)
         gg_inv_cdf = np.asarray(gg['timing_inv_cdf'], dtype=np.float32)
+    garfield_t = garfield_x = None
+    if str(config.get('s2_luminescence_model', '')) == 'garfield':
+        garfield_t = np.asarray(resource.s2_luminescence['t'],
+                                dtype=np.float32)
+        garfield_x = np.asarray(resource.s2_luminescence['x'],
+                                dtype=np.float32)
     nest = (None, None, None)
     if 'nest' in str(config.get('s1_model_type', '')):
         nest = build_nest_timing_tables(config)
@@ -379,6 +389,9 @@ def build_params(config, resource: Resource, device) -> SimParams:
         garfield_gas_gap_map=g(resource.garfield_gas_gap_map, 2),
         gg_gas_gap=opt(gg_gas_gap),
         gg_inv_cdf=opt(gg_inv_cdf),
+        garfield_t=opt(garfield_t),
+        garfield_x=opt(garfield_x),
+        garfield_avgt=table_mean_int(garfield_t),
         nest_inv_cdf=opt(nest[0]),
         nest_fields=opt(nest[1]),
         nest_energies=opt(nest[2]),
@@ -390,6 +403,19 @@ def build_params(config, resource: Resource, device) -> SimParams:
         noise_bank=(None if resource.noise_bank is None
                     else torch.tensor(resource.noise_bank, device=device)),
     )
+
+
+def table_mean_int(table) -> ty.Optional[int]:
+    """The mean of a float32 table truncated to an int, as wfsim_tpu's
+    ``jnp.mean(table).astype(int32)`` (s2.py:251), None for None.  The sum
+    is float64, so the value is exact up to the truncation; XLA's float32
+    sum reduces in its own order, which moves the mean by ~1e-5 relative
+    and could move the int only for a mean that close to an integer (the
+    tests compare both on the tables they use)."""
+    if table is None:
+        return None
+    return int(np.mean(np.asarray(table, dtype=np.float32),
+                       dtype=np.float64))
 
 
 def _pmt_ap_tables(config, resource, n_pmts):
@@ -432,8 +458,9 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
     as numpy: ``tree[name]`` for array fields and ``tree[name + '.values']``,
     ``'.lows'``, ``'.highs'`` for GridMap fields (the GridMap pytree leaf
     order); absent names are None.  wfsim_tpu's (L, Cn) int32
-    ``noise_data`` becomes the channel-major int16 ``noise_bank``.  Raises
-    if the tree holds a field the port does not carry."""
+    ``noise_data`` becomes the channel-major int16 ``noise_bank``, and
+    ``garfield_avgt`` is computed from ``garfield_t``.  Raises if the tree
+    holds a field the port does not carry."""
     device = torch.device(device)
     names = {f.name for f in dataclasses.fields(SimParams)}
     tree = dict(tree)
@@ -446,7 +473,7 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
     if extra:
         raise NotImplementedError(f'fields not ported: {sorted(extra)}')
     kw = {}
-    for name in names:
+    for name in names - {'garfield_avgt'}:
         if name in tree:
             kw[name] = torch.as_tensor(np.array(tree[name]), device=device)
         elif name + '.values' in tree:
@@ -455,4 +482,5 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
                 for part in ('values', 'lows', 'highs')))
         else:
             kw[name] = None
+    kw['garfield_avgt'] = table_mean_int(tree.get('garfield_t'))
     return SimParams(**kw), SimConstants(**const_fields)

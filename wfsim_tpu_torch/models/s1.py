@@ -1,20 +1,21 @@
-"""S1 scintillation, ``simple`` and ``nest`` timing models (counterpart of
-wfsim_tpu/models/s1.py simulate_s1, s1.py:143-228; reference:
-wfsim/core/s1.py:60-238).
+"""S1 scintillation, ``simple``, ``custom`` and ``nest`` timing models
+(counterpart of wfsim_tpu/models/s1.py simulate_s1, s1.py:143-228;
+reference: wfsim/core/s1.py:60-238).
 
 Detected photons per instruction are Binomial(amp, LCE/(1+p_dpe) * eff);
 channels come from an inverse-CDF draw on the pattern map; times add, per
-model, an exponential decay and a Gaussian spread (``simple``) and a
-sample of the tabulated NEST photon-time distribution of the
-instruction's recoil class, field and energy (``nest``), then the PMT
-response.  The photon axis is allocated at its exact size once the yields
-are drawn.
+model, an exponential decay and a Gaussian spread (``simple``), the delay
+of the instruction's recoil class (``custom``: ER excimers and
+recombination, NR, alpha, LED) and a sample of the tabulated NEST
+photon-time distribution of the instruction's recoil class, field and
+energy (``nest``), then the PMT response.  The photon axis is allocated
+at its exact size once the yields are drawn.
 
 :func:`simulate_s1` is :func:`s1_draws`, which makes the yields and every
 per-photon draw from the generator, followed by :func:`s1_photon_pass`, a
 pure function of those draws.  On a CUDA device the pass runs the
-hand-written kernels (photon times, NEST delays, channel draw, PMT
-response, map lookups); on the CPU their plain twins.
+hand-written kernels (photon times, custom and NEST delays, channel
+draw, PMT response, map lookups); on the CPU their plain twins.
 """
 from __future__ import annotations
 
@@ -25,27 +26,41 @@ from .._build import Kernel, P, I, F, check_tensor, ptr, stream_of
 from ..ops.randsample import (channel_draw, binomial, uniform, normal,
                               exponential)
 from ..ops.segment import segment_ids_from_counts, edges_from_counts
-from .common import f32, trunc_int
+from .common import f32, singlet_triplet_delays, trunc_int
 from .pmt import pmt_draws, pmt_response
 
 __all__ = ['simulate_s1', 's1_draws', 's1_photon_pass', 's1_n_photon_hits',
            's1_photon_times', 's1_photon_times_ref', 'masked_pattern',
            'live_pattern', 'nest_inputs',
            's1_models', 'recoil_class', 'grid_pos', 'nest_delays',
-           'nest_delays_ref', 'NestId']
+           'nest_delays_ref', 'NestId', 'custom_delays', 'custom_delays_ref',
+           'CUSTOM_DRAWS']
 
 #: the parts of an ``s1_model_type`` string (wfsim_tpu
-#: pipeline/rawdata.py:299-321); the port runs ``simple`` and ``nest``
+#: pipeline/rawdata.py:299-321); the port runs all but
+#: ``optical_propagation``
 S1_MODEL_PARTS = frozenset({'', 'simple', 'custom', 'optical_propagation',
                             'nest'})
-PORTED_S1_MODELS = frozenset({'simple', 'nest'})
+PORTED_S1_MODELS = frozenset({'simple', 'custom', 'nest'})
+
+#: the per-photon draws of the ``custom`` model, in wfsim_tpu's key order
+#: (s1.py:56-96: keys 5-15 of the chain): the ER primary-excimer uniform,
+#: the primary singlet/triplet pair (uniform, exponential), the
+#: recombination uniform on [1e-12, 1), the secondary singlet/triplet pair,
+#: the NR pair, the alpha pair and the LED uniform
+CUSTOM_DRAWS = ('u_prim', 'u_st_prim', 'exp_st_prim', 'u_reco', 'u_st_sec',
+                'exp_st_sec', 'u_nr', 'exp_nr', 'u_alpha', 'exp_alpha',
+                'u_led')
+
+#: the smallest recombination uniform (jax.random.uniform's minval there)
+U_RECO_MIN = 1e-12
 
 
 def s1_models(model: str) -> frozenset:
     """The timing models named by ``model``: its parts split at '+',
     spaces and commas, as wfsim_tpu validates them.  Raises ValueError on
-    an unknown part and NotImplementedError on ``custom`` and
-    ``optical_propagation``, which the port does not run."""
+    an unknown part and NotImplementedError on ``optical_propagation``,
+    which the port does not run."""
     parts = set()
     for part0 in str(model).split('+'):
         for part1 in part0.split(' '):
@@ -129,11 +144,21 @@ def _positions(inst):
     return torch.stack([inst['x'], inst['y'], inst['z']], dim=1)
 
 
+def reco_uniform(u: torch.Tensor) -> torch.Tensor:
+    """A [0, 1) uniform moved to [1e-12, 1) as ``jax.random.uniform(key,
+    minval=1e-12, maxval=1.0)`` moves its own: ``max(1e-12, u * 1 +
+    1e-12)`` in float32 (1 - 1e-12 rounds to 1), so ``1 / u`` is finite."""
+    lo = f32(U_RECO_MIN, u)
+    return torch.maximum(lo, u + lo)
+
+
 def s1_draws(params, const, inst, gen) -> dict:
     """The yields and per-photon draws of an S1 batch, in the generator's
     order: the binomial photon counts ``n_hits``, then per photon the
     channel uniform ``u_ch``, with ``simple`` timing the decay exponential
-    ``exp`` and the spread normal ``normal``, with ``nest`` timing the
+    ``exp`` and the spread normal ``normal``, with ``custom`` timing the
+    dict ``custom`` of the eleven :data:`CUSTOM_DRAWS` (the recombination
+    uniform through :func:`reco_uniform`), with ``nest`` timing the
     table uniform ``u_nest``, and the PMT draws ``pmt``
     (:func:`pmt_draws`).  A model that is off takes no draws (None)."""
     models = s1_models(const.s1_model_type)
@@ -142,10 +167,14 @@ def s1_draws(params, const, inst, gen) -> dict:
                               gen)
     n = int(n_hits.sum())
     d = dict(n_hits=n_hits, u_ch=uniform(gen, n, dev), exp=None,
-             normal=None, u_nest=None)
+             normal=None, custom=None, u_nest=None)
     if 'simple' in models:
         d['exp'] = exponential(gen, n, dev)
         d['normal'] = normal(gen, n, dev)
+    if 'custom' in models:
+        d['custom'] = {k: (exponential(gen, n, dev) if k.startswith('exp')
+                           else uniform(gen, n, dev)) for k in CUSTOM_DRAWS}
+        d['custom']['u_reco'] = reco_uniform(d['custom']['u_reco'])
     if 'nest' in models:
         d['u_nest'] = uniform(gen, n, dev)
     d['pmt'] = pmt_draws(gen, n, dev)
@@ -224,33 +253,132 @@ def nest_delays(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
 
 
 # ---------------------------------------------------------------------------
+# custom recoil-class delays (K15)
+
+
+def custom_delays_ref(cls, edges, draws, *, const):
+    """Plain twin of :func:`custom_delays`: every class computed for every
+    photon and one selected, as wfsim_tpu does."""
+    ph = segment_ids_from_counts(edges[1:] - edges[:-1])
+    c = cls[ph]
+    d = draws
+    t1, t3 = const.singlet_lifetime_liquid, const.triplet_lifetime_liquid
+
+    def st(u, e, frac):
+        return singlet_triplet_delays(u, e, frac, t1, t3).to(torch.float32)
+    u = torch.clamp_min(d['u_reco'], f32(U_RECO_MIN, d['u_reco']))
+    one = f32(1.0, u)
+    reco = f32(const.er_recombination_time, u) * (-one + one / u)
+    reco = torch.clamp(reco, 0.0, 1000.0)
+    er = torch.where(d['u_prim'] < f32(const.er_primary_excimer_fraction, u),
+                     st(d['u_st_prim'], d['exp_st_prim'],
+                        const.s1_ER_primary_singlet_fraction),
+                     reco + st(d['u_st_sec'], d['exp_st_sec'],
+                               const.s1_ER_secondary_singlet_fraction))
+    nr = st(d['u_nr'], d['exp_nr'], const.s1_NR_singlet_fraction)
+    alpha = st(d['u_alpha'], d['exp_alpha'],
+               const.s1_ER_alpha_singlet_fraction)
+    led = d['u_led'] * f32(const.led_pulse_length, u)
+    out = torch.where(c == 1, nr, er)
+    out = torch.where(c == 2, alpha, out)
+    return torch.where(c == 3, led, out)
+
+
+_custom_kernel = Kernel('wfsim_s1_custom_delays',
+                        [P, P, I, I] + [P] * len(CUSTOM_DRAWS) + [F] * 9
+                        + [P, P])
+
+
+def custom_delays(cls, edges, draws, *, const):
+    """S1 photon delays of the ``custom`` timing model (wfsim_tpu
+    models/s1.py:56 _custom_recoil_delays; reference s1.py:262-337), by the
+    recoil class of the photon's instruction:
+
+    - ER (class 0): with probability ``er_primary_excimer_fraction`` the
+      primary singlet/triplet delay, else the recombination delay
+      ``clip(er_recombination_time * (1/u - 1), 0, 1000)`` plus the
+      secondary singlet/triplet delay;
+    - NR (1) and alpha (2): their singlet/triplet delays;
+    - LED (3): ``u * led_pulse_length``.
+
+    A singlet/triplet delay is ``trunc(exp * lifetime)`` with the singlet
+    lifetime where its uniform is below the class's singlet fraction, as a
+    float.  The recombination uniform is clamped to at least 1e-12, as
+    wfsim_tpu draws it.
+
+    :param cls: (I,) int64 recoil class (:func:`recoil_class`)
+    :param edges: (I+1,) int64: instruction i owns photons [edges[i],
+        edges[i+1])
+    :param draws: dict of the (N,) float32 :data:`CUSTOM_DRAWS`
+    :returns: (N,) float32 delays (ns)
+
+    CPU tensors run :func:`custom_delays_ref`; CUDA tensors launch
+    ``csrc/table_samplers.cu``, which computes only the photon's class."""
+    dev = cls.device
+    n_inst = cls.shape[0]
+    check_tensor('cls', cls, torch.int64, (n_inst,), dev)
+    check_tensor('edges', edges, torch.int64, (n_inst + 1,), dev)
+    n = int(edges[-1])
+    if set(draws) != set(CUSTOM_DRAWS):
+        raise ValueError(f'custom draws {sorted(draws)}, expected '
+                         f'{sorted(CUSTOM_DRAWS)}')
+    for k in CUSTOM_DRAWS:
+        check_tensor(k, draws[k], torch.float32, (n,), dev)
+    if dev.type == 'cpu':
+        return custom_delays_ref(cls, edges, draws, const=const)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'custom_delays on {dev}')
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n:
+        consts = (const.er_primary_excimer_fraction,
+                  const.er_recombination_time,
+                  const.s1_ER_primary_singlet_fraction,
+                  const.s1_ER_secondary_singlet_fraction,
+                  const.s1_NR_singlet_fraction,
+                  const.s1_ER_alpha_singlet_fraction,
+                  const.singlet_lifetime_liquid,
+                  const.triplet_lifetime_liquid, const.led_pulse_length)
+        if n >= 2 ** 31:
+            raise ValueError(f'{n} photons: the kernel indexes them as int')
+        _custom_kernel(ptr(cls), ptr(edges), n_inst, n,
+                       *(ptr(draws[k]) for k in CUSTOM_DRAWS),
+                       *(float(np.float32(v)) for v in consts), ptr(out),
+                       stream_of(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # photon times (K9)
 
 
-def s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest=None, *,
-                        decay_time, decay_spread):
+def s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest=None,
+                        custom=None, *, decay_time, decay_spread):
     """Plain twin of :func:`s1_photon_times`."""
     ph_inst = segment_ids_from_counts(edges[1:] - edges[:-1])
     t = time[ph_inst]
     if exp is not None:
         t = t + trunc_int(exp * decay_time)
         t = t + trunc_int(nrm * decay_spread)
+    if custom is not None:
+        t = t + trunc_int(custom)
     if nest is not None:
         t = t + trunc_int(nest)
     return t, ph_inst, truth_row[ph_inst]
 
 
 _times_kernel = Kernel('wfsim_s1_photon_times',
-                       [P, P, P, I, P, P, P, F, F, P, P, P, P])
+                       [P, P, P, I, P, P, P, P, F, F, P, P, P, P])
 
 
-def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None, *,
-                    decay_time, decay_spread):
+def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None,
+                    custom=None, *, decay_time, decay_spread):
     """Photon times of the S1 timing models (reference: s1.py:191-234):
     ``time[i]``, plus ``trunc(exp * decay_time) + trunc(normal *
-    decay_spread)`` with ``simple`` timing (``exp`` and ``nrm`` given) and
-    ``trunc(nest)`` with ``nest`` timing (:func:`nest_delays`), for the
-    photons [edges[i], edges[i+1]) of instruction i.
+    decay_spread)`` with ``simple`` timing (``exp`` and ``nrm`` given),
+    ``trunc(custom)`` with ``custom`` timing (:func:`custom_delays`) and
+    ``trunc(nest)`` with ``nest`` timing (:func:`nest_delays`), in
+    wfsim_tpu's order, for the photons [edges[i], edges[i+1]) of
+    instruction i.
 
     :returns: (t (N,) int32, ph_inst (N,) int64, truth row (N,) int64)
 
@@ -264,13 +392,14 @@ def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None, *,
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
     if (exp is None) != (nrm is None):
         raise ValueError('the simple model takes both exp and normal draws')
-    for name, x in (('exp', exp), ('normal', nrm), ('nest', nest)):
+    for name, x in (('exp', exp), ('normal', nrm), ('nest', nest),
+                    ('custom', custom)):
         if x is not None:
             check_tensor(name, x, torch.float32, (n,), dev)
     kw = dict(decay_time=decay_time, decay_spread=decay_spread)
     if dev.type == 'cpu':
         return s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest,
-                                   **kw)
+                                   custom, **kw)
     if dev.type != 'cuda':
         raise NotImplementedError(f's1_photon_times on {dev}')
     t = torch.empty(n, dtype=torch.int32, device=dev)
@@ -281,7 +410,7 @@ def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None, *,
         return None if x is None else ptr(x)
     if n:
         _times_kernel(ptr(time), ptr(edges), ptr(truth_row), n_inst,
-                      opt(exp), opt(nrm), opt(nest),
+                      opt(exp), opt(nrm), opt(nest), opt(custom),
                       float(np.float32(decay_time)),
                       float(np.float32(decay_spread)), ptr(t), ptr(ph_inst),
                       ptr(ph_row), stream_of(dev))
@@ -312,21 +441,24 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
 
     :param inst: dict of (I,) tensors: time (int32, batch-relative ns), x, y,
         z (float32), amp (int32), truth_row (int64, ascending); for
-        ``nest`` timing also recoil (int32), local_field and e_dep
-        (float32)
+        ``custom`` and ``nest`` timing also recoil (int32), for ``nest``
+        local_field and e_dep (float32)
     :returns: (photons, truth, req_counts) — ``req_counts`` (I,) is each
         instruction's photon count; photons are grouped by instruction
     """
     models = s1_models(const.s1_model_type)
     n_hits = draws['n_hits']
     inst_edges = edges_from_counts(n_hits)
-    nest = None
+    custom = nest = None
+    if 'custom' in models:
+        custom = custom_delays(recoil_class(inst['recoil']), inst_edges,
+                               draws['custom'], const=const)
     if 'nest' in models:
         nest = nest_delays(*nest_inputs(params, const, inst), inst_edges,
                            draws['u_nest'])
     t, _ph_inst, truth_row = s1_photon_times(
         inst['time'], inst_edges, inst['truth_row'], draws['exp'],
-        draws['normal'], nest, decay_time=const.s1_decay_time,
+        draws['normal'], nest, custom, decay_time=const.s1_decay_time,
         decay_spread=const.s1_decay_spread)
     # channels from the pattern map (reference: s1.py:137-159)
     ch = channel_draw(masked_pattern(params, params.s1_pattern,

@@ -1,7 +1,7 @@
 """S2 electroluminescence (counterpart of wfsim_tpu/models/s2.py: inverse
-field-distortion correction, ``simple`` and ``garfield_gas_gap``
-luminescence, transverse diffusion of the pattern, AFT smearing,
-``s2_time_spread`` timing; reference: wfsim/core/s2.py).
+field-distortion correction, ``simple``, ``garfield`` and
+``garfield_gas_gap`` luminescence, transverse diffusion of the pattern,
+AFT smearing, ``s2_time_spread`` timing; reference: wfsim/core/s2.py).
 
 Electrons per instruction survive extraction and the drift lifetime
 (binomial), arrive with trapping and longitudinal diffusion, and each
@@ -14,8 +14,9 @@ the S2 time spread.
 per-electron, per-instruction and per-photon draw from the generator,
 followed by :func:`s2_photon_pass`, a pure function of those draws.  On a
 CUDA device the pass runs the hand-written kernels (electron and photon
-times, luminescence tables and gas-gap sampler, diffused pattern, map
-lookups, channel draw, PMT response); on the CPU their plain twins.  Every
+times, luminescence tables, wire-table and gas-gap samplers, diffused
+pattern, map lookups, channel draw, PMT response); on the CPU their plain
+twins.  Every
 reduction and division of the twins gives the same bits on either device
 (float64 or fixed-point accumulations, divisions by float32 tensors, no
 transcendental functions at instruction width), so a kernel is held
@@ -44,7 +45,12 @@ __all__ = ['simulate_s2', 's2_draws', 's2_photon_pass', 's2_edges',
            'get_s2_drift_time_params', 'inverse_field_distortion_correction',
            's2_positions', 'gasgap_rows', 'lumi_gasgap_times',
            'lumi_gasgap_times_ref', 'diffusion_inputs', 'pattern_diffuse',
-           'pattern_diffuse_ref', 's2_pattern', 'aft_smear']
+           'pattern_diffuse_ref', 's2_pattern', 'aft_smear',
+           'lumi_garfield_times', 'lumi_garfield_times_ref',
+           'tilt_coefficients', 'LUMINESCENCE_MODELS']
+
+#: the ``s2_luminescence_model`` values the port runs (all of wfsim_tpu's)
+LUMINESCENCE_MODELS = ('simple', 'garfield', 'garfield_gas_gap')
 
 #: quantile resolution of the per-instruction luminescence inverse CDFs
 Q = 1024
@@ -65,13 +71,11 @@ def check_supported(const):
              'field-dependency maps'),
             (not const.se_gain_from_map and not const.ext_eff_from_map,
              'se-gain / extraction maps'),
-            (const.s2_luminescence_model != 'garfield',
-             'garfield wire-table luminescence'),
             ('optical_propagation' not in const.s2_time_model,
              'S2 optical propagation')):
         if not ok:
             raise NotImplementedError(f'the port has no {what} yet')
-    if const.s2_luminescence_model not in ('simple', 'garfield_gas_gap'):
+    if const.s2_luminescence_model not in LUMINESCENCE_MODELS:
         raise KeyError(f'{const.s2_luminescence_model} is not a valid '
                        f's2_luminescence_model')
     if 's2_time_spread around zero' not in const.s2_time_model \
@@ -373,6 +377,104 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u):
 
 
 # ---------------------------------------------------------------------------
+# garfield wire-table luminescence (K13c)
+
+
+def tilt_coefficients(tilt):
+    """``(sin, cos)`` of the anode wires' angle as float32: the correctly
+    rounded sin and cos of the float32 angle.  XLA's float32 sin and cos
+    (wfsim_tpu s2.py:246) give the same bits at the default pi/4 and
+    differ in the last bit for ~0.6 % of other angles."""
+    a = float(np.float32(tilt))
+    return float(np.float32(np.sin(a))), float(np.float32(np.cos(a)))
+
+
+def lumi_garfield_times_ref(table, x_axis, xy, ph_edges, cols, u_wire=None,
+                            *, avgt, tilt, pitch, confine):
+    """Plain twin of :func:`lumi_garfield_times`."""
+    if u_wire is not None:
+        c = f32(confine, u_wire)
+        d = torch.maximum(-c, u_wire * (c + c) + (-c))
+    else:
+        s, co = tilt_coefficients(tilt)
+        rot_y = xy[:, 0] * f32(s, xy) + xy[:, 1] * f32(co, xy)
+        p, half = f32(pitch, xy), f32(pitch / 2, xy)
+        r = torch.fmod(rot_y + half, p)
+        r = torch.where((r != 0) & ((r < 0) != (p < 0)), r + p, r)
+        d = r - half
+    rows = torch.argmin(torch.abs(d[:, None] - x_axis[None, :]), dim=1)
+    ph = segment_ids_from_counts(ph_edges[1:] - ph_edges[:-1])
+    return table[rows[ph], cols].to(torch.int32) - avgt
+
+
+_garfield_kernel = Kernel('wfsim_lumi_garfield_times',
+                          [P, I, I, P, P, P, I, P, P, I, F, F, F, F, F, I, P,
+                           P, P])
+
+
+def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
+                        avgt, tilt, pitch, confine):
+    """Luminescence times of the ``garfield`` model (wfsim_tpu s2.py:234
+    luminescence_garfield; reference s2.py:380-409).  Per instruction, the
+    distance ``d`` of the electrons from the nearest anode wire: the
+    position rotated by the wires' angle ``tilt``, its y modulo the wire
+    pitch (``(y + pitch/2) mod pitch - pitch/2``, the remainder taking the
+    pitch's sign), or, with ``confine`` > 0, ``-confine + u_wire * 2 *
+    confine``; the table row whose distance ``x_axis`` is nearest ``d``
+    (the lowest on a tie).  Photon j of instruction i reads that row at the
+    column ``cols[j]``, truncated to int, minus ``avgt``.
+
+    :param table: (R, M) float32 times; ``x_axis`` (R,) float32 distances
+    :param xy: (I, 2) float32 observed positions
+    :param ph_edges: (I+1,) int64: instruction i owns photons
+        [ph_edges[i], ph_edges[i+1])
+    :param cols: (N,) int64 columns in [0, M)
+    :param u_wire: (I,) float32 uniforms, given exactly when ``confine`` > 0
+    :param avgt: the int mean of the table (``SimParams.garfield_avgt``)
+    :returns: (N,) int32 times (ns)
+
+    CPU tensors run :func:`lumi_garfield_times_ref`; CUDA tensors launch
+    ``csrc/table_samplers.cu`` (a thread per instruction for the row, a
+    thread per photon for the time)."""
+    dev = table.device
+    n_inst = xy.shape[0]
+    n = cols.shape[0]
+    if table.dim() != 2:
+        raise ValueError(f'table of shape {tuple(table.shape)}')
+    R, M = table.shape
+    check_tensor('table', table, torch.float32, (R, M), dev)
+    check_tensor('x_axis', x_axis, torch.float32, (R,), dev)
+    check_tensor('xy', xy, torch.float32, (n_inst, 2), dev)
+    check_tensor('ph_edges', ph_edges, torch.int64, (n_inst + 1,), dev)
+    check_tensor('cols', cols, torch.int64, (n,), dev)
+    if (u_wire is not None) != (confine > 0):
+        raise ValueError('u_wire is given exactly when confine > 0')
+    if u_wire is not None:
+        check_tensor('u_wire', u_wire, torch.float32, (n_inst,), dev)
+    if int(ph_edges[-1]) != n:
+        raise ValueError(f'{n} columns for {int(ph_edges[-1])} photons')
+    kw = dict(avgt=int(avgt), tilt=tilt, pitch=pitch, confine=confine)
+    if dev.type == 'cpu':
+        return lumi_garfield_times_ref(table, x_axis, xy, ph_edges, cols,
+                                       u_wire, **kw)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'lumi_garfield_times on {dev}')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} photons: the kernel indexes them as int')
+    t = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = torch.empty(n_inst, dtype=torch.int32, device=dev)
+    if n:
+        s, co = tilt_coefficients(tilt)
+        _garfield_kernel(ptr(table), R, M, ptr(x_axis), ptr(xy),
+                         None if u_wire is None else ptr(u_wire), n_inst,
+                         ptr(ph_edges), ptr(cols), n, s, co,
+                         *(float(np.float32(v)) for v in (
+                             pitch, pitch / 2, confine)),
+                         int(avgt), ptr(rows), ptr(t), stream_of(dev))
+    return t
+
+
+# ---------------------------------------------------------------------------
 # transverse diffusion of the pattern (K12b) and AFT smearing
 
 
@@ -547,9 +649,13 @@ def s2_draws(params, const, inst, gen) -> dict:
       normals ``diff_r`` and ``diff_a``;
     - with AFT smearing, per instruction the skew-normal's two normals
       ``aft_u0`` and ``aft_v``;
-    - per photon ``u_ch`` (channel), ``u_lum`` (luminescence), ``u_st`` and
-      ``exp_st`` (singlet/triplet), ``t_spread`` (the s2_time_spread
-      normal, None under ``zero_delay``) and ``pmt`` (:func:`pmt_draws`).
+    - per photon ``u_ch`` (channel), then the luminescence draws: ``u_lum``
+      (a uniform per photon), or with ``garfield`` luminescence the
+      instruction's wire uniform ``u_wire`` (only where
+      ``s2_garfield_confine_position`` > 0) and the table column ``col``
+      (int64 per photon); then per photon ``u_st`` and ``exp_st``
+      (singlet/triplet), ``t_spread`` (the s2_time_spread normal, None
+      under ``zero_delay``) and ``pmt`` (:func:`pmt_draws`).
 
     A switch that is off takes no draws (None).  The dict also carries the
     observed position ``z_obs``, ``xy_obs`` (:func:`s2_positions`): no draw,
@@ -592,8 +698,15 @@ def s2_draws(params, const, inst, gen) -> dict:
         d['aft_v'] = normal(gen, n_inst, dev)
 
     n = int(n_ph_per_e.sum())
-    d.update(u_ch=uniform(gen, n, dev), u_lum=uniform(gen, n, dev),
-             u_st=uniform(gen, n, dev), exp_st=exponential(gen, n, dev))
+    d.update(u_ch=uniform(gen, n, dev), u_lum=None, u_wire=None, col=None)
+    if const.s2_luminescence_model == 'garfield':
+        if const.s2_garfield_confine_position > 0:
+            d['u_wire'] = uniform(gen, n_inst, dev)
+        d['col'] = torch.randint(int(params.garfield_t.shape[1]), (n,),
+                                 generator=gen, device=dev)
+    else:
+        d['u_lum'] = uniform(gen, n, dev)
+    d.update(u_st=uniform(gen, n, dev), exp_st=exponential(gen, n, dev))
     d['t_spread'] = (normal(gen, n, dev)
                      if 's2_time_spread around zero' in const.s2_time_model
                      else None)
@@ -797,6 +910,12 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
         lum['t_lum'] = lumi_gasgap_times(
             params.gg_inv_cdf, *gasgap_rows(params, positions), ph_edges,
             draws['u_lum'])
+    elif const.s2_luminescence_model == 'garfield':
+        lum['t_lum'] = lumi_garfield_times(
+            params.garfield_t, params.garfield_x, positions, ph_edges,
+            draws['col'], draws['u_wire'], avgt=params.garfield_avgt,
+            tilt=const.anode_xaxis_angle, pitch=const.anode_pitch,
+            confine=const.s2_garfield_confine_position)
     else:
         lum['inv'] = luminescence_tables(const, n_inst, dev)
         lum['u_lum'] = draws['u_lum']

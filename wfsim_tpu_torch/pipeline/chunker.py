@@ -58,13 +58,6 @@ class ChunkRawRecords:
         rext = int(self.config['right_raw_extension'])
         cksz = int(self.config['chunk_size'] * 1e9)
 
-        # grow the truth buffer for large instruction sets (the raw data
-        # phase fills all truth up front)
-        need_truth = 4 * len(instructions) + 1000
-        if need_truth > len(self.truth_buffer):
-            self.truth_buffer = np.zeros(need_truth,
-                                         dtype=self.truth_buffer.dtype)
-
         self.blevel = 0
         self.chunk_time_pre = (time_zero - rext if time_zero
                                else np.min(instructions['time']) - rext)
@@ -72,7 +65,7 @@ class ChunkRawRecords:
         self.current_digitized_right = self.last_digitized_right = 0
 
         for win in self.rawdata.iter_windows(
-                instructions=instructions, truth_buffer=self.truth_buffer,
+                instructions=instructions, truth_buffer=self._store_truth,
                 **kwargs):
             records = win['records']
             records_needed = len(records)
@@ -113,6 +106,28 @@ class ChunkRawRecords:
         self.chunk_time = max((self.last_digitized_right + 1) * dt,
                               self.chunk_time_pre + dt)
         yield from self.final_results()
+
+    def _store_truth(self, rows):
+        """Write truth rows (dicts) into free slots of the truth buffer.
+        The raw data hands over each super-batch's rows before its windows,
+        and each chunk takes the rows it closes, so the buffer holds one
+        super-batch and what is still pending; it grows where that does
+        not fit."""
+        free = np.flatnonzero(~self.truth_buffer['fill'])
+        if len(free) < len(rows):
+            keep = self.truth_buffer[self.truth_buffer['fill']]
+            grown = np.zeros(max(2 * len(self.truth_buffer),
+                                 len(keep) + len(rows) + 1000),
+                             dtype=self.truth_buffer.dtype)
+            grown[:len(keep)] = keep
+            self.truth_buffer = grown
+            free = np.arange(len(keep), len(grown))
+        names = self.truth_buffer.dtype.names
+        for ix, row in zip(free, rows):
+            for k, v in row.items():
+                if k in names:
+                    self.truth_buffer[ix][k] = v
+            self.truth_buffer[ix]['fill'] = True
 
     def final_results(self):
         t0 = _time.perf_counter()

@@ -2,39 +2,54 @@
 (counterpart of wfsim_tpu/pipeline/rawdata.py; reference:
 wfsim/core/rawdata.py:38-157).
 
-One pass over the instructions, ordered by signal arrival time:
+The instructions, ordered by signal arrival time, are cut into
+super-batches at large arrival gaps (:meth:`RawData._split_super_batches`,
+wfsim_tpu's cuts: about ``ceil(n / pipeline_depth)`` instructions each, at
+least ``pipeline_min_batch``), and the run streams one super-batch at a
+time:
 
 A) same-type batches (S1, S2, and the electron-afterpulse kinds pi_el and
-   pe_el, which share the S2 chain) are simulated on the device with one
-   ``torch.Generator`` per ``RawData`` (seeded from ``config['seed']``);
-   their photons stay on the device as buffers and their truth rows come
-   back to the host.  With PMT afterpulses on, every batch also gets its
-   afterpulse photons as a buffer of their own (one pulse per truth row,
-   no truth row of their own).  With electron afterpulses on, each S2
-   batch's photon summaries seed secondary pi_el / pe_el instructions on
-   the host, which are simulated once after the primaries (one level of
-   feedback: secondaries spawn nothing);
-B) pulses are grouped into digitization windows with the reference's
-   flush-on-gap rule (rawdata.py:96-98), and each group is sub-split at
-   internal gaps that no ZLE interval can bridge (PARITY.md deviation 1)
-   unless the high-energy copies are live (integer deamplification factor
-   not 0, wfsim_tpu rawdata.py:1254-1259); with noise on, each window
-   draws its noise-bank offset on the host;
-C) windows are bucketed by their power-of-two length ``T_cap`` and
-   digitized in batches straight from the device photon arena
-   (``gather_digitize`` -> ``pack_records``, on the slim or the full
-   digitizer grid), and the records come back to the host as strax
-   ``raw_records``.
+   pe_el, which share the S2 chain) of the super-batch are simulated on
+   the device with one ``torch.Generator`` per ``RawData`` (seeded from
+   ``config['seed']``); their photons stay on the device as buffers and
+   their truth rows come back to the host.  With PMT afterpulses on, every
+   batch also gets its afterpulse photons as a buffer of their own (one
+   pulse per truth row, no truth row of their own).  With electron
+   afterpulses on, each S2 batch's photon summaries seed secondary pi_el /
+   pe_el instructions on the host, which are simulated right after the
+   super-batch's primaries (one level of feedback: secondaries spawn
+   nothing); the super-batch's truth then goes to the truth buffer;
+B) the pending pulses are grouped into digitization windows with the
+   reference's flush-on-gap rule (rawdata.py:96-98).  A group that a pulse
+   of a later super-batch could still join (its end within
+   ``right_raw_extension`` of the next super-batch's ``safe_t``) waits,
+   with every group after it, for the next round, so the framing is that
+   of a single pass.  Each live group is sub-split at internal gaps that no
+   ZLE interval can bridge (PARITY.md deviation 1) unless the high-energy
+   copies are live (integer deamplification factor not 0, wfsim_tpu
+   rawdata.py:1254-1259); with noise on, each window draws its noise-bank
+   offset on the host;
+C) the round's windows are bucketed by their power-of-two length
+   ``T_cap`` and digitized in batches from a device photon arena of the
+   buffers their pulses use (``gather_digitize`` -> ``pack_records``, on
+   the slim or the full digitizer grid); the records come back to the host
+   as strax ``raw_records`` and the windows are yielded.  A buffer that no
+   pending pulse uses any more is dropped.
 
-The host numpy generator (``self.rng``) is used in one fixed order:
-secondary-instruction synthesis during the simulation, then the windows'
-noise offsets, so a rerun with the same seed is identical.
+So device and host memory hold one super-batch and what is still pending,
+not the run.  The host numpy generator (``self.rng``) is used in one
+fixed order: per super-batch, secondary-instruction synthesis, then the
+noise offsets of the round's windows in time order, so a rerun with the
+same seed is identical.  The torch generator is drawn super-batch by
+super-batch, so the draws depend on ``pipeline_depth`` (PARITY.md
+deviation 5 is the same for wfsim_tpu).
 
 In eager PyTorch every photon count is known before its buffer is
 allocated, so wfsim_tpu's demand pre-pass (``s1_photon_demand`` /
 ``s2_photon_demand``) and its capacity retries fall away.  Left out as
-wfsim_tpu relay and XLA machinery: the super-batch pipeline
-(``pipeline_depth``), sliced host copies, the packed device fetches, the
+wfsim_tpu relay and XLA machinery: the overlap of one super-batch's
+device work with another's host work (its five-stage rotation and its
+collector thread), sliced host copies, the packed device fetches, the
 device-ceiling bench mode, the PRNG implementation switch and key-split
 plumbing.
 
@@ -49,7 +64,7 @@ import typing as ty
 import numpy as np
 import torch
 
-from ..config import finalize_config
+from ..config import finalize_config, PIPELINE_DEFAULTS
 from ..diagnostics import Timers
 from ..dtypes import raw_record_dtype, DEFAULT_RECORD_LENGTH
 from ..models.afterpulse import (pmt_ap_draws, pmt_afterpulse_photons,
@@ -94,7 +109,7 @@ def _bucket(n, lo=256, hi=2 ** 26):
 
 class _Pulse(ty.NamedTuple):
     """One truth row's photons: a contiguous slot range of one device
-    photon buffer."""
+    photon buffer (``buf`` is the buffer's id)."""
     buf: int
     buf_start: int
     pool_count: int
@@ -130,6 +145,19 @@ class RawData:
                              else int(self.rng.integers(2 ** 31)))
         self.source_finished = False
         self.diag = Timers()
+        self._reset_pending()
+
+    def _reset_pending(self):
+        """No photon buffer (by id) and no pulse pending."""
+        self._buffers: ty.Dict[int, dict] = {}
+        self._buf_ctr = 0
+        self._pulses: ty.List[_Pulse] = []
+
+    def _add_buffer(self, photons) -> int:
+        bid = self._buf_ctr
+        self._buf_ctr += 1
+        self._buffers[bid] = photons
+        return bid
 
     def _arrival_times(self, instructions):
         v = self.config['drift_velocity_liquid']
@@ -270,12 +298,10 @@ class RawData:
                     gen_sink.append(generate_pe_el_instructions(
                         self.config, self.rng, counts, tz, sel, base_time))
 
-        buf = len(self._buffers)
-        self._buffers.append(photons)
+        buf = self._add_buffer(photons)
         off = np.concatenate([[0], np.cumsum(req)]).astype(np.int64)
         if ap_h is not None:
-            ap_buf = len(self._buffers)
-            self._buffers.append(ap_photons)
+            ap_buf = self._add_buffer(ap_photons)
             ap_off = np.concatenate([[0], np.cumsum(ap_h['counts'])]).astype(
                 np.int64)
         for r in range(n_rows):
@@ -367,29 +393,71 @@ class RawData:
     def iter_windows(self, instructions, truth_buffer=None, **kwargs):
         """Yield per digitization window a dict with win_left / win_right
         (absolute samples), ``flush`` and a time-sorted strax raw_record
-        array.  The truth of every instruction is in ``truth_buffer``
-        before the first window is yielded."""
+        array, super-batch by super-batch (see the module docstring).  The
+        truth rows (dicts) of a super-batch go to ``truth_buffer`` (a list
+        they are appended to, or a callable taking them) before any window
+        of its round is yielded."""
         if truth_buffer is None:
             truth_buffer = []
         self.source_finished = False
-        self._drain_truth(truth_buffer, self.simulate(instructions))
-
-        with self.diag.phase('digitize'):
-            wins, records = self._digitize()
-        self._buffers = []
-        for w, recs in zip(wins, records):
-            yield dict(win_left=w['win_left'], win_right=w['win_right'],
-                       flush=w['flush'], records=recs)
+        self._reset_pending()
+        instructions = np.asarray(instructions)
+        arrival = self._arrival_times(instructions)
+        order = np.argsort(arrival, kind='stable')
+        for order_k, safe_t in self._split_super_batches(arrival, order):
+            self._drain_truth(truth_buffer,
+                              self.simulate(instructions, order_k))
+            with self.diag.phase('digitize'):
+                wins, records = self._dispatch_digitize(safe_t)
+            for w, recs in zip(wins, records):
+                yield dict(win_left=w['win_left'], win_right=w['win_right'],
+                           flush=w['flush'], records=recs)
+            del wins, records     # the caller holds what it keeps
         self.source_finished = True
 
-    def simulate(self, instructions) -> ty.List[dict]:
-        """Simulate every instruction in arrival order, then the secondary
-        electron-afterpulse instructions the S2s seeded; the photons stay
-        on the device as pending pulses.  Returns the truth rows."""
-        self._buffers: ty.List[dict] = []
-        self._pulses: ty.List[_Pulse] = []
+    def _split_super_batches(self, arrival, order):
+        """Cut the arrival-ordered instructions into super-batches; returns
+        ``[(order_slice, safe_t), ...]`` (wfsim_tpu rawdata.py:1077-1105).
+
+        ``safe_t`` is the earliest time a later super-batch can contribute a
+        pulse: the next super-batch's first arrival minus a slack for
+        photons that come before their arrival (S2 drift-diffusion spread,
+        luminescence and gate-afterpulse jitter are well under it).  Cuts
+        are placed only at arrival gaps above ``slack + 2 *
+        right_raw_extension``, so that, with the flush-group deferral, the
+        windows are framed as in a single pass."""
+        n = len(order)
+        depth = int(self.config.get('pipeline_depth',
+                                    PIPELINE_DEFAULTS['pipeline_depth']))
+        min_batch = int(self.config.get(
+            'pipeline_min_batch', PIPELINE_DEFAULTS['pipeline_min_batch']))
+        if n < 2 * min_batch or depth <= 1:
+            return [(order, np.inf)]
+        rext = int(self.config['right_raw_extension'])
+        slack = 3 * rext + 100_000
+        gap_thr = slack + 2 * rext
+        target = max(int(np.ceil(n / depth)), min_batch)
+        sa = np.asarray(arrival)[order]
+        cuts = np.flatnonzero(np.diff(sa) > gap_thr) + 1
+        batches = []
+        start = 0
+        for c in cuts:
+            if c - start >= target and n - c >= target // 2:
+                batches.append((order[start:c], float(sa[c]) - slack))
+                start = c
+        batches.append((order[start:], np.inf))
+        return batches
+
+    def simulate(self, instructions, order=None) -> ty.List[dict]:
+        """Simulate one super-batch, the instructions ``order`` (by default
+        all of them, in arrival order): its primaries, then the secondary
+        electron-afterpulse instructions its S2s seeded (wfsim_tpu
+        ``stage_a`` / ``stage_b``, rawdata.py:915-980).  The photons join
+        the pending pulses on the device.  Returns the truth rows."""
         instructions = np.asarray(instructions)
-        order = np.argsort(self._arrival_times(instructions), kind='stable')
+        if order is None:
+            order = np.argsort(self._arrival_times(instructions),
+                               kind='stable')
         truth_rows: ty.List[dict] = []
         gen_sink: ty.List[np.ndarray] = []
         for kind, idx in self._sim_batch_list(instructions, order):
@@ -401,27 +469,29 @@ class RawData:
             order = np.argsort(self._arrival_times(sec), kind='stable')
             for kind, idx in self._sim_batch_list(sec, order):
                 self._simulate_batch(sec, idx, kind, truth_rows)
+        self.diag.add('super_batches', 1)
         return truth_rows
 
-    def _drain_truth(self, truth_buffer, truth_rows):
+    @staticmethod
+    def _drain_truth(truth_buffer, truth_rows):
         if isinstance(truth_buffer, list):
             truth_buffer.extend(truth_rows)
-            return
-        free = np.flatnonzero(~truth_buffer['fill'])
-        if len(free) < len(truth_rows):
-            raise RuntimeError('truth buffer too small')
-        for ix, row in zip(free, truth_rows):
-            for k, v in row.items():
-                if k in truth_buffer.dtype.names:
-                    truth_buffer[ix][k] = v
-            truth_buffer[ix]['fill'] = True
+        else:
+            truth_buffer(truth_rows)
 
     # -- digitization ------------------------------------------------------------
 
-    def _windows(self):
-        """Flush-on-gap groups of the pulses (reference: rawdata.py:96-98),
-        each sub-split at unbridgeable internal gaps (PARITY.md deviation
-        1); returns window descriptors in time order."""
+    def _windows(self, safe_t=np.inf):
+        """Window descriptors, in time order, of the pending pulses that no
+        pulse at or after ``safe_t`` can join: flush-on-gap groups
+        (reference: rawdata.py:96-98), those whose end reaches ``safe_t -
+        right_raw_extension`` deferred with every group after them (group
+        ends increase, so the deferred set is a suffix and the windows stay
+        in time order; wfsim_tpu rawdata.py:1273-1287), each live group
+        sub-split at unbridgeable internal gaps (PARITY.md deviation 1).
+        The deferred pulses stay pending; the others leave."""
+        if not self._pulses:
+            return []
         c = self.const
         dt = c.sample_duration
         rext = int(self.config['right_raw_extension'])
@@ -448,6 +518,18 @@ class RawData:
                 cur.append(p)
             cur_end = max(cur_end, p.t_max + margin_r * dt)
         groups.append(cur)
+
+        deferred: ty.List[_Pulse] = []
+        if safe_t != np.inf:
+            live = []
+            for grp in groups:
+                g_end = max(p.t_max for p in grp) + margin_r * dt
+                if deferred or g_end >= safe_t - rext:
+                    deferred.extend(grp)
+                else:
+                    live.append(grp)
+            groups = live
+        self._pulses = deferred
 
         wins = []
         for grp in groups:
@@ -494,20 +576,30 @@ class RawData:
             return free // 2
         return CPU_MEMORY_BUDGET
 
-    def plan_digitize(self):
-        """Windows of the pending pulses, the device photon arena and the
-        digitize batches: ``(wins, arena, batches)`` with arena =
-        (t, ch, gain) tensors and each batch ``(window ids, T_cap, pieces,
-        noise_ix)`` — windows bucketed by T_cap, at most 128 per batch,
-        pieces ``(B, P, 3)`` int64 ``[arena_lo, count, t_offset]``,
-        noise_ix ``(B,)`` int32 (zeros with noise off)."""
+    def plan_digitize(self, safe_t=np.inf):
+        """One digitize round: the windows of the pending pulses that no
+        pulse at or after ``safe_t`` can join (:meth:`_windows`), the
+        device photon arena of the buffers their pulses use, and the
+        digitize batches: ``(wins, arena, batches)`` with arena = (t, ch,
+        gain) tensors (None without windows) and each batch ``(window ids,
+        T_cap, pieces, noise_ix)`` — windows bucketed by T_cap, at most 128
+        per batch, pieces ``(B, P, 3)`` int64 ``[arena_lo, count,
+        t_offset]``, noise_ix ``(B,)`` int32 (zeros with noise off).  The
+        buffers no pending pulse uses any more are dropped."""
         c = self.const
         dt = c.sample_duration
-        wins = self._windows()
-        arena = tuple(torch.cat([b[k] for b in self._buffers])
-                      for k in ('t', 'ch', 'gain'))
-        base_of = np.concatenate(
-            [[0], np.cumsum([int(b['t'].shape[0]) for b in self._buffers])])
+        wins = self._windows(safe_t)
+        still = {p.buf for p in self._pulses}
+        used = sorted({p.buf for w in wins for p in w['grp']})
+        arena = None
+        if used:
+            arena = tuple(torch.cat([self._buffers[b][k] for b in used])
+                          for k in ('t', 'ch', 'gain'))
+        base_of = dict(zip(used, np.concatenate([[0], np.cumsum(
+            [int(self._buffers[b]['t'].shape[0]) for b in used])]).tolist()))
+        for bid in list(self._buffers):
+            if bid not in still:
+                del self._buffers[bid]
         by_t: ty.Dict[int, list] = {}
         for i, w in enumerate(wins):
             by_t.setdefault(w['T_cap'], []).append(i)
@@ -540,14 +632,13 @@ class RawData:
                 batches.append((batch, T_cap, pieces, nix))
         return wins, arena, batches
 
-    def _digitize(self):
-        """Digitize every pending window; returns the windows and, per
-        window, its time-sorted records."""
-        if not self._pulses:
-            return [], []
+    def _dispatch_digitize(self, safe_t=np.inf):
+        """Digitize one round (:meth:`plan_digitize`); returns its windows
+        and, per window, its time-sorted records."""
         with self.diag.phase('digitize_plan'):
-            wins, arena, batches = self.plan_digitize()
-        self._pulses = []
+            wins, arena, batches = self.plan_digitize(safe_t)
+        if not wins:
+            return [], []
         max_itv = int(self.config.get('zle_max_intervals', 64))
         parts = []
         with self.diag.phase('digitize_batches'):     # ends in host copies
@@ -562,14 +653,15 @@ class RawData:
                     res['counts'])
                 parts.append((batch, rec_data.cpu().numpy(),
                               rec_meta.cpu().numpy()))
+        self.diag.add('rounds', 1)
         self.diag.add('digitize_calls', len(batches))
         self.diag.add('windows', len(wins))
         with self.diag.phase('digitize_host_records'):
             return wins, self._host_records(wins, parts)
 
     def _host_records(self, wins, parts):
-        """strax raw_records per window, time-sorted: (window, start,
-        channel) order (wfsim_tpu _collect_digitize_work)."""
+        """strax raw_records per window of one round, time-sorted: (window,
+        start, channel) order (wfsim_tpu _collect_digitize_work)."""
         dt = self.const.sample_duration
         spr = DEFAULT_RECORD_LENGTH
         W = np.concatenate([b[m[:, 0]] for b, _, m in parts])

@@ -8,7 +8,9 @@ correction maps and the S2 area-fraction-top rescale, the SPE table (a
 measured spectrum csv or the synthetic one), the ``garfield_gas_gap``
 luminescence tables, the inverse-FDC map and, when enabled, the
 PMT-afterpulse CDFs and the noise bank (a resource file or the synthetic
-asset) and the synthetic electron-afterpulse PMF
+asset), the synthetic electron-afterpulse PMF and the ``garfield``
+wire-distance luminescence table (an in-memory ``{'t', 'x'}`` table or a
+file, of whose liquid levels ``ll`` the nearest one is taken)
 (wfsim_tpu/resources/loader.py:141-575).  Every map is a
 :class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 tensors; the
 device copy is made by ``models.params.build_params``.
@@ -19,8 +21,7 @@ fetch of wfsim_tpu is not ported, so a file found nowhere raises
 ``FileNotFoundError``, where wfsim_tpu falls back to the synthetic asset.
 Not ported yet (each raises ``NotImplementedError``): electron-afterpulse
 files (pickles of a class object), COMSOL field distortion,
-field-dependency maps, gas-gap warping, the garfield wire table and
-optical propagation splines.
+field-dependency maps, gas-gap warping and optical propagation splines.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from . import synthetic as synth
 
 __all__ = ['Resource', 'load_config', 'make_map', 'make_patternmap',
            'DummyMap', 'MultiMap', 'get_file_path',
-           'interpolating_map_to_grid']
+           'interpolating_map_to_grid', 'garfield_table']
 
 
 def load_config(config) -> 'Resource':
@@ -272,8 +273,6 @@ _UNSUPPORTED = (
     ('enable_gas_gap_warping', bool, 'gas-gap map'),
     ('s1_time_spline', bool, 'S1 optical propagation spline'),
     ('s2_time_spline', bool, 'S2 optical propagation spline'),
-    ('s2_luminescence_model', lambda v: v == 'garfield',
-     'garfield wire-distance luminescence table'),
     ('enable_field_dependencies',
      lambda v: isinstance(v, dict) and any(bool(x) for x in v.values()),
      'field-dependency maps'),
@@ -357,6 +356,12 @@ class Resource:
                  float(np.mean(self.s2_luminescence_gg['gas_gap'])), []])
             self.garfield_gas_gap_map = make_map(ggm, config)
 
+        # garfield wire-distance luminescence table (wfsim_tpu
+        # loader.py:445-462)
+        self.s2_luminescence = None
+        if str(config.get('s2_luminescence_model')) == 'garfield':
+            self.s2_luminescence = garfield_table(config)
+
         # inverse FDC (wfsim_tpu loader.py:465-479): the map is stored
         # against drift time, so its z axis is scaled by -drift_velocity
         # (reference load_resource.py:311-313)
@@ -413,6 +418,34 @@ class Resource:
                     int(config.get('n_digitizer_channels', n_pmts)))
             else:
                 self.noise_bank = synthetic_noise_bank(n_pmts)
+
+
+def garfield_table(config):
+    """The ``garfield`` table that ``config['s2_luminescence']`` gives: an
+    in-memory mapping with ``t`` (R, M) and ``x`` (R,), or the name of a
+    file (npz ``arr_0`` / npy structured array with fields ``t``, ``x``
+    and optionally ``ll``), of whose liquid levels ``ll`` the one nearest
+    ``gate_to_anode_distance - elr_gas_gap_length`` is taken (wfsim_tpu
+    loader.py:445-462).  A name found nowhere raises
+    ``FileNotFoundError``, as in wfsim_tpu."""
+    entry = config.get('s2_luminescence')
+    if not isinstance(entry, str):
+        if entry is None or 't' not in entry or 'x' not in entry:
+            raise ValueError('s2_luminescence_model garfield needs '
+                             's2_luminescence: a {t, x} table or a file name')
+        return entry
+    path = get_file_path(config, entry)
+    if path is None:
+        raise FileNotFoundError(f'garfield table {entry} not found')
+    table = _read_any(path)
+    if not isinstance(table, np.ndarray):
+        table = table['arr_0']
+    if 'll' in (table.dtype.names or ()):
+        lls = np.unique(table['ll'])
+        ll = config['gate_to_anode_distance'] - config['elr_gas_gap_length']
+        ll = lls[np.argmin(np.abs(lls - ll))]
+        table = table[table['ll'] == ll]
+    return table
 
 
 def _pattern_sum(g: GridMap, pmt_mask) -> GridMap:

@@ -15,6 +15,7 @@ __all__ = [
     'synthetic_spe_distribution', 'synthetic_noise', 'synthetic_pmt_ap_cdfs',
     'synthetic_ele_ap_pmf', 'synthetic_garfield_gas_gap',
     'write_pattern_map', 'write_production_files', 'PRODUCTION_FILES',
+    'synthetic_garfield_table', 'write_garfield_table', 'GARFIELD_LEVELS',
 ]
 
 
@@ -131,6 +132,48 @@ def synthetic_garfield_gas_gap(n_gaps: int = 10, inv_cdf_len: int = 1000):
         'gas_gap': gas_gap,
         'timing_inv_cdf': inv_cdf.astype(np.float64),
     }
+
+
+def synthetic_garfield_table(seed: int, n_rows: int = 11,
+                             n_cols: int = 500):
+    """A ``garfield`` wire-distance luminescence table in the shape of
+    wfsim_tpu's test table (tests/test_models.py:232-236): ``x`` the
+    distances from the wire, ``n_rows`` points on [-0.25, 0.25] cm, and
+    ``t`` (n_rows, n_cols) float32 times, exponential(300 ns) plus 1000 ns
+    per cm of |x|.  Returns ``{'t', 'x'}``; a test asset, not a
+    simulation of the anode."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-0.25, 0.25, n_rows)
+    t = rng.exponential(300, (n_rows, n_cols)) + np.abs(x)[:, None] * 1000
+    return {'t': t.astype(np.float32), 'x': x.astype(np.float32)}
+
+
+#: the liquid levels (cm) of :func:`write_garfield_table`'s file and the
+#: factor each level's times carry: the default configuration's level,
+#: gate_to_anode_distance - elr_gas_gap_length = 0.234 cm, holds
+#: :func:`synthetic_garfield_table` itself
+GARFIELD_LEVELS = ((0.18, 0.8), (0.234, 1.0), (0.29, 1.25))
+
+
+def write_garfield_table(path, seed: int):
+    """Write a ``garfield`` table file to ``path`` (npz, ``arr_0``): a
+    structured array with fields ``ll`` (float64), ``x`` (float32) and
+    ``t`` (float32, (M,)), one block of rows per liquid level of
+    :data:`GARFIELD_LEVELS`, each :func:`synthetic_garfield_table` with its
+    times scaled by the level's factor, so the loader's row selection by
+    ``ll`` is seen in the times.  Returns the path."""
+    tbl = synthetic_garfield_table(seed)
+    R, M = tbl['t'].shape
+    dtype = [('ll', np.float64), ('x', np.float32), ('t', np.float32, (M,))]
+    blocks = []
+    for ll, factor in GARFIELD_LEVELS:
+        b = np.zeros(R, dtype)
+        b['ll'] = ll
+        b['x'] = tbl['x']
+        b['t'] = tbl['t'] * np.float32(factor)
+        blocks.append(b)
+    np.savez(path, np.concatenate(blocks))
+    return str(path)
 
 
 def write_pattern_map(path, seed: int):
