@@ -116,6 +116,36 @@ the events:
     and, from the same draws, through the twins on the CPU: photons
     bitwise equal, truth exact or within rtol 1e-12.
 
+Then per-PMT truth and the XENON1T detector, each with the realistic
+switches on the bench workload: ``per_pmt_truth`` (XENONnT, 494-wide
+vectors per truth row) and ``xenon1t_full_grid`` (XENON1T: 248 TPC
+channels, 127 of them top, deamplification factor 1, so every digitize
+batch runs the full 801-row grid without HE rows, plus per-PMT truth):
+
+3g. the per-PMT kernel (K16) against its twin on the 512-instruction S2
+    batch of each configuration, after the PMT photon pass (~1.57 M
+    photons, 494 and 248 channels): counts bitwise, raw areas within rtol
+    1e-12; median CUDA-event times of both and of one ``index_add_`` of
+    the photons' terms (the library call);
+4g. main path: the per_pmt_truth run, warm-up then timed with every
+    launch count set to 0 before it; every realistic entry and the
+    per-PMT one launched; records bitwise those of the same run without
+    per-PMT truth, whose bottom-array fields the vectors' bottom channels
+    sum to (as the vectors sum to the row totals);
+3h. ``superpose_adc_full`` without HE rows against its twin, bitwise, at
+    16 windows x 801 rows x 2048 samples with the XENON1T bank and offsets
+    that wrap it (rows 248-800 all 0); the bench positions checked against
+    the configured TPC;
+4h. main path: the xenon1t_full_grid run, warm-up then timed; the
+    full-grid entry once per digitize batch, the slim one never, the
+    per-PMT one launched; no ``raw_records_he`` key, every record on
+    channels 0-247; records and truth bitwise those of the same run on
+    the slim grid (factor 0) at the same framing (``split_digitize_gap_ns``
+    0, which a non-zero factor implies), records bitwise those of the run
+    without per-PMT truth, the vectors' sums as in 4g;
+5h. one window batch without HE rows on the card and by the CPU twins,
+    records bitwise equal.
+
 Last, the stream (4s): the default configuration on 10,000 bench events
 (20,000 instructions) with ``pipeline_depth`` = ceil(instructions / 1024),
 super-batches of 1,000 instructions, and 1 s chunks; ``Simulator.run`` is
@@ -138,7 +168,7 @@ code on this run's sizes) over 67 TFLOP/s float32 plus 34 TFLOP/s
 float64 (H100 SXM data sheet, non-tensor rates); and, where one PyTorch
 call computes the same function, that call's time (``library_ms``: the
 channel draw against ``torch.searchsorted`` over the CDF rows, the map
-lookup against ``grid_sample``).
+lookup against ``grid_sample``, the per-PMT truth against ``index_add_``).
 
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
@@ -183,6 +213,13 @@ FULL_GRID_PATH_KERNELS = tuple(
 TIMING_PATH_KERNELS = tuple(
     k for k in DEFAULT_PATH_KERNELS if k != 'wfsim_lumi_tables') + (
     'wfsim_s1_custom_delays', 'wfsim_lumi_garfield_times')
+
+#: the per_pmt_truth path: the realistic one plus the per-PMT entry (K16)
+PER_PMT_PATH_KERNELS = REALISTIC_PATH_KERNELS + (
+    'wfsim_pmt_row_truth_per_pmt',)
+#: the xenon1t_full_grid path: the full-grid entry (in its mode without HE
+#: rows) in place of superpose_adc, and per-PMT truth
+X1T_PATH_KERNELS = FULL_GRID_PATH_KERNELS + ('wfsim_pmt_row_truth_per_pmt',)
 
 #: H100 SXM peaks (NVIDIA data sheet; at the 700 W limit): HBM3 bytes/s,
 #: float32 and float64 operations/s outside the tensor cores
@@ -634,7 +671,6 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
     measurements of the superpose_adc_full row (see make_check) and the
     launch counts of the 4e run."""
     import torch
-    from wfsim_tpu_torch import Simulator, _build
     from wfsim_tpu_torch.config import default_config, he_full_grid_overrides
     from wfsim_tpu_torch.models.params import build_params, build_constants
     from wfsim_tpu_torch.ops.waveform import (superpose_adc_full,
@@ -722,18 +758,7 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         del grid, grid_ref, zk, zr
 
         # ---- 4e. the he_full_grid main path ------------------------------
-        Simulator(cfg, device=dev).get_arrays(inst)          # warm-up
-        torch.cuda.synchronize()
-        for k in _build.KERNELS.values():
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        sim = Simulator(cfg, device=dev)
-        t0 = time.perf_counter()
-        out = sim.get_arrays(inst)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in _build.KERNELS.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
+        out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
         diag = sim.sim.rawdata.diag.summary()
         print(f'[full] launches {launches}')
         for name in FULL_GRID_PATH_KERNELS:
@@ -814,7 +839,6 @@ def phase_timing_models(dev, smi):
     measurements of the custom_delays and lumi_garfield_times rows (see
     make_check) and the launch counts of the 4f run."""
     import torch
-    from wfsim_tpu_torch import Simulator, _build
     from wfsim_tpu_torch.config import default_config, timing_models_overrides
     from wfsim_tpu_torch.interface import (timing_models_instructions,
                                            TIMING_MODEL_RECOILS)
@@ -880,18 +904,7 @@ def phase_timing_models(dev, smi):
               f'instructions, table {R} x {M}')
 
         # ---- 4f. the timing_models main path --------------------------------
-        Simulator(cfg, device=dev).get_arrays(inst)            # warm-up
-        torch.cuda.synchronize()
-        for k in _build.KERNELS.values():
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        sim = Simulator(cfg, device=dev)
-        t0 = time.perf_counter()
-        out = sim.get_arrays(inst)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in _build.KERNELS.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
+        out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
         diag = sim.sim.rawdata.diag.summary()
         print(f'[timing] launches {launches}')
         for name in TIMING_PATH_KERNELS:
@@ -933,6 +946,284 @@ def phase_timing_models(dev, smi):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return res, launches
+
+
+def timed_run(cfg, inst, dev):
+    """A warm-up ``get_arrays``, then a timed one with every launch count
+    set to 0 just before; returns (out, wall_s, launches, peak device
+    bytes, the timed Simulator)."""
+    import torch
+    from wfsim_tpu_torch import Simulator, _build
+    Simulator(cfg, device=dev).get_arrays(inst)            # warm-up
+    torch.cuda.synchronize()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim = Simulator(cfg, device=dev)
+    t0 = time.perf_counter()
+    out = sim.get_arrays(inst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    return out, wall, launches, torch.cuda.max_memory_allocated(dev), sim
+
+
+def same_arrays(a, b):
+    """Whether two ``get_arrays`` results hold the same keys and bytes."""
+    return sorted(a) == sorted(b) and all(
+        a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def check_per_pmt(truth, off, n_top, tag):
+    """The per-PMT vectors of ``truth`` sum over the channels to its
+    totals and over the bottom array (channels >= n_top) to the bottom
+    fields of ``off``, the same run without per-PMT truth: counts
+    exactly, raw areas within rtol 1e-12.  Returns the largest relative
+    difference of the areas."""
+    if not (np.array_equal(truth['time'], off['time'])
+            and np.array_equal(truth['type'], off['type'])):
+        raise AssertionError(f'{tag}: truth rows differ from the run '
+                             f'without per-PMT truth')
+    worst = 0.0
+    for name in ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger',
+                 'raw_area', 'raw_area_trigger'):
+        per = truth[name + '_per_pmt']
+        for got, want in ((per.sum(1), truth[name]),
+                          (per[:, n_top:].sum(1), off[name + '_bottom'])):
+            if name.startswith('raw_area'):
+                rel = float(np.max(np.abs(got - want)
+                                   / np.maximum(np.abs(want), 1e-300)))
+                worst = max(worst, rel)
+                ok = rel <= 1e-12
+            else:
+                ok = np.array_equal(got, want)
+            if not ok:
+                raise AssertionError(f'{tag}: per-PMT {name} does not sum '
+                                     f'to the row or bottom-array field')
+    return worst
+
+
+#: the per-PMT raw areas, compared within rtol 1e-12 (float64 atomics)
+PER_PMT_AREAS = ('raw_area_per_pmt', 'raw_area_trigger_per_pmt')
+
+
+def per_pmt_kernel_check(check, name, cfg, inst, dev):
+    """K16 against its twin on the 512-instruction S2 batch of ``cfg``
+    (the photons after the PMT photon pass); the library call is one
+    ``index_add_`` of the photons' six terms into the (R * C, 6) table."""
+    import torch
+    from wfsim_tpu_torch.models import pmt, s2
+    from wfsim_tpu_torch.models.s1 import row_edges_of
+    params, const, batches = physics_batches(cfg, inst, dev, 20261016)
+    x2, n_rows, d2 = batches['s2']
+    ph, _truth, _req = s2.s2_photon_pass(params, const, x2, d2,
+                                         n_truth_rows=n_rows)
+    row_edges = row_edges_of(x2['truth_row'], s2.s2_edges(d2)[2], n_rows)
+    C = int(params.gains.shape[0])
+    n_ph, n_valid = int(ph['t'].shape[0]), int(ph['valid'].sum())
+    idx, terms = pmt.per_pmt_inputs(params, const, ph, row_edges)
+    check(name, lambda: pmt.pulse_truth_per_pmt(params, const, ph,
+                                                row_edges),
+          lambda: pmt.pulse_truth_per_pmt_ref(params, const, ph, row_edges),
+          (*(ph[k] for k in ('t', 'ch', 'gain', 'is_dpe', 'valid')),
+           row_edges, params.chan_pack, params.current_max),
+          ops32=n_ph * 8 + n_valid * 4, ops64=n_valid * 2,
+          rtol_keys=PER_PMT_AREAS,
+          library=lambda: torch.zeros(
+              (n_rows * C, 6), dtype=torch.float64,
+              device=dev).index_add_(0, idx, terms))
+    print(f'[kernels-x] {name}: {n_ph} photons ({n_valid} valid) in '
+          f'{n_rows} rows x {C} channels')
+
+
+def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
+    """Phases 3g, 4g, 3h, 4h and 5h (see the module docstring); returns
+    the measurements of the per-PMT and the no-HE grid rows (see
+    make_check) and the launch counts of the 4g and 4h runs."""
+    import torch
+    from wfsim_tpu_torch import Simulator
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.ops.waveform import (superpose_adc_full,
+                                              superpose_adc_full_ref)
+    from wfsim_tpu_torch.pipeline.digitize import (
+        gather_digitize, pack_records, window_photons)
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    from wfsim_tpu_torch.resources import load_config
+    realism = dict(enable_noise=True, enable_pmt_afterpulses=True,
+                   enable_electron_afterpulses=True)
+    cfg_p = default_config(seed=1234, chunk_size=100, per_pmt_truth=True,
+                           **realism)
+    cfg_x = default_config(detector='XENON1T', seed=1234, chunk_size=100,
+                           high_energy_deamplification_factor=1.0,
+                           per_pmt_truth=True, **realism)
+    n_ev = len(inst) // 2
+    res = {}
+    check = make_check(res, 'kernels-x', smi)
+
+    # ---- 3g. K16 against its twin, XENONnT (494) and XENON1T (248) -------
+    per_pmt_kernel_check(check, 'pulse_truth_per_pmt', cfg_p, inst, dev)
+    per_pmt_kernel_check(check, 'pulse_truth_per_pmt_248', cfg_x, inst, dev)
+
+    # ---- 4g. the per_pmt_truth main path -------------------------------
+    out, wall, launches_p, peak, sim = timed_run(cfg_p, inst, dev)
+    diag = sim.sim.rawdata.diag.summary()
+    print(f'[per-pmt] launches {launches_p}')
+    for name in PER_PMT_PATH_KERNELS:
+        if launches_p[name] <= 0:
+            raise AssertionError(f'kernel {name} not launched on the '
+                                 f'per_pmt_truth path')
+    off = Simulator(dict(cfg_p, per_pmt_truth=False),
+                    device=dev).get_arrays(inst)
+    truth = out['truth']
+    n_top = cfg_p['n_top_pmts']
+    n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2, 4, 6)}
+    if n_type[1] != n_ev or n_type[2] != n_ev or n_type[4] <= 0:
+        raise AssertionError(f'per_pmt_truth truth rows by type {n_type}')
+    if not strax_valid(out['raw_records'], cfg_p['n_tpc_pmts']):
+        raise AssertionError('per_pmt_truth raw_records violate the strax '
+                             'invariants')
+    same = same_arrays({k: v for k, v in out.items() if k != 'truth'},
+                       {k: v for k, v in off.items() if k != 'truth'})
+    rel = check_per_pmt(truth, off['truth'], n_top, 'per_pmt_truth')
+    print(f'[per-pmt] truth rows {len(truth)} by type {n_type}, vectors '
+          f'{truth["n_photon_per_pmt"].shape}; records equal to the run '
+          f'without per-PMT truth: {same}; per-PMT sums equal the totals '
+          f'and the bottom fields (areas rel. diff. {rel:.3g})')
+    if not same:
+        raise AssertionError('per-PMT truth changed the records')
+    print(f'[per-pmt] events/s {n_ev / wall:.2f} wall {wall:.3f} s records '
+          f'{len(out["raw_records"])} truth rows {len(truth)} peak_mem '
+          f'{peak / 2 ** 20:.1f} MiB ({smi})')
+    print(f'[per-pmt] phases {diag}')
+    del out, off, truth
+
+    # ---- 3h. the grid without HE rows against its twin -----------------
+    const = build_constants(cfg_x)
+    params = build_params(cfg_x, load_config(cfg_x), dev)
+    C, R = const.n_tpc_pmts, const.n_channels_total
+    tpc_r, tpc_l = cfg_x['tpc_radius'], cfg_x['tpc_length']
+    r_max = float(np.hypot(inst['x'], inst['y']).max())
+    z_lo, z_hi = float(inst['z'].min()), float(inst['z'].max())
+    print(f'[x1t] {C} TPC channels ({const.n_top_pmts} top) in {R} rows, '
+          f'factor {const.high_energy_deamp_int}; bench positions r <= '
+          f'{r_max:.2f} cm, z in [{z_lo:.2f}, {z_hi:.2f}] cm inside the TPC '
+          f'(radius {tpc_r} cm, length {tpc_l} cm)')
+    if not (r_max <= tpc_r and -tpc_l <= z_lo and z_hi <= 0):
+        raise AssertionError('bench positions outside the XENON1T TPC')
+    rng = np.random.default_rng(20261016)
+    t_np, ch_np, g_np, pieces = s2_like_arena(rng, B, C, T)
+    ph = window_photons(const, *(torch.as_tensor(a, device=dev)
+                                 for a in (t_np, ch_np, g_np)),
+                        torch.as_tensor(pieces, device=dev), n_samples=T)
+    sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+             ph['ch_left'], ph['ch_right'], ph['has'])
+    L = int(params.noise_bank.shape[1])
+    nix = torch.as_tensor(L - T // 2 + np.arange(B) * 7, dtype=torch.int32,
+                          device=dev)                         # all wrap
+    fkw = dict(current_2_adc=const.current_2_adc,
+               baseline=const.digitizer_reference_baseline, n_samples=T,
+               n_channels=C, n_channels_total=R, n_top=const.n_top_pmts,
+               he_start=None, sum_channel=None,
+               deamp=const.high_energy_deamp_int,
+               noise_bank=params.noise_bank, noise_ix=nix)
+    grid = superpose_adc_full(*sargs, **fkw)
+    err = max_diff(grid, superpose_adc_full_ref(*sargs, **fkw))
+    print(f'[kernels-x] superpose_adc_full (no HE rows): {B} x {R} x {T}, '
+          f'{len(t_np)} photons, noise_ix {nix[0].item()}.. of L={L}, '
+          f'max|diff| {err}, TPC rows non-zero '
+          f'{int((grid[:, :C] != 0).sum())}, rows past the TPC non-zero '
+          f'{int((grid[:, C:] != 0).sum())}')
+    if err or grid[:, C:].any() or not grid[:, :C].any():
+        raise AssertionError('superpose_adc_full without HE rows differs '
+                             'from its twin or writes past the TPC')
+    ms = cuda_ms(lambda: superpose_adc_full(*sargs, **fkw))
+    plain_ms = cuda_ms(lambda: superpose_adc_full_ref(*sargs, **fkw), reps=5)
+    # bytes: the inputs, the int16 grid and one int16 bank read per
+    # in-window TPC sample; operations: a template tap per photon and
+    # sample and the TPC epilogue (the zero rows are stores only)
+    span = torch.where(ph['has'], ph['ch_right'] - ph['ch_left'] + 1, 0)
+    n_bytes = nbytes(sargs, nix, grid) + 2 * int(span.sum())
+    ops = (len(t_np) * int(params.templates.shape[1]) * 2 + B * C * T * 3)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f'[kernels-x] superpose_adc_full (no HE rows): {ms:.4f} ms, plain '
+          f'twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library '
+          f'call none ({smi})')
+    res['superpose_adc_full_no_he'] = dict(
+        err=err, ms=ms, plain_ms=plain_ms, bytes=n_bytes, ops32=ops,
+        ops64=0, library_ms=None)
+    del grid, ph, sargs
+
+    # ---- 4h. the xenon1t_full_grid main path ---------------------------
+    out, wall, launches_x, peak, sim = timed_run(cfg_x, inst, dev)
+    diag = sim.sim.rawdata.diag.summary()
+    print(f'[x1t] launches {launches_x}')
+    for name in X1T_PATH_KERNELS:
+        if launches_x[name] <= 0:
+            raise AssertionError(f'kernel {name} not launched on the '
+                                 f'xenon1t_full_grid path')
+    if (launches_x['wfsim_superpose_adc_full'] != diag['digitize_calls']
+            or launches_x['wfsim_superpose_adc']):
+        raise AssertionError('not every XENON1T digitize batch ran the '
+                             'grid without HE rows')
+    rr, truth = out['raw_records'], out['truth']
+    n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2, 4, 6)}
+    if sorted(out) != ['raw_records', 'truth'] or not strax_valid(rr, C):
+        raise AssertionError('xenon1t_full_grid: a raw_records_he key, or '
+                             'records off the 248 TPC channels')
+    if n_type[1] != n_ev or n_type[2] != n_ev or n_type[4] <= 0:
+        raise AssertionError(f'xenon1t_full_grid truth rows by type {n_type}')
+    slim = Simulator(dict(cfg_x, split_digitize_gap_ns=0,
+                          high_energy_deamplification_factor=0.05),
+                     device=dev).get_arrays(inst)
+    same = same_arrays(out, slim)
+    off = Simulator(dict(cfg_x, per_pmt_truth=False),
+                    device=dev).get_arrays(inst)
+    rel = check_per_pmt(truth, off['truth'], const.n_top_pmts,
+                        'xenon1t_full_grid')
+    print(f'[x1t] records {len(rr)} (channels {int(rr["channel"].min())}-'
+          f'{int(rr["channel"].max())}), keys {sorted(out)}; truth rows '
+          f'{len(truth)} by type {n_type}, vectors '
+          f'{truth["n_photon_per_pmt"].shape}; windows {diag["windows"]} in '
+          f'{diag["digitize_calls"]} batches; records and truth equal to the '
+          f'slim grid at the same framing (factor 0, split gap 0): {same}; '
+          f'per-PMT sums (areas rel. diff. {rel:.3g})')
+    if not same or off['raw_records'].tobytes() != rr.tobytes():
+        raise AssertionError('XENON1T records differ between the grid '
+                             'without HE rows and the slim grid, or with '
+                             'per-PMT truth off')
+    print(f'[x1t] events/s {n_ev / wall:.2f} wall {wall:.3f} s records '
+          f'{len(rr)} truth rows {len(truth)} peak_mem '
+          f'{peak / 2 ** 20:.1f} MiB ({smi})')
+    print(f'[x1t] phases {diag}')
+    del out, slim, off
+
+    # ---- 5h. one window batch without HE rows: card against CPU twins --
+    rd = RawData(cfg_x, device=dev)
+    rd.simulate(inst)
+    _wins, arena_d, batches = rd.plan_digitize()
+    cand = [b for b in batches if b[1] <= 4096] or batches
+    batch, T_cap, pieces, nix_b = max(cand, key=lambda b: (b[1], len(b[0])))
+    batch, pieces, nix_b = batch[:16], pieces[:16], nix_b[:16]
+    recs = {}
+    for d, ar in ((dev, arena_d), (torch.device('cpu'),
+                                   [a.cpu() for a in arena_d])):
+        prm = build_params(cfg_x, load_config(cfg_x), d)
+        g = gather_digitize(prm, const, *ar, torch.as_tensor(pieces, device=d),
+                            torch.as_tensor(nix_b, device=d),
+                            n_samples=T_cap, max_intervals=K)
+        if tuple(g['data'].shape) != (len(batch), R, T_cap):
+            raise AssertionError(f'grid {tuple(g["data"].shape)}')
+        recs[d.type] = [x.cpu().numpy() for x in pack_records(
+            g['data'], g['left_all'], g['starts'], g['ends'], g['counts'])]
+    same = all(a.shape == b.shape and np.array_equal(a, b)
+               for a, b in zip(recs['cuda'], recs['cpu']))
+    print(f'[cross-x] windows {len(batch)} T_cap {T_cap} rows {R} records '
+          f'{len(recs["cuda"][1])} cuda==cpu {same}')
+    if not same or not len(recs['cuda'][1]):
+        raise AssertionError('XENON1T digitize on the card differs from the '
+                             'CPU twins (or has no record)')
+    return res, launches_p, launches_x
 
 
 def trim_host_heap():
@@ -1068,7 +1359,7 @@ def main():
         if 'Used' in line or 'Compiling entry' in line:
             print(f'[build] {line.strip()}')
 
-    from wfsim_tpu_torch import Simulator, default_config
+    from wfsim_tpu_torch import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     from wfsim_tpu_torch.models.params import build_params, build_constants
     from wfsim_tpu_torch.resources import load_config
@@ -1153,18 +1444,7 @@ def main():
 
     # ---- 4. main path ------------------------------------------------------
     inst = bench_instructions(512, 2000, 300)
-    Simulator(cfg, device=dev).get_arrays(inst)          # warm-up
-    torch.cuda.synchronize()
-    for k in _build.KERNELS.values():
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    sim = Simulator(cfg, device=dev)
-    t0 = time.perf_counter()
-    out = sim.get_arrays(inst)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in _build.KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
     rr, truth = out['raw_records'], out['truth']
     print(f'[main] launches {launches}')
     for name in DEFAULT_PATH_KERNELS:
@@ -1296,18 +1576,7 @@ def main():
     del ph_ap, draws, ap_k, ap_r, grid_n, grid_nr
 
     # ---- 4b. realistic main path -----------------------------------------
-    Simulator(cfg_r, device=dev).get_arrays(inst)        # warm-up
-    torch.cuda.synchronize()
-    for k in _build.KERNELS.values():
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    sim = Simulator(cfg_r, device=dev)
-    t0 = time.perf_counter()
-    out = sim.get_arrays(inst)
-    torch.cuda.synchronize()
-    wall_r = time.perf_counter() - t0
-    launches_r = {name: k.launches for name, k in _build.KERNELS.items()}
-    peak_r = torch.cuda.max_memory_allocated(dev)
+    out, wall_r, launches_r, peak_r, sim = timed_run(cfg_r, inst, dev)
     rr, truth = out['raw_records'], out['truth']
     diag = sim.sim.rawdata.diag.summary()
     print(f'[realistic] launches {launches_r}')
@@ -1405,18 +1674,7 @@ def main():
                                                        20261016)
         dtimes = phase_3d(params_d, const_d, batches_d, dev, smi)
 
-        Simulator(cfg_d, device=dev).get_arrays(inst_d)      # warm-up
-        torch.cuda.synchronize()
-        for k in _build.KERNELS.values():
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        sim = Simulator(cfg_d, device=dev)
-        t0 = time.perf_counter()
-        out = sim.get_arrays(inst_d)
-        torch.cuda.synchronize()
-        wall_d = time.perf_counter() - t0
-        launches_d = {name: k.launches for name, k in _build.KERNELS.items()}
-        peak_d = torch.cuda.max_memory_allocated(dev)
+        out, wall_d, launches_d, peak_d, sim = timed_run(cfg_d, inst_d, dev)
         rr, truth = out['raw_records'], out['truth']
         diag = sim.sim.rawdata.diag.summary()
         print(f'[detector] launches {launches_d}')
@@ -1459,6 +1717,10 @@ def main():
 
     # ---- 3f / 4f / 5f. the timing_models configuration ---------------------
     ttimes, launches_t = phase_timing_models(dev, smi)
+
+    # ---- 3g / 4g / 3h / 4h / 5h. per_pmt_truth and xenon1t_full_grid -------
+    xtimes, launches_p, launches_x = phase_per_pmt_x1t(B, T, K, inst, dev,
+                                                       smi)
 
     # ---- 4s. the stream ----------------------------------------------------
     phase_4s(dev, smi)
@@ -1544,6 +1806,14 @@ def main():
              'wfsim_tpu/models/s2.py:234')):
         measured(name, 'table_samplers.cu', rep, [entry], launches_t,
                  ttimes[name])
+    measured('pulse_truth_per_pmt', 'pmt_response.cu',
+             'wfsim_tpu/models/pmt.py:146', ['wfsim_pmt_row_truth_per_pmt'],
+             launches_p, xtimes['pulse_truth_per_pmt'])
+    measured('superpose_adc_full_no_he', 'superpose_adc.cu',
+             'wfsim_tpu/pipeline/digitize.py:341; '
+             'wfsim_tpu/pipeline/digitize.py:96',
+             ['wfsim_superpose_adc_full'], launches_x,
+             xtimes['superpose_adc_full_no_he'])
     print(f'[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s '
           f'after its start ({smi})')
     print(smi)

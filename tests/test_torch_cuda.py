@@ -645,3 +645,138 @@ def test_timing_models_pass_card_matches_cpu(dev, tmp_path, kind):
     _same(ph_d, ph_c)
     _same(tr_d, tr_c, FLOAT_TRUTH)
     assert torch.equal(req_d.cpu(), req_c)
+
+
+# ---------------------------------------------------------------------------
+# per-PMT truth (K16) and the XENON1T grid without HE rows
+
+
+PER_PMT_AREAS = ('raw_area_per_pmt', 'raw_area_trigger_per_pmt')
+
+
+@pytest.mark.parametrize('detector', ['XENONnT', 'XENON1T'])
+def test_per_pmt_kernel_matches_twin(dev, detector):
+    """The per-PMT entry against its twin on the card and on the CPU: an
+    empty row, photons without a channel and invalid ones; counts bitwise,
+    areas within rtol 1e-12 (float64 atomics); then pmt_response with
+    per-PMT truth, card against CPU."""
+    from wfsim_tpu_torch.models import pmt
+    c = default_config(detector=detector, per_pmt_truth=True)
+    const = build_constants(c)
+    params = build_params(c, load_config(c), dev)
+    params_cpu = build_params(c, load_config(c), 'cpu')
+    C = int(params.gains.shape[0])
+    rng = np.random.default_rng(31)
+    rows = 13
+    counts = rng.multinomial(40_000, np.ones(rows) / rows)
+    counts[4] = 0                                   # an empty row
+    n = int(counts.sum())
+    ch = rng.integers(-1, C, n).astype(np.int32)
+    ph = dict(t=rng.integers(-50, 3_000_000, n).astype(np.int32), ch=ch,
+              gain=rng.uniform(1e5, 8e6, n).astype(np.float32),
+              is_dpe=rng.random(n) < 0.219,
+              valid=(ch >= 0) & (rng.random(n) > 0.02),
+              truth_row=np.repeat(np.arange(rows), counts))
+    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
+    ph_c = {k: torch.as_tensor(v) for k, v in ph.items()}
+    ph_d = {k: v.to(dev) for k, v in ph_c.items()}
+    k = _build.KERNELS['wfsim_pmt_row_truth_per_pmt']
+    before = k.launches
+    out = pmt.pulse_truth_per_pmt(params, const, ph_d, edges.to(dev))
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert out['n_photon_per_pmt'].shape == (rows, C)
+    _same(out, pmt.pulse_truth_per_pmt_ref(params, const, ph_d,
+                                           edges.to(dev)), PER_PMT_AREAS)
+    _same(out, pmt.pulse_truth_per_pmt_ref(params_cpu, const, ph_c, edges),
+          PER_PMT_AREAS)
+    assert not any(v[4].any() for v in out.values())
+    assert int(out['n_photon_per_pmt'].sum()) == int(ph['valid'].sum())
+
+    gen = torch.Generator().manual_seed(31)
+    draws = pmt.pmt_draws(gen, n, 'cpu')
+    args = [ph_c[k] for k in ('t', 'ch', 'valid', 'truth_row')]
+    kw = dict(n_truth_rows=rows)
+    ph_cc, tr_c = pmt.pmt_response(params_cpu, const, *args, draws,
+                                   row_edges=edges, **kw)
+    ph_dd, tr_d = pmt.pmt_response(
+        params, const, *[a.to(dev) for a in args],
+        {k: v.to(dev) for k, v in draws.items()}, row_edges=edges.to(dev),
+        **kw)
+    _same(ph_dd, ph_cc)
+    _same(tr_d, tr_c, FLOAT_TRUTH + PER_PMT_AREAS)
+    assert not any(k.endswith('_bottom') for k in tr_d)
+
+
+def no_he_inputs(seed, dev, bank_width, T=1024, B=4, per=1500):
+    """B XENON1T windows of ``per`` photons over the 248 TPC channels,
+    window 2 without photons; a bank of ``bank_width`` columns (None: noise
+    off)."""
+    from wfsim_tpu_torch.resources.synthetic import synthetic_noise
+    c = default_config(detector='XENON1T')
+    const = build_constants(c)
+    params = build_params(c, load_config(c), dev)
+    rng = np.random.default_rng(seed)
+    n = B * per
+    t = rng.integers(1500, T * 10 - 3000, n).astype(np.int32)
+    ch = rng.integers(0, 248, n).astype(np.int32)
+    g = rng.uniform(1e6, 3e6, n).astype(np.float32)
+    pieces = np.zeros((B, 1, 3), np.int64)
+    for w in range(B):
+        pieces[w, 0] = (w * per, 0 if w == 2 else per, 0)
+    ph = window_photons(const, *(torch.as_tensor(a, device=dev)
+                                 for a in (t, ch, g)),
+                        torch.as_tensor(pieces, device=dev), n_samples=T)
+    bank = nix = None
+    if bank_width:
+        bank = torch.as_tensor(np.ascontiguousarray(synthetic_noise(
+            bank_width, 5000, seed=3).T.astype(np.int16)), device=dev)
+        nix = torch.tensor([5000 - 100, 0, 17, 2500], dtype=torch.int32,
+                           device=dev)
+    args = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+            ph['ch_left'], ph['ch_right'], ph['has'])
+    kw = dict(current_2_adc=const.current_2_adc,
+              baseline=const.digitizer_reference_baseline, n_samples=T,
+              n_channels=248, n_channels_total=801, n_top=127, he_start=None,
+              sum_channel=None, deamp=1, noise_bank=bank, noise_ix=nix)
+    return args, kw
+
+
+@pytest.mark.parametrize('bank_width', [None, 248, 801])
+def test_no_he_grid_kernel_matches_twin(dev, bank_width):
+    from wfsim_tpu_torch.ops.waveform import (superpose_adc_full,
+                                              superpose_adc_full_ref)
+    args, kw = no_he_inputs(bank_width or 0, dev, bank_width)
+    k = _build.KERNELS['wfsim_superpose_adc_full']
+    before = k.launches
+    out = superpose_adc_full(*args, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert out.shape == (4, 801, 1024)
+    assert torch.equal(out, superpose_adc_full_ref(*args, **kw))
+    assert not out[2].any()                      # the window without photons
+    assert out[:, :248].any() and not out[:, 248:].any()
+
+
+def test_no_he_gather_digitize_card_matches_cpu(dev):
+    """XENON1T at factor 1 through gather_digitize and pack_records on the
+    card and on the CPU twins, with noise: records bitwise, channels below
+    248, the same as on the slim grid."""
+    c = default_config(detector='XENON1T', enable_noise=True,
+                       high_energy_deamplification_factor=1.0)
+    const = build_constants(c)
+    (t, ch, g), pieces = arena(17, 3, 248, 1024, 4000, dev)
+    nix = torch.tensor([3, 10_000, 19_500], dtype=torch.int32)
+    out = []
+    for d, full in ((dev, True), (torch.device('cpu'), True), (dev, False)):
+        p = build_params(c, load_config(c), d)
+        r = gather_digitize(p, const, t.to(d), ch.to(d), g.to(d),
+                            pieces.to(d), nix.to(d), n_samples=1024,
+                            max_intervals=64, full=full)
+        assert r['data'].shape == (3, 801 if full else 248, 1024)
+        out.append([x.cpu() for x in pack_records(
+            r['data'], r['left_all'], r['starts'], r['ends'], r['counts'])])
+    for other in out[1:]:
+        for a, b in zip(out[0], other):
+            assert torch.equal(a, b)
+    assert len(out[0][1]) > 100 and int(out[0][1][:, 1].max()) < 248

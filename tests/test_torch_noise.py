@@ -207,8 +207,9 @@ def test_overlay_is_the_only_difference_to_the_noise_free_grid(setups):
 
 def test_unported_noise_paths_raise(setups):
     """What still raises on the noise path: a missing noise_ix, a noise
-    file found nowhere, the full grid of a detector other than XENONnT.
-    A bank wider than the TPC now takes the full digitizer grid."""
+    file found nowhere.  A bank wider than the TPC takes the full
+    digitizer grid; so does XENON1T, as the grid without HE rows (its 248
+    TPC rows, then zero rows: no noise past the TPC)."""
     (_, _, _), (c, pt, kt) = setups
     args = (torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
             torch.ones(1), torch.tensor([[[0, 1, 0]]]),
@@ -225,5 +226,7 @@ def test_unported_noise_paths_raise(setups):
     x1t = dataclasses.replace(kt, detector='XENON1T', n_tpc_pmts=248,
                               n_top_pmts=127, he_channel_start=0,
                               he_channel_end=-1, high_energy_deamp_int=1)
-    with pytest.raises(NotImplementedError):
-        gather_digitize(pt, x1t, *args, n_samples=512)
+    x1t_grid = gather_digitize(pt, x1t, *args, n_samples=512)
+    assert x1t_grid['data'].shape == (1, 801, 512)
+    assert x1t_grid['has'][0, 0] and not x1t_grid['has'][0, 248:].any()
+    assert x1t_grid['data'][0, 0].any() and not x1t_grid['data'][0, 248:].any()

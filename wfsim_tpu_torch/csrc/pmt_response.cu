@@ -20,12 +20,24 @@
 //                          and, with the photons' channels given, the
 //                          trigger test and the twelve truth sums.  Without
 //                          channels it gives the time statistics alone (the
-//                          electron times of an S2 batch).
+//                          electron times of an S2 batch);
+//   wfsim_pmt_row_truth_per_pmt
+//                          per-PMT truth (wfsim_tpu/models/pmt.py:146-154,
+//                          plain twin pulse_truth_per_pmt_ref): one block per
+//                          truth row over its contiguous photons, the six
+//                          sums per channel accumulated in dynamic shared
+//                          memory (4 x C int32 counts, 2 x C float64 areas:
+//                          32 bytes a channel, 15.8 KB at C = 494) by
+//                          shared-memory atomics, then the row's (6, C)
+//                          slice stored coalesced into the (4, R, C) count
+//                          and (2, R, C) area outputs.
 //
 // What bounds them on the H100: the photon pass reads four draws and
 // writes the photon (~36 bytes a photon, ~57 MB at the bench S2 batch);
 // the row kernel reads each photon twice (~14 bytes) and its work per
-// photon is a few float64 adds.  The TPU form took every per-row sum as a
+// photon is a few float64 adds; the per-PMT kernel reads each photon once
+// (~14 bytes) and writes 32 bytes a (row, channel), ~8 MB for 512 rows of
+// 494 channels.  The TPU form took every per-row sum as a
 // float32 cumsum over the whole photon axis differenced at the row edges
 // (ROADMAP F1: late rows lost precision); the twin keeps float64 cumsums,
 // and here each block reduces its own row, in float64, in registers and
@@ -39,7 +51,13 @@
 // every float32 u < 1, so index + 1 stays inside uniform_to_pe's 2001
 // columns.  The integer-valued sums (counts) are exact in float64 in any
 // order, so they equal the twin's; the raw areas agree with the twin's
-// global cumsum differences within float64 rounding (rtol 1e-12).
+// global cumsum differences within float64 rounding (rtol 1e-12).  The
+// per-PMT counts are int32 atomics, exact in any order; the per-PMT areas
+// are float64 atomics, whose order varies run to run: each (row, channel)
+// sum agrees with the twin within rtol 1e-12 (bitwise while its float32
+// terms span less than 2^29 in magnitude, when every float64 partial sum is
+// exact).  wfsim_tpu's float32 scatter-add depends on its order too:
+// against it counts are equal and areas agree within rtol 1e-5.
 #include <cuda_runtime.h>
 
 namespace {
@@ -132,6 +150,36 @@ __device__ int block_max(int x, int* scratch) {
   return s;
 }
 
+// the truth terms of valid photon j: its clamped channel, the trigger test
+// (peak amplitude in ADC above the channel threshold), the DPE flag, the
+// raw area gain / g and the bottom-array flag
+struct PhotonTruth {
+  int ch;
+  bool above, dpe, bottom;
+  float g_over;
+};
+
+__device__ __forceinline__ PhotonTruth photon_truth(
+    long long j, const int* __restrict__ t, const int* __restrict__ ch,
+    const float* __restrict__ gain, const unsigned char* __restrict__ is_dpe,
+    const float* __restrict__ chan_pack, int C,
+    const float* __restrict__ current_max, int dt, float current_2_adc) {
+  const int c = ch[j];
+  const int cc = c < 0 ? 0 : (c > C - 1 ? C - 1 : c);
+  const float* cp = chan_pack + 4 * cc;
+  int rem = t[j] % dt;                  // floor-mod, as torch.remainder
+  if (rem < 0) rem += dt;
+  const float g = gain[j];
+  const float amp = __fmul_rn(__fmul_rn(g, current_max[rem]), current_2_adc);
+  PhotonTruth p;
+  p.ch = cc;
+  p.above = amp > cp[1];
+  p.dpe = is_dpe[j] != 0;
+  p.bottom = cp[3] > 0.0f;
+  p.g_over = __fdiv_rn(g, cp[0] > 1e-30f ? cp[0] : 1e-30f);
+  return p;
+}
+
 __global__ void pmt_row_truth_kernel(
     const long long* __restrict__ row_edges, int n_rows,
     const int* __restrict__ t, const unsigned char* __restrict__ valid,
@@ -178,21 +226,13 @@ __global__ void pmt_row_truth_kernel(
       s2 = __dadd_rn(s2, __dmul_rn(c, c));
     }
     if (ch == nullptr || !v) continue;
-    const int c = ch[j];
-    const int cc = c < 0 ? 0 : (c > C - 1 ? C - 1 : c);
-    const float* cp = chan_pack + 4 * cc;
-    int rem = t[j] % dt;                  // floor-mod, as torch.remainder
-    if (rem < 0) rem += dt;
-    const float g = gain[j];
-    const float amp = __fmul_rn(__fmul_rn(g, current_max[rem]), current_2_adc);
-    const bool above = amp > cp[1];
-    const bool dp = is_dpe[j] != 0;
-    const float g_over = __fdiv_rn(g, cp[0] > 1e-30f ? cp[0] : 1e-30f);
-    const double x[6] = {1.0, dp ? 2.0 : 1.0, above ? 1.0 : 0.0,
-                         above ? (dp ? 2.0 : 1.0) : 0.0,
-                         static_cast<double>(g_over),
-                         above ? static_cast<double>(g_over) : 0.0};
-    const bool bottom = cp[3] > 0.0f;
+    const PhotonTruth p = photon_truth(j, t, ch, gain, is_dpe, chan_pack, C,
+                                       current_max, dt, current_2_adc);
+    const double pe = p.dpe ? 2.0 : 1.0;
+    const double x[6] = {1.0, pe, p.above ? 1.0 : 0.0, p.above ? pe : 0.0,
+                         static_cast<double>(p.g_over),
+                         p.above ? static_cast<double>(p.g_over) : 0.0};
+    const bool bottom = p.bottom;
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
       acc[k] = __dadd_rn(acc[k], x[k]);
@@ -218,6 +258,50 @@ __global__ void pmt_row_truth_kernel(
     t_max[r] = mx;
     mean_offset[r] = m;
     sigma[r] = __dsqrt_rn(var);
+  }
+}
+
+// one block per truth row r: the four counts and two areas of each channel
+// in shared memory, then the row's slices of counts (4, R, C) and areas
+// (2, R, C)
+__global__ void pmt_row_truth_per_pmt_kernel(
+    const long long* __restrict__ row_edges, int n_rows,
+    const int* __restrict__ t, const unsigned char* __restrict__ valid,
+    const int* __restrict__ ch, const float* __restrict__ gain,
+    const unsigned char* __restrict__ is_dpe,
+    const float* __restrict__ chan_pack, int C,
+    const float* __restrict__ current_max, int dt, float current_2_adc,
+    int* __restrict__ counts, double* __restrict__ areas) {
+  extern __shared__ double sh_area[];           // 2 * C, then 4 * C ints
+  int* sh_cnt = reinterpret_cast<int*>(sh_area + 2 * C);
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) sh_area[i] = 0.0;
+  for (int i = threadIdx.x; i < 4 * C; i += blockDim.x) sh_cnt[i] = 0;
+  __syncthreads();
+  const int r = blockIdx.x;
+  const long long lo = row_edges[r], hi = row_edges[r + 1];
+  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    if (!valid[j]) continue;
+    const PhotonTruth p = photon_truth(j, t, ch, gain, is_dpe, chan_pack, C,
+                                       current_max, dt, current_2_adc);
+    const int pe = p.dpe ? 2 : 1;
+    const double area = static_cast<double>(p.g_over);
+    atomicAdd(sh_cnt + p.ch, 1);
+    atomicAdd(sh_cnt + C + p.ch, pe);
+    atomicAdd(sh_area + p.ch, area);
+    if (p.above) {
+      atomicAdd(sh_cnt + 2 * C + p.ch, 1);
+      atomicAdd(sh_cnt + 3 * C + p.ch, pe);
+      atomicAdd(sh_area + C + p.ch, area);
+    }
+  }
+  __syncthreads();
+  const long long plane = static_cast<long long>(n_rows) * C;
+  const long long base = static_cast<long long>(r) * C;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) counts[k * plane + base + i] = sh_cnt[k * C + i];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) areas[k * plane + base + i] = sh_area[k * C + i];
   }
 }
 
@@ -268,5 +352,29 @@ extern "C" int wfsim_pmt_row_truth(
       static_cast<double*>(sums), static_cast<long long*>(count),
       static_cast<int*>(t_min), static_cast<int*>(t_max),
       static_cast<double*>(mean_offset), static_cast<double*>(sigma));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// counts (4, n_rows, C) int32 and areas (2, n_rows, C) float64, every entry
+// written; C <= 1536 keeps the block's 32 * C bytes of shared memory under
+// the 48 KB default
+extern "C" int wfsim_pmt_row_truth_per_pmt(
+    const void* row_edges, int n_rows, const void* t, const void* valid,
+    const void* ch, const void* gain, const void* is_dpe,
+    const void* chan_pack, int C, const void* current_max, int dt,
+    float current_2_adc, void* counts, void* areas, void* stream) {
+  if (n_rows <= 0 || C <= 0 || C > 1536 || dt <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(C) * (2 * sizeof(double) +
+                                                4 * sizeof(int));
+  pmt_row_truth_per_pmt_kernel<<<n_rows, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(row_edges), n_rows,
+      static_cast<const int*>(t), static_cast<const unsigned char*>(valid),
+      static_cast<const int*>(ch), static_cast<const float*>(gain),
+      static_cast<const unsigned char*>(is_dpe),
+      static_cast<const float*>(chan_pack), C,
+      static_cast<const float*>(current_max), dt, current_2_adc,
+      static_cast<int*>(counts), static_cast<double*>(areas));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@
 // (with ops/gather.py:53 gather_spans).  The second entry point,
 // wfsim_superpose_adc_full, replaces the full-grid branch of
 // wfsim_tpu/pipeline/digitize.py:341-435 (and the one-window
-// digitize_window of :96): the whole XENONnT digitizer, 801 rows a window.
+// digitize_window of :96): the whole XENONnT digitizer, 801 rows a window,
+// or in its mode without HE rows the XENON1T grid.
 //
 // What bounds it on the H100: writing the int16 grid (B*494 rows x T
 // samples, 2 bytes each; B*801 rows on the full grid) and, per output
@@ -63,6 +64,13 @@
 // (zle_intervals.cu), which is exact while every in-window value is below
 // 2^16.  A value at or above 2^16 sets the overflow word of the scratch,
 // and the wrapper raises.
+//
+// Full grid without HE rows (wfsim_tpu digitize.py:346-391 with he_on
+// false: XENON1T, 248 TPC rows in an 801-row window).  The same entry with
+// n_he = 0 copies, he_lo = n_ch and no sum row (sum_ch = -1, no sum
+// scratch): the main kernel writes the TPC rows only, and the follow-on
+// launch zeroes rows n_ch..n_all-1.  Those rows have no window, so they get
+// no noise even where the bank is wider than the TPC (digitize.py:399-403).
 //
 // Window-relative photon times are >= 0 (the window starts margin_l
 // samples before its first photon); the wrapper checks it, because C's / and
@@ -150,7 +158,8 @@ __global__ void superpose_adc_kernel(
 }
 
 // one thread per TPC sample (w, c, u): TPC row c, HE row he_lo + c (c <
-// n_top) or the atomic bottom sum (c >= n_top); out is (B, n_all, T)
+// n_he) or the atomic bottom sum (c >= n_top, with a sum row: sum32 not
+// null); out is (B, n_all, T)
 __global__ void superpose_adc_full_kernel(
     const int* __restrict__ t, const float* __restrict__ gain,
     const int* __restrict__ row_ptr, int n_rows, int n_samples,
@@ -159,8 +168,8 @@ __global__ void superpose_adc_full_kernel(
     const unsigned char* __restrict__ has, float current_2_adc, int baseline,
     const short* __restrict__ bank, int bank_len, int bank_ch,
     const int* __restrict__ noise_ix, int n_ch, int n_all, int n_top,
-    int he_lo, int deamp, int* __restrict__ sum32, int* __restrict__ overflow,
-    short* __restrict__ out) {
+    int n_he, int he_lo, int deamp, int* __restrict__ sum32,
+    int* __restrict__ overflow, short* __restrict__ out) {
   __shared__ float tmpl[kMaxTemplate];
   load_templates(tmpl, templates, dt * tlen);
 
@@ -192,7 +201,7 @@ __global__ void superpose_adc_full_kernel(
   out[(win_row + c) * n_samples + u] = static_cast<short>(v);
 
   const int he = wrap_mul(adc, deamp);
-  if (c < n_top) {
+  if (c < n_he) {
     int h = he;
     if (in_win) {
       if (bank != nullptr && he_lo + c < bank_ch)
@@ -202,19 +211,19 @@ __global__ void superpose_adc_full_kernel(
       if (h >= 65536) atomicOr(overflow, 1);
     }
     out[(win_row + he_lo + c) * n_samples + u] = static_cast<short>(h);
-  } else if (he != 0) {
+  } else if (sum32 != nullptr && c >= n_top && he != 0) {
     atomicAdd(sum32 + static_cast<long long>(w) * n_samples + u, he);
   }
 }
 
 // the rows the main kernel does not write: the gap rows (0) and the sum
-// row (its int32 sum, low 16 bits)
+// row (its int32 sum, low 16 bits; sum_ch < 0: none)
 __global__ void full_grid_rest_kernel(int n_win, int n_samples, int n_ch,
-                                      int n_all, int n_top, int he_lo,
+                                      int n_all, int n_he, int he_lo,
                                       int sum_ch, const int* __restrict__ sum32,
                                       short* __restrict__ out) {
   const int gap1 = he_lo - n_ch;
-  const int n_rest = gap1 + (n_all - he_lo - n_top);
+  const int n_rest = gap1 + (n_all - he_lo - n_he);
   const int tiles = (n_samples + kTile - 1) / kTile;
   const long long bid = blockIdx.x;
   const long long wj = bid / tiles;
@@ -222,7 +231,7 @@ __global__ void full_grid_rest_kernel(int n_win, int n_samples, int n_ch,
   const int j = static_cast<int>(wj - static_cast<long long>(w) * n_rest);
   const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
   if (w >= n_win || u >= n_samples) return;
-  const int row = j < gap1 ? n_ch + j : he_lo + n_top + (j - gap1);
+  const int row = j < gap1 ? n_ch + j : he_lo + n_he + (j - gap1);
   const short v = row == sum_ch
       ? static_cast<short>(sum32[static_cast<long long>(w) * n_samples + u])
       : static_cast<short>(0);
@@ -259,34 +268,42 @@ extern "C" int wfsim_superpose_adc(
   return static_cast<int>(cudaGetLastError());
 }
 
-// n_rows = B * n_ch TPC rows in; out (B, n_all, n_samples) int16; scratch
-// B * n_samples + 1 int32, zeroed here: the (B, n_samples) sum rows, then
-// the overflow word (non-zero where an in-window value reached 2^16)
+// n_rows = B * n_ch TPC rows in; out (B, n_all, n_samples) int16.  Grid
+// layout: n_he = n_top HE copies on he_lo.. and the sum row sum_ch, or
+// (without HE rows) n_he = 0, he_lo = n_ch and sum_ch = -1.  scratch is
+// zeroed here: with a sum row the (B, n_samples) int32 sum rows, then the
+// overflow word (non-zero where an in-window value reached 2^16)
 extern "C" int wfsim_superpose_adc_full(
     const void* t, const void* gain, const void* row_ptr, int n_rows,
     int n_samples, const void* templates, int dt, int tlen,
     const void* ch_left, const void* ch_right, const void* has,
     float current_2_adc, int baseline, const void* bank, int bank_len,
     int bank_ch, const void* noise_ix, int n_ch, int n_all, int n_top,
-    int he_lo, int sum_ch, int deamp, void* scratch, void* out, void* stream) {
+    int n_he, int he_lo, int sum_ch, int deamp, void* scratch, void* out,
+    void* stream) {
   if (dt * tlen > kMaxTemplate) return static_cast<int>(cudaErrorInvalidValue);
   if (bank != nullptr && (bank_len <= 0 || noise_ix == nullptr || bank_ch > n_all))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool sum_row = sum_ch >= 0;
   if (n_ch <= 0 || n_rows % n_ch != 0 || n_top < 0 || n_top > n_ch ||
-      he_lo < n_ch || he_lo + n_top > sum_ch || sum_ch >= n_all)
+      he_lo < n_ch || he_lo + n_he > n_all ||
+      (sum_row ? n_he != n_top || he_lo + n_he > sum_ch || sum_ch >= n_all
+               : n_he != 0 || he_lo != n_ch || sum_ch != -1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = n_rows / n_ch;
-  const int n_rest = n_all - n_ch - n_top;
+  const int n_rest = n_all - n_ch - n_he;
   const int tiles = (n_samples + kTile - 1) / kTile;
   const long long blocks = static_cast<long long>(n_rows) * tiles;
   const long long rest_blocks = static_cast<long long>(n_win) * n_rest * tiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL || rest_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* sum32 = static_cast<int*>(scratch);
-  int* overflow = sum32 + static_cast<long long>(n_win) * n_samples;
+  const long long n_sum = sum_row ? static_cast<long long>(n_win) * n_samples
+                                  : 0;
+  int* sum32 = sum_row ? static_cast<int*>(scratch) : nullptr;
+  int* overflow = static_cast<int*>(scratch) + n_sum;
   cudaError_t err = cudaMemsetAsync(
-      scratch, 0, (static_cast<size_t>(n_win) * n_samples + 1) * sizeof(int), s);
+      scratch, 0, (static_cast<size_t>(n_sum) + 1) * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   superpose_adc_full_kernel<<<static_cast<unsigned>(blocks), kTile, 0, s>>>(
       static_cast<const int*>(t), static_cast<const float*>(gain),
@@ -295,12 +312,12 @@ extern "C" int wfsim_superpose_adc_full(
       static_cast<const int*>(ch_left), static_cast<const int*>(ch_right),
       static_cast<const unsigned char*>(has), current_2_adc, baseline,
       static_cast<const short*>(bank), bank_len, bank_ch,
-      static_cast<const int*>(noise_ix), n_ch, n_all, n_top, he_lo, deamp,
-      sum32, overflow, static_cast<short*>(out));
+      static_cast<const int*>(noise_ix), n_ch, n_all, n_top, n_he, he_lo,
+      deamp, sum32, overflow, static_cast<short*>(out));
   err = cudaGetLastError();
   if (err != cudaSuccess || rest_blocks == 0) return static_cast<int>(err);
   full_grid_rest_kernel<<<static_cast<unsigned>(rest_blocks), kTile, 0, s>>>(
-      n_win, n_samples, n_ch, n_all, n_top, he_lo, sum_ch, sum32,
+      n_win, n_samples, n_ch, n_all, n_he, he_lo, sum_ch, sum32,
       static_cast<short*>(out));
   return static_cast<int>(cudaGetLastError());
 }

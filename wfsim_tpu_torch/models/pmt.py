@@ -5,9 +5,10 @@ wfsim/core/pulse.py:39-144, 229-271).
 The stage is a pure function of explicit draws (``pmt_draws``), so the
 tests can hand both packages the same normals and uniforms.  CPU tensors
 run the plain twins (``photon_pass_ref``, ``pulse_truth_ref``,
-``photon_time_stats_ref``); CUDA tensors launch the two entry points of
-``csrc/pmt_response.cu``: the photon pass, and one block per truth row for
-the truth sums and the time statistics.
+``photon_time_stats_ref``, ``pulse_truth_per_pmt_ref``); CUDA tensors
+launch the entry points of ``csrc/pmt_response.cu``: the photon pass, one
+block per truth row for the truth sums and the time statistics, and with
+``per_pmt_truth`` one block per truth row for the per-PMT sums.
 """
 from __future__ import annotations
 
@@ -20,14 +21,17 @@ from ..ops.randsample import uniform, normal
 from ..ops.segment import sorted_segment_sum, segment_min_max, expand_rows
 
 __all__ = ['pmt_draws', 'pmt_response', 'photon_time_stats',
-           'photon_pass_ref', 'pulse_truth_ref', 'photon_time_stats_ref',
-           'TRUTH_SUMS']
+           'pulse_truth_per_pmt', 'photon_pass_ref', 'pulse_truth_ref',
+           'photon_time_stats_ref', 'pulse_truth_per_pmt_ref', 'TRUTH_SUMS',
+           'PER_PMT_SUMS']
 
+_SUMS = ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger', 'raw_area',
+         'raw_area_trigger')
 #: the per-row truth sums, in the row kernel's output order
-TRUTH_SUMS = tuple(
-    name + suffix for suffix in ('', '_bottom')
-    for name in ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger',
-                 'raw_area', 'raw_area_trigger'))
+TRUTH_SUMS = tuple(name + suffix for suffix in ('', '_bottom')
+                   for name in _SUMS)
+#: the per-(row, channel) truth sums: four int32 counts, two float64 areas
+PER_PMT_SUMS = tuple(name + '_per_pmt' for name in _SUMS)
 
 _pass_kernel = Kernel('wfsim_pmt_photon_pass',
                       [I, P, P, P, P, P, P, P, P, I, P, I, F, F, F, P, P, P,
@@ -35,6 +39,10 @@ _pass_kernel = Kernel('wfsim_pmt_photon_pass',
 _row_kernel = Kernel('wfsim_pmt_row_truth',
                      [P, I, P, P, P, P, P, P, I, P, I, F, P, P, P, P, P, P,
                       P])
+_per_pmt_kernel = Kernel('wfsim_pmt_row_truth_per_pmt',
+                         [P, I, P, P, P, P, P, P, I, P, I, F, P, P, P])
+#: the per-PMT kernel keeps 32 bytes a channel in a block's shared memory
+MAX_PER_PMT_CHANNELS = 1536
 
 
 def pmt_draws(gen, n: int, device) -> dict:
@@ -71,10 +79,11 @@ def photon_pass_ref(params, const, t, ch, valid, truth_row, draws) -> dict:
                 is_dpe=is_dpe, valid=valid, truth_row=truth_row)
 
 
-def pulse_truth_ref(params, const, ph, row_edges) -> dict:
-    """Truth counters per row (reference: wfsim/core/pulse.py:229-271); the
+def _truth_terms(params, const, ph):
+    """Per photon: the six truth terms in :data:`_SUMS` order (float32, 0
+    where invalid), the clamped channel and the bottom-array mask.  The
     trigger test compares the photon's peak amplitude in ADC with the
-    channel threshold.  Sums are float64 (exact for the counts)."""
+    channel threshold."""
     t, ch, gain, valid = ph['t'], ph['ch'], ph['gain'], ph['valid']
     chc = torch.clamp(ch, 0, params.gains.shape[0] - 1).to(torch.int64)
     cp = params.chan_pack[chc]
@@ -93,15 +102,53 @@ def pulse_truth_ref(params, const, ph, row_edges) -> dict:
                               0.0)
     area_trig = torch.where(above, gain_over_g, 0.0)
     bot = (cp[:, 3] > 0) & valid
+    return (v1, pe_w, trig, pe_trig, gain_over_g, area_trig), chc, bot
 
+
+def pulse_truth_ref(params, const, ph, row_edges) -> dict:
+    """Truth counters per row (reference: wfsim/core/pulse.py:229-271).
+    Sums are float64 (exact for the counts)."""
+    terms, _chc, bot = _truth_terms(params, const, ph)
     out = {}
-    for suffix, mask in (('', valid), ('_bottom', bot)):
-        for name, x in (('n_photon', v1), ('n_pe', pe_w),
-                        ('n_photon_trigger', trig), ('n_pe_trigger', pe_trig),
-                        ('raw_area', gain_over_g),
-                        ('raw_area_trigger', area_trig)):
+    for suffix, mask in (('', ph['valid']), ('_bottom', bot)):
+        for name, x in zip(_SUMS, terms):
             out[name + suffix] = sorted_segment_sum(x, row_edges, valid=mask)
     return out
+
+
+def per_pmt_inputs(params, const, ph, row_edges):
+    """The flat (row * C + channel) index and the (n, 6) float64 terms of
+    the valid photons inside the rows: what the per-PMT sums scatter-add
+    into an (R * C, 6) table (the twin's one ``index_add_``)."""
+    terms, chc, _bot = _truth_terms(params, const, ph)
+    C = params.gains.shape[0]
+    R = row_edges.shape[0] - 1
+    lo, hi = int(row_edges[0]), int(row_edges[-1])
+    row = torch.repeat_interleave(
+        torch.arange(R, device=chc.device),
+        (row_edges[1:] - row_edges[:-1]).to(torch.int64), output_size=hi - lo)
+    sel = ph['valid'][lo:hi]
+    idx = (row * C + chc[lo:hi])[sel]
+    x = torch.stack([v[lo:hi][sel] for v in terms], dim=1).to(torch.float64)
+    return idx, x
+
+
+def pulse_truth_per_pmt_ref(params, const, ph, row_edges) -> dict:
+    """Per-PMT truth (wfsim_tpu/models/pmt.py:146-154): the six sums of
+    :data:`PER_PMT_SUMS` per (truth row, channel), each (R, C) with C =
+    ``params.gains.shape[0]``; counts int32, areas float64.  One float64
+    ``index_add_`` of the valid photons' terms at ``row * C + channel``
+    (wfsim_tpu sends invalid photons to (0, 0) with a value of 0: the same
+    sums)."""
+    C = params.gains.shape[0]
+    R = row_edges.shape[0] - 1
+    idx, x = per_pmt_inputs(params, const, ph, row_edges)
+    acc = torch.zeros((R * C, len(_SUMS)), dtype=torch.float64,
+                      device=x.device).index_add_(0, idx, x)
+    acc = acc.reshape(R, C, len(_SUMS))
+    return {name: (acc[..., k].to(torch.int32) if k < 4
+                   else acc[..., k].contiguous())
+            for k, name in enumerate(PER_PMT_SUMS)}
 
 
 def photon_time_stats_ref(t, valid, truth_row, n_truth_rows: int, row_edges):
@@ -204,6 +251,53 @@ def _row_truth(params, const, t, valid, row_edges, ph=None) -> dict:
     return out
 
 
+def _row_truth_per_pmt(params, const, ph, row_edges) -> dict:
+    """The per-PMT kernel: one block per truth row (see
+    :func:`pulse_truth_per_pmt`)."""
+    dev = ph['t'].device
+    n = ph['t'].shape[0]
+    R = row_edges.shape[0] - 1
+    C = params.chan_pack.shape[0]
+    dt = const.sample_duration
+    for name, dtype in (('t', torch.int32), ('ch', torch.int32),
+                        ('gain', torch.float32), ('is_dpe', torch.bool),
+                        ('valid', torch.bool)):
+        check_tensor(name, ph[name], dtype, (n,), dev)
+    check_tensor('row_edges', row_edges, torch.int64, (R + 1,), dev)
+    check_tensor('chan_pack', params.chan_pack, torch.float32, (C, 4), dev)
+    check_tensor('current_max', params.current_max, torch.float32, (dt,),
+                 dev)
+    if not 0 < C <= MAX_PER_PMT_CHANNELS:
+        raise ValueError(f'per-PMT truth of {C} channels: the kernel takes '
+                         f'1 to {MAX_PER_PMT_CHANNELS}')
+    if R and int(row_edges[-1]) > n:
+        raise ValueError(f'row edges reach past the {n} photons')
+    counts = torch.empty((4, R, C), dtype=torch.int32, device=dev)
+    areas = torch.empty((2, R, C), dtype=torch.float64, device=dev)
+    if R:
+        _per_pmt_kernel(ptr(row_edges), R, ptr(ph['t']), ptr(ph['valid']),
+                        ptr(ph['ch']), ptr(ph['gain']), ptr(ph['is_dpe']),
+                        ptr(params.chan_pack), C, ptr(params.current_max), dt,
+                        float(np.float32(const.current_2_adc)), ptr(counts),
+                        ptr(areas), stream_of(dev))
+    return dict(zip(PER_PMT_SUMS, (*counts, *areas)))
+
+
+def pulse_truth_per_pmt(params, const, ph, row_edges) -> dict:
+    """Per-PMT truth of a photon batch from :func:`pmt_response`'s photon
+    pass: the six sums of :data:`PER_PMT_SUMS`, each (R, C) with C =
+    ``params.gains.shape[0]`` (counts int32, raw areas float64).  CPU
+    tensors run :func:`pulse_truth_per_pmt_ref`; CUDA tensors the per-PMT
+    kernel of ``csrc/pmt_response.cu``, whose float64 area atomics agree
+    with the twin within rtol 1e-12."""
+    dev = ph['t'].device
+    if dev.type == 'cpu':
+        return pulse_truth_per_pmt_ref(params, const, ph, row_edges)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'pulse_truth_per_pmt on {dev}')
+    return _row_truth_per_pmt(params, const, ph, row_edges)
+
+
 # ---------------------------------------------------------------------------
 # the stage
 
@@ -221,7 +315,9 @@ def pmt_response(params, const, t, ch, valid, truth_row, draws, *,
         rows
     :returns: (photons dict, truth dict): the truth sums of
         :data:`TRUTH_SUMS` and the photon time statistics as
-        ``photon_count``, ``photon_t_min``, ... (:func:`photon_time_stats`)
+        ``photon_count``, ``photon_t_min``, ... (:func:`photon_time_stats`);
+        with ``const.per_pmt_truth`` the sums of :data:`PER_PMT_SUMS` take
+        the place of the ``*_bottom`` ones, as in wfsim_tpu
     """
     photons = _photon_pass(params, const, t, ch, valid, truth_row, draws)
     if t.device.type == 'cpu':
@@ -233,6 +329,10 @@ def pmt_response(params, const, t, ch, valid, truth_row, draws, *,
                            row_edges, ph=photons)
         truth = {k: stats.pop(k) for k in TRUTH_SUMS}
     truth.update({'photon_' + k: v for k, v in stats.items()})
+    if const.per_pmt_truth:
+        for k in TRUTH_SUMS[len(_SUMS):]:
+            del truth[k]
+        truth.update(pulse_truth_per_pmt(params, const, photons, row_edges))
     return photons, truth
 
 

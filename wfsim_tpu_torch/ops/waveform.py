@@ -12,7 +12,8 @@ PyTorch twin: it adds the same float32 products in the same per-sample
 order (photon order within each row), so the two agree bitwise.
 ``superpose_adc_full`` and its twin ``superpose_adc_full_ref`` digitize
 the whole XENONnT digitizer grid (high-energy copies, bottom-array sum)
-from the same single pass over the photons.
+from the same single pass over the photons, or the grid without HE rows
+(XENON1T: TPC rows, then zero rows).
 """
 from __future__ import annotations
 
@@ -176,9 +177,9 @@ def _wrap_i32(x):
 def superpose_adc_full_ref(t, gain, row_ptr, templates, ch_left, ch_right,
                            has, *, current_2_adc: float, baseline: int,
                            n_samples: int, n_channels: int,
-                           n_channels_total: int, n_top: int, he_start: int,
-                           sum_channel: int, deamp: int, noise_bank=None,
-                           noise_ix=None):
+                           n_channels_total: int, n_top: int,
+                           he_start: int | None, sum_channel: int | None,
+                           deamp: int, noise_bank=None, noise_ix=None):
     """Plain twin of the superpose_adc_full kernel: the (B, C_all, T) int16
     digitizer grid of B windows (wfsim_tpu/pipeline/digitize.py:341-435).
 
@@ -187,7 +188,10 @@ def superpose_adc_full_ref(t, gain, row_ptr, templates, ch_left, ch_right,
     window) the noise of bank column ``he_start + c`` when the bank has
     it, the baseline and a clip at 0.  Row ``sum_channel`` is the sum over
     the bottom rows (c >= n_top) of ``adc * deamp``, with no window.
-    Every other row is 0.  Products and sums wrap as int32 and the int16
+    Every other row is 0.  With ``he_start`` and ``sum_channel`` None (the
+    grid without HE rows, wfsim_tpu's ``he_on`` false: XENON1T) there are
+    neither HE copies nor a sum row: rows C..C_all-1 are all 0.  Products
+    and sums wrap as int32 and the int16
     cast keeps the low 16 bits, as wfsim_tpu's int32 arithmetic and
     ``astype(int16)`` do (the sum is exact in int64 here; its low 16 bits
     are those of the wrapped int32 sum).  Raises ``OverflowError`` where
@@ -206,6 +210,10 @@ def superpose_adc_full_ref(t, gain, row_ptr, templates, ch_left, ch_right,
                         n_channels=C, wide=True)
     overflow = bool((tpc[in_win] >= 2 ** 16).any())
     out[:, :C] = tpc.to(torch.int16).reshape(B, C, T)
+    if he_start is None:
+        if overflow:
+            raise OverflowError(_OVERFLOW)
+        return out
 
     rows = torch.arange(n_rows, device=dev)
     top = rows[rows % C < n_top]
@@ -303,25 +311,28 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
 
 _full_kernel = Kernel('wfsim_superpose_adc_full',
                       [P, P, P, I, I, P, I, I, P, P, P, F, I, P, I, I, P,
-                       I, I, I, I, I, I, P, P, P])
+                       I, I, I, I, I, I, I, P, P, P])
 
 
 def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
                        *, current_2_adc: float, baseline: int, n_samples: int,
                        n_channels: int, n_channels_total: int, n_top: int,
-                       he_start: int, sum_channel: int, deamp: int,
-                       noise_bank=None, noise_ix=None):
+                       he_start: int | None, sum_channel: int | None,
+                       deamp: int, noise_bank=None, noise_ix=None):
     """(B, n_channels_total, n_samples) int16 full digitizer grid of B
     windows of ``n_channels`` TPC rows each (row = w * C + c; arguments as
     :func:`superpose_adc`): TPC rows, high-energy copies of the ``n_top``
     top rows on ``he_start..``, the bottom-array sum on ``sum_channel``
     (see :func:`superpose_adc_full_ref`).  ``noise_bank`` may be as wide as
-    the grid; its columns past the TPC feed the HE rows.
+    the grid; its columns past the TPC feed the HE rows.  With
+    ``he_start`` and ``sum_channel`` None the grid has no HE rows and no
+    sum row: TPC rows, then zero rows up to ``n_channels_total``.
 
     CPU tensors go to :func:`superpose_adc_full_ref`; CUDA tensors launch
     the hand-written kernel (``csrc/superpose_adc.cu``,
     ``wfsim_superpose_adc_full``: one pass over the photons, atomic int32
-    bottom sum, one follow-on launch for the sum and gap rows).
+    bottom sum, one follow-on launch for the sum and gap rows; without HE
+    rows the same launches with zero HE copies and no sum row).
 
     Raises ``OverflowError`` where an in-window sample reaches 2^16: the
     port's ZLE reads the int16 grid (``zle_all_channels(nonneg=True)``),
@@ -334,8 +345,13 @@ def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
     if C <= 0 or n_rows % C:
         raise ValueError(f'{n_rows} rows are not whole windows of {C} '
                          f'channels')
-    if not (0 <= n_top <= C <= he_start and he_start + n_top <= sum_channel
-            < C_all):
+    he_on = he_start is not None
+    if he_on != (sum_channel is not None):
+        raise ValueError('he_start and sum_channel are both set (HE rows '
+                         'and a sum row) or both None (neither)')
+    if not (0 <= n_top <= C <= C_all and (
+            not he_on or C <= he_start and he_start + n_top <= sum_channel
+            < C_all)):
         raise ValueError(f'grid layout C={C} n_top={n_top} he_start='
                          f'{he_start} sum_channel={sum_channel} C_all={C_all}'
                          f' is not TPC < HE <= sum < total')
@@ -359,13 +375,16 @@ def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
     out = torch.empty((B, C_all, n_samples), dtype=torch.int16, device=dev)
     if n_rows == 0 or n_samples == 0:
         return out
-    scratch = torch.empty(B * n_samples + 1, dtype=torch.int32, device=dev)
+    # the (B, T) int32 sum rows (with a sum row), then the overflow word
+    scratch = torch.empty((B * n_samples if he_on else 0) + 1,
+                          dtype=torch.int32, device=dev)
     dt, L = templates.shape
+    layout = ((n_top, he_start, sum_channel) if he_on else (0, C, -1))
     _full_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
                  ptr(templates), dt, L, ptr(ch_left), ptr(ch_right),
                  ptr(has), float(np.float32(current_2_adc)), int(baseline),
-                 *bank_args, C, C_all, n_top, he_start, sum_channel,
-                 int(deamp), ptr(scratch), ptr(out), stream_of(dev))
+                 *bank_args, C, C_all, n_top, *layout, int(deamp),
+                 ptr(scratch), ptr(out), stream_of(dev))
     if int(scratch[-1]):
         raise OverflowError(_OVERFLOW)
     return out

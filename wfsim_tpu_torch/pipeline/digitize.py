@@ -13,11 +13,13 @@ kernels with plain twins: ``ops.waveform.superpose_adc`` (or
 and :func:`pack_records`.
 
 Two grids, chosen where wfsim_tpu chooses them (digitize.py:290): the slim
-grid of the C TPC rows, and the full XENONnT digitizer grid of
-``n_channels_total`` rows a window (TPC rows, high-energy copies of the
-top array, the bottom-array sum) when the integer deamplification factor
-is not 0 or the noise bank is wider than the TPC.  Record channels are
-grid rows, so HE records carry channels 500-752.
+grid of the C TPC rows, and the full digitizer grid of
+``n_channels_total`` rows a window when the integer deamplification
+factor is not 0 or the noise bank is wider than the TPC.  On XENONnT the
+full grid holds the TPC rows, high-energy copies of the top array and the
+bottom-array sum; on XENON1T (no HE channel range, wfsim_tpu's ``he_on``
+false) the TPC rows and zero rows.  Record channels are grid rows, so HE
+records carry channels 500-752.
 
 With noise on, the grid is the noisy waveform itself and the dense
 records carry it.  Left out by design (wfsim_tpu's relay transport):
@@ -34,7 +36,8 @@ from ..ops.waveform import superpose_adc, superpose_adc_full
 from ..ops.zle import zle_all_channels
 
 __all__ = ['gather_digitize', 'digitize_window', 'window_photons',
-           'full_grid', 'full_grid_rows', 'pack_records', 'pack_records_ref',
+           'full_grid', 'full_grid_rows', 'he_on', 'pack_records',
+           'pack_records_ref',
            'SAMPLES_PER_RECORD']
 
 SAMPLES_PER_RECORD = 110
@@ -114,18 +117,27 @@ def full_grid(params, const) -> bool:
         and params.noise_bank.shape[0] > const.n_tpc_pmts)
 
 
+def he_on(const) -> bool:
+    """Whether the full grid carries the HE copies and the sum row: the
+    XENONnT layout with an HE channel range (wfsim_tpu digitize.py:346);
+    otherwise (XENON1T) it is the TPC rows and zero rows."""
+    return (const.detector == 'XENONnT'
+            and const.he_channel_end >= const.he_channel_start)
+
+
 def full_grid_rows(x, const):
     """(B, C) per-row values of the TPC rows -> (B, n_channels_total) of
-    the full grid: the HE row of top channel c takes TPC row c's value;
-    the sum row and the gap rows are 0 (False) — they have no window
-    (reference rawdata.py:250-254)."""
+    the full grid: with HE rows the HE row of top channel c takes TPC row
+    c's value; the sum row and the gap rows are 0 (False) — they have no
+    window (reference rawdata.py:250-254)."""
     B, C = x.shape
     n_top = const.n_top_pmts
     out = torch.zeros((B, const.n_channels_total), dtype=x.dtype,
                       device=x.device)
     out[:, :C] = x
-    out[:, const.he_channel_start:const.he_channel_start + n_top] = \
-        x[:, :n_top]
+    if he_on(const):
+        out[:, const.he_channel_start:const.he_channel_start + n_top] = \
+            x[:, :n_top]
     return out
 
 
@@ -146,11 +158,6 @@ def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces,
     noisy = noise_on(params, const)
     if full is None:
         full = full_grid(params, const)
-    if full and (const.detector != 'XENONnT'
-                 or const.he_channel_end < const.he_channel_start):
-        raise NotImplementedError(
-            f'the full digitizer grid is ported for XENONnT only, not '
-            f'{const.detector}')
     B = int(pieces.shape[0])
     C = const.n_tpc_pmts
     T = n_samples
@@ -174,10 +181,11 @@ def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces,
     has = ph['has'].reshape(B, C)
     if full:
         R = const.n_channels_total
+        he = he_on(const)
         data = superpose_adc_full(
             *args, n_channels_total=R, n_top=const.n_top_pmts,
-            he_start=const.he_channel_start,
-            sum_channel=const.sum_signal_channel,
+            he_start=const.he_channel_start if he else None,
+            sum_channel=const.sum_signal_channel if he else None,
             deamp=const.high_energy_deamp_int, **kw)
         left, right, has = (full_grid_rows(x, const)
                             for x in (left, right, has))
@@ -196,11 +204,12 @@ def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces,
 
 def digitize_window(params, const, t, ch, gain, valid, noise_ix=None, *,
                     n_samples: int, max_intervals: int = 128):
-    """Digitize one window on the full XENONnT digitizer grid (wfsim_tpu's
-    public digitize_window, digitize.py:96-178): the HE copies are masked
-    whatever the deamplification factor, the grid has
-    ``n_channels_total`` rows and carries the noise overlay.  wfsim_tpu's
-    ``key`` argument, which it never reads, is dropped.
+    """Digitize one window on the full digitizer grid (wfsim_tpu's public
+    digitize_window, digitize.py:96-178): the grid has
+    ``n_channels_total`` rows and carries the noise overlay; on XENONnT
+    the HE copies are masked whatever the deamplification factor, on
+    XENON1T (no HE block, digitize.py:132) the rows past the TPC are 0.
+    wfsim_tpu's ``key`` argument, which it never reads, is dropped.
 
     :param t: (N,) int32 photon times, ns relative to the window's left
         edge, >= 0

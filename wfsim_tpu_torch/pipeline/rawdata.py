@@ -72,6 +72,7 @@ from ..models.afterpulse import (pmt_ap_draws, pmt_afterpulse_photons,
                                  generate_pi_el_instructions,
                                  generate_pe_el_instructions)
 from ..models.params import build_params, build_constants
+from ..models.pmt import PER_PMT_SUMS
 from ..models.s1 import simulate_s1, s1_models
 from ..models.s2 import simulate_s2, check_supported
 from ..resources.loader import load_config
@@ -132,8 +133,6 @@ class RawData:
         self.resource = load_config(self.config)
         self.params = build_params(self.config, self.resource, self.device)
         self.const = build_constants(self.config)
-        if self.const.per_pmt_truth:
-            raise NotImplementedError('per_pmt_truth is not ported')
         # model strings fail here, not mid-batch (wfsim_tpu
         # rawdata.py:299-321)
         s1_models(self.const.s1_model_type)
@@ -368,9 +367,16 @@ class RawData:
         for f in ('n_pe', 'n_photon_trigger', 'n_pe_trigger',
                   'raw_area', 'raw_area_trigger'):
             row[f] = float(truth_h[f][r])
-        for f in ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger',
-                  'raw_area', 'raw_area_trigger'):
-            row[f + '_bottom'] = float(truth_h[f + '_bottom'][r])
+        if self.const.per_pmt_truth:
+            # per-PMT vectors instead of the bottom-array fields (wfsim_tpu
+            # rawdata.py:808-812)
+            for f in PER_PMT_SUMS:
+                row[f] = truth_h[f][r]
+            row['n_photon'] = int(truth_h['n_photon'][r])
+        else:
+            for f in ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger',
+                      'raw_area', 'raw_area_trigger'):
+                row[f + '_bottom'] = float(truth_h[f + '_bottom'][r])
         # instruction summary (reference: rawdata.py:363-372)
         for field in insts.dtype.names:
             v = insts[field]
