@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""A/B of two checkouts of wfsim_tpu_torch on one card.
+
+    python3 ab_port.py OTHER_TREE [--runs 3]
+
+Runs the 512-event bench workload in the default and the realistic
+configuration in four fresh processes, in turns: OTHER_TREE, this tree,
+this tree, OTHER_TREE (each builds its own kernels under its own
+``build/``). Each process does one warm-up run and ``--runs`` timed runs
+of ``Simulator(cfg).get_arrays(inst)`` per configuration and prints one
+JSON line: the tree, wall seconds, events/s, records and truth rows.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CODE = r'''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from wfsim_tpu_torch import Simulator, default_config, _build
+from wfsim_tpu_torch.interface import bench_instructions
+_build.build()
+inst = bench_instructions(512, 2000, 300)
+realism = dict(enable_noise=True, enable_pmt_afterpulses=True,
+               enable_electron_afterpulses=True)
+res = {}
+for name, kw in (('default', {}), ('realistic', realism)):
+    cfg = default_config(seed=1234, chunk_size=100, **kw)
+    Simulator(cfg, device='cuda').get_arrays(inst)
+    walls = []
+    for _ in range(int(sys.argv[2])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = Simulator(cfg, device='cuda').get_arrays(inst)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    res[name] = dict(walls=walls, ev_s=[512 / w for w in walls],
+                     records=len(out['raw_records']),
+                     truth=len(out['truth']))
+print(json.dumps(res))
+'''
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('other', type=Path, help='the other checkout')
+    ap.add_argument('--runs', type=int, default=3)
+    args = ap.parse_args()
+    trees = {'other': args.other.resolve(),
+             'this': Path(__file__).resolve().parent}
+    for label in ('other', 'this', 'this', 'other'):
+        root = trees[label]
+        r = subprocess.run([sys.executable, '-c', CODE, str(root),
+                            str(args.runs)], cwd=root, capture_output=True,
+                           text=True)
+        if r.returncode:
+            sys.stderr.write(r.stdout + r.stderr[-4000:])
+            raise SystemExit(r.returncode)
+        print(json.dumps({'tree': label, 'path': str(root),
+                          **json.loads(r.stdout.strip().splitlines()[-1])}))
+
+
+if __name__ == '__main__':
+    main()

@@ -146,6 +146,34 @@ batch runs the full 801-row grid without HE rows, plus per-PMT truth):
 5h. one window batch without HE rows on the card and by the CPU twins,
     records bitwise equal.
 
+Then the multi-device path (K14 and ``Simulator(mesh=...)``), on the one
+card: ranks that share it talk over gloo, and NCCL runs at world size 1
+(NCCL refuses two ranks on one device, so NCCL across two cards is not
+exercised here):
+
+3i. ``superpose_block`` (the channel block of the step) against its twin
+    on the card, bitwise: the photons of one step shard (64 instructions
+    of ``step_instructions``: 32 bench S1s and 32 bench S2s placed in a
+    2^16-sample grid; the in-grid share is printed) on 494 channels in 1
+    block and in 2 blocks of 247; median CUDA-event times of kernel and
+    twin for the single block, the bound by bytes;
+4i. (a) NCCL at world size 1 in this process: the step at 1 x 1 on two
+    shards, with every launch count set to 0 just before it (the K14
+    entry launched; the sum row equal to the bottom channels' sum), and
+    ``Simulator(default_config(seed=1234, chunk_size=100),
+    device='cuda:0', mesh=make_mesh(1, 1))`` on the 512-event workload
+    (after a 16-event warm-up), records and truth bitwise those of phase
+    4's run; (b) gloo, 2
+    processes on cuda:0 (started during (a), they wait for their turn):
+    the same Simulator run (a 16-event warm-up, then timed with the
+    counts at 0), every rank bitwise equal to phase 4's run and every
+    default-path entry launched across the ranks; the step at 2 x 1 and
+    1 x 2, blocks, sum rows and totals equal to 1 x 1's; then 4
+    processes for the step at 2 x 2.  Printed: wall time and events/s of
+    each run and the bytes broadcast; ranks that share one card are no
+    speedup.  A child that exits non-zero or outlives its limit fails the
+    phase.
+
 Last, the stream (4s): the default configuration on 10,000 bench events
 (20,000 instructions) with ``pipeline_depth`` = ceil(instructions / 1024),
 super-batches of 1,000 instructions, and 1 s chunks; ``Simulator.run`` is
@@ -168,12 +196,17 @@ code on this run's sizes) over 67 TFLOP/s float32 plus 34 TFLOP/s
 float64 (H100 SXM data sheet, non-tensor rates); and, where one PyTorch
 call computes the same function, that call's time (``library_ms``: the
 channel draw against ``torch.searchsorted`` over the CDF rows, the map
-lookup against ``grid_sample``, the per-PMT truth against ``index_add_``).
+lookup against ``grid_sample``, the per-PMT truth against ``index_add_``;
+the channel block of the step has none).
 
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
 """
+import datetime
+import hashlib
 import json
+import multiprocessing
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -948,18 +981,20 @@ def phase_timing_models(dev, smi):
     return res, launches
 
 
-def timed_run(cfg, inst, dev):
-    """A warm-up ``get_arrays``, then a timed one with every launch count
-    set to 0 just before; returns (out, wall_s, launches, peak device
-    bytes, the timed Simulator)."""
+def timed_run(cfg, inst, dev, mesh_fn=lambda: None, warm_inst=None):
+    """A warm-up ``get_arrays`` (on ``warm_inst``, by default ``inst``),
+    then a timed one on ``inst`` with every launch count set to 0 just
+    before, each Simulator over ``mesh_fn()`` (default: no mesh); returns
+    (out, wall_s, launches, peak device bytes, the timed Simulator)."""
     import torch
     from wfsim_tpu_torch import Simulator, _build
-    Simulator(cfg, device=dev).get_arrays(inst)            # warm-up
+    Simulator(cfg, device=dev, mesh=mesh_fn()).get_arrays(
+        inst if warm_inst is None else warm_inst)          # warm-up
+    sim = Simulator(cfg, device=dev, mesh=mesh_fn())
     torch.cuda.synchronize()
     for k in _build.KERNELS.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    sim = Simulator(cfg, device=dev)
     t0 = time.perf_counter()
     out = sim.get_arrays(inst)
     torch.cuda.synchronize()
@@ -1329,6 +1364,326 @@ def phase_4s(dev, smi):
     return short, long
 
 
+#: the step's grid (samples) and instructions a shard in phases 3i / 4i
+STEP_T = 2 ** 16
+STEP_SHARD = 64
+#: a rank process of phase 4i fails after this long (s)
+RANK_LIMIT_S = 240
+
+
+def digest(x):
+    """sha256 of an array's (or tensor's) bytes, with its shape."""
+    if not isinstance(x, np.ndarray):
+        x = x.contiguous().cpu().numpy()
+    return (x.shape, hashlib.sha256(x.tobytes()).hexdigest())
+
+
+def arrays_digest(out):
+    """The digest of every array of a ``get_arrays`` result."""
+    return {k: digest(v) for k, v in sorted(out.items())}
+
+
+def step_digests(adc, sum_signal, totals, n_ch, C):
+    """Per local block b: the digest of each of ``n_ch`` channel blocks of
+    ``adc[b]`` (the 1 x 1 grid cut as an n_ch-way step cuts it) and of the
+    sum row; the totals as ints."""
+    C_loc = -(-C // n_ch)
+    return dict(adc=[[digest(adc[b, j * C_loc:(j + 1) * C_loc])
+                      for j in range(n_ch)] for b in range(adc.shape[0])],
+                sum=[digest(sum_signal[b]) for b in range(adc.shape[0])],
+                totals=[int(v) for v in totals.tolist()])
+
+
+def phase_3i(cfg, params, const, dev, smi):
+    """Phase 3i (see the module docstring); returns the measurements of the
+    superpose_block row (see make_check)."""
+    import torch
+    from wfsim_tpu_torch.interface import step_instructions
+    from wfsim_tpu_torch.ops.waveform import (superpose_block,
+                                              superpose_block_ref)
+    from wfsim_tpu_torch.parallel.sharding import (
+        block_photons, seeded_generator, simulate_block)
+    C, n_top, dt = const.n_tpc_pmts, const.n_top_pmts, const.sample_duration
+    inst = step_instructions(cfg, 1, STEP_SHARD, STEP_T)
+    ph, totals = simulate_block(params, const, inst,
+                                seeded_generator(1234, 0, dev))
+    live = ph['valid'] & (ph['ch'] >= 0)
+    in_grid = live & (ph['t'] >= 0) & (ph['t'] < STEP_T * dt)
+    print(f'[kernels-m] step shard: {len(inst)} instructions, '
+          f'{int(live.sum())} photons, in the {STEP_T}-sample grid '
+          f'{int(in_grid.sum()) / int(live.sum()):.6f}; totals '
+          f'{totals.tolist()}')
+    block = torch.zeros(ph['t'].shape[0], dtype=torch.int64, device=dev)
+    m = None
+    for n_ch in (1, 2):
+        C_loc = -(-C // n_ch)
+        for j in range(n_ch):
+            bp = block_photons(ph, block, n_blocks=1, ch_block=j * C_loc,
+                               n_channels=C_loc, n_samples=STEP_T,
+                               sample_duration=dt)
+            args = (bp['t'], bp['gain'], bp['row_ptr'], params.templates)
+            kw = dict(n_channels=C_loc, ch_block=j * C_loc, n_top=n_top,
+                      n_tpc=C, current_2_adc=const.current_2_adc,
+                      n_samples=STEP_T)
+            out = superpose_block(*args, **kw)
+            ref = superpose_block_ref(*args, **kw)
+            err = max(max_diff(a, b) for a, b in zip(out, ref))
+            print(f'[kernels-m] superpose_block: block {j} of {n_ch} '
+                  f'({C_loc} x {STEP_T}), {int(bp["t"].shape[0])} photons, '
+                  f'differing samples {int((out[0] != ref[0]).sum())}, sum '
+                  f'row non-zero {int((out[1] != 0).sum())}, max|diff| {err}')
+            if err or not out[0].any():
+                raise AssertionError('superpose_block differs from its twin '
+                                     'or is empty')
+            if n_ch == 1:
+                ms = cuda_ms(lambda: superpose_block(*args, **kw))
+                plain_ms = cuda_ms(lambda: superpose_block_ref(*args, **kw),
+                                   reps=5)
+                # bytes: the inputs, the int32 grid and sum row; operations:
+                # a template tap per photon and sample, the ADC, the sum
+                ops = (int(bp['t'].shape[0]) * int(params.templates.shape[1])
+                       * 2 + C_loc * STEP_T * 3)
+                n_bytes = nbytes(args, out)
+                b_ms, b_by = bound(n_bytes, ops)
+                print(f'[kernels-m] superpose_block: {ms:.4f} ms, plain twin '
+                      f'{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+                      f'({n_bytes / 1e6:.1f} MB), library call none ({smi})')
+                m = dict(err=err, ms=ms, plain_ms=plain_ms, bytes=n_bytes,
+                         ops32=ops, ops64=0, library_ms=None)
+            del out, ref, bp
+    return m
+
+
+def run_step(cfg, n_ev, n_ch, dev):
+    """The step at ``n_ev`` x ``n_ch`` on two shards of ``STEP_SHARD``
+    instructions over this rank's mesh; returns (adc, sum, totals, step)."""
+    from wfsim_tpu_torch.interface import step_instructions
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.parallel import make_mesh, make_sharded_step
+    from wfsim_tpu_torch.resources import load_config
+    params = build_params(cfg, load_config(cfg), dev)
+    const = build_constants(cfg)
+    mesh = make_mesh(n_ev, n_ch)
+    step = make_sharded_step(params, const, mesh, inst_per_shard=STEP_SHARD,
+                             n_samples=STEP_T)
+    inst = step_instructions(cfg, 2, STEP_SHARD, STEP_T)
+    adc, sum_signal, totals = step(params, inst, 1234)
+    return adc, sum_signal, totals, step
+
+
+def mesh_rank(rank, world, init, out_path, steps, simulate, go):
+    """One gloo rank of phase 4i(b) on cuda:0.  It starts its CUDA context
+    and loads the kernels, waits for ``go``, then runs (with
+    ``simulate``) the 512-event Simulator run over ``make_mesh(world,
+    1)`` and the step at each ``(n_ev, n_ch)`` of ``steps``; pickles its
+    results to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from wfsim_tpu_torch import _build, default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device('cuda:0')
+    torch.zeros(1, device=dev)
+    _build.load_library()
+    if not go.wait(RANK_LIMIT_S):
+        raise SystemExit(f'rank {rank} of {world}: no start signal')
+    dist.init_process_group(
+        'gloo', init_method='file://' + init, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_LIMIT_S // 2))
+    res = {}
+    try:
+        cfg = default_config(seed=1234, chunk_size=100)
+        if simulate:
+            out, wall, launches, _peak, sim = timed_run(
+                cfg, bench_instructions(512, 2000, 300), dev,
+                lambda: make_mesh(world, 1), bench_instructions(16))
+            res['simulator'] = dict(digest=arrays_digest(out), wall=wall,
+                                    launches=launches,
+                                    diag=sim.sim.rawdata.diag.summary(),
+                                    records=len(out['raw_records']))
+        for n_ev, n_ch in steps:
+            adc, sum_signal, totals, step = run_step(cfg, n_ev, n_ch, dev)
+            res[(n_ev, n_ch)] = dict(
+                at=(step.ev_index, step.ch_block // step.C_loc),
+                local=step_digests(adc, sum_signal, totals, 1, adc.shape[1]),
+                all_reduces=step.all_reduces)
+            del adc, sum_signal
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, 'wb') as f:
+        pickle.dump(res, f)
+
+
+class Ranks:
+    """Phase 4i(b)'s ``world`` gloo rank processes on cuda:0, started
+    (spawn) ahead of their turn: each prepares, then waits for
+    :meth:`run`."""
+
+    def __init__(self, world, tmp, steps, simulate):
+        ctx = multiprocessing.get_context('spawn')
+        self.world = world
+        self.go = ctx.Event()
+        init = str(Path(tmp) / f'gloo_init_{world}')
+        self.outs = [str(Path(tmp) / f'rank_{world}_{r}.pkl')
+                     for r in range(world)]
+        self.procs = [ctx.Process(target=mesh_rank,
+                                  args=(r, world, init, self.outs[r], steps,
+                                        simulate, self.go))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self):
+        """Start the ranks' work and return each rank's results; raises
+        when a rank exits non-zero or is still running after
+        ``RANK_LIMIT_S`` (it is killed)."""
+        t0 = time.perf_counter()
+        self.go.set()
+        deadline = time.monotonic() + RANK_LIMIT_S
+        for p in self.procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        late = self.stop()
+        codes = [p.exitcode for p in self.procs]
+        if late or codes != [0] * self.world:
+            raise AssertionError(f'phase 4i: {self.world} gloo ranks, exit '
+                                 f'codes {codes} ({late} killed after '
+                                 f'{RANK_LIMIT_S} s)')
+        res = []
+        for path in self.outs:
+            with open(path, 'rb') as f:
+                res.append(pickle.load(f))
+        return res, time.perf_counter() - t0
+
+    def stop(self):
+        """Kill the ranks still running; returns how many there were."""
+        late = [p for p in self.procs if p.is_alive()]
+        for p in late:
+            p.kill()
+            p.join(10)
+        return len(late)
+
+
+def check_step_ranks(ranks, n_ev, n_ch, ref, C):
+    """Each rank's step blocks, sum rows and totals against the 1 x 1 run
+    cut the same way, and only the sum rows and the totals all-reduced."""
+    B = 2 // n_ev
+    for out in (r[(n_ev, n_ch)] for r in ranks):
+        e, j = out['at']
+        loc = out['local']
+        for b in range(B):
+            if loc['adc'][b][0] != ref[n_ch]['adc'][e * B + b][j]:
+                raise AssertionError(f'step {n_ev} x {n_ch}: block {e * B + b}'
+                                     f', channels {j} differ from 1 x 1')
+            if loc['sum'][b] != ref[n_ch]['sum'][e * B + b]:
+                raise AssertionError(f'step {n_ev} x {n_ch}: sum row differs')
+        if loc['totals'] != ref[n_ch]['totals']:
+            raise AssertionError(f'step {n_ev} x {n_ch}: totals differ')
+        if out['all_reduces'] != [('channels', B * STEP_T * 4),
+                                  ('events', 16)]:
+            raise AssertionError(f'step all_reduces {out["all_reduces"]}')
+    print(f'[mesh] step {n_ev} x {n_ch} ({len(ranks)} gloo ranks on '
+          f'cuda:0): every block, sum row and the totals equal to 1 x 1; '
+          f'all_reduce bytes per rank {ranks[0][(n_ev, n_ch)]["all_reduces"]}')
+
+
+def phase_4i(cfg, inst, main_digest, dev, smi):
+    """Phase 4i (see the module docstring); returns the launch counts of
+    the 1 x 1 step run."""
+    import torch
+    import torch.distributed as dist
+    from wfsim_tpu_torch import _build
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.parallel import make_mesh
+    n_ev = len(inst) // 2
+    C, n_top = cfg['n_tpc_pmts'], cfg['n_top_pmts']
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_mesh_')
+    groups = []
+    try:
+        # the gloo ranks of (b) start now and wait for their turn
+        groups = [Ranks(2, tmp, [(2, 1), (1, 2)], True),
+                  Ranks(4, tmp, [(2, 2)], False)]
+
+        # ---- (a) NCCL at world size 1 -------------------------------------
+        dist.init_process_group(
+            'nccl', init_method='file://' + str(Path(tmp) / 'nccl_init'),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=RANK_LIMIT_S // 2))
+        try:
+            torch.cuda.synchronize()
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            adc, sum_signal, totals, step = run_step(cfg, 1, 1, dev)
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in
+                        _build.KERNELS.items()}
+            bottom = adc[:, n_top:C].sum(dim=1, dtype=torch.int32)
+            n_photon, n_pe = totals.tolist()
+            print(f'[mesh] step 1 x 1 (NCCL): grid {tuple(adc.shape)} int32, '
+                  f'non-zero samples {int((adc != 0).sum())}, totals '
+                  f'[n_photon {n_photon}, n_pe {n_pe}], superpose_block '
+                  f'launches {launches["wfsim_superpose_block"]}, '
+                  f'all_reduces {step.all_reduces}')
+            if (launches['wfsim_superpose_block'] <= 0
+                    or not torch.equal(bottom, sum_signal)
+                    or not n_pe >= n_photon > 0):
+                raise AssertionError('step 1 x 1: kernel not launched, sum '
+                                     'row off the bottom channels, or no '
+                                     'photons')
+            ref = {n_ch: step_digests(adc, sum_signal, totals, n_ch, C)
+                   for n_ch in (1, 2)}
+            del adc, sum_signal, bottom
+            out, wall, _l, _peak, sim = timed_run(
+                cfg, inst, dev, lambda: make_mesh(1, 1),
+                bench_instructions(16))
+            diag = sim.sim.rawdata.diag.summary()
+            same = arrays_digest(out) == main_digest
+            print(f'[mesh] Simulator over make_mesh(1, 1) (NCCL): records '
+                  f'{len(out["raw_records"])}, equal to the mesh=None run: '
+                  f'{same}; events/s {n_ev / wall:.2f} wall {wall:.3f} s, '
+                  f'broadcast {diag.get("broadcast_bytes", 0)} bytes ({smi})')
+            if not same:
+                raise AssertionError('the NCCL mesh run differs from the '
+                                     'single-device run')
+            del out
+        finally:
+            dist.destroy_process_group()
+
+        # ---- (b) gloo, 2 then 4 ranks sharing cuda:0 ----------------------
+        ranks, t_2 = groups[0].run()
+        total = {}
+        for r, res in enumerate(ranks):
+            sim = res['simulator']
+            if sim['digest'] != main_digest:
+                raise AssertionError(f'gloo rank {r} of 2: records or truth '
+                                     f'differ from the mesh=None run')
+            for name, n in sim['launches'].items():
+                total[name] = total.get(name, 0) + n
+            print(f'[mesh] Simulator over make_mesh(2, 1), gloo rank {r} of '
+                  f'2 on cuda:0: records {sim["records"]} bitwise the '
+                  f'mesh=None run; events/s {n_ev / sim["wall"]:.2f} wall '
+                  f'{sim["wall"]:.3f} s, broadcast '
+                  f'{sim["diag"].get("broadcast_bytes", 0)} bytes, '
+                  f'broadcast_s {sim["diag"].get("broadcast_s")} ({smi})')
+        missing = [k for k in DEFAULT_PATH_KERNELS if total.get(k, 0) <= 0]
+        print(f'[mesh] launches across the 2 ranks {total}')
+        if missing:
+            raise AssertionError(f'not launched across the ranks: {missing}')
+        for shape in ((2, 1), (1, 2)):
+            check_step_ranks(ranks, *shape, ref, C)
+        ranks4, t_4 = groups[1].run()
+        check_step_ranks(ranks4, 2, 2, ref, C)
+        print(f'[mesh] from their start signal 2 ranks took {t_2:.1f} s, 4 '
+              f'ranks {t_4:.1f} s; ranks that share one card are no speedup '
+              f'(NCCL across two cards not exercised: one card)')
+    finally:
+        for g in groups:
+            g.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not (ROOT / 'wfsim_tpu_torch' / '_build.py').exists():
@@ -1472,6 +1827,7 @@ def main():
           f'{peak / 2 ** 20:.1f} MiB ({smi})')
     print(f'[main] phases {sim.sim.rawdata.diag.summary()}')
     print(f'[main] physics phases {physics_phases(sim)}')
+    main_digest = arrays_digest(out)
 
     # ---- 5. one window batch: card against the CPU twins -------------------
     rd = RawData(cfg, device=dev)
@@ -1722,6 +2078,10 @@ def main():
     xtimes, launches_p, launches_x = phase_per_pmt_x1t(B, T, K, inst, dev,
                                                        smi)
 
+    # ---- 3i / 4i. the multi-device path -------------------------------------
+    mtimes = phase_3i(cfg, params, const, dev, smi)
+    launches_m = phase_4i(cfg, inst, main_digest, dev, smi)
+
     # ---- 4s. the stream ----------------------------------------------------
     phase_4s(dev, smi)
 
@@ -1814,6 +2174,9 @@ def main():
              'wfsim_tpu/pipeline/digitize.py:96',
              ['wfsim_superpose_adc_full'], launches_x,
              xtimes['superpose_adc_full_no_he'])
+    measured('superpose_block', 'superpose_adc.cu',
+             'wfsim_tpu/parallel/sharding.py:54', ['wfsim_superpose_block'],
+             launches_m, mtimes)
     print(f'[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s '
           f'after its start ({smi})')
     print(smi)

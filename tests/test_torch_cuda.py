@@ -780,3 +780,40 @@ def test_no_he_gather_digitize_card_matches_cpu(dev):
         for a, b in zip(out[0], other):
             assert torch.equal(a, b)
     assert len(out[0][1]) > 100 and int(out[0][1][:, 1].max()) < 248
+
+
+@pytest.mark.parametrize('n_blocks,n_ch_shards,T', [(1, 1, 2048),
+                                                    (2, 2, 1000),
+                                                    (3, 4, 512)])
+def test_superpose_block_matches_twin(setup, dev, n_blocks, n_ch_shards, T):
+    """K14's channel block: int32 ADC and the bottom-array sum rows of
+    every channel block, bitwise the twin's, with launches counted."""
+    from wfsim_tpu_torch.ops.waveform import (superpose_block,
+                                              superpose_block_ref)
+    from wfsim_tpu_torch.parallel.sharding import block_photons
+    _c, params, const = setup
+    C, n_top = const.n_tpc_pmts, const.n_top_pmts
+    rng = np.random.default_rng(T + n_blocks)
+    n = 20_000 * n_blocks
+    ph = dict(t=rng.integers(-500, T * 10 + 500, n).astype(np.int32),
+              ch=rng.integers(-1, C, n).astype(np.int32),
+              gain=rng.uniform(1e5, 8e6, n).astype(np.float32),
+              valid=rng.random(n) < 0.97)
+    ph = {k: torch.as_tensor(v, device=dev) for k, v in ph.items()}
+    block = torch.as_tensor(rng.integers(0, n_blocks, n), device=dev)
+    C_loc = -(-C // n_ch_shards)
+    k = _build.KERNELS['wfsim_superpose_block']
+    for j in range(n_ch_shards):
+        bp = block_photons(ph, block, n_blocks=n_blocks, ch_block=j * C_loc,
+                           n_channels=C_loc, n_samples=T,
+                           sample_duration=const.sample_duration)
+        args = (bp['t'], bp['gain'], bp['row_ptr'], params.templates)
+        kw = dict(n_channels=C_loc, ch_block=j * C_loc, n_top=n_top, n_tpc=C,
+                  current_2_adc=const.current_2_adc, n_samples=T)
+        before = k.launches
+        adc, sums = superpose_block(*args, **kw)
+        assert k.launches == before + 1
+        adc_r, sums_r = superpose_block_ref(*args, **kw)
+        assert adc.shape == (n_blocks * C_loc, T) and sums.shape == (n_blocks, T)
+        assert torch.equal(adc, adc_r) and torch.equal(sums, sums_r)
+        assert bool(adc.any())

@@ -72,6 +72,22 @@
 // launch zeroes rows n_ch..n_all-1.  Those rows have no window, so they get
 // no noise even where the bank is wider than the TPC (digitize.py:399-403).
 //
+// Channel block of the multi-device step (wfsim_superpose_block, K14).
+// Replaces the per-shard digitization of wfsim_tpu/parallel/sharding.py:
+// 101-117 make_sharded_step: photons_to_waveform of the shard's PMT block,
+// adc = -round(W * current_2_adc) as int32, and the block's bottom-array
+// partial sum that the psum over 'channels' completes.  No window, no
+// baseline, no int16 storage.  The thread that owns sample (row, u)
+// computes the superposition in the fixed photon order above (F4: bitwise
+// the twin superpose_block_ref), stores its int32 ADC, and for a row of a
+// bottom-array channel (n_top <= ch_block + c < n_tpc) adds it into the
+// instruction block's int32 sum row by integer atomics (skipped where 0;
+// integer addition is exact in any order).  The entry clears the sum rows
+// first.  What bounds it on the H100: writing the int32 grid, 4 bytes a
+// (row, sample), 129.5 MB at 494 rows x 2^16 samples; the collective
+// itself (all_reduce of the (B, T) sum rows) is NCCL's or gloo's, as the
+// JAX package left the psum to XLA.
+//
 // Window-relative photon times are >= 0 (the window starts margin_l
 // samples before its first photon); the wrapper checks it, because C's / and
 // % truncate where jnp's floor.
@@ -238,6 +254,33 @@ __global__ void full_grid_rest_kernel(int n_win, int n_samples, int n_ch,
   out[(static_cast<long long>(w) * n_all + row) * n_samples + u] = v;
 }
 
+// one thread per (row, sample): int32 ADC, and the atomic bottom-array
+// sum of the row's instruction block (row = b * n_ch + c, channel
+// ch_block + c)
+__global__ void superpose_block_kernel(
+    const int* __restrict__ t, const float* __restrict__ gain,
+    const int* __restrict__ row_ptr, int n_rows, int n_samples,
+    const float* __restrict__ templates, int dt, int tlen,
+    float current_2_adc, int n_ch, int ch_block, int n_top, int n_tpc,
+    int* __restrict__ adc, int* __restrict__ sum32) {
+  __shared__ float tmpl[kMaxTemplate];
+  load_templates(tmpl, templates, dt * tlen);
+
+  const int tiles = (n_samples + kTile - 1) / kTile;
+  const long long bid = blockIdx.x;
+  const int row = static_cast<int>(bid / tiles);
+  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
+  if (row >= n_rows || u >= n_samples) return;
+
+  const int v = superposed_adc(t, gain, row_ptr[row], row_ptr[row + 1], u,
+                               dt, tlen, tmpl, current_2_adc);
+  adc[static_cast<long long>(row) * n_samples + u] = v;
+  const int b = row / n_ch;
+  const int ch = ch_block + (row - b * n_ch);
+  if (v != 0 && ch >= n_top && ch < n_tpc)
+    atomicAdd(sum32 + static_cast<long long>(b) * n_samples + u, v);
+}
+
 }  // namespace
 
 extern "C" const char* wfsim_error_string(int err) {
@@ -319,5 +362,33 @@ extern "C" int wfsim_superpose_adc_full(
   full_grid_rest_kernel<<<static_cast<unsigned>(rest_blocks), kTile, 0, s>>>(
       n_win, n_samples, n_ch, n_all, n_he, he_lo, sum_ch, sum32,
       static_cast<short*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n_rows = B * n_ch rows in; adc (n_rows, n_samples) int32, sums (B,
+// n_samples) int32, cleared here
+extern "C" int wfsim_superpose_block(
+    const void* t, const void* gain, const void* row_ptr, int n_rows,
+    int n_samples, const void* templates, int dt, int tlen,
+    float current_2_adc, int n_ch, int ch_block, int n_top, int n_tpc,
+    void* adc, void* sums, void* stream) {
+  if (dt * tlen > kMaxTemplate) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_ch <= 0 || n_rows % n_ch != 0 || ch_block < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (n_samples + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>(n_rows) * tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      sums, 0, static_cast<size_t>(n_rows / n_ch) * n_samples * sizeof(int),
+      s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  superpose_block_kernel<<<static_cast<unsigned>(blocks), kTile, 0, s>>>(
+      static_cast<const int*>(t), static_cast<const float*>(gain),
+      static_cast<const int*>(row_ptr), n_rows, n_samples,
+      static_cast<const float*>(templates), dt, tlen, current_2_adc, n_ch,
+      ch_block, n_top, n_tpc, static_cast<int*>(adc),
+      static_cast<int*>(sums));
   return static_cast<int>(cudaGetLastError());
 }

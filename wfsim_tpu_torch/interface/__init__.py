@@ -1,4 +1,5 @@
 from .simulator import Simulator  # noqa: F401
 from .instructions import (bench_instructions,  # noqa: F401
                            detector_physics_instructions,
-                           timing_models_instructions, TIMING_MODEL_RECOILS)
+                           timing_models_instructions, step_instructions,
+                           TIMING_MODEL_RECOILS)

@@ -1,7 +1,8 @@
 """Instruction builders and the analytic quanta partition.  Only the bench
 workload of wfsim_tpu (bench.py:76-90 ``_make_inst``) is ported, with its
 ``detector_physics`` and ``timing_models`` variants; ``rand_instructions``, csv and optical input
-are not."""
+are not.  ``step_instructions`` places bench events inside the grid of the
+multi-device step (``parallel.sharding``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,7 +11,7 @@ from ..dtypes import instruction_dtype
 
 __all__ = ['bench_instructions', 'detector_physics_instructions',
            'timing_models_instructions', 'TIMING_MODEL_RECOILS',
-           'analytic_yields']
+           'step_instructions', 'analytic_yields']
 
 #: the recoil ids ``timing_models_instructions`` cycles through, one per
 #: class of the custom S1 model: ER (7), NR (0), alpha (6), LED (20)
@@ -59,6 +60,30 @@ def timing_models_instructions(n: int = 512, amp_s1: int = 2000,
     inst = bench_instructions(n, amp_s1, amp_s2)
     inst['recoil'] = np.repeat(np.resize(np.asarray(TIMING_MODEL_RECOILS),
                                          n), 2)
+    return inst
+
+
+def step_instructions(config, n_blocks: int = 1, per_block: int = 64,
+                      n_samples: int = 2 ** 16, amp_s1: int = 2000,
+                      amp_s2: int = 300):
+    """``n_blocks`` blocks of ``per_block`` instructions for
+    ``make_sharded_step(inst_per_shard=per_block)``: per block
+    ``per_block // 2`` bench events (:func:`bench_instructions`' positions
+    and amplitudes, S1 then S2 of each event), their signals inside the
+    block's grid of ``n_samples`` samples from time 0.  Event k of a block
+    arrives at ``(0.05 + 0.85 k / (per_block // 2))`` of the grid: its S1
+    at that time, its S2 that mean drift time (``drift_time_gate`` +
+    depth / ``drift_velocity_liquid``) earlier, so the S2 light arrives
+    with the S1's (the instruction time may be negative)."""
+    n_ev = per_block // 2
+    inst = bench_instructions(n_blocks * n_ev, amp_s1, amp_s2)
+    span = n_samples * int(config['sample_duration'])
+    k = np.arange(n_blocks * n_ev) % n_ev
+    arrival = ((0.05 + 0.85 * k / n_ev) * span).astype(np.int64)
+    drift = (-inst['z'][1::2] / config['drift_velocity_liquid']
+             + config['drift_time_gate']).astype(np.int64)
+    inst['time'][0::2] = arrival
+    inst['time'][1::2] = arrival - drift
     return inst
 
 

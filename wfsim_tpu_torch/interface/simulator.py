@@ -3,8 +3,12 @@ wfsim_tpu/interface/simulator.py; reference: wfsim/strax_interface.py:506-714).
 
 Config resolution, instruction checks and chunked iteration over
 ``ChunkRawRecords`` on one device: the card (``'cuda'``) unless the caller
-asks for another; construction raises where there is no card.  Generating instructions (``rand_instructions``, csv input) is
-not ported: pass the instruction array.
+asks for another; construction raises where there is no card.  With
+``mesh`` (``parallel.make_mesh``) the run is shared over the mesh's
+``'events'`` dim: every rank calls it with the same instructions and
+returns the arrays of the single-device run.  Generating instructions
+(``rand_instructions``, csv input) is not ported: pass the instruction
+array.
 """
 from __future__ import annotations
 
@@ -31,12 +35,14 @@ class Simulator:
         sim = Simulator(default_config(seed=1))        # on the card
         out = sim.get_arrays(instructions)
         Simulator(default_config(seed=1), device='cpu')  # the plain twins
+        # every rank of an initialised process group, one card each:
+        Simulator(default_config(seed=1), mesh=make_mesh())
     """
 
     def __init__(self, config: ty.Optional[dict] = None,
                  fax_config: ty.Optional[str] = None,
                  fax_config_override: ty.Optional[dict] = None,
-                 *, device='cuda', **overrides):
+                 *, device='cuda', mesh=None, **overrides):
         config = default_config() if config is None else dict(config)
         if fax_config:
             config.update(load_fax_config(fax_config))
@@ -45,7 +51,8 @@ class Simulator:
         config.update(overrides)
         self.config = finalize_config(config)
         self.device = resolve_device(device)
-        self.sim = ChunkRawRecords(self.config, device=self.device)
+        self.sim = ChunkRawRecords(self.config, device=self.device,
+                                   mesh=mesh)
 
     # -- instruction handling (reference: strax_interface.py:674-693) -------
 

@@ -13,7 +13,10 @@ order (photon order within each row), so the two agree bitwise.
 ``superpose_adc_full`` and its twin ``superpose_adc_full_ref`` digitize
 the whole XENONnT digitizer grid (high-energy copies, bottom-array sum)
 from the same single pass over the photons, or the grid without HE rows
-(XENON1T: TPC rows, then zero rows).
+(XENON1T: TPC rows, then zero rows).  ``superpose_block`` and its twin
+``superpose_block_ref`` compute one channel block of the multi-device
+step (``parallel/sharding.py``): int32 ADC without window or baseline,
+and the block's bottom-array partial sum.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from .._build import Kernel, P, I, F, ptr, stream_of, check_tensor as _check
 
 __all__ = ['make_templates', 'photons_to_waveform_ref', 'noise_overlay_ref',
            'superpose_adc', 'superpose_adc_ref', 'superpose_adc_full',
-           'superpose_adc_full_ref']
+           'superpose_adc_full_ref', 'superpose_block', 'superpose_block_ref']
 
 
 def make_templates(pe_pulse_ts, pe_pulse_ys,
@@ -388,3 +391,84 @@ def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
     if int(scratch[-1]):
         raise OverflowError(_OVERFLOW)
     return out
+
+
+def _block_bottom(n_rows, n_channels, ch_block, n_top, n_tpc, device):
+    """(rows,) bool: row ``b * n_channels + c`` holds a bottom-array
+    channel, ``n_top <= ch_block + c < n_tpc``."""
+    ch = ch_block + torch.arange(n_rows, device=device) % n_channels
+    return (ch >= n_top) & (ch < n_tpc)
+
+
+def superpose_block_ref(t, gain, row_ptr, templates, *, n_channels: int,
+                        ch_block: int, n_top: int, n_tpc: int,
+                        current_2_adc: float, n_samples: int):
+    """Plain twin of the superpose_block kernel: the waveform of the
+    row-sorted photons, ``-round_half_even(W * current_2_adc)`` as int32
+    (wfsim_tpu/parallel/sharding.py:106-110), and per instruction block
+    the sum over its bottom-array rows (:114-117)."""
+    W = photons_to_waveform_ref(t, gain, row_ptr, templates,
+                                n_samples=n_samples)
+    c2a = float(np.float32(current_2_adc))
+    adc = (-torch.round(W * c2a)).to(torch.int32)
+    n_rows = adc.shape[0]
+    bottom = _block_bottom(n_rows, n_channels, ch_block, n_top, n_tpc,
+                           t.device)
+    sums = torch.where(bottom[:, None], adc, 0).reshape(
+        n_rows // n_channels, n_channels, n_samples).sum(dim=1)
+    return adc, sums.to(torch.int32)
+
+
+_block_kernel = Kernel('wfsim_superpose_block',
+                       [P, P, P, I, I, P, I, I, F, I, I, I, I, P, P, P])
+
+
+def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
+                    ch_block: int, n_top: int, n_tpc: int,
+                    current_2_adc: float, n_samples: int):
+    """(adc, sums) of one channel block of the multi-device step (K14):
+    adc ``(rows, n_samples)`` int32, ``-round_half_even(W *
+    current_2_adc)`` of the row-sorted photons (no window, no baseline;
+    photons that start past the grid add nothing), and sums ``(B,
+    n_samples)`` int32, per instruction block the sum of adc over the rows
+    of bottom-array channels.  Row ``b * n_channels + c`` holds channel
+    ``ch_block + c`` of instruction block b; a row past ``n_tpc`` (padding
+    of the last block) has no photons and no part in the sum.
+
+    :param t: (N,) int32 photon times, >= 0, ns from the grid's start,
+        sorted by row (any order within a row)
+    :param gain: (N,) float32; ``row_ptr`` (rows + 1,) int32; ``templates``
+        (dt, L) float32
+
+    CPU tensors go to :func:`superpose_block_ref`; CUDA tensors launch the
+    hand-written kernel (``csrc/superpose_adc.cu``,
+    ``wfsim_superpose_block``), bitwise equal to the twin."""
+    dev = t.device
+    n = t.shape[0]
+    n_rows = row_ptr.shape[0] - 1
+    _check('t', t, torch.int32, (n,), dev)
+    _check('gain', gain, torch.float32, (n,), dev)
+    _check('row_ptr', row_ptr, torch.int32, (n_rows + 1,), dev)
+    _check('templates', templates, torch.float32, tuple(templates.shape), dev)
+    if n_channels <= 0 or n_rows % n_channels:
+        raise ValueError(f'{n_rows} rows are not whole blocks of '
+                         f'{n_channels} channels')
+    if n and int(t.min()) < 0:
+        raise ValueError('photon times must be >= 0')
+    kw = dict(n_channels=n_channels, ch_block=ch_block, n_top=n_top,
+              n_tpc=n_tpc, current_2_adc=current_2_adc, n_samples=n_samples)
+    if dev.type == 'cpu':
+        return superpose_block_ref(t, gain, row_ptr, templates, **kw)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'superpose_block on {dev}')
+    adc = torch.empty((n_rows, n_samples), dtype=torch.int32, device=dev)
+    sums = torch.empty((n_rows // n_channels, n_samples), dtype=torch.int32,
+                       device=dev)
+    if n_rows == 0 or n_samples == 0:
+        return adc, sums.zero_()
+    dt, L = templates.shape
+    _block_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
+                  ptr(templates), dt, L, float(np.float32(current_2_adc)),
+                  n_channels, ch_block, n_top, n_tpc, ptr(adc), ptr(sums),
+                  stream_of(dev))
+    return adc, sums

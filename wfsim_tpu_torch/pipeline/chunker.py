@@ -27,10 +27,11 @@ __all__ = ['ChunkRawRecords']
 
 
 class ChunkRawRecords:
-    def __init__(self, config, *, device='cuda', rawdata_generator=RawData,
-                 **kwargs):
+    def __init__(self, config, *, device='cuda', mesh=None,
+                 rawdata_generator=RawData, **kwargs):
         self.config = finalize_config(dict(config))
-        self.rawdata = rawdata_generator(self.config, device=device, **kwargs)
+        self.rawdata = rawdata_generator(self.config, device=device,
+                                         mesh=mesh, **kwargs)
         # per-window record arrays accumulate by reference and concatenate
         # once per chunk (the reference stages through a 5M-row buffer,
         # strax_interface.py:360)

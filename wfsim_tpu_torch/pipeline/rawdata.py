@@ -10,15 +10,16 @@ time:
 
 A) same-type batches (S1, S2, and the electron-afterpulse kinds pi_el and
    pe_el, which share the S2 chain) of the super-batch are simulated on
-   the device with one ``torch.Generator`` per ``RawData`` (seeded from
-   ``config['seed']``); their photons stay on the device as buffers and
-   their truth rows come back to the host.  With PMT afterpulses on, every
-   batch also gets its afterpulse photons as a buffer of their own (one
-   pulse per truth row, no truth row of their own).  With electron
-   afterpulses on, each S2 batch's photon summaries seed secondary pi_el /
-   pe_el instructions on the host, which are simulated right after the
-   super-batch's primaries (one level of feedback: secondaries spawn
-   nothing); the super-batch's truth then goes to the truth buffer;
+   the device, each with a ``torch.Generator`` of its own, seeded from
+   (``config['seed']``, the batch's counter); their photons stay on the
+   device as buffers and their truth rows come back to the host.  With
+   PMT afterpulses on, every batch also gets its afterpulse photons as a
+   buffer of their own (one pulse per truth row, no truth row of their
+   own).  With electron afterpulses on, each S2 batch's photon summaries
+   seed secondary pi_el / pe_el instructions on the host, which are
+   simulated right after the super-batch's primaries (one level of
+   feedback: secondaries spawn nothing); the super-batch's truth then
+   goes to the truth buffer;
 B) the pending pulses are grouped into digitization windows with the
    reference's flush-on-gap rule (rawdata.py:96-98).  A group that a pulse
    of a later super-batch could still join (its end within
@@ -40,9 +41,25 @@ So device and host memory hold one super-batch and what is still pending,
 not the run.  The host numpy generator (``self.rng``) is used in one
 fixed order: per super-batch, secondary-instruction synthesis, then the
 noise offsets of the round's windows in time order, so a rerun with the
-same seed is identical.  The torch generator is drawn super-batch by
-super-batch, so the draws depend on ``pipeline_depth`` (PARITY.md
-deviation 5 is the same for wfsim_tpu).
+same seed is identical.  The batch counter advances in the host's batch
+order (wfsim_tpu's ``fold_in(key, counter)``, rawdata.py:295-297), so a
+batch's draws depend neither on the batches drawn before it nor on the
+device that runs it; batches are formed within super-batches, so the
+draws depend on ``pipeline_depth`` (PARITY.md deviation 5 is the same
+for wfsim_tpu).
+
+With ``mesh`` (a ``DeviceMesh`` with an ``'events'`` dim, see
+``parallel.sharding.make_mesh``) the same run is SPMD over the ranks of
+that dim, wfsim_tpu's ``RawDataTPU(mesh=)``: every rank calls
+``iter_windows`` with the same instructions and runs all the host logic.
+Simulation batch b (counter) belongs to rank ``b % size``, digitize batch
+j of a round to rank ``j % size``; each rank runs the device work of the
+batches it owns, then the owner broadcasts the host results (over a gloo
+group) and the photon buffers or the records (device tensors), so every
+rank holds the buffers and records of the single-device run and yields
+its windows bitwise (in place of wfsim_tpu's replicated arena).  The
+digitize memory budget is the least over the ranks, so all of them cut
+the same batches.
 
 In eager PyTorch every photon count is known before its buffer is
 allocated, so wfsim_tpu's demand pre-pass (``s1_photon_demand`` /
@@ -76,7 +93,9 @@ from ..models.pmt import PER_PMT_SUMS
 from ..models.s1 import simulate_s1, s1_models
 from ..models.s2 import simulate_s2, check_supported
 from ..resources.loader import load_config
-from .digitize import gather_digitize, pack_records, noise_on, full_grid
+from ..parallel.sharding import EventsComm, seeded_generator
+from .digitize import (gather_digitize, pack_records, noise_on, full_grid,
+                       SAMPLES_PER_RECORD)
 
 log = logging.getLogger('wfsim_tpu_torch.core')
 
@@ -120,16 +139,22 @@ class _Pulse(ty.NamedTuple):
 
 
 class RawData:
-    """Behavioural counterpart of the reference ``RawData`` on one device.
+    """Behavioural counterpart of the reference ``RawData`` on one device,
+    or over the ``'events'`` dim of a mesh (see the module docstring).
 
     :param config: configuration dict (see :func:`config.default_config`)
     :param device: the torch device every tensor lives on: the card unless
         the caller asks for another; there is no fallback to the CPU
+    :param mesh: a DeviceMesh whose ``'events'`` dim the run is shared
+        over (every other dim of size 1); needs ``config['seed']``
     """
 
-    def __init__(self, config, *, device='cuda'):
+    def __init__(self, config, *, device='cuda', mesh=None):
         self.config = finalize_config(dict(config))
         self.device = resolve_device(device)
+        self.diag = Timers()
+        self.comm = (None if mesh is None
+                     else EventsComm(mesh, self.device, self.diag))
         self.resource = load_config(self.config)
         self.params = build_params(self.config, self.resource, self.device)
         self.const = build_constants(self.config)
@@ -138,12 +163,13 @@ class RawData:
         s1_models(self.const.s1_model_type)
         check_supported(self.const)
         seed = self.config.get('seed') or 0
+        if self.comm is not None and not seed:
+            raise ValueError('a mesh run needs config["seed"]: every rank '
+                             'must draw the same host numbers')
         self.rng = np.random.default_rng(seed if seed else None)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed) if seed
-                             else int(self.rng.integers(2 ** 31)))
+        self.seed = int(seed) if seed else int(self.rng.integers(2 ** 31))
+        self._batch_ctr = 0
         self.source_finished = False
-        self.diag = Timers()
         self._reset_pending()
 
     def _reset_pending(self):
@@ -244,50 +270,119 @@ class RawData:
             truth_row=torch.as_tensor(truth_rows, device=dev))
         return inst, base_time, truth_rows, int(truth_rows.max()) + 1
 
-    def _simulate_batch(self, instructions, idx, kind, truth_sink,
-                        gen_sink=None):
-        """Simulate one batch on the device, register its photons (and its
-        PMT-afterpulse photons) as buffers and their pulses, append its
-        truth rows and, for an S2 batch with ``gen_sink``, the secondary
-        electron-afterpulse instructions it seeds."""
+    def _owner(self, i: int) -> int:
+        return 0 if self.comm is None else self.comm.owner(i)
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self.comm is None else self.comm.rank
+
+    def _simulate_device(self, instructions, idx, kind, ctr, summaries):
+        """The device part of simulation batch ``ctr``, every draw from its
+        own generator: the physics, the PMT afterpulses and, with
+        ``summaries``, the photon summaries that seed electron afterpulses.
+        Returns (host results, photon buffers): truth, req, the afterpulse
+        rows ``ap`` (or None) with ``ap_total``, the summaries (or None);
+        the buffers are (t, ch, gain) dicts, the photons then the
+        afterpulse photons."""
         dev = self.device
-        sel = instructions[idx]
-        inst, base_time, truth_rows, n_rows = self.batch_inputs(
-            instructions, idx, kind)
+        gen = seeded_generator(self.seed, ctr, dev)
+        inst, _base, _rows, n_rows = self.batch_inputs(instructions, idx,
+                                                       kind)
         sim = simulate_s1 if kind == 's1' else simulate_s2
         with self.diag.phase('simulate_' + kind):
-            photons, truth, req = sim(self.params, self.const, inst, self.gen,
+            photons, truth, req = sim(self.params, self.const, inst, gen,
                                       n_truth_rows=n_rows)
-            truth_h = {k: v.cpu().numpy() for k, v in truth.items()}
-            req = req.cpu().numpy()
-        self.diag.add('photons_' + kind, int(truth_h['photon_count'].sum()))
-
-        ap_h = None
+            host = dict(truth={k: v.cpu().numpy() for k, v in truth.items()},
+                        req=req.cpu().numpy(), ap=None, summaries=None)
+        bufs = [photons]
         if self.const.enable_pmt_afterpulses \
                 and self.params.pmt_ap_delay_cdf is not None:
             with self.diag.phase('pmt_afterpulses'):
                 E = int(self.params.pmt_ap_delay_cdf.shape[0])
-                draws = pmt_ap_draws(self.gen, E, int(photons['t'].shape[0]),
-                                     dev)
+                draws = pmt_ap_draws(gen, E, int(photons['t'].shape[0]), dev)
                 ap_photons, ap_info = pmt_afterpulse_photons(
                     self.params, self.const, photons, draws,
                     n_truth_rows=n_rows)
-                ap_h = {k: ap_info[k].cpu().numpy()
-                        for k in ('counts', 't_min', 't_max')}
+                host['ap'] = {k: ap_info[k].cpu().numpy()
+                              for k in ('counts', 't_min', 't_max')}
+                host['ap_total'] = ap_info['total']
+            bufs.append(ap_photons)
+        if summaries:
+            with self.diag.phase('electron_afterpulses'):
+                counts, tz = photon_summaries(
+                    photons, summary_draws(gen, n_rows, dev), n_inst=n_rows)
+                host['summaries'] = (counts.cpu().numpy()[:len(idx)],
+                                     tz.cpu().numpy()[:len(idx)])
+        return host, [{k: b[k] for k in ('t', 'ch', 'gain')} for b in bufs]
+
+    def _share_batch(self, owner, host, bufs):
+        """The owner's host results and photon buffers on every rank: one
+        object broadcast, then one (3, n) int32 device tensor a buffer
+        (t, ch and the gain's bits)."""
+        comm = self.comm
+        with self.diag.phase('broadcast'):
+            if comm.rank == owner:
+                host = dict(host, n=[int(b['t'].shape[0]) for b in bufs])
+            host = comm.broadcast_object(host, owner)
+            out = []
+            for j, n in enumerate(host['n']):
+                x = None
+                if comm.rank == owner:
+                    b = bufs[j]
+                    x = torch.stack([b['t'], b['ch'],
+                                     b['gain'].view(torch.int32)])
+                x = comm.broadcast_tensor(x, (3, n), torch.int32, owner)
+                out.append(dict(t=x[0], ch=x[1],
+                                gain=x[2].view(torch.float32)))
+        return host, out
+
+    def _simulate_batches(self, instructions, batch_list, truth_sink,
+                          gen_sink=None):
+        """Simulate ``batch_list`` (``[(kind, idx), ...]``, host order):
+        each rank runs the device part of the batches it owns, then, batch
+        by batch in order, every rank takes the owner's results and runs
+        the host part (:meth:`_register_batch`)."""
+        first = self._batch_ctr
+        self._batch_ctr += len(batch_list)
+        summaries = gen_sink is not None and (
+            self.const.enable_electron_afterpulses
+            or self.const.enable_gate_afterpulses)
+        done = {}
+        for j, (kind, idx) in enumerate(batch_list):
+            if self._owner(first + j) == self._rank:
+                done[j] = self._simulate_device(
+                    instructions, idx, kind, first + j,
+                    summaries and kind == 's2')
+        for j, (kind, idx) in enumerate(batch_list):
+            host, bufs = done.pop(j, (None, None))
+            if self.comm is not None:
+                host, bufs = self._share_batch(self._owner(first + j), host,
+                                               bufs)
+            self._register_batch(instructions, idx, kind, host, bufs,
+                                 truth_sink, gen_sink)
+
+    def _register_batch(self, instructions, idx, kind, host, bufs,
+                        truth_sink, gen_sink):
+        """The host part of one simulated batch: register its photon (and
+        PMT-afterpulse) buffers and their pulses, append its truth rows
+        and, for an S2 batch with summaries, the secondary
+        electron-afterpulse instructions it seeds (with ``self.rng``)."""
+        sel = instructions[idx]
+        base_time = int(np.min(sel['time']))
+        truth_rows = self._truth_rows(instructions, idx, kind)
+        n_rows = int(truth_rows.max()) + 1
+        truth_h, req, ap_h = host['truth'], host['req'], host['ap']
+        self.diag.add('photons_' + kind, int(truth_h['photon_count'].sum()))
+        if ap_h is not None:
             # these photons ride the digitizer but not the truth n_photon
-            self.diag.add('pmt_ap_photons', ap_info['total'])
+            self.diag.add('pmt_ap_photons', host['ap_total'])
 
         # electron-afterpulse feedback: only true S2 pulses spawn it
         # (reference: rawdata.py:193-201; wfsim_tpu rawdata.py:645-658)
-        if gen_sink is not None and kind == 's2' and (
-                self.const.enable_electron_afterpulses
-                or self.const.enable_gate_afterpulses):
+        if host['summaries'] is not None:
+            counts, tz = host['summaries']
             with self.diag.phase('electron_afterpulses'):
-                counts, tz = photon_summaries(
-                    photons, summary_draws(self.gen, n_rows, dev),
-                    n_inst=n_rows)
-                counts = counts.cpu().numpy()[:len(idx)]
-                tz = tz.cpu().numpy()[:len(idx)]
                 if self.const.enable_electron_afterpulses \
                         and self.resource.uniform_to_ele_ap is not None:
                     gen_sink.append(generate_pi_el_instructions(
@@ -297,10 +392,10 @@ class RawData:
                     gen_sink.append(generate_pe_el_instructions(
                         self.config, self.rng, counts, tz, sel, base_time))
 
-        buf = self._add_buffer(photons)
+        buf = self._add_buffer(bufs[0])
         off = np.concatenate([[0], np.cumsum(req)]).astype(np.int64)
         if ap_h is not None:
-            ap_buf = self._add_buffer(ap_photons)
+            ap_buf = self._add_buffer(bufs[1])
             ap_off = np.concatenate([[0], np.cumsum(ap_h['counts'])]).astype(
                 np.int64)
         for r in range(n_rows):
@@ -466,15 +561,15 @@ class RawData:
                                kind='stable')
         truth_rows: ty.List[dict] = []
         gen_sink: ty.List[np.ndarray] = []
-        for kind, idx in self._sim_batch_list(instructions, order):
-            self._simulate_batch(instructions, idx, kind, truth_rows,
-                                 gen_sink)
+        self._simulate_batches(instructions,
+                               self._sim_batch_list(instructions, order),
+                               truth_rows, gen_sink)
         sec = [g for g in gen_sink if len(g)]
         if sec:
             sec = np.concatenate(sec)
             order = np.argsort(self._arrival_times(sec), kind='stable')
-            for kind, idx in self._sim_batch_list(sec, order):
-                self._simulate_batch(sec, idx, kind, truth_rows)
+            self._simulate_batches(sec, self._sim_batch_list(sec, order),
+                                   truth_rows)
         self.diag.add('super_batches', 1)
         return truth_rows
 
@@ -576,11 +671,18 @@ class RawData:
 
     def _memory_budget(self):
         """Bytes a digitize batch may use: half the free device memory on a
-        card, a fixed budget on the CPU."""
+        card, a fixed budget on the CPU; with a mesh the least over the
+        ranks, so every rank cuts the same batches."""
         if self.device.type == 'cuda':
             free, _total = torch.cuda.mem_get_info(self.device)
-            return free // 2
-        return CPU_MEMORY_BUDGET
+            budget = free // 2
+        else:
+            budget = CPU_MEMORY_BUDGET
+        if self.comm is not None:
+            budget = int(self.comm.all_reduce(
+                torch.tensor([budget], dtype=torch.int64, device=self.device),
+                torch.distributed.ReduceOp.MIN)[0])
+        return budget
 
     def plan_digitize(self, safe_t=np.inf):
         """One digitize round: the windows of the pending pulses that no
@@ -648,15 +750,22 @@ class RawData:
         max_itv = int(self.config.get('zle_max_intervals', 64))
         parts = []
         with self.diag.phase('digitize_batches'):     # ends in host copies
-            for batch, T_cap, pieces, nix in batches:
+            done = {}
+            for j, (_batch, T_cap, pieces, nix) in enumerate(batches):
+                if self._owner(j) != self._rank:
+                    continue
                 res = gather_digitize(
                     self.params, self.const, *arena,
                     torch.as_tensor(pieces, device=self.device),
                     torch.as_tensor(nix, device=self.device),
                     n_samples=T_cap, max_intervals=max_itv)
-                rec_data, rec_meta = pack_records(
+                done[j] = pack_records(
                     res['data'], res['left_all'], res['starts'], res['ends'],
                     res['counts'])
+            if self.comm is not None:
+                done = self._share_records(done, len(batches))
+            for j, (batch, _T, _p, _n) in enumerate(batches):
+                rec_data, rec_meta = done.pop(j)
                 parts.append((batch, rec_data.cpu().numpy(),
                               rec_meta.cpu().numpy()))
         self.diag.add('rounds', 1)
@@ -664,6 +773,31 @@ class RawData:
         self.diag.add('windows', len(wins))
         with self.diag.phase('digitize_host_records'):
             return wins, self._host_records(wins, parts)
+
+    def _share_records(self, done, n_batches):
+        """Every digitize batch's (rec_data, rec_meta) on every rank: the
+        record counts in one all_reduce, then each batch's two tensors
+        from its owner (rec_data as int32 pairs: gloo has no int16)."""
+        comm = self.comm
+        spr = SAMPLES_PER_RECORD
+        with self.diag.phase('broadcast'):
+            n_rec = torch.zeros(n_batches, dtype=torch.int64)
+            for j, (rec_data, _meta) in done.items():
+                n_rec[j] = rec_data.shape[0]
+            n_rec = comm.all_reduce(n_rec.to(self.device),
+                                    torch.distributed.ReduceOp.SUM).tolist()
+            out = {}
+            for j, n in enumerate(n_rec):
+                owner = self._owner(j)
+                rec_data, rec_meta = done.get(j, (None, None))
+                if rec_data is not None:
+                    rec_data = rec_data.view(torch.int32)
+                rec_data = comm.broadcast_tensor(
+                    rec_data, (n, spr // 2), torch.int32, owner)
+                rec_meta = comm.broadcast_tensor(
+                    rec_meta, (n, 6), torch.int32, owner)
+                out[j] = (rec_data.view(torch.int16), rec_meta)
+        return out
 
     def _host_records(self, wins, parts):
         """strax raw_records per window of one round, time-sorted: (window,
