@@ -2,6 +2,7 @@
 """Smoke run of wfsim_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OTHER_TREE   # K5 / K12a A/B (see ab())
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -42,7 +43,10 @@ one batch each, with their draws made on the card:
 
 3c. each physics kernel against its twin on the card, with median
     CUDA-event times of both: the channel draw (~1.57 M S2 photons over 512
-    rows), the luminescence tables of 512 instructions (also held against
+    rows, and a skewed copy: one row of 10^6 photons, three without
+    photons, two without mass; each also with its host time a call and
+    once under the sync check), the luminescence tables of 512
+    instructions (also held against
     the twin run on a CPU copy), the S1 photon, S2 electron and S2 photon
     time passes, the PMT photon pass and the row kernel (truth sums and
     time statistics); outputs bitwise equal, the float64 raw-area sums
@@ -61,7 +65,10 @@ the bench workload with ``local_field`` = 82 V/cm and ``e_dep`` = amp x
 
 3d. each new kernel against its twin on the card, with median CUDA-event
     times of both: the map lookup (1,024 points, on the 3-d FDC map with
-    one output and on the 30 x 30 x 494 file pattern map), the diffused
+    one output and on the 30 x 30 x 494 file pattern map; the S2 batch's
+    512 instruction positions on the pattern map; 1.57 M points on a
+    synthetic 50 x 50 x 100 map, the optical splines' photon width; each
+    with its host time a call, then once under the sync check), the diffused
     pattern of the 512-instruction S2 batch (~90 k electrons), the gas-gap
     luminescence times (~1.5 M photons) and the NEST delays (~7 k S1
     photons); max |diff| must be 0;
@@ -188,16 +195,29 @@ unless the long run's first chunk comes out before its last super-batch
 is simulated, its device peak is at most 1.10 times the short run's, and
 its RSS growth at most 1.25 times the short run's.
 
-Every kernel row of the JSON table carries its bound: the least time the
-card could take for the same work, the larger of the bytes its wrapper
-must move (each input read once, each output written once, counted from
-this run's tensors) over 3.35 TB/s and its arithmetic (counted from the
-code on this run's sizes) over 67 TFLOP/s float32 plus 34 TFLOP/s
-float64 (H100 SXM data sheet, non-tensor rates); and, where one PyTorch
-call computes the same function, that call's time (``library_ms``: the
-channel draw against ``torch.searchsorted`` over the CDF rows, the map
-lookup against ``grid_sample``, the per-PMT truth against ``index_add_``;
-the channel block of the step has none).
+Each kernel row is timed three ways: ``ms``, the median CUDA-event time
+around one wrapper call on an idle card (the wrapper's host work plus the
+kernels); ``device_ms``, the median over the calls of the device time of
+the kernels one call launches (CUPTI records of ``torch.profiler``, null
+where the profiler records none); and, for the channel draw and the map
+lookup, ``host_us``, host microseconds a call over 2,000 calls with one
+sync at the end.  The sync check runs a wrapper under
+``torch.cuda.set_sync_debug_mode('error')``.  Every row carries its
+bound: the least time the card could take for the same work, the larger
+of the bytes its wrapper must move (each input read once, each output
+written once, counted from this run's tensors) over 3.35 TB/s and its
+arithmetic (counted from the code on this run's sizes) over 67 TFLOP/s
+float32 plus 34 TFLOP/s float64 (H100 SXM data sheet, non-tensor rates);
+and, where PyTorch computes the same function around one library call,
+that computation's time (``library_ms``: the channel draw from the
+pattern through ``torch.searchsorted`` on targets padded per row, the map
+lookup from the points through ``grid_sample``, the per-PMT truth as one
+``index_add_`` of the photons' terms; the channel block of the step has
+none).  The phase-2 line times ``stream_of``, which every wrapper calls.
+
+Every configuration's 512-event run must give EXPECTED_RECORDS, the
+channel draw and map lookup their EXPECTED_LAUNCHES, and the default run
+DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
@@ -254,6 +274,9 @@ PER_PMT_PATH_KERNELS = REALISTIC_PATH_KERNELS + (
 #: rows) in place of superpose_adc, and per-PMT truth
 X1T_PATH_KERNELS = FULL_GRID_PATH_KERNELS + ('wfsim_pmt_row_truth_per_pmt',)
 
+K5_REPLACES = ('wfsim_tpu/ops/randsample.py:120; '
+               'wfsim_tpu/ops/randsample.py:99')
+
 #: H100 SXM peaks (NVIDIA data sheet; at the 700 W limit): HBM3 bytes/s,
 #: float32 and float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -308,6 +331,90 @@ def cuda_ms(fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Median device time of one call of ``fn`` in ms and the device time
+    per call of each kernel it launches, by name: the CUPTI records of a
+    ``torch.profiler`` session over ``reps`` calls, each followed by a
+    sync, cut into calls (see cut_calls).  (None, {}) where they do not
+    cut cleanly: no estimate is made."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    recs = [(e.name, e.time_range.elapsed_us()) for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and 'Activity Buffer' not in e.name),
+        key=lambda e: e.time_range.start)]
+    calls = cut_calls(recs, reps)
+    if not calls:
+        print(f'[profiler] {len(recs)} device records in {reps} calls: no '
+              f'per-call device time')
+        return None, {}
+    by_name = {}
+    for call in calls:
+        for name, us in call:
+            by_name[name] = by_name.get(name, 0.0) + us / len(calls) / 1e3
+    return (statistics.median(sum(us for _n, us in c) for c in calls) / 1e3,
+            by_name)
+
+
+def cut_calls(recs, reps):
+    """The device records ``(name, us)`` of a session, in start order, cut
+    into the calls that launched them: k = ceil(records / reps) records a
+    call (every call launches the same kernels in the same order).  The
+    profiler misses the first record or few of a session on this card, so
+    the complete calls are cut from the end (from the start if that fits
+    instead: the names of every call must be the same); at least half of
+    the calls must be complete.  [] otherwise."""
+    if not recs:
+        return []
+    k = -(-len(recs) // reps)
+    m = len(recs) // k
+    for run in (recs[len(recs) - m * k:], recs[:m * k]):
+        calls = [run[i * k:(i + 1) * k] for i in range(m)]
+        names = [[n for n, _us in c] for c in calls]
+        if 2 * m >= reps and all(x == names[0] for x in names):
+            return calls
+    return []
+
+
+def timing(kernel, twin, n_bytes, ops32, ops64=0, err=0, reps=20,
+           plain_reps=20):
+    """The measurements of a kernel row timed outside ``make_check``:
+    ``dict(err, ms, device_ms, plain_ms, bytes, ops32, ops64, library_ms,
+    host_us)`` (no library call, no host timing)."""
+    return dict(err=err, ms=cuda_ms(kernel, reps=reps),
+                device_ms=device_ms(kernel, reps=reps)[0],
+                plain_ms=cuda_ms(twin, reps=plain_reps), bytes=n_bytes,
+                ops32=ops32, ops64=ops64, library_ms=None, host_us=None)
+
+
+def fmt_ms(x):
+    return 'not measured' if x is None else f'{x:.4f} ms'
+
+
+def host_us(fn, calls=2000):
+    """Host microseconds per call of ``fn``: ``perf_counter`` over
+    ``calls`` calls with one sync at the end, results discarded (where the
+    device takes longer per call than the host, this is the device's
+    rate)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def s2_like_arena(rng, n_win, n_ch, n_samples):
@@ -443,43 +550,128 @@ def physics_batches(cfg, inst, dev, seed):
 
 def make_check(res, tag, smi):
     """A function that holds a kernel against its twin, times both and
-    stores ``res[name] = dict(err, ms, plain_ms, bytes, ops32, ops64,
-    library_ms)``; ``inputs`` are the tensors the kernel reads (its outputs
-    are added to the byte count), ``library`` one PyTorch call computing
-    the same function, timed beside it."""
+    stores ``res[name] = dict(err, ms, device_ms, plain_ms, bytes, ops32,
+    ops64, library_ms, host_us)``; ``inputs`` are the tensors the kernel
+    reads (its outputs are added to the byte count), ``library`` one
+    PyTorch call computing the same function, timed beside it; ``host``
+    adds the wrapper's host microseconds per call (see host_us)."""
     def check(name, kernel, twin, inputs, ops32, ops64=0, rtol_keys=(),
-              reps=20, library=None):
+              reps=20, library=None, host=False):
         out = kernel()
         err = compare(out, twin(), name, rtol_keys)
+        dev_ms, by_name = device_ms(kernel, reps=reps)
         res[name] = dict(err=err, ms=cuda_ms(kernel, reps=reps),
+                         device_ms=dev_ms,
                          plain_ms=cuda_ms(twin, reps=reps),
                          bytes=nbytes(inputs, out), ops32=ops32, ops64=ops64,
                          library_ms=(None if library is None
-                                     else cuda_ms(library, reps=reps)))
+                                     else cuda_ms(library, reps=reps)),
+                         host_us=host_us(kernel) if host else None)
         r = res[name]
         lib = ('' if library is None
                else f', library call {r["library_ms"]:.4f} ms')
-        print(f'[{tag}] {name}: max|diff| {err}, {r["ms"]:.4f} ms, plain '
-              f'twin {r["plain_ms"]:.4f} ms{lib}, bound '
-              f'{bound(r["bytes"], ops32, ops64)[0]:.4f} ms ({smi})')
+        dev = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+               + str({k: round(v, 6) for k, v in by_name.items()}))
+        hst = '' if not host else f', host {r["host_us"]:.2f} us a call'
+        print(f'[{tag}] {name}: max|diff| {err}, {r["ms"]:.4f} ms, device '
+              f'{dev}, plain twin {r["plain_ms"]:.4f} ms{lib}{hst}, bound '
+              f'{bound(r["bytes"], ops32, ops64)[0]:.6f} ms ({smi})')
     return check
 
 
 def searchsorted_library(pattern, ph_edges, u):
-    """One ``torch.searchsorted`` over the CDF rows, the photons' targets
-    padded per row: the library form of the channel draw."""
+    """The channel draw in PyTorch around one library search: the float64
+    CDF (``cumsum_f64``), the row totals, the targets ``u x total``
+    scattered into rows padded to the longest, ``torch.searchsorted``, the
+    clamp to C-1, -1 for rows without mass, the photons gathered back.
+    Only the padded layout (each photon's row and position) is computed
+    outside the returned call."""
     import torch
     from wfsim_tpu_torch.ops.randsample import cumsum_f64
-    cdf = cumsum_f64(pattern, 1)
+    n_inst, C = pattern.shape
     counts = (ph_edges[1:] - ph_edges[:-1]).cpu().numpy()
     width = max(int(counts.max()), 1)
     pos = torch.as_tensor(np.arange(int(counts.sum())) - np.repeat(
         ph_edges[:-1].cpu().numpy(), counts), device=u.device)
     rows = torch.as_tensor(np.repeat(np.arange(len(counts)), counts),
                            device=u.device)
-    targets = torch.zeros((len(counts), width), device=u.device)
-    targets[rows, pos] = u * cdf[rows, -1]
-    return lambda: torch.searchsorted(cdf, targets, right=True)
+
+    def call():
+        cdf = cumsum_f64(pattern, 1)
+        total = cdf[:, -1][rows]
+        targets = torch.zeros((n_inst, width), device=u.device)
+        targets[rows, pos] = u * total
+        idx = torch.searchsorted(cdf, targets, right=True)[rows, pos]
+        return torch.where(total > 0, torch.clamp_max(idx, C - 1),
+                           -1).to(torch.int32)
+    return call
+
+
+def sync_free(name, fn, required=True):
+    """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode('error')``,
+    which raises where a torch call would sync the host with the card;
+    returns whether none did (raises instead when ``required``)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fn()
+        free = True
+    except RuntimeError as e:
+        if required:
+            raise
+        free = False
+        print(f'[sync] {name}: {e}')
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    print(f'[sync] {name}: no host sync under set_sync_debug_mode'
+          f'(\'error\'): {free}')
+    return free
+
+
+def skewed_draw_inputs(pattern, ph_edges, dev, seed):
+    """A skewed channel-draw batch from the bench S2 batch: its rows and
+    photon counts, except one row of 10^6 photons, three rows without
+    photons (the last among them) and two rows without mass; fresh
+    uniforms with 0 and 1 - 2^-24 among them."""
+    import torch
+    counts = (ph_edges[1:] - ph_edges[:-1]).cpu().numpy().copy()
+    counts[100] = 1_000_000
+    counts[[3, 200, len(counts) - 1]] = 0
+    pat = pattern.clone()
+    pat[[7, 300]] = 0.0
+    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                            device=dev)
+    u = np.random.default_rng(seed).random(int(counts.sum()),
+                                           dtype=np.float32)
+    u[::9973] = 0.0
+    u[5::9973] = np.float32(1 - 2 ** -24)
+    return pat, edges, torch.as_tensor(u, device=dev)
+
+
+def check_k5(check, pattern, ph_edges, u, dev, tag='kernels-p',
+             sync_required=True):
+    """The channel draw (K5) against its twin on the bench S2 batch and on
+    its skewed copy (skewed_draw_inputs), with the library call and the
+    wrapper's host time; then once under the sync check (see
+    sync_free); returns its result."""
+    from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
+    n_inst, C = pattern.shape
+    skewed = skewed_draw_inputs(pattern, ph_edges, dev, 20261016)
+    for name, args in (('channel_draw', (pattern, ph_edges, u)),
+                       ('channel_draw_skewed', skewed)):
+        n = int(args[2].shape[0])
+        check(name, lambda a=args: (channel_draw(*a),),
+              lambda a=args: (channel_draw_ref(*a),), args,
+              ops32=n * (int(np.log2(C)) + 2), ops64=n_inst * C,
+              library=searchsorted_library(*args), host=True)
+        counts = args[1][1:] - args[1][:-1]
+        print(f'[{tag}] {name}: {n} photons in {n_inst} rows (largest '
+              f'{int(counts.max())}, empty {int((counts == 0).sum())}, '
+              f'without mass {int((args[0].sum(1) == 0).sum())})')
+    return sync_free('channel_draw', lambda: channel_draw(*skewed),
+                     sync_required)
 
 
 def phase_3c(params, const, batches, dev, smi):
@@ -494,7 +686,7 @@ def phase_3c(params, const, batches, dev, smi):
         get_s2_drift_time_params, luminescence_tables,
         luminescence_tables_ref, s2_edges, s2_electron_times,
         s2_electron_times_ref, s2_photon_times, s2_photon_times_ref, Q)
-    from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
+    from wfsim_tpu_torch.ops.randsample import channel_draw
     from wfsim_tpu_torch.ops.segment import edges_from_counts
     x1, _n1, d1 = batches['s1']
     x2, n_rows, d2 = batches['s2']
@@ -512,12 +704,7 @@ def phase_3c(params, const, batches, dev, smi):
     print(f'[kernels-p] S2 batch: {n_inst} instructions, '
           f'{n_e} electrons, {n_ph} photons; S1 batch: '
           f'{int(x1["x"].shape[0])} instructions, {n_s1} photons')
-    check('channel_draw', lambda: (channel_draw(pattern, ph_edges,
-                                                d2['u_ch']),),
-          lambda: (channel_draw_ref(pattern, ph_edges, d2['u_ch']),),
-          (pattern, ph_edges, d2['u_ch']),
-          ops32=n_ph * (int(np.log2(C)) + 2), ops64=n_inst * C,
-          library=searchsorted_library(pattern, ph_edges, d2['u_ch']))
+    check_k5(check, pattern, ph_edges, d2['u_ch'], dev)
 
     inv = luminescence_tables(const, n_inst, dev)
     inv_cpu = luminescence_tables_ref(const, n_inst, 'cpu')
@@ -588,17 +775,76 @@ def phase_3c(params, const, batches, dev, smi):
 
 
 def grid_sample_library(gmap, points):
-    """One ``torch.nn.functional.grid_sample`` (align_corners=True, border
-    padding) computing the same multilinear lookup as the kernel: the map
-    as (1, C, [gz,] gy, gx), the points normalised to [-1, 1]."""
+    """The multilinear lookup as ``torch.nn.functional.grid_sample``
+    (align_corners=True, border padding): the returned call normalises the
+    points to [-1, 1] and samples the map, laid out once beforehand as (1,
+    C, [gz,] gy, gx)."""
     import torch
     d = gmap.values.dim() - 1
+    n, out_dim = points.shape[0], gmap.values.shape[-1]
     inp = gmap.values.permute(*range(d, -1, -1)).unsqueeze(0).contiguous()
-    norm = (points - gmap.lows) / (gmap.highs - gmap.lows) * 2 - 1
-    grid = norm.reshape((1,) * d + (points.shape[0], d)).contiguous()
-    return lambda: torch.nn.functional.grid_sample(
-        inp, grid, mode='bilinear', padding_mode='border',
-        align_corners=True)
+
+    def call():
+        norm = (points - gmap.lows) / (gmap.highs - gmap.lows) * 2 - 1
+        return torch.nn.functional.grid_sample(
+            inp, norm.reshape((1,) * d + (n, d)), mode='bilinear',
+            padding_mode='border', align_corners=True).reshape(out_dim, n)
+    return call
+
+
+def photon_width_map(n_pts, dev, seed):
+    """A synthetic 50 x 50 x 100 float32 map with one output and ``n_pts``
+    points (the optical splines' photon width) spread over it and 5 cm
+    around it, with some at the lows and on the upper faces."""
+    import torch
+    from wfsim_tpu_torch.ops.interp import GridMap
+    rng = np.random.default_rng(seed)
+    lows = np.array([-70, -70, -150], np.float32)
+    highs = np.array([70, 70, 0], np.float32)
+    gmap = GridMap(*(torch.as_tensor(a, device=dev) for a in (
+        rng.uniform(0.05, 0.3, (50, 50, 100, 1)).astype(np.float32), lows,
+        highs)))
+    pts = rng.uniform(lows - 5, highs + 5, (n_pts, 3)).astype(np.float32)
+    pts[:1000] = lows
+    pts[1000:2000, 2] = highs[2]
+    pts[2000:3000] = highs
+    return gmap, torch.as_tensor(pts, device=dev)
+
+
+def check_k12a(check, params, xy2, dev, tag='kernels-d',
+               sync_required=True):
+    """The map lookup (K12a) against its twin: 1,024 points in the TPC on
+    the 3-d FDC map and on the 30 x 30 x 494 pattern map, the S2 batch's
+    instruction positions ``xy2`` on the pattern map, and the photon-width
+    map (photon_width_map); each with the grid_sample call and the
+    wrapper's host time; then once under the sync check (see sync_free);
+    returns its result."""
+    import torch
+    from wfsim_tpu_torch.ops.interp import grid_lookup_ref
+    rng = np.random.default_rng(20261016)
+    n_pts = 1024
+    r = np.sqrt(rng.uniform(0, 45 ** 2, n_pts))
+    phi = rng.uniform(-np.pi, np.pi, n_pts)
+    pts3 = torch.as_tensor(np.stack([r * np.cos(phi), r * np.sin(phi),
+                                     rng.uniform(-90, -10, n_pts)], 1),
+                           dtype=torch.float32, device=dev)
+    pts2 = pts3[:, :2].contiguous()
+    big_map, big_pts = photon_width_map(1_570_000, dev, 20261016)
+    for name, gmap, pts in (('grid_lookup_3d', params.fdc_3d, pts3),
+                            ('grid_lookup', params.s2_pattern, pts2),
+                            ('grid_lookup_512', params.s2_pattern, xy2),
+                            ('grid_lookup_photons', big_map, big_pts)):
+        n, d = pts.shape
+        out_dim = int(gmap.values.shape[-1])
+        check(name, lambda m=gmap, p=pts: (m(p),),
+              lambda m=gmap, p=pts: (grid_lookup_ref(m.values, m.lows,
+                                                     m.highs, p),),
+              (gmap, pts), ops32=n * (d * 6 + out_dim * 2 ** d * (d + 1)),
+              library=grid_sample_library(gmap, pts), host=True)
+        print(f'[{tag}] {name}: map {tuple(gmap.values.shape)}, {n} points')
+    return sync_free('grid_lookup', lambda: (params.s2_pattern(xy2),
+                                             big_map(big_pts)),
+                     sync_required)
 
 
 def phase_3d(params, const, batches, dev, smi):
@@ -606,7 +852,6 @@ def phase_3d(params, const, batches, dev, smi):
     module docstring); returns {name: measurements} (see make_check)."""
     import torch
     from wfsim_tpu_torch.models import s1, s2
-    from wfsim_tpu_torch.ops.interp import grid_lookup, grid_lookup_ref
     from wfsim_tpu_torch.ops.segment import edges_from_counts
     x1, _n1, d1 = batches['s1']
     x2, _n_rows, d2 = batches['s2']
@@ -621,25 +866,7 @@ def phase_3d(params, const, batches, dev, smi):
           f'{n_ph} photons; S1 batch: {int(x1["x"].shape[0])} '
           f'instructions, {n_s1} photons')
 
-    rng = np.random.default_rng(20261016)
-    n_pts = 1024
-    r = np.sqrt(rng.uniform(0, 45 ** 2, n_pts))
-    phi = rng.uniform(-np.pi, np.pi, n_pts)
-    pts3 = torch.as_tensor(np.stack([r * np.cos(phi), r * np.sin(phi),
-                                     rng.uniform(-90, -10, n_pts)], 1),
-                           dtype=torch.float32, device=dev)
-    pts2 = pts3[:, :2].contiguous()
-    for name, gmap, pts in (('grid_lookup_3d', params.fdc_3d, pts3),
-                            ('grid_lookup', params.s2_pattern, pts2)):
-        d = pts.shape[1]
-        out_dim = int(gmap.values.shape[-1])
-        args = (gmap.values, gmap.lows, gmap.highs, pts)
-        check(name, lambda a=args: (grid_lookup(*a),),
-              lambda a=args: (grid_lookup_ref(*a),), args,
-              ops32=n_pts * (d * 6 + out_dim * 2 ** d * (d + 1)),
-              library=grid_sample_library(gmap, pts))
-        print(f'[kernels-d] {name}: map {tuple(gmap.values.shape)}, '
-              f'{n_pts} points')
+    check_k12a(check, params, torch.stack([x2['x'], x2['y']], dim=1), dev)
 
     z, xy = s2.s2_positions(params, const, x2)
     dif = s2.diffusion_inputs(const, z, xy)
@@ -768,9 +995,6 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         if zerr:
             raise AssertionError('zle_intervals (nonneg) differs from its '
                                  'twin')
-        ms = cuda_ms(lambda: superpose_adc_full(*sargs, **fkw))
-        plain_ms = cuda_ms(lambda: superpose_adc_full_ref(*sargs, **fkw),
-                           reps=5)
         # bytes: the inputs, the int16 grid, and one int16 bank read per
         # in-window sample of every banked row (the TPC rows and their HE
         # copies; the bank covers all 801); operations: a template tap per
@@ -783,11 +1007,12 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         ops = (int(sargs[0].shape[0]) * L_t * 2 + B * C * T * 3
                + B * n_top * T * 4 + B * (C - n_top) * T * 2)
         b_ms, b_by = bound(n_bytes, ops)
-        print(f'[kernels-f] superpose_adc_full: {ms:.4f} ms, plain twin '
-              f'{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library '
-              f'call none ({smi})')
-        m = dict(err=max(err, zerr), ms=ms, plain_ms=plain_ms,
-                 bytes=n_bytes, ops32=ops, ops64=0, library_ms=None)
+        m = timing(lambda: superpose_adc_full(*sargs, **fkw),
+                   lambda: superpose_adc_full_ref(*sargs, **fkw), n_bytes,
+                   ops, err=max(err, zerr), plain_reps=5)
+        print(f'[kernels-f] superpose_adc_full: {m["ms"]:.4f} ms, device '
+              f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
+              f'bound {b_ms:.4f} ms by {b_by}, library call none ({smi})')
         del grid, grid_ref, zk, zr
 
         # ---- 4e. the he_full_grid main path ------------------------------
@@ -826,6 +1051,7 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         if n_type[1] != 512 or n_type[2] != 512 or n_type[4] <= 0:
             raise AssertionError(f'truth rows by type {n_type}')
         n_photons = int(truth['n_photon'].sum())
+        expect_records('he_full_grid', len(rr), len(rr_he))
         print(f'[full] events/s {512 / wall:.2f} wall {wall:.3f} s records '
               f'{len(rr) + len(rr_he) + len(rr_aq)} photons {n_photons} '
               f'peak_mem {peak / 2 ** 20:.1f} MiB ({smi})')
@@ -969,6 +1195,7 @@ def phase_timing_models(dev, smi):
             raise AssertionError('timing_models raw_records violate the '
                                  'strax invariants')
         n_photons = int(truth['n_photon'].sum())
+        expect_records('timing_models', len(rr))
         print(f'[timing] events/s {512 / wall:.2f} wall {wall:.3f} s '
               f'records {len(rr)} photons {n_photons} peak_mem '
               f'{peak / 2 ** 20:.1f} MiB ({smi})')
@@ -1001,6 +1228,44 @@ def timed_run(cfg, inst, dev, mesh_fn=lambda: None, warm_inst=None):
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in _build.KERNELS.items()}
     return out, wall, launches, torch.cuda.max_memory_allocated(dev), sim
+
+
+#: the records of each configuration's 512-event run (seed 1234) on an
+#: H100 80GB HBM3, and (he_full_grid) its raw_records_he; a change that
+#: keeps every kernel's output keeps them
+EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
+                        detector_physics=768_746,
+                        he_full_grid=(868_127, 444_017),
+                        timing_models=855_569, per_pmt_truth=867_836,
+                        xenon1t_full_grid=567_294)
+#: the launches of the channel draw and the map lookup on those runs
+EXPECTED_LAUNCHES = dict(
+    default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12),
+    detector_physics=dict(wfsim_grid_lookup=30))
+#: run_digest of the default run's arrays on that card
+DEFAULT_DIGEST = (
+    '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
+
+
+def run_digest(out):
+    """One sha256 over the digests of a ``get_arrays`` result's arrays."""
+    return hashlib.sha256(repr(arrays_digest(out)).encode()).hexdigest()
+
+
+def expect_records(name, *records, launches=None, digest=None):
+    """Raise unless a configuration's run gives EXPECTED_RECORDS, the
+    EXPECTED_LAUNCHES and (default) DEFAULT_DIGEST."""
+    want = EXPECTED_RECORDS[name]
+    want = want if isinstance(want, tuple) else (want,)
+    got = {e: launches[e] for e in EXPECTED_LAUNCHES.get(name, {})}
+    print(f'[expect] {name}: records {records} (expected {want}), launches '
+          f'{got} (expected {EXPECTED_LAUNCHES.get(name, {})})'
+          + ('' if digest is None else f', digest {digest} (expected '
+             f'{DEFAULT_DIGEST})'))
+    if (records != want or got != EXPECTED_LAUNCHES.get(name, {})
+            or digest != (DEFAULT_DIGEST if digest else None)):
+        raise AssertionError(f'{name}: the run differs from the expected '
+                             f'records, launches or digest')
 
 
 def same_arrays(a, b):
@@ -1127,6 +1392,7 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
           f'and the bottom fields (areas rel. diff. {rel:.3g})')
     if not same:
         raise AssertionError('per-PMT truth changed the records')
+    expect_records('per_pmt_truth', len(out['raw_records']))
     print(f'[per-pmt] events/s {n_ev / wall:.2f} wall {wall:.3f} s records '
           f'{len(out["raw_records"])} truth rows {len(truth)} peak_mem '
           f'{peak / 2 ** 20:.1f} MiB ({smi})')
@@ -1172,8 +1438,6 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     if err or grid[:, C:].any() or not grid[:, :C].any():
         raise AssertionError('superpose_adc_full without HE rows differs '
                              'from its twin or writes past the TPC')
-    ms = cuda_ms(lambda: superpose_adc_full(*sargs, **fkw))
-    plain_ms = cuda_ms(lambda: superpose_adc_full_ref(*sargs, **fkw), reps=5)
     # bytes: the inputs, the int16 grid and one int16 bank read per
     # in-window TPC sample; operations: a template tap per photon and
     # sample and the TPC epilogue (the zero rows are stores only)
@@ -1181,12 +1445,13 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     n_bytes = nbytes(sargs, nix, grid) + 2 * int(span.sum())
     ops = (len(t_np) * int(params.templates.shape[1]) * 2 + B * C * T * 3)
     b_ms, b_by = bound(n_bytes, ops)
-    print(f'[kernels-x] superpose_adc_full (no HE rows): {ms:.4f} ms, plain '
-          f'twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library '
-          f'call none ({smi})')
-    res['superpose_adc_full_no_he'] = dict(
-        err=err, ms=ms, plain_ms=plain_ms, bytes=n_bytes, ops32=ops,
-        ops64=0, library_ms=None)
+    m = res['superpose_adc_full_no_he'] = timing(
+        lambda: superpose_adc_full(*sargs, **fkw),
+        lambda: superpose_adc_full_ref(*sargs, **fkw), n_bytes, ops,
+        err=err, plain_reps=5)
+    print(f'[kernels-x] superpose_adc_full (no HE rows): {m["ms"]:.4f} ms, '
+          f'device {fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} '
+          f'ms, bound {b_ms:.4f} ms by {b_by}, library call none ({smi})')
     del grid, ph, sargs
 
     # ---- 4h. the xenon1t_full_grid main path ---------------------------
@@ -1227,6 +1492,7 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
         raise AssertionError('XENON1T records differ between the grid '
                              'without HE rows and the slim grid, or with '
                              'per-PMT truth off')
+    expect_records('xenon1t_full_grid', len(rr))
     print(f'[x1t] events/s {n_ev / wall:.2f} wall {wall:.3f} s records '
           f'{len(rr)} truth rows {len(truth)} peak_mem '
           f'{peak / 2 ** 20:.1f} MiB ({smi})')
@@ -1436,20 +1702,19 @@ def phase_3i(cfg, params, const, dev, smi):
                 raise AssertionError('superpose_block differs from its twin '
                                      'or is empty')
             if n_ch == 1:
-                ms = cuda_ms(lambda: superpose_block(*args, **kw))
-                plain_ms = cuda_ms(lambda: superpose_block_ref(*args, **kw),
-                                   reps=5)
                 # bytes: the inputs, the int32 grid and sum row; operations:
                 # a template tap per photon and sample, the ADC, the sum
                 ops = (int(bp['t'].shape[0]) * int(params.templates.shape[1])
                        * 2 + C_loc * STEP_T * 3)
                 n_bytes = nbytes(args, out)
                 b_ms, b_by = bound(n_bytes, ops)
-                print(f'[kernels-m] superpose_block: {ms:.4f} ms, plain twin '
-                      f'{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+                m = timing(lambda: superpose_block(*args, **kw),
+                           lambda: superpose_block_ref(*args, **kw), n_bytes,
+                           ops, err=err, plain_reps=5)
+                print(f'[kernels-m] superpose_block: {m["ms"]:.4f} ms, device '
+                      f'{fmt_ms(m["device_ms"])}, plain twin '
+                      f'{m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
                       f'({n_bytes / 1e6:.1f} MB), library call none ({smi})')
-                m = dict(err=err, ms=ms, plain_ms=plain_ms, bytes=n_bytes,
-                         ops32=ops, ops64=0, library_ms=None)
             del out, ref, bp
     return m
 
@@ -1713,6 +1978,9 @@ def main():
     for line in info['log'].splitlines():
         if 'Used' in line or 'Compiling entry' in line:
             print(f'[build] {line.strip()}')
+    print(f'[build] stream_of (the launch stream of every wrapper): '
+          f'{host_us(lambda: _build.stream_of(dev), calls=10_000):.3f} us a '
+          f'call ({smi})')
 
     from wfsim_tpu_torch import default_config
     from wfsim_tpu_torch.interface import bench_instructions
@@ -1776,25 +2044,26 @@ def main():
     if err3:
         raise AssertionError('pack_records differs from its twin')
 
-    times = dict(
-        superpose_adc=(cuda_ms(lambda: superpose_adc(*sargs, **skw)),
-                       cuda_ms(lambda: superpose_adc_ref(*sargs, **skw),
-                               reps=5)),
-        zle_intervals=(cuda_ms(lambda: zle_all_channels(*zargs, **zkw)),
-                       cuda_ms(lambda: zle_all_channels_ref(*zargs, **zkw))),
-        pack_records=(cuda_ms(lambda: pack_records(*pargs)),
-                      cuda_ms(lambda: pack_records_ref(*pargs))))
     # bytes moved and operations of each call (see bound()): the grid's
     # samples get a template tap per photon and the ADC epilogue; ZLE a
     # compare and a few index updates per sample; the pack one copy
     L = int(params.templates.shape[1])
-    work = dict(
-        superpose_adc=(nbytes(sargs, grid), len(t_np) * L * 2 + B * C * T * 3),
-        zle_intervals=(nbytes(zargs, zk), B * C * T * 4),
-        pack_records=(nbytes(pargs, pk), int(pk[0].shape[0]) * 110))
-    for name, (ms, plain) in times.items():
-        b_ms, b_by = bound(*work[name])
-        print(f'[kernels] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms, '
+    times = dict(
+        superpose_adc=timing(
+            lambda: superpose_adc(*sargs, **skw),
+            lambda: superpose_adc_ref(*sargs, **skw), nbytes(sargs, grid),
+            len(t_np) * L * 2 + B * C * T * 3, plain_reps=5),
+        zle_intervals=timing(
+            lambda: zle_all_channels(*zargs, **zkw),
+            lambda: zle_all_channels_ref(*zargs, **zkw), nbytes(zargs, zk),
+            B * C * T * 4, err=err2),
+        pack_records=timing(
+            lambda: pack_records(*pargs), lambda: pack_records_ref(*pargs),
+            nbytes(pargs, pk), int(pk[0].shape[0]) * 110, err=err3))
+    for name, m in times.items():
+        b_ms, b_by = bound(m['bytes'], m['ops32'])
+        print(f'[kernels] {name}: {m["ms"]:.4f} ms, device '
+              f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
               f'bound {b_ms:.4f} ms by {b_by} ({smi})')
 
     # ---- 4. main path ------------------------------------------------------
@@ -1828,6 +2097,8 @@ def main():
     print(f'[main] phases {sim.sim.rawdata.diag.summary()}')
     print(f'[main] physics phases {physics_phases(sim)}')
     main_digest = arrays_digest(out)
+    expect_records('default', len(rr), launches=launches,
+                   digest=run_digest(out))
 
     # ---- 5. one window batch: card against the CPU twins -------------------
     rd = RawData(cfg, device=dev)
@@ -1905,29 +2176,29 @@ def main():
         raise AssertionError('superpose_adc with noise differs from its twin '
                              'or shows no noise')
     times.update(
-        pmt_afterpulse=(
-            cuda_ms(lambda: pmt_afterpulse_photons(
-                params_r, const_r, ph_ap, draws, n_truth_rows=n_rows)),
-            cuda_ms(lambda: pmt_afterpulse_photons_ref(
-                params_r, const_r, ph_ap, draws, n_truth_rows=n_rows))),
-        ap_photon_summaries=(
-            cuda_ms(lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows)),
-            cuda_ms(lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows))),
-        superpose_adc_noise=(
-            cuda_ms(lambda: superpose_adc(*sargs, **nkw)),
-            cuda_ms(lambda: superpose_adc_ref(*sargs, **nkw), reps=5)))
-    work.update(
-        pmt_afterpulse=(nbytes(ph_ap, draws, params_r.pmt_ap_delay_cdf,
-                               params_r.pmt_ap_amp_cdf, ap_k, info_k),
-                        n_ph * E * 6),
-        ap_photon_summaries=(nbytes(ph_ap, u_s, sk), n_ph * 4),
-        superpose_adc_noise=(nbytes(sargs, grid_n) + B * C * T * 2,
-                             len(t_np) * L * 2 + B * C * T * 4))
+        pmt_afterpulse=timing(
+            lambda: pmt_afterpulse_photons(params_r, const_r, ph_ap, draws,
+                                           n_truth_rows=n_rows),
+            lambda: pmt_afterpulse_photons_ref(params_r, const_r, ph_ap,
+                                               draws, n_truth_rows=n_rows),
+            nbytes(ph_ap, draws, params_r.pmt_ap_delay_cdf,
+                   params_r.pmt_ap_amp_cdf, ap_k, info_k), n_ph * E * 6,
+            err=err4),
+        ap_photon_summaries=timing(
+            lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows),
+            lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows),
+            nbytes(ph_ap, u_s, sk), n_ph * 4, err=err5),
+        superpose_adc_noise=timing(
+            lambda: superpose_adc(*sargs, **nkw),
+            lambda: superpose_adc_ref(*sargs, **nkw),
+            nbytes(sargs, grid_n) + B * C * T * 2,
+            len(t_np) * L * 2 + B * C * T * 4, err=err6, plain_reps=5))
     for name in ('pmt_afterpulse', 'ap_photon_summaries',
                  'superpose_adc_noise'):
-        ms, plain = times[name]
-        b_ms, b_by = bound(*work[name])
-        print(f'[kernels-r] {name}: {ms:.4f} ms, plain twin {plain:.4f} ms, '
+        m = times[name]
+        b_ms, b_by = bound(m['bytes'], m['ops32'])
+        print(f'[kernels-r] {name}: {m["ms"]:.4f} ms, device '
+              f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
               f'bound {b_ms:.4f} ms by {b_by} ({smi})')
     del ph_ap, draws, ap_k, ap_r, grid_n, grid_nr
 
@@ -1958,6 +2229,7 @@ def main():
           f'samples mean {quiet.mean():.3f} std {quiet.std():.3f}')
     if not (15900 < quiet.mean() < 16100 and quiet.std() > 0.5):
         raise AssertionError('no noise on quiet in-window samples')
+    expect_records('realistic', len(rr))
     print(f'[realistic] events/s {512 / wall_r:.2f} wall {wall_r:.3f} s '
           f'records {len(rr)} photons {n_photons} peak_mem '
           f'{peak_r / 2 ** 20:.1f} MiB ({smi})')
@@ -2058,6 +2330,7 @@ def main():
               f'{n_photons - int(s2_rows["n_photon"].sum())}, electrons '
               f'{int(s2_rows["n_electron"].sum())}, mean r shift '
               f'{r_shift.mean():.4f} cm')
+        expect_records('detector_physics', len(rr), launches=launches_d)
         print(f'[detector] events/s {512 / wall_d:.2f} wall {wall_d:.3f} s '
               f'records {len(rr)} photons {n_photons} peak_mem '
               f'{peak_d / 2 ** 20:.1f} MiB ({smi})')
@@ -2088,50 +2361,42 @@ def main():
     src = 'wfsim_tpu_torch/csrc/'
     rows = []
 
-    def row(name, cu, replaces, entries, launches, err, ms, plain_ms,
-            n_bytes, ops32, ops64=0, library_ms=None):
-        b_ms, b_by = bound(n_bytes, ops32, ops64)
+    def measured(name, cu, replaces, entries, launch_counts, m):
+        b_ms, b_by = bound(m['bytes'], m['ops32'], m['ops64'])
         rows.append(dict(name=name, route='cuda', source=src + cu,
                          replaces=replaces, entry_points=list(entries),
-                         launches=launches, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=library_ms))
+                         launches=min(launch_counts[e] for e in entries),
+                         max_abs_err=m['err'], ms=m['ms'],
+                         device_ms=m['device_ms'], host_us=m['host_us'],
+                         plain_ms=m['plain_ms'], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=m['library_ms']))
 
-    def measured(name, cu, replaces, entries, launch_counts, m):
-        row(name, cu, replaces, entries,
-            min(launch_counts[e] for e in entries), m['err'], m['ms'],
-            m['plain_ms'], m['bytes'], m['ops32'], m['ops64'],
-            m['library_ms'])
-
-    row('superpose_adc', 'superpose_adc.cu',
-        'wfsim_tpu/ops/waveform.py:68; wfsim_tpu/pipeline/digitize.py:67',
-        ['wfsim_superpose_adc'], launches['wfsim_superpose_adc'],
-        max(err1, err6), *times['superpose_adc'], *work['superpose_adc'])
-    measured('superpose_adc_full', 'superpose_adc.cu',
-             'wfsim_tpu/pipeline/digitize.py:341; '
-             'wfsim_tpu/pipeline/digitize.py:96',
-             ['wfsim_superpose_adc_full'], launches_f, ftimes)
-    row('zle_intervals', 'zle_intervals.cu', 'wfsim_tpu/ops/zle.py:119',
-        ['wfsim_zle_intervals'], launches['wfsim_zle_intervals'], err2,
-        *times['zle_intervals'], *work['zle_intervals'])
-    row('pack_records', 'pack_records.cu',
-        'wfsim_tpu/pipeline/digitize.py:471', ['wfsim_pack_records'],
-        launches['wfsim_pack_records'], err3, *times['pack_records'],
-        *work['pack_records'])
-    row('pmt_afterpulse', 'pmt_afterpulse.cu',
-        'wfsim_tpu/models/afterpulse.py:56',
-        ['wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit'],
-        min(launches_r['wfsim_pmt_ap_select'],
-            launches_r['wfsim_pmt_ap_emit']), err4,
-        *times['pmt_afterpulse'], *work['pmt_afterpulse'])
-    row('ap_photon_summaries', 'pmt_afterpulse.cu',
-        'wfsim_tpu/models/afterpulse.py:184', ['wfsim_ap_photon_summaries'],
-        launches_r['wfsim_ap_photon_summaries'], err5,
-        *times['ap_photon_summaries'], *work['ap_photon_summaries'])
+    times['superpose_adc']['err'] = max(err1, err6)
+    for name, cu, rep, entries, counts in (
+            ('superpose_adc', 'superpose_adc.cu',
+             'wfsim_tpu/ops/waveform.py:68; '
+             'wfsim_tpu/pipeline/digitize.py:67', ['wfsim_superpose_adc'],
+             launches),
+            ('zle_intervals', 'zle_intervals.cu', 'wfsim_tpu/ops/zle.py:119',
+             ['wfsim_zle_intervals'], launches),
+            ('pack_records', 'pack_records.cu',
+             'wfsim_tpu/pipeline/digitize.py:471', ['wfsim_pack_records'],
+             launches),
+            ('pmt_afterpulse', 'pmt_afterpulse.cu',
+             'wfsim_tpu/models/afterpulse.py:56',
+             ['wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit'], launches_r),
+            ('ap_photon_summaries', 'pmt_afterpulse.cu',
+             'wfsim_tpu/models/afterpulse.py:184',
+             ['wfsim_ap_photon_summaries'], launches_r)):
+        measured(name, cu, rep, entries, counts, times[name])
+        if name == 'superpose_adc':
+            measured('superpose_adc_full', 'superpose_adc.cu',
+                     'wfsim_tpu/pipeline/digitize.py:341; '
+                     'wfsim_tpu/pipeline/digitize.py:96',
+                     ['wfsim_superpose_adc_full'], launches_f, ftimes)
     for name, cu, rep in (
-            ('channel_draw', 'channel_draw.cu',
-             'wfsim_tpu/ops/randsample.py:120; '
-             'wfsim_tpu/ops/randsample.py:99'),
+            ('channel_draw', 'channel_draw.cu', K5_REPLACES),
+            ('channel_draw_skewed', 'channel_draw.cu', K5_REPLACES),
             ('lumi_tables', 'luminescence.cu',
              'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141'),
             ('s1_photon_times', 'photon_times.cu',
@@ -2144,11 +2409,16 @@ def main():
              'wfsim_tpu/models/pmt.py:19'),
             ('pmt_row_truth', 'pmt_response.cu',
              'wfsim_tpu/models/pmt.py:89; wfsim_tpu/models/pmt.py:171')):
-        measured(name, cu, rep, ['wfsim_' + name], launches, ptimes[name])
+        measured(name, cu, rep, ['wfsim_' + name.replace('_skewed', '')],
+                 launches, ptimes[name])
     for name, entry, cu, rep in (
             ('grid_lookup', 'wfsim_grid_lookup', 'grid_lookup.cu',
              'wfsim_tpu/ops/interp.py:85'),
             ('grid_lookup_3d', 'wfsim_grid_lookup', 'grid_lookup.cu',
+             'wfsim_tpu/ops/interp.py:85'),
+            ('grid_lookup_512', 'wfsim_grid_lookup', 'grid_lookup.cu',
+             'wfsim_tpu/ops/interp.py:85'),
+            ('grid_lookup_photons', 'wfsim_grid_lookup', 'grid_lookup.cu',
              'wfsim_tpu/ops/interp.py:85'),
             ('pattern_diffuse', 'wfsim_pattern_diffuse', 'grid_lookup.cu',
              'wfsim_tpu/models/s2.py:300'),
@@ -2186,5 +2456,95 @@ def main():
         'count': torch.cuda.device_count()}}))
 
 
+#: one process of ``--ab``: argv[1] the tree whose package it runs, argv[2]
+#: this chip_smoke.py, whose checks it uses
+AB_CODE = r'''
+import importlib.util, json, sys, tempfile
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import numpy as np
+import torch
+from wfsim_tpu_torch import _build, default_config
+from wfsim_tpu_torch.config import detector_physics_overrides
+from wfsim_tpu_torch.interface import (bench_instructions,
+                                       detector_physics_instructions)
+from wfsim_tpu_torch.models.params import build_params
+from wfsim_tpu_torch.models.s1 import masked_pattern
+from wfsim_tpu_torch.models.s2 import s2_edges
+from wfsim_tpu_torch.resources import load_config
+from wfsim_tpu_torch.resources.synthetic import write_pattern_map
+dev = torch.device('cuda:0')
+smi = cs.sh(['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader']).splitlines()[0]
+_build.build()
+cfg = default_config(seed=1234, chunk_size=100)
+inst = bench_instructions(512, 2000, 300)
+out, wall, launches, _peak, _sim = cs.timed_run(cfg, inst, dev)
+res = {}
+check = cs.make_check(res, 'ab', smi)
+params, _const, batches = cs.physics_batches(cfg, inst, dev, 20261016)
+x2, _n, d2 = batches['s2']
+pattern = masked_pattern(params, params.s2_pattern,
+                         torch.stack([x2['x'], x2['y']], dim=1))
+free_k5 = cs.check_k5(check, pattern, s2_edges(d2)[2], d2['u_ch'], dev,
+                      tag='ab', sync_required=False)
+with tempfile.TemporaryDirectory() as tmp:
+    over = detector_physics_overrides(
+        write_pattern_map(Path(tmp) / 'map.json', 1234))
+    over['s1_model_type'] = 'simple'      # the maps only: no NEST tables
+    cfg_d = default_config(seed=1234, chunk_size=100, **over)
+    params_d = build_params(cfg_d, load_config(cfg_d), dev)
+inst_d = detector_physics_instructions(512, 2000, 300)
+s2 = inst_d[inst_d['type'] == 2]
+xy2 = torch.as_tensor(np.stack([s2['x'], s2['y']], 1), dtype=torch.float32,
+                      device=dev)
+free_k12a = cs.check_k12a(check, params_d, xy2, dev, tag='ab',
+                          sync_required=False)
+print(json.dumps(dict(
+    card=smi, records=len(out['raw_records']), digest=cs.run_digest(out),
+    wall_s=wall, launches={k: launches[k] for k in (
+        'wfsim_channel_draw', 'wfsim_grid_lookup')},
+    sync_free=dict(channel_draw=free_k5, grid_lookup=free_k12a),
+    rows={k: {f: v for f, v in m.items()} for k, m in res.items()})))
+'''
+
+
+def ab(other):
+    """``--ab OTHER_TREE``: the channel draw (K5) and the map lookup (K12a)
+    of two checkouts on one card, in four fresh processes, in turns:
+    OTHER_TREE, this tree, this tree, OTHER_TREE, each on its own tree's
+    package and kernels (built under its own ``build/``) and this file's
+    checks (check_k5, check_k12a: bitwise against the twins; ms,
+    device_ms, host_us, the library call, the bound; the sync check
+    reported, not required), after the default configuration's 512-event
+    run (its records, run_digest and K5 / K12a launches).  One JSON line a
+    process; exits non-zero if any process failed."""
+    trees = {'other': Path(other).resolve(), 'this': ROOT}
+    failed = 0
+    for label in ('other', 'this', 'this', 'other'):
+        tree = trees[label]
+        r = subprocess.run([sys.executable, '-c', AB_CODE, str(tree),
+                            str(ROOT / 'chip_smoke.py')], cwd=tree,
+                           capture_output=True, text=True)
+        lines = r.stdout.splitlines()
+        for line in lines if r.returncode else lines[:-1]:
+            print(f'[{label}] {line}')
+        if r.returncode:
+            failed += 1
+            sys.stderr.write(f'{label} ({tree}) failed: {r.stderr[-4000:]}\n')
+            continue
+        print(json.dumps({'tree': label, 'path': str(tree),
+                          **json.loads(lines[-1])}))
+    raise SystemExit(1 if failed else 0)
+
+
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--ab'] and len(sys.argv) == 3:
+        ab(sys.argv[2])
+    elif len(sys.argv) > 1:
+        raise SystemExit('usage: python3 chip_smoke.py [--ab OTHER_TREE]')
+    else:
+        main()

@@ -236,7 +236,22 @@ FLOAT_TRUTH = ('raw_area', 'raw_area_trigger', 'raw_area_bottom',
                'electron_t_mean_offset', 'electron_t_sigma')
 
 
-def test_channel_draw_matches_twins(dev):
+def _sync_free(fn):
+    """``fn()`` under set_sync_debug_mode('error'): a wrapper that syncs
+    the host with the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+@pytest.mark.parametrize('skewed', [False, True])
+def test_channel_draw_matches_twins(dev, skewed):
+    """Rows of up to 3,000 photons, or (skewed) one row of 10^6 among
+    them, empty rows and rows without mass: bitwise against the twins on
+    the card and on the CPU, one launch, no host sync."""
     from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
     rng = np.random.default_rng(21)
     I, C = 37, 494
@@ -245,16 +260,22 @@ def test_channel_draw_matches_twins(dev):
     pat[:, 17] = 0.0                               # a channel never drawn
     counts = rng.integers(0, 3000, I)
     counts[3] = 0
+    if skewed:
+        counts[11] = 1_000_000
+        counts[[0, I - 1]] = 0
     edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
-    u = torch.as_tensor(rng.random(int(counts.sum())).astype(np.float32))
-    args = [torch.as_tensor(pat), edges, u]
+    u = rng.random(int(counts.sum())).astype(np.float32)
+    u[::991] = 0.0
+    u[7::991] = np.float32(1 - 2 ** -24)
+    args = [torch.as_tensor(pat), edges, torch.as_tensor(u)]
     cpu = channel_draw(*args)
+    card_args = [a.to(dev) for a in args]
     k = _build.KERNELS['wfsim_channel_draw']
     before = k.launches
-    card = channel_draw(*[a.to(dev) for a in args])
+    card = _sync_free(lambda: channel_draw(*card_args))
     assert k.launches == before + 1
     assert torch.equal(card.cpu(), cpu)
-    assert torch.equal(card, channel_draw_ref(*[a.to(dev) for a in args]))
+    assert torch.equal(card, channel_draw_ref(*card_args))
 
 
 def test_lumi_tables_match_twins(setup, dev):
@@ -382,9 +403,13 @@ def test_photon_pass_card_matches_cpu(setup, dev, kind):
     assert torch.equal(req_d.cpu(), req_c)
 
 
-@pytest.mark.parametrize('shape,out_dim', [((7,), 1), ((30, 30), 494),
-                                           ((5, 6, 4), 1)])
-def test_grid_lookup_matches_twins(dev, shape, out_dim):
+@pytest.mark.parametrize('shape,out_dim,n', [
+    ((7,), 1, 1000), ((30, 30), 494, 1000), ((5, 6, 4), 1, 1000),
+    ((30, 30), 494, 512), ((50, 50, 100), 1, 1_570_000)])
+def test_grid_lookup_matches_twins(dev, shape, out_dim, n):
+    """Bitwise against the twins on the card and on the CPU, one launch,
+    no host sync; 512 points is the S2 batch's instruction width on the
+    pattern map, 1.57 M the photon width of the optical splines."""
     from wfsim_tpu_torch.ops.interp import GridMap, grid_lookup_ref
     rng = np.random.default_rng(25)
     d = len(shape)
@@ -392,16 +417,17 @@ def test_grid_lookup_matches_twins(dev, shape, out_dim):
                                               dtype=np.float32)),
                    torch.as_tensor(-rng.random(d, dtype=np.float32) * 40),
                    torch.as_tensor(rng.random(d, dtype=np.float32) * 40 + 1))
-    pts = torch.as_tensor(rng.uniform(-50, 50, (1000, d)).astype(np.float32))
+    pts = torch.as_tensor(rng.uniform(-50, 50, (n, d)).astype(np.float32))
     cpu = gmap(pts)
     card_map = gmap.to(dev)
+    card_pts = pts.to(dev)
     k = _build.KERNELS['wfsim_grid_lookup']
     before = k.launches
-    card = card_map(pts.to(dev))
+    card = _sync_free(lambda: card_map(card_pts))
     assert k.launches == before + 1
     assert torch.equal(card.cpu(), cpu)
     assert torch.equal(card, grid_lookup_ref(card_map.values, card_map.lows,
-                                             card_map.highs, pts.to(dev)))
+                                             card_map.highs, card_pts))
 
 
 @pytest.mark.parametrize('kind', ['s1', 's2'])

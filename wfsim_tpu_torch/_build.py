@@ -123,25 +123,31 @@ def load_library() -> ctypes.CDLL:
 class Kernel:
     """One C entry point of the kernel library plus its launch count.
 
-    ``launches`` grows by one per successful launch and nowhere else, so a
-    run can show that its main path went through the kernel."""
+    The symbol is resolved and its ``argtypes`` / ``restype`` set once, at
+    the first call; every later call is the ctypes call and the error
+    check.  ``launches`` grows by one per successful launch and nowhere
+    else, so a run can show that its main path went through the kernel."""
 
     def __init__(self, symbol: str, argtypes):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._fn = None
         KERNELS[symbol] = self
 
-    def __call__(self, *args):
-        lib = load_library()
-        fn = getattr(lib, self.symbol)
+    def _bind(self):
+        fn = getattr(load_library(), self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        err = fn(*args)
+        self._fn = fn
+        return fn
+
+    def __call__(self, *args):
+        err = (self._fn or self._bind())(*args)
         if err != 0:
             raise RuntimeError(
                 f'{self.symbol}: CUDA error {err} '
-                f'({lib.wfsim_error_string(err).decode()})')
+                f'({load_library().wfsim_error_string(err).decode()})')
         self.launches += 1
 
 
@@ -169,5 +175,9 @@ def ptr(t) -> int:
 
 
 def stream_of(device) -> int:
+    """The caller's current stream on ``device``, as a raw handle.  Public
+    torch API builds a ``Stream`` object per call (``chip_smoke.py``'s
+    phase 2 times it); it is not cached, because a caller may switch
+    streams (``torch.cuda.stream(...)``) between two launches."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream

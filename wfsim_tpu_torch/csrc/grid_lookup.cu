@@ -8,11 +8,25 @@
 // pattern_diffuse_ref.
 //
 // Two entry points:
-//   wfsim_grid_lookup      one thread per (point, output column); the
-//                          thread finds the point's cell and fractions and
-//                          sums the 2^d corners of its column.  Neighbouring
-//                          threads read neighbouring columns of a corner, so
-//                          a 494-wide pattern row is one coalesced read.
+//   wfsim_grid_lookup      two kernels behind one entry, by out_dim:
+//                          out_dim == 1 (LCE, FDC, corrections, gas gap,
+//                          later the optical splines at photon width): one
+//                          thread per point finds its cell and fractions,
+//                          reads the cell's 2^d corner values as one aligned
+//                          row of the map's corner table (ops/interp.py
+//                          corner_table, built with the map: one 32-byte
+//                          sector a point in 3-d, where the map's own
+//                          layout spreads the corners over ~4.5 sectors of
+//                          an L2-resident map) and sums them.
+//                          out_dim > 1 (the 494-wide patterns): one warp per
+//                          point.  The warp finds the point's cell once
+//                          (every lane holds the same bits), lane c < 2^d
+//                          forms corner c's flat row and weight, and a
+//                          shuffle hands all 2^d of them to every lane; the
+//                          lanes then stride over the columns, each corner
+//                          row read coalesced, the corners summed in the
+//                          twin's order: a point's d divisions and 2^d
+//                          offsets are computed once, not once a column.
 //   wfsim_pattern_diffuse  one block per instruction, a thread per channel
 //                          (512 threads for 494 channels).  The block walks
 //                          the instruction's electrons in order: displaced
@@ -27,10 +41,11 @@
 //                          electron at a time in registers.
 //
 // What bounds them on the H100: the lookup reads the points and writes the
-// (n, out_dim) result; the maps (a 30 x 30 x 494 pattern is 1.8 MB) stay in
-// L2.  The diffused pattern reads two normals an electron and writes
-// (I, 494) floats; its bound is the 4 x 2 float32 operations and the
-// float64 add per electron and channel (~90 k x 494 at the bench batch).
+// (n, out_dim) result; the maps (a 30 x 30 x 494 pattern is 1.8 MB, a
+// 50 x 50 x 100 map's corner table 8 MB) stay in L2.  The diffused pattern
+// reads two normals an electron and writes (I, 494) floats; its bound is
+// the 4 x 2 float32 operations and the float64 add per electron and
+// channel (~90 k x 494 at the bench batch).
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default, which rounds once
 // where the twin rounds twice: every product and sum is written with
@@ -49,17 +64,23 @@ constexpr int kMaxDims = 3;
 constexpr int kThreads = 256;
 constexpr int kDiffuseThreads = 512;
 
+// D, the map's input dimensions, is a template argument, so the cell's
+// arrays and the corner loops unroll into registers (a runtime d put them
+// in local memory)
+template <int D>
 struct Cell {
-  int i0[kMaxDims];
-  float w[kMaxDims];
+  int i0[D];
+  float w[D];
 };
 
 // the point's lower cell index and fractions, as ops/interp.py _cell
-__device__ __forceinline__ Cell find_cell(const float* p, int d,
-                                          const int* g, const float* lows,
-                                          const float* highs) {
-  Cell c;
-  for (int k = 0; k < d; ++k) {
+template <int D>
+__device__ __forceinline__ Cell<D> find_cell(const float* p, const int* g,
+                                             const float* lows,
+                                             const float* highs) {
+  Cell<D> c;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
     const float lo = lows[k];
     float span = __fsub_rn(highs[k], lo);
     span = span < 1e-30f ? 1e-30f : span;
@@ -76,40 +97,136 @@ __device__ __forceinline__ Cell find_cell(const float* p, int d,
   return c;
 }
 
-// sum over the 2^d corners of column `col`, in the twin's order
+// corner `corner`'s flat grid row and weight (the weight multiplied in
+// dimension order from 1, as the twin)
+template <int D>
+__device__ __forceinline__ void corner_of(const Cell<D>& c, const int* g,
+                                          int corner, long long* flat,
+                                          float* weight) {
+  long long f = 0;
+  float w = 1.0f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const int b = (corner >> k) & 1;
+    int idx = c.i0[k] + b;
+    idx = idx < g[k] - 1 ? idx : g[k] - 1;
+    f = f * g[k] + idx;
+    w = __fmul_rn(w, b ? c.w[k] : __fsub_rn(1.0f, c.w[k]));
+  }
+  *flat = f;
+  *weight = w;
+}
+
+// sum over the 2^D corners of column `col`, in the twin's order
+template <int D>
 __device__ __forceinline__ float corner_sum(const float* __restrict__ values,
-                                            int d, const int* g, int out_dim,
-                                            int col, const Cell& c) {
+                                            const int* g, int out_dim,
+                                            int col, const Cell<D>& c) {
   float acc = 0.0f;
-  for (int corner = 0; corner < (1 << d); ++corner) {
-    long long flat = 0;
-    float weight = 1.0f;
-    for (int k = 0; k < d; ++k) {
-      const int b = (corner >> k) & 1;
-      int idx = c.i0[k] + b;
-      idx = idx < g[k] - 1 ? idx : g[k] - 1;
-      flat = flat * g[k] + idx;
-      weight = __fmul_rn(weight, b ? c.w[k] : __fsub_rn(1.0f, c.w[k]));
-    }
+#pragma unroll
+  for (int corner = 0; corner < (1 << D); ++corner) {
+    long long flat;
+    float weight;
+    corner_of<D>(c, g, corner, &flat, &weight);
     acc = __fadd_rn(acc, __fmul_rn(weight, values[flat * out_dim + col]));
   }
   return acc;
 }
 
-__global__ void grid_lookup_kernel(const float* __restrict__ values, int d,
-                                   int g0, int g1, int g2, int out_dim,
+// the 2^D corner values of a cell, one aligned row of the corner table
+template <int D>
+__device__ __forceinline__ void load_corners(const float* row, float* v) {
+  if (D == 1) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(row));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < (1 << D) / 4; ++h) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(row) + h);
+      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z;
+      v[4 * h + 3] = a.w;
+    }
+  }
+}
+
+template <int D>
+__global__ void lookup_points_kernel(const float* __restrict__ corners,
+                                     int g0, int g1, int g2,
+                                     const float* __restrict__ lows,
+                                     const float* __restrict__ highs,
+                                     const float* __restrict__ points, int n,
+                                     float* __restrict__ out) {
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int g[kMaxDims] = {g0, g1, g2};
+  const Cell<D> c = find_cell<D>(points + p * D, g, lows, highs);
+  long long cell = 0;
+#pragma unroll
+  for (int k = 0; k < D; ++k) cell = cell * g[k] + c.i0[k];
+  float v[1 << D];
+  load_corners<D>(corners + cell * (1 << D), v);
+  float acc = 0.0f;
+#pragma unroll
+  for (int corner = 0; corner < (1 << D); ++corner) {
+    long long flat;
+    float weight;
+    corner_of<D>(c, g, corner, &flat, &weight);
+    acc = __fadd_rn(acc, __fmul_rn(weight, v[corner]));
+  }
+  out[p] = acc;
+}
+
+template <int D>
+__global__ void lookup_rows_kernel(const float* __restrict__ values, int g0,
+                                   int g1, int g2, int out_dim,
                                    const float* __restrict__ lows,
                                    const float* __restrict__ highs,
                                    const float* __restrict__ points, int n,
                                    float* __restrict__ out) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(n) * out_dim) return;
-  const long long p = idx / out_dim;
-  const int col = static_cast<int>(idx - p * out_dim);
+  const long long p =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (p >= n) return;                      // the whole warp leaves together
   const int g[kMaxDims] = {g0, g1, g2};
-  const Cell c = find_cell(points + p * d, d, g, lows, highs);
-  out[idx] = corner_sum(values, d, g, out_dim, col, c);
+  const Cell<D> c = find_cell<D>(points + p * D, g, lows, highs);
+  // lane `corner` forms that corner's row and weight; a shuffle hands
+  // every lane all 2^D of them
+  long long flat;
+  float weight;
+  corner_of<D>(c, g, lane & ((1 << D) - 1), &flat, &weight);
+  const float* rows[1 << D];
+  float wts[1 << D];
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    rows[k] = values + __shfl_sync(0xffffffffu, flat, k) * out_dim;
+    wts[k] = __shfl_sync(0xffffffffu, weight, k);
+  }
+  float* o = out + p * out_dim;
+  for (int col = lane; col < out_dim; col += 32) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < (1 << D); ++k)
+      acc = __fadd_rn(acc, __fmul_rn(wts[k], rows[k][col]));
+    o[col] = acc;
+  }
+}
+
+template <int D>
+void launch_lookup(const float* v, const float* corners, int g0, int g1,
+                   int g2, int out_dim, const float* lo, const float* hi,
+                   const float* pts, int n, float* o, cudaStream_t s) {
+  if (out_dim == 1) {
+    const long long blocks = (static_cast<long long>(n) + kThreads - 1) /
+                             kThreads;
+    lookup_points_kernel<D><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              s>>>(corners, g0, g1, g2, lo, hi, pts, n, o);
+  } else {
+    const int warps = kThreads / 32;
+    const long long blocks = (static_cast<long long>(n) + warps - 1) / warps;
+    lookup_rows_kernel<D><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        v, g0, g1, g2, out_dim, lo, hi, pts, n, o);
+  }
 }
 
 __global__ void pattern_diffuse_kernel(
@@ -141,9 +258,9 @@ __global__ void pattern_diffuse_kernel(
       if (!(r2 <= r2_max)) continue;
       ++count;
       if (ch < C) {
-        const Cell c = find_cell(p, 2, g, lows, highs);
+        const Cell<2> c = find_cell<2>(p, g, lows, highs);
         acc = __dadd_rn(acc, static_cast<double>(
-                                 corner_sum(values, 2, g, out_dim, col, c)));
+                                 corner_sum<2>(values, g, out_dim, col, c)));
       }
     }
     if (ch < C) {
@@ -156,19 +273,27 @@ __global__ void pattern_diffuse_kernel(
 
 }  // namespace
 
-extern "C" int wfsim_grid_lookup(const void* values, int d, int g0, int g1,
-                                 int g2, int out_dim, const void* lows,
-                                 const void* highs, const void* points, int n,
-                                 void* out, void* stream) {
-  if (d < 1 || d > kMaxDims || out_dim <= 0 || n <= 0)
+extern "C" int wfsim_grid_lookup(const void* values, const void* corners,
+                                 int d, int g0, int g1, int g2, int out_dim,
+                                 const void* lows, const void* highs,
+                                 const void* points, int n, void* out,
+                                 void* stream) {
+  if (d < 1 || d > kMaxDims || out_dim <= 0 || n <= 0 ||
+      (out_dim == 1 && corners == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * out_dim;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  grid_lookup_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(values), d, g0, g1, g2, out_dim,
-      static_cast<const float*>(lows), static_cast<const float*>(highs),
-      static_cast<const float*>(points), n, static_cast<float*>(out));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(values);
+  const float* cr = static_cast<const float*>(corners);
+  const float* lo = static_cast<const float*>(lows);
+  const float* hi = static_cast<const float*>(highs);
+  const float* pts = static_cast<const float*>(points);
+  float* o = static_cast<float*>(out);
+  if (d == 1)
+    launch_lookup<1>(v, cr, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
+  else if (d == 2)
+    launch_lookup<2>(v, cr, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
+  else
+    launch_lookup<3>(v, cr, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,8 @@ import torch
 
 from .._build import Kernel, P, I, check_tensor, ptr, stream_of
 
-__all__ = ['GridMap', 'grid_lookup', 'grid_lookup_ref', 'regrid_scattered']
+__all__ = ['GridMap', 'grid_lookup', 'grid_lookup_ref', 'corner_table',
+           'regrid_scattered']
 
 #: the kernel takes grids of up to this many input dimensions
 MAX_DIMS = 3
@@ -29,10 +30,29 @@ MAX_DIMS = 3
 
 @dataclasses.dataclass
 class GridMap:
-    """values: (g1, ..., gN, out_dim) float32; lows / highs: (N,) float32."""
+    """values: (g1, ..., gN, out_dim) float32; lows / highs: (N,) float32.
+
+    ``grid`` holds the kernel's grid constants, ``(d, (g1, g2, g3),
+    out_dim)`` with the grid shape padded by 1 to ``MAX_DIMS`` (None for a
+    map of more dimensions, which only the twin takes); ``corners``, for a
+    one-output map on the card, its :func:`corner_table`.  They are
+    computed, and a map on the card is checked against what the kernel
+    takes, when the map is built, moved (:meth:`to`) or a field is
+    assigned, so a lookup checks only its points."""
     values: torch.Tensor
     lows: torch.Tensor
     highs: torch.Tensor
+
+    def __setattr__(self, name, value):
+        # the constants follow every assignment of a field (the resource
+        # loader rescales maps in place), from __init__'s last one on
+        super().__setattr__(name, value)
+        if name in ('values', 'lows', 'highs') and 'highs' in self.__dict__:
+            grid = _grid_constants(self.values, self.lows, self.highs)
+            super().__setattr__('grid', grid)
+            super().__setattr__('corners', corner_table(self.values) if (
+                self.values.device.type == 'cuda' and grid[2] == 1)
+                else None)
 
     @classmethod
     def constant(cls, const: float, out_dim: int = 1, ndim_in: int = 1):
@@ -69,7 +89,66 @@ class GridMap:
                        self.highs.to(device))
 
     def __call__(self, points):
-        return grid_lookup(self.values, self.lows, self.highs, points)
+        """Multilinear lookup at ``points``, as :func:`grid_lookup`."""
+        dev = self.values.device
+        if dev.type == 'cpu':
+            return grid_lookup_ref(self.values, self.lows, self.highs, points)
+        if dev.type != 'cuda':
+            raise NotImplementedError(f'grid_lookup on {dev}')
+        d, g, out_dim = self.grid
+        if points.dim() == 1:
+            points = points[:, None]
+        if points.dtype != torch.float32 or not points.is_contiguous():
+            points = points.to(torch.float32).contiguous()
+        n = points.shape[0]
+        check_tensor('points', points, torch.float32, (n, d), dev)
+        if n >= 2 ** 31:
+            raise ValueError(f'{n} points exceed the kernel\'s int32 count')
+        out = torch.empty((n, out_dim) if out_dim > 1 else (n,),
+                          dtype=torch.float32, device=dev)
+        if n:
+            _lookup_kernel(ptr(self.values), ptr(self.corners)
+                           if out_dim == 1 else None, d, *g, out_dim,
+                           ptr(self.lows), ptr(self.highs), ptr(points), n,
+                           ptr(out), stream_of(dev))
+        return out
+
+
+def corner_table(values: torch.Tensor) -> torch.Tensor:
+    """(g1, ..., gd, 2^d) float32 table of a one-output map: at each grid
+    node the values of the 2^d corners of the cell whose lower node it is,
+    in the twin's corner order (bit k of the corner steps dimension k by
+    one node, clamped to the grid).  The kernel's lookup of a point then
+    reads one aligned row of 2^d floats (one 32-byte sector in 3-d) where
+    the map itself would take ~4.5 sectors; 2^d times the map's memory."""
+    v = values[..., 0]
+    parts = []
+    for corner in range(2 ** v.dim()):
+        sel = v
+        for k in range(v.dim()):
+            if (corner >> k) & 1:
+                up = torch.arange(1, v.shape[k] + 1, device=v.device)
+                sel = sel.index_select(k, up.clamp_max(v.shape[k] - 1))
+        parts.append(sel)
+    return torch.stack(parts, dim=-1).contiguous()
+
+
+def _grid_constants(values, lows, highs):
+    """``(d, shape padded to MAX_DIMS, out_dim)`` of a map, or None past
+    ``MAX_DIMS`` input dimensions; raises for a map on the card that the
+    kernel does not take (dtype, shape, device, contiguity)."""
+    d = values.dim() - 1
+    dev = values.device
+    if dev.type == 'cuda':
+        if not 1 <= d <= MAX_DIMS:
+            raise ValueError(f'a {d}-d map: the kernel takes 1 to {MAX_DIMS}')
+        check_tensor('values', values, torch.float32, values.shape, dev)
+        check_tensor('lows', lows, torch.float32, (d,), dev)
+        check_tensor('highs', highs, torch.float32, (d,), dev)
+    if not 1 <= d <= MAX_DIMS:
+        return None
+    g = tuple(int(x) for x in values.shape[:-1]) + (1,) * (MAX_DIMS - d)
+    return d, g, int(values.shape[-1])
 
 
 def _cell(values, lows, highs, points):
@@ -118,8 +197,8 @@ def grid_lookup_ref(values, lows, highs, points):
     return out
 
 
-_lookup_kernel = Kernel('wfsim_grid_lookup', [P, I, I, I, I, I, P, P, P, I,
-                                              P, P])
+_lookup_kernel = Kernel('wfsim_grid_lookup', [P, P, I, I, I, I, I, P, P, P,
+                                              I, P, P])
 
 
 def grid_lookup(values, lows, highs, points):
@@ -129,34 +208,11 @@ def grid_lookup(values, lows, highs, points):
     out_dim == 1.
 
     CPU tensors run :func:`grid_lookup_ref`; CUDA tensors launch
-    ``csrc/grid_lookup.cu`` (one thread per point and output column)."""
-    dev = values.device
-    if dev.type == 'cpu':
-        return grid_lookup_ref(values, lows, highs, points)
-    if dev.type != 'cuda':
-        raise NotImplementedError(f'grid_lookup on {dev}')
-    d = values.dim() - 1
-    if not 1 <= d <= MAX_DIMS:
-        raise ValueError(f'a {d}-d map: the kernel takes 1 to {MAX_DIMS}')
-    points = points.to(torch.float32)
-    if points.dim() == 1:
-        points = points[:, None]
-    points = points.contiguous()
-    n = points.shape[0]
-    out_dim = values.shape[-1]
-    check_tensor('values', values, torch.float32, values.shape, dev)
-    check_tensor('lows', lows, torch.float32, (d,), dev)
-    check_tensor('highs', highs, torch.float32, (d,), dev)
-    check_tensor('points', points, torch.float32, (n, d), dev)
-    g = list(values.shape[:-1]) + [1] * (MAX_DIMS - d)
-    if n * out_dim >= 2 ** 31:
-        raise ValueError(f'{n} points x {out_dim} columns exceed the '
-                         f'kernel\'s int32 thread index')
-    out = torch.empty((n, out_dim), dtype=torch.float32, device=dev)
-    if n:
-        _lookup_kernel(ptr(values), d, *g, out_dim, ptr(lows), ptr(highs),
-                       ptr(points), n, ptr(out), stream_of(dev))
-    return out[:, 0] if out_dim == 1 else out
+    ``csrc/grid_lookup.cu`` (a thread per point for out_dim 1, a warp per
+    point otherwise), with no read-back from the card.  The map's checks
+    run on every call here; the path calls :class:`GridMap`, which checks
+    its map once, when it is built or moved."""
+    return GridMap(values, lows, highs)(points)
 
 
 def regrid_scattered(points: np.ndarray, values: np.ndarray,

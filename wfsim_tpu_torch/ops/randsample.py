@@ -81,7 +81,7 @@ def channel_draw_ref(pattern: torch.Tensor, edges: torch.Tensor,
     return categorical_from_cdf(cumsum_f64(pattern, 1), rows, u)
 
 
-_draw_kernel = Kernel('wfsim_channel_draw', [P, I, I, P, P, P, P])
+_draw_kernel = Kernel('wfsim_channel_draw', [P, I, I, P, P, I, P, P, P])
 
 
 def channel_draw(pattern: torch.Tensor, edges: torch.Tensor,
@@ -97,25 +97,33 @@ def channel_draw(pattern: torch.Tensor, edges: torch.Tensor,
     :returns: (N,) int32 channels, -1 where the row has no mass
 
     The CDF is :func:`cumsum_f64` of the pattern.  CPU tensors run
-    :func:`channel_draw_ref`; CUDA tensors launch ``csrc/channel_draw.cu``."""
+    :func:`channel_draw_ref` and raise unless ``edges[-1] == N``.  CUDA
+    tensors launch ``csrc/channel_draw.cu`` and read nothing back from the
+    card: ``edges[-1]`` is not checked against N there (the callers build
+    ``edges`` and ``u`` from the same counts); the kernel writes the N
+    channels and nothing else, -1 for a photon outside ``[edges[0],
+    edges[-1])``."""
     dev = pattern.device
     I, C = pattern.shape
     n = u.shape[0]
     check_tensor('pattern', pattern, torch.float32, (I, C), dev)
     check_tensor('edges', edges, torch.int64, (I + 1,), dev)
     check_tensor('u', u, torch.float32, (n,), dev)
-    if int(edges[-1]) != n:
-        raise ValueError(f'{n} uniforms for {int(edges[-1])} photons')
     if dev.type == 'cpu':
+        if int(edges[-1]) != n:
+            raise ValueError(f'{n} uniforms for {int(edges[-1])} photons')
         return channel_draw_ref(pattern, edges, u)
     if dev.type != 'cuda':
         raise NotImplementedError(f'channel_draw on {dev}')
-    if C * 4 > 48 * 1024:
-        raise ValueError(f'{C} channels do not fit the kernel\'s CDF row')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} photons exceed the kernel\'s int32 count')
     ch = torch.empty(n, dtype=torch.int32, device=dev)
     if n and I:
-        _draw_kernel(ptr(pattern), I, C, ptr(edges), ptr(u), ptr(ch),
-                     stream_of(dev))
+        cdf = torch.empty((I, C), dtype=torch.float32, device=dev)
+        _draw_kernel(ptr(pattern), I, C, ptr(edges), ptr(u), n, ptr(cdf),
+                     ptr(ch), stream_of(dev))
+    elif n:
+        ch.fill_(-1)                     # no instruction owns a photon
     return ch
 
 
