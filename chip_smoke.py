@@ -2,7 +2,6 @@
 """Smoke run of wfsim_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab OTHER_TREE   # K5 / K12a A/B (see ab())
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -607,27 +606,19 @@ def searchsorted_library(pattern, ph_edges, u):
     return call
 
 
-def sync_free(name, fn, required=True):
+def sync_free(name, fn):
     """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode('error')``,
-    which raises where a torch call would sync the host with the card;
-    returns whether none did (raises instead when ``required``)."""
+    which raises where a torch call would sync the host with the card."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode('error')
     try:
         fn()
-        free = True
-    except RuntimeError as e:
-        if required:
-            raise
-        free = False
-        print(f'[sync] {name}: {e}')
     finally:
         torch.cuda.set_sync_debug_mode('default')
     torch.cuda.synchronize()
-    print(f'[sync] {name}: no host sync under set_sync_debug_mode'
-          f'(\'error\'): {free}')
-    return free
+    print(f'[sync] {name}: no host sync under '
+          f'set_sync_debug_mode(\'error\')')
 
 
 def skewed_draw_inputs(pattern, ph_edges, dev, seed):
@@ -650,12 +641,11 @@ def skewed_draw_inputs(pattern, ph_edges, dev, seed):
     return pat, edges, torch.as_tensor(u, device=dev)
 
 
-def check_k5(check, pattern, ph_edges, u, dev, tag='kernels-p',
-             sync_required=True):
+def check_k5(check, pattern, ph_edges, u, dev):
     """The channel draw (K5) against its twin on the bench S2 batch and on
     its skewed copy (skewed_draw_inputs), with the library call and the
     wrapper's host time; then once under the sync check (see
-    sync_free); returns its result."""
+    sync_free)."""
     from wfsim_tpu_torch.ops.randsample import channel_draw, channel_draw_ref
     n_inst, C = pattern.shape
     skewed = skewed_draw_inputs(pattern, ph_edges, dev, 20261016)
@@ -667,11 +657,10 @@ def check_k5(check, pattern, ph_edges, u, dev, tag='kernels-p',
               ops32=n * (int(np.log2(C)) + 2), ops64=n_inst * C,
               library=searchsorted_library(*args), host=True)
         counts = args[1][1:] - args[1][:-1]
-        print(f'[{tag}] {name}: {n} photons in {n_inst} rows (largest '
+        print(f'[kernels-p] {name}: {n} photons in {n_inst} rows (largest '
               f'{int(counts.max())}, empty {int((counts == 0).sum())}, '
               f'without mass {int((args[0].sum(1) == 0).sum())})')
-    return sync_free('channel_draw', lambda: channel_draw(*skewed),
-                     sync_required)
+    sync_free('channel_draw', lambda: channel_draw(*skewed))
 
 
 def phase_3c(params, const, batches, dev, smi):
@@ -811,14 +800,13 @@ def photon_width_map(n_pts, dev, seed):
     return gmap, torch.as_tensor(pts, device=dev)
 
 
-def check_k12a(check, params, xy2, dev, tag='kernels-d',
-               sync_required=True):
+def check_k12a(check, params, xy2, dev):
     """The map lookup (K12a) against its twin: 1,024 points in the TPC on
     the 3-d FDC map and on the 30 x 30 x 494 pattern map, the S2 batch's
     instruction positions ``xy2`` on the pattern map, and the photon-width
     map (photon_width_map); each with the grid_sample call and the
-    wrapper's host time; then once under the sync check (see sync_free);
-    returns its result."""
+    wrapper's host time; then once under the sync check (see
+    sync_free)."""
     import torch
     from wfsim_tpu_torch.ops.interp import grid_lookup_ref
     rng = np.random.default_rng(20261016)
@@ -841,10 +829,10 @@ def check_k12a(check, params, xy2, dev, tag='kernels-d',
                                                      m.highs, p),),
               (gmap, pts), ops32=n * (d * 6 + out_dim * 2 ** d * (d + 1)),
               library=grid_sample_library(gmap, pts), host=True)
-        print(f'[{tag}] {name}: map {tuple(gmap.values.shape)}, {n} points')
-    return sync_free('grid_lookup', lambda: (params.s2_pattern(xy2),
-                                             big_map(big_pts)),
-                     sync_required)
+        print(f'[kernels-d] {name}: map {tuple(gmap.values.shape)}, '
+              f'{n} points')
+    sync_free('grid_lookup', lambda: (params.s2_pattern(xy2),
+                                      big_map(big_pts)))
 
 
 def phase_3d(params, const, batches, dev, smi):
@@ -2456,95 +2444,5 @@ def main():
         'count': torch.cuda.device_count()}}))
 
 
-#: one process of ``--ab``: argv[1] the tree whose package it runs, argv[2]
-#: this chip_smoke.py, whose checks it uses
-AB_CODE = r'''
-import importlib.util, json, sys, tempfile
-from pathlib import Path
-sys.path.insert(0, sys.argv[1])
-spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[2])
-cs = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(cs)
-import numpy as np
-import torch
-from wfsim_tpu_torch import _build, default_config
-from wfsim_tpu_torch.config import detector_physics_overrides
-from wfsim_tpu_torch.interface import (bench_instructions,
-                                       detector_physics_instructions)
-from wfsim_tpu_torch.models.params import build_params
-from wfsim_tpu_torch.models.s1 import masked_pattern
-from wfsim_tpu_torch.models.s2 import s2_edges
-from wfsim_tpu_torch.resources import load_config
-from wfsim_tpu_torch.resources.synthetic import write_pattern_map
-dev = torch.device('cuda:0')
-smi = cs.sh(['nvidia-smi', '--query-gpu=name,power.limit',
-             '--format=csv,noheader']).splitlines()[0]
-_build.build()
-cfg = default_config(seed=1234, chunk_size=100)
-inst = bench_instructions(512, 2000, 300)
-out, wall, launches, _peak, _sim = cs.timed_run(cfg, inst, dev)
-res = {}
-check = cs.make_check(res, 'ab', smi)
-params, _const, batches = cs.physics_batches(cfg, inst, dev, 20261016)
-x2, _n, d2 = batches['s2']
-pattern = masked_pattern(params, params.s2_pattern,
-                         torch.stack([x2['x'], x2['y']], dim=1))
-free_k5 = cs.check_k5(check, pattern, s2_edges(d2)[2], d2['u_ch'], dev,
-                      tag='ab', sync_required=False)
-with tempfile.TemporaryDirectory() as tmp:
-    over = detector_physics_overrides(
-        write_pattern_map(Path(tmp) / 'map.json', 1234))
-    over['s1_model_type'] = 'simple'      # the maps only: no NEST tables
-    cfg_d = default_config(seed=1234, chunk_size=100, **over)
-    params_d = build_params(cfg_d, load_config(cfg_d), dev)
-inst_d = detector_physics_instructions(512, 2000, 300)
-s2 = inst_d[inst_d['type'] == 2]
-xy2 = torch.as_tensor(np.stack([s2['x'], s2['y']], 1), dtype=torch.float32,
-                      device=dev)
-free_k12a = cs.check_k12a(check, params_d, xy2, dev, tag='ab',
-                          sync_required=False)
-print(json.dumps(dict(
-    card=smi, records=len(out['raw_records']), digest=cs.run_digest(out),
-    wall_s=wall, launches={k: launches[k] for k in (
-        'wfsim_channel_draw', 'wfsim_grid_lookup')},
-    sync_free=dict(channel_draw=free_k5, grid_lookup=free_k12a),
-    rows={k: {f: v for f, v in m.items()} for k, m in res.items()})))
-'''
-
-
-def ab(other):
-    """``--ab OTHER_TREE``: the channel draw (K5) and the map lookup (K12a)
-    of two checkouts on one card, in four fresh processes, in turns:
-    OTHER_TREE, this tree, this tree, OTHER_TREE, each on its own tree's
-    package and kernels (built under its own ``build/``) and this file's
-    checks (check_k5, check_k12a: bitwise against the twins; ms,
-    device_ms, host_us, the library call, the bound; the sync check
-    reported, not required), after the default configuration's 512-event
-    run (its records, run_digest and K5 / K12a launches).  One JSON line a
-    process; exits non-zero if any process failed."""
-    trees = {'other': Path(other).resolve(), 'this': ROOT}
-    failed = 0
-    for label in ('other', 'this', 'this', 'other'):
-        tree = trees[label]
-        r = subprocess.run([sys.executable, '-c', AB_CODE, str(tree),
-                            str(ROOT / 'chip_smoke.py')], cwd=tree,
-                           capture_output=True, text=True)
-        lines = r.stdout.splitlines()
-        for line in lines if r.returncode else lines[:-1]:
-            print(f'[{label}] {line}')
-        if r.returncode:
-            failed += 1
-            sys.stderr.write(f'{label} ({tree}) failed: {r.stderr[-4000:]}\n')
-            continue
-        print(json.dumps({'tree': label, 'path': str(tree),
-                          **json.loads(lines[-1])}))
-    raise SystemExit(1 if failed else 0)
-
-
 if __name__ == '__main__':
-    if sys.argv[1:2] == ['--ab'] and len(sys.argv) == 3:
-        ab(sys.argv[2])
-    elif len(sys.argv) > 1:
-        raise SystemExit('usage: python3 chip_smoke.py [--ab OTHER_TREE]')
-    else:
-        main()
+    main()

@@ -405,11 +405,13 @@ def test_photon_pass_card_matches_cpu(setup, dev, kind):
 
 @pytest.mark.parametrize('shape,out_dim,n', [
     ((7,), 1, 1000), ((30, 30), 494, 1000), ((5, 6, 4), 1, 1000),
-    ((30, 30), 494, 512), ((50, 50, 100), 1, 1_570_000)])
+    ((30, 30), 494, 512), ((50, 50, 100), 1, 1_570_000),
+    ((50, 100), 1, 1_570_000)])
 def test_grid_lookup_matches_twins(dev, shape, out_dim, n):
     """Bitwise against the twins on the card and on the CPU, one launch,
     no host sync; 512 points is the S2 batch's instruction width on the
-    pattern map, 1.57 M the photon width of the optical splines."""
+    pattern map, 1.57 M the photon width of the optical splines (a 2-d
+    (z, u) map for S1)."""
     from wfsim_tpu_torch.ops.interp import GridMap, grid_lookup_ref
     rng = np.random.default_rng(25)
     d = len(shape)

@@ -33,7 +33,7 @@ from wfsim_tpu.ops.interp import grid_lookup as jax_grid_lookup
 from wfsim_tpu.ops.randsample import categorical_from_cdf
 
 from wfsim_tpu_torch.models.params import params_from_numpy
-from wfsim_tpu_torch.ops.interp import GridMap, corner_table
+from wfsim_tpu_torch.ops.interp import GridMap
 from wfsim_tpu_torch.ops.randsample import channel_draw, cumsum_f64
 
 SEED = 20261017
@@ -132,7 +132,7 @@ def test_grid_constants_follow_the_map():
     loader does) and a move; a map past three dimensions has none and
     still runs the twin on the CPU."""
     m = GridMap.constant(0.5, out_dim=3, ndim_in=2)
-    assert m.grid == (2, (2, 2, 1), 3) and m.corners is None
+    assert m.grid == (2, (2, 2, 1), 3)
     m.values = torch.zeros((4, 5, 3), dtype=torch.float32)
     assert m.grid == (2, (4, 5, 1), 3) and m.to('cpu').grid == m.grid
     m4 = GridMap(torch.ones((2, 2, 2, 2, 1)), torch.zeros(4), torch.ones(4))
@@ -140,18 +140,29 @@ def test_grid_constants_follow_the_map():
     assert torch.equal(m4(torch.full((3, 4), 0.5)), torch.ones(3))
 
 
-@pytest.mark.parametrize('shape', [(7,), (5, 6), (4, 3, 5)])
-def test_corner_table_rows_hold_each_cells_corners(shape):
-    """Row i of the corner table holds the values the twin's corner loop
-    reads for a point in the cell whose lower node is i: corner c steps
-    dimension k by (c >> k) & 1, clamped to the grid."""
+@pytest.mark.parametrize('shape,out_dim,n', [
+    ((100,), 1, 20_000), ((50, 100), 1, 20_000), ((30, 30), 494, 512)])
+def test_grid_lookup_spline_and_pattern_shapes_match_jax(shape, out_dim, n):
+    """The maps of lower dimension the kernel takes: a 1-d (u) and a 2-d
+    (z, u) one-output map, as the optical splines look up at photon width,
+    and the 30 x 30 x 494 pattern map at the S2 batch's instruction width;
+    points inside, outside, at the lows and on the upper faces; bitwise
+    against wfsim_tpu's grid_lookup evaluated op by op."""
     rng = np.random.default_rng(SEED)
-    vals = rng.random(shape + (1,), dtype=np.float32)
-    table = corner_table(torch.from_numpy(vals)).numpy()
     d = len(shape)
-    assert table.shape == shape + (2 ** d,)
-    for node in np.ndindex(*shape):
-        for c in range(2 ** d):
-            idx = tuple(min(node[k] + ((c >> k) & 1), shape[k] - 1)
-                        for k in range(d))
-            assert table[node + (c,)] == vals[idx + (0,)]
+    lows = rng.uniform(-80, -20, d).astype(np.float32)
+    highs = rng.uniform(20, 80, d).astype(np.float32)
+    vals = rng.uniform(0.05, 0.3, shape + (out_dim,)).astype(np.float32)
+    pts = rng.uniform(lows - 5, highs + 5, (n, d)).astype(np.float32)
+    pts[:50] = lows
+    pts[50:100] = highs
+    pts[100:150, -1] = highs[-1]
+    gmap = GridMap(*map(torch.from_numpy, (vals, lows, highs)))
+    assert gmap.grid == (d, shape + (1,) * (3 - d), out_dim)
+    out = gmap(torch.from_numpy(pts)).numpy()
+    with jax.disable_jit():
+        eager = np.asarray(jax_grid_lookup(
+            *[jnp.asarray(a) for a in (vals, lows, highs, pts)]))
+    assert out.shape == eager.shape == ((n,) if out_dim == 1 else
+                                        (n, out_dim))
+    np.testing.assert_array_equal(out.view(np.int32), eager.view(np.int32))

@@ -11,13 +11,8 @@
 //   wfsim_grid_lookup      two kernels behind one entry, by out_dim:
 //                          out_dim == 1 (LCE, FDC, corrections, gas gap,
 //                          later the optical splines at photon width): one
-//                          thread per point finds its cell and fractions,
-//                          reads the cell's 2^d corner values as one aligned
-//                          row of the map's corner table (ops/interp.py
-//                          corner_table, built with the map: one 32-byte
-//                          sector a point in 3-d, where the map's own
-//                          layout spreads the corners over ~4.5 sectors of
-//                          an L2-resident map) and sums them.
+//                          thread per point finds its cell and fractions
+//                          and sums the cell's 2^d corners of the map.
 //                          out_dim > 1 (the 494-wide patterns): one warp per
 //                          point.  The warp finds the point's cell once
 //                          (every lane holds the same bits), lane c < 2^d
@@ -42,10 +37,10 @@
 //
 // What bounds them on the H100: the lookup reads the points and writes the
 // (n, out_dim) result; the maps (a 30 x 30 x 494 pattern is 1.8 MB, a
-// 50 x 50 x 100 map's corner table 8 MB) stay in L2.  The diffused pattern
-// reads two normals an electron and writes (I, 494) floats; its bound is
-// the 4 x 2 float32 operations and the float64 add per electron and
-// channel (~90 k x 494 at the bench batch).
+// 50 x 50 x 100 map 1 MB) stay in L2.  The diffused pattern reads two
+// normals an electron and writes (I, 494) floats; its bound is the 4 x 2
+// float32 operations and the float64 add per electron and channel (~90 k
+// x 494 at the bench batch).
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default, which rounds once
 // where the twin rounds twice: every product and sum is written with
@@ -133,24 +128,8 @@ __device__ __forceinline__ float corner_sum(const float* __restrict__ values,
   return acc;
 }
 
-// the 2^D corner values of a cell, one aligned row of the corner table
 template <int D>
-__device__ __forceinline__ void load_corners(const float* row, float* v) {
-  if (D == 1) {
-    const float2 a = __ldg(reinterpret_cast<const float2*>(row));
-    v[0] = a.x; v[1] = a.y;
-  } else {
-#pragma unroll
-    for (int h = 0; h < (1 << D) / 4; ++h) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(row) + h);
-      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z;
-      v[4 * h + 3] = a.w;
-    }
-  }
-}
-
-template <int D>
-__global__ void lookup_points_kernel(const float* __restrict__ corners,
+__global__ void lookup_points_kernel(const float* __restrict__ values,
                                      int g0, int g1, int g2,
                                      const float* __restrict__ lows,
                                      const float* __restrict__ highs,
@@ -160,21 +139,8 @@ __global__ void lookup_points_kernel(const float* __restrict__ corners,
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const int g[kMaxDims] = {g0, g1, g2};
-  const Cell<D> c = find_cell<D>(points + p * D, g, lows, highs);
-  long long cell = 0;
-#pragma unroll
-  for (int k = 0; k < D; ++k) cell = cell * g[k] + c.i0[k];
-  float v[1 << D];
-  load_corners<D>(corners + cell * (1 << D), v);
-  float acc = 0.0f;
-#pragma unroll
-  for (int corner = 0; corner < (1 << D); ++corner) {
-    long long flat;
-    float weight;
-    corner_of<D>(c, g, corner, &flat, &weight);
-    acc = __fadd_rn(acc, __fmul_rn(weight, v[corner]));
-  }
-  out[p] = acc;
+  out[p] = corner_sum<D>(values, g, 1, 0,
+                         find_cell<D>(points + p * D, g, lows, highs));
 }
 
 template <int D>
@@ -213,14 +179,14 @@ __global__ void lookup_rows_kernel(const float* __restrict__ values, int g0,
 }
 
 template <int D>
-void launch_lookup(const float* v, const float* corners, int g0, int g1,
-                   int g2, int out_dim, const float* lo, const float* hi,
-                   const float* pts, int n, float* o, cudaStream_t s) {
+void launch_lookup(const float* v, int g0, int g1, int g2, int out_dim,
+                   const float* lo, const float* hi, const float* pts, int n,
+                   float* o, cudaStream_t s) {
   if (out_dim == 1) {
     const long long blocks = (static_cast<long long>(n) + kThreads - 1) /
                              kThreads;
     lookup_points_kernel<D><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              s>>>(corners, g0, g1, g2, lo, hi, pts, n, o);
+                              s>>>(v, g0, g1, g2, lo, hi, pts, n, o);
   } else {
     const int warps = kThreads / 32;
     const long long blocks = (static_cast<long long>(n) + warps - 1) / warps;
@@ -273,27 +239,25 @@ __global__ void pattern_diffuse_kernel(
 
 }  // namespace
 
-extern "C" int wfsim_grid_lookup(const void* values, const void* corners,
-                                 int d, int g0, int g1, int g2, int out_dim,
+extern "C" int wfsim_grid_lookup(const void* values, int d, int g0, int g1,
+                                 int g2, int out_dim,
                                  const void* lows, const void* highs,
                                  const void* points, int n, void* out,
                                  void* stream) {
-  if (d < 1 || d > kMaxDims || out_dim <= 0 || n <= 0 ||
-      (out_dim == 1 && corners == nullptr))
+  if (d < 1 || d > kMaxDims || out_dim <= 0 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(values);
-  const float* cr = static_cast<const float*>(corners);
   const float* lo = static_cast<const float*>(lows);
   const float* hi = static_cast<const float*>(highs);
   const float* pts = static_cast<const float*>(points);
   float* o = static_cast<float*>(out);
   if (d == 1)
-    launch_lookup<1>(v, cr, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
+    launch_lookup<1>(v, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
   else if (d == 2)
-    launch_lookup<2>(v, cr, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
+    launch_lookup<2>(v, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
   else
-    launch_lookup<3>(v, cr, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
+    launch_lookup<3>(v, g0, g1, g2, out_dim, lo, hi, pts, n, o, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,8 +21,7 @@ import torch
 
 from .._build import Kernel, P, I, check_tensor, ptr, stream_of
 
-__all__ = ['GridMap', 'grid_lookup', 'grid_lookup_ref', 'corner_table',
-           'regrid_scattered']
+__all__ = ['GridMap', 'grid_lookup', 'grid_lookup_ref', 'regrid_scattered']
 
 #: the kernel takes grids of up to this many input dimensions
 MAX_DIMS = 3
@@ -34,8 +33,7 @@ class GridMap:
 
     ``grid`` holds the kernel's grid constants, ``(d, (g1, g2, g3),
     out_dim)`` with the grid shape padded by 1 to ``MAX_DIMS`` (None for a
-    map of more dimensions, which only the twin takes); ``corners``, for a
-    one-output map on the card, its :func:`corner_table`.  They are
+    map of more dimensions, which only the twin takes).  They are
     computed, and a map on the card is checked against what the kernel
     takes, when the map is built, moved (:meth:`to`) or a field is
     assigned, so a lookup checks only its points."""
@@ -48,11 +46,8 @@ class GridMap:
         # loader rescales maps in place), from __init__'s last one on
         super().__setattr__(name, value)
         if name in ('values', 'lows', 'highs') and 'highs' in self.__dict__:
-            grid = _grid_constants(self.values, self.lows, self.highs)
-            super().__setattr__('grid', grid)
-            super().__setattr__('corners', corner_table(self.values) if (
-                self.values.device.type == 'cuda' and grid[2] == 1)
-                else None)
+            super().__setattr__('grid', _grid_constants(
+                self.values, self.lows, self.highs))
 
     @classmethod
     def constant(cls, const: float, out_dim: int = 1, ndim_in: int = 1):
@@ -107,30 +102,10 @@ class GridMap:
         out = torch.empty((n, out_dim) if out_dim > 1 else (n,),
                           dtype=torch.float32, device=dev)
         if n:
-            _lookup_kernel(ptr(self.values), ptr(self.corners)
-                           if out_dim == 1 else None, d, *g, out_dim,
-                           ptr(self.lows), ptr(self.highs), ptr(points), n,
-                           ptr(out), stream_of(dev))
+            _lookup_kernel(ptr(self.values), d, *g, out_dim, ptr(self.lows),
+                           ptr(self.highs), ptr(points), n, ptr(out),
+                           stream_of(dev))
         return out
-
-
-def corner_table(values: torch.Tensor) -> torch.Tensor:
-    """(g1, ..., gd, 2^d) float32 table of a one-output map: at each grid
-    node the values of the 2^d corners of the cell whose lower node it is,
-    in the twin's corner order (bit k of the corner steps dimension k by
-    one node, clamped to the grid).  The kernel's lookup of a point then
-    reads one aligned row of 2^d floats (one 32-byte sector in 3-d) where
-    the map itself would take ~4.5 sectors; 2^d times the map's memory."""
-    v = values[..., 0]
-    parts = []
-    for corner in range(2 ** v.dim()):
-        sel = v
-        for k in range(v.dim()):
-            if (corner >> k) & 1:
-                up = torch.arange(1, v.shape[k] + 1, device=v.device)
-                sel = sel.index_select(k, up.clamp_max(v.shape[k] - 1))
-        parts.append(sel)
-    return torch.stack(parts, dim=-1).contiguous()
 
 
 def _grid_constants(values, lows, highs):
@@ -197,8 +172,8 @@ def grid_lookup_ref(values, lows, highs, points):
     return out
 
 
-_lookup_kernel = Kernel('wfsim_grid_lookup', [P, P, I, I, I, I, I, P, P, P,
-                                              I, P, P])
+_lookup_kernel = Kernel('wfsim_grid_lookup', [P, I, I, I, I, I, P, P, P, I,
+                                              P, P])
 
 
 def grid_lookup(values, lows, highs, points):
@@ -209,9 +184,10 @@ def grid_lookup(values, lows, highs, points):
 
     CPU tensors run :func:`grid_lookup_ref`; CUDA tensors launch
     ``csrc/grid_lookup.cu`` (a thread per point for out_dim 1, a warp per
-    point otherwise), with no read-back from the card.  The map's checks
-    run on every call here; the path calls :class:`GridMap`, which checks
-    its map once, when it is built or moved."""
+    point otherwise), with no read-back from the card.  Each call builds a
+    :class:`GridMap` and so checks the map; callers on the card hold a
+    :class:`GridMap`, which checks its map once, when it is built or
+    moved."""
     return GridMap(values, lows, highs)(points)
 
 
