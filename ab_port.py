@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of wfsim_tpu_torch on one card.
 
-    python3 ab_port.py OTHER_TREE [--runs 3]
+    python3 ab_port.py OTHER_TREE [--runs 3] [--kernels]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -9,6 +9,12 @@ this tree, OTHER_TREE (each builds its own kernels under its own
 ``build/``). Each process does one warm-up run and ``--runs`` timed runs
 of ``Simulator(cfg).get_arrays(inst)`` per configuration and prints one
 JSON line: the tree, wall seconds, events/s, records and truth rows.
+
+With ``--kernels`` each process measures kernel rows instead, with this
+tree's ``chip_smoke.kernel_rows`` on the tree's own package: the
+superposition entries on their three window batches and the per-PMT
+truth, each against its twin and its library computation, and prints
+``{row: {ms, device_ms, host_us, plain_ms, library_ms, ...}}``.
 """
 import argparse
 import json
@@ -43,19 +49,44 @@ for name, kw in (('default', {}), ('realistic', realism)):
 print(json.dumps(res))
 '''
 
+KERNEL_CODE = r'''
+import importlib.util, json, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import torch
+from wfsim_tpu_torch import _build
+_build.build()
+smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                      '--format=csv,noheader'], capture_output=True,
+                     text=True).stdout.strip()
+rows = cs.kernel_rows(torch.device('cuda:0'), smi)
+keep = ('ms', 'device_ms', 'host_us', 'plain_ms', 'library_ms',
+        'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
+        'library_diff', 'syncs', 'photons')
+print(json.dumps({'smi': smi, 'rows': {
+    k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
+'''
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('other', type=Path, help='the other checkout')
     ap.add_argument('--runs', type=int, default=3)
+    ap.add_argument('--kernels', action='store_true',
+                    help='measure the kernel rows, not the runs')
     args = ap.parse_args()
-    trees = {'other': args.other.resolve(),
-             'this': Path(__file__).resolve().parent}
+    here = Path(__file__).resolve().parent
+    trees = {'other': args.other.resolve(), 'this': here}
     for label in ('other', 'this', 'this', 'other'):
         root = trees[label]
-        r = subprocess.run([sys.executable, '-c', CODE, str(root),
-                            str(args.runs)], cwd=root, capture_output=True,
-                           text=True)
+        cmd = ([sys.executable, '-c', KERNEL_CODE, str(root),
+                str(here / 'chip_smoke.py')] if args.kernels else
+               [sys.executable, '-c', CODE, str(root), str(args.runs)])
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
+        if args.kernels:
+            sys.stderr.write(r.stdout)
         if r.returncode:
             sys.stderr.write(r.stdout + r.stderr[-4000:])
             raise SystemExit(r.returncode)

@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    seconds and the ptxas resource lines;
 3. kernels: each hand-written kernel against its plain PyTorch twin on the
    card, at main-path shapes (16 windows x 494 rows x 2048 samples, S2-like
-   photons): bitwise equality required; median CUDA-event times of both;
+   photons): bitwise equality required; median CUDA-event times of both
+   (of the superposition in 3j);
 4. main path: ``Simulator(default_config(seed=1234, chunk_size=100),
    device='cuda').get_arrays(inst)`` on the 512-event bench workload, once
    to warm up and once timed with the kernels' launch counts reset just
@@ -26,7 +27,8 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
 3b. kernels at realistic shapes, bitwise against their twins on the card,
     with median CUDA-event times: PMT-afterpulse select+emit on ~1.5 M
     S2-like photons with the synthetic tables, the photon summaries, and
-    ``superpose_adc`` with the noise bank and offsets that wrap its end;
+    ``superpose_adc`` with the noise bank and offsets that wrap its end
+    (bitwise only: 3j times it);
 4b. main path: ``Simulator(default_config(..., enable_noise=True,
     enable_pmt_afterpulses=True, enable_electron_afterpulses=True),
     device='cuda').get_arrays(inst)`` on the same workload, warm-up then
@@ -35,6 +37,20 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     invariants and the noise on quiet in-window samples;
 5b. cross-check: one realistic window batch, with its afterpulse pieces and
     noise offsets, on the card and by the CPU twins, records bitwise equal.
+
+3j. the superposition entries, each bitwise against its twin on three
+    window batches of 16 windows (SUPERPOSE_SHAPES: the bench batch; a
+    skewed one whose window 0 holds one S2 of 10^6 photons, ~2,000 a row;
+    a long one of 8195 samples): the slim grid (K1+K2), the slim grid with
+    the realistic noise bank and wrapping offsets (K10), the full XENONnT
+    grid (801-wide synthetic bank, factor 1) and the XENON1T grid without
+    HE rows; each wrapper reads back at most once a call (counted under
+    ``set_sync_debug_mode('warn')``); ``ms``, ``device_ms``, ``host_us``
+    over 1,000 calls, the twin's time, the bound and two library
+    computations (SUPERPOSE_LIBRARY: ``conv1d`` of a gain histogram, the
+    taps through ``index_add_``), each with its time, its kernels' device
+    times, its samples that differ from the twin's and its peak memory
+    (none gated); the fastest is the row's ``library_ms``.
 
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
@@ -90,7 +106,6 @@ row; 801 rows a window):
 3e. ``superpose_adc_full`` against its twin on the card, bitwise, at 16
     windows x 801 rows x 2048 samples with the 801-wide bank and offsets
     that wrap it, and the ZLE kernel in its full-grid mode on that grid;
-    median CUDA-event times of both, the bound by bytes;
 4e. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
     **he_full_grid_overrides(dir)), device='cuda').get_arrays(inst)``,
     warm-up then timed; launches of every kernel on the path (the
@@ -131,8 +146,10 @@ batch runs the full 801-row grid without HE rows, plus per-PMT truth):
 3g. the per-PMT kernel (K16) against its twin on the 512-instruction S2
     batch of each configuration, after the PMT photon pass (~1.57 M
     photons, 494 and 248 channels): counts bitwise, raw areas within rtol
-    1e-12; median CUDA-event times of both and of one ``index_add_`` of
-    the photons' terms (the library call);
+    1e-12; median CUDA-event times of both and of the library
+    computation around one ``index_add_`` (per_pmt_library: the photons'
+    six terms, the index, the sums and the casts inside the timed call),
+    which is held against the twin too;
 4g. main path: the per_pmt_truth run, warm-up then timed with every
     launch count set to 0 before it; every realistic entry and the
     per-PMT one launched; records bitwise those of the same run without
@@ -210,9 +227,11 @@ float32 plus 34 TFLOP/s float64 (H100 SXM data sheet, non-tensor rates);
 and, where PyTorch computes the same function around one library call,
 that computation's time (``library_ms``: the channel draw from the
 pattern through ``torch.searchsorted`` on targets padded per row, the map
-lookup from the points through ``grid_sample``, the per-PMT truth as one
-``index_add_`` of the photons' terms; the channel block of the step has
-none).  The phase-2 line times ``stream_of``, which every wrapper calls.
+lookup from the points through ``grid_sample``, the per-PMT truth from the
+photons around one ``index_add_``, the superposition the fastest of a
+gain histogram through ``conv1d`` and its taps through ``index_add_``; the
+channel block of the step has none).  The phase-2
+line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
 channel draw and map lookup their EXPECTED_LAUNCHES, and the default run
@@ -416,14 +435,15 @@ def host_us(fn, calls=2000):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def s2_like_arena(rng, n_win, n_ch, n_samples):
-    """Per window ~4.6k photons (one bench S2), uniform over channels, times
-    spread like a drifted S2 around the window centre, SPE-like gains."""
+def s2_like_arena(rng, n_win, n_ch, n_samples, n_mean=4600, sigma=1500):
+    """Per window ~``n_mean`` photons (4.6k: one bench S2), uniform over
+    channels, times spread like a drifted S2 (``sigma`` ns) around the
+    window centre, SPE-like gains."""
     t, ch, g, pieces = [], [], [], np.zeros((n_win, 1, 3), np.int64)
     lo = 0
     for w in range(n_win):
-        n = int(rng.poisson(4600))
-        tt = rng.normal(n_samples * 5, 1500, n) + rng.exponential(140, n)
+        n = int(rng.poisson(n_mean))
+        tt = rng.normal(n_samples * 5, sigma, n) + rng.exponential(140, n)
         t.append(np.clip(tt, 600, n_samples * 10 - 600).astype(np.int32))
         ch.append(rng.integers(0, n_ch, n).astype(np.int32))
         gain = 2e6 * np.clip(rng.normal(1.0, 0.4, n), 0.05, None)
@@ -915,9 +935,8 @@ def phase_5c(cfg, params_d, const, batches, smi, tag='cross-p'):
 
 
 def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
-    """Phases 3e, 4e and 5e (see the module docstring); returns the
-    measurements of the superpose_adc_full row (see make_check) and the
-    launch counts of the 4e run."""
+    """Phases 3e, 4e and 5e (see the module docstring); returns the launch
+    counts of the 4e run (phase 3j times the full-grid row)."""
     import torch
     from wfsim_tpu_torch.config import default_config, he_full_grid_overrides
     from wfsim_tpu_torch.models.params import build_params, build_constants
@@ -983,24 +1002,6 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         if zerr:
             raise AssertionError('zle_intervals (nonneg) differs from its '
                                  'twin')
-        # bytes: the inputs, the int16 grid, and one int16 bank read per
-        # in-window sample of every banked row (the TPC rows and their HE
-        # copies; the bank covers all 801); operations: a template tap per
-        # photon and sample, the TPC epilogue, the HE epilogue or the sum
-        span = torch.where(ph['has'], ph['ch_right'] - ph['ch_left'] + 1,
-                           0).reshape(B, C)
-        n_reads = int(span.sum()) + int(span[:, :n_top].sum())
-        n_bytes = nbytes(sargs, nix, grid) + 2 * n_reads
-        L_t = int(params.templates.shape[1])
-        ops = (int(sargs[0].shape[0]) * L_t * 2 + B * C * T * 3
-               + B * n_top * T * 4 + B * (C - n_top) * T * 2)
-        b_ms, b_by = bound(n_bytes, ops)
-        m = timing(lambda: superpose_adc_full(*sargs, **fkw),
-                   lambda: superpose_adc_full_ref(*sargs, **fkw), n_bytes,
-                   ops, err=max(err, zerr), plain_reps=5)
-        print(f'[kernels-f] superpose_adc_full: {m["ms"]:.4f} ms, device '
-              f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
-              f'bound {b_ms:.4f} ms by {b_by}, library call none ({smi})')
         del grid, grid_ref, zk, zr
 
         # ---- 4e. the he_full_grid main path ------------------------------
@@ -1078,7 +1079,7 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
                                  'from the CPU twins (or has no HE record)')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return m, launches
+    return launches
 
 
 def phase_timing_models(dev, smi):
@@ -1297,9 +1298,9 @@ PER_PMT_AREAS = ('raw_area_per_pmt', 'raw_area_trigger_per_pmt')
 
 def per_pmt_kernel_check(check, name, cfg, inst, dev):
     """K16 against its twin on the 512-instruction S2 batch of ``cfg``
-    (the photons after the PMT photon pass); the library call is one
-    ``index_add_`` of the photons' six terms into the (R * C, 6) table."""
-    import torch
+    (the photons after the PMT photon pass); the library computation is
+    per_pmt_library's, held against the twin too (counts exactly, areas
+    within rtol 1e-12)."""
     from wfsim_tpu_torch.models import pmt, s2
     from wfsim_tpu_torch.models.s1 import row_edges_of
     params, const, batches = physics_batches(cfg, inst, dev, 20261016)
@@ -1309,25 +1310,383 @@ def per_pmt_kernel_check(check, name, cfg, inst, dev):
     row_edges = row_edges_of(x2['truth_row'], s2.s2_edges(d2)[2], n_rows)
     C = int(params.gains.shape[0])
     n_ph, n_valid = int(ph['t'].shape[0]), int(ph['valid'].sum())
-    idx, terms = pmt.per_pmt_inputs(params, const, ph, row_edges)
+    library = per_pmt_library(params, const, ph, row_edges)
+    lib_err = compare(library(), tuple(pmt.pulse_truth_per_pmt_ref(
+        params, const, ph, row_edges).values()), name + ' library',
+        rtol_keys=(4, 5))
     check(name, lambda: pmt.pulse_truth_per_pmt(params, const, ph,
                                                 row_edges),
           lambda: pmt.pulse_truth_per_pmt_ref(params, const, ph, row_edges),
           (*(ph[k] for k in ('t', 'ch', 'gain', 'is_dpe', 'valid')),
            row_edges, params.chan_pack, params.current_max),
           ops32=n_ph * 8 + n_valid * 4, ops64=n_valid * 2,
-          rtol_keys=PER_PMT_AREAS,
-          library=lambda: torch.zeros(
-              (n_rows * C, 6), dtype=torch.float64,
-              device=dev).index_add_(0, idx, terms))
+          rtol_keys=PER_PMT_AREAS, library=library)
     print(f'[kernels-x] {name}: {n_ph} photons ({n_valid} valid) in '
-          f'{n_rows} rows x {C} channels')
+          f'{n_rows} rows x {C} channels; library computation against the '
+          f'twin: max|diff| {lib_err}')
+
+
+def count_syncs(fn):
+    """Host syncs of one call of ``fn``: the warnings torch gives under
+    ``torch.cuda.set_sync_debug_mode('warn')``, one a synchronizing
+    operation (a read-back); returns (count, the Python lines that
+    synced)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    lines = [f'{Path(w.filename).name}:{w.lineno}' for w in caught
+             if 'called a synchronizing CUDA operation' in str(w.message)]
+    return len(lines), lines
+
+
+#: the superposition rows' window batches: the bench batch (16 windows of
+#: one bench S2 each, 2048 samples), the skewed one (window 0 holds one S2
+#: of 10^6 photons, ~2,000 a row on 494 channels: a high-energy deposit)
+#: and the long one (8195 samples, not a multiple of 8, photons over the
+#: whole window: 9 of a warp's 1,024-sample tiles a row)
+SUPERPOSE_SHAPES = dict(bench=(2048, 4600, 1500), skewed=(2048, 4600, 1500),
+                        long=(8195, 4600, 20000))
+SKEWED_PHOTONS = 1_000_000
+
+
+def superpose_arena(shape, n_ch, seed, B=16):
+    """(t, ch, gain, pieces, T) of one SUPERPOSE_SHAPES batch."""
+    T, n_mean, sigma = SUPERPOSE_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    t, ch, g, pieces = s2_like_arena(rng, B, n_ch, T, n_mean, sigma)
+    if shape == 'skewed':
+        t0, ch0, g0, _ = s2_like_arena(rng, 1, n_ch, T, SKEWED_PHOTONS,
+                                       sigma)
+        n0 = int(pieces[0, 0, 1])
+        t, ch, g = (np.concatenate([a0, a[n0:]])
+                    for a0, a in ((t0, t), (ch0, ch), (g0, g)))
+        pieces[1:, 0, 0] += len(t0) - n0
+        pieces[0, 0, 1] = len(t0)
+    return t, ch, g, pieces, T
+
+
+#: the superposition's library computations (superpose_library): the
+#: gain histogram through ``conv1d`` and the taps scattered by
+#: ``index_add_`` (cuDNN's autotuner picks the same one-output-channel
+#: conv kernel as its heuristic on an H100, so it is not a third)
+SUPERPOSE_LIBRARY = ('conv1d', 'index_add')
+
+
+def superpose_library(sargs, kw, C, full=None, how='conv1d'):
+    """One superposition entry in PyTorch around one library call.
+    ``how`` 'conv1d': the float32 histogram ``H[row, r, s]`` of the gains
+    (``index_put_`` with accumulate; s = t // dt, r = t % dt, L - 1 samples
+    of padding before sample 0 and a dump column for photons past the
+    grid), ``F.conv1d`` with the flipped template bank, sliced to T;
+    'index_add' each photon's L
+    products ``gain * T[r][k]`` added into its row at samples s + k by one
+    ``index_add_`` (a dump past sample T).  Then the epilogue in torch:
+    round, noise gather, baseline, clip, int16; with ``full`` = (n_all,
+    n_top, he_lo, sum_ch, deamp) the full grid (he_lo None: without HE
+    rows) with the HE rows and the bottom sum.  Only the padded index
+    layout (each photon's row offset, each row's window and channel) is
+    computed outside the returned call, and nothing is read back.  cuDNN's
+    TF32 is off inside the call; the adds' order is not the twin's (per
+    bin first, or atomics), so the result is not bitwise the twin's."""
+    import torch
+    import torch.nn.functional as F
+    t, gain, row_ptr, templates, ch_left, ch_right, has = sargs
+    dev = t.device
+    dt, L = templates.shape
+    T = kw['n_samples']
+    n_rows = row_ptr.shape[0] - 1
+    B = n_rows // C
+    # conv1d: L - 1 padding, T samples, the dump; index_add: T samples and
+    # L - 1 + 1 past them, where a photon at s >= T is moved to s = T
+    width = T + L
+    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    rows = torch.arange(n_rows, device=dev)
+    row_off = torch.repeat_interleave(
+        rows * (width if how == 'index_add' else dt * width), counts,
+        output_size=t.shape[0])
+    w_row, c_row = rows // C, rows % C
+    weight = templates.flip(1)[None].contiguous()
+    taps = torch.arange(L, device=dev)
+    u = torch.arange(T, device=dev)
+    c2a = float(np.float32(kw['current_2_adc']))
+    base = kw['baseline']
+    bank, nix = kw.get('noise_bank'), kw.get('noise_ix')
+
+    top = rows[c_row < (full[1] if full else 0)]
+
+    def epilogue(x, in_win, sel, cols):
+        """Rows ``sel`` of the grid: x plus, in the window, the reads of
+        bank column ``cols`` (0 past the bank) and the baseline, clipped."""
+        add = base
+        if bank is not None:
+            Cn, Lb = bank.shape
+            pos = torch.remainder(nix[w_row[sel]][:, None] + u[None, :]
+                                  - ch_left[sel][:, None], Lb)
+            val = bank.reshape(-1)[cols.clamp_max(Cn - 1)[:, None] * Lb
+                                   + pos]
+            add = torch.where((cols < Cn)[:, None], val.to(torch.int32),
+                              0) + base
+        x = x + torch.where(in_win, add, 0)
+        return torch.where(in_win, torch.clamp_min(x, 0), x)
+
+    def superpose():
+        """The float32 (n_rows, T) waveforms."""
+        s = torch.div(t, dt, rounding_mode='floor')
+        if how == 'index_add':
+            idx = (row_off + s.clamp_max(T))[:, None] + taps
+            G = torch.zeros(n_rows * width, device=dev)
+            G.index_add_(0, idx.view(-1),
+                         (gain[:, None] * templates[t - s * dt]).view(-1))
+            return G.view(n_rows, width)[:, :T]
+        idx = (row_off + (t - s * dt) * width
+               + torch.where(s < T, s + (L - 1), width - 1))
+        H = torch.zeros(n_rows * dt * width, device=dev)
+        H.index_put_((idx,), gain, accumulate=True)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            return F.conv1d(H.view(n_rows, dt, width), weight)[:, 0, :T]
+
+    def call():
+        adc = (-torch.round(superpose() * c2a)).to(torch.int32)
+        in_win = ((u[None, :] >= ch_left[:, None])
+                  & (u[None, :] <= ch_right[:, None]) & has[:, None])
+        tpc = epilogue(adc, in_win, rows, c_row).to(torch.int16)
+        if full is None:
+            return tpc
+        n_all, n_top, he_lo, sum_ch, deamp = full
+        out = torch.zeros((B, n_all, T), dtype=torch.int16, device=dev)
+        out[:, :C] = tpc.view(B, C, T)
+        if he_lo is not None:
+            he = adc * deamp
+            out[:, he_lo:he_lo + n_top] = epilogue(
+                he[top], in_win[top], top, he_lo + c_row[top]).view(
+                B, n_top, T).to(torch.int16)
+            out[:, sum_ch] = he.view(B, C, T)[:, n_top:].sum(dim=1).to(
+                torch.int16)
+        return out
+    return call
+
+
+def superpose_measure(dev, smi, max_syncs=1):
+    """The four superposition rows (slim K1+K2, slim with noise K10, the
+    full grid with and without HE rows) on each batch of ``shapes``: each
+    kernel bitwise against its twin, its host syncs a call (at most one),
+    ``ms``, ``device_ms``, ``host_us`` over 1,000 calls, the twin's time,
+    the bound and the library computations of SUPERPOSE_LIBRARY (each
+    one's time, device time by kernel, samples that differ from the
+    twin's and peak device memory; the fastest is ``library_ms``).
+    Returns {row name: measurements (see make_check)}; a row off the bench
+    batch is named with the batch as a suffix.  ``max_syncs`` None counts
+    the read-backs without a limit (another checkout's wrappers)."""
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.ops.waveform import (
+        superpose_adc, superpose_adc_ref, superpose_adc_full,
+        superpose_adc_full_ref)
+    from wfsim_tpu_torch.pipeline.digitize import window_photons
+    from wfsim_tpu_torch.resources import load_config
+    from wfsim_tpu_torch.resources.synthetic import synthetic_noise
+    realism = dict(enable_noise=True, enable_pmt_afterpulses=True,
+                   enable_electron_afterpulses=True)
+    cfg_r = default_config(seed=1234, chunk_size=100, **realism)
+    cfg_x = default_config(detector='XENON1T', seed=1234, chunk_size=100,
+                           high_energy_deamplification_factor=1.0, **realism)
+    const_r, const_x = build_constants(cfg_r), build_constants(cfg_x)
+    params_r = build_params(cfg_r, load_config(cfg_r), dev)
+    params_x = build_params(cfg_x, load_config(cfg_x), dev)
+    # the he_full_grid bank: 801 columns of the production file's length
+    bank801 = torch.as_tensor(np.ascontiguousarray(
+        synthetic_noise(const_r.n_channels_total, 100_000, seed=801).T
+        .astype(np.int16)), device=dev)
+    res = {}
+    for shape in SUPERPOSE_SHAPES:
+        for name, const, params, bank, full in (
+                ('superpose_adc', const_r, params_r, None, False),
+                ('superpose_adc_noise', const_r, params_r,
+                 params_r.noise_bank, False),
+                ('superpose_adc_full', const_r, params_r, bank801, True),
+                ('superpose_adc_full_no_he', const_x, params_x,
+                 params_x.noise_bank, True)):
+            C, R, n_top = (const.n_tpc_pmts, const.n_channels_total,
+                           const.n_top_pmts)
+            t_np, ch_np, g_np, pieces, T = superpose_arena(shape, C,
+                                                           20261016)
+            B = len(pieces)
+            ph = window_photons(const, *(torch.as_tensor(a, device=dev)
+                                         for a in (t_np, ch_np, g_np)),
+                                torch.as_tensor(pieces, device=dev),
+                                n_samples=T)
+            sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+                     ph['ch_left'], ph['ch_right'], ph['has'])
+            kw = dict(current_2_adc=const.current_2_adc,
+                      baseline=const.digitizer_reference_baseline,
+                      n_samples=T)
+            nix = None
+            if bank is not None:
+                Lb = int(bank.shape[1])
+                nix = torch.as_tensor(Lb - T // 2 + np.arange(B) * 7,
+                                      dtype=torch.int32, device=dev)
+                kw.update(noise_bank=bank, noise_ix=nix)
+            he = full and const.detector == 'XENONnT'
+            layout = None
+            if full:
+                kw.update(n_channels=C, n_channels_total=R, n_top=n_top,
+                          he_start=const.he_channel_start if he else None,
+                          sum_channel=const.sum_signal_channel if he
+                          else None, deamp=const.high_energy_deamp_int)
+                layout = (R, n_top, kw['he_start'], kw['sum_channel'],
+                          kw['deamp'])
+                fn, twin = superpose_adc_full, superpose_adc_full_ref
+            else:
+                if bank is not None:
+                    kw['n_channels'] = C
+                fn, twin = superpose_adc, superpose_adc_ref
+            # bytes: the inputs, the int16 grid and an int16 bank read per
+            # in-window sample of every banked row (TPC rows, and on the
+            # full grid with HE rows their copies); operations: a template
+            # tap per photon, the epilogue per TPC sample, the HE epilogue
+            # or the bottom sum
+            n_ph = int(sargs[0].shape[0])
+            span = torch.where(ph['has'], ph['ch_right'] - ph['ch_left'] + 1,
+                               0).reshape(B, C)
+            n_reads = 0
+            if bank is not None:
+                n_reads = int(span[:, :min(C, int(bank.shape[0]))].sum())
+                if he:
+                    n_reads += int(span[:, :n_top].sum())
+            kernel = lambda f=fn, a=sargs, k=kw: f(*a, **k)      # noqa: E731
+            plain = lambda f=twin, a=sargs, k=kw: f(*a, **k)     # noqa: E731
+            out = kernel()
+            ref = plain()
+            n_diff = int((out != ref).sum())
+            row = name + ('' if shape == 'bench' else f'_{shape}')
+            syncs, where = count_syncs(kernel)
+            print(f'[superpose] {row}: {B} x {tuple(out.shape)[-2:]} '
+                  f'({n_ph} photons, largest row '
+                  f'{int((sargs[2][1:] - sargs[2][:-1]).max())}), samples '
+                  f'differing from the twin {n_diff}, host syncs a call '
+                  f'{syncs} {where}')
+            if n_diff or (max_syncs is not None and syncs > max_syncs):
+                raise AssertionError(f'{row}: the kernel differs from its '
+                                     f'twin or reads back more than once')
+            libs = {}
+            for how in SUPERPOSE_LIBRARY:
+                library = superpose_library(sargs, kw, C, layout, how)
+                library()
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                lib_out = library()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev) - before
+                lib_diff = int((lib_out != ref).sum())
+                del lib_out
+                lib_dev, lib_split = device_ms(library, reps=10)
+                libs[how] = dict(ms=cuda_ms(library), diff=lib_diff,
+                                 peak_mib=peak / 2 ** 20, device_ms=lib_dev,
+                                 split=lib_split)
+                del library
+            del out, ref
+            fastest = min(libs, key=lambda h: libs[h]['ms'])
+            L_t = int(params.templates.shape[1])
+            ops = n_ph * L_t * 2 + B * C * T * 3 + n_reads
+            if he:
+                ops += B * n_top * T * 4 + B * (C - n_top) * T * 2
+            dev_ms, by_name = device_ms(kernel)
+            m = res[row] = dict(
+                err=n_diff, ms=cuda_ms(kernel), device_ms=dev_ms,
+                plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel,
+                                                                 1000),
+                bytes=nbytes(sargs, nix) + 2 * B * (R if full else C) * T
+                + 2 * n_reads, ops32=ops, ops64=0,
+                library_ms=libs[fastest]['ms'], library_call=fastest,
+                library_calls={h: v['ms'] for h, v in libs.items()},
+                library_diff=libs[fastest]['diff'],
+                library_peak_mib=libs[fastest]['peak_mib'], syncs=syncs,
+                photons=n_ph, shape=shape)
+            b_ms, b_by = bound(m['bytes'], ops)
+            dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                     + str({k: round(v, 6) for k, v in by_name.items()}))
+            print(f'[superpose] {row}: {m["ms"]:.4f} ms, device {dev_s}, '
+                  f'host {m["host_us"]:.2f} us a call, plain twin '
+                  f'{m["plain_ms"]:.4f} ms, library call {fastest} '
+                  f'{m["library_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+                  f'({smi})')
+            for how, v in libs.items():
+                split = {}
+                for k, x in v['split'].items():
+                    split[k[:60]] = split.get(k[:60], 0.0) + x
+                top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+                print(f'[superpose] {row} library {how}: {v["ms"]:.4f} ms, '
+                      f'device {fmt_ms(v["device_ms"])}, '
+                      f'{v["diff"]} samples differ from the twin, peak '
+                      f'{v["peak_mib"]:.1f} MiB; its kernels by device ms '
+                      + str({k: round(x, 4) for k, x in top}))
+            del ph, sargs, kernel, plain
+    return res
+
+
+def per_pmt_library(params, const, ph, row_edges):
+    """K16 in PyTorch around one ``index_add_``: what
+    ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
+    (``_truth_terms``), the flat index, the float64 ``index_add_``, the
+    reshape and the int32 casts, with the valid-photon gather replaced by
+    a multiply by ``valid`` (an invalid photon adds 0 at its clamped
+    channel: the same sums).  Only each photon's row (the repeat of the
+    row edges) is computed outside the returned call."""
+    import torch
+    from wfsim_tpu_torch.models.pmt import PER_PMT_SUMS, _truth_terms
+    dev = ph['t'].device
+    C = params.gains.shape[0]
+    R = row_edges.shape[0] - 1
+    lo, hi = int(row_edges[0]), int(row_edges[-1])
+    row = torch.repeat_interleave(torch.arange(R, device=dev),
+                                  row_edges[1:] - row_edges[:-1],
+                                  output_size=hi - lo)
+
+    def call():
+        terms, chc, _bot = _truth_terms(params, const, ph)
+        idx = row * C + chc[lo:hi]
+        x = (torch.stack([v[lo:hi] for v in terms], dim=1).to(torch.float64)
+             * ph['valid'][lo:hi, None])
+        acc = torch.zeros((R * C, len(terms)), dtype=torch.float64,
+                          device=dev).index_add_(0, idx, x).reshape(R, C, -1)
+        return tuple(acc[..., k].to(torch.int32) if k < 4
+                     else acc[..., k].contiguous()
+                     for k in range(len(PER_PMT_SUMS)))
+    return call
+
+
+def kernel_rows(dev, smi):
+    """The rows ``ab_port.py --kernels`` compares between two checkouts:
+    the superposition rows on every batch (superpose_measure) and K16 on
+    494 channels with its library computation (per_pmt_kernel_check)."""
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    res = superpose_measure(dev, smi, max_syncs=None)
+    cfg = default_config(seed=1234, chunk_size=100, per_pmt_truth=True,
+                         enable_noise=True, enable_pmt_afterpulses=True,
+                         enable_electron_afterpulses=True)
+    per_pmt_kernel_check(make_check(res, 'kernels-x', smi),
+                         'pulse_truth_per_pmt', cfg,
+                         bench_instructions(512, 2000, 300), dev)
+    return res
 
 
 def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     """Phases 3g, 4g, 3h, 4h and 5h (see the module docstring); returns
-    the measurements of the per-PMT and the no-HE grid rows (see
-    make_check) and the launch counts of the 4g and 4h runs."""
+    the measurements of the per-PMT rows (see make_check) and the launch
+    counts of the 4g and 4h runs (phase 3j times the no-HE grid row)."""
     import torch
     from wfsim_tpu_torch import Simulator
     from wfsim_tpu_torch.config import default_config
@@ -1426,20 +1785,6 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     if err or grid[:, C:].any() or not grid[:, :C].any():
         raise AssertionError('superpose_adc_full without HE rows differs '
                              'from its twin or writes past the TPC')
-    # bytes: the inputs, the int16 grid and one int16 bank read per
-    # in-window TPC sample; operations: a template tap per photon and
-    # sample and the TPC epilogue (the zero rows are stores only)
-    span = torch.where(ph['has'], ph['ch_right'] - ph['ch_left'] + 1, 0)
-    n_bytes = nbytes(sargs, nix, grid) + 2 * int(span.sum())
-    ops = (len(t_np) * int(params.templates.shape[1]) * 2 + B * C * T * 3)
-    b_ms, b_by = bound(n_bytes, ops)
-    m = res['superpose_adc_full_no_he'] = timing(
-        lambda: superpose_adc_full(*sargs, **fkw),
-        lambda: superpose_adc_full_ref(*sargs, **fkw), n_bytes, ops,
-        err=err, plain_reps=5)
-    print(f'[kernels-x] superpose_adc_full (no HE rows): {m["ms"]:.4f} ms, '
-          f'device {fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} '
-          f'ms, bound {b_ms:.4f} ms by {b_by}, library call none ({smi})')
     del grid, ph, sargs
 
     # ---- 4h. the xenon1t_full_grid main path ---------------------------
@@ -2032,15 +2377,10 @@ def main():
     if err3:
         raise AssertionError('pack_records differs from its twin')
 
-    # bytes moved and operations of each call (see bound()): the grid's
-    # samples get a template tap per photon and the ADC epilogue; ZLE a
+    # bytes moved and operations of each call (see bound()): ZLE a
     # compare and a few index updates per sample; the pack one copy
-    L = int(params.templates.shape[1])
+    # (phase 3j times the superposition)
     times = dict(
-        superpose_adc=timing(
-            lambda: superpose_adc(*sargs, **skw),
-            lambda: superpose_adc_ref(*sargs, **skw), nbytes(sargs, grid),
-            len(t_np) * L * 2 + B * C * T * 3, plain_reps=5),
         zle_intervals=timing(
             lambda: zle_all_channels(*zargs, **zkw),
             lambda: zle_all_channels_ref(*zargs, **zkw), nbytes(zargs, zk),
@@ -2175,14 +2515,8 @@ def main():
         ap_photon_summaries=timing(
             lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows),
             lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows),
-            nbytes(ph_ap, u_s, sk), n_ph * 4, err=err5),
-        superpose_adc_noise=timing(
-            lambda: superpose_adc(*sargs, **nkw),
-            lambda: superpose_adc_ref(*sargs, **nkw),
-            nbytes(sargs, grid_n) + B * C * T * 2,
-            len(t_np) * L * 2 + B * C * T * 4, err=err6, plain_reps=5))
-    for name in ('pmt_afterpulse', 'ap_photon_summaries',
-                 'superpose_adc_noise'):
+            nbytes(ph_ap, u_s, sk), n_ph * 4, err=err5))
+    for name in ('pmt_afterpulse', 'ap_photon_summaries'):
         m = times[name]
         b_ms, b_by = bound(m['bytes'], m['ops32'])
         print(f'[kernels-r] {name}: {m["ms"]:.4f} ms, device '
@@ -2258,6 +2592,9 @@ def main():
                              'the CPU twins (or the batch has no '
                              'afterpulse pieces)')
 
+    # ---- 3j. the superposition entries on three window batches ------------
+    stimes = superpose_measure(dev, smi)
+
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
     ptimes = phase_3c(params_p, const_p, batches, dev, smi)
@@ -2329,8 +2666,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- 3e / 4e / 5e. the he_full_grid configuration ----------------------
-    ftimes, launches_f = phase_full_grid(sargs, skw, ph, B, T, K, inst, dev,
-                                         smi)
+    launches_f = phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi)
 
     # ---- 3f / 4f / 5f. the timing_models configuration ---------------------
     ttimes, launches_t = phase_timing_models(dev, smi)
@@ -2359,12 +2695,28 @@ def main():
                          plain_ms=m['plain_ms'], bound_ms=b_ms, bound_by=b_by,
                          library_ms=m['library_ms']))
 
-    times['superpose_adc']['err'] = max(err1, err6)
+    for row, m in stimes.items():
+        name = row.removesuffix('_' + m['shape'])
+        rep, entry, counts = {
+            'superpose_adc': ('wfsim_tpu/ops/waveform.py:68; '
+                              'wfsim_tpu/ops/waveform.py:146',
+                              'wfsim_superpose_adc', launches),
+            'superpose_adc_noise': ('wfsim_tpu/pipeline/digitize.py:67',
+                                    'wfsim_superpose_adc', launches_r),
+            'superpose_adc_full': ('wfsim_tpu/pipeline/digitize.py:341; '
+                                   'wfsim_tpu/pipeline/digitize.py:96',
+                                   'wfsim_superpose_adc_full', launches_f),
+            'superpose_adc_full_no_he': (
+                'wfsim_tpu/pipeline/digitize.py:341; '
+                'wfsim_tpu/pipeline/digitize.py:96',
+                'wfsim_superpose_adc_full', launches_x)}[name]
+        measured(row, 'superpose_adc.cu', rep, [entry], counts, m)
+        rows[-1].update(library_call=m['library_call'],
+                        library_calls=m['library_calls'],
+                        library_diff=m['library_diff'],
+                        library_peak_mib=m['library_peak_mib'],
+                        syncs=m['syncs'], photons=m['photons'])
     for name, cu, rep, entries, counts in (
-            ('superpose_adc', 'superpose_adc.cu',
-             'wfsim_tpu/ops/waveform.py:68; '
-             'wfsim_tpu/pipeline/digitize.py:67', ['wfsim_superpose_adc'],
-             launches),
             ('zle_intervals', 'zle_intervals.cu', 'wfsim_tpu/ops/zle.py:119',
              ['wfsim_zle_intervals'], launches),
             ('pack_records', 'pack_records.cu',
@@ -2377,11 +2729,6 @@ def main():
              'wfsim_tpu/models/afterpulse.py:184',
              ['wfsim_ap_photon_summaries'], launches_r)):
         measured(name, cu, rep, entries, counts, times[name])
-        if name == 'superpose_adc':
-            measured('superpose_adc_full', 'superpose_adc.cu',
-                     'wfsim_tpu/pipeline/digitize.py:341; '
-                     'wfsim_tpu/pipeline/digitize.py:96',
-                     ['wfsim_superpose_adc_full'], launches_f, ftimes)
     for name, cu, rep in (
             ('channel_draw', 'channel_draw.cu', K5_REPLACES),
             ('channel_draw_skewed', 'channel_draw.cu', K5_REPLACES),
@@ -2427,11 +2774,6 @@ def main():
     measured('pulse_truth_per_pmt', 'pmt_response.cu',
              'wfsim_tpu/models/pmt.py:146', ['wfsim_pmt_row_truth_per_pmt'],
              launches_p, xtimes['pulse_truth_per_pmt'])
-    measured('superpose_adc_full_no_he', 'superpose_adc.cu',
-             'wfsim_tpu/pipeline/digitize.py:341; '
-             'wfsim_tpu/pipeline/digitize.py:96',
-             ['wfsim_superpose_adc_full'], launches_x,
-             xtimes['superpose_adc_full_no_he'])
     measured('superpose_block', 'superpose_adc.cu',
              'wfsim_tpu/parallel/sharding.py:54', ['wfsim_superpose_block'],
              launches_m, mtimes)

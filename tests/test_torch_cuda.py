@@ -845,3 +845,133 @@ def test_superpose_block_matches_twin(setup, dev, n_blocks, n_ch_shards, T):
         assert adc.shape == (n_blocks * C_loc, T) and sums.shape == (n_blocks, T)
         assert torch.equal(adc, adc_r) and torch.equal(sums, sums_r)
         assert bool(adc.any())
+
+
+# ---------------------------------------------------------------------------
+# the row-tile superposition kernels (slim, slim with noise, full grid
+# with and without HE rows) on the batches of tests/superpose_cases.py, and
+# the status word their wrappers read back once a call
+
+
+def superpose_inputs(case, grid, dev):
+    """(wrapper, twin, args, kw) of one grid of tests/
+    test_torch_superpose_redesign.py's GRIDS on one case."""
+    from wfsim_tpu_torch.ops.waveform import (superpose_adc_full,
+                                              superpose_adc_full_ref)
+    from wfsim_tpu_torch.resources.synthetic import synthetic_noise
+    from .superpose_cases import superpose_case
+    t, ch, g, pieces, T = superpose_case(case)
+    det, width, factor = dict(
+        slim=('XENONnT', None, 0), slim_noise=('XENONnT', 494, 0),
+        full=('XENONnT', 801, 1), no_he=('XENON1T', 248, 1))[grid]
+    c = default_config(detector=det)
+    const = build_constants(c)
+    params = build_params(c, load_config(c), dev)
+    ph = window_photons(const, *(torch.as_tensor(a, device=dev)
+                                 for a in (t, ch, g)),
+                        torch.as_tensor(pieces, device=dev), n_samples=T)
+    args = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+            ph['ch_left'], ph['ch_right'], ph['has'])
+    C = const.n_tpc_pmts
+    kw = dict(current_2_adc=const.current_2_adc,
+              baseline=const.digitizer_reference_baseline, n_samples=T)
+    if width:
+        kw.update(n_channels=C, noise_ix=torch.tensor(
+            [2700, 100, 1400][:len(pieces)], dtype=torch.int32, device=dev),
+            noise_bank=torch.as_tensor(np.ascontiguousarray(synthetic_noise(
+                width, 3000, seed=9).T.astype(np.int16)), device=dev))
+    if grid in ('slim', 'slim_noise'):
+        return superpose_adc, superpose_adc_ref, args, kw
+    he = grid == 'full'
+    kw.update(n_channels=C, n_channels_total=const.n_channels_total,
+              n_top=const.n_top_pmts,
+              he_start=const.he_channel_start if he else None,
+              sum_channel=const.sum_signal_channel if he else None,
+              deamp=factor)
+    return superpose_adc_full, superpose_adc_full_ref, args, kw
+
+
+@pytest.mark.parametrize('grid', ['slim', 'slim_noise', 'full', 'no_he'])
+@pytest.mark.parametrize('case', [
+    'T = 8195', 'a row with 3,000 photons', 'photons at the window end',
+    'an empty row and an empty window', 'left not a multiple of 8'])
+def test_superpose_kernels_match_twins_on_cases(dev, case, grid):
+    fn, twin, args, kw = superpose_inputs(case, grid, dev)
+    k = _build.KERNELS['wfsim_superpose_adc' if fn is superpose_adc
+                       else 'wfsim_superpose_adc_full']
+    before = k.launches
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    ref = twin(*args, **kw)
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    assert out.any()
+
+
+@pytest.mark.parametrize('shape', [(5, 13), (10, 40)])
+def test_superpose_kernels_other_template_banks(dev, shape):
+    """A template bank other than 10 x 22 (the kernels' runtime-sized
+    instance; 40 taps: more than a warp's 32 lanes)."""
+    fn, twin, args, kw = superpose_inputs('T = 8195', 'full', dev)
+    fn_s, twin_s, args_s, kw_s = superpose_inputs('T = 8195', 'slim_noise',
+                                                  dev)
+    tmpl = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.0, 0.02, shape).astype(np.float32), device=dev)
+    for f, tw, a, k in ((fn, twin, args, kw), (fn_s, twin_s, args_s, kw_s)):
+        a = list(a)
+        a[3] = tmpl
+        assert torch.equal(f(*a, **k), tw(*a, **k))
+
+
+def test_superpose_status_word_raises(dev):
+    """A negative photon time, a noise offset out of range and an HE value
+    past 16 bits each raise after the kernel's launch, from one read-back
+    of the status word (one synchronizing operation a call)."""
+    import warnings
+    from wfsim_tpu_torch.ops.waveform import superpose_adc_full
+
+    def syncs_and_error(fn, args, kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                fn(*args, **kw)
+                err = None
+            except (ValueError, OverflowError) as e:
+                err = e
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        lines = [f'{w.filename}:{w.lineno}' for w in caught
+                 if 'called a synchronizing CUDA operation' in str(w.message)]
+        return len(lines), err, lines
+
+    for grid in ('slim_noise', 'full'):
+        fn, _twin, args, kw = superpose_inputs('photons at the window end',
+                                               grid, dev)
+        n, err, lines = syncs_and_error(fn, args, kw)
+        assert n == 1 and err is None, lines
+        t = args[0].clone()
+        t[5] = -3
+        n, err, lines = syncs_and_error(fn, (t, *args[1:]), kw)
+        assert n == 1, lines
+        assert isinstance(err, ValueError) and '>= 0' in str(err)
+        nix = kw['noise_ix'].clone()
+        nix[1] = 2 ** 30
+        n, err, lines = syncs_and_error(fn, args, dict(kw, noise_ix=nix))
+        assert n == 1, lines
+        assert isinstance(err, ValueError) and '2^30' in str(err)
+        # no samples: no launch, the same checks from one read-back
+        for targs, tkw, msg in (((t, *args[1:]), kw, '>= 0'),
+                                (args, dict(kw, noise_ix=nix), '2^30')):
+            n, err, lines = syncs_and_error(fn, targs,
+                                            dict(tkw, n_samples=0))
+            assert n == 1, lines
+            assert isinstance(err, ValueError) and msg in str(err)
+        n, err, lines = syncs_and_error(fn, args, dict(kw, n_samples=0))
+        assert n == 1 and err is None, lines
+    # full grid: |adc x factor| past 2^16 in the HE rows
+    args, kw, _ph = full_grid_inputs(5, dev, 0.2, 1.0)
+    n, err, lines = syncs_and_error(superpose_adc_full, args,
+                                    dict(kw, deamp=2000))
+    assert n == 1 and isinstance(err, OverflowError), lines

@@ -12,33 +12,58 @@
 // or in its mode without HE rows the XENON1T grid.
 //
 // What bounds it on the H100: writing the int16 grid (B*494 rows x T
-// samples, 2 bytes each; B*801 rows on the full grid) and, per output
-// sample, one pass over its row's photons.  The TPU form built a float32
-// (rows, 10, T) histogram in HBM and contracted it on the MXU; here no
-// float grid ever reaches device memory: each thread owns one output
-// sample, keeps its sum in a register and stores the final int16 once.
-// Photons arrive sorted by row with row offsets, so a block reads only its
-// own row's photons (the same address for every thread of the block: a
-// broadcast load).  The 10 x 22 template bank sits in shared memory.
+// samples, 2 bytes each; B*801 rows on the full grid) plus the noise
+// reads.  The TPU form built a float32 (rows, 10, T) histogram in HBM and
+// contracted it on the MXU; here no float grid reaches device memory.
+//
+// Design (both entries).  A warp owns a tile of kSpan = 1024 samples of
+// one row (two warps a row at 2048 samples): blocks of kWarps warps, a 1-d
+// grid over (row, tile), so a warp finds its row, tile, window and channel
+// with one division each.  A row's tiles start at its first 16-byte
+// boundary in the output.  The warp accumulates its tile in shared memory
+// (float32, 4 KB).  The scatter: the warp reads its row's photons 32 at a
+// time, a lane each (the next 32's loads issued before this 32's adds; s =
+// t / dt and r = t - s * dt, with dt = 10 and the template length 22 as
+// template arguments), ballots those whose taps reach the tile, and walks
+// them in row order.  Lane l adds the tap that lands on a sample u = lo + l
+// mod 32: a sample is only ever added to by one lane, so it sees its
+// photons in row order by that lane's program order, with no sync between
+// photons, and a photon's 22 taps go to 22 lanes (each lane on its own
+// shared-memory bank).  A step forms the products of kPerStep = 4 photons
+// (shuffles and template reads overlapped), then adds them in order: the
+// chain a photon is one shared-memory add.  A sample costs ~22 products a
+// photon that touches it, where a thread a sample (the earlier design,
+// still K14's below) tested every photon of its row for every sample; a
+// row of thousands of photons (one S2 of 10^6 photons in a window) is
+// split between its tiles' warps.  The epilogue reads the tile back 8
+// samples a lane (two float4 loads) and stores 16-byte int16 vectors: a
+// warp writes 512 contiguous bytes a store.  A sample before the row
+// start or past its end is skipped, and a group that is not 16-byte
+// aligned in its output row (an HE row at a row length that is not a
+// multiple of 8) is stored sample by sample.  The noise index is one
+// modulo a group of 8, then a step with wrap.  The 10 x 22 template bank
+// is loaded once a block (dynamic shared memory).
 //
 // Numerics: each sample sums gain*T[t%10][u - t/10] over its row's photons
-// in their sorted order with __fmul_rn/__fadd_rn (no FMA contraction and
-// no atomics), so the result is deterministic and bitwise equal to the
-// plain twin superpose_adc_ref, which adds the same products in the same
-// order.  The JAX package sums per histogram bin first and then contracts,
-// so an ADC value within an f32 ulp of a .5 tie may round the other way;
-// the tests count such tie samples and require 0 at their seeds.
+// in their sorted order with __fmul_rn/__fadd_rn from 0.0f (no FMA
+// contraction and no atomics), so the result is deterministic and bitwise
+// equal to the plain twin superpose_adc_ref, which adds the same products
+// in the same order (photon i of every row at step i).  The JAX package
+// sums per histogram bin first and then contracts, so an ADC value within
+// an f32 ulp of a .5 tie may round the other way; the tests count such
+// tie samples and require 0 at their seeds.
 //
 // Noise (realistic config): row (w, c) of the batch, for c < Cn, adds at
 // in-window sample u the bank value bank[c, (noise_ix[w] + u - left) % L]
 // (reference rawdata.py:407-431).  The TPU read one contiguous span per
-// row from a wrap-extended copy of the bank; here the thread that owns u
-// reads one int16 of the plain channel-major bank (Cn, L) at a modular
-// index.  The index is formed only in the window, where u >= left and
-// noise_ix >= 0 (checked by the wrapper), so it is never negative and C's
-// % agrees with the twin's floor-mod.  Integer adds are associative, so
-// adc + noise + baseline is bitwise the twin's sum in any order.  With no
-// bank (bank == nullptr) the kernel is the noise-free one.
+// row from a wrap-extended copy of the bank; here the lane that owns u
+// reads one int16 of the plain channel-major bank (Cn, L).  The index is
+// formed only in the window, where u >= left, in unsigned arithmetic: it
+// cannot wrap while 0 <= noise_ix < 2^30 and L < 2^30, and it stays inside
+// the bank even where noise_ix is out of range (the kernel flags that).
+// Integer adds are associative, so adc + noise + baseline is bitwise the
+// twin's sum in any order.  With no bank (bank == nullptr) the kernel is
+// the noise-free one.
 //
 // Full grid (wfsim_superpose_adc_full).  Rows of window w: the TPC
 // channels 0..C-1; the high-energy copies of the n_top top-array channels
@@ -47,37 +72,44 @@
 // (the sum over c >= n_top of adc * deamp, unmasked: no noise, no
 // baseline, no clip); every other row 0.  The JAX package concatenates
 // int32 (B, rows, T) blocks and takes elementwise passes over the whole
-// int32 grid.  Here the thread that owns TPC sample (w, c, u) computes the
-// superposition once and writes both TPC row c and, for c < n_top, HE row
-// he_lo + c; for c >= n_top it adds adc * deamp into the window's int32
-// sum row by integer atomics (skipped where it is 0).  Integer addition is
+// int32 grid.  Here the warp of TPC row c computes the superposition once
+// and writes both TPC row c and, for c < n_top, HE row he_lo + c; for
+// c >= n_top it adds adc * deamp into the window's int32 sum row by
+// integer atomics (skipped where it is 0).  Integer addition is
 // associative modulo 2^32, so the sum is bitwise the twin's in any order.
-// One small follow-on launch casts the sum row to int16 and zeroes the
-// gap rows, so no int32 (B, 801, T) grid ever reaches device memory: only
-// the (B, T) int32 sum scratch.  Integer semantics are XLA's: adc * deamp
-// and the adds wrap modulo 2^32 (done in unsigned arithmetic, where C++
-// defines the wrap) and the int16 stores keep the low 16 bits, as
-// astype(int16) does.  What bounds it: the 801 int16 rows a window (1.6x
-// the slim grid) plus the noise reads of both the TPC and the HE rows.
+// Further warps of the same launch zero the gap rows; one small follow-on
+// launch casts the sum rows to int16 once every atomic has landed, so no
+// int32 (B, 801, T) grid ever reaches device memory: only the (B, T) int32
+// sum scratch.  Integer semantics are XLA's: adc * deamp and the adds wrap
+// modulo 2^32 (done in unsigned arithmetic, where C++ defines the wrap)
+// and the int16 stores keep the low 16 bits, as astype(int16) does.
 // wfsim_tpu runs ZLE on the int32 grid; the port's ZLE reads the int16
 // grid with in-window negatives taken as never below threshold
 // (zle_intervals.cu), which is exact while every in-window value is below
-// 2^16.  A value at or above 2^16 sets the overflow word of the scratch,
-// and the wrapper raises.
+// 2^16.  A value at or above 2^16 sets a bit of the status word.
 //
 // Full grid without HE rows (wfsim_tpu digitize.py:346-391 with he_on
 // false: XENON1T, 248 TPC rows in an 801-row window).  The same entry with
 // n_he = 0 copies, he_lo = n_ch and no sum row (sum_ch = -1, no sum
-// scratch): the main kernel writes the TPC rows only, and the follow-on
-// launch zeroes rows n_ch..n_all-1.  Those rows have no window, so they get
-// no noise even where the bank is wider than the TPC (digitize.py:399-403).
+// scratch): one launch writes the TPC rows and zeroes rows
+// n_ch..n_all-1.  Those rows have no window, so they get no noise even
+// where the bank is wider than the TPC (digitize.py:399-403).
+//
+// The status word.  Both entries clear one int32 word and the kernel ORs
+// into it: kNegativeTime where a photon time is < 0 (C's / and % truncate
+// where jnp's floor; such a photon adds nothing), kBadNoiseIx where a
+// window's noise_ix lies outside [0, 2^30), kOverflow as above.  The
+// wrapper reads the word back once a call and raises.
 //
 // Channel block of the multi-device step (wfsim_superpose_block, K14).
 // Replaces the per-shard digitization of wfsim_tpu/parallel/sharding.py:
 // 101-117 make_sharded_step: photons_to_waveform of the shard's PMT block,
 // adc = -round(W * current_2_adc) as int32, and the block's bottom-array
 // partial sum that the psum over 'channels' completes.  No window, no
-// baseline, no int16 storage.  The thread that owns sample (row, u)
+// baseline, no int16 storage.  K14 still uses the old per-sample loop (a
+// thread per output sample, testing every photon of its row: each of 2^16
+// samples scans its row's ~200 photons); the row-tile scatter above is
+// what its redesign starts from.  The thread that owns sample (row, u)
 // computes the superposition in the fixed photon order above (F4: bitwise
 // the twin superpose_block_ref), stores its int32 ADC, and for a row of a
 // bottom-array channel (n_top <= ch_block + c < n_tpc) adds it into the
@@ -87,16 +119,23 @@
 // (row, sample), 129.5 MB at 494 rows x 2^16 samples; the collective
 // itself (all_reduce of the (B, T) sum rows) is NCCL's or gloo's, as the
 // JAX package left the psum to XLA.
-//
-// Window-relative photon times are >= 0 (the window starts margin_l
-// samples before its first photon); the wrapper checks it, because C's / and
-// % truncate where jnp's floor.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kTile = 128;
 constexpr int kMaxTemplate = 1024;
+
+constexpr int kWarps = 4;             // warps a block of the row kernels
+constexpr int kSpan = 1024;           // samples a warp: 4 groups of 8 a lane
+constexpr int kPerStep = 4;           // photons a step of the scatter
+constexpr unsigned kAll = 0xffffffffu;
+
+// bits of the status word (ops/waveform.py reads them)
+constexpr int kOverflow = 1;
+constexpr int kNegativeTime = 2;
+constexpr int kBadNoiseIx = 4;
 
 __device__ __forceinline__ void load_templates(float* tmpl,
                                                const float* templates, int n) {
@@ -105,7 +144,7 @@ __device__ __forceinline__ void load_templates(float* tmpl,
 }
 
 // -round_half_even(W * current_2_adc) of sample u, as digitize.py:299, W
-// summed over photons p0..p1-1 in their order
+// summed over photons p0..p1-1 in their order (K14's per-sample loop)
 __device__ __forceinline__ int superposed_adc(
     const int* __restrict__ t, const float* __restrict__ gain, int p0, int p1,
     int u, int dt, int tlen, const float* tmpl, float current_2_adc) {
@@ -122,14 +161,6 @@ __device__ __forceinline__ int superposed_adc(
   return -static_cast<int>(rintf(__fmul_rn(acc, current_2_adc)));
 }
 
-// bank[col, x % L]; 0 <= noise_ix < 2^30 and L < 2^30 (wrapper), so the
-// 32-bit unsigned index x cannot have wrapped
-__device__ __forceinline__ int bank_at(const short* __restrict__ bank,
-                                       int bank_len, int col, unsigned x) {
-  return bank[static_cast<long long>(col) * bank_len +
-              x % static_cast<unsigned>(bank_len)];
-}
-
 // int32 add and multiply that wrap modulo 2^32, as XLA's do
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -138,120 +169,315 @@ __device__ __forceinline__ int wrap_mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
 
-__global__ void superpose_adc_kernel(
-    const int* __restrict__ t, const float* __restrict__ gain,
-    const int* __restrict__ row_ptr, int n_rows, int n_samples,
-    const float* __restrict__ templates, int dt, int tlen,
-    const int* __restrict__ ch_left, const int* __restrict__ ch_right,
-    const unsigned char* __restrict__ has, float current_2_adc, int baseline,
-    const short* __restrict__ bank, int bank_len, int bank_ch,
-    const int* __restrict__ noise_ix, int n_ch, short* __restrict__ out) {
-  __shared__ float tmpl[kMaxTemplate];
-  load_templates(tmpl, templates, dt * tlen);
+// what both row kernels read: the photons sorted by row, the windows, the
+// epilogue constants, the bank, and (full grid) the layout
+struct RowArgs {
+  const int* t;
+  const float* gain;
+  const int* row_ptr;
+  int n_rows;                 // rows with photons (B * n_ch on the full grid)
+  int n_photons;
+  int n_samples;
+  const float* templates;
+  int dt, tlen;
+  const int* ch_left;
+  const int* ch_right;
+  const unsigned char* has;
+  float c2a;
+  int baseline;
+  const short* bank;          // (bank_ch, bank_len) int16, or null
+  int bank_len, bank_ch;
+  const int* noise_ix;        // (B,), with a bank
+  int n_ch;                   // rows a window (0: slim grid without a bank)
+  int n_seg;                  // kSpan-sample tiles a row
+  int n_all, n_top, n_he, he_lo, sum_ch, deamp;
+  int n_zero;                 // zero rows a window the main launch writes
+  int* sum32;                 // (B, n_samples) or null
+  int* status;
+  short* out;
+};
 
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long bid = blockIdx.x;
-  const int row = static_cast<int>(bid / tiles);
-  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
-  if (row >= n_rows || u >= n_samples) return;
-
-  int v = superposed_adc(t, gain, row_ptr[row], row_ptr[row + 1], u, dt, tlen,
-                         tmpl, current_2_adc);
-  const int left = ch_left[row];
-  if (has[row] && u >= left && u <= ch_right[row]) {
-    if (bank != nullptr) {
-      const int w = row / n_ch;
-      const int c = row - w * n_ch;
-      if (c < bank_ch)
-        v += bank_at(bank, bank_len, c,
-                     static_cast<unsigned>(noise_ix[w]) +
-                         static_cast<unsigned>(u - left));
-    }
-    v += baseline;
-    v = v < 0 ? 0 : v;
-  }
-  out[static_cast<long long>(row) * n_samples + u] = static_cast<short>(v);
+// samples from the row start to its first 16-byte boundary in memory, as
+// a negative origin: sample u is aligned where (u - origin) % 8 == 0
+__device__ __forceinline__ int row_origin(const short* row) {
+  return -static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 1) & 7);
 }
 
-// one thread per TPC sample (w, c, u): TPC row c, HE row he_lo + c (c <
-// n_he) or the atomic bottom sum (c >= n_top, with a sum row: sum32 not
-// null); out is (B, n_all, T)
-__global__ void superpose_adc_full_kernel(
-    const int* __restrict__ t, const float* __restrict__ gain,
-    const int* __restrict__ row_ptr, int n_rows, int n_samples,
-    const float* __restrict__ templates, int dt, int tlen,
-    const int* __restrict__ ch_left, const int* __restrict__ ch_right,
-    const unsigned char* __restrict__ has, float current_2_adc, int baseline,
-    const short* __restrict__ bank, int bank_len, int bank_ch,
-    const int* __restrict__ noise_ix, int n_ch, int n_all, int n_top,
-    int n_he, int he_lo, int deamp, int* __restrict__ sum32,
-    int* __restrict__ overflow, short* __restrict__ out) {
-  __shared__ float tmpl[kMaxTemplate];
-  load_templates(tmpl, templates, dt * tlen);
-
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long bid = blockIdx.x;
-  const int row = static_cast<int>(bid / tiles);
-  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
-  if (row >= n_rows || u >= n_samples) return;
-  const int w = row / n_ch;
-  const int c = row - w * n_ch;
-
-  const int adc = superposed_adc(t, gain, row_ptr[row], row_ptr[row + 1], u,
-                                 dt, tlen, tmpl, current_2_adc);
-  const int left = ch_left[row];
-  const bool in_win = has[row] && u >= left && u <= ch_right[row];
-  const unsigned x = in_win ? static_cast<unsigned>(noise_ix == nullptr
-                                                        ? 0 : noise_ix[w]) +
-                                  static_cast<unsigned>(u - left)
-                            : 0u;
-  const long long win_row = static_cast<long long>(w) * n_all;
-
-  int v = adc;
-  if (in_win) {
-    if (bank != nullptr && c < bank_ch) v += bank_at(bank, bank_len, c, x);
-    v += baseline;
-    v = v < 0 ? 0 : v;
-    if (v >= 65536) atomicOr(overflow, 1);
+// samples u0..u0+7 of a row of n: one 16-byte store where the group lies
+// inside the row on a 16-byte boundary, else the samples inside the row
+__device__ __forceinline__ void store8(short* row, int u0, const int (&v)[8],
+                                       int n) {
+  if (u0 >= 0 && u0 + 8 <= n &&
+      (reinterpret_cast<uintptr_t>(row + u0) & 15) == 0) {
+    unsigned q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = (static_cast<unsigned>(v[2 * j]) & 0xffffu) |
+             (static_cast<unsigned>(v[2 * j + 1]) << 16);
+    *reinterpret_cast<uint4*>(row + u0) = make_uint4(q[0], q[1], q[2], q[3]);
+    return;
   }
-  out[(win_row + c) * n_samples + u] = static_cast<short>(v);
-
-  const int he = wrap_mul(adc, deamp);
-  if (c < n_he) {
-    int h = he;
-    if (in_win) {
-      if (bank != nullptr && he_lo + c < bank_ch)
-        h = wrap_add(h, bank_at(bank, bank_len, he_lo + c, x));
-      h = wrap_add(h, baseline);
-      h = h < 0 ? 0 : h;
-      if (h >= 65536) atomicOr(overflow, 1);
-    }
-    out[(win_row + he_lo + c) * n_samples + u] = static_cast<short>(h);
-  } else if (sum32 != nullptr && c >= n_top && he != 0) {
-    atomicAdd(sum32 + static_cast<long long>(w) * n_samples + u, he);
-  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (u0 + j >= 0 && u0 + j < n) row[u0 + j] = static_cast<short>(v[j]);
 }
 
-// the rows the main kernel does not write: the gap rows (0) and the sum
-// row (its int32 sum, low 16 bits; sum_ch < 0: none)
-__global__ void full_grid_rest_kernel(int n_win, int n_samples, int n_ch,
-                                      int n_all, int n_he, int he_lo,
-                                      int sum_ch, const int* __restrict__ sum32,
-                                      short* __restrict__ out) {
-  const int gap1 = he_lo - n_ch;
-  const int n_rest = gap1 + (n_all - he_lo - n_he);
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long bid = blockIdx.x;
-  const long long wj = bid / tiles;
-  const int w = static_cast<int>(wj / n_rest);
-  const int j = static_cast<int>(wj - static_cast<long long>(w) * n_rest);
-  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
-  if (w >= n_win || u >= n_samples) return;
-  const int row = j < gap1 ? n_ch + j : he_lo + n_he + (j - gap1);
-  const short v = row == sum_ch
-      ? static_cast<short>(sum32[static_cast<long long>(w) * n_samples + u])
-      : static_cast<short>(0);
-  out[(static_cast<long long>(w) * n_all + row) * n_samples + u] = v;
+__device__ __forceinline__ void zero_row(short* row, int n, int lane) {
+  const int zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int u0 = row_origin(row) + 8 * lane; u0 < n; u0 += 256)
+    store8(row, u0, zero, n);
+}
+
+// photon times < 0 flag the status word; a photon outside every row
+// ([0, row_ptr[0]) and [row_ptr[n_rows], n)) is checked by the first warp
+__device__ __forceinline__ int stray_negative_times(const RowArgs& a,
+                                                    int lane) {
+  int bad = 0;
+  for (int p = lane; p < a.row_ptr[0]; p += 32)
+    if (a.t[p] < 0) bad = kNegativeTime;
+  for (int p = a.row_ptr[a.n_rows] + lane; p < a.n_photons; p += 32)
+    if (a.t[p] < 0) bad = kNegativeTime;
+  return bad;
+}
+
+// A warp a tile of kSpan samples of a row (see the file header); warps
+// past the rows' tiles (full grid) zero the gap rows, n_zero a window, the
+// sum row skipped (the follow-on launch writes it).
+template <int DT, int TL, bool FULL>
+__global__ void __launch_bounds__(kWarps * 32)
+    superpose_rows_kernel(const RowArgs a) {
+  extern __shared__ float tmpl[];
+  __shared__ __align__(16) float tiles[kWarps * kSpan];
+  const int dt = DT > 0 ? DT : a.dt;
+  const int tlen = TL > 0 ? TL : a.tlen;
+  load_templates(tmpl, a.templates, dt * tlen);
+
+  const int lane = threadIdx.x & 31;
+  float* tile = tiles + (threadIdx.x >> 5) * kSpan;
+  float4* tile4 = reinterpret_cast<float4*>(tile);
+  const long long gw = static_cast<long long>(blockIdx.x) * kWarps +
+                       (threadIdx.x >> 5);
+  const int T = a.n_samples;
+  const long long n_items = static_cast<long long>(a.n_rows) * a.n_seg;
+  if (gw >= n_items) {
+    const long long j = gw - n_items;
+    if (!FULL || j >= static_cast<long long>(a.n_rows / a.n_ch) * a.n_zero)
+      return;                          // the last block's spare warps
+    const int w = static_cast<int>(j / a.n_zero);
+    const int k = static_cast<int>(j - static_cast<long long>(w) * a.n_zero);
+    const int gap1 = a.he_lo - a.n_ch;
+    int r = k < gap1 ? a.n_ch + k : a.he_lo + a.n_he + (k - gap1);
+    if (a.sum_ch >= 0 && r >= a.sum_ch) ++r;
+    if (r < a.n_all)
+      zero_row(a.out + (static_cast<long long>(w) * a.n_all + r) * T, T,
+               lane);
+    return;
+  }
+  const int row = static_cast<int>(gw / a.n_seg);
+  const int seg = static_cast<int>(gw - static_cast<long long>(row) * a.n_seg);
+  const int w = a.n_ch > 0 ? row / a.n_ch : 0;
+  const int c = row - w * a.n_ch;
+  short* out_row = a.out + (FULL ? static_cast<long long>(w) * a.n_all + c
+                                 : static_cast<long long>(row)) * T;
+  // the tile's samples [lo, hi), lo on a 16-byte boundary of out_row
+  const int lo = row_origin(out_row) + seg * kSpan;
+  if (lo >= T) return;                 // a row that starts on a boundary
+  const int hi = min(lo + kSpan, T);
+  short* he_row = FULL && c < a.n_he
+      ? a.out + (static_cast<long long>(w) * a.n_all + a.he_lo + c) * T
+      : nullptr;
+  int* sum_row = FULL && a.sum32 != nullptr && c >= a.n_top
+      ? a.sum32 + static_cast<long long>(w) * T : nullptr;
+  const int p0 = a.row_ptr[row];
+  const int p1 = a.row_ptr[row + 1];
+  const int left = a.ch_left[row];
+  const int right = a.ch_right[row];
+  const bool has = a.has[row] != 0;
+  const short* bank_tpc = a.bank != nullptr && c < a.bank_ch
+      ? a.bank + static_cast<long long>(c) * a.bank_len : nullptr;
+  const short* bank_he = a.bank != nullptr && he_row != nullptr &&
+                         a.he_lo + c < a.bank_ch
+      ? a.bank + static_cast<long long>(a.he_lo + c) * a.bank_len : nullptr;
+  const unsigned L = static_cast<unsigned>(a.bank_len);
+  const bool any = p1 > p0;
+
+  int bad = gw == 0 ? stray_negative_times(a, lane) : 0;
+  unsigned nix = 0;
+  if (a.noise_ix != nullptr) {
+    const int x = a.noise_ix[w];
+    if (x < 0 || x >= (1 << 30)) bad |= kBadNoiseIx;
+    nix = static_cast<unsigned>(x);
+  }
+
+  // the scatter: photons in row order, each photon's taps in [lo, hi)
+  if (any) {
+    for (int i = lane; i < kSpan / 4; i += 32)
+      tile4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncwarp();
+    // the next 32 photons' loads are issued before this 32's adds
+    int t_next = p0 + lane < p1 ? a.t[p0 + lane] : 0;
+    float g_next = p0 + lane < p1 ? a.gain[p0 + lane] : 0.0f;
+    for (int base = p0; base < p1; base += 32) {
+      const int tt = t_next;
+      const float g = g_next;
+      if (base + 32 + lane < p1) {
+        t_next = a.t[base + 32 + lane];
+        g_next = a.gain[base + 32 + lane];
+      }
+      int s = 0, r = 0;
+      bool hit = false;
+      if (base + lane < p1) {
+        if (tt < 0) {
+          bad |= kNegativeTime;
+        } else {
+          s = tt / dt;
+          r = tt - s * dt;
+          hit = s + tlen > lo && s < hi;
+        }
+      }
+      // lane l adds the taps that land on samples u = lo + l mod 32, so
+      // each sample sees its photons in row order; a step forms the
+      // products of kPerStep photons, then adds them in order
+      unsigned todo = __ballot_sync(kAll, hit);
+      if constexpr (TL > 0 && TL <= 32) {
+        while (todo) {                  // one tap a lane at most
+          int ux[kPerStep];
+          float qx[kPerStep];
+          bool ok[kPerStep];
+#pragma unroll
+          for (int m = 0; m < kPerStep; ++m) {
+            const bool have = todo != 0;
+            const int j = have ? __ffs(todo) - 1 : 0;
+            if (have) todo &= todo - 1;
+            const int sj = __shfl_sync(kAll, s, j);
+            const int rj = __shfl_sync(kAll, r, j);
+            const float gj = __shfl_sync(kAll, g, j);
+            const int k = (lo + lane - sj) & 31;
+            ux[m] = sj + k - lo;
+            ok[m] = have && k < TL && ux[m] >= 0 && sj + k < hi;
+            qx[m] = ok[m] ? __fmul_rn(gj, tmpl[rj * TL + k]) : 0.0f;
+          }
+#pragma unroll
+          for (int m = 0; m < kPerStep; ++m)
+            if (ok[m]) tile[ux[m]] = __fadd_rn(tile[ux[m]], qx[m]);
+        }
+      } else {
+        while (todo) {
+          const int j = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int sj = __shfl_sync(kAll, s, j);
+          const int rj = __shfl_sync(kAll, r, j);
+          const float gj = __shfl_sync(kAll, g, j);
+          for (int k = (lo + lane - sj) & 31; k < tlen; k += 32) {
+            const int u = sj + k;
+            if (u >= lo && u < hi)
+              tile[u - lo] = __fadd_rn(tile[u - lo],
+                                       __fmul_rn(gj, tmpl[rj * tlen + k]));
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // the epilogue: groups of 8 samples, u0..u0+7, a lane at a time
+  for (int grp = lane; 8 * grp < hi - lo; grp += 32) {
+    const int u0 = lo + 8 * grp;
+    float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (any) {
+      const float4 x0 = tile4[2 * grp];
+      const float4 x1 = tile4[2 * grp + 1];
+      acc[0] = x0.x; acc[1] = x0.y; acc[2] = x0.z; acc[3] = x0.w;
+      acc[4] = x1.x; acc[5] = x1.y; acc[6] = x1.z; acc[7] = x1.w;
+    }
+    // the group's in-window samples ua..ub and the bank index of ua
+    const int ua = max(u0, left);
+    const int ub = min(u0 + 7, right);
+    const bool any_in = has && ua <= ub;
+    unsigned m = 0;
+    if (any_in && a.bank != nullptr)
+      m = (nix + static_cast<unsigned>(ua - left)) % L;
+    int v[8], h[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int u = u0 + j;
+      const int adc = -__float2int_rn(__fmul_rn(acc[j], a.c2a));
+      const bool in = any_in && u >= ua && u <= ub;
+      int x = adc;
+      if (in) {
+        if (bank_tpc != nullptr) x += bank_tpc[m];
+        x += a.baseline;
+        x = x < 0 ? 0 : x;
+        if (FULL && x >= 65536) bad |= kOverflow;
+      }
+      v[j] = x;
+      if (FULL) {
+        const int he = wrap_mul(adc, a.deamp);
+        h[j] = he;
+        if (he_row != nullptr) {
+          if (in) {
+            int y = he;
+            if (bank_he != nullptr) y = wrap_add(y, bank_he[m]);
+            y = wrap_add(y, a.baseline);
+            y = y < 0 ? 0 : y;
+            if (y >= 65536) bad |= kOverflow;
+            h[j] = y;
+          }
+        } else if (sum_row != nullptr && he != 0 && u >= 0 && u < T) {
+          atomicAdd(sum_row + u, he);
+        }
+      }
+      if (in && a.bank != nullptr) m = m + 1 == L ? 0u : m + 1;
+    }
+    store8(out_row, u0, v, T);
+    if (FULL && he_row != nullptr) store8(he_row, u0, h, T);
+  }
+
+  const unsigned st = __reduce_or_sync(kAll, static_cast<unsigned>(bad));
+  if (lane == 0 && st != 0) atomicOr(a.status, static_cast<int>(st));
+}
+
+// the sum rows of the full grid: int32 sums, low 16 bits, a thread a
+// group of 8 samples (n_grp a window)
+__global__ void __launch_bounds__(kWarps * 32)
+    sum_rows_kernel(int n_win, int n_samples, int n_all, int sum_ch,
+                    int n_grp, const int* __restrict__ sum32,
+                    short* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(n_win) * n_grp) return;
+  const int w = static_cast<int>(i / n_grp);
+  const int g = static_cast<int>(i - static_cast<long long>(w) * n_grp);
+  const int T = n_samples;
+  short* row = out + (static_cast<long long>(w) * n_all + sum_ch) * T;
+  const int* src = sum32 + static_cast<long long>(w) * T;
+  const int u0 = row_origin(row) + 8 * g;
+  int v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = u0 + j >= 0 && u0 + j < T ? src[u0 + j] : 0;
+  store8(row, u0, v, T);
+}
+
+// the rows' tiles: kSpan samples each from the row's first 16-byte
+// boundary in out (one more where a row does not start on one)
+int tiles_a_row(int n_samples, const void* out) {
+  const bool aligned = n_samples % 8 == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  return (n_samples + (aligned ? 0 : 7) + kSpan - 1) / kSpan;
+}
+
+template <bool FULL>
+cudaError_t launch_rows(const RowArgs& a, long long warps, cudaStream_t s) {
+  const long long blocks = (warps + kWarps - 1) / kWarps;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(a.dt) * a.tlen * sizeof(float);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (a.dt == 10 && a.tlen == 22)
+    superpose_rows_kernel<10, 22, FULL><<<grid, kWarps * 32, smem, s>>>(a);
+  else
+    superpose_rows_kernel<0, 0, FULL><<<grid, kWarps * 32, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 // one thread per (row, sample): int32 ADC, and the atomic bottom-array
@@ -281,86 +507,128 @@ __global__ void superpose_block_kernel(
     atomicAdd(sum32 + static_cast<long long>(b) * n_samples + u, v);
 }
 
+RowArgs row_args(const void* t, const void* gain, const void* row_ptr,
+                 int n_rows, int n_photons, int n_samples,
+                 const void* templates, int dt, int tlen, const void* ch_left,
+                 const void* ch_right, const void* has, float current_2_adc,
+                 int baseline, const void* bank, int bank_len, int bank_ch,
+                 const void* noise_ix, int n_ch, void* out) {
+  RowArgs a{};
+  a.t = static_cast<const int*>(t);
+  a.gain = static_cast<const float*>(gain);
+  a.row_ptr = static_cast<const int*>(row_ptr);
+  a.n_rows = n_rows;
+  a.n_photons = n_photons;
+  a.n_samples = n_samples;
+  a.templates = static_cast<const float*>(templates);
+  a.dt = dt;
+  a.tlen = tlen;
+  a.ch_left = static_cast<const int*>(ch_left);
+  a.ch_right = static_cast<const int*>(ch_right);
+  a.has = static_cast<const unsigned char*>(has);
+  a.c2a = current_2_adc;
+  a.baseline = baseline;
+  a.bank = static_cast<const short*>(bank);
+  a.bank_len = bank_len;
+  a.bank_ch = bank_ch;
+  a.noise_ix = static_cast<const int*>(noise_ix);
+  a.n_ch = n_ch;
+  a.out = static_cast<short*>(out);
+  return a;
+}
+
 }  // namespace
 
 extern "C" const char* wfsim_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// n_rows rows of n_samples into out (n_rows, n_samples) int16; status is
+// one int32 word, cleared here (see the file header)
 extern "C" int wfsim_superpose_adc(
     const void* t, const void* gain, const void* row_ptr, int n_rows,
-    int n_samples, const void* templates, int dt, int tlen,
+    int n_photons, int n_samples, const void* templates, int dt, int tlen,
     const void* ch_left, const void* ch_right, const void* has,
     float current_2_adc, int baseline, const void* bank, int bank_len,
-    int bank_ch, const void* noise_ix, int n_ch, void* out, void* stream) {
-  if (dt * tlen > kMaxTemplate) return static_cast<int>(cudaErrorInvalidValue);
+    int bank_ch, const void* noise_ix, int n_ch, void* status, void* out,
+    void* stream) {
+  if (dt <= 0 || tlen <= 0 || dt * tlen > kMaxTemplate)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bank != nullptr && (bank_len <= 0 || n_ch <= 0 || noise_ix == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>(n_rows) * tiles;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  superpose_adc_kernel<<<static_cast<unsigned>(blocks), kTile, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(t), static_cast<const float*>(gain),
-      static_cast<const int*>(row_ptr), n_rows, n_samples,
-      static_cast<const float*>(templates), dt, tlen,
-      static_cast<const int*>(ch_left), static_cast<const int*>(ch_right),
-      static_cast<const unsigned char*>(has), current_2_adc, baseline,
-      static_cast<const short*>(bank), bank_len, bank_ch,
-      static_cast<const int*>(noise_ix), n_ch, static_cast<short*>(out));
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0 || n_samples <= 0 || n_photons < 0 || n_ch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  RowArgs a = row_args(t, gain, row_ptr, n_rows, n_photons, n_samples,
+                       templates, dt, tlen, ch_left, ch_right, has,
+                       current_2_adc, baseline, bank, bank_len, bank_ch,
+                       noise_ix, n_ch, out);
+  a.status = static_cast<int*>(status);
+  a.n_seg = tiles_a_row(n_samples, out);
+  cudaError_t err = cudaMemsetAsync(status, 0, sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_rows<false>(a, static_cast<long long>(n_rows) * a.n_seg, s));
 }
 
 // n_rows = B * n_ch TPC rows in; out (B, n_all, n_samples) int16.  Grid
 // layout: n_he = n_top HE copies on he_lo.. and the sum row sum_ch, or
 // (without HE rows) n_he = 0, he_lo = n_ch and sum_ch = -1.  scratch is
 // zeroed here: with a sum row the (B, n_samples) int32 sum rows, then the
-// overflow word (non-zero where an in-window value reached 2^16)
+// status word
 extern "C" int wfsim_superpose_adc_full(
     const void* t, const void* gain, const void* row_ptr, int n_rows,
-    int n_samples, const void* templates, int dt, int tlen,
+    int n_photons, int n_samples, const void* templates, int dt, int tlen,
     const void* ch_left, const void* ch_right, const void* has,
     float current_2_adc, int baseline, const void* bank, int bank_len,
     int bank_ch, const void* noise_ix, int n_ch, int n_all, int n_top,
     int n_he, int he_lo, int sum_ch, int deamp, void* scratch, void* out,
     void* stream) {
-  if (dt * tlen > kMaxTemplate) return static_cast<int>(cudaErrorInvalidValue);
-  if (bank != nullptr && (bank_len <= 0 || noise_ix == nullptr || bank_ch > n_all))
+  if (dt <= 0 || tlen <= 0 || dt * tlen > kMaxTemplate)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bank != nullptr &&
+      (bank_len <= 0 || noise_ix == nullptr || bank_ch > n_all))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool sum_row = sum_ch >= 0;
-  if (n_ch <= 0 || n_rows % n_ch != 0 || n_top < 0 || n_top > n_ch ||
-      he_lo < n_ch || he_lo + n_he > n_all ||
+  if (n_ch <= 0 || n_rows <= 0 || n_rows % n_ch != 0 || n_top < 0 ||
+      n_top > n_ch || he_lo < n_ch || he_lo + n_he > n_all ||
+      n_samples <= 0 || n_photons < 0 ||
       (sum_row ? n_he != n_top || he_lo + n_he > sum_ch || sum_ch >= n_all
                : n_he != 0 || he_lo != n_ch || sum_ch != -1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = n_rows / n_ch;
-  const int n_rest = n_all - n_ch - n_he;
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>(n_rows) * tiles;
-  const long long rest_blocks = static_cast<long long>(n_win) * n_rest * tiles;
-  if (blocks <= 0 || blocks > 0x7fffffffLL || rest_blocks > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_sum = sum_row ? static_cast<long long>(n_win) * n_samples
                                   : 0;
-  int* sum32 = sum_row ? static_cast<int*>(scratch) : nullptr;
-  int* overflow = static_cast<int*>(scratch) + n_sum;
+  RowArgs a = row_args(t, gain, row_ptr, n_rows, n_photons, n_samples,
+                       templates, dt, tlen, ch_left, ch_right, has,
+                       current_2_adc, baseline, bank, bank_len, bank_ch,
+                       noise_ix, n_ch, out);
+  a.n_all = n_all;
+  a.n_top = n_top;
+  a.n_he = n_he;
+  a.he_lo = he_lo;
+  a.sum_ch = sum_ch;
+  a.deamp = deamp;
+  a.n_zero = n_all - n_ch - n_he - (sum_row ? 1 : 0);
+  a.sum32 = sum_row ? static_cast<int*>(scratch) : nullptr;
+  a.status = static_cast<int*>(scratch) + n_sum;
+  a.n_seg = tiles_a_row(n_samples, out);
   cudaError_t err = cudaMemsetAsync(
       scratch, 0, (static_cast<size_t>(n_sum) + 1) * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  superpose_adc_full_kernel<<<static_cast<unsigned>(blocks), kTile, 0, s>>>(
-      static_cast<const int*>(t), static_cast<const float*>(gain),
-      static_cast<const int*>(row_ptr), n_rows, n_samples,
-      static_cast<const float*>(templates), dt, tlen,
-      static_cast<const int*>(ch_left), static_cast<const int*>(ch_right),
-      static_cast<const unsigned char*>(has), current_2_adc, baseline,
-      static_cast<const short*>(bank), bank_len, bank_ch,
-      static_cast<const int*>(noise_ix), n_ch, n_all, n_top, n_he, he_lo,
-      deamp, sum32, overflow, static_cast<short*>(out));
-  err = cudaGetLastError();
-  if (err != cudaSuccess || rest_blocks == 0) return static_cast<int>(err);
-  full_grid_rest_kernel<<<static_cast<unsigned>(rest_blocks), kTile, 0, s>>>(
-      n_win, n_samples, n_ch, n_all, n_he, he_lo, sum_ch, sum32,
+  err = launch_rows<true>(a, static_cast<long long>(n_rows) * a.n_seg +
+                                 static_cast<long long>(n_win) * a.n_zero,
+                          s);
+  if (err != cudaSuccess || !sum_row) return static_cast<int>(err);
+  const int n_grp = (n_samples + 14) / 8;         // from the row's origin
+  const long long sum_blocks =
+      (static_cast<long long>(n_win) * n_grp + kWarps * 32 - 1) /
+      (kWarps * 32);
+  if (sum_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sum_rows_kernel<<<static_cast<unsigned>(sum_blocks), kWarps * 32, 0, s>>>(
+      n_win, n_samples, n_all, sum_ch, n_grp, a.sum32,
       static_cast<short*>(out));
   return static_cast<int>(cudaGetLastError());
 }

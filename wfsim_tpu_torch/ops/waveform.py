@@ -7,9 +7,12 @@ one per 1-ns sub-sample phase) starting at sample ``t // dt``.
 
 On the card the superposition, the ADC conversion, the noise overlay
 (realistic config) and the window epilogue run fused in one hand-written
-kernel (``csrc/superpose_adc.cu``), which stores the int16 grid directly.  ``superpose_adc_ref`` is its plain
-PyTorch twin: it adds the same float32 products in the same per-sample
-order (photon order within each row), so the two agree bitwise.
+kernel (``csrc/superpose_adc.cu``, a warp a 1,024-sample tile of a
+row), which stores the int16 grid directly and flags bad inputs in a
+status word that its wrapper reads back once a call.
+``superpose_adc_ref`` is its plain PyTorch twin: it adds the same float32
+products in the same per-sample order (photon order within each row), so
+the two agree bitwise.
 ``superpose_adc_full`` and its twin ``superpose_adc_full_ref`` digitize
 the whole XENONnT digitizer grid (high-energy copies, bottom-array sum)
 from the same single pass over the photons, or the grid without HE rows
@@ -241,10 +244,45 @@ def superpose_adc_full_ref(t, gain, row_ptr, templates, ch_left, ch_right,
     return out
 
 
+_NEGATIVE_TIME = 'photon times must be window-relative and >= 0'
+_BAD_NOISE_IX = 'noise_ix must lie in [0, 2^30)'
+#: bits of the superposition kernels' status word (csrc/superpose_adc.cu)
+_STATUS_OVERFLOW, _STATUS_NEGATIVE_TIME, _STATUS_BAD_NOISE_IX = 1, 2, 4
+
+
+def _check_values(t, noise_ix):
+    """The value checks the kernels make on the card, made here with
+    torch ops into a status word read back once (none where there is
+    nothing to check): photon times >= 0, 0 <= noise_ix < 2^30
+    (``noise_ix`` None: no bank); raises as :func:`_raise_status`."""
+    bits = []
+    if t.numel():
+        bits.append((t < 0).any().to(torch.int32) * _STATUS_NEGATIVE_TIME)
+    if noise_ix is not None and noise_ix.numel():
+        bits.append(((noise_ix < 0) | (noise_ix >= 2 ** 30)).any().to(
+            torch.int32) * _STATUS_BAD_NOISE_IX)
+    if bits:
+        _raise_status(int(sum(bits)))
+
+
+def _raise_status(word: int):
+    """Raise what a superposition kernel's status word flags, in the order
+    the CPU path checks: a negative photon time, a noise offset out of
+    range, an in-window full-grid value at or above 2^16."""
+    if word & _STATUS_NEGATIVE_TIME:
+        raise ValueError(_NEGATIVE_TIME)
+    if word & _STATUS_BAD_NOISE_IX:
+        raise ValueError(_BAD_NOISE_IX)
+    if word & _STATUS_OVERFLOW:
+        raise OverflowError(_OVERFLOW)
+
+
 def _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right, has,
                   noise_bank, noise_ix, n_channels):
     """Raise on what the superpose kernels do not take; return the
-    ctypes arguments of the bank ``(bank, L, Cn, noise_ix)``."""
+    ctypes arguments of the bank ``(bank, L, Cn, noise_ix)``.  Off the card
+    the values are checked here too (:func:`_check_values`); on the card
+    the kernel checks them."""
     dev = t.device
     n = t.shape[0]
     n_rows = row_ptr.shape[0] - 1
@@ -255,9 +293,9 @@ def _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right, has,
     _check('ch_left', ch_left, torch.int32, (n_rows,), dev)
     _check('ch_right', ch_right, torch.int32, (n_rows,), dev)
     _check('has', has, torch.bool, (n_rows,), dev)
-    if n and int(t.min()) < 0:
-        raise ValueError('photon times must be window-relative and >= 0')
     if noise_bank is None:
+        if dev.type != 'cuda':
+            _check_values(t, None)
         return (None, 0, 0, None)
     Cn, L = noise_bank.shape
     if n_channels <= 0 or n_rows % n_channels:
@@ -267,14 +305,14 @@ def _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right, has,
     _check('noise_ix', noise_ix, torch.int32, (n_rows // n_channels,), dev)
     if not 0 < L < 2 ** 30:
         raise ValueError(f'noise bank length {L} out of range')
-    if noise_ix.numel() and not (0 <= int(noise_ix.min())
-                                 and int(noise_ix.max()) < 2 ** 30):
-        raise ValueError('noise_ix must lie in [0, 2^30)')
+    if dev.type != 'cuda':
+        _check_values(t, noise_ix)
     return (ptr(noise_bank), L, Cn, ptr(noise_ix))
 
 
 _kernel = Kernel('wfsim_superpose_adc',
-                 [P, P, P, I, I, P, I, I, P, P, P, F, I, P, I, I, P, I, P, P])
+                 [P, P, P, I, I, I, P, I, I, P, P, P, F, I, P, I, I, P, I, P,
+                  P, P])
 
 
 def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
@@ -288,7 +326,9 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
     get the noise overlay in their window.
 
     CPU tensors go to :func:`superpose_adc_ref`; CUDA tensors launch the
-    hand-written kernel (``csrc/superpose_adc.cu``)."""
+    hand-written kernel (``csrc/superpose_adc.cu``) and read its status
+    word back once: a negative photon time or a ``noise_ix`` out of range
+    raises ``ValueError`` after the launch."""
     dev = t.device
     n_rows = row_ptr.shape[0] - 1
     bank_args = _check_inputs(t, gain, row_ptr, templates, ch_left, ch_right,
@@ -303,17 +343,20 @@ def superpose_adc(t, gain, row_ptr, templates, ch_left, ch_right, has, *,
         raise NotImplementedError(f'superpose_adc on {dev}')
     out = torch.empty((n_rows, n_samples), dtype=torch.int16, device=dev)
     if n_rows == 0 or n_samples == 0:
+        _check_values(t, noise_ix if noise_bank is not None else None)
         return out
+    status = torch.empty(1, dtype=torch.int32, device=dev)
     dt, L = templates.shape
-    _kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
+    _kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, t.shape[0], n_samples,
             ptr(templates), dt, L, ptr(ch_left), ptr(ch_right), ptr(has),
             float(np.float32(current_2_adc)), int(baseline), *bank_args,
-            n_channels, ptr(out), stream_of(dev))
+            n_channels, ptr(status), ptr(out), stream_of(dev))
+    _raise_status(int(status))
     return out
 
 
 _full_kernel = Kernel('wfsim_superpose_adc_full',
-                      [P, P, P, I, I, P, I, I, P, P, P, F, I, P, I, I, P,
+                      [P, P, P, I, I, I, P, I, I, P, P, P, F, I, P, I, I, P,
                        I, I, I, I, I, I, I, P, P, P])
 
 
@@ -333,9 +376,12 @@ def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
 
     CPU tensors go to :func:`superpose_adc_full_ref`; CUDA tensors launch
     the hand-written kernel (``csrc/superpose_adc.cu``,
-    ``wfsim_superpose_adc_full``: one pass over the photons, atomic int32
-    bottom sum, one follow-on launch for the sum and gap rows; without HE
-    rows the same launches with zero HE copies and no sum row).
+    ``wfsim_superpose_adc_full``: a warp a tile of a TPC row writes it and
+    its HE copy and adds into the atomic int32 bottom sum, further warps
+    zero the gap rows, one follow-on launch casts the sum rows; without HE
+    rows one launch with zero HE copies and no sum row) and read its
+    status word back once (the errors of :func:`superpose_adc` and the
+    overflow).
 
     Raises ``OverflowError`` where an in-window sample reaches 2^16: the
     port's ZLE reads the int16 grid (``zle_all_channels(nonneg=True)``),
@@ -377,19 +423,19 @@ def superpose_adc_full(t, gain, row_ptr, templates, ch_left, ch_right, has,
     B = n_rows // C
     out = torch.empty((B, C_all, n_samples), dtype=torch.int16, device=dev)
     if n_rows == 0 or n_samples == 0:
+        _check_values(t, noise_ix if noise_bank is not None else None)
         return out
-    # the (B, T) int32 sum rows (with a sum row), then the overflow word
+    # the (B, T) int32 sum rows (with a sum row), then the status word
     scratch = torch.empty((B * n_samples if he_on else 0) + 1,
                           dtype=torch.int32, device=dev)
     dt, L = templates.shape
     layout = ((n_top, he_start, sum_channel) if he_on else (0, C, -1))
-    _full_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
-                 ptr(templates), dt, L, ptr(ch_left), ptr(ch_right),
-                 ptr(has), float(np.float32(current_2_adc)), int(baseline),
-                 *bank_args, C, C_all, n_top, *layout, int(deamp),
-                 ptr(scratch), ptr(out), stream_of(dev))
-    if int(scratch[-1]):
-        raise OverflowError(_OVERFLOW)
+    _full_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, t.shape[0],
+                 n_samples, ptr(templates), dt, L, ptr(ch_left),
+                 ptr(ch_right), ptr(has), float(np.float32(current_2_adc)),
+                 int(baseline), *bank_args, C, C_all, n_top, *layout,
+                 int(deamp), ptr(scratch), ptr(out), stream_of(dev))
+    _raise_status(int(scratch[-1]))
     return out
 
 
