@@ -12,8 +12,9 @@ JSON line: the tree, wall seconds, events/s, records and truth rows.
 
 With ``--kernels`` each process measures kernel rows instead, with this
 tree's ``chip_smoke.kernel_rows`` on the tree's own package: the
-superposition entries on their three window batches and the per-PMT
-truth, each against its twin and its library computation, and prints
+superposition entries on their three window batches, the ZLE and record
+pack on four grids and the per-PMT truth, each against its twin (and, where
+there is one, its library computation), and prints
 ``{row: {ms, device_ms, host_us, plain_ms, library_ms, ...}}``.
 """
 import argparse

@@ -12,8 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    seconds and the ptxas resource lines;
 3. kernels: each hand-written kernel against its plain PyTorch twin on the
    card, at main-path shapes (16 windows x 494 rows x 2048 samples, S2-like
-   photons): bitwise equality required; median CUDA-event times of both
-   (of the superposition in 3j);
+   photons): bitwise equality required (3j times the superposition, 3k
+   the ZLE and the record pack);
 4. main path: ``Simulator(default_config(seed=1234, chunk_size=100),
    device='cuda').get_arrays(inst)`` on the 512-event bench workload, once
    to warm up and once timed with the kernels' launch counts reset just
@@ -51,6 +51,18 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     taps through ``index_add_``), each with its time, its kernels' device
     times, its samples that differ from the twin's and its peak memory
     (none gated); the fastest is the row's ``library_ms``.
+
+3k. the ZLE interval search (K3) and the record pack (K4, its count pass,
+    the cumsum, one read-back and the copy) on the slim grids of the three
+    3j batches and on the bench batch's full XENONnT grid (801 rows, the
+    801-wide bank, ZLE's nonneg mode), each bitwise against its twin
+    (sentinel slots included), K3 reading nothing back and K4 once a call
+    (``set_sync_debug_mode('warn')``); ``ms``, ``device_ms`` (split by
+    kernel), ``host_us`` over 1,000 calls, the twin's time and the bound:
+    the in-window samples of the rows with photons, the row inputs and the
+    interval slots for K3; the samples the records read, the records and
+    their meta, the row inputs and the slots in use for K4.  Each K3 and
+    K4 entry launches once a digitize batch on the default run.
 
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
@@ -234,8 +246,9 @@ channel block of the step has none).  The phase-2
 line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
-channel draw and map lookup their EXPECTED_LAUNCHES, and the default run
-DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
+channel draw, the map lookup and the ZLE and record-pack entries their
+EXPECTED_LAUNCHES, and the default run DEFAULT_DIGEST: a change that keeps
+every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
@@ -262,10 +275,12 @@ PHYSICS_KERNELS = ('wfsim_channel_draw', 'wfsim_lumi_tables',
                    'wfsim_s1_photon_times', 'wfsim_s2_electron_times',
                    'wfsim_s2_photon_times', 'wfsim_pmt_photon_pass',
                    'wfsim_pmt_row_truth')
+#: the ZLE (K3) and record-pack (K4) entries: each once a digitize batch
+ZLE_PACK_KERNELS = ('wfsim_zle_intervals', 'wfsim_pack_record_counts',
+                    'wfsim_pack_records')
 #: the kernel entries each main path must launch
-DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', 'wfsim_zle_intervals',
-                        'wfsim_pack_records', 'wfsim_grid_lookup'
-                        ) + PHYSICS_KERNELS
+DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *ZLE_PACK_KERNELS,
+                        'wfsim_grid_lookup') + PHYSICS_KERNELS
 REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + (
     'wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit', 'wfsim_ap_photon_summaries')
 #: the detector_physics path: the gas-gap sampler replaces the simple
@@ -1227,9 +1242,11 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         he_full_grid=(868_127, 444_017),
                         timing_models=855_569, per_pmt_truth=867_836,
                         xenon1t_full_grid=567_294)
-#: the launches of the channel draw and the map lookup on those runs
+#: the launches of the channel draw, the map lookup and (one a digitize
+#: batch) the ZLE and record-pack entries on those runs
 EXPECTED_LAUNCHES = dict(
-    default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12),
+    default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12,
+                 **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
     detector_physics=dict(wfsim_grid_lookup=30))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
@@ -1636,6 +1653,134 @@ def superpose_measure(dev, smi, max_syncs=1):
     return res
 
 
+#: the ZLE and record-pack rows' grids: the three superposition batches
+#: on the slim grid (the default path's) and the bench batch on the full
+#: XENONnT grid (801 rows a window, the 801-wide bank, ZLE's nonneg mode)
+ZLE_PACK_GRIDS = tuple(SUPERPOSE_SHAPES) + ('full',)
+
+
+def zle_pack_measure(dev, smi, max_syncs=(0, 1)):
+    """Phase 3k: the ZLE interval search (K3) and the record pack (K4) on
+    each grid of ZLE_PACK_GRIDS: each kernel bitwise against its twin
+    (sentinel slots included), its host syncs a call (at most
+    ``max_syncs``, K3's and K4's; None counts them without a limit, for
+    another checkout's wrappers), ``ms``, ``device_ms``, ``host_us`` over
+    1,000 calls, the twin's time and the bound.  K3's bytes: the in-window
+    samples of the rows with photons, the four row inputs and its outputs;
+    K4's: the samples its records read, the records and their meta, the
+    row inputs and the interval slots in use.  Returns {row name:
+    measurements (see make_check)}; a row off the bench batch is named
+    with the grid as a suffix."""
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.ops.waveform import superpose_adc, superpose_adc_full
+    from wfsim_tpu_torch.ops.zle import zle_all_channels, zle_all_channels_ref
+    from wfsim_tpu_torch.pipeline.digitize import (
+        full_grid_rows, pack_records, pack_records_ref, window_photons)
+    from wfsim_tpu_torch.resources import load_config
+    from wfsim_tpu_torch.resources.synthetic import synthetic_noise
+    cfg = default_config(seed=1234, chunk_size=100, enable_noise=True,
+                         enable_pmt_afterpulses=True,
+                         enable_electron_afterpulses=True)
+    const = build_constants(cfg)
+    params = build_params(cfg, load_config(cfg), dev)
+    C, K, tw = const.n_tpc_pmts, 64, const.trigger_window
+    res = {}
+    for grid_name in ZLE_PACK_GRIDS:
+        shape = 'bench' if grid_name == 'full' else grid_name
+        t_np, ch_np, g_np, pieces, T = superpose_arena(shape, C, 20261016)
+        B = len(pieces)
+        ph = window_photons(const, *(torch.as_tensor(a, device=dev)
+                                     for a in (t_np, ch_np, g_np)),
+                            torch.as_tensor(pieces, device=dev), n_samples=T)
+        sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
+                 ph['ch_left'], ph['ch_right'], ph['has'])
+        skw = dict(current_2_adc=const.current_2_adc,
+                   baseline=const.digitizer_reference_baseline, n_samples=T)
+        rows = [ph[k].reshape(B, C) for k in ('ch_left', 'ch_right', 'has')]
+        if grid_name == 'full':
+            R = const.n_channels_total
+            bank = torch.as_tensor(np.ascontiguousarray(
+                synthetic_noise(R, 100_000, seed=801).T.astype(np.int16)),
+                device=dev)
+            nix = torch.as_tensor(100_000 - T // 2 + np.arange(B) * 7,
+                                  dtype=torch.int32, device=dev)
+            grid = superpose_adc_full(
+                *sargs, n_channels=C, n_channels_total=R,
+                n_top=const.n_top_pmts, he_start=const.he_channel_start,
+                sum_channel=const.sum_signal_channel,
+                deamp=const.high_energy_deamp_int, noise_bank=bank,
+                noise_ix=nix, **skw)
+            rows = [full_grid_rows(x, const) for x in rows]
+            del bank
+        else:
+            R = C
+            grid = superpose_adc(*sargs, **skw).reshape(B, C, T)
+        left, right, has = rows
+        zargs = (grid.reshape(B * R, T),
+                 params.zle_thresholds[:R].repeat(B).contiguous(),
+                 *(x.reshape(-1).contiguous() for x in rows))
+        zkw = dict(holdoff=2 * tw + 1, trigger_window=tw, max_intervals=K,
+                   nonneg=grid_name == 'full')
+        k3 = lambda a=zargs, k=zkw: zle_all_channels(*a, **k)      # noqa: E731
+        p3 = lambda a=zargs, k=zkw: zle_all_channels_ref(*a, **k)  # noqa: E731
+        zk, zr = k3(), p3()
+        err3 = max(max_diff(a, b) for a, b in zip(zk, zr))
+        pargs = (grid, left.contiguous(), zk[0].reshape(B, R, K),
+                 zk[1].reshape(B, R, K), zk[2].reshape(B, R))
+        k4 = lambda a=pargs: pack_records(*a)                      # noqa: E731
+        p4 = lambda a=pargs: pack_records_ref(*a)                  # noqa: E731
+        pk, pr = k4(), p4()
+        err4 = max(max_diff(a, b) for a, b in zip(pk, pr))
+        syncs = [count_syncs(f) for f in (k3, k4)]
+        # the work this input needs (see the docstring)
+        span = torch.clamp(torch.clamp_max(right, T - 1)
+                           - torch.clamp_min(left, 0) + 1, min=0)
+        n_in = int(torch.where(has, span, 0).sum())
+        n_itv = torch.clamp(zk[2], 0, K)
+        used = (torch.arange(K, device=dev)[None, :] < n_itv[:, None])
+        plen = torch.where(used, zk[1] - zk[0] + 1, 0)
+        n_read = int(torch.clamp_min(plen, 0).sum())
+        n_rec = int(pk[0].shape[0])
+        n_used = int(used.sum())
+        works = (
+            ('zle_intervals', k3, p3, err3, syncs[0],
+             2 * n_in + B * R * 13 + nbytes(zk), n_in * 4),
+            ('pack_records', k4, p4, err4, syncs[1],
+             2 * n_read + n_rec * (110 * 2 + 6 * 4) + B * R * 8 + n_used * 8,
+             n_read + n_rec * 6))
+        print(f'[zle-pack] {grid_name}: {B} x {R} x {T}, in-window samples '
+              f'{n_in}, intervals {int(zr[2].sum())}, records {n_rec} '
+              f'({n_read} samples read), K3 max|diff| {err3}, host syncs '
+              f'{syncs[0]}, K4 max|diff| {err4}, host syncs {syncs[1]}')
+        for i, (name, kernel, plain, err, (n_sync, where), n_bytes,
+                ops) in enumerate(works):
+            row = name + ('' if grid_name == 'bench' else f'_{grid_name}')
+            limit = None if max_syncs is None else max_syncs[i]
+            if err or (limit is not None and n_sync > limit):
+                raise AssertionError(f'{row}: the kernel differs from its '
+                                     f'twin or reads back more than '
+                                     f'{limit} times ({where})')
+            dev_ms, by_name = device_ms(kernel)
+            m = res[row] = dict(
+                err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+                plain_ms=cuda_ms(plain, reps=5),
+                host_us=host_us(kernel, 1000), bytes=n_bytes, ops32=ops,
+                ops64=0, library_ms=None, syncs=n_sync, shape=grid_name,
+                records=n_rec, in_window=n_in)
+            b_ms, b_by = bound(n_bytes, ops)
+            dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                     + str({k[:60]: round(v, 6) for k, v in by_name.items()}))
+            print(f'[zle-pack] {row}: {m["ms"]:.4f} ms, device {dev_s}, '
+                  f'host {m["host_us"]:.2f} us a call, plain twin '
+                  f'{m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+                  f'({smi})')
+        del ph, sargs, grid, zk, zr, pk, pr, zargs, pargs, k3, p3, k4, p4
+        del works
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -1669,11 +1814,13 @@ def per_pmt_library(params, const, ph, row_edges):
 
 def kernel_rows(dev, smi):
     """The rows ``ab_port.py --kernels`` compares between two checkouts:
-    the superposition rows on every batch (superpose_measure) and K16 on
-    494 channels with its library computation (per_pmt_kernel_check)."""
+    the superposition rows on every batch (superpose_measure), the ZLE and
+    record-pack rows on every grid (zle_pack_measure) and K16 on 494
+    channels with its library computation (per_pmt_kernel_check)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
+    res.update(zle_pack_measure(dev, smi, max_syncs=None))
     cfg = default_config(seed=1234, chunk_size=100, per_pmt_truth=True,
                          enable_noise=True, enable_pmt_afterpulses=True,
                          enable_electron_afterpulses=True)
@@ -2377,23 +2524,6 @@ def main():
     if err3:
         raise AssertionError('pack_records differs from its twin')
 
-    # bytes moved and operations of each call (see bound()): ZLE a
-    # compare and a few index updates per sample; the pack one copy
-    # (phase 3j times the superposition)
-    times = dict(
-        zle_intervals=timing(
-            lambda: zle_all_channels(*zargs, **zkw),
-            lambda: zle_all_channels_ref(*zargs, **zkw), nbytes(zargs, zk),
-            B * C * T * 4, err=err2),
-        pack_records=timing(
-            lambda: pack_records(*pargs), lambda: pack_records_ref(*pargs),
-            nbytes(pargs, pk), int(pk[0].shape[0]) * 110, err=err3))
-    for name, m in times.items():
-        b_ms, b_by = bound(m['bytes'], m['ops32'])
-        print(f'[kernels] {name}: {m["ms"]:.4f} ms, device '
-              f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
-              f'bound {b_ms:.4f} ms by {b_by} ({smi})')
-
     # ---- 4. main path ------------------------------------------------------
     inst = bench_instructions(512, 2000, 300)
     out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
@@ -2503,7 +2633,7 @@ def main():
     if err6 or not in_win.std().item() > 0.5:
         raise AssertionError('superpose_adc with noise differs from its twin '
                              'or shows no noise')
-    times.update(
+    times = dict(
         pmt_afterpulse=timing(
             lambda: pmt_afterpulse_photons(params_r, const_r, ph_ap, draws,
                                            n_truth_rows=n_rows),
@@ -2594,6 +2724,9 @@ def main():
 
     # ---- 3j. the superposition entries on three window batches ------------
     stimes = superpose_measure(dev, smi)
+
+    # ---- 3k. the ZLE interval search and the record pack on four grids -----
+    ztimes = zle_pack_measure(dev, smi)
 
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
@@ -2716,12 +2849,21 @@ def main():
                         library_diff=m['library_diff'],
                         library_peak_mib=m['library_peak_mib'],
                         syncs=m['syncs'], photons=m['photons'])
+    for row, m in ztimes.items():
+        name = row.removesuffix('_' + m['shape'])
+        cu, rep, entries = {
+            'zle_intervals': ('zle_intervals.cu',
+                              'wfsim_tpu/ops/zle.py:30; '
+                              'wfsim_tpu/ops/zle.py:119',
+                              ['wfsim_zle_intervals']),
+            'pack_records': ('pack_records.cu',
+                             'wfsim_tpu/pipeline/digitize.py:471',
+                             list(ZLE_PACK_KERNELS[1:]))}[name]
+        measured(row, cu, rep, entries,
+                 launches_f if m['shape'] == 'full' else launches, m)
+        rows[-1].update(syncs=m['syncs'], records=m['records'],
+                        in_window=m['in_window'])
     for name, cu, rep, entries, counts in (
-            ('zle_intervals', 'zle_intervals.cu', 'wfsim_tpu/ops/zle.py:119',
-             ['wfsim_zle_intervals'], launches),
-            ('pack_records', 'pack_records.cu',
-             'wfsim_tpu/pipeline/digitize.py:471', ['wfsim_pack_records'],
-             launches),
             ('pmt_afterpulse', 'pmt_afterpulse.cu',
              'wfsim_tpu/models/afterpulse.py:56',
              ['wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit'], launches_r),

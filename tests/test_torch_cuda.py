@@ -24,6 +24,8 @@ from wfsim_tpu_torch.pipeline.digitize import (gather_digitize, pack_records,
 from wfsim_tpu_torch.resources import load_config
 
 from .ap_inputs import ap_tables, photon_set
+from .test_torch_zle_pack_redesign import (ZLE_PACK_CASES, pack_args,
+                                           zle_args, zle_pack_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -923,55 +925,95 @@ def test_superpose_kernels_other_template_banks(dev, shape):
         assert torch.equal(f(*a, **k), tw(*a, **k))
 
 
+def _syncs(fn, *args, errors=(), **kw):
+    """Host syncs of one call ``fn(*args, **kw)``: (their count, its result
+    or the error of a type in ``errors`` it raised, the lines that synced),
+    from the warnings of ``set_sync_debug_mode('warn')``, one a
+    synchronizing operation."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn(*args, **kw)
+        except errors as e:
+            out = e
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    lines = [f'{w.filename}:{w.lineno}' for w in caught
+             if 'called a synchronizing CUDA operation' in str(w.message)]
+    return len(lines), out, lines
+
+
 def test_superpose_status_word_raises(dev):
     """A negative photon time, a noise offset out of range and an HE value
     past 16 bits each raise after the kernel's launch, from one read-back
     of the status word (one synchronizing operation a call)."""
-    import warnings
     from wfsim_tpu_torch.ops.waveform import superpose_adc_full
-
-    def syncs_and_error(fn, args, kw):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter('always')
-            torch.cuda.set_sync_debug_mode('warn')
-            try:
-                fn(*args, **kw)
-                err = None
-            except (ValueError, OverflowError) as e:
-                err = e
-            finally:
-                torch.cuda.set_sync_debug_mode('default')
-        lines = [f'{w.filename}:{w.lineno}' for w in caught
-                 if 'called a synchronizing CUDA operation' in str(w.message)]
-        return len(lines), err, lines
+    errors = (ValueError, OverflowError)
 
     for grid in ('slim_noise', 'full'):
         fn, _twin, args, kw = superpose_inputs('photons at the window end',
                                                grid, dev)
-        n, err, lines = syncs_and_error(fn, args, kw)
-        assert n == 1 and err is None, lines
+        n, out, lines = _syncs(fn, *args, errors=errors, **kw)
+        assert n == 1 and torch.is_tensor(out), lines
         t = args[0].clone()
         t[5] = -3
-        n, err, lines = syncs_and_error(fn, (t, *args[1:]), kw)
+        n, err, lines = _syncs(fn, t, *args[1:], errors=errors, **kw)
         assert n == 1, lines
         assert isinstance(err, ValueError) and '>= 0' in str(err)
         nix = kw['noise_ix'].clone()
         nix[1] = 2 ** 30
-        n, err, lines = syncs_and_error(fn, args, dict(kw, noise_ix=nix))
+        n, err, lines = _syncs(fn, *args, errors=errors,
+                               **dict(kw, noise_ix=nix))
         assert n == 1, lines
         assert isinstance(err, ValueError) and '2^30' in str(err)
         # no samples: no launch, the same checks from one read-back
         for targs, tkw, msg in (((t, *args[1:]), kw, '>= 0'),
                                 (args, dict(kw, noise_ix=nix), '2^30')):
-            n, err, lines = syncs_and_error(fn, targs,
-                                            dict(tkw, n_samples=0))
+            n, err, lines = _syncs(fn, *targs, errors=errors,
+                                   **dict(tkw, n_samples=0))
             assert n == 1, lines
             assert isinstance(err, ValueError) and msg in str(err)
-        n, err, lines = syncs_and_error(fn, args, dict(kw, n_samples=0))
-        assert n == 1 and err is None, lines
+        n, out, lines = _syncs(fn, *args, errors=errors,
+                               **dict(kw, n_samples=0))
+        assert n == 1 and torch.is_tensor(out), lines
     # full grid: |adc x factor| past 2^16 in the HE rows
     args, kw, _ph = full_grid_inputs(5, dev, 0.2, 1.0)
-    n, err, lines = syncs_and_error(superpose_adc_full, args,
-                                    dict(kw, deamp=2000))
+    n, err, lines = _syncs(superpose_adc_full, *args, errors=errors,
+                           **dict(kw, deamp=2000))
     assert n == 1 and isinstance(err, OverflowError), lines
+
+
+# ---------------------------------------------------------------------------
+# the warp-scan ZLE kernel and the row-planned record pack on the cases of
+# tests/test_torch_zle_pack_redesign.py, with the read-backs a call
+
+
+@pytest.mark.parametrize('name', ZLE_PACK_CASES)
+def test_zle_pack_kernels_match_twins_on_cases(dev, name):
+    """K3 reads nothing back and K4 once (its record total); both bitwise
+    their twins, sentinel slots included; one launch of each entry (the
+    copy none without records)."""
+    case = zle_pack_case(name)
+    args, kw = zle_args(case, dev)
+    k3, k4a, k4b = (_build.KERNELS[k] for k in (
+        'wfsim_zle_intervals', 'wfsim_pack_record_counts',
+        'wfsim_pack_records'))
+    before = k3.launches, k4a.launches, k4b.launches
+    n3, zk, lines = _syncs(zle_all_channels, *args, **kw)
+    assert n3 == 0, lines
+    for a, b in zip(zk, zle_all_channels_ref(*args, **kw)):
+        assert torch.equal(a, b)
+    pargs = pack_args(case, zk, dev)
+    n4, pk, lines = _syncs(pack_records, *pargs)
+    assert n4 <= 1, lines
+    pr = pack_records_ref(*pargs)
+    for a, b in zip(pk, pr):
+        assert a.shape == b.shape and torch.equal(a, b)
+    n_rec = pr[0].shape[0]
+    assert (n_rec == 0) == (name == 'a batch with no records')
+    assert (k3.launches, k4a.launches, k4b.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (n_rec > 0))

@@ -225,6 +225,12 @@ def test_s1_pass_matches_jax_given_draws(both):
 
 
 def test_s2_pass_matches_jax_given_draws(both):
+    check_s2_pass_given_draws(both)
+
+
+def check_s2_pass_given_draws(both):
+    """The S2 photon pass of both packages' bundles ``both`` (as the
+    fixture gives them) from the same draws of 5 instructions."""
     (pj, kj), (c, pt, kt) = both
     ji = jax_inst(5, 300, 6)
     jinst = {k: jnp.asarray(v) for k, v in ji.items()}

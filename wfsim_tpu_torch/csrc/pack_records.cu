@@ -4,86 +4,215 @@
 // form; the JAX production path ships the encoded pack_records_accumulate,
 // which the port leaves out).
 //
-// What bounds it on the H100: the gather of each record's 110 int16 samples
-// from the grid and the store of the (R, 110) int16 payload plus its
-// (R, 6) int32 meta.  The TPU form searched the interval cumsum for every
-// record with one vectorised searchsorted and gathered all R x 110 samples
-// through an index array in HBM.  Here one block owns one record: thread 0
-// binary-searches the record's interval in the cumsum (found in shared
-// memory by the rest), then 110 threads copy neighbouring samples
-// (coalesced reads of one grid row, coalesced writes of one record row) and
-// zero the tail.  No index array is materialised.
+// What bounds it on the H100: the read of each record's samples from the
+// grid and the store of the (R, 110) int16 payload plus its (R, 6) int32
+// meta, and the read of the interval slots in use; at the bench batch's
+// size, the fixed cost of the count pass, the scan and the read-back.
+// The TPU form took a cumulative sum over every interval slot (B x rows x
+// K) and searched it for every record with one vectorised searchsorted,
+// then gathered all R x 110 samples through an index array in HBM.  Here the plan is per
+// row, and no record searches for its interval:
 //
-// The wrapper computes, with torch, the per-interval record count, its
-// inclusive cumsum and each interval's grid-relative start; the output is
-// bitwise equal to JAX pack_records' first R rows, in its natural
-// (window, channel, interval, record_i) order.
+// 1. wfsim_pack_record_counts: a warp a grid row reads its count and its
+//    first `count` starts and ends and writes the row's record count,
+//    sum ceil(plen / 110) (plen = end - start + 1);
+// 2. the wrapper takes one torch.cumsum over the rows' counts and reads
+//    the total back once, to size the output;
+// 3. wfsim_pack_records: a warp a row gives its intervals their first
+//    records by a warp prefix sum and copies all of them in one pass.  An
+//    interval of nrec records is one contiguous block of nrec x 110 output
+//    samples whose sample f is grid sample left + start + f (clipped to
+//    the row) for f < plen and 0 past it, and the row's blocks follow one
+//    another, so each lane takes int16 pairs of the row's output in turn
+//    (coalesced 32-bit stores), finds the pair's interval in a table in
+//    shared memory (a cursor that only moves forward) and loads four
+//    pairs before it stores them.  The meta words [w, c, start, length,
+//    pulse_length, record_i] are written the same way.
+//
+// Records come out in the twin's (window, row, interval, record_i) order:
+// the output is bitwise pack_records_ref's, the first R rows of wfsim_tpu's
+// pack_records.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kSpr = 110;
-constexpr int kThreads = 128;
+constexpr int kWarpsPerBlock = 4;
+constexpr int kUnroll = 4;   // int16 pairs a lane loads before it stores
+constexpr unsigned kFull = 0xffffffffu;
+
+// torch.div(plen + 109, 110, rounding_mode='floor')
+__device__ __forceinline__ int records_of(int plen) {
+  const int a = plen + kSpr - 1;
+  return a >= 0 ? a / kSpr : -((kSpr - 1 - a) / kSpr);
+}
+
+// the row's intervals in use: count clamped to [0, K] (the twin's
+// arange(K) < counts)
+__device__ __forceinline__ int n_intervals(const int* __restrict__ counts,
+                                           int row, int K) {
+  const int n = counts[row];
+  return n < 0 ? 0 : (n > K ? K : n);
+}
+
+__global__ void record_counts_kernel(
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ counts, int n_rows, int max_intervals,
+    int* __restrict__ row_records) {
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int K = max_intervals;
+  const int n = n_intervals(counts, row, K);
+  const long long off = static_cast<long long>(row) * K;
+  int sum = 0;
+  for (int k = lane; k < n; k += 32)
+    sum += records_of(ends[off + k] - starts[off + k] + 1);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+  if (lane == 0) row_records[row] = sum;
+}
 
 __global__ void pack_records_kernel(
-    const short* __restrict__ data, int n_samples, int n_channels, int max_intervals,
-    const int* __restrict__ left_rel, const int* __restrict__ plen,
-    const int* __restrict__ csum, int n_itv, int n_records,
-    short* __restrict__ rec_data, int* __restrict__ rec_meta) {
-  const int r = blockIdx.x;
-  if (r >= n_records) return;
-  __shared__ int sh_itv;
-  if (threadIdx.x == 0) {
-    // searchsorted(csum, r, side='right'): first interval whose cumsum > r
-    int lo = 0, hi = n_itv;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (csum[mid] > r) hi = mid; else lo = mid + 1;
-    }
-    sh_itv = lo < n_itv - 1 ? lo : n_itv - 1;
-  }
-  __syncthreads();
-  const int itv = sh_itv;
-  const int base = itv > 0 ? csum[itv - 1] : 0;
-  const int record_i = r - base;
-  const int w = itv / (n_channels * max_intervals);
-  const int c = (itv / max_intervals) % n_channels;
-  const int pl = plen[itv];
-  const int start_s = left_rel[itv] + record_i * kSpr;
-  int length = pl - record_i * kSpr;
-  length = length < 0 ? 0 : (length > kSpr ? kSpr : length);
+    const short* __restrict__ data, int n_samples, int n_channels,
+    int max_intervals, const int* __restrict__ left_all,
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ counts, const int* __restrict__ row_csum,
+    int n_rows, short* __restrict__ rec_data, int* __restrict__ rec_meta) {
+  // a warp's table of 32 intervals, in the chunk's sample coordinates
+  // (chunk sample f = 110 x the chunk's record + its sample): the
+  // interval's first pair (entry 32: the chunk's pairs), the grid sample
+  // of chunk sample 0 (left + start - 110 x first record) and the chunk
+  // sample where its zero tail begins (plen + 110 x first record)
+  __shared__ int sh_pair[kWarpsPerBlock][33];
+  __shared__ int sh_base[kWarpsPerBlock][32];
+  __shared__ int sh_end[kWarpsPerBlock][32];
+  const int wid = threadIdx.x / 32;
+  const int row = blockIdx.x * kWarpsPerBlock + wid;
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int K = max_intervals;
+  const int n = n_intervals(counts, row, K);
+  if (n == 0) return;
+  const int w = row / n_channels;
+  const int c = row - w * n_channels;
+  const int left = left_all[row];
+  const short* d = data + static_cast<long long>(row) * n_samples;
+  const int* st = starts + static_cast<long long>(row) * K;
+  const int* en = ends + static_cast<long long>(row) * K;
+  long long rec = row > 0 ? row_csum[row - 1] : 0;  // the chunk's first record
+  const int t_max = n_samples - 1;
+  int* tab_pair = sh_pair[wid];
+  int* tab_base = sh_base[wid];
+  int* tab_end = sh_end[wid];
 
-  const int j = threadIdx.x;
-  if (j < kSpr) {
-    short v = 0;
-    if (j < length) {
-      int col = start_s + j;
-      col = col < 0 ? 0 : (col > n_samples - 1 ? n_samples - 1 : col);
-      v = data[(static_cast<long long>(w) * n_channels + c) * n_samples + col];
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    // lane i holds interval k0 + i: its grid start, length, records
+    const int k = k0 + lane;
+    int lrel = 0, plen = 0, nrec = 0;
+    if (k < n) {
+      const int s = st[k];
+      lrel = left + s;
+      plen = en[k] - s + 1;
+      nrec = records_of(plen);
     }
-    rec_data[static_cast<long long>(r) * kSpr + j] = v;
-  } else if (j == kSpr) {
-    int* m = rec_meta + static_cast<long long>(r) * 6;
-    m[0] = w;
-    m[1] = c;
-    m[2] = start_s;
-    m[3] = length;
-    m[4] = pl;
-    m[5] = record_i;
+    int incl = nrec;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    const int first = incl - nrec;
+    tab_pair[lane] = first * (kSpr / 2);
+    tab_base[lane] = lrel - first * kSpr;
+    tab_end[lane] = plen + first * kSpr;
+    if (lane == 0) tab_pair[32] = total * (kSpr / 2);
+    __syncwarp();
+
+    // the payload: the chunk's records, total x 55 int16 pairs, in one
+    // pass; kUnroll pairs a lane, all loaded before any is stored (grid
+    // samples clipped to the row, 0 past the pulse)
+    unsigned* out = reinterpret_cast<unsigned*>(rec_data) + rec * (kSpr / 2);
+    const int n_pairs = total * (kSpr / 2);
+    int cur = 0;  // the interval of the lane's current pair
+    for (int p0 = lane; p0 < n_pairs; p0 += 32 * kUnroll) {
+      unsigned v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + 32 * u;
+        v[u] = 0u;
+        if (p < n_pairs) {
+          while (tab_pair[cur + 1] <= p) ++cur;
+          const int f = 2 * p;
+          const int src = tab_base[cur] + f;
+          const int end = tab_end[cur];
+          const int c0 = min(max(src, 0), t_max);
+          const int c1 = min(max(src + 1, 0), t_max);
+          const unsigned v0 = f < end ? static_cast<unsigned short>(__ldg(d + c0)) : 0u;
+          const unsigned v1 = f + 1 < end ? static_cast<unsigned short>(__ldg(d + c1)) : 0u;
+          v[u] = v0 | (v1 << 16);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (p0 + 32 * u < n_pairs) out[p0 + 32 * u] = v[u];
+    }
+    // the meta: total x 6 words
+    int* meta = rec_meta + rec * 6;
+    cur = 0;
+    for (int f = lane; f < total * 6; f += 32) {
+      const int r = f / 6;
+      const int q = f - 6 * r;
+      while (tab_pair[cur + 1] <= r * (kSpr / 2)) ++cur;
+      // this record's sample 0 in chunk coordinates is 110 r
+      const int li = tab_base[cur] + r * kSpr;       // its grid start
+      const int first = tab_pair[cur] / (kSpr / 2);  // the interval's first
+      const int pi = tab_end[cur] - first * kSpr;
+      const int ri = r - first;
+      const int len = min(max(pi - ri * kSpr, 0), kSpr);
+      meta[f] = q == 0 ? w : q == 1 ? c : q == 2 ? li
+              : q == 3 ? len : q == 4 ? pi : ri;
+    }
+    rec += total;
+    __syncwarp();  // the table is read before the next chunk writes it
   }
+}
+
+int blocks_for(int n_rows) {
+  return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
 }  // namespace
 
+extern "C" int wfsim_pack_record_counts(
+    const void* starts, const void* ends, const void* counts, int n_rows,
+    int max_intervals, void* row_records, void* stream) {
+  if (n_rows <= 0 || max_intervals <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  record_counts_kernel<<<blocks_for(n_rows), 32 * kWarpsPerBlock, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(ends),
+      static_cast<const int*>(counts), n_rows, max_intervals,
+      static_cast<int*>(row_records));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int wfsim_pack_records(
     const void* data, int n_samples, int n_channels, int max_intervals,
-    const void* left_rel, const void* plen, const void* csum, int n_itv,
-    int n_records, void* rec_data, void* rec_meta, void* stream) {
-  if (n_records <= 0 || n_itv <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  pack_records_kernel<<<n_records, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const void* left_all, const void* starts, const void* ends,
+    const void* counts, const void* row_csum, int n_rows, void* rec_data,
+    void* rec_meta, void* stream) {
+  if (n_rows <= 0 || max_intervals <= 0 || n_channels <= 0 ||
+      n_samples <= 0 || (reinterpret_cast<uintptr_t>(rec_data) & 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  pack_records_kernel<<<blocks_for(n_rows), 32 * kWarpsPerBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const short*>(data), n_samples, n_channels, max_intervals,
-      static_cast<const int*>(left_rel), static_cast<const int*>(plen),
-      static_cast<const int*>(csum), n_itv, n_records,
-      static_cast<short*>(rec_data), static_cast<int*>(rec_meta));
+      static_cast<const int*>(left_all), static_cast<const int*>(starts),
+      static_cast<const int*>(ends), static_cast<const int*>(counts),
+      static_cast<const int*>(row_csum), n_rows, static_cast<short*>(rec_data),
+      static_cast<int*>(rec_meta));
   return static_cast<int>(cudaGetLastError());
 }

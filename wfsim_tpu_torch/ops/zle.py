@@ -6,11 +6,12 @@ by wfsim/core/rawdata.py:274-311): runs of samples below threshold, merged
 across gaps of at most ``holdoff`` samples, padded by +-trigger_window,
 clipped to the channel window and landed on even offsets.
 
-On the card one hand-written kernel scans each row
-(``csrc/zle_intervals.cu``).  ``zle_all_channels_ref`` is its plain PyTorch
-twin, the data-parallel formulation of wfsim_tpu (cumulative sums and
-shifted window sums); both return the same arrays, sentinel slots
-included.
+On the card one hand-written kernel scans each row with a warp, 1,024
+samples a step (32 a lane, as one bit mask), each lane's previous below
+sample from a ballot and a shuffle (``csrc/zle_intervals.cu``).
+``zle_all_channels_ref`` is its plain PyTorch twin, the data-parallel
+formulation of wfsim_tpu (cumulative sums and shifted window sums); both
+return the same arrays, sentinel slots included.
 """
 from __future__ import annotations
 

@@ -7,10 +7,10 @@ dense pack_records, :469-519; reference: wfsim/core/rawdata.py:204-311,
 A batch of B windows is one grid of B*C rows (window w, TPC channel c ->
 row w*C + c).  The glue here is plain torch: gathering each window's
 photons from the arena through its piece table, the per-row extents, the
-row sort, and the record cumsum.  The three device passes are hand-written
-kernels with plain twins: ``ops.waveform.superpose_adc`` (or
-``superpose_adc_full`` on the full digitizer grid), ``ops.zle.zle_all_channels``
-and :func:`pack_records`.
+row sort, and the cumsum of the rows' record counts.  The three device
+passes are hand-written kernels with plain twins:
+``ops.waveform.superpose_adc`` (or ``superpose_adc_full`` on the full
+digitizer grid), ``ops.zle.zle_all_channels`` and :func:`pack_records`.
 
 Two grids, chosen where wfsim_tpu chooses them (digitize.py:290): the slim
 grid of the C TPC rows, and the full digitizer grid of
@@ -238,7 +238,8 @@ def digitize_window(params, const, t, ch, gain, valid, noise_ix=None, *,
 
 def _record_plan(left_all, starts, ends, counts):
     """Per-interval pulse length, grid-relative start and inclusive record
-    cumsum (flattened in (window, channel, interval) order)."""
+    cumsum (flattened in (window, channel, interval) order), the twin's
+    plan (the kernels plan by row)."""
     spr = SAMPLES_PER_RECORD
     K = starts.shape[2]
     kk = torch.arange(K, device=starts.device, dtype=torch.int32)
@@ -282,13 +283,16 @@ def pack_records_ref(data, left_all, starts, ends, counts):
     return rws, meta
 
 
-_kernel = Kernel('wfsim_pack_records', [P, I, I, I, P, P, P, I, I, P, P, P])
+_count_kernel = Kernel('wfsim_pack_record_counts', [P, P, P, I, I, P, P])
+_kernel = Kernel('wfsim_pack_records',
+                 [P, I, I, I, P, P, P, P, P, I, P, P, P])
 
 
 def pack_records(data, left_all, starts, ends, counts):
     """ZLE intervals -> strax record rows.  CPU tensors go to
-    :func:`pack_records_ref`; CUDA tensors launch the hand-written kernel
-    (``csrc/pack_records.cu``) after the record cumsum in torch."""
+    :func:`pack_records_ref`; CUDA tensors launch the hand-written kernels
+    (``csrc/pack_records.cu``): each row's record count, one cumsum over
+    the rows, one read-back of the total to size the output, the copy."""
     B, C, T = data.shape
     K = starts.shape[2]
     dev = data.device
@@ -306,14 +310,22 @@ def pack_records(data, left_all, starts, ends, counts):
         return pack_records_ref(data, left_all, starts, ends, counts)
     if dev.type != 'cuda':
         raise NotImplementedError(f'pack_records on {dev}')
-    plen, left_rel, csum = _record_plan(left_all, starts, ends, counts)
-    n_rec = int(csum[-1]) if csum.numel() else 0
+    R = B * C
+    left_all, starts, ends, counts = (x.contiguous() for x in
+                                      (left_all, starts, ends, counts))
+    n_rec = 0
+    if R and K:
+        row_records = torch.empty(R, dtype=torch.int32, device=dev)
+        _count_kernel(ptr(starts), ptr(ends), ptr(counts), R, K,
+                      ptr(row_records), stream_of(dev))
+        row_csum = torch.cumsum(row_records, 0, dtype=torch.int32)
+        n_rec = int(row_csum[-1])          # the call's one read-back
     rec_data = torch.empty((n_rec, SAMPLES_PER_RECORD), dtype=torch.int16,
                            device=dev)
     rec_meta = torch.empty((n_rec, 6), dtype=torch.int32, device=dev)
     if n_rec == 0:
         return rec_data, rec_meta
-    _kernel(ptr(data), T, C, K, ptr(left_rel.contiguous()),
-            ptr(plen.contiguous()), ptr(csum), int(csum.numel()), n_rec,
-            ptr(rec_data), ptr(rec_meta), stream_of(dev))
+    _kernel(ptr(data), T, C, K, ptr(left_all), ptr(starts), ptr(ends),
+            ptr(counts), ptr(row_csum), R, ptr(rec_data), ptr(rec_meta),
+            stream_of(dev))
     return rec_data, rec_meta

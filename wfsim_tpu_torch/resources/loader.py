@@ -273,8 +273,11 @@ _UNSUPPORTED = (
     ('enable_gas_gap_warping', bool, 'gas-gap map'),
     ('s1_time_spline', bool, 'S1 optical propagation spline'),
     ('s2_time_spline', bool, 'S2 optical propagation spline'),
+    # norm_drift_velocity alone keeps the constant drift, as in wfsim_tpu
+    # (its loader reads the maps only for another key)
     ('enable_field_dependencies',
-     lambda v: isinstance(v, dict) and any(bool(x) for x in v.values()),
+     lambda v: isinstance(v, dict) and any(
+         bool(x) for k, x in v.items() if k != 'norm_drift_velocity'),
      'field-dependency maps'),
 )
 
