@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of wfsim_tpu_torch on one card.
 
-    python3 ab_port.py OTHER_TREE [--runs 3] [--kernels]
+    python3 ab_port.py OTHER_TREE [--runs 3] [--kernels [--only ap_diffuse]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -13,9 +13,11 @@ JSON line: the tree, wall seconds, events/s, records and truth rows.
 With ``--kernels`` each process measures kernel rows instead, with this
 tree's ``chip_smoke.kernel_rows`` on the tree's own package: the
 superposition entries on their three window batches, the ZLE and record
-pack on four grids and the per-PMT truth, each against its twin (and, where
-there is one, its library computation), and prints
-``{row: {ms, device_ms, host_us, plain_ms, library_ms, ...}}``.
+pack on four grids, the per-PMT truth, and the PMT-afterpulse generator and
+the diffused pattern on their bench and skewed batches, each against its
+twin (and, where there is one, its library computation), and prints
+``{row: {ms, device_ms, split, host_us, plain_ms, library_ms, ...}}``.
+``--only ap_diffuse`` measures only the last two (``ap_diffuse_measure``).
 """
 import argparse
 import json
@@ -62,8 +64,10 @@ _build.build()
 smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                       '--format=csv,noheader'], capture_output=True,
                      text=True).stdout.strip()
-rows = cs.kernel_rows(torch.device('cuda:0'), smi)
-keep = ('ms', 'device_ms', 'host_us', 'plain_ms', 'library_ms',
+rows = (cs.kernel_rows(torch.device('cuda:0'), smi) if sys.argv[3] == 'all'
+        else cs.ap_diffuse_measure(torch.device('cuda:0'), smi,
+                                   max_syncs=None))
+keep = ('ms', 'device_ms', 'split', 'host_us', 'plain_ms', 'library_ms',
         'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
         'library_diff', 'syncs', 'photons')
 print(json.dumps({'smi': smi, 'rows': {
@@ -77,13 +81,16 @@ def main():
     ap.add_argument('--runs', type=int, default=3)
     ap.add_argument('--kernels', action='store_true',
                     help='measure the kernel rows, not the runs')
+    ap.add_argument('--only', choices=('all', 'ap_diffuse'), default='all',
+                    help='with --kernels: every row, or the K11 and K12b '
+                         'rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}
     for label in ('other', 'this', 'this', 'other'):
         root = trees[label]
         cmd = ([sys.executable, '-c', KERNEL_CODE, str(root),
-                str(here / 'chip_smoke.py')] if args.kernels else
+                str(here / 'chip_smoke.py'), args.only] if args.kernels else
                [sys.executable, '-c', CODE, str(root), str(args.runs)])
         r = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
         if args.kernels:

@@ -24,11 +24,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 Then the realistic configuration (noise overlay, PMT afterpulses, electron
 afterpulses; the JAX package's ``bench.py`` "production realism" line):
 
-3b. kernels at realistic shapes, bitwise against their twins on the card,
-    with median CUDA-event times: PMT-afterpulse select+emit on ~1.5 M
-    S2-like photons with the synthetic tables, the photon summaries, and
-    ``superpose_adc`` with the noise bank and offsets that wrap its end
-    (bitwise only: 3j times it);
+3b. kernels at realistic shapes, bitwise against their twins on the card:
+    the PMT-afterpulse generator (select, rows, emit) on ~1.5 M S2-like
+    photons with the synthetic tables (3l times it), the photon summaries
+    (with median CUDA-event times), and ``superpose_adc`` with the noise
+    bank and offsets that wrap its end (3j times it);
 4b. main path: ``Simulator(default_config(..., enable_noise=True,
     enable_pmt_afterpulses=True, enable_electron_afterpulses=True),
     device='cuda').get_arrays(inst)`` on the same workload, warm-up then
@@ -64,6 +64,20 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     their meta, the row inputs and the slots in use for K4.  Each K3 and
     K4 entry launches once a digitize batch on the default run.
 
+3l. the PMT-afterpulse generator (K11: select, one cumsum, rows, one
+    read-back, emit) on the 3b shape (1.5 M photons over 512 truth rows)
+    and on a skewed copy whose truth row 100 holds 10^6 of them, and the
+    diffused pattern (K12b) on the detector_physics S2 batch (512
+    instructions, ~90 k electrons) and on a skewed copy whose instruction
+    100 has 10^5 electrons: each bitwise against its twin, K11 reading
+    back once a call and K12b never (``set_sync_debug_mode('warn')``);
+    ``ms``, ``device_ms`` split by kernel, ``host_us`` over 1,000 calls,
+    the twin's time and the bound (K11's bytes: the uniforms of every
+    slot, the photon fields select reads, the selected slots' inputs,
+    table entries and outputs; the old count of every input and output is
+    printed beside it).  K11's entries launch 9 times on the realistic run,
+    K12b's 3 times on the detector_physics run (EXPECTED_LAUNCHES).
+
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
 one batch each, with their draws made on the card:
@@ -95,10 +109,9 @@ the bench workload with ``local_field`` = 82 V/cm and ``e_dep`` = amp x
     one output and on the 30 x 30 x 494 file pattern map; the S2 batch's
     512 instruction positions on the pattern map; 1.57 M points on a
     synthetic 50 x 50 x 100 map, the optical splines' photon width; each
-    with its host time a call, then once under the sync check), the diffused
-    pattern of the 512-instruction S2 batch (~90 k electrons), the gas-gap
+    with its host time a call, then once under the sync check), the gas-gap
     luminescence times (~1.5 M photons) and the NEST delays (~7 k S1
-    photons); max |diff| must be 0;
+    photons); max |diff| must be 0 (3l holds the diffused pattern);
 4d. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
     **detector_physics_overrides(map)), device='cuda').get_arrays(inst)``,
     warm-up then timed with the launch counts reset just before; every new
@@ -246,9 +259,10 @@ channel block of the step has none).  The phase-2
 line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
-channel draw, the map lookup and the ZLE and record-pack entries their
-EXPECTED_LAUNCHES, and the default run DEFAULT_DIGEST: a change that keeps
-every kernel's output keeps them.
+channel draw, the map lookup, the ZLE and record-pack entries, the
+PMT-afterpulse entries and the diffused pattern their EXPECTED_LAUNCHES,
+and the default run DEFAULT_DIGEST: a change that keeps every kernel's
+output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
@@ -281,8 +295,10 @@ ZLE_PACK_KERNELS = ('wfsim_zle_intervals', 'wfsim_pack_record_counts',
 #: the kernel entries each main path must launch
 DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *ZLE_PACK_KERNELS,
                         'wfsim_grid_lookup') + PHYSICS_KERNELS
-REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + (
-    'wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit', 'wfsim_ap_photon_summaries')
+#: the PMT-afterpulse generator's entries (K11): each once a call
+AP_KERNELS = ('wfsim_pmt_ap_select', 'wfsim_pmt_ap_rows', 'wfsim_pmt_ap_emit')
+REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + AP_KERNELS + (
+    'wfsim_ap_photon_summaries',)
 #: the detector_physics path: the gas-gap sampler replaces the simple
 #: luminescence tables
 DETECTOR_PATH_KERNELS = tuple(
@@ -517,10 +533,12 @@ def physics_phases(sim):
 
 
 def to_device(x, dev):
-    """A (nested) dict of tensors, or a tensor, on ``dev`` (None kept)."""
+    """A (nested) dict of tensors, or a tensor, on ``dev`` (anything else,
+    None or a host count such as the S2 draws' ``diff_split``, kept)."""
+    import torch
     if isinstance(x, dict):
         return {k: to_device(v, dev) for k, v in x.items()}
-    return None if x is None else x.to(dev)
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
 
 
 def compare(a, b, what, rtol_keys=()):
@@ -882,7 +900,6 @@ def phase_3d(params, const, batches, dev, smi):
     e_edges, _e_ph_edges, ph_edges = s2.s2_edges(d2)
     n_e, n_ph = int(e_edges[-1]), int(ph_edges[-1])
     n_s1 = int(d1['n_hits'].sum())
-    C = int(params.gains.shape[0])
     res = {}
     check = make_check(res, 'kernels-d', smi)
     print(f'[kernels-d] S2 batch: {n_inst} instructions, {n_e} electrons, '
@@ -891,15 +908,7 @@ def phase_3d(params, const, batches, dev, smi):
 
     check_k12a(check, params, torch.stack([x2['x'], x2['y']], dim=1), dev)
 
-    z, xy = s2.s2_positions(params, const, x2)
-    dif = s2.diffusion_inputs(const, z, xy)
-    pd_args = (params.s2_pattern, xy[:, 0].contiguous(),
-               xy[:, 1].contiguous(), *dif, const.tpc_radius ** 2, e_edges,
-               d2['diff_r'], d2['diff_a'], C)
-    check('pattern_diffuse', lambda: (s2.pattern_diffuse(*pd_args),),
-          lambda: (s2.pattern_diffuse_ref(*pd_args),), pd_args,
-          ops32=n_e * (40 + C * 8), ops64=n_e * C, reps=10)
-
+    _z, xy = s2.s2_positions(params, const, x2)
     gg_args = (params.gg_inv_cdf, *s2.gasgap_rows(params, xy), ph_edges,
                d2['u_lum'])
     check('lumi_gasgap_times', lambda: (s2.lumi_gasgap_times(*gg_args),),
@@ -1242,12 +1251,14 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         he_full_grid=(868_127, 444_017),
                         timing_models=855_569, per_pmt_truth=867_836,
                         xenon1t_full_grid=567_294)
-#: the launches of the channel draw, the map lookup and (one a digitize
-#: batch) the ZLE and record-pack entries on those runs
+#: the launches of the channel draw, the map lookup, (one a digitize
+#: batch) the ZLE and record-pack entries, (one a simulation batch) the
+#: PMT-afterpulse entries and the diffused pattern on those runs
 EXPECTED_LAUNCHES = dict(
     default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12,
                  **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
-    detector_physics=dict(wfsim_grid_lookup=30))
+    realistic=dict.fromkeys(AP_KERNELS, 9),
+    detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
     '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
@@ -1781,6 +1792,218 @@ def zle_pack_measure(dev, smi, max_syncs=(0, 1)):
     return res
 
 
+#: phase 3l's batches: K11 on the 3b shape (1.5 M S2-like photons over 512
+#: truth rows, the realistic tables) and a skewed copy whose truth row 100
+#: holds 10^6 of them; K12b on the detector_physics S2 batch of the bench
+#: instructions and a skewed copy whose instruction 100 has 10^5 electrons
+AP_SHAPE = (1_500_000, 512)
+AP_SKEWED_ROW = (100, 1_000_000)
+DIFFUSE_SKEWED_INST = (100, 100_000)
+
+
+def ap_batch(params, const, skewed, dev, seed):
+    """(photons, draws) of one K11 batch of phase 3l (see AP_SHAPE)."""
+    import torch
+    from wfsim_tpu_torch.models.afterpulse import pmt_ap_draws
+    n, n_rows = AP_SHAPE
+    rng = np.random.default_rng(seed)
+    ph = s2_like_photons(rng, n, int(params.gains.shape[0]), n_rows, dev)
+    if skewed:
+        row, big = AP_SKEWED_ROW
+        ph['truth_row'] = torch.as_tensor(np.sort(np.concatenate(
+            [np.full(big, row), rng.integers(0, n_rows, n - big)])),
+            device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return ph, pmt_ap_draws(gen, int(params.pmt_ap_delay_cdf.shape[0]), n,
+                            dev)
+
+
+def ap_work(params, const, ph, draws, out, info, n_rows):
+    """(bytes, old bytes, float32 operations, the draws' bytes) of one K11
+    call.  Bytes: the 32-byte sectors of the (E, n) draws that select and
+    emit read (u0 where the photon is valid; u2 for a non-uniform element
+    where a valid slot passes the delay test and the element's amplitude
+    bin is positive, select's test order; u1 for a uniform element where a
+    slot is selected, which emit reads); per photon ch, is_dpe and valid;
+    per selected slot its t and truth row, the table entries its
+    inversions end on (a uniform element's two delay values, another's two
+    delay and two amplitude values) and its gain, and its outputs (t, ch,
+    gain, is_dpe, valid, truth row); per (element, channel) the three table
+    values select compares; per row the counts, t_min and t_max.  The old
+    count took every uniform, every photon field, the whole tables and
+    the outputs."""
+    import torch
+    from wfsim_tpu_torch.models.afterpulse import _meta, _select_ref, \
+        _uniforms
+    delay = params.pmt_ap_delay_cdf
+    E, C, _Td = delay.shape
+    n = int(ph['t'].shape[0])
+    uni_t, _dbin, abin = _meta(const, ph['t'].device)
+    chc = torch.clamp(ph['ch'], 0, C - 1).to(torch.int64)
+    r0, _aux = _uniforms(const, draws, uni_t, ph['is_dpe'])
+    valid = ph['valid'][None, :].expand(E, n)
+    delay_ok = valid & (r0 <= delay[:, :, -1][:, chc])
+    sel = _select_ref(params, const, ph, draws)
+
+    def sectors(mask):               # 32-byte sectors of an (E, n) float32
+        flat = mask.reshape(-1)
+        flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 8)])
+        return int(flat.reshape(-1, 8).any(dim=1).sum()) * 32
+
+    draw_bytes = (sectors(valid)
+                  + sectors(delay_ok & (~uni_t & (abin > 0))[:, None])
+                  + sectors(sel & uni_t[:, None]))
+    uni = np.asarray(const.pmt_ap_element_uniform)
+    per_e = sel.sum(1).cpu().numpy()
+    total = int(per_e.sum())
+    n_bytes = (draw_bytes + n * 6 + total * (4 + 8 + 4 + 22)
+               + int(per_e[uni].sum()) * 8 + int(per_e[~uni].sum()) * 16
+               + E * C * 12 + n_rows * 12)
+    old = nbytes(ph, draws, params.pmt_ap_delay_cdf, params.pmt_ap_amp_cdf,
+                 out, info)
+    return n_bytes, old, E * n * 6, draw_bytes
+
+
+def diffuse_batch(dev, tmp):
+    """The pattern_diffuse arguments of the detector_physics S2 batch of
+    the bench instructions (simple S1 timing, so no NEST tables are built:
+    the S2 draws are the configuration's) and of its skewed copy (see
+    DIFFUSE_SKEWED_INST), as {name: (args, keyword args)}: the keyword is
+    the chunk count ``n_split``, as the S2 pass passes it, where the
+    checkout's pattern_diffuse takes one (an older checkout's does not)."""
+    import inspect
+    import torch
+    from wfsim_tpu_torch.config import default_config, \
+        detector_physics_overrides
+    from wfsim_tpu_torch.interface import detector_physics_instructions
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.resources.synthetic import write_pattern_map
+    map_path = write_pattern_map(Path(tmp) / 's2_pattern_map.json', 1234)
+    cfg = default_config(seed=1234, chunk_size=100, **dict(
+        detector_physics_overrides(map_path), s1_model_type='simple'))
+    params, const, batches = physics_batches(
+        cfg, detector_physics_instructions(512, 2000, 300), dev, 20261016)
+    x2, _n_rows, d2 = batches['s2']
+    e_edges = s2.s2_edges(d2)[0]
+    z, xy = s2.s2_positions(params, const, x2)
+    head = (params.s2_pattern, xy[:, 0].contiguous(), xy[:, 1].contiguous(),
+            *s2.diffusion_inputs(const, z, xy), const.tpc_radius ** 2)
+    C = int(params.gains.shape[0])
+    counts = (e_edges[1:] - e_edges[:-1]).cpu().numpy().copy()
+    inst, big = DIFFUSE_SKEWED_INST
+    counts[inst] = big
+    n_sk = int(counts.sum())
+    rng = np.random.default_rng(20261016)
+    normals = [torch.as_tensor(rng.standard_normal(n_sk, dtype=np.float32),
+                               device=dev) for _ in range(2)]
+    edges_sk = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                               device=dev)
+    takes = 'n_split' in inspect.signature(s2.pattern_diffuse).parameters
+    split = {}
+    if takes:
+        split = {'pattern_diffuse': dict(n_split=d2['diff_split']),
+                 'pattern_diffuse_skewed': dict(n_split=int(
+                     (np.maximum(counts - 1, 0) // s2.DIFFUSE_CHUNK).sum()))}
+    return {'pattern_diffuse': ((*head, e_edges, d2['diff_r'], d2['diff_a'],
+                                 C), split.get('pattern_diffuse', {})),
+            'pattern_diffuse_skewed': ((*head, edges_sk, *normals, C),
+                                       split.get('pattern_diffuse_skewed',
+                                                 {}))}
+
+
+def ap_diffuse_measure(dev, smi, max_syncs=(1, 0)):
+    """Phase 3l: the PMT-afterpulse generator (K11 select + emit) on the 3b
+    shape and its skewed copy, the diffused pattern (K12b) on the
+    detector_physics S2 batch and its skewed copy (AP_SHAPE, AP_SKEWED_ROW,
+    DIFFUSE_SKEWED_INST): each bitwise against its twin, its host syncs a
+    call (at most ``max_syncs``, K11's and K12b's; None counts them without
+    a limit, for another checkout's wrappers), ``ms``, ``device_ms`` split
+    by kernel, ``host_us`` over 1,000 calls, the twin's time and the bound
+    (K11's bytes by ap_work, both counts printed; K12b's the operations of
+    phase 3d).  Returns {row name: measurements (see make_check)}."""
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.models.afterpulse import (
+        pmt_afterpulse_photons, pmt_afterpulse_photons_ref)
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.resources import load_config
+    cfg = default_config(seed=1234, chunk_size=100, enable_noise=True,
+                         enable_pmt_afterpulses=True,
+                         enable_electron_afterpulses=True)
+    params = build_params(cfg, load_config(cfg), dev)
+    const = build_constants(cfg)
+    n_rows = AP_SHAPE[1]
+    works = []
+
+    def ap_call(fn, ph, draws):
+        def call():
+            out, info = fn(params, const, ph, draws, n_truth_rows=n_rows)
+            return (*out.values(), info['counts'], info['t_min'],
+                    info['t_max'], torch.tensor([info['total']]))
+        return call
+
+    for skewed in (False, True):
+        ph, draws = ap_batch(params, const, skewed, dev, 20261016 + skewed)
+        out, info = pmt_afterpulse_photons_ref(params, const, ph, draws,
+                                               n_truth_rows=n_rows)
+        n_bytes, old, ops, draw_bytes = ap_work(params, const, ph, draws,
+                                                out, info, n_rows)
+        rows = ph['truth_row']
+        print(f'[ap-diffuse] pmt_afterpulse{"_skewed" * skewed}: '
+              f'{AP_SHAPE[0]} photons, {int(draws["u0"].shape[0])} elements,'
+              f' {n_rows} rows (largest {int(torch.bincount(rows).max())}),'
+              f' selected {info["total"]}; bytes {n_bytes} (the draws\' '
+              f'{draw_bytes}; bound {bound(n_bytes, ops)[0]:.6f} ms; the '
+              f'old count {old}: bound {bound(old, ops)[0]:.6f} ms)')
+        works.append(('pmt_afterpulse' + '_skewed' * skewed,
+                      ap_call(pmt_afterpulse_photons, ph, draws),
+                      ap_call(pmt_afterpulse_photons_ref, ph, draws),
+                      0 if max_syncs is None else max_syncs[0], n_bytes,
+                      ops, 0))
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_')
+    try:
+        for name, (args, kw) in diffuse_batch(dev, tmp).items():
+            n_e, C = int(args[-2].shape[0]), args[-1]
+            counts = args[-4][1:] - args[-4][:-1]
+            print(f'[ap-diffuse] {name}: {int(args[1].shape[0])} '
+                  f'instructions, {n_e} electrons (largest '
+                  f'{int(counts.max())}), {C} channels, map '
+                  f'{tuple(args[0].values.shape)}, chunk count {kw}')
+            works.append((name, lambda a=args, k=kw: (
+                              s2.pattern_diffuse(*a, **k),),
+                          lambda a=args: (s2.pattern_diffuse_ref(*a),),
+                          0 if max_syncs is None else max_syncs[1],
+                          nbytes(args, torch.empty((int(args[1].shape[0]), C),
+                                                   dtype=torch.float32)),
+                          n_e * (40 + C * 8), n_e * C))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {}
+    for name, kernel, plain, limit, n_bytes, ops32, ops64 in works:
+        err = compare(kernel(), plain(), name)
+        n_sync, where = count_syncs(kernel)
+        if max_syncs is not None and n_sync > limit:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {limit} ({where})')
+        dev_ms, by_name = device_ms(kernel)
+        m = res[name] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, ops32=ops32, ops64=ops64, library_ms=None,
+            syncs=n_sync, split={k[:60]: v for k, v in by_name.items()})
+        b_ms, b_by = bound(n_bytes, ops32, ops64)
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({k: round(v, 6) for k, v in m['split'].items()}))
+        print(f'[ap-diffuse] {name}: max|diff| {err}, read-backs {n_sync} '
+              f'{where}, {m["ms"]:.4f} ms, device {dev_s}, host '
+              f'{m["host_us"]:.2f} us a call, plain twin '
+              f'{m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+              f'({smi})')
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -1815,8 +2038,9 @@ def per_pmt_library(params, const, ph, row_edges):
 def kernel_rows(dev, smi):
     """The rows ``ab_port.py --kernels`` compares between two checkouts:
     the superposition rows on every batch (superpose_measure), the ZLE and
-    record-pack rows on every grid (zle_pack_measure) and K16 on 494
-    channels with its library computation (per_pmt_kernel_check)."""
+    record-pack rows on every grid (zle_pack_measure), K16 on 494 channels
+    with its library computation (per_pmt_kernel_check) and the K11 and
+    K12b rows (ap_diffuse_measure)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
@@ -1827,6 +2051,7 @@ def kernel_rows(dev, smi):
     per_pmt_kernel_check(make_check(res, 'kernels-x', smi),
                          'pulse_truth_per_pmt', cfg,
                          bench_instructions(512, 2000, 300), dev)
+    res.update(ap_diffuse_measure(dev, smi, max_syncs=None))
     return res
 
 
@@ -2633,25 +2858,15 @@ def main():
     if err6 or not in_win.std().item() > 0.5:
         raise AssertionError('superpose_adc with noise differs from its twin '
                              'or shows no noise')
-    times = dict(
-        pmt_afterpulse=timing(
-            lambda: pmt_afterpulse_photons(params_r, const_r, ph_ap, draws,
-                                           n_truth_rows=n_rows),
-            lambda: pmt_afterpulse_photons_ref(params_r, const_r, ph_ap,
-                                               draws, n_truth_rows=n_rows),
-            nbytes(ph_ap, draws, params_r.pmt_ap_delay_cdf,
-                   params_r.pmt_ap_amp_cdf, ap_k, info_k), n_ph * E * 6,
-            err=err4),
-        ap_photon_summaries=timing(
-            lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows),
-            lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows),
-            nbytes(ph_ap, u_s, sk), n_ph * 4, err=err5))
-    for name in ('pmt_afterpulse', 'ap_photon_summaries'):
-        m = times[name]
-        b_ms, b_by = bound(m['bytes'], m['ops32'])
-        print(f'[kernels-r] {name}: {m["ms"]:.4f} ms, device '
-              f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
-              f'bound {b_ms:.4f} ms by {b_by} ({smi})')
+    times = dict(ap_photon_summaries=timing(
+        lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows),
+        lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows),
+        nbytes(ph_ap, u_s, sk), n_ph * 4, err=err5))
+    m = times['ap_photon_summaries']
+    b_ms, b_by = bound(m['bytes'], m['ops32'])
+    print(f'[kernels-r] ap_photon_summaries: {m["ms"]:.4f} ms, device '
+          f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
+          f'bound {b_ms:.4f} ms by {b_by} ({smi})')
     del ph_ap, draws, ap_k, ap_r, grid_n, grid_nr
 
     # ---- 4b. realistic main path -----------------------------------------
@@ -2681,7 +2896,7 @@ def main():
           f'samples mean {quiet.mean():.3f} std {quiet.std():.3f}')
     if not (15900 < quiet.mean() < 16100 and quiet.std() > 0.5):
         raise AssertionError('no noise on quiet in-window samples')
-    expect_records('realistic', len(rr))
+    expect_records('realistic', len(rr), launches=launches_r)
     print(f'[realistic] events/s {512 / wall_r:.2f} wall {wall_r:.3f} s '
           f'records {len(rr)} photons {n_photons} peak_mem '
           f'{peak_r / 2 ** 20:.1f} MiB ({smi})')
@@ -2727,6 +2942,9 @@ def main():
 
     # ---- 3k. the ZLE interval search and the record pack on four grids -----
     ztimes = zle_pack_measure(dev, smi)
+
+    # ---- 3l. the PMT-afterpulse generator and the diffused pattern ----------
+    atimes = ap_diffuse_measure(dev, smi)
 
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
@@ -2863,14 +3081,19 @@ def main():
                  launches_f if m['shape'] == 'full' else launches, m)
         rows[-1].update(syncs=m['syncs'], records=m['records'],
                         in_window=m['in_window'])
-    for name, cu, rep, entries, counts in (
-            ('pmt_afterpulse', 'pmt_afterpulse.cu',
-             'wfsim_tpu/models/afterpulse.py:56',
-             ['wfsim_pmt_ap_select', 'wfsim_pmt_ap_emit'], launches_r),
-            ('ap_photon_summaries', 'pmt_afterpulse.cu',
+    for row, m in atimes.items():
+        if row.startswith('pmt_afterpulse'):
+            measured(row, 'pmt_afterpulse.cu',
+                     'wfsim_tpu/models/afterpulse.py:56', AP_KERNELS,
+                     launches_r, m)
+        else:
+            measured(row, 'grid_lookup.cu', 'wfsim_tpu/models/s2.py:300',
+                     ['wfsim_pattern_diffuse'], launches_d, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'])
+    measured('ap_photon_summaries', 'pmt_afterpulse.cu',
              'wfsim_tpu/models/afterpulse.py:184',
-             ['wfsim_ap_photon_summaries'], launches_r)):
-        measured(name, cu, rep, entries, counts, times[name])
+             ['wfsim_ap_photon_summaries'], launches_r,
+             times['ap_photon_summaries'])
     for name, cu, rep in (
             ('channel_draw', 'channel_draw.cu', K5_REPLACES),
             ('channel_draw_skewed', 'channel_draw.cu', K5_REPLACES),
@@ -2897,8 +3120,6 @@ def main():
              'wfsim_tpu/ops/interp.py:85'),
             ('grid_lookup_photons', 'wfsim_grid_lookup', 'grid_lookup.cu',
              'wfsim_tpu/ops/interp.py:85'),
-            ('pattern_diffuse', 'wfsim_pattern_diffuse', 'grid_lookup.cu',
-             'wfsim_tpu/models/s2.py:300'),
             ('lumi_gasgap_times', 'wfsim_lumi_gasgap_times',
              'table_samplers.cu', 'wfsim_tpu/models/s2.py:255'),
             ('nest_delays', 'wfsim_nest_delays', 'table_samplers.cu',

@@ -24,6 +24,9 @@ from wfsim_tpu_torch.pipeline.digitize import (gather_digitize, pack_records,
 from wfsim_tpu_torch.resources import load_config
 
 from .ap_inputs import ap_tables, photon_set
+from .test_torch_ap_diffuse_redesign import (
+    AP_CASES, DIFFUSE_CASES, ap_args, ap_setup, diffuse_args, diffuse_case,
+    diffuse_constants, diffuse_normals)
 from .test_torch_zle_pack_redesign import (ZLE_PACK_CASES, pack_args,
                                            zle_args, zle_pack_case)
 
@@ -170,8 +173,9 @@ def test_noisy_gather_digitize_card_matches_cpu(realistic, dev):
 
 @pytest.mark.parametrize('seed', [0, 1])
 def test_pmt_afterpulse_kernels_match_twins(realistic, dev, seed):
-    """Select, emit and the whole generator, with a uniform element so both
-    branches of emit run."""
+    """The whole generator (select, rows, emit), with a uniform element so
+    both branches of emit run, bitwise against its twin on the card and on
+    the CPU; each entry launched once."""
     from wfsim_tpu_torch.models import afterpulse as ap
     c, params, const = realistic
     n = 200_000
@@ -180,17 +184,13 @@ def test_pmt_afterpulse_kernels_match_twins(realistic, dev, seed):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     draws = ap.pmt_ap_draws(gen, params.pmt_ap_delay_cdf.shape[0], n, dev)
-    sel = ap._select(params, const, ph, draws)
-    assert torch.equal(sel, ap._select_ref(params, const, ph, draws))
-    take = torch.nonzero(sel.reshape(-1)).squeeze(1)
-    for a, b in zip(ap._emit(params, const, ph, draws, take),
-                    ap._emit_ref(params, const, ph, draws, take)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    k = _build.KERNELS['wfsim_pmt_ap_emit']
-    before = k.launches
+    ks = [_build.KERNELS[k] for k in ('wfsim_pmt_ap_select',
+                                      'wfsim_pmt_ap_rows',
+                                      'wfsim_pmt_ap_emit')]
+    before = [k.launches for k in ks]
     out, info = ap.pmt_afterpulse_photons(params, const, ph, draws,
                                           n_truth_rows=8)
-    assert k.launches == before + 1
+    assert [k.launches for k in ks] == [b + 1 for b in before]
     ref, info_r = ap.pmt_afterpulse_photons_ref(params, const, ph, draws,
                                                 n_truth_rows=8)
     assert info['total'] == info_r['total'] > 0
@@ -198,6 +198,12 @@ def test_pmt_afterpulse_kernels_match_twins(realistic, dev, seed):
         assert torch.equal(out[key], ref[key]), key
     for key in ('counts', 't_min', 't_max'):
         assert torch.equal(info[key], info_r[key]), key
+    params_c = build_params(c, load_config(c), 'cpu')
+    cpu, info_c = ap.pmt_afterpulse_photons(
+        params_c, const, {k: v.cpu() for k, v in ph.items()},
+        {k: v.cpu() for k, v in draws.items()}, n_truth_rows=8)
+    for key in out:
+        assert torch.equal(out[key].cpu(), cpu[key]), key
 
 
 def test_photon_summaries_kernel_matches_twin(dev):
@@ -395,7 +401,7 @@ def test_photon_pass_card_matches_cpu(setup, dev, kind):
     def cpu(v):
         if isinstance(v, dict):
             return {k: cpu(w) for k, w in v.items()}
-        return None if v is None else v.cpu()
+        return v.cpu() if isinstance(v, torch.Tensor) else v
 
     ph_d, tr_d, req_d = fn(params, const, x, d, n_truth_rows=n_rows)
     ph_c, tr_c, req_c = fn(build_params(c, load_config(c), 'cpu'), const,
@@ -462,7 +468,7 @@ def test_detector_physics_pass_card_matches_cpu(dev, tmp_path, kind):
     def cpu(v):
         if isinstance(v, dict):
             return {k: cpu(w) for k, w in v.items()}
-        return None if v is None else v.cpu()
+        return v.cpu() if isinstance(v, torch.Tensor) else v
 
     before = {e: _build.KERNELS[e].launches for e in entries}
     ph_d, tr_d, req_d = fn(rd.params, rd.const, x, d, n_truth_rows=n_rows)
@@ -665,7 +671,7 @@ def test_timing_models_pass_card_matches_cpu(dev, tmp_path, kind):
     def cpu(v):
         if isinstance(v, dict):
             return {k: cpu(w) for k, w in v.items()}
-        return None if v is None else v.cpu()
+        return v.cpu() if isinstance(v, torch.Tensor) else v
 
     before = _build.KERNELS[entry].launches
     ph_d, tr_d, req_d = fn(rd.params, rd.const, x, d, n_truth_rows=n_rows)
@@ -1017,3 +1023,99 @@ def test_zle_pack_kernels_match_twins_on_cases(dev, name):
     assert (n_rec == 0) == (name == 'a batch with no records')
     assert (k3.launches, k4a.launches, k4b.launches) == (
         before[0] + 1, before[1] + 1, before[2] + (n_rec > 0))
+
+
+# ---------------------------------------------------------------------------
+# the PMT-afterpulse generator without a sort (K11) and the diffused pattern
+# with each electron's geometry once (K12b) on the cases of
+# tests/test_torch_ap_diffuse_redesign.py, with the read-backs a call
+
+
+@pytest.fixture(scope='module')
+def ap_both(dev):
+    """The three-element tables on the card and on the CPU."""
+    c, params, const = ap_setup(dev)
+    return params, build_params(c, load_config(c), 'cpu'), const
+
+
+@pytest.mark.parametrize('name', AP_CASES)
+def test_afterpulse_kernels_match_twins_on_cases(ap_both, dev, name):
+    """K11 reads back once (its total and status word), bitwise its twin
+    on the card and on the CPU; select and rows launch once, emit once
+    when a slot is selected."""
+    from wfsim_tpu_torch.models import afterpulse as ap
+    params, params_c, const = ap_both
+    ph, draws, n_rows = ap_args(name, params, dev)
+    ks = [_build.KERNELS[k] for k in ('wfsim_pmt_ap_select',
+                                      'wfsim_pmt_ap_rows',
+                                      'wfsim_pmt_ap_emit')]
+    before = [k.launches for k in ks]
+    n, (out, info), lines = _syncs(ap.pmt_afterpulse_photons, params, const,
+                                   ph, draws, n_truth_rows=n_rows)
+    assert n == 1, lines
+    total = info['total']
+    assert [k.launches for k in ks] == [before[0] + 1, before[1] + 1,
+                                        before[2] + (total > 0)]
+    for ref, info_r in (
+            ap.pmt_afterpulse_photons_ref(params, const, ph, draws,
+                                          n_truth_rows=n_rows),
+            ap.pmt_afterpulse_photons(
+                params_c, const, {k: v.cpu() for k, v in ph.items()},
+                {k: v.cpu() for k, v in draws.items()},
+                n_truth_rows=n_rows)):
+        assert info_r['total'] == total
+        for key in out:
+            assert out[key].dtype == ref[key].dtype
+            assert torch.equal(out[key].cpu(), ref[key].cpu()), key
+        for key in ('counts', 't_min', 't_max'):
+            assert torch.equal(info[key].cpu(), info_r[key].cpu()), key
+    assert (total == 0) == (name == 'no valid photon')
+
+
+def test_afterpulse_rows_without_row_count_and_out_of_range(ap_both, dev):
+    """Without ``n_truth_rows`` the wrapper reads the last row back too (two
+    read-backs) and gives the twin's photons; a truth row at or past
+    ``n_truth_rows`` raises after the one read-back."""
+    from wfsim_tpu_torch.models import afterpulse as ap
+    params, _params_c, const = ap_both
+    ph, draws, n_rows = ap_args('a bench-like set', params, dev)
+    n, (out, info), lines = _syncs(ap.pmt_afterpulse_photons, params, const,
+                                   ph, draws)
+    assert n == 2 and set(info) == {'total'}, lines
+    ref, _ = ap.pmt_afterpulse_photons_ref(params, const, ph, draws)
+    for key in out:
+        assert torch.equal(out[key], ref[key]), key
+    n, err, lines = _syncs(ap.pmt_afterpulse_photons, params, const, ph,
+                           draws, errors=(ValueError,),
+                           n_truth_rows=n_rows - 1)
+    assert n == 1 and isinstance(err, ValueError), lines
+
+
+@pytest.mark.parametrize('name', DIFFUSE_CASES)
+def test_pattern_diffuse_kernel_matches_twins_on_cases(dev, name):
+    """K12b reads nothing back, launches once, and is bitwise its twin on
+    the card and on the CPU (the twin's float64 sums are exact here), with
+    and without the chunk count."""
+    from wfsim_tpu_torch.models import s2
+    const = diffuse_constants()
+    case = diffuse_case(name, const.tpc_radius)
+    n_r, n_a = diffuse_normals(name, int(case['counts'].sum()))
+    args = diffuse_args(case, const, n_r, n_a, dev)
+    k = _build.KERNELS['wfsim_pattern_diffuse']
+    before = k.launches
+    n, out, lines = _syncs(s2.pattern_diffuse, *args)
+    assert n == 0, lines
+    assert k.launches == before + 1
+    assert torch.equal(out, s2.pattern_diffuse_ref(*args))
+    assert torch.equal(out.cpu(), s2.pattern_diffuse(
+        *diffuse_args(case, const, n_r, n_a)))
+    # the chunk count from the host, as the S2 pass passes it: the same
+    # bits; one chunk short, the split instruction's row is NaN
+    split = int(s2.diffuse_chunks(torch.as_tensor(case['counts'])))
+    n, out2, lines = _syncs(s2.pattern_diffuse, *args, split)
+    assert n == 0 and torch.equal(out2, out), lines
+    if split:
+        big = torch.as_tensor(case['counts'] > s2.DIFFUSE_CHUNK, device=dev)
+        short = s2.pattern_diffuse(*args, split - 1)
+        assert short[big].isnan().all()
+        assert torch.equal(short[~big], out[~big])

@@ -342,6 +342,7 @@ def test_detector_physics_draw_order(physics):
         * kt.electron_extraction_yield
     n_el = rs.binomial(gen, inst['amp'], cy)
     assert torch.equal(n_el, d['n_electron'])
+    assert d['diff_split'] == int(s2.diffuse_chunks(n_el))
     E = int(n_el.sum())
     for k, fn in (('e_exp', lambda m: torch.empty(m).exponential_(
             1.0, generator=gen)), ('e_normal', lambda m: torch.randn(

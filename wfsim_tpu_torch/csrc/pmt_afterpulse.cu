@@ -2,38 +2,87 @@
 // photon summaries.
 //
 // Replaces: wfsim_tpu/models/afterpulse.py:56 pmt_afterpulse_photons
-// (selection over every (element, photon) slot, then the delay and
-// amplitude CDF inversions of the compacted slots) and :184
-// photon_summaries (time-zero candidates per instruction).
+// (selection over every (element, photon) slot, compaction, the delay and
+// amplitude CDF inversions of the compacted slots, the regroup by truth row
+// and the per-row counts, first and last times) and :184 photon_summaries
+// (time-zero candidates per instruction).
 //
-// Three entry points, each with a plain twin in
-// wfsim_tpu_torch/models/afterpulse.py:
-//   wfsim_pmt_ap_select        one thread per (element, photon) slot;
-//                              writes the selection flag;
-//   wfsim_pmt_ap_emit          one thread per selected slot (flat
-//                              element-major indices from torch.nonzero);
-//                              inverts the delay and amplitude rows and
-//                              writes t, ch, gain and truth row;
+// The generator's output order is (truth row, element, photon): the
+// element-major compaction of wfsim_tpu regrouped stably by truth row.
+// The TPU form compacted with a cumulative sum and a search, then sorted
+// the survivors by row.  Here the final position of each selected slot is
+// known without a sort: photons ascend in truth row (the pmt_response
+// contract), so the selected slots of element e in row r are those of the
+// photon range [rs_r, re_r), and slot (e, i) of row r goes to
+//   base(r, e) + (selected slots of element e in [rs_r, i)),
+//   base(r, e) = sum_e' P_e'(rs_r) + sum_{e' < e} (P_e'(re_r) - P_e'(rs_r)),
+// where P_e(x) counts the selected slots of element e among photons < x.
+// Four entry points, the first three one call of the generator, each with
+// a plain twin in wfsim_tpu_torch/models/afterpulse.py:
+//   wfsim_pmt_ap_select        a block an (element, tile of 1,024
+//                              photons), a thread a slot: a warp's
+//                              selection is one ballot, a 32-bit mask word
+//                              (E x n bits in all), and the tile's count
+//                              the sum of its 32 popcounts.  The
+//                              per-(element, channel) comparands (the delay
+//                              row's last value, the amplitude row's first
+//                              two summed) come from an (E, C) table the
+//                              wrapper makes once per pair of tables (8 KB
+//                              at E = 2, read through L1), so a slot reads
+//                              its uniforms and no table row.  (A block
+//                              looping over the elements, the photon read
+//                              once, took 1.5 times as long: its elements'
+//                              loads wait on one another.)
+//   (torch.cumsum over the E x tiles counts, in (element, tile) order)
+//   wfsim_pmt_ap_rows          a warp a truth row: its photon range [rs, re)
+//                              by two 16-ary searches of the ascending rows
+//                              side by side (half a warp each), F at both
+//                              ends for every element (a tile's prefix plus
+//                              the popcounts of its mask words before the
+//                              end, one load a lane), lane e the offset
+//                              base(r, e) - F(e, rs), the row's count, t_min
+//                              and t_max set to their identities; the warp
+//                              of the last row writes [total, status], the
+//                              call's one read-back (status 1: a truth row
+//                              outside [0, rows));
+//   wfsim_pmt_ap_emit          a warp an (element, tile): the tile's
+//                              selected slots are dealt round the lanes
+//                              (slot s to lane s mod 32: its word by a
+//                              5-step search of the lanes' prefix sums of
+//                              popcounts, its bit by skipping the set bits
+//                              before it), so a lane holds one slot or two
+//                              whatever the words hold; the slot goes to
+//                              offsets[r, e] + F(e, tile start) + s.  It
+//                              inverts the CDF rows exactly as the twin
+//                              (the delay and amplitude searches step side
+//                              by side) and writes t, ch, gain, is_dpe,
+//                              valid and truth row there; t_min and t_max
+//                              by atomicMin / atomicMax on int32, first
+//                              reduced in the lane and then among the
+//                              lanes that end on one row (the result does
+//                              not depend on the order);
 //   wfsim_ap_photon_summaries  one thread per (instruction, candidate);
 //                              gathers the candidate photon time.
+// F(e, x) is the flat (element, photon) rank of photon x of element e: the
+// selected slots of the elements before e plus P_e(x).  A row of 10^6
+// photons is ~1,000 tiles like any other: no warp walks a row, and the
+// ranks see no skew.
 //
-// What bounds them on the H100: memory traffic.  Select reads three
-// uniforms and one float of the channel's delay-CDF row per slot (the
-// tables, 2 x 494 x 4000 floats, stay in L2), ~16 bytes a slot; at the
-// bench S2 batch (2 x 1.57 M slots) that is ~50 MB.  The TPU form kept
-// the inversions off the full slot axis because each binary-search step was
-// a gather; here emit runs only on the ~2.5 % selected slots, and each
-// thread binary-searches its own 4000-float row (12 steps of cached loads),
-// so emit is cheap next to select.  Select recomputes nothing emit needs:
-// emit recomputes rU0 and the auxiliary draw from the same uniforms with
-// the same operations, which is cheaper than storing them.
+// What bounds them on the H100: memory traffic.  Select reads u0 and the
+// auxiliary draw of every slot and ch, is_dpe and valid of every photon
+// (~22 bytes a photon at E = 2) and writes n/8 bytes of mask an element;
+// emit touches only the ~1.5 % selected slots, each binary-searching its
+// 4,000-float delay row (12 steps of cached loads) for a non-uniform
+// element.  At the bench batch (1.5 M photons, E = 2) the bytes are ~35 MB
+// (~0.011 ms); the fixed costs are the four launches and the read-back.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default (--fmad=true),
 // which rounds once where the twin rounds twice.  Every product, sum and
 // quotient the twin rounds separately is written with __fmul_rn /
 // __fadd_rn / __fsub_rn / __fdiv_rn, so kernel and twin agree bitwise:
 //   (lo0 + aux*(hi0-lo0)) * delay_bin,  didx*delay_bin - t_modifier,
-//   gains[ch]*amp,  (1-u0)/modifier,  rU0/2,  u*max(count,1).
+//   gains[ch]*amp,  (1-u0)/modifier,  rU0/2,  u*max(count,1),
+//   amp_cdf[0] + amp_cdf[1] (the wrapper's float32 add: the same rounding).
 // float -> int casts truncate toward zero in C as in astype and torch's
 // .to(int32); afterpulse delays go down to -pmt_ap_t_modifier, so the sign
 // matters and truncation (not floor) is what the reference does.
@@ -41,10 +90,15 @@
 // search and the "|v0-r| <= |v1-r| picks the lower index" rule settle
 // the index on a plateau exactly as the twin's searchsorted does.
 #include <cuda_runtime.h>
+#include <climits>
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
+constexpr int kTileWords = 32;                 // mask words a tile
+constexpr int kTile = kTileWords * 32;         // photons a tile
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -61,91 +115,261 @@ __device__ __forceinline__ float select_draw(float u0, float modifier,
 // index minimizing |row[i] - r| on a non-decreasing row, the lower index
 // on a tie: the first index at or above r (lower bound, clamped to R-1)
 // and its predecessor are the only candidates (afterpulse.py:29-52)
-__device__ __forceinline__ int argmin_abs_monotone(const float* row, int R,
-                                                   float r) {
-  int lo = 0, hi = R;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (row[mid] < r) lo = mid + 1; else hi = mid;
-  }
-  const int i1 = lo < R - 1 ? lo : R - 1;
+__device__ __forceinline__ int argmin_of(const float* row, int R, float r,
+                                         int lower) {
+  const int i1 = lower < R - 1 ? lower : R - 1;
   const int i0 = i1 > 0 ? i1 - 1 : 0;
   return fabsf(__fsub_rn(row[i0], r)) <= fabsf(__fsub_rn(row[i1], r)) ? i0
                                                                       : i1;
 }
 
+// argmin_of on two rows at once: their lower-bound searches step side by
+// side, so the two chains of dependent loads overlap
+__device__ __forceinline__ void argmin_abs_monotone2(
+    const float* a, int Ra, float ra, const float* b, int Rb, float rb,
+    int* ia, int* ib) {
+  int lo_a = 0, hi_a = Ra, lo_b = 0, hi_b = Rb;
+  while (lo_a < hi_a || lo_b < hi_b) {
+    if (lo_a < hi_a) {
+      const int mid = (lo_a + hi_a) >> 1;
+      if (a[mid] < ra) lo_a = mid + 1; else hi_a = mid;
+    }
+    if (lo_b < hi_b) {
+      const int mid = (lo_b + hi_b) >> 1;
+      if (b[mid] < rb) lo_b = mid + 1; else hi_b = mid;
+    }
+  }
+  *ia = argmin_of(a, Ra, ra, lo_a);
+  *ib = argmin_of(b, Rb, rb, lo_b);
+}
+
+// a block an (element, tile): a thread a slot, a warp a mask word
 __global__ void ap_select_kernel(
     const float* __restrict__ u0, const float* __restrict__ u2,
     const int* __restrict__ ch, const unsigned char* __restrict__ is_dpe,
-    const unsigned char* __restrict__ valid, int n, int n_elements,
-    const float* __restrict__ delay, int C, int Td,
-    const float* __restrict__ amp, int Ta,
+    const unsigned char* __restrict__ valid, int n,
+    const float2* __restrict__ limits, int C,
     const unsigned char* __restrict__ uniform_e,
-    const float* __restrict__ amp_bin, float modifier,
-    unsigned char* __restrict__ sel) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (k >= static_cast<long long>(n_elements) * n) return;
-  const int e = static_cast<int>(k / n);
-  const int i = static_cast<int>(k - static_cast<long long>(e) * n);
-  const int c = clampi(ch[i], 0, C - 1);
-  const long long row = static_cast<long long>(e) * C + c;
-  const float r0 = select_draw(u0[k], modifier, is_dpe[i] != 0);
-  bool s = valid[i] != 0 && r0 <= delay[row * Td + Td - 1];
-  if (!uniform_e[e]) {
-    const float aux = __fsub_rn(1.0f, u2[k]);
-    const float* arow = amp + row * Ta;
-    // argmin index 0 (amplitude 0) holds iff aux <= the midpoint of the
-    // row's first two values
-    const bool amp_pos = Ta >= 2 &&
-        __fmul_rn(2.0f, aux) > __fadd_rn(arow[0], arow[1]);
-    s = s && amp_pos && amp_bin[e] > 0.0f;
+    const float* __restrict__ amp_bin, float modifier, int n_tiles,
+    unsigned* __restrict__ mask, int* __restrict__ tile_counts) {
+  __shared__ int warp_counts[kTileWords];
+  const int tile = blockIdx.x, e = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = tile * kTile + threadIdx.x;
+  const long long k = static_cast<long long>(e) * n + i;
+  bool sel = false;
+  if (i < n && valid[i]) {
+    // limits: the delay row's last value, the amplitude row's first two
+    // summed (NaN without two: never below 2 aux)
+    const float2 l = limits[e * C + clampi(ch[i], 0, C - 1)];
+    sel = select_draw(u0[k], modifier, is_dpe[i] != 0) <= l.x;
+    // a non-uniform element's amplitude index 0 (amplitude 0) holds iff
+    // aux <= the midpoint of the row's first two values
+    if (sel && !uniform_e[e])
+      sel = amp_bin[e] > 0.0f &&
+            __fmul_rn(2.0f, __fsub_rn(1.0f, u2[k])) > l.y;
   }
-  sel[k] = s ? 1 : 0;
+  const unsigned w = __ballot_sync(kFull, sel);
+  const int n_words = (n + 31) >> 5, word = tile * kTileWords + warp;
+  if (lane == 0) {
+    if (word < n_words) mask[static_cast<long long>(e) * n_words + word] = w;
+    warp_counts[warp] = __popc(w);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int cnt = __reduce_add_sync(kFull, warp_counts[lane]);
+    if (lane == 0) tile_counts[e * n_tiles + tile] = cnt;
+  }
 }
 
+// lanes 0-15 and lanes 16-31 each find the first index in [0, n) whose row
+// is >= their v (n if none): each step probes 16 evenly spaced rows and
+// keeps the segment where the rows reach v (rows ascend)
+__device__ __forceinline__ int lower_bound_half(
+    const long long* __restrict__ rows, int n, long long v, int lane) {
+  const int base = lane & 16, sub = lane & 15;
+  int lo = 0, hi = n;
+  while (__any_sync(kFull, lo < hi)) {
+    const int q = lo + static_cast<int>(
+        static_cast<long long>(hi - lo) * sub / 16);
+    const bool above = lo < hi && rows[q] >= v;
+    const unsigned b = (__ballot_sync(kFull, above) >> base) & 0xffffu;
+    const int first = b ? __ffs(b) - 1 : 16;
+    const int q_hi = __shfl_sync(kFull, q, base + (first < 16 ? first : 15));
+    const int q_lo = __shfl_sync(kFull, q, base + (first > 0 ? first - 1 : 0));
+    if (lo < hi) {
+      if (first == 16) {
+        lo = q_hi + 1;                 // every probe below v: past q_15
+      } else if (first == 0) {
+        hi = lo;
+      } else {
+        lo = q_lo + 1;
+        hi = q_hi;
+      }
+    }
+  }
+  return lo;
+}
+
+// the lane's word of the tile holding photon x, cut to the bits before x
+// (0 past x's word)
+__device__ __forceinline__ unsigned bits_before(const unsigned* __restrict__ m,
+                                                int x, int n_words,
+                                                int lane) {
+  const int word = x / kTile * kTileWords + lane, xw = x >> 5;
+  if (word < xw) return m[word];
+  if (word == xw && word < n_words) return m[word] & ((1u << (x & 31)) - 1u);
+  return 0u;
+}
+
+// a warp a truth row
+__global__ void ap_rows_kernel(
+    const long long* __restrict__ truth_row, int n, int R, int n_elements,
+    const unsigned* __restrict__ mask, const int* __restrict__ incl,
+    int n_tiles, int* __restrict__ offsets, int* __restrict__ counts,
+    int* __restrict__ t_min, int* __restrict__ t_max,
+    int* __restrict__ info) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= R) return;
+  const int n_words = (n + 31) >> 5;
+  const int bound = lower_bound_half(truth_row, n, r + (lane >> 4), lane);
+  const int rs = __shfl_sync(kFull, bound, 0);
+  const int re = __shfl_sync(kFull, bound, 16);
+  // the flat rank F(e, x) of photon x: the tile's exclusive prefix plus
+  // the selected bits of its tile before x; P_e(x) = F(e, x) - F(e, 0)
+  int base = 0, cum = 0, mine = 0;
+  for (int e = 0; e < n_elements; ++e) {
+    const unsigned* m = mask + static_cast<long long>(e) * n_words;
+    const int ka = e * n_tiles + rs / kTile, kb = e * n_tiles + re / kTile;
+    const unsigned wa = bits_before(m, rs, n_words, lane);
+    const unsigned wb = bits_before(m, re, n_words, lane);
+    const int a = (ka > 0 ? incl[ka - 1] : 0) +
+                  static_cast<int>(__reduce_add_sync(kFull, __popc(wa)));
+    const int b = (kb > 0 ? incl[kb - 1] : 0) +
+                  static_cast<int>(__reduce_add_sync(kFull, __popc(wb)));
+    base += a - (e > 0 ? incl[e * n_tiles - 1] : 0);
+    if (lane == e) mine = cum - a;
+    cum += b - a;
+  }
+  // slot (e, i) of this row goes to offsets[r, e] + F(e, i)
+  if (lane < n_elements) offsets[r * n_elements + lane] = base + mine;
+  if (lane == 0) {
+    counts[r] = cum;
+    t_min[r] = INT_MAX;
+    t_max[r] = -INT_MAX;
+    if (r == R - 1) {
+      info[0] = incl[n_elements * n_tiles - 1];
+      info[1] = n > 0 && (truth_row[0] < 0 || truth_row[n - 1] >= R);
+    }
+  }
+}
+
+// a warp an (element, tile): a lane a mask word
 __global__ void ap_emit_kernel(
-    const long long* __restrict__ take, int m,
+    const unsigned* __restrict__ mask, const int* __restrict__ incl,
+    const int* __restrict__ offsets, int n_tiles, int total,
     const float* __restrict__ u0, const float* __restrict__ u1,
     const float* __restrict__ u2, const int* __restrict__ t,
     const int* __restrict__ ch, const unsigned char* __restrict__ is_dpe,
-    const long long* __restrict__ truth_row, int n,
+    const long long* __restrict__ truth_row, int n, int n_elements, int R,
     const float* __restrict__ delay, int C, int Td,
     const float* __restrict__ amp, int Ta, const float* __restrict__ gains,
     float modifier, float t_modifier,
     const unsigned char* __restrict__ uniform_e,
     const float* __restrict__ delay_bin, const float* __restrict__ amp_bin,
     int* __restrict__ out_t, int* __restrict__ out_ch,
-    float* __restrict__ out_gain, long long* __restrict__ out_row) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= m) return;
-  const long long k = take[s];
-  const int e = static_cast<int>(k / n);
-  const int i = static_cast<int>(k - static_cast<long long>(e) * n);
-  const int c = clampi(ch[i], 0, C - 1);
-  const long long row = static_cast<long long>(e) * C + c;
-  const float* drow = delay + row * Td;
-  const float* arow = amp + row * Ta;
-  float ap_delay, ap_amp;
-  if (uniform_e[e]) {
-    const float aux = u1[k];
-    const float lo = drow[0], hi = drow[1];
-    ap_delay = __fmul_rn(__fadd_rn(lo, __fmul_rn(aux, __fsub_rn(hi, lo))),
-                         delay_bin[e]);
-    ap_amp = 1.0f;
-  } else {
-    const float aux = __fsub_rn(1.0f, u2[k]);
-    const float r0 = select_draw(u0[k], modifier, is_dpe[i] != 0);
-    const int didx = argmin_abs_monotone(drow, Td, r0);
-    ap_delay = __fsub_rn(__fmul_rn(static_cast<float>(didx), delay_bin[e]),
-                         t_modifier);
-    const int aidx = argmin_abs_monotone(arow, Ta, aux);
-    ap_amp = __fmul_rn(static_cast<float>(aidx), amp_bin[e]);
+    float* __restrict__ out_gain, unsigned char* __restrict__ out_dpe,
+    unsigned char* __restrict__ out_valid, long long* __restrict__ out_row,
+    int* __restrict__ t_min, int* __restrict__ t_max) {
+  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int e = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  if (tile >= n_tiles) return;
+  const int n_words = (n + 31) >> 5;
+  const int word = tile * kTileWords + lane;
+  const unsigned w = word < n_words
+      ? mask[static_cast<long long>(e) * n_words + word] : 0u;
+  const int c_w = __popc(w);
+  int pre = c_w;                               // inclusive warp prefix sum
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, pre, d);
+    if (lane >= d) pre += y;
   }
-  out_t[s] = t[i] + static_cast<int>(ap_delay);   // truncates toward zero
-  out_ch[s] = ch[i];
-  out_gain[s] = __fmul_rn(gains[c], ap_amp);
-  out_row[s] = truth_row[i];
+  const int n_sel = __shfl_sync(kFull, pre, 31);  // the tile's selected
+  const int k = e * n_tiles + tile;
+  const int first = k > 0 ? incl[k - 1] : 0;      // F of the tile's first
+  const bool uni = uniform_e[e] != 0;
+  const float dbin = delay_bin[e], abin = amp_bin[e];
+  // the lane's running first and last time of its current row
+  int cur = -1, lo_t = INT_MAX, hi_t = -INT_MAX;
+  // the tile's selected slots dealt round the lanes: slot s to lane s % 32
+  for (int s0 = 0; s0 < n_sel; s0 += 32) {
+    const int s = s0 + lane;
+    // its word: the first lane whose inclusive prefix passes s
+    int j = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(kFull, pre, j + step - 1) <= s) j += step;
+    unsigned wj = __shfl_sync(kFull, w, j & 31);
+    const int skip = s - __shfl_sync(kFull, pre - c_w, j & 31);
+    if (s >= n_sel) continue;
+    for (int q = 0; q < skip; ++q) wj &= wj - 1;
+    const int i = (tile * kTileWords + j) * 32 + __ffs(wj) - 1;
+    const long long sk = static_cast<long long>(e) * n + i;
+    const long long rl = truth_row[i];
+    const int r = static_cast<int>(rl);
+    const int pos = rl >= 0 && rl < R
+        ? offsets[r * n_elements + e] + first + s : -1;
+    if (pos < 0 || pos >= total) continue;     // rows out of contract
+    const int c = clampi(ch[i], 0, C - 1);
+    const long long tab = static_cast<long long>(e) * C + c;
+    const float* drow = delay + tab * Td;
+    float ap_delay, ap_amp;
+    if (uni) {
+      const float aux = u1[sk];
+      const float lo = drow[0], hi = drow[1];
+      ap_delay = __fmul_rn(__fadd_rn(lo, __fmul_rn(aux, __fsub_rn(hi, lo))),
+                           dbin);
+      ap_amp = 1.0f;
+    } else {
+      const float aux = __fsub_rn(1.0f, u2[sk]);
+      const float r0 = select_draw(u0[sk], modifier, is_dpe[i] != 0);
+      int didx, aidx;
+      argmin_abs_monotone2(drow, Td, r0, amp + tab * Ta, Ta, aux, &didx,
+                           &aidx);
+      ap_delay = __fsub_rn(__fmul_rn(static_cast<float>(didx), dbin),
+                           t_modifier);
+      ap_amp = __fmul_rn(static_cast<float>(aidx), abin);
+    }
+    const int tt = t[i] + static_cast<int>(ap_delay);  // truncates to 0
+    out_t[pos] = tt;
+    out_ch[pos] = ch[i];
+    out_gain[pos] = __fmul_rn(gains[c], ap_amp);
+    out_dpe[pos] = 0;
+    out_valid[pos] = 1;
+    out_row[pos] = rl;
+    if (r != cur) {
+      if (cur >= 0) {
+        atomicMin(t_min + cur, lo_t);
+        atomicMax(t_max + cur, hi_t);
+      }
+      cur = r;
+      lo_t = hi_t = tt;
+    } else {
+      lo_t = min(lo_t, tt);
+      hi_t = max(hi_t, tt);
+    }
+  }
+  // the lanes that end on one row combine before their atomics
+  const unsigned same = __match_any_sync(kFull, cur);
+  lo_t = __reduce_min_sync(same, lo_t);
+  hi_t = __reduce_max_sync(same, hi_t);
+  if (cur >= 0 && lane == __ffs(same) - 1) {
+    atomicMin(t_min + cur, lo_t);
+    atomicMax(t_max + cur, hi_t);
+  }
 }
 
 __global__ void ap_summaries_kernel(
@@ -171,54 +395,75 @@ unsigned grid_of(long long work) {
 }  // namespace
 
 extern "C" int wfsim_pmt_ap_select(
-    const void* u0, const void* u1, const void* u2, const void* ch,
-    const void* is_dpe, const void* valid, int n, int n_elements,
-    const void* delay, int C, int Td, const void* amp, int Ta,
-    const void* uniform_e, const void* amp_bin, float modifier, void* sel,
-    void* stream) {
-  (void)u1;   // the auxiliary draw of a uniform element plays no part here
-  const long long work = static_cast<long long>(n) * n_elements;
-  if (work <= 0 || C <= 0 || Td <= 0 || Ta <= 0 ||
-      grid_of(work) > 0x7fffffffu)
+    const void* u0, const void* u2, const void* ch, const void* is_dpe,
+    const void* valid, int n, int n_elements, const void* limits, int C,
+    const void* uniform_e, const void* amp_bin, float modifier, int n_tiles,
+    void* mask, void* tile_counts, void* stream) {
+  if (n <= 0 || n_elements <= 0 || n_elements > 32 || C <= 0 ||
+      n_tiles != (n + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  ap_select_kernel<<<grid_of(work), kBlock, 0,
+  ap_select_kernel<<<dim3(n_tiles, n_elements), kTile, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(u0), static_cast<const float*>(u2),
       static_cast<const int*>(ch), static_cast<const unsigned char*>(is_dpe),
-      static_cast<const unsigned char*>(valid), n, n_elements,
-      static_cast<const float*>(delay), C, Td,
-      static_cast<const float*>(amp), Ta,
+      static_cast<const unsigned char*>(valid), n,
+      static_cast<const float2*>(limits), C,
       static_cast<const unsigned char*>(uniform_e),
-      static_cast<const float*>(amp_bin), modifier,
-      static_cast<unsigned char*>(sel));
+      static_cast<const float*>(amp_bin), modifier, n_tiles,
+      static_cast<unsigned*>(mask), static_cast<int*>(tile_counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wfsim_pmt_ap_rows(
+    const void* truth_row, int n, int R, int n_elements, const void* mask,
+    const void* incl, int n_tiles, void* offsets, void* counts, void* t_min,
+    void* t_max, void* info, void* stream) {
+  if (n <= 0 || R <= 0 || n_elements <= 0 || n_elements > 32 ||
+      n_tiles != (n + kTile - 1) / kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ap_rows_kernel<<<(R + kWarps - 1) / kWarps, kBlock, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(truth_row), n, R, n_elements,
+      static_cast<const unsigned*>(mask), static_cast<const int*>(incl),
+      n_tiles, static_cast<int*>(offsets), static_cast<int*>(counts),
+      static_cast<int*>(t_min), static_cast<int*>(t_max),
+      static_cast<int*>(info));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int wfsim_pmt_ap_emit(
-    const void* take, int m, const void* u0, const void* u1, const void* u2,
-    const void* t, const void* ch, const void* is_dpe, const void* truth_row,
-    int n, int n_elements, const void* delay, int C, int Td, const void* amp,
+    const void* mask, const void* incl, const void* offsets, int n_tiles,
+    int total, const void* u0, const void* u1, const void* u2, const void* t,
+    const void* ch, const void* is_dpe, const void* truth_row, int n,
+    int n_elements, int R, const void* delay, int C, int Td, const void* amp,
     int Ta, const void* gains, float modifier, float t_modifier,
     const void* uniform_e, const void* delay_bin, const void* amp_bin,
-    void* out_t, void* out_ch, void* out_gain, void* out_row, void* stream) {
-  (void)n_elements;
+    void* out_t, void* out_ch, void* out_gain, void* out_dpe,
+    void* out_valid, void* out_row, void* t_min, void* t_max, void* stream) {
   // a uniform element reads drow[1]: the wrapper checks Td >= 2 for it
-  if (m <= 0 || n <= 0 || C <= 0 || Td <= 0 || Ta <= 0)
+  if (total <= 0 || n <= 0 || R <= 0 || n_elements <= 0 ||
+      n_elements > 65535 || C <= 0 || Td <= 0 || Ta <= 0 ||
+      n_tiles != (n + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  ap_emit_kernel<<<grid_of(m), kBlock, 0,
+  ap_emit_kernel<<<dim3((n_tiles + kWarps - 1) / kWarps, n_elements), kBlock,
+                   0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(take), m,
+      static_cast<const unsigned*>(mask), static_cast<const int*>(incl),
+      static_cast<const int*>(offsets), n_tiles, total,
       static_cast<const float*>(u0), static_cast<const float*>(u1),
       static_cast<const float*>(u2), static_cast<const int*>(t),
       static_cast<const int*>(ch), static_cast<const unsigned char*>(is_dpe),
-      static_cast<const long long*>(truth_row), n,
+      static_cast<const long long*>(truth_row), n, n_elements, R,
       static_cast<const float*>(delay), C, Td,
       static_cast<const float*>(amp), Ta, static_cast<const float*>(gains),
       modifier, t_modifier, static_cast<const unsigned char*>(uniform_e),
       static_cast<const float*>(delay_bin),
       static_cast<const float*>(amp_bin), static_cast<int*>(out_t),
       static_cast<int*>(out_ch), static_cast<float*>(out_gain),
-      static_cast<long long*>(out_row));
+      static_cast<unsigned char*>(out_dpe),
+      static_cast<unsigned char*>(out_valid),
+      static_cast<long long*>(out_row), static_cast<int*>(t_min),
+      static_cast<int*>(t_max));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,12 +4,15 @@ reference: wfsim/core/afterpulse.py).
 1. PMT afterpulses (device): per incident photon and per ion species
    (element), a uniform draw against the channel's delay-time CDF selects
    an afterpulse photon; its delay and amplitude come from CDF inversions
-   (reference: afterpulse.py:143-249).  Three hand-written kernels with
-   plain twins carry it (``csrc/pmt_afterpulse.cu``): *select* flags the
-   (element, photon) slots, *emit* computes each selected slot's photon,
-   and *summaries* draws the time-zero candidates of the electron
-   afterpulses.  Compaction (``torch.nonzero``), the stable regroup by
-   truth row and the per-row counts are torch glue.  Eager torch knows the
+   (reference: afterpulse.py:143-249).  Hand-written kernels with plain
+   twins carry it (``csrc/pmt_afterpulse.cu``): *select* writes the
+   selected (element, photon) slots as a bit mask and counts them by tile,
+   *rows* gives each truth row its photon range and each (row, element)
+   the offset of its first afterpulse, *emit* writes each selected slot's
+   photon at its final position (grouped stably by truth row, without a
+   sort), and *summaries* draws the time-zero candidates of the electron
+   afterpulses.  One ``torch.cumsum`` over the tile counts and one
+   read-back of the total a call are the glue.  Eager torch knows the
    selected count before it allocates, so wfsim_tpu's ``ap_capacity`` and
    its capacity retries fall away.
 
@@ -24,6 +27,8 @@ Every stochastic function takes its draws explicitly, so the tests can
 hand both packages the same uniforms.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -40,10 +45,12 @@ __all__ = ['pmt_ap_draws', 'pmt_afterpulse_photons',
 K_CANDIDATES = 64
 
 _select_kernel = Kernel('wfsim_pmt_ap_select',
-                        [P, P, P, P, P, P, I, I, P, I, I, P, I, P, P, F, P, P])
+                        [P, P, P, P, P, I, I, P, I, P, P, F, I, P, P, P])
+_rows_kernel = Kernel('wfsim_pmt_ap_rows',
+                      [P, I, I, I, P, P, I, P, P, P, P, P, P])
 _emit_kernel = Kernel('wfsim_pmt_ap_emit',
-                      [P, I, P, P, P, P, P, P, P, I, I, P, I, I, P, I, P, F,
-                       F, P, P, P, P, P, P, P, P])
+                      [P, P, P, I, I, P, P, P, P, P, P, P, I, I, I, P, I, I,
+                       P, I, P, F, F, P, P, P, P, P, P, P, P, P, P, P, P])
 _summ_kernel = Kernel('wfsim_ap_photon_summaries', [P, P, P, I, I, P, I, P, P])
 
 
@@ -67,14 +74,19 @@ def summary_draws(gen, n_inst: int, device, k: int = K_CANDIDATES):
 # element metadata and the per-slot uniforms
 
 
+@functools.lru_cache(maxsize=None)
+def _element_tensors(uniform, delay_bin, amp_bin, device):
+    return (torch.tensor(uniform, dtype=torch.bool, device=device),
+            torch.tensor(delay_bin, dtype=torch.float32, device=device),
+            torch.tensor(amp_bin, dtype=torch.float32, device=device))
+
+
 def _meta(const, device):
-    """Per-element (uniform, delay bin, amplitude bin) as (E,) tensors."""
-    return (torch.tensor(const.pmt_ap_element_uniform, dtype=torch.bool,
-                         device=device),
-            torch.tensor(const.pmt_ap_delay_bin, dtype=torch.float32,
-                         device=device),
-            torch.tensor(const.pmt_ap_amp_bin, dtype=torch.float32,
-                         device=device))
+    """Per-element (uniform, delay bin, amplitude bin) as (E,) tensors, made
+    once per set of values and device (callers only read them)."""
+    return _element_tensors(tuple(const.pmt_ap_element_uniform),
+                            tuple(const.pmt_ap_delay_bin),
+                            tuple(const.pmt_ap_amp_bin), torch.device(device))
 
 
 def _uniforms(const, draws, uniform_e, is_dpe, e=None, i=None):
@@ -132,27 +144,6 @@ def _select_ref(params, const, photons, draws):
     return sel & (uni[:, None] | (amp_pos & (abin > 0)[:, None]))
 
 
-def _select(params, const, photons, draws):
-    dev = photons['t'].device
-    if dev.type == 'cpu':
-        return _select_ref(params, const, photons, draws)
-    if dev.type != 'cuda':
-        raise NotImplementedError(f'pmt afterpulse select on {dev}')
-    E, C, Td = params.pmt_ap_delay_cdf.shape
-    Ta = params.pmt_ap_amp_cdf.shape[2]
-    n = photons['t'].shape[0]
-    uni, _dbin, abin = _meta(const, dev)
-    sel = torch.empty((E, n), dtype=torch.bool, device=dev)
-    _select_kernel(ptr(draws['u0']), ptr(draws['u1']), ptr(draws['u2']),
-                   ptr(photons['ch']), ptr(photons['is_dpe']),
-                   ptr(photons['valid']), n, E,
-                   ptr(params.pmt_ap_delay_cdf), C, Td,
-                   ptr(params.pmt_ap_amp_cdf), Ta, ptr(uni), ptr(abin),
-                   float(np.float32(const.pmt_ap_modifier)), ptr(sel),
-                   stream_of(dev))
-    return sel
-
-
 # ---------------------------------------------------------------------------
 # emit: the afterpulse photon of each selected slot
 
@@ -190,34 +181,6 @@ def _emit_ref(params, const, photons, draws, take):
     t = photons['t'][i_of] + ap_delay.to(torch.int32)
     return (t.to(torch.int32), photons['ch'][i_of],
             params.gains[ch_s] * amp_s, photons['truth_row'][i_of])
-
-
-def _emit(params, const, photons, draws, take):
-    dev = photons['t'].device
-    if dev.type == 'cpu':
-        return _emit_ref(params, const, photons, draws, take)
-    if dev.type != 'cuda':
-        raise NotImplementedError(f'pmt afterpulse emit on {dev}')
-    E, C, Td = params.pmt_ap_delay_cdf.shape
-    Ta = params.pmt_ap_amp_cdf.shape[2]
-    n = photons['t'].shape[0]
-    m = take.shape[0]
-    uni, dbin, abin = _meta(const, dev)
-    t = torch.empty(m, dtype=torch.int32, device=dev)
-    ch = torch.empty(m, dtype=torch.int32, device=dev)
-    gain = torch.empty(m, dtype=torch.float32, device=dev)
-    row = torch.empty(m, dtype=torch.int64, device=dev)
-    if m:
-        _emit_kernel(ptr(take), m, ptr(draws['u0']), ptr(draws['u1']),
-                     ptr(draws['u2']), ptr(photons['t']), ptr(photons['ch']),
-                     ptr(photons['is_dpe']), ptr(photons['truth_row']), n, E,
-                     ptr(params.pmt_ap_delay_cdf), C, Td,
-                     ptr(params.pmt_ap_amp_cdf), Ta, ptr(params.gains),
-                     float(np.float32(const.pmt_ap_modifier)),
-                     float(np.float32(const.pmt_ap_t_modifier)),
-                     ptr(uni), ptr(dbin), ptr(abin), ptr(t), ptr(ch),
-                     ptr(gain), ptr(row), stream_of(dev))
-    return t, ch, gain, row
 
 
 # ---------------------------------------------------------------------------
@@ -284,22 +247,119 @@ def _afterpulses(params, const, photons, draws, n_truth_rows, select, emit):
     return out, info
 
 
+#: photons a tile of the select and emit kernels (32 mask words)
+_TILE = 1024
+
+
+@functools.lru_cache(maxsize=2)
+def _select_limits(delay, amp):
+    """(E, C, 2) float32: per (element, channel) the delay row's last value
+    and the sum of the amplitude row's first two (NaN without two), what
+    the select kernel compares a slot's draws with; made once per pair of
+    tables (the tables are never written after they are built)."""
+    mid = (amp[:, :, 0] + amp[:, :, 1] if amp.shape[2] >= 2
+           else torch.full_like(amp[:, :, 0], float('nan')))
+    return torch.stack([delay[:, :, -1], mid], dim=-1).contiguous()
+
+
+#: the afterpulse photons' fields and dtypes
+_AP_FIELDS = dict(t=torch.int32, ch=torch.int32, gain=torch.float32,
+                  is_dpe=torch.bool, valid=torch.bool, truth_row=torch.int64)
+
+
+def _empty_afterpulses(dev, n_truth_rows):
+    out = {k: torch.empty(0, dtype=d, device=dev)
+           for k, d in _AP_FIELDS.items()}
+    info = dict(total=0)
+    if n_truth_rows:
+        BIG = 2 ** 31 - 1
+        i32 = dict(dtype=torch.int32, device=dev)
+        info.update(counts=torch.zeros(n_truth_rows, **i32),
+                    t_min=torch.full((n_truth_rows,), BIG, **i32),
+                    t_max=torch.full((n_truth_rows,), -BIG, **i32))
+    return out, info
+
+
+def _afterpulses_cuda(params, const, photons, draws, n_truth_rows):
+    """The select, rows and emit kernels: one cumsum over the tile counts
+    and one read-back of [total, status] between rows and emit (a second
+    one, of the last truth row, only without ``n_truth_rows``)."""
+    _check_ap_inputs(params, const, photons, draws)
+    delay, amp = params.pmt_ap_delay_cdf, params.pmt_ap_amp_cdf
+    E, C, Td = delay.shape
+    Ta = amp.shape[2]
+    dev = photons['t'].device
+    n = photons['t'].shape[0]
+    if n == 0:
+        return _empty_afterpulses(dev, n_truth_rows)
+    if E > 32:
+        raise ValueError(f'{E} afterpulse elements: the kernels take 32')
+    R = n_truth_rows or int(photons['truth_row'][-1]) + 1
+    if not 0 < R <= (2 ** 31 - 1) // E:
+        raise ValueError(f'{R} truth rows: need 1 to 2^31 / {E}')
+    uni, dbin, abin = _meta(const, dev)
+    modifier = float(np.float32(const.pmt_ap_modifier))
+    n_tiles = -(-n // _TILE)
+    stream = stream_of(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    mask = torch.empty((E, -(-n // 32)), **i32)
+    tile_counts = torch.empty(E * n_tiles, **i32)
+    _select_kernel(ptr(draws['u0']), ptr(draws['u2']), ptr(photons['ch']),
+                   ptr(photons['is_dpe']), ptr(photons['valid']), n, E,
+                   ptr(_select_limits(delay, amp)), C, ptr(uni), ptr(abin),
+                   modifier, n_tiles, ptr(mask), ptr(tile_counts), stream)
+    # the (element, tile) order is the flat element-major slot order
+    incl = torch.cumsum(tile_counts, 0, dtype=torch.int32)
+    offsets = torch.empty(R * E, **i32)
+    counts, t_min, t_max = (torch.empty(R, **i32) for _ in range(3))
+    status = torch.empty(2, **i32)
+    _rows_kernel(ptr(photons['truth_row']), n, R, E, ptr(mask), ptr(incl),
+                 n_tiles, ptr(offsets), ptr(counts), ptr(t_min), ptr(t_max),
+                 ptr(status), stream)
+    total, bad = status.cpu().tolist()       # the call's one read-back
+    if bad:
+        raise ValueError(f'truth rows outside [0, {R})')
+    out = {k: torch.empty(total, dtype=d, device=dev)
+           for k, d in _AP_FIELDS.items()}
+    if total:
+        _emit_kernel(ptr(mask), ptr(incl), ptr(offsets), n_tiles, total,
+                     ptr(draws['u0']), ptr(draws['u1']), ptr(draws['u2']),
+                     ptr(photons['t']), ptr(photons['ch']),
+                     ptr(photons['is_dpe']), ptr(photons['truth_row']), n, E,
+                     R, ptr(delay), C, Td, ptr(amp), Ta, ptr(params.gains),
+                     modifier, float(np.float32(const.pmt_ap_t_modifier)),
+                     ptr(uni), ptr(dbin), ptr(abin),
+                     *(ptr(x) for x in out.values()),
+                     ptr(t_min), ptr(t_max), stream)
+    info = dict(total=total)
+    if n_truth_rows:
+        info.update(counts=counts, t_min=t_min, t_max=t_max)
+    return out, info
+
+
 def pmt_afterpulse_photons(params, const, photons, draws, *,
                            n_truth_rows: int = 0):
     """PMT afterpulse photons of a primary photon batch.
 
     :param photons: dict from ``pmt_response``: t (int32), ch (int32),
-        is_dpe, valid (bool), truth_row (int64, ascending)
+        is_dpe, valid (bool), truth_row (int64, ascending, in [0,
+        n_truth_rows) when that is given)
     :param draws: dict from :func:`pmt_ap_draws`
     :returns: (photons, info): the afterpulse photons with preset gains
         (t, ch, gain, is_dpe, valid, truth_row), grouped stably by truth row,
         and info with ``total`` and, for ``n_truth_rows``, the per-row
         ``counts``, ``t_min`` and ``t_max``
 
-    CPU tensors run the plain twins; CUDA tensors launch the select and
-    emit kernels (``csrc/pmt_afterpulse.cu``)."""
-    return _afterpulses(params, const, photons, draws, n_truth_rows,
-                        _select, _emit)
+    CPU tensors run the plain twins; CUDA tensors launch the select, rows
+    and emit kernels (``csrc/pmt_afterpulse.cu``) and read back once; a
+    truth row outside [0, n_truth_rows) raises there."""
+    dev = photons['t'].device
+    if dev.type == 'cpu':
+        return _afterpulses(params, const, photons, draws, n_truth_rows,
+                            _select_ref, _emit_ref)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'pmt afterpulses on {dev}')
+    return _afterpulses_cuda(params, const, photons, draws, n_truth_rows)
 
 
 def pmt_afterpulse_photons_ref(params, const, photons, draws, *,

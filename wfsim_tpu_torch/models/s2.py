@@ -45,7 +45,7 @@ __all__ = ['simulate_s2', 's2_draws', 's2_photon_pass', 's2_edges',
            'get_s2_drift_time_params', 'inverse_field_distortion_correction',
            's2_positions', 'gasgap_rows', 'lumi_gasgap_times',
            'lumi_gasgap_times_ref', 'diffusion_inputs', 'pattern_diffuse',
-           'pattern_diffuse_ref', 's2_pattern', 'aft_smear',
+           'pattern_diffuse_ref', 'diffuse_chunks', 's2_pattern', 'aft_smear',
            'lumi_garfield_times', 'lumi_garfield_times_ref',
            'tilt_coefficients', 'LUMINESCENCE_MODELS']
 
@@ -526,12 +526,23 @@ def pattern_diffuse_ref(pattern_map, x, y, std_r, std_a, cos_t, sin_t,
 
 
 _diffuse_kernel = Kernel('wfsim_pattern_diffuse',
-                         [P, I, I, I, I, P, P, P, P, P, P, P, P, F, I, P, P,
-                          P, P, P])
+                         [P, I, I, I, I, P, P, P, P, P, P, P, P, F, I, P, I,
+                          P, P, I, I, P, P, P, P, P])
+#: electrons a block of the diffused-pattern kernel sums in order; a longer
+#: instruction is split across blocks (see pattern_diffuse)
+DIFFUSE_CHUNK = 2048
+
+
+def diffuse_chunks(n_electron):
+    """0-d int64 tensor: the instructions' chunks of :data:`DIFFUSE_CHUNK`
+    electrons past their first, from the (I,) electron counts (the blocks
+    :func:`pattern_diffuse`'s kernel adds to its grid)."""
+    return torch.div(torch.clamp_min(n_electron.to(torch.int64) - 1, 0),
+                     DIFFUSE_CHUNK, rounding_mode='floor').sum()
 
 
 def pattern_diffuse(pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max,
-                    e_edges, n_r, n_a, n_channels: int):
+                    e_edges, n_r, n_a, n_channels: int, n_split=None):
     """The S2 pattern of each instruction averaged over its transversely
     diffused electrons (wfsim_tpu/models/s2.py:300 s2_pattern_map_diffuse;
     reference s2.py:559-613).  Electron k of instruction i sits at
@@ -543,7 +554,9 @@ def pattern_diffuse(pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max,
     The per-channel sums are float64; a float32 pattern value within a
     dynamic range of 2^k adds exactly while k + log2(electrons) <= 29, so
     the sum is then the same in any order (the twin's index_add_ on the
-    card adds in another order than the kernel).  wfsim_tpu sums in
+    card adds in another order than the kernel, and the kernel splits an
+    instruction of more than :data:`DIFFUSE_CHUNK` electrons into chunks
+    summed in order and then added in chunk order).  wfsim_tpu sums in
     float32 (ROADMAP Queue 3 F12).
 
     :param pattern_map: a 2-d :class:`~wfsim_tpu_torch.ops.interp.GridMap`
@@ -552,11 +565,20 @@ def pattern_diffuse(pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max,
         (:func:`diffusion_inputs`)
     :param e_edges: (I+1,) int64 electron boundaries; ``n_r``, ``n_a`` (E,)
         float32 standard normals
+    :param n_split: :func:`diffuse_chunks` of the electron counts, as an
+        int (the S2 draws carry it as ``diff_split``); None takes the bound
+        ``E // DIFFUSE_CHUNK``, whose scratch, zero fill and extra blocks
+        the kernel then carries for chunks that may not exist
     :returns: (I, n_channels) float32
 
-    CPU tensors run :func:`pattern_diffuse_ref`; CUDA tensors launch
-    ``csrc/grid_lookup.cu`` (one block per instruction, a thread per
-    channel; no (E, C) array is written)."""
+    CPU tensors run :func:`pattern_diffuse_ref` after checking that
+    ``e_edges[-1]`` is the number of normals; CUDA tensors launch
+    ``csrc/grid_lookup.cu`` (one block per instruction and per further
+    chunk of a long one, a thread per two channels, each electron's
+    geometry computed once; no (E, C) array is written) and read nothing
+    back: the kernel reads no electron past the
+    normals (the edges are clamped to them), and :func:`s2_draws` draws as
+    many normals as the edges count."""
     vals = pattern_map.values
     dev = vals.device
     n_inst = x.shape[0]
@@ -572,22 +594,44 @@ def pattern_diffuse(pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max,
     check_tensor('e_edges', e_edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('n_r', n_r, torch.float32, (n_e,), dev)
     check_tensor('n_a', n_a, torch.float32, (n_e,), dev)
-    if int(e_edges[-1]) != n_e:
-        raise ValueError(f'{n_e} normals for {int(e_edges[-1])} electrons')
     args = (pattern_map, x, y, std_r, std_a, cos_t, sin_t, r2_max, e_edges,
             n_r, n_a, n_channels)
     if dev.type == 'cpu':
+        if int(e_edges[-1]) != n_e:
+            raise ValueError(f'{n_e} normals for {int(e_edges[-1])} '
+                             f'electrons')
+        if n_split is not None and n_split != int(
+                diffuse_chunks(e_edges[1:] - e_edges[:-1])):
+            raise ValueError(f'n_split {n_split} is not the chunk count')
         return pattern_diffuse_ref(*args)
     if dev.type != 'cuda':
         raise NotImplementedError(f'pattern_diffuse on {dev}')
+    if n_e >= 2 ** 31 or vals.numel() >= 2 ** 31:
+        raise ValueError(f'{n_e} electrons or a map of {vals.numel()} '
+                         f'values: the kernel takes < 2^31')
     out = torch.empty((n_inst, n_channels), dtype=torch.float32, device=dev)
     if n_inst:
+        # scratch of a split instruction's chunks: their float64 sums and
+        # counts, and the chunks done an instruction
+        n_extra = n_e // DIFFUSE_CHUNK if n_split is None else int(n_split)
+        if not 0 <= n_extra <= n_e // DIFFUSE_CHUNK:
+            raise ValueError(f'n_split {n_split} for {n_e} electrons')
+        partial = part_count = done = None
+        if n_extra:
+            partial = torch.empty((n_inst + n_extra) * n_channels,
+                                  dtype=torch.float64, device=dev)
+            part_count = torch.empty(n_inst + n_extra, dtype=torch.int64,
+                                     device=dev)
+            done = torch.zeros(n_inst, dtype=torch.int32, device=dev)
         _diffuse_kernel(ptr(vals), vals.shape[0], vals.shape[1],
                         vals.shape[2], n_channels, ptr(pattern_map.lows),
                         ptr(pattern_map.highs), ptr(x), ptr(y), ptr(std_r),
                         ptr(std_a), ptr(cos_t), ptr(sin_t),
-                        float(np.float32(r2_max)), n_inst, ptr(e_edges),
-                        ptr(n_r), ptr(n_a), ptr(out), stream_of(dev))
+                        float(np.float32(r2_max)), n_inst, ptr(e_edges), n_e,
+                        ptr(n_r), ptr(n_a), DIFFUSE_CHUNK, n_extra,
+                        *(None if a is None else ptr(a)
+                          for a in (partial, part_count, done)),
+                        ptr(out), stream_of(dev))
     return out
 
 
@@ -601,7 +645,8 @@ def s2_pattern(params, const, z, xy, e_edges, draws):
         pattern = pattern_diffuse(
             params.s2_pattern, xy[:, 0].contiguous(), xy[:, 1].contiguous(),
             std_r, std_a, cos_t, sin_t, const.tpc_radius ** 2, e_edges,
-            draws['diff_r'], draws['diff_a'], int(params.gains.shape[0]))
+            draws['diff_r'], draws['diff_a'], int(params.gains.shape[0]),
+            draws.get('diff_split'))
     else:
         pattern = params.s2_pattern(xy)
     pattern = live_pattern(params, pattern)
@@ -646,7 +691,9 @@ def s2_draws(params, const, inst, gen) -> dict:
       ``s2_gain_spread`` normal where it is on, clamped at 0 (the photon
       count sizes every photon draw after it, so it is part of the draw);
     - with transverse diffusion, per electron the radial and azimuthal
-      normals ``diff_r`` and ``diff_a``;
+      normals ``diff_r`` and ``diff_a``, and ``diff_split``, the
+      :func:`diffuse_chunks` of ``n_electron`` as an int (read back with
+      the electron total);
     - with AFT smearing, per instruction the skew-normal's two normals
       ``aft_u0`` and ``aft_v``;
     - per photon ``u_ch`` (channel), then the luminescence draws: ``u_lum``
@@ -677,7 +724,11 @@ def s2_draws(params, const, inst, gen) -> dict:
     sc_gain = torch.nan_to_num(
         sc_gain / f32(1 + const.p_double_pe_emision, sc_gain), nan=0.0)
 
-    n_e = int(n_electron.sum())
+    if diffusion_on(const):
+        n_e, n_split = torch.stack([n_electron.sum(),
+                                    diffuse_chunks(n_electron)]).tolist()
+    else:
+        n_e, n_split = int(n_electron.sum()), None
     n_inst = int(z.shape[0])
     e_exp = exponential(gen, n_e, dev)
     e_normal = normal(gen, n_e, dev)
@@ -689,7 +740,8 @@ def s2_draws(params, const, inst, gen) -> dict:
     n_ph_per_e = torch.clamp_min(n_ph_per_e, 0)
     d = dict(z_obs=z_obs, xy_obs=positions, n_electron=n_electron,
              e_exp=e_exp, e_normal=e_normal, n_ph_per_e=n_ph_per_e,
-             diff_r=None, diff_a=None, aft_u0=None, aft_v=None)
+             diff_r=None, diff_a=None, diff_split=n_split, aft_u0=None,
+             aft_v=None)
     if diffusion_on(const):
         d['diff_r'] = normal(gen, n_e, dev)
         d['diff_a'] = normal(gen, n_e, dev)
