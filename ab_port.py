@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of wfsim_tpu_torch on one card.
 
-    python3 ab_port.py OTHER_TREE [--runs 3] [--kernels [--only ap_diffuse]]
+    python3 ab_port.py OTHER_TREE [--runs 3]
+        [--kernels [--only ap_diffuse|lumi_summaries]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -13,11 +14,14 @@ JSON line: the tree, wall seconds, events/s, records and truth rows.
 With ``--kernels`` each process measures kernel rows instead, with this
 tree's ``chip_smoke.kernel_rows`` on the tree's own package: the
 superposition entries on their three window batches, the ZLE and record
-pack on four grids, the per-PMT truth, and the PMT-afterpulse generator and
-the diffused pattern on their bench and skewed batches, each against its
+pack on four grids, the per-PMT truth, the PMT-afterpulse generator and
+the diffused pattern on their bench and skewed batches, and the
+luminescence tables and the photon summaries on theirs, each against its
 twin (and, where there is one, its library computation), and prints
 ``{row: {ms, device_ms, split, host_us, plain_ms, library_ms, ...}}``.
-``--only ap_diffuse`` measures only the last two (``ap_diffuse_measure``).
+``--only ap_diffuse`` measures only the afterpulse generator and the
+diffused pattern (``ap_diffuse_measure``), ``--only lumi_summaries`` only
+the luminescence tables and the summaries (``lumi_summaries_measure``).
 """
 import argparse
 import json
@@ -64,12 +68,12 @@ _build.build()
 smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                       '--format=csv,noheader'], capture_output=True,
                      text=True).stdout.strip()
-rows = (cs.kernel_rows(torch.device('cuda:0'), smi) if sys.argv[3] == 'all'
-        else cs.ap_diffuse_measure(torch.device('cuda:0'), smi,
-                                   max_syncs=None))
+dev = torch.device('cuda:0')
+rows = (cs.kernel_rows(dev, smi) if sys.argv[3] == 'all' else
+        getattr(cs, sys.argv[3] + '_measure')(dev, smi, max_syncs=None))
 keep = ('ms', 'device_ms', 'split', 'host_us', 'plain_ms', 'library_ms',
         'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
-        'library_diff', 'syncs', 'photons')
+        'library_diff', 'syncs', 'photons', 'seq_rows')
 print(json.dumps({'smi': smi, 'rows': {
     k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
 '''
@@ -81,9 +85,10 @@ def main():
     ap.add_argument('--runs', type=int, default=3)
     ap.add_argument('--kernels', action='store_true',
                     help='measure the kernel rows, not the runs')
-    ap.add_argument('--only', choices=('all', 'ap_diffuse'), default='all',
-                    help='with --kernels: every row, or the K11 and K12b '
-                         'rows only')
+    ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries'),
+                    default='all',
+                    help='with --kernels: every row, the K11 and K12b rows '
+                         'only, or the K6 and K11-summaries rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

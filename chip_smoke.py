@@ -27,8 +27,8 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
 3b. kernels at realistic shapes, bitwise against their twins on the card:
     the PMT-afterpulse generator (select, rows, emit) on ~1.5 M S2-like
     photons with the synthetic tables (3l times it), the photon summaries
-    (with median CUDA-event times), and ``superpose_adc`` with the noise
-    bank and offsets that wrap its end (3j times it);
+    (3m times them), and ``superpose_adc`` with the noise bank and offsets
+    that wrap its end (3j times it);
 4b. main path: ``Simulator(default_config(..., enable_noise=True,
     enable_pmt_afterpulses=True, enable_electron_afterpulses=True),
     device='cuda').get_arrays(inst)`` on the same workload, warm-up then
@@ -78,6 +78,25 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     printed beside it).  K11's entries launch 9 times on the realistic run,
     K12b's 3 times on the detector_physics run (EXPECTED_LAUNCHES).
 
+3m. the luminescence tables (K6: block scans where a row's float64 sums
+    are exact in any order, a sequential pass elsewhere) on 512 rows of
+    the default gas gap (the 3c S2 batch's tables), on 512 rows of gaps
+    uniform between the wire and the gate, and on 512 rows of constants
+    whose light-weighted sum fails the exactness test (LUMI_SEQUENTIAL_BAR),
+    and the photon summaries (K11 summaries: valid tiles, one cumsum,
+    summaries) on the 3b shape and on its skewed copy (one truth row of
+    10^6 photons): each bitwise against its twin, K6's rows on its
+    sequential pass in one call held to its twin's count (0, 0 and 512),
+    read-backs counted (0 for both), ``ms``, ``device_ms`` split by
+    kernel, ``host_us`` over 1,000 calls, the twin's time and the bound
+    (K6: the grids, the output and the twin's arithmetic inside each
+    row's gap; the summaries: the valid flags, a sector of truth rows a
+    row boundary, the sectors of t the candidates read, u and the
+    outputs; the old counts printed beside).  K6 launches 3 times on the
+    default run and the two summary entries 3 times each on the
+    realistic run (EXPECTED_LAUNCHES); after 3m, every configuration's
+    run and the phases after it leave K6's count of sequential rows at 0.
+
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
 one batch each, with their draws made on the card:
@@ -87,8 +106,8 @@ one batch each, with their draws made on the card:
     rows, and a skewed copy: one row of 10^6 photons, three without
     photons, two without mass; each also with its host time a call and
     once under the sync check), the luminescence tables of 512
-    instructions (also held against
-    the twin run on a CPU copy), the S1 photon, S2 electron and S2 photon
+    instructions (against the twin on the card and on the CPU; 3m times
+    them), the S1 photon, S2 electron and S2 photon
     time passes, the PMT photon pass and the row kernel (truth sums and
     time statistics); outputs bitwise equal, the float64 raw-area sums
     within rtol 1e-12;
@@ -260,9 +279,9 @@ line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
 channel draw, the map lookup, the ZLE and record-pack entries, the
-PMT-afterpulse entries and the diffused pattern their EXPECTED_LAUNCHES,
-and the default run DEFAULT_DIGEST: a change that keeps every kernel's
-output keeps them.
+luminescence tables, the PMT-afterpulse and photon-summary entries and the
+diffused pattern their EXPECTED_LAUNCHES, and the default run
+DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``.
@@ -297,8 +316,9 @@ DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *ZLE_PACK_KERNELS,
                         'wfsim_grid_lookup') + PHYSICS_KERNELS
 #: the PMT-afterpulse generator's entries (K11): each once a call
 AP_KERNELS = ('wfsim_pmt_ap_select', 'wfsim_pmt_ap_rows', 'wfsim_pmt_ap_emit')
-REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + AP_KERNELS + (
-    'wfsim_ap_photon_summaries',)
+#: the photon summaries' entries (K11 summaries): each once a call
+SUMMARY_KERNELS = ('wfsim_ap_valid_tiles', 'wfsim_ap_photon_summaries')
+REALISTIC_PATH_KERNELS = DEFAULT_PATH_KERNELS + AP_KERNELS + SUMMARY_KERNELS
 #: the detector_physics path: the gas-gap sampler replaces the simple
 #: luminescence tables
 DETECTOR_PATH_KERNELS = tuple(
@@ -727,7 +747,7 @@ def phase_3c(params, const, batches, dev, smi):
     from wfsim_tpu_torch.models.s2 import (
         get_s2_drift_time_params, luminescence_tables,
         luminescence_tables_ref, s2_edges, s2_electron_times,
-        s2_electron_times_ref, s2_photon_times, s2_photon_times_ref, Q)
+        s2_electron_times_ref, s2_photon_times, s2_photon_times_ref)
     from wfsim_tpu_torch.ops.randsample import channel_draw
     from wfsim_tpu_torch.ops.segment import edges_from_counts
     x1, _n1, d1 = batches['s1']
@@ -749,14 +769,12 @@ def phase_3c(params, const, batches, dev, smi):
     check_k5(check, pattern, ph_edges, d2['u_ch'], dev)
 
     inv = luminescence_tables(const, n_inst, dev)
-    inv_cpu = luminescence_tables_ref(const, n_inst, 'cpu')
-    compare((inv,), (inv_cpu,), 'lumi_tables against the CPU twin')
-    R = int(round((const.gate_to_anode_distance - const.anode_wire_radius)
-                  / 1e-4))
-    check('lumi_tables', lambda: (luminescence_tables(const, n_inst, dev),),
-          lambda: (luminescence_tables_ref(const, n_inst, dev),), (),
-          ops32=n_inst * (R * 8 + Q * (int(np.log2(R)) + 6)),
-          ops64=n_inst * R * 4)
+    compare((inv,), (luminescence_tables_ref(const, n_inst, 'cpu'),),
+            'lumi_tables against the CPU twin')
+    compare((inv,), (luminescence_tables_ref(const, n_inst, dev),),
+            'lumi_tables')
+    print(f'[kernels-p] lumi_tables: {n_inst} instructions, bitwise the '
+          f'twin on the card and on the CPU (3m times it)')
 
     s1_args = (x1['time'], edges_from_counts(d1['n_hits']), x1['truth_row'],
                d1['exp'], d1['normal'])
@@ -1253,11 +1271,13 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         xenon1t_full_grid=567_294)
 #: the launches of the channel draw, the map lookup, (one a digitize
 #: batch) the ZLE and record-pack entries, (one a simulation batch) the
-#: PMT-afterpulse entries and the diffused pattern on those runs
+#: luminescence tables, the PMT-afterpulse and photon-summary entries and
+#: the diffused pattern on those runs
 EXPECTED_LAUNCHES = dict(
     default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12,
-                 **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
-    realistic=dict.fromkeys(AP_KERNELS, 9),
+                 wfsim_lumi_tables=3, **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
+    realistic=dict(**dict.fromkeys(AP_KERNELS, 9),
+                   **dict.fromkeys(SUMMARY_KERNELS, 3)),
     detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
@@ -1271,7 +1291,10 @@ def run_digest(out):
 
 def expect_records(name, *records, launches=None, digest=None):
     """Raise unless a configuration's run gives EXPECTED_RECORDS, the
-    EXPECTED_LAUNCHES and (default) DEFAULT_DIGEST."""
+    EXPECTED_LAUNCHES and (default) DEFAULT_DIGEST, and no luminescence
+    row since phase 3m's failing constants was integrated on the kernel's
+    sequential pass."""
+    expect_no_sequential_rows(name)
     want = EXPECTED_RECORDS[name]
     want = want if isinstance(want, tuple) else (want,)
     got = {e: launches[e] for e in EXPECTED_LAUNCHES.get(name, {})}
@@ -1283,6 +1306,18 @@ def expect_records(name, *records, launches=None, digest=None):
             or digest != (DEFAULT_DIGEST if digest else None)):
         raise AssertionError(f'{name}: the run differs from the expected '
                              f'records, launches or digest')
+
+
+def expect_no_sequential_rows(where):
+    """Raise unless the luminescence kernel's count of rows on its
+    sequential pass (``lumi_sequential_rows``, since it was last zeroed)
+    is 0."""
+    from wfsim_tpu_torch.models.s2 import lumi_sequential_rows
+    n = int(lumi_sequential_rows('cuda:0'))
+    print(f'[expect] {where}: luminescence rows on the sequential pass {n}')
+    if n:
+        raise AssertionError(f'{where}: {n} luminescence rows on the '
+                             f'sequential pass')
 
 
 def same_arrays(a, b):
@@ -2004,6 +2039,197 @@ def ap_diffuse_measure(dev, smi, max_syncs=(1, 0)):
     return res
 
 
+#: phase 3m's batches: K6 on LUMI_ROWS rows of the default gas gap (the 3c
+#: S2 batch's tables), of gaps uniform between the wire and the gate, and
+#: of the default gap at LUMI_SEQUENTIAL_BAR, a pressure whose light-yield
+#: offset lies two float32 ulps from E0 / r at r = 0.01996 cm, so that the
+#: light-weighted sum fails the kernel's exactness test on every row
+#: (tests/test_torch_lumi_summaries_redesign.py's SEQUENTIAL_PRESSURE_BAR);
+#: the summaries on the 3b shape and its skewed copy (AP_SHAPE,
+#: AP_SKEWED_ROW)
+LUMI_ROWS = 512
+LUMI_SEQUENTIAL_BAR = 22.70032
+
+
+def lumi_calls(s2, const, n, dev, dG):
+    """(kernel call, twin call) of a checkout's luminescence tables on the
+    gas gaps ``dG`` (None: the constant gap).  A checkout whose wrapper
+    takes no gaps gets them through its ``_anode_field``, with E0 by the
+    same float32 steps (its kernel has always read a gap and a field per
+    row)."""
+    import inspect
+    import torch
+    if dG is None or 'dG' in inspect.signature(
+            s2.luminescence_tables).parameters:
+        kw = {} if dG is None else dict(dG=dG)
+        return (lambda: (s2.luminescence_tables(const, n, dev, **kw),),
+                lambda: (s2.luminescence_tables_ref(const, n, dev, **kw),))
+    rA, rW = const.anode_field_domination_distance, const.anode_wire_radius
+
+    def div(x):
+        return torch.full((), x, dtype=torch.float32, device=dG.device)
+    VG = const.anode_voltage / (1 + (const.gate_to_anode_distance - dG)
+                                / dG / div(const.lxe_dielectric_constant))
+    E0 = VG / ((dG - rA) / div(rA) + np.log(rA / rW))
+    field = s2._anode_field
+
+    def with_gaps(fn):
+        def call():
+            s2._anode_field = lambda c, m, d: (dG, E0, field(c, m, d)[2])
+            try:
+                return (fn(const, n, dev),)
+            finally:
+                s2._anode_field = field
+        return call
+    return (with_gaps(s2.luminescence_tables),
+            with_gaps(s2.luminescence_tables_ref))
+
+
+def lumi_work(const, n, dG):
+    """(bytes, float32 and float64 operations, and the old count's) of one
+    K6 call:
+    the radius, reciprocal and quantile grids, the gaps and fields where
+    given, and the (n, Q) output; the twin's arithmetic on the points
+    inside each row's gap (8 float32 operations and 4 float64 a point)
+    and Q searches and lerps a row.  The old count took every point."""
+    from wfsim_tpu_torch.models.s2 import Q
+    r = np.arange(const.gate_to_anode_distance, const.anode_wire_radius,
+                  -1e-4, dtype=np.float32)
+    gaps = (np.full(n, np.float32(const.elr_gas_gap_length)) if dG is None
+            else dG.cpu().numpy())
+    R, in_gap = len(r), int((r[None, :] <= gaps[:, None]).sum())
+    n_bytes = 8 * R + 4 * Q + (0 if dG is None else 8 * n) + 4 * n * Q
+    search = n * Q * (int(np.ceil(np.log2(R))) + 6)
+    return (n_bytes, in_gap * 8 + search, in_gap * 4, n * R * 8 + search,
+            n * R * 4)
+
+
+def summary_work(ph, u, counts, out):
+    """(bytes, old bytes, float32 operations) of one summaries call: the
+    valid flags, a 32-byte sector of truth rows at each row boundary, the
+    sectors of t the candidates read, u and the outputs.  The old count
+    took every photon field."""
+    n = int(ph['t'].shape[0])
+    n_inst, K = u.shape
+    c = counts.cpu().numpy().astype(np.int64)
+    off = np.cumsum(c) - c
+    slot = np.clip(off[:, None] + (u.cpu().numpy() * np.maximum(c, 1)[
+        :, None].astype(np.float32)).astype(np.int32), 0, n - 1)
+    sectors = len(np.unique(slot // 8)) * 32
+    n_bytes = n + (n_inst + 1) * 32 + sectors + nbytes(u, counts, out)
+    return n_bytes, nbytes(ph, u, counts, out), n + 2 * n_inst * K
+
+
+def lumi_summaries_measure(dev, smi, max_syncs=(0, 0)):
+    """Phase 3m: the luminescence tables (K6) on LUMI_ROWS rows of the
+    default gas gap, of gaps over the anode gap and of the constants that
+    fail the kernel's exactness test (see LUMI_SEQUENTIAL_BAR), and the
+    photon summaries on the 3b shape and its skewed copy: each bitwise
+    against its twin, its host syncs a call (at most ``max_syncs``, K6's
+    and the summaries'; None counts them without a limit, for another
+    checkout's wrappers), K6's rows on its sequential pass in one call
+    (held to the twin ``lumi_sequential_rows_ref``; None where the
+    checkout has no count), ``ms``, ``device_ms`` split by kernel,
+    ``host_us`` over 1,000 calls, the twin's time and the bound (old and
+    new counts printed).  The sequential count is zeroed at the end.
+    Returns {row name: measurements (see make_check)}."""
+    import dataclasses
+    import torch
+    from wfsim_tpu_torch import units
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.models.afterpulse import (
+        photon_summaries, photon_summaries_ref, summary_draws)
+    from wfsim_tpu_torch.models.params import build_constants
+    const = build_constants(default_config(seed=1234, chunk_size=100))
+    rng = np.random.default_rng(20261017)
+    gaps = torch.as_tensor(rng.uniform(
+        const.anode_wire_radius, const.gate_to_anode_distance,
+        LUMI_ROWS).astype(np.float32), device=dev)
+    count = getattr(s2, 'lumi_sequential_rows', None)
+    works = []
+    for name, k, dG in (
+            ('lumi_tables', const, None), ('lumi_tables_gaps', const, gaps),
+            ('lumi_tables_sequential', dataclasses.replace(
+                const, pressure=LUMI_SEQUENTIAL_BAR * units.bar), None)):
+        kernel, plain = lumi_calls(s2, k, LUMI_ROWS, dev, dG)
+        n_bytes, ops32, ops64, old32, old64 = lumi_work(k, LUMI_ROWS, dG)
+        want = None
+        if count is not None:
+            want = int(s2.lumi_sequential_rows_ref(k, LUMI_ROWS, dev,
+                                                   dG).sum())
+        print(f'[lumi-summ] {name}: {LUMI_ROWS} rows, sequential rows by '
+              f'the twin {want}; bytes {n_bytes}, operations {ops32} '
+              f'float32 + {ops64} float64 (bound '
+              f'{bound(n_bytes, ops32, ops64)[0]:.6f} ms; the old count '
+              f'{old32} + {old64}: {bound(n_bytes, old32, old64)[0]:.6f} '
+              f'ms)')
+        works.append((name, kernel, plain, 0 if max_syncs is None
+                      else max_syncs[0], n_bytes, ops32, ops64, want))
+    n_rows = AP_SHAPE[1]
+    for skewed in (False, True):
+        name = 'ap_photon_summaries' + '_skewed' * skewed
+        seed = 20261016 + skewed
+        rng = np.random.default_rng(seed)
+        ph = s2_like_photons(rng, AP_SHAPE[0], 494, n_rows, dev)
+        if skewed:
+            row, big = AP_SKEWED_ROW
+            ph['truth_row'] = torch.as_tensor(np.sort(np.concatenate(
+                [np.full(big, row), rng.integers(0, n_rows,
+                                                 AP_SHAPE[0] - big)])),
+                device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        u = summary_draws(gen, n_rows, dev)
+        counts, out = photon_summaries_ref(ph, u, n_inst=n_rows)
+        n_bytes, old, ops32 = summary_work(ph, u, counts, out)
+        print(f'[lumi-summ] {name}: {AP_SHAPE[0]} photons, {n_rows} rows '
+              f'(largest {int(counts.max())}), {u.shape[1]} candidates; '
+              f'bytes {n_bytes} (bound {bound(n_bytes, ops32)[0]:.6f} ms; '
+              f'the old count {old}: {bound(old, ops32)[0]:.6f} ms)')
+        works.append((name, lambda a=(ph, u): photon_summaries(
+                          *a, n_inst=n_rows),
+                      lambda a=(ph, u): photon_summaries_ref(
+                          *a, n_inst=n_rows),
+                      0 if max_syncs is None else max_syncs[1], n_bytes,
+                      ops32, 0, None))
+    res = {}
+    for name, kernel, plain, limit, n_bytes, ops32, ops64, want in works:
+        err = compare(kernel(), plain(), name)
+        seq = None
+        if count is not None and name.startswith('lumi'):
+            count(dev).zero_()
+            kernel()
+            seq = int(count(dev))
+            if seq != want:
+                raise AssertionError(f'{name}: {seq} rows on the '
+                                     f'sequential pass, the twin {want}')
+        n_sync, where = count_syncs(kernel)
+        if max_syncs is not None and n_sync > limit:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {limit} ({where})')
+        dev_ms, by_name = device_ms(kernel)
+        split = {}
+        for k, v in by_name.items():            # names cut to 60 characters
+            split[k[:60]] = split.get(k[:60], 0.0) + v
+        m = res[name] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, ops32=ops32, ops64=ops64, library_ms=None,
+            syncs=n_sync, seq_rows=seq, split=split)
+        b_ms, b_by = bound(n_bytes, ops32, ops64)
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({k: round(v, 6) for k, v in m['split'].items()}))
+        print(f'[lumi-summ] {name}: max|diff| {err}, read-backs {n_sync} '
+              f'{where}, sequential rows {seq}, {m["ms"]:.4f} ms, device '
+              f'{dev_s}, host {m["host_us"]:.2f} us a call, plain twin '
+              f'{m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+              f'({smi})')
+    if count is not None:
+        count(dev).zero_()
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -2039,8 +2265,9 @@ def kernel_rows(dev, smi):
     """The rows ``ab_port.py --kernels`` compares between two checkouts:
     the superposition rows on every batch (superpose_measure), the ZLE and
     record-pack rows on every grid (zle_pack_measure), K16 on 494 channels
-    with its library computation (per_pmt_kernel_check) and the K11 and
-    K12b rows (ap_diffuse_measure)."""
+    with its library computation (per_pmt_kernel_check), the K11 and K12b
+    rows (ap_diffuse_measure) and the K6 and K11-summaries rows
+    (lumi_summaries_measure)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
@@ -2052,6 +2279,7 @@ def kernel_rows(dev, smi):
                          'pulse_truth_per_pmt', cfg,
                          bench_instructions(512, 2000, 300), dev)
     res.update(ap_diffuse_measure(dev, smi, max_syncs=None))
+    res.update(lumi_summaries_measure(dev, smi, max_syncs=None))
     return res
 
 
@@ -2840,7 +3068,7 @@ def main():
               for f in (photon_summaries, photon_summaries_ref))
     err5 = max(max_diff(a, b) for a, b in zip(sk, sr))
     print(f'[kernels-r] ap_photon_summaries: instructions {n_rows} '
-          f'candidates {u_s.shape[1]}, max|diff| {err5}')
+          f'candidates {u_s.shape[1]}, max|diff| {err5} (3m times it)')
     if err5:
         raise AssertionError('ap_photon_summaries differs from its twin')
     L_noise = int(params_r.noise_bank.shape[1])
@@ -2858,15 +3086,6 @@ def main():
     if err6 or not in_win.std().item() > 0.5:
         raise AssertionError('superpose_adc with noise differs from its twin '
                              'or shows no noise')
-    times = dict(ap_photon_summaries=timing(
-        lambda: photon_summaries(ph_ap, u_s, n_inst=n_rows),
-        lambda: photon_summaries_ref(ph_ap, u_s, n_inst=n_rows),
-        nbytes(ph_ap, u_s, sk), n_ph * 4, err=err5))
-    m = times['ap_photon_summaries']
-    b_ms, b_by = bound(m['bytes'], m['ops32'])
-    print(f'[kernels-r] ap_photon_summaries: {m["ms"]:.4f} ms, device '
-          f'{fmt_ms(m["device_ms"])}, plain twin {m["plain_ms"]:.4f} ms, '
-          f'bound {b_ms:.4f} ms by {b_by} ({smi})')
     del ph_ap, draws, ap_k, ap_r, grid_n, grid_nr
 
     # ---- 4b. realistic main path -----------------------------------------
@@ -2945,6 +3164,9 @@ def main():
 
     # ---- 3l. the PMT-afterpulse generator and the diffused pattern ----------
     atimes = ap_diffuse_measure(dev, smi)
+
+    # ---- 3m. the luminescence tables and the photon summaries ---------------
+    ltimes = lumi_summaries_measure(dev, smi)
 
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
@@ -3090,15 +3312,20 @@ def main():
             measured(row, 'grid_lookup.cu', 'wfsim_tpu/models/s2.py:300',
                      ['wfsim_pattern_diffuse'], launches_d, m)
         rows[-1].update(syncs=m['syncs'], split=m['split'])
-    measured('ap_photon_summaries', 'pmt_afterpulse.cu',
-             'wfsim_tpu/models/afterpulse.py:184',
-             ['wfsim_ap_photon_summaries'], launches_r,
-             times['ap_photon_summaries'])
+    for row, m in ltimes.items():
+        if row.startswith('lumi_tables'):
+            measured(row, 'luminescence.cu',
+                     'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141',
+                     ['wfsim_lumi_tables'], launches, m)
+            rows[-1].update(seq_rows=m['seq_rows'])
+        else:
+            measured(row, 'pmt_afterpulse.cu',
+                     'wfsim_tpu/models/afterpulse.py:184', SUMMARY_KERNELS,
+                     launches_r, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'])
     for name, cu, rep in (
             ('channel_draw', 'channel_draw.cu', K5_REPLACES),
             ('channel_draw_skewed', 'channel_draw.cu', K5_REPLACES),
-            ('lumi_tables', 'luminescence.cu',
-             'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141'),
             ('s1_photon_times', 'photon_times.cu',
              'wfsim_tpu/models/s1.py:143'),
             ('s2_electron_times', 'photon_times.cu',
@@ -3140,6 +3367,7 @@ def main():
     measured('superpose_block', 'superpose_adc.cu',
              'wfsim_tpu/parallel/sharding.py:54', ['wfsim_superpose_block'],
              launches_m, mtimes)
+    expect_no_sequential_rows('every phase after 3m')
     print(f'[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s '
           f'after its start ({smi})')
     print(smi)

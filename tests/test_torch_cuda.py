@@ -27,6 +27,8 @@ from .ap_inputs import ap_tables, photon_set
 from .test_torch_ap_diffuse_redesign import (
     AP_CASES, DIFFUSE_CASES, ap_args, ap_setup, diffuse_args, diffuse_case,
     diffuse_constants, diffuse_normals)
+from .test_torch_lumi_summaries_redesign import (
+    LUMI_CASES, SUMMARY_CASES, lumi_case, sequential_rows_np, summary_case)
 from .test_torch_zle_pack_redesign import (ZLE_PACK_CASES, pack_args,
                                            zle_args, zle_pack_case)
 
@@ -1119,3 +1121,56 @@ def test_pattern_diffuse_kernel_matches_twins_on_cases(dev, name):
         short = s2.pattern_diffuse(*args, split - 1)
         assert short[big].isnan().all()
         assert torch.equal(short[~big], out[~big])
+
+
+# ---------------------------------------------------------------------------
+# the luminescence tables by block scans (K6) and the photon summaries from
+# prefix counts (K11 summaries) on the cases of
+# tests/test_torch_lumi_summaries_redesign.py, with the read-backs a call
+
+
+@pytest.mark.parametrize('name', LUMI_CASES)
+def test_lumi_tables_kernel_matches_twins_on_cases(dev, name):
+    """K6 launches once and reads nothing back, is bitwise its twin on the
+    card and on the CPU, and counts on its sequential pass the rows of the
+    exact-integer mirror."""
+    from wfsim_tpu_torch.models import s2
+    const, dG, n = lumi_case(name)
+    gaps = None if dG is None else torch.as_tensor(dG, device=dev)
+    s2.luminescence_tables(const, n, dev, gaps)     # the grids cached
+    k = _build.KERNELS['wfsim_lumi_tables']
+    count = s2.lumi_sequential_rows(dev)
+    count.zero_()
+    before = k.launches
+    n_sync, out, lines = _syncs(s2.luminescence_tables, const, n, dev, gaps)
+    assert n_sync == 0, lines
+    assert k.launches == before + 1
+    assert int(count) == int(sequential_rows_np(const, n, dG).sum())
+    assert torch.equal(out, s2.luminescence_tables_ref(const, n, dev, gaps))
+    assert torch.equal(out.cpu(), s2.luminescence_tables_ref(
+        const, n, 'cpu', None if dG is None else torch.as_tensor(dG)))
+
+
+@pytest.mark.parametrize('name', SUMMARY_CASES)
+def test_photon_summaries_kernels_match_twins_on_cases(dev, name):
+    """The summaries read nothing back, launch the valid-tiles and
+    summaries kernels once each (neither without a photon) and are
+    bitwise their twin on the card and on the CPU."""
+    from wfsim_tpu_torch.models import afterpulse as ap
+    ph, u, n_inst = summary_case(name)
+    ph_d = {k: torch.as_tensor(v, device=dev) for k, v in ph.items()}
+    u_d = torch.as_tensor(u, device=dev)
+    ks = [_build.KERNELS[k] for k in ('wfsim_ap_valid_tiles',
+                                      'wfsim_ap_photon_summaries')]
+    before = [k.launches for k in ks]
+    n_sync, out, lines = _syncs(ap.photon_summaries, ph_d, u_d,
+                                n_inst=n_inst)
+    assert n_sync == 0, lines
+    ran = len(ph['t']) > 0
+    assert [k.launches for k in ks] == [b + ran for b in before]
+    for ref in (ap.photon_summaries_ref(ph_d, u_d, n_inst=n_inst),
+                ap.photon_summaries({k: torch.as_tensor(v)
+                                     for k, v in ph.items()},
+                                    torch.as_tensor(u), n_inst=n_inst)):
+        for x, y in zip(out, ref):
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())

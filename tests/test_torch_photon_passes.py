@@ -27,7 +27,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from wfsim_tpu import units
 from wfsim_tpu.config import default_config as jax_default_config
 from wfsim_tpu.models.params import (build_params as jax_build_params,
                                      build_constants as jax_build_constants)
@@ -42,6 +41,7 @@ from wfsim_tpu_torch.ops import randsample as rs
 from wfsim_tpu_torch.resources import load_config
 
 from .test_torch_host import export_jax_params
+from .test_torch_lumi_summaries_redesign import lumi_terms_np
 from .test_torch_physics import trunc_mismatch
 
 
@@ -285,26 +285,12 @@ def check_s2_pass_given_draws(both):
 # F10: the twins' reductions against numpy oracles, bitwise
 
 
-def tables_oracle(const, n_inst, qs):
+def tables_oracle(const, n_inst, qs, dG=None):
     """The luminescence tables in numpy: the twin's float32 steps, float64
-    accumulation in sequence, each value rounded to float32 once."""
+    accumulation in sequence, each value rounded to float32 once; ``dG``
+    the per-instruction gas gaps (the constant one by default)."""
     f = np.float32
-    number_density_gas = const.pressure / (units.boltzmannConstant
-                                           * const.temperature)
-    alpha = const.gas_drift_velocity_slope / number_density_gas
-    rA, rW = const.anode_field_domination_distance, const.anode_wire_radius
-    dG = np.full(n_inst, f(const.elr_gas_gap_length))
-    dL = f(const.gate_to_anode_distance) - dG
-    VG = f(1) / (f(1) + dL / dG / f(const.lxe_dielectric_constant)) \
-        * f(const.anode_voltage)
-    E0 = VG / ((dG - f(rA)) / f(rA) + f(np.log(rA / rW)))
-    r = np.arange(const.gate_to_anode_distance, rW, -1e-4, dtype=np.float32)
-    rr = np.clip(f(1) / r, f(1 / rA), f(1 / rW))
-    dt = f(1) / (f(alpha) * E0[:, None] * rr[None, :]) * f(1e-4)
-    dy = E0[:, None] * rr[None, :] / f(units.kV / units.cm) \
-        - f(0.8 * (const.pressure / units.bar))
-    mask = r[None, :] <= dG[:, None]
-    dt, dy = np.where(mask, dt, f(0)), np.where(mask, dy, f(0))
+    dt, dy = lumi_terms_np(const, n_inst, dG)
     t64 = np.zeros(dt.shape)
     y64 = np.zeros(dt.shape)
     num = np.zeros(n_inst)

@@ -5,7 +5,8 @@
 // (selection over every (element, photon) slot, compaction, the delay and
 // amplitude CDF inversions of the compacted slots, the regroup by truth row
 // and the per-row counts, first and last times) and :184 photon_summaries
-// (time-zero candidates per instruction).
+// (lines 183-198: the valid photons, offsets and time-zero candidates per
+// instruction).
 //
 // The generator's output order is (truth row, element, photon): the
 // element-major compaction of wfsim_tpu regrouped stably by truth row.
@@ -17,8 +18,9 @@
 //   base(r, e) + (selected slots of element e in [rs_r, i)),
 //   base(r, e) = sum_e' P_e'(rs_r) + sum_{e' < e} (P_e'(re_r) - P_e'(rs_r)),
 // where P_e(x) counts the selected slots of element e among photons < x.
-// Four entry points, the first three one call of the generator, each with
-// a plain twin in wfsim_tpu_torch/models/afterpulse.py:
+// Five entry points, the first three one call of the generator, the last
+// two one call of the summaries, each with a plain twin in
+// wfsim_tpu_torch/models/afterpulse.py:
 //   wfsim_pmt_ap_select        a block an (element, tile of 1,024
 //                              photons), a thread a slot: a warp's
 //                              selection is one ballot, a 32-bit mask word
@@ -61,12 +63,33 @@
 //                              reduced in the lane and then among the
 //                              lanes that end on one row (the result does
 //                              not depend on the order);
-//   wfsim_ap_photon_summaries  one thread per (instruction, candidate);
-//                              gathers the candidate photon time.
+//   wfsim_ap_valid_tiles       the summaries' valid photons as select
+//                              makes its slots: a block a tile of 1,024
+//                              photons, a warp's 32 flags one ballot, a
+//                              32-bit mask word, the tile's count the sum
+//                              of its 32 popcounts;
+//   (torch.cumsum over the tile counts)
+//   wfsim_ap_photon_summaries  a warp an instruction: its photon range
+//                              [rs, re) by rows' two searches (row_range),
+//                              F at both ends (rank_of, as rows takes
+//                              it), count = F(re) - F(rs) and offset =
+//                              F(rs) - F(rs_0), the twin's exclusive
+//                              cumsum of the counts (valid photons of
+//                              rows at or past n_inst, which the twin's
+//                              bincount drops, sit after every range, so
+//                              no offset counts them); its lanes take
+//                              the K candidates in turn, t[clip(offset +
+//                              trunc(u * max(count, 1)))].  Three
+//                              launches, no nonzero, bincount or
+//                              read-back (the twin's boolean index and
+//                              bincount each sync).
 // F(e, x) is the flat (element, photon) rank of photon x of element e: the
 // selected slots of the elements before e plus P_e(x).  A row of 10^6
 // photons is ~1,000 tiles like any other: no warp walks a row, and the
-// ranks see no skew.
+// ranks see no skew.  Both the generator's photons and the summaries'
+// ascend in truth row, invalid photons included: pmt_response keeps the
+// photon order of the S1 and S2 passes, which give each photon its
+// instruction's row, and the instructions' rows ascend.
 //
 // What bounds them on the H100: memory traffic.  Select reads u0 and the
 // auxiliary draw of every slot and ch, is_dpe and valid of every photon
@@ -75,6 +98,9 @@
 // 4,000-float delay row (12 steps of cached loads) for a non-uniform
 // element.  At the bench batch (1.5 M photons, E = 2) the bytes are ~35 MB
 // (~0.011 ms); the fixed costs are the four launches and the read-back.
+// The summaries read the n valid flags (1.5 MB at the bench batch), the
+// rows' search probes and K candidates an instruction: ~3 MB; their
+// fixed costs are the three launches.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default (--fmad=true),
 // which rounds once where the twin rounds twice.  Every product, sum and
@@ -222,6 +248,29 @@ __device__ __forceinline__ unsigned bits_before(const unsigned* __restrict__ m,
   return 0u;
 }
 
+// a warp's truth row r: its photon range [rs, re), the first photons
+// whose rows reach r and r + 1 (lanes 0-15 search one, lanes 16-31 the
+// other)
+__device__ __forceinline__ void row_range(const long long* __restrict__ rows,
+                                          int n, int r, int lane, int* rs,
+                                          int* re) {
+  const int bound = lower_bound_half(rows, n, static_cast<long long>(r) +
+                                     (lane >> 4), lane);
+  *rs = __shfl_sync(kFull, bound, 0);
+  *re = __shfl_sync(kFull, bound, 16);
+}
+
+// the set bits of a mask before photon x, by a warp: the inclusive prefix
+// `incl` of the tiles' counts before x's tile (flat tile index k; 0 for
+// the first) plus the popcounts of x's tile's words before x
+__device__ __forceinline__ int rank_of(const unsigned* __restrict__ m,
+                                       const int* __restrict__ incl, int k,
+                                       int x, int n_words, int lane) {
+  return (k > 0 ? incl[k - 1] : 0) +
+         static_cast<int>(__reduce_add_sync(
+             kFull, __popc(bits_before(m, x, n_words, lane))));
+}
+
 // a warp a truth row
 __global__ void ap_rows_kernel(
     const long long* __restrict__ truth_row, int n, int R, int n_elements,
@@ -233,21 +282,17 @@ __global__ void ap_rows_kernel(
   const int lane = threadIdx.x & 31;
   if (r >= R) return;
   const int n_words = (n + 31) >> 5;
-  const int bound = lower_bound_half(truth_row, n, r + (lane >> 4), lane);
-  const int rs = __shfl_sync(kFull, bound, 0);
-  const int re = __shfl_sync(kFull, bound, 16);
+  int rs, re;
+  row_range(truth_row, n, r, lane, &rs, &re);
   // the flat rank F(e, x) of photon x: the tile's exclusive prefix plus
   // the selected bits of its tile before x; P_e(x) = F(e, x) - F(e, 0)
   int base = 0, cum = 0, mine = 0;
   for (int e = 0; e < n_elements; ++e) {
     const unsigned* m = mask + static_cast<long long>(e) * n_words;
-    const int ka = e * n_tiles + rs / kTile, kb = e * n_tiles + re / kTile;
-    const unsigned wa = bits_before(m, rs, n_words, lane);
-    const unsigned wb = bits_before(m, re, n_words, lane);
-    const int a = (ka > 0 ? incl[ka - 1] : 0) +
-                  static_cast<int>(__reduce_add_sync(kFull, __popc(wa)));
-    const int b = (kb > 0 ? incl[kb - 1] : 0) +
-                  static_cast<int>(__reduce_add_sync(kFull, __popc(wb)));
+    const int a = rank_of(m, incl, e * n_tiles + rs / kTile, rs, n_words,
+                          lane);
+    const int b = rank_of(m, incl, e * n_tiles + re / kTile, re, n_words,
+                          lane);
     base += a - (e > 0 ? incl[e * n_tiles - 1] : 0);
     if (lane == e) mine = cum - a;
     cum += b - a;
@@ -372,24 +417,63 @@ __global__ void ap_emit_kernel(
   }
 }
 
-__global__ void ap_summaries_kernel(
-    const int* __restrict__ t, const int* __restrict__ counts,
-    const int* __restrict__ offsets, int n_inst, int K,
-    const float* __restrict__ u, int n_photons, int* __restrict__ out) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (k >= static_cast<long long>(n_inst) * K) return;
-  const int i = static_cast<int>(k / K);
-  const int cnt = counts[i] > 1 ? counts[i] : 1;
-  // slot = offset + trunc(u * max(count, 1)), clipped to the array
-  long long slot = static_cast<long long>(offsets[i]) +
-                   static_cast<int>(__fmul_rn(u[k], static_cast<float>(cnt)));
-  slot = slot < 0 ? 0 : (slot > n_photons - 1 ? n_photons - 1 : slot);
-  out[k] = t[slot];
+// the summaries' valid photons: a block a tile of 1,024 photons, a thread
+// a photon, a warp a mask word; the tile's count
+__global__ void ap_valid_tiles_kernel(const unsigned char* __restrict__ valid,
+                                      int n, unsigned* __restrict__ mask,
+                                      int* __restrict__ tile_counts) {
+  __shared__ int warp_counts[kTileWords];
+  const int tile = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = tile * kTile + threadIdx.x;
+  const unsigned w = __ballot_sync(kFull, i < n && valid[i]);
+  const int n_words = (n + 31) >> 5, word = tile * kTileWords + warp;
+  if (lane == 0) {
+    if (word < n_words) mask[word] = w;
+    warp_counts[warp] = __popc(w);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int cnt = __reduce_add_sync(kFull, warp_counts[lane]);
+    if (lane == 0) tile_counts[tile] = cnt;
+  }
 }
 
-unsigned grid_of(long long work) {
-  return static_cast<unsigned>((work + kBlock - 1) / kBlock);
+// a warp an instruction: its valid photons F(re) - F(rs), F the valid
+// photons before a photon, its offset F(rs) - F(rs_0), and its K
+// candidates t[clip(offset + trunc(u * max(count, 1)))], a lane each in
+// turn
+__global__ void ap_summaries_kernel(
+    const int* __restrict__ t, const long long* __restrict__ truth_row,
+    int n, const unsigned* __restrict__ mask, const int* __restrict__ incl,
+    int n_inst, int K, const float* __restrict__ u,
+    int* __restrict__ counts, int* __restrict__ out) {
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= n_inst) return;
+  const int n_words = (n + 31) >> 5;
+  int rs, re;
+  row_range(truth_row, n, i, lane, &rs, &re);
+  const int a = rank_of(mask, incl, rs / kTile, rs, n_words, lane);
+  const int b = rank_of(mask, incl, re / kTile, re, n_words, lane);
+  // F(rs_0): the valid photons of rows below 0 (none within the contract)
+  int below = 0;
+  if (truth_row[0] < 0) {
+    int s0, e0;
+    row_range(truth_row, n, 0, lane, &s0, &e0);
+    below = rank_of(mask, incl, s0 / kTile, s0, n_words, lane);
+  }
+  const int cnt = b - a;
+  if (lane == 0) counts[i] = cnt;
+  const long long offset = a - below;
+  const float c = static_cast<float>(cnt > 1 ? cnt : 1);
+  for (int k = lane; k < K; k += 32) {
+    const long long j = static_cast<long long>(i) * K + k;
+    // slot = offset + trunc(u * max(count, 1)), clipped to the array
+    long long slot = offset + static_cast<int>(__fmul_rn(u[j], c));
+    slot = slot < 0 ? 0 : (slot > n - 1 ? n - 1 : slot);
+    out[j] = t[slot];
+  }
 }
 
 }  // namespace
@@ -467,16 +551,30 @@ extern "C" int wfsim_pmt_ap_emit(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int wfsim_ap_photon_summaries(
-    const void* t, const void* counts, const void* offsets, int n_inst,
-    int K, const void* u, int n_photons, void* out, void* stream) {
-  const long long work = static_cast<long long>(n_inst) * K;
-  if (work <= 0 || n_photons <= 0 || grid_of(work) > 0x7fffffffu)
+extern "C" int wfsim_ap_valid_tiles(const void* valid, int n, int n_tiles,
+                                    void* mask, void* tile_counts,
+                                    void* stream) {
+  if (n <= 0 || n_tiles != (n + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  ap_summaries_kernel<<<grid_of(work), kBlock, 0,
+  ap_valid_tiles_kernel<<<n_tiles, kTile, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(valid), n,
+      static_cast<unsigned*>(mask), static_cast<int*>(tile_counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wfsim_ap_photon_summaries(
+    const void* t, const void* truth_row, int n, const void* mask,
+    const void* incl, int n_inst, int K, const void* u, void* counts,
+    void* out, void* stream) {
+  if (n <= 0 || n_inst <= 0 || K < 0 ||
+      static_cast<long long>(n_inst) * K > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ap_summaries_kernel<<<(n_inst + kWarps - 1) / kWarps, kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(t), static_cast<const int*>(counts),
-      static_cast<const int*>(offsets), n_inst, K,
-      static_cast<const float*>(u), n_photons, static_cast<int*>(out));
+      static_cast<const int*>(t), static_cast<const long long*>(truth_row),
+      n, static_cast<const unsigned*>(mask), static_cast<const int*>(incl),
+      n_inst, K, static_cast<const float*>(u), static_cast<int*>(counts),
+      static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

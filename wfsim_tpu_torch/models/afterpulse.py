@@ -10,11 +10,13 @@ reference: wfsim/core/afterpulse.py).
    *rows* gives each truth row its photon range and each (row, element)
    the offset of its first afterpulse, *emit* writes each selected slot's
    photon at its final position (grouped stably by truth row, without a
-   sort), and *summaries* draws the time-zero candidates of the electron
-   afterpulses.  One ``torch.cumsum`` over the tile counts and one
-   read-back of the total a call are the glue.  Eager torch knows the
-   selected count before it allocates, so wfsim_tpu's ``ap_capacity`` and
-   its capacity retries fall away.
+   sort); one ``torch.cumsum`` over the tile counts and one read-back of
+   the total a call are the glue.  For the electron afterpulses, *valid
+   tiles* writes the valid photons as a bit mask counted by tile and,
+   after one ``torch.cumsum``, *summaries* gives each instruction its
+   valid-photon count and draws its time-zero candidates, with nothing
+   read back.  Eager torch knows the selected count before it allocates,
+   so wfsim_tpu's ``ap_capacity`` and its capacity retries fall away.
 
 2. Electron afterpulses (host): photoionization (pi_el, type 4) and gate
    photoelectric (pe_el, type 6) emit *new instructions* that re-enter the
@@ -33,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from .._build import Kernel, P, I, F, ptr, stream_of
+from .._build import Kernel, P, I, F, check_tensor, ptr, stream_of
 from ..ops.randsample import search_sorted_rows
 
 __all__ = ['pmt_ap_draws', 'pmt_afterpulse_photons',
@@ -51,7 +53,9 @@ _rows_kernel = Kernel('wfsim_pmt_ap_rows',
 _emit_kernel = Kernel('wfsim_pmt_ap_emit',
                       [P, P, P, I, I, P, P, P, P, P, P, P, I, I, I, P, I, I,
                        P, I, P, F, F, P, P, P, P, P, P, P, P, P, P, P, P])
-_summ_kernel = Kernel('wfsim_ap_photon_summaries', [P, P, P, I, I, P, I, P, P])
+_valid_tiles_kernel = Kernel('wfsim_ap_valid_tiles', [P, I, I, P, P, P])
+_summ_kernel = Kernel('wfsim_ap_photon_summaries',
+                      [P, P, I, P, P, I, I, P, P, P, P])
 
 
 def pmt_ap_draws(gen, n_elements: int, n: int, device) -> dict:
@@ -398,6 +402,37 @@ def photon_summaries_ref(photons, u, *, n_inst: int):
     return counts, _summaries_ref(photons['t'], counts, offsets, u)
 
 
+def _summaries_cuda(photons, u, n_inst):
+    """The valid-tiles kernel, one cumsum over its tile counts and the
+    summaries kernel; nothing read back."""
+    t, valid, rows = photons['t'], photons['valid'], photons['truth_row']
+    dev = t.device
+    n, K = t.shape[0], u.shape[1]
+    for name, x, dtype in (('valid', valid, torch.bool),
+                           ('truth_row', rows, torch.int64)):
+        check_tensor(name, x, dtype, (n,), dev)
+    if n >= 2 ** 31 or n_inst * K >= 2 ** 31:
+        raise ValueError(f'{n} photons, {n_inst} x {K} candidates: the '
+                         f'kernels take fewer than 2^31')
+    i32 = dict(dtype=torch.int32, device=dev)
+    if n == 0:                           # no photon to draw a time from
+        return torch.zeros(n_inst, **i32), torch.zeros((n_inst, K), **i32)
+    counts = torch.empty(n_inst, **i32)
+    out = torch.empty((n_inst, K), **i32)
+    if n_inst == 0:
+        return counts, out
+    n_tiles = -(-n // _TILE)
+    stream = stream_of(dev)
+    mask = torch.empty(-(-n // 32), **i32)
+    tile_counts = torch.empty(n_tiles, **i32)
+    _valid_tiles_kernel(ptr(valid), n, n_tiles, ptr(mask), ptr(tile_counts),
+                        stream)
+    incl = torch.cumsum(tile_counts, 0, dtype=torch.int32)
+    _summ_kernel(ptr(t), ptr(rows), n, ptr(mask), ptr(incl), n_inst, K,
+                 ptr(u), ptr(counts), ptr(out), stream)
+    return counts, out
+
+
 def photon_summaries(photons, u, *, n_inst: int):
     """Per-instruction valid-photon counts and random time-zero candidates
     for the electron afterpulses (wfsim_tpu afterpulse.py:183-198; the
@@ -410,16 +445,17 @@ def photon_summaries(photons, u, *, n_inst: int):
     exactly as wfsim_tpu does.
 
     :param photons: dict with t (int32), valid (bool), truth_row (int64,
-        ascending)
+        ascending, invalid photons included)
     :param u: (n_inst, K) float32 uniforms (:func:`summary_draws`)
     :returns: (counts (n_inst,) int32, t_zero (n_inst, K) int32)
 
-    CPU tensors run the plain twin; CUDA tensors launch the summaries
-    kernel (``csrc/pmt_afterpulse.cu``)."""
+    CPU tensors run the plain twin; CUDA tensors launch the valid-tiles and
+    summaries kernels (``csrc/pmt_afterpulse.cu``) and read nothing back
+    (rows below 0 count nowhere there; the twin raises on them)."""
     t = photons['t']
     dev = t.device
     if t.dtype != torch.int32 or u.dtype != torch.float32 \
-            or u.shape[0] != n_inst or u.device != dev \
+            or u.dim() != 2 or u.shape[0] != n_inst or u.device != dev \
             or not (t.is_contiguous() and u.is_contiguous()):
         raise TypeError('photon_summaries: need contiguous int32 t and '
                         f'float32 (n_inst, K) u on {dev}')
@@ -427,13 +463,7 @@ def photon_summaries(photons, u, *, n_inst: int):
         return photon_summaries_ref(photons, u, n_inst=n_inst)
     if dev.type != 'cuda':
         raise NotImplementedError(f'photon_summaries on {dev}')
-    counts, offsets = _summary_plan(photons, n_inst)
-    K = u.shape[1]
-    out = torch.zeros((n_inst, K), dtype=torch.int32, device=dev)
-    if n_inst * K and t.shape[0]:
-        _summ_kernel(ptr(t), ptr(counts), ptr(offsets), n_inst, K, ptr(u),
-                     int(t.shape[0]), ptr(out), stream_of(dev))
-    return counts, out
+    return _summaries_cuda(photons, u, n_inst)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ against its twin on the card and on the CPU alike.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -40,7 +42,8 @@ from .s1 import live_pattern, row_edges_of
 
 __all__ = ['simulate_s2', 's2_draws', 's2_photon_pass', 's2_edges',
            'luminescence_simple', 'luminescence_tables',
-           'luminescence_tables_ref', 's2_electron_times',
+           'luminescence_tables_ref', 'lumi_sequential_rows',
+           'lumi_sequential_rows_ref', 's2_electron_times',
            's2_electron_times_ref', 's2_photon_times', 's2_photon_times_ref',
            'get_s2_drift_time_params', 'inverse_field_distortion_correction',
            's2_positions', 'gasgap_rows', 'lumi_gasgap_times',
@@ -165,34 +168,59 @@ def _radius_grid(const, device):
     return r.to(device), rr.to(device), qs.to(device)
 
 
-def _anode_field(const, n_inst, device):
-    """Per-instruction gas gap dG and anode field E0 (reference:
-    s2.py:343-356), and the scalars of the integration."""
-    number_density_gas = const.pressure / (units.boltzmannConstant
-                                           * const.temperature)
-    alpha = const.gas_drift_velocity_slope / number_density_gas
+def _gap_field(const, dG):
+    """Anode field E0 of the float32 gas gaps ``dG`` (reference:
+    s2.py:343-356; wfsim_tpu s2.py:183-191).  The divisors are float32
+    tensors, as :func:`f32` makes them, filled on ``dG``'s device rather
+    than copied there, so a call reads nothing back."""
     rA = const.anode_field_domination_distance
     rW = const.anode_wire_radius
-    dG = torch.full((n_inst,), const.elr_gas_gap_length, dtype=torch.float32,
-                    device=device)
+
+    def div(value):
+        return torch.full((), value, dtype=torch.float32, device=dG.device)
     dL = const.gate_to_anode_distance - dG
     VG = const.anode_voltage / (
-        1 + dL / dG / f32(const.lxe_dielectric_constant, dG))
-    E0 = VG / ((dG - rA) / f32(rA, dG) + np.log(rA / rW))
-    return dG, E0, dict(alpha=alpha, field_unit=units.kV / units.cm,
-                        dy_offset=0.8 * (const.pressure / units.bar))
+        1 + dL / dG / div(const.lxe_dielectric_constant))
+    return VG / ((dG - rA) / div(rA) + np.log(rA / rW))
 
 
-def luminescence_tables_ref(const, n_inst: int, device):
-    """Plain twin of :func:`luminescence_tables`."""
-    dG, E0, s = _anode_field(const, n_inst, device)
+def _lumi_scalars(const):
+    """The scalars of the integration: the drift-velocity slope over the
+    gas number density, the field unit and the light-yield offset."""
+    number_density_gas = const.pressure / (units.boltzmannConstant
+                                           * const.temperature)
+    return dict(alpha=const.gas_drift_velocity_slope / number_density_gas,
+                field_unit=units.kV / units.cm,
+                dy_offset=0.8 * (const.pressure / units.bar))
+
+
+def _anode_field(const, n_inst, device, dG=None):
+    """Per-instruction gas gap ``dG`` (``elr_gas_gap_length`` unless a
+    float32 (n_inst,) tensor is given) and anode field E0, and the scalars
+    of the integration."""
+    if dG is None:
+        dG = torch.full((n_inst,), const.elr_gas_gap_length,
+                        dtype=torch.float32, device=device)
+    else:
+        check_tensor('dG', dG, torch.float32, (n_inst,), torch.device(device))
+    return dG, _gap_field(const, dG), _lumi_scalars(const)
+
+
+def _lumi_terms(const, n_inst, device, dG):
+    """The integration's float32 terms dt and dy, (n_inst, R), 0 outside
+    each instruction's gas gap, and the quantile grid."""
+    dG, E0, s = _anode_field(const, n_inst, device, dG)
     r, rr, qs = _radius_grid(const, device)
     mask = r[None, :] <= dG[:, None]
     dt = 1e-4 / (s['alpha'] * E0[:, None] * rr[None, :])
     dy = E0[:, None] * rr[None, :] / f32(s['field_unit'], E0) \
         - s['dy_offset']                          # arXiv:physics/0702142
-    dt_m = torch.where(mask, dt, 0.0)
-    dy_m = torch.where(mask, dy, 0.0)
+    return torch.where(mask, dt, 0.0), torch.where(mask, dy, 0.0), qs
+
+
+def luminescence_tables_ref(const, n_inst: int, device, dG=None):
+    """Plain twin of :func:`luminescence_tables`."""
+    dt_m, dy_m, qs = _lumi_terms(const, n_inst, device, dG)
     # float64 accumulations in sequence (torch's CPU cumsum), each value
     # rounded to float32 once; avgt's two sums are the last float64 values
     t64 = torch.cumsum(dt_m.to(torch.float64), dim=1)
@@ -208,36 +236,105 @@ def luminescence_tables_ref(const, n_inst: int, device):
     return _interp_rows(y_cum, t_cum, rq, uq).reshape(n_inst, Q)
 
 
+def _exact_in_any_order(x):
+    """Per row of float32 terms ``x``, whether every partial sum of the
+    row, in any order, is exact in float64: every term is a multiple of
+    2^e, e the exponent of the lowest set bit of the row's nonzero terms,
+    so every partial sum is one below 2^(e+53) in magnitude.  Tested as
+    the float64 sum of |x| < 2^(e+52), which holds exactly when the exact
+    sum does (below 2^(e+53) that float64 sum is exact; from there on it
+    cannot round below 2^(e+52)), in whatever order it is taken.  A row
+    of zeros holds; a NaN or an infinity fails."""
+    m, p = torch.frexp(x)
+    sig = (m.to(torch.float64) * 2.0 ** 24).to(torch.int64).abs()
+    low = torch.log2((sig & -sig).to(torch.float64)).to(torch.int64)
+    e = torch.where(sig != 0, p.to(torch.int64) - 24 + low,
+                    torch.iinfo(torch.int32).max).amin(dim=1)
+    total = x.to(torch.float64).abs().sum(dim=1)
+    # total < 2^(e+52) exactly: total = f * 2^q with f in [0.5, 1)
+    q = torch.frexp(total)[1].to(torch.int64)
+    return (total == 0) | (torch.isfinite(total) & (q <= e + 52))
+
+
+def lumi_sequential_rows_ref(const, n_inst: int, device, dG=None):
+    """(n_inst,) bool: the rows the kernel integrates on its sequential
+    path, those whose t, y or light-weighted sum is not exact in float64
+    in every order (:func:`_exact_in_any_order`; the light-weighted terms
+    ``float32(t_cum * dy)`` from the sequential t_cum, which the kernel's
+    scan gives wherever the t sum passes)."""
+    dt_m, dy_m, _qs = _lumi_terms(const, n_inst, device, dG)
+    t_cum = torch.cumsum(dt_m.to(torch.float64), dim=1).to(torch.float32)
+    return ~(_exact_in_any_order(dt_m) & _exact_in_any_order(dy_m)
+             & _exact_in_any_order(t_cum * dy_m))
+
+
 _lumi_kernel = Kernel('wfsim_lumi_tables',
-                      [P, P, I, P, I, P, P, I, F, F, F, P, P])
+                      [P, P, I, P, I, P, P, I, F, F, F, F, F, P, P, P])
 
 
-def luminescence_tables(const, n_inst: int, device):
+@functools.lru_cache(maxsize=8)
+def _lumi_inputs(const, device):
+    """The kernel's per-configuration inputs on ``device``: the radius and
+    quantile grids, and the float32 scalars (the constant gas gap, its
+    field E0 computed on the host as the twin computes it, alpha, the
+    field unit, the light-yield offset).  Made once per configuration and
+    device, so a call copies nothing to the card."""
+    r, rr, qs = _radius_grid(const, device)
+    dG, E0, s = _anode_field(const, 1, 'cpu')
+    return r, rr, qs, tuple(float(np.float32(float(x))) for x in (
+        dG[0], E0[0], s['alpha'], s['field_unit'], s['dy_offset']))
+
+
+_SEQUENTIAL_ROWS: dict = {}
+
+
+def lumi_sequential_rows(device):
+    """The (1,) int32 count, on ``device``, of the rows the luminescence
+    kernel has integrated on its sequential path (see
+    ``csrc/luminescence.cu``) since the count was made or last zeroed.
+    The kernel adds to it; no wrapper reads it back."""
+    device = torch.device(device)
+    if device not in _SEQUENTIAL_ROWS:
+        _SEQUENTIAL_ROWS[device] = torch.zeros(1, dtype=torch.int32,
+                                               device=device)
+    return _SEQUENTIAL_ROWS[device]
+
+
+def luminescence_tables(const, n_inst: int, device, dG=None):
     """(n_inst, Q) float32 inverse CDFs of the single-electron luminescence
     time (reference: s2.py:343-378): the electron drift through the anode
     field integrated on a fixed radius grid, centred on its light-weighted
-    mean, resampled on a uniform quantile grid.
+    mean, resampled on a uniform quantile grid.  ``dG``, a float32
+    (n_inst,) tensor on ``device``, gives each instruction its own gas gap
+    (wfsim_tpu's gas-gap warping); by default every row has
+    ``elr_gas_gap_length``.
 
     On the CPU :func:`luminescence_tables_ref`; on a CUDA device the
-    kernel ``csrc/luminescence.cu`` (one block per instruction)."""
+    kernel ``csrc/luminescence.cu`` (one block per instruction, one launch
+    and no read-back a call)."""
     device = torch.device(device)
     if device.type == 'cpu':
-        return luminescence_tables_ref(const, n_inst, device)
+        return luminescence_tables_ref(const, n_inst, device, dG)
     if device.type != 'cuda':
         raise NotImplementedError(f'luminescence_tables on {device}')
-    dG, E0, s = _anode_field(const, n_inst, device)
-    r, rr, qs = _radius_grid(const, device)
+    if device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    r, rr, qs, (dg0, e00, alpha, field_unit, dy_offset) = _lumi_inputs(
+        const, device)
+    E0 = None
+    if dG is not None:
+        dG, E0, _s = _anode_field(const, n_inst, device, dG)
     R = r.shape[0]
     if 2 * R * 4 > 200 * 1024:
         raise ValueError(f'a radius grid of {R} points does not fit the '
                          f'kernel\'s shared memory')
     inv = torch.empty((n_inst, Q), dtype=torch.float32, device=device)
     if n_inst:
-        _lumi_kernel(ptr(r), ptr(rr), R, ptr(qs), Q, ptr(dG), ptr(E0), n_inst,
-                     float(np.float32(s['alpha'])),
-                     float(np.float32(s['field_unit'])),
-                     float(np.float32(s['dy_offset'])), ptr(inv),
-                     stream_of(device))
+        _lumi_kernel(ptr(r), ptr(rr), R, ptr(qs), Q,
+                     None if dG is None else ptr(dG),
+                     None if E0 is None else ptr(E0), n_inst, dg0, e00,
+                     alpha, field_unit, dy_offset, ptr(inv),
+                     ptr(lumi_sequential_rows(device)), stream_of(device))
     return inv
 
 
