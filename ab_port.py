@@ -2,7 +2,7 @@
 """A/B of two checkouts of wfsim_tpu_torch on one card.
 
     python3 ab_port.py OTHER_TREE [--runs 3]
-        [--kernels [--only ap_diffuse|lumi_summaries]]
+        [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -21,7 +21,9 @@ twin (and, where there is one, its library computation), and prints
 ``{row: {ms, device_ms, split, host_us, plain_ms, library_ms, ...}}``.
 ``--only ap_diffuse`` measures only the afterpulse generator and the
 diffused pattern (``ap_diffuse_measure``), ``--only lumi_summaries`` only
-the luminescence tables and the summaries (``lumi_summaries_measure``).
+the luminescence tables and the summaries (``lumi_summaries_measure``),
+``--only pmt_truth`` only the row truth and the per-PMT truth
+(``pmt_truth_measure``).
 """
 import argparse
 import json
@@ -73,7 +75,8 @@ rows = (cs.kernel_rows(dev, smi) if sys.argv[3] == 'all' else
         getattr(cs, sys.argv[3] + '_measure')(dev, smi, max_syncs=None))
 keep = ('ms', 'device_ms', 'split', 'host_us', 'plain_ms', 'library_ms',
         'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
-        'library_diff', 'syncs', 'photons', 'seq_rows')
+        'library_diff', 'syncs', 'photons', 'seq_rows', 'second_pass',
+        'rows')
 print(json.dumps({'smi': smi, 'rows': {
     k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
 '''
@@ -85,10 +88,12 @@ def main():
     ap.add_argument('--runs', type=int, default=3)
     ap.add_argument('--kernels', action='store_true',
                     help='measure the kernel rows, not the runs')
-    ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries'),
+    ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
+                                       'pmt_truth'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
-                         'only, or the K6 and K11-summaries rows only')
+                         'only, the K6 and K11-summaries rows only, or the '
+                         'K8 row-truth and K16 rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

@@ -97,6 +97,24 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     realistic run (EXPECTED_LAUNCHES); after 3m, every configuration's
     run and the phases after it leave K6's count of sequential rows at 0.
 
+3n. the row kernel (K8 row truth: a warp, or for long rows a block, a
+    row's first chunk of photons and a tile of the batch past it, pieces
+    combined by integer atomics) on the default run's S1 batch
+    (~7 k photons in 512 rows), its S2 electron times (~90 k, no channels),
+    its S2 photons (~1.57 M) and a copy whose truth row 100 holds 10^6
+    photons with the times of one large S2 (TRUTH_SKEWED_ROW), and the
+    per-PMT kernel (K16) on that S2 batch (494 channels), the XENON1T one
+    (248) and the skewed copy: each against its twin (counts bitwise,
+    moments and areas within rtol 1e-12), the same bits on a second call,
+    read-backs counted (0 for both), its rows on the float64 second pass
+    in one call held to ``row_truth_second_pass_ref`` (0 on these
+    batches), ``ms``, ``device_ms`` split by kernel, ``host_us`` over
+    1,000 calls, the twin's time, the bound (the photon fields read once,
+    the edges, the tables and the outputs) and a library computation held
+    against the twin (``torch.segment_reduce`` for K8, one ``index_add_``
+    for K16).  Every configuration's run leaves the second-pass counts at
+    0 (``expect_no_second_pass``).
+
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
 one batch each, with their draws made on the card:
@@ -1252,6 +1270,7 @@ def timed_run(cfg, inst, dev, mesh_fn=lambda: None, warm_inst=None):
     torch.cuda.synchronize()
     for k in _build.KERNELS.values():
         k.launches = 0
+    zero_second_pass()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = sim.get_arrays(inst)
@@ -1291,10 +1310,12 @@ def run_digest(out):
 
 def expect_records(name, *records, launches=None, digest=None):
     """Raise unless a configuration's run gives EXPECTED_RECORDS, the
-    EXPECTED_LAUNCHES and (default) DEFAULT_DIGEST, and no luminescence
+    EXPECTED_LAUNCHES and (default) DEFAULT_DIGEST, no luminescence
     row since phase 3m's failing constants was integrated on the kernel's
-    sequential pass."""
+    sequential pass, and no truth row of the run took the truth kernels'
+    second pass."""
     expect_no_sequential_rows(name)
+    expect_no_second_pass(name)
     want = EXPECTED_RECORDS[name]
     want = want if isinstance(want, tuple) else (want,)
     got = {e: launches[e] for e in EXPECTED_LAUNCHES.get(name, {})}
@@ -1306,6 +1327,24 @@ def expect_records(name, *records, launches=None, digest=None):
             or digest != (DEFAULT_DIGEST if digest else None)):
         raise AssertionError(f'{name}: the run differs from the expected '
                              f'records, launches or digest')
+
+
+def zero_second_pass():
+    """Zero the truth kernels' second-pass counts (where the checkout's
+    package has them)."""
+    from wfsim_tpu_torch.models import pmt
+    if hasattr(pmt, 'pmt_truth_second_pass'):
+        pmt.pmt_truth_second_pass('cuda:0').zero_()
+
+
+def expect_no_second_pass(where):
+    """Raise unless the truth kernels' second-pass counts (since they were
+    last zeroed) are 0: no row of the run left the exact integer sums."""
+    from wfsim_tpu_torch.models import pmt
+    n = pmt.pmt_truth_second_pass('cuda:0').tolist()
+    print(f'[expect] {where}: truth rows on the float64 second pass {n}')
+    if any(n):
+        raise AssertionError(f'{where}: {n} truth rows on the second pass')
 
 
 def expect_no_sequential_rows(where):
@@ -2230,6 +2269,256 @@ def lumi_summaries_measure(dev, smi, max_syncs=(0, 0)):
     return res
 
 
+#: phase 3n's skewed copy: truth row 100 of the S2 batch holds 10^6
+#: photons, the other rows the remaining photons in equal parts, every row
+#: with the times of one S2 (a drift-like spread)
+TRUTH_SKEWED_ROW = (100, 1_000_000)
+
+
+def truth_inputs(cfg, inst, dev, seed):
+    """(params, const, inputs) of the truth kernels on the 512 S1 and 512
+    S2 instructions of ``inst`` (physics_batches' draws): {'s1': (ph,
+    row_edges), 's2': (ph, row_edges), 'electrons': (t, truth_row,
+    row_edges)}, recorded from s1_photon_pass and s2_photon_pass (their
+    pmt_response and photon_time_stats calls; ph is the photon pass's
+    output, what the row kernel reads)."""
+    from wfsim_tpu_torch.models import pmt, s1, s2
+    params, const, batches = physics_batches(cfg, inst, dev, seed)
+    got = {}
+
+    def response(kind):
+        def call(prm, cst, t, ch, valid, truth_row, draws, *, n_truth_rows,
+                 row_edges):
+            got[kind] = (pmt._photon_pass(prm, cst, t, ch, valid, truth_row,
+                                          draws), row_edges)
+            return pmt.pmt_response(prm, cst, t, ch, valid, truth_row, draws,
+                                    n_truth_rows=n_truth_rows,
+                                    row_edges=row_edges)
+        return call
+
+    def stats(t, valid, truth_row, n_truth_rows, row_edges):
+        got['electrons'] = (t, truth_row, row_edges)
+        return pmt.photon_time_stats(t, valid, truth_row, n_truth_rows,
+                                     row_edges)
+    saved = s1.pmt_response, s2.pmt_response, s2.photon_time_stats
+    s1.pmt_response, s2.pmt_response = response('s1'), response('s2')
+    s2.photon_time_stats = stats
+    try:
+        for kind, fn in (('s1', s1.s1_photon_pass),
+                         ('s2', s2.s2_photon_pass)):
+            x, n_rows, d = batches[kind]
+            fn(params, const, x, d, n_truth_rows=n_rows)
+    finally:
+        s1.pmt_response, s2.pmt_response, s2.photon_time_stats = saved
+    return params, const, got
+
+
+def skewed_truth_copy(ph, row_edges, seed):
+    """A copy of the S2 photons ``ph`` whose truth row TRUTH_SKEWED_ROW[0]
+    holds TRUTH_SKEWED_ROW[1] of them and the other rows the rest in equal
+    parts (row edges and truth rows rebuilt), each row with the times of
+    one S2: the first time of the same row in ``ph`` + normal(0, 1.5 us) +
+    exponential(140 ns).  (Rows that straddle two S2s 4 ms apart would make
+    the twin's global float64 cumsum of squared offsets inexact.)"""
+    import torch
+    dev = ph['t'].device
+    n, R = int(ph['t'].shape[0]), int(row_edges.shape[0]) - 1
+    row, big = TRUTH_SKEWED_ROW
+    rest = np.full(R - 1, (n - big) // (R - 1))
+    rest[:(n - big) - int(rest.sum())] += 1
+    lengths = np.insert(rest, row, big)
+    edges = np.concatenate([[0], np.cumsum(lengths)])
+    rng = np.random.default_rng(seed)
+    t0 = ph['t'].cpu().numpy()[np.minimum(row_edges[:-1].cpu().numpy(),
+                                          n - 1)]
+    t = (np.repeat(t0.astype(np.float64), lengths) + rng.normal(0, 1500, n)
+         + rng.exponential(140, n)).astype(np.int32)
+    out = dict(ph, t=torch.as_tensor(t, device=dev),
+               truth_row=torch.as_tensor(np.repeat(np.arange(R), lengths),
+                                         device=dev))
+    return out, torch.as_tensor(edges, device=dev)
+
+
+def row_truth_library(params, const, ph, row_edges):
+    """K8 row truth in PyTorch around ``torch.segment_reduce``: the twin's
+    terms (``_truth_terms``; without ``params`` the time statistics
+    alone), the twelve sums as one 'sum' over the stacked float64 terms,
+    t_min and t_max as 'amin' / 'amax' of the valid times (identities as
+    initial values), the min-centred moments as another 'sum', in place of
+    the twin's cumsum differences.  Only the row lengths are computed
+    outside the returned call."""
+    import torch
+    from wfsim_tpu_torch.models.pmt import TRUTH_SUMS, _truth_terms
+    lo, hi = int(row_edges[0]), int(row_edges[-1])
+    lengths = row_edges[1:] - row_edges[:-1]
+    big = float(2 ** 31 - 1)
+
+    def call():
+        t = ph['t'][lo:hi].to(torch.float64)
+        v = (torch.ones_like(t, dtype=torch.bool) if ph.get('valid') is None
+             else ph['valid'][lo:hi])
+        out = {}
+        if params is not None:
+            terms, _chc, bot = _truth_terms(params, const, ph)
+            x = torch.stack([*terms, *(w * bot for w in terms)],
+                            dim=1)[lo:hi].to(torch.float64)
+            sums = torch.segment_reduce(x, 'sum', lengths=lengths, axis=0)
+            out = {k: sums[:, i].contiguous()
+                   for i, k in enumerate(TRUTH_SUMS)}
+            cnt = sums[:, 0]
+        else:
+            cnt = torch.segment_reduce(v.to(torch.float64), 'sum',
+                                       lengths=lengths)
+        tmin = torch.segment_reduce(torch.where(v, t, big), 'amin',
+                                    lengths=lengths, initial=big)
+        tmax = torch.segment_reduce(torch.where(v, t, -big), 'amax',
+                                    lengths=lengths, initial=-big)
+        base = torch.repeat_interleave(torch.where(cnt > 0, tmin, 0.0),
+                                       lengths, output_size=hi - lo)
+        c = torch.where(v, t - base, 0.0)
+        mom = torch.segment_reduce(torch.stack([c, c * c], dim=1), 'sum',
+                                   lengths=lengths, axis=0)
+        cntf = torch.clamp_min(cnt, 1.0)
+        mean = mom[:, 0] / cntf
+        var = torch.clamp_min(mom[:, 1] / cntf - mean * mean, 0.0)
+        out.update(count=cnt.to(torch.int64), t_min=tmin.to(torch.int32),
+                   t_max=tmax.to(torch.int32), t_mean_offset=mean,
+                   t_sigma=torch.sqrt(var))
+        return out
+    return call
+
+
+def truth_work(ph, row_edges, out, params):
+    """(bytes, float32 operations) of one truth-kernel call: the photon
+    fields it reads once (t; with ``params`` also valid, ch, gain, is_dpe,
+    the channel table and the pulse peaks), the row edges and its outputs;
+    eight float32 operations a valid photon with ``params`` (the trigger
+    test and the area term; the sums are integer adds)."""
+    if params is None:
+        return nbytes(ph['t'], row_edges, out), 0
+    return (nbytes(*(ph[k] for k in ('t', 'valid', 'ch', 'gain', 'is_dpe')),
+                   row_edges, out, params.chan_pack, params.current_max),
+            8 * int(ph['valid'].sum()))
+
+
+def pmt_truth_measure(dev, smi, max_syncs=(0, 0)):
+    """Phase 3n: the row kernel (K8 row truth) on the default run's S1
+    batch, its S2 electron times (no channels), its S2 photons and a
+    skewed copy (TRUTH_SKEWED_ROW), and the per-PMT kernel (K16) on that
+    S2 batch (494 channels), the XENON1T one (248) and the skewed copy:
+    each held against its twin (counts bitwise, FLOAT_TRUTH and the
+    per-PMT areas within rtol 1e-12), the same bits on a second call, its
+    host syncs a call (at most ``max_syncs``, K8's and K16's; None counts
+    without a limit, for another checkout's wrappers), its rows on the
+    float64 second pass in one call (held to ``row_truth_second_pass_ref``;
+    None where the checkout has no count), ``ms``, ``device_ms`` split by
+    kernel, ``host_us`` over 1,000 calls, the twin's time, the bound and a
+    library computation (``row_truth_library``, ``per_pmt_library``) held
+    against the twin too.  The second-pass counts are zeroed at the end.
+    Returns {row name: measurements (see make_check)}."""
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models import pmt
+    inst = bench_instructions(512, 2000, 300)
+    params, const, got = truth_inputs(default_config(seed=1234,
+                                                     chunk_size=100),
+                                      inst, dev, 20261016)
+    params_x, const_x, got_x = truth_inputs(
+        default_config(detector='XENON1T', seed=1234, chunk_size=100), inst,
+        dev, 20261016)
+    count = getattr(pmt, 'pmt_truth_second_pass', None)
+    guard = getattr(pmt, 'row_truth_second_pass_ref', None)
+    ph2, e2 = got['s2']
+    skew, e_skew = skewed_truth_copy(ph2, e2, 20261017)
+    rows = []
+    for name, (ph, edges) in (('row_truth_s1', got['s1']),
+                              ('row_truth_s2', (ph2, e2)),
+                              ('row_truth_skewed', (skew, e_skew))):
+        R = int(edges.shape[0]) - 1
+
+        def twin(ph=ph, edges=edges, R=R):
+            out = pmt.pulse_truth_ref(params, const, ph, edges)
+            out.update(pmt.photon_time_stats_ref(
+                ph['t'], ph['valid'], ph['truth_row'], R, edges))
+            return out
+        rows.append((name, 0, lambda ph=ph, edges=edges: pmt._row_truth(
+            params, const, ph['t'], ph['valid'], edges, ph=ph), twin,
+            row_truth_library(params, const, ph, edges), ph, edges, True,
+            FLOAT_TRUTH, params, const))
+    t_e, row_e, e_e = got['electrons']
+    ph_e = dict(t=t_e, truth_row=row_e)
+    rows.append(('row_truth_electrons', 0,
+                 lambda: pmt._row_truth(None, None, t_e, None, e_e),
+                 lambda: pmt.photon_time_stats_ref(
+                     t_e, None, row_e, int(e_e.shape[0]) - 1, e_e),
+                 row_truth_library(None, None, ph_e, e_e), ph_e, e_e, False,
+                 FLOAT_TRUTH, None, None))
+    for name, prm, cst, (ph, edges) in (
+            ('per_pmt_494', params, const, (ph2, e2)),
+            ('per_pmt_248', params_x, const_x, got_x['s2']),
+            ('per_pmt_skewed', params, const, (skew, e_skew))):
+        rows.append((name, 1, lambda a=(prm, cst, ph, edges):
+                     tuple(pmt.pulse_truth_per_pmt(*a).values()),
+                     lambda a=(prm, cst, ph, edges):
+                     tuple(pmt.pulse_truth_per_pmt_ref(*a).values()),
+                     per_pmt_library(prm, cst, ph, edges), ph, edges, True,
+                     (4, 5), prm, cst))
+    res = {}
+    for (name, which, kernel, plain, library, ph, edges, channels, rtol,
+         prm, cst) in rows:
+        out = kernel()
+        want = plain()
+        err = compare(out, want, name, rtol)
+        lib_err = compare(library(), want, name + ' library', rtol)
+        again = compare(kernel(), out, name + ' second call')
+        if again:
+            raise AssertionError(f'{name}: two calls differ')
+        seq = want_seq = None
+        if count is not None:
+            count(dev).zero_()
+            kernel()
+            seq = count(dev).tolist()
+            mom, area = guard(prm, cst, ph['t'], ph.get('valid'), edges,
+                              ph=ph if channels else None)
+            n_m, n_a = int(mom.sum()), int(area.sum())
+            want_seq = [n_m, n_a, 0] if which == 0 else [0, 0, n_a]
+            if seq != want_seq:
+                raise AssertionError(f'{name}: second-pass rows {seq}, the '
+                                     f'twin {want_seq}')
+        n_sync, where = count_syncs(kernel)
+        limit = None if max_syncs is None else max_syncs[which]
+        if limit is not None and n_sync > limit:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {limit} ({where})')
+        dev_ms, by_name = device_ms(kernel)
+        split = {}
+        for k, v in by_name.items():            # names cut to 60 characters
+            split[k[:60]] = split.get(k[:60], 0.0) + v
+        n_bytes, ops32 = truth_work(ph, edges, out, prm)
+        m = res[name] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, ops32=ops32, ops64=0,
+            library_ms=cuda_ms(library, reps=5), library_diff=lib_err,
+            syncs=n_sync, second_pass=seq, split=split,
+            photons=int(ph['t'].shape[0]), rows=int(edges.shape[0]) - 1)
+        b_ms, b_by = bound(n_bytes, ops32)
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({k: round(v, 6) for k, v in split.items()}))
+        print(f'[truth] {name}: {m["photons"]} elements in {m["rows"]} rows '
+              f'(largest {int((edges[1:] - edges[:-1]).max())}), max|diff| '
+              f'{err}, library max|diff| {lib_err}, second call bitwise, '
+              f'read-backs {n_sync} {where}, second-pass rows {seq} (twin '
+              f'{want_seq}), {m["ms"]:.4f} ms, device {dev_s}, host '
+              f'{m["host_us"]:.2f} us a call, plain twin '
+              f'{m["plain_ms"]:.4f} ms, library {m["library_ms"]:.4f} ms, '
+              f'bound {b_ms:.6f} ms by {b_by} ({smi})')
+    if count is not None:
+        count(dev).zero_()
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -2266,8 +2555,9 @@ def kernel_rows(dev, smi):
     the superposition rows on every batch (superpose_measure), the ZLE and
     record-pack rows on every grid (zle_pack_measure), K16 on 494 channels
     with its library computation (per_pmt_kernel_check), the K11 and K12b
-    rows (ap_diffuse_measure) and the K6 and K11-summaries rows
-    (lumi_summaries_measure)."""
+    rows (ap_diffuse_measure), the K6 and K11-summaries rows
+    (lumi_summaries_measure) and the K8 row-truth and K16 rows
+    (pmt_truth_measure)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
@@ -2280,6 +2570,7 @@ def kernel_rows(dev, smi):
                          bench_instructions(512, 2000, 300), dev)
     res.update(ap_diffuse_measure(dev, smi, max_syncs=None))
     res.update(lumi_summaries_measure(dev, smi, max_syncs=None))
+    res.update(pmt_truth_measure(dev, smi, max_syncs=None))
     return res
 
 
@@ -3168,6 +3459,9 @@ def main():
     # ---- 3m. the luminescence tables and the photon summaries ---------------
     ltimes = lumi_summaries_measure(dev, smi)
 
+    # ---- 3n. the row truth and the per-PMT truth -------------------------------
+    ntimes = pmt_truth_measure(dev, smi)
+
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
     ptimes = phase_3c(params_p, const_p, batches, dev, smi)
@@ -3323,6 +3617,17 @@ def main():
                      'wfsim_tpu/models/afterpulse.py:184', SUMMARY_KERNELS,
                      launches_r, m)
         rows[-1].update(syncs=m['syncs'], split=m['split'])
+    for row, m in ntimes.items():
+        if row.startswith('row_truth'):
+            measured(row, 'pmt_response.cu', 'wfsim_tpu/models/pmt.py:89; '
+                     'wfsim_tpu/models/pmt.py:171', ['wfsim_pmt_row_truth'],
+                     launches, m)
+        else:
+            measured(row, 'pmt_response.cu', 'wfsim_tpu/models/pmt.py:146',
+                     ['wfsim_pmt_row_truth_per_pmt'], launches_p, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'],
+                        second_pass=m['second_pass'],
+                        library_diff=m['library_diff'])
     for name, cu, rep in (
             ('channel_draw', 'channel_draw.cu', K5_REPLACES),
             ('channel_draw_skewed', 'channel_draw.cu', K5_REPLACES),

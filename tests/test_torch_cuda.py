@@ -29,6 +29,9 @@ from .test_torch_ap_diffuse_redesign import (
     diffuse_constants, diffuse_normals)
 from .test_torch_lumi_summaries_redesign import (
     LUMI_CASES, SUMMARY_CASES, lumi_case, sequential_rows_np, summary_case)
+from .test_torch_pmt_truth_order import (
+    SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
+    photon_terms, truth_case)
 from .test_torch_zle_pack_redesign import (ZLE_PACK_CASES, pack_args,
                                            zle_args, zle_pack_case)
 
@@ -696,8 +699,9 @@ PER_PMT_AREAS = ('raw_area_per_pmt', 'raw_area_trigger_per_pmt')
 def test_per_pmt_kernel_matches_twin(dev, detector):
     """The per-PMT entry against its twin on the card and on the CPU: an
     empty row, photons without a channel and invalid ones; counts bitwise,
-    areas within rtol 1e-12 (float64 atomics); then pmt_response with
-    per-PMT truth, card against CPU."""
+    areas within rtol 1e-12 (exact fixed-point sums against the twin's
+    float64 ones); then pmt_response with per-PMT truth, card against
+    CPU."""
     from wfsim_tpu_torch.models import pmt
     c = default_config(detector=detector, per_pmt_truth=True)
     const = build_constants(c)
@@ -1174,3 +1178,110 @@ def test_photon_summaries_kernels_match_twins_on_cases(dev, name):
                                     torch.as_tensor(u), n_inst=n_inst)):
         for x, y in zip(out, ref):
             assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the truth kernels (K8 row truth, K16) on the cases of
+# tests/test_torch_pmt_truth_order.py
+
+
+def _bits(a, b, what):
+    """a (card) and b bitwise equal, dict by dict (floats by their bits)."""
+    assert a.keys() == b.keys(), what
+    for k in a:
+        x, y = a[k].cpu(), torch.as_tensor(np.asarray(b[k]))
+        assert x.shape == y.shape, (what, k)
+        y = y.to(x.dtype)
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        assert torch.equal(x, y), (what, k)
+
+
+def _truth_setup(detector, dev):
+    c = default_config(detector=detector)
+    return build_params(c, load_config(c), dev)
+
+
+def _scratch_is_zero(dev):
+    from wfsim_tpu_torch.models import pmt
+    torch.cuda.synchronize()
+    return not bool(pmt._SCRATCH[dev].any())
+
+
+@pytest.mark.parametrize('name', TRUTH_CASES)
+def test_row_truth_kernel_on_cases(dev, name):
+    """wfsim_pmt_row_truth with channels and without (the electron-time
+    call): bitwise the numpy emulation of its arithmetic, counts bitwise and
+    floats within rtol 1e-12 of the twins, the same bits on a second call,
+    one launch and no read-back a call, the second-pass counters moved by
+    the case's rows, the scratch left zero."""
+    from wfsim_tpu_torch.models import pmt
+    params, const, ph, edges = truth_case(name)
+    params_d = _truth_setup('XENONnT', dev)
+    ph_d = {k: v.to(dev) for k, v in ph.items()}
+    e_d = edges.to(dev)
+    R = edges.shape[0] - 1
+    terms = photon_terms(params, const, ph)
+    k = _build.KERNELS['wfsim_pmt_row_truth']
+    count = pmt.pmt_truth_second_pass(dev)
+    count.zero_()
+    before = k.launches
+    out = _sync_free(lambda: pmt._row_truth(params_d, const, ph_d['t'],
+                                            ph_d['valid'], e_d, ph=ph_d))
+    again = pmt._row_truth(params_d, const, ph_d['t'], ph_d['valid'], e_d,
+                           ph=ph_d)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    want, _rows = emulate_row_truth(ph['t'].numpy(), ph['valid'].numpy(),
+                                    edges.numpy(), terms)
+    _bits(out, want, 'emulation')
+    _bits(again, {kk: v.cpu().numpy() for kk, v in out.items()}, 'again')
+    twin = pmt.pulse_truth_ref(params, const, ph, edges)
+    twin.update(pmt.photon_time_stats_ref(ph['t'], ph['valid'],
+                                          ph['truth_row'], R, edges))
+    _same(out, twin, FLOAT_TRUTH)
+    m, a = SECOND_PASS[name]
+    assert count.tolist() == [2 * m, 2 * a, 0]
+    # the electron-time call: no channels, every element valid
+    count.zero_()
+    st = _sync_free(lambda: pmt._row_truth(None, None, ph_d['t'], None,
+                                           e_d))
+    want, _rows = emulate_row_truth(ph['t'].numpy(), None, edges.numpy())
+    _bits(st, want, 'electron times')
+    _same(st, pmt.photon_time_stats_ref(ph['t'], None, ph['truth_row'], R,
+                                        edges), FLOAT_TRUTH)
+    assert count.tolist() == [m, 0, 0]
+    assert _scratch_is_zero(dev)
+
+
+@pytest.mark.parametrize('detector', ['XENONnT', 'XENON1T'])
+@pytest.mark.parametrize('name', TRUTH_CASES)
+def test_per_pmt_kernel_on_cases(dev, name, detector):
+    """wfsim_pmt_row_truth_per_pmt on 494 and 248 channels: bitwise the
+    numpy emulation (exact fixed-point areas; photon order on the
+    second-pass rows), counts bitwise and areas within rtol 1e-12 of the
+    twin, the same bits on a second call, no read-back, the counter moved
+    by the case's rows, the scratch left zero."""
+    from wfsim_tpu_torch.models import pmt
+    params, const, ph, edges = truth_case(name, detector)
+    params_d = _truth_setup(detector, dev)
+    C = int(params.gains.shape[0])
+    ph_d = {k: v.to(dev) for k, v in ph.items()}
+    e_d = edges.to(dev)
+    count = pmt.pmt_truth_second_pass(dev)
+    count.zero_()
+    k = _build.KERNELS['wfsim_pmt_row_truth_per_pmt']
+    before = k.launches
+    out = _sync_free(lambda: pmt.pulse_truth_per_pmt(params_d, const, ph_d,
+                                                     e_d))
+    again = pmt.pulse_truth_per_pmt(params_d, const, ph_d, e_d)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    want, _bad = emulate_per_pmt(photon_terms(params, const, ph),
+                                 edges.numpy(), C)
+    _bits(out, want, 'emulation')
+    _bits(again, {kk: v.cpu().numpy() for kk, v in out.items()}, 'again')
+    _same(out, pmt.pulse_truth_per_pmt_ref(params, const, ph, edges),
+          PER_PMT_AREAS)
+    assert count.tolist() == [0, 0, 2 * SECOND_PASS[name][1]]
+    assert _scratch_is_zero(dev)

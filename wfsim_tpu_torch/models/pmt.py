@@ -6,9 +6,14 @@ The stage is a pure function of explicit draws (``pmt_draws``), so the
 tests can hand both packages the same normals and uniforms.  CPU tensors
 run the plain twins (``photon_pass_ref``, ``pulse_truth_ref``,
 ``photon_time_stats_ref``, ``pulse_truth_per_pmt_ref``); CUDA tensors
-launch the entry points of ``csrc/pmt_response.cu``: the photon pass, one
-block per truth row for the truth sums and the time statistics, and with
-``per_pmt_truth`` one block per truth row for the per-PMT sums.
+launch the entry points of ``csrc/pmt_response.cu``: the photon pass, the
+row kernel (truth sums and time statistics) and, with ``per_pmt_truth``,
+the per-PMT kernel.  Each truth kernel sums a row's first chunk of
+elements and each tile of the batch past its rows' first chunks as one
+piece (a warp's or a block's, :func:`row_truth_layout`), a longer row's
+pieces combined by integer atomics; both sum exact integers (the areas in
+fixed point), so their outputs have the same bits run to run, and neither
+reads anything back.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from ..ops.segment import sorted_segment_sum, segment_min_max, expand_rows
 __all__ = ['pmt_draws', 'pmt_response', 'photon_time_stats',
            'pulse_truth_per_pmt', 'photon_pass_ref', 'pulse_truth_ref',
            'photon_time_stats_ref', 'pulse_truth_per_pmt_ref', 'TRUTH_SUMS',
-           'PER_PMT_SUMS']
+           'PER_PMT_SUMS', 'pmt_truth_second_pass',
+           'row_truth_second_pass_ref', 'row_truth_layout', 'PER_PMT_CHUNK',
+           'AREA_SCALE']
 
 _SUMS = ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger', 'raw_area',
          'raw_area_trigger')
@@ -37,12 +44,71 @@ _pass_kernel = Kernel('wfsim_pmt_photon_pass',
                       [I, P, P, P, P, P, P, P, P, I, P, I, F, F, F, P, P, P,
                        P, P, P])
 _row_kernel = Kernel('wfsim_pmt_row_truth',
-                     [P, I, P, P, P, P, P, P, I, P, I, F, P, P, P, P, P, P,
-                      P])
+                     [P, I, I, I, I, P, P, P, P, P, P, I, P, I, F, P, P, P,
+                      P, P, P, P, P, P])
 _per_pmt_kernel = Kernel('wfsim_pmt_row_truth_per_pmt',
-                         [P, I, P, P, P, P, P, P, I, P, I, F, P, P, P])
-#: the per-PMT kernel keeps 32 bytes a channel in a block's shared memory
+                         [P, I, I, I, P, P, P, P, P, P, I, P, I, F, P, P, P,
+                          P, P])
+#: the row kernel keeps three channel columns (12 bytes a channel) and the
+#: per-PMT kernel its sums (24 bytes a channel) in a block's shared memory
 MAX_PER_PMT_CHANNELS = 1536
+#: photons a block of the per-PMT kernel accumulates (a row's first chunk,
+#: or a tile of a longer row); its packed 16-bit counts take up to 16,383
+PER_PMT_CHUNK = 8192
+#: the truth kernels keep raw areas as int64 multiples of 2^-AREA_SCALE:
+#: exact for terms of at least 2^(23 - AREA_SCALE) and row sums up to
+#: 2^(62 - AREA_SCALE) (the synthetic SPE tables' terms lie in [0.068, 6])
+AREA_SCALE = 32
+_ROW_ACC_WORDS = 17          # the row kernel's accumulator a row (int64)
+_SCRATCH: dict = {}
+_SECOND_PASS: dict = {}
+
+
+def row_truth_layout(n: int, n_rows: int):
+    """(block_rows, chunk) of the row kernel for a batch of ``n`` elements
+    in ``n_rows`` rows.  A row's first ``chunk`` elements are summed by one
+    warp (``block_rows`` False: rows of a mean below 512, such as S1
+    photons and S2 electrons) or one block (a mean of 512 or more, such as
+    S2 photons), and each tile of ``chunk`` elements past its rows' first
+    chunks by another; a longer row's pieces are combined by atomics.  A
+    warp's chunk is the smallest power of two from 32 to 1,024 no shorter
+    than twice the mean row and giving at most 2,048 tiles; a block's is
+    8,192."""
+    if n >= 512 * max(n_rows, 1):
+        return True, 8192
+    w = 32
+    while w < 1024 and (w * n_rows < 2 * n or w * 2048 < n):
+        w *= 2
+    return False, w
+
+
+def _scratch(device, words: int):
+    """The truth kernels' zeroed int64 scratch on ``device``, at least
+    ``words`` long: the row kernel's accumulators of rows across chunks and
+    the per-PMT kernel's tables of long rows.  Every launch leaves it zero,
+    so it is made (or grown) once, not cleared per call; launches on one
+    device run in stream order."""
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
+        _SCRATCH[device] = buf
+    return buf
+
+
+def pmt_truth_second_pass(device):
+    """The (3,) int32 counts, on ``device``, of the rows the truth kernels
+    summed in their float64 second pass since the counts were made or last
+    zeroed: the row kernel's rows outside the int64 moment range, its rows
+    outside the fixed-point area range, and the per-PMT kernel's rows
+    outside that range (see :func:`row_truth_second_pass_ref`).  The
+    kernels add to it; no wrapper reads it back."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    if device not in _SECOND_PASS:
+        _SECOND_PASS[device] = torch.zeros(3, dtype=torch.int32,
+                                           device=device)
+    return _SECOND_PASS[device]
 
 
 def pmt_draws(gen, n: int, device) -> dict:
@@ -169,6 +235,48 @@ def photon_time_stats_ref(t, valid, truth_row, n_truth_rows: int, row_edges):
                 t_sigma=torch.sqrt(var))
 
 
+def row_truth_second_pass_ref(params, const, t, valid, row_edges, ph=None):
+    """(moments, areas): (R,) bool each, the rows the truth kernels sum in
+    their float64 second pass.  ``moments``: count x (t_max - t_min)^2 of
+    the row's valid times is at least 2^62 (its min-centred second moment
+    may not fit the int64 sums).  ``areas`` (with photons ``ph``, else all
+    False): a valid nonzero raw-area term is below 2^(23 - AREA_SCALE) in
+    magnitude, or count x the largest (in float64) is above
+    2^(62 - AREA_SCALE), or a term is not finite (the fixed-point sums could
+    be inexact).  The per-PMT kernel's rows are the ``areas`` rows."""
+    n = t.shape[0]
+    R = row_edges.shape[0] - 1
+    v = (torch.ones(n, dtype=torch.bool, device=t.device) if valid is None
+         else valid)
+    row = torch.repeat_interleave(
+        torch.arange(R, device=t.device), row_edges[1:] - row_edges[:-1],
+        output_size=int(row_edges[-1] - row_edges[0]))
+    lo, hi = int(row_edges[0]), int(row_edges[-1])
+    sel = v[lo:hi]
+    tmin, tmax = segment_min_max(t[lo:hi], row, R, valid=sel)
+    cnt = sorted_segment_sum(v, row_edges).to(torch.int64)
+    moments = torch.tensor([
+        c > 0 and c * (b - a) ** 2 >= 2 ** 62 for c, a, b in zip(
+            cnt.tolist(), tmin.tolist(), tmax.tolist())],
+        dtype=torch.bool, device=t.device)
+    areas = torch.zeros(R, dtype=torch.bool, device=t.device)
+    if ph is not None:
+        terms, _chc, _bot = _truth_terms(params, const, ph)
+        x = terms[4][lo:hi].abs()
+        nz = sel & (x != 0)
+        big = torch.full((R,), -1.0, dtype=torch.float64, device=t.device)
+        big.scatter_reduce_(0, row[nz], x[nz].to(torch.float64), 'amax')
+        small = torch.full((R,), float('inf'), dtype=torch.float64,
+                           device=t.device)
+        small.scatter_reduce_(0, row[nz], x[nz].to(torch.float64), 'amin')
+        bad = torch.zeros(R, dtype=torch.bool, device=t.device)
+        bad.index_fill_(0, row[nz & ~torch.isfinite(x)], True)
+        areas = (big >= 0) & (bad | (small < 2.0 ** (23 - AREA_SCALE))
+                              | (cnt.to(torch.float64) * big
+                                 > 2.0 ** (62 - AREA_SCALE)))
+    return moments, areas
+
+
 # ---------------------------------------------------------------------------
 # kernels
 
@@ -210,9 +318,26 @@ def _photon_pass(params, const, t, ch, valid, truth_row, draws) -> dict:
     return out
 
 
+def _aligned(x):
+    """``x`` (None passes), or where its data does not start on a 16-byte
+    boundary (a view into another tensor) a copy that does: the truth
+    kernels load four photons' fields, and a channel's row of
+    ``chan_pack``, as 16-byte words."""
+    return x if x is None or x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check_edges(row_edges, n: int):
+    """The CPU paths' check that the rows lie inside the ``n`` elements
+    (on the card the kernels clamp the edges to ``n`` instead: no
+    read-back)."""
+    if row_edges.shape[0] > 1 and int(row_edges[-1]) > n:
+        raise ValueError(f'row edges reach past the {n} elements')
+
+
 def _row_truth(params, const, t, valid, row_edges, ph=None) -> dict:
     """The row kernel: time statistics of ``t`` (all valid where ``valid``
-    is None) per row, and with the photons ``ph`` the truth sums too."""
+    is None) per row, and with the photons ``ph`` the truth sums too.  Rows
+    are clamped to the ``n`` elements; nothing is read back."""
     dev = t.device
     n = t.shape[0]
     R = row_edges.shape[0] - 1
@@ -220,40 +345,55 @@ def _row_truth(params, const, t, valid, row_edges, ph=None) -> dict:
     check_tensor('row_edges', row_edges, torch.int64, (R + 1,), dev)
     if valid is not None:
         check_tensor('valid', valid, torch.bool, (n,), dev)
-    if R and int(row_edges[-1]) > n:
-        raise ValueError(f'row edges reach past the {n} elements')
+    t, valid = _aligned(t), _aligned(valid)
     truth_args = (None, None, None, None, 0, None, 0, 0.0)
+    sums = None
     if ph is not None:
         C = params.chan_pack.shape[0]
         dt = const.sample_duration
         check_tensor('ch', ph['ch'], torch.int32, (n,), dev)
         check_tensor('gain', ph['gain'], torch.float32, (n,), dev)
         check_tensor('is_dpe', ph['is_dpe'], torch.bool, (n,), dev)
+        check_tensor('chan_pack', params.chan_pack, torch.float32, (C, 4),
+                     dev)
         check_tensor('current_max', params.current_max, torch.float32,
                      (dt,), dev)
-        truth_args = (ptr(ph['ch']), ptr(ph['gain']), ptr(ph['is_dpe']),
+        if not 0 < C <= MAX_PER_PMT_CHANNELS:
+            raise ValueError(f'truth sums of {C} channels: the kernel takes '
+                             f'1 to {MAX_PER_PMT_CHANNELS}')
+        truth_args = (*(ptr(_aligned(ph[k])) for k in ('ch', 'gain',
+                                                       'is_dpe')),
                       ptr(params.chan_pack), C, ptr(params.current_max), dt,
                       float(np.float32(const.current_2_adc)))
-    sums = torch.zeros((len(TRUTH_SUMS), R), dtype=torch.float64, device=dev)
+        # every entry is written by the kernel
+        sums = torch.empty((len(TRUTH_SUMS), R), dtype=torch.float64,
+                           device=dev)
     out = dict(count=torch.empty(R, dtype=torch.int64, device=dev),
                t_min=torch.empty(R, dtype=torch.int32, device=dev),
                t_max=torch.empty(R, dtype=torch.int32, device=dev),
                t_mean_offset=torch.empty(R, dtype=torch.float64, device=dev),
                t_sigma=torch.empty(R, dtype=torch.float64, device=dev))
     if R:
-        _row_kernel(ptr(row_edges), R, ptr(t),
+        acc = _scratch(dev, R * _ROW_ACC_WORDS)
+        block_rows, chunk = row_truth_layout(n, R)
+        _row_kernel(ptr(row_edges), R, n, chunk.bit_length() - 1,
+                    int(block_rows), ptr(t),
                     None if valid is None else ptr(valid), *truth_args,
-                    ptr(sums), ptr(out['count']), ptr(out['t_min']),
-                    ptr(out['t_max']), ptr(out['t_mean_offset']),
-                    ptr(out['t_sigma']), stream_of(dev))
+                    None if sums is None else ptr(sums), ptr(out['count']),
+                    ptr(out['t_min']), ptr(out['t_max']),
+                    ptr(out['t_mean_offset']), ptr(out['t_sigma']),
+                    ptr(acc), ptr(pmt_truth_second_pass(dev)),
+                    stream_of(dev))
     if ph is not None:
         out.update(zip(TRUTH_SUMS, sums))
     return out
 
 
 def _row_truth_per_pmt(params, const, ph, row_edges) -> dict:
-    """The per-PMT kernel: one block per truth row (see
-    :func:`pulse_truth_per_pmt`)."""
+    """The per-PMT kernel (see :func:`pulse_truth_per_pmt`): a block per
+    row's first :data:`PER_PMT_CHUNK` photons and per tile of that many
+    photons of the batch; rows clamped to the photons, nothing read
+    back."""
     dev = ph['t'].device
     n = ph['t'].shape[0]
     R = row_edges.shape[0] - 1
@@ -270,16 +410,19 @@ def _row_truth_per_pmt(params, const, ph, row_edges) -> dict:
     if not 0 < C <= MAX_PER_PMT_CHANNELS:
         raise ValueError(f'per-PMT truth of {C} channels: the kernel takes '
                          f'1 to {MAX_PER_PMT_CHANNELS}')
-    if R and int(row_edges[-1]) > n:
-        raise ValueError(f'row edges reach past the {n} photons')
     counts = torch.empty((4, R, C), dtype=torch.int32, device=dev)
     areas = torch.empty((2, R, C), dtype=torch.float64, device=dev)
     if R:
-        _per_pmt_kernel(ptr(row_edges), R, ptr(ph['t']), ptr(ph['valid']),
-                        ptr(ph['ch']), ptr(ph['gain']), ptr(ph['is_dpe']),
-                        ptr(params.chan_pack), C, ptr(params.current_max), dt,
+        tiles = -(-n // PER_PMT_CHUNK)
+        scratch = _scratch(dev, tiles * (4 * C + 2))
+        _per_pmt_kernel(ptr(row_edges), R, n, PER_PMT_CHUNK,
+                        *(ptr(_aligned(ph[k])) for k in (
+                            't', 'valid', 'ch', 'gain', 'is_dpe')),
+                        ptr(_aligned(params.chan_pack)), C,
+                        ptr(params.current_max), dt,
                         float(np.float32(const.current_2_adc)), ptr(counts),
-                        ptr(areas), stream_of(dev))
+                        ptr(areas), ptr(scratch),
+                        ptr(pmt_truth_second_pass(dev)), stream_of(dev))
     return dict(zip(PER_PMT_SUMS, (*counts, *areas)))
 
 
@@ -288,10 +431,12 @@ def pulse_truth_per_pmt(params, const, ph, row_edges) -> dict:
     pass: the six sums of :data:`PER_PMT_SUMS`, each (R, C) with C =
     ``params.gains.shape[0]`` (counts int32, raw areas float64).  CPU
     tensors run :func:`pulse_truth_per_pmt_ref`; CUDA tensors the per-PMT
-    kernel of ``csrc/pmt_response.cu``, whose float64 area atomics agree
-    with the twin within rtol 1e-12."""
+    kernel of ``csrc/pmt_response.cu``: counts equal to the twin's, areas
+    the exact sums of their terms (the twin's bits wherever its own float64
+    sums are exact, else within rtol 1e-12), the same bits run to run."""
     dev = ph['t'].device
     if dev.type == 'cpu':
+        _check_edges(row_edges, ph['t'].shape[0])
         return pulse_truth_per_pmt_ref(params, const, ph, row_edges)
     if dev.type != 'cuda':
         raise NotImplementedError(f'pulse_truth_per_pmt on {dev}')
@@ -321,6 +466,7 @@ def pmt_response(params, const, t, ch, valid, truth_row, draws, *,
     """
     photons = _photon_pass(params, const, t, ch, valid, truth_row, draws)
     if t.device.type == 'cpu':
+        _check_edges(row_edges, t.shape[0])
         truth = pulse_truth_ref(params, const, photons, row_edges)
         stats = photon_time_stats_ref(photons['t'], photons['valid'],
                                       truth_row, n_truth_rows, row_edges)
@@ -343,11 +489,13 @@ def photon_time_stats(t, valid, truth_row, n_truth_rows: int, row_edges):
     -(2^31-1)) as min and max, the identities wfsim_tpu uses.
 
     Each row's first and second moments are sums of that row's own
-    min-centred integer times in float64, exact below 2^53, so late rows
-    lose no precision (wfsim_tpu took both from one float32 cumsum over all
-    rows).  CPU tensors run :func:`photon_time_stats_ref`; CUDA tensors the
-    row kernel of ``csrc/pmt_response.cu``."""
+    min-centred integer times, so late rows lose no precision (wfsim_tpu
+    took both from one float32 cumsum over all rows).  CPU tensors run
+    :func:`photon_time_stats_ref` (float64 sums, exact below 2^53); CUDA
+    tensors the row kernel of ``csrc/pmt_response.cu`` (int64 sums, exact
+    while count x span^2 < 2^62, else a float64 second pass)."""
     if t.device.type == 'cpu':
+        _check_edges(row_edges, t.shape[0])
         return photon_time_stats_ref(t, valid, truth_row, n_truth_rows,
                                      row_edges)
     if t.device.type != 'cuda':
