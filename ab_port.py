@@ -2,7 +2,8 @@
 """A/B of two checkouts of wfsim_tpu_torch on one card.
 
     python3 ab_port.py OTHER_TREE [--runs 3]
-        [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth]]
+        [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
+                           pmt_truth_layouts]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -23,7 +24,9 @@ twin (and, where there is one, its library computation), and prints
 diffused pattern (``ap_diffuse_measure``), ``--only lumi_summaries`` only
 the luminescence tables and the summaries (``lumi_summaries_measure``),
 ``--only pmt_truth`` only the row truth and the per-PMT truth
-(``pmt_truth_measure``).
+(``pmt_truth_measure``), ``--only pmt_truth_layouts`` the truth kernels
+under each layout and chunk they could take (``pmt_truth_layouts_measure``;
+give this tree as OTHER_TREE to measure it in four processes).
 """
 import argparse
 import json
@@ -89,11 +92,12 @@ def main():
     ap.add_argument('--kernels', action='store_true',
                     help='measure the kernel rows, not the runs')
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
-                                       'pmt_truth'),
+                                       'pmt_truth', 'pmt_truth_layouts'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
-                         'only, the K6 and K11-summaries rows only, or the '
-                         'K8 row-truth and K16 rows only')
+                         'only, the K6 and K11-summaries rows only, the '
+                         'K8 row-truth and K16 rows only, or those two '
+                         'kernels under each layout')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

@@ -2401,6 +2401,13 @@ def truth_work(ph, row_edges, out, params):
             8 * int(ph['valid'].sum()))
 
 
+#: (block_rows, chunk) of the row kernel that pmt_truth_layouts_measure
+#: tries on the S2 photons, and the per-PMT kernel's chunks
+ROW_TRUTH_LAYOUTS = ((True, 8192), (True, 4096), (True, 2048), (False, 1024),
+                     (False, 512))
+PER_PMT_CHUNKS = (2048, 4096, 8192)
+
+
 def pmt_truth_measure(dev, smi, max_syncs=(0, 0)):
     """Phase 3n: the row kernel (K8 row truth) on the default run's S1
     batch, its S2 electron times (no channels), its S2 photons and a
@@ -2414,8 +2421,9 @@ def pmt_truth_measure(dev, smi, max_syncs=(0, 0)):
     None where the checkout has no count), ``ms``, ``device_ms`` split by
     kernel, ``host_us`` over 1,000 calls, the twin's time, the bound and a
     library computation (``row_truth_library``, ``per_pmt_library``) held
-    against the twin too.  The second-pass counts are zeroed at the end.
-    Returns {row name: measurements (see make_check)}."""
+    against the twin too.  The second-pass counts are zeroed at the end,
+    and the scratch buffers are checked to be zero (every launch leaves
+    them so).  Returns {row name: measurements (see make_check)}."""
     import torch
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
@@ -2516,6 +2524,71 @@ def pmt_truth_measure(dev, smi, max_syncs=(0, 0)):
               f'bound {b_ms:.6f} ms by {b_by} ({smi})')
     if count is not None:
         count(dev).zero_()
+    torch.cuda.synchronize()
+    for key, buf in getattr(pmt, '_SCRATCH', {}).items():
+        if (key[0] if isinstance(key, tuple) else key) == dev and buf.any():
+            raise AssertionError(f'the truth scratch of {key} is not zero')
+    return res
+
+
+def pmt_truth_layouts_measure(dev, smi, max_syncs=None):
+    """The truth kernels' layout choices on pmt_truth_measure's batches:
+    the row kernel on the S2 photons (with channels and without) under
+    each (block_rows, chunk) of ROW_TRUTH_LAYOUTS, and on the skewed copy
+    under the one it picks; the per-PMT kernel (494 channels) on the S2
+    photons and the skewed copy under each chunk of PER_PMT_CHUNKS.  Every
+    output is bitwise that of the wrapper's own choice (the kernels' sums
+    are exact integers: the cut does not change them).  ``max_syncs`` is
+    unused (``ab_port.py --only`` passes it).  Returns {row name:
+    {device_ms, split, photons, rows}}."""
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models import pmt
+    del max_syncs
+    inst = bench_instructions(512, 2000, 300)
+    params, const, got = truth_inputs(default_config(seed=1234,
+                                                     chunk_size=100),
+                                      inst, dev, 20261016)
+    ph, e = got['s2']
+    skew, e_skew = skewed_truth_copy(ph, e, 20261017)
+    calls = {
+        'row_truth_s2': lambda: pmt._row_truth(params, const, ph['t'],
+                                               ph['valid'], e, ph=ph),
+        'row_stats_s2': lambda: pmt._row_truth(None, None, ph['t'],
+                                               ph['valid'], e),
+        'row_truth_skewed': lambda: pmt._row_truth(
+            params, const, skew['t'], skew['valid'], e_skew, ph=skew),
+        'per_pmt_494': lambda: pmt.pulse_truth_per_pmt(params, const, ph, e),
+        'per_pmt_skewed': lambda: pmt.pulse_truth_per_pmt(params, const,
+                                                          skew, e_skew)}
+    want = {k: f() for k, f in calls.items()}
+    layout, chunk = pmt.row_truth_layout, pmt.PER_PMT_CHUNK
+    res = {}
+
+    def one(name, row, lay):
+        out = calls[row]()
+        compare(out, want[row], name)
+        ms, split = device_ms(calls[row], reps=30)
+        n_ph = int((skew if 'skewed' in row else ph)['t'].shape[0])
+        res[name] = dict(device_ms=ms, split=split, photons=n_ph,
+                         rows=int((e_skew if 'skewed' in row
+                                   else e).shape[0]) - 1)
+        print(f'[truth layouts] {name} {lay}: {ms} ms, bitwise the '
+              f'default ({smi})')
+    try:
+        for lay in ROW_TRUTH_LAYOUTS:
+            pmt.row_truth_layout = lambda n, R, lay=lay: lay
+            for row in ('row_truth_s2', 'row_stats_s2'):
+                one(f'{row}_{"block" if lay[0] else "warp"}_{lay[1]}', row,
+                    lay)
+        pmt.row_truth_layout = layout
+        one('row_truth_skewed', 'row_truth_skewed', 'default')
+        for c in PER_PMT_CHUNKS:
+            pmt.PER_PMT_CHUNK = c
+            for row in ('per_pmt_494', 'per_pmt_skewed'):
+                one(f'{row}_chunk_{c}', row, c)
+    finally:
+        pmt.row_truth_layout, pmt.PER_PMT_CHUNK = layout, chunk
     return res
 
 
@@ -3623,8 +3696,10 @@ def main():
                      'wfsim_tpu/models/pmt.py:171', ['wfsim_pmt_row_truth'],
                      launches, m)
         else:
+            # the XENON1T row counts the launches of that configuration's run
             measured(row, 'pmt_response.cu', 'wfsim_tpu/models/pmt.py:146',
-                     ['wfsim_pmt_row_truth_per_pmt'], launches_p, m)
+                     ['wfsim_pmt_row_truth_per_pmt'],
+                     launches_x if row == 'per_pmt_248' else launches_p, m)
         rows[-1].update(syncs=m['syncs'], split=m['split'],
                         second_pass=m['second_pass'],
                         library_diff=m['library_diff'])

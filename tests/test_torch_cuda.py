@@ -1203,9 +1203,12 @@ def _truth_setup(detector, dev):
 
 
 def _scratch_is_zero(dev):
+    """The truth kernels' scratch buffers on ``dev`` (one per stream) are
+    all zero."""
     from wfsim_tpu_torch.models import pmt
     torch.cuda.synchronize()
-    return not bool(pmt._SCRATCH[dev].any())
+    bufs = [b for (d, _s), b in pmt._SCRATCH.items() if d == dev]
+    return bool(bufs) and not any(bool(b.any()) for b in bufs)
 
 
 @pytest.mark.parametrize('name', TRUTH_CASES)
@@ -1284,4 +1287,37 @@ def test_per_pmt_kernel_on_cases(dev, name, detector):
     _same(out, pmt.pulse_truth_per_pmt_ref(params, const, ph, edges),
           PER_PMT_AREAS)
     assert count.tolist() == [0, 0, 2 * SECOND_PASS[name][1]]
+    assert _scratch_is_zero(dev)
+
+
+def test_truth_kernels_on_two_streams(dev):
+    """Both truth kernels launched on two side streams with no wait
+    between them, on the row of 10^6 (its pieces combine in the scratch):
+    each stream keeps its own scratch buffer, every output is bitwise the
+    default stream's, and every buffer is left zero."""
+    from wfsim_tpu_torch.models import pmt
+    params, const, ph, edges = truth_case('one row of 10^6')
+    params_d = _truth_setup('XENONnT', dev)
+    ph_d = {k: v.to(dev) for k, v in ph.items()}
+    e_d = edges.to(dev)
+
+    def both():
+        out = pmt._row_truth(params_d, const, ph_d['t'], ph_d['valid'], e_d,
+                             ph=ph_d)
+        out.update(pmt.pulse_truth_per_pmt(params_d, const, ph_d, e_d))
+        return out
+    want = both()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    got = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(st):
+            got.append(both())
+    torch.cuda.synchronize()
+    keys = {(dev, st.cuda_stream) for st in streams}
+    assert keys <= set(pmt._SCRATCH)
+    assert len({pmt._SCRATCH[k].data_ptr() for k in keys}) == 2
+    for out in got:
+        _bits(out, {k: v.cpu().numpy() for k, v in want.items()}, 'stream')
     assert _scratch_is_zero(dev)

@@ -542,6 +542,20 @@ def test_moment_sums_wrap_exactly():
     assert out['t_sigma'][0] == np.sqrt(max(s2 / len(t) - m * m, 0.0))
 
 
+def test_scratch_kept_per_stream():
+    """The truth kernels' zeroed scratch is one buffer per (device,
+    stream), grown where a call needs more and otherwise reused."""
+    a = pmt._scratch(torch.device('cpu'), 101, 10)
+    assert a.dtype == torch.int64 and a.numel() >= 10 and not a.any()
+    assert pmt._scratch(torch.device('cpu'), 101, 10) is a
+    assert pmt._scratch(torch.device('cpu'), 102, 10) is not a
+    big = pmt._scratch(torch.device('cpu'), 101, 5000)
+    assert big.numel() >= 5000 and not big.any()
+    assert pmt._scratch(torch.device('cpu'), 101, 10) is big
+    for key in [k for k in pmt._SCRATCH if k[1] in (101, 102)]:
+        del pmt._SCRATCH[key]
+
+
 def test_cpu_paths_check_edges():
     """On the CPU the public functions raise where the rows reach past the
     photons (on the card the kernels clamp them: no read-back)."""

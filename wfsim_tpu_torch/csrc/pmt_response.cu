@@ -52,10 +52,11 @@
 //
 // Areas in fixed point.  A raw-area term is a float32 x = gain / g (the
 // SPE table's range puts it in [0.068, 6] on the synthetic tables).  As
-// an int64 multiple of 2^-32 (models/pmt.py AREA_SCALE), x is exact
-// whenever |x| >= 2^-9
-// (its last bit is then at least 2^-32), and the row's sums stay exact
-// while count * max|x| <= 2^30 (|sum| * 2^32 <= 2^62).  Each row keeps the
+// an int64 multiple of 2^-S, S = models/pmt.py's AREA_SCALE (32), handed
+// to both entry points (TruthIn's area_* fields follow from it), x is
+// exact whenever |x| >= 2^(23-S) = 2^-9 (its last bit is then at least
+// 2^-S), and the row's sums stay exact while count * max|x| <= 2^(62-S) =
+// 2^30 (|sum| * 2^S <= 2^62).  Each row keeps the
 // smallest nonzero and the largest |x| (their float32 bits: ordered as
 // unsigned integers) beside its count; a row outside that range takes the
 // second pass below.  Where the twin's float64 sum of the same terms is
@@ -80,7 +81,9 @@
 // another for the elements of rows longer than a chunk (a tile meets at
 // most two such rows, those holding its first and its last element, found
 // by two 32-ary searches of the row edges side by side: one ballot each a
-// step).  The wrapper picks the layout from the batch's size and mean row
+// step).  One function finds a piece's rows (find_piece) for both layouts
+// below and the per-PMT kernel; in a block every warp finds the same piece
+// itself, so no shared-memory round is needed for it.  The wrapper picks the layout from the batch's size and mean row
 // length, with no read-back: rows of a mean below 512 (S1 photons, S2
 // electrons) take a warp a piece, the chunk the smallest power of two from
 // 32 to 1,024 no shorter than twice the mean row and giving at most 2,048
@@ -99,8 +102,9 @@
 // acquire-release fence and take a ticket; the piece whose ticket
 // completes the row reads the accumulator back with atomicExch (leaving it
 // zero for the next call) and writes the row.  The accumulators live in a
-// zeroed scratch buffer the wrapper keeps per device; every launch leaves
-// it zero.  With channels, chan_pack's gain, threshold and bottom columns
+// zeroed scratch buffer the wrapper keeps per device and stream (launches
+// on one stream run in order; two overlapping launches on one buffer would
+// mix their sums); every launch that completes leaves it zero.  With channels, chan_pack's gain, threshold and bottom columns
 // are copied to shared memory (cp.async) while the rows are found.  The
 // launch reads nothing back to the host and never reads an element at or
 // past n.
@@ -133,6 +137,8 @@
 // counts are equal and areas agree within rtol 1e-5.
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -140,11 +146,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBig = 0x7fffffff;   // 2^31 - 1
 constexpr unsigned kFull = 0xffffffffu;
 
-// areas: int64 multiples of 2^-32 (models/pmt.py AREA_SCALE)
-constexpr float kAreaUnit = 4294967296.0f;           // 2^32
-constexpr double kAreaInv = 2.3283064365386963e-10;   // 2^-32
-constexpr unsigned kAreaMinBits = 0x3b000000u;       // float32 2^-9
-constexpr double kAreaMaxSum = 1073741824.0;         // 2^30
 constexpr unsigned long long kMomentLimit = 1ull << 62;
 
 // the second-pass counters
@@ -201,6 +202,11 @@ struct TruthIn {
   int dt;
   double inv_dt;                // 1 / dt
   float current_2_adc;
+  // areas: int64 multiples of 2^-S, S = models/pmt.py's AREA_SCALE
+  float area_unit;              // 2^S
+  double area_inv;              // 2^-S
+  unsigned area_min_bits;       // float32 bits of 2^(23 - S)
+  double area_max_sum;          // 2^(62 - S)
   int* second;                  // (3,) second-pass counters
 };
 
@@ -247,6 +253,59 @@ __device__ void warp_lower_bounds(const TruthIn& in, long long x,
   }
   rx = lo[0];
   ry = lo[1];
+}
+
+// The pieces of a batch cut into chunks of elements: piece p < n_rows is
+// row p's first chunk, piece n_rows + k is tile k (elements [k chunk,
+// (k + 1) chunk)) past the first chunks of the rows it meets, at most two:
+// those holding its first and its last element.  A piece sums rows
+// row[i] >= 0, each [lo, hi), over its elements [pa, pb).
+struct Piece {
+  int row[2];
+  long long lo[2], hi[2], pa[2], pb[2];
+};
+
+// the pieces over which row [lo, hi) is summed
+__device__ __forceinline__ long long pieces_of(long long lo, long long hi,
+                                               long long chunk) {
+  return hi - lo > chunk ? 1 + (hi - 1) / chunk - (lo + chunk) / chunk + 1
+                         : 1;
+}
+
+// piece p, found by a whole warp (the same in every lane; a row's first
+// chunk, p < n_rows, by any thread: no search); a row's first chunk is a
+// piece even when empty (it writes the row), a tile's row only where the
+// tile holds some of its elements
+__device__ Piece find_piece(const TruthIn& in, long long p, long long chunk) {
+  Piece q;
+  q.row[1] = -1;
+  q.lo[1] = q.hi[1] = q.pa[1] = q.pb[1] = 0;
+  if (p < in.n_rows) {
+    q.row[0] = static_cast<int>(p);
+    q.lo[0] = q.pa[0] = edge(in, p);
+    q.hi[0] = edge(in, p + 1);
+    q.pb[0] = q.hi[0] - q.lo[0] > chunk ? q.lo[0] + chunk : q.hi[0];
+    return q;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long c0 = (p - in.n_rows) * chunk;
+  const long long c1 = c0 + chunk < in.n ? c0 + chunk : in.n;
+  // the last rows starting at or before the tile's first and last elements
+  int r0, r1;
+  warp_lower_bounds(in, c0 + 1, c1, r0, r1);
+  q.row[0] = r0 - 1;
+  q.row[1] = r1 == r0 ? -1 : r1 - 1;
+  const int rr = lane < 2 ? q.row[0] : q.row[1];
+  const long long e = edge(in, lane < 4 && rr >= 0 ? rr + (lane & 1) : 0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    q.lo[i] = __shfl_sync(kFull, e, 2 * i);
+    q.hi[i] = __shfl_sync(kFull, e, 2 * i + 1);
+    q.pa[i] = q.lo[i] + chunk > c0 ? q.lo[i] + chunk : c0;
+    q.pb[i] = q.hi[i] < c1 ? q.hi[i] : c1;
+    if (q.pb[i] <= q.pa[i]) q.row[i] = -1;
+  }
+  return q;
 }
 
 // the truth terms of valid photon j: its clamped channel, the trigger test
@@ -357,6 +416,28 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                :: "r"(d), "l"(src), "r"(bytes) : "memory");
 }
 
+// with channels (kTruth): the gain, threshold and bottom columns of
+// chan_pack copied to the start of shared memory, landing while the rows
+// are found; wait_channels before their first use
+template <bool kTruth>
+__device__ __forceinline__ void stage_channels(const TruthIn& in) {
+  if (!kTruth) return;
+  float* chan = reinterpret_cast<float*>(g_dyn_sh);
+  for (int i = threadIdx.x; i < in.C; i += kThreads) {
+    cp_async4(chan + 3 * i, in.chan_pack + 4 * i, 4);
+    cp_async4(chan + 3 * i + 1, in.chan_pack + 4 * i + 1, 4);
+    cp_async4(chan + 3 * i + 2, in.chan_pack + 4 * i + 3, 4);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <bool kTruth>
+__device__ __forceinline__ void wait_channels() {
+  if (!kTruth) return;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
 // photons [a, b) over the block: four consecutive photons a thread at a
 // time where they are 16-byte aligned (16-byte loads of t, ch and gain,
 // 4-byte loads of valid and is_dpe: few, wide requests keep enough bytes
@@ -408,13 +489,15 @@ __device__ __forceinline__ void block_photons(const TruthIn& in, long long a,
   }
 }
 
-__device__ __forceinline__ unsigned long long area_fixed(float x) {
+__device__ __forceinline__ unsigned long long area_fixed(const TruthIn& in,
+                                                        float x) {
   return static_cast<unsigned long long>(
-      __float2ll_rn(__fmul_rn(x, kAreaUnit)));
+      __float2ll_rn(__fmul_rn(x, in.area_unit)));
 }
 
-__device__ __forceinline__ double area_double(unsigned long long a) {
-  return __dmul_rn(__ll2double_rn(static_cast<long long>(a)), kAreaInv);
+__device__ __forceinline__ double area_double(const TruthIn& in,
+                                              unsigned long long a) {
+  return __dmul_rn(__ll2double_rn(static_cast<long long>(a)), in.area_inv);
 }
 
 __device__ __forceinline__ unsigned mag_bits(float x) {
@@ -423,13 +506,14 @@ __device__ __forceinline__ unsigned mag_bits(float x) {
 
 // whether cnt area terms, the smallest nonzero |x| and the largest of bits
 // xlo and xhi (xhi 0: every term 0), sum exactly in the fixed point
-__device__ __forceinline__ bool areas_fixed_ok(unsigned long long cnt,
+__device__ __forceinline__ bool areas_fixed_ok(const TruthIn& in,
+                                               unsigned long long cnt,
                                                unsigned xlo, unsigned xhi) {
   return xhi == 0 ||
-         (xlo >= kAreaMinBits &&
+         (xlo >= in.area_min_bits &&
           __dmul_rn(static_cast<double>(cnt),
                     static_cast<double>(__uint_as_float(xhi))) <=
-              kAreaMaxSum);
+              in.area_max_sum);
 }
 
 // whether the min-centred moments of cnt times in [mn, mx] lie in [0, 2^62)
@@ -486,7 +570,7 @@ __device__ __forceinline__ void part_add(RowPart& p, const TruthIn& in,
   const unsigned long long w =
       v ? (1ull | (pe << 16) | (q.above ? ((1ull << 32) | (pe << 48)) : 0ull))
         : 0ull;
-  const unsigned long long x = v ? area_fixed(q.g_over) : 0ull;
+  const unsigned long long x = v ? area_fixed(in, q.g_over) : 0ull;
   const unsigned long long xa = q.above ? x : 0ull;
   p.cnt4 += w;
   p.area[0] += x;
@@ -681,7 +765,7 @@ __device__ void finish_row(const TruthIn& in, const RowOut& out, int r,
   const unsigned long long cnt = s.c[0];
   const int mn = cnt ? s.mn : kBig, mx = cnt ? s.mx : -kBig;
   const bool ok_m = moments_ok(cnt, mn, mx);
-  const bool ok_a = !kTruth || areas_fixed_ok(cnt, s.xlo, s.xhi);
+  const bool ok_a = !kTruth || areas_fixed_ok(in, cnt, s.xlo, s.xhi);
   double d1 = 0.0, d2 = 0.0, ar[4];
   if (cnt != 0) {
     const unsigned long long m = static_cast<unsigned long long>(
@@ -690,7 +774,7 @@ __device__ void finish_row(const TruthIn& in, const RowOut& out, int r,
     d2 = __ull2double_rn(s.s2 - 2ull * m * s.s1 + cnt * (m * m));
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) ar[k] = area_double(s.area[k]);
+  for (int k = 0; k < 4; ++k) ar[k] = area_double(in, s.area[k]);
   if (!ok_m || !ok_a) {
     row_second_pass<kTruth>(in, lo, hi, mn, !ok_m, !ok_a, d1, d2, ar);
     if (lane == 0) {
@@ -728,184 +812,66 @@ __device__ void finish_row(const TruthIn& in, const RowOut& out, int r,
   }
 }
 
-// the warp's photons [pa, pb) of row r = [lo, hi): summed, then the row
-// written (alone, or by the last of its pieces)
-template <bool kTruth>
+// the photons [pa, pb) of row r = [lo, hi), by the warp or (kBlock) the
+// block: each thread's sums, the warp's butterfly and, for a block, one
+// shared-memory round and warp 0's butterfly over the eight warp sums;
+// then the row written by that warp, alone or as the last of its pieces
+template <bool kTruth, bool kBlock>
 __device__ void row_piece(const TruthIn& in, const RowOut& out, int r,
                           long long lo, long long hi, long long pa,
                           long long pb, long long chunk,
                           unsigned long long* acc) {
   RowPart p;
   part_init(p);
-  if (pb > pa) {
+  if constexpr (kBlock) {
+    __shared__ RowPart sh_part[kWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    block_photons<kTruth, 1>(in, pa, pb,
+                             [&](bool v, int t, int c, float g, bool dpe) {
+                               part_add<kTruth>(p, in, v, t, c, g, dpe);
+                             });
+    part_reduce<kTruth>(p);
+    __syncthreads();               // a previous piece is done with sh_part
+    if (lane == 0) sh_part[warp] = p;
+    __syncthreads();
+    if (warp != 0) return;
+    part_init(p);
+    if (lane < kWarps) p = sh_part[lane];
+    part_reduce<kTruth>(p);
+  } else if (pb > pa) {
     part_range<kTruth>(p, in, pa, pb);
     part_reduce<kTruth>(p);
   }
   RowTotal s = totals_of(p);
-  if (hi - lo > chunk) {
-    const long long pieces = 1 + (hi - 1) / chunk - (lo + chunk) / chunk + 1;
-    if (!combine_row(acc + static_cast<long long>(r) * kAccWords, s, pieces))
-      return;
-  }
+  if (hi - lo > chunk &&
+      !combine_row(acc + static_cast<long long>(r) * kAccWords, s,
+                   pieces_of(lo, hi, chunk)))
+    return;
   finish_row<kTruth>(in, out, r, s, lo, hi);
 }
 
-// warps [0, n_rows): row r's first chunk of photons; warps n_rows + k: the
-// photons of tile k past their row's first chunk (rows longer than a
-// chunk).  Shared memory, with channels: the gain, threshold and bottom
-// columns of chan_pack (3 C floats).
-template <bool kTruth>
-__global__ void __launch_bounds__(kThreads, 3) pmt_row_truth_kernel(
-    TruthIn in, RowOut out, int wlog, long long n_tiles,
-    unsigned long long* __restrict__ acc) {
-  const int lane = threadIdx.x & 31;
-  const long long w =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const long long chunk = 1ll << wlog;
-  if (kTruth) {
-    // the channel columns start to land while the rows are found
-    float* chan = reinterpret_cast<float*>(g_dyn_sh);
-    for (int i = threadIdx.x; i < in.C; i += kThreads) {
-      cp_async4(chan + 3 * i, in.chan_pack + 4 * i, 4);
-      cp_async4(chan + 3 * i + 1, in.chan_pack + 4 * i + 1, 4);
-      cp_async4(chan + 3 * i + 2, in.chan_pack + 4 * i + 3, 4);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  long long lo[2] = {0, 0}, hi[2] = {0, 0};
-  int rows[2] = {-1, -1};
-  long long c0 = 0, c1 = 0;
-  if (w < in.n_rows) {
-    rows[0] = static_cast<int>(w);
-    lo[0] = edge(in, w);
-    hi[0] = edge(in, w + 1);
-  } else if (w < in.n_rows + n_tiles) {
-    // the rows holding the tile's first and last photons (the last
-    // starting at or before each)
-    c0 = (w - in.n_rows) << wlog;
-    c1 = c0 + chunk < in.n ? c0 + chunk : in.n;
-    warp_lower_bounds(in, c0 + 1, c1, rows[0], rows[1]);
-    --rows[0];
-    --rows[1];
-    if (rows[1] == rows[0]) rows[1] = -1;
-    const int rr = lane < 2 ? rows[0] : rows[1];
-    const long long e = edge(in, lane < 4 && rr >= 0 ? rr + (lane & 1) : 0);
+// piece p (find_piece) of the n_pieces a warp, or a block (kBlock: batches
+// of long rows, all of a block's threads summing its photons).  Shared
+// memory, with channels: the gain, threshold and bottom columns of
+// chan_pack (3 C floats).
+template <bool kTruth, bool kBlock>
+__global__ void __launch_bounds__(kThreads, kBlock ? 4 : 3)
+    pmt_row_truth_kernel(TruthIn in, RowOut out, long long chunk,
+                         long long n_pieces,
+                         unsigned long long* __restrict__ acc) {
+  stage_channels<kTruth>(in);
+  const long long p =
+      kBlock ? blockIdx.x
+             : static_cast<long long>(blockIdx.x) * kWarps +
+                   (threadIdx.x >> 5);
+  const Piece q = find_piece(in, p < n_pieces ? p : 0, chunk);
+  wait_channels<kTruth>();
+  if (p >= n_pieces) return;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      lo[i] = __shfl_sync(kFull, e, 2 * i);
-      hi[i] = __shfl_sync(kFull, e, 2 * i + 1);
-    }
-  }
-  if (kTruth) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-  }
-  if (w < in.n_rows) {
-    row_piece<kTruth>(in, out, rows[0], lo[0], hi[0], lo[0],
-                      hi[0] - lo[0] > chunk ? lo[0] + chunk : hi[0], chunk,
-                      acc);
-    return;
-  }
-  if (w >= in.n_rows + n_tiles) return;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] < 0) continue;
-    const long long pa = lo[i] + chunk > c0 ? lo[i] + chunk : c0;
-    const long long pb = hi[i] < c1 ? hi[i] : c1;
-    if (pb > pa)
-      row_piece<kTruth>(in, out, rows[i], lo[i], hi[i], pa, pb, chunk, acc);
-  }
-}
-
-// the block's photons [pa, pb) of row r = [lo, hi): each thread's sums,
-// the warps' butterflies, one shared-memory round, then warp 0's butterfly
-// over the eight warp sums; warp 0 writes the row (alone, or as the last
-// of its pieces)
-template <bool kTruth>
-__device__ void block_piece(const TruthIn& in, const RowOut& out, int r,
-                            long long lo, long long hi, long long pa,
-                            long long pb, long long chunk,
-                            unsigned long long* acc) {
-  __shared__ RowPart sh_part[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  RowPart p;
-  part_init(p);
-  block_photons<kTruth, 1>(in, pa, pb,
-                        [&](bool v, int t, int c, float g, bool dpe) {
-                          part_add<kTruth>(p, in, v, t, c, g, dpe);
-                        });
-  part_reduce<kTruth>(p);
-  __syncthreads();                 // a previous piece is done with sh_part
-  if (lane == 0) sh_part[warp] = p;
-  __syncthreads();
-  if (warp != 0) return;
-  part_init(p);
-  if (lane < kWarps) p = sh_part[lane];
-  part_reduce<kTruth>(p);
-  RowTotal s = totals_of(p);
-  if (hi - lo > chunk) {
-    const long long pieces = 1 + (hi - 1) / chunk - (lo + chunk) / chunk + 1;
-    if (!combine_row(acc + static_cast<long long>(r) * kAccWords, s, pieces))
-      return;
-  }
-  finish_row<kTruth>(in, out, r, s, lo, hi);
-}
-
-// blocks [0, n_rows): row r's first chunk of photons; blocks n_rows + k:
-// the photons of tile k past their row's first chunk (rows longer than a
-// chunk).  For batches of long rows: all of a block's threads sum its
-// photons.  Shared memory as the warp kernel's.
-template <bool kTruth>
-__global__ void __launch_bounds__(kThreads, 4) pmt_row_truth_block_kernel(
-    TruthIn in, RowOut out, int wlog, long long n_tiles,
-    unsigned long long* __restrict__ acc) {
-  __shared__ long long sh_e[4];
-  __shared__ int sh_rows[2];
-  const long long chunk = 1ll << wlog;
-  if (kTruth) {
-    float* chan = reinterpret_cast<float*>(g_dyn_sh);
-    for (int i = threadIdx.x; i < in.C; i += kThreads) {
-      cp_async4(chan + 3 * i, in.chan_pack + 4 * i, 4);
-      cp_async4(chan + 3 * i + 1, in.chan_pack + 4 * i + 1, 4);
-      cp_async4(chan + 3 * i + 2, in.chan_pack + 4 * i + 3, 4);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  const bool row_block = blockIdx.x < static_cast<unsigned>(in.n_rows);
-  const long long c0 =
-      row_block ? 0 : static_cast<long long>(blockIdx.x - in.n_rows) << wlog;
-  const long long c1 = c0 + chunk < in.n ? c0 + chunk : in.n;
-  if (threadIdx.x < 32) {
-    // the row, or the rows holding the tile's first and last photons (the
-    // last starting at or before each), and their edges
-    int rows[2] = {static_cast<int>(blockIdx.x), -1};
-    if (!row_block) {
-      warp_lower_bounds(in, c0 + 1, c1, rows[0], rows[1]);
-      --rows[0];
-      --rows[1];
-      if (rows[1] == rows[0]) rows[1] = -1;
-    }
-    const int lane = threadIdx.x;
-    const int rr = lane < 2 ? rows[0] : rows[1];
-    if (lane < 4) sh_e[lane] = rr >= 0 ? edge(in, rr + (lane & 1)) : 0;
-    if (lane < 2) sh_rows[lane] = rows[lane];
-  }
-  if (kTruth) asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-  if (row_block) {
-    const long long lo = sh_e[0], hi = sh_e[1];
-    block_piece<kTruth>(in, out, sh_rows[0], lo, hi, lo,
-                        hi - lo > chunk ? lo + chunk : hi, chunk, acc);
-    return;
-  }
-  for (int i = 0; i < 2; ++i) {
-    const int r = sh_rows[i];
-    if (r < 0) continue;
-    const long long lo = sh_e[2 * i], hi = sh_e[2 * i + 1];
-    const long long pa = lo + chunk > c0 ? lo + chunk : c0;
-    const long long pb = hi < c1 ? hi : c1;
-    if (pb > pa) block_piece<kTruth>(in, out, r, lo, hi, pa, pb, chunk, acc);
-  }
+  for (int i = 0; i < 2; ++i)
+    if (q.row[i] >= 0)
+      row_piece<kTruth, kBlock>(in, out, q.row[i], q.lo[i], q.hi[i], q.pa[i],
+                                q.pb[i], chunk, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -1011,7 +977,7 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
     if (!v) return;
     const PhotonTruth q = truth_of<false>(in, t, c, g, dpe);
     const unsigned w = 1u | ((q.dpe ? 2u : 1u) << 16);
-    const unsigned long long x = area_fixed(q.g_over);
+    const unsigned long long x = area_fixed(in, q.g_over);
     atomicAdd(sh_cnt + q.ch, w);
     shared_add64(sh_area + q.ch, x);
     if (q.above) {
@@ -1054,7 +1020,7 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
   const long long ch = out.chunk;
   if (hi - lo <= ch) {
     // the row is this block's alone
-    const bool ok = areas_fixed_ok(cnt, xlo, xhi);
+    const bool ok = areas_fixed_ok(in, cnt, xlo, xhi);
     for (int c = threadIdx.x; c < C; c += kThreads) {
       const unsigned p0 = sh_cnt[c], p1 = sh_cnt[C + c];
       out.counts[base + c] = static_cast<int>(p0 & 0xffff);
@@ -1062,8 +1028,8 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
       out.counts[2 * plane + base + c] = static_cast<int>(p1 & 0xffff);
       out.counts[3 * plane + base + c] = static_cast<int>(p1 >> 16);
       if (ok) {
-        out.areas[base + c] = area_double(sh_area[c]);
-        out.areas[plane + base + c] = area_double(sh_area[C + c]);
+        out.areas[base + c] = area_double(in, sh_area[c]);
+        out.areas[plane + base + c] = area_double(in, sh_area[C + c]);
       }
     }
     if (!ok)
@@ -1072,7 +1038,7 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
     return;
   }
   // a long row: add the table to the row's scratch table, take a ticket
-  const long long pieces = 1 + (hi - 1) / ch - (lo + ch) / ch + 1;
+  const long long pieces = pieces_of(lo, hi, ch);
   unsigned long long* w = pmt_scratch(out, C, lo / ch);
   unsigned* wc = reinterpret_cast<unsigned*>(w);
   unsigned long long* wa = w + 2 * C;
@@ -1110,7 +1076,7 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
     atomicExch(wg + 3, 0u);
   }
   __syncthreads();
-  const bool ok = areas_fixed_ok(sh_g[0], sh_g[1], sh_g[2]);
+  const bool ok = areas_fixed_ok(in, sh_g[0], sh_g[1], sh_g[2]);
   for (int c = threadIdx.x; c < C; c += kThreads) {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -1119,7 +1085,7 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const unsigned long long a = atomicExch(wa + k * C + c, 0ull);
-      if (ok) out.areas[k * plane + base + c] = area_double(a);
+      if (ok) out.areas[k * plane + base + c] = area_double(in, a);
     }
   }
   if (!ok)
@@ -1127,43 +1093,30 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
                         reinterpret_cast<double*>(sh_area));
 }
 
-// blocks [0, n_rows): row r's first chunk; blocks n_rows + k: tile k's
-// photons past their row's first chunk
-__global__ void __launch_bounds__(kThreads) pmt_row_truth_per_pmt_kernel(
+// piece p (find_piece) a block: a row's first chunk found by every
+// thread, a tile's rows by warp 0 and kept in shared memory (held in
+// registers across the first row's piece, they cost 30 % on the bench
+// batch), at most 64 registers a thread (80 cost 25 %); dynamic shared
+// memory: the tables, (2, C) u64 areas then (2, C) u32 packed counts
+__global__ void __launch_bounds__(kThreads, 4) pmt_row_truth_per_pmt_kernel(
     TruthIn in, PmtOut out) {
-  extern __shared__ unsigned long long sh_area[];   // (2, C) u64, (2, C) u32
-  __shared__ int sh_rows[2];
-  const long long ch = out.chunk;
+  __shared__ Piece sh_q;
+  auto* sh_area = reinterpret_cast<unsigned long long*>(g_dyn_sh);
   if (blockIdx.x < static_cast<unsigned>(in.n_rows)) {
-    const int r = blockIdx.x;
-    const long long lo = edge(in, r), hi = edge(in, r + 1);
-    per_pmt_piece(in, out, r, lo, hi, lo, hi - lo > ch ? lo + ch : hi,
+    const Piece q = find_piece(in, blockIdx.x, out.chunk);
+    per_pmt_piece(in, out, q.row[0], q.lo[0], q.hi[0], q.pa[0], q.pb[0],
                   sh_area);
     return;
   }
-  const long long c0 = (blockIdx.x - in.n_rows) * ch;
-  const long long c1 = c0 + ch < in.n ? c0 + ch : in.n;
   if (threadIdx.x < 32) {
-    // the rows holding photons c0 and c1 - 1 (the last starting at or
-    // before each)
-    int r0, r1;
-    warp_lower_bounds(in, c0 + 1, c1, r0, r1);
-    --r0;
-    --r1;
-    if (threadIdx.x == 0) {
-      sh_rows[0] = r0;
-      sh_rows[1] = r1;
-    }
+    const Piece q = find_piece(in, blockIdx.x, out.chunk);
+    if (threadIdx.x == 0) sh_q = q;
   }
   __syncthreads();
-  for (int i = 0; i < 2; ++i) {
-    const int r = sh_rows[i];
-    if (r < 0 || (i == 1 && r == sh_rows[0])) continue;
-    const long long lo = edge(in, r), hi = edge(in, r + 1);
-    const long long pa = lo + ch > c0 ? lo + ch : c0;
-    const long long pb = hi < c1 ? hi : c1;
-    if (pb > pa) per_pmt_piece(in, out, r, lo, hi, pa, pb, sh_area);
-  }
+  for (int i = 0; i < 2; ++i)
+    if (sh_q.row[i] >= 0)
+      per_pmt_piece(in, out, sh_q.row[i], sh_q.lo[i], sh_q.hi[i], sh_q.pa[i],
+                    sh_q.pb[i], sh_area);
 }
 
 unsigned grid_of(long long work) {
@@ -1174,7 +1127,7 @@ TruthIn truth_in(const void* row_edges, int n_rows, int n, const void* t,
                  const void* valid, const void* ch, const void* gain,
                  const void* is_dpe, const void* chan_pack, int C,
                  const void* current_max, int dt, float current_2_adc,
-                 void* second) {
+                 int area_scale, void* second) {
   TruthIn in;
   in.edges = static_cast<const long long*>(row_edges);
   in.n_rows = n_rows;
@@ -1190,6 +1143,10 @@ TruthIn truth_in(const void* row_edges, int n_rows, int n, const void* t,
   in.dt = dt;
   in.inv_dt = dt > 0 ? 1.0 / dt : 0.0;
   in.current_2_adc = current_2_adc;
+  in.area_unit = std::ldexp(1.0f, area_scale);
+  in.area_inv = std::ldexp(1.0, -area_scale);
+  in.area_min_bits = static_cast<unsigned>(127 + 23 - area_scale) << 23;
+  in.area_max_sum = std::ldexp(1.0, 62 - area_scale);
   in.second = static_cast<int*>(second);
   return in;
 }
@@ -1220,18 +1177,20 @@ extern "C" int wfsim_pmt_photon_pass(
 
 // a warp (block_rows: a block) per row (its first 2^wlog photons) and per
 // tile of 2^wlog of the n photons (wlog <= 14 keeps a piece's packed
-// 16-bit counts exact); acc:
-// n_rows * 17 zero 64-bit words (left zero); second: the (3,) int32
-// second-pass counters
+// 16-bit counts exact); areas as int64 multiples of 2^-area_scale (1 to
+// 61); acc: n_rows * 17 zero 64-bit words, left zero (one buffer per
+// stream: two launches sharing it must not overlap); second: the (3,)
+// int32 second-pass counters
 extern "C" int wfsim_pmt_row_truth(
     const void* row_edges, int n_rows, int n, int wlog, int block_rows,
     const void* t,
     const void* valid, const void* ch, const void* gain, const void* is_dpe,
     const void* chan_pack, int C, const void* current_max, int dt,
-    float current_2_adc, void* sums, void* count, void* t_min, void* t_max,
-    void* mean_offset, void* sigma, void* acc, void* second, void* stream) {
-  if (n_rows <= 0 || n < 0 || wlog < 5 || wlog > 14 ||
-      (ch != nullptr && (C <= 0 || C > 1536 || dt <= 0)))
+    float current_2_adc, int area_scale, void* sums, void* count,
+    void* t_min, void* t_max, void* mean_offset, void* sigma, void* acc,
+    void* second, void* stream) {
+  if (n_rows <= 0 || n < 0 || wlog < 5 || wlog > 14 || area_scale < 1 ||
+      area_scale > 61 || (ch != nullptr && (C <= 0 || C > 1536 || dt <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<unsigned long long>(t) |
        reinterpret_cast<unsigned long long>(valid) |
@@ -1241,7 +1200,7 @@ extern "C" int wfsim_pmt_row_truth(
     return static_cast<int>(cudaErrorMisalignedAddress);
   const TruthIn in = truth_in(row_edges, n_rows, n, t, valid, ch, gain,
                               is_dpe, chan_pack, C, current_max, dt,
-                              current_2_adc, second);
+                              current_2_adc, area_scale, second);
   RowOut out;
   out.sums = static_cast<double*>(sums);
   out.count = static_cast<long long*>(count);
@@ -1250,49 +1209,48 @@ extern "C" int wfsim_pmt_row_truth(
   out.mean_offset = static_cast<double*>(mean_offset);
   out.sigma = static_cast<double*>(sigma);
   const long long chunk = 1ll << wlog;
-  const long long tiles = (static_cast<long long>(n) + chunk - 1) / chunk;
+  const long long pieces =
+      n_rows + (static_cast<long long>(n) + chunk - 1) / chunk;
   auto* a = static_cast<unsigned long long*>(acc);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int smem = ch != nullptr ? 16 * ((3 * C + 3) / 4) : 0;
-  if (block_rows) {
-    const unsigned blocks = static_cast<unsigned>(n_rows + tiles);
-    if (ch != nullptr)
-      pmt_row_truth_block_kernel<true><<<blocks, kThreads, smem, s>>>(
-          in, out, wlog, tiles, a);
-    else
-      pmt_row_truth_block_kernel<false><<<blocks, kThreads, 0, s>>>(
-          in, out, wlog, tiles, a);
-  } else {
-    const unsigned blocks =
-        static_cast<unsigned>((n_rows + tiles + kWarps - 1) / kWarps);
-    if (ch != nullptr)
-      pmt_row_truth_kernel<true><<<blocks, kThreads, smem, s>>>(
-          in, out, wlog, tiles, a);
-    else
-      pmt_row_truth_kernel<false><<<blocks, kThreads, 0, s>>>(in, out, wlog,
-                                                              tiles, a);
-  }
+  const unsigned blocks = static_cast<unsigned>(
+      block_rows ? pieces : (pieces + kWarps - 1) / kWarps);
+  if (block_rows && ch != nullptr)
+    pmt_row_truth_kernel<true, true><<<blocks, kThreads, smem, s>>>(
+        in, out, chunk, pieces, a);
+  else if (block_rows)
+    pmt_row_truth_kernel<false, true><<<blocks, kThreads, 0, s>>>(
+        in, out, chunk, pieces, a);
+  else if (ch != nullptr)
+    pmt_row_truth_kernel<true, false><<<blocks, kThreads, smem, s>>>(
+        in, out, chunk, pieces, a);
+  else
+    pmt_row_truth_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+        in, out, chunk, pieces, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // counts (4, n_rows, C) int32 and areas (2, n_rows, C) float64, every entry
 // written; a block per row and per chunk-sized tile of the n photons
-// (chunk <= 16,383 keeps a block's packed 16-bit counts exact); scratch:
-// ceil(n / chunk) * (4 C + 2) zero 64-bit words (left zero); C <= 1536
-// keeps the block's 24 bytes a channel of tables and its staging under the
-// 48 KB default; chan_pack 16-byte aligned (one 16-byte load a photon)
+// (chunk <= 16,383 keeps a block's packed 16-bit counts exact); areas as
+// the row kernel's; scratch: ceil(n / chunk) * (4 C + 2) zero 64-bit
+// words, left zero (one buffer per stream, as the row kernel's acc); C <=
+// 1536 keeps the block's 24 bytes a channel of tables and its staging
+// under the 48 KB default; chan_pack 16-byte aligned (one 16-byte load a
+// photon)
 extern "C" int wfsim_pmt_row_truth_per_pmt(
     const void* row_edges, int n_rows, int n, int chunk, const void* t,
     const void* valid, const void* ch, const void* gain, const void* is_dpe,
     const void* chan_pack, int C, const void* current_max, int dt,
-    float current_2_adc, void* counts, void* areas, void* scratch,
-    void* second, void* stream) {
+    float current_2_adc, int area_scale, void* counts, void* areas,
+    void* scratch, void* second, void* stream) {
   if (n_rows <= 0 || n < 0 || C <= 0 || C > 1536 || dt <= 0 || chunk <= 0 ||
-      chunk > 16383)
+      chunk > 16383 || area_scale < 1 || area_scale > 61)
     return static_cast<int>(cudaErrorInvalidValue);
   const TruthIn in = truth_in(row_edges, n_rows, n, t, valid, ch, gain,
                               is_dpe, chan_pack, C, current_max, dt,
-                              current_2_adc, second);
+                              current_2_adc, area_scale, second);
   PmtOut out;
   out.counts = static_cast<int*>(counts);
   out.areas = static_cast<double*>(areas);

@@ -28,9 +28,7 @@ from ..ops.segment import sorted_segment_sum, segment_min_max, expand_rows
 __all__ = ['pmt_draws', 'pmt_response', 'photon_time_stats',
            'pulse_truth_per_pmt', 'photon_pass_ref', 'pulse_truth_ref',
            'photon_time_stats_ref', 'pulse_truth_per_pmt_ref', 'TRUTH_SUMS',
-           'PER_PMT_SUMS', 'pmt_truth_second_pass',
-           'row_truth_second_pass_ref', 'row_truth_layout', 'PER_PMT_CHUNK',
-           'AREA_SCALE']
+           'PER_PMT_SUMS']
 
 _SUMS = ('n_photon', 'n_pe', 'n_photon_trigger', 'n_pe_trigger', 'raw_area',
          'raw_area_trigger')
@@ -44,20 +42,21 @@ _pass_kernel = Kernel('wfsim_pmt_photon_pass',
                       [I, P, P, P, P, P, P, P, P, I, P, I, F, F, F, P, P, P,
                        P, P, P])
 _row_kernel = Kernel('wfsim_pmt_row_truth',
-                     [P, I, I, I, I, P, P, P, P, P, P, I, P, I, F, P, P, P,
-                      P, P, P, P, P, P])
+                     [P, I, I, I, I, P, P, P, P, P, P, I, P, I, F, I, P, P,
+                      P, P, P, P, P, P, P])
 _per_pmt_kernel = Kernel('wfsim_pmt_row_truth_per_pmt',
-                         [P, I, I, I, P, P, P, P, P, P, I, P, I, F, P, P, P,
-                          P, P])
+                         [P, I, I, I, P, P, P, P, P, P, I, P, I, F, I, P, P,
+                          P, P, P])
 #: the row kernel keeps three channel columns (12 bytes a channel) and the
 #: per-PMT kernel its sums (24 bytes a channel) in a block's shared memory
 MAX_PER_PMT_CHANNELS = 1536
 #: photons a block of the per-PMT kernel accumulates (a row's first chunk,
 #: or a tile of a longer row); its packed 16-bit counts take up to 16,383
 PER_PMT_CHUNK = 8192
-#: the truth kernels keep raw areas as int64 multiples of 2^-AREA_SCALE:
-#: exact for terms of at least 2^(23 - AREA_SCALE) and row sums up to
-#: 2^(62 - AREA_SCALE) (the synthetic SPE tables' terms lie in [0.068, 6])
+#: the truth kernels keep raw areas as int64 multiples of 2^-AREA_SCALE
+#: (handed to both, 1 to 61): exact for terms of at least
+#: 2^(23 - AREA_SCALE) and row sums up to 2^(62 - AREA_SCALE) (the
+#: synthetic SPE tables' terms lie in [0.068, 6])
 AREA_SCALE = 32
 _ROW_ACC_WORDS = 17          # the row kernel's accumulator a row (int64)
 _SCRATCH: dict = {}
@@ -82,16 +81,20 @@ def row_truth_layout(n: int, n_rows: int):
     return False, w
 
 
-def _scratch(device, words: int):
-    """The truth kernels' zeroed int64 scratch on ``device``, at least
-    ``words`` long: the row kernel's accumulators of rows across chunks and
-    the per-PMT kernel's tables of long rows.  Every launch leaves it zero,
-    so it is made (or grown) once, not cleared per call; launches on one
-    device run in stream order."""
-    buf = _SCRATCH.get(device)
+def _scratch(device, stream: int, words: int):
+    """The truth kernels' zeroed int64 scratch for launches on ``stream``
+    of ``device``, at least ``words`` long: the row kernel's accumulators
+    of rows across chunks and the per-PMT kernel's tables of long rows.
+    Every launch that completes leaves it zero, so it is made (or grown)
+    once, not cleared per call.  It is kept per stream: launches on one
+    stream run in order, while two streams' launches could overlap and mix
+    their sums in one buffer.  A launch that faults part-way leaves the
+    CUDA context unusable, and the buffer with it."""
+    key = (device, stream)
+    buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < words:
         buf = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
-        _SCRATCH[device] = buf
+        _SCRATCH[key] = buf
     return buf
 
 
@@ -374,16 +377,17 @@ def _row_truth(params, const, t, valid, row_edges, ph=None) -> dict:
                t_mean_offset=torch.empty(R, dtype=torch.float64, device=dev),
                t_sigma=torch.empty(R, dtype=torch.float64, device=dev))
     if R:
-        acc = _scratch(dev, R * _ROW_ACC_WORDS)
+        stream = stream_of(dev)
+        acc = _scratch(dev, stream, R * _ROW_ACC_WORDS)
         block_rows, chunk = row_truth_layout(n, R)
         _row_kernel(ptr(row_edges), R, n, chunk.bit_length() - 1,
                     int(block_rows), ptr(t),
                     None if valid is None else ptr(valid), *truth_args,
-                    None if sums is None else ptr(sums), ptr(out['count']),
+                    AREA_SCALE, None if sums is None else ptr(sums),
+                    ptr(out['count']),
                     ptr(out['t_min']), ptr(out['t_max']),
                     ptr(out['t_mean_offset']), ptr(out['t_sigma']),
-                    ptr(acc), ptr(pmt_truth_second_pass(dev)),
-                    stream_of(dev))
+                    ptr(acc), ptr(pmt_truth_second_pass(dev)), stream)
     if ph is not None:
         out.update(zip(TRUTH_SUMS, sums))
     return out
@@ -414,15 +418,16 @@ def _row_truth_per_pmt(params, const, ph, row_edges) -> dict:
     areas = torch.empty((2, R, C), dtype=torch.float64, device=dev)
     if R:
         tiles = -(-n // PER_PMT_CHUNK)
-        scratch = _scratch(dev, tiles * (4 * C + 2))
+        stream = stream_of(dev)
+        scratch = _scratch(dev, stream, tiles * (4 * C + 2))
         _per_pmt_kernel(ptr(row_edges), R, n, PER_PMT_CHUNK,
                         *(ptr(_aligned(ph[k])) for k in (
                             't', 'valid', 'ch', 'gain', 'is_dpe')),
                         ptr(_aligned(params.chan_pack)), C,
                         ptr(params.current_max), dt,
-                        float(np.float32(const.current_2_adc)), ptr(counts),
-                        ptr(areas), ptr(scratch),
-                        ptr(pmt_truth_second_pass(dev)), stream_of(dev))
+                        float(np.float32(const.current_2_adc)), AREA_SCALE,
+                        ptr(counts), ptr(areas), ptr(scratch),
+                        ptr(pmt_truth_second_pass(dev)), stream)
     return dict(zip(PER_PMT_SUMS, (*counts, *areas)))
 
 
