@@ -3,7 +3,8 @@
 
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
-                           pmt_truth_layouts]]
+                           pmt_truth_layouts|photon_times|
+                           photon_times_tiles]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -16,8 +17,9 @@ With ``--kernels`` each process measures kernel rows instead, with this
 tree's ``chip_smoke.kernel_rows`` on the tree's own package: the
 superposition entries on their three window batches, the ZLE and record
 pack on four grids, the per-PMT truth, the PMT-afterpulse generator and
-the diffused pattern on their bench and skewed batches, and the
-luminescence tables and the photon summaries on theirs, each against its
+the diffused pattern on their bench and skewed batches, the luminescence
+tables and the photon summaries, the truth kernels and the gas-gap and
+S2 photon times on theirs, each against its
 twin (and, where there is one, its library computation), and prints
 ``{row: {ms, device_ms, split, host_us, plain_ms, library_ms, ...}}``.
 ``--only ap_diffuse`` measures only the afterpulse generator and the
@@ -26,7 +28,11 @@ the luminescence tables and the summaries (``lumi_summaries_measure``),
 ``--only pmt_truth`` only the row truth and the per-PMT truth
 (``pmt_truth_measure``), ``--only pmt_truth_layouts`` the truth kernels
 under each layout and chunk they could take (``pmt_truth_layouts_measure``;
-give this tree as OTHER_TREE to measure it in four processes).
+give this tree as OTHER_TREE to measure it in four processes),
+``--only photon_times`` only the gas-gap luminescence times and the S1,
+S2 electron and S2 photon times (``photon_times_measure``), ``--only
+photon_times_tiles`` the gas-gap and S2 photon-time kernels under each
+tile size (``photon_times_tiles_measure``; this tree as OTHER_TREE).
 """
 import argparse
 import json
@@ -79,7 +85,7 @@ rows = (cs.kernel_rows(dev, smi) if sys.argv[3] == 'all' else
 keep = ('ms', 'device_ms', 'split', 'host_us', 'plain_ms', 'library_ms',
         'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
         'library_diff', 'syncs', 'photons', 'seq_rows', 'second_pass',
-        'rows')
+        'rows', 'bytes_old')
 print(json.dumps({'smi': smi, 'rows': {
     k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
 '''
@@ -92,12 +98,14 @@ def main():
     ap.add_argument('--kernels', action='store_true',
                     help='measure the kernel rows, not the runs')
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
-                                       'pmt_truth', 'pmt_truth_layouts'),
+                                       'pmt_truth', 'pmt_truth_layouts',
+                                       'photon_times', 'photon_times_tiles'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
-                         'K8 row-truth and K16 rows only, or those two '
-                         'kernels under each layout')
+                         'K8 row-truth and K16 rows only, those two '
+                         'kernels under each layout, the K13a and K9 rows '
+                         'only, or those two kernels under each tile')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

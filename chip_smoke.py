@@ -115,6 +115,28 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     for K16).  Every configuration's run leaves the second-pass counts at
     0 (``expect_no_second_pass``).
 
+3o. the gas-gap luminescence times (K13a: tiles of photons, a sum pass
+    whose pieces combine by integer atomics and an apply pass) on the
+    detector_physics S2 batch (~1.57 M photons in 512 instructions) and a
+    copy whose instruction 100 holds 10^6 photons, and the S2 photon times
+    (K9: tiles of photons, each photon's electron and instruction from a
+    scan of the edges inside its tile) on the default run's S2 batch (the
+    simple model's tables; ~90 k electrons, ~1.57 M photons), on the
+    detector_physics one (given gas-gap times) and on PHOTON_SKEWED's batch
+    (~2.4 M photons: one instruction of 10^6 photons, one electron of 10^5
+    among them, three instructions without electrons, a tenth of the
+    electrons without photons), with the S2 electron times of the default
+    and the skewed batch and the S1 photon times of the default run: each
+    bitwise against its twin, the same bits on a second call, read-backs
+    counted (0 for K13a and K9; then once under
+    ``set_sync_debug_mode('error')``), ``ms``, ``device_ms`` split by
+    kernel, ``host_us`` over 1,000 calls, the twin's time and the bound
+    (each input read once and each output written once; the old count,
+    with the segment ids the kernels no longer write, printed beside).
+    ``photon_times_tiles_measure`` times K13a and K9 under each tile of
+    PHOTON_TIME_TILES (``ab_port.py . --kernels --only
+    photon_times_tiles``).
+
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
 one batch each, with their draws made on the card:
@@ -297,8 +319,9 @@ line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
 channel draw, the map lookup, the ZLE and record-pack entries, the
-luminescence tables, the PMT-afterpulse and photon-summary entries and the
-diffused pattern their EXPECTED_LAUNCHES, and the default run
+luminescence tables, the PMT-afterpulse and photon-summary entries, the
+diffused pattern, the S2 electron and photon times and the gas-gap times
+their EXPECTED_LAUNCHES, and the default run
 DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
@@ -809,7 +832,7 @@ def phase_3c(params, const, batches, dev, smi):
     check('s2_electron_times', lambda: s2_electron_times(*e_args, **e_kw),
           lambda: s2_electron_times_ref(*e_args, **e_kw), e_args,
           ops32=n_e * 5)
-    e_t, _e_inst, e_row = s2_electron_times(*e_args, **e_kw)
+    e_t, e_row = s2_electron_times(*e_args, **e_kw)
 
     p_args = (inv, e_edges, e_ph_edges, e_t, x2['truth_row'], d2['u_lum'],
               d2['u_st'], d2['exp_st'], d2['t_spread'])
@@ -819,8 +842,8 @@ def phase_3c(params, const, batches, dev, smi):
                 time_spread=const.s2_time_spread)
     check('s2_photon_times', lambda: s2_photon_times(*p_args, **p_kw),
           lambda: s2_photon_times_ref(*p_args, **p_kw), p_args,
-          ops32=n_ph * (12 + int(np.log2(max(n_e // n_inst, 2)))))
-    t, _ph_inst, truth_row = s2_photon_times(*p_args, **p_kw)
+          ops32=n_ph * 12)
+    t, truth_row = s2_photon_times(*p_args, **p_kw)
 
     ch = channel_draw(pattern, ph_edges, d2['u_ch'])
     pp_args = (params, const, t, ch, ch >= 0, truth_row, d2['pmt'])
@@ -1294,10 +1317,14 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
 #: the diffused pattern on those runs
 EXPECTED_LAUNCHES = dict(
     default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12,
-                 wfsim_lumi_tables=3, **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
+                 wfsim_lumi_tables=3, wfsim_s2_electron_times=3,
+                 wfsim_s2_photon_times=3,
+                 **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
     realistic=dict(**dict.fromkeys(AP_KERNELS, 9),
                    **dict.fromkeys(SUMMARY_KERNELS, 3)),
-    detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3))
+    detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3,
+                          wfsim_lumi_gasgap_times=3,
+                          wfsim_s2_photon_times=3))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
     '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
@@ -2525,7 +2552,9 @@ def pmt_truth_measure(dev, smi, max_syncs=(0, 0)):
     if count is not None:
         count(dev).zero_()
     torch.cuda.synchronize()
-    for key, buf in getattr(pmt, '_SCRATCH', {}).items():
+    from wfsim_tpu_torch import _build
+    bufs = getattr(_build, 'SCRATCH', getattr(pmt, '_SCRATCH', {}))
+    for key, buf in bufs.items():
         if (key[0] if isinstance(key, tuple) else key) == dev and buf.any():
             raise AssertionError(f'the truth scratch of {key} is not zero')
     return res
@@ -2592,6 +2621,266 @@ def pmt_truth_layouts_measure(dev, smi, max_syncs=None):
     return res
 
 
+#: phase 3o's skewed S2 batch: instruction 100 holds 10^6 photons, one of
+#: its electrons 10^5 of them (PHOTON_SKEWED), instructions 3, 200 and 511
+#: have no electrons and a tenth of the other electrons no photons
+PHOTON_SKEWED = dict(inst=100, photons=1_000_000, electron=100_000,
+                     no_electrons=(3, 200, 511), no_photons=0.1)
+#: the tiles the gas-gap and photon-time kernels take
+PHOTON_TIME_TILES = (2048, 4096, 8192)
+
+
+def detector_s2_batch(dev, seed):
+    """The detector_physics S2 batch (physics_batches of that configuration
+    with S1 timing left simple: its NEST tables take ~12 s to build, and
+    the S2 batch needs none), with the pattern map written into a
+    temporary directory: (params, const, S2 inst dict, draws)."""
+    from wfsim_tpu_torch.config import (default_config,
+                                        detector_physics_overrides)
+    from wfsim_tpu_torch.interface import detector_physics_instructions
+    from wfsim_tpu_torch.resources.synthetic import write_pattern_map
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_')
+    try:
+        over = detector_physics_overrides(
+            write_pattern_map(Path(tmp) / 's2_pattern_map.json', 1234))
+        over['s1_model_type'] = 'simple'
+        params, const, batches = physics_batches(
+            default_config(seed=1234, chunk_size=100, **over),
+            detector_physics_instructions(512, 2000, 300), dev, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x2, _n, d2 = batches['s2']
+    return params, const, x2, d2
+
+
+def skewed_s2_times_batch(const, dev, seed):
+    """PHOTON_SKEWED's batch of 512 instructions with the bench's mean
+    electrons (176) and photons an electron (17.5) elsewhere: every input
+    of the electron and photon time kernels, made from ``seed`` (times
+    and truth rows per instruction, electron draws, the simple model's
+    tables, photon draws and electron times)."""
+    import torch
+    from wfsim_tpu_torch.models.s2 import luminescence_tables
+    rng = np.random.default_rng(seed)
+    cfg = PHOTON_SKEWED
+    I, big = 512, cfg['inst']
+    e_counts = rng.poisson(176, I)
+    e_counts[list(cfg['no_electrons'])] = 0
+    n_big = (cfg['photons'] - cfg['electron']) // 17 + 1
+    e_counts[big] = n_big
+    e_edges = np.concatenate([[0], np.cumsum(e_counts)])
+    E = int(e_edges[-1])
+    ph = rng.poisson(17.5, E)
+    ph[rng.random(E) < cfg['no_photons']] = 0
+    k0 = e_edges[big]
+    ph[k0:k0 + n_big] = 17
+    ph[k0 + 7] = cfg['electron']
+    ph[k0 + 8] += cfg['photons'] - int(ph[k0:k0 + n_big].sum())
+    e_ph_edges = np.concatenate([[0], np.cumsum(ph)])
+    n = int(e_ph_edges[-1])
+    f32 = np.float32
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    return dict(
+        time=t((np.arange(I) * 4_000_000).astype(np.int32)),
+        e_edges=t(e_edges), e_ph_edges=t(e_ph_edges),
+        mean=t(rng.uniform(0, 2e5, I).astype(f32)),
+        spread=t(rng.uniform(0, 300, I).astype(f32)),
+        e_exp=t(rng.exponential(size=E).astype(f32)),
+        e_normal=t(rng.normal(size=E).astype(f32)),
+        truth_row=t(np.arange(I, dtype=np.int64)),
+        inv=luminescence_tables(const, I, dev),
+        u_lum=t(rng.random(n, dtype=f32)), u_st=t(rng.random(n, dtype=f32)),
+        exp_st=t(rng.exponential(size=n).astype(f32)),
+        t_spread=t(rng.normal(size=n).astype(f32)))
+
+
+def photon_times_rows(dev):
+    """The rows of photon_times_measure: {name: (which, kernel, twin, the
+    tensors the function reads, the bytes of the outputs that the kernels
+    no longer write, float32 operations, float64 operations, elements,
+    segments)}; ``which`` indexes max_syncs (0 the gas-gap sampler, 1 the
+    S2 time kernels, None the S1 pass, which reads its total back)."""
+    import inspect
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    params, const, batches = physics_batches(
+        default_config(seed=1234, chunk_size=100),
+        bench_instructions(512, 2000, 300), dev, 20261016)
+    x1, _n1, d1 = batches['s1']
+    x2, _n2, d2 = batches['s2']
+    rows = {}
+    s1_args = (x1['time'], edges_from_counts(d1['n_hits']), x1['truth_row'],
+               d1['exp'], d1['normal'])
+    s1_kw = dict(decay_time=const.s1_decay_time,
+                 decay_spread=const.s1_decay_spread)
+    n1 = int(d1['n_hits'].sum())
+    rows['s1_photon_times'] = (
+        None, lambda: s1.s1_photon_times(*s1_args, **s1_kw),
+        lambda: s1.s1_photon_times_ref(*s1_args, **s1_kw), s1_args, 0,
+        n1 * 4, 0, n1, int(x1['x'].shape[0]))
+    def add_times(tag, cst, x, d, inv=None, t_lum=None, e_in=None):
+        t_kw = dict(singlet_fraction=cst.singlet_fraction_gas,
+                    t_singlet=cst.singlet_lifetime_gas,
+                    t_triplet=cst.triplet_lifetime_gas,
+                    time_spread=cst.s2_time_spread, t_lum=t_lum)
+        e_kw = dict(trapping=cst.electron_trapping_time)
+        if e_in is None:
+            e_edges, e_ph_edges, _ph = s2.s2_edges(d)
+            mean, spread = s2.get_s2_drift_time_params(cst, x['z'])
+            e_in = (x['time'], e_edges, mean, spread, d['e_exp'],
+                    d['e_normal'], x['truth_row'])
+        else:
+            e_edges, e_ph_edges = d['e_edges'], d['e_ph_edges']
+        n_e, n_i = int(e_in[4].shape[0]), int(e_in[0].shape[0])
+        if tag is not None:
+            rows['s2_electron_times' + tag] = (
+                1, lambda: s2.s2_electron_times(*e_in, **e_kw),
+                lambda: s2.s2_electron_times_ref(*e_in, **e_kw), e_in,
+                n_e * 8, n_e * 5, 0, n_e, n_i)
+        e_t = s2.s2_electron_times(*e_in, **e_kw)[0]
+        args = (inv, e_edges, e_ph_edges, e_t, e_in[6],
+                None if inv is None else d['u_lum'], d['u_st'], d['exp_st'],
+                d['t_spread'])
+        n = int(d['u_st'].shape[0])
+        rows['s2_photon_times' + ('_gasgap' if tag is None else tag)] = (
+            1, lambda: s2.s2_photon_times(*args, **t_kw),
+            lambda: s2.s2_photon_times_ref(*args, **t_kw),
+            tuple(a for a in (*args, t_lum) if a is not None), n * 8,
+            n * 12, 0, n, n_e)
+
+    add_times('', const, x2, d2, inv=s2.luminescence_tables(const, 512, dev))
+    skew = skewed_s2_times_batch(const, dev, 20261017)
+    add_times('_skewed', const, None, skew, inv=skew['inv'], e_in=(
+        skew['time'], skew['e_edges'], skew['mean'], skew['spread'],
+        skew['e_exp'], skew['e_normal'], skew['truth_row']))
+
+    params_d, const_d, xd, dd = detector_s2_batch(dev, 20261016)
+    _z, xy = s2.s2_positions(params_d, const_d, xd)
+    _e, _eph, ph_edges = s2.s2_edges(dd)
+    gg_kw = ({'t_max': params_d.gg_t_max} if 't_max' in inspect.signature(
+        s2.lumi_gasgap_times).parameters else {})
+    rows_d = s2.gasgap_rows(params_d, xy)
+    counts = (ph_edges[1:] - ph_edges[:-1]).cpu().numpy().copy()
+    counts[PHOTON_SKEWED['inst']] = PHOTON_SKEWED['photons']
+    sk_edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                               device=dev)
+    u_sk = torch.as_tensor(np.random.default_rng(20261018).random(
+        int(counts.sum()), dtype=np.float32), device=dev)
+    for name, edges, u in (('lumi_gasgap_times', ph_edges, dd['u_lum']),
+                           ('lumi_gasgap_times_skewed', sk_edges, u_sk)):
+        args = (params_d.gg_inv_cdf, *rows_d, edges, u)
+        n = int(u.shape[0])
+        rows[name] = (0, lambda a=args: (s2.lumi_gasgap_times(*a, **gg_kw),),
+                      lambda a=args: (s2.lumi_gasgap_times_ref(*a),), args,
+                      0, n * 16, n * 2, n, int(edges.shape[0]) - 1)
+    t_lum = s2.lumi_gasgap_times(params_d.gg_inv_cdf, *rows_d, ph_edges,
+                                 dd['u_lum'], **gg_kw)
+    add_times(None, const_d, xd, dd, t_lum=t_lum)
+    return rows
+
+
+def photon_times_measure(dev, smi, max_syncs=(0, 0)):
+    """Phase 3o: the gas-gap luminescence times (K13a) on the
+    detector_physics S2 batch and a copy whose instruction 100 holds 10^6
+    photons, and the S2 photon times (K9) on the default run's S2 batch
+    (the simple model's tables), on the detector_physics one (given
+    gas-gap times) and on PHOTON_SKEWED's batch, with the S2 electron
+    times of the default and the skewed batch and the S1 photon times of
+    the default run: each bitwise against its twin, the same bits on a
+    second call, its host syncs a call (at most ``max_syncs``, the gas-gap
+    sampler's and the S2 time kernels'; None counts without a limit, for
+    another checkout's wrappers; the S1 pass reads its photon total back
+    and is not held to it), ``ms``, ``device_ms`` split by kernel,
+    ``host_us`` over 1,000 calls, the twin's time and the bound: the bytes
+    the function reads once and writes, with the old count beside it (the
+    segment ids the kernels wrote before, 8 bytes an element).  The
+    scratch buffers are checked to be zero at the end.  Returns {row name:
+    measurements (see make_check)}."""
+    import torch
+    from wfsim_tpu_torch import _build
+    res = {}
+    for name, (which, kernel, plain, inputs, dropped, ops32, ops64, n,
+               segs) in photon_times_rows(dev).items():
+        out = kernel()
+        want = plain()
+        err = compare(out, want, name)
+        if compare(kernel(), out, name + ' second call'):
+            raise AssertionError(f'{name}: two calls differ')
+        n_sync, where = count_syncs(kernel)
+        limit = (None if max_syncs is None or which is None
+                 else max_syncs[which])
+        if limit is not None and n_sync > limit:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {limit} ({where})')
+        if limit == 0:
+            sync_free(name, kernel)
+        dev_ms, by_name = device_ms(kernel)
+        split = {}
+        for k, v in by_name.items():            # names cut to 60 characters
+            split[k[:60]] = split.get(k[:60], 0.0) + v
+        # the old count held the segment ids; a checkout still writing them
+        # has them in its outputs
+        wrote_ids = len(out) == 3 and dropped
+        n_bytes = nbytes(inputs, out) - (dropped if wrote_ids else 0)
+        m = res[name] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, bytes_old=n_bytes + dropped, ops32=ops32,
+            ops64=ops64, library_ms=None, syncs=n_sync, split=split,
+            photons=n, rows=segs)
+        b_ms, b_by = bound(n_bytes, ops32, ops64)
+        b_old = bound(n_bytes + dropped, ops32, ops64)[0]
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({k: round(v, 6) for k, v in split.items()}))
+        print(f'[times] {name}: {n} elements in {segs} segments, max|diff| '
+              f'{err}, second call bitwise, read-backs {n_sync} {where}, '
+              f'{m["ms"]:.4f} ms, device {dev_s}, host '
+              f'{m["host_us"]:.2f} us a call, plain twin '
+              f'{m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} (old '
+              f'count {b_old:.6f}) ({smi})')
+    torch.cuda.synchronize()
+    for key, buf in getattr(_build, 'SCRATCH', {}).items():
+        if key[0] == dev and buf.any():
+            raise AssertionError(f'the kernels\' scratch of {key} is not '
+                                 f'zero')
+    return res
+
+
+def photon_times_tiles_measure(dev, smi, max_syncs=None):
+    """The tile sizes of the gas-gap sampler and the S2 photon-time kernel
+    (PHOTON_TIME_TILES) on photon_times_measure's rows of those kernels:
+    each row's device time under each tile, every output bitwise the
+    default tile's.  ``max_syncs`` is unused (``ab_port.py --only`` passes
+    it).  Returns {row name: {device_ms, split, photons, rows}}."""
+    from wfsim_tpu_torch.models import s2
+    del max_syncs
+    rows = photon_times_rows(dev)
+    saved = s2.GASGAP_TILE, s2.PHOTON_TILE
+    res = {}
+    try:
+        for name, (which, kernel, _p, _i, _d, _o32, _o64, n,
+                   segs) in rows.items():
+            if which is None or name.startswith('s2_electron'):
+                continue
+            want = kernel()
+            for tile in PHOTON_TIME_TILES:
+                s2.GASGAP_TILE = s2.PHOTON_TILE = tile
+                compare(kernel(), want, f'{name} tile {tile}')
+                ms, split = device_ms(kernel, reps=30)
+                res[f'{name}_tile_{tile}'] = dict(device_ms=ms, split=split,
+                                                  photons=n, rows=segs)
+                print(f'[times tiles] {name} tile {tile}: {ms} ms, bitwise '
+                      f'the default ({smi})')
+    finally:
+        s2.GASGAP_TILE, s2.PHOTON_TILE = saved
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -2629,8 +2918,8 @@ def kernel_rows(dev, smi):
     record-pack rows on every grid (zle_pack_measure), K16 on 494 channels
     with its library computation (per_pmt_kernel_check), the K11 and K12b
     rows (ap_diffuse_measure), the K6 and K11-summaries rows
-    (lumi_summaries_measure) and the K8 row-truth and K16 rows
-    (pmt_truth_measure)."""
+    (lumi_summaries_measure), the K8 row-truth and K16 rows
+    (pmt_truth_measure) and the K13a and K9 rows (photon_times_measure)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
@@ -2644,6 +2933,7 @@ def kernel_rows(dev, smi):
     res.update(ap_diffuse_measure(dev, smi, max_syncs=None))
     res.update(lumi_summaries_measure(dev, smi, max_syncs=None))
     res.update(pmt_truth_measure(dev, smi, max_syncs=None))
+    res.update(photon_times_measure(dev, smi, max_syncs=None))
     return res
 
 
@@ -3535,6 +3825,9 @@ def main():
     # ---- 3n. the row truth and the per-PMT truth -------------------------------
     ntimes = pmt_truth_measure(dev, smi)
 
+    # ---- 3o. the gas-gap luminescence times and the S2 photon times ---------
+    otimes = photon_times_measure(dev, smi)
+
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
     ptimes = phase_3c(params_p, const_p, batches, dev, smi)
@@ -3703,15 +3996,25 @@ def main():
         rows[-1].update(syncs=m['syncs'], split=m['split'],
                         second_pass=m['second_pass'],
                         library_diff=m['library_diff'])
+    for row, m in otimes.items():
+        cu, rep, entry = (
+            ('table_samplers.cu', 'wfsim_tpu/models/s2.py:255',
+             'wfsim_lumi_gasgap_times') if row.startswith('lumi_gasgap') else
+            ('photon_times.cu', 'wfsim_tpu/models/s1.py:143',
+             'wfsim_s1_photon_times') if row.startswith('s1_') else
+            ('photon_times.cu', 'wfsim_tpu/models/s2.py:381',
+             'wfsim_s2_electron_times') if row.startswith('s2_electron') else
+            ('photon_times.cu', 'wfsim_tpu/models/s2.py:441',
+             'wfsim_s2_photon_times'))
+        # the gas-gap rows count the detector_physics run's launches
+        measured(row, cu, rep, [entry], launches_d if 'gasgap' in row
+                 else launches, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'],
+                        bound_old_ms=bound(m['bytes_old'], m['ops32'],
+                                           m['ops64'])[0])
     for name, cu, rep in (
             ('channel_draw', 'channel_draw.cu', K5_REPLACES),
             ('channel_draw_skewed', 'channel_draw.cu', K5_REPLACES),
-            ('s1_photon_times', 'photon_times.cu',
-             'wfsim_tpu/models/s1.py:143'),
-            ('s2_electron_times', 'photon_times.cu',
-             'wfsim_tpu/models/s2.py:381'),
-            ('s2_photon_times', 'photon_times.cu',
-             'wfsim_tpu/models/s2.py:441'),
             ('pmt_photon_pass', 'pmt_response.cu',
              'wfsim_tpu/models/pmt.py:19'),
             ('pmt_row_truth', 'pmt_response.cu',
@@ -3727,8 +4030,6 @@ def main():
              'wfsim_tpu/ops/interp.py:85'),
             ('grid_lookup_photons', 'wfsim_grid_lookup', 'grid_lookup.cu',
              'wfsim_tpu/ops/interp.py:85'),
-            ('lumi_gasgap_times', 'wfsim_lumi_gasgap_times',
-             'table_samplers.cu', 'wfsim_tpu/models/s2.py:255'),
             ('nest_delays', 'wfsim_nest_delays', 'table_samplers.cu',
              'wfsim_tpu/models/s1.py:108')):
         measured(name, cu, rep, [entry], launches_d, dtimes[name])

@@ -29,6 +29,8 @@ from .test_torch_ap_diffuse_redesign import (
     diffuse_constants, diffuse_normals)
 from .test_torch_lumi_summaries_redesign import (
     LUMI_CASES, SUMMARY_CASES, lumi_case, sequential_rows_np, summary_case)
+from .test_torch_photon_times_redesign import (
+    PHOTON_CASES, TILES, electron_args, gasgap_args, photon_args, photon_case)
 from .test_torch_pmt_truth_order import (
     SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
     photon_terms, truth_case)
@@ -1203,11 +1205,10 @@ def _truth_setup(detector, dev):
 
 
 def _scratch_is_zero(dev):
-    """The truth kernels' scratch buffers on ``dev`` (one per stream) are
-    all zero."""
-    from wfsim_tpu_torch.models import pmt
+    """The kernels' scratch buffers on ``dev`` (one per stream) are all
+    zero."""
     torch.cuda.synchronize()
-    bufs = [b for (d, _s), b in pmt._SCRATCH.items() if d == dev]
+    bufs = [b for (d, _s), b in _build.SCRATCH.items() if d == dev]
     return bool(bufs) and not any(bool(b.any()) for b in bufs)
 
 
@@ -1316,8 +1317,109 @@ def test_truth_kernels_on_two_streams(dev):
             got.append(both())
     torch.cuda.synchronize()
     keys = {(dev, st.cuda_stream) for st in streams}
-    assert keys <= set(pmt._SCRATCH)
-    assert len({pmt._SCRATCH[k].data_ptr() for k in keys}) == 2
+    assert keys <= set(_build.SCRATCH)
+    assert len({_build.SCRATCH[k].data_ptr() for k in keys}) == 2
     for out in got:
         _bits(out, {k: v.cpu().numpy() for k, v in want.items()}, 'stream')
     assert _scratch_is_zero(dev)
+
+
+# ---------------------------------------------------------------------------
+# the gas-gap luminescence times (K13a) and the S2 electron and photon
+# times (K9): flat tiles, no read-back
+
+
+def _twice_bitwise(fn, want):
+    """``fn()`` twice: both bitwise ``want`` (a tensor or a tuple)."""
+    for _ in range(2):
+        got = fn()
+        if isinstance(want, torch.Tensor):
+            got, want_t = (got,), (want,)
+        else:
+            want_t = want
+        assert len(got) == len(want_t)
+        for x, y in zip(got, want_t):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize('name', PHOTON_CASES)
+def test_gasgap_kernel_on_cases(dev, monkeypatch, name):
+    """wfsim_lumi_gasgap_times under each tile size: bitwise its twin on the
+    CPU and on the card, the same bits on a second call, no host sync with
+    the host bound given, one launch a call and the scratch left zero."""
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.models.params import gasgap_time_max
+    c = photon_case(name)
+    cpu = gasgap_args(c)
+    card = [a.to(dev) for a in cpu]
+    want = s2.lumi_gasgap_times_ref(*cpu)
+    assert torch.equal(s2.lumi_gasgap_times_ref(*card).cpu(), want)
+    t_max = gasgap_time_max(c['gg_inv_cdf'], c['gaps'], c['gap'])
+    kernel = _build.KERNELS['wfsim_lumi_gasgap_times']
+    for tile in TILES:
+        monkeypatch.setattr(s2, 'GASGAP_TILE', tile)
+        before = kernel.launches
+        _twice_bitwise(lambda: s2.lumi_gasgap_times(*card, t_max=t_max),
+                       want)
+        assert kernel.launches == before + 2
+        assert torch.equal(_sync_free(lambda: s2.lumi_gasgap_times(
+            *card, t_max=t_max)).cpu(), want)
+        assert _scratch_is_zero(dev)
+
+
+@pytest.mark.parametrize('name', PHOTON_CASES)
+def test_s2_time_kernels_on_cases(dev, monkeypatch, name):
+    """wfsim_s2_photon_times under each tile size, in both luminescence
+    modes and without the time spread, and wfsim_s2_electron_times: bitwise
+    their twins on the CPU and on the card, the same bits on a second call,
+    no host sync."""
+    from wfsim_tpu_torch.models import s2
+    c = photon_case(name)
+    e_args, e_kw = electron_args(c)
+    want = s2.s2_electron_times_ref(*e_args, **e_kw)
+    e_card = [a.to(dev) for a in e_args]
+    _twice_bitwise(lambda: s2.s2_electron_times(*e_card, **e_kw), want)
+    _twice_bitwise(lambda: _sync_free(
+        lambda: s2.s2_electron_times(*e_card, **e_kw)), want)
+    for lum, spread in (('inv', True), ('t_lum', True), ('inv', False)):
+        args, kw = photon_args(c, lum, spread)
+        want = s2.s2_photon_times_ref(*args, **kw)
+        card = [None if a is None else a.to(dev) for a in args]
+        kw_d = dict(kw, t_lum=None if kw['t_lum'] is None
+                    else kw['t_lum'].to(dev))
+        _twice_bitwise(lambda: s2.s2_photon_times_ref(*card, **kw_d), want)
+        for tile in TILES:
+            monkeypatch.setattr(s2, 'PHOTON_TILE', tile)
+            _twice_bitwise(lambda: s2.s2_photon_times(*card, **kw_d), want)
+        _twice_bitwise(lambda: _sync_free(
+            lambda: s2.s2_photon_times(*card, **kw_d)), want)
+
+
+@pytest.mark.parametrize('n_photons,fits', [(2100, True), (2200, False)])
+@pytest.mark.parametrize('bound', [False, True])
+def test_gasgap_range_check_on_the_card(dev, n_photons, fits, bound):
+    """The cases of test_gasgap_mean_fixed_point_range on the card, with
+    and without the host bound: 2,100 photons at 1 ms give the exact mean
+    (every time 0), 2,200 raise OverflowError; with the bound, the fitting
+    case reads nothing back."""
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.models.params import gasgap_time_max
+    inv = torch.full((2, 16), 1e6)
+    args = [a.to(dev) for a in (
+        inv, torch.tensor([0, 0]), torch.tensor([1, 1]),
+        torch.tensor([0.3, 0.7]), torch.tensor([0, 5, 5 + n_photons]),
+        torch.rand(5 + n_photons, generator=torch.Generator().manual_seed(3)))]
+    kw = {}
+    if bound:
+        kw['t_max'] = gasgap_time_max(inv.numpy(),
+                                      np.array([0.1, 0.2], np.float32),
+                                      np.array([0.13, 0.17]))
+    if fits:
+        def fn():
+            return s2.lumi_gasgap_times(*args, **kw)
+        assert not (_sync_free(fn) if bound else fn()).any()
+        assert _scratch_is_zero(dev)
+    else:
+        with pytest.raises(OverflowError):
+            s2.lumi_gasgap_times(*args, **kw)

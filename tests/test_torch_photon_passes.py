@@ -228,11 +228,14 @@ def test_s2_pass_matches_jax_given_draws(both):
     check_s2_pass_given_draws(both)
 
 
-def check_s2_pass_given_draws(both):
+def check_s2_pass_given_draws(both, amps=None):
     """The S2 photon pass of both packages' bundles ``both`` (as the
-    fixture gives them) from the same draws of 5 instructions."""
+    fixture gives them) from the same draws of 5 instructions (of 300
+    electrons each, or of ``amps``)."""
     (pj, kj), (c, pt, kt) = both
     ji = jax_inst(5, 300, 6)
+    if amps is not None:
+        ji['amp'] = np.asarray(amps, np.int32)
     jinst = {k: jnp.asarray(v) for k, v in ji.items()}
     key = jax.random.key(12)
     keys = jax.random.split(key, js2.N_S2_KEYS)

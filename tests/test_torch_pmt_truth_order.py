@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from wfsim_tpu_torch import _build
 from wfsim_tpu_torch.config import default_config
 from wfsim_tpu_torch.models import pmt
 from wfsim_tpu_torch.models.params import build_params, build_constants
@@ -543,17 +544,18 @@ def test_moment_sums_wrap_exactly():
 
 
 def test_scratch_kept_per_stream():
-    """The truth kernels' zeroed scratch is one buffer per (device,
-    stream), grown where a call needs more and otherwise reused."""
-    a = pmt._scratch(torch.device('cpu'), 101, 10)
+    """The kernels' zeroed scratch (the truth kernels' and the gas-gap
+    sampler's, ``_build.scratch``) is one buffer per (device, stream),
+    grown where a call needs more and otherwise reused."""
+    a = _build.scratch(torch.device('cpu'), 101, 10)
     assert a.dtype == torch.int64 and a.numel() >= 10 and not a.any()
-    assert pmt._scratch(torch.device('cpu'), 101, 10) is a
-    assert pmt._scratch(torch.device('cpu'), 102, 10) is not a
-    big = pmt._scratch(torch.device('cpu'), 101, 5000)
+    assert _build.scratch(torch.device('cpu'), 101, 10) is a
+    assert _build.scratch(torch.device('cpu'), 102, 10) is not a
+    big = _build.scratch(torch.device('cpu'), 101, 5000)
     assert big.numel() >= 5000 and not big.any()
-    assert pmt._scratch(torch.device('cpu'), 101, 10) is big
-    for key in [k for k in pmt._SCRATCH if k[1] in (101, 102)]:
-        del pmt._SCRATCH[key]
+    assert _build.scratch(torch.device('cpu'), 101, 10) is big
+    for key in [k for k in _build.SCRATCH if k[1] in (101, 102)]:
+        del _build.SCRATCH[key]
 
 
 def test_cpu_paths_check_edges():

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 __all__ = ['Kernel', 'KERNELS', 'build', 'load_library', 'LIB_PATH',
-           'check_tensor']
+           'check_tensor', 'scratch', 'SCRATCH']
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / 'csrc'
@@ -38,6 +38,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 #: every Kernel by its C symbol; chip_smoke.py reads the launch counts here
 KERNELS: dict = {}
+#: the kernels' zeroed int64 scratch by (device, stream) (see scratch)
+SCRATCH: dict = {}
 
 
 def _sources():
@@ -181,3 +183,22 @@ def stream_of(device) -> int:
     streams (``torch.cuda.stream(...)``) between two launches."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def scratch(device, stream: int, words: int):
+    """The kernels' zeroed int64 scratch for launches on ``stream`` of
+    ``device``, at least ``words`` long: the integer sums and tickets by
+    which the pieces of a long row or instruction combine (the truth
+    kernels' accumulators and tables, the gas-gap sampler's sums).  Every
+    launch that completes leaves it zero, so it is made (or grown) once,
+    not cleared per call; launches of different kernels on one stream run
+    in order and share it.  It is kept per stream: two streams' launches
+    could overlap and mix their sums in one buffer.  A launch that faults
+    part-way leaves the CUDA context unusable, and the buffer with it."""
+    import torch
+    key = (device, stream)
+    buf = SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
+        SCRATCH[key] = buf
+    return buf

@@ -10,9 +10,9 @@
 // s1_photon_times_ref, models/s2.py s2_electron_times_ref and
 // s2_photon_times_ref.
 //
-// Three entry points, each one block per instruction that walks the
-// instruction's elements [edges[i], edges[i+1]) and writes, besides the
-// times, the segment id and the broadcast truth row of each element; that
+// Three entry points.  The S1 one runs one block per instruction walking
+// the instruction's photons [edges[i], edges[i+1]) and writes, besides the
+// times, the segment id and the broadcast truth row of each photon; that
 // takes the place of repeat_interleave on the path:
 //   wfsim_s1_photon_times    t = time[i] + trunc(exp * s1_decay_time)
 //                                + trunc(normal * s1_decay_spread) (simple
@@ -20,22 +20,45 @@
 //                                + trunc(custom) (custom model) and
 //                                + trunc(nest) (NEST model), in that order,
 //                                where the delays of table_samplers.cu are
-//                                given;
+//                                given.
+// The two S2 ones are cut by elements, not instructions (tiles.cuh): a
+// block takes a fixed tile of elements, finds the tile's segments once
+// (two 32-ary warp searches, then the few edges inside the tile in
+// registers, or a max-scan of the edges' marks in shared memory where there
+// are more) and handles four elements a thread a step with 16-byte loads
+// and stores, so an S2 of 10^6 photons spreads over every SM and no
+// element searches.  Where a tile holds a few instructions whose inverse
+// CDFs fit a tile's words of shared memory, they are copied there: a
+// photon's two reads at random columns then cost a few bank conflicts, not
+// ~20-30 L1 lines a warp:
 //   wfsim_s2_electron_times  e_t = time[i] + trunc(exp * trapping
-//                                + (normal * spread[i] + mean[i]));
-//                                the truth rows feed the electron-time
-//                                statistics;
+//                                + (normal * spread[i] + mean[i])) and the
+//                                truth row of the electron's instruction
+//                                (the electron-time statistics read it);
+//                                tiles of 1,024 electrons;
 //   wfsim_s2_photon_times    t = trunc(lerp of the instruction's inverse
 //                                CDF), or the given gas-gap luminescence
 //                                time t_lum, + trunc(exp * singlet or triplet
 //                                lifetime) + trunc(normal * s2_time_spread)
-//                                + e_t[electron]; a photon finds its electron
-//                                by a binary search of the photon edges of
-//                                the instruction's electrons.
+//                                + e_t[electron], and the photon's truth
+//                                row; a tile's electrons come from the
+//                                electrons' photon edges inside it, its
+//                                instructions from their first photons,
+//                                e_ph_edges[e_edges[i]], inside it (a
+//                                photon of electron k is in instruction i
+//                                exactly when e_edges[i] <= k, so counting
+//                                either edge gives the same instruction;
+//                                electrons without photons and instructions
+//                                without electrons share an edge and are
+//                                skipped).  Neither writes the element's
+//                                segment id: no caller reads it.
 //
-// What bounds them on the H100: the draws they read and the times, ids and
-// rows they write, 16-40 bytes an element (~50 MB for the bench S2 photon
-// pass); the luminescence table rows (4 KB each) stay in L1/L2.
+// What bounds them on the H100: the draws they read and the times and rows
+// they write, 20 bytes an electron and 28 a photon (~44 MB for the bench
+// S2 photon pass; the S1 pass 28); the luminescence table rows (4 KB each)
+// and the electron times stay in L1/L2.  The search of a tile's first and
+// last segments is a few dependent loads, which the other resident blocks
+// cover.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default, which rounds
 // once where the twin rounds twice: every product and sum is written with
@@ -45,12 +68,16 @@
 // normal draws make negative offsets, so the sign matters (a floor would
 // move every negative offset by 1 ns).  The lower table index is clamped
 // to Q-2 (ROADMAP F2).  The float constants are the float32 values torch
-// rounds the twin's Python floats to.
+// rounds the twin's Python floats to.  Edges are clamped to the elements
+// (an element past the last edge is not written), so a launch reads
+// nothing back and never reads past its arrays.
 #include <cuda_runtime.h>
+
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using tiles::kThreads;
 
 __global__ void s1_photon_times_kernel(
     const int* __restrict__ time, const long long* __restrict__ edges,
@@ -76,72 +103,239 @@ __global__ void s1_photon_times_kernel(
   }
 }
 
-__global__ void s2_electron_times_kernel(
-    const int* __restrict__ time, const long long* __restrict__ e_edges,
-    const float* __restrict__ mean, const float* __restrict__ spread,
-    const float* __restrict__ ex, const float* __restrict__ nrm,
-    const long long* __restrict__ truth_row, float trapping,
-    int* __restrict__ e_t, long long* __restrict__ e_inst,
-    long long* __restrict__ e_row) {
-  const int i = blockIdx.x;
-  const long long lo = e_edges[i], hi = e_edges[i + 1];
-  const int ti = time[i];
-  const float mi = mean[i], si = spread[i];
-  const long long row = truth_row[i];
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    const float timing = __fadd_rn(__fmul_rn(ex[j], trapping),
-                                   __fadd_rn(__fmul_rn(nrm[j], si), mi));
-    e_t[j] = ti + static_cast<int>(timing);
-    e_inst[j] = i;
-    e_row[j] = row;
+__device__ __forceinline__ bool in_range(long long i, long long S) {
+  return i >= 0 && i < S;
+}
+
+struct ElectronIn {
+  const int* time;
+  const long long* e_edges;     // (I+1,) electron edges of the instructions
+  long long I;
+  long long n;                  // electrons
+  const float* mean;
+  const float* spread;
+  const float* ex;
+  const float* nrm;
+  const long long* truth_row;
+  float trapping;
+  bool vec;                     // ex, nrm, e_t and e_row 16-byte aligned
+};
+
+constexpr int kElectronSteps = 1;   // tiles of 1,024 electrons
+
+__global__ void __launch_bounds__(tiles::kThreads)
+    s2_electron_times_kernel(ElectronIn in, int* __restrict__ e_t,
+                             long long* __restrict__ e_row) {
+  using namespace tiles;
+  constexpr int R = kElectronSteps;
+  constexpr long long kTile = static_cast<long long>(kStep) * R;
+  __shared__ __align__(16) unsigned marks[kTile];
+  __shared__ unsigned tot[R * kWarps];
+  const long long a = static_cast<long long>(blockIdx.x) * kTile;
+  const long long b = a + kTile < in.n ? a + kTile : in.n;
+  long long c0, c1;
+  warp_counts(in.e_edges, in.I, in.n, a, b - 1, c0, c1);
+  const long long s0 = c0 - 1, s1 = c1 - 1;
+  if (s0 == s1 && !in_range(s0, in.I)) return;   // the whole block
+  const TileIds ids = find_ids<R>(
+      marks, tot, s0, s1, a,
+      [&](long long s) { return edge(in.e_edges, s, in.n); });
+  long long cur = -1;
+  int ti = 0;
+  float mi = 0.0f, si = 0.0f;
+  long long row = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
+    const float4 e4 = load4f(in.ex, j0, b, in.vec);
+    const float4 n4 = load4f(in.nrm, j0, b, in.vec);
+    const float ex[4] = {e4.x, e4.y, e4.z, e4.w};
+    const float nr[4] = {n4.x, n4.y, n4.z, n4.w};
+    unsigned rel[4];
+    ids.step(r, rel);
+    int et[4];
+    long long er[4];
+    unsigned keep = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long id = s0 + rel[q];
+      et[q] = 0;
+      er[q] = 0;
+      if (j0 + q < b && in_range(id, in.I)) {
+        if (id != cur) {
+          cur = id;
+          ti = __ldg(in.time + cur);
+          mi = __ldg(in.mean + cur);
+          si = __ldg(in.spread + cur);
+          row = __ldg(in.truth_row + cur);
+        }
+        const float timing = __fadd_rn(__fmul_rn(ex[q], in.trapping),
+                                       __fadd_rn(__fmul_rn(nr[q], si), mi));
+        et[q] = ti + static_cast<int>(timing);
+        er[q] = row;
+        keep |= 1u << q;
+      }
+    }
+    store4(e_t, j0, et, keep, in.vec);
+    store4(e_row, j0, er, keep, in.vec);
   }
 }
 
-__global__ void s2_photon_times_kernel(
-    const float* __restrict__ inv, int Q,
-    const long long* __restrict__ e_edges,
-    const long long* __restrict__ e_ph_edges, const int* __restrict__ e_t,
-    const long long* __restrict__ truth_row, const float* __restrict__ u_lum,
-    const int* __restrict__ t_lum, const float* __restrict__ u_st,
-    const float* __restrict__ ex_st,
-    const float* __restrict__ nrm_ts, float singlet_fraction,
-    float t_singlet, float t_triplet, float time_spread,
-    int* __restrict__ t, long long* __restrict__ ph_inst,
-    long long* __restrict__ ph_row) {
-  const int i = blockIdx.x;
-  const long long e_lo = e_edges[i], e_hi = e_edges[i + 1];
-  const long long lo = e_ph_edges[e_lo], hi = e_ph_edges[e_hi];
-  const float* row_inv = inv + static_cast<long long>(i) * Q;
-  const long long row = truth_row[i];
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    // the electron of photon j: the last k in [e_lo, e_hi) whose first
-    // photon is at or before j (electrons without photons share an edge)
-    long long a = e_lo, b = e_hi;
-    while (a < b) {
-      const long long mid = (a + b) >> 1;
-      if (e_ph_edges[mid] <= j) a = mid + 1; else b = mid;
-    }
-    const long long k = a - 1;
-    int tt;
-    if (t_lum != nullptr) {
-      tt = t_lum[j];
+struct PhotonIn {
+  const float* inv;             // (I, Q) inverse CDFs, or null with t_lum
+  int Q;
+  const long long* e_edges;     // (I+1,)
+  long long I;
+  const long long* e_ph_edges;  // (E+1,)
+  long long E;
+  long long n;                  // photons
+  const int* e_t;
+  const long long* truth_row;
+  const float* u_lum;
+  const int* t_lum;
+  const float* u_st;
+  const float* ex_st;
+  const float* nrm_ts;
+  float singlet_fraction, t_singlet, t_triplet, time_spread;
+  bool vec;                     // every photon field 16-byte aligned
+};
+
+// the first photon of instruction i (clamped), through its first electron
+__device__ __forceinline__ long long first_photon(const PhotonIn& in,
+                                                  long long i) {
+  return tiles::edge(in.e_ph_edges, tiles::edge(in.e_edges, i, in.E), in.n);
+}
+
+// the tile's instructions' inverse CDFs (Q floats each) copied to `rows`
+// where they are all in range, their edges found in registers (so `rows`,
+// the instructions' marks' buffer, is free) and they fit its `cap` words: a
+// warp's photons read 32 random columns, a few bank conflicts from shared
+// memory against ~20-30 distinct L1 lines from the table; the block syncs
+__device__ __forceinline__ bool stage_inv(const PhotonIn& in, float* rows,
+                                          long long i0, long long i1,
+                                          long long cap) {
+  const long long n = (i1 - i0 + 1) * in.Q;
+  if (in.t_lum != nullptr || i0 < 0 || i1 >= in.I ||
+      i1 - i0 > tiles::kRegEdges || n > cap)
+    return false;
+  const float* src = in.inv + i0 * in.Q;
+  for (long long c = threadIdx.x; c < n; c += tiles::kThreads)
+    rows[c] = __ldg(src + c);
+  __syncthreads();
+  return true;
+}
+
+template <int R>
+__global__ void __launch_bounds__(tiles::kThreads)
+    s2_photon_times_kernel(PhotonIn in, int* __restrict__ t,
+                           long long* __restrict__ ph_row) {
+  using namespace tiles;
+  constexpr long long kTile = static_cast<long long>(kStep) * R;
+  // the electrons' marks, then the instructions' marks or staged rows
+  extern __shared__ __align__(16) unsigned marks[];
+  __shared__ unsigned tot[R * kWarps];
+  const long long a = static_cast<long long>(blockIdx.x) * kTile;
+  const long long b = a + kTile < in.n ? a + kTile : in.n;
+  long long c0, c1, d0, d1;
+  warp_counts(in.e_ph_edges, in.E, in.n, a, b - 1, c0, c1);
+  const long long k0 = c0 - 1, k1 = c1 - 1;   // electrons
+  warp_counts(in.e_edges, in.I, in.E, k0, k1, d0, d1);
+  const long long i0 = d0 - 1, i1 = d1 - 1;   // instructions
+  if (k0 == k1 && !(in_range(k0, in.E) && in_range(i0, in.I))) return;
+  const TileIds e_ids = find_ids<R>(
+      marks, tot, k0, k1, a,
+      [&](long long s) { return edge(in.e_ph_edges, s, in.n); });
+  const TileIds i_ids = find_ids<R>(
+      marks + kTile, tot, i0, i1, a,
+      [&](long long i) { return first_photon(in, i); });
+  float* staged = reinterpret_cast<float*>(marks + kTile);
+  const bool from_shared = stage_inv(in, staged, i0, i1, kTile);
+  const float qm1 = static_cast<float>(in.Q - 1);
+  long long cur_e = -1, cur_i = -1;
+  int et = 0;
+  long long row = 0;
+  const float* row_inv = nullptr;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
+    int lum[4] = {0, 0, 0, 0};
+    float ul[4] = {0.0f, 0.0f, 0.0f, 0.0f}, nr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (in.t_lum != nullptr) {
+      const int4 v = load4i(in.t_lum, j0, b, in.vec);
+      lum[0] = v.x, lum[1] = v.y, lum[2] = v.z, lum[3] = v.w;
     } else {
-      const float uq = __fmul_rn(u_lum[j], static_cast<float>(Q - 1));
-      long long i0 = static_cast<long long>(floorf(uq));
-      i0 = i0 < Q - 2 ? i0 : Q - 2;
-      const float w = __fsub_rn(uq, static_cast<float>(i0));
-      tt = static_cast<int>(
-          __fadd_rn(__fmul_rn(row_inv[i0], __fsub_rn(1.0f, w)),
-                    __fmul_rn(row_inv[i0 + 1], w)));
+      const float4 v = load4f(in.u_lum, j0, b, in.vec);
+      ul[0] = v.x, ul[1] = v.y, ul[2] = v.z, ul[3] = v.w;
     }
-    const float life = u_st[j] < singlet_fraction ? t_singlet : t_triplet;
-    tt += static_cast<int>(__fmul_rn(ex_st[j], life));
-    if (nrm_ts != nullptr)
-      tt += static_cast<int>(__fmul_rn(nrm_ts[j], time_spread));
-    t[j] = tt + e_t[k];
-    ph_inst[j] = i;
-    ph_row[j] = row;
+    const float4 s4 = load4f(in.u_st, j0, b, in.vec);
+    const float4 e4 = load4f(in.ex_st, j0, b, in.vec);
+    if (in.nrm_ts != nullptr) {
+      const float4 v = load4f(in.nrm_ts, j0, b, in.vec);
+      nr[0] = v.x, nr[1] = v.y, nr[2] = v.z, nr[3] = v.w;
+    }
+    const float us[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float ex[4] = {e4.x, e4.y, e4.z, e4.w};
+    int tt[4];
+    long long rr[4];
+    unsigned keep = 0;
+    unsigned ke[4], ki[4];
+    e_ids.step(r, ke);
+    i_ids.step(r, ki);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long k = k0 + ke[q], i = i0 + ki[q];
+      tt[q] = 0;
+      rr[q] = 0;
+      if (j0 + q < b && in_range(k, in.E) && in_range(i, in.I)) {
+        if (k != cur_e) {
+          cur_e = k;
+          et = __ldg(in.e_t + k);
+        }
+        if (i != cur_i) {
+          cur_i = i;
+          row = __ldg(in.truth_row + i);
+          row_inv = from_shared ? staged + (i - i0) * in.Q : in.inv + i * in.Q;
+        }
+        int v = lum[q];
+        if (in.t_lum == nullptr) {
+          const float uq = __fmul_rn(ul[q], qm1);
+          long long lo = static_cast<long long>(floorf(uq));
+          lo = lo < in.Q - 2 ? lo : in.Q - 2;
+          const float w = __fsub_rn(uq, static_cast<float>(lo));
+          v = static_cast<int>(
+              __fadd_rn(__fmul_rn(row_inv[lo], __fsub_rn(1.0f, w)),
+                        __fmul_rn(row_inv[lo + 1], w)));
+        }
+        const float life =
+            us[q] < in.singlet_fraction ? in.t_singlet : in.t_triplet;
+        v += static_cast<int>(__fmul_rn(ex[q], life));
+        if (in.nrm_ts != nullptr)
+          v += static_cast<int>(__fmul_rn(nr[q], in.time_spread));
+        tt[q] = v + et;
+        rr[q] = row;
+        keep |= 1u << q;
+      }
+    }
+    store4(t, j0, tt, keep, in.vec);
+    store4(ph_row, j0, rr, keep, in.vec);
   }
+}
+
+template <int R>
+cudaError_t launch_photons(const PhotonIn& in, int* t, long long* ph_row,
+                           cudaStream_t st) {
+  constexpr long long kTile = static_cast<long long>(tiles::kStep) * R;
+  const unsigned blocks = static_cast<unsigned>((in.n + kTile - 1) / kTile);
+  const size_t smem = 2 * kTile * sizeof(unsigned);   // at most 64 KB
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        s2_photon_times_kernel<R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  s2_photon_times_kernel<R><<<blocks, tiles::kThreads, smem, st>>>(in, t,
+                                                                    ph_row);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -168,46 +362,84 @@ extern "C" int wfsim_s1_photon_times(const void* time, const void* edges,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n electrons; e_t (n,) int32 and e_row (n,) int64, each element below
+// the clamped last edge written
 extern "C" int wfsim_s2_electron_times(const void* time, const void* e_edges,
-                                       int n_inst, const void* mean,
+                                       int n_inst, int n, const void* mean,
                                        const void* spread, const void* ex,
                                        const void* nrm, const void* truth_row,
                                        float trapping, void* e_t,
-                                       void* e_inst, void* e_row,
-                                       void* stream) {
-  if (n_inst <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  s2_electron_times_kernel<<<n_inst, kThreads, 0,
+                                       void* e_row, void* stream) {
+  if (n_inst <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  ElectronIn in;
+  in.time = static_cast<const int*>(time);
+  in.e_edges = static_cast<const long long*>(e_edges);
+  in.I = n_inst;
+  in.n = n;
+  in.mean = static_cast<const float*>(mean);
+  in.spread = static_cast<const float*>(spread);
+  in.ex = static_cast<const float*>(ex);
+  in.nrm = static_cast<const float*>(nrm);
+  in.truth_row = static_cast<const long long*>(truth_row);
+  in.trapping = trapping;
+  in.vec = tiles::aligned16(ex) && tiles::aligned16(nrm) &&
+           tiles::aligned16(e_t) && tiles::aligned16(e_row);
+  constexpr long long kTile =
+      static_cast<long long>(tiles::kStep) * kElectronSteps;
+  s2_electron_times_kernel<<<static_cast<unsigned>((n + kTile - 1) / kTile),
+                             tiles::kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(time), static_cast<const long long*>(e_edges),
-      static_cast<const float*>(mean), static_cast<const float*>(spread),
-      static_cast<const float*>(ex), static_cast<const float*>(nrm),
-      static_cast<const long long*>(truth_row), trapping,
-      static_cast<int*>(e_t), static_cast<long long*>(e_inst),
-      static_cast<long long*>(e_row));
+      in, static_cast<int*>(e_t), static_cast<long long*>(e_row));
   return static_cast<int>(cudaGetLastError());
 }
 
+// n photons of n_e electrons in tiles of `tile` (2,048, 4,096 or 8,192);
+// t (n,) int32 and ph_row (n,) int64, each photon below the clamped last
+// edges written
 extern "C" int wfsim_s2_photon_times(
     const void* inv, int Q, const void* e_edges, int n_inst,
-    const void* e_ph_edges, const void* e_t, const void* truth_row,
-    const void* u_lum, const void* t_lum, const void* u_st,
-    const void* ex_st, const void* nrm_ts, float singlet_fraction,
-    float t_singlet, float t_triplet, float time_spread, void* t,
-    void* ph_inst, void* ph_row, void* stream) {
-  if (n_inst <= 0 || (t_lum == nullptr && (Q < 2 || inv == nullptr ||
-                                           u_lum == nullptr)))
+    const void* e_ph_edges, int n_e, int n, int tile, const void* e_t,
+    const void* truth_row, const void* u_lum, const void* t_lum,
+    const void* u_st, const void* ex_st, const void* nrm_ts,
+    float singlet_fraction, float t_singlet, float t_triplet,
+    float time_spread, void* t, void* ph_row, void* stream) {
+  if (n_inst <= 0 || n_e < 0 || n < 0 ||
+      (t_lum == nullptr && (Q < 2 || inv == nullptr || u_lum == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  s2_photon_times_kernel<<<n_inst, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(inv), Q,
-      static_cast<const long long*>(e_edges),
-      static_cast<const long long*>(e_ph_edges),
-      static_cast<const int*>(e_t), static_cast<const long long*>(truth_row),
-      static_cast<const float*>(u_lum), static_cast<const int*>(t_lum),
-      static_cast<const float*>(u_st),
-      static_cast<const float*>(ex_st), static_cast<const float*>(nrm_ts),
-      singlet_fraction, t_singlet, t_triplet, time_spread,
-      static_cast<int*>(t), static_cast<long long*>(ph_inst),
-      static_cast<long long*>(ph_row));
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  PhotonIn in;
+  in.inv = static_cast<const float*>(inv);
+  in.Q = Q;
+  in.e_edges = static_cast<const long long*>(e_edges);
+  in.I = n_inst;
+  in.e_ph_edges = static_cast<const long long*>(e_ph_edges);
+  in.E = n_e;
+  in.n = n;
+  in.e_t = static_cast<const int*>(e_t);
+  in.truth_row = static_cast<const long long*>(truth_row);
+  in.u_lum = static_cast<const float*>(u_lum);
+  in.t_lum = static_cast<const int*>(t_lum);
+  in.u_st = static_cast<const float*>(u_st);
+  in.ex_st = static_cast<const float*>(ex_st);
+  in.nrm_ts = static_cast<const float*>(nrm_ts);
+  in.singlet_fraction = singlet_fraction;
+  in.t_singlet = t_singlet;
+  in.t_triplet = t_triplet;
+  in.time_spread = time_spread;
+  in.vec = tiles::aligned16(u_lum) && tiles::aligned16(t_lum) &&
+           tiles::aligned16(u_st) && tiles::aligned16(ex_st) &&
+           tiles::aligned16(nrm_ts) && tiles::aligned16(t) &&
+           tiles::aligned16(ph_row);
+  auto* out = static_cast<int*>(t);
+  auto* rows = static_cast<long long*>(ph_row);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (tile) {
+    case 2048: err = launch_photons<2>(in, out, rows, st); break;
+    case 4096: err = launch_photons<4>(in, out, rows, st); break;
+    case 8192: err = launch_photons<8>(in, out, rows, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -80,8 +80,8 @@
 // chunk of elements is one piece, and each tile of a chunk of the batch
 // another for the elements of rows longer than a chunk (a tile meets at
 // most two such rows, those holding its first and its last element, found
-// by two 32-ary searches of the row edges side by side: one ballot each a
-// step).  One function finds a piece's rows (find_piece) for both layouts
+// by two 32-ary searches of the row edges side by side, tiles.cuh's
+// warp_counts: one ballot each a step).  One function finds a piece's rows (find_piece) for both layouts
 // below and the per-PMT kernel; in a block every warp finds the same piece
 // itself, so no shared-memory round is needed for it.  The wrapper picks the layout from the batch's size and mean row
 // length, with no read-back: rows of a mean below 512 (S1 photons, S2
@@ -138,6 +138,8 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "tiles.cuh"
 
 namespace {
 
@@ -219,42 +221,6 @@ __device__ __forceinline__ long long edge(const TruthIn& in, long long r) {
   return e < in.n ? e : in.n;
 }
 
-// the first r in [0, n_rows) with edge(r) >= x, and the same for y
-// (n_rows if none), by two 32-ary searches side by side: each step the
-// lanes probe 32 points of each range, one ballot each
-__device__ void warp_lower_bounds(const TruthIn& in, long long x,
-                                  long long y, int& rx, int& ry) {
-  const int lane = threadIdx.x & 31;
-  int lo[2] = {0, 0}, hi[2] = {in.n_rows, in.n_rows};
-  const long long key[2] = {x, y};
-  while (lo[0] < hi[0] || lo[1] < hi[1]) {
-    int step[2];
-    bool ge[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      step[h] = (hi[h] - lo[h] + 31) >> 5;
-      const long long idx =
-          lo[h] + static_cast<long long>(lane + 1) * step[h] - 1;
-      ge[h] = lo[h] >= hi[h] || idx >= hi[h] || edge(in, idx) >= key[h];
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (lo[h] >= hi[h]) continue;
-      const unsigned b = __ballot_sync(kFull, ge[h]);
-      if (b == 0) {
-        lo[h] = hi[h];
-        continue;
-      }
-      const int f = __ffs(b) - 1;
-      const long long top = lo[h] + static_cast<long long>(f + 1) * step[h] - 1;
-      lo[h] += f * step[h];
-      hi[h] = top < hi[h] ? static_cast<int>(top) : hi[h];
-    }
-  }
-  rx = lo[0];
-  ry = lo[1];
-}
-
 // The pieces of a batch cut into chunks of elements: piece p < n_rows is
 // row p's first chunk, piece n_rows + k is tile k (elements [k chunk,
 // (k + 1) chunk)) past the first chunks of the rows it meets, at most two:
@@ -291,8 +257,10 @@ __device__ Piece find_piece(const TruthIn& in, long long p, long long chunk) {
   const long long c0 = (p - in.n_rows) * chunk;
   const long long c1 = c0 + chunk < in.n ? c0 + chunk : in.n;
   // the last rows starting at or before the tile's first and last elements
-  int r0, r1;
-  warp_lower_bounds(in, c0 + 1, c1, r0, r1);
+  // (the first row whose edge is at least x is the count of those below it)
+  long long n0, n1;
+  tiles::warp_counts(in.edges, in.n_rows - 1, in.n, c0, c1 - 1, n0, n1);
+  const int r0 = static_cast<int>(n0), r1 = static_cast<int>(n1);
   q.row[0] = r0 - 1;
   q.row[1] = r1 == r0 ? -1 : r1 - 1;
   const int rr = lane < 2 ? q.row[0] : q.row[1];
@@ -390,22 +358,6 @@ struct Batch {
     }
   }
 };
-
-// an atomic add with release and acquire at device scope: what a block
-// wrote (and fenced) before it is visible to whoever reads the count after
-__device__ __forceinline__ unsigned ticket_add(unsigned* p) {
-  unsigned old;
-  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
-               : "=r"(old) : "l"(p) : "memory");
-  return old;
-}
-
-// a release and acquire fence at device scope (enough to publish atomics
-// before a ticket and to read them after one; cheaper than __threadfence,
-// which is sequentially consistent)
-__device__ __forceinline__ void fence_acq_rel() {
-  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-}
 
 // a 4-byte asynchronous copy from global to shared memory, of its first
 // `bytes` (the rest zero)
@@ -676,13 +628,13 @@ __device__ bool combine_row(unsigned long long* w, RowTotal& s,
   if (lane == 17) key = s.xhi;
   if (lane >= 14 && lane < 18 && key != 0)
     atomicMax(w32 + 28 + (lane - 14), key);
-  fence_acq_rel();
+  tiles::fence_acq_rel();
   __syncwarp();
   unsigned ticket = 0;
-  if (lane == 0) ticket = ticket_add(w32 + 32);
+  if (lane == 0) ticket = tiles::ticket_add(w32 + 32);
   ticket = __shfl_sync(kFull, ticket, 0);
   if (ticket + 1 != pieces) return false;
-  fence_acq_rel();
+  tiles::fence_acq_rel();
   unsigned long long got = 0;
   if (lane <= 16) got = atomicExch(w + lane, 0ull);
 #pragma unroll
@@ -1063,12 +1015,12 @@ __device__ void per_pmt_piece(const TruthIn& in, const PmtOut& out, int r,
       atomicMax(wg + 2, xhi);
     }
   }
-  fence_acq_rel();
+  tiles::fence_acq_rel();
   __syncthreads();
-  if (threadIdx.x == 0) sh_last = ticket_add(wg + 3) + 1 == pieces;
+  if (threadIdx.x == 0) sh_last = tiles::ticket_add(wg + 3) + 1 == pieces;
   __syncthreads();
   if (!sh_last) return;
-  fence_acq_rel();
+  tiles::fence_acq_rel();
   if (threadIdx.x == 0) {
     sh_g[0] = atomicExch(wg, 0u);
     sh_g[1] = ~atomicExch(wg + 1, 0u);

@@ -12,19 +12,36 @@
 // first two (the gas-gap rows and fraction, the recoil class and the field
 // and energy grid positions) are torch at instruction width.
 //
-// The gas-gap and NEST entry points run one block per instruction walking
-// the instruction's photons [edges[i], edges[i+1]):
-//   wfsim_lumi_gasgap_times  T = lerp over the gas gap of the two table
-//                            rows at quantile u * (M-2), lerped between
-//                            floor and ceil (s2.py:271-286); the block sums
-//                            its photons' T in int64 fixed point (2^-32 ns,
-//                            each rounded half to even), so the sum is
-//                            exact and its order free (the wrapper raises
-//                            where a sum could pass int64:
-//                            check_fixed_point_range); the mean is that
-//                            sum over the count in float64, rounded to
-//                            float32 once; t = trunc(T - mean).  T is kept
-//                            in a scratch array between the two passes.
+// wfsim_lumi_gasgap_times: T = lerp over the gas gap of the two table rows
+// at quantile u * (M-2), lerped between floor and ceil (s2.py:271-286);
+// each instruction's photons' T summed in int64 fixed point (2^-32 ns, each
+// rounded half to even), so the sum is exact and its order free (the
+// wrapper raises where a sum could pass int64: a host bound first,
+// check_fixed_point_range where that fails); the mean is that sum over the
+// count in float64, rounded to float32 once; t = trunc(T - mean).  The work
+// is cut by photons, not instructions: two launches over the same tiles of
+// `tile` photons a block (tiles.cuh: each tile's instructions found once,
+// the few edges inside it in registers, or a max-scan of their marks; a
+// tile inside one instruction needs neither), four photons a thread a step
+// as one 16-byte load; where the tile's few instructions fit the shared
+// memory the marks used, their rows lerped over the gas gap are staged
+// there (a photon's T reads two staged values, not four table values that
+// land on ~20-30 L1 lines a warp):
+//   the sum pass  each tile adds its photons' fixed-point times to their
+//                 instructions' sums by integer atomics (a warp's running
+//                 sum while its steps stay inside one instruction, prefix
+//                 differences at the positions where the instruction
+//                 changes, one atomic a tile inside one instruction);
+//   the apply pass each tile reads its instructions' sums, takes a ticket
+//                 per instruction (the tile that completes one clears its
+//                 sum and ticket) and writes T, recomputed from u with the
+//                 same bits, minus the mean.
+// No per-photon scratch: u is read twice (the second time mostly from L2)
+// and t written once, 12 bytes a photon; the sums and tickets live in a
+// zeroed per-stream scratch that every launch leaves zero.
+//
+// The NEST entry point runs one block per instruction walking the
+// instruction's photons [edges[i], edges[i+1]):
 //   wfsim_nest_delays        the (class, field, energy, quantile) table read
 //                            at the 2 x 2 field/energy corners and the two
 //                            quantiles around u * (M-1), summed in the
@@ -57,11 +74,11 @@
 //                            int(table[row, col]) - avgt.
 //
 // What bounds them on the H100: the uniforms they read and the times they
-// write, 8 bytes a photon (+8 for the gas-gap scratch; 48 for the custom
-// delays, which read the 11 draws of the photon's class only, 2-6 of
-// them; 12 for the garfield times); the tables (40 KB gas-gap, 8 MB NEST,
-// 22 KB garfield) stay in L2 and the reads of one instruction hit the
-// same few rows.
+// write, 8 bytes a photon (+4 for the gas-gap sampler's second read of u;
+// 48 for the custom delays, which read the 11 draws of the photon's class
+// only, 2-6 of them; 12 for the garfield times); the tables (40 KB
+// gas-gap, 8 MB NEST, 22 KB garfield) stay in L2 and the reads of one
+// instruction hit the same few rows.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default; every product
 // and sum the twin rounds separately is written with __fmul_rn /
@@ -70,55 +87,417 @@
 // zero as trunc + .to(int32) does.
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using tiles::kThreads;
 
-__global__ void lumi_gasgap_kernel(const float* __restrict__ inv, int M,
-                                   const long long* __restrict__ lower,
-                                   const long long* __restrict__ upper,
-                                   const float* __restrict__ frac,
-                                   const long long* __restrict__ edges,
-                                   const float* __restrict__ u,
-                                   float* __restrict__ scratch,
-                                   int* __restrict__ t) {
-  __shared__ long long partial[kThreads];
-  __shared__ float mean;
-  const int i = blockIdx.x;
-  const long long lo = edges[i], hi = edges[i + 1];
-  if (lo >= hi) return;   // the whole block leaves together
-  const float* row_lo = inv + lower[i] * M;
-  const float* row_hi = inv + upper[i] * M;
-  const float f = frac[i];
-  const float scale = static_cast<float>(M - 2);
-  long long sum = 0;
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    const float s = __fmul_rn(u[j], scale);
-    const int i0 = static_cast<int>(floorf(s));
-    const int i1 = static_cast<int>(ceilf(s));
-    const float w = __fsub_rn(s, static_cast<float>(i0));
-    const float t1 = __fadd_rn(
-        __fmul_rn(__fsub_rn(row_hi[i0], row_lo[i0]), f), row_lo[i0]);
-    const float t2 = __fadd_rn(
-        __fmul_rn(__fsub_rn(row_hi[i1], row_lo[i1]), f), row_lo[i1]);
-    const float T = __fadd_rn(__fmul_rn(__fsub_rn(t2, t1), w), t1);
-    scratch[j] = T;
-    sum += __double2ll_rn(__dmul_rn(static_cast<double>(T), 0x1p32));
+// one instruction's gas-gap rows and fraction
+struct GasGapRows {
+  const float* lo;
+  const float* hi;
+  float f;
+};
+
+struct GasGapIn {
+  const float* inv;
+  int M;
+  const long long* lower;
+  const long long* upper;
+  const float* frac;
+  const long long* edges;   // (S+1,) photon edges of the instructions
+  long long S;
+  long long n;              // photons
+  const float* u;
+  bool vec;                 // u and t 16-byte aligned
+};
+
+__device__ __forceinline__ GasGapRows rows_of(const GasGapIn& g, long long i) {
+  return {g.inv + __ldg(g.lower + i) * g.M, g.inv + __ldg(g.upper + i) * g.M,
+          __ldg(g.frac + i)};
+}
+
+// T of one photon: the rows lerped at f, at the quantile u * (M-2) lerped
+// between floor and ceil (s2.py:271-286), each product and sum rounded
+__device__ __forceinline__ float gasgap_time(const GasGapRows& r, float u,
+                                             float scale) {
+  const float s = __fmul_rn(u, scale);
+  const int i0 = static_cast<int>(floorf(s));
+  const int i1 = static_cast<int>(ceilf(s));
+  const float w = __fsub_rn(s, static_cast<float>(i0));
+  const float a0 = __ldg(r.lo + i0), a1 = __ldg(r.lo + i1);
+  const float t1 = __fadd_rn(__fmul_rn(__fsub_rn(__ldg(r.hi + i0), a0), r.f),
+                             a0);
+  const float t2 = __fadd_rn(__fmul_rn(__fsub_rn(__ldg(r.hi + i1), a1), r.f),
+                             a1);
+  return __fadd_rn(__fmul_rn(__fsub_rn(t2, t1), w), t1);
+}
+
+// T in fixed point: an int64 multiple of 2^-32 ns, rounded half to even
+__device__ __forceinline__ unsigned long long fixed_of(float T) {
+  return static_cast<unsigned long long>(
+      __double2ll_rn(__dmul_rn(static_cast<double>(T), 0x1p32)));
+}
+
+__device__ __forceinline__ bool in_range(long long i, long long S) {
+  return i >= 0 && i < S;
+}
+
+// A tile's instructions' time rows in shared memory: for instruction s0 +
+// k, column c < M-1 (the sampled ones), (hi_c - lo_c) * f + lo_c, each
+// product and sum rounded as gasgap_time rounds them, so a photon's T from
+// the staged rows has the same bits as from the table.  A warp's photons
+// read 32 random columns: from shared memory a few bank conflicts, from
+// the table in L1 ~20-30 distinct lines a load.  Staged where the tile's
+// instructions are all in range, their edges found in registers (so the
+// marks' buffer, `rows`, is free) and their rows fit its `cap` words; the
+// caller syncs before reading them.
+__device__ __forceinline__ bool stage_rows(const GasGapIn& g, float* rows,
+                                           long long s0, long long s1,
+                                           long long cap) {
+  const long long n_rows = s1 - s0 + 1;
+  const int W = g.M - 1;
+  if (s0 < 0 || s1 >= g.S || s1 - s0 > tiles::kRegEdges || n_rows * W > cap)
+    return false;
+  // lane k of each warp fetches instruction s0 + k's rows, all at once
+  const int lane = threadIdx.x & 31;
+  GasGapRows mine{g.inv, g.inv, 0.0f};
+  if (lane < n_rows) mine = rows_of(g, s0 + lane);
+  for (int k = 0; k < n_rows; ++k) {
+    const float* lo = reinterpret_cast<const float*>(__shfl_sync(
+        tiles::kFull, reinterpret_cast<unsigned long long>(mine.lo), k));
+    const float* hi = reinterpret_cast<const float*>(__shfl_sync(
+        tiles::kFull, reinterpret_cast<unsigned long long>(mine.hi), k));
+    const float f = __shfl_sync(tiles::kFull, mine.f, k);
+    for (int c = threadIdx.x; c < W; c += tiles::kThreads) {
+      const float a = __ldg(lo + c);
+      rows[k * W + c] =
+          __fadd_rn(__fmul_rn(__fsub_rn(__ldg(hi + c), a), f), a);
+    }
   }
-  partial[threadIdx.x] = sum;
+  return true;
+}
+
+// T of one photon from its instruction's staged row
+__device__ __forceinline__ float staged_time(const float* row, float u,
+                                             float scale) {
+  const float s = __fmul_rn(u, scale);
+  const int i0 = static_cast<int>(floorf(s));
+  const int i1 = static_cast<int>(ceilf(s));
+  const float w = __fsub_rn(s, static_cast<float>(i0));
+  const float t1 = row[i0], t2 = row[i1];
+  return __fadd_rn(__fmul_rn(__fsub_rn(t2, t1), w), t1);
+}
+
+// The T of a tile's photons, compiled for one of two cases: from the
+// staged rows (kStaged), or from the table (rows_of, cached while the
+// instruction stays the same)
+template <bool kStaged>
+struct TileTimes {
+  const GasGapIn& g;
+  const float* rows;
+  long long s0;
+  float scale;
+  long long cur = -1;
+  GasGapRows rw{nullptr, nullptr, 0.0f};
+
+  __device__ __forceinline__ float operator()(long long id, float u) {
+    if (kStaged)
+      return staged_time(rows + (id - s0) * (g.M - 1), u, scale);
+    if (id != cur) {
+      rw = rows_of(g, id);
+      cur = id;
+    }
+    return gasgap_time(rw, u, scale);
+  }
+};
+
+// the thread's uniforms, every step, loaded before the tile's search so
+// that the search hides their latency
+template <int R>
+__device__ __forceinline__ void load_uniforms(const GasGapIn& g, long long a,
+                                              long long b, float (&u)[R][4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4 v = tiles::load4f(
+        g.u, a + 4 * (threadIdx.x + tiles::kThreads * r), b, g.vec);
+    u[r][0] = v.x;
+    u[r][1] = v.y;
+    u[r][2] = v.z;
+    u[r][3] = v.w;
+  }
+}
+
+// the mean of instruction i from its fixed-point sum: the sum over the
+// count in float64, rounded to float32 once
+__device__ __forceinline__ float mean_of(long long sum, long long count) {
+  return __double2float_rn(__ddiv_rn(__dmul_rn(__ll2double_rn(sum), 0x1p-32),
+                                     static_cast<double>(count)));
+}
+
+// add a warp's lane-held partial sum of instruction i (the same in every
+// lane) to its int64 sum, by one atomic
+__device__ __forceinline__ void flush_run(unsigned long long* sums,
+                                          long long i, long long S,
+                                          unsigned long long part) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    part += __shfl_xor_sync(tiles::kFull, part, d);
+  if ((threadIdx.x & 31) == 0 && in_range(i, S)) atomicAdd(sums + i, part);
+}
+
+// The sum pass over a tile's photons, compiled for staged rows (kStaged)
+// or the table: each tile adds its photons' fixed-point times to their
+// instructions' int64 sums by integer atomics (wrapping, so exact in any
+// order: the wrapper keeps every instruction's true sum inside int64).  A
+// lane keeps its photons' sum while its warp's steps of 128 photons stay
+// inside one instruction (a warp reduction and one atomic where that run
+// ends); a step that holds an instruction edge takes the warp's prefix of
+// its terms and adds, at each position p where the instruction changes,
+// P(p) to the instruction that ends and -P(p) to the one that starts, ends
+// the run and starts the last instruction's with its total.  Returns the
+// warp's last run (its instruction, this lane's part of its sum).
+template <int R, bool kStaged>
+__device__ __forceinline__ void sum_tile(const GasGapIn& g,
+                                         unsigned long long* sums,
+                                         const tiles::TileIds& ids,
+                                         const float* staged, long long a,
+                                         long long b, const float (&u)[R][4],
+                                         long long& run_id,
+                                         unsigned long long& run) {
+  using namespace tiles;
+  const int lane = threadIdx.x & 31;
+  const long long s0 = ids.s0;
+  TileTimes<kStaged> times{g, staged, s0, static_cast<float>(g.M - 2)};
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
+    unsigned rel[4];
+    ids.step(r, rel);
+    long long id[4];
+    unsigned long long c[4];           // the lane's inclusive prefix
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      id[q] = s0 + rel[q];
+      unsigned long long x = 0;
+      if (j0 + q < b && in_range(id[q], g.S))
+        x = fixed_of(times(id[q], u[r][q]));
+      c[q] = (q ? c[q - 1] : 0) + x;
+    }
+    const long long first = __shfl_sync(kFull, id[0], 0);
+    const long long last = __shfl_sync(kFull, id[3], 31);
+    if (first == last) {               // no edge inside the warp's step
+      if (first != run_id) {
+        flush_run(sums, run_id, g.S, run);
+        run_id = first;
+        run = 0;
+      }
+      run += c[3];
+      continue;
+    }
+    unsigned long long incl = c[3];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const unsigned long long off = incl - c[3];
+    const long long left = __shfl_up_sync(kFull, id[3], 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long prev = q ? id[q - 1] : (lane ? left : id[0]);
+      if (prev != id[q]) {
+        const unsigned long long P = off + (q ? c[q - 1] : 0);
+        if (in_range(prev, g.S)) atomicAdd(sums + prev, P);
+        if (in_range(id[q], g.S)) atomicAdd(sums + id[q], 0ull - P);
+      }
+    }
+    // the run ends in this step (its last part came at the first edge);
+    // the step's total starts the last instruction's run (whose negative
+    // part came at the last edge)
+    flush_run(sums, run_id, g.S, run);
+    run_id = last;
+    run = lane == 31 ? incl : 0ull;
+  }
+}
+
+// The sum pass: a tile's instructions found (tiles.cuh) and their rows
+// staged where they fit, then sum_tile; a tile inside one instruction
+// reduces over the block and adds once.
+template <int R>
+__global__ void __launch_bounds__(tiles::kThreads)
+    gasgap_sum_kernel(GasGapIn g, unsigned long long* sums) {
+  using namespace tiles;
+  constexpr long long kTile = static_cast<long long>(kStep) * R;
+  extern __shared__ __align__(16) unsigned marks[];
+  __shared__ unsigned tot[R * kWarps];
+  __shared__ unsigned long long wsum[kWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long a = static_cast<long long>(blockIdx.x) * kTile;
+  const long long b = a + kTile < g.n ? a + kTile : g.n;
+  float u[R][4];
+  load_uniforms<R>(g, a, b, u);
+  long long c0, c1;
+  warp_counts(g.edges, g.S, g.n, a, b - 1, c0, c1);
+  const long long s0 = c0 - 1, s1 = c1 - 1;
+  const TileIds ids = find_ids<R>(
+      marks, tot, s0, s1, a,
+      [&](long long s) { return edge(g.edges, s, g.n); });
+  float* staged = reinterpret_cast<float*>(marks);
+  const bool stage = stage_rows(g, staged, s0, s1, kTile);
+  if (stage) __syncthreads();
+  long long run_id = s0;               // the same in every lane
+  unsigned long long run = 0;          // this lane's part of it
+  if (stage)
+    sum_tile<R, true>(g, sums, ids, staged, a, b, u, run_id, run);
+  else
+    sum_tile<R, false>(g, sums, ids, staged, a, b, u, run_id, run);
+  if (s0 != s1) {
+    flush_run(sums, run_id, g.S, run);
+    return;
+  }
+#pragma unroll                         // one instruction: a block reduction
+  for (int d = 16; d > 0; d >>= 1) run += __shfl_xor_sync(kFull, run, d);
+  if (lane == 0) wsum[w] = run;
   __syncthreads();
-  for (int step = blockDim.x / 2; step > 0; step >>= 1) {
-    if (threadIdx.x < step) partial[threadIdx.x] += partial[threadIdx.x + step];
-    __syncthreads();
+  if (threadIdx.x == 0 && in_range(s0, g.S)) {
+    unsigned long long total = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) total += wsum[k];
+    atomicAdd(sums + s0, total);
   }
-  if (threadIdx.x == 0) {
-    const double total = __dmul_rn(__ll2double_rn(partial[0]), 0x1p-32);
-    mean = __double2float_rn(
-        __ddiv_rn(total, static_cast<double>(hi - lo)));
+}
+
+// The apply pass over a tile's photons, compiled for staged rows
+// (kStaged) or the table: t = trunc(T - mean), T recomputed from u with the
+// same arithmetic and bits; means: the tile's few instructions' means, or
+// null to compute them from the sums
+template <int R, bool kStaged>
+__device__ __forceinline__ void apply_tile(const GasGapIn& g,
+                                           const unsigned long long* sums,
+                                           const tiles::TileIds& ids,
+                                           const float* staged,
+                                           const float* means, long long a,
+                                           long long b,
+                                           const float (&u)[R][4], int* t) {
+  using namespace tiles;
+  const long long s0 = ids.s0;
+  TileTimes<kStaged> times{g, staged, s0, static_cast<float>(g.M - 2)};
+  long long cur = -1;
+  float m = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
+    unsigned rel[4];
+    ids.step(r, rel);
+    int v[4];
+    unsigned keep = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long id = s0 + rel[q];
+      v[q] = 0;
+      if (j0 + q < b && in_range(id, g.S)) {
+        if (means != nullptr) {
+          m = means[rel[q]];
+        } else if (id != cur) {
+          cur = id;
+          m = mean_of(static_cast<long long>(sums[id]),
+                      edge(g.edges, id + 1, g.n) - edge(g.edges, id, g.n));
+        }
+        v[q] = static_cast<int>(__fsub_rn(times(id, u[r][q]), m));
+        keep |= 1u << q;
+      }
+    }
+    store4(t, j0, v, keep, g.vec);
   }
+}
+
+// The apply pass: each tile reads its instructions' sums and takes a ticket
+// for each; the tile that completes an instruction's tiles clears its sum
+// and ticket, so the scratch is zero for the next call.  Where the tile
+// holds few instructions (their edges in registers), warp 0 reads their
+// sums into shared means while the rows are staged, and takes the tickets
+// after the one sync (so no thread of the tile reads a sum after it) while
+// the photons are written; otherwise each thread reads the sums of its
+// photons' instructions and the tickets come after the photons.
+template <int R>
+__global__ void __launch_bounds__(tiles::kThreads)
+    gasgap_apply_kernel(GasGapIn g, unsigned long long* sums,
+                        unsigned* tickets, int* __restrict__ t) {
+  using namespace tiles;
+  constexpr long long kTile = static_cast<long long>(kStep) * R;
+  extern __shared__ __align__(16) unsigned marks[];
+  __shared__ unsigned tot[R * kWarps];
+  __shared__ float means[kRegEdges + 1];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long a = static_cast<long long>(blockIdx.x) * kTile;
+  const long long b = a + kTile < g.n ? a + kTile : g.n;
+  float u[R][4];
+  load_uniforms<R>(g, a, b, u);
+  long long c0, c1;
+  warp_counts(g.edges, g.S, g.n, a, b - 1, c0, c1);
+  const long long s0 = c0 - 1, s1 = c1 - 1;
+  if (s0 == s1 && !in_range(s0, g.S)) return;   // the whole block
+  const TileIds ids = find_ids<R>(
+      marks, tot, s0, s1, a,
+      [&](long long s) { return edge(g.edges, s, g.n); });
+  const bool few = ids.m <= kRegEdges;
+  // with few instructions, lane k <= m of warp 0 owns instruction s0 + k
+  const long long mine = s0 + lane;
+  const bool owner = few && w == 0 && lane <= ids.m && in_range(mine, g.S);
+  long long lo = 0, hi = 0;
+  if (owner) {
+    lo = edge(g.edges, mine, g.n);
+    hi = edge(g.edges, mine + 1, g.n);
+    if (hi > lo)
+      means[lane] = mean_of(static_cast<long long>(sums[mine]), hi - lo);
+  }
+  float* staged = reinterpret_cast<float*>(marks);
+  const bool stage = stage_rows(g, staged, s0, s1, kTile);
   __syncthreads();
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x)
-    t[j] = static_cast<int>(__fsub_rn(scratch[j], mean));
+  bool last = false;
+  if (owner && hi > lo)
+    last = ticket_add(tickets + mine) ==
+           static_cast<unsigned>((hi - 1) / kTile - lo / kTile + 1) - 1;
+  const float* m = few ? means : nullptr;
+  if (stage)
+    apply_tile<R, true>(g, sums, ids, staged, m, a, b, u, t);
+  else
+    apply_tile<R, false>(g, sums, ids, staged, m, a, b, u, t);
+  if (few) {
+    if (last) {
+      sums[mine] = 0;
+      tickets[mine] = 0;
+    }
+    return;
+  }
+  __syncthreads();                     // every sum of the tile read
+  const long long i_end = s1 < g.S - 1 ? s1 : g.S - 1;
+  for (long long i = (s0 > 0 ? s0 : 0) + threadIdx.x; i <= i_end;
+       i += kThreads) {
+    const long long l = edge(g.edges, i, g.n), h = edge(g.edges, i + 1, g.n);
+    if (h <= l) continue;              // no photons: no tile holds it
+    if (ticket_add(tickets + i) ==
+        static_cast<unsigned>((h - 1) / kTile - l / kTile + 1) - 1) {
+      sums[i] = 0;
+      tickets[i] = 0;
+    }
+  }
+}
+
+template <int R>
+cudaError_t launch_gasgap(const GasGapIn& g, unsigned long long* sums,
+                          unsigned* tickets, int* t, cudaStream_t st) {
+  constexpr long long kTile = static_cast<long long>(tiles::kStep) * R;
+  const unsigned blocks = static_cast<unsigned>((g.n + kTile - 1) / kTile);
+  const size_t smem = kTile * sizeof(unsigned);
+  gasgap_sum_kernel<R><<<blocks, tiles::kThreads, smem, st>>>(g, sums);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gasgap_apply_kernel<R><<<blocks, tiles::kThreads, smem, st>>>(g, sums,
+                                                                 tickets, t);
+  return cudaGetLastError();
 }
 
 __global__ void nest_delays_kernel(
@@ -267,21 +646,41 @@ int grid_for(long long n) {
 
 }  // namespace
 
+// n photons in tiles of `tile` (2,048, 4,096 or 8,192); acc: n_inst zero
+// int64 sums then n_inst zero uint32 tickets, left zero (one buffer per
+// stream: two launches sharing it must not overlap)
 extern "C" int wfsim_lumi_gasgap_times(const void* inv, int G, int M,
                                        const void* lower, const void* upper,
                                        const void* frac, int n_inst,
                                        const void* edges, const void* u,
-                                       void* scratch, void* t, void* stream) {
-  if (n_inst <= 0 || G < 1 || M < 3)
+                                       int n, int tile, void* acc, void* t,
+                                       void* stream) {
+  if (n_inst <= 0 || G < 1 || M < 3 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  lumi_gasgap_kernel<<<n_inst, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(inv), M,
-      static_cast<const long long*>(lower),
-      static_cast<const long long*>(upper), static_cast<const float*>(frac),
-      static_cast<const long long*>(edges), static_cast<const float*>(u),
-      static_cast<float*>(scratch), static_cast<int*>(t));
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  GasGapIn g;
+  g.inv = static_cast<const float*>(inv);
+  g.M = M;
+  g.lower = static_cast<const long long*>(lower);
+  g.upper = static_cast<const long long*>(upper);
+  g.frac = static_cast<const float*>(frac);
+  g.edges = static_cast<const long long*>(edges);
+  g.S = n_inst;
+  g.n = n;
+  g.u = static_cast<const float*>(u);
+  g.vec = tiles::aligned16(u) && tiles::aligned16(t);
+  auto* sums = static_cast<unsigned long long*>(acc);
+  auto* tickets = reinterpret_cast<unsigned*>(sums + n_inst);
+  auto* out = static_cast<int*>(t);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (tile) {
+    case 2048: err = launch_gasgap<2>(g, sums, tickets, out, st); break;
+    case 4096: err = launch_gasgap<4>(g, sums, tickets, out, st); break;
+    case 8192: err = launch_gasgap<8>(g, sums, tickets, out, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" int wfsim_nest_delays(const void* table, int n_cls, int F, int En,

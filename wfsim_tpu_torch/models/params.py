@@ -23,7 +23,7 @@ from ..resources.loader import Resource, as_gridmap
 from ..resources.nest_tables import build_nest_timing_tables
 
 __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
-           'params_from_numpy', 'table_mean_int']
+           'params_from_numpy', 'table_mean_int', 'gasgap_time_max']
 
 
 @dataclasses.dataclass
@@ -34,7 +34,9 @@ class SimParams:
     garfield table's int mean, computed once on the host.  The noise bank
     is channel-major int16 (Cn, L): wfsim_tpu keeps it (L, Cn) int32 plus
     a wrap-extended copy (``noise_ext``) so a TPU can read one contiguous
-    span per row, which the card does not need."""
+    span per row, which the card does not need.  ``gg_t_max``, the largest
+    |time| the gas-gap sampler can give (:func:`gasgap_time_max`), is also
+    computed once on the host, from the tables and the gas-gap map."""
     gains: torch.Tensor                # (C,) f32 electrons/PE
     uniform_to_pe: torch.Tensor        # (C, 2001) f32
     templates: torch.Tensor            # (dt, L) f32 SPE current templates
@@ -58,6 +60,7 @@ class SimParams:
     garfield_t: ty.Optional[torch.Tensor] = None         # (R, M) f32
     garfield_x: ty.Optional[torch.Tensor] = None         # (R,) f32
     garfield_avgt: ty.Optional[int] = None               # int mean of t
+    gg_t_max: ty.Optional[float] = None                  # largest |T|, ns
     nest_inv_cdf: ty.Optional[torch.Tensor] = None       # (4, F, En, M) f32
     nest_fields: ty.Optional[torch.Tensor] = None        # (F,) f32
     nest_energies: ty.Optional[torch.Tensor] = None      # (En,) f32
@@ -354,11 +357,14 @@ def build_params(config, resource: Resource, device) -> SimParams:
         return None if a is None else t(a)
 
     # luminescence and NEST tables (wfsim_tpu params.py:380-385, 465-471)
-    gg_gas_gap = gg_inv_cdf = None
+    gg_gas_gap = gg_inv_cdf = gg_t_max = None
     if 'garfield_gas_gap' in str(config.get('s2_luminescence_model', '')):
         gg = resource.s2_luminescence_gg
         gg_gas_gap = np.asarray(gg['gas_gap'], dtype=np.float32)
         gg_inv_cdf = np.asarray(gg['timing_inv_cdf'], dtype=np.float32)
+        gap_map = as_gridmap(resource.garfield_gas_gap_map, ndim_in=2)
+        gg_t_max = gasgap_time_max(gg_inv_cdf, gg_gas_gap,
+                                   np.asarray(gap_map.values.cpu()))
     garfield_t = garfield_x = None
     if str(config.get('s2_luminescence_model', '')) == 'garfield':
         garfield_t = np.asarray(resource.s2_luminescence['t'],
@@ -392,6 +398,7 @@ def build_params(config, resource: Resource, device) -> SimParams:
         garfield_t=opt(garfield_t),
         garfield_x=opt(garfield_x),
         garfield_avgt=table_mean_int(garfield_t),
+        gg_t_max=gg_t_max,
         nest_inv_cdf=opt(nest[0]),
         nest_fields=opt(nest[1]),
         nest_energies=opt(nest[2]),
@@ -416,6 +423,47 @@ def table_mean_int(table) -> ty.Optional[int]:
         return None
     return int(np.mean(np.asarray(table, dtype=np.float32),
                        dtype=np.float64))
+
+
+def gasgap_time_max(inv_cdf, gas_gap, gap_values) -> float:
+    """The largest |T| the ``garfield_gas_gap`` sampler
+    (models/s2.py lumi_gasgap_times) can give where the gas-gap map takes
+    the values ``gap_values``: a host bound, so the sampler's int64
+    fixed-point range check needs no read-back where the photon total
+    times it fits (ROADMAP F12).
+
+    A lookup interpolates the map inside its grid, so its gaps lie between
+    the values' least and largest (widened by 2^-18 of the largest
+    magnitude for float32 rounding).  A gap maps to the row pair (k, k+1)
+    below the next table gap (the lowest pair also below the first gap,
+    where the fraction ``f`` extrapolates below 0), or to the last row
+    alone at or above the last gap.  Over a pair's fractions |f| <= F,
+    each sampled column c < M-1 gives |(hi_c - lo_c) f + lo_c| <= |lo_c|
+    + |hi_c - lo_c| F, and T lerps two columns, so the largest of these
+    bounds |T|; F and the result are widened by 2^-20 for float32
+    rounding of f and of T."""
+    inv = np.asarray(inv_cdf, dtype=np.float64)
+    gaps = np.asarray(gas_gap, dtype=np.float32)
+    values = np.asarray(gap_values, dtype=np.float64)
+    cols = inv[:, :inv.shape[1] - 1]
+    G = inv.shape[0]
+    pad = 2.0 ** -18 * float(np.abs(values).max())
+    g_lo, g_hi = float(values.min()) - pad, float(values.max()) + pad
+    best = 0.0
+    if G == 1 or g_hi >= gaps[G - 1]:             # the last row alone
+        best = float(np.abs(cols[G - 1]).max())
+    if G > 1:
+        dg = float(gaps[1] - gaps[0])             # float32, as the sampler's
+        for k in range(G - 1):
+            a = g_lo if k == 0 else max(g_lo, float(gaps[k]))
+            b = min(g_hi, float(gaps[k + 1]))
+            if a > b:
+                continue                          # no gap maps to this pair
+            F = max(abs(a - gaps[k]), abs(b - gaps[k])) / abs(dg)
+            F = F * (1 + 2.0 ** -20) + 2.0 ** -20
+            best = max(best, float((np.abs(cols[k]) + np.abs(
+                cols[k + 1] - cols[k]) * F).max()))
+    return best * (1 + 2.0 ** -20)
 
 
 def _pmt_ap_tables(config, resource, n_pmts):
@@ -459,8 +507,9 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
     ``'.lows'``, ``'.highs'`` for GridMap fields (the GridMap pytree leaf
     order); absent names are None.  wfsim_tpu's (L, Cn) int32
     ``noise_data`` becomes the channel-major int16 ``noise_bank``, and
-    ``garfield_avgt`` is computed from ``garfield_t``.  Raises if the tree
-    holds a field the port does not carry."""
+    ``garfield_avgt`` is computed from ``garfield_t`` and ``gg_t_max`` from
+    the gas-gap tables and map.  Raises if the tree holds a field the port
+    does not carry."""
     device = torch.device(device)
     names = {f.name for f in dataclasses.fields(SimParams)}
     tree = dict(tree)
@@ -473,7 +522,7 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
     if extra:
         raise NotImplementedError(f'fields not ported: {sorted(extra)}')
     kw = {}
-    for name in names - {'garfield_avgt'}:
+    for name in names - {'garfield_avgt', 'gg_t_max'}:
         if name in tree:
             kw[name] = torch.as_tensor(np.array(tree[name]), device=device)
         elif name + '.values' in tree:
@@ -483,4 +532,10 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
         else:
             kw[name] = None
     kw['garfield_avgt'] = table_mean_int(tree.get('garfield_t'))
+    kw['gg_t_max'] = None
+    if ('gg_inv_cdf' in tree and 'gg_gas_gap' in tree
+            and 'garfield_gas_gap_map.values' in tree):
+        kw['gg_t_max'] = gasgap_time_max(
+            tree['gg_inv_cdf'], tree['gg_gas_gap'],
+            tree['garfield_gas_gap_map.values'])
     return SimParams(**kw), SimConstants(**const_fields)

@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import Kernel, P, I, F, check_tensor, ptr, stream_of
+from .._build import (Kernel, P, I, F, check_tensor, ptr, scratch,
+                      stream_of)
 from .common import trunc_int
 from ..ops.randsample import uniform, normal
 from ..ops.segment import sorted_segment_sum, segment_min_max, expand_rows
@@ -59,7 +60,6 @@ PER_PMT_CHUNK = 8192
 #: synthetic SPE tables' terms lie in [0.068, 6])
 AREA_SCALE = 32
 _ROW_ACC_WORDS = 17          # the row kernel's accumulator a row (int64)
-_SCRATCH: dict = {}
 _SECOND_PASS: dict = {}
 
 
@@ -79,23 +79,6 @@ def row_truth_layout(n: int, n_rows: int):
     while w < 1024 and (w * n_rows < 2 * n or w * 2048 < n):
         w *= 2
     return False, w
-
-
-def _scratch(device, stream: int, words: int):
-    """The truth kernels' zeroed int64 scratch for launches on ``stream``
-    of ``device``, at least ``words`` long: the row kernel's accumulators
-    of rows across chunks and the per-PMT kernel's tables of long rows.
-    Every launch that completes leaves it zero, so it is made (or grown)
-    once, not cleared per call.  It is kept per stream: launches on one
-    stream run in order, while two streams' launches could overlap and mix
-    their sums in one buffer.  A launch that faults part-way leaves the
-    CUDA context unusable, and the buffer with it."""
-    key = (device, stream)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
-        _SCRATCH[key] = buf
-    return buf
 
 
 def pmt_truth_second_pass(device):
@@ -378,7 +361,7 @@ def _row_truth(params, const, t, valid, row_edges, ph=None) -> dict:
                t_sigma=torch.empty(R, dtype=torch.float64, device=dev))
     if R:
         stream = stream_of(dev)
-        acc = _scratch(dev, stream, R * _ROW_ACC_WORDS)
+        acc = scratch(dev, stream, R * _ROW_ACC_WORDS)
         block_rows, chunk = row_truth_layout(n, R)
         _row_kernel(ptr(row_edges), R, n, chunk.bit_length() - 1,
                     int(block_rows), ptr(t),
@@ -419,14 +402,14 @@ def _row_truth_per_pmt(params, const, ph, row_edges) -> dict:
     if R:
         tiles = -(-n // PER_PMT_CHUNK)
         stream = stream_of(dev)
-        scratch = _scratch(dev, stream, tiles * (4 * C + 2))
+        table = scratch(dev, stream, tiles * (4 * C + 2))
         _per_pmt_kernel(ptr(row_edges), R, n, PER_PMT_CHUNK,
                         *(ptr(_aligned(ph[k])) for k in (
                             't', 'valid', 'ch', 'gain', 'is_dpe')),
                         ptr(_aligned(params.chan_pack)), C,
                         ptr(params.current_max), dt,
                         float(np.float32(const.current_2_adc)), AREA_SCALE,
-                        ptr(counts), ptr(areas), ptr(scratch),
+                        ptr(counts), ptr(areas), ptr(table),
                         ptr(pmt_truth_second_pass(dev)), stream)
     return dict(zip(PER_PMT_SUMS, (*counts, *areas)))
 

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from .. import units
-from .._build import Kernel, P, I, F, check_tensor, ptr, stream_of
+from .._build import (Kernel, P, I, F, check_tensor, ptr, scratch,
+                      stream_of)
 from ..ops.interp import grid_lookup_ref
 from ..ops.randsample import (channel_draw, search_sorted_rows, binomial,
                               poisson, uniform, normal, exponential)
@@ -396,6 +397,14 @@ def lumi_gasgap_times_ref(inv_cdf, lower, upper, frac, ph_edges, u):
     return trunc_int(T - mean[ph])
 
 
+def _check_edges(edges, n: int, what: str):
+    """The CPU paths' check that the edges end at the ``n`` elements (on the
+    card the kernels clamp them instead: no read-back)."""
+    if edges.device.type == 'cpu' and int(edges[-1]) != n:
+        raise ValueError(f'{what}: the edges end at {int(edges[-1])}, not '
+                         f'at {n}')
+
+
 def check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges):
     """Raise ``OverflowError`` where an instruction's int64 fixed-point time
     sum (:data:`FIXED_POINT_SCALE`) could wrap: its photon count times the
@@ -403,24 +412,36 @@ def check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges):
     instruction's times are lerps of its row pair at ``frac`` over the
     sampled columns 0..M-2, so their largest magnitude bounds |T|; the
     factor 1 + 2^-16 covers the float32 rounding of T and of this product,
-    the + 1 ns the rounding of each term to 2^-32 ns."""
+    the + 1 ns the rounding of each term to 2^-32 ns.  Reads one number
+    back from the card."""
     if lower.shape[0] == 0:
         return
     M = inv_cdf.shape[1]
     lo, hi = inv_cdf[lower, :M - 1], inv_cdf[upper, :M - 1]
     t_max = ((hi - lo) * frac[:, None] + lo).abs().amax(dim=1)
     worst = ((ph_edges[1:] - ph_edges[:-1]) * t_max).max().item()
-    if worst * (1 + 2.0 ** -16) + 1 >= 2.0 ** 31:
+    if fixed_point_fails(worst):
         raise OverflowError(
             f'an instruction\'s photons sum to ~{worst:.4g} ns, past the '
             f'int64 fixed-point range of its mean time ({2.0 ** 31:.4g} ns)')
 
 
+def fixed_point_fails(worst: float) -> bool:
+    """Whether photons whose |T| sum to at most ``worst`` ns could pass the
+    int64 fixed-point range of :func:`check_fixed_point_range`."""
+    return worst * (1 + 2.0 ** -16) + 1 >= 2.0 ** 31
+
+
+#: photons a block of the gas-gap sampler's kernels takes (2,048, 4,096 or
+#: 8,192; chip_smoke.py's photon_times_measure sweeps them)
+GASGAP_TILE = 4096
+
 _gasgap_kernel = Kernel('wfsim_lumi_gasgap_times',
-                        [P, I, I, P, P, P, I, P, P, P, P, P])
+                        [P, I, I, P, P, P, I, P, P, I, I, P, P, P])
 
 
-def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u):
+def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *,
+                      t_max=None):
     """Luminescence times of the ``garfield_gas_gap`` model (wfsim_tpu
     s2.py:255 luminescence_garfield_gasgap; reference s2.py:411-483):
     photon j of instruction i interpolates the rows ``lower[i]`` and
@@ -433,8 +454,13 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u):
     to float32 once: exact, and the same in any order, so the kernel's
     parallel sum equals the twin's on either device.  wfsim_tpu sums in
     float32 (ROADMAP Queue 3 F12).  An instruction whose sum could pass
-    int64 raises (:func:`check_fixed_point_range`: about 2^31 ns summed
-    over its photons, e.g. 1.2e7 photons at the synthetic table's ~175 ns).
+    int64 raises ``OverflowError`` (about 2^31 ns summed over its photons,
+    e.g. 1.2e7 photons at the synthetic table's ~175 ns): where ``t_max``
+    (a host float, the largest |T| any photon can take:
+    ``SimParams.gg_t_max``) times the photon total fits, nothing is
+    checked; else :func:`check_fixed_point_range` decides, with one
+    read-back.  The bound is never below that check's, so both raise on
+    the same inputs.
 
     :param inv_cdf: (G, M) float32 per-gas-gap inverse CDFs
     :param lower, upper: (I,) int64 rows, ``frac`` (I,) float32
@@ -444,8 +470,11 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u):
     :param u: (N,) float32 uniforms
     :returns: (N,) int32 times (ns)
 
-    CPU tensors run :func:`lumi_gasgap_times_ref`; CUDA tensors launch
-    ``csrc/table_samplers.cu`` (one block per instruction)."""
+    CPU tensors run :func:`lumi_gasgap_times_ref` and raise where the
+    edges do not end at N; CUDA tensors launch ``csrc/table_samplers.cu``
+    (tiles of :data:`GASGAP_TILE` photons a block, a sum pass and an
+    apply pass), which reads nothing back and clamps the edges to the N
+    photons (a photon past the last edge is not written)."""
     dev = inv_cdf.device
     n_inst = lower.shape[0]
     n = u.shape[0]
@@ -457,19 +486,22 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u):
     check_tensor('frac', frac, torch.float32, (n_inst,), dev)
     check_tensor('ph_edges', ph_edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('u', u, torch.float32, (n,), dev)
-    if int(ph_edges[-1]) != n:
-        raise ValueError(f'{n} uniforms for {int(ph_edges[-1])} photons')
-    check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges)
+    _check_edges(ph_edges, n, 'uniforms')
+    if t_max is None or fixed_point_fails(n * float(t_max)):
+        check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges)
     if dev.type == 'cpu':
         return lumi_gasgap_times_ref(inv_cdf, lower, upper, frac, ph_edges, u)
     if dev.type != 'cuda':
         raise NotImplementedError(f'lumi_gasgap_times on {dev}')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} photons: the kernel counts them as int')
     t = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(n, dtype=torch.float32, device=dev)
-    if n:
+    if n and n_inst:
+        stream = stream_of(dev)
+        acc = scratch(dev, stream, n_inst + (n_inst + 1) // 2)
         _gasgap_kernel(ptr(inv_cdf), *inv_cdf.shape, ptr(lower), ptr(upper),
-                       ptr(frac), n_inst, ptr(ph_edges), ptr(u), ptr(scratch),
-                       ptr(t), stream_of(dev))
+                       ptr(frac), n_inst, ptr(ph_edges), ptr(u), n,
+                       GASGAP_TILE, ptr(acc), ptr(t), stream)
     return t
 
 
@@ -873,11 +905,11 @@ def s2_electron_times_ref(time, e_edges, mean, spread, exp, nrm, truth_row,
     e_inst = segment_ids_from_counts(e_edges[1:] - e_edges[:-1])
     timing = exp * trapping
     timing = timing + (nrm * spread[e_inst] + mean[e_inst])
-    return time[e_inst] + trunc_int(timing), e_inst, truth_row[e_inst]
+    return time[e_inst] + trunc_int(timing), truth_row[e_inst]
 
 
 _e_kernel = Kernel('wfsim_s2_electron_times',
-                   [P, P, I, P, P, P, P, P, F, P, P, P, P])
+                   [P, P, I, I, P, P, P, P, P, F, P, P, P])
 
 
 def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
@@ -886,10 +918,13 @@ def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
     trunc(exp * trapping + (normal * spread[i] + mean[i]))`` for the
     electrons [e_edges[i], e_edges[i+1]) of instruction i.
 
-    :returns: (e_t (E,) int32, e_inst (E,) int64, truth row (E,) int64)
+    :returns: (e_t (E,) int32, truth row (E,) int64)
 
-    CPU tensors run :func:`s2_electron_times_ref`; CUDA tensors launch
-    ``csrc/photon_times.cu``."""
+    CPU tensors run :func:`s2_electron_times_ref` and raise where the
+    edges do not end at E; CUDA tensors launch ``csrc/photon_times.cu``
+    (tiles of 1,024 electrons a block), which reads nothing back and
+    clamps the edges to the E electrons (one past the last edge is not
+    written)."""
     dev = time.device
     n_inst = time.shape[0]
     n = exp.shape[0]
@@ -900,22 +935,22 @@ def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
     for name, x in (('exp', exp), ('normal', nrm)):
         check_tensor(name, x, torch.float32, (n,), dev)
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
-    if int(e_edges[-1]) != n:
-        raise ValueError(f'{n} draws for {int(e_edges[-1])} electrons')
+    _check_edges(e_edges, n, 'electron draws')
     if dev.type == 'cpu':
         return s2_electron_times_ref(time, e_edges, mean, spread, exp, nrm,
                                      truth_row, trapping=trapping)
     if dev.type != 'cuda':
         raise NotImplementedError(f's2_electron_times on {dev}')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} electrons: the kernel counts them as int')
     e_t = torch.empty(n, dtype=torch.int32, device=dev)
-    e_inst = torch.empty(n, dtype=torch.int64, device=dev)
     e_row = torch.empty(n, dtype=torch.int64, device=dev)
-    if n:
-        _e_kernel(ptr(time), ptr(e_edges), n_inst, ptr(mean), ptr(spread),
-                  ptr(exp), ptr(nrm), ptr(truth_row),
-                  float(np.float32(trapping)), ptr(e_t), ptr(e_inst),
-                  ptr(e_row), stream_of(dev))
-    return e_t, e_inst, e_row
+    if n and n_inst:
+        _e_kernel(ptr(time), ptr(e_edges), n_inst, n, ptr(mean),
+                  ptr(spread), ptr(exp), ptr(nrm), ptr(truth_row),
+                  float(np.float32(trapping)), ptr(e_t), ptr(e_row),
+                  stream_of(dev))
+    return e_t, e_row
 
 
 def s2_photon_times_ref(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum,
@@ -931,12 +966,16 @@ def s2_photon_times_ref(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum,
     if t_spread is not None:
         t = t + trunc_int(t_spread * time_spread)
     t = t + e_t[ph_e]
-    return t, ph_inst, truth_row[ph_inst]
+    return t, truth_row[ph_inst]
 
+
+#: photons a block of the S2 photon-time kernel takes (2,048, 4,096 or
+#: 8,192; chip_smoke.py's photon_times_measure sweeps them)
+PHOTON_TILE = 4096
 
 _ph_kernel = Kernel('wfsim_s2_photon_times',
-                    [P, I, P, I, P, P, P, P, P, P, P, P, F, F, F, F, P, P, P,
-                     P])
+                    [P, I, P, I, P, I, I, I, P, P, P, P, P, P, P, F, F, F, F,
+                     P, P, P])
 
 
 def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
@@ -952,10 +991,13 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
     electrons [e_edges[i], e_edges[i+1]); electron k the photons
     [e_ph_edges[k], e_ph_edges[k+1]).
 
-    :returns: (t (N,) int32, ph_inst (N,) int64, truth row (N,) int64)
+    :returns: (t (N,) int32, truth row (N,) int64)
 
-    CPU tensors run :func:`s2_photon_times_ref`; CUDA tensors launch
-    ``csrc/photon_times.cu``."""
+    CPU tensors run :func:`s2_photon_times_ref` and raise where the edges
+    do not end at the electrons and photons; CUDA tensors launch
+    ``csrc/photon_times.cu`` (tiles of :data:`PHOTON_TILE` photons a
+    block), which reads nothing back and clamps the edges to them (a
+    photon past the last edges is not written)."""
     dev = e_t.device
     n_inst = truth_row.shape[0]
     n_e = e_t.shape[0]
@@ -977,8 +1019,8 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
                     *((('t_spread', t_spread),) if t_spread is not None
                       else ())):
         check_tensor(name, x, torch.float32, (n,), dev)
-    if int(e_edges[-1]) != n_e or int(e_ph_edges[-1]) != n:
-        raise ValueError('edges do not match the electron and photon draws')
+    _check_edges(e_edges, n_e, 'electrons')
+    _check_edges(e_ph_edges, n, 'photon draws')
     kw = dict(singlet_fraction=singlet_fraction, t_singlet=t_singlet,
               t_triplet=t_triplet, time_spread=time_spread, t_lum=t_lum)
     if dev.type == 'cpu':
@@ -988,20 +1030,22 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
         raise NotImplementedError(f's2_photon_times on {dev}')
     if inv is not None and q < 2:
         raise ValueError('the inverse CDFs need >= 2 quantiles')
+    if n >= 2 ** 31 or n_e >= 2 ** 31:
+        raise ValueError(f'{n} photons of {n_e} electrons: the kernel '
+                         f'counts them as int')
     t = torch.empty(n, dtype=torch.int32, device=dev)
-    ph_inst = torch.empty(n, dtype=torch.int64, device=dev)
     ph_row = torch.empty(n, dtype=torch.int64, device=dev)
 
     def opt(x):
         return None if x is None else ptr(x)
-    if n:
-        _ph_kernel(opt(inv), q, ptr(e_edges), n_inst, ptr(e_ph_edges),
-                   ptr(e_t), ptr(truth_row), opt(u_lum), opt(t_lum),
-                   ptr(u_st), ptr(exp_st), opt(t_spread),
+    if n and n_inst:
+        _ph_kernel(opt(inv), q, ptr(e_edges), n_inst, ptr(e_ph_edges), n_e,
+                   n, PHOTON_TILE, ptr(e_t), ptr(truth_row), opt(u_lum),
+                   opt(t_lum), ptr(u_st), ptr(exp_st), opt(t_spread),
                    *(float(np.float32(v)) for v in (
                        singlet_fraction, t_singlet, t_triplet, time_spread)),
-                   ptr(t), ptr(ph_inst), ptr(ph_row), stream_of(dev))
-    return t, ph_inst, ph_row
+                   ptr(t), ptr(ph_row), stream_of(dev))
+    return t, ph_row
 
 
 # ---------------------------------------------------------------------------
@@ -1045,7 +1089,7 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     z_obs, positions = draws['z_obs'], draws['xy_obs']
     e_edges, e_ph_edges, ph_edges = s2_edges(draws)
     mean, spread = get_s2_drift_time_params(const, inst['z'])
-    e_t, _e_inst, e_row = s2_electron_times(
+    e_t, e_row = s2_electron_times(
         inst['time'], e_edges, mean, spread, draws['e_exp'],
         draws['e_normal'], inst['truth_row'],
         trapping=const.electron_trapping_time)
@@ -1058,7 +1102,7 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     if const.s2_luminescence_model == 'garfield_gas_gap':
         lum['t_lum'] = lumi_gasgap_times(
             params.gg_inv_cdf, *gasgap_rows(params, positions), ph_edges,
-            draws['u_lum'])
+            draws['u_lum'], t_max=params.gg_t_max)
     elif const.s2_luminescence_model == 'garfield':
         lum['t_lum'] = lumi_garfield_times(
             params.garfield_t, params.garfield_x, positions, ph_edges,
@@ -1068,7 +1112,7 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     else:
         lum['inv'] = luminescence_tables(const, n_inst, dev)
         lum['u_lum'] = draws['u_lum']
-    t, _ph_inst, truth_row = s2_photon_times(
+    t, truth_row = s2_photon_times(
         lum['inv'], e_edges, e_ph_edges, e_t, inst['truth_row'],
         lum['u_lum'], draws['u_st'], draws['exp_st'], draws['t_spread'],
         singlet_fraction=const.singlet_fraction_gas,
