@@ -3,8 +3,7 @@
 
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
-                           pmt_truth_layouts|photon_times|
-                           photon_times_tiles]]
+                           pmt_truth_layouts|photon_times]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -28,11 +27,9 @@ the luminescence tables and the summaries (``lumi_summaries_measure``),
 ``--only pmt_truth`` only the row truth and the per-PMT truth
 (``pmt_truth_measure``), ``--only pmt_truth_layouts`` the truth kernels
 under each layout and chunk they could take (``pmt_truth_layouts_measure``;
-give this tree as OTHER_TREE to measure it in four processes),
+give this tree as OTHER_TREE to measure it in four processes), and
 ``--only photon_times`` only the gas-gap luminescence times and the S1,
-S2 electron and S2 photon times (``photon_times_measure``), ``--only
-photon_times_tiles`` the gas-gap and S2 photon-time kernels under each
-tile size (``photon_times_tiles_measure``; this tree as OTHER_TREE).
+S2 electron and S2 photon times (``photon_times_measure``).
 """
 import argparse
 import json
@@ -99,13 +96,13 @@ def main():
                     help='measure the kernel rows, not the runs')
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
                                        'pmt_truth', 'pmt_truth_layouts',
-                                       'photon_times', 'photon_times_tiles'),
+                                       'photon_times'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
                          'K8 row-truth and K16 rows only, those two '
-                         'kernels under each layout, the K13a and K9 rows '
-                         'only, or those two kernels under each tile')
+                         'kernels under each layout, or the K13a and K9 '
+                         'rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

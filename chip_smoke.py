@@ -115,8 +115,9 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     for K16).  Every configuration's run leaves the second-pass counts at
     0 (``expect_no_second_pass``).
 
-3o. the gas-gap luminescence times (K13a: tiles of photons, a sum pass
-    whose pieces combine by integer atomics and an apply pass) on the
+3o. the gas-gap luminescence times (K13a: a block an instruction of up
+    to 8,192 photons; a larger one listed and cut into tiles, whose sums
+    combine by integer atomics in a sum pass, then an apply pass) on the
     detector_physics S2 batch (~1.57 M photons in 512 instructions) and a
     copy whose instruction 100 holds 10^6 photons, and the S2 photon times
     (K9: tiles of photons, each photon's electron and instruction from a
@@ -133,9 +134,6 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     kernel, ``host_us`` over 1,000 calls, the twin's time and the bound
     (each input read once and each output written once; the old count,
     with the segment ids the kernels no longer write, printed beside).
-    ``photon_times_tiles_measure`` times K13a and K9 under each tile of
-    PHOTON_TIME_TILES (``ab_port.py . --kernels --only
-    photon_times_tiles``).
 
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
@@ -970,7 +968,8 @@ def phase_3d(params, const, batches, dev, smi):
     _z, xy = s2.s2_positions(params, const, x2)
     gg_args = (params.gg_inv_cdf, *s2.gasgap_rows(params, xy), ph_edges,
                d2['u_lum'])
-    check('lumi_gasgap_times', lambda: (s2.lumi_gasgap_times(*gg_args),),
+    check('lumi_gasgap_times', lambda: (s2.lumi_gasgap_times(
+              *gg_args, t_max=params.gg_t_max),),
           lambda: (s2.lumi_gasgap_times_ref(*gg_args),), gg_args,
           ops32=n_ph * 16, ops64=n_ph * 2)
 
@@ -2626,8 +2625,6 @@ def pmt_truth_layouts_measure(dev, smi, max_syncs=None):
 #: have no electrons and a tenth of the other electrons no photons
 PHOTON_SKEWED = dict(inst=100, photons=1_000_000, electron=100_000,
                      no_electrons=(3, 200, 511), no_photons=0.1)
-#: the tiles the gas-gap and photon-time kernels take
-PHOTON_TIME_TILES = (2048, 4096, 8192)
 
 
 def detector_s2_batch(dev, seed):
@@ -2848,36 +2845,6 @@ def photon_times_measure(dev, smi, max_syncs=(0, 0)):
         if key[0] == dev and buf.any():
             raise AssertionError(f'the kernels\' scratch of {key} is not '
                                  f'zero')
-    return res
-
-
-def photon_times_tiles_measure(dev, smi, max_syncs=None):
-    """The tile sizes of the gas-gap sampler and the S2 photon-time kernel
-    (PHOTON_TIME_TILES) on photon_times_measure's rows of those kernels:
-    each row's device time under each tile, every output bitwise the
-    default tile's.  ``max_syncs`` is unused (``ab_port.py --only`` passes
-    it).  Returns {row name: {device_ms, split, photons, rows}}."""
-    from wfsim_tpu_torch.models import s2
-    del max_syncs
-    rows = photon_times_rows(dev)
-    saved = s2.GASGAP_TILE, s2.PHOTON_TILE
-    res = {}
-    try:
-        for name, (which, kernel, _p, _i, _d, _o32, _o64, n,
-                   segs) in rows.items():
-            if which is None or name.startswith('s2_electron'):
-                continue
-            want = kernel()
-            for tile in PHOTON_TIME_TILES:
-                s2.GASGAP_TILE = s2.PHOTON_TILE = tile
-                compare(kernel(), want, f'{name} tile {tile}')
-                ms, split = device_ms(kernel, reps=30)
-                res[f'{name}_tile_{tile}'] = dict(device_ms=ms, split=split,
-                                                  photons=n, rows=segs)
-                print(f'[times tiles] {name} tile {tile}: {ms} ms, bitwise '
-                      f'the default ({smi})')
-    finally:
-        s2.GASGAP_TILE, s2.PHOTON_TILE = saved
     return res
 
 

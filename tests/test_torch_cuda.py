@@ -9,6 +9,8 @@ port's machine need not have, hence --noconftest):
 Tolerance: bitwise — each kernel adds, compares and copies exactly what
 its twin does, in the same order.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,8 @@ from .test_torch_ap_diffuse_redesign import (
 from .test_torch_lumi_summaries_redesign import (
     LUMI_CASES, SUMMARY_CASES, lumi_case, sequential_rows_np, summary_case)
 from .test_torch_photon_times_redesign import (
-    PHOTON_CASES, TILES, electron_args, gasgap_args, photon_args, photon_case)
+    PHOTON_CASES, electron_args, gasgap_args, photon_args, photon_case,
+    tiled_np)
 from .test_torch_pmt_truth_order import (
     SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
     photon_terms, truth_case)
@@ -1344,34 +1347,38 @@ def _twice_bitwise(fn, want):
 
 
 @pytest.mark.parametrize('name', PHOTON_CASES)
-def test_gasgap_kernel_on_cases(dev, monkeypatch, name):
-    """wfsim_lumi_gasgap_times under each tile size: bitwise its twin on the
-    CPU and on the card, the same bits on a second call, no host sync with
-    the host bound given, one launch a call and the scratch left zero."""
+def test_gasgap_kernel_on_cases(dev, name):
+    """wfsim_lumi_gasgap_times: bitwise its twin on the CPU and on the card,
+    the same bits on a second call, no host sync with the host bound
+    given, one launch a call and the scratch (sums, tickets and the flag)
+    left zero.  The bench case runs every instruction in an instruction
+    block; the others also list one or more for the tile passes (the tile
+    edges case with instruction edges on 4,096-photon boundaries, the many
+    just past case every instruction, its tiles half again the grid)."""
     from wfsim_tpu_torch.models import s2
     from wfsim_tpu_torch.models.params import gasgap_time_max
     c = photon_case(name)
+    assert tiled_np(c['ph_edges'], c['n'], 8192).any() is not (
+        name in ('bench', 'no electrons', 'electrons without photons',
+                 'u = 1 - 2^-24'))
     cpu = gasgap_args(c)
     card = [a.to(dev) for a in cpu]
     want = s2.lumi_gasgap_times_ref(*cpu)
     assert torch.equal(s2.lumi_gasgap_times_ref(*card).cpu(), want)
     t_max = gasgap_time_max(c['gg_inv_cdf'], c['gaps'], c['gap'])
     kernel = _build.KERNELS['wfsim_lumi_gasgap_times']
-    for tile in TILES:
-        monkeypatch.setattr(s2, 'GASGAP_TILE', tile)
-        before = kernel.launches
-        _twice_bitwise(lambda: s2.lumi_gasgap_times(*card, t_max=t_max),
-                       want)
-        assert kernel.launches == before + 2
-        assert torch.equal(_sync_free(lambda: s2.lumi_gasgap_times(
-            *card, t_max=t_max)).cpu(), want)
-        assert _scratch_is_zero(dev)
+    before = kernel.launches
+    _twice_bitwise(lambda: s2.lumi_gasgap_times(*card, t_max=t_max), want)
+    assert kernel.launches == before + 2
+    assert torch.equal(_sync_free(lambda: s2.lumi_gasgap_times(
+        *card, t_max=t_max)).cpu(), want)
+    assert _scratch_is_zero(dev)
 
 
 @pytest.mark.parametrize('name', PHOTON_CASES)
-def test_s2_time_kernels_on_cases(dev, monkeypatch, name):
-    """wfsim_s2_photon_times under each tile size, in both luminescence
-    modes and without the time spread, and wfsim_s2_electron_times: bitwise
+def test_s2_time_kernels_on_cases(dev, name):
+    """wfsim_s2_photon_times in both luminescence modes and without the
+    time spread, and wfsim_s2_electron_times: bitwise
     their twins on the CPU and on the card, the same bits on a second call,
     no host sync."""
     from wfsim_tpu_torch.models import s2
@@ -1389,9 +1396,7 @@ def test_s2_time_kernels_on_cases(dev, monkeypatch, name):
         kw_d = dict(kw, t_lum=None if kw['t_lum'] is None
                     else kw['t_lum'].to(dev))
         _twice_bitwise(lambda: s2.s2_photon_times_ref(*card, **kw_d), want)
-        for tile in TILES:
-            monkeypatch.setattr(s2, 'PHOTON_TILE', tile)
-            _twice_bitwise(lambda: s2.s2_photon_times(*card, **kw_d), want)
+        _twice_bitwise(lambda: s2.s2_photon_times(*card, **kw_d), want)
         _twice_bitwise(lambda: _sync_free(
             lambda: s2.s2_photon_times(*card, **kw_d)), want)
 
@@ -1410,7 +1415,7 @@ def test_gasgap_range_check_on_the_card(dev, n_photons, fits, bound):
         inv, torch.tensor([0, 0]), torch.tensor([1, 1]),
         torch.tensor([0.3, 0.7]), torch.tensor([0, 5, 5 + n_photons]),
         torch.rand(5 + n_photons, generator=torch.Generator().manual_seed(3)))]
-    kw = {}
+    kw = {'t_max': math.inf}
     if bound:
         kw['t_max'] = gasgap_time_max(inv.numpy(),
                                       np.array([0.1, 0.2], np.float32),

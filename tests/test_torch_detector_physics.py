@@ -21,6 +21,7 @@ Tolerances, per quantity:
   wfsim_tpu_torch gave before these switches existed).
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -254,7 +255,8 @@ def test_s2_pass_matches_jax_given_draws(physics):
         pj, kj, keys[10], pos_j, jnp.asarray(ph_inst), jnp.ones(n, bool),
         n_i)))
     lt = s2.lumi_gasgap_times(pt.gg_inv_cdf, *s2.gasgap_rows(pt, pos_t),
-                              ph_edges, draws['u_lum']).numpy()
+                              ph_edges, draws['u_lum'],
+                              t_max=pt.gg_t_max).numpy()
     assert np.all(np.abs(lj - lt) <= 1)
     assert (lj != lt).sum() <= 1e-4 * n, (lj != lt).sum()
     trunc_mismatch(phj['t'], pht['t'])
@@ -269,17 +271,18 @@ def test_gasgap_mean_fixed_point_range(n_photons, fits):
     """The gas-gap sampler's int64 fixed-point instruction sums hold up to
     about 2^31 ns summed over an instruction's photons: at 1 ms each, 2,100
     photons (9.02e18 of 9.22e18) give the exact mean, so every time is 0;
-    2,200 would wrap and raise instead."""
+    2,200 would wrap and raise instead.  No host bound (``t_max`` inf):
+    the exact check decides."""
     inv = torch.full((2, 16), 1e6)
     args = (inv, torch.tensor([0, 0]), torch.tensor([1, 1]),
             torch.tensor([0.3, 0.7]), torch.tensor([0, 5, 5 + n_photons]),
             torch.rand(5 + n_photons, generator=torch.Generator()
                        .manual_seed(3)))
     if fits:
-        assert not s2.lumi_gasgap_times(*args).any()
+        assert not s2.lumi_gasgap_times(*args, t_max=math.inf).any()
     else:
         with pytest.raises(OverflowError):
-            s2.lumi_gasgap_times(*args)
+            s2.lumi_gasgap_times(*args, t_max=math.inf)
 
 
 def test_fdc_truth_mean_electron():

@@ -4,34 +4,37 @@ S2 electron and photon times (``wfsim_s2_electron_times`` and
 ``wfsim_s2_photon_times``, K9, ``csrc/photon_times.cu``), emulated in numpy
 and held against their unchanged plain twins.
 
-The kernels cut the work by elements: a block takes a fixed tile of
-elements, finds the segments of its first and last element once and gives
-every element its segment from the edges inside the tile: by counting
-those at or before it where there are at most eight, else by a max-scan of
-their marks (``csrc/tiles.cuh``); the photon kernel finds a photon's
-electron and instruction that way, from the electrons' photon edges and
-the instructions' first photons.  The gas-gap sampler sums each
-instruction's fixed-point times (int64 multiples of 2^-32 ns) by wrapping
-integer atomics: one a tile inside one instruction, else each warp's
-running sum while its steps of 128 photons stay inside one instruction and
-prefix differences at the positions where the instruction changes; the
-apply pass's tiles read the sums and take a ticket each, and the one that
-completes an instruction clears its sum.  The emulation here does the
-same decomposition (``tile_segments``, ``photon_segments``,
-``gasgap_contributions``) and adds the contributions tile by tile in
-shuffled orders; tests/test_torch_cuda.py holds the card's outputs to the
-twins on the same cases.
+The S2 time kernels cut the work by elements: a block takes a fixed tile
+of elements (4,096 photons, 1,024 electrons), finds the segments of its first
+and last element once and gives every element its segment from the edges
+inside the tile: by counting those at or before it where there are at
+most eight, else by a max-scan of their marks (``csrc/tiles.cuh``); the
+photon kernel finds a photon's electron and instruction that way, from the
+electrons' photon edges and the instructions' first photons.  The gas-gap
+sampler takes an instruction whose photons fit 8,192 from its first photon
+rounded down to a multiple of four in one block (a block reduction of its
+fixed-point times, int64 multiples of 2^-32 ns); a larger one ("tiled")
+is listed, and its tile passes cut it into tiles of 4,096 photons from
+that rounded first photon: the sum pass adds each tile's sum to the
+instruction's by a wrapping integer atomic, the apply pass's tiles read
+the sum and take a ticket each, and the one that completes an
+instruction clears its sum.  The emulation here does the same
+decomposition (``tile_segments``, ``photon_segments``, ``tiled_tiles``)
+under three tile sizes, with the kernel's block span and with every
+instruction tiled, and adds the contributions tile by tile in shuffled
+orders; tests/test_torch_cuda.py holds the card's outputs to the twins on
+the same cases.
 
 The cases are numpy only, made from a seed (``photon_case``), so that the
 card's machine, which has no JAX, can import them; the parity tests
 against wfsim_tpu import JAX inside themselves.
 """
+import math
 import types
 
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
 
 from wfsim_tpu_torch.config import default_config
 from wfsim_tpu_torch.models import s2
@@ -41,9 +44,15 @@ from wfsim_tpu_torch.ops.segment import segment_ids_from_counts
 from wfsim_tpu_torch.resources import load_config
 from wfsim_tpu_torch.resources.synthetic import synthetic_garfield_gas_gap
 
-#: the tiles the kernels take (s2.GASGAP_TILE and s2.PHOTON_TILE among them)
+#: tile sizes the emulation cuts the photons into: the kernels' 4,096
+#: (table_samplers.cu kTile, photon_times.cu kPhotonSteps) and two others,
+#: so that the tiles' boundaries fall elsewhere
 TILES = (2048, 4096, 8192)
-WARP_SPAN = 128          # photons a warp holds in one step of a tile
+KERNEL_TILE = 4096
+#: photons an instruction block of the gas-gap sampler takes at most, from
+#: its first photon rounded down to a multiple of four (table_samplers.cu
+#: kBlockSpan); with 0 every instruction with photons is tiled
+BLOCK_SPAN = 8192
 KERNEL_REG_EDGES = 8     # tiles.cuh kRegEdges: edges a tile finds in registers
 PHOTON_CASES = (
     'bench',                 # 512 instructions, ~176 electrons, ~3,076 photons
@@ -54,6 +63,8 @@ PHOTON_CASES = (
     'electrons without photons',
     'tile edges',            # electron and instruction edges on tile edges
     'u = 1 - 2^-24',
+    'tiny instructions',     # one of ~20,000 photons among 1-electron ones
+    'many just past',        # every instruction just past 8,192 photons
 )
 U_TOP = np.float32(1 - 2 ** -24)
 
@@ -79,22 +90,42 @@ def photon_case(name, seed=20261017):
         e_counts[3] = len(big)
     if name == 'one electron of 10^5':
         ph_counts[e_edges[5] + 2] = 100_000
+    if name == 'tiny instructions':
+        # instructions 3-30 of one electron each around instruction 16 of
+        # ~1,150 electrons: the tiles at its ends hold more than eight edges
+        e_counts[3:31] = 1
+        e_counts[16] = 1150
+        ph_counts = rng.poisson(17.5, int(e_counts.sum()))
     if name == 'empty instructions':
         for i in (0, 4, 5, I - 1):
             ph_counts[e_edges[i]:e_edges[i + 1]] = 0
+        # instruction 6, after two empty ones, past the gas-gap sampler's
+        # instruction block
+        ph_counts[e_edges[6]:e_edges[7]] *= 4
     if name == 'electrons without photons':
         ph_counts[rng.random(len(ph_counts)) < 0.2] = 0
         ph_counts[e_edges[2]:e_edges[2] + 40] = 0
     if name == 'tile edges':
-        # an electron edge at 8,192 and an instruction edge at 16,384: both
-        # are tile edges of every tile size
-        ph_counts = _end_at(ph_counts, e_edges[2] - 5, 8192)
-        ph_counts = _end_at(ph_counts, e_edges[4] - 1, 16_384)
+        # an electron edge at 8,192 and instruction edges at 16,384 and
+        # 32,768, tile edges of every tile size: instructions 0 and 3 are
+        # past the gas-gap sampler's instruction block, so its tiles meet
+        # them there
+        ph_counts = _end_at(ph_counts, 5, 8192)
+        ph_counts = _end_at(ph_counts, e_edges[1] - 1, 16_384)
+        ph_counts = _end_at(ph_counts, e_edges[4] - 1, 32_768)
     e_edges = np.concatenate([[0], np.cumsum(e_counts)])
+    if name == 'many just past':
+        # instruction i ends at 8,300 (i + 1) + 7 i: each is past the
+        # gas-gap sampler's instruction block, 3 of its tiles, 120 tiles
+        # against a grid of 82 blocks
+        for i in range(I):
+            ph_counts = _end_at(ph_counts, e_edges[i + 1] - 1,
+                                8300 * (i + 1) + 7 * i)
     e_ph_edges = np.concatenate([[0], np.cumsum(ph_counts)])
     n, E = int(e_ph_edges[-1]), int(e_edges[-1])
     if name == 'tile edges':
-        assert e_ph_edges[e_edges[4]] == 16_384 and 8192 in e_ph_edges
+        assert e_ph_edges[e_edges[1]] == 16_384 and 8192 in e_ph_edges
+        assert e_ph_edges[e_edges[4]] == 32_768
     f32 = np.float32
     u_lum = rng.random(n, dtype=f32)
     if name == 'u = 1 - 2^-24':
@@ -259,92 +290,58 @@ def gasgap_times_np(inv, lower, upper, frac, ids, u):
     return T, np.where(ok, x, 0).view(np.uint64)
 
 
-def gasgap_contributions(edges, n, tile, ids, x):
-    """The sum pass's atomic adds, tile by tile: ``[[(instruction, value
-    modulo 2^64), ...] a tile]``.  A tile inside one instruction adds its
-    total once.  In any other, each warp keeps a running sum while its
-    steps of 128 photons stay inside one instruction (adding it where that
-    run ends); a step that holds an instruction edge adds, at each position
-    where the instruction changes, +P to the instruction that ends and -P
-    to the one that starts (P the step's exclusive prefix there), ends the
-    run and starts the last instruction's with the step's total.  Adds to no
-    instruction (past the last edge) are dropped."""
-    S = len(edges) - 1
+def tiled_np(edges, n, span):
+    """(S,) bool: the instructions the gas-gap sampler's instruction blocks
+    list for its tile passes,
+    those whose photons [lo, hi) (edges clamped to n) do not fit ``span``
+    from lo rounded down to a multiple of four (an empty one fits any)."""
     e = np.minimum(edges, n)
-    steps = tile // 1024
-    wrap = 2 ** 64
+    return (e[1:] > e[:-1]) & (e[1:] > (e[:-1] & ~3) + span)
+
+
+def tiled_tiles(edges, n, tile, order):
+    """The tile passes' tiles in the grid's order: the tiled instructions
+    in list order ``order``, each cut into tiles of ``tile`` photons from
+    its first photon rounded down to a multiple of four: [(instruction,
+    the tile's first position, the instruction's count of tiles), ...]."""
+    e = np.minimum(edges, n)
     out = []
-
-    def ok(i):
-        return 0 <= i < S
-    pad = np.zeros(len(ids), np.uint64)
-    pad[:n] = x[:n]
-    for a in range(0, n, tile):
-        s0, s1 = tile_range(e, a, min(a + tile, n))
-        adds = []
-        out.append(adds)
-        if s0 == s1:
-            if ok(s0):
-                adds.append((s0, int(pad[a:a + tile].sum(dtype=np.uint64))))
-            continue
-        for w in range(8):
-            run_id, run = s0, 0
-
-            def flush():
-                if ok(run_id):
-                    adds.append((run_id, run))
-            for r in range(steps):
-                c = a + 1024 * r + WARP_SPAN * w
-                xs, ix = pad[c:c + WARP_SPAN], ids[c:c + WARP_SPAN]
-                P = np.concatenate([[0], np.cumsum(xs, dtype=np.uint64)])
-                first, last = int(ix[0]), int(ix[-1])
-                if first == last:
-                    if first != run_id:
-                        flush()
-                        run_id, run = first, 0
-                    run = (run + int(P[-1])) % wrap
-                    continue
-                for p in np.flatnonzero(ix[1:] != ix[:-1]) + 1:
-                    if ok(ix[p - 1]):
-                        adds.append((int(ix[p - 1]), int(P[p])))
-                    if ok(ix[p]):
-                        adds.append((int(ix[p]), -int(P[p]) % wrap))
-                flush()
-                run_id, run = last, int(P[-1])
-            flush()
+    for i in order:
+        a = int(e[i]) & ~3
+        k = -(-(int(e[i + 1]) - a) // tile)
+        out += [(int(i), a + tile * j, k) for j in range(k)]
     return out
 
 
-def emulate_gasgap(edges, n, tile, ids, x, rng):
-    """The sums each apply tile reads, after the sum pass's adds applied in
-    a shuffled order of tiles (each tile's adds shuffled too), modulo 2^64;
-    the apply tiles, in another shuffled order, read the sum of every
-    instruction they hold and take a ticket for it, and the one that
+def emulate_gasgap(edges, n, tile, x, tiled, rng):
+    """The tile passes with the list in a shuffled order (the instruction
+    blocks' atomics give any): the sum pass's tiles, in a shuffled order,
+    add the sums of their photons' fixed-point terms ``x`` (uint64,
+    wrapping; adds of 0 skipped) to their instructions' sums; the apply
+    pass's, in another, read the sum and take a ticket, and the one that
     completes the instruction's tiles clears its sum and ticket.  Returns
     (the sums the tiles read, as int64: one list an instruction; the
-    scratch left behind: sums and tickets)."""
+    scratch left behind: sums and tickets; the strides of the grid of a
+    block a tile of the photons over the tiles)."""
     S = len(edges) - 1
     e = np.minimum(edges, n)
+    tl = tiled_tiles(edges, n, tile, rng.permutation(np.flatnonzero(tiled)))
     sums, tickets = [0] * S, [0] * S
-    contrib = gasgap_contributions(edges, n, tile, ids, x)
-    for t in rng.permutation(len(contrib)):
-        for j in rng.permutation(len(contrib[t])):
-            i, v = contrib[t][j]
+    for b in rng.permutation(len(tl)):
+        i, a, _k = tl[b]
+        v = int(x[max(a, int(e[i])):min(a + tile, int(e[i + 1]))]
+                .sum(dtype=np.uint64))
+        if v:
             sums[i] = (sums[i] + v) % 2 ** 64
     read = [[] for _ in range(S)]
-    for t in rng.permutation(len(contrib)):
-        a = int(t) * tile
-        s0, s1 = tile_range(e, a, min(a + tile, n))
-        for i in range(max(s0, 0), min(s1, S - 1) + 1):
-            lo, hi = int(e[i]), int(e[i + 1])
-            if hi <= lo:
-                continue
-            read[i].append(sums[i] - 2 ** 64 if sums[i] >= 2 ** 63
-                           else sums[i])
-            tickets[i] += 1
-            if tickets[i] == (hi - 1) // tile - lo // tile + 1:
-                sums[i] = tickets[i] = 0
-    return read, (np.array(sums), np.array(tickets))
+    for b in rng.permutation(len(tl)):
+        i, _a, k = tl[b]
+        read[i].append(sums[i] - 2 ** 64 if sums[i] >= 2 ** 63 else sums[i])
+        tickets[i] += 1
+        if tickets[i] == k:
+            sums[i] = tickets[i] = 0
+    strides = -(-len(tl) // -(-n // tile)) if n else 0
+    return read, (np.array(sums), np.array(tickets)), strides
 
 
 def means_np(sums, counts):
@@ -367,18 +364,24 @@ def case(name):
     return _CASES[name]
 
 
+_REFS = {}
+
+
+def gasgap_ref(name):
+    """The gas-gap twin's times on case ``name`` (computed once)."""
+    if name not in _REFS:
+        _REFS[name] = s2.lumi_gasgap_times_ref(*gasgap_args(case(name)))
+    return _REFS[name]
+
+
 @pytest.mark.parametrize('tile', TILES)
 @pytest.mark.parametrize('name', PHOTON_CASES)
 def test_tile_segments_match_segment_ids(name, tile):
-    """Every photon's instruction (the gas-gap tiles), electron and
-    instruction (the photon tiles) and every electron's instruction (the
-    electron tiles) as the kernels find them: the twins' segment ids."""
+    """Every photon's electron and instruction (the photon tiles) and every
+    electron's instruction (the electron tiles) as the kernels find them:
+    the twins' segment ids."""
     c = case(name)
     n, E = c['n'], c['E']
-    inst = segment_ids_from_counts(torch.as_tensor(c['ph_edges'][1:]
-                                                   - c['ph_edges'][:-1]))
-    np.testing.assert_array_equal(tile_segments(c['ph_edges'], n, tile)[:n],
-                                  inst.numpy())
     ph_e = segment_ids_from_counts(torch.as_tensor(c['ph_counts'])).numpy()
     e_inst = segment_ids_from_counts(torch.as_tensor(c['e_counts'])).numpy()
     k, i = photon_segments(c['e_edges'], c['e_ph_edges'], n, tile)
@@ -388,36 +391,52 @@ def test_tile_segments_match_segment_ids(name, tile):
                                   e_inst)
 
 
-@pytest.mark.parametrize('tile', TILES)
+@pytest.mark.parametrize('tile,span', [(2048, BLOCK_SPAN),
+                                       (KERNEL_TILE, BLOCK_SPAN),
+                                       (8192, BLOCK_SPAN), (KERNEL_TILE, 0)])
 @pytest.mark.parametrize('name', PHOTON_CASES)
-def test_gasgap_sums_in_any_order_match_twin(name, tile):
-    """The sum pass's wrapping int64 adds, tile by tile in two shuffled
-    orders, give each instruction the exact sum of its fixed-point terms,
-    which every apply tile of it reads, and the apply tiles' tickets leave
-    the scratch zero; the means and times from them are the twin's,
-    bitwise."""
+def test_gasgap_sums_in_any_order_match_twin(name, tile, span):
+    """The gas-gap sampler's sums: an instruction block's is the exact sum
+    of its fixed-point terms; the tile passes' adds, tile by tile in
+    shuffled orders with the list in a shuffled order, give each tiled
+    instruction that exact sum, which every apply tile of it reads, and
+    the tickets leave the scratch zero; the means and times from them are
+    the twin's, bitwise.  With the kernel's block span (the bench's
+    instructions all fit it; the large ones of the other cases do not;
+    the grid of a block a tile of the photons strides over the tiles at
+    most twice) and with every instruction tiled."""
     c = case(name)
     n = c['n']
     lower, upper, frac = gasgap_rows_np(c)
-    ids = tile_segments(c['ph_edges'], n, tile)
-    u = np.zeros(len(ids), np.float32)
-    u[:n] = c['u_lum']
-    T, x = gasgap_times_np(c['gg_inv_cdf'], lower, upper, frac, ids, u)
     counts = c['ph_edges'][1:] - c['ph_edges'][:-1]
+    ids = segment_ids_from_counts(torch.as_tensor(counts)).numpy()
+    T, x = gasgap_times_np(c['gg_inv_cdf'], lower, upper, frac, ids,
+                           c['u_lum'])
     exact = np.zeros(c['I'], np.int64)
-    np.add.at(exact, ids[:n], x[:n].view(np.int64))
+    np.add.at(exact, ids, x.view(np.int64))
+    tiled = tiled_np(c['ph_edges'], n, span)
+    if span == 0:
+        assert tiled.sum() == (counts > 0).sum()
+    elif name == 'bench':
+        assert not tiled.any()
+    elif name in ('one instruction of 10^6', 'one electron of 10^5',
+                  'tiny instructions'):
+        assert tiled.sum() == 1
     for seed in (1, 2):
-        read, (left, tickets) = emulate_gasgap(
-            c['ph_edges'], n, tile, ids, x, np.random.default_rng(seed))
+        read, (left, tickets), strides = emulate_gasgap(
+            c['ph_edges'], n, tile, x, tiled, np.random.default_rng(seed))
         for i in range(c['I']):
-            tiles = (-(-int(c['ph_edges'][i + 1]) // tile)
-                     - int(c['ph_edges'][i]) // tile) if counts[i] else 0
-            assert read[i] == [int(exact[i])] * tiles, i
+            lo = int(c['ph_edges'][i]) & ~3
+            tiles = -(-(int(c['ph_edges'][i + 1]) - lo) // tile)
+            assert read[i] == ([int(exact[i])] * tiles if tiled[i] else []), i
         assert not left.any() and not tickets.any()
-    mean = means_np(exact, counts)
-    t = np.trunc(T[:n] - mean[ids[:n]]).astype(np.int32)
-    want = s2.lumi_gasgap_times_ref(*gasgap_args(c))
-    np.testing.assert_array_equal(t, want.numpy())
+        if span:
+            assert strides <= 2
+        if name == 'many just past' and (tile, span) == (KERNEL_TILE,
+                                                          BLOCK_SPAN):
+            assert tiled.all() and strides == 2
+    t = np.trunc(T - means_np(exact, counts)[ids]).astype(np.int32)
+    np.testing.assert_array_equal(t, gasgap_ref(name).numpy())
 
 
 @pytest.mark.parametrize('name', PHOTON_CASES)
@@ -427,7 +446,7 @@ def test_photon_times_emulation_matches_twin(name):
     without the time spread: the twin's times and truth rows, bitwise."""
     c = case(name)
     n = c['n']
-    k, i = photon_segments(c['e_edges'], c['e_ph_edges'], n, s2.PHOTON_TILE)
+    k, i = photon_segments(c['e_edges'], c['e_ph_edges'], n, KERNEL_TILE)
     k, i = k[:n], i[:n]
     for lum, spread in (('inv', True), ('t_lum', True), ('inv', False)):
         args, kw = photon_args(c, lum, spread)
@@ -477,45 +496,53 @@ def _map_of(values):
                                                       values.shape[1])))
 
 
-@settings(max_examples=150, deadline=None)
-@given(data=st.data())
-def test_gasgap_bound_never_below_exact_check(data):
+def test_gasgap_bound_never_below_exact_check():
     """``gasgap_time_max`` of the table and the map's values, times the
     photon total, is never below ``check_fixed_point_range``'s worst sum,
     over random tables (times of either sign), maps whose gaps lie below,
     inside and above the table's, positions inside and outside the map and
     random counts; so skipping the check where the bound fits never skips a
-    raise."""
-    G = data.draw(st.integers(2, 12))
-    M = data.draw(st.integers(3, 40))
-    seed = data.draw(st.integers(0, 2 ** 32 - 1))
-    rng = np.random.default_rng(seed)
-    scale = 10.0 ** rng.uniform(-2, 6)
-    inv = (rng.normal(0, scale, (G, M))
-           + rng.uniform(-1, 2) * scale).astype(np.float32)
-    g0, dg = rng.uniform(0.01, 0.2), rng.uniform(0.001, 0.05)
-    gaps = (g0 + dg * np.arange(G) + rng.uniform(0, 0.3 * dg, G)
-            * data.draw(st.sampled_from([0.0, 1.0]))).astype(np.float32)
-    gaps.sort()
-    lo = gaps[0] - rng.uniform(0, 5) * dg
-    hi = gaps[-1] + rng.uniform(0, 5) * dg
-    values = rng.uniform(lo, hi, (rng.integers(2, 6), rng.integers(2, 6)))
-    gmap = _map_of(values.astype(np.float32))
-    I = data.draw(st.integers(1, 20))
-    xy = torch.as_tensor(rng.uniform(-80, 80, (I, 2)), dtype=torch.float32)
-    prm = types.SimpleNamespace(garfield_gas_gap_map=gmap,
-                                gg_gas_gap=torch.as_tensor(gaps))
-    lower, upper, frac = s2.gasgap_rows(prm, xy)
-    counts = rng.integers(0, 10 ** rng.integers(1, 9), I)
-    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
-    inv_t = torch.as_tensor(inv)
-    t_max = ((inv_t[upper, :M - 1] - inv_t[lower, :M - 1]) * frac[:, None]
-             + inv_t[lower, :M - 1]).abs().amax(dim=1)
-    worst = float(((edges[1:] - edges[:-1]) * t_max).max())
-    bound = gasgap_time_max(inv, gaps, gmap.values.numpy())
-    assert int(counts.sum()) * bound >= worst
-    if not s2.fixed_point_fails(int(counts.sum()) * bound):
-        s2.check_fixed_point_range(inv_t, lower, upper, frac, edges)
+    raise.  A hypothesis property (skipped where hypothesis is not
+    installed)."""
+    hyp = pytest.importorskip('hypothesis')
+    st = pytest.importorskip('hypothesis.strategies')
+
+    @hyp.settings(max_examples=150, deadline=None)
+    @hyp.given(data=st.data())
+    def check(data):
+        G = data.draw(st.integers(2, 12))
+        M = data.draw(st.integers(3, 40))
+        seed = data.draw(st.integers(0, 2 ** 32 - 1))
+        rng = np.random.default_rng(seed)
+        scale = 10.0 ** rng.uniform(-2, 6)
+        inv = (rng.normal(0, scale, (G, M))
+               + rng.uniform(-1, 2) * scale).astype(np.float32)
+        g0, dg = rng.uniform(0.01, 0.2), rng.uniform(0.001, 0.05)
+        gaps = (g0 + dg * np.arange(G) + rng.uniform(0, 0.3 * dg, G)
+                * data.draw(st.sampled_from([0.0, 1.0]))).astype(np.float32)
+        gaps.sort()
+        lo = gaps[0] - rng.uniform(0, 5) * dg
+        hi = gaps[-1] + rng.uniform(0, 5) * dg
+        values = rng.uniform(lo, hi,
+                             (rng.integers(2, 6), rng.integers(2, 6)))
+        gmap = _map_of(values.astype(np.float32))
+        I = data.draw(st.integers(1, 20))
+        xy = torch.as_tensor(rng.uniform(-80, 80, (I, 2)),
+                             dtype=torch.float32)
+        prm = types.SimpleNamespace(garfield_gas_gap_map=gmap,
+                                    gg_gas_gap=torch.as_tensor(gaps))
+        lower, upper, frac = s2.gasgap_rows(prm, xy)
+        counts = rng.integers(0, 10 ** rng.integers(1, 9), I)
+        edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
+        inv_t = torch.as_tensor(inv)
+        t_max = ((inv_t[upper, :M - 1] - inv_t[lower, :M - 1])
+                 * frac[:, None] + inv_t[lower, :M - 1]).abs().amax(dim=1)
+        worst = float(((edges[1:] - edges[:-1]) * t_max).max())
+        bound = gasgap_time_max(inv, gaps, gmap.values.numpy())
+        assert int(counts.sum()) * bound >= worst
+        if not s2.fixed_point_fails(int(counts.sum()) * bound):
+            s2.check_fixed_point_range(inv_t, lower, upper, frac, edges)
+    check()
 
 
 def test_gasgap_bound_of_the_detector_physics_table():
@@ -565,7 +592,7 @@ def test_cpu_paths_check_edges():
     g[4] = g[4].clone()
     g[4][-1] += 1
     with pytest.raises(ValueError, match='uniforms: the edges end at'):
-        s2.lumi_gasgap_times(*g)
+        s2.lumi_gasgap_times(*g, t_max=math.inf)
     args, kw = photon_args(c)
     bad = list(args)
     bad[2] = bad[2].clone()
@@ -582,6 +609,30 @@ def test_cpu_paths_check_edges():
     bad[1] = bad[1].clone()
     bad[1][-1] += 2
     with pytest.raises(ValueError, match='electron draws: the edges end at'):
+        s2.s2_electron_times(*bad, **e_kw)
+
+
+def test_wrappers_raise_without_segments():
+    """Elements without segments (no instruction, or photons without
+    electrons) raise on the host before any launch: by the edges' check on
+    the CPU (an empty edge array ends at 0), by the sizes on the card
+    (tests/test_torch_cuda.py)."""
+    c = case('empty instructions')
+    g = list(gasgap_args(c))
+    g[1:4] = (x[:0] for x in g[1:4])
+    g[4] = g[4][:1]
+    with pytest.raises(ValueError):
+        s2.lumi_gasgap_times(*g, t_max=math.inf)
+    args, kw = photon_args(c)
+    bad = list(args)
+    bad[2] = bad[2][:1]
+    bad[3] = bad[3][:0]
+    with pytest.raises(ValueError):
+        s2.s2_photon_times(*bad, **kw)
+    e_args, e_kw = electron_args(c)
+    bad = [x[:0] if k in (0, 2, 3, 6) else x for k, x in enumerate(e_args)]
+    bad[1] = e_args[1][:1]
+    with pytest.raises(ValueError):
         s2.s2_electron_times(*bad, **e_kw)
 
 

@@ -225,14 +225,16 @@ __device__ __forceinline__ bool stage_inv(const PhotonIn& in, float* rows,
   return true;
 }
 
-template <int R>
+constexpr int kPhotonSteps = 4;     // tiles of 4,096 photons
+
 __global__ void __launch_bounds__(tiles::kThreads)
     s2_photon_times_kernel(PhotonIn in, int* __restrict__ t,
                            long long* __restrict__ ph_row) {
   using namespace tiles;
+  constexpr int R = kPhotonSteps;
   constexpr long long kTile = static_cast<long long>(kStep) * R;
   // the electrons' marks, then the instructions' marks or staged rows
-  extern __shared__ __align__(16) unsigned marks[];
+  __shared__ __align__(16) unsigned marks[2 * kTile];
   __shared__ unsigned tot[R * kWarps];
   const long long a = static_cast<long long>(blockIdx.x) * kTile;
   const long long b = a + kTile < in.n ? a + kTile : in.n;
@@ -321,23 +323,6 @@ __global__ void __launch_bounds__(tiles::kThreads)
   }
 }
 
-template <int R>
-cudaError_t launch_photons(const PhotonIn& in, int* t, long long* ph_row,
-                           cudaStream_t st) {
-  constexpr long long kTile = static_cast<long long>(tiles::kStep) * R;
-  const unsigned blocks = static_cast<unsigned>((in.n + kTile - 1) / kTile);
-  const size_t smem = 2 * kTile * sizeof(unsigned);   // at most 64 KB
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        s2_photon_times_kernel<R>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  s2_photon_times_kernel<R><<<blocks, tiles::kThreads, smem, st>>>(in, t,
-                                                                    ph_row);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int wfsim_s1_photon_times(const void* time, const void* edges,
@@ -394,12 +379,11 @@ extern "C" int wfsim_s2_electron_times(const void* time, const void* e_edges,
   return static_cast<int>(cudaGetLastError());
 }
 
-// n photons of n_e electrons in tiles of `tile` (2,048, 4,096 or 8,192);
-// t (n,) int32 and ph_row (n,) int64, each photon below the clamped last
-// edges written
+// n photons of n_e electrons in tiles of 4,096; t (n,) int32 and ph_row
+// (n,) int64, each photon below the clamped last edges written
 extern "C" int wfsim_s2_photon_times(
     const void* inv, int Q, const void* e_edges, int n_inst,
-    const void* e_ph_edges, int n_e, int n, int tile, const void* e_t,
+    const void* e_ph_edges, int n_e, int n, const void* e_t,
     const void* truth_row, const void* u_lum, const void* t_lum,
     const void* u_st, const void* ex_st, const void* nrm_ts,
     float singlet_fraction, float t_singlet, float t_triplet,
@@ -431,15 +415,11 @@ extern "C" int wfsim_s2_photon_times(
            tiles::aligned16(u_st) && tiles::aligned16(ex_st) &&
            tiles::aligned16(nrm_ts) && tiles::aligned16(t) &&
            tiles::aligned16(ph_row);
-  auto* out = static_cast<int*>(t);
-  auto* rows = static_cast<long long*>(ph_row);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (tile) {
-    case 2048: err = launch_photons<2>(in, out, rows, st); break;
-    case 4096: err = launch_photons<4>(in, out, rows, st); break;
-    case 8192: err = launch_photons<8>(in, out, rows, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  constexpr long long kTile = static_cast<long long>(tiles::kStep) *
+                              kPhotonSteps;
+  s2_photon_times_kernel<<<static_cast<unsigned>((n + kTile - 1) / kTile),
+                           tiles::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<int*>(t), static_cast<long long*>(ph_row));
+  return static_cast<int>(cudaGetLastError());
 }

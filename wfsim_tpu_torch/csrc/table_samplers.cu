@@ -18,27 +18,32 @@
 // rounded half to even), so the sum is exact and its order free (the
 // wrapper raises where a sum could pass int64: a host bound first,
 // check_fixed_point_range where that fails); the mean is that sum over the
-// count in float64, rounded to float32 once; t = trunc(T - mean).  The work
-// is cut by photons, not instructions: two launches over the same tiles of
-// `tile` photons a block (tiles.cuh: each tile's instructions found once,
-// the few edges inside it in registers, or a max-scan of their marks; a
-// tile inside one instruction needs neither), four photons a thread a step
-// as one 16-byte load; where the tile's few instructions fit the shared
-// memory the marks used, their rows lerped over the gas gap are staged
-// there (a photon's T reads two staged values, not four table values that
-// land on ~20-30 L1 lines a warp):
-//   the sum pass  each tile adds its photons' fixed-point times to their
-//                 instructions' sums by integer atomics (a warp's running
-//                 sum while its steps stay inside one instruction, prefix
-//                 differences at the positions where the instruction
-//                 changes, one atomic a tile inside one instruction);
-//   the apply pass each tile reads its instructions' sums, takes a ticket
-//                 per instruction (the tile that completes one clears its
-//                 sum and ticket) and writes T, recomputed from u with the
-//                 same bits, minus the mean.
-// No per-photon scratch: u is read twice (the second time mostly from L2)
-// and t written once, 12 bytes a photon; the sums and tickets live in a
-// zeroed per-stream scratch that every launch leaves zero.
+// count in float64, rounded to float32 once; t = trunc(T - mean).  Three
+// launches, the work of each fixed by the host's sizes alone:
+//   the instruction blocks  block i takes instruction i whole where its
+//                 photons fit 8,192 (kBlockSpan, from its first photon
+//                 rounded down to a multiple of four): 16-byte loads of u,
+//                 its two rows lerped over the gas gap into shared memory,
+//                 T, a block reduction of the fixed-point terms, the mean
+//                 and t: u read once, t written once, no atomics.  A larger
+//                 instruction ("tiled") is appended to a list instead;
+//   the sum pass  (nothing where the list is empty) a grid of a block a
+//                 4,096 photons strides over the listed instructions'
+//                 tiles of 4,096 photons (each cut from its first photon
+//                 rounded down to a multiple of four, so a tile lies inside
+//                 one instruction and needs no search): a block reduction
+//                 of the tile's fixed-point terms, added to the
+//                 instruction's int64 sum by one atomic;
+//   the apply pass (nothing where the list is empty) the same tiles read
+//                 their instruction's sum, take its ticket (the tile that
+//                 completes it clears the sum and the ticket) and write T,
+//                 recomputed from u with the same bits, minus the mean; the
+//                 last block to have read the list clears it.
+// So an S2 of 10^6 photons spreads over every SM, and a batch of bench
+// S2s (at most ~4,800 photons each) runs in one pass of u.  No per-photon
+// scratch: 8 bytes a photon (12 for a tiled one, whose u is read twice);
+// the sums, tickets and list live in a zeroed per-stream scratch that
+// every call leaves zero.
 //
 // The NEST entry point runs one block per instruction walking the
 // instruction's photons [edges[i], edges[i+1]):
@@ -74,11 +79,11 @@
 //                            int(table[row, col]) - avgt.
 //
 // What bounds them on the H100: the uniforms they read and the times they
-// write, 8 bytes a photon (+4 for the gas-gap sampler's second read of u;
-// 48 for the custom delays, which read the 11 draws of the photon's class
-// only, 2-6 of them; 12 for the garfield times); the tables (40 KB
-// gas-gap, 8 MB NEST, 22 KB garfield) stay in L2 and the reads of one
-// instruction hit the same few rows.
+// write, 8 bytes a photon (+4 for a tiled gas-gap instruction's second
+// read of u; 48 for the custom delays, which read the 11 draws of the
+// photon's class only, 2-6 of them; 12 for the garfield times); the tables
+// (40 KB gas-gap, 8 MB NEST, 22 KB garfield) stay in L2 and the reads of
+// one instruction hit the same few rows.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default; every product
 // and sum the twin rounds separately is written with __fmul_rn /
@@ -113,9 +118,31 @@ struct GasGapIn {
   bool vec;                 // u and t 16-byte aligned
 };
 
+constexpr int kTileSteps = 4;    // the tile passes: tiles of 4,096 photons
+constexpr long long kTile = static_cast<long long>(tiles::kStep) * kTileSteps;
+constexpr int kBlockSteps = 8;   // an instruction block: up to 8,192 photons
+constexpr long long kBlockSpan =
+    static_cast<long long>(tiles::kStep) * kBlockSteps;
+constexpr int kRowCap = 2048;    // the sampled columns a block stages (M-1;
+                                 // the synthetic table: 999)
+
 __device__ __forceinline__ GasGapRows rows_of(const GasGapIn& g, long long i) {
   return {g.inv + __ldg(g.lower + i) * g.M, g.inv + __ldg(g.upper + i) * g.M,
           __ldg(g.frac + i)};
+}
+
+// whether the instruction of photons [lo, hi) goes to the tile passes: its
+// photons, from lo rounded down to a multiple of four (the 16-byte loads),
+// do not fit one instruction block
+__device__ __forceinline__ bool tiled(long long lo, long long hi) {
+  return hi > (lo & ~3LL) + kBlockSpan;
+}
+
+// column c of the rows lerped at f: (hi_c - lo_c) * f + lo_c, each product
+// and sum rounded as gasgap_time rounds them
+__device__ __forceinline__ float row_value(const GasGapRows& r, int c) {
+  const float a = __ldg(r.lo + c);
+  return __fadd_rn(__fmul_rn(__fsub_rn(__ldg(r.hi + c), a), r.f), a);
 }
 
 // T of one photon: the rows lerped at f, at the quantile u * (M-2) lerped
@@ -126,60 +153,12 @@ __device__ __forceinline__ float gasgap_time(const GasGapRows& r, float u,
   const int i0 = static_cast<int>(floorf(s));
   const int i1 = static_cast<int>(ceilf(s));
   const float w = __fsub_rn(s, static_cast<float>(i0));
-  const float a0 = __ldg(r.lo + i0), a1 = __ldg(r.lo + i1);
-  const float t1 = __fadd_rn(__fmul_rn(__fsub_rn(__ldg(r.hi + i0), a0), r.f),
-                             a0);
-  const float t2 = __fadd_rn(__fmul_rn(__fsub_rn(__ldg(r.hi + i1), a1), r.f),
-                             a1);
+  const float t1 = row_value(r, i0), t2 = row_value(r, i1);
   return __fadd_rn(__fmul_rn(__fsub_rn(t2, t1), w), t1);
 }
 
-// T in fixed point: an int64 multiple of 2^-32 ns, rounded half to even
-__device__ __forceinline__ unsigned long long fixed_of(float T) {
-  return static_cast<unsigned long long>(
-      __double2ll_rn(__dmul_rn(static_cast<double>(T), 0x1p32)));
-}
-
-__device__ __forceinline__ bool in_range(long long i, long long S) {
-  return i >= 0 && i < S;
-}
-
-// A tile's instructions' time rows in shared memory: for instruction s0 +
-// k, column c < M-1 (the sampled ones), (hi_c - lo_c) * f + lo_c, each
-// product and sum rounded as gasgap_time rounds them, so a photon's T from
-// the staged rows has the same bits as from the table.  A warp's photons
-// read 32 random columns: from shared memory a few bank conflicts, from
-// the table in L1 ~20-30 distinct lines a load.  Staged where the tile's
-// instructions are all in range, their edges found in registers (so the
-// marks' buffer, `rows`, is free) and their rows fit its `cap` words; the
-// caller syncs before reading them.
-__device__ __forceinline__ bool stage_rows(const GasGapIn& g, float* rows,
-                                           long long s0, long long s1,
-                                           long long cap) {
-  const long long n_rows = s1 - s0 + 1;
-  const int W = g.M - 1;
-  if (s0 < 0 || s1 >= g.S || s1 - s0 > tiles::kRegEdges || n_rows * W > cap)
-    return false;
-  // lane k of each warp fetches instruction s0 + k's rows, all at once
-  const int lane = threadIdx.x & 31;
-  GasGapRows mine{g.inv, g.inv, 0.0f};
-  if (lane < n_rows) mine = rows_of(g, s0 + lane);
-  for (int k = 0; k < n_rows; ++k) {
-    const float* lo = reinterpret_cast<const float*>(__shfl_sync(
-        tiles::kFull, reinterpret_cast<unsigned long long>(mine.lo), k));
-    const float* hi = reinterpret_cast<const float*>(__shfl_sync(
-        tiles::kFull, reinterpret_cast<unsigned long long>(mine.hi), k));
-    const float f = __shfl_sync(tiles::kFull, mine.f, k);
-    for (int c = threadIdx.x; c < W; c += tiles::kThreads) {
-      const float a = __ldg(lo + c);
-      rows[k * W + c] =
-          __fadd_rn(__fmul_rn(__fsub_rn(__ldg(hi + c), a), f), a);
-    }
-  }
-  return true;
-}
-
-// T of one photon from its instruction's staged row
+// T of one photon from its instruction's row as stage_row staged it: the
+// same bits as gasgap_time
 __device__ __forceinline__ float staged_time(const float* row, float u,
                                              float scale) {
   const float s = __fmul_rn(u, scale);
@@ -190,43 +169,41 @@ __device__ __forceinline__ float staged_time(const float* row, float u,
   return __fadd_rn(__fmul_rn(__fsub_rn(t2, t1), w), t1);
 }
 
-// The T of a tile's photons, compiled for one of two cases: from the
-// staged rows (kStaged), or from the table (rows_of, cached while the
-// instruction stays the same)
-template <bool kStaged>
-struct TileTimes {
-  const GasGapIn& g;
-  const float* rows;
-  long long s0;
-  float scale;
-  long long cur = -1;
-  GasGapRows rw{nullptr, nullptr, 0.0f};
-
-  __device__ __forceinline__ float operator()(long long id, float u) {
-    if (kStaged)
-      return staged_time(rows + (id - s0) * (g.M - 1), u, scale);
-    if (id != cur) {
-      rw = rows_of(g, id);
-      cur = id;
-    }
-    return gasgap_time(rw, u, scale);
-  }
-};
-
-// the thread's uniforms, every step, loaded before the tile's search so
-// that the search hides their latency
-template <int R>
-__device__ __forceinline__ void load_uniforms(const GasGapIn& g, long long a,
-                                              long long b, float (&u)[R][4]) {
+// An instruction's rows lerped over the gas gap (row_value) into row[c]
+// for the sampled columns c < M-1, every column loaded before any is
+// stored: a warp's photons read 32 random columns, from shared memory a
+// few bank conflicts, from the table in L1 ~20-30 distinct lines a load.
+// False where they do not fit kRowCap (T then comes from the table); the
+// caller syncs before reading them.
+__device__ __forceinline__ bool stage_row(const GasGapIn& g,
+                                          const GasGapRows& rw, float* row) {
+  constexpr int kCols = kRowCap / tiles::kThreads;
+  const int W = g.M - 1;
+  if (W > kRowCap) return false;
+  float col[kCols];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float4 v = tiles::load4f(
-        g.u, a + 4 * (threadIdx.x + tiles::kThreads * r), b, g.vec);
-    u[r][0] = v.x;
-    u[r][1] = v.y;
-    u[r][2] = v.z;
-    u[r][3] = v.w;
+  for (int k = 0; k < kCols; ++k) {
+    const int c = threadIdx.x + tiles::kThreads * k;
+    if (c < W) col[k] = row_value(rw, c);
   }
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const int c = threadIdx.x + tiles::kThreads * k;
+    if (c < W) row[c] = col[k];
+  }
+  return true;
+}
+
+__device__ __forceinline__ float time_of(const GasGapRows& rw,
+                                         const float* row, bool staged,
+                                         float u, float scale) {
+  return staged ? staged_time(row, u, scale) : gasgap_time(rw, u, scale);
+}
+
+// T in fixed point: an int64 multiple of 2^-32 ns, rounded half to even
+__device__ __forceinline__ unsigned long long fixed_of(float T) {
+  return static_cast<unsigned long long>(
+      __double2ll_rn(__dmul_rn(static_cast<double>(T), 0x1p32)));
 }
 
 // the mean of instruction i from its fixed-point sum: the sum over the
@@ -236,268 +213,257 @@ __device__ __forceinline__ float mean_of(long long sum, long long count) {
                                      static_cast<double>(count)));
 }
 
-// add a warp's lane-held partial sum of instruction i (the same in every
-// lane) to its int64 sum, by one atomic
-__device__ __forceinline__ void flush_run(unsigned long long* sums,
-                                          long long i, long long S,
-                                          unsigned long long part) {
+// a block's sum of the threads' parts (wsum: kWarps words of shared
+// memory), valid in thread 0; syncs the block once
+__device__ __forceinline__ unsigned long long block_sum(
+    unsigned long long part, unsigned long long* wsum) {
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1)
     part += __shfl_xor_sync(tiles::kFull, part, d);
-  if ((threadIdx.x & 31) == 0 && in_range(i, S)) atomicAdd(sums + i, part);
-}
-
-// The sum pass over a tile's photons, compiled for staged rows (kStaged)
-// or the table: each tile adds its photons' fixed-point times to their
-// instructions' int64 sums by integer atomics (wrapping, so exact in any
-// order: the wrapper keeps every instruction's true sum inside int64).  A
-// lane keeps its photons' sum while its warp's steps of 128 photons stay
-// inside one instruction (a warp reduction and one atomic where that run
-// ends); a step that holds an instruction edge takes the warp's prefix of
-// its terms and adds, at each position p where the instruction changes,
-// P(p) to the instruction that ends and -P(p) to the one that starts, ends
-// the run and starts the last instruction's with its total.  Returns the
-// warp's last run (its instruction, this lane's part of its sum).
-template <int R, bool kStaged>
-__device__ __forceinline__ void sum_tile(const GasGapIn& g,
-                                         unsigned long long* sums,
-                                         const tiles::TileIds& ids,
-                                         const float* staged, long long a,
-                                         long long b, const float (&u)[R][4],
-                                         long long& run_id,
-                                         unsigned long long& run) {
-  using namespace tiles;
-  const int lane = threadIdx.x & 31;
-  const long long s0 = ids.s0;
-  TileTimes<kStaged> times{g, staged, s0, static_cast<float>(g.M - 2)};
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = part;
+  __syncthreads();
+  unsigned long long total = 0;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
-    unsigned rel[4];
-    ids.step(r, rel);
-    long long id[4];
-    unsigned long long c[4];           // the lane's inclusive prefix
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      id[q] = s0 + rel[q];
-      unsigned long long x = 0;
-      if (j0 + q < b && in_range(id[q], g.S))
-        x = fixed_of(times(id[q], u[r][q]));
-      c[q] = (q ? c[q - 1] : 0) + x;
-    }
-    const long long first = __shfl_sync(kFull, id[0], 0);
-    const long long last = __shfl_sync(kFull, id[3], 31);
-    if (first == last) {               // no edge inside the warp's step
-      if (first != run_id) {
-        flush_run(sums, run_id, g.S, run);
-        run_id = first;
-        run = 0;
-      }
-      run += c[3];
-      continue;
-    }
-    unsigned long long incl = c[3];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned long long y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
-    }
-    const unsigned long long off = incl - c[3];
-    const long long left = __shfl_up_sync(kFull, id[3], 1);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long prev = q ? id[q - 1] : (lane ? left : id[0]);
-      if (prev != id[q]) {
-        const unsigned long long P = off + (q ? c[q - 1] : 0);
-        if (in_range(prev, g.S)) atomicAdd(sums + prev, P);
-        if (in_range(id[q], g.S)) atomicAdd(sums + id[q], 0ull - P);
-      }
-    }
-    // the run ends in this step (its last part came at the first edge);
-    // the step's total starts the last instruction's run (whose negative
-    // part came at the last edge)
-    flush_run(sums, run_id, g.S, run);
-    run_id = last;
-    run = lane == 31 ? incl : 0ull;
+    for (int k = 0; k < tiles::kWarps; ++k) total += wsum[k];
   }
+  return total;
 }
 
-// The sum pass: a tile's instructions found (tiles.cuh) and their rows
-// staged where they fit, then sum_tile; a tile inside one instruction
-// reduces over the block and adds once.
-template <int R>
-__global__ void __launch_bounds__(tiles::kThreads)
-    gasgap_sum_kernel(GasGapIn g, unsigned long long* sums) {
+// The instruction blocks: block i takes instruction i whole where it fits
+// (tiled() false).  Every uniform of its span, from lo rounded down to a
+// multiple of four, as 16-byte loads, and its row pair lerped over the gas
+// gap are loaded at once and put in shared memory; then T in place of the
+// uniforms (each thread its own four at a time), the fixed-point sum (a
+// block reduction, exact), the mean, and t.  One that does not fit is
+// appended to the tiled instructions' list instead (the order the atomics
+// give is free: an instruction's sum is exact in any order).
+__global__ void __launch_bounds__(tiles::kThreads, 4)
+    gasgap_block_kernel(GasGapIn g, unsigned* list, unsigned* count,
+                        int* __restrict__ t) {
   using namespace tiles;
-  constexpr long long kTile = static_cast<long long>(kStep) * R;
-  extern __shared__ __align__(16) unsigned marks[];
-  __shared__ unsigned tot[R * kWarps];
+  __shared__ __align__(16) float4 T4[kBlockSteps * kThreads];
+  __shared__ __align__(16) float row[kRowCap];
   __shared__ unsigned long long wsum[kWarps];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long a = static_cast<long long>(blockIdx.x) * kTile;
-  const long long b = a + kTile < g.n ? a + kTile : g.n;
-  float u[R][4];
-  load_uniforms<R>(g, a, b, u);
-  long long c0, c1;
-  warp_counts(g.edges, g.S, g.n, a, b - 1, c0, c1);
-  const long long s0 = c0 - 1, s1 = c1 - 1;
-  const TileIds ids = find_ids<R>(
-      marks, tot, s0, s1, a,
-      [&](long long s) { return edge(g.edges, s, g.n); });
-  float* staged = reinterpret_cast<float*>(marks);
-  const bool stage = stage_rows(g, staged, s0, s1, kTile);
-  if (stage) __syncthreads();
-  long long run_id = s0;               // the same in every lane
-  unsigned long long run = 0;          // this lane's part of it
-  if (stage)
-    sum_tile<R, true>(g, sums, ids, staged, a, b, u, run_id, run);
-  else
-    sum_tile<R, false>(g, sums, ids, staged, a, b, u, run_id, run);
-  if (s0 != s1) {
-    flush_run(sums, run_id, g.S, run);
+  __shared__ float mean;
+  const long long i = blockIdx.x;
+  const GasGapRows rw = rows_of(g, i);   // issued with the edges
+  const long long lo = edge(g.edges, i, g.n), hi = edge(g.edges, i + 1, g.n);
+  if (hi <= lo) return;                  // the whole block
+  if (tiled(lo, hi)) {
+    if (threadIdx.x == 0) list[atomicAdd(count, 1u)] = static_cast<unsigned>(i);
     return;
   }
-#pragma unroll                         // one instruction: a block reduction
-  for (int d = 16; d > 0; d >>= 1) run += __shfl_xor_sync(kFull, run, d);
-  if (lane == 0) wsum[w] = run;
-  __syncthreads();
-  if (threadIdx.x == 0 && in_range(s0, g.S)) {
-    unsigned long long total = 0;
+  const long long a = lo & ~3LL;
+  float4 u[kBlockSteps];
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) total += wsum[k];
-    atomicAdd(sums + s0, total);
+  for (int k = 0; k < kBlockSteps; ++k) {
+    const long long j0 = a + 4 * (threadIdx.x + kThreads * k);
+    if (j0 < hi) u[k] = load4f(g.u, j0, hi, g.vec);
   }
-}
-
-// The apply pass over a tile's photons, compiled for staged rows
-// (kStaged) or the table: t = trunc(T - mean), T recomputed from u with the
-// same arithmetic and bits; means: the tile's few instructions' means, or
-// null to compute them from the sums
-template <int R, bool kStaged>
-__device__ __forceinline__ void apply_tile(const GasGapIn& g,
-                                           const unsigned long long* sums,
-                                           const tiles::TileIds& ids,
-                                           const float* staged,
-                                           const float* means, long long a,
-                                           long long b,
-                                           const float (&u)[R][4], int* t) {
-  using namespace tiles;
-  const long long s0 = ids.s0;
-  TileTimes<kStaged> times{g, staged, s0, static_cast<float>(g.M - 2)};
-  long long cur = -1;
-  float m = 0.0f;
+  const bool staged = stage_row(g, rw, row);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
-    unsigned rel[4];
-    ids.step(r, rel);
-    int v[4];
-    unsigned keep = 0;
+  for (int k = 0; k < kBlockSteps; ++k)
+    if (a + 4 * (threadIdx.x + kThreads * k) < hi)
+      T4[threadIdx.x + kThreads * k] = u[k];
+  __syncthreads();
+  const float scale = static_cast<float>(g.M - 2);
+  unsigned long long part = 0;
+#pragma unroll
+  for (int k = 0; k < kBlockSteps; ++k) {
+    const int p = threadIdx.x + kThreads * k;
+    const long long j0 = a + 4 * p;
+    if (j0 >= hi) break;
+    const float4 v = T4[p];
+    float T[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const long long id = s0 + rel[q];
-      v[q] = 0;
-      if (j0 + q < b && in_range(id, g.S)) {
-        if (means != nullptr) {
-          m = means[rel[q]];
-        } else if (id != cur) {
-          cur = id;
-          m = mean_of(static_cast<long long>(sums[id]),
-                      edge(g.edges, id + 1, g.n) - edge(g.edges, id, g.n));
-        }
-        v[q] = static_cast<int>(__fsub_rn(times(id, u[r][q]), m));
-        keep |= 1u << q;
-      }
+      if (j0 + q < lo || j0 + q >= hi) continue;
+      T[q] = time_of(rw, row, staged, T[q], scale);
+      part += fixed_of(T[q]);
     }
+    T4[p] = make_float4(T[0], T[1], T[2], T[3]);
+  }
+  const unsigned long long total = block_sum(part, wsum);
+  if (threadIdx.x == 0) mean = mean_of(static_cast<long long>(total), hi - lo);
+  __syncthreads();
+  const float m = mean;
+#pragma unroll
+  for (int k = 0; k < kBlockSteps; ++k) {
+    const int p = threadIdx.x + kThreads * k;
+    const long long j0 = a + 4 * p;
+    if (j0 >= hi) break;
+    const float4 T = T4[p];
+    const int v[4] = {static_cast<int>(__fsub_rn(T.x, m)),
+                      static_cast<int>(__fsub_rn(T.y, m)),
+                      static_cast<int>(__fsub_rn(T.z, m)),
+                      static_cast<int>(__fsub_rn(T.w, m))};
+    unsigned keep = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (j0 + q >= lo && j0 + q < hi) keep |= 1u << q;
     store4(t, j0, v, keep, g.vec);
   }
 }
 
-// The apply pass: each tile reads its instructions' sums and takes a ticket
-// for each; the tile that completes an instruction's tiles clears its sum
-// and ticket, so the scratch is zero for the next call.  Where the tile
-// holds few instructions (their edges in registers), warp 0 reads their
-// sums into shared means while the rows are staged, and takes the tickets
-// after the one sync (so no thread of the tile reads a sum after it) while
-// the photons are written; otherwise each thread reads the sums of its
-// photons' instructions and the tickets come after the photons.
-template <int R>
+// A tile of the tiled instructions: instruction i, its photons [lo, hi),
+// the tile's span [a, a + kTile) and the instruction's count of tiles n
+struct TiledTile {
+  long long i, lo, hi, a;
+  unsigned n;
+};
+
+// Tile b of the tiled instructions: each cut into tiles of kTile photons
+// from its first photon rounded down to a multiple of four, in list order;
+// found by warp 0 (the list's L entries 32 at a time, a warp prefix of
+// their tile counts) and written to *out, i = -1 past the last tile.
+__device__ void find_tiled_tile(const GasGapIn& g, const unsigned* list,
+                                unsigned L, long long b, TiledTile* out) {
+  const int lane = threadIdx.x & 31;
+  long long before = 0;
+  for (unsigned c = 0; c < L; c += 32) {
+    const unsigned k = c + lane;
+    long long i = 0, lo = 0, hi = 0, n = 0;
+    if (k < L) {
+      i = list[k];
+      lo = tiles::edge(g.edges, i, g.n);
+      hi = tiles::edge(g.edges, i + 1, g.n);
+      n = (hi - (lo & ~3LL) + kTile - 1) / kTile;
+    }
+    long long incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(tiles::kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const long long excl = before + incl - n;
+    const bool mine = k < L && b >= excl && b < excl + n;
+    if (__ballot_sync(tiles::kFull, mine)) {
+      if (mine)
+        *out = {i, lo, hi, (lo & ~3LL) + (b - excl) * kTile,
+                static_cast<unsigned>(n)};
+      return;
+    }
+    before += __shfl_sync(tiles::kFull, incl, 31);
+  }
+  if (lane == 0) out->i = -1;
+}
+
+// The sum pass (nothing where no instruction is tiled): the grid strides
+// over the tiled instructions' tiles; a tile's uniforms are loaded, its
+// instruction's rows staged, and its photons' fixed-point times summed
+// over the block and added to the instruction's int64 sum by one atomic
+// (wrapping, so exact in any order: the wrapper keeps every instruction's
+// true sum inside int64).
 __global__ void __launch_bounds__(tiles::kThreads)
-    gasgap_apply_kernel(GasGapIn g, unsigned long long* sums,
-                        unsigned* tickets, int* __restrict__ t) {
+    gasgap_sum_kernel(GasGapIn g, unsigned long long* sums,
+                      const unsigned* list, const unsigned* count) {
   using namespace tiles;
-  constexpr long long kTile = static_cast<long long>(kStep) * R;
-  extern __shared__ __align__(16) unsigned marks[];
-  __shared__ unsigned tot[R * kWarps];
-  __shared__ float means[kRegEdges + 1];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long a = static_cast<long long>(blockIdx.x) * kTile;
-  const long long b = a + kTile < g.n ? a + kTile : g.n;
-  float u[R][4];
-  load_uniforms<R>(g, a, b, u);
-  long long c0, c1;
-  warp_counts(g.edges, g.S, g.n, a, b - 1, c0, c1);
-  const long long s0 = c0 - 1, s1 = c1 - 1;
-  if (s0 == s1 && !in_range(s0, g.S)) return;   // the whole block
-  const TileIds ids = find_ids<R>(
-      marks, tot, s0, s1, a,
-      [&](long long s) { return edge(g.edges, s, g.n); });
-  const bool few = ids.m <= kRegEdges;
-  // with few instructions, lane k <= m of warp 0 owns instruction s0 + k
-  const long long mine = s0 + lane;
-  const bool owner = few && w == 0 && lane <= ids.m && in_range(mine, g.S);
-  long long lo = 0, hi = 0;
-  if (owner) {
-    lo = edge(g.edges, mine, g.n);
-    hi = edge(g.edges, mine + 1, g.n);
-    if (hi > lo)
-      means[lane] = mean_of(static_cast<long long>(sums[mine]), hi - lo);
-  }
-  float* staged = reinterpret_cast<float*>(marks);
-  const bool stage = stage_rows(g, staged, s0, s1, kTile);
-  __syncthreads();
-  bool last = false;
-  if (owner && hi > lo)
-    last = ticket_add(tickets + mine) ==
-           static_cast<unsigned>((hi - 1) / kTile - lo / kTile + 1) - 1;
-  const float* m = few ? means : nullptr;
-  if (stage)
-    apply_tile<R, true>(g, sums, ids, staged, m, a, b, u, t);
-  else
-    apply_tile<R, false>(g, sums, ids, staged, m, a, b, u, t);
-  if (few) {
-    if (last) {
-      sums[mine] = 0;
-      tickets[mine] = 0;
+  constexpr int R = kTileSteps;
+  __shared__ __align__(16) float row[kRowCap];
+  __shared__ unsigned long long wsum[kWarps];
+  __shared__ TiledTile tile;
+  const unsigned L = __ldg(count);
+  if (L == 0) return;                    // no instruction is tiled
+  const float scale = static_cast<float>(g.M - 2);
+  for (long long b = blockIdx.x;; b += gridDim.x) {
+    if (threadIdx.x < 32) find_tiled_tile(g, list, L, b, &tile);
+    __syncthreads();
+    const TiledTile tl = tile;
+    if (tl.i < 0) return;                // the whole block
+    const long long end = tl.a + kTile < tl.hi ? tl.a + kTile : tl.hi;
+    float u[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 v =
+          load4f(g.u, tl.a + 4 * (threadIdx.x + kThreads * r), end, g.vec);
+      u[r][0] = v.x, u[r][1] = v.y, u[r][2] = v.z, u[r][3] = v.w;
     }
-    return;
-  }
-  __syncthreads();                     // every sum of the tile read
-  const long long i_end = s1 < g.S - 1 ? s1 : g.S - 1;
-  for (long long i = (s0 > 0 ? s0 : 0) + threadIdx.x; i <= i_end;
-       i += kThreads) {
-    const long long l = edge(g.edges, i, g.n), h = edge(g.edges, i + 1, g.n);
-    if (h <= l) continue;              // no photons: no tile holds it
-    if (ticket_add(tickets + i) ==
-        static_cast<unsigned>((h - 1) / kTile - l / kTile + 1) - 1) {
-      sums[i] = 0;
-      tickets[i] = 0;
+    const GasGapRows rw = rows_of(g, tl.i);
+    const bool staged = stage_row(g, rw, row);
+    __syncthreads();
+    unsigned long long part = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long j0 = tl.a + 4 * (threadIdx.x + kThreads * r);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j0 + q >= tl.lo && j0 + q < end)
+          part += fixed_of(time_of(rw, row, staged, u[r][q], scale));
     }
+    const unsigned long long total = block_sum(part, wsum);
+    if (threadIdx.x == 0 && total != 0) atomicAdd(sums + tl.i, total);
+    __syncthreads();                     // tile, row and wsum are reused
   }
 }
 
-template <int R>
-cudaError_t launch_gasgap(const GasGapIn& g, unsigned long long* sums,
-                          unsigned* tickets, int* t, cudaStream_t st) {
-  constexpr long long kTile = static_cast<long long>(tiles::kStep) * R;
-  const unsigned blocks = static_cast<unsigned>((g.n + kTile - 1) / kTile);
-  const size_t smem = kTile * sizeof(unsigned);
-  gasgap_sum_kernel<R><<<blocks, tiles::kThreads, smem, st>>>(g, sums);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gasgap_apply_kernel<R><<<blocks, tiles::kThreads, smem, st>>>(g, sums,
-                                                                 tickets, t);
-  return cudaGetLastError();
+// The apply pass (nothing where no instruction is tiled): the same tiles;
+// thread 0 reads the instruction's sum into the mean and then takes its
+// ticket, and the tile that completes the instruction clears its sum and
+// ticket; every photon's T, recomputed from u with the same bits, minus
+// the mean.  Every block then takes a ticket of the list's reads, and the
+// last clears the list and its count, so the scratch is zero for the next
+// call.
+__global__ void __launch_bounds__(tiles::kThreads, 4)
+    gasgap_apply_kernel(GasGapIn g, unsigned long long* sums,
+                        unsigned* tickets, unsigned* list, unsigned* count,
+                        int* __restrict__ t) {
+  using namespace tiles;
+  constexpr int R = kTileSteps;
+  __shared__ __align__(16) float row[kRowCap];
+  __shared__ TiledTile tile;
+  __shared__ unsigned n_listed;
+  __shared__ float mean;
+  if (threadIdx.x == 0) n_listed = *reinterpret_cast<volatile unsigned*>(count);
+  __syncthreads();
+  const unsigned L = n_listed;
+  if (L == 0) return;                    // no instruction is tiled
+  const float scale = static_cast<float>(g.M - 2);
+  for (long long b = blockIdx.x;; b += gridDim.x) {
+    if (threadIdx.x < 32) find_tiled_tile(g, list, L, b, &tile);
+    __syncthreads();
+    const TiledTile tl = tile;
+    if (tl.i < 0) break;                 // the whole block
+    const long long end = tl.a + kTile < tl.hi ? tl.a + kTile : tl.hi;
+    float u[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 v =
+          load4f(g.u, tl.a + 4 * (threadIdx.x + kThreads * r), end, g.vec);
+      u[r][0] = v.x, u[r][1] = v.y, u[r][2] = v.z, u[r][3] = v.w;
+    }
+    const GasGapRows rw = rows_of(g, tl.i);
+    if (threadIdx.x == 0)
+      mean = mean_of(static_cast<long long>(sums[tl.i]), tl.hi - tl.lo);
+    const bool staged = stage_row(g, rw, row);
+    __syncthreads();
+    if (threadIdx.x == 0 && ticket_add(tickets + tl.i) == tl.n - 1) {
+      sums[tl.i] = 0;
+      tickets[tl.i] = 0;
+    }
+    const float m = mean;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long j0 = tl.a + 4 * (threadIdx.x + kThreads * r);
+      int v[4];
+      unsigned keep = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = 0;
+        if (j0 + q < tl.lo || j0 + q >= end) continue;
+        v[q] = static_cast<int>(
+            __fsub_rn(time_of(rw, row, staged, u[r][q], scale), m));
+        keep |= 1u << q;
+      }
+      store4(t, j0, v, keep, g.vec);
+    }
+    __syncthreads();                     // tile, row and mean are reused
+  }
+  if (threadIdx.x == 0 && ticket_add(count + 1) == gridDim.x - 1) {
+    for (unsigned k = 0; k < L; ++k) list[k] = 0;
+    count[0] = 0;
+    count[1] = 0;
+  }
 }
 
 __global__ void nest_delays_kernel(
@@ -646,14 +612,15 @@ int grid_for(long long n) {
 
 }  // namespace
 
-// n photons in tiles of `tile` (2,048, 4,096 or 8,192); acc: n_inst zero
-// int64 sums then n_inst zero uint32 tickets, left zero (one buffer per
+// n photons of n_inst instructions; acc: n_inst zero int64 sums, then
+// 2 n_inst + 2 zero uint32 words (the tickets, the tiled instructions'
+// list, its count and the count of its reads), left zero (one buffer per
 // stream: two launches sharing it must not overlap)
 extern "C" int wfsim_lumi_gasgap_times(const void* inv, int G, int M,
                                        const void* lower, const void* upper,
                                        const void* frac, int n_inst,
                                        const void* edges, const void* u,
-                                       int n, int tile, void* acc, void* t,
+                                       int n, void* acc, void* t,
                                        void* stream) {
   if (n_inst <= 0 || G < 1 || M < 3 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -671,16 +638,18 @@ extern "C" int wfsim_lumi_gasgap_times(const void* inv, int G, int M,
   g.vec = tiles::aligned16(u) && tiles::aligned16(t);
   auto* sums = static_cast<unsigned long long*>(acc);
   auto* tickets = reinterpret_cast<unsigned*>(sums + n_inst);
+  unsigned* list = tickets + n_inst;
+  unsigned* count = list + n_inst;
   auto* out = static_cast<int*>(t);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (tile) {
-    case 2048: err = launch_gasgap<2>(g, sums, tickets, out, st); break;
-    case 4096: err = launch_gasgap<4>(g, sums, tickets, out, st); break;
-    case 8192: err = launch_gasgap<8>(g, sums, tickets, out, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  // a block a tile of the photons: the tiled instructions' tiles are at
+  // most ~1.5 times as many, and the grid strides over them
+  const unsigned grid = static_cast<unsigned>((n + kTile - 1) / kTile);
+  gasgap_block_kernel<<<n_inst, kThreads, 0, st>>>(g, list, count, out);
+  gasgap_sum_kernel<<<grid, kThreads, 0, st>>>(g, sums, list, count);
+  gasgap_apply_kernel<<<grid, kThreads, 0, st>>>(g, sums, tickets, list,
+                                                 count, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int wfsim_nest_delays(const void* table, int n_cls, int F, int En,

@@ -432,16 +432,18 @@ def fixed_point_fails(worst: float) -> bool:
     return worst * (1 + 2.0 ** -16) + 1 >= 2.0 ** 31
 
 
-#: photons a block of the gas-gap sampler's kernels takes (2,048, 4,096 or
-#: 8,192; chip_smoke.py's photon_times_measure sweeps them)
-GASGAP_TILE = 4096
-
 _gasgap_kernel = Kernel('wfsim_lumi_gasgap_times',
-                        [P, I, I, P, P, P, I, P, P, I, I, P, P, P])
+                        [P, I, I, P, P, P, I, P, P, I, P, P, P])
 
 
-def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *,
-                      t_max=None):
+def _check_segments(n: int, n_seg: int, what: str):
+    """Elements need a segment: raised on the host, where the CPU paths
+    raise by the edges' check (an empty edge array ends at 0)."""
+    if n and not n_seg:
+        raise ValueError(f'{what}: {n} elements and no segments')
+
+
+def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *, t_max):
     """Luminescence times of the ``garfield_gas_gap`` model (wfsim_tpu
     s2.py:255 luminescence_garfield_gasgap; reference s2.py:411-483):
     photon j of instruction i interpolates the rows ``lower[i]`` and
@@ -457,10 +459,15 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *,
     int64 raises ``OverflowError`` (about 2^31 ns summed over its photons,
     e.g. 1.2e7 photons at the synthetic table's ~175 ns): where ``t_max``
     (a host float, the largest |T| any photon can take:
-    ``SimParams.gg_t_max``) times the photon total fits, nothing is
-    checked; else :func:`check_fixed_point_range` decides, with one
-    read-back.  The bound is never below that check's, so both raise on
-    the same inputs.
+    ``SimParams.gg_t_max``, or :func:`~wfsim_tpu_torch.models.params.
+    gasgap_time_max` of the table and the gas-gap values; ``math.inf``
+    where none is known) times the photon total fits, nothing is checked;
+    else :func:`check_fixed_point_range` decides, with one read-back.  The
+    bound is never below that check's, so both raise on the same inputs.
+    It counts the whole batch, not the
+    largest instruction: at the synthetic table's bound (118.7 ns on the
+    detector_physics map) a batch of more than ~1.8e7 photons reads back
+    once a call.
 
     :param inv_cdf: (G, M) float32 per-gas-gap inverse CDFs
     :param lower, upper: (I,) int64 rows, ``frac`` (I,) float32
@@ -472,9 +479,10 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *,
 
     CPU tensors run :func:`lumi_gasgap_times_ref` and raise where the
     edges do not end at N; CUDA tensors launch ``csrc/table_samplers.cu``
-    (tiles of :data:`GASGAP_TILE` photons a block, a sum pass and an
-    apply pass), which reads nothing back and clamps the edges to the N
-    photons (a photon past the last edge is not written)."""
+    (a block an instruction of up to 8,192 photons; larger ones listed and
+    cut into tiles of 4,096 photons, a sum pass and an apply pass), which
+    reads nothing back and clamps the edges to the N photons (a photon
+    past the last edge is not written)."""
     dev = inv_cdf.device
     n_inst = lower.shape[0]
     n = u.shape[0]
@@ -487,7 +495,8 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *,
     check_tensor('ph_edges', ph_edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('u', u, torch.float32, (n,), dev)
     _check_edges(ph_edges, n, 'uniforms')
-    if t_max is None or fixed_point_fails(n * float(t_max)):
+    _check_segments(n, n_inst, 'uniforms')
+    if fixed_point_fails(n * float(t_max)):
         check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges)
     if dev.type == 'cpu':
         return lumi_gasgap_times_ref(inv_cdf, lower, upper, frac, ph_edges, u)
@@ -496,12 +505,14 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *,
     if n >= 2 ** 31:
         raise ValueError(f'{n} photons: the kernel counts them as int')
     t = torch.empty(n, dtype=torch.int32, device=dev)
-    if n and n_inst:
+    if n:
         stream = stream_of(dev)
-        acc = scratch(dev, stream, n_inst + (n_inst + 1) // 2)
+        # int64 sums, then uint32 tickets, the tiled instructions' list,
+        # its count and the count of its reads
+        acc = scratch(dev, stream, 2 * n_inst + 1)
         _gasgap_kernel(ptr(inv_cdf), *inv_cdf.shape, ptr(lower), ptr(upper),
                        ptr(frac), n_inst, ptr(ph_edges), ptr(u), n,
-                       GASGAP_TILE, ptr(acc), ptr(t), stream)
+                       ptr(acc), ptr(t), stream)
     return t
 
 
@@ -936,6 +947,7 @@ def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
         check_tensor(name, x, torch.float32, (n,), dev)
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
     _check_edges(e_edges, n, 'electron draws')
+    _check_segments(n, n_inst, 'electron draws')
     if dev.type == 'cpu':
         return s2_electron_times_ref(time, e_edges, mean, spread, exp, nrm,
                                      truth_row, trapping=trapping)
@@ -945,7 +957,7 @@ def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
         raise ValueError(f'{n} electrons: the kernel counts them as int')
     e_t = torch.empty(n, dtype=torch.int32, device=dev)
     e_row = torch.empty(n, dtype=torch.int64, device=dev)
-    if n and n_inst:
+    if n:
         _e_kernel(ptr(time), ptr(e_edges), n_inst, n, ptr(mean),
                   ptr(spread), ptr(exp), ptr(nrm), ptr(truth_row),
                   float(np.float32(trapping)), ptr(e_t), ptr(e_row),
@@ -969,12 +981,8 @@ def s2_photon_times_ref(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum,
     return t, truth_row[ph_inst]
 
 
-#: photons a block of the S2 photon-time kernel takes (2,048, 4,096 or
-#: 8,192; chip_smoke.py's photon_times_measure sweeps them)
-PHOTON_TILE = 4096
-
 _ph_kernel = Kernel('wfsim_s2_photon_times',
-                    [P, I, P, I, P, I, I, I, P, P, P, P, P, P, P, F, F, F, F,
+                    [P, I, P, I, P, I, I, P, P, P, P, P, P, P, F, F, F, F,
                      P, P, P])
 
 
@@ -995,8 +1003,7 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
 
     CPU tensors run :func:`s2_photon_times_ref` and raise where the edges
     do not end at the electrons and photons; CUDA tensors launch
-    ``csrc/photon_times.cu`` (tiles of :data:`PHOTON_TILE` photons a
-    block), which reads nothing back and clamps the edges to them (a
+    ``csrc/photon_times.cu`` (tiles of 4,096 photons a block), which reads nothing back and clamps the edges to them (a
     photon past the last edges is not written)."""
     dev = e_t.device
     n_inst = truth_row.shape[0]
@@ -1021,6 +1028,8 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
         check_tensor(name, x, torch.float32, (n,), dev)
     _check_edges(e_edges, n_e, 'electrons')
     _check_edges(e_ph_edges, n, 'photon draws')
+    _check_segments(n, n_e, 'photon draws')
+    _check_segments(n_e, n_inst, 'electrons')
     kw = dict(singlet_fraction=singlet_fraction, t_singlet=t_singlet,
               t_triplet=t_triplet, time_spread=time_spread, t_lum=t_lum)
     if dev.type == 'cpu':
@@ -1038,9 +1047,9 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
 
     def opt(x):
         return None if x is None else ptr(x)
-    if n and n_inst:
+    if n:
         _ph_kernel(opt(inv), q, ptr(e_edges), n_inst, ptr(e_ph_edges), n_e,
-                   n, PHOTON_TILE, ptr(e_t), ptr(truth_row), opt(u_lum),
+                   n, ptr(e_t), ptr(truth_row), opt(u_lum),
                    opt(t_lum), ptr(u_st), ptr(exp_st), opt(t_spread),
                    *(float(np.float32(v)) for v in (
                        singlet_fraction, t_singlet, t_triplet, time_spread)),
