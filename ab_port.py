@@ -96,13 +96,15 @@ def main():
                     help='measure the kernel rows, not the runs')
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
                                        'pmt_truth', 'pmt_truth_layouts',
-                                       'photon_times'),
+                                       'photon_times', 'step_block',
+                                       'step_block_spans', 'garfield'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
                          'K8 row-truth and K16 rows only, those two '
-                         'kernels under each layout, or the K13a and K9 '
-                         'rows only')
+                         'kernels under each layout, the K13a and K9 '
+                         'rows only, the K14 rows only, K14 under each '
+                         'warp tile, or the K13c rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

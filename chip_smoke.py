@@ -205,10 +205,13 @@ on the bench workload with the recoil ids cycling ER, NR, alpha, LED over
 the events:
 
 3f. ``custom_delays`` on the 512-instruction S1 batch and
-    ``lumi_garfield_times`` on the 512-instruction S2 batch (~1.57 M
-    photons), in its wire-rotation mode and in its confine mode, each
-    against its twin on the card, bitwise; median CUDA-event times of
-    both, the bound by bytes;
+    ``lumi_garfield_times`` (garfield_measure) on the 512-instruction S2
+    batch (~1.57 M photons), in its wire-rotation mode and in its confine
+    mode, and on a copy whose instruction 100 holds 10^6 photons
+    (GARFIELD_SKEWED), each against its twin on the card, bitwise, the
+    garfield rows also against a library computation around one gather
+    and on a second call, with no read-back; median CUDA-event times,
+    device times, host microseconds a call, the bound by bytes;
 4f. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
     **timing_models_overrides(file)), device='cuda').get_arrays(inst)``,
     warm-up then timed; every entry point of the path launched (the two
@@ -259,9 +262,14 @@ exercised here):
 3i. ``superpose_block`` (the channel block of the step) against its twin
     on the card, bitwise: the photons of one step shard (64 instructions
     of ``step_instructions``: 32 bench S1s and 32 bench S2s placed in a
-    2^16-sample grid; the in-grid share is printed) on 494 channels in 1
-    block and in 2 blocks of 247; median CUDA-event times of kernel and
-    twin for the single block, the bound by bytes;
+    2^16-sample grid; the in-grid share is printed) on 494 channels in 2
+    blocks of 247 and (step_block_measure) in 1 block, as is and with row
+    300 holding 10^5 photons (STEP_SKEW: spread like the shard's photons,
+    or in one ~300 ns burst), each also on a second call, with one
+    read-back a call; median CUDA-event and device times, host
+    microseconds a call, the twin's time, the bound by bytes and two
+    library computations (``conv1d``, ``index_add_``; the faster is
+    ``library_ms``); the tiles a row-range skip could spare are printed;
 4i. (a) NCCL at world size 1 in this process: the step at 1 x 1 on two
     shards, with every launch count set to 0 just before it (the K14
     entry launched; the sum row equal to the bottom channels' sum), and
@@ -311,8 +319,9 @@ that computation's time (``library_ms``: the channel draw from the
 pattern through ``torch.searchsorted`` on targets padded per row, the map
 lookup from the points through ``grid_sample``, the per-PMT truth from the
 photons around one ``index_add_``, the superposition the fastest of a
-gain histogram through ``conv1d`` and its taps through ``index_add_``; the
-channel block of the step has none).  The phase-2
+gain histogram through ``conv1d`` and its taps through ``index_add_``, the
+channel block of the step the same around its int32 epilogue, the
+garfield times around one gather ``table[row_of_photon, cols]``).  The phase-2
 line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
@@ -848,7 +857,7 @@ def phase_3c(params, const, batches, dev, smi):
     check('pmt_photon_pass', lambda: pmt._photon_pass(*pp_args),
           lambda: pmt.photon_pass_ref(*pp_args),
           (t, ch, truth_row, d2['pmt'], params.chan_pack,
-           params.uniform_to_pe), ops32=n_ph * 16)
+           params.uniform_to_pe), ops32=n_ph * 16, host=True)
     ph = pmt._photon_pass(*pp_args)
     row_edges = row_edges_of(x2['truth_row'], ph_edges, n_rows)
 
@@ -984,7 +993,7 @@ def phase_3d(params, const, batches, dev, smi):
           f'{rows.shape[1]} quantiles read')
     check('nest_delays', lambda: (s1.nest_delays(*nest_args),),
           lambda: (s1.nest_delays_ref(*nest_args),),
-          nest_args[1:] + (rows,), ops32=n_s1 * 32)
+          nest_args[1:] + (rows,), ops32=n_s1 * 32, host=True)
     return res
 
 
@@ -1172,7 +1181,7 @@ def phase_timing_models(dev, smi):
     from wfsim_tpu_torch.config import default_config, timing_models_overrides
     from wfsim_tpu_torch.interface import (timing_models_instructions,
                                            TIMING_MODEL_RECOILS)
-    from wfsim_tpu_torch.models import s1, s2
+    from wfsim_tpu_torch.models import s1
     from wfsim_tpu_torch.ops.segment import edges_from_counts
     from wfsim_tpu_torch.resources.synthetic import write_garfield_table
     tmp = tempfile.mkdtemp(prefix='wfsim_smoke_tm_')
@@ -1189,7 +1198,6 @@ def phase_timing_models(dev, smi):
         res = {}
         check = make_check(res, 'kernels-t', smi)
         x1, _n1, d1 = batches['s1']
-        x2, _n2, d2 = batches['s2']
         cls = s1.recoil_class(x1['recoil'])
         edges = edges_from_counts(d1['n_hits'])
         n_s1, n_i1 = int(edges[-1]), int(cls.shape[0])
@@ -1206,32 +1214,14 @@ def phase_timing_models(dev, smi):
         check('custom_delays',
               lambda: (s1.custom_delays(*c_args, const=const),),
               lambda: (s1.custom_delays_ref(*c_args, const=const),),
-              (cls, edges), ops32=n_s1 * (12 + int(np.log2(n_i1)) + 1))
+              (cls, edges), ops32=n_s1 * (12 + int(np.log2(n_i1)) + 1),
+              host=True)
         res['custom_delays']['bytes'] += 4 * int(reads.sum())
         per_cls = [int((ph_cls == c).sum()) for c in range(4)]
         print(f'[kernels-t] custom_delays: {n_s1} photons of {n_i1} '
               f'instructions, per class {per_cls}')
 
-        _e, _eph, ph_edges = s2.s2_edges(d2)
-        _z, xy = s2.s2_positions(params, const, x2)
-        n_ph, n_i2 = int(ph_edges[-1]), int(xy.shape[0])
-        R, M = params.garfield_t.shape
-        g_kw = dict(avgt=params.garfield_avgt, tilt=const.anode_xaxis_angle,
-                    pitch=const.anode_pitch)
-        u_wire = torch.rand(n_i2, device=dev)
-        for name, u, conf in (('lumi_garfield_times', None, -1.0),
-                              ('lumi_garfield_times_confine', u_wire, 0.1)):
-            g_args = (params.garfield_t, params.garfield_x, xy, ph_edges,
-                      d2['col'], u)
-            check(name,
-                  lambda a=g_args, c=conf: (s2.lumi_garfield_times(
-                      *a, **g_kw, confine=c),),
-                  lambda a=g_args, c=conf: (s2.lumi_garfield_times_ref(
-                      *a, **g_kw, confine=c),),
-                  g_args, ops32=n_i2 * R * 3 + n_ph * (
-                      3 + int(np.log2(n_i2)) + 1))
-        print(f'[kernels-t] lumi_garfield_times: {n_ph} photons of {n_i2} '
-              f'instructions, table {R} x {M}')
+        res.update(garfield_measure(dev, smi))
 
         # ---- 4f. the timing_models main path --------------------------------
         out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
@@ -1508,30 +1498,23 @@ def superpose_arena(shape, n_ch, seed, B=16):
 SUPERPOSE_LIBRARY = ('conv1d', 'index_add')
 
 
-def superpose_library(sargs, kw, C, full=None, how='conv1d'):
-    """One superposition entry in PyTorch around one library call.
-    ``how`` 'conv1d': the float32 histogram ``H[row, r, s]`` of the gains
-    (``index_put_`` with accumulate; s = t // dt, r = t % dt, L - 1 samples
-    of padding before sample 0 and a dump column for photons past the
-    grid), ``F.conv1d`` with the flipped template bank, sliced to T;
-    'index_add' each photon's L
-    products ``gain * T[r][k]`` added into its row at samples s + k by one
-    ``index_add_`` (a dump past sample T).  Then the epilogue in torch:
-    round, noise gather, baseline, clip, int16; with ``full`` = (n_all,
-    n_top, he_lo, sum_ch, deamp) the full grid (he_lo None: without HE
-    rows) with the HE rows and the bottom sum.  Only the padded index
-    layout (each photon's row offset, each row's window and channel) is
-    computed outside the returned call, and nothing is read back.  cuDNN's
-    TF32 is off inside the call; the adds' order is not the twin's (per
-    bin first, or atomics), so the result is not bitwise the twin's."""
+def library_waveform(t, gain, row_ptr, templates, T, how):
+    """A call that returns the float32 (rows, T) waveform of row-sorted
+    photons in PyTorch around one library call: ``how`` 'conv1d', the
+    float32 histogram ``H[row, r, s]`` of the gains (``index_put_`` with
+    accumulate; s = t // dt, r = t % dt, L - 1 samples of padding before
+    sample 0 and a dump column for photons past the grid) through
+    ``F.conv1d`` with the flipped template bank, sliced to T; 'index_add',
+    each photon's L products ``gain * T[r][k]`` added into its row at
+    samples s + k by one ``index_add_`` (a dump past sample T).  Only the
+    padded index layout (each photon's row offset) is computed outside
+    the returned call.  cuDNN's TF32 is off inside the call; the adds'
+    order is not the twins' (per bin first, or atomics)."""
     import torch
     import torch.nn.functional as F
-    t, gain, row_ptr, templates, ch_left, ch_right, has = sargs
     dev = t.device
     dt, L = templates.shape
-    T = kw['n_samples']
     n_rows = row_ptr.shape[0] - 1
-    B = n_rows // C
     # conv1d: L - 1 padding, T samples, the dump; index_add: T samples and
     # L - 1 + 1 past them, where a photon at s >= T is moved to s = T
     width = T + L
@@ -1540,9 +1523,46 @@ def superpose_library(sargs, kw, C, full=None, how='conv1d'):
     row_off = torch.repeat_interleave(
         rows * (width if how == 'index_add' else dt * width), counts,
         output_size=t.shape[0])
-    w_row, c_row = rows // C, rows % C
     weight = templates.flip(1)[None].contiguous()
     taps = torch.arange(L, device=dev)
+
+    def superpose():
+        s = torch.div(t, dt, rounding_mode='floor')
+        if how == 'index_add':
+            idx = (row_off + s.clamp_max(T))[:, None] + taps
+            G = torch.zeros(n_rows * width, device=dev)
+            G.index_add_(0, idx.view(-1),
+                         (gain[:, None] * templates[t - s * dt]).view(-1))
+            return G.view(n_rows, width)[:, :T]
+        idx = (row_off + (t - s * dt) * width
+               + torch.where(s < T, s + (L - 1), width - 1))
+        H = torch.zeros(n_rows * dt * width, device=dev)
+        H.index_put_((idx,), gain, accumulate=True)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            return F.conv1d(H.view(n_rows, dt, width), weight)[:, 0, :T]
+    return superpose
+
+
+def superpose_library(sargs, kw, C, full=None, how='conv1d'):
+    """One superposition entry in PyTorch around one library call: the
+    waveform of ``library_waveform``, then the epilogue in torch: round,
+    noise gather, baseline, clip, int16; with ``full`` = (n_all, n_top,
+    he_lo, sum_ch, deamp) the full grid (he_lo None: without HE rows) with
+    the HE rows and the bottom sum.  Only the padded index layout (each
+    photon's row offset, each row's window and channel) is computed
+    outside the returned call, and nothing is read back; the result is not
+    bitwise the twin's (see library_waveform)."""
+    import torch
+    t, gain, row_ptr, templates, ch_left, ch_right, has = sargs
+    dev = t.device
+    T = kw['n_samples']
+    n_rows = row_ptr.shape[0] - 1
+    B = n_rows // C
+    superpose = library_waveform(t, gain, row_ptr, templates, T, how)
+    rows = torch.arange(n_rows, device=dev)
+    w_row, c_row = rows // C, rows % C
     u = torch.arange(T, device=dev)
     c2a = float(np.float32(kw['current_2_adc']))
     base = kw['baseline']
@@ -1564,24 +1584,6 @@ def superpose_library(sargs, kw, C, full=None, how='conv1d'):
                               0) + base
         x = x + torch.where(in_win, add, 0)
         return torch.where(in_win, torch.clamp_min(x, 0), x)
-
-    def superpose():
-        """The float32 (n_rows, T) waveforms."""
-        s = torch.div(t, dt, rounding_mode='floor')
-        if how == 'index_add':
-            idx = (row_off + s.clamp_max(T))[:, None] + taps
-            G = torch.zeros(n_rows * width, device=dev)
-            G.index_add_(0, idx.view(-1),
-                         (gain[:, None] * templates[t - s * dt]).view(-1))
-            return G.view(n_rows, width)[:, :T]
-        idx = (row_off + (t - s * dt) * width
-               + torch.where(s < T, s + (L - 1), width - 1))
-        H = torch.zeros(n_rows * dt * width, device=dev)
-        H.index_put_((idx,), gain, accumulate=True)
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=False,
-                                        allow_tf32=False):
-            return F.conv1d(H.view(n_rows, dt, width), weight)[:, 0, :T]
 
     def call():
         adc = (-torch.round(superpose() * c2a)).to(torch.int32)
@@ -2848,6 +2850,330 @@ def photon_times_measure(dev, smi, max_syncs=(0, 0)):
     return res
 
 
+#: the step shard's skewed copies (phase 3i, step_block_measure): row
+#: STEP_SKEW['row'] of the bench shard's block holds 10^5 photons, in
+#: 'skewed' times and gains drawn from the whole shard's photons (the
+#: channel sees ~500 times its neighbours' light at the same events'
+#: times), in 'burst' one pulse at the shard's median time (exponential,
+#: mean 60 ns: ~300 ns)
+STEP_SKEW = dict(row=300, photons=100_000, burst_mean_ns=60.0)
+
+
+def with_row(bp, row, t_row, g_row):
+    """block_photons' dict ``bp`` with row ``row``'s photons replaced."""
+    import torch
+    rp = bp['row_ptr']
+    a, b = int(rp[row]), int(rp[row + 1])
+    dev = rp.device
+    t_row = torch.as_tensor(t_row, dtype=torch.int32, device=dev)
+    g_row = torch.as_tensor(g_row, dtype=torch.float32, device=dev)
+    row_ptr = rp.clone()
+    row_ptr[row + 1:] += t_row.shape[0] - (b - a)
+    return dict(t=torch.cat([bp['t'][:a], t_row, bp['t'][b:]]).contiguous(),
+                gain=torch.cat([bp['gain'][:a], g_row,
+                                bp['gain'][b:]]).contiguous(),
+                row_ptr=row_ptr)
+
+
+def step_block_rows(dev):
+    """The rows of step_block_measure: {name: (args, kw)} of the channel
+    block of one step shard (64 instructions of ``step_instructions`` in a
+    2^16-sample grid, all 494 channels in one block: the 1 x 1 step's
+    call) and its STEP_SKEW copies; prints each row's tiles a row-range
+    skip could spare (tiles outside a row's [min s, max s + L)) and the
+    tiles with a hit."""
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import step_instructions
+    from wfsim_tpu_torch.models.params import build_params, build_constants
+    from wfsim_tpu_torch.parallel.sharding import (
+        block_photons, seeded_generator, simulate_block)
+    from wfsim_tpu_torch.resources import load_config
+    cfg = default_config(seed=1234, chunk_size=100)
+    params = build_params(cfg, load_config(cfg), dev)
+    const = build_constants(cfg)
+    C, dt = const.n_tpc_pmts, const.sample_duration
+    inst = step_instructions(cfg, 1, STEP_SHARD, STEP_T)
+    ph, _tot = simulate_block(params, const, inst,
+                              seeded_generator(1234, 0, dev))
+    bp = block_photons(ph, torch.zeros(ph['t'].shape[0], dtype=torch.int64,
+                                       device=dev),
+                       n_blocks=1, ch_block=0, n_channels=C,
+                       n_samples=STEP_T, sample_duration=dt)
+    kw = dict(n_channels=C, ch_block=0, n_top=const.n_top_pmts, n_tpc=C,
+              current_2_adc=const.current_2_adc, n_samples=STEP_T)
+    rng = np.random.default_rng(20261019)
+    n_big = STEP_SKEW['photons']
+    pick = torch.as_tensor(rng.integers(0, bp['t'].shape[0], n_big),
+                           device=dev)
+    t0 = int(bp['t'].float().median())
+    burst = t0 + rng.exponential(STEP_SKEW['burst_mean_ns'], n_big)
+    shards = {'superpose_block': bp,
+              'superpose_block_skewed': with_row(
+                  bp, STEP_SKEW['row'], bp['t'][pick], bp['gain'][pick]),
+              'superpose_block_burst': with_row(
+                  bp, STEP_SKEW['row'], burst.astype(np.int32),
+                  bp['gain'][pick])}
+    L = int(params.templates.shape[1])
+    rows = {}
+    for name, b in shards.items():
+        rp = b['row_ptr'].cpu().numpy()
+        s = b['t'].cpu().numpy() // dt
+        n_seg, spare, lit = -(-STEP_T // 1024), 0, 0
+        for r in range(C):
+            sr = s[rp[r]:rp[r + 1]]
+            if not len(sr):
+                spare += n_seg
+                continue
+            lo, hi = sr.min(), sr.max() + L
+            tiles = np.arange(n_seg) * 1024
+            spare += int(((tiles + 1024 <= lo) | (tiles >= hi)).sum())
+            hit = np.zeros(n_seg, bool)
+            hit[np.unique(sr // 1024)] = True
+            hit[np.unique(np.minimum(sr + L - 1, STEP_T - 1) // 1024)] = True
+            lit += int(hit.sum())
+        print(f'[kernels-m] {name}: {int(b["t"].shape[0])} photons in {C} '
+              f'rows of {STEP_T} samples, longest row '
+              f'{int(np.diff(rp).max())}; of {C * n_seg} tiles of 1,024 '
+              f'samples {spare} lie outside their row\'s photon range (a '
+              f'row-range skip spares their scans), {lit} have a hit')
+        rows[name] = ((b['t'], b['gain'], b['row_ptr'], params.templates), kw)
+    return rows
+
+
+def block_library(args, kw, how):
+    """K14 in PyTorch around one library call: ``library_waveform`` of the
+    block's photons, ``-round(W * c2a)`` as int32 and the bottom-array sum
+    rows by one ``sum`` (only the photons' row offsets and the rows'
+    bottom mask are computed outside the returned call)."""
+    import torch
+    t, gain, row_ptr, templates = args
+    T, C = kw['n_samples'], kw['n_channels']
+    n_rows = row_ptr.shape[0] - 1
+    wave = library_waveform(t, gain, row_ptr, templates, T, how)
+    ch = kw['ch_block'] + torch.arange(n_rows, device=t.device) % C
+    bottom = ((ch >= kw['n_top']) & (ch < kw['n_tpc']))[:, None]
+    c2a = float(np.float32(kw['current_2_adc']))
+
+    def call():
+        adc = (-torch.round(wave() * c2a)).to(torch.int32)
+        return adc, torch.where(bottom, adc, 0).view(-1, C, T).sum(
+            dim=1, dtype=torch.int32)
+    return call
+
+
+def step_block_measure(dev, smi, max_syncs=1):
+    """K14 on the step shard and its skewed and burst copies
+    (step_block_rows): each bitwise against its twin and the same bits on
+    a second call, its host syncs a call (at most ``max_syncs``; None
+    counts without a limit, for another checkout's wrapper), ``ms``,
+    ``device_ms`` split by kernel, ``host_us`` over 1,000 calls, the
+    twin's time (one call), the bound (the photons read once, the int32
+    grid and sum rows written once) and two library computations
+    (block_library: ``conv1d`` and ``index_add_``), the faster the row's
+    ``library_ms``.  Returns {row name: measurements (see make_check)}."""
+    import torch
+    from wfsim_tpu_torch.ops.waveform import (superpose_block,
+                                              superpose_block_ref)
+    res = {}
+    for name, (args, kw) in step_block_rows(dev).items():
+        def kernel(a=args, k=kw):
+            return superpose_block(*a, **k)
+        out = kernel()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = superpose_block_ref(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end)
+        err = compare(out, want, name)
+        if compare(kernel(), out, name + ' second call'):
+            raise AssertionError(f'{name}: two calls differ')
+        del want
+        n_sync, where = count_syncs(kernel)
+        if max_syncs is not None and n_sync > max_syncs:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {max_syncs} ({where})')
+        dev_ms, by_name = device_ms(kernel)
+        split = {}
+        for k, v in by_name.items():
+            split[k[:60]] = split.get(k[:60], 0.0) + v
+        libs = {}
+        for how in SUPERPOSE_LIBRARY:
+            lib = block_library(args, kw, how)
+            diff = int((lib()[0] != out[0]).sum())
+            libs[how] = (cuda_ms(lib, reps=10), diff)
+        best = min(libs, key=lambda h: libs[h][0])
+        n_ph = int(args[0].shape[0])
+        ops = n_ph * int(args[3].shape[1]) * 2 + out[0].numel() * 3
+        n_bytes = nbytes(args, out)
+        ms = cuda_ms(kernel)
+        m = res[name] = dict(
+            err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+            # ~1,000 calls, fewer where a call is slow (another checkout)
+            host_us=host_us(kernel, max(10, min(1000, int(500 / ms)))),
+            bytes=n_bytes, ops32=ops,
+            ops64=0, library_ms=libs[best][0], library_call=best,
+            library_calls={h: v[0] for h, v in libs.items()},
+            library_diff={h: v[1] for h, v in libs.items()}, syncs=n_sync,
+            split=split, photons=n_ph)
+        b_ms, b_by = bound(n_bytes, ops)
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({k: round(v, 6) for k, v in split.items()}))
+        print(f'[kernels-m] {name}: {n_ph} photons, max|diff| {err}, second '
+              f'call bitwise, read-backs {n_sync} {where}, {m["ms"]:.4f} ms, '
+              f'device {dev_s}, host {m["host_us"]:.2f} us a call, plain '
+              f'twin {plain:.4f} ms (one call), library '
+              f'{ {h: round(v[0], 4) for h, v in libs.items()} } ms '
+              f'(samples differing from the twin '
+              f'{ {h: v[1] for h, v in libs.items()} }), bound {b_ms:.6f} ms '
+              f'by {b_by} ({n_bytes / 1e6:.1f} MB) ({smi})')
+        del out
+    return res
+
+
+#: the garfield rows' skewed batch: instruction 100 of the timing_models S2
+#: batch holds 10^6 photons (fresh columns), instructions 3, 200 and 511 none
+GARFIELD_SKEWED = dict(inst=100, photons=1_000_000, empty=(3, 200, 511))
+
+
+def garfield_rows(dev):
+    """The rows of garfield_measure: {name: (args, u_wire, kw)} of K13c on
+    the timing_models S2 batch (512 instructions, ~1.57 M photons) in the
+    wire-rotation and the confine mode, and on GARFIELD_SKEWED's copy in
+    the wire-rotation mode."""
+    import torch
+    from wfsim_tpu_torch.config import default_config, timing_models_overrides
+    from wfsim_tpu_torch.interface import timing_models_instructions
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.resources.synthetic import write_garfield_table
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_gf_')
+    try:
+        cfg = default_config(seed=1234, chunk_size=100,
+                             **timing_models_overrides(write_garfield_table(
+                                 Path(tmp) / 'garfield.npz', 1234)))
+        params, const, batches = physics_batches(
+            cfg, timing_models_instructions(512, 2000, 300), dev, 20261016)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x2, _n2, d2 = batches['s2']
+    _e, _eph, ph_edges = s2.s2_edges(d2)
+    _z, xy = s2.s2_positions(params, const, x2)
+    n_i = int(xy.shape[0])
+    kw = dict(avgt=params.garfield_avgt, tilt=const.anode_xaxis_angle,
+              pitch=const.anode_pitch)
+    table = (params.garfield_t, params.garfield_x)
+    counts = (ph_edges[1:] - ph_edges[:-1]).cpu().numpy().copy()
+    counts[GARFIELD_SKEWED['inst']] = GARFIELD_SKEWED['photons']
+    counts[list(GARFIELD_SKEWED['empty'])] = 0
+    rng = np.random.default_rng(20261020)
+    sk_cols = torch.as_tensor(rng.integers(
+        0, params.garfield_t.shape[1], int(counts.sum())), device=dev)
+    sk_edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                               device=dev)
+    u_wire = torch.rand(n_i, device=dev)
+    return {
+        'lumi_garfield_times': ((*table, xy, ph_edges, d2['col']), None,
+                                dict(kw, confine=-1.0)),
+        'lumi_garfield_times_confine': ((*table, xy, ph_edges, d2['col']),
+                                        u_wire, dict(kw, confine=0.1)),
+        'lumi_garfield_times_skewed': ((*table, xy, sk_edges, sk_cols), None,
+                                       dict(kw, confine=-1.0))}
+
+
+def garfield_library(args, u_wire, kw):
+    """K13c in PyTorch around one advanced-index gather: the instructions'
+    wire distances and nearest rows (the twin's torch ops at instruction
+    width), then ``table[row_of_photon, cols]``, the int cast and the mean
+    (each photon's instruction, a ``repeat_interleave`` of the edges, is
+    computed outside the returned call)."""
+    import torch
+    from wfsim_tpu_torch.models.s2 import tilt_coefficients
+    table, x_axis, xy, ph_edges, cols = args
+    counts = ph_edges[1:] - ph_edges[:-1]
+    inst = torch.repeat_interleave(torch.arange(xy.shape[0], device=xy.device),
+                                   counts, output_size=cols.shape[0])
+    f = lambda v: torch.tensor(np.float32(v), device=xy.device)  # noqa: E731
+    s, co = tilt_coefficients(kw['tilt'])
+
+    def call():
+        if u_wire is not None:
+            c = f(kw['confine'])
+            d = torch.maximum(-c, u_wire * (c + c) + (-c))
+        else:
+            rot_y = xy[:, 0] * f(s) + xy[:, 1] * f(co)
+            p, half = f(kw['pitch']), f(kw['pitch'] / 2)
+            r = torch.fmod(rot_y + half, p)
+            d = torch.where((r != 0) & ((r < 0) != (p < 0)), r + p, r) - half
+        rows = torch.argmin(torch.abs(d[:, None] - x_axis[None, :]), dim=1)
+        return table[rows[inst], cols].to(torch.int32) - kw['avgt']
+    return call
+
+
+def garfield_measure(dev, smi, max_syncs=0):
+    """K13c (phase 3f) on the garfield_rows batches: each bitwise against
+    its twin and against the library computation (garfield_library), the
+    same bits on a second call, its host syncs a call (at most
+    ``max_syncs``; None counts without a limit, for another checkout's
+    wrapper), ``ms``, ``device_ms`` split by kernel, ``host_us`` over
+    1,000 calls, the twin's and the library computation's time and the
+    bound (cols read, t written, the table, xy or u_wire and the edges
+    read once).  Returns {row name: measurements (see make_check)}."""
+    import inspect
+    from wfsim_tpu_torch.models import s2
+    takes_n = 'n_photons' in inspect.signature(
+        s2.lumi_garfield_times).parameters
+    res = {}
+    for name, (args, u_wire, kw) in garfield_rows(dev).items():
+        n = int(args[4].shape[0])
+        n_i = int(args[2].shape[0])
+        extra = {'n_photons': n} if takes_n else {}
+
+        def kernel(a=args, u=u_wire, k=kw):
+            return (s2.lumi_garfield_times(*a, u, **extra, **k),)
+
+        def plain(a=args, u=u_wire, k=kw):
+            return (s2.lumi_garfield_times_ref(*a, u, **k),)
+        out = kernel()
+        err = compare(out, plain(), name)
+        if compare(kernel(), out, name + ' second call'):
+            raise AssertionError(f'{name}: two calls differ')
+        lib = garfield_library(args, u_wire, kw)
+        compare((lib(),), out, name + ' library computation')
+        n_sync, where = count_syncs(kernel)
+        if max_syncs is not None and n_sync > max_syncs:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {max_syncs} ({where})')
+        if max_syncs == 0:
+            sync_free(name, kernel)
+        dev_ms, by_name = device_ms(kernel)
+        split = {}
+        for k, v in by_name.items():
+            split[k[:60]] = split.get(k[:60], 0.0) + v
+        R = int(args[0].shape[0])
+        ops = n_i * R * 3 + n * 2
+        inputs = (args, u_wire if u_wire is not None else ())
+        n_bytes = nbytes(inputs, out)
+        m = res[name] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, ops32=ops, ops64=0, library_ms=cuda_ms(lib),
+            syncs=n_sync, split=split, photons=n, rows=n_i)
+        b_ms, b_by = bound(n_bytes, ops)
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({k: round(v, 6) for k, v in split.items()}))
+        print(f'[kernels-t] {name}: {n} photons of {n_i} instructions, '
+              f'max|diff| {err}, second call and library bitwise, '
+              f'read-backs {n_sync} {where}, {m["ms"]:.4f} ms, device '
+              f'{dev_s}, host {m["host_us"]:.2f} us a call, plain twin '
+              f'{m["plain_ms"]:.4f} ms, library call (gather) '
+              f'{m["library_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+              f'({smi})')
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -2886,7 +3212,8 @@ def kernel_rows(dev, smi):
     with its library computation (per_pmt_kernel_check), the K11 and K12b
     rows (ap_diffuse_measure), the K6 and K11-summaries rows
     (lumi_summaries_measure), the K8 row-truth and K16 rows
-    (pmt_truth_measure) and the K13a and K9 rows (photon_times_measure)."""
+    (pmt_truth_measure), the K13a and K9 rows (photon_times_measure), the
+    K14 rows (step_block_measure) and the K13c rows (garfield_measure)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
@@ -2901,6 +3228,30 @@ def kernel_rows(dev, smi):
     res.update(lumi_summaries_measure(dev, smi, max_syncs=None))
     res.update(pmt_truth_measure(dev, smi, max_syncs=None))
     res.update(photon_times_measure(dev, smi, max_syncs=None))
+    res.update(step_block_measure(dev, smi, max_syncs=None))
+    res.update(garfield_measure(dev, smi, max_syncs=None))
+    return res
+
+
+def step_block_spans_measure(dev, smi, max_syncs=None):
+    """K14's device time on the step_block_rows shards under warp tiles of
+    1,024, 2,048 and 4,096 samples, each bitwise the 1,024 one."""
+    import inspect
+    from wfsim_tpu_torch.ops.waveform import superpose_block
+    res = {}
+    if 'span' not in inspect.signature(superpose_block).parameters:
+        return res
+    for name, (args, kw) in step_block_rows(dev).items():
+        base = superpose_block(*args, **kw)
+        for span in (1024, 2048, 4096):
+            def kernel(a=args, k=kw, sp=span):
+                return superpose_block(*a, **k, span=sp)
+            compare(kernel(), base, f'{name} span {span}')
+            dev_ms, _split = device_ms(kernel)
+            res[f'{name}_{span}'] = dict(device_ms=dev_ms, ms=cuda_ms(kernel))
+            print(f'[kernels-m] {name} span {span}: device '
+                  f'{fmt_ms(dev_ms)} ({smi})')
+        del base
     return res
 
 
@@ -3216,7 +3567,7 @@ def step_digests(adc, sum_signal, totals, n_ch, C):
 
 def phase_3i(cfg, params, const, dev, smi):
     """Phase 3i (see the module docstring); returns the measurements of the
-    superpose_block row (see make_check)."""
+    superpose_block rows (see step_block_measure)."""
     import torch
     from wfsim_tpu_torch.interface import step_instructions
     from wfsim_tpu_torch.ops.waveform import (superpose_block,
@@ -3234,43 +3585,28 @@ def phase_3i(cfg, params, const, dev, smi):
           f'{int(in_grid.sum()) / int(live.sum()):.6f}; totals '
           f'{totals.tolist()}')
     block = torch.zeros(ph['t'].shape[0], dtype=torch.int64, device=dev)
-    m = None
-    for n_ch in (1, 2):
-        C_loc = -(-C // n_ch)
-        for j in range(n_ch):
-            bp = block_photons(ph, block, n_blocks=1, ch_block=j * C_loc,
-                               n_channels=C_loc, n_samples=STEP_T,
-                               sample_duration=dt)
-            args = (bp['t'], bp['gain'], bp['row_ptr'], params.templates)
-            kw = dict(n_channels=C_loc, ch_block=j * C_loc, n_top=n_top,
-                      n_tpc=C, current_2_adc=const.current_2_adc,
-                      n_samples=STEP_T)
-            out = superpose_block(*args, **kw)
-            ref = superpose_block_ref(*args, **kw)
-            err = max(max_diff(a, b) for a, b in zip(out, ref))
-            print(f'[kernels-m] superpose_block: block {j} of {n_ch} '
-                  f'({C_loc} x {STEP_T}), {int(bp["t"].shape[0])} photons, '
-                  f'differing samples {int((out[0] != ref[0]).sum())}, sum '
-                  f'row non-zero {int((out[1] != 0).sum())}, max|diff| {err}')
-            if err or not out[0].any():
-                raise AssertionError('superpose_block differs from its twin '
-                                     'or is empty')
-            if n_ch == 1:
-                # bytes: the inputs, the int32 grid and sum row; operations:
-                # a template tap per photon and sample, the ADC, the sum
-                ops = (int(bp['t'].shape[0]) * int(params.templates.shape[1])
-                       * 2 + C_loc * STEP_T * 3)
-                n_bytes = nbytes(args, out)
-                b_ms, b_by = bound(n_bytes, ops)
-                m = timing(lambda: superpose_block(*args, **kw),
-                           lambda: superpose_block_ref(*args, **kw), n_bytes,
-                           ops, err=err, plain_reps=5)
-                print(f'[kernels-m] superpose_block: {m["ms"]:.4f} ms, device '
-                      f'{fmt_ms(m["device_ms"])}, plain twin '
-                      f'{m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
-                      f'({n_bytes / 1e6:.1f} MB), library call none ({smi})')
-            del out, ref, bp
-    return m
+    C_loc = -(-C // 2)
+    for j in range(2):
+        bp = block_photons(ph, block, n_blocks=1, ch_block=j * C_loc,
+                           n_channels=C_loc, n_samples=STEP_T,
+                           sample_duration=dt)
+        args = (bp['t'], bp['gain'], bp['row_ptr'], params.templates)
+        kw = dict(n_channels=C_loc, ch_block=j * C_loc, n_top=n_top,
+                  n_tpc=C, current_2_adc=const.current_2_adc,
+                  n_samples=STEP_T)
+        out = superpose_block(*args, **kw)
+        ref = superpose_block_ref(*args, **kw)
+        err = max(max_diff(a, b) for a, b in zip(out, ref))
+        print(f'[kernels-m] superpose_block: block {j} of 2 ({C_loc} x '
+              f'{STEP_T}), {int(bp["t"].shape[0])} photons, differing '
+              f'samples {int((out[0] != ref[0]).sum())}, sum row non-zero '
+              f'{int((out[1] != 0).sum())}, max|diff| {err}')
+        if err or not out[0].any():
+            raise AssertionError('superpose_block differs from its twin '
+                                 'or is empty')
+        del out, ref, bp
+    # one block of 494 (the 1 x 1 step's call) and its skewed copies
+    return step_block_measure(dev, smi)
 
 
 def run_step(cfg, n_ev, n_ch, dev):
@@ -4000,21 +4336,25 @@ def main():
             ('nest_delays', 'wfsim_nest_delays', 'table_samplers.cu',
              'wfsim_tpu/models/s1.py:108')):
         measured(name, cu, rep, [entry], launches_d, dtimes[name])
-    for name, entry, rep in (
-            ('custom_delays', 'wfsim_s1_custom_delays',
-             'wfsim_tpu/models/s1.py:56'),
-            ('lumi_garfield_times', 'wfsim_lumi_garfield_times',
-             'wfsim_tpu/models/s2.py:234'),
-            ('lumi_garfield_times_confine', 'wfsim_lumi_garfield_times',
-             'wfsim_tpu/models/s2.py:234')):
-        measured(name, 'table_samplers.cu', rep, [entry], launches_t,
-                 ttimes[name])
+    for name, m in ttimes.items():
+        entry, rep = (('wfsim_s1_custom_delays', 'wfsim_tpu/models/s1.py:56')
+                      if name == 'custom_delays' else
+                      ('wfsim_lumi_garfield_times',
+                       'wfsim_tpu/models/s2.py:234'))
+        measured(name, 'table_samplers.cu', rep, [entry], launches_t, m)
+        if 'syncs' in m:
+            rows[-1].update(syncs=m['syncs'], split=m['split'],
+                            photons=m['photons'])
     measured('pulse_truth_per_pmt', 'pmt_response.cu',
              'wfsim_tpu/models/pmt.py:146', ['wfsim_pmt_row_truth_per_pmt'],
              launches_p, xtimes['pulse_truth_per_pmt'])
-    measured('superpose_block', 'superpose_adc.cu',
-             'wfsim_tpu/parallel/sharding.py:54', ['wfsim_superpose_block'],
-             launches_m, mtimes)
+    for row, m in mtimes.items():
+        measured(row, 'superpose_adc.cu', 'wfsim_tpu/parallel/sharding.py:54',
+                 ['wfsim_superpose_block'], launches_m, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'],
+                        library_call=m['library_call'],
+                        library_calls=m['library_calls'],
+                        library_diff=m['library_diff'], photons=m['photons'])
     expect_no_sequential_rows('every phase after 3m')
     print(f'[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s '
           f'after its start ({smi})')

@@ -29,6 +29,8 @@ from .ap_inputs import ap_tables, photon_set
 from .test_torch_ap_diffuse_redesign import (
     AP_CASES, DIFFUSE_CASES, ap_args, ap_setup, diffuse_args, diffuse_case,
     diffuse_constants, diffuse_normals)
+from .test_torch_garfield_redesign import (GARFIELD_CASES, garfield_case)
+from .test_torch_garfield_redesign import torch_args as garfield_torch_args
 from .test_torch_lumi_summaries_redesign import (
     LUMI_CASES, SUMMARY_CASES, lumi_case, sequential_rows_np, summary_case)
 from .test_torch_photon_times_redesign import (
@@ -628,28 +630,43 @@ def test_custom_delays_match_twin(dev, counts):
 
 @pytest.mark.parametrize('confine,counts', [
     (-1.0, []), (-1.0, [0]), (-1.0, [300] * 64 + [0] + [7]),
-    (0.1, [1000] * 20 + [0])])
+    (0.1, [1000] * 20 + [0])] + [(None, name) for name in GARFIELD_CASES])
 def test_garfield_times_match_twin(dev, confine, counts):
     """Both wire-distance modes, positions on both sides of the wires, an
-    empty batch and instructions without photons."""
+    empty batch and instructions without photons; the cases of
+    tests/test_torch_garfield_redesign.py (the bench batch in both modes,
+    one instruction of 10^6 photons, runs of empty instructions, tiles of
+    hundreds of instructions, ties in x_axis and in |d - x_r|); one launch
+    a call, no read-back."""
     from wfsim_tpu_torch.models import s2
     from wfsim_tpu_torch.models.params import table_mean_int
     from wfsim_tpu_torch.resources.synthetic import synthetic_garfield_table
-    tbl = synthetic_garfield_table(3)
-    rng = np.random.default_rng(len(counts))
-    counts = np.asarray(counts, np.int64)
-    n_i, n = len(counts), int(counts.sum())
-    xy = rng.uniform(-60, 60, (n_i, 2)).astype(np.float32)
-    args = [torch.as_tensor(a, device=dev) for a in (
-        tbl['t'], tbl['x'], xy, np.concatenate([[0], np.cumsum(counts)]),
-        rng.integers(0, tbl['t'].shape[1], n))]
-    u_wire = (torch.as_tensor(rng.random(n_i).astype(np.float32), device=dev)
-              if confine > 0 else None)
-    kw = dict(avgt=table_mean_int(tbl['t']), tilt=np.pi / 4, pitch=0.5,
-              confine=confine)
+    if confine is None:
+        args, u_wire, kw = garfield_torch_args(garfield_case(counts))
+        args = [a.to(dev) for a in args]
+        u_wire = None if u_wire is None else u_wire.to(dev)
+        n = int(args[4].shape[0])
+    else:
+        tbl = synthetic_garfield_table(3)
+        rng = np.random.default_rng(len(counts))
+        counts = np.asarray(counts, np.int64)
+        n_i, n = len(counts), int(counts.sum())
+        xy = rng.uniform(-60, 60, (n_i, 2)).astype(np.float32)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            tbl['t'], tbl['x'], xy, np.concatenate([[0], np.cumsum(counts)]),
+            rng.integers(0, tbl['t'].shape[1], n))]
+        u_wire = (torch.as_tensor(rng.random(n_i).astype(np.float32),
+                                  device=dev) if confine > 0 else None)
+        kw = dict(avgt=table_mean_int(tbl['t']), tilt=np.pi / 4, pitch=0.5,
+                  confine=confine)
     k = _build.KERNELS['wfsim_lumi_garfield_times']
     before = k.launches
-    got = s2.lumi_garfield_times(*args, u_wire, **kw)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = s2.lumi_garfield_times(*args, u_wire, n_photons=n, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
     assert k.launches == before + (1 if n else 0)
     assert torch.equal(got, s2.lumi_garfield_times_ref(*args, u_wire, **kw))
 
@@ -829,12 +846,16 @@ def test_no_he_gather_digitize_card_matches_cpu(dev):
     assert len(out[0][1]) > 100 and int(out[0][1][:, 1].max()) < 248
 
 
-@pytest.mark.parametrize('n_blocks,n_ch_shards,T', [(1, 1, 2048),
-                                                    (2, 2, 1000),
-                                                    (3, 4, 512)])
-def test_superpose_block_matches_twin(setup, dev, n_blocks, n_ch_shards, T):
+@pytest.mark.parametrize('n_blocks,n_ch_shards,T,skew', [
+    (1, 1, 2048, 0), (2, 2, 1000, 0), (3, 4, 512, 0), (2, 1, 2 ** 16, 10 ** 5),
+    (4, 2, 1025, 20_000), (4, 1, 1000, 20_000), (2, 2, 2 ** 16, 0)])
+def test_superpose_block_matches_twin(setup, dev, n_blocks, n_ch_shards, T,
+                                      skew):
     """K14's channel block: int32 ADC and the bottom-array sum rows of
-    every channel block, bitwise the twin's, with launches counted."""
+    every channel block, bitwise the twin's, with launches counted; with
+    ``skew``, channel 300 of the last block holds that many more photons
+    spread over the grid (one row of 10^5 at T = 2^16); grids of 2^16,
+    1,000 and 1,025 samples, 1 to 4 blocks of 1, 2 or 4 channel shards."""
     from wfsim_tpu_torch.ops.waveform import (superpose_block,
                                               superpose_block_ref)
     from wfsim_tpu_torch.parallel.sharding import block_photons
@@ -842,12 +863,16 @@ def test_superpose_block_matches_twin(setup, dev, n_blocks, n_ch_shards, T):
     C, n_top = const.n_tpc_pmts, const.n_top_pmts
     rng = np.random.default_rng(T + n_blocks)
     n = 20_000 * n_blocks
-    ph = dict(t=rng.integers(-500, T * 10 + 500, n).astype(np.int32),
-              ch=rng.integers(-1, C, n).astype(np.int32),
-              gain=rng.uniform(1e5, 8e6, n).astype(np.float32),
-              valid=rng.random(n) < 0.97)
+    ph = dict(t=rng.integers(-500, T * 10 + 500, n + skew).astype(np.int32),
+              ch=rng.integers(-1, C, n + skew).astype(np.int32),
+              gain=rng.uniform(1e5, 8e6, n + skew).astype(np.float32),
+              valid=rng.random(n + skew) < 0.97)
+    block = rng.integers(0, n_blocks, n + skew)
+    ph['ch'][n:] = 300
+    ph['valid'][n:] = True
+    block[n:] = n_blocks - 1
     ph = {k: torch.as_tensor(v, device=dev) for k, v in ph.items()}
-    block = torch.as_tensor(rng.integers(0, n_blocks, n), device=dev)
+    block = torch.as_tensor(block, device=dev)
     C_loc = -(-C // n_ch_shards)
     k = _build.KERNELS['wfsim_superpose_block']
     for j in range(n_ch_shards):
@@ -864,6 +889,44 @@ def test_superpose_block_matches_twin(setup, dev, n_blocks, n_ch_shards, T):
         assert adc.shape == (n_blocks * C_loc, T) and sums.shape == (n_blocks, T)
         assert torch.equal(adc, adc_r) and torch.equal(sums, sums_r)
         assert bool(adc.any())
+        if skew and j * C_loc <= 300 < (j + 1) * C_loc:
+            row = (n_blocks - 1) * C_loc + 300 - j * C_loc
+            assert int(bp['row_ptr'][row + 1] - bp['row_ptr'][row]) > skew // 2
+
+
+def test_superpose_block_two_streams_and_negative_time(setup, dev):
+    """Two calls on two streams at once give the twin's bits (the sum rows
+    and status word are per call); a negative photon time raises after the
+    launch, as on the CPU."""
+    from wfsim_tpu_torch.ops.waveform import (superpose_block,
+                                              superpose_block_ref)
+    _c, params, const = setup
+    rng = np.random.default_rng(8)
+    counts = rng.poisson(300, 2 * 494)
+    counts[700] = 50_000
+    n = int(counts.sum())
+    t = torch.as_tensor(rng.integers(0, 2 ** 16 * 10, n).astype(np.int32),
+                        device=dev)
+    gain = torch.as_tensor(rng.uniform(1e5, 8e6, n).astype(np.float32),
+                           device=dev)
+    row_ptr = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)])
+                              .astype(np.int32), device=dev)
+    kw = dict(n_channels=494, ch_block=0, n_top=const.n_top_pmts,
+              n_tpc=const.n_tpc_pmts, current_2_adc=const.current_2_adc,
+              n_samples=2 ** 16)
+    want = superpose_block_ref(t, gain, row_ptr, params.templates, **kw)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got_side = superpose_block(t, gain, row_ptr, params.templates, **kw)
+    got = superpose_block(t, gain, row_ptr, params.templates, **kw)
+    torch.cuda.synchronize(dev)
+    for out in (got, got_side):
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    bad = t.clone()
+    bad[12_345] = -3
+    with pytest.raises(ValueError, match='>= 0'):
+        superpose_block(bad, gain, row_ptr, params.templates, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -103,10 +103,6 @@ __global__ void s1_photon_times_kernel(
   }
 }
 
-__device__ __forceinline__ bool in_range(long long i, long long S) {
-  return i >= 0 && i < S;
-}
-
 struct ElectronIn {
   const int* time;
   const long long* e_edges;     // (I+1,) electron edges of the instructions

@@ -32,8 +32,8 @@
 // shared-memory bank).  A step forms the products of kPerStep = 4 photons
 // (shuffles and template reads overlapped), then adds them in order: the
 // chain a photon is one shared-memory add.  A sample costs ~22 products a
-// photon that touches it, where a thread a sample (the earlier design,
-// still K14's below) tested every photon of its row for every sample; a
+// photon that touches it, where a thread a sample (the earlier design)
+// tested every photon of its row for every sample; a
 // row of thousands of photons (one S2 of 10^6 photons in a window) is
 // split between its tiles' warps.  The epilogue reads the tile back 8
 // samples a lane (two float4 loads) and stores 16-byte int16 vectors: a
@@ -95,7 +95,7 @@
 // n_ch..n_all-1.  Those rows have no window, so they get no noise even
 // where the bank is wider than the TPC (digitize.py:399-403).
 //
-// The status word.  Both entries clear one int32 word and the kernel ORs
+// The status word.  Every entry clears one int32 word and the kernel ORs
 // into it: kNegativeTime where a photon time is < 0 (C's / and % truncate
 // where jnp's floor; such a photon adds nothing), kBadNoiseIx where a
 // window's noise_ix lies outside [0, 2^30), kOverflow as above.  The
@@ -106,25 +106,37 @@
 // 101-117 make_sharded_step: photons_to_waveform of the shard's PMT block,
 // adc = -round(W * current_2_adc) as int32, and the block's bottom-array
 // partial sum that the psum over 'channels' completes.  No window, no
-// baseline, no int16 storage.  K14 still uses the old per-sample loop (a
-// thread per output sample, testing every photon of its row: each of 2^16
-// samples scans its row's ~200 photons); the row-tile scatter above is
-// what its redesign starts from.  The thread that owns sample (row, u)
-// computes the superposition in the fixed photon order above (F4: bitwise
-// the twin superpose_block_ref), stores its int32 ADC, and for a row of a
-// bottom-array channel (n_top <= ch_block + c < n_tpc) adds it into the
-// instruction block's int32 sum row by integer atomics (skipped where 0;
-// integer addition is exact in any order).  The entry clears the sum rows
-// first.  What bounds it on the H100: writing the int32 grid, 4 bytes a
-// (row, sample), 129.5 MB at 494 rows x 2^16 samples; the collective
+// noise, no baseline, no clip, no int16 storage.  What bounds it on the
+// H100: writing the int32 grid, 4 bytes a (row, sample), 129.5 MB at 494
+// rows x 2^16 samples (0.039 ms), nearly all of it zeros; the collective
 // itself (all_reduce of the (B, T) sum rows) is NCCL's or gloo's, as the
-// JAX package left the psum to XLA.
+// JAX package left the psum to XLA.  The design is the row kernels' above,
+// cut to what the step needs.  A warp owns a tile of `span` samples of one
+// row (row-major over (row, tile), so a block's four warps share a row's
+// photons in L1); a row's tiles start at its first 16-byte boundary.  The
+// scan: 128 photons a step, four a lane (lane l photons base + l + 32 q),
+// the next step's times loaded before this step's tests, one ballot per
+// 32; a step without a hit costs a few instructions a photon and no
+// shared memory.  Photons within a row are in row order, not time order,
+// so every tile of a row scans the whole row: a row of ~200 photons (the
+// bench shard) costs 64 tiles two steps each, a row of 10^5 photons 782
+// steps in each of its tiles, side by side on as many SMs.  At the first
+// hit the warp zeroes its tile in shared memory; hits add their taps by
+// add_taps, in row order (F4: bitwise the twin superpose_block_ref), the
+// gain read only by the lane that holds the photon.  The epilogue stores
+// -rint(acc * c2a) four samples a lane as one 16-byte vector, a warp's
+// 512 bytes contiguous; a tile without a hit stores zeros without
+// touching shared memory.  A row of a bottom-array channel (n_top <=
+// ch_block + c < n_tpc) adds its non-zero samples into the instruction
+// block's int32 sum row by integer atomics (exact in any order); padding
+// rows past n_tpc have no photons and no part in the sum.  The entry
+// clears the sum rows and the status word behind them (kNegativeTime
+// where a photon time is < 0: the wrapper reads it back once a call).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 128;
 constexpr int kMaxTemplate = 1024;
 
 constexpr int kWarps = 4;             // warps a block of the row kernels
@@ -141,24 +153,6 @@ __device__ __forceinline__ void load_templates(float* tmpl,
                                                const float* templates, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) tmpl[i] = templates[i];
   __syncthreads();
-}
-
-// -round_half_even(W * current_2_adc) of sample u, as digitize.py:299, W
-// summed over photons p0..p1-1 in their order (K14's per-sample loop)
-__device__ __forceinline__ int superposed_adc(
-    const int* __restrict__ t, const float* __restrict__ gain, int p0, int p1,
-    int u, int dt, int tlen, const float* tmpl, float current_2_adc) {
-  float acc = 0.0f;
-  for (int p = p0; p < p1; ++p) {
-    const int tt = t[p];
-    const int s = tt / dt;
-    const int k = u - s;
-    if (k >= 0 && k < tlen) {
-      const int r = tt - s * dt;
-      acc = __fadd_rn(acc, __fmul_rn(gain[p], tmpl[r * tlen + k]));
-    }
-  }
-  return -static_cast<int>(rintf(__fmul_rn(acc, current_2_adc)));
 }
 
 // int32 add and multiply that wrap modulo 2^32, as XLA's do
@@ -230,14 +224,66 @@ __device__ __forceinline__ void zero_row(short* row, int n, int lane) {
 
 // photon times < 0 flag the status word; a photon outside every row
 // ([0, row_ptr[0]) and [row_ptr[n_rows], n)) is checked by the first warp
-__device__ __forceinline__ int stray_negative_times(const RowArgs& a,
+__device__ __forceinline__ int stray_negative_times(const int* t,
+                                                    const int* row_ptr,
+                                                    int n_rows, int n,
                                                     int lane) {
   int bad = 0;
-  for (int p = lane; p < a.row_ptr[0]; p += 32)
-    if (a.t[p] < 0) bad = kNegativeTime;
-  for (int p = a.row_ptr[a.n_rows] + lane; p < a.n_photons; p += 32)
-    if (a.t[p] < 0) bad = kNegativeTime;
+  for (int p = lane; p < row_ptr[0]; p += 32)
+    if (t[p] < 0) bad = kNegativeTime;
+  for (int p = row_ptr[n_rows] + lane; p < n; p += 32)
+    if (t[p] < 0) bad = kNegativeTime;
   return bad;
+}
+
+// The taps of the photons of `todo` (lane j holds photon j's s = t / dt,
+// r = t - s * dt and gain g) added into the tile of samples [lo, hi),
+// photon by photon in lane order.  Lane l adds the taps that land on
+// samples u = lo + l mod 32, so each sample sees its photons in that order
+// by the lane's program order; with TL <= 32 a step forms the products of
+// kPerStep photons, then adds them in order.
+template <int TL>
+__device__ __forceinline__ void add_taps(float* tile, unsigned todo, int s,
+                                         int r, float g, int lo, int hi,
+                                         const float* tmpl, int tlen,
+                                         int lane) {
+  if constexpr (TL > 0 && TL <= 32) {
+    while (todo) {                  // one tap a lane at most
+      int ux[kPerStep];
+      float qx[kPerStep];
+      bool ok[kPerStep];
+#pragma unroll
+      for (int m = 0; m < kPerStep; ++m) {
+        const bool have = todo != 0;
+        const int j = have ? __ffs(todo) - 1 : 0;
+        if (have) todo &= todo - 1;
+        const int sj = __shfl_sync(kAll, s, j);
+        const int rj = __shfl_sync(kAll, r, j);
+        const float gj = __shfl_sync(kAll, g, j);
+        const int k = (lo + lane - sj) & 31;
+        ux[m] = sj + k - lo;
+        ok[m] = have && k < TL && ux[m] >= 0 && sj + k < hi;
+        qx[m] = ok[m] ? __fmul_rn(gj, tmpl[rj * TL + k]) : 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < kPerStep; ++m)
+        if (ok[m]) tile[ux[m]] = __fadd_rn(tile[ux[m]], qx[m]);
+    }
+  } else {
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int sj = __shfl_sync(kAll, s, j);
+      const int rj = __shfl_sync(kAll, r, j);
+      const float gj = __shfl_sync(kAll, g, j);
+      for (int k = (lo + lane - sj) & 31; k < tlen; k += 32) {
+        const int u = sj + k;
+        if (u >= lo && u < hi)
+          tile[u - lo] = __fadd_rn(tile[u - lo],
+                                   __fmul_rn(gj, tmpl[rj * tlen + k]));
+      }
+    }
+  }
 }
 
 // A warp a tile of kSpan samples of a row (see the file header); warps
@@ -301,7 +347,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const unsigned L = static_cast<unsigned>(a.bank_len);
   const bool any = p1 > p0;
 
-  int bad = gw == 0 ? stray_negative_times(a, lane) : 0;
+  int bad = gw == 0 ? stray_negative_times(a.t, a.row_ptr, a.n_rows,
+                                           a.n_photons, lane)
+                    : 0;
   unsigned nix = 0;
   if (a.noise_ix != nullptr) {
     const int x = a.noise_ix[w];
@@ -335,47 +383,8 @@ __global__ void __launch_bounds__(kWarps * 32)
           hit = s + tlen > lo && s < hi;
         }
       }
-      // lane l adds the taps that land on samples u = lo + l mod 32, so
-      // each sample sees its photons in row order; a step forms the
-      // products of kPerStep photons, then adds them in order
-      unsigned todo = __ballot_sync(kAll, hit);
-      if constexpr (TL > 0 && TL <= 32) {
-        while (todo) {                  // one tap a lane at most
-          int ux[kPerStep];
-          float qx[kPerStep];
-          bool ok[kPerStep];
-#pragma unroll
-          for (int m = 0; m < kPerStep; ++m) {
-            const bool have = todo != 0;
-            const int j = have ? __ffs(todo) - 1 : 0;
-            if (have) todo &= todo - 1;
-            const int sj = __shfl_sync(kAll, s, j);
-            const int rj = __shfl_sync(kAll, r, j);
-            const float gj = __shfl_sync(kAll, g, j);
-            const int k = (lo + lane - sj) & 31;
-            ux[m] = sj + k - lo;
-            ok[m] = have && k < TL && ux[m] >= 0 && sj + k < hi;
-            qx[m] = ok[m] ? __fmul_rn(gj, tmpl[rj * TL + k]) : 0.0f;
-          }
-#pragma unroll
-          for (int m = 0; m < kPerStep; ++m)
-            if (ok[m]) tile[ux[m]] = __fadd_rn(tile[ux[m]], qx[m]);
-        }
-      } else {
-        while (todo) {
-          const int j = __ffs(todo) - 1;
-          todo &= todo - 1;
-          const int sj = __shfl_sync(kAll, s, j);
-          const int rj = __shfl_sync(kAll, r, j);
-          const float gj = __shfl_sync(kAll, g, j);
-          for (int k = (lo + lane - sj) & 31; k < tlen; k += 32) {
-            const int u = sj + k;
-            if (u >= lo && u < hi)
-              tile[u - lo] = __fadd_rn(tile[u - lo],
-                                       __fmul_rn(gj, tmpl[rj * tlen + k]));
-          }
-        }
-      }
+      add_taps<TL>(tile, __ballot_sync(kAll, hit), s, r, g, lo, hi, tmpl,
+                   tlen, lane);
     }
     __syncwarp();
   }
@@ -480,31 +489,164 @@ cudaError_t launch_rows(const RowArgs& a, long long warps, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// one thread per (row, sample): int32 ADC, and the atomic bottom-array
-// sum of the row's instruction block (row = b * n_ch + c, channel
-// ch_block + c)
-__global__ void superpose_block_kernel(
-    const int* __restrict__ t, const float* __restrict__ gain,
-    const int* __restrict__ row_ptr, int n_rows, int n_samples,
-    const float* __restrict__ templates, int dt, int tlen,
-    float current_2_adc, int n_ch, int ch_block, int n_top, int n_tpc,
-    int* __restrict__ adc, int* __restrict__ sum32) {
-  __shared__ float tmpl[kMaxTemplate];
-  load_templates(tmpl, templates, dt * tlen);
+// what the channel-block kernel reads and writes (K14)
+struct BlockArgs {
+  const int* t;
+  const float* gain;
+  const int* row_ptr;
+  int n_rows;                 // B * n_ch
+  int n_photons;
+  int n_samples;
+  const float* templates;
+  int dt, tlen;
+  float c2a;
+  int n_ch, ch_block, n_top, n_tpc;
+  int span;                   // samples a warp's tile
+  int n_seg;                  // tiles a row
+  int* adc;                   // (n_rows, n_samples)
+  int* sums;                  // (B, n_samples)
+  int* status;
+};
 
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long bid = blockIdx.x;
-  const int row = static_cast<int>(bid / tiles);
-  const int u = static_cast<int>(bid % tiles) * kTile + threadIdx.x;
-  if (row >= n_rows || u >= n_samples) return;
+// samples from an int32 row's start to its first 16-byte boundary in
+// memory, as a negative origin
+__device__ __forceinline__ int row_origin32(const int* row) {
+  return -static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+}
 
-  const int v = superposed_adc(t, gain, row_ptr[row], row_ptr[row + 1], u,
-                               dt, tlen, tmpl, current_2_adc);
-  adc[static_cast<long long>(row) * n_samples + u] = v;
-  const int b = row / n_ch;
-  const int ch = ch_block + (row - b * n_ch);
-  if (v != 0 && ch >= n_top && ch < n_tpc)
-    atomicAdd(sum32 + static_cast<long long>(b) * n_samples + u, v);
+constexpr int kScan = 4;              // photons a lane loads a scan step
+
+// A warp a tile of `span` samples of a row of the channel block (see the
+// file header): the scan, the taps, the int32 epilogue and the sum row.
+template <int DT, int TL>
+__global__ void __launch_bounds__(kWarps * 32)
+    superpose_block_kernel(const BlockArgs a) {
+  extern __shared__ __align__(16) float smem[];  // the tiles, the templates
+  const int dt = DT > 0 ? DT : a.dt;
+  const int tlen = TL > 0 ? TL : a.tlen;
+  const float* tmpl = smem + kWarps * a.span;
+  load_templates(smem + kWarps * a.span, a.templates, dt * tlen);
+
+  const int lane = threadIdx.x & 31;
+  float* tile = smem + (threadIdx.x >> 5) * a.span;
+  float4* tile4 = reinterpret_cast<float4*>(tile);
+  const long long gw = static_cast<long long>(blockIdx.x) * kWarps +
+                       (threadIdx.x >> 5);
+  if (gw >= static_cast<long long>(a.n_rows) * a.n_seg) return;
+  const int row = static_cast<int>(gw / a.n_seg);
+  const int seg = static_cast<int>(gw - static_cast<long long>(row) * a.n_seg);
+  const int T = a.n_samples;
+  int* out_row = a.adc + static_cast<long long>(row) * T;
+  // the tile's samples [lo, hi), lo on a 16-byte boundary of out_row
+  const int lo = row_origin32(out_row) + seg * a.span;
+  if (lo >= T) return;                 // a row that starts on a boundary
+  const int hi = min(lo + a.span, T);
+  const int b = row / a.n_ch;
+  const int ch = a.ch_block + (row - b * a.n_ch);
+  int* sum_row = ch >= a.n_top && ch < a.n_tpc
+      ? a.sums + static_cast<long long>(b) * T : nullptr;
+  const int p0 = a.row_ptr[row];
+  const int p1 = a.row_ptr[row + 1];
+  int bad = gw == 0 ? stray_negative_times(a.t, a.row_ptr, a.n_rows,
+                                           a.n_photons, lane)
+                    : 0;
+
+  // the scan: kScan * 32 photons a step, lane l holding photons base + l +
+  // 32 q (row order is q, then lane), the next step's times loaded before
+  // this step's tests; the tile is zeroed at its first hit and the gains
+  // are read only by lanes with a hit
+  bool any = false;
+  int t_next[kScan];
+#pragma unroll
+  for (int q = 0; q < kScan; ++q) {
+    const int p = p0 + 32 * q + lane;
+    t_next[q] = p < p1 ? __ldg(a.t + p) : 0;
+  }
+  for (int base = p0; base < p1; base += 32 * kScan) {
+    int s[kScan], r[kScan];
+    unsigned hits[kScan];
+    unsigned all = 0;
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      const int p = base + 32 * q + lane;
+      const int tt = t_next[q];
+      const int pn = p + 32 * kScan;
+      t_next[q] = pn < p1 ? __ldg(a.t + pn) : 0;
+      s[q] = 0;
+      r[q] = 0;
+      bool hit = false;
+      if (p < p1) {
+        if (tt < 0) {
+          bad |= kNegativeTime;
+        } else {
+          s[q] = tt / dt;
+          r[q] = tt - s[q] * dt;
+          hit = s[q] + tlen > lo && s[q] < hi;
+        }
+      }
+      hits[q] = __ballot_sync(kAll, hit);
+      all |= hits[q];
+    }
+    if (all == 0) continue;            // the same in every lane
+    if (!any) {
+      for (int i = lane; i < a.span / 4; i += 32)
+        tile4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      __syncwarp();
+      any = true;
+    }
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      if (hits[q] == 0) continue;
+      const int p = base + 32 * q + lane;
+      const float g = hits[q] >> lane & 1 ? __ldg(a.gain + p) : 0.0f;
+      add_taps<TL>(tile, hits[q], s[q], r[q], g, lo, hi, tmpl, tlen, lane);
+    }
+  }
+  if (any) __syncwarp();
+
+  // the epilogue: four samples a lane a step, a warp's 512 bytes
+  // contiguous; an all-zero tile stores zeros without reading the tile
+  for (int i = lane; 4 * i < hi - lo; i += 32) {
+    const int u0 = lo + 4 * i;
+    int v[4] = {0, 0, 0, 0};
+    if (any) {
+      const float4 x = tile4[i];
+      v[0] = -__float2int_rn(__fmul_rn(x.x, a.c2a));
+      v[1] = -__float2int_rn(__fmul_rn(x.y, a.c2a));
+      v[2] = -__float2int_rn(__fmul_rn(x.z, a.c2a));
+      v[3] = -__float2int_rn(__fmul_rn(x.w, a.c2a));
+    }
+    if (u0 >= 0 && u0 + 4 <= T) {
+      *reinterpret_cast<int4*>(out_row + u0) = make_int4(v[0], v[1], v[2],
+                                                         v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (u0 + j >= 0 && u0 + j < T) out_row[u0 + j] = v[j];
+    }
+    if (any && sum_row != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (v[j] != 0 && u0 + j >= 0 && u0 + j < T)
+          atomicAdd(sum_row + u0 + j, v[j]);
+    }
+  }
+
+  const unsigned st = __reduce_or_sync(kAll, static_cast<unsigned>(bad));
+  if (lane == 0 && st != 0) atomicOr(a.status, static_cast<int>(st));
+}
+
+template <int DT, int TL>
+cudaError_t launch_block(const BlockArgs& a, unsigned grid, size_t smem,
+                         cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        superpose_block_kernel<DT, TL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  superpose_block_kernel<DT, TL><<<grid, kWarps * 32, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 RowArgs row_args(const void* t, const void* gain, const void* row_ptr,
@@ -633,30 +775,54 @@ extern "C" int wfsim_superpose_adc_full(
   return static_cast<int>(cudaGetLastError());
 }
 
-// n_rows = B * n_ch rows in; adc (n_rows, n_samples) int32, sums (B,
-// n_samples) int32, cleared here
+// n_rows = B * n_ch rows in; adc (n_rows, n_samples) int32; sums: the (B,
+// n_samples) int32 sum rows, then the status word, cleared here; span:
+// samples a warp's tile, a multiple of 128
 extern "C" int wfsim_superpose_block(
     const void* t, const void* gain, const void* row_ptr, int n_rows,
-    int n_samples, const void* templates, int dt, int tlen,
+    int n_photons, int n_samples, const void* templates, int dt, int tlen,
     float current_2_adc, int n_ch, int ch_block, int n_top, int n_tpc,
-    void* adc, void* sums, void* stream) {
-  if (dt * tlen > kMaxTemplate) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_ch <= 0 || n_rows % n_ch != 0 || ch_block < 0)
+    int span, void* adc, void* sums, void* stream) {
+  if (dt <= 0 || tlen <= 0 || dt * tlen > kMaxTemplate)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (n_samples + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>(n_rows) * tiles;
-  if (blocks <= 0 || blocks > 0x7fffffffLL)
+  if (n_ch <= 0 || n_rows <= 0 || n_rows % n_ch != 0 || ch_block < 0 ||
+      n_samples <= 0 || n_photons < 0 || span < 128 || span % 128 != 0 ||
+      span > 8192)
     return static_cast<int>(cudaErrorInvalidValue);
+  BlockArgs a{};
+  a.t = static_cast<const int*>(t);
+  a.gain = static_cast<const float*>(gain);
+  a.row_ptr = static_cast<const int*>(row_ptr);
+  a.n_rows = n_rows;
+  a.n_photons = n_photons;
+  a.n_samples = n_samples;
+  a.templates = static_cast<const float*>(templates);
+  a.dt = dt;
+  a.tlen = tlen;
+  a.c2a = current_2_adc;
+  a.n_ch = n_ch;
+  a.ch_block = ch_block;
+  a.n_top = n_top;
+  a.n_tpc = n_tpc;
+  a.span = span;
+  const bool aligned = n_samples % 4 == 0 &&
+                       (reinterpret_cast<uintptr_t>(adc) & 15) == 0;
+  a.n_seg = (n_samples + (aligned ? 0 : 3) + span - 1) / span;
+  a.adc = static_cast<int*>(adc);
+  const long long n_sum = static_cast<long long>(n_rows / n_ch) * n_samples;
+  a.sums = static_cast<int*>(sums);
+  a.status = a.sums + n_sum;
+  const long long blocks =
+      (static_cast<long long>(n_rows) * a.n_seg + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
-      sums, 0, static_cast<size_t>(n_rows / n_ch) * n_samples * sizeof(int),
-      s);
+      sums, 0, (static_cast<size_t>(n_sum) + 1) * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  superpose_block_kernel<<<static_cast<unsigned>(blocks), kTile, 0, s>>>(
-      static_cast<const int*>(t), static_cast<const float*>(gain),
-      static_cast<const int*>(row_ptr), n_rows, n_samples,
-      static_cast<const float*>(templates), dt, tlen, current_2_adc, n_ch,
-      ch_block, n_top, n_tpc, static_cast<int*>(adc),
-      static_cast<int*>(sums));
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem =
+      (static_cast<size_t>(kWarps) * span + dt * tlen) * sizeof(float);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  err = dt == 10 && tlen == 22 ? launch_block<10, 22>(a, grid, smem, s)
+                               : launch_block<0, 0>(a, grid, smem, s);
+  return static_cast<int>(err);
 }

@@ -52,8 +52,8 @@
 //                            quantiles around u * (M-1), summed in the
 //                            twin's order (s1.py:124-129).
 //
-// The custom and garfield entry points run one thread per photon, which
-// finds its instruction by a binary search of the edges:
+// The custom entry point runs one thread per photon, which finds its
+// instruction by a binary search of the edges:
 //   wfsim_s1_custom_delays   the delay of the instruction's recoil class
 //                            only, from the class's draws: ER the primary
 //                            singlet/triplet delay where u_prim <
@@ -63,27 +63,46 @@
 //                            singlet/triplet delay; LED u * led_length.  A
 //                            singlet/triplet delay is trunc(exp *
 //                            lifetime) as an int, then a float, as the
-//                            twin (and JAX, s1.py:77-78) casts it;
+//                            twin (and JAX, s1.py:77-78) casts it.
+//
+// The garfield entry point is one launch over fixed tiles of 4,096 photons
+// (tiles.cuh, as the S2 photon times of photon_times.cu):
 //   wfsim_lumi_garfield_times
-//                            two launches.  One thread per instruction
-//                            finds the wire distance d: the rotated y,
-//                            x sin(tilt) + y cos(tilt), plus pitch/2,
-//                            modulo the pitch with the divisor's sign
-//                            (jnp.remainder: fmodf, then + pitch where
-//                            the remainder is non-zero and its sign is
-//                            not the pitch's), minus pitch/2; or, in the
-//                            confine mode, max(-c, u * 2c - c) from the
-//                            instruction's uniform; then the table row
-//                            nearest d, argmin |d - x_r|, the lowest on a
-//                            tie.  One thread per photon then writes
-//                            int(table[row, col]) - avgt.
+//                            a block finds its tile's instructions once
+//                            (two 32-ary warp searches of the edges, the
+//                            few edges inside the tile in registers, a
+//                            max-scan of their marks where there are more
+//                            than kRegEdges) and computes their table rows
+//                            itself: a lane an instruction where at most
+//                            kRegEdges edges lie inside the tile (read by
+//                            a shuffle), else each thread as its photons'
+//                            instruction changes.  The row: the wire
+//                            distance d, the rotated y, x sin(tilt) + y
+//                            cos(tilt), plus pitch/2, modulo the pitch
+//                            with the divisor's sign (jnp.remainder:
+//                            fmodf, then + pitch where the remainder is
+//                            non-zero and its sign is not the pitch's),
+//                            minus pitch/2; or, in the confine mode,
+//                            max(-c, u * 2c - c) from the instruction's
+//                            uniform; then argmin |d - x_r|, the lowest r
+//                            on a tie (a strict < in index order).  The
+//                            table (11 x 500 floats in the configurations
+//                            here) is staged in shared memory where it
+//                            fits kGarfieldStage floats; cols are read and
+//                            t written four photons a thread as 16-byte
+//                            vectors: t = int(table[row, col]) - avgt.  An
+//                            instruction of 10^6 photons spans ~245 tiles,
+//                            each with one instruction and one row, so no
+//                            photon searches; the edges are clamped to the
+//                            photons and nothing is read back.
 //
 // What bounds them on the H100: the uniforms they read and the times they
 // write, 8 bytes a photon (+4 for a tiled gas-gap instruction's second
 // read of u; 48 for the custom delays, which read the 11 draws of the
-// photon's class only, 2-6 of them; 12 for the garfield times); the tables
-// (40 KB gas-gap, 8 MB NEST, 22 KB garfield) stay in L2 and the reads of
-// one instruction hit the same few rows.
+// photon's class only, 2-6 of them; 12 for the garfield times, its int64
+// column and int32 time); the tables (40 KB gas-gap, 8 MB NEST, 22 KB
+// garfield) stay in L2 and the reads of one instruction hit the same few
+// rows.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default; every product
 // and sum the twin rounds separately is written with __fmul_rn /
@@ -558,50 +577,133 @@ __global__ void custom_delays_kernel(const long long* __restrict__ cls,
   }
 }
 
-__global__ void garfield_rows_kernel(const float* __restrict__ xy,
-                                     const float* __restrict__ u_wire,
-                                     int n_inst,
-                                     const float* __restrict__ x_axis, int R,
-                                     float sin_t, float cos_t, float pitch,
-                                     float half_pitch, float confine,
-                                     int* __restrict__ rows) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_inst) return;
+struct GarfieldIn {
+  const float* table;       // (R, M)
+  int R, M;
+  const float* x_axis;      // (R,)
+  const float* xy;          // (S, 2), or unread in the confine mode
+  const float* u_wire;      // (S,) in the confine mode, else null
+  const long long* edges;   // (S+1,) photon edges of the instructions
+  long long S;
+  long long n;              // photons
+  const long long* cols;    // (n,) in [0, M)
+  float sin_t, cos_t, pitch, half_pitch, confine;
+  int avgt;
+  bool staged;              // the table fits kGarfieldStage floats
+  bool vec;                 // cols and t 16-byte aligned
+};
+
+// the table row of instruction i: the wire distance d (the rotated y
+// modulo the pitch, or the confine mode's uniform), then argmin |d - x_r|,
+// the lowest r on a tie
+__device__ __forceinline__ int garfield_row(const GarfieldIn& in,
+                                            long long i) {
   float d;
-  if (u_wire != nullptr) {
-    d = fmaxf(-confine, __fadd_rn(__fmul_rn(u_wire[i],
-                                            __fadd_rn(confine, confine)),
-                                  -confine));
+  if (in.u_wire != nullptr) {
+    d = fmaxf(-in.confine,
+              __fadd_rn(__fmul_rn(__ldg(in.u_wire + i),
+                                  __fadd_rn(in.confine, in.confine)),
+                        -in.confine));
   } else {
-    const float rot_y = __fadd_rn(__fmul_rn(xy[2 * i], sin_t),
-                                  __fmul_rn(xy[2 * i + 1], cos_t));
-    float r = fmodf(__fadd_rn(rot_y, half_pitch), pitch);
-    if (r != 0.0f && ((r < 0.0f) != (pitch < 0.0f))) r = __fadd_rn(r, pitch);
-    d = __fsub_rn(r, half_pitch);
+    const float rot_y = __fadd_rn(__fmul_rn(__ldg(in.xy + 2 * i), in.sin_t),
+                                  __fmul_rn(__ldg(in.xy + 2 * i + 1),
+                                            in.cos_t));
+    float r = fmodf(__fadd_rn(rot_y, in.half_pitch), in.pitch);
+    if (r != 0.0f && ((r < 0.0f) != (in.pitch < 0.0f)))
+      r = __fadd_rn(r, in.pitch);
+    d = __fsub_rn(r, in.half_pitch);
   }
   int best_r = 0;
-  float best = fabsf(__fsub_rn(d, x_axis[0]));
-  for (int r = 1; r < R; ++r) {
-    const float diff = fabsf(__fsub_rn(d, x_axis[r]));
+  float best = fabsf(__fsub_rn(d, __ldg(in.x_axis)));
+  for (int r = 1; r < in.R; ++r) {
+    const float diff = fabsf(__fsub_rn(d, __ldg(in.x_axis + r)));
     if (diff < best) {
       best = diff;
       best_r = r;
     }
   }
-  rows[i] = best_r;
+  return best_r;
 }
 
-__global__ void garfield_times_kernel(const float* __restrict__ table, int M,
-                                      const int* __restrict__ rows,
-                                      const long long* __restrict__ edges,
-                                      int n_inst,
-                                      const long long* __restrict__ cols,
-                                      int avgt, int n, int* __restrict__ t) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += gridDim.x * blockDim.x) {
-    const int row = rows[instruction_of(edges, n_inst, j)];
-    t[j] = static_cast<int>(table[static_cast<long long>(row) * M + cols[j]])
-           - avgt;
+// table floats staged in shared memory (with the tile's marks, within the
+// 48 KB a block gets without opting in)
+constexpr int kGarfieldStage = 8160;
+constexpr int kGarfieldSteps = 4;   // tiles of 4,096 photons
+
+// A block a tile of 4,096 photons: the tile's instructions found once
+// (tiles.cuh), their rows computed by the block (a lane an instruction
+// where at most kRegEdges edges lie inside the tile, else by each thread
+// as its instruction changes), the table staged in shared memory, cols
+// read and t written four photons a thread with 16-byte vectors.
+__global__ void __launch_bounds__(tiles::kThreads)
+    garfield_times_kernel(GarfieldIn in, int* __restrict__ t) {
+  using namespace tiles;
+  constexpr int R = kGarfieldSteps;
+  constexpr long long kTile = static_cast<long long>(kStep) * R;
+  extern __shared__ float table_sh[];
+  __shared__ __align__(16) unsigned marks[kTile];
+  __shared__ unsigned tot[R * kWarps];
+  const long long a = static_cast<long long>(blockIdx.x) * kTile;
+  const long long b = a + kTile < in.n ? a + kTile : in.n;
+  long long c0, c1;
+  warp_counts(in.edges, in.S, in.n, a, b - 1, c0, c1);
+  const long long s0 = c0 - 1, s1 = c1 - 1;
+  if (s0 == s1 && !in_range(s0, in.S)) return;   // the whole block
+  const int n_tab = in.R * in.M;
+  if (in.staged) {
+    for (int c = threadIdx.x; c < n_tab; c += kThreads)
+      table_sh[c] = __ldg(in.table + c);
+  }
+  __syncthreads();
+  const float* tab = in.staged ? table_sh : in.table;
+  const TileIds ids = find_ids<R>(
+      marks, tot, s0, s1, a,
+      [&](long long s) { return edge(in.edges, s, in.n); });
+  const bool few = ids.m <= kRegEdges;   // the same in every thread
+  const int lane = threadIdx.x & 31;
+  int lane_row = 0;                      // the row of instruction s0 + lane
+  if (few && lane <= ids.m && in_range(s0 + lane, in.S))
+    lane_row = garfield_row(in, s0 + lane);
+  long long cur = -1;
+  int row = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long j0 = a + 4 * (threadIdx.x + kThreads * r);
+    long long col[4] = {0, 0, 0, 0};
+    if (in.vec && j0 + 3 < b) {
+      const longlong2 x = __ldg(reinterpret_cast<const longlong2*>(
+          in.cols + j0));
+      const longlong2 y = __ldg(reinterpret_cast<const longlong2*>(
+          in.cols + j0 + 2));
+      col[0] = x.x, col[1] = x.y, col[2] = y.x, col[3] = y.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j0 + q < b) col[q] = __ldg(in.cols + j0 + q);
+    }
+    unsigned rel[4];
+    ids.step(r, rel);
+    int tt[4];
+    unsigned keep = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long id = s0 + rel[q];
+      int rq = 0;
+      if (few) rq = __shfl_sync(kFull, lane_row, static_cast<int>(rel[q]));
+      tt[q] = 0;
+      if (j0 + q < b && in_range(id, in.S)) {
+        if (!few) {
+          if (id != cur) {
+            cur = id;
+            row = garfield_row(in, id);
+          }
+          rq = row;
+        }
+        tt[q] = static_cast<int>(tab[rq * in.M + col[q]]) - in.avgt;
+        keep |= 1u << q;
+      }
+    }
+    store4(t, j0, tt, keep, in.vec);
   }
 }
 
@@ -698,24 +800,42 @@ extern "C" int wfsim_s1_custom_delays(
   return static_cast<int>(cudaGetLastError());
 }
 
+// n photons of n_inst instructions in tiles of 4,096; t (n,) int32, each
+// photon below the clamped last edge written
 extern "C" int wfsim_lumi_garfield_times(
     const void* table, int R, int M, const void* x_axis, const void* xy,
     const void* u_wire, int n_inst, const void* edges, const void* cols,
     int n, float sin_t, float cos_t, float pitch, float half_pitch,
-    float confine, int avgt, void* rows, void* t, void* stream) {
-  if (n_inst <= 0 || n <= 0 || R < 1 || M < 1)
+    float confine, int avgt, void* t, void* stream) {
+  if (n_inst <= 0 || n < 0 || R < 1 || M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  garfield_rows_kernel<<<(n_inst + kThreads - 1) / kThreads, kThreads, 0,
-                         st>>>(
-      static_cast<const float*>(xy), static_cast<const float*>(u_wire),
-      n_inst, static_cast<const float*>(x_axis), R, sin_t, cos_t, pitch,
-      half_pitch, confine, static_cast<int*>(rows));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  garfield_times_kernel<<<grid_for(n), kThreads, 0, st>>>(
-      static_cast<const float*>(table), M, static_cast<const int*>(rows),
-      static_cast<const long long*>(edges), n_inst,
-      static_cast<const long long*>(cols), avgt, n, static_cast<int*>(t));
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  GarfieldIn in;
+  in.table = static_cast<const float*>(table);
+  in.R = R;
+  in.M = M;
+  in.x_axis = static_cast<const float*>(x_axis);
+  in.xy = static_cast<const float*>(xy);
+  in.u_wire = static_cast<const float*>(u_wire);
+  in.edges = static_cast<const long long*>(edges);
+  in.S = n_inst;
+  in.n = n;
+  in.cols = static_cast<const long long*>(cols);
+  in.sin_t = sin_t;
+  in.cos_t = cos_t;
+  in.pitch = pitch;
+  in.half_pitch = half_pitch;
+  in.confine = confine;
+  in.avgt = avgt;
+  in.staged = static_cast<long long>(R) * M <= kGarfieldStage;
+  in.vec = tiles::aligned16(cols) && tiles::aligned16(t);
+  constexpr long long kTile =
+      static_cast<long long>(tiles::kStep) * kGarfieldSteps;
+  const size_t smem = in.staged ? static_cast<size_t>(R) * M * sizeof(float)
+                                : 0;
+  garfield_times_kernel<<<static_cast<unsigned>((n + kTile - 1) / kTile),
+                          tiles::kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<int*>(t));
   return static_cast<int>(cudaGetLastError());
 }

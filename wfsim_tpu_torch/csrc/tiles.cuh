@@ -43,6 +43,11 @@ __device__ __forceinline__ long long edge(const long long* e, long long s,
   return v < n ? v : n;
 }
 
+// segment i is one of the S segments (-1 and S are none)
+__device__ __forceinline__ bool in_range(long long i, long long S) {
+  return i >= 0 && i < S;
+}
+
 // by a whole warp (the same in every lane): the number of s in [0, S] with
 // edge(s) <= x, and the same for y; the segment of element x is that count
 // minus one

@@ -549,11 +549,11 @@ def lumi_garfield_times_ref(table, x_axis, xy, ph_edges, cols, u_wire=None,
 
 _garfield_kernel = Kernel('wfsim_lumi_garfield_times',
                           [P, I, I, P, P, P, I, P, P, I, F, F, F, F, F, I, P,
-                           P, P])
+                           P])
 
 
 def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
-                        avgt, tilt, pitch, confine):
+                        n_photons: int, avgt, tilt, pitch, confine):
     """Luminescence times of the ``garfield`` model (wfsim_tpu s2.py:234
     luminescence_garfield; reference s2.py:380-409).  Per instruction, the
     distance ``d`` of the electrons from the nearest anode wire: the
@@ -567,18 +567,22 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
     :param table: (R, M) float32 times; ``x_axis`` (R,) float32 distances
     :param xy: (I, 2) float32 observed positions
     :param ph_edges: (I+1,) int64: instruction i owns photons
-        [ph_edges[i], ph_edges[i+1])
-    :param cols: (N,) int64 columns in [0, M)
+        [ph_edges[i], ph_edges[i+1]), ending at ``n_photons``
+    :param cols: (n_photons,) int64 columns in [0, M)
     :param u_wire: (I,) float32 uniforms, given exactly when ``confine`` > 0
+    :param n_photons: the photon total, which the caller holds (the S2
+        draws' count): the wrapper reads nothing back
     :param avgt: the int mean of the table (``SimParams.garfield_avgt``)
-    :returns: (N,) int32 times (ns)
+    :returns: (n_photons,) int32 times (ns)
 
-    CPU tensors run :func:`lumi_garfield_times_ref`; CUDA tensors launch
-    ``csrc/table_samplers.cu`` (a thread per instruction for the row, a
-    thread per photon for the time)."""
+    CPU tensors run :func:`lumi_garfield_times_ref` and raise where the
+    edges do not end at ``n_photons``; CUDA tensors launch
+    ``csrc/table_samplers.cu`` (one launch, tiles of 4,096 photons a
+    block), which clamps the edges to the photons (a photon past the last
+    edge is not written)."""
     dev = table.device
     n_inst = xy.shape[0]
-    n = cols.shape[0]
+    n = int(n_photons)
     if table.dim() != 2:
         raise ValueError(f'table of shape {tuple(table.shape)}')
     R, M = table.shape
@@ -591,8 +595,8 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
         raise ValueError('u_wire is given exactly when confine > 0')
     if u_wire is not None:
         check_tensor('u_wire', u_wire, torch.float32, (n_inst,), dev)
-    if int(ph_edges[-1]) != n:
-        raise ValueError(f'{n} columns for {int(ph_edges[-1])} photons')
+    _check_edges(ph_edges, n, 'photons')
+    _check_segments(n, n_inst, 'photons')
     kw = dict(avgt=int(avgt), tilt=tilt, pitch=pitch, confine=confine)
     if dev.type == 'cpu':
         return lumi_garfield_times_ref(table, x_axis, xy, ph_edges, cols,
@@ -600,9 +604,8 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
     if dev.type != 'cuda':
         raise NotImplementedError(f'lumi_garfield_times on {dev}')
     if n >= 2 ** 31:
-        raise ValueError(f'{n} photons: the kernel indexes them as int')
+        raise ValueError(f'{n} photons: the kernel counts them as int')
     t = torch.empty(n, dtype=torch.int32, device=dev)
-    rows = torch.empty(n_inst, dtype=torch.int32, device=dev)
     if n:
         s, co = tilt_coefficients(tilt)
         _garfield_kernel(ptr(table), R, M, ptr(x_axis), ptr(xy),
@@ -610,7 +613,7 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
                          ptr(ph_edges), ptr(cols), n, s, co,
                          *(float(np.float32(v)) for v in (
                              pitch, pitch / 2, confine)),
-                         int(avgt), ptr(rows), ptr(t), stream_of(dev))
+                         int(avgt), ptr(t), stream_of(dev))
     return t
 
 
@@ -1115,7 +1118,8 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     elif const.s2_luminescence_model == 'garfield':
         lum['t_lum'] = lumi_garfield_times(
             params.garfield_t, params.garfield_x, positions, ph_edges,
-            draws['col'], draws['u_wire'], avgt=params.garfield_avgt,
+            draws['col'], draws['u_wire'], n_photons=draws['col'].shape[0],
+            avgt=params.garfield_avgt,
             tilt=const.anode_xaxis_angle, pitch=const.anode_pitch,
             confine=const.s2_garfield_confine_position)
     else:

@@ -466,12 +466,16 @@ def superpose_block_ref(t, gain, row_ptr, templates, *, n_channels: int,
 
 
 _block_kernel = Kernel('wfsim_superpose_block',
-                       [P, P, P, I, I, P, I, I, F, I, I, I, I, P, P, P])
+                       [P, P, P, I, I, I, P, I, I, F, I, I, I, I, I, P, P, P])
+
+#: samples a warp's tile in the channel-block kernel
+BLOCK_SPAN = 1024
 
 
 def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
                     ch_block: int, n_top: int, n_tpc: int,
-                    current_2_adc: float, n_samples: int):
+                    current_2_adc: float, n_samples: int,
+                    span: int = BLOCK_SPAN):
     """(adc, sums) of one channel block of the multi-device step (K14):
     adc ``(rows, n_samples)`` int32, ``-round_half_even(W *
     current_2_adc)`` of the row-sorted photons (no window, no baseline;
@@ -488,7 +492,9 @@ def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
 
     CPU tensors go to :func:`superpose_block_ref`; CUDA tensors launch the
     hand-written kernel (``csrc/superpose_adc.cu``,
-    ``wfsim_superpose_block``), bitwise equal to the twin."""
+    ``wfsim_superpose_block``: a warp a tile of ``span`` samples of a
+    row), bitwise equal to the twin, and read one status word back (a
+    negative photon time raises ``ValueError``, as on the CPU)."""
     dev = t.device
     n = t.shape[0]
     n_rows = row_ptr.shape[0] - 1
@@ -499,22 +505,25 @@ def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
     if n_channels <= 0 or n_rows % n_channels:
         raise ValueError(f'{n_rows} rows are not whole blocks of '
                          f'{n_channels} channels')
-    if n and int(t.min()) < 0:
-        raise ValueError('photon times must be >= 0')
     kw = dict(n_channels=n_channels, ch_block=ch_block, n_top=n_top,
               n_tpc=n_tpc, current_2_adc=current_2_adc, n_samples=n_samples)
     if dev.type == 'cpu':
+        _check_values(t, None)
         return superpose_block_ref(t, gain, row_ptr, templates, **kw)
     if dev.type != 'cuda':
         raise NotImplementedError(f'superpose_block on {dev}')
+    B = n_rows // n_channels
     adc = torch.empty((n_rows, n_samples), dtype=torch.int32, device=dev)
-    sums = torch.empty((n_rows // n_channels, n_samples), dtype=torch.int32,
-                       device=dev)
     if n_rows == 0 or n_samples == 0:
-        return adc, sums.zero_()
+        _check_values(t, None)
+        return adc, torch.zeros((B, n_samples), dtype=torch.int32,
+                                device=dev)
+    # the (B, T) sum rows, then the status word
+    buf = torch.empty(B * n_samples + 1, dtype=torch.int32, device=dev)
     dt, L = templates.shape
-    _block_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n_samples,
+    _block_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n, n_samples,
                   ptr(templates), dt, L, float(np.float32(current_2_adc)),
-                  n_channels, ch_block, n_top, n_tpc, ptr(adc), ptr(sums),
-                  stream_of(dev))
-    return adc, sums
+                  n_channels, ch_block, n_top, n_tpc, int(span), ptr(adc),
+                  ptr(buf), stream_of(dev))
+    _raise_status(int(buf[-1]))
+    return adc, buf[:-1].view(B, n_samples)
