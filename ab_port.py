@@ -3,7 +3,8 @@
 
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
-                           pmt_truth_layouts|photon_times]]
+                           pmt_truth_layouts|photon_times|step_block|
+                           garfield]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -18,7 +19,8 @@ superposition entries on their three window batches, the ZLE and record
 pack on four grids, the per-PMT truth, the PMT-afterpulse generator and
 the diffused pattern on their bench and skewed batches, the luminescence
 tables and the photon summaries, the truth kernels and the gas-gap and
-S2 photon times on theirs, each against its
+S2 photon times on theirs, the step's channel block and the garfield
+times on theirs, each against its
 twin (and, where there is one, its library computation), and prints
 ``{row: {ms, device_ms, split, host_us, plain_ms, library_ms, ...}}``.
 ``--only ap_diffuse`` measures only the afterpulse generator and the
@@ -29,7 +31,11 @@ the luminescence tables and the summaries (``lumi_summaries_measure``),
 under each layout and chunk they could take (``pmt_truth_layouts_measure``;
 give this tree as OTHER_TREE to measure it in four processes), and
 ``--only photon_times`` only the gas-gap luminescence times and the S1,
-S2 electron and S2 photon times (``photon_times_measure``).
+S2 electron and S2 photon times (``photon_times_measure``), ``--only
+step_block`` only the step's channel block on the step shard and its
+skewed and burst copies (``step_block_measure``), and ``--only garfield``
+only the garfield wire-table times on the timing_models S2 batch in both
+modes and its skewed copy (``garfield_measure``).
 """
 import argparse
 import json
@@ -97,14 +103,14 @@ def main():
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
                                        'pmt_truth', 'pmt_truth_layouts',
                                        'photon_times', 'step_block',
-                                       'step_block_spans', 'garfield'),
+                                       'garfield'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
                          'K8 row-truth and K16 rows only, those two '
                          'kernels under each layout, the K13a and K9 '
-                         'rows only, the K14 rows only, K14 under each '
-                         'warp tile, or the K13c rows only')
+                         'rows only, the K14 rows only, or the K13c rows '
+                         'only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

@@ -272,7 +272,8 @@ exercised here):
     ``library_ms``); the tiles a row-range skip could spare are printed;
 4i. (a) NCCL at world size 1 in this process: the step at 1 x 1 on two
     shards, with every launch count set to 0 just before it (the K14
-    entry launched; the sum row equal to the bottom channels' sum), and
+    entry launched; the sum row equal to the bottom channels' sum), its
+    wall over three more calls (host clock, each ended by a sync), and
     ``Simulator(default_config(seed=1234, chunk_size=100),
     device='cuda:0', mesh=make_mesh(1, 1))`` on the 512-event workload
     (after a 16-event warm-up), records and truth bitwise those of phase
@@ -3233,28 +3234,6 @@ def kernel_rows(dev, smi):
     return res
 
 
-def step_block_spans_measure(dev, smi, max_syncs=None):
-    """K14's device time on the step_block_rows shards under warp tiles of
-    1,024, 2,048 and 4,096 samples, each bitwise the 1,024 one."""
-    import inspect
-    from wfsim_tpu_torch.ops.waveform import superpose_block
-    res = {}
-    if 'span' not in inspect.signature(superpose_block).parameters:
-        return res
-    for name, (args, kw) in step_block_rows(dev).items():
-        base = superpose_block(*args, **kw)
-        for span in (1024, 2048, 4096):
-            def kernel(a=args, k=kw, sp=span):
-                return superpose_block(*a, **k, span=sp)
-            compare(kernel(), base, f'{name} span {span}')
-            dev_ms, _split = device_ms(kernel)
-            res[f'{name}_{span}'] = dict(device_ms=dev_ms, ms=cuda_ms(kernel))
-            print(f'[kernels-m] {name} span {span}: device '
-                  f'{fmt_ms(dev_ms)} ({smi})')
-        del base
-    return res
-
-
 def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     """Phases 3g, 4g, 3h, 4h and 5h (see the module docstring); returns
     the measurements of the per-PMT rows (see make_check) and the launch
@@ -3749,8 +3728,10 @@ def phase_4i(cfg, inst, main_digest, dev, smi):
     import torch
     import torch.distributed as dist
     from wfsim_tpu_torch import _build
-    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.interface import bench_instructions, step_instructions
+    from wfsim_tpu_torch.models.params import build_params
     from wfsim_tpu_torch.parallel import make_mesh
+    from wfsim_tpu_torch.resources import load_config
     n_ev = len(inst) // 2
     C, n_top = cfg['n_tpc_pmts'], cfg['n_top_pmts']
     tmp = tempfile.mkdtemp(prefix='wfsim_smoke_mesh_')
@@ -3789,6 +3770,20 @@ def phase_4i(cfg, inst, main_digest, dev, smi):
             ref = {n_ch: step_digests(adc, sum_signal, totals, n_ch, C)
                    for n_ch in (1, 2)}
             del adc, sum_signal, bottom
+            # the step's wall: three more calls, each ended by a sync
+            params = build_params(cfg, load_config(cfg), dev)
+            step_inst = step_instructions(cfg, 2, STEP_SHARD, STEP_T)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(params, step_inst, 1234)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            print(f'[mesh] step 1 x 1 (NCCL) wall {wall:.4f} s a call '
+                  f'(median of {[round(w, 4) for w in walls]}; two blocks '
+                  f'of {STEP_SHARD} instructions, {STEP_T} samples) ({smi})')
             out, wall, _l, _peak, sim = timed_run(
                 cfg, inst, dev, lambda: make_mesh(1, 1),
                 bench_instructions(16))

@@ -404,7 +404,8 @@ def test_ks_luminescence_garfield():
                          .manual_seed(24))
     ours = s2.lumi_garfield_times(
         p.garfield_t, p.garfield_x, xy, torch.tensor([0, N_KS]), cols,
-        n_photons=N_KS, avgt=p.garfield_avgt, tilt=k.anode_xaxis_angle, pitch=k.anode_pitch,
+        n_photons=N_KS, avgt=p.garfield_avgt, tilt=k.anode_xaxis_angle,
+        pitch=k.anode_pitch,
         confine=k.s2_garfield_confine_position).numpy()
     tilt, pitch = c.get('anode_xaxis_angle', np.pi / 4), 0.5
     rot = np.array([[np.cos(tilt), -np.sin(tilt)],

@@ -2,9 +2,9 @@
 // tile.
 //
 // Used by the flat kernels of photon_times.cu (the S2 electron and photon
-// times); the truth kernels of pmt_response.cu take its search and its
-// ticket, the gas-gap sampler of table_samplers.cu its loads, stores and
-// ticket.  A batch
+// times) and the garfield times of table_samplers.cu; the truth kernels of
+// pmt_response.cu take its search and its ticket, the gas-gap sampler of
+// table_samplers.cu its loads, stores and ticket.  A batch
 // of n elements is cut into S segments by an edge array: segment s owns the
 // elements [e(s), e(s+1)) with e(s) = min(edges[s], n), so a launch never
 // reads or writes past n whatever the edges hold.  An element at or past

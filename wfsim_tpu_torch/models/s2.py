@@ -604,7 +604,7 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
     if dev.type != 'cuda':
         raise NotImplementedError(f'lumi_garfield_times on {dev}')
     if n >= 2 ** 31:
-        raise ValueError(f'{n} photons: the kernel counts them as int')
+        raise ValueError(f'{n} photons: the kernel indexes them as int')
     t = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         s, co = tilt_coefficients(tilt)

@@ -466,16 +466,12 @@ def superpose_block_ref(t, gain, row_ptr, templates, *, n_channels: int,
 
 
 _block_kernel = Kernel('wfsim_superpose_block',
-                       [P, P, P, I, I, I, P, I, I, F, I, I, I, I, I, P, P, P])
-
-#: samples a warp's tile in the channel-block kernel
-BLOCK_SPAN = 1024
+                       [P, P, P, I, I, I, P, I, I, F, I, I, I, I, P, P, P])
 
 
 def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
                     ch_block: int, n_top: int, n_tpc: int,
-                    current_2_adc: float, n_samples: int,
-                    span: int = BLOCK_SPAN):
+                    current_2_adc: float, n_samples: int):
     """(adc, sums) of one channel block of the multi-device step (K14):
     adc ``(rows, n_samples)`` int32, ``-round_half_even(W *
     current_2_adc)`` of the row-sorted photons (no window, no baseline;
@@ -492,9 +488,10 @@ def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
 
     CPU tensors go to :func:`superpose_block_ref`; CUDA tensors launch the
     hand-written kernel (``csrc/superpose_adc.cu``,
-    ``wfsim_superpose_block``: a warp a tile of ``span`` samples of a
-    row), bitwise equal to the twin, and read one status word back (a
-    negative photon time raises ``ValueError``, as on the CPU)."""
+    ``wfsim_superpose_block``: a block four 1,024-sample tiles of a row,
+    a warp each, the row's scan shared), bitwise equal to the twin, and
+    read one status word back (a negative photon time raises
+    ``ValueError``, as on the CPU)."""
     dev = t.device
     n = t.shape[0]
     n_rows = row_ptr.shape[0] - 1
@@ -523,7 +520,7 @@ def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
     dt, L = templates.shape
     _block_kernel(ptr(t), ptr(gain), ptr(row_ptr), n_rows, n, n_samples,
                   ptr(templates), dt, L, float(np.float32(current_2_adc)),
-                  n_channels, ch_block, n_top, n_tpc, int(span), ptr(adc),
-                  ptr(buf), stream_of(dev))
+                  n_channels, ch_block, n_top, n_tpc, ptr(adc), ptr(buf),
+                  stream_of(dev))
     _raise_status(int(buf[-1]))
     return adc, buf[:-1].view(B, n_samples)
