@@ -451,12 +451,14 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20, warmup=3):
+def device_ms(fn, reps=20, warmup=3, names=None):
     """Median device time of one call of ``fn`` in ms and the device time
     per call of each kernel it launches, by name: the CUPTI records of a
     ``torch.profiler`` session over ``reps`` calls, each followed by a
-    sync, cut into calls (see cut_calls).  (None, {}) where they do not
-    cut cleanly: no estimate is made."""
+    sync, cut into calls (see cut_calls; with ``names``, a tuple of
+    substrings, only the records whose names hold one of them, see
+    named_calls).  (None, {}) where they do not cut cleanly: no estimate
+    is made."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,6 +467,13 @@ def device_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if names is not None:
+            # where CUPTI drops a session's first records, let them be
+            # fills, which named_calls leaves out
+            x = torch.empty(8, device='cuda')
+            for _ in range(8):
+                x.fill_(0.0)
+            torch.cuda.synchronize()
         for _ in range(reps):
             fn()
             torch.cuda.synchronize()
@@ -472,7 +481,8 @@ def device_ms(fn, reps=20, warmup=3):
         (e for e in prof.events() if e.device_type == DeviceType.CUDA
          and 'Activity Buffer' not in e.name),
         key=lambda e: e.time_range.start)]
-    calls = cut_calls(recs, reps)
+    calls = (cut_calls(recs, reps) if names is None else
+             named_calls(recs, reps, names))
     if not calls:
         print(f'[profiler] {len(recs)} device records in {reps} calls: no '
               f'per-call device time')
@@ -503,6 +513,34 @@ def cut_calls(recs, reps):
         if 2 * m >= reps and all(x == names[0] for x in names):
             return calls
     return []
+
+
+def named_calls(recs, reps, names):
+    """The device records ``(name, us)`` of a session whose names hold one
+    of ``names`` (what the measured entry launches), cut into ``reps``
+    calls: each such name must appear a whole multiple of ``reps`` times
+    and every call must hold the same names in the same order.  [] where
+    the profiler dropped or added one of them."""
+    recs = [r for r in recs if any(x in r[0] for x in names)]
+    counts = {}
+    for n, _us in recs:
+        counts[n] = counts.get(n, 0) + 1
+    if not recs or any(c % reps for c in counts.values()):
+        return []
+    k = len(recs) // reps
+    calls = [recs[i * k:(i + 1) * k] for i in range(reps)]
+    names_0 = [n for n, _us in calls[0]]
+    if any([n for n, _us in c] != names_0 for c in calls):
+        return []
+    return calls
+
+
+def below_bound(name, dev_ms, b_ms):
+    """Raise where a measured device time lies below the row's bound: the
+    profiler's records are then wrong, and the number is not reported."""
+    if dev_ms is not None and dev_ms < b_ms:
+        raise AssertionError(f'{name}: device time {dev_ms:.6f} ms below '
+                             f'its bound {b_ms:.6f} ms')
 
 
 def timing(kernel, twin, n_bytes, ops32, ops64=0, err=0, reps=20,
@@ -2997,7 +3035,11 @@ def step_block_measure(dev, smi, max_syncs=1):
         if max_syncs is not None and n_sync > max_syncs:
             raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
                                  f'than {max_syncs} ({where})')
-        dev_ms, by_name = device_ms(kernel)
+        # the entry's records: its kernel, the memset of the sum rows and
+        # the status copy (the parent's t.min() reduction)
+        dev_ms, by_name = device_ms(kernel, names=(
+            'superpose_block_kernel', 'Memset', 'Memcpy DtoH',
+            'reduce_kernel'))
         split = {}
         for k, v in by_name.items():
             split[k[:60]] = split.get(k[:60], 0.0) + v
@@ -3021,6 +3063,7 @@ def step_block_measure(dev, smi, max_syncs=1):
             library_diff={h: v[1] for h, v in libs.items()}, syncs=n_sync,
             split=split, photons=n_ph)
         b_ms, b_by = bound(n_bytes, ops)
+        below_bound(name, dev_ms, b_ms)
         dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
                  + str({k: round(v, 6) for k, v in split.items()}))
         print(f'[kernels-m] {name}: {n_ph} photons, max|diff| {err}, second '
@@ -3122,18 +3165,14 @@ def garfield_measure(dev, smi, max_syncs=0):
     1,000 calls, the twin's and the library computation's time and the
     bound (cols read, t written, the table, xy or u_wire and the edges
     read once).  Returns {row name: measurements (see make_check)}."""
-    import inspect
     from wfsim_tpu_torch.models import s2
-    takes_n = 'n_photons' in inspect.signature(
-        s2.lumi_garfield_times).parameters
     res = {}
     for name, (args, u_wire, kw) in garfield_rows(dev).items():
         n = int(args[4].shape[0])
         n_i = int(args[2].shape[0])
-        extra = {'n_photons': n} if takes_n else {}
 
         def kernel(a=args, u=u_wire, k=kw):
-            return (s2.lumi_garfield_times(*a, u, **extra, **k),)
+            return (s2.lumi_garfield_times(*a, u, **k),)
 
         def plain(a=args, u=u_wire, k=kw):
             return (s2.lumi_garfield_times_ref(*a, u, **k),)
@@ -3149,7 +3188,10 @@ def garfield_measure(dev, smi, max_syncs=0):
                                  f'than {max_syncs} ({where})')
         if max_syncs == 0:
             sync_free(name, kernel)
-        dev_ms, by_name = device_ms(kernel)
+        # the entry's records: its kernel (the parent's rows kernel and
+        # read-back too)
+        dev_ms, by_name = device_ms(kernel, names=(
+            'garfield_times_kernel', 'garfield_rows_kernel', 'Memcpy DtoH'))
         split = {}
         for k, v in by_name.items():
             split[k[:60]] = split.get(k[:60], 0.0) + v
@@ -3163,6 +3205,7 @@ def garfield_measure(dev, smi, max_syncs=0):
             bytes=n_bytes, ops32=ops, ops64=0, library_ms=cuda_ms(lib),
             syncs=n_sync, split=split, photons=n, rows=n_i)
         b_ms, b_by = bound(n_bytes, ops)
+        below_bound(name, dev_ms, b_ms)
         dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
                  + str({k: round(v, 6) for k, v in split.items()}))
         print(f'[kernels-t] {name}: {n} photons of {n_i} instructions, '

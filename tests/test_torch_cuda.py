@@ -664,7 +664,7 @@ def test_garfield_times_match_twin(dev, confine, counts):
     torch.cuda.synchronize(dev)
     torch.cuda.set_sync_debug_mode('error')
     try:
-        got = s2.lumi_garfield_times(*args, u_wire, n_photons=n, **kw)
+        got = s2.lumi_garfield_times(*args, u_wire, **kw)
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert k.launches == before + (1 if n else 0)

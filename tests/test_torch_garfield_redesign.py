@@ -201,18 +201,18 @@ def test_garfield_row_loop_matches_argmin(name):
 
 
 def test_garfield_wrapper_checks_on_cpu():
-    """The host checks: edges that do not end at n_photons, photons without
-    instructions, columns of another length."""
+    """The host checks: edges that do not end at the columns' count,
+    photons without instructions, positions of another length."""
     table, x_axis, xy, edges, cols, _u, kw = garfield_case('bench')
     args, _u, kw = torch_args((table, x_axis, xy, edges, cols, None, kw))
-    n = int(edges[-1])
     with pytest.raises(ValueError, match='edges end'):
-        s2.lumi_garfield_times(*args[:4], args[4][:-1], n_photons=n - 1, **kw)
+        s2.lumi_garfield_times(*args[:4], args[4][:-1], **kw)
     with pytest.raises(ValueError, match='shape'):
-        s2.lumi_garfield_times(*args[:4], args[4][:-1], n_photons=n, **kw)
+        s2.lumi_garfield_times(args[0], args[1], args[2][:-1], *args[3:],
+                               **kw)
     with pytest.raises(ValueError, match='edges end'):
         s2.lumi_garfield_times(args[0], args[1], args[2][:0],
                                torch.zeros(1, dtype=torch.int64), args[4],
-                               n_photons=n, **kw)
-    t = s2.lumi_garfield_times(*args, n_photons=n, **kw)
+                               **kw)
+    t = s2.lumi_garfield_times(*args, **kw)
     assert torch.equal(t, s2.lumi_garfield_times_ref(*args, **kw))

@@ -237,7 +237,7 @@ def test_garfield_times_match_jax_given_draws(confine):
     u_wire = (t32(jax.random.uniform(k1, (n_i,))) if confine > 0 else None)
     tt = s2.lumi_garfield_times(
         pt.garfield_t, pt.garfield_x, t32(xy), edges_from_counts(
-            t32(counts)), cols, u_wire, n_photons=n, avgt=pt.garfield_avgt,
+            t32(counts)), cols, u_wire, avgt=pt.garfield_avgt,
         tilt=kt.anode_xaxis_angle, pitch=kt.anode_pitch,
         confine=kt.s2_garfield_confine_position)
     assert tt.dtype == torch.int32
@@ -404,8 +404,7 @@ def test_ks_luminescence_garfield():
                          .manual_seed(24))
     ours = s2.lumi_garfield_times(
         p.garfield_t, p.garfield_x, xy, torch.tensor([0, N_KS]), cols,
-        n_photons=N_KS, avgt=p.garfield_avgt, tilt=k.anode_xaxis_angle,
-        pitch=k.anode_pitch,
+        avgt=p.garfield_avgt, tilt=k.anode_xaxis_angle, pitch=k.anode_pitch,
         confine=k.s2_garfield_confine_position).numpy()
     tilt, pitch = c.get('anode_xaxis_angle', np.pi / 4), 0.5
     rot = np.array([[np.cos(tilt), -np.sin(tilt)],

@@ -110,43 +110,38 @@
 // H100: writing the int32 grid, 4 bytes a (row, sample), 129.5 MB at 494
 // rows x 2^16 samples (0.039 ms), nearly all of it zeros; the collective
 // itself (all_reduce of the (B, T) sum rows) is NCCL's or gloo's, as the
-// JAX package left the psum to XLA.
-//
-// Design: the row kernels' tiles, with the scan shared by a block.  A
-// block takes kWarps consecutive tiles of kSpan samples of one row, a warp
-// a tile; a row's tiles start at its first 16-byte boundary.  Photons
-// within a row are in row order, not time order, so a tile cannot search
-// its photons: the block scans the whole row once for its tiles, in chunks
-// of kChunk = 512 photons (a warp 128, four a lane; the next chunk's times
-// and gains loaded before this chunk's tests), each photon tested against
-// each tile, the hits counted a (tile, warp), and each warp writes its
-// hits into the tiles' lists in shared memory at the warps' prefix, so a
-// list holds its tile's hits in row order.  Each warp then adds its list's
-// taps, zeroing its tile at its first hit: kGroup = 4 entries a step, each
-// read by every lane at once, lane l adding the taps that land on samples
-// u = lo + l mod 32, the step's products and tile values loaded first and
-// its adds chained in row order in registers (F4: bitwise the twin
-// superpose_block_ref); no ballot, bit search or shuffle a hit as in the
-// row kernels' scatter.  The epilogue stores -rint(acc * c2a) four samples
-// a lane as one 16-byte vector, a warp's 512 bytes contiguous; a tile
-// without a hit stores zeros without touching shared memory.  A row of a
-// bottom-array channel (n_top <= ch_block + c < n_tpc) adds its non-zero
-// samples into the instruction block's int32 sum row by integer atomics
-// (exact in any order); padding rows past n_tpc have no photons and no
-// part in the sum.  The entry clears the sum rows and the status word
-// behind them (kNegativeTime where a photon time is < 0: the wrapper reads
-// it back once a call).
+// JAX package left the psum to XLA.  The design is the row kernels' above,
+// cut to what the step needs.  A warp owns a tile of kSpan samples of one
+// row (row-major over (row, tile), so a block's four warps share a row's
+// photons in L1); a row's tiles start at its first 16-byte boundary.  The
+// scan: 128 photons a step, four a lane (lane l photons base + l + 32 q),
+// the next step's times loaded before this step's tests, one ballot per
+// 32; a step without a hit costs a few instructions a photon and no
+// shared memory.  Photons within a row are in row order, not time order,
+// so every tile of a row scans the whole row: a row of ~200 photons (the
+// bench shard) costs 64 tiles two steps each, a row of 10^5 photons 782
+// steps in each of its tiles, side by side on as many SMs.  At the first
+// hit the warp zeroes its tile in shared memory; hits add their taps by
+// add_taps, in row order (F4: bitwise the twin superpose_block_ref), the
+// gain read only by the lane that holds the photon.  The epilogue stores
+// -rint(acc * c2a) four samples a lane as one 16-byte vector, a warp's
+// 512 bytes contiguous; a tile without a hit stores zeros without
+// touching shared memory.  A row of a bottom-array channel (n_top <=
+// ch_block + c < n_tpc) adds its non-zero samples into the instruction
+// block's int32 sum row by integer atomics (exact in any order); padding
+// rows past n_tpc have no photons and no part in the sum.  The entry
+// clears the sum rows and the status word behind them (kNegativeTime
+// where a photon time is < 0: the wrapper reads it back once a call).
 //
 // What was measured (device time on an H100, chip_smoke.py's step shard,
 // 494 rows x 2^16 samples, and its copy whose row 300 holds 10^5 photons
-// spread over the shard's events; PERF.md has the calls): a warp a tile
-// scanning the row alone took the copy to 1.29 ms (782 steps a warp, the
-// gains read after each hit); a warp that owns several tiles lost on both
-// shards; a row-range skip would spare 15 % of the shard's tiles and none
-// of the copy's.  With the scan shared, the copy's time is that of its
-// busiest tile, 4,727 hits in series in one warp (each sample's adds keep
-// the row order), plus its 196 chunks; a burst, 10^5 photons of one row in
-// a few hundred samples, is 10^5 hits in series.
+// spread over the shard's events; PERF.md has the calls): warps of 2,048
+// or 4,096 samples lost on both; a row-range skip would spare 15 % of the
+// shard's tiles and none of the copy's; a block of four tiles scanning the
+// row once into hit lists in shared memory took the copy from 1.29 to
+// 0.38 ms but the shard from 0.056 to 0.062 ms (registers and 33 KB of
+// shared memory a block).  The step's rows hold ~200 photons each; the
+// 10^5-photon row is a stress case that no workload of the repo makes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -251,6 +246,56 @@ __device__ __forceinline__ int stray_negative_times(const int* t,
   return bad;
 }
 
+// The taps of the photons of `todo` (lane j holds photon j's s = t / dt,
+// r = t - s * dt and gain g) added into the tile of samples [lo, hi),
+// photon by photon in lane order.  Lane l adds the taps that land on
+// samples u = lo + l mod 32, so each sample sees its photons in that order
+// by the lane's program order; with TL <= 32 a step forms the products of
+// kPerStep photons, then adds them in order.
+template <int TL>
+__device__ __forceinline__ void add_taps(float* tile, unsigned todo, int s,
+                                         int r, float g, int lo, int hi,
+                                         const float* tmpl, int tlen,
+                                         int lane) {
+  if constexpr (TL > 0 && TL <= 32) {
+    while (todo) {                  // one tap a lane at most
+      int ux[kPerStep];
+      float qx[kPerStep];
+      bool ok[kPerStep];
+#pragma unroll
+      for (int m = 0; m < kPerStep; ++m) {
+        const bool have = todo != 0;
+        const int j = have ? __ffs(todo) - 1 : 0;
+        if (have) todo &= todo - 1;
+        const int sj = __shfl_sync(kAll, s, j);
+        const int rj = __shfl_sync(kAll, r, j);
+        const float gj = __shfl_sync(kAll, g, j);
+        const int k = (lo + lane - sj) & 31;
+        ux[m] = sj + k - lo;
+        ok[m] = have && k < TL && ux[m] >= 0 && sj + k < hi;
+        qx[m] = ok[m] ? __fmul_rn(gj, tmpl[rj * TL + k]) : 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < kPerStep; ++m)
+        if (ok[m]) tile[ux[m]] = __fadd_rn(tile[ux[m]], qx[m]);
+    }
+  } else {
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int sj = __shfl_sync(kAll, s, j);
+      const int rj = __shfl_sync(kAll, r, j);
+      const float gj = __shfl_sync(kAll, g, j);
+      for (int k = (lo + lane - sj) & 31; k < tlen; k += 32) {
+        const int u = sj + k;
+        if (u >= lo && u < hi)
+          tile[u - lo] = __fadd_rn(tile[u - lo],
+                                   __fmul_rn(gj, tmpl[rj * tlen + k]));
+      }
+    }
+  }
+}
+
 // A warp a tile of kSpan samples of a row (see the file header); warps
 // past the rows' tiles (full grid) zero the gap rows, n_zero a window, the
 // sum row skipped (the follow-on launch writes it).
@@ -348,47 +393,8 @@ __global__ void __launch_bounds__(kWarps * 32)
           hit = s + tlen > lo && s < hi;
         }
       }
-      // lane l adds the taps that land on samples u = lo + l mod 32, so
-      // each sample sees its photons in row order; a step forms the
-      // products of kPerStep photons, then adds them in order
-      unsigned todo = __ballot_sync(kAll, hit);
-      if constexpr (TL > 0 && TL <= 32) {
-        while (todo) {                  // one tap a lane at most
-          int ux[kPerStep];
-          float qx[kPerStep];
-          bool ok[kPerStep];
-#pragma unroll
-          for (int m = 0; m < kPerStep; ++m) {
-            const bool have = todo != 0;
-            const int j = have ? __ffs(todo) - 1 : 0;
-            if (have) todo &= todo - 1;
-            const int sj = __shfl_sync(kAll, s, j);
-            const int rj = __shfl_sync(kAll, r, j);
-            const float gj = __shfl_sync(kAll, g, j);
-            const int k = (lo + lane - sj) & 31;
-            ux[m] = sj + k - lo;
-            ok[m] = have && k < TL && ux[m] >= 0 && sj + k < hi;
-            qx[m] = ok[m] ? __fmul_rn(gj, tmpl[rj * TL + k]) : 0.0f;
-          }
-#pragma unroll
-          for (int m = 0; m < kPerStep; ++m)
-            if (ok[m]) tile[ux[m]] = __fadd_rn(tile[ux[m]], qx[m]);
-        }
-      } else {
-        while (todo) {
-          const int j = __ffs(todo) - 1;
-          todo &= todo - 1;
-          const int sj = __shfl_sync(kAll, s, j);
-          const int rj = __shfl_sync(kAll, r, j);
-          const float gj = __shfl_sync(kAll, g, j);
-          for (int k = (lo + lane - sj) & 31; k < tlen; k += 32) {
-            const int u = sj + k;
-            if (u >= lo && u < hi)
-              tile[u - lo] = __fadd_rn(tile[u - lo],
-                                       __fmul_rn(gj, tmpl[rj * tlen + k]));
-          }
-        }
-      }
+      add_taps<TL>(tile, __ballot_sync(kAll, hit), s, r, g, lo, hi, tmpl,
+                   tlen, lane);
     }
     __syncwarp();
   }
@@ -505,7 +511,7 @@ struct BlockArgs {
   int dt, tlen;
   float c2a;
   int n_ch, ch_block, n_top, n_tpc;
-  int n_grp;                  // blocks a row: kWarps tiles each
+  int n_seg;                  // kSpan-sample tiles a row
   int* adc;                   // (n_rows, n_samples)
   int* sums;                  // (B, n_samples)
   int* status;
@@ -517,185 +523,98 @@ __device__ __forceinline__ int row_origin32(const int* row) {
   return -static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
 }
 
-constexpr int kScan = 4;                        // photons a lane a chunk
-constexpr int kChunk = kWarps * 32 * kScan;     // photons a block a chunk
-constexpr int kGroup = 4;                       // hits a step of the adds
+constexpr int kScan = 4;              // photons a lane loads a scan step
 
-// A block the kWarps consecutive tiles of kSpan samples of a row, a warp
-// each (see the file header): the shared scan, the taps, the int32
-// epilogue and the sum row.
+// A warp a tile of kSpan samples of a row of the channel block (see the
+// file header): the scan, the taps, the int32 epilogue and the sum row.
 template <int DT, int TL>
 __global__ void __launch_bounds__(kWarps * 32)
     superpose_block_kernel(const BlockArgs a) {
   extern __shared__ float tmpl[];
   __shared__ __align__(16) float tiles[kWarps * kSpan];
-  __shared__ int2 lists[kWarps * kChunk];       // (t, gain bits) a hit
-  __shared__ int counts[kWarps * kWarps];       // [tile][warp] of a chunk
   const int dt = DT > 0 ? DT : a.dt;
   const int tlen = TL > 0 ? TL : a.tlen;
   load_templates(tmpl, a.templates, dt * tlen);
 
   const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int row = static_cast<int>(blockIdx.x / a.n_grp);
-  const int grp = static_cast<int>(blockIdx.x - row * a.n_grp);
-  if (row >= a.n_rows) return;                  // the same in every warp
+  float* tile = tiles + (threadIdx.x >> 5) * kSpan;
+  float4* tile4 = reinterpret_cast<float4*>(tile);
+  const long long gw = static_cast<long long>(blockIdx.x) * kWarps +
+                       (threadIdx.x >> 5);
+  if (gw >= static_cast<long long>(a.n_rows) * a.n_seg) return;
+  const int row = static_cast<int>(gw / a.n_seg);
+  const int seg = static_cast<int>(gw - static_cast<long long>(row) * a.n_seg);
   const int T = a.n_samples;
   int* out_row = a.adc + static_cast<long long>(row) * T;
-  // the block's tiles [lo0 + k kSpan, ...), lo0 on a 16-byte boundary of
-  // out_row; this warp's tile [lo, hi) (empty where lo >= T)
-  const int lo0 = row_origin32(out_row) + grp * (kWarps * kSpan);
-  const int lo = lo0 + w * kSpan;
-  const int hi = max(lo, min(lo + kSpan, T));
-  float* tile = tiles + w * kSpan;
-  float4* tile4 = reinterpret_cast<float4*>(tile);
+  // the tile's samples [lo, hi), lo on a 16-byte boundary of out_row
+  const int lo = row_origin32(out_row) + seg * kSpan;
+  if (lo >= T) return;                 // a row that starts on a boundary
+  const int hi = min(lo + kSpan, T);
   const int b = row / a.n_ch;
   const int ch = a.ch_block + (row - b * a.n_ch);
   int* sum_row = ch >= a.n_top && ch < a.n_tpc
       ? a.sums + static_cast<long long>(b) * T : nullptr;
   const int p0 = a.row_ptr[row];
   const int p1 = a.row_ptr[row + 1];
-  int bad = blockIdx.x == 0 && w == 0
-      ? stray_negative_times(a.t, a.row_ptr, a.n_rows, a.n_photons, lane)
-      : 0;
+  int bad = gw == 0 ? stray_negative_times(a.t, a.row_ptr, a.n_rows,
+                                           a.n_photons, lane)
+                    : 0;
 
-  // The scan, in chunks of kChunk photons (the same count in every warp):
-  // warp w tests photons base + 128 w + 32 q + lane against each of the
-  // block's tiles (the next chunk's times and gains loaded before this
-  // chunk's tests), the block counts each tile's hits a warp, and each
-  // warp writes its hits into the tiles' lists at the warps' prefix, so a
-  // list holds its tile's hits in row order; then each warp adds its own
-  // list's taps.  A row is scanned once per kWarps tiles, its scan shared
-  // by the block.  Two syncs a chunk: the next chunk's counts are written
-  // only after every warp has passed this chunk's second sync, by which
-  // each has read the counts it needs.
+  // the scan: kScan * 32 photons a step, lane l holding photons base + l +
+  // 32 q (row order is q, then lane), the next step's times loaded before
+  // this step's tests; the tile is zeroed at its first hit and the gains
+  // are read only by lanes with a hit
   bool any = false;
   int t_next[kScan];
-  float g_next[kScan];
 #pragma unroll
   for (int q = 0; q < kScan; ++q) {
-    const int p = p0 + 32 * (kScan * w + q) + lane;
+    const int p = p0 + 32 * q + lane;
     t_next[q] = p < p1 ? __ldg(a.t + p) : 0;
-    g_next[q] = p < p1 ? __ldg(a.gain + p) : 0.0f;
   }
-  for (int base = p0; base < p1; base += kChunk) {
-    int tq[kScan];
-    float gq[kScan];
-    unsigned hits[kScan][kWarps];
+  for (int base = p0; base < p1; base += 32 * kScan) {
+    int s[kScan], r[kScan];
+    unsigned hits[kScan];
+    unsigned all = 0;
 #pragma unroll
     for (int q = 0; q < kScan; ++q) {
-      const int p = base + 32 * (kScan * w + q) + lane;
-      tq[q] = t_next[q];
-      gq[q] = g_next[q];
-      const int pn = p + kChunk;
+      const int p = base + 32 * q + lane;
+      const int tt = t_next[q];
+      const int pn = p + 32 * kScan;
       t_next[q] = pn < p1 ? __ldg(a.t + pn) : 0;
-      g_next[q] = pn < p1 ? __ldg(a.gain + pn) : 0.0f;
-      int s = 0;
-      const bool in = p < p1 && tq[q] >= 0;
-      if (p < p1 && tq[q] < 0) bad |= kNegativeTime;
-      if (in) s = tq[q] / dt;
-#pragma unroll
-      for (int k = 0; k < kWarps; ++k) {
-        const int lk = lo0 + k * kSpan;
-        const int hk = min(lk + kSpan, T);
-        hits[q][k] = __ballot_sync(kAll, in && lk < T && s + tlen > lk &&
-                                             s < hk);
+      s[q] = 0;
+      r[q] = 0;
+      bool hit = false;
+      if (p < p1) {
+        if (tt < 0) {
+          bad |= kNegativeTime;
+        } else {
+          s[q] = tt / dt;
+          r[q] = tt - s[q] * dt;
+          hit = s[q] + tlen > lo && s[q] < hi;
+        }
       }
+      hits[q] = __ballot_sync(kAll, hit);
+      all |= hits[q];
     }
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      int c = 0;
-#pragma unroll
-      for (int q = 0; q < kScan; ++q) c += __popc(hits[q][k]);
-      if (lane == k) counts[k * kWarps + w] = c;
-    }
-    __syncthreads();
-    int n_mine = 0;
-    const unsigned below = (1u << lane) - 1;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      int at = 0;                                // this warp's prefix
-      for (int v = 0; v < kWarps; ++v) {
-        const int c = counts[k * kWarps + v];
-        if (v < w) at += c;
-        if (k == w) n_mine += c;
-      }
-      int2* list = lists + k * kChunk;
-#pragma unroll
-      for (int q = 0; q < kScan; ++q) {
-        if (hits[q][k] >> lane & 1)
-          list[at + __popc(hits[q][k] & below)] =
-              make_int2(tq[q], __float_as_int(gq[q]));
-        at += __popc(hits[q][k]);
-      }
-    }
-    __syncthreads();
-    if (n_mine == 0) continue;                   // the same in every lane
+    if (all == 0) continue;            // the same in every lane
     if (!any) {
       for (int i = lane; i < kSpan / 4; i += 32)
         tile4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       __syncwarp();
       any = true;
     }
-    // the list in row order, kGroup entries a step, each read by every
-    // lane at once (a broadcast); lane l adds the taps that land on
-    // samples u = lo + l mod 32.  A step's products and tile values are
-    // loaded first, then the adds chained in row order in registers: where
-    // two entries of a step land on the same sample of a lane, the later
-    // one adds to the earlier one's sum, and the stores go out in order,
-    // so the last store of a sample holds its sum.  Each sample sees its
-    // hits in row order, one shared-memory round trip a step.
-    const int2* list = lists + w * kChunk;
-    if constexpr (TL > 0 && TL <= 32) {
-      for (int i = 0; i < n_mine; i += kGroup) {
-        int ux[kGroup];
-        float qx[kGroup], v[kGroup];
-        bool ok[kGroup];
 #pragma unroll
-        for (int m = 0; m < kGroup; ++m) {
-          const bool have = i + m < n_mine;
-          const int2 e = list[have ? i + m : i];
-          const int sj = e.x / dt;
-          const int rj = e.x - sj * dt;
-          const int k = (lo + lane - sj) & 31;
-          ux[m] = sj + k - lo;
-          ok[m] = have && k < TL && ux[m] >= 0 && sj + k < hi;
-          qx[m] = ok[m] ? __fmul_rn(__int_as_float(e.y), tmpl[rj * TL + k])
-                        : 0.0f;
-        }
-#pragma unroll
-        for (int m = 0; m < kGroup; ++m) v[m] = ok[m] ? tile[ux[m]] : 0.0f;
-#pragma unroll
-        for (int m = 0; m < kGroup; ++m) {
-          float sum = v[m];
-#pragma unroll
-          for (int e = 0; e < m; ++e)
-            if (ok[e] && ux[e] == ux[m]) sum = v[e];
-          if (ok[m]) v[m] = __fadd_rn(sum, qx[m]);
-        }
-#pragma unroll
-        for (int m = 0; m < kGroup; ++m)
-          if (ok[m]) tile[ux[m]] = v[m];
-      }
-    } else {
-      for (int i = 0; i < n_mine; ++i) {
-        const int2 e = list[i];
-        const int sj = e.x / dt;
-        const int rj = e.x - sj * dt;
-        const float gj = __int_as_float(e.y);
-        for (int k = (lo + lane - sj) & 31; k < tlen; k += 32) {
-          const int u = sj + k;
-          if (u >= lo && u < hi)
-            tile[u - lo] = __fadd_rn(tile[u - lo],
-                                     __fmul_rn(gj, tmpl[rj * tlen + k]));
-        }
-      }
+    for (int q = 0; q < kScan; ++q) {
+      if (hits[q] == 0) continue;
+      const int p = base + 32 * q + lane;
+      const float g = hits[q] >> lane & 1 ? __ldg(a.gain + p) : 0.0f;
+      add_taps<TL>(tile, hits[q], s[q], r[q], g, lo, hi, tmpl, tlen, lane);
     }
   }
   if (any) __syncwarp();
 
   // the epilogue: four samples a lane a step, a warp's 512 bytes
-  // contiguous; a tile without a hit stores zeros without reading the tile
+  // contiguous; an all-zero tile stores zeros without reading the tile
   for (int i = lane; 4 * i < hi - lo; i += 32) {
     const int u0 = lo + 4 * i;
     int v[4] = {0, 0, 0, 0};
@@ -882,13 +801,13 @@ extern "C" int wfsim_superpose_block(
   // a row's tiles from its origin (up to 3 samples before its start)
   const bool aligned = n_samples % 4 == 0 &&
                        (reinterpret_cast<uintptr_t>(adc) & 15) == 0;
-  const int n_seg = (n_samples + (aligned ? 0 : 3) + kSpan - 1) / kSpan;
-  a.n_grp = (n_seg + kWarps - 1) / kWarps;
+  a.n_seg = (n_samples + (aligned ? 0 : 3) + kSpan - 1) / kSpan;
   a.adc = static_cast<int*>(adc);
   const long long n_sum = static_cast<long long>(n_rows / n_ch) * n_samples;
   a.sums = static_cast<int*>(sums);
   a.status = a.sums + n_sum;
-  const long long blocks = static_cast<long long>(n_rows) * a.n_grp;
+  const long long blocks =
+      (static_cast<long long>(n_rows) * a.n_seg + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(

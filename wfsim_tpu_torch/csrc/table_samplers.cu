@@ -634,7 +634,9 @@ constexpr int kGarfieldSteps = 4;   // tiles of 4,096 photons
 // (tiles.cuh), their rows computed by the block (a lane an instruction
 // where at most kRegEdges edges lie inside the tile, else by each thread
 // as its instruction changes), the table staged in shared memory, cols
-// read and t written four photons a thread with 16-byte vectors.
+// read and t written four photons a thread with 16-byte vectors.  Rows
+// computed by each thread alone were measured 1.3x slower on an H100 (the
+// lanes' 11-row loops then run in every thread before its first gather).
 __global__ void __launch_bounds__(tiles::kThreads)
     garfield_times_kernel(GarfieldIn in, int* __restrict__ t) {
   using namespace tiles;

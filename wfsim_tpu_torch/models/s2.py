@@ -553,7 +553,7 @@ _garfield_kernel = Kernel('wfsim_lumi_garfield_times',
 
 
 def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
-                        n_photons: int, avgt, tilt, pitch, confine):
+                        avgt, tilt, pitch, confine):
     """Luminescence times of the ``garfield`` model (wfsim_tpu s2.py:234
     luminescence_garfield; reference s2.py:380-409).  Per instruction, the
     distance ``d`` of the electrons from the nearest anode wire: the
@@ -567,22 +567,20 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
     :param table: (R, M) float32 times; ``x_axis`` (R,) float32 distances
     :param xy: (I, 2) float32 observed positions
     :param ph_edges: (I+1,) int64: instruction i owns photons
-        [ph_edges[i], ph_edges[i+1]), ending at ``n_photons``
-    :param cols: (n_photons,) int64 columns in [0, M)
+        [ph_edges[i], ph_edges[i+1]), ending at the photon total N
+    :param cols: (N,) int64 columns in [0, M)
     :param u_wire: (I,) float32 uniforms, given exactly when ``confine`` > 0
-    :param n_photons: the photon total, which the caller holds (the S2
-        draws' count): the wrapper reads nothing back
     :param avgt: the int mean of the table (``SimParams.garfield_avgt``)
-    :returns: (n_photons,) int32 times (ns)
+    :returns: (N,) int32 times (ns)
 
     CPU tensors run :func:`lumi_garfield_times_ref` and raise where the
-    edges do not end at ``n_photons``; CUDA tensors launch
-    ``csrc/table_samplers.cu`` (one launch, tiles of 4,096 photons a
-    block), which clamps the edges to the photons (a photon past the last
-    edge is not written)."""
+    edges do not end at N; CUDA tensors launch ``csrc/table_samplers.cu``
+    (one launch, tiles of 4,096 photons a block), which clamps the edges to
+    the photons (a photon past the last edge is not written) and reads
+    nothing back."""
     dev = table.device
     n_inst = xy.shape[0]
-    n = int(n_photons)
+    n = cols.shape[0]
     if table.dim() != 2:
         raise ValueError(f'table of shape {tuple(table.shape)}')
     R, M = table.shape
@@ -1118,8 +1116,7 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     elif const.s2_luminescence_model == 'garfield':
         lum['t_lum'] = lumi_garfield_times(
             params.garfield_t, params.garfield_x, positions, ph_edges,
-            draws['col'], draws['u_wire'], n_photons=draws['col'].shape[0],
-            avgt=params.garfield_avgt,
+            draws['col'], draws['u_wire'], avgt=params.garfield_avgt,
             tilt=const.anode_xaxis_angle, pitch=const.anode_pitch,
             confine=const.s2_garfield_confine_position)
     else:

@@ -488,10 +488,9 @@ def superpose_block(t, gain, row_ptr, templates, *, n_channels: int,
 
     CPU tensors go to :func:`superpose_block_ref`; CUDA tensors launch the
     hand-written kernel (``csrc/superpose_adc.cu``,
-    ``wfsim_superpose_block``: a block four 1,024-sample tiles of a row,
-    a warp each, the row's scan shared), bitwise equal to the twin, and
-    read one status word back (a negative photon time raises
-    ``ValueError``, as on the CPU)."""
+    ``wfsim_superpose_block``: a warp a 1,024-sample tile of a row),
+    bitwise equal to the twin, and read one status word back (a negative
+    photon time raises ``ValueError``, as on the CPU)."""
     dev = t.device
     n = t.shape[0]
     n_rows = row_ptr.shape[0] - 1
