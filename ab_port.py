@@ -4,7 +4,7 @@
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
                            pmt_truth_layouts|photon_times|step_block|
-                           garfield]]
+                           garfield|s1_delays]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -19,8 +19,8 @@ superposition entries on their three window batches, the ZLE and record
 pack on four grids, the per-PMT truth, the PMT-afterpulse generator and
 the diffused pattern on their bench and skewed batches, the luminescence
 tables and the photon summaries, the truth kernels and the gas-gap and
-S2 photon times on theirs, the step's channel block and the garfield
-times on theirs, each against its
+S2 photon times on theirs, the step's channel block, the garfield times
+and the custom and NEST S1 delays on theirs, each against its
 twin (and, where there is one, its library computation), and prints
 ``{row: {ms, device_ms, split, host_us, plain_ms, library_ms, ...}}``.
 ``--only ap_diffuse`` measures only the afterpulse generator and the
@@ -33,9 +33,12 @@ give this tree as OTHER_TREE to measure it in four processes), and
 ``--only photon_times`` only the gas-gap luminescence times and the S1,
 S2 electron and S2 photon times (``photon_times_measure``), ``--only
 step_block`` only the step's channel block on the step shard and its
-skewed and burst copies (``step_block_measure``), and ``--only garfield``
+skewed and burst copies (``step_block_measure``), ``--only garfield``
 only the garfield wire-table times on the timing_models S2 batch in both
-modes and its skewed copy (``garfield_measure``).
+modes and its skewed copy (``garfield_measure``), and ``--only
+s1_delays`` only the custom S1 delays on the timing_models S1 batch and
+the NEST S1 delays on the detector_physics one, each also on a copy whose
+instruction 100 holds 10^5 photons (``s1_delays_measure``).
 """
 import argparse
 import json
@@ -103,14 +106,14 @@ def main():
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
                                        'pmt_truth', 'pmt_truth_layouts',
                                        'photon_times', 'step_block',
-                                       'garfield'),
+                                       'garfield', 's1_delays'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
                          'K8 row-truth and K16 rows only, those two '
                          'kernels under each layout, the K13a and K9 '
-                         'rows only, the K14 rows only, or the K13c rows '
-                         'only')
+                         'rows only, the K14 rows only, the K13c rows '
+                         'only, or the K15 and K13b rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

@@ -135,6 +135,18 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     (each input read once and each output written once; the old count,
     with the segment ids the kernels no longer write, printed beside).
 
+3p. the custom S1 delays (K15) on the timing_models S1 batch (~7 k
+    photons in 512 instructions, recoils cycling ER, NR, alpha, LED) and
+    the NEST S1 delays (K13b) on the detector_physics one, each also on a
+    copy whose instruction 100 holds 10^5 photons, an alpha S1 at a few
+    MeV (S1_SKEWED; fresh draws): each bitwise against its twin, the same
+    bits on a second call, no read-back (counted, then once under
+    ``set_sync_debug_mode('error')``), ``ms``, ``device_ms`` from the
+    entry's own records, ``host_us`` over 1,000 calls, the twin's time and
+    the bound (K15: the classes, the edges, the draws of each photon's
+    class and the delays; K13b: the per-instruction inputs, the edges, u,
+    the table rows of the batch's corners and the delays).
+
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
 one batch each, with their draws made on the card:
@@ -166,9 +178,9 @@ the bench workload with ``local_field`` = 82 V/cm and ``e_dep`` = amp x
     one output and on the 30 x 30 x 494 file pattern map; the S2 batch's
     512 instruction positions on the pattern map; 1.57 M points on a
     synthetic 50 x 50 x 100 map, the optical splines' photon width; each
-    with its host time a call, then once under the sync check), the gas-gap
-    luminescence times (~1.5 M photons) and the NEST delays (~7 k S1
-    photons); max |diff| must be 0 (3l holds the diffused pattern);
+    with its host time a call, then once under the sync check) and the
+    gas-gap luminescence times (~1.5 M photons); max |diff| must be 0 (3l
+    holds the diffused pattern, 3p the NEST delays);
 4d. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
     **detector_physics_overrides(map)), device='cuda').get_arrays(inst)``,
     warm-up then timed with the launch counts reset just before; every new
@@ -204,14 +216,13 @@ wire-distance table, written from a seed into a temporary directory by
 on the bench workload with the recoil ids cycling ER, NR, alpha, LED over
 the events:
 
-3f. ``custom_delays`` on the 512-instruction S1 batch and
-    ``lumi_garfield_times`` (garfield_measure) on the 512-instruction S2
+3f. ``lumi_garfield_times`` (garfield_measure) on the 512-instruction S2
     batch (~1.57 M photons), in its wire-rotation mode and in its confine
     mode, and on a copy whose instruction 100 holds 10^6 photons
-    (GARFIELD_SKEWED), each against its twin on the card, bitwise, the
-    garfield rows also against a library computation around one gather
-    and on a second call, with no read-back; median CUDA-event times,
-    device times, host microseconds a call, the bound by bytes;
+    (GARFIELD_SKEWED), each against its twin on the card, bitwise, also
+    against a library computation around one gather and on a second call,
+    with no read-back; median CUDA-event times, device times, host
+    microseconds a call, the bound by bytes (3p holds the custom delays);
 4f. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
     **timing_models_overrides(file)), device='cuda').get_arrays(inst)``,
     warm-up then timed; every entry point of the path launched (the two
@@ -997,8 +1008,7 @@ def phase_3d(params, const, batches, dev, smi):
     """Each detector_physics kernel against its twin on the card (see the
     module docstring); returns {name: measurements} (see make_check)."""
     import torch
-    from wfsim_tpu_torch.models import s1, s2
-    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    from wfsim_tpu_torch.models import s2
     x1, _n1, d1 = batches['s1']
     x2, _n_rows, d2 = batches['s2']
     n_inst = int(x2['x'].shape[0])
@@ -1021,18 +1031,6 @@ def phase_3d(params, const, batches, dev, smi):
           lambda: (s2.lumi_gasgap_times_ref(*gg_args),), gg_args,
           ops32=n_ph * 16, ops64=n_ph * 2)
 
-    nest_args = (*s1.nest_inputs(params, const, x1),
-                 edges_from_counts(d1['n_hits']), d1['u_nest'])
-    # the table rows this batch reads: its (class, field, energy) corners
-    tbl, cls, fi0, fi1, _fw, ei0, ei1, _ew = nest_args[:8]
-    corners = torch.cat([torch.stack([cls, fi, ei], 1)
-                         for fi in (fi0, fi1) for ei in (ei0, ei1)])
-    rows = tbl[tuple(torch.unique(corners, dim=0).T)]
-    print(f'[kernels-d] nest_delays: {rows.shape[0]} table rows of '
-          f'{rows.shape[1]} quantiles read')
-    check('nest_delays', lambda: (s1.nest_delays(*nest_args),),
-          lambda: (s1.nest_delays_ref(*nest_args),),
-          nest_args[1:] + (rows,), ops32=n_s1 * 32, host=True)
     return res
 
 
@@ -1214,14 +1212,11 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
 
 def phase_timing_models(dev, smi):
     """Phases 3f, 4f and 5f (see the module docstring); returns the
-    measurements of the custom_delays and lumi_garfield_times rows (see
-    make_check) and the launch counts of the 4f run."""
-    import torch
+    measurements of the lumi_garfield_times rows (see garfield_measure)
+    and the launch counts of the 4f run."""
     from wfsim_tpu_torch.config import default_config, timing_models_overrides
     from wfsim_tpu_torch.interface import (timing_models_instructions,
                                            TIMING_MODEL_RECOILS)
-    from wfsim_tpu_torch.models import s1
-    from wfsim_tpu_torch.ops.segment import edges_from_counts
     from wfsim_tpu_torch.resources.synthetic import write_garfield_table
     tmp = tempfile.mkdtemp(prefix='wfsim_smoke_tm_')
     try:
@@ -1233,34 +1228,8 @@ def phase_timing_models(dev, smi):
         print(f'[timing] garfield table {tuple(params.garfield_t.shape)} '
               f'(liquid level of {path}), int mean {params.garfield_avgt}')
 
-        # ---- 3f. the two kernels against their twins ----------------------
-        res = {}
-        check = make_check(res, 'kernels-t', smi)
-        x1, _n1, d1 = batches['s1']
-        cls = s1.recoil_class(x1['recoil'])
-        edges = edges_from_counts(d1['n_hits'])
-        n_s1, n_i1 = int(edges[-1]), int(cls.shape[0])
-        # the draws the kernel reads: its class's only (ER: the primary
-        # uniform and a primary pair or the recombination uniform and a
-        # secondary pair; NR, alpha: a pair; LED: one uniform)
-        ph_cls = cls[torch.repeat_interleave(
-            torch.arange(n_i1, device=dev), d1['n_hits'].long())]
-        prim = d1['custom']['u_prim'] < float(
-            np.float32(const.er_primary_excimer_fraction))
-        reads = torch.where(ph_cls == 0, torch.where(prim, 3, 4),
-                            torch.where(ph_cls == 3, 1, 2))
-        c_args = (cls, edges, d1['custom'])
-        check('custom_delays',
-              lambda: (s1.custom_delays(*c_args, const=const),),
-              lambda: (s1.custom_delays_ref(*c_args, const=const),),
-              (cls, edges), ops32=n_s1 * (12 + int(np.log2(n_i1)) + 1),
-              host=True)
-        res['custom_delays']['bytes'] += 4 * int(reads.sum())
-        per_cls = [int((ph_cls == c).sum()) for c in range(4)]
-        print(f'[kernels-t] custom_delays: {n_s1} photons of {n_i1} '
-              f'instructions, per class {per_cls}')
-
-        res.update(garfield_measure(dev, smi))
+        # ---- 3f. the garfield times against their twin ------------------
+        res = garfield_measure(dev, smi)
 
         # ---- 4f. the timing_models main path --------------------------------
         out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
@@ -3218,6 +3187,169 @@ def garfield_measure(dev, smi, max_syncs=0):
     return res
 
 
+#: the skewed copies of the S1 delays' batches: instruction 100 holds 10^5
+#: photons, an alpha S1 at a few MeV (recoil id 6, e_dep 3,000 keV, past
+#: the NEST energy grid)
+S1_SKEWED = dict(inst=100, photons=100_000, recoil=6, e_dep=3000.0)
+
+
+def s1_delays_rows(dev):
+    """The rows of s1_delays_measure: {name: (wrapper, twin, args, kw,
+    bytes, ops32)} of K15 on the timing_models S1 batch (512 instructions,
+    recoils cycling ER, NR, alpha, LED) and of K13b on the
+    detector_physics one, each also on its S1_SKEWED copy (fresh draws
+    with 0 and 1 - 2^-24 among the uniforms).  bytes: what the kernel must
+    read and write (K15: the classes, the edges, the draws of each
+    photon's class and the delays; K13b: the per-instruction inputs, the
+    edges, u, the table rows the batch's corners name and the delays);
+    ops32: the arithmetic a photon (12 for K15, 32 for K13b)."""
+    import torch
+    from wfsim_tpu_torch.config import (default_config,
+                                        detector_physics_overrides,
+                                        timing_models_overrides)
+    from wfsim_tpu_torch.interface import (detector_physics_instructions,
+                                           timing_models_instructions)
+    from wfsim_tpu_torch.models import s1
+    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    from wfsim_tpu_torch.resources.synthetic import (write_garfield_table,
+                                                     write_pattern_map)
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_s1_')
+    try:
+        cfg_t = default_config(seed=1234, chunk_size=100,
+                               **timing_models_overrides(write_garfield_table(
+                                   Path(tmp) / 'garfield.npz', 1234)))
+        _p, const_t, b_t = physics_batches(
+            cfg_t, timing_models_instructions(512, 2000, 300), dev, 20261016)
+        cfg_d = default_config(seed=1234, chunk_size=100,
+                               **detector_physics_overrides(write_pattern_map(
+                                   Path(tmp) / 's2_pattern_map.json', 1234)))
+        params_d, const_d, b_d = physics_batches(
+            cfg_d, detector_physics_instructions(512, 2000, 300), dev,
+            20261016)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    k = S1_SKEWED['inst']
+
+    def skewed_edges(n_hits):
+        counts = n_hits.long().clone()
+        counts[k] = S1_SKEWED['photons']
+        return edges_from_counts(counts)
+
+    def uniforms(n):
+        u = torch.rand(n, device=dev, generator=gen)
+        u[::9973] = 0.0
+        u[5::9973] = float(np.float32(1 - 2 ** -24))
+        return u
+
+    def photon_cls(cls, edges):
+        return torch.repeat_interleave(cls, edges[1:] - edges[:-1])
+
+    rows = {}
+    x1, _n, d1 = b_t['s1']
+    cls = s1.recoil_class(x1['recoil'])
+    sk_cls = cls.clone()
+    sk_cls[k] = int(s1.recoil_class(torch.tensor([S1_SKEWED['recoil']]))[0])
+    sk_edges = skewed_edges(d1['n_hits'])
+    n_sk = int(sk_edges[-1])
+    sk_draws = {key: (torch.empty(n_sk, device=dev).exponential_(
+        1.0, generator=gen) if key.startswith('exp') else uniforms(n_sk))
+        for key in s1.CUSTOM_DRAWS}
+    sk_draws['u_reco'] = s1.reco_uniform(sk_draws['u_reco'])
+    excfrac = float(np.float32(const_t.er_primary_excimer_fraction))
+    for name, args in (
+            ('custom_delays', (cls, edges_from_counts(d1['n_hits']),
+                               d1['custom'])),
+            ('custom_delays_skewed', (sk_cls, sk_edges, sk_draws))):
+        c, edges, draws = args
+        ph = photon_cls(c, edges)
+        prim = draws['u_prim'] < excfrac
+        reads = torch.where(ph == 0, torch.where(prim, 3, 4),
+                            torch.where(ph == 3, 1, 2))
+        n = int(edges[-1])
+        rows[name] = (s1.custom_delays, s1.custom_delays_ref, args,
+                      dict(const=const_t),
+                      nbytes(c, edges) + 4 * int(reads.sum()) + 4 * n,
+                      n * 12)
+
+    x1, _n, d1 = b_d['s1']
+    sk_x = dict(x1, recoil=x1['recoil'].clone(), e_dep=x1['e_dep'].clone())
+    sk_x['recoil'][k] = S1_SKEWED['recoil']
+    sk_x['e_dep'][k] = S1_SKEWED['e_dep']
+    sk_edges = skewed_edges(d1['n_hits'])
+    for name, args in (
+            ('nest_delays', (*s1.nest_inputs(params_d, const_d, x1),
+                             edges_from_counts(d1['n_hits']), d1['u_nest'])),
+            ('nest_delays_skewed', (*s1.nest_inputs(params_d, const_d, sk_x),
+                                    sk_edges, uniforms(int(sk_edges[-1]))))):
+        # the table rows the batch reads: its (class, field, energy) corners
+        tbl, c, fi0, fi1, _fw, ei0, ei1, _ew = args[:8]
+        corners = torch.cat([torch.stack([c, fi, ei], 1)
+                             for fi in (fi0, fi1) for ei in (ei0, ei1)])
+        n_rows = int(torch.unique(corners, dim=0).shape[0])
+        n = int(args[9].shape[0])
+        rows[name] = (s1.nest_delays, s1.nest_delays_ref, args, {},
+                      nbytes(args[1:]) + n_rows * tbl.shape[-1] * 4 + 4 * n,
+                      n * 32)
+    return rows
+
+
+def s1_delays_measure(dev, smi, max_syncs=0):
+    """K15 and K13b (phase 3p) on the s1_delays_rows batches: each bitwise
+    against its twin, the same bits on a second call, its host syncs a
+    call (at most ``max_syncs``; None counts without a limit, for another
+    checkout's wrapper), ``ms``, ``device_ms`` from the entry's own records
+    (its kernel and, for a wrapper that reads back, the copy; "not
+    measured" where they do not cut into calls), ``host_us`` over 1,000
+    calls, the twin's time and the bound.  Returns {row name:
+    measurements (see make_check)}."""
+    res = {}
+    for name, (fn, twin, args, kw, n_bytes, ops) in s1_delays_rows(
+            dev).items():
+        n_i = int(args[0 if name.startswith('custom') else 1].shape[0])
+        n = int(args[1 if name.startswith('custom') else 8][-1])
+
+        def kernel(a=args, k=kw, f=fn):
+            return (f(*a, **k),)
+
+        def plain(a=args, k=kw, f=twin):
+            return (f(*a, **k),)
+        out = kernel()
+        err = compare(out, plain(), name)
+        if compare(kernel(), out, name + ' second call'):
+            raise AssertionError(f'{name}: two calls differ')
+        n_sync, where = count_syncs(kernel)
+        if max_syncs is not None and n_sync > max_syncs:
+            raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
+                                 f'than {max_syncs} ({where})')
+        if max_syncs == 0:
+            sync_free(name, kernel)
+        entry = ('custom_delays_kernel' if name.startswith('custom')
+                 else 'nest_delays_kernel')
+        dev_ms, by_name = device_ms(kernel, names=(entry, 'Memcpy DtoH'))
+        split = {}
+        for key, v in by_name.items():
+            split[key[:60]] = split.get(key[:60], 0.0) + v
+        m = res[name] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, ops32=ops, ops64=0, library_ms=None,
+            syncs=n_sync, split=split, photons=n, rows=n_i)
+        b_ms, b_by = bound(n_bytes, ops)
+        below_bound(name, dev_ms, b_ms)
+        counts = args[1 if name.startswith('custom') else 8].diff()
+        dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
+                 + str({key: round(v, 6) for key, v in split.items()}))
+        print(f'[kernels-s1] {name}: {n} photons of {n_i} instructions '
+              f'(largest {int(counts.max())}), max|diff| {err}, second call '
+              f'bitwise, read-backs {n_sync} {where}, {m["ms"]:.4f} ms, '
+              f'device {dev_s}, host {m["host_us"]:.2f} us a call, plain '
+              f'twin {m["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+              f'({smi})')
+    return res
+
+
 def per_pmt_library(params, const, ph, row_edges):
     """K16 in PyTorch around one ``index_add_``: what
     ``pulse_truth_per_pmt_ref`` does around it, the photons' six terms
@@ -3257,7 +3389,8 @@ def kernel_rows(dev, smi):
     rows (ap_diffuse_measure), the K6 and K11-summaries rows
     (lumi_summaries_measure), the K8 row-truth and K16 rows
     (pmt_truth_measure), the K13a and K9 rows (photon_times_measure), the
-    K14 rows (step_block_measure) and the K13c rows (garfield_measure)."""
+    K14 rows (step_block_measure), the K13c rows (garfield_measure) and
+    the K15 and K13b rows (s1_delays_measure)."""
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
@@ -3274,6 +3407,7 @@ def kernel_rows(dev, smi):
     res.update(photon_times_measure(dev, smi, max_syncs=None))
     res.update(step_block_measure(dev, smi, max_syncs=None))
     res.update(garfield_measure(dev, smi, max_syncs=None))
+    res.update(s1_delays_measure(dev, smi, max_syncs=None))
     return res
 
 
@@ -4169,6 +4303,9 @@ def main():
     # ---- 3o. the gas-gap luminescence times and the S2 photon times ---------
     otimes = photon_times_measure(dev, smi)
 
+    # ---- 3p. the custom and the NEST S1 delays ------------------------------
+    s1times = s1_delays_measure(dev, smi)
+
     # ---- 3c / 5c. the physics kernels and passes ---------------------------
     params_p, const_p, batches = physics_batches(cfg, inst, dev, 20261016)
     ptimes = phase_3c(params_p, const_p, batches, dev, smi)
@@ -4370,19 +4507,23 @@ def main():
             ('grid_lookup_512', 'wfsim_grid_lookup', 'grid_lookup.cu',
              'wfsim_tpu/ops/interp.py:85'),
             ('grid_lookup_photons', 'wfsim_grid_lookup', 'grid_lookup.cu',
-             'wfsim_tpu/ops/interp.py:85'),
-            ('nest_delays', 'wfsim_nest_delays', 'table_samplers.cu',
-             'wfsim_tpu/models/s1.py:108')):
+             'wfsim_tpu/ops/interp.py:85')):
         measured(name, cu, rep, [entry], launches_d, dtimes[name])
     for name, m in ttimes.items():
-        entry, rep = (('wfsim_s1_custom_delays', 'wfsim_tpu/models/s1.py:56')
-                      if name == 'custom_delays' else
-                      ('wfsim_lumi_garfield_times',
-                       'wfsim_tpu/models/s2.py:234'))
-        measured(name, 'table_samplers.cu', rep, [entry], launches_t, m)
-        if 'syncs' in m:
-            rows[-1].update(syncs=m['syncs'], split=m['split'],
-                            photons=m['photons'])
+        measured(name, 'table_samplers.cu', 'wfsim_tpu/models/s2.py:234',
+                 ['wfsim_lumi_garfield_times'], launches_t, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'],
+                        photons=m['photons'])
+    for name, m in s1times.items():
+        # the NEST rows count the detector_physics run's launches
+        entry, rep, counts = (
+            ('wfsim_nest_delays', 'wfsim_tpu/models/s1.py:108', launches_d)
+            if name.startswith('nest') else
+            ('wfsim_s1_custom_delays', 'wfsim_tpu/models/s1.py:56',
+             launches_t))
+        measured(name, 'table_samplers.cu', rep, [entry], counts, m)
+        rows[-1].update(syncs=m['syncs'], split=m['split'],
+                        photons=m['photons'])
     measured('pulse_truth_per_pmt', 'pmt_response.cu',
              'wfsim_tpu/models/pmt.py:146', ['wfsim_pmt_row_truth_per_pmt'],
              launches_p, xtimes['pulse_truth_per_pmt'])

@@ -36,6 +36,8 @@ from .test_torch_lumi_summaries_redesign import (
 from .test_torch_photon_times_redesign import (
     PHOTON_CASES, electron_args, gasgap_args, photon_args, photon_case,
     tiled_np)
+from .test_torch_s1_delays_redesign import (S1_DELAY_CASES, custom_case,
+                                            nest_case)
 from .test_torch_pmt_truth_order import (
     SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
     photon_terms, truth_case)
@@ -602,30 +604,66 @@ def test_full_grid_gather_digitize_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize('counts', [[], [0], [0, 5000, 3, 0],
-                                    [1] * 7 + [0] + [40_000] * 5])
+                                    [1] * 7 + [0] + [40_000] * 5]
+                         + list(S1_DELAY_CASES))
 def test_custom_delays_match_twin(dev, counts):
     """Every recoil class (ER 7 and 8, NR, alpha, LED), recombination
-    uniforms of 0, an empty batch and instructions without photons."""
+    uniforms of 0, an empty batch and instructions without photons; the
+    cases of tests/test_torch_s1_delays_redesign.py (the bench batch, one
+    alpha instruction of 10^5 photons, runs of empty instructions, tiles
+    of hundreds of instructions, edges on tile edges); one launch a call,
+    no read-back."""
     from wfsim_tpu_torch.models import s1
     const = build_constants(default_config(s1_model_type='custom'))
-    rng = np.random.default_rng(len(counts))
-    counts = np.asarray(counts, np.int64)
-    n = int(counts.sum())
-    recoil = np.resize(np.array([7, 0, 6, 20, 8], np.int32), len(counts))
-    draws = {k: torch.as_tensor(
-        (rng.exponential(1.0, n) if k.startswith('exp')
-         else rng.random(n)).astype(np.float32), device=dev)
-        for k in s1.CUSTOM_DRAWS}
-    draws['u_reco'][::50] = 0.0
-    cls = s1.recoil_class(torch.as_tensor(recoil, device=dev))
-    edges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
-                            device=dev)
+    if isinstance(counts, str):
+        cls, edges, draws = custom_case(counts)
+        n = int(edges[-1])
+        draws = {k: torch.as_tensor(v, device=dev) for k, v in draws.items()}
+        cls = torch.as_tensor(cls, device=dev)
+    else:
+        rng = np.random.default_rng(len(counts))
+        counts = np.asarray(counts, np.int64)
+        n = int(counts.sum())
+        recoil = np.resize(np.array([7, 0, 6, 20, 8], np.int32), len(counts))
+        draws = {k: torch.as_tensor(
+            (rng.exponential(1.0, n) if k.startswith('exp')
+             else rng.random(n)).astype(np.float32), device=dev)
+            for k in s1.CUSTOM_DRAWS}
+        draws['u_reco'][::50] = 0.0
+        cls = s1.recoil_class(torch.as_tensor(recoil, device=dev))
+        edges = np.concatenate([[0], np.cumsum(counts)])
+    edges = torch.as_tensor(edges, device=dev)
     k = _build.KERNELS['wfsim_s1_custom_delays']
     before = k.launches
-    got = s1.custom_delays(cls, edges, draws, const=const)
+    got = _sync_free(lambda: s1.custom_delays(cls, edges, draws, const=const))
     assert k.launches == before + (1 if n else 0)
     want = s1.custom_delays_ref(cls, edges, draws, const=const)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    cpu = s1.custom_delays_ref(cls.cpu(), edges.cpu(),
+                               {k: v.cpu() for k, v in draws.items()},
+                               const=const)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize('name', S1_DELAY_CASES)
+def test_nest_delays_match_twin(dev, name):
+    """wfsim_nest_delays on the cases of
+    tests/test_torch_s1_delays_redesign.py: an empty batch and one without
+    instructions, instructions with 0 photons, one alpha instruction of
+    10^5 photons past the energy grid, tiles of hundreds of instructions,
+    edges on tile edges; u of 0, 1 - 2^-24 and 1 (k1 clamped); fields and
+    energies on and past both grid ends.  Bitwise the twin on the CPU and
+    on the card, the same bits on a second call, one launch a call, no
+    read-back."""
+    from wfsim_tpu_torch.models import s1
+    cpu = [torch.as_tensor(a) for a in nest_case(name)]
+    want = s1.nest_delays_ref(*cpu)
+    card = [a.to(dev) for a in cpu]
+    assert torch.equal(s1.nest_delays_ref(*card).cpu(), want)
+    k = _build.KERNELS['wfsim_nest_delays']
+    before = k.launches
+    _twice_bitwise(lambda: _sync_free(lambda: s1.nest_delays(*card)), want)
+    assert k.launches == before + (2 if want.shape[0] else 0)
 
 
 @pytest.mark.parametrize('confine,counts', [

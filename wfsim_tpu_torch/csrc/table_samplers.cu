@@ -45,17 +45,33 @@
 // the sums, tickets and list live in a zeroed per-stream scratch that
 // every call leaves zero.
 //
-// The NEST entry point runs one block per instruction walking the
-// instruction's photons [edges[i], edges[i+1]):
-//   wfsim_nest_delays        the (class, field, energy, quantile) table read
-//                            at the 2 x 2 field/energy corners and the two
-//                            quantiles around u * (M-1), summed in the
-//                            twin's order (s1.py:124-129).
-//
-// The custom entry point runs one thread per photon, which finds its
-// instruction by a binary search of the edges:
-//   wfsim_s1_custom_delays   the delay of the instruction's recoil class
-//                            only, from the class's draws: ER the primary
+// The NEST and custom entry points are one launch each over fixed tiles of
+// 512 photons (blocks of 128 threads, four photons a thread: a bench S1
+// batch of ~7,000 photons is 14 blocks, an S1 of 10^5 photons ~200): a
+// block stages a window of the edges and what its photons need of the
+// instructions between them in shared memory, computed once a tile: every
+// edge and instruction where the batch has fewer than kDelayStage (1,024)
+// instructions, with no search, else its tile's (32-ary warp searches of
+// the edges, tiles.cuh); a warp finds its photons' instructions in the
+// window by a ballot search and the few edges inside its photons, a lane
+// each; u or the draws are read and the delays written four photons a
+// thread as 16-byte vectors; the edges are clamped to the photons and
+// nothing is read back.  Each phase's global loads are issued together.
+//   wfsim_nest_delays        a staged instruction: its four (class, field,
+//                            energy) row offsets and weight products
+//                            wf[a] * we[b] (the twin's float32 operands,
+//                            so the same bits); a photon reads the four
+//                            rows at the two quantiles around u * (M-1)
+//                            (k1 clamped to M-1), eight loads issued
+//                            together, summed in the twin's order
+//                            (s1.py:124-129): (lower, lower), (lower,
+//                            upper), (upper, lower), (upper, upper).
+//   wfsim_s1_custom_delays   a staged instruction: its recoil class; a
+//                            thread loads the draws of its photons'
+//                            classes only, together (ER: the primary
+//                            uniform, both singlet/triplet pairs and the
+//                            recombination uniform, with no second round
+//                            after u_prim): ER the primary
 //                            singlet/triplet delay where u_prim <
 //                            excfrac, else clip(reco_time * (-1 + 1/u),
 //                            0, 1000) (u clamped to >= 1e-12) plus the
@@ -98,11 +114,15 @@
 //
 // What bounds them on the H100: the uniforms they read and the times they
 // write, 8 bytes a photon (+4 for a tiled gas-gap instruction's second
-// read of u; 48 for the custom delays, which read the 11 draws of the
-// photon's class only, 2-6 of them; 12 for the garfield times, its int64
+// read of u; 8-20 for the custom delays, which need the draws of the
+// photon's class only, 1-4 of them; 12 for the garfield times, its int64
 // column and int32 time); the tables (40 KB gas-gap, 8 MB NEST, 22 KB
 // garfield) stay in L2 and the reads of one instruction hit the same few
-// rows.
+// rows.  At an S1 batch's few thousand photons the bytes take ~30 ns,
+// below what a launch costs: the S1 delays are bound by their chain of
+// dependent loads (the staged window, then the draws or the table), and
+// the NEST delays also by the L1 requests of their scattered table reads
+// (eight a photon), which tiles of 512 spread over 14 SMs on a bench batch.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default; every product
 // and sum the twin rounds separately is written with __fmul_rn /
@@ -485,49 +505,294 @@ __global__ void __launch_bounds__(tiles::kThreads, 4)
   }
 }
 
-__global__ void nest_delays_kernel(
-    const float* __restrict__ table, int F, int En, int M,
-    const long long* __restrict__ cls, const long long* __restrict__ fi0,
-    const long long* __restrict__ fi1, const float* __restrict__ fw,
-    const long long* __restrict__ ei0, const long long* __restrict__ ei1,
-    const float* __restrict__ ew, const long long* __restrict__ edges,
-    const float* __restrict__ u, float* __restrict__ out) {
-  const int i = blockIdx.x;
-  const long long lo = edges[i], hi = edges[i + 1];
-  const long long fidx[2] = {fi0[i], fi1[i]};
-  const long long eidx[2] = {ei0[i], ei1[i]};
-  const float wf[2] = {__fsub_rn(1.0f, fw[i]), fw[i]};
-  const float we[2] = {__fsub_rn(1.0f, ew[i]), ew[i]};
-  const long long c = cls[i];
-  const float scale = static_cast<float>(M - 1);
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    const float s = __fmul_rn(u[j], scale);
-    const int k0 = static_cast<int>(floorf(s));
-    const int k1 = k0 + 1 < M - 1 ? k0 + 1 : M - 1;
-    const float kw = __fsub_rn(s, static_cast<float>(k0));
-    const float omk = __fsub_rn(1.0f, kw);
-    float acc = 0.0f;
-    for (int a = 0; a < 2; ++a) {
-      for (int b = 0; b < 2; ++b) {
-        const float* row = table + ((c * F + fidx[a]) * En + eidx[b]) * M;
-        const float q = __fadd_rn(__fmul_rn(row[k0], omk),
-                                  __fmul_rn(row[k1], kw));
-        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wf[a], we[b]), q));
-      }
+// The S1 delays: blocks of 128 threads, tiles of 512 photons (four a
+// thread), so a bench S1 batch of ~7,000 photons spreads over 14 SMs and
+// an S1 of 10^5 photons over ~200 blocks.  A block stages a window of the
+// edges (int32, clamped to the photons) and what its photons need of the
+// instructions between them in shared memory, computed once a tile: every
+// edge and instruction where the batch has fewer than kDelayStage
+// instructions (the main path's S1 batches: no search), else the edges of
+// its tile's instructions s0 .. s1 found by the warps' searches of the
+// global edges.  A warp then finds its 128 photons' instructions in the
+// window itself: a 32-ary ballot search for the last edge at or before its
+// first photon, the edges inside its photons a lane each, counted for each
+// photon by shuffles (no block sync past the staging); past 31 edges
+// inside a warp's photons (runs of nearly empty instructions) a search of
+// the staged edges a photon, and past the staged edges (a tile that meets
+// more than kDelayStage) one of the global edges, the instruction then
+// computed by the photon's thread.  At these sizes the time goes to the
+// rounds of dependent loads and the block's serial steps (in-kernel clock
+// stamps on an H100), so the loads of each phase are issued together,
+// without branches between them: a conditional load behind a branch makes
+// the loads after it wait for it.
+constexpr int kDelayThreads = 128;
+constexpr long long kDelayTile = 4 * kDelayThreads;
+constexpr int kDelayStage = 1024;
+constexpr int kDelayItems = kDelayStage / kDelayThreads;
+
+// one tile of the S1 delays: its photons [a, b) and the window of edges
+// w0 .. w0 + cnt - 1, min(cnt, kDelayStage) of them staged
+struct DelayTile {
+  long long a, b;   // b = 0: the tile holds no photon of an instruction
+  long long w0, cnt;
+  int staged;
+};
+
+__device__ __forceinline__ DelayTile delay_tile(const long long* edges,
+                                                long long S, long long n) {
+  using namespace tiles;
+  DelayTile t{};
+  t.a = static_cast<long long>(blockIdx.x) * kDelayTile;
+  t.b = t.a + kDelayTile < n ? t.a + kDelayTile : n;
+  if (S < kDelayStage) {                 // every edge
+    t.cnt = S + 1;
+  } else {                               // the tile's (the same in every
+    long long c0, c1;                    // thread)
+    warp_counts(edges, S, n, t.a, t.b - 1, c0, c1);
+    const long long s0 = c0 - 1, s1 = c1 - 1;
+    if (s0 == s1 && !in_range(s0, S)) {
+      t.b = 0;
+      return t;
     }
-    out[j] = acc;
+    t.w0 = s0 > 0 ? s0 : 0;
+    t.cnt = s1 - t.w0 + 1;
+  }
+  t.staged = static_cast<int>(t.cnt < kDelayStage ? t.cnt : kDelayStage);
+  return t;
+}
+
+// the window's staged edges and instructions, sh_e[k] = e(w0 + k) and sh[k]
+// = make(w0 + k) (of instruction S - 1 past the last), every load issued
+// before any store (indices clamped, no branch); the caller syncs
+template <class T, class Make>
+__device__ __forceinline__ void stage_window(const DelayTile& t,
+                                             const long long* edges,
+                                             long long S, long long n,
+                                             int* sh_e, T* sh, Make make) {
+  int e[kDelayItems];
+  T v[kDelayItems];
+#pragma unroll
+  for (int i = 0; i < kDelayItems; ++i) {
+    const int k = threadIdx.x + kDelayThreads * i;
+    const long long s = t.w0 + (k < t.staged ? k : t.staged - 1);
+    e[i] = static_cast<int>(tiles::edge(edges, s, n));
+    v[i] = make(s < S ? s : S - 1);
+  }
+#pragma unroll
+  for (int i = 0; i < kDelayItems; ++i) {
+    const int k = threadIdx.x + kDelayThreads * i;
+    if (k < t.staged) {
+      sh_e[k] = e[i];
+      sh[k] = v[i];
+    }
   }
 }
 
-__device__ __forceinline__ int instruction_of(const long long* edges,
-                                              int n_inst, long long j) {
-  // the largest i with edges[i] <= j: edges[0] = 0 <= j < edges[n_inst]
-  int lo = 0, hi = n_inst;
-  while (hi - lo > 1) {
+// the count of staged edges at or before j, by one thread (at most 10
+// shared-memory steps)
+__device__ __forceinline__ int staged_count(const DelayTile& t,
+                                            const int* sh_e, long long j) {
+  int lo = 0, hi = t.staged;
+  while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (edges[mid] <= j) lo = mid; else hi = mid;
+    if (sh_e[mid] <= j) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// the last window edge at or before j from e(lo) <= j, past the staged
+// edges: a search of the global edges, kept out of line
+__device__ __noinline__ long long global_search(const long long* edges,
+                                                long long n, long long lo,
+                                                long long hi, long long j) {
+  while (lo < hi) {
+    const long long mid = (lo + hi + 1) >> 1;
+    if (tiles::edge(edges, mid, n) <= j) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// the instructions of the thread's photons j0 + q (w0 - 1 before the first
+// edge, S past the last) and their staged indices (clamped to the staged
+// ones); keep: the photons of an instruction; past: those whose
+// instruction is not staged
+struct PhotonIds {
+  long long id[4];
+  int idx[4];
+  unsigned keep, past;
+};
+
+// by the whole warp: the warp's 128 photons from wa = j0 - 4 lane find the
+// last staged edge at or before wa by a 32-ary ballot search, load the
+// staged edges after it a lane each, and count those inside the warp's
+// photons at or before each of theirs (a shuffle an edge)
+__device__ __forceinline__ PhotonIds photon_ids(const DelayTile& t,
+                                                const int* sh_e,
+                                                const long long* edges,
+                                                long long S, long long n,
+                                                long long j0) {
+  const int lane = threadIdx.x & 31;
+  const long long wa = j0 - 4 * lane;
+  int lo = 0, hi = t.staged;             // the count of staged edges <= wa
+  while (lo < hi) {                      // the same in every lane
+    const int step = (hi - lo + 31) >> 5;
+    const int probe = lo + (lane + 1) * step - 1;
+    const unsigned gt =
+        __ballot_sync(tiles::kFull, probe >= hi || sh_e[probe] > wa);
+    if (gt == 0) {
+      lo = hi;
+      break;
+    }
+    const int f = __ffs(gt) - 1;
+    const int top = lo + (f + 1) * step - 1;
+    lo += f * step;
+    hi = top < hi ? top : hi;
+  }
+  const int kb = lo - 1;                 // the last staged edge <= wa
+  const int kl = kb + 1 + lane;
+  const int el = kl < t.staged ? sh_e[kl] : 0x7fffffff;
+  const int m = __popc(__ballot_sync(tiles::kFull, el < wa + 4 * 32));
+  int k[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) k[q] = kb;
+  if (m < 32) {                          // the same in every lane
+    for (int i = 0; i < m; ++i) {
+      const int ei = __shfl_sync(tiles::kFull, el, i);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) k[q] += ei <= j0 + q;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) k[q] = staged_count(t, sh_e, j0 + q) - 1;
+  }
+  PhotonIds p;
+  p.keep = p.past = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    p.id[q] = t.w0 + k[q];
+    p.idx[q] = k[q] < 0 ? 0 : k[q];
+  }
+  if (t.staged < t.cnt) {                // past the staged edges
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (j0 + q < t.b && k[q] == t.staged - 1)
+        p.id[q] = global_search(edges, n, t.w0 + t.staged - 1,
+                                t.w0 + t.cnt - 1, j0 + q);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (j0 + q < t.b && tiles::in_range(p.id[q], S)) {
+      p.keep |= 1u << q;
+      if (p.id[q] - t.w0 >= t.staged) p.past |= 1u << q;
+    }
+  }
+  return p;
+}
+
+struct NestIn {
+  const float* table;       // (4, F, En, M)
+  int F, En, M;
+  const long long *cls, *fi0, *fi1, *ei0, *ei1;   // (S,)
+  const float *fw, *ew;                            // (S,)
+  const long long* edges;   // (S+1,) photon edges of the instructions
+  long long S;
+  long long n;              // photons
+  const float* u;
+  bool vec;                 // u and out 16-byte aligned
+};
+
+// one instruction's four table rows (offsets of (c, fi, ei, 0)) and their
+// weight products, in the twin's order: (field lower, energy lower),
+// (lower, upper), (upper, lower), (upper, upper)
+struct NestRows {
+  int4 row;
+  float4 w;
+};
+
+__device__ __forceinline__ NestRows nest_rows(const NestIn& in, long long i) {
+  const long long c = __ldg(in.cls + i);
+  const long long f[2] = {__ldg(in.fi0 + i), __ldg(in.fi1 + i)};
+  const long long e[2] = {__ldg(in.ei0 + i), __ldg(in.ei1 + i)};
+  const float fw = __ldg(in.fw + i), ew = __ldg(in.ew + i);
+  const float wf[2] = {__fsub_rn(1.0f, fw), fw};
+  const float we[2] = {__fsub_rn(1.0f, ew), ew};
+  int row[4];
+  float w[4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      row[2 * p + q] =
+          static_cast<int>(((c * in.F + f[p]) * in.En + e[q]) * in.M);
+      w[2 * p + q] = __fmul_rn(wf[p], we[q]);
+    }
+  }
+  return {make_int4(row[0], row[1], row[2], row[3]),
+          make_float4(w[0], w[1], w[2], w[3])};
+}
+
+// the delay of one photon at uniform u: its instruction's four rows read at
+// the two quantiles around u * (M-1) (k1 clamped to M-1), eight loads issued
+// before any sum, summed in the twin's order
+__device__ __forceinline__ float nest_delay(const NestIn& in,
+                                            const NestRows& r, float u,
+                                            float scale) {
+  const float s = __fmul_rn(u, scale);
+  const int k0 = static_cast<int>(floorf(s));
+  const int k1 = k0 + 1 < in.M - 1 ? k0 + 1 : in.M - 1;
+  const float kw = __fsub_rn(s, static_cast<float>(k0));
+  const float omk = __fsub_rn(1.0f, kw);
+  const int row[4] = {r.row.x, r.row.y, r.row.z, r.row.w};
+  const float w[4] = {r.w.x, r.w.y, r.w.z, r.w.w};
+  float lo[4], hi[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    lo[c] = __ldg(in.table + row[c] + k0);
+    hi[c] = __ldg(in.table + row[c] + k1);
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float q = __fadd_rn(__fmul_rn(lo[c], omk), __fmul_rn(hi[c], kw));
+    acc = __fadd_rn(acc, __fmul_rn(w[c], q));
+  }
+  return acc;
+}
+
+// A block a tile of 512 photons (see delay_tile): the window and its
+// instructions' rows and weights staged with u (16-byte vectors), each
+// warp's photons' instructions found, then every photon's eight table
+// loads issued together (a photon of no instruction reads row 0) and the
+// delays written as 16-byte vectors.
+__global__ void __launch_bounds__(kDelayThreads)
+    nest_delays_kernel(NestIn in, float* __restrict__ out) {
+  __shared__ int sh_e[kDelayStage];
+  __shared__ NestRows rows_sh[kDelayStage];
+  const DelayTile t = delay_tile(in.edges, in.S, in.n);
+  if (t.b == 0) return;                  // the whole block
+  stage_window(t, in.edges, in.S, in.n, sh_e, rows_sh,
+               [&](long long s) { return nest_rows(in, s); });
+  const long long j0 = t.a + 4 * threadIdx.x;
+  const float4 u4 = tiles::load4f(in.u, j0, t.b, in.vec);
+  __syncthreads();
+  const PhotonIds p = photon_ids(t, sh_e, in.edges, in.S, in.n, j0);
+  NestRows r[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    r[q] = rows_sh[p.idx[q]];
+    if (!(p.keep >> q & 1)) r[q] = NestRows{};
+  }
+  if (p.past) {                          // not staged: by this thread
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (p.past >> q & 1) r[q] = nest_rows(in, p.id[q]);
+  }
+  const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+  const float scale = static_cast<float>(in.M - 1);
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = nest_delay(in, r[q], u[q], scale);
+  tiles::store4(out, j0, v, p.keep, in.vec);
 }
 
 __device__ __forceinline__ float singlet_triplet(float u, float e,
@@ -537,44 +802,112 @@ __device__ __forceinline__ float singlet_triplet(float u, float e,
       static_cast<int>(__fmul_rn(e, u < frac ? t1 : t3)));
 }
 
-struct CustomDraws {
-  const float *u_prim, *u_st_prim, *exp_st_prim, *u_reco, *u_st_sec,
-      *exp_st_sec, *u_nr, *exp_nr, *u_alpha, *exp_alpha, *u_led;
+// the custom model's draws, in CUSTOM_DRAWS order (models/s1.py)
+enum CustomDraw {
+  kUPrim, kUStPrim, kExpStPrim, kUReco, kUStSec, kExpStSec, kUNr, kExpNr,
+  kUAlpha, kExpAlpha, kULed, kCustomDraws
 };
 
-struct CustomConsts {
+struct CustomIn {
+  const long long* cls;     // (S,) recoil class
+  const long long* edges;   // (S+1,) photon edges of the instructions
+  long long S;
+  long long n;              // photons
+  const float* d[kCustomDraws];
   float excfrac, reco_time, f_prim, f_sec, f_nr, f_alpha, t1, t3, led;
+  bool vec;                 // every draw and out 16-byte aligned
 };
 
-__global__ void custom_delays_kernel(const long long* __restrict__ cls,
-                                     const long long* __restrict__ edges,
-                                     int n_inst, int n, CustomDraws d,
-                                     CustomConsts k,
-                                     float* __restrict__ out) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += gridDim.x * blockDim.x) {
-    const long long c = cls[instruction_of(edges, n_inst, j)];
-    float v;
-    if (c == 1) {
-      v = singlet_triplet(d.u_nr[j], d.exp_nr[j], k.f_nr, k.t1, k.t3);
-    } else if (c == 2) {
-      v = singlet_triplet(d.u_alpha[j], d.exp_alpha[j], k.f_alpha, k.t1,
-                          k.t3);
-    } else if (c == 3) {
-      v = __fmul_rn(d.u_led[j], k.led);
-    } else if (d.u_prim[j] < k.excfrac) {
-      v = singlet_triplet(d.u_st_prim[j], d.exp_st_prim[j], k.f_prim, k.t1,
-                          k.t3);
-    } else {
-      const float u = fmaxf(d.u_reco[j], 1e-12f);
-      float reco = __fmul_rn(k.reco_time,
-                             __fadd_rn(-1.0f, __fdiv_rn(1.0f, u)));
-      reco = fminf(fmaxf(reco, 0.0f), 1000.0f);
-      v = __fadd_rn(reco, singlet_triplet(d.u_st_sec[j], d.exp_st_sec[j],
-                                          k.f_sec, k.t1, k.t3));
-    }
-    out[j] = v;
+// the draws the delay of class c reads, a bit each: NR and alpha their
+// pair, LED its uniform, ER (0, or any other class, as the twin's where
+// selects) the primary uniform with both pairs and the recombination
+// uniform, loaded together (no second round after u_prim)
+__device__ __forceinline__ unsigned draws_of(int c) {
+  return c == 1   ? (1u << kUNr) | (1u << kExpNr)
+         : c == 2 ? (1u << kUAlpha) | (1u << kExpAlpha)
+         : c == 3 ? 1u << kULed
+                  : (1u << kUPrim) | (1u << kUStPrim) | (1u << kExpStPrim) |
+                        (1u << kUReco) | (1u << kUStSec) | (1u << kExpStSec);
+}
+
+// the delay of a photon of class c from its draws x: every class's delay
+// computed (a draw not loaded is 0) and one selected, as the twin's where
+// selects, so a warp of mixed classes runs no branches
+__device__ __forceinline__ float custom_delay(const CustomIn& k, int c,
+                                              const float (&x)[kCustomDraws]) {
+  const float nr = singlet_triplet(x[kUNr], x[kExpNr], k.f_nr, k.t1, k.t3);
+  const float alpha =
+      singlet_triplet(x[kUAlpha], x[kExpAlpha], k.f_alpha, k.t1, k.t3);
+  const float led = __fmul_rn(x[kULed], k.led);
+  const float prim =
+      singlet_triplet(x[kUStPrim], x[kExpStPrim], k.f_prim, k.t1, k.t3);
+  const float u = fmaxf(x[kUReco], 1e-12f);
+  float reco = __fmul_rn(k.reco_time, __fadd_rn(-1.0f, __fdiv_rn(1.0f, u)));
+  reco = fminf(fmaxf(reco, 0.0f), 1000.0f);
+  const float sec = __fadd_rn(
+      reco, singlet_triplet(x[kUStSec], x[kExpStSec], k.f_sec, k.t1, k.t3));
+  const float er = x[kUPrim] < k.excfrac ? prim : sec;
+  return c == 1 ? nr : c == 2 ? alpha : c == 3 ? led : er;
+}
+
+// A block a tile of 512 photons (see delay_tile): the window and its
+// instructions' classes staged, each warp's photons' instructions found,
+// then the draws the thread's four photons' classes read, as 16-byte
+// vectors issued together (each a predicated load), and the delays
+// written as one.
+__global__ void __launch_bounds__(kDelayThreads)
+    custom_delays_kernel(CustomIn in, float* __restrict__ out) {
+  __shared__ int sh_e[kDelayStage];
+  __shared__ int cls_sh[kDelayStage];
+  const DelayTile t = delay_tile(in.edges, in.S, in.n);
+  if (t.b == 0) return;                  // the whole block
+  stage_window(t, in.edges, in.S, in.n, sh_e, cls_sh, [&](long long s) {
+    return static_cast<int>(__ldg(in.cls + s));
+  });
+  __syncthreads();
+  const long long j0 = t.a + 4 * threadIdx.x;
+  const PhotonIds p = photon_ids(t, sh_e, in.edges, in.S, in.n, j0);
+  int c[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = cls_sh[p.idx[q]];
+  if (p.past) {                          // not staged: by this thread
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (p.past >> q & 1) c[q] = static_cast<int>(__ldg(in.cls + p.id[q]));
   }
+  unsigned need = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (p.keep >> q & 1) need |= draws_of(c[q]);
+  float x[kCustomDraws][4];
+  if (in.vec && j0 + 3 < t.b) {
+#pragma unroll
+    for (int g = 0; g < kCustomDraws; ++g) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (need >> g & 1)
+        v = __ldg(reinterpret_cast<const float4*>(in.d[g] + j0));
+      x[g][0] = v.x, x[g][1] = v.y, x[g][2] = v.z, x[g][3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < kCustomDraws; ++g) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        x[g][q] = 0.0f;
+        if ((need >> g & 1) && j0 + q < t.b)
+          x[g][q] = __ldg(in.d[g] + j0 + q);
+      }
+    }
+  }
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float xq[kCustomDraws];
+#pragma unroll
+    for (int g = 0; g < kCustomDraws; ++g) xq[g] = x[g][q];
+    v[q] = custom_delay(in, c[q], xq);
+  }
+  tiles::store4(out, j0, v, p.keep, in.vec);
 }
 
 struct GarfieldIn {
@@ -709,9 +1042,9 @@ __global__ void __launch_bounds__(tiles::kThreads)
   }
 }
 
-int grid_for(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 132 * 32 ? blocks : 132 * 32);
+// the blocks of the S1 delays: a tile of 512 photons each
+unsigned delay_grid(long long n) {
+  return static_cast<unsigned>((n + kDelayTile - 1) / kDelayTile);
 }
 
 }  // namespace
@@ -756,26 +1089,43 @@ extern "C" int wfsim_lumi_gasgap_times(const void* inv, int G, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n photons of n_inst instructions in tiles of 512; out (n,) float32,
+// each photon below the clamped last edge written
 extern "C" int wfsim_nest_delays(const void* table, int n_cls, int F, int En,
                                  int M, const void* cls, const void* fi0,
                                  const void* fi1, const void* fw,
                                  const void* ei0, const void* ei1,
                                  const void* ew, int n_inst,
-                                 const void* edges, const void* u, void* out,
-                                 void* stream) {
-  if (n_inst <= 0 || n_cls < 1 || F < 2 || En < 2 || M < 2)
+                                 const void* edges, const void* u, int n,
+                                 void* out, void* stream) {
+  if (n_inst <= 0 || n < 0 || n_cls < 1 || F < 2 || En < 2 || M < 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  nest_delays_kernel<<<n_inst, kThreads, 0,
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  NestIn in;
+  in.table = static_cast<const float*>(table);
+  in.F = F;
+  in.En = En;
+  in.M = M;
+  in.cls = static_cast<const long long*>(cls);
+  in.fi0 = static_cast<const long long*>(fi0);
+  in.fi1 = static_cast<const long long*>(fi1);
+  in.ei0 = static_cast<const long long*>(ei0);
+  in.ei1 = static_cast<const long long*>(ei1);
+  in.fw = static_cast<const float*>(fw);
+  in.ew = static_cast<const float*>(ew);
+  in.edges = static_cast<const long long*>(edges);
+  in.S = n_inst;
+  in.n = n;
+  in.u = static_cast<const float*>(u);
+  in.vec = tiles::aligned16(u) && tiles::aligned16(out);
+  nest_delays_kernel<<<delay_grid(n), kDelayThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), F, En, M,
-      static_cast<const long long*>(cls), static_cast<const long long*>(fi0),
-      static_cast<const long long*>(fi1), static_cast<const float*>(fw),
-      static_cast<const long long*>(ei0), static_cast<const long long*>(ei1),
-      static_cast<const float*>(ew), static_cast<const long long*>(edges),
-      static_cast<const float*>(u), static_cast<float*>(out));
+      in, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// n photons (the draws' length) of n_inst instructions in tiles of 512;
+// out (n,) float32, each photon below the clamped last edge written
 extern "C" int wfsim_s1_custom_delays(
     const void* cls, const void* edges, int n_inst, int n,
     const void* u_prim, const void* u_st_prim, const void* exp_st_prim,
@@ -784,21 +1134,33 @@ extern "C" int wfsim_s1_custom_delays(
     const void* exp_alpha, const void* u_led, float excfrac,
     float reco_time, float f_prim, float f_sec, float f_nr, float f_alpha,
     float t1, float t3, float led, void* out, void* stream) {
-  if (n_inst <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const CustomDraws d{
-      static_cast<const float*>(u_prim), static_cast<const float*>(u_st_prim),
-      static_cast<const float*>(exp_st_prim),
-      static_cast<const float*>(u_reco), static_cast<const float*>(u_st_sec),
-      static_cast<const float*>(exp_st_sec), static_cast<const float*>(u_nr),
-      static_cast<const float*>(exp_nr), static_cast<const float*>(u_alpha),
-      static_cast<const float*>(exp_alpha), static_cast<const float*>(u_led)};
-  const CustomConsts k{excfrac, reco_time, f_prim, f_sec, f_nr, f_alpha,
-                       t1, t3, led};
-  custom_delays_kernel<<<grid_for(n), kThreads, 0,
+  if (n_inst <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const void* draws[kCustomDraws] = {u_prim, u_st_prim, exp_st_prim, u_reco,
+                                     u_st_sec, exp_st_sec, u_nr, exp_nr,
+                                     u_alpha, exp_alpha, u_led};
+  CustomIn in;
+  in.cls = static_cast<const long long*>(cls);
+  in.edges = static_cast<const long long*>(edges);
+  in.S = n_inst;
+  in.n = n;
+  in.vec = tiles::aligned16(out);
+  for (int k = 0; k < kCustomDraws; ++k) {
+    in.d[k] = static_cast<const float*>(draws[k]);
+    in.vec = in.vec && tiles::aligned16(draws[k]);
+  }
+  in.excfrac = excfrac;
+  in.reco_time = reco_time;
+  in.f_prim = f_prim;
+  in.f_sec = f_sec;
+  in.f_nr = f_nr;
+  in.f_alpha = f_alpha;
+  in.t1 = t1;
+  in.t3 = t3;
+  in.led = led;
+  custom_delays_kernel<<<delay_grid(n), kDelayThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(cls),
-      static_cast<const long long*>(edges), n_inst, n, d, k,
-      static_cast<float*>(out));
+      in, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 // tile.
 //
 // Used by the flat kernels of photon_times.cu (the S2 electron and photon
-// times) and the garfield times of table_samplers.cu; the truth kernels of
+// times) and the garfield times, NEST delays and custom S1 delays of
+// table_samplers.cu; the truth kernels of
 // pmt_response.cu take its search and its ticket, the gas-gap sampler of
 // table_samplers.cu its loads, stores and ticket.  A batch
 // of n elements is cut into S segments by an edge array: segment s owns the
@@ -244,6 +245,18 @@ __device__ __forceinline__ void store4(int* x, long long j0, const int (&v)[4],
                                        unsigned keep, bool vec) {
   if (vec && keep == 0xf) {
     *reinterpret_cast<int4*>(x + j0) = make_int4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (keep >> q & 1) x[j0 + q] = v[q];
+}
+
+__device__ __forceinline__ void store4(float* x, long long j0,
+                                       const float (&v)[4], unsigned keep,
+                                       bool vec) {
+  if (vec && keep == 0xf) {
+    *reinterpret_cast<float4*>(x + j0) = make_float4(v[0], v[1], v[2], v[3]);
     return;
   }
 #pragma unroll

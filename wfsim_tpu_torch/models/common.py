@@ -5,7 +5,7 @@ import numpy as np
 import torch
 
 __all__ = ['trunc_int', 'f32', 'sqrt_f32', 'singlet_triplet_delays',
-           'skew_normal']
+           'skew_normal', 'check_edges', 'check_segments']
 
 
 def trunc_int(x: torch.Tensor) -> torch.Tensor:
@@ -53,3 +53,18 @@ def skew_normal(u0, v, loc, scale, a):
     comp = np.sqrt(f(1) - delta * delta)
     z = float(delta) * torch.abs(u0) + float(comp) * v
     return loc + scale * z
+
+
+def check_edges(edges, n: int, what: str):
+    """The CPU paths' check that the edges end at the ``n`` elements (on the
+    card the kernels clamp them instead: no read-back)."""
+    if edges.device.type == 'cpu' and int(edges[-1]) != n:
+        raise ValueError(f'{what}: the edges end at {int(edges[-1])}, not '
+                         f'at {n}')
+
+
+def check_segments(n: int, n_seg: int, what: str):
+    """Elements need a segment: raised on the host, where the CPU paths
+    raise by the edges' check (an empty edge array ends at 0)."""
+    if n and not n_seg:
+        raise ValueError(f'{what}: {n} elements and no segments')

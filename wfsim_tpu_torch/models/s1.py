@@ -26,7 +26,8 @@ from .._build import Kernel, P, I, F, check_tensor, ptr, stream_of
 from ..ops.randsample import (channel_draw, binomial, uniform, normal,
                               exponential)
 from ..ops.segment import segment_ids_from_counts, edges_from_counts
-from .common import f32, singlet_triplet_delays, trunc_int
+from .common import (f32, singlet_triplet_delays, trunc_int, check_edges,
+                     check_segments)
 from .pmt import pmt_draws, pmt_response
 
 __all__ = ['simulate_s1', 's1_draws', 's1_photon_pass', 's1_n_photon_hits',
@@ -203,7 +204,7 @@ def nest_delays_ref(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
 
 
 _nest_kernel = Kernel('wfsim_nest_delays',
-                      [P, I, I, I, I, P, P, P, P, P, P, P, I, P, P, P, P])
+                      [P, I, I, I, I, P, P, P, P, P, P, P, I, P, P, I, P, P])
 
 
 def nest_delays(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
@@ -218,12 +219,15 @@ def nest_delays(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
     :param fi0, fi1, fw: (I,) int64, int64, float32 :func:`grid_pos` of the
         instruction's field; ``ei0, ei1, ew`` the same of its energy
     :param edges: (I+1,) int64: instruction i owns photons [edges[i],
-        edges[i+1])
+        edges[i+1]), ending at the photon total N
     :param u: (N,) float32 uniforms
     :returns: (N,) float32 delays (ns)
 
-    CPU tensors run :func:`nest_delays_ref`; CUDA tensors launch
-    ``csrc/table_samplers.cu``."""
+    CPU tensors run :func:`nest_delays_ref` and raise where the edges do
+    not end at N; CUDA tensors launch ``csrc/table_samplers.cu`` (one
+    launch, tiles of 1,024 photons a block), which clamps the edges to the
+    photons (a photon past the last edge is not written) and reads nothing
+    back."""
     dev = table.device
     n_inst = cls.shape[0]
     n = u.shape[0]
@@ -237,18 +241,21 @@ def nest_delays(table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u):
         check_tensor(name, x, dt, (n_inst,), dev)
     check_tensor('edges', edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('u', u, torch.float32, (n,), dev)
-    if int(edges[-1]) != n:
-        raise ValueError(f'{n} uniforms for {int(edges[-1])} photons')
+    check_edges(edges, n, 'uniforms')
+    check_segments(n, n_inst, 'uniforms')
     args = (table, cls, fi0, fi1, fw, ei0, ei1, ew, edges, u)
     if dev.type == 'cpu':
         return nest_delays_ref(*args)
     if dev.type != 'cuda':
         raise NotImplementedError(f'nest_delays on {dev}')
+    if n >= 2 ** 31 or table.numel() >= 2 ** 31:
+        raise ValueError(f'{n} photons, a table of {table.numel()}: the '
+                         f'kernel indexes them as int')
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
         _nest_kernel(ptr(table), *table.shape, ptr(cls), ptr(fi0), ptr(fi1),
                      ptr(fw), ptr(ei0), ptr(ei1), ptr(ew), n_inst,
-                     ptr(edges), ptr(u), ptr(out), stream_of(dev))
+                     ptr(edges), ptr(u), n, ptr(out), stream_of(dev))
     return out
 
 
@@ -308,26 +315,33 @@ def custom_delays(cls, edges, draws, *, const):
 
     :param cls: (I,) int64 recoil class (:func:`recoil_class`)
     :param edges: (I+1,) int64: instruction i owns photons [edges[i],
-        edges[i+1])
+        edges[i+1]), ending at the photon total N
     :param draws: dict of the (N,) float32 :data:`CUSTOM_DRAWS`
     :returns: (N,) float32 delays (ns)
 
-    CPU tensors run :func:`custom_delays_ref`; CUDA tensors launch
-    ``csrc/table_samplers.cu``, which computes only the photon's class."""
+    CPU tensors run :func:`custom_delays_ref` and raise where the edges do
+    not end at N; CUDA tensors launch ``csrc/table_samplers.cu`` (one
+    launch, tiles of 1,024 photons a block), which reads the draws of the
+    photon's class only, clamps the edges to the photons (a photon past
+    the last edge is not written) and reads nothing back."""
     dev = cls.device
     n_inst = cls.shape[0]
     check_tensor('cls', cls, torch.int64, (n_inst,), dev)
     check_tensor('edges', edges, torch.int64, (n_inst + 1,), dev)
-    n = int(edges[-1])
     if set(draws) != set(CUSTOM_DRAWS):
         raise ValueError(f'custom draws {sorted(draws)}, expected '
                          f'{sorted(CUSTOM_DRAWS)}')
+    n = draws[CUSTOM_DRAWS[0]].shape[0]
     for k in CUSTOM_DRAWS:
         check_tensor(k, draws[k], torch.float32, (n,), dev)
+    check_edges(edges, n, 'custom draws')
+    check_segments(n, n_inst, 'custom draws')
     if dev.type == 'cpu':
         return custom_delays_ref(cls, edges, draws, const=const)
     if dev.type != 'cuda':
         raise NotImplementedError(f'custom_delays on {dev}')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} photons: the kernel indexes them as int')
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
         consts = (const.er_primary_excimer_fraction,
@@ -338,8 +352,6 @@ def custom_delays(cls, edges, draws, *, const):
                   const.s1_ER_alpha_singlet_fraction,
                   const.singlet_lifetime_liquid,
                   const.triplet_lifetime_liquid, const.led_pulse_length)
-        if n >= 2 ** 31:
-            raise ValueError(f'{n} photons: the kernel indexes them as int')
         _custom_kernel(ptr(cls), ptr(edges), n_inst, n,
                        *(ptr(draws[k]) for k in CUSTOM_DRAWS),
                        *(float(np.float32(v)) for v in consts), ptr(out),

@@ -37,7 +37,7 @@ from ..ops.randsample import (channel_draw, search_sorted_rows, binomial,
                               poisson, uniform, normal, exponential)
 from ..ops.segment import segment_ids_from_counts, edges_from_counts
 from .common import (f32, singlet_triplet_delays, skew_normal, sqrt_f32,
-                     trunc_int)
+                     trunc_int, check_edges, check_segments)
 from .pmt import pmt_draws, pmt_response, photon_time_stats
 from .s1 import live_pattern, row_edges_of
 
@@ -397,14 +397,6 @@ def lumi_gasgap_times_ref(inv_cdf, lower, upper, frac, ph_edges, u):
     return trunc_int(T - mean[ph])
 
 
-def _check_edges(edges, n: int, what: str):
-    """The CPU paths' check that the edges end at the ``n`` elements (on the
-    card the kernels clamp them instead: no read-back)."""
-    if edges.device.type == 'cpu' and int(edges[-1]) != n:
-        raise ValueError(f'{what}: the edges end at {int(edges[-1])}, not '
-                         f'at {n}')
-
-
 def check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges):
     """Raise ``OverflowError`` where an instruction's int64 fixed-point time
     sum (:data:`FIXED_POINT_SCALE`) could wrap: its photon count times the
@@ -434,13 +426,6 @@ def fixed_point_fails(worst: float) -> bool:
 
 _gasgap_kernel = Kernel('wfsim_lumi_gasgap_times',
                         [P, I, I, P, P, P, I, P, P, I, P, P, P])
-
-
-def _check_segments(n: int, n_seg: int, what: str):
-    """Elements need a segment: raised on the host, where the CPU paths
-    raise by the edges' check (an empty edge array ends at 0)."""
-    if n and not n_seg:
-        raise ValueError(f'{what}: {n} elements and no segments')
 
 
 def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *, t_max):
@@ -494,8 +479,8 @@ def lumi_gasgap_times(inv_cdf, lower, upper, frac, ph_edges, u, *, t_max):
     check_tensor('frac', frac, torch.float32, (n_inst,), dev)
     check_tensor('ph_edges', ph_edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('u', u, torch.float32, (n,), dev)
-    _check_edges(ph_edges, n, 'uniforms')
-    _check_segments(n, n_inst, 'uniforms')
+    check_edges(ph_edges, n, 'uniforms')
+    check_segments(n, n_inst, 'uniforms')
     if fixed_point_fails(n * float(t_max)):
         check_fixed_point_range(inv_cdf, lower, upper, frac, ph_edges)
     if dev.type == 'cpu':
@@ -593,8 +578,8 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
         raise ValueError('u_wire is given exactly when confine > 0')
     if u_wire is not None:
         check_tensor('u_wire', u_wire, torch.float32, (n_inst,), dev)
-    _check_edges(ph_edges, n, 'photons')
-    _check_segments(n, n_inst, 'photons')
+    check_edges(ph_edges, n, 'photons')
+    check_segments(n, n_inst, 'photons')
     kw = dict(avgt=int(avgt), tilt=tilt, pitch=pitch, confine=confine)
     if dev.type == 'cpu':
         return lumi_garfield_times_ref(table, x_axis, xy, ph_edges, cols,
@@ -947,8 +932,8 @@ def s2_electron_times(time, e_edges, mean, spread, exp, nrm, truth_row, *,
     for name, x in (('exp', exp), ('normal', nrm)):
         check_tensor(name, x, torch.float32, (n,), dev)
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
-    _check_edges(e_edges, n, 'electron draws')
-    _check_segments(n, n_inst, 'electron draws')
+    check_edges(e_edges, n, 'electron draws')
+    check_segments(n, n_inst, 'electron draws')
     if dev.type == 'cpu':
         return s2_electron_times_ref(time, e_edges, mean, spread, exp, nrm,
                                      truth_row, trapping=trapping)
@@ -1027,10 +1012,10 @@ def s2_photon_times(inv, e_edges, e_ph_edges, e_t, truth_row, u_lum, u_st,
                     *((('t_spread', t_spread),) if t_spread is not None
                       else ())):
         check_tensor(name, x, torch.float32, (n,), dev)
-    _check_edges(e_edges, n_e, 'electrons')
-    _check_edges(e_ph_edges, n, 'photon draws')
-    _check_segments(n, n_e, 'photon draws')
-    _check_segments(n_e, n_inst, 'electrons')
+    check_edges(e_edges, n_e, 'electrons')
+    check_edges(e_ph_edges, n, 'photon draws')
+    check_segments(n, n_e, 'photon draws')
+    check_segments(n_e, n_inst, 'electrons')
     kw = dict(singlet_fraction=singlet_fraction, t_singlet=t_singlet,
               t_triplet=t_triplet, time_spread=time_spread, t_lum=t_lum)
     if dev.type == 'cpu':
