@@ -4,7 +4,7 @@
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
                            pmt_truth_layouts|photon_times|step_block|
-                           garfield|s1_delays]]
+                           garfield|s1_delays|s1_times]]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -38,7 +38,10 @@ only the garfield wire-table times on the timing_models S2 batch in both
 modes and its skewed copy (``garfield_measure``), and ``--only
 s1_delays`` only the custom S1 delays on the timing_models S1 batch and
 the NEST S1 delays on the detector_physics one, each also on a copy whose
-instruction 100 holds 10^5 photons (``s1_delays_measure``).
+instruction 100 holds 10^5 photons (``s1_delays_measure``), and ``--only
+s1_times`` only the S1 photon times on the default S1 batch, its copy
+whose instruction 100 holds 10^5 photons, and the timing_models and
+detector_physics S1 batches given their delays (``s1_times_measure``).
 """
 import argparse
 import json
@@ -106,14 +109,15 @@ def main():
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
                                        'pmt_truth', 'pmt_truth_layouts',
                                        'photon_times', 'step_block',
-                                       'garfield', 's1_delays'),
+                                       'garfield', 's1_delays', 's1_times'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
                          'K8 row-truth and K16 rows only, those two '
                          'kernels under each layout, the K13a and K9 '
                          'rows only, the K14 rows only, the K13c rows '
-                         'only, or the K15 and K13b rows only')
+                         'only, the K15 and K13b rows only, or the K9 S1 '
+                         'rows only')
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}

@@ -127,9 +127,13 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     (~2.4 M photons: one instruction of 10^6 photons, one electron of 10^5
     among them, three instructions without electrons, a tenth of the
     electrons without photons), with the S2 electron times of the default
-    and the skewed batch and the S1 photon times of the default run: each
+    and the skewed batch, and the S1 photon times (K9 S1: a block an
+    instruction's first 256 photons, tiles of 256 for the rest) on
+    the default run's S1 batch, on its copy whose instruction 100 holds
+    10^5 photons (S1_SKEWED; fresh draws) and on the timing_models and
+    detector_physics S1 batches given their custom and NEST delays: each
     bitwise against its twin, the same bits on a second call, read-backs
-    counted (0 for K13a and K9; then once under
+    counted (0 for K13a and K9, the S1 times included; then once under
     ``set_sync_debug_mode('error')``), ``ms``, ``device_ms`` split by
     kernel, ``host_us`` over 1,000 calls, the twin's time and the bound
     (each input read once and each output written once; the old count,
@@ -2703,33 +2707,97 @@ def skewed_s2_times_batch(const, dev, seed):
         t_spread=t(rng.normal(size=n).astype(f32)))
 
 
+def s1_times_rows(dev):
+    """The S1 photon time rows (K9 S1) of photon_times_measure, in
+    photon_times_rows' form: the default run's S1 batch (6,925 photons in
+    512 instructions; the simple model), its S1_SKEWED copy (instruction
+    100 of 10^5 photons, fresh exp and normal draws), and the
+    timing_models and detector_physics S1 batches given their custom and
+    NEST delays.  Each row's dropped bytes are the segment ids (8 bytes a
+    photon) the kernel wrote before."""
+    import torch
+    from wfsim_tpu_torch.config import (default_config,
+                                        detector_physics_overrides,
+                                        timing_models_overrides)
+    from wfsim_tpu_torch.interface import (bench_instructions,
+                                           detector_physics_instructions,
+                                           timing_models_instructions)
+    from wfsim_tpu_torch.models import s1
+    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    from wfsim_tpu_torch.resources.synthetic import (write_garfield_table,
+                                                     write_pattern_map)
+    _p, const, batches = physics_batches(
+        default_config(seed=1234, chunk_size=100),
+        bench_instructions(512, 2000, 300), dev, 20261016)
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_s1t_')
+    try:
+        _p, const_t, b_t = physics_batches(
+            default_config(seed=1234, chunk_size=100,
+                           **timing_models_overrides(write_garfield_table(
+                               Path(tmp) / 'garfield.npz', 1234))),
+            timing_models_instructions(512, 2000, 300), dev, 20261016)
+        params_d, const_d, b_d = physics_batches(
+            default_config(seed=1234, chunk_size=100,
+                           **detector_physics_overrides(write_pattern_map(
+                               Path(tmp) / 's2_pattern_map.json', 1234))),
+            detector_physics_instructions(512, 2000, 300), dev, 20261016)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kw = dict(decay_time=const.s1_decay_time,
+              decay_spread=const.s1_decay_spread)
+    x1, _n, d1 = batches['s1']
+    counts = d1['n_hits'].long().clone()
+    counts[S1_SKEWED['inst']] = S1_SKEWED['photons']
+    n_sk = int(counts.sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    xt, _n, dt = b_t['s1']
+    xd, _n, dd = b_d['s1']
+    e_t, e_d = edges_from_counts(dt['n_hits']), edges_from_counts(
+        dd['n_hits'])
+    cases = {
+        's1_photon_times': (x1, edges_from_counts(d1['n_hits']), d1['exp'],
+                            d1['normal'], None, None),
+        's1_photon_times_skewed': (
+            x1, edges_from_counts(counts),
+            torch.empty(n_sk, device=dev).exponential_(1.0, generator=gen),
+            torch.randn(n_sk, device=dev, generator=gen), None, None),
+        's1_photon_times_custom': (
+            xt, e_t, None, None, None,
+            s1.custom_delays(s1.recoil_class(xt['recoil']), e_t,
+                             dt['custom'], const=const_t)),
+        's1_photon_times_nest': (
+            xd, e_d, None, None,
+            s1.nest_delays(*s1.nest_inputs(params_d, const_d, xd), e_d,
+                           dd['u_nest']), None)}
+    rows = {}
+    for name, (x, edges, ex, nrm, nest, custom) in cases.items():
+        args = (x['time'], edges, x['truth_row'], ex, nrm, nest, custom)
+        n = int(edges[-1])
+        rows[name] = (
+            1, lambda a=args: s1.s1_photon_times(*a, **kw),
+            lambda a=args: s1.s1_photon_times_ref(*a, **kw),
+            tuple(a for a in args if a is not None), n * 8,
+            n * (4 if ex is not None else 2), 0, n, int(x['x'].shape[0]))
+    return rows
+
+
 def photon_times_rows(dev):
     """The rows of photon_times_measure: {name: (which, kernel, twin, the
     tensors the function reads, the bytes of the outputs that the kernels
     no longer write, float32 operations, float64 operations, elements,
     segments)}; ``which`` indexes max_syncs (0 the gas-gap sampler, 1 the
-    S2 time kernels, None the S1 pass, which reads its total back)."""
+    S1 and S2 time kernels)."""
     import inspect
     import torch
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
-    from wfsim_tpu_torch.models import s1, s2
-    from wfsim_tpu_torch.ops.segment import edges_from_counts
+    from wfsim_tpu_torch.models import s2
     params, const, batches = physics_batches(
         default_config(seed=1234, chunk_size=100),
         bench_instructions(512, 2000, 300), dev, 20261016)
-    x1, _n1, d1 = batches['s1']
     x2, _n2, d2 = batches['s2']
-    rows = {}
-    s1_args = (x1['time'], edges_from_counts(d1['n_hits']), x1['truth_row'],
-               d1['exp'], d1['normal'])
-    s1_kw = dict(decay_time=const.s1_decay_time,
-                 decay_spread=const.s1_decay_spread)
-    n1 = int(d1['n_hits'].sum())
-    rows['s1_photon_times'] = (
-        None, lambda: s1.s1_photon_times(*s1_args, **s1_kw),
-        lambda: s1.s1_photon_times_ref(*s1_args, **s1_kw), s1_args, 0,
-        n1 * 4, 0, n1, int(x1['x'].shape[0]))
+    rows = s1_times_rows(dev)
     def add_times(tag, cst, x, d, inv=None, t_lum=None, e_in=None):
         t_kw = dict(singlet_fraction=cst.singlet_fraction_gas,
                     t_singlet=cst.singlet_lifetime_gas,
@@ -2791,36 +2859,37 @@ def photon_times_rows(dev):
     return rows
 
 
-def photon_times_measure(dev, smi, max_syncs=(0, 0)):
+def photon_times_measure(dev, smi, max_syncs=(0, 0), rows=None):
     """Phase 3o: the gas-gap luminescence times (K13a) on the
     detector_physics S2 batch and a copy whose instruction 100 holds 10^6
-    photons, and the S2 photon times (K9) on the default run's S2 batch
+    photons, the S2 photon times (K9) on the default run's S2 batch
     (the simple model's tables), on the detector_physics one (given
     gas-gap times) and on PHOTON_SKEWED's batch, with the S2 electron
-    times of the default and the skewed batch and the S1 photon times of
-    the default run: each bitwise against its twin, the same bits on a
-    second call, its host syncs a call (at most ``max_syncs``, the gas-gap
-    sampler's and the S2 time kernels'; None counts without a limit, for
-    another checkout's wrappers; the S1 pass reads its photon total back
-    and is not held to it), ``ms``, ``device_ms`` split by kernel,
-    ``host_us`` over 1,000 calls, the twin's time and the bound: the bytes
-    the function reads once and writes, with the old count beside it (the
-    segment ids the kernels wrote before, 8 bytes an element).  The
-    scratch buffers are checked to be zero at the end.  Returns {row name:
-    measurements (see make_check)}."""
+    times of the default and the skewed batch, and the S1 photon times on
+    s1_times_rows' four batches (``rows``, photon_times_rows' form, in
+    place of them all where given): each bitwise against its twin, the
+    same bits on a second call, its host syncs a call (at most
+    ``max_syncs``, the gas-gap sampler's and the S1 and S2 time
+    kernels'; None counts without a limit, for another checkout's
+    wrappers), ``ms``, ``device_ms`` split by kernel, ``host_us`` over
+    1,000 calls, the twin's time and the bound: the bytes the function
+    reads once and writes, with the old count beside it (the segment ids
+    the kernels wrote before, 8 bytes an element).  The scratch buffers
+    are checked to be zero at the end.  Returns {row name: measurements
+    (see make_check)}."""
     import torch
     from wfsim_tpu_torch import _build
     res = {}
+    rows = photon_times_rows(dev) if rows is None else rows
     for name, (which, kernel, plain, inputs, dropped, ops32, ops64, n,
-               segs) in photon_times_rows(dev).items():
+               segs) in rows.items():
         out = kernel()
         want = plain()
         err = compare(out, want, name)
         if compare(kernel(), out, name + ' second call'):
             raise AssertionError(f'{name}: two calls differ')
         n_sync, where = count_syncs(kernel)
-        limit = (None if max_syncs is None or which is None
-                 else max_syncs[which])
+        limit = None if max_syncs is None else max_syncs[which]
         if limit is not None and n_sync > limit:
             raise AssertionError(f'{name}: {n_sync} read-backs a call, more '
                                  f'than {limit} ({where})')
@@ -2856,6 +2925,15 @@ def photon_times_measure(dev, smi, max_syncs=(0, 0)):
             raise AssertionError(f'the kernels\' scratch of {key} is not '
                                  f'zero')
     return res
+
+
+def s1_times_measure(dev, smi, max_syncs=0):
+    """The S1 photon time rows of phase 3o alone (s1_times_rows; for
+    ``ab_port.py --kernels --only s1_times``): photon_times_measure on
+    them, at most ``max_syncs`` host syncs a call (None: no limit)."""
+    return photon_times_measure(
+        dev, smi, rows=s1_times_rows(dev),
+        max_syncs=None if max_syncs is None else (max_syncs, max_syncs))
 
 
 #: the step shard's skewed copies (phase 3i, step_block_measure): row
@@ -4484,9 +4562,11 @@ def main():
              'wfsim_s2_electron_times') if row.startswith('s2_electron') else
             ('photon_times.cu', 'wfsim_tpu/models/s2.py:441',
              'wfsim_s2_photon_times'))
-        # the gas-gap rows count the detector_physics run's launches
-        measured(row, cu, rep, [entry], launches_d if 'gasgap' in row
-                 else launches, m)
+        # the gas-gap and NEST rows count the detector_physics run's
+        # launches, the custom row the timing_models run's
+        measured(row, cu, rep, [entry],
+                 launches_d if 'gasgap' in row or row.endswith('_nest') else
+                 launches_t if row.endswith('_custom') else launches, m)
         rows[-1].update(syncs=m['syncs'], split=m['split'],
                         bound_old_ms=bound(m['bytes_old'], m['ops32'],
                                            m['ops64'])[0])

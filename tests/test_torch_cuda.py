@@ -38,6 +38,9 @@ from .test_torch_photon_times_redesign import (
     tiled_np)
 from .test_torch_s1_delays_redesign import (S1_DELAY_CASES, custom_case,
                                             nest_case)
+from .test_torch_s1_times_redesign import CASES as S1_TIME_CASES
+from .test_torch_s1_times_redesign import MODELS as S1_TIME_MODELS
+from .test_torch_s1_times_redesign import s1_case
 from .test_torch_pmt_truth_order import (
     SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
     photon_terms, truth_case)
@@ -664,6 +667,64 @@ def test_nest_delays_match_twin(dev, name):
     before = k.launches
     _twice_bitwise(lambda: _sync_free(lambda: s1.nest_delays(*card)), want)
     assert k.launches == before + (2 if want.shape[0] else 0)
+
+
+def _s1_times_on_card(dev, args, n):
+    """wfsim_s1_photon_times on ``args`` (tensors on the card, or None):
+    no read-back, one launch a call (none without photons), bitwise the
+    twin on the CPU, the same bits on a second call."""
+    from wfsim_tpu_torch.models import s1
+    const = build_constants(default_config())
+    kw = dict(decay_time=const.s1_decay_time,
+              decay_spread=const.s1_decay_spread)
+    want = s1.s1_photon_times_ref(
+        *(None if a is None else a.cpu() for a in args), **kw)
+    k = _build.KERNELS['wfsim_s1_photon_times']
+    before = k.launches
+
+    def call():
+        n_sync, out, lines = _syncs(s1.s1_photon_times, *args, n_photons=n,
+                                    **kw)
+        assert n_sync == 0, lines
+        return out
+    _twice_bitwise(call, want)
+    assert k.launches == before + (2 if n else 0)
+
+
+@pytest.mark.parametrize('model', list(S1_TIME_MODELS))
+@pytest.mark.parametrize('name', S1_TIME_CASES)
+def test_s1_photon_times_match_twin(dev, name, model):
+    """wfsim_s1_photon_times on the cases of
+    tests/test_torch_s1_times_redesign.py (the bench batch, instructions of
+    0, HEAD-1, HEAD, HEAD+1, HEAD+TILE and 10^5 photons, 3,000 instructions,
+    empty instructions on tile boundaries, the S1_SKEWED batch, only empty
+    instructions) under every timing model (simple, custom, nest,
+    custom+nest and none)."""
+    args = s1_case(name, model)
+    _s1_times_on_card(dev, [None if a is None else torch.as_tensor(
+        a, device=dev) for a in args], int(args[1][-1]))
+
+
+@pytest.mark.parametrize('offset', [1, 3, 4])
+def test_s1_photon_times_on_views(dev, offset):
+    """Every draw and delay a view starting ``offset`` floats into its
+    buffer (1 and 3: unaligned, the scalar loads; 4: 16-byte aligned) on
+    the case with instructions of 10^5 and HEAD + 1 photons, all three
+    models at once."""
+    rng = np.random.default_rng(offset)
+    time, edges, row, exp, nrm, _n, _c = s1_case('sizes', 'simple')
+    n = int(edges[-1])
+
+    def view(x):
+        buf = torch.empty(n + offset, dtype=torch.float32, device=dev)
+        buf[offset:] = torch.as_tensor(x, device=dev)
+        return buf[offset:]
+    nest = rng.exponential(40.0, n).astype(np.float32)
+    custom = rng.uniform(0, 1000.0, n).astype(np.float32)
+    _s1_times_on_card(dev, [torch.as_tensor(time, device=dev),
+                            torch.as_tensor(edges, device=dev),
+                            torch.as_tensor(row, device=dev), view(exp),
+                            view(nrm), view(nest), view(custom)], n)
 
 
 @pytest.mark.parametrize('confine,counts', [

@@ -192,14 +192,13 @@ def test_custom_and_nest_terms_truncate_apart():
     order, not trunc(custom + nest)."""
     time = torch.tensor([100, 200], dtype=torch.int32)
     edges = torch.tensor([0, 2, 3])
-    rows = torch.tensor([0, 1])
+    rows = torch.tensor([4, 9])
     custom = torch.tensor([0.6, 1.7, 2.5])
     nest = torch.tensor([0.6, 0.4, 3.9])
-    t, ph_inst, _ = s1.s1_photon_times(time, edges, rows, None, None, nest,
-                                       custom, decay_time=1.0,
-                                       decay_spread=1.0)
+    t, ph_row = s1.s1_photon_times(time, edges, rows, None, None, nest,
+                                   custom, decay_time=1.0, decay_spread=1.0)
     assert t.tolist() == [100, 101, 205]
-    assert ph_inst.tolist() == [0, 0, 1]
+    assert ph_row.tolist() == [4, 4, 9]
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,15 @@
 // s1_photon_times_ref, models/s2.py s2_electron_times_ref and
 // s2_photon_times_ref.
 //
-// Three entry points.  The S1 one runs one block per instruction walking
-// the instruction's photons [edges[i], edges[i+1]) and writes, besides the
-// times, the segment id and the broadcast truth row of each photon; that
-// takes the place of repeat_interleave on the path:
+// Three entry points.  The S1 one writes the times and the broadcast truth
+// row of each photon (no segment id: no caller reads it), which takes the
+// place of repeat_interleave on the path; a block an instruction writes
+// the instruction's first kS1Head (256) photons [edges[i], edges[i+1])
+// with no search, and tiles of kS1Tile (256) photons over the batch write
+// what lies past them, each from one warp search for the segment of its
+// first photon (an instruction of 10^5 photons spreads over ~390 blocks);
+// which inputs are given selects one of eight instantiations, so no load
+// waits behind a branch:
 //   wfsim_s1_photon_times    t = time[i] + trunc(exp * s1_decay_time)
 //                                + trunc(normal * s1_decay_spread) (simple
 //                                model, skipped where exp is null)
@@ -55,10 +60,12 @@
 //
 // What bounds them on the H100: the draws they read and the times and rows
 // they write, 20 bytes an electron and 28 a photon (~44 MB for the bench
-// S2 photon pass; the S1 pass 28); the luminescence table rows (4 KB each)
-// and the electron times stay in L1/L2.  The search of a tile's first and
-// last segments is a few dependent loads, which the other resident blocks
-// cover.
+// S2 photon pass; the S1 pass 20 with the simple model's draws); the
+// luminescence table rows (4 KB each) and the electron times stay in
+// L1/L2.  The search of a tile's first and last segments is a few
+// dependent loads, which the other resident blocks cover; at the bench
+// S1's ~7,000 photons a call is a chain of such rounds, not bytes, so
+// the S1 blocks of short instructions search nothing.
 //
 // Numerics.  nvcc contracts a*b+c into an FMA by default, which rounds
 // once where the twin rounds twice: every product and sum is written with
@@ -77,30 +84,131 @@
 
 namespace {
 
-using tiles::kThreads;
+// The S1 cut: a block an instruction writes its first kS1Head photons with
+// no search; the photons past them (an instruction of more than kS1Head,
+// an alpha S1 of 10^5) go to tiles of kS1Tile over the whole batch.  As
+// kS1Tile <= kS1Head, a photon at offset kS1Head or more in its instruction
+// has its instruction's first photon before the tile's, so the tile's only
+// such photons are those of the segment of its first element: one warp
+// search finds it, and a tile without such photons exits after it.
+constexpr int kS1Threads = 64;
+constexpr long long kS1Head = 256;    // the photons an instruction block writes
+constexpr long long kS1Tile = 256;    // the photons of an overflow tile
+static_assert(kS1Tile <= kS1Head, "a tile's long photons are of one segment");
+static_assert(kS1Tile == 4 * kS1Threads, "four photons a thread a tile");
+static_assert(kS1Head % kS1Threads == 0, "whole steps of an instruction");
 
-__global__ void s1_photon_times_kernel(
-    const int* __restrict__ time, const long long* __restrict__ edges,
-    const long long* __restrict__ truth_row, const float* __restrict__ ex,
-    const float* __restrict__ nrm, const float* __restrict__ nest,
-    const float* __restrict__ custom,
-    float decay_time, float decay_spread, int* __restrict__ t,
-    long long* __restrict__ ph_inst, long long* __restrict__ ph_row) {
-  const int i = blockIdx.x;
-  const long long lo = edges[i], hi = edges[i + 1];
-  const int ti = time[i];
-  const long long row = truth_row[i];
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    int tt = ti;
-    if (ex != nullptr)
-      tt += static_cast<int>(__fmul_rn(ex[j], decay_time)) +
-            static_cast<int>(__fmul_rn(nrm[j], decay_spread));
-    if (custom != nullptr) tt += static_cast<int>(custom[j]);
-    if (nest != nullptr) tt += static_cast<int>(nest[j]);
-    t[j] = tt;
-    ph_inst[j] = i;
-    ph_row[j] = row;
+struct S1In {
+  const int* time;
+  const long long* edges;       // (I+1,)
+  const long long* truth_row;
+  const float* ex;              // the simple model's draws
+  const float* nrm;
+  const float* custom;          // the delays, where given
+  const float* nest;
+  long long I;
+  long long n;                  // photons
+  long long tiles;              // overflow tiles, blocks [0, tiles)
+  float decay_time, decay_spread;
+  bool vec;                     // every photon field 16-byte aligned
+};
+
+// the time of a photon of an instruction at time ti, from its draws and
+// delays; which are given is known at compile time, so no load waits on a
+// branch
+template <bool kSimple, bool kCustom, bool kNest>
+__device__ __forceinline__ int s1_time(const S1In& in, int ti, float e,
+                                       float z, float c, float ne) {
+  int tt = ti;
+  if constexpr (kSimple)
+    tt += static_cast<int>(__fmul_rn(e, in.decay_time)) +
+          static_cast<int>(__fmul_rn(z, in.decay_spread));
+  if constexpr (kCustom) tt += static_cast<int>(c);
+  if constexpr (kNest) tt += static_cast<int>(ne);
+  return tt;
+}
+
+template <bool kSimple, bool kCustom, bool kNest>
+__global__ void __launch_bounds__(kS1Threads)
+    s1_photon_times_kernel(S1In in, int* __restrict__ t,
+                           long long* __restrict__ ph_row) {
+  using namespace tiles;
+  if (blockIdx.x >= in.tiles) {            // instruction i's first photons
+    const long long i = blockIdx.x - in.tiles;
+    const long long lo = edge(in.edges, i, in.n);
+    const long long end = edge(in.edges, i + 1, in.n);
+    const int ti = __ldg(in.time + i);
+    const long long row = __ldg(in.truth_row + i);
+    const long long hi = end < lo + kS1Head ? end : lo + kS1Head;
+    if (lo >= hi) return;
+    constexpr int R = kS1Head / kS1Threads;
+    float e[R], z[R], c[R], ne[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long j = lo + threadIdx.x + kS1Threads * r;
+      const bool ok = j < hi;
+      e[r] = kSimple && ok ? __ldg(in.ex + j) : 0.0f;
+      z[r] = kSimple && ok ? __ldg(in.nrm + j) : 0.0f;
+      c[r] = kCustom && ok ? __ldg(in.custom + j) : 0.0f;
+      ne[r] = kNest && ok ? __ldg(in.nest + j) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long j = lo + threadIdx.x + kS1Threads * r;
+      if (j < hi) {
+        t[j] = s1_time<kSimple, kCustom, kNest>(in, ti, e[r], z[r], c[r],
+                                                ne[r]);
+        ph_row[j] = row;
+      }
+    }
+    return;
   }
+  // an overflow tile [a, a + kS1Tile): the photons of the segment s of its
+  // first element from offset kS1Head on
+  const long long a = static_cast<long long>(blockIdx.x) * kS1Tile;
+  long long c0, c1;
+  warp_counts(in.edges, in.I, in.n, a, a, c0, c1);
+  const long long s = c0 - 1;
+  if (!in_range(s, in.I)) return;
+  const long long first = edge(in.edges, s, in.n) + kS1Head;
+  const long long end = edge(in.edges, s + 1, in.n);
+  const int ti = __ldg(in.time + s);
+  const long long row = __ldg(in.truth_row + s);
+  const long long lo = first > a ? first : a;
+  const long long hi = end < a + kS1Tile ? end : a + kS1Tile;
+  const long long j0 = a + 4 * threadIdx.x;
+  unsigned keep = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) keep |= (j0 + q >= lo && j0 + q < hi) << q;
+  if (keep == 0) return;
+  // the four loads of a field may start below lo: inside the tile, so
+  // inside the photons
+  float4 e4{0, 0, 0, 0}, z4{0, 0, 0, 0}, c4{0, 0, 0, 0}, n4{0, 0, 0, 0};
+  if constexpr (kSimple) {
+    e4 = load4f(in.ex, j0, hi, in.vec);
+    z4 = load4f(in.nrm, j0, hi, in.vec);
+  }
+  if constexpr (kCustom) c4 = load4f(in.custom, j0, hi, in.vec);
+  if constexpr (kNest) n4 = load4f(in.nest, j0, hi, in.vec);
+  const float e[4] = {e4.x, e4.y, e4.z, e4.w}, z[4] = {z4.x, z4.y, z4.z, z4.w};
+  const float c[4] = {c4.x, c4.y, c4.z, c4.w}, ne[4] = {n4.x, n4.y, n4.z, n4.w};
+  int tt[4];
+  long long rr[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    tt[q] = s1_time<kSimple, kCustom, kNest>(in, ti, e[q], z[q], c[q], ne[q]);
+    rr[q] = row;
+  }
+  store4(t, j0, tt, keep, in.vec);
+  store4(ph_row, j0, rr, keep, in.vec);
+}
+
+template <bool kSimple, bool kCustom, bool kNest>
+int launch_s1(const S1In& in, unsigned grid, int* t, long long* ph_row,
+              cudaStream_t stream) {
+  s1_photon_times_kernel<kSimple, kCustom, kNest>
+      <<<grid, kS1Threads, 0, stream>>>(in, t, ph_row);
+  return static_cast<int>(cudaGetLastError());
 }
 
 struct ElectronIn {
@@ -321,26 +429,52 @@ __global__ void __launch_bounds__(tiles::kThreads)
 
 }  // namespace
 
+// n photons: kS1Head a block per instruction plus tiles of kS1Tile; t (n,)
+// int32 and ph_row (n,) int64, each photon below the clamped last edge
+// written; ex and nrm both given (the simple model) or both null, custom
+// and nest each given or null
 extern "C" int wfsim_s1_photon_times(const void* time, const void* edges,
-                                     const void* truth_row, int n_inst,
+                                     const void* truth_row, int n_inst, int n,
                                      const void* ex, const void* nrm,
                                      const void* nest, const void* custom,
-                                     float decay_time,
-                                     float decay_spread, void* t,
-                                     void* ph_inst, void* ph_row,
-                                     void* stream) {
-  if (n_inst <= 0 || (ex == nullptr) != (nrm == nullptr))
+                                     float decay_time, float decay_spread,
+                                     void* t, void* ph_row, void* stream) {
+  if (n_inst <= 0 || n < 0 || (ex == nullptr) != (nrm == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  s1_photon_times_kernel<<<n_inst, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(time), static_cast<const long long*>(edges),
-      static_cast<const long long*>(truth_row),
-      static_cast<const float*>(ex), static_cast<const float*>(nrm),
-      static_cast<const float*>(nest), static_cast<const float*>(custom),
-      decay_time, decay_spread,
-      static_cast<int*>(t),
-      static_cast<long long*>(ph_inst), static_cast<long long*>(ph_row));
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  S1In in;
+  in.time = static_cast<const int*>(time);
+  in.edges = static_cast<const long long*>(edges);
+  in.truth_row = static_cast<const long long*>(truth_row);
+  in.ex = static_cast<const float*>(ex);
+  in.nrm = static_cast<const float*>(nrm);
+  in.custom = static_cast<const float*>(custom);
+  in.nest = static_cast<const float*>(nest);
+  in.I = n_inst;
+  in.n = n;
+  in.tiles = (n + kS1Tile - 1) / kS1Tile;
+  in.decay_time = decay_time;
+  in.decay_spread = decay_spread;
+  in.vec = tiles::aligned16(ex) && tiles::aligned16(nrm) &&
+           tiles::aligned16(custom) && tiles::aligned16(nest) &&
+           tiles::aligned16(t) && tiles::aligned16(ph_row);
+  const long long grid = in.tiles + n_inst;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int* tp = static_cast<int*>(t);
+  long long* rp = static_cast<long long*>(ph_row);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(grid);
+  switch ((ex != nullptr) << 2 | (custom != nullptr) << 1 |
+          (nest != nullptr)) {
+    case 0: return launch_s1<false, false, false>(in, g, tp, rp, st);
+    case 1: return launch_s1<false, false, true>(in, g, tp, rp, st);
+    case 2: return launch_s1<false, true, false>(in, g, tp, rp, st);
+    case 3: return launch_s1<false, true, true>(in, g, tp, rp, st);
+    case 4: return launch_s1<true, false, false>(in, g, tp, rp, st);
+    case 5: return launch_s1<true, false, true>(in, g, tp, rp, st);
+    case 6: return launch_s1<true, true, false>(in, g, tp, rp, st);
+    default: return launch_s1<true, true, true>(in, g, tp, rp, st);
+  }
 }
 
 // n electrons; e_t (n,) int32 and e_row (n,) int64, each element below

@@ -365,7 +365,8 @@ def custom_delays(cls, edges, draws, *, const):
 
 def s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest=None,
                         custom=None, *, decay_time, decay_spread):
-    """Plain twin of :func:`s1_photon_times`."""
+    """Plain twin of :func:`s1_photon_times` (the edges give the photon
+    total)."""
     ph_inst = segment_ids_from_counts(edges[1:] - edges[:-1])
     t = time[ph_inst]
     if exp is not None:
@@ -375,15 +376,16 @@ def s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest=None,
         t = t + trunc_int(custom)
     if nest is not None:
         t = t + trunc_int(nest)
-    return t, ph_inst, truth_row[ph_inst]
+    return t, truth_row[ph_inst]
 
 
 _times_kernel = Kernel('wfsim_s1_photon_times',
-                       [P, P, P, I, P, P, P, P, F, F, P, P, P, P])
+                       [P, P, P, I, I, P, P, P, P, F, F, P, P, P])
 
 
 def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None,
-                    custom=None, *, decay_time, decay_spread):
+                    custom=None, *, decay_time, decay_spread,
+                    n_photons=None):
     """Photon times of the S1 timing models (reference: s1.py:191-234):
     ``time[i]``, plus ``trunc(exp * decay_time) + trunc(normal *
     decay_spread)`` with ``simple`` timing (``exp`` and ``nrm`` given),
@@ -392,13 +394,23 @@ def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None,
     wfsim_tpu's order, for the photons [edges[i], edges[i+1]) of
     instruction i.
 
-    :returns: (t (N,) int32, ph_inst (N,) int64, truth row (N,) int64)
+    :param n_photons: the photon total N where none of ``exp``, ``custom``
+        and ``nest`` is given (an ``s1_model_type`` with no timing part);
+        else their length, which ``n_photons`` must equal where given
+    :returns: (t (N,) int32, truth row (N,) int64)
 
-    CPU tensors run :func:`s1_photon_times_ref`; CUDA tensors launch
-    ``csrc/photon_times.cu``."""
+    CPU tensors run :func:`s1_photon_times_ref` and raise where the edges
+    do not end at N; CUDA tensors launch ``csrc/photon_times.cu`` once
+    (a block an instruction for its first 256 photons, tiles of 256
+    photons for the rest), which clamps the edges to the photons (a photon
+    past the last edge is not written) and reads nothing back."""
     dev = time.device
     n_inst = time.shape[0]
-    n = int(edges[-1])
+    given = [x for x in (exp, custom, nest) if x is not None]
+    if n_photons is None and not given:
+        raise ValueError('s1_photon_times without exp, custom or nest '
+                         'draws takes the photon total n_photons')
+    n = int(n_photons) if n_photons is not None else given[0].shape[0]
     check_tensor('time', time, torch.int32, (n_inst,), dev)
     check_tensor('edges', edges, torch.int64, (n_inst + 1,), dev)
     check_tensor('truth_row', truth_row, torch.int64, (n_inst,), dev)
@@ -408,25 +420,28 @@ def s1_photon_times(time, edges, truth_row, exp, nrm, nest=None,
                     ('custom', custom)):
         if x is not None:
             check_tensor(name, x, torch.float32, (n,), dev)
+    check_edges(edges, n, 'S1 photon times')
+    check_segments(n, n_inst, 'S1 photon times')
     kw = dict(decay_time=decay_time, decay_spread=decay_spread)
     if dev.type == 'cpu':
         return s1_photon_times_ref(time, edges, truth_row, exp, nrm, nest,
                                    custom, **kw)
     if dev.type != 'cuda':
         raise NotImplementedError(f's1_photon_times on {dev}')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} photons: the kernel indexes them as int')
     t = torch.empty(n, dtype=torch.int32, device=dev)
-    ph_inst = torch.empty(n, dtype=torch.int64, device=dev)
     ph_row = torch.empty(n, dtype=torch.int64, device=dev)
 
     def opt(x):
         return None if x is None else ptr(x)
     if n:
-        _times_kernel(ptr(time), ptr(edges), ptr(truth_row), n_inst,
+        _times_kernel(ptr(time), ptr(edges), ptr(truth_row), n_inst, n,
                       opt(exp), opt(nrm), opt(nest), opt(custom),
                       float(np.float32(decay_time)),
-                      float(np.float32(decay_spread)), ptr(t), ptr(ph_inst),
-                      ptr(ph_row), stream_of(dev))
-    return t, ph_inst, ph_row
+                      float(np.float32(decay_spread)), ptr(t), ptr(ph_row),
+                      stream_of(dev))
+    return t, ph_row
 
 
 def nest_inputs(params, const, inst):
@@ -457,6 +472,9 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
         local_field and e_dep (float32)
     :returns: (photons, truth, req_counts) — ``req_counts`` (I,) is each
         instruction's photon count; photons are grouped by instruction
+
+    The photon times take the photon total from the draws' length
+    (``u_ch``), so on a CUDA device they read nothing back.
     """
     models = s1_models(const.s1_model_type)
     n_hits = draws['n_hits']
@@ -468,10 +486,11 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     if 'nest' in models:
         nest = nest_delays(*nest_inputs(params, const, inst), inst_edges,
                            draws['u_nest'])
-    t, _ph_inst, truth_row = s1_photon_times(
+    t, truth_row = s1_photon_times(
         inst['time'], inst_edges, inst['truth_row'], draws['exp'],
         draws['normal'], nest, custom, decay_time=const.s1_decay_time,
-        decay_spread=const.s1_decay_spread)
+        decay_spread=const.s1_decay_spread,
+        n_photons=draws['u_ch'].shape[0])
     # channels from the pattern map (reference: s1.py:137-159)
     ch = channel_draw(masked_pattern(params, params.s1_pattern,
                                      _positions(inst)),
