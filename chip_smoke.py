@@ -237,6 +237,31 @@ the events:
     and, from the same draws, through the twins on the CPU: photons
     bitwise equal, truth exact or within rtol 1e-12.
 
+Then the ``field_maps`` configuration: the S1 and S2 optical propagation
+splines (S1 ``optical_propagation+simple``, S2 ``optical_propagation``),
+COMSOL field distortion, gas-gap warping of the ``simple`` luminescence,
+every field-dependency map (drift speed with ``norm_drift_velocity``,
+survival, longitudinal and transverse diffusion) and the se-gain and
+extraction maps, each map written from a seed into a temporary directory
+by ``write_field_maps``, on the bench workload (phase_field_maps):
+
+3q. the map lookup (K12a) at its new call sites (the S1 spline at the S1
+    batch's ~6.9 k photons, the S2 spline at the S2 batch's ~1.3 M
+    photons, the drift-speed and COMSOL (r, z) maps and the gas-gap and
+    se-gain (x, y) maps at the 512 S2 instructions) and the luminescence
+    tables (K6) with each S2 instruction's gas gap, each against its twin
+    on the card, bitwise, timed beside ``grid_sample`` (the lookups) and
+    with host microseconds a call; the S1 and S2 passes read back no more
+    a batch than the default configuration's;
+4q. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
+    **field_maps_overrides(dir)), device='cuda').get_arrays(inst)``,
+    warm-up then timed; every entry of the path launched (the diffused
+    pattern included); the mean electron positions inside the
+    interactions' radius by COMSOL, the electrons within the maps'
+    extraction;
+5q. cross-check: the S1 and S2 batches through the kernels on the card
+    and, from the same draws, through the twins on the CPU.
+
 Then per-PMT truth and the XENON1T detector, each with the realistic
 switches on the bench workload: ``per_pmt_truth`` (XENONnT, 494-wide
 vectors per truth row) and ``xenon1t_full_grid`` (XENON1T: 248 TPC
@@ -344,7 +369,8 @@ Every configuration's 512-event run must give EXPECTED_RECORDS, the
 channel draw, the map lookup, the ZLE and record-pack entries, the
 luminescence tables, the PMT-afterpulse and photon-summary entries, the
 diffused pattern, the S2 electron and photon times and the gas-gap times
-their EXPECTED_LAUNCHES, and the default run
+their EXPECTED_LAUNCHES (field_maps: the map lookup, the luminescence
+tables with gas gaps and the diffused pattern), and the default run
 DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
@@ -399,6 +425,11 @@ FULL_GRID_PATH_KERNELS = tuple(
 TIMING_PATH_KERNELS = tuple(
     k for k in DEFAULT_PATH_KERNELS if k != 'wfsim_lumi_tables') + (
     'wfsim_s1_custom_delays', 'wfsim_lumi_garfield_times')
+
+#: the field_maps path: the default one plus the diffused pattern
+#: (transverse diffusion from the maps); the luminescence tables take a
+#: gas gap a row
+FIELD_MAPS_PATH_KERNELS = DEFAULT_PATH_KERNELS + ('wfsim_pattern_diffuse',)
 
 #: the per_pmt_truth path: the realistic one plus the per-PMT entry (K16)
 PER_PMT_PATH_KERNELS = REALISTIC_PATH_KERNELS + (
@@ -556,6 +587,25 @@ def below_bound(name, dev_ms, b_ms):
     if dev_ms is not None and dev_ms < b_ms:
         raise AssertionError(f'{name}: device time {dev_ms:.6f} ms below '
                              f'its bound {b_ms:.6f} ms')
+
+
+def bounded_device_ms(name, fn, names, b_ms, tries=3):
+    """``device_ms(fn, names=names)``, the session taken again (up to
+    ``tries`` sessions) where it gives no time or one below the bound
+    ``b_ms``: in this long process CUPTI sometimes drops records of a
+    session (PERF.md §7).  Raises (below_bound) where every session that
+    gave a time gave one below the bound; (None, {}) where none gave one."""
+    low = None
+    for _ in range(tries):
+        dev_ms, by_name = device_ms(fn, names=names)
+        if dev_ms is not None and dev_ms >= b_ms:
+            return dev_ms, by_name
+        if dev_ms is not None:
+            low = dev_ms
+            print(f'[profiler] {name}: device time {dev_ms:.6f} ms below '
+                  f'its bound {b_ms:.6f} ms: the session is taken again')
+    below_bound(name, low, b_ms)
+    return None, {}
 
 
 def timing(kernel, twin, n_bytes, ops32, ops64=0, err=0, reps=20,
@@ -886,7 +936,8 @@ def phase_3c(params, const, batches, dev, smi):
           lambda: s1_photon_times_ref(*s1_args, **s1_kw), s1_args,
           ops32=n_s1 * 4)
 
-    mean, spread = get_s2_drift_time_params(const, x2['z'])
+    mean, spread = get_s2_drift_time_params(
+        params, const, x2['z'], torch.stack([x2['x'], x2['y']], dim=1))
     e_args = (x2['time'], e_edges, mean, spread, d2['e_exp'], d2['e_normal'],
               x2['truth_row'])
     e_kw = dict(trapping=const.electron_trapping_time)
@@ -940,16 +991,21 @@ def grid_sample_library(gmap, points):
     """The multilinear lookup as ``torch.nn.functional.grid_sample``
     (align_corners=True, border padding): the returned call normalises the
     points to [-1, 1] and samples the map, laid out once beforehand as (1,
-    C, [gz,] gy, gx)."""
+    C, [gz,] gy, gx) (a 1-d map as (1, C, 1, gx), its points at y = 0)."""
     import torch
     d = gmap.values.dim() - 1
     n, out_dim = points.shape[0], gmap.values.shape[-1]
     inp = gmap.values.permute(*range(d, -1, -1)).unsqueeze(0).contiguous()
+    if d == 1:                     # a 1-d map as a 2-d one of height 1
+        inp = inp.unsqueeze(2)
 
     def call():
         norm = (points - gmap.lows) / (gmap.highs - gmap.lows) * 2 - 1
+        if d == 1:
+            norm = torch.cat([norm, torch.zeros_like(norm)], dim=1)
+        dd = max(d, 2)
         return torch.nn.functional.grid_sample(
-            inp, norm.reshape((1,) * d + (n, d)), mode='bilinear',
+            inp, norm.reshape((1,) * dd + (n, dd)), mode='bilinear',
             padding_mode='border', align_corners=True).reshape(out_dim, n)
     return call
 
@@ -1281,6 +1337,184 @@ def phase_timing_models(dev, smi):
     return res, launches
 
 
+def field_maps_lookups(params, const, batches):
+    """The map lookups (K12a) of the field_maps path at its own shapes:
+    {row: (map, points)}: the S1 spline (top) at the S1 batch's photons
+    (z, u), the S2 spline (top) at the S2 batch's photons (u), the
+    drift-speed and COMSOL (r, z) maps at the S2 instructions, the gas-gap
+    and se-gain (x, y) maps at their observed and interaction positions."""
+    import torch
+    from wfsim_tpu_torch.models import s2
+    x1, _n1, d1 = batches['s1']
+    x2, _n2, d2 = batches['s2']
+    n1 = int(d1['u_ch'].shape[0])
+    z_ph = torch.repeat_interleave(x1['z'], d1['n_hits'].to(torch.int64),
+                                   output_size=n1)
+    xy = torch.stack([x2['x'], x2['y']], dim=1)
+    rz = torch.stack([torch.sqrt(x2['x'] ** 2 + x2['y'] ** 2), x2['z']],
+                     dim=1)
+    return dict(
+        grid_lookup_s1_spline=(params.s1_prop_top,
+                               torch.stack([z_ph, d1['u_prop']], dim=1)),
+        grid_lookup_s2_spline=(params.s2_prop_top,
+                               d2['u_prop'][:, None].contiguous()),
+        grid_lookup_drift_speed=(params.drift_speed_map, rz),
+        grid_lookup_comsol=(params.fd_comsol, rz),
+        grid_lookup_gas_gap=(params.gas_gap_map,
+                             s2.s2_positions(params, const, x2)[1]),
+        grid_lookup_se_gain=(params.se_gain, xy.contiguous()))
+
+
+def pass_syncs(params, const, batches):
+    """Host syncs of the S1 and S2 photon passes of one batch each (see
+    count_syncs): {kind: (count, lines)}."""
+    from wfsim_tpu_torch.models.s1 import s1_photon_pass
+    from wfsim_tpu_torch.models.s2 import s2_photon_pass
+    out = {}
+    for kind, fn in (('s1', s1_photon_pass), ('s2', s2_photon_pass)):
+        x, n_rows, draws = batches[kind]
+        out[kind] = count_syncs(lambda: fn(params, const, x, draws,
+                                           n_truth_rows=n_rows))
+    return out
+
+
+def phase_field_maps(dev, smi):
+    """Phases 3q, 4q and 5q: the field_maps configuration (S1 and S2
+    optical propagation splines, COMSOL field distortion, gas-gap warping,
+    every field-dependency map, the se-gain and extraction maps, read from
+    the synthetic files of ``write_field_maps`` in a temporary directory)
+    on the bench workload.
+
+    3q. the map lookup (K12a) at the path's new call sites
+        (field_maps_lookups) and the luminescence tables (K6) with the
+        gas gap of each S2 instruction (``dG``), each against its twin on
+        the card, bitwise, with the library call for the lookups
+        (grid_sample_library) and the wrapper's host time; the S1 and S2
+        passes' read-backs a batch, at most the default configuration's;
+    4q. main path: ``Simulator(default_config(seed=1234, chunk_size=100,
+        **field_maps_overrides(dir)), device='cuda').get_arrays(inst)``,
+        warm-up then timed; every entry of the path launched, the records
+        and launches as expected; the truth's electrons within the maps'
+        extraction, COMSOL's mean electron positions inside the
+        interactions' radius;
+    5q. the S1 and S2 batches through the kernels on the card and, from
+        the same draws, through the twins on the CPU.
+
+    Returns (the 3q measurements, the 4q launch counts)."""
+    import torch
+    from wfsim_tpu_torch.config import default_config, field_maps_overrides
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models import s2
+    from wfsim_tpu_torch.models.params import build_constants
+    from wfsim_tpu_torch.resources.synthetic import write_field_maps
+    from wfsim_tpu_torch.ops.interp import grid_lookup_ref
+    tmp = tempfile.mkdtemp(prefix='wfsim_smoke_fm_')
+    try:
+        write_field_maps(tmp, 1234)
+        cfg = default_config(seed=1234, chunk_size=100,
+                             **field_maps_overrides(tmp))
+        inst = bench_instructions(512, 2000, 300)
+        params, const, batches = physics_batches(cfg, inst, dev, 20261016)
+        x2, _n2, d2 = batches['s2']
+        n_s1 = int(batches['s1'][2]['u_ch'].shape[0])
+        n_e, n_ph = int(d2['n_electron'].sum()), int(d2['u_ch'].shape[0])
+        print(f'[field-maps] S1 batch {n_s1} photons; S2 batch '
+              f'{int(x2["x"].shape[0])} instructions, {n_e} electrons, '
+              f'{n_ph} photons; drift velocity scaling '
+              f'{const.drift_velocity_scaling}')
+
+        # ---- 3q. the lookups and the warped luminescence tables ----------
+        res = {}
+        check = make_check(res, 'kernels-q', smi)
+        for name, (gmap, pts) in field_maps_lookups(params, const,
+                                                    batches).items():
+            n, d = pts.shape
+            out_dim = int(gmap.values.shape[-1])
+            check(name, lambda m=gmap, p=pts: (m(p),),
+                  lambda m=gmap, p=pts: (grid_lookup_ref(
+                      m.values, m.lows, m.highs, p),),
+                  (gmap, pts),
+                  ops32=n * (d * 6 + out_dim * 2 ** d * (d + 1)),
+                  library=grid_sample_library(gmap, pts), host=True)
+            print(f'[kernels-q] {name}: map {tuple(gmap.values.shape)}, '
+                  f'{n} points')
+        _z, xy_obs = s2.s2_positions(params, const, x2)
+        dG = params.gas_gap_map(xy_obs).contiguous()
+        n_i = int(dG.shape[0])
+        want = int(s2.lumi_sequential_rows_ref(const, n_i, dev, dG).sum())
+        n_bytes, ops32, ops64, _o32, _o64 = lumi_work(const, n_i, dG)
+        # what the kernel reads: the radius, reciprocal and quantile
+        # grids, each row's gap and field (lumi_work's bytes)
+        reads = (*s2._lumi_inputs(const, dev)[:3], dG,
+                 s2._anode_field(const, n_i, dev, dG)[1])
+        check('lumi_tables_warped',
+              lambda: (s2.luminescence_tables(const, n_i, dev, dG),),
+              lambda: (s2.luminescence_tables_ref(const, n_i, dev, dG),),
+              reads, ops32=ops32, ops64=ops64, host=True)
+        if res['lumi_tables_warped']['bytes'] != n_bytes:
+            raise AssertionError('lumi_tables_warped: bytes off lumi_work')
+        print(f'[kernels-q] lumi_tables_warped: {n_i} rows, gas gaps '
+              f'{float(dG.min()):.5f}-{float(dG.max()):.5f} cm, sequential '
+              f'rows by the twin {want}; bytes {n_bytes}, bound '
+              f'{bound(n_bytes, ops32, ops64)[0]:.6f} ms')
+        if want:
+            raise AssertionError('warped gas gaps on the sequential pass')
+        cfg0 = default_config(seed=1234, chunk_size=100)
+        params0, const0, batches0 = physics_batches(cfg0, inst, dev,
+                                                    20261016)
+        syncs, syncs0 = (pass_syncs(params, const, batches),
+                         pass_syncs(params0, const0, batches0))
+        print(f'[field-maps] read-backs a batch: S1 {syncs["s1"]}, S2 '
+              f'{syncs["s2"]}; default S1 {syncs0["s1"][0]}, S2 '
+              f'{syncs0["s2"][0]}')
+        for kind in ('s1', 's2'):
+            if syncs[kind][0] > syncs0[kind][0]:
+                raise AssertionError(f'field_maps {kind} pass reads back '
+                                     f'more than the default one')
+        del params0, batches0
+
+        # ---- 4q. the field_maps main path ---------------------------------
+        out, wall, launches, peak, sim = timed_run(cfg, inst, dev)
+        diag = sim.sim.rawdata.diag.summary()
+        print(f'[field-maps] launches {launches}')
+        for name in FIELD_MAPS_PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f'kernel {name} not launched on the '
+                                     f'field_maps path')
+        rr, truth = out['raw_records'], out['truth']
+        n_type = {t: int((truth['type'] == t).sum()) for t in (1, 2)}
+        if n_type != {1: 512, 2: 512} or len(truth) != len(inst):
+            raise AssertionError(f'field_maps truth rows {n_type}')
+        s2_rows = truth[truth['type'] == 2]
+        r_shift = (np.hypot(s2_rows['x'], s2_rows['y'])
+                   - np.hypot(s2_rows['x_mean_electron'],
+                              s2_rows['y_mean_electron']))
+        frac = s2_rows['n_electron'] / 300
+        print(f'[field-maps] truth rows by type {n_type}; electrons a '
+              f'300-electron S2 {frac.min():.3f}-{frac.max():.3f}; COMSOL '
+              f'radius shift {r_shift.min():.4f}-{r_shift.max():.4f} cm; '
+              f'S2 photons {int(s2_rows["n_photon"].sum())}')
+        if not (np.all(np.isfinite(r_shift)) and np.all(r_shift >= 0)
+                and np.all(r_shift < 5)):
+            raise AssertionError('COMSOL mean electron positions off')
+        if not (0.2 < frac.mean() < 0.7):
+            raise AssertionError('S2 electrons off the maps\' extraction')
+        if not strax_valid(rr, const.n_tpc_pmts):
+            raise AssertionError('field_maps raw_records violate the strax '
+                                 'invariants')
+        expect_records('field_maps', len(rr), launches=launches)
+        print(f'[field-maps] events/s {512 / wall:.2f} wall {wall:.3f} s '
+              f'records {len(rr)} photons {int(truth["n_photon"].sum())} '
+              f'peak_mem {peak / 2 ** 20:.1f} MiB ({smi})')
+        print(f'[field-maps] phases {diag}')
+
+        # ---- 5q. the passes: card against the CPU twins ----------------
+        phase_5c(cfg, params, const, batches, smi, tag='cross-q')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, launches
+
+
 def timed_run(cfg, inst, dev, mesh_fn=lambda: None, warm_inst=None):
     """A warm-up ``get_arrays`` (on ``warm_inst``, by default ``inst``),
     then a timed one on ``inst`` with every launch count set to 0 just
@@ -1311,7 +1545,7 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         detector_physics=768_746,
                         he_full_grid=(868_127, 444_017),
                         timing_models=855_569, per_pmt_truth=867_836,
-                        xenon1t_full_grid=567_294)
+                        xenon1t_full_grid=567_294, field_maps=696_517)
 #: the launches of the channel draw, the map lookup, (one a digitize
 #: batch) the ZLE and record-pack entries, (one a simulation batch) the
 #: luminescence tables, the PMT-afterpulse and photon-summary entries and
@@ -1325,7 +1559,9 @@ EXPECTED_LAUNCHES = dict(
                    **dict.fromkeys(SUMMARY_KERNELS, 3)),
     detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3,
                           wfsim_lumi_gasgap_times=3,
-                          wfsim_s2_photon_times=3))
+                          wfsim_s2_photon_times=3),
+    field_maps=dict(wfsim_grid_lookup=57, wfsim_lumi_tables=3,
+                    wfsim_pattern_diffuse=3))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
     '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
@@ -2002,7 +2238,7 @@ def diffuse_batch(dev, tmp):
     e_edges = s2.s2_edges(d2)[0]
     z, xy = s2.s2_positions(params, const, x2)
     head = (params.s2_pattern, xy[:, 0].contiguous(), xy[:, 1].contiguous(),
-            *s2.diffusion_inputs(const, z, xy), const.tpc_radius ** 2)
+            *s2.diffusion_inputs(params, const, z, xy), const.tpc_radius ** 2)
     C = int(params.gains.shape[0])
     counts = (e_edges[1:] - e_edges[:-1]).cpu().numpy().copy()
     inst, big = DIFFUSE_SKEWED_INST
@@ -2806,7 +3042,8 @@ def photon_times_rows(dev):
         e_kw = dict(trapping=cst.electron_trapping_time)
         if e_in is None:
             e_edges, e_ph_edges, _ph = s2.s2_edges(d)
-            mean, spread = s2.get_s2_drift_time_params(cst, x['z'])
+            mean, spread = s2.get_s2_drift_time_params(
+                None, cst, x['z'], torch.stack([x['x'], x['y']], dim=1))
             e_in = (x['time'], e_edges, mean, spread, d['e_exp'],
                     d['e_normal'], x['truth_row'])
         else:
@@ -3084,9 +3321,13 @@ def step_block_measure(dev, smi, max_syncs=1):
                                  f'than {max_syncs} ({where})')
         # the entry's records: its kernel, the memset of the sum rows and
         # the status copy (the parent's t.min() reduction)
-        dev_ms, by_name = device_ms(kernel, names=(
+        n_ph = int(args[0].shape[0])
+        ops = n_ph * int(args[3].shape[1]) * 2 + out[0].numel() * 3
+        n_bytes = nbytes(args, out)
+        b_ms, b_by = bound(n_bytes, ops)
+        dev_ms, by_name = bounded_device_ms(name, kernel, (
             'superpose_block_kernel', 'Memset', 'Memcpy DtoH',
-            'reduce_kernel'))
+            'reduce_kernel'), b_ms)
         split = {}
         for k, v in by_name.items():
             split[k[:60]] = split.get(k[:60], 0.0) + v
@@ -3096,9 +3337,6 @@ def step_block_measure(dev, smi, max_syncs=1):
             diff = int((lib()[0] != out[0]).sum())
             libs[how] = (cuda_ms(lib, reps=10), diff)
         best = min(libs, key=lambda h: libs[h][0])
-        n_ph = int(args[0].shape[0])
-        ops = n_ph * int(args[3].shape[1]) * 2 + out[0].numel() * 3
-        n_bytes = nbytes(args, out)
         ms = cuda_ms(kernel)
         m = res[name] = dict(
             err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
@@ -3109,8 +3347,6 @@ def step_block_measure(dev, smi, max_syncs=1):
             library_calls={h: v[0] for h, v in libs.items()},
             library_diff={h: v[1] for h, v in libs.items()}, syncs=n_sync,
             split=split, photons=n_ph)
-        b_ms, b_by = bound(n_bytes, ops)
-        below_bound(name, dev_ms, b_ms)
         dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
                  + str({k: round(v, 6) for k, v in split.items()}))
         print(f'[kernels-m] {name}: {n_ph} photons, max|diff| {err}, second '
@@ -3235,24 +3471,24 @@ def garfield_measure(dev, smi, max_syncs=0):
                                  f'than {max_syncs} ({where})')
         if max_syncs == 0:
             sync_free(name, kernel)
-        # the entry's records: its kernel (the parent's rows kernel and
-        # read-back too)
-        dev_ms, by_name = device_ms(kernel, names=(
-            'garfield_times_kernel', 'garfield_rows_kernel', 'Memcpy DtoH'))
-        split = {}
-        for k, v in by_name.items():
-            split[k[:60]] = split.get(k[:60], 0.0) + v
         R = int(args[0].shape[0])
         ops = n_i * R * 3 + n * 2
         inputs = (args, u_wire if u_wire is not None else ())
         n_bytes = nbytes(inputs, out)
+        b_ms, b_by = bound(n_bytes, ops)
+        # the entry's records: its kernel (the parent's rows kernel and
+        # read-back too)
+        dev_ms, by_name = bounded_device_ms(name, kernel, (
+            'garfield_times_kernel', 'garfield_rows_kernel', 'Memcpy DtoH'),
+            b_ms)
+        split = {}
+        for k, v in by_name.items():
+            split[k[:60]] = split.get(k[:60], 0.0) + v
         m = res[name] = dict(
             err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
             plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
             bytes=n_bytes, ops32=ops, ops64=0, library_ms=cuda_ms(lib),
             syncs=n_sync, split=split, photons=n, rows=n_i)
-        b_ms, b_by = bound(n_bytes, ops)
-        below_bound(name, dev_ms, b_ms)
         dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
                  + str({k: round(v, 6) for k, v in split.items()}))
         print(f'[kernels-t] {name}: {n} photons of {n_i} instructions, '
@@ -3405,7 +3641,9 @@ def s1_delays_measure(dev, smi, max_syncs=0):
             sync_free(name, kernel)
         entry = ('custom_delays_kernel' if name.startswith('custom')
                  else 'nest_delays_kernel')
-        dev_ms, by_name = device_ms(kernel, names=(entry, 'Memcpy DtoH'))
+        b_ms, b_by = bound(n_bytes, ops)
+        dev_ms, by_name = bounded_device_ms(name, kernel,
+                                            (entry, 'Memcpy DtoH'), b_ms)
         split = {}
         for key, v in by_name.items():
             split[key[:60]] = split.get(key[:60], 0.0) + v
@@ -3414,8 +3652,6 @@ def s1_delays_measure(dev, smi, max_syncs=0):
             plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
             bytes=n_bytes, ops32=ops, ops64=0, library_ms=None,
             syncs=n_sync, split=split, photons=n, rows=n_i)
-        b_ms, b_by = bound(n_bytes, ops)
-        below_bound(name, dev_ms, b_ms)
         counts = args[1 if name.startswith('custom') else 8].diff()
         dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms '
                  + str({key: round(v, 6) for key, v in split.items()}))
@@ -4460,6 +4696,9 @@ def main():
     # ---- 3f / 4f / 5f. the timing_models configuration ---------------------
     ttimes, launches_t = phase_timing_models(dev, smi)
 
+    # ---- 3q / 4q / 5q. the field_maps configuration -----------------------
+    qtimes, launches_q = phase_field_maps(dev, smi)
+
     # ---- 3g / 4g / 3h / 4h / 5h. per_pmt_truth and xenon1t_full_grid -------
     xtimes, launches_p, launches_x = phase_per_pmt_x1t(B, T, K, inst, dev,
                                                        smi)
@@ -4604,6 +4843,14 @@ def main():
         measured(name, 'table_samplers.cu', rep, [entry], counts, m)
         rows[-1].update(syncs=m['syncs'], split=m['split'],
                         photons=m['photons'])
+    for name, m in qtimes.items():
+        if name.startswith('grid_lookup'):
+            measured(name, 'grid_lookup.cu', 'wfsim_tpu/ops/interp.py:85',
+                     ['wfsim_grid_lookup'], launches_q, m)
+        else:
+            measured(name, 'luminescence.cu',
+                     'wfsim_tpu/models/s2.py:167; wfsim_tpu/models/s2.py:141',
+                     ['wfsim_lumi_tables'], launches_q, m)
     measured('pulse_truth_per_pmt', 'pmt_response.cu',
              'wfsim_tpu/models/pmt.py:146', ['wfsim_pmt_row_truth_per_pmt'],
              launches_p, xtimes['pulse_truth_per_pmt'])

@@ -218,7 +218,7 @@ def diffuse_args(case, const, n_r, n_a, dev='cpu'):
     xy = torch.stack([t(case['x']), t(case['y'])], dim=1)
     edges = np.concatenate([[0], np.cumsum(case['counts'])])
     return (gmap, t(case['x']), t(case['y']),
-            *s2.diffusion_inputs(const, t(case['z']), xy),
+            *s2.diffusion_inputs(None, const, t(case['z']), xy),
             const.tpc_radius ** 2, t(edges), t(n_r), t(n_a), N_CH)
 
 

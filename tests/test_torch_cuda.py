@@ -1590,3 +1590,53 @@ def test_gasgap_range_check_on_the_card(dev, n_photons, fits, bound):
     else:
         with pytest.raises(OverflowError):
             s2.lumi_gasgap_times(*args, **kw)
+
+
+def _on(x, device):
+    """A (nested) dict of tensors on ``device``; anything else kept."""
+    if isinstance(x, dict):
+        return {k: _on(v, device) for k, v in x.items()}
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def test_field_maps_passes_card_vs_cpu(dev, tmp_path):
+    """The field_maps configuration's S1 and S2 passes (optical
+    propagation splines, COMSOL, gas-gap warping, the field-dependency,
+    se-gain and extraction maps) on 16 bench events: on the card and,
+    from the same draws, through the twins on the CPU, photons bitwise,
+    integer truth exact, float truth within rtol 1e-12; after a first
+    call, which copies the configuration's luminescence grids to the card
+    once, neither pass reads back."""
+    from wfsim_tpu_torch.config import field_maps_overrides
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models.s1 import s1_draws, s1_photon_pass
+    from wfsim_tpu_torch.models.s2 import s2_draws, s2_photon_pass
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    from wfsim_tpu_torch.resources.synthetic import write_field_maps
+    write_field_maps(tmp_path, 5)
+    cfg = default_config(seed=5, **field_maps_overrides(tmp_path))
+    rd = RawData(cfg, device=dev)
+    params_c = build_params(cfg, load_config(cfg), 'cpu')
+    inst = bench_instructions(16, 2000, 300)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for typ, draw, run in ((1, s1_draws, s1_photon_pass),
+                           (2, s2_draws, s2_photon_pass)):
+        x, _b, _r, n_rows = rd.batch_inputs(
+            inst, np.flatnonzero(inst['type'] == typ), 's1' if typ == 1
+            else 's2')
+        draws = draw(rd.params, rd.const, x, gen)
+        run(rd.params, rd.const, x, draws, n_truth_rows=n_rows)
+        card = _sync_free(lambda: run(rd.params, rd.const, x, draws,
+                                      n_truth_rows=n_rows))
+        cpu = run(params_c, rd.const, _on(x, 'cpu'), _on(draws, 'cpu'),
+                  n_truth_rows=n_rows)
+        assert int(card[0]['t'].shape[0]) > 100
+        for a, b in zip(card, cpu):
+            for k, v in (a.items() if isinstance(a, dict) else [(0, a)]):
+                w = b[k] if isinstance(b, dict) else b
+                v = v.cpu()
+                if v.dtype == torch.float64:
+                    torch.testing.assert_close(v, w, rtol=1e-12, atol=0)
+                else:
+                    assert torch.equal(v, w), k

@@ -122,13 +122,16 @@ def test_s1_model_strings():
     assert s1.s1_models('simple+nest') == s1.s1_models('nest, simple') \
         == {'simple', 'nest'}
     assert s1.s1_models('custom+nest') == {'custom', 'nest'}
-    for bad, err in (('simple+optical_propagation', NotImplementedError),
-                     ('nets', ValueError)):
-        with pytest.raises(err):
-            s1.s1_models(bad)
-    with pytest.raises(NotImplementedError):
-        RawData(default_config(s1_model_type='optical_propagation'),
-                device='cpu')
+    assert s1.s1_models('simple+optical_propagation') \
+        == {'simple', 'optical_propagation'}
+    with pytest.raises(ValueError):
+        s1.s1_models('nets')
+    # optical propagation runs: without a spline it adds nothing, as in
+    # wfsim_tpu (tests/test_torch_field_maps.py runs it with one)
+    out = Simulator(default_config(s1_model_type='optical_propagation',
+                                   seed=3), device='cpu').get_arrays(
+        bench_instructions(2, 2000, 300))
+    assert len(out['raw_records']) and len(out['truth']) == 4
     # garfield runs, given its table
     with pytest.raises(ValueError):
         load_config(default_config(s2_luminescence_model='garfield'))
@@ -231,7 +234,7 @@ def test_s2_pass_matches_jax_given_draws(physics):
     e_edges, _, ph_edges = s2.s2_edges(draws)
     pat_t = s2.pattern_diffuse(
         pt.s2_pattern, pos_t[:, 0].contiguous(), pos_t[:, 1].contiguous(),
-        *s2.diffusion_inputs(kt, z_t, pos_t), kt.tpc_radius ** 2, e_edges,
+        *s2.diffusion_inputs(pt, kt, z_t, pos_t), kt.tpc_radius ** 2, e_edges,
         draws['diff_r'], draws['diff_a'], 494).numpy()
     np.testing.assert_allclose(pat_t, pat_j, rtol=1e-6)
 
@@ -340,7 +343,8 @@ def test_detector_physics_draw_order(physics):
     d = s2.s2_draws(pt, kt, inst, gen)
     after = torch.rand(1, generator=gen)
     gen = torch.Generator().manual_seed(6)
-    mean, _ = s2.get_s2_drift_time_params(kt, inst['z'])
+    mean, _ = s2.get_s2_drift_time_params(
+        pt, kt, inst['z'], torch.stack([inst['x'], inst['y']], 1))
     cy = torch.exp(-mean / torch.tensor(kt.electron_lifetime_liquid)) \
         * kt.electron_extraction_yield
     n_el = rs.binomial(gen, inst['amp'], cy)

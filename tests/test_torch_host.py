@@ -125,16 +125,20 @@ def test_params_from_numpy_refuses_unported_fields():
 
 
 def test_unported_resources_raise():
-    """Electron-afterpulse files, gas-gap warping and COMSOL are not
-    ported; a resource file that resolves nowhere raises
-    FileNotFoundError (wfsim_tpu falls back to the synthetic asset)."""
+    """Electron-afterpulse files are not ported; a resource file that
+    resolves nowhere raises FileNotFoundError (wfsim_tpu falls back to the
+    synthetic asset).  Gas-gap warping and COMSOL, which raised before
+    they were ported, now load (a constant gas gap, no COMSOL map) and
+    build."""
     with pytest.raises(NotImplementedError):
         load_config(default_config(enable_electron_afterpulses=True,
                                    ele_ap_pdfs='ele_ap.pkl'))
-    with pytest.raises(NotImplementedError):
-        load_config(default_config(enable_gas_gap_warping=True))
-    with pytest.raises(NotImplementedError):
-        load_config(default_config(field_distortion_model='comsol'))
+    for entry in (dict(enable_gas_gap_warping=True),
+                  dict(field_distortion_model='comsol')):
+        cfg = default_config(**entry)
+        params = build_params(cfg, load_config(cfg), 'cpu')
+        assert (params.gas_gap_map is None) == ('comsol' in str(entry))
+        assert params.fd_comsol is None
     for entry in (dict(enable_noise=True, noise_file='noise.npz'),
                   dict(enable_pmt_afterpulses=True,
                        photon_ap_cdfs='pmt_ap.json.gz'),

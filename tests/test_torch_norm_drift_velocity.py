@@ -3,8 +3,8 @@
 F17): wfsim_tpu reads the field-dependency maps only
 for another key (wfsim_tpu/resources/loader.py:491-493), so the drift
 stays constant (``drift_velocity_scaling`` 1.0); the port builds and runs
-the same configuration, and any other key still raises until the maps
-are ported.
+the same configuration.  With any other key on, both read the maps and
+scale the drift velocity (tests/test_torch_field_maps.py runs them).
 
 Tolerances: the S2 pass as in tests/test_torch_photon_passes.py; the
 constants equal to the default configuration's, exactly, so the 8-event
@@ -44,12 +44,16 @@ def test_norm_drift_velocity_alone_keeps_constant_drift(both):
     assert c['enable_field_dependencies']['norm_drift_velocity']
     assert kj.drift_velocity_scaling == kt.drift_velocity_scaling == 1.0
     assert kt == build_constants(default_config())
-    # any other key needs the field-dependency maps, not ported yet
+    # any other key reads the field-dependency maps (the constant dummy
+    # of 1 by default), so the scaling is the drift velocity over 1e-4,
+    # as in wfsim_tpu
     for key in ('drift_speed_map', 'survival_probability_map'):
-        cfg = default_config(enable_field_dependencies={
+        over = dict(enable_field_dependencies={
             'norm_drift_velocity': True, key: True})
-        with pytest.raises(NotImplementedError, match='field-dependency'):
-            Resource(cfg)
+        res = Resource(default_config(**over))
+        assert res.drift_velocity_scaling == jax_load_config(
+            jax_default_config(**over)).drift_velocity_scaling
+        assert res.drift_velocity_scaling == pytest.approx(1.335)
 
 
 def test_norm_drift_velocity_alone_s2_pass_matches_jax(both):

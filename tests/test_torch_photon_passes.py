@@ -143,7 +143,8 @@ def test_s2_draw_order(both):
     ph, tr, req = s2.simulate_s2(pt, kt, inst, torch.Generator().manual_seed(4),
                                  n_truth_rows=4)
     gen = torch.Generator().manual_seed(4)
-    mean, _ = s2.get_s2_drift_time_params(kt, inst['z'])
+    mean, _ = s2.get_s2_drift_time_params(
+        pt, kt, inst['z'], torch.stack([inst['x'], inst['y']], 1))
     cy = torch.exp(-mean / torch.tensor(kt.electron_lifetime_liquid)) \
         * kt.electron_extraction_yield
     n_el = rs.binomial(gen, inst['amp'], cy)

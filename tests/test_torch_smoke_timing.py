@@ -1,7 +1,8 @@
 """chip_smoke.py's device-time cut on the CPU: ``named_calls`` keeps only
 the records named after the measured entry and refuses a session where
 the profiler dropped or added one of them; ``below_bound`` refuses a
-device time below the row's bound.  The records are made up here (the
+device time below the row's bound; ``bounded_device_ms`` takes such a
+session again before it refuses.  The records are made up here (the
 profiler runs only on the card)."""
 import importlib.util
 from pathlib import Path
@@ -80,3 +81,25 @@ def test_below_bound(smoke):
     smoke.below_bound('row', 0.0554, 0.038972)
     with pytest.raises(AssertionError, match='below its bound'):
         smoke.below_bound('row', 0.0051, 0.009159)
+
+
+@pytest.mark.parametrize('times,want', [
+    ((0.0554,), 0.0554),                 # the first session holds
+    ((0.0038, 0.0554), 0.0554),          # a session below the bound again
+    ((None, None, 0.0554), 0.0554),      # sessions without a time again
+    ((None, None, None), None),          # never a time: not measured
+    ((0.0038, None, 0.0038), 'raises'),  # only times below the bound
+])
+def test_bounded_device_ms_takes_a_session_again(smoke, monkeypatch, times,
+                                                 want):
+    """A profiler session that gives no time, or one below the row's
+    bound, is taken again (up to three sessions); only times below the
+    bound raise."""
+    left = list(times)
+    monkeypatch.setattr(smoke, 'device_ms', lambda fn, names=None: (
+        left.pop(0), {}))
+    if want == 'raises':
+        with pytest.raises(AssertionError, match='below its bound'):
+            smoke.bounded_device_ms('row', None, NAMES, 0.005628)
+        return
+    assert smoke.bounded_device_ms('row', None, NAMES, 0.005628)[0] == want

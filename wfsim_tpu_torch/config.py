@@ -29,7 +29,7 @@ __all__ = [
     'load_fax_config', 'default_config', 'finalize_config',
     'deterministic_hash', 'strip_json_comments', 'CHANNEL_MAPS',
     'detector_physics_overrides', 'he_full_grid_overrides',
-    'timing_models_overrides', 'PIPELINE_DEFAULTS',
+    'timing_models_overrides', 'field_maps_overrides', 'PIPELINE_DEFAULTS',
 ]
 
 #: the super-batch keys of the raw-data stream and wfsim_tpu's defaults for
@@ -310,6 +310,36 @@ def timing_models_overrides(s2_luminescence) -> dict:
                 s2_luminescence=(str(s2_luminescence)
                                  if not isinstance(s2_luminescence, dict)
                                  else s2_luminescence))
+
+
+def field_maps_overrides(aux_dir) -> dict:
+    """The ``field_maps`` switches on top of :func:`default_config`, each
+    map read from a file in ``aux_dir`` (see
+    ``resources.synthetic.write_field_maps``): the S1 optical propagation
+    spline with ``simple`` timing, the S2 one as the S2 time model, COMSOL
+    field distortion, gas-gap warping of the ``simple`` luminescence,
+    every field-dependency map (drift speed with ``norm_drift_velocity``,
+    survival, longitudinal and transverse diffusion), and the se-gain map
+    as the light yield and, with g2, the extraction efficiency.  ``g2_mean``
+    16.5 PE an electron is about XENONnT's first science run's; over the
+    ~31-photon se gain it makes an extraction efficiency of ~0.53.  The
+    maps are illustrative, not a calibration."""
+    from pathlib import Path
+    from .resources.synthetic import FIELD_MAP_FILES
+    return dict(s1_model_type='optical_propagation+simple',
+                s2_time_model='optical_propagation',
+                field_distortion_model='comsol',
+                s2_luminescence_model='simple',
+                enable_gas_gap_warping=True,
+                enable_field_dependencies={
+                    'drift_speed_map': True,
+                    'survival_probability_map': True,
+                    'diffusion_longitudinal_map': True,
+                    'diffusion_transverse_map': True,
+                    'norm_drift_velocity': True},
+                se_gain_from_map=True, ext_eff_from_map=True, g2_mean=16.5,
+                url_base=str(Path(aux_dir).resolve()),
+                **FIELD_MAP_FILES)
 
 
 def finalize_config(c: dict) -> dict:

@@ -5,7 +5,7 @@ import numpy as np
 import torch
 
 __all__ = ['trunc_int', 'f32', 'sqrt_f32', 'singlet_triplet_delays',
-           'skew_normal', 'check_edges', 'check_segments']
+           'skew_normal', 'rz_lookup', 'check_edges', 'check_segments']
 
 
 def trunc_int(x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +53,15 @@ def skew_normal(u0, v, loc, scale, a):
     comp = np.sqrt(f(1) - delta * delta)
     z = float(delta) * torch.abs(u0) + float(comp) * v
     return loc + scale * z
+
+
+def rz_lookup(gridmap, z, xy):
+    """An (r, z) map at cartesian positions (wfsim_tpu/models/common.py:54;
+    the reference wraps its field-dependency maps the same way,
+    load_resource.py:335-338): (n,) float32 for a one-output map."""
+    r = sqrt_f32(xy[:, 0] * xy[:, 0] + xy[:, 1] * xy[:, 1])
+    out = gridmap(torch.stack([r, z], dim=1))
+    return out[..., 0] if out.dim() > 1 else out
 
 
 def check_edges(edges, n: int, what: str):

@@ -19,7 +19,7 @@ import torch
 from .. import units
 from ..ops.interp import GridMap
 from ..ops.waveform import make_templates
-from ..resources.loader import Resource, as_gridmap
+from ..resources.loader import Resource, MultiMap, as_gridmap
 from ..resources.nest_tables import build_nest_timing_tables
 
 __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
@@ -29,9 +29,11 @@ __all__ = ['SimParams', 'SimConstants', 'build_params', 'build_constants',
 @dataclasses.dataclass
 class SimParams:
     """Device tensors of one configuration (the fields of wfsim_tpu's
-    SimParams that the ported paths read; its COMSOL, field-dependency,
-    gas-gap-warping and optical-spline maps are not ported yet), plus the
-    garfield table's int mean, computed once on the host.  The noise bank
+    SimParams that the ported paths read), plus the garfield table's int
+    mean, computed once on the host.  A constant dummy S2 optical
+    propagation spline is a 1-d map here (wfsim_tpu builds it 2-d and
+    broadcasts its (n, 1) uniforms against it; the card's lookup takes
+    points shaped (n, d)), with the same value.  The noise bank
     is channel-major int16 (Cn, L): wfsim_tpu keeps it (L, Cn) int32 plus
     a wrap-extended copy (``noise_ext``) so a TPU can read one contiguous
     span per row, which the card does not need.  ``gg_t_max``, the largest
@@ -54,6 +56,17 @@ class SimParams:
     se_gain: ty.Optional[GridMap]
     # detector physics (None when off)
     fdc_3d: ty.Optional[GridMap] = None                  # inverse FDC (r, z)
+    fd_comsol: ty.Optional[GridMap] = None               # COMSOL (r, z) -> r
+    drift_speed_map: ty.Optional[GridMap] = None         # (r, z), 1e-4 cm/ns
+    survival_prob_map: ty.Optional[GridMap] = None       # (r, z)
+    diffusion_long_map: ty.Optional[GridMap] = None      # (r, z), cm^2/ns
+    diffusion_radial_map: ty.Optional[GridMap] = None    # (r, z), 1e-9 cm^2/ns
+    diffusion_azimuthal_map: ty.Optional[GridMap] = None  # (r, z), same
+    gas_gap_map: ty.Optional[GridMap] = None             # (x, y) -> gas gap
+    s1_prop_top: ty.Optional[GridMap] = None             # (z, u) -> delay
+    s1_prop_bottom: ty.Optional[GridMap] = None
+    s2_prop_top: ty.Optional[GridMap] = None             # (u) -> delay
+    s2_prop_bottom: ty.Optional[GridMap] = None
     garfield_gas_gap_map: ty.Optional[GridMap] = None    # (x, y) -> gas gap
     gg_gas_gap: ty.Optional[torch.Tensor] = None         # (G,) f32 gas gaps
     gg_inv_cdf: ty.Optional[torch.Tensor] = None         # (G, M) f32
@@ -298,6 +311,30 @@ def build_constants(config) -> SimConstants:
     )
 
 
+def _field_map(resource, name):
+    """One of the field-dependency maps by name (wfsim_tpu
+    params.py:329-337): a map of a MultiMap file, None where the file has
+    no such map, or a single map file's default map."""
+    m = resource.field_dependencies_map
+    if m is None:
+        return None
+    if isinstance(m, MultiMap):
+        return m.maps.get(name)
+    return as_gridmap(m, ndim_in=2)
+
+
+def _prop_spline(resource, attr, which, ndim_in):
+    """The ``which`` ('top' or 'bottom') optical propagation spline
+    (wfsim_tpu params.py:340-346): that map of a MultiMap file, else its
+    default map; a constant dummy becomes an ``ndim_in``-d constant map (1
+    for the S2 spline, see SimParams)."""
+    m = getattr(resource, attr)
+    if m is None:
+        return None
+    if isinstance(m, MultiMap) and which in m.maps:
+        return m.maps[which]
+    return as_gridmap(m, ndim_in=ndim_in)
+
 
 def build_params(config, resource: Resource, device) -> SimParams:
     """Assemble the device parameter bundle (wfsim_tpu build_params)."""
@@ -374,7 +411,9 @@ def build_params(config, resource: Resource, device) -> SimParams:
     nest = (None, None, None)
     if 'nest' in str(config.get('s1_model_type', '')):
         nest = build_nest_timing_tables(config)
-
+    if resource.drift_velocity_scaling is not None:
+        config['_drift_velocity_scaling'] = float(
+            resource.drift_velocity_scaling)
     return SimParams(
         gains=t(gains),
         uniform_to_pe=t(np.asarray(resource.uniform_to_pe, np.float32)),
@@ -392,6 +431,24 @@ def build_params(config, resource: Resource, device) -> SimParams:
         s2_correction=g(resource.s2_correction_map, 2),
         se_gain=g(getattr(resource, 'se_gain_map', None), 2),
         fdc_3d=g(resource.fdc_3d, 3),
+        fd_comsol=g(resource.fd_comsol, 2),
+        drift_speed_map=g(_field_map(resource, 'drift_speed_map'), 2),
+        survival_prob_map=g(_field_map(resource, 'survival_probability_map'),
+                            2),
+        diffusion_long_map=g(resource.diffusion_longitudinal_map, 2),
+        diffusion_radial_map=g(_field_map(resource, 'diffusion_radial_map'),
+                               2),
+        diffusion_azimuthal_map=g(_field_map(resource,
+                                             'diffusion_azimuthal_map'), 2),
+        gas_gap_map=g(resource.gas_gap_length, 2),
+        s1_prop_top=g(_prop_spline(resource, 's1_optical_propagation_spline',
+                                   'top', 2), 2),
+        s1_prop_bottom=g(_prop_spline(
+            resource, 's1_optical_propagation_spline', 'bottom', 2), 2),
+        s2_prop_top=g(_prop_spline(resource, 's2_optical_propagation_spline',
+                                   'top', 1), 1),
+        s2_prop_bottom=g(_prop_spline(
+            resource, 's2_optical_propagation_spline', 'bottom', 1), 1),
         garfield_gas_gap_map=g(resource.garfield_gas_gap_map, 2),
         gg_gas_gap=opt(gg_gas_gap),
         gg_inv_cdf=opt(gg_inv_cdf),
@@ -508,7 +565,9 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
     order); absent names are None.  wfsim_tpu's (L, Cn) int32
     ``noise_data`` becomes the channel-major int16 ``noise_bank``, and
     ``garfield_avgt`` is computed from ``garfield_t`` and ``gg_t_max`` from
-    the gas-gap tables and map.  Raises if the tree holds a field the port
+    the gas-gap tables and map; wfsim_tpu's 2-d constant dummy S2 spline
+    becomes the 1-d one the port builds (a 2-d S2 spline that is not
+    constant raises).  Raises if the tree holds a field the port
     does not carry."""
     device = torch.device(device)
     names = {f.name for f in dataclasses.fields(SimParams)}
@@ -531,6 +590,9 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
                 for part in ('values', 'lows', 'highs')))
         else:
             kw[name] = None
+    for name in ('s2_prop_top', 's2_prop_bottom'):
+        if kw[name] is not None and kw[name].ndim_in == 2:
+            kw[name] = _s2_spline_1d(kw[name])
     kw['garfield_avgt'] = table_mean_int(tree.get('garfield_t'))
     kw['gg_t_max'] = None
     if ('gg_inv_cdf' in tree and 'gg_gas_gap' in tree
@@ -539,3 +601,14 @@ def params_from_numpy(tree: ty.Dict[str, np.ndarray], const_fields: dict,
             tree['gg_inv_cdf'], tree['gg_gas_gap'],
             tree['garfield_gas_gap_map.values'])
     return SimParams(**kw), SimConstants(**const_fields)
+
+
+def _s2_spline_1d(g: GridMap) -> GridMap:
+    """wfsim_tpu's 2-d constant dummy S2 spline as the port's 1-d map of
+    the same value."""
+    v = g.values
+    if not bool((v == v.reshape(-1)[0]).all()):
+        raise ValueError('a 2-d S2 optical propagation spline that is not '
+                         'constant: the spline is a map over (u)')
+    return GridMap(v[:, 0].contiguous(), g.lows[:1].contiguous(),
+                   g.highs[:1].contiguous())

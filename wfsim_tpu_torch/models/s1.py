@@ -1,10 +1,13 @@
-"""S1 scintillation, ``simple``, ``custom`` and ``nest`` timing models
-(counterpart of wfsim_tpu/models/s1.py simulate_s1, s1.py:143-228;
-reference: wfsim/core/s1.py:60-238).
+"""S1 scintillation, ``simple``, ``custom``, ``nest`` and
+``optical_propagation`` timing models (counterpart of
+wfsim_tpu/models/s1.py simulate_s1, s1.py:143-228; reference:
+wfsim/core/s1.py:60-238).
 
 Detected photons per instruction are Binomial(amp, LCE/(1+p_dpe) * eff);
 channels come from an inverse-CDF draw on the pattern map; times add, per
-model, an exponential decay and a Gaussian spread (``simple``), the delay
+model, the optical propagation delay to the photon's array at the
+instruction's depth (``optical_propagation``, from the S1 spline), an
+exponential decay and a Gaussian spread (``simple``), the delay
 of the instruction's recoil class (``custom``: ER excimers and
 recombination, NR, alpha, LED) and a sample of the tabulated NEST
 photon-time distribution of the instruction's recoil class, field and
@@ -32,17 +35,16 @@ from .pmt import pmt_draws, pmt_response
 
 __all__ = ['simulate_s1', 's1_draws', 's1_photon_pass', 's1_n_photon_hits',
            's1_photon_times', 's1_photon_times_ref', 'masked_pattern',
-           'live_pattern', 'nest_inputs',
+           'live_pattern', 'nest_inputs', 'optical_delays', 'optical_on',
            's1_models', 'recoil_class', 'grid_pos', 'nest_delays',
            'nest_delays_ref', 'NestId', 'custom_delays', 'custom_delays_ref',
            'CUSTOM_DRAWS']
 
-#: the parts of an ``s1_model_type`` string (wfsim_tpu
-#: pipeline/rawdata.py:299-321); the port runs all but
-#: ``optical_propagation``
-S1_MODEL_PARTS = frozenset({'', 'simple', 'custom', 'optical_propagation',
-                            'nest'})
-PORTED_S1_MODELS = frozenset({'simple', 'custom', 'nest'})
+#: the timing models of an ``s1_model_type`` string (wfsim_tpu
+#: pipeline/rawdata.py:299-321), all of which the port runs
+PORTED_S1_MODELS = frozenset({'simple', 'custom', 'optical_propagation',
+                              'nest'})
+S1_MODEL_PARTS = PORTED_S1_MODELS | {''}
 
 #: the per-photon draws of the ``custom`` model, in wfsim_tpu's key order
 #: (s1.py:56-96: keys 5-15 of the chain): the ER primary-excimer uniform,
@@ -60,8 +62,7 @@ U_RECO_MIN = 1e-12
 def s1_models(model: str) -> frozenset:
     """The timing models named by ``model``: its parts split at '+',
     spaces and commas, as wfsim_tpu validates them.  Raises ValueError on
-    an unknown part and NotImplementedError on ``optical_propagation``,
-    which the port does not run."""
+    an unknown part."""
     parts = set()
     for part0 in str(model).split('+'):
         for part1 in part0.split(' '):
@@ -71,10 +72,6 @@ def s1_models(model: str) -> frozenset:
         raise ValueError(f'Model type {sorted(bad)} not in '
                          f'{sorted(S1_MODEL_PARTS)}')
     parts.discard('')
-    if parts - PORTED_S1_MODELS:
-        raise NotImplementedError(
-            f's1_model_type {model!r}: the port runs '
-            f'{sorted(PORTED_S1_MODELS)} and their combinations only')
     return frozenset(parts)
 
 
@@ -153,10 +150,18 @@ def reco_uniform(u: torch.Tensor) -> torch.Tensor:
     return torch.maximum(lo, u + lo)
 
 
+def optical_on(params, models) -> bool:
+    """Whether the photons take the optical propagation delay: the model
+    is named and its spline loaded (wfsim_tpu s1.py:174)."""
+    return 'optical_propagation' in models and params.s1_prop_top is not None
+
+
 def s1_draws(params, const, inst, gen) -> dict:
     """The yields and per-photon draws of an S1 batch, in the generator's
     order: the binomial photon counts ``n_hits``, then per photon the
-    channel uniform ``u_ch``, with ``simple`` timing the decay exponential
+    channel uniform ``u_ch``, with ``optical_propagation`` timing (and its
+    spline) the spline's uniform ``u_prop``, with ``simple`` timing the
+    decay exponential
     ``exp`` and the spread normal ``normal``, with ``custom`` timing the
     dict ``custom`` of the eleven :data:`CUSTOM_DRAWS` (the recombination
     uniform through :func:`reco_uniform`), with ``nest`` timing the
@@ -167,8 +172,10 @@ def s1_draws(params, const, inst, gen) -> dict:
     n_hits = s1_n_photon_hits(params, const, _positions(inst), inst['amp'],
                               gen)
     n = int(n_hits.sum())
-    d = dict(n_hits=n_hits, u_ch=uniform(gen, n, dev), exp=None,
-             normal=None, custom=None, u_nest=None)
+    d = dict(n_hits=n_hits, u_ch=uniform(gen, n, dev), u_prop=None,
+             exp=None, normal=None, custom=None, u_nest=None)
+    if optical_on(params, models):
+        d['u_prop'] = uniform(gen, n, dev)
     if 'simple' in models:
         d['exp'] = exponential(gen, n, dev)
         d['normal'] = normal(gen, n, dev)
@@ -462,6 +469,22 @@ def nest_inputs(params, const, inst):
             ei0, ei1, ew)
 
 
+def optical_delays(params, const, z, n_hits, ch, u):
+    """The S1 photons' optical propagation delays (wfsim_tpu s1.py:174-181;
+    reference s1.py:176-189): both splines at (the photon's instruction's
+    z, its uniform ``u``), the top one for a top-array channel (``ch <
+    n_top_pmts``, a photon without a channel included, as there), float32
+    (N,).  The photon total is ``u``'s length, so the card reads nothing
+    back."""
+    z_ph = torch.repeat_interleave(z, n_hits.to(torch.int64),
+                                   output_size=u.shape[0])
+    pts = torch.stack([z_ph, u], dim=1)
+    top, bottom = params.s1_prop_top(pts), params.s1_prop_bottom(pts)
+    if top.dim() > 1:
+        top, bottom = top[..., 0], bottom[..., 0]
+    return torch.where(ch < const.n_top_pmts, top, bottom)
+
+
 def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     """The S1 photons and truth of a batch given its draws
     (:func:`s1_draws`); a pure function of its arguments.
@@ -478,7 +501,12 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     """
     models = s1_models(const.s1_model_type)
     n_hits = draws['n_hits']
+    n = draws['u_ch'].shape[0]
     inst_edges = edges_from_counts(n_hits)
+    # channels from the pattern map (reference: s1.py:137-159)
+    ch = channel_draw(masked_pattern(params, params.s1_pattern,
+                                     _positions(inst)),
+                      inst_edges, draws['u_ch'])
     custom = nest = None
     if 'custom' in models:
         custom = custom_delays(recoil_class(inst['recoil']), inst_edges,
@@ -489,12 +517,10 @@ def s1_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     t, truth_row = s1_photon_times(
         inst['time'], inst_edges, inst['truth_row'], draws['exp'],
         draws['normal'], nest, custom, decay_time=const.s1_decay_time,
-        decay_spread=const.s1_decay_spread,
-        n_photons=draws['u_ch'].shape[0])
-    # channels from the pattern map (reference: s1.py:137-159)
-    ch = channel_draw(masked_pattern(params, params.s1_pattern,
-                                     _positions(inst)),
-                      inst_edges, draws['u_ch'])
+        decay_spread=const.s1_decay_spread, n_photons=n)
+    if optical_on(params, models):
+        t = t + trunc_int(optical_delays(params, const, inst['z'], n_hits,
+                                         ch, draws['u_prop']))
     row_edges = row_edges_of(inst['truth_row'], inst_edges, n_truth_rows)
     photons, truth = pmt_response(params, const, t, ch, ch >= 0, truth_row,
                                   draws['pmt'], n_truth_rows=n_truth_rows,

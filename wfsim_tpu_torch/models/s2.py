@@ -1,14 +1,17 @@
 """S2 electroluminescence (counterpart of wfsim_tpu/models/s2.py: inverse
-field-distortion correction, ``simple``, ``garfield`` and
+FDC and COMSOL field distortion, the field-dependency maps (drift speed,
+longitudinal and transverse diffusion, survival), the se-gain and
+extraction maps, ``simple`` (with gas-gap warping), ``garfield`` and
 ``garfield_gas_gap`` luminescence, transverse diffusion of the pattern,
-AFT smearing, ``s2_time_spread`` timing; reference: wfsim/core/s2.py).
+AFT smearing, ``s2_time_spread`` and optical-propagation timing;
+reference: wfsim/core/s2.py).
 
-Electrons per instruction survive extraction and the drift lifetime
-(binomial), arrive with trapping and longitudinal diffusion, and each
-makes Poisson(sc_gain) photons; photons get a channel from the pattern
-map (averaged over the transversely diffused electron positions, its
-area fraction top smeared), a luminescence time, a gas-excimer delay and
-the S2 time spread.
+Electrons per instruction survive extraction, the drift lifetime and the
+survival map (binomial), arrive with trapping and longitudinal diffusion,
+and each makes Poisson(sc_gain) photons; photons get a channel from the
+pattern map (averaged over the transversely diffused electron positions,
+its area fraction top smeared), a luminescence time, a gas-excimer delay
+and the S2 time spread or the optical propagation delay of their array.
 
 :func:`simulate_s2` is :func:`s2_draws`, which makes the yields and every
 per-electron, per-instruction and per-photon draw from the generator,
@@ -37,7 +40,7 @@ from ..ops.randsample import (channel_draw, search_sorted_rows, binomial,
                               poisson, uniform, normal, exponential)
 from ..ops.segment import segment_ids_from_counts, edges_from_counts
 from .common import (f32, singlet_triplet_delays, skew_normal, sqrt_f32,
-                     trunc_int, check_edges, check_segments)
+                     trunc_int, rz_lookup, check_edges, check_segments)
 from .pmt import pmt_draws, pmt_response, photon_time_stats
 from .s1 import live_pattern, row_edges_of
 
@@ -46,7 +49,10 @@ __all__ = ['simulate_s2', 's2_draws', 's2_photon_pass', 's2_edges',
            'luminescence_tables_ref', 'lumi_sequential_rows',
            'lumi_sequential_rows_ref', 's2_electron_times',
            's2_electron_times_ref', 's2_photon_times', 's2_photon_times_ref',
-           'get_s2_drift_time_params', 'inverse_field_distortion_correction',
+           'get_s2_drift_time_params', 'get_avg_drift_velocity',
+           'electron_yield_probability', 'get_s2_light_yield',
+           'inverse_field_distortion_correction', 'field_distortion_comsol',
+           's2_time_mode', 'optical_delays',
            's2_positions', 'gasgap_rows', 'lumi_gasgap_times',
            'lumi_gasgap_times_ref', 'diffusion_inputs', 'pattern_diffuse',
            'pattern_diffuse_ref', 'diffuse_chunks', 's2_pattern', 'aft_smear',
@@ -64,32 +70,41 @@ Q = 1024
 FIXED_POINT_SCALE = 2.0 ** 32
 
 
+#: the ``s2_time_model`` parts wfsim_tpu runs (s2.py:504-515)
+S2_TIME_MODELS = ('optical_propagation', 'zero_delay',
+                  's2_time_spread around zero')
+
+
 def check_supported(const):
-    """Raise on an S2 switch the port does not run."""
-    for ok, what in (
-            (const.field_distortion_model in ('none', 'inverse_fdc'),
-             'COMSOL field distortion'),
-            (not const.enable_gas_gap_warping, 'gas-gap warping'),
-            (not (const.en_drift_speed or const.en_diff_long
-                  or const.en_survival_prob or const.en_diff_trans),
-             'field-dependency maps'),
-            (not const.se_gain_from_map and not const.ext_eff_from_map,
-             'se-gain / extraction maps'),
-            ('optical_propagation' not in const.s2_time_model,
-             'S2 optical propagation')):
-        if not ok:
-            raise NotImplementedError(f'the port has no {what} yet')
+    """Raise KeyError on an S2 model string wfsim_tpu does not run."""
     if const.s2_luminescence_model not in LUMINESCENCE_MODELS:
         raise KeyError(f'{const.s2_luminescence_model} is not a valid '
                        f's2_luminescence_model')
-    if 's2_time_spread around zero' not in const.s2_time_model \
-            and 'zero_delay' not in const.s2_time_model:
+    if not any(m in const.s2_time_model for m in S2_TIME_MODELS):
         raise KeyError(f'{const.s2_time_model} is not a valid s2_time_model')
 
 
+def s2_time_mode(params, const) -> str:
+    """The photon-time term of the S2 chain (wfsim_tpu s2.py:504-515):
+    'optical' (an ``optical_propagation`` model with its spline loaded),
+    else 'zero' (``zero_delay``), else 'spread' (``s2_time_spread around
+    zero``); KeyError otherwise, as there."""
+    model = const.s2_time_model
+    if 'optical_propagation' in model and params.s2_prop_top is not None:
+        return 'optical'
+    if 'zero_delay' in model:
+        return 'zero'
+    if 's2_time_spread around zero' in model:
+        return 'spread'
+    raise KeyError(f'{model} is not a valid s2_time_model')
+
+
 def diffusion_on(const) -> bool:
-    """Transverse diffusion of the pattern (reference: s2.py:637-640)."""
-    return const.diffusion_constant_transverse > 0
+    """Transverse diffusion of the pattern: a constant diffusion
+    coefficient (reference: s2.py:637-640), or the radial and azimuthal
+    diffusion maps (``enable_field_dependencies['diffusion_transverse_map']``,
+    wfsim_tpu s2.py:473-477)."""
+    return const.diffusion_constant_transverse > 0 or const.en_diff_trans
 
 
 # ---------------------------------------------------------------------------
@@ -116,25 +131,110 @@ def inverse_field_distortion_correction(params, x, y, z):
     return z_obs, torch.stack([x_obs, y_obs], dim=1)
 
 
+def unit_azimuth(x, y):
+    """``(cos, sin)`` of the azimuth of (x, y) as x / r and y / r, (1, 0)
+    at r = 0 as ``arctan2(0, 0) = 0`` gives: IEEE division and square root
+    give the same bits on the CPU and the card, torch's transcendental
+    functions do not (they differ from wfsim_tpu's in the last bit)."""
+    r = sqrt_f32(x * x + y * y)
+    inner = r > 0
+    safe_r = torch.where(inner, r, 1.0)
+    return (torch.where(inner, x / safe_r, 1.0),
+            torch.where(inner, y / safe_r, 0.0))
+
+
+def field_distortion_comsol(params, x, y, z):
+    """COMSOL field distortion (reference: s2.py:55-71; wfsim_tpu
+    s2.py:57): the observed radius from the (r, z) map, at the
+    interaction's azimuth; ``(z, xy_obs (I, 2))``.  The azimuth enters as
+    x / r and y / r (:func:`unit_azimuth`), not as cos and sin of
+    ``arctan2(y, x)``, so r = 0 gives (r_obs, 0)."""
+    r_obs = rz_lookup(params.fd_comsol, z, torch.stack([x, y], dim=1))
+    cos_t, sin_t = unit_azimuth(x, y)
+    return z, torch.stack([r_obs * cos_t, r_obs * sin_t], dim=1)
+
+
 def s2_positions(params, const, inst):
     """(z, xy (I, 2)) where the electrons are observed: after the inverse
-    field-distortion correction when it is on, else the interaction
-    position (wfsim_tpu s2.py:397-404)."""
-    if const.field_distortion_model == 'inverse_fdc' \
-            and params.fdc_3d is not None:
+    field-distortion correction or the COMSOL distortion when it is on,
+    else the interaction position (wfsim_tpu s2.py:397-404)."""
+    fdm = const.field_distortion_model
+    if fdm == 'inverse_fdc' and params.fdc_3d is not None:
         return inverse_field_distortion_correction(params, inst['x'],
                                                    inst['y'], inst['z'])
+    if fdm == 'comsol' and params.fd_comsol is not None:
+        return field_distortion_comsol(params, inst['x'], inst['y'],
+                                       inst['z'])
     return inst['z'], torch.stack([inst['x'], inst['y']], dim=1)
 
 
-def get_s2_drift_time_params(const, z_int):
-    """Mean drift time and longitudinal-diffusion spread
-    (reference: s2.py:157-179) at the configured drift velocity."""
-    v = f32(const.drift_velocity_liquid, z_int)
-    dlong = const.diffusion_constant_longitudinal
+def _first(m):
+    """A map's first output: (n,) from (n, out_dim), or (n,) as it is."""
+    return m[..., 0] if m.dim() > 1 else m
+
+
+def get_avg_drift_velocity(params, const, z, xy):
+    """Drift velocity at (z, xy) (reference: s2.py:138-155; wfsim_tpu
+    s2.py:71): the drift-speed map's, in 1e-4 cm/ns, times the
+    ``norm_drift_velocity`` scaling, where the map is on; else the
+    configured one, a float32 constant."""
+    if const.en_drift_speed and params.drift_speed_map is not None:
+        v = rz_lookup(params.drift_speed_map, z, xy)
+        return v * 1e-4 * const.drift_velocity_scaling
+    return torch.full_like(z, const.drift_velocity_liquid)
+
+
+def get_s2_drift_time_params(params, const, z_int, xy_int):
+    """Mean drift time and longitudinal-diffusion spread at the
+    interaction (reference: s2.py:157-179; wfsim_tpu s2.py:81), the
+    diffusion coefficient from its map where that is on."""
+    v = get_avg_drift_velocity(params, const, z_int, xy_int)
+    if const.en_diff_long and params.diffusion_long_map is not None:
+        dlong = rz_lookup(params.diffusion_long_map, z_int, xy_int)
+    else:
+        dlong = const.diffusion_constant_longitudinal
     drift_time_mean = torch.clamp_min(-z_int / v + const.drift_time_gate, 0.0)
     drift_time_spread = sqrt_f32(2 * dlong * drift_time_mean) / v
     return drift_time_mean, drift_time_spread
+
+
+def get_s2_light_yield(params, const, positions):
+    """Photons per extracted electron (reference: s2.py:181-209; wfsim_tpu
+    s2.py:96): the se-gain map where ``se_gain_from_map`` is on, else the
+    S2 correction map times ``s2_secondary_sc_gain``; over 1 + p_dpe, NaN
+    as 0."""
+    if const.se_gain_from_map and params.se_gain is not None:
+        sc_gain = _first(params.se_gain(positions))
+    else:
+        sc_gain = (_first(params.s2_correction(positions))
+                   * const.s2_secondary_sc_gain)
+    return torch.nan_to_num(
+        sc_gain / f32(1 + const.p_double_pe_emision, sc_gain), nan=0.0)
+
+
+def electron_yield_probability(params, const, z_int, xy_int, positions):
+    """An electron's probability to be extracted (reference:
+    s2.py:211-256; wfsim_tpu s2.py:111): the extraction yield (with
+    ``ext_eff_from_map``, g2 times the S2 correction over the se gain)
+    times the lifetime survival over the mean drift time, times the
+    survival map clipped to [0, 1] where that is on."""
+    drift_time_mean, _ = get_s2_drift_time_params(params, const, z_int,
+                                                  xy_int)
+    if const.ext_eff_from_map:
+        rel_s2_cor = _first(params.s2_correction(positions))
+        if const.se_gain_from_map and params.se_gain is not None:
+            se_gains = _first(params.se_gain(positions))
+        else:
+            se_gains = rel_s2_cor * const.s2_secondary_sc_gain
+        cy = const.g2_mean * rel_s2_cor / torch.clamp_min(se_gains, 1e-30)
+    else:
+        cy = torch.full_like(z_int, const.electron_extraction_yield)
+    cy = cy * torch.exp(-drift_time_mean
+                        / f32(const.electron_lifetime_liquid, z_int))
+    if const.en_survival_prob and params.survival_prob_map is not None:
+        p_surv = rz_lookup(params.survival_prob_map, z_int, xy_int)
+        cy = cy * torch.clamp(p_surv, 0.0, 1.0)
+    return cy
 
 
 # ---------------------------------------------------------------------------
@@ -604,24 +704,25 @@ def lumi_garfield_times(table, x_axis, xy, ph_edges, cols, u_wire=None, *,
 # transverse diffusion of the pattern (K12b) and AFT smearing
 
 
-def diffusion_inputs(const, z, xy):
+def diffusion_inputs(params, const, z, xy):
     """Per instruction the radial and azimuthal spreads of the electrons
     after the drift, and the cosine and sine of the azimuth (wfsim_tpu
-    s2.py:309-327): ``(std_r, std_a, cos, sin)`` float32.  The azimuth
-    enters as x / r and y / r, not as cos(arctan2(y, x)): IEEE division and
-    square root give the same bits on the CPU and the card, torch's
-    transcendental functions do not (they differ from wfsim_tpu's in the
-    last bit)."""
-    x, y = xy[:, 0], xy[:, 1]
-    d_t = torch.full_like(z, const.diffusion_constant_transverse)
-    drift_time_mean = -z / f32(const.drift_velocity_liquid, z)
-    std = sqrt_f32(2 * d_t * torch.clamp_min(drift_time_mean, 0.0))
-    r = sqrt_f32(x * x + y * y)
-    inner = r > 0
-    safe_r = torch.where(inner, r, 1.0)
-    cos_t = torch.where(inner, x / safe_r, 1.0)
-    sin_t = torch.where(inner, y / safe_r, 0.0)
-    return std, std, cos_t, sin_t
+    s2.py:309-327): ``(std_r, std_a, cos, sin)`` float32.  The drift
+    velocity and, where the transverse-diffusion maps are on, the radial
+    and azimuthal diffusion coefficients (their maps' values times 1e-9)
+    are taken at the observed (z, xy); else both coefficients are
+    ``diffusion_constant_transverse``.  The azimuth enters as x / r and
+    y / r (:func:`unit_azimuth`), not as cos(arctan2(y, x))."""
+    v = get_avg_drift_velocity(params, const, z, xy)
+    if const.en_diff_trans and params.diffusion_radial_map is not None:
+        d_rad = rz_lookup(params.diffusion_radial_map, z, xy) * 1e-9
+        d_azi = rz_lookup(params.diffusion_azimuthal_map, z, xy) * 1e-9
+    else:
+        d_rad = d_azi = torch.full_like(z, const.diffusion_constant_transverse)
+    drift_time_mean = torch.clamp_min(-z / v, 0.0)
+    std_r = sqrt_f32(2 * d_rad * drift_time_mean)
+    std_a = std_r if d_azi is d_rad else sqrt_f32(2 * d_azi * drift_time_mean)
+    return (std_r, std_a, *unit_azimuth(xy[:, 0], xy[:, 1]))
 
 
 def pattern_diffuse_ref(pattern_map, x, y, std_r, std_a, cos_t, sin_t,
@@ -767,7 +868,7 @@ def s2_pattern(params, const, z, xy, e_edges, draws):
     diffusion is on, then AFT-smeared when ``s2_aft_sigma`` is set
     (wfsim_tpu s2.py:355-374, 470-475)."""
     if diffusion_on(const):
-        std_r, std_a, cos_t, sin_t = diffusion_inputs(const, z, xy)
+        std_r, std_a, cos_t, sin_t = diffusion_inputs(params, const, z, xy)
         pattern = pattern_diffuse(
             params.s2_pattern, xy[:, 0].contiguous(), xy[:, 1].contiguous(),
             std_r, std_a, cos_t, sin_t, const.tpc_radius ** 2, e_edges,
@@ -811,7 +912,8 @@ def s2_draws(params, const, inst, gen) -> dict:
     an S2 batch, in the generator's order (reference: s2.py:211-315,
     503-557, 559-672):
 
-    - ``n_electron`` (I,): Binomial(amp, extraction x lifetime survival);
+    - ``n_electron`` (I,): Binomial(amp,
+      :func:`electron_yield_probability`);
     - per electron ``e_exp`` (trapping) and ``e_normal`` (diffusion);
     - ``n_ph_per_e`` (E,): Poisson(sc_gain), plus the truncated
       ``s2_gain_spread`` normal where it is on, clamped at 0 (the photon
@@ -827,28 +929,23 @@ def s2_draws(params, const, inst, gen) -> dict:
       instruction's wire uniform ``u_wire`` (only where
       ``s2_garfield_confine_position`` > 0) and the table column ``col``
       (int64 per photon); then per photon ``u_st`` and ``exp_st``
-      (singlet/triplet), ``t_spread`` (the s2_time_spread normal, None
-      under ``zero_delay``) and ``pmt`` (:func:`pmt_draws`).
+      (singlet/triplet), the time term's draw (:func:`s2_time_mode`: the
+      s2_time_spread normal ``t_spread``, or the optical propagation
+      uniform ``u_prop``; neither under ``zero_delay``) and ``pmt``
+      (:func:`pmt_draws`).
 
     A switch that is off takes no draws (None).  The dict also carries the
     observed position ``z_obs``, ``xy_obs`` (:func:`s2_positions`): no draw,
-    but the S2 correction gain needs it here and the pass reads it, so the
-    inverse field-distortion correction runs once."""
+    but the light yield needs it here and the pass reads it, so the
+    field distortion runs once."""
     dev = inst['x'].device
     z = inst['z']
     z_obs, positions = s2_positions(params, const, inst)
-    drift_time_mean, _ = get_s2_drift_time_params(const, z)
-    cy = torch.full_like(z, const.electron_extraction_yield)
-    cy = cy * torch.exp(-drift_time_mean
-                        / f32(const.electron_lifetime_liquid, z))
+    cy = electron_yield_probability(
+        params, const, z, torch.stack([inst['x'], inst['y']], dim=1),
+        positions)
     n_electron = binomial(gen, inst['amp'], cy)
-
-    sc_gain = params.s2_correction(positions)
-    if sc_gain.dim() > 1:
-        sc_gain = sc_gain[..., 0]
-    sc_gain = sc_gain * const.s2_secondary_sc_gain
-    sc_gain = torch.nan_to_num(
-        sc_gain / f32(1 + const.p_double_pe_emision, sc_gain), nan=0.0)
+    sc_gain = get_s2_light_yield(params, const, positions)
 
     if diffusion_on(const):
         n_e, n_split = torch.stack([n_electron.sum(),
@@ -885,9 +982,9 @@ def s2_draws(params, const, inst, gen) -> dict:
     else:
         d['u_lum'] = uniform(gen, n, dev)
     d.update(u_st=uniform(gen, n, dev), exp_st=exponential(gen, n, dev))
-    d['t_spread'] = (normal(gen, n, dev)
-                     if 's2_time_spread around zero' in const.s2_time_model
-                     else None)
+    mode = s2_time_mode(params, const)
+    d['t_spread'] = normal(gen, n, dev) if mode == 'spread' else None
+    d['u_prop'] = uniform(gen, n, dev) if mode == 'optical' else None
     d['pmt'] = pmt_draws(gen, n, dev)
     return d
 
@@ -1071,6 +1168,16 @@ def mean_electron_position(xy, truth_row, n_truth_rows: int):
     return out
 
 
+def optical_delays(params, const, ch, u):
+    """The S2 photons' optical propagation delays (wfsim_tpu s2.py:504-509;
+    reference s2.py:517-527): both splines at each photon's uniform ``u``,
+    the top one for a top-array channel (``ch < n_top_pmts``, a photon
+    without a channel included, as there), float32 (N,)."""
+    pts = u[:, None]
+    return torch.where(ch < const.n_top_pmts, _first(params.s2_prop_top(pts)),
+                       _first(params.s2_prop_bottom(pts)))
+
+
 def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     """The S2 photons and truth of a batch given its draws
     (:func:`s2_draws`); a pure function of its arguments (inst as in
@@ -1083,7 +1190,8 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     n_inst = inst['x'].shape[0]
     z_obs, positions = draws['z_obs'], draws['xy_obs']
     e_edges, e_ph_edges, ph_edges = s2_edges(draws)
-    mean, spread = get_s2_drift_time_params(const, inst['z'])
+    mean, spread = get_s2_drift_time_params(
+        params, const, inst['z'], torch.stack([inst['x'], inst['y']], dim=1))
     e_t, e_row = s2_electron_times(
         inst['time'], e_edges, mean, spread, draws['e_exp'],
         draws['e_normal'], inst['truth_row'],
@@ -1105,15 +1213,26 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
             tilt=const.anode_xaxis_angle, pitch=const.anode_pitch,
             confine=const.s2_garfield_confine_position)
     else:
-        lum['inv'] = luminescence_tables(const, n_inst, dev)
+        # gas-gap warping: each instruction's gas gap at its observed
+        # position (wfsim_tpu s2.py:183-188)
+        dG = None
+        if const.enable_gas_gap_warping and params.gas_gap_map is not None:
+            dG = _first(params.gas_gap_map(positions)).contiguous()
+        lum['inv'] = luminescence_tables(const, n_inst, dev, dG)
         lum['u_lum'] = draws['u_lum']
+    # the time term: the spread normal times s2_time_spread, or the optical
+    # delay times 1 (exact in float32, so the kernel adds trunc(delay))
+    t_spread, time_spread = draws['t_spread'], const.s2_time_spread
+    if s2_time_mode(params, const) == 'optical':
+        t_spread, time_spread = optical_delays(params, const, ch,
+                                               draws['u_prop']), 1.0
     t, truth_row = s2_photon_times(
         lum['inv'], e_edges, e_ph_edges, e_t, inst['truth_row'],
-        lum['u_lum'], draws['u_st'], draws['exp_st'], draws['t_spread'],
+        lum['u_lum'], draws['u_st'], draws['exp_st'], t_spread,
         singlet_fraction=const.singlet_fraction_gas,
         t_singlet=const.singlet_lifetime_gas,
         t_triplet=const.triplet_lifetime_gas,
-        time_spread=const.s2_time_spread, t_lum=lum['t_lum'])
+        time_spread=time_spread, t_lum=lum['t_lum'])
 
     row_edges = row_edges_of(inst['truth_row'], ph_edges, n_truth_rows)
     photons, truth = pmt_response(params, const, t, ch, ch >= 0, truth_row,
@@ -1126,7 +1245,7 @@ def s2_photon_pass(params, const, inst, draws, *, n_truth_rows: int):
     n_el = torch.zeros(n_truth_rows, dtype=torch.int64, device=dev)
     n_el.index_add_(0, inst['truth_row'], draws['n_electron'].to(torch.int64))
     truth['n_electron'] = n_el
-    if const.field_distortion_model == 'inverse_fdc':
+    if const.field_distortion_model in ('inverse_fdc', 'comsol'):
         truth['x_mean_electron'], truth['y_mean_electron'] = \
             mean_electron_position(positions, inst['truth_row'], n_truth_rows)
     return photons, truth, ph_edges[1:] - ph_edges[:-1]

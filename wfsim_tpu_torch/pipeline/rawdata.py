@@ -91,7 +91,7 @@ from ..models.afterpulse import (pmt_ap_draws, pmt_afterpulse_photons,
 from ..models.params import build_params, build_constants
 from ..models.pmt import PER_PMT_SUMS
 from ..models.s1 import simulate_s1, s1_models
-from ..models.s2 import simulate_s2, check_supported
+from ..models.s2 import simulate_s2, check_supported, s2_time_mode
 from ..resources.loader import load_config
 from ..parallel.sharding import EventsComm, seeded_generator
 from .digitize import (gather_digitize, pack_records, noise_on, full_grid,
@@ -162,6 +162,7 @@ class RawData:
         # rawdata.py:299-321)
         s1_models(self.const.s1_model_type)
         check_supported(self.const)
+        s2_time_mode(self.params, self.const)
         seed = self.config.get('seed') or 0
         if self.comm is not None and not seed:
             raise ValueError('a mesh run needs config["seed"]: every rank '

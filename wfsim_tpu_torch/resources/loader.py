@@ -6,11 +6,16 @@ runs: ``['constant dummy', value, shape]`` map entries and map files
 pattern maps; npy/npz/pkl payloads), the derived S1 LCE and S2
 correction maps and the S2 area-fraction-top rescale, the SPE table (a
 measured spectrum csv or the synthetic one), the ``garfield_gas_gap``
-luminescence tables, the inverse-FDC map and, when enabled, the
-PMT-afterpulse CDFs and the noise bank (a resource file or the synthetic
-asset), the synthetic electron-afterpulse PMF and the ``garfield``
-wire-distance luminescence table (an in-memory ``{'t', 'x'}`` table or a
-file, of whose liquid levels ``ll`` the nearest one is taken)
+luminescence tables, the inverse-FDC and COMSOL field-distortion maps,
+the gas-gap map of gas-gap warping, the field-dependency maps (drift
+speed, survival probability, radial and azimuthal diffusion; a constant
+dummy becomes four constant maps) with the ``norm_drift_velocity``
+scaling, the longitudinal-diffusion map, the S1 and S2 optical
+propagation splines and, when enabled, the PMT-afterpulse CDFs and the
+noise bank (a resource file or the synthetic asset), the synthetic
+electron-afterpulse PMF and the ``garfield`` wire-distance luminescence
+table (an in-memory ``{'t', 'x'}`` table or a file, of whose liquid
+levels ``ll`` the nearest one is taken)
 (wfsim_tpu/resources/loader.py:141-575).  Every map is a
 :class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 tensors; the
 device copy is made by ``models.params.build_params``.
@@ -19,9 +24,8 @@ Files resolve from an absolute path or a local search directory
 (``url_base`` when it is a directory, ``$WFSIM_TPU_AUX_DIR``); the remote
 fetch of wfsim_tpu is not ported, so a file found nowhere raises
 ``FileNotFoundError``, where wfsim_tpu falls back to the synthetic asset.
-Not ported yet (each raises ``NotImplementedError``): electron-afterpulse
-files (pickles of a class object), COMSOL field distortion,
-field-dependency maps, gas-gap warping and optical propagation splines.
+Electron-afterpulse files (pickles of a class object) are not read: they
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import pickle
 import numpy as np
 import torch
 
-from ..ops.interp import GridMap, regrid_scattered
+from ..ops.interp import GridMap, grid_lookup_ref, regrid_scattered
 from .spe import build_uniform_to_pe, spe_table_from_csv
 from . import synthetic as synth
 
@@ -266,32 +270,11 @@ def as_gridmap(m, ndim_in=2):
     return m
 
 
-_UNSUPPORTED = (
-    ('field_distortion_model', lambda v: v not in (None, 'none',
-                                                   'inverse_fdc'),
-     'COMSOL field-distortion map'),
-    ('enable_gas_gap_warping', bool, 'gas-gap map'),
-    ('s1_time_spline', bool, 'S1 optical propagation spline'),
-    ('s2_time_spline', bool, 'S2 optical propagation spline'),
-    # norm_drift_velocity alone keeps the constant drift, as in wfsim_tpu
-    # (its loader reads the maps only for another key)
-    ('enable_field_dependencies',
-     lambda v: isinstance(v, dict) and any(
-         bool(x) for k, x in v.items() if k != 'norm_drift_velocity'),
-     'field-dependency maps'),
-)
-
-
 class Resource:
     """All in-memory assets for one configuration (wfsim_tpu
     resources.loader.Resource for the ported paths)."""
 
     def __init__(self, config):
-        for key, bad, what in _UNSUPPORTED:
-            if bad(config.get(key)):
-                raise NotImplementedError(
-                    f'{key}={config.get(key)!r} needs the {what}, which the '
-                    f'port does not load yet')
         n_pmts = int(config['n_tpc_pmts'])
         n_top = int(config['n_top_pmts'])
         pmt_mask = np.asarray(config['gains'], dtype=np.float64) > 0
@@ -380,6 +363,30 @@ class Resource:
                 self.fdc_3d.lows = torch.minimum(lo, hi)
                 self.fdc_3d.highs = torch.maximum(lo, hi)
 
+        # COMSOL field distortion (wfsim_tpu loader.py:480-482): the
+        # observed radius over (r, z)
+        self.fd_comsol = None
+        if config.get('field_distortion_model') == 'comsol':
+            self.fd_comsol = make_map(config.get('field_distortion_comsol_map'),
+                                      config)
+
+        # gas-gap warping (wfsim_tpu loader.py:484-487): the gas gap over
+        # (x, y), by default the constant elr_gas_gap_length
+        self.gas_gap_length = None
+        if config.get('enable_gas_gap_warping', False):
+            self.gas_gap_length = make_map(config.get(
+                'gas_gap_map', ['constant dummy',
+                                config.get('elr_gas_gap_length', 0.25), []]),
+                config)
+
+        self._field_dependencies(config)
+
+        # optical propagation splines (wfsim_tpu loader.py:538-543)
+        for k in ('s1', 's2'):
+            entry = config.get(k + '_time_spline', False)
+            setattr(self, k + '_optical_propagation_spline',
+                    make_map(entry, config) if entry else None)
+
         # SPE gain table (wfsim_tpu loader.py:552-562): a measured
         # spectrum csv, else the synthetic spectrum
         if _names_file(config, 'photon_area_distribution'):
@@ -421,6 +428,44 @@ class Resource:
                     int(config.get('n_digitizer_channels', n_pmts)))
             else:
                 self.noise_bank = synthetic_noise_bank(n_pmts)
+
+    def _field_dependencies(self, config):
+        """The field-dependency maps (wfsim_tpu loader.py:489-509): read
+        where a key other than ``norm_drift_velocity`` is on, a constant
+        dummy becoming the four named constant (r, z) maps; then the
+        ``norm_drift_velocity`` scaling, the configured drift velocity over
+        the map's at (r, z) = (0, -tpc_length) (1.0 without it; where only
+        ``norm_drift_velocity`` is on, nothing is read and the drift stays
+        constant, as in wfsim_tpu); and the longitudinal-diffusion map."""
+        efd = config.get('enable_field_dependencies', {})
+        self.field_dependencies_map = self.drift_velocity_scaling = None
+        self.diffusion_longitudinal_map = None
+        if not isinstance(efd, dict):
+            return
+        if any(bool(v) for k, v in efd.items() if k != 'norm_drift_velocity'):
+            m = make_map(config.get('field_dependencies_map'), config)
+            if isinstance(m, DummyMap):
+                m = MultiMap({n: GridMap.constant(m.const, 1, 2)
+                              for n in FIELD_MAP_NAMES},
+                             default='survival_probability_map')
+            self.field_dependencies_map = m
+            self.drift_velocity_scaling = 1.0
+            if efd.get('norm_drift_velocity', False):
+                g = m.maps['drift_speed_map']
+                norm = float(grid_lookup_ref(
+                    g.values, g.lows, g.highs,
+                    torch.tensor([[0.0, -config['tpc_length']]]))[0]) * 1e-4
+                self.drift_velocity_scaling = (
+                    config['drift_velocity_liquid'] / norm)
+        if efd.get('diffusion_longitudinal_map', False):
+            self.diffusion_longitudinal_map = make_map(
+                config.get('diffusion_longitudinal_map'), config)
+
+
+#: the maps of a ``field_dependencies_map`` file (wfsim_tpu
+#: loader.py:494-499)
+FIELD_MAP_NAMES = ('drift_speed_map', 'survival_probability_map',
+                   'diffusion_radial_map', 'diffusion_azimuthal_map')
 
 
 def garfield_table(config):

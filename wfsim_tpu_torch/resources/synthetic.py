@@ -16,6 +16,7 @@ __all__ = [
     'synthetic_ele_ap_pmf', 'synthetic_garfield_gas_gap',
     'write_pattern_map', 'write_production_files', 'PRODUCTION_FILES',
     'synthetic_garfield_table', 'write_garfield_table', 'GARFIELD_LEVELS',
+    'write_field_maps', 'FIELD_MAP_FILES',
 ]
 
 
@@ -264,4 +265,112 @@ def write_production_files(aux_dir, seed: int, *, noise_length: int = 100_000):
         for i, q in enumerate(charge):
             out.writerow([repr(float(q))] + [repr(float(v))
                                              for v in pdfs[:, i]])
+    return paths
+
+
+#: file names of :func:`write_field_maps`, by config key
+FIELD_MAP_FILES = dict(s1_time_spline='s1_time_spline.json',
+                       s2_time_spline='s2_time_spline.json',
+                       field_distortion_comsol_map='fd_comsol.json',
+                       gas_gap_map='gas_gap.json',
+                       field_dependencies_map='field_dependencies.json',
+                       diffusion_longitudinal_map='diffusion_longitudinal.json',
+                       se_gain_map='se_gain.json')
+
+
+def _write_regular_map(path, axes, maps, name):
+    """One straxen regular-grid InterpolatingMap JSON file: ``axes`` a list
+    of (name, (low, high, n)), ``maps`` {map name: float32 values shaped
+    by the axes}."""
+    import json
+    payload = {'coordinate_system': [[a, [float(lo), float(hi), int(n)]]
+                                     for a, (lo, hi, n) in axes]}
+    for k, v in maps.items():
+        payload[k] = np.asarray(v, dtype=np.float32).tolist()
+    payload.update(name=name, description=f'synthetic {name}')
+    with open(path, 'w') as f:
+        json.dump(payload, f)
+
+
+def write_field_maps(aux_dir, seed: int):
+    """Write the map files of the ``field_maps`` configuration (see
+    ``config.field_maps_overrides``) into ``aux_dir``, each in straxen's
+    regular-grid JSON layout, with smooth values that vary across the
+    grid (so every lookup interpolates) and seeded coefficients.  The
+    shapes and magnitudes are illustrative, not a calibration:
+
+    - ``s1_time_spline.json``: maps ``top`` and ``bottom`` over (z, u),
+      z in [-100, 0] cm, u in [0, 1]: an S1 photon's optical propagation
+      delay at quantile u, increasing in u, ~1-40 ns, longer to the top
+      array from deep interactions and to the bottom from shallow ones;
+    - ``s2_time_spline.json``: ``top`` and ``bottom`` over (u): the S2
+      photon's delay, ~0-25 ns, increasing in u;
+    - ``fd_comsol.json``: ``map`` over (r, z), r in [0, 70] cm: the
+      observed radius, pulled inward by up to ~7 % at the wall and depth;
+    - ``gas_gap.json``: ``map`` over (x, y) in [-70, 70] cm: the gas gap,
+      0.23-0.29 cm, sagging towards the centre;
+    - ``field_dependencies.json``: over (r, z), ``drift_speed_map``
+      (1.3-1.7, in units of 10^-4 cm/ns), ``survival_probability_map``
+      (0.85-1.0), ``diffusion_radial_map`` and ``diffusion_azimuthal_map``
+      (~40-60, in units of 10^-9 cm^2/ns);
+    - ``diffusion_longitudinal.json``: ``map`` over (r, z), 2.5e-8 to
+      3.5e-8 cm^2/ns;
+    - ``se_gain.json``: ``map`` over (x, y), 28-34 photons an electron.
+
+    Returns {config key: path} (:data:`FIELD_MAP_FILES`)."""
+    from pathlib import Path
+    aux = Path(aux_dir)
+    aux.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(aux / name) for k, name in FIELD_MAP_FILES.items()}
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.9, 1.1, 12)
+
+    def grid(*specs):
+        return np.meshgrid(*(np.linspace(lo, hi, n) for lo, hi, n in specs),
+                           indexing='ij')
+
+    zu = ((-100.0, 0.0, 21), (0.0, 1.0, 51))
+    z, u = grid(*zu)
+    depth = -z / 100.0
+    _write_regular_map(paths['s1_time_spline'], list(zip('zu', zu)), {
+        'top': 1.0 + c[0] * 20.0 * u ** 1.5 * (1 + 0.6 * depth),
+        'bottom': 0.5 + c[1] * 14.0 * u ** 1.5 * (1.6 - 0.6 * depth)},
+        'S1 optical propagation spline')
+    u1 = (0.0, 1.0, 101)
+    (u,) = grid(u1)
+    _write_regular_map(paths['s2_time_spline'], [('u', u1)], {
+        'top': c[2] * 2.0 * -np.log1p(-0.999 * u),
+        'bottom': c[3] * (3.0 + 18.0 * u ** 2)},
+        'S2 optical propagation spline')
+
+    rz = ((0.0, 70.0, 36), (-100.0, 0.0, 21))
+    r, z = grid(*rz)
+    depth = -z / 100.0
+    frac = r / 70.0
+    _write_regular_map(paths['field_distortion_comsol_map'],
+                       list(zip('rz', rz)),
+                       {'map': r * (1 - c[4] * 0.07 * frac * (0.3 + depth))},
+                       'COMSOL field distortion')
+    _write_regular_map(paths['field_dependencies_map'], list(zip('rz', rz)), {
+        'drift_speed_map': 1.5 + c[5] * 0.2 * (0.5 - depth) * (1 - 0.5 * frac)
+        - 0.1 * frac ** 2,
+        'survival_probability_map': 1.0 - c[6] * 0.15 * depth * (0.5 + 0.5 * frac),
+        'diffusion_radial_map': c[7] * (45.0 + 10.0 * depth + 5.0 * frac),
+        'diffusion_azimuthal_map': c[8] * (48.0 + 6.0 * depth - 4.0 * frac)},
+        'field dependencies')
+    _write_regular_map(paths['diffusion_longitudinal_map'],
+                       list(zip('rz', rz)),
+                       {'map': c[9] * (2.7e-8 + 0.5e-8 * depth
+                                       + 0.2e-8 * frac)},
+                       'longitudinal diffusion')
+
+    xy = ((-70.0, 70.0, 29), (-70.0, 70.0, 29))
+    x, y = grid(*xy)
+    r2 = (x ** 2 + y ** 2) / 70.0 ** 2
+    _write_regular_map(paths['gas_gap_map'], list(zip('xy', xy)), {
+        'map': 0.23 + c[10] * 0.05 * np.minimum(r2, 1.0)
+        + 0.005 * np.sin(x / 15.0) * np.cos(y / 20.0)}, 'gas gap')
+    _write_regular_map(paths['se_gain_map'], list(zip('xy', xy)), {
+        'map': c[11] * (31.0 - 3.0 * np.minimum(r2, 1.0)
+                        + 1.0 * np.sin(x / 25.0 + y / 30.0))}, 'SE gain')
     return paths
