@@ -328,6 +328,30 @@ exercised here):
     speedup.  A child that exits non-zero or outlives its limit fails the
     phase.
 
+4r. the optical configurations (OPTICAL_CONFIGS; illustrative inputs,
+    not a calibration), each on 512 events 10 ms apart read by the port's
+    ``read_optical`` from an in-memory GEANT4 ``events`` tree
+    (``resources.synthetic.synthetic_g4_file`` behind a stub ``uproot``;
+    one event in 50 has hits past 1 us, which ``optical_adjustment``
+    splits off as an instruction of its own): ``optical_nveto``
+    (XENONnT_neutron_veto, 120 PMTs, Poisson hits of mean 3,000 on
+    channels 2000-2119 at 2.0-4.1 eV thinned by a flat 30 % QE over
+    300-600 nm to ~0.45 M photons, times exponential with tau 200 ns, PMT
+    afterpulses on) and ``optical_tpc`` (XENONnT, Poisson 300 hits over
+    the 494 channels, tau 25 ns, per-PMT truth on), through
+    ``ChunkRawRecords(rawdata_generator=RawDataOptical)`` on the card,
+    warm-up then timed with the launch counts reset just before: one
+    truth row per instruction whose ``n_photon`` is the photons it keeps,
+    the strax invariants with channels below the detector's count, the
+    PMT response (K8), the digitizer (K1+K2, K3, K4) and K11 (nVeto) or
+    K16 (XENONnT) launched; events/s and the wall time;
+5r. the first simulation batch's optical response on the card and, from
+    the same draws, through the twins on the CPU: photons bitwise, truth
+    exact or within rtol 1e-12;
+4t. the legacy pulse generator ``RawData.__call__`` over one super-batch
+    of the default configuration (60 bench events): its pulses, cut back
+    into records, are exactly the records of the same run.
+
 Last, the stream (4s): the default configuration on 10,000 bench events
 (20,000 instructions) with ``pipeline_depth`` = ceil(instructions / 1024),
 super-batches of 1,000 instructions, and 1 s chunks; ``Simulator.run`` is
@@ -370,7 +394,8 @@ channel draw, the map lookup, the ZLE and record-pack entries, the
 luminescence tables, the PMT-afterpulse and photon-summary entries, the
 diffused pattern, the S2 electron and photon times and the gas-gap times
 their EXPECTED_LAUNCHES (field_maps: the map lookup, the luminescence
-tables with gas gaps and the diffused pattern), and the default run
+tables with gas gaps and the diffused pattern; the optical runs: the PMT
+response, the ZLE and record-pack entries and K11 or K16), and the default run
 DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
@@ -437,6 +462,23 @@ PER_PMT_PATH_KERNELS = REALISTIC_PATH_KERNELS + (
 #: the xenon1t_full_grid path: the full-grid entry (in its mode without HE
 #: rows) in place of superpose_adc, and per-PMT truth
 X1T_PATH_KERNELS = FULL_GRID_PATH_KERNELS + ('wfsim_pmt_row_truth_per_pmt',)
+#: the optical path (photons from a GEANT4 list): the PMT response (K8)
+#: and the digitizer (K1+K2, K3, K4); the nVeto run adds the PMT
+#: afterpulses (K11), the XENONnT run the per-PMT truth (K16)
+OPTICAL_PATH_KERNELS = ('wfsim_pmt_photon_pass', 'wfsim_pmt_row_truth',
+                        'wfsim_superpose_adc', *ZLE_PACK_KERNELS)
+OPTICAL_CONFIGS = dict(
+    optical_nveto=dict(detector='XENONnT_neutron_veto', first_channel=2000,
+                       n_channels=120, mean_hits=3000, tau_ns=200.0,
+                       overrides=dict(enable_pmt_afterpulses=True),
+                       kernels=OPTICAL_PATH_KERNELS + AP_KERNELS),
+    optical_tpc=dict(detector='XENONnT', first_channel=0, n_channels=494,
+                     mean_hits=300, tau_ns=25.0,
+                     overrides=dict(per_pmt_truth=True),
+                     kernels=OPTICAL_PATH_KERNELS + (
+                         'wfsim_pmt_row_truth_per_pmt',)))
+#: the optical runs' events: 512, one every 10 ms
+OPTICAL_EVENTS, OPTICAL_SPACING_NS = 512, 10_000_000
 
 K5_REPLACES = ('wfsim_tpu/ops/randsample.py:120; '
                'wfsim_tpu/ops/randsample.py:99')
@@ -1540,12 +1582,14 @@ def timed_run(cfg, inst, dev, mesh_fn=lambda: None, warm_inst=None):
 
 #: the records of each configuration's 512-event run (seed 1234) on an
 #: H100 80GB HBM3, and (he_full_grid) its raw_records_he; a change that
-#: keeps every kernel's output keeps them
+#: keeps every kernel's output keeps them (the optical runs': 522
+#: instructions from 512 GEANT4 events, see OPTICAL_CONFIGS)
 EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         detector_physics=768_746,
                         he_full_grid=(868_127, 444_017),
                         timing_models=855_569, per_pmt_truth=867_836,
-                        xenon1t_full_grid=567_294, field_maps=696_517)
+                        xenon1t_full_grid=567_294, field_maps=696_517,
+                        optical_nveto=126_763, optical_tpc=110_106)
 #: the launches of the channel draw, the map lookup, (one a digitize
 #: batch) the ZLE and record-pack entries, (one a simulation batch) the
 #: luminescence tables, the PMT-afterpulse and photon-summary entries and
@@ -1561,7 +1605,13 @@ EXPECTED_LAUNCHES = dict(
                           wfsim_lumi_gasgap_times=3,
                           wfsim_s2_photon_times=3),
     field_maps=dict(wfsim_grid_lookup=57, wfsim_lumi_tables=3,
-                    wfsim_pattern_diffuse=3))
+                    wfsim_pattern_diffuse=3),
+    optical_nveto=dict(wfsim_pmt_photon_pass=6, wfsim_pmt_row_truth=6,
+                       **dict.fromkeys(AP_KERNELS, 6),
+                       **dict.fromkeys(ZLE_PACK_KERNELS, 9)),
+    optical_tpc=dict(wfsim_pmt_photon_pass=6, wfsim_pmt_row_truth=6,
+                     wfsim_pmt_row_truth_per_pmt=6,
+                     **dict.fromkeys(ZLE_PACK_KERNELS, 10)))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
     '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
@@ -4325,6 +4375,195 @@ def phase_4i(cfg, inst, main_digest, dev, smi):
     return launches
 
 
+def optical_inputs(name, seed=1234):
+    """A configuration of OPTICAL_CONFIGS and its photon list: the port's
+    ``read_optical`` on the synthetic GEANT4 tree (``synthetic_g4_file``,
+    its ``uproot`` a stub that returns it; for the nVeto a flat 30 % QE
+    over 300-600 nm), the events then OPTICAL_SPACING_NS apart.  Returns
+    (cfg, instructions, channels, timings, host seconds of the read)."""
+    import types
+    from wfsim_tpu_torch import default_config
+    from wfsim_tpu_torch.interface import read_optical
+    from wfsim_tpu_torch.resources.synthetic import (synthetic_g4_file,
+                                                     synthetic_nv_pmt_qe)
+    spec = OPTICAL_CONFIGS[name]
+    g4 = synthetic_g4_file(OPTICAL_EVENTS, seed,
+                           first_channel=spec['first_channel'],
+                           n_channels=spec['n_channels'],
+                           mean_hits=spec['mean_hits'], tau_ns=spec['tau_ns'])
+    cfg = default_config(detector=spec['detector'], seed=seed, chunk_size=100,
+                         **spec['overrides'])
+    cfg['fax_file'] = f'synthetic_{name}.root'
+    if spec['detector'] == 'XENONnT_neutron_veto':
+        cfg['nv_pmt_qe'] = synthetic_nv_pmt_qe(
+            range(spec['first_channel'],
+                  spec['first_channel'] + spec['n_channels']))
+    saved = sys.modules.get('uproot')
+    sys.modules['uproot'] = types.SimpleNamespace(open=lambda path: g4)
+    try:
+        t0 = time.perf_counter()
+        ins, ch, t = read_optical(cfg)
+        t_read = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            sys.modules.pop('uproot')
+        else:
+            sys.modules['uproot'] = saved
+    ins['time'] += (ins['g4id'].astype(np.int64) + 1) * OPTICAL_SPACING_NS
+    return cfg, ins, ch, t, t_read
+
+
+def optical_card_vs_cpu(cfg, ins, ch, t, dev, smi, tag):
+    """The first simulation batch's optical response on the card and, from
+    the same draws, through the twins on the CPU: photons bitwise, truth
+    exact or (float64 sums) rtol 1e-12."""
+    import torch
+    from wfsim_tpu_torch.models.params import build_params
+    from wfsim_tpu_torch.models.pmt import pmt_draws
+    from wfsim_tpu_torch.pipeline.optical import (RawDataOptical,
+                                                  optical_response)
+    from wfsim_tpu_torch.resources import load_config
+    rd = RawDataOptical(cfg, ch, t, device=dev)
+    order = np.argsort(rd._arrival_times(ins), kind='stable')
+    kind, idx = rd._sim_batch_list(ins, order)[0]
+    tt, cc, counts = rd.batch_photons(ins, idx)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261016)
+    draws = pmt_draws(gen, len(tt), dev)
+    counts = torch.from_numpy(counts)
+    params_c = build_params(cfg, load_config(cfg), 'cpu')
+    out = {}
+    for d, prm in ((dev, rd.params), (torch.device('cpu'), params_c)):
+        t0 = time.perf_counter()
+        out[d.type] = optical_response(
+            prm, rd.const, torch.as_tensor(tt, device=d),
+            torch.as_tensor(cc, device=d), counts, to_device(draws, d))
+        if d.type == 'cuda':
+            torch.cuda.synchronize()
+        out[d.type + '_s'] = time.perf_counter() - t0
+    compare(out['cuda'][0], out['cpu'][0], f'{tag} photons card vs CPU')
+    err = compare(out['cuda'][1], out['cpu'][1], f'{tag} truth card vs CPU',
+                  FLOAT_TRUTH + PER_PMT_AREAS)
+    print(f'[{tag}] {kind} batch of {len(idx)} instructions, photons '
+          f'{len(tt)}: photons bitwise equal, truth max|diff| {err} (card '
+          f'{out["cuda_s"]:.3f} s, CPU twins {out["cpu_s"]:.3f} s; {smi})')
+
+
+def phase_optical(dev, smi):
+    """Phases 4r and 5r for each configuration of OPTICAL_CONFIGS (see the
+    module docstring); returns {configuration: launch counts}."""
+    import torch
+    from wfsim_tpu_torch import _build
+    from wfsim_tpu_torch.dtypes import concat_records
+    from wfsim_tpu_torch.pipeline.chunker import ChunkRawRecords
+    from wfsim_tpu_torch.pipeline.optical import (NVETO_TIME_MAX_CUTOFF,
+                                                  RawDataOptical,
+                                                  optical_photons)
+    launches_by = {}
+    for name, spec in OPTICAL_CONFIGS.items():
+        tag = name.replace('optical_', 'opt-')
+        cfg, ins, ch, t, t_read = optical_inputs(name)
+        kept = optical_photons(ins, t, ch, 0, NVETO_TIME_MAX_CUTOFF)[2]
+        n_split = len(ins) - OPTICAL_EVENTS
+        print(f'[{tag}] read_optical: {len(ins)} instructions ({n_split} '
+              f'split off events with hits past 1 us), photons {len(ch)} '
+              f'kept {int(kept.sum())}, channels {int(ch.min())}-'
+              f'{int(ch.max())}, {t_read:.3f} s on the host')
+
+        def run():
+            sim = ChunkRawRecords(cfg, device=dev,
+                                  rawdata_generator=RawDataOptical,
+                                  channels=ch, timings=t)
+            torch.cuda.synchronize()
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            zero_second_pass()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            outs = list(sim(ins))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: k.launches for n, k in _build.KERNELS.items()}
+            rr = concat_records([o['raw_records'] for o in outs])
+            truth = np.concatenate([o['truth'] for o in outs])
+            return rr, truth, wall, launches, sim
+        run()                                             # warm-up
+        rr, truth, wall, launches, sim = run()
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches_by[name] = launches
+        print(f'[{tag}] launches {launches}')
+        for k in spec['kernels']:
+            if launches[k] <= 0:
+                raise AssertionError(f'kernel {k} not launched on the {name} '
+                                     f'path')
+        n_ch = spec['n_channels']
+        if len(truth) != len(ins) or set(truth['type'].tolist()) != {1}:
+            raise AssertionError(f'{name}: truth rows {len(truth)} of '
+                                 f'{len(ins)} instructions')
+        if not strax_valid(rr, n_ch):
+            raise AssertionError(f'{name} raw_records violate the strax '
+                                 f'invariants (channels below {n_ch})')
+
+        def pairs(g4id, n):
+            return sorted(zip(g4id.tolist(), n.tolist()))
+        if pairs(truth['g4id'], truth['n_photon']) != pairs(ins['g4id'], kept):
+            raise AssertionError(f'{name}: n_photon of the truth rows differs '
+                                 f'from the photons each instruction keeps')
+        diag = sim.rawdata.diag.summary()
+        ap = diag.get('pmt_ap_photons', 0)
+        print(f'[{tag}] truth rows {len(truth)} (n_photon = kept photons), '
+              f'records {len(rr)} on channels {int(rr["channel"].min())}-'
+              f'{int(rr["channel"].max())}, afterpulse photons {ap}')
+        expect_records(name, len(rr), launches=launches)
+        print(f'[{tag}] events/s {OPTICAL_EVENTS / wall:.2f} wall '
+              f'{wall:.3f} s records {len(rr)} photons '
+              f'{int(truth["n_photon"].sum())} peak_mem '
+              f'{peak / 2 ** 20:.1f} MiB ({smi})')
+        print(f'[{tag}] phases {diag}')
+        optical_card_vs_cpu(cfg, ins, ch, t, dev, smi, tag)
+    return launches_by
+
+
+def phase_legacy_pulses(dev, smi):
+    """Phase 4t: the legacy pulse generator ``RawData.__call__`` over one
+    super-batch of the default configuration (60 bench events, under
+    ``2 * pipeline_min_batch`` instructions): its pulses, cut back into
+    records, are the records of the same run through ``iter_windows``."""
+    from wfsim_tpu_torch import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    cfg = default_config(seed=1234, chunk_size=100)
+    inst = bench_instructions(60, 2000, 300)
+    rd = RawData(cfg, device=dev)
+    recs = [w['records'] for w in rd.iter_windows(inst)]
+    super_batches = rd.diag.counts['super_batches']
+    recs = np.concatenate(recs)
+    rd = RawData(cfg, device=dev)
+    t0 = time.perf_counter()
+    pulses, events = [], set()
+    for p in rd(inst, []):
+        pulses.append(p)
+        events.add(rd.instruction_event_number)
+    wall = time.perf_counter() - t0
+    rebuilt = []
+    for ch, left, right, data in pulses:
+        n = right - left + 1
+        for i in range(-(-n // 110)):
+            seg = data[110 * i:110 * (i + 1)]
+            rebuilt.append((ch, (left + 110 * i) * 10, len(seg), n, i,
+                            np.pad(seg, (0, 110 - len(seg))).tobytes()))
+    want = [(int(r['channel']), int(r['time']), int(r['length']),
+             int(r['pulse_length']), int(r['record_i']), r['data'].tobytes())
+            for r in recs]
+    same = sorted(rebuilt) == sorted(want)
+    print(f'[legacy] super-batches {super_batches}, records {len(recs)}, '
+          f'pulses {len(pulses)} over {len(events)} event numbers, '
+          f'reassembled records equal {same} ({wall:.3f} s; {smi})')
+    if super_batches != 1 or not same or not len(recs):
+        raise AssertionError('the legacy pulses do not reassemble the '
+                             'records of one super-batch')
+
+
 def main():
     t_start = time.perf_counter()
     if not (ROOT / 'wfsim_tpu_torch' / '_build.py').exists():
@@ -4699,6 +4938,10 @@ def main():
     # ---- 3q / 4q / 5q. the field_maps configuration -----------------------
     qtimes, launches_q = phase_field_maps(dev, smi)
 
+    # ---- 4r / 5r. the optical configurations; 4t. the legacy pulses ---------
+    launches_o = phase_optical(dev, smi)
+    phase_legacy_pulses(dev, smi)
+
     # ---- 3g / 4g / 3h / 4h / 5h. per_pmt_truth and xenon1t_full_grid -------
     xtimes, launches_p, launches_x = phase_per_pmt_x1t(B, T, K, inst, dev,
                                                        smi)
@@ -4721,7 +4964,10 @@ def main():
                          max_abs_err=m['err'], ms=m['ms'],
                          device_ms=m['device_ms'], host_us=m['host_us'],
                          plain_ms=m['plain_ms'], bound_ms=b_ms, bound_by=b_by,
-                         library_ms=m['library_ms']))
+                         library_ms=m['library_ms'],
+                         optical_launches={
+                             cfg_name: min(lc[e] for e in entries)
+                             for cfg_name, lc in launches_o.items()}))
 
     for row, m in stimes.items():
         name = row.removesuffix('_' + m['shape'])

@@ -1640,3 +1640,133 @@ def test_field_maps_passes_card_vs_cpu(dev, tmp_path):
                     torch.testing.assert_close(v, w, rtol=1e-12, atol=0)
                 else:
                     assert torch.equal(v, w), k
+
+
+# ---------------------------------------------------------------------------
+# the optical / nVeto input chain
+
+
+def _launches(names):
+    return [_build.KERNELS[n].launches for n in names]
+
+
+OPTICAL_KERNELS = ('wfsim_pmt_photon_pass', 'wfsim_pmt_row_truth')
+
+
+@pytest.mark.parametrize('detector', ['XENONnT', 'XENONnT_neutron_veto'])
+def test_optical_response_card_vs_cpu(dev, detector):
+    """The optical response (K8's photon pass and row truth, and with
+    per-PMT truth on XENONnT K16) on the card and, from the same draws,
+    through the twins on the CPU: photons and integer truth bitwise, float
+    truth within rtol 1e-12; rows without photons included; no read-back."""
+    from wfsim_tpu_torch.models.pmt import pmt_draws
+    from wfsim_tpu_torch.pipeline.optical import optical_response
+    n_ch = 494 if detector == 'XENONnT' else 120
+    c = default_config(detector=detector,
+                       per_pmt_truth=detector == 'XENONnT')
+    const = build_constants(c)
+    params = {d: build_params(c, load_config(c), d) for d in (dev, 'cpu')}
+    rng = np.random.default_rng(6)
+    counts = rng.poisson(900, 64)
+    counts[[0, 5, 63]] = 0
+    n = int(counts.sum())
+    t = (rng.exponential(200.0, n) + np.repeat(
+        rng.integers(0, 10 ** 6, 64), counts)).astype(np.int32)
+    ch = rng.integers(0, n_ch, n).astype(np.int32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    draws = pmt_draws(gen, n, dev)
+    counts_t = torch.from_numpy(counts.astype(np.int64))
+
+    def run(d):
+        return optical_response(params[d], const,
+                                torch.as_tensor(t, device=d),
+                                torch.as_tensor(ch, device=d), counts_t,
+                                _on(draws, d))
+    names = OPTICAL_KERNELS + (('wfsim_pmt_row_truth_per_pmt',)
+                               if detector == 'XENONnT' else ())
+    torch.cuda.synchronize()
+    before = _launches(names)
+    ph_d, tr_d = run(dev)
+    assert _launches(names) == [b + 1 for b in before]
+    ph_c, tr_c = run('cpu')
+    _bits(ph_d, ph_c, 'photons')
+    assert tr_d.keys() == tr_c.keys()
+    for k in tr_d:
+        v, w = tr_d[k].cpu(), tr_c[k]
+        if v.dtype == torch.float64:
+            torch.testing.assert_close(v, w, rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(v, w), k
+    np.testing.assert_array_equal(tr_d['photon_count'].cpu().numpy(), counts)
+
+
+@pytest.fixture
+def strax_shim():
+    """tests/strax_mock as strax, straxen and immutabledict.  The shim
+    takes ``raw_record_dtype`` from wfsim_tpu, whose package imports JAX;
+    where JAX is missing (the card's machine) the port's identical dtypes
+    module stands in for ``wfsim_tpu.dtypes``."""
+    import importlib.util
+    import sys
+    import types
+    names = ('strax', 'straxen', 'immutabledict', 'wfsim_tpu',
+             'wfsim_tpu.dtypes')
+    saved = {k: sys.modules.get(k) for k in names}
+    if importlib.util.find_spec('jax') is None:
+        from wfsim_tpu_torch import dtypes
+        pkg = types.ModuleType('wfsim_tpu')
+        pkg.__path__ = []
+        pkg.dtypes = dtypes
+        sys.modules.update({'wfsim_tpu': pkg, 'wfsim_tpu.dtypes': dtypes})
+    from tests.strax_mock import immutabledict, strax, straxen
+    sys.modules.update(strax=strax, straxen=straxen,
+                       immutabledict=immutabledict)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def test_nveto_plugin_compute_on_card(dev, strax_shim, monkeypatch):
+    """One RawRecordsFromFaxnVeto compute on the card (the plugin's
+    default device) through tests/strax_mock, its GEANT4 tree from a stub
+    ``uproot``: nVeto records on channels 2000-2119, one truth row per
+    optical instruction with its kept photons, K8 and the afterpulse
+    kernels launched."""
+    import importlib
+    import sys
+    import types
+    import wfsim_tpu_torch.interface.strax_plugins as sp
+    from .test_torch_strax_plugins import nveto_plugin_config
+    importlib.reload(sp)
+    try:
+        assert sp.HAVE_STRAX and sp.SimulatorPlugin.device == 'cuda'
+        cfg, g4 = nveto_plugin_config()
+        monkeypatch.setitem(sys.modules, 'uproot',
+                            types.SimpleNamespace(open=lambda path: g4))
+        p = sp.RawRecordsFromFaxnVeto(config=cfg)
+        p.setup()
+        assert p.sim_nv.rawdata.device.type == 'cuda'
+        names = OPTICAL_KERNELS + ('wfsim_pmt_ap_select',
+                                   'wfsim_zle_intervals',
+                                   'wfsim_superpose_adc')
+        before = _launches(names)
+        out = p.compute()
+        assert all(a > b for a, b in zip(_launches(names), before))
+        rr, truth = out['raw_records_nv'].data, out['truth_nv'].data
+        assert len(rr) > 0 and np.diff(rr['time']).min() >= 0
+        assert rr['channel'].min() >= 2000 and rr['channel'].max() <= 2119
+        ins = p.instructions_nveto
+        kept = ins['_last'] - ins['_first']
+        got = zip(truth['g4id'].tolist(), truth['n_photon'].tolist())
+        assert sorted(got) == sorted(zip(ins['g4id'].tolist(),
+                                         kept.tolist()))
+        assert p.source_finished()
+    finally:
+        sys.modules.pop('strax', None)
+        importlib.reload(sp)

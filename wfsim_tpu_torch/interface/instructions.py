@@ -1,17 +1,40 @@
-"""Instruction builders and the analytic quanta partition.  Only the bench
-workload of wfsim_tpu (bench.py:76-90 ``_make_inst``) is ported, with its
-``detector_physics`` and ``timing_models`` variants; ``rand_instructions``, csv and optical input
-are not.  ``step_instructions`` places bench events inside the grid of the
-multi-device step (``parallel.sharding``)."""
+"""Instruction generation: the bench workload of wfsim_tpu (bench.py:76-90
+``_make_inst``) with its ``detector_physics`` and ``timing_models``
+variants, random events, csv input and GEANT4 optical input (counterpart
+of wfsim_tpu/interface/instructions.py; reference:
+wfsim/strax_interface.py:119-350).  ``step_instructions`` places bench
+events inside the grid of the multi-device step (``parallel.sharding``).
+
+Random events take their quanta from the C++ ``nestpy`` library when it is
+importable, else from the analytic ER/NR partition of wfsim_tpu
+(:func:`analytic_yields`); both only seed the Monte Carlo.  Everything
+here is host numpy: for the same inputs the arrays equal wfsim_tpu's."""
 from __future__ import annotations
+
+import logging
+import typing as ty
 
 import numpy as np
 
-from ..dtypes import instruction_dtype
+from ..dtypes import instruction_dtype, optical_extra_dtype
+
+log = logging.getLogger('wfsim_tpu_torch.interface')
 
 __all__ = ['bench_instructions', 'detector_physics_instructions',
            'timing_models_instructions', 'TIMING_MODEL_RECOILS',
-           'step_instructions', 'analytic_yields']
+           'step_instructions', 'analytic_yields', 'rand_instructions',
+           'random_instructions', '_rand_instructions',
+           'instruction_from_csv', 'read_optical']
+
+try:
+    import nestpy
+    HAVE_NESTPY = True
+except ImportError:
+    nestpy = None
+    HAVE_NESTPY = False
+
+DEFAULT_TPC_LENGTH = 148.6515  # straxen.tpc_z
+DEFAULT_TPC_RADIUS = 66.4      # straxen.tpc_r
 
 #: the recoil ids ``timing_models_instructions`` cycles through, one per
 #: class of the custom S1 model: ER (7), NR (0), alpha (6), LED (20)
@@ -92,7 +115,8 @@ def analytic_yields(energy_kev, drift_field, interaction_type=7, rng=None):
     (wfsim_tpu/interface/instructions.py:35, used when nestpy is missing).
 
     Thomas-Imel box recombination on top of W = 13.7 eV quanta production.
-    Returns (photons, electrons, excitons) as integers."""
+    Returns (photons, electrons, excitons) as integers; ``rng`` is not
+    drawn from (wfsim_tpu's signature)."""
     W = W_KEV
     if interaction_type == 0:  # NR: Lindhard quenching
         eps = 11.5 * energy_kev * 54 ** (-7 / 3)
@@ -112,3 +136,210 @@ def analytic_yields(energy_kev, drift_field, interaction_type=7, rng=None):
     n_ph = int(n_ex + r * n_i)
     n_el = max(n_q - n_ph, 0)
     return n_ph, n_el, n_ex
+
+
+def rand_instructions(c) -> np.ndarray:
+    """Config-dict driven random instruction generator (wfsim_tpu
+    instructions.py:64; reference: strax_interface.py:119-135)."""
+    log.warning('rand_instructions is deprecated, use random_instructions')
+    return _rand_instructions(
+        event_rate=c.get('event_rate', 10),
+        chunk_size=c.get('chunk_size', 5),
+        n_chunk=c.get('n_chunk', 2),
+        energy_range=[1, 100],
+        drift_field=c.get('drift_field', 100),
+        tpc_radius=c.get('tpc_radius', DEFAULT_TPC_RADIUS),
+        tpc_length=c.get('tpc_length', DEFAULT_TPC_LENGTH),
+        nest_inst_types=[7],
+        seed=c.get('seed') or None,
+    )
+
+
+def random_instructions(**kwargs) -> np.ndarray:
+    """Generate instructions for simulation (reference: strax_interface.py:
+    138-152).  See :func:`_rand_instructions` for parameters."""
+    return _rand_instructions(**kwargs)
+
+
+def _rand_instructions(
+        event_rate: int,
+        chunk_size: int,
+        n_chunk: int,
+        drift_field: float,
+        energy_range,
+        tpc_length: float = DEFAULT_TPC_LENGTH,
+        tpc_radius: float = DEFAULT_TPC_RADIUS,
+        nest_inst_types=None,
+        seed=None,
+) -> np.ndarray:
+    """Uniform-in-volume, uniform-in-time S1+S2 instruction pairs with
+    NEST(-like) quanta (wfsim_tpu instructions.py:77; reference:
+    strax_interface.py:155-231).  The draws of ``np.random.default_rng(
+    seed)`` come in wfsim_tpu's order."""
+    rng = np.random.default_rng(seed)
+    if nest_inst_types is None:
+        nest_inst_types = [7]
+
+    n_events = event_rate * chunk_size * n_chunk
+    total_time = chunk_size * n_chunk
+
+    inst = np.zeros(2 * n_events, dtype=instruction_dtype)
+    uniform_times = total_time * (np.arange(n_events) + 0.5) / n_events
+    inst['time'] = np.repeat(uniform_times, 2) * int(1e9)
+    inst['event_number'] = np.digitize(
+        inst['time'], 1e9 * np.arange(n_chunk) * chunk_size) - 1
+    inst['type'] = np.tile([1, 2], n_events)
+
+    r = np.sqrt(rng.uniform(0, tpc_radius ** 2, n_events))
+    t = rng.uniform(-np.pi, np.pi, n_events)
+    inst['x'] = np.repeat(r * np.cos(t), 2)
+    inst['y'] = np.repeat(r * np.sin(t), 2)
+    inst['z'] = np.repeat(rng.uniform(-tpc_length, 0, n_events), 2)
+    inst['x_pri'], inst['y_pri'], inst['z_pri'] = inst['x'], inst['y'], inst['z']
+
+    energy = rng.uniform(*energy_range, n_events)
+    quanta, excitons, recoils, e_deps = [], [], [], []
+
+    nest_calc = None
+    if HAVE_NESTPY:
+        nest_calc = nestpy.NESTcalc(nestpy.VDetector())
+        density = 2.862  # g/cm^3
+    for e_dep in energy:
+        interaction_type = int(rng.choice(nest_inst_types))
+        if nest_calc is not None:
+            interaction = nestpy.INTERACTION_TYPE(interaction_type)
+            y = nest_calc.GetYields(interaction, e_dep, density, drift_field,
+                                    131.293, 54.)
+            q = nest_calc.GetQuanta(y, density)
+            n_ph, n_el, n_ex = q.photons, q.electrons, q.excitons
+        else:
+            n_ph, n_el, n_ex = analytic_yields(e_dep, drift_field,
+                                               interaction_type, rng)
+        quanta += [n_ph, n_el]
+        excitons += [n_ex, 0]
+        recoils += [interaction_type, interaction_type]
+        e_deps += [e_dep, e_dep]
+
+    inst['amp'] = quanta
+    inst['local_field'] = drift_field
+    inst['n_excitons'] = excitons
+    inst['recoil'] = recoils
+    inst['e_dep'] = e_deps
+    # keep only non-degenerate instructions
+    return inst[inst['amp'] > 0]
+
+
+def instruction_from_csv(filename) -> np.ndarray:
+    """Load instructions from CSV (reference: strax_interface.py:336-350);
+    ``pandas`` is imported here, not with the package."""
+    import pandas as pd
+    df = pd.read_csv(filename)
+    recs = np.zeros(len(df), dtype=instruction_dtype)
+    for column in df.columns:
+        recs[column] = df[column]
+    return recs
+
+
+def read_optical(config) -> ty.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """GEANT4 optical-MC input: per-event photon channel/time lists from a
+    ROOT file (wfsim_tpu instructions.py:166; reference:
+    strax_interface.py:285-333).  Returns ``(instructions, channels,
+    timings)``: type-1 instructions with ``_first`` / ``_last`` into the
+    photon arrays, after :func:`~wfsim_tpu_torch.utils.optical_adjustment`.
+
+    Uses ``uproot`` when importable, else the pure-python reader
+    :mod:`wfsim_tpu_torch.resources.rootio`.  Sets ``config['entry_stop']``
+    in place where it is None.  For the nVeto
+    (``XENONnT_neutron_veto``) the photons are thinned by the PMT quantum
+    efficiencies and the channels start at 0.
+    """
+    try:
+        import uproot as rootlib
+    except ImportError:
+        from ..resources import rootio as rootlib
+
+    from ..utils import optical_adjustment
+
+    data = rootlib.open(config['fax_file'])
+    try:
+        events = data.get('events')
+    except AttributeError:
+        raise Exception('Are you using mc version >4?')
+
+    g4id = events['eventid'].array(library='np')
+    if config.get('entry_stop', None) is None:
+        config['entry_stop'] = np.max(g4id) + 1
+    mask = ((g4id < config.get('entry_stop', int(2 ** 63 - 1)))
+            & (g4id >= config.get('entry_start', 0)))
+    n_events = int(mask.sum())
+
+    if config['detector'] == 'XENONnT_neutron_veto':
+        channels, timings, amplitudes = _read_optical_nveto(config, events, mask)
+        channels -= config['channel_map']['nveto'][0]
+    else:
+        channels = np.hstack(events['pmthitID'].array(library='np')[mask])
+        timings = np.hstack(
+            events['pmthitTime'].array(library='np')[mask] * 1e9).astype(np.int64)
+        amplitudes = np.array([len(tmp) for tmp in
+                               events['pmthitID'].array(library='np')[mask]])
+
+    ins = np.zeros(n_events, dtype=instruction_dtype + optical_extra_dtype)
+    ins['x'] = events['xp_pri'].array(library='np').flatten()[mask] / 10.
+    ins['y'] = events['yp_pri'].array(library='np').flatten()[mask] / 10.
+    ins['z'] = events['zp_pri'].array(library='np').flatten()[mask] / 10.
+    ins['time'] = np.zeros(n_events, np.int64)
+    ins['event_number'] = np.arange(n_events)
+    ins['g4id'] = g4id[mask]
+    ins['type'] = np.repeat(1, n_events)
+    ins['recoil'] = np.repeat(1, n_events)
+    ins['_first'] = np.cumsum(amplitudes) - amplitudes
+    ins['_last'] = np.cumsum(amplitudes)
+    ins = optical_adjustment(ins, timings, channels)
+    return ins, channels, timings
+
+
+def _read_optical_nveto(config, events, mask):
+    """nVeto quantum-efficiency thinning of optical photons (wfsim_tpu
+    instructions.py:226; reference: strax_interface.py:234-282): each
+    photon is kept with its PMT's QE at its wavelength (times
+    ``nv_pmt_ce_factor``), drawn with ``np.random.default_rng(seed)``."""
+    from ..resources.loader import load_config as load_resource_config
+
+    channels = np.hstack(events['pmthitID'].array(library='np')[mask])
+    timings = np.hstack(
+        events['pmthitTime'].array(library='np')[mask] * 1e9).astype(np.int64)
+    constant_hc = 1239.841984
+    wavelengths = np.hstack(
+        constant_hc / events['pmthitEnergy'].array(library='np')[mask])
+
+    nveto_channels = np.arange(config['channel_map']['nveto'][0],
+                               config['channel_map']['nveto'][1] + 1)
+    resource = load_resource_config(config)
+    qe_data = getattr(resource, 'nv_pmt_qe', None)
+    if qe_data is None:
+        log.warning('nv pmt qe data not specified; all QEs default to 100%')
+        wl_to_qe = np.ones([len(nveto_channels), 1000]) * 100
+    else:
+        wl_to_qe = np.zeros([len(nveto_channels), 1000])
+        wl_axis = np.asarray(qe_data['nv_pmt_qe_wavelength'])
+        for ich, channel in enumerate(nveto_channels):
+            wl_to_qe[ich] = np.interp(np.arange(1000), wl_axis,
+                                      np.asarray(qe_data['nv_pmt_qe'][str(channel)]),
+                                      left=0, right=0)
+
+    hit_mask = (channels >= nveto_channels[0]) & (channels <= nveto_channels[-1])
+    channels_clipped = channels.copy()
+    channels_clipped[~hit_mask] = nveto_channels[0]
+    wavelengths[(wavelengths < 0) | (wavelengths >= 999)] = 0
+    qes = wl_to_qe[channels_clipped - nveto_channels[0],
+                   np.around(wavelengths).astype(np.int64)]
+    rng = np.random.default_rng(config.get('seed') or None)
+    hit_mask &= rng.random(len(qes)) <= qes * config.get('nv_pmt_ce_factor', 1.0) / 100
+
+    amplitudes, offset = [], 0
+    for tmp in events['pmthitID'].array(library='np')[mask]:
+        n = len(tmp)
+        amplitudes.append(hit_mask[offset:offset + n].sum())
+        offset += n
+    return (channels[hit_mask], timings[hit_mask],
+            np.array(amplitudes, int))

@@ -6,9 +6,9 @@ Config resolution, instruction checks and chunked iteration over
 asks for another; construction raises where there is no card.  With
 ``mesh`` (``parallel.make_mesh``) the run is shared over the mesh's
 ``'events'`` dim: every rank calls it with the same instructions and
-returns the arrays of the single-device run.  Generating instructions
-(``rand_instructions``, csv input) is not ported: pass the instruction
-array.
+returns the arrays of the single-device run.  Without an instruction
+array the run takes them from ``fax_file`` (a csv file) or, where it is
+unset, from ``rand_instructions(config)``.
 """
 from __future__ import annotations
 
@@ -21,10 +21,29 @@ from ..config import default_config, finalize_config, load_fax_config
 from ..dtypes import concat_records
 from ..pipeline.chunker import ChunkRawRecords
 from ..pipeline.rawdata import resolve_device
+from .instructions import rand_instructions, instruction_from_csv
 
 log = logging.getLogger('wfsim_tpu_torch.interface')
 
-__all__ = ['Simulator']
+__all__ = ['Simulator', 'check_instructions']
+
+
+def check_instructions(instructions: np.ndarray, config) -> np.ndarray:
+    """The instructions without below-cathode S2s (below-cathode S1s
+    pass); raises ``ValueError`` where an interaction lies outside the TPC
+    or has zero size (reference: strax_interface.py:674-693)."""
+    m = ((instructions['z'] < -config['tpc_length'])
+         & (instructions['type'] == 2))
+    instructions = instructions[~m]
+    r = np.sqrt(instructions['x'] ** 2 + instructions['y'] ** 2)
+    if not np.all((r < config['tpc_radius'])
+                  | np.isclose(r, config['tpc_radius'])):
+        raise ValueError('Interaction is outside the TPC (radius)')
+    if not np.all(instructions['z'] < 0.25):
+        raise ValueError('Interaction is outside the TPC (in Z)')
+    if not np.all(instructions['amp'] > 0):
+        raise ValueError('Interaction has zero size')
+    return instructions
 
 
 class Simulator:
@@ -56,26 +75,31 @@ class Simulator:
 
     # -- instruction handling (reference: strax_interface.py:674-693) -------
 
+    def get_instructions(self) -> np.ndarray:
+        """The csv file ``fax_file``, else random instructions from the
+        config (wfsim_tpu simulator.py:61-68)."""
+        fax_file = self.config.get('fax_file')
+        if fax_file:
+            if str(fax_file).endswith('root'):
+                raise ValueError('Non-optical G4 input is deprecated, use '
+                                 'epix instructions')
+            if not str(fax_file).endswith('csv'):
+                raise ValueError('Only csv input is supported')
+            return instruction_from_csv(fax_file)
+        return rand_instructions(self.config)
+
     def check_instructions(self, instructions: np.ndarray) -> np.ndarray:
-        # Let below-cathode S1s pass but remove below-cathode S2s
-        m = ((instructions['z'] < -self.config['tpc_length'])
-             & (instructions['type'] == 2))
-        instructions = instructions[~m]
-        r = np.sqrt(instructions['x'] ** 2 + instructions['y'] ** 2)
-        if not np.all((r < self.config['tpc_radius'])
-                      | np.isclose(r, self.config['tpc_radius'])):
-            raise ValueError('Interaction is outside the TPC (radius)')
-        if not np.all(instructions['z'] < 0.25):
-            raise ValueError('Interaction is outside the TPC (in Z)')
-        if not np.all(instructions['amp'] > 0):
-            raise ValueError('Interaction has zero size')
-        return instructions
+        return check_instructions(instructions, self.config)
 
     # -- execution ------------------------------------------------------------
 
-    def run(self, instructions: np.ndarray, time_zero: ty.Optional[int] = None):
+    def run(self, instructions: ty.Optional[np.ndarray] = None,
+            time_zero: ty.Optional[int] = None):
         """Yield chunk dicts; enforces the reference's stream invariants
-        (sortedness, >=1 us chunk spacing; strax_interface.py:622-640)."""
+        (sortedness, >=1 us chunk spacing; strax_interface.py:622-640).
+        Without ``instructions``, :meth:`get_instructions` gives them."""
+        if instructions is None:
+            instructions = self.get_instructions()
         instructions = self.check_instructions(np.asarray(instructions))
         last_chunk_time = -999_999_999_999_999
         for result in self.sim(instructions, time_zero=time_zero):
@@ -91,7 +115,7 @@ class Simulator:
             result['end'] = int(self.sim.chunk_time)
             yield result
 
-    def get_arrays(self, instructions: np.ndarray):
+    def get_arrays(self, instructions: ty.Optional[np.ndarray] = None):
         """Run to completion and concatenate all chunks."""
         outs: ty.Dict[str, list] = {}
         for chunk in self.run(instructions):

@@ -127,6 +127,18 @@ def _bucket(n, lo=256, hi=2 ** 26):
     return b
 
 
+def _rows_by_instruction(x: np.ndarray, n_inst: int) -> np.ndarray:
+    """Per-truth-row summaries read by instruction (ROADMAP F8, wfsim_tpu
+    rawdata.py:648-649): instruction i takes row i's, and an instruction
+    past the last row an empty row's (zeros), as wfsim_tpu's zero rows
+    past ``n_rows`` give; the port pads where wfsim_tpu's bucketed rows
+    run out and it raises ``IndexError``."""
+    if x.shape[0] >= n_inst:
+        return x[:n_inst]
+    pad = np.zeros((n_inst - x.shape[0],) + x.shape[1:], x.dtype)
+    return np.concatenate([x, pad])
+
+
 class _Pulse(ty.NamedTuple):
     """One truth row's photons: a contiguous slot range of one device
     photon buffer (``buf`` is the buffer's id)."""
@@ -136,6 +148,7 @@ class _Pulse(ty.NamedTuple):
     t_min: int                # abs ns (first photon)
     t_max: int                # abs ns (last photon)
     base_time: int            # abs ns base of the buffer's relative times
+    event_number: int = 0     # of the row's first instruction
 
 
 class RawData:
@@ -278,6 +291,17 @@ class RawData:
     def _rank(self) -> int:
         return 0 if self.comm is None else self.comm.rank
 
+    def _physics(self, instructions, idx, kind, gen):
+        """The S1 or S2 chain of one batch: (photons, truth, req, n_rows)
+        with ``req`` the photon count of each instruction (the override
+        point of ``pipeline.optical.RawDataOptical``)."""
+        inst, _base, _rows, n_rows = self.batch_inputs(instructions, idx,
+                                                       kind)
+        sim = simulate_s1 if kind == 's1' else simulate_s2
+        photons, truth, req = sim(self.params, self.const, inst, gen,
+                                  n_truth_rows=n_rows)
+        return photons, truth, req, n_rows
+
     def _simulate_device(self, instructions, idx, kind, ctr, summaries):
         """The device part of simulation batch ``ctr``, every draw from its
         own generator: the physics, the PMT afterpulses and, with
@@ -288,12 +312,9 @@ class RawData:
         afterpulse photons."""
         dev = self.device
         gen = seeded_generator(self.seed, ctr, dev)
-        inst, _base, _rows, n_rows = self.batch_inputs(instructions, idx,
-                                                       kind)
-        sim = simulate_s1 if kind == 's1' else simulate_s2
         with self.diag.phase('simulate_' + kind):
-            photons, truth, req = sim(self.params, self.const, inst, gen,
-                                      n_truth_rows=n_rows)
+            photons, truth, req, n_rows = self._physics(instructions, idx,
+                                                        kind, gen)
             host = dict(truth={k: v.cpu().numpy() for k, v in truth.items()},
                         req=req.cpu().numpy(), ap=None, summaries=None)
         bufs = [photons]
@@ -313,8 +334,8 @@ class RawData:
             with self.diag.phase('electron_afterpulses'):
                 counts, tz = photon_summaries(
                     photons, summary_draws(gen, n_rows, dev), n_inst=n_rows)
-                host['summaries'] = (counts.cpu().numpy()[:len(idx)],
-                                     tz.cpu().numpy()[:len(idx)])
+                host['summaries'] = tuple(_rows_by_instruction(
+                    x.cpu().numpy(), len(idx)) for x in (counts, tz))
         return host, [{k: b[k] for k in ('t', 'ch', 'gain')} for b in bufs]
 
     def _share_batch(self, owner, host, bufs):
@@ -401,6 +422,7 @@ class RawData:
                 np.int64)
         for r in range(n_rows):
             members = np.flatnonzero(truth_rows == r)
+            ev = int(sel['event_number'][members[0]])
             n_primary = int(truth_h['photon_count'][r])
             row = self._assemble_truth_row(kind, truth_h, r, base_time,
                                            sel[members])
@@ -413,14 +435,14 @@ class RawData:
                     pool_count=int(off[members[-1] + 1]) - slot_lo,
                     t_min=int(truth_h['photon_t_min'][r]) + base_time,
                     t_max=int(truth_h['photon_t_max'][r]) + base_time,
-                    base_time=base_time))
+                    base_time=base_time, event_number=ev))
             if ap_h is not None and int(ap_h['counts'][r]) > 0:
                 self._pulses.append(_Pulse(
                     buf=ap_buf, buf_start=int(ap_off[r]),
                     pool_count=int(ap_h['counts'][r]),
                     t_min=int(ap_h['t_min'][r]) + base_time,
                     t_max=int(ap_h['t_max'][r]) + base_time,
-                    base_time=base_time))
+                    base_time=base_time, event_number=ev))
 
     def _assemble_truth_row(self, kind, truth_h, r, base_time, insts):
         """One truth dict (reference: rawdata.py:313-375; wfsim_tpu
@@ -490,20 +512,50 @@ class RawData:
             row['y_mean_electron'] = np.nan
         return row
 
-    # -- main generator --------------------------------------------------------
+    # -- main generators -------------------------------------------------------
+
+    def __call__(self, instructions, truth_buffer=None, progress_bar=False,
+                 **kwargs):
+        """Legacy pulse generator (wfsim_tpu rawdata.py:837-859, the
+        reference RawData's): yields ``(channel, left, right, data)`` per
+        pulse, ``left`` and ``right`` in absolute samples and ``data`` the
+        pulse's int16 samples, window by window of :meth:`iter_windows`,
+        within a window by channel (a stable sort, so a pulse's records
+        stay in order).  ``self.instruction_event_number`` is the least
+        event number of the window's pulses.  The pax output path
+        (``interface.pax``) reads it."""
+        dt = self.const.sample_duration
+        for win in self.iter_windows(instructions, truth_buffer, **kwargs):
+            recs = win['records']
+            if len(recs):
+                recs = recs[np.argsort(recs['channel'], kind='stable')]
+            i = 0
+            n = len(recs)
+            while i < n:
+                plen = int(recs['pulse_length'][i])
+                nrec = -(-plen // len(recs['data'][i]))
+                data = np.concatenate(
+                    [recs['data'][i + j] for j in range(nrec)])[:plen]
+                left = int(recs['time'][i]) // dt
+                yield (int(recs['channel'][i]), left, left + plen - 1, data)
+                i += nrec
 
     def iter_windows(self, instructions, truth_buffer=None, **kwargs):
         """Yield per digitization window a dict with win_left / win_right
         (absolute samples), ``flush`` and a time-sorted strax raw_record
         array, super-batch by super-batch (see the module docstring).  The
         truth rows (dicts) of a super-batch go to ``truth_buffer`` (a list
-        they are appended to, or a callable taking them) before any window
+        they are appended to, a callable taking them, or a structured array
+        with a ``fill`` field whose free rows they fill) before any window
         of its round is yielded."""
         if truth_buffer is None:
             truth_buffer = []
         self.source_finished = False
         self._reset_pending()
         instructions = np.asarray(instructions)
+        self.instruction_event_number = (
+            int(np.min(instructions['event_number'])) if len(instructions)
+            else 0)
         arrival = self._arrival_times(instructions)
         order = np.argsort(arrival, kind='stable')
         for order_k, safe_t in self._split_super_batches(arrival, order):
@@ -512,6 +564,8 @@ class RawData:
             with self.diag.phase('digitize'):
                 wins, records = self._dispatch_digitize(safe_t)
             for w, recs in zip(wins, records):
+                self.instruction_event_number = min(p.event_number
+                                                    for p in w['grp'])
                 yield dict(win_left=w['win_left'], win_right=w['win_right'],
                            flush=w['flush'], records=recs)
             del wins, records     # the caller holds what it keeps
@@ -578,6 +632,15 @@ class RawData:
     def _drain_truth(truth_buffer, truth_rows):
         if isinstance(truth_buffer, list):
             truth_buffer.extend(truth_rows)
+        elif isinstance(truth_buffer, np.ndarray):
+            # wfsim_tpu rawdata.py:1208-1217
+            names = truth_buffer.dtype.names
+            for row in truth_rows:
+                ix = np.argmin(truth_buffer['fill'])
+                for k, v in row.items():
+                    if k in names:
+                        truth_buffer[ix][k] = v
+                truth_buffer[ix]['fill'] = True
         else:
             truth_buffer(truth_rows)
 

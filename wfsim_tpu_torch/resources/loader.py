@@ -11,14 +11,14 @@ the gas-gap map of gas-gap warping, the field-dependency maps (drift
 speed, survival probability, radial and azimuthal diffusion; a constant
 dummy becomes four constant maps) with the ``norm_drift_velocity``
 scaling, the longitudinal-diffusion map, the S1 and S2 optical
-propagation splines and, when enabled, the PMT-afterpulse CDFs and the
-noise bank (a resource file or the synthetic asset), the synthetic
-electron-afterpulse PMF and the ``garfield`` wire-distance luminescence
-table (an in-memory ``{'t', 'x'}`` table or a file, of whose liquid
-levels ``ll`` the nearest one is taken)
-(wfsim_tpu/resources/loader.py:141-575).  Every map is a
-:class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32 tensors; the
-device copy is made by ``models.params.build_params``.
+propagation splines, the nVeto PMT quantum efficiencies and, when
+enabled, the PMT-afterpulse CDFs and the noise bank (a resource file
+or the synthetic asset), the synthetic electron-afterpulse PMF and
+the ``garfield`` wire-distance luminescence table (an in-memory
+``{'t', 'x'}`` table or a file, of whose liquid levels ``ll`` the
+nearest one is taken) (wfsim_tpu/resources/loader.py:141-575).  Every
+map is a :class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32
+tensors; the device copy is made by ``models.params.build_params``.
 
 Files resolve from an absolute path or a local search directory
 (``url_base`` when it is a directory, ``$WFSIM_TPU_AUX_DIR``); the remote
@@ -386,6 +386,17 @@ class Resource:
             entry = config.get(k + '_time_spline', False)
             setattr(self, k + '_optical_propagation_spline',
                     make_map(entry, config) if entry else None)
+
+        # nVeto PMT quantum efficiencies (wfsim_tpu loader.py:545-550): a
+        # resource file or an in-memory dict, read by
+        # ``interface.instructions.read_optical``
+        self.nv_pmt_qe = None
+        if config.get('detector') == 'XENONnT_neutron_veto':
+            entry = config.get('nv_pmt_qe')
+            if _names_file(config, 'nv_pmt_qe'):
+                self.nv_pmt_qe = _read_any(_required_path(config, 'nv_pmt_qe'))
+            elif isinstance(entry, dict):
+                self.nv_pmt_qe = entry
 
         # SPE gain table (wfsim_tpu loader.py:552-562): a measured
         # spectrum csv, else the synthetic spectrum

@@ -16,7 +16,8 @@ __all__ = [
     'synthetic_ele_ap_pmf', 'synthetic_garfield_gas_gap',
     'write_pattern_map', 'write_production_files', 'PRODUCTION_FILES',
     'synthetic_garfield_table', 'write_garfield_table', 'GARFIELD_LEVELS',
-    'write_field_maps', 'FIELD_MAP_FILES',
+    'write_field_maps', 'FIELD_MAP_FILES', 'SyntheticG4File',
+    'synthetic_g4_file', 'synthetic_nv_pmt_qe',
 ]
 
 
@@ -374,3 +375,95 @@ def write_field_maps(aux_dir, seed: int):
         'map': c[11] * (31.0 - 3.0 * np.minimum(r2, 1.0)
                         + 1.0 * np.sin(x / 25.0 + y / 30.0))}, 'SE gain')
     return paths
+
+
+class _G4Branch:
+    def __init__(self, values):
+        self._values = values
+
+    def array(self, library='np'):
+        if library != 'np':
+            raise NotImplementedError('only library="np" is supported')
+        return self._values
+
+
+class _G4Tree:
+    def __init__(self, branches):
+        self._branches = branches
+
+    def keys(self):
+        return list(self._branches)
+
+    def __getitem__(self, name):
+        return _G4Branch(self._branches[name])
+
+
+class SyntheticG4File:
+    """An in-memory stand-in for a GEANT4 optical-MC ROOT file: the slice
+    of the ``uproot`` / ``resources.rootio`` file API that
+    ``interface.instructions.read_optical`` reads (``get('events')``, then
+    ``events[branch].array(library='np')``).  A module whose ``open``
+    returns it can take ``uproot``'s place in ``sys.modules``."""
+
+    def __init__(self, branches):
+        self.events = _G4Tree(branches)
+
+    def get(self, name):
+        if name != 'events':
+            raise AttributeError(f'no TTree named {name!r} in file')
+        return self.events
+
+    __getitem__ = get
+
+
+def synthetic_g4_file(n_events: int, seed: int, *, first_channel: int,
+                      n_channels: int, mean_hits: float, tau_ns: float,
+                      tail_every: int = 50, tail_fraction: float = 0.05,
+                      tail_ns=(2_000.0, 20_000.0)) -> SyntheticG4File:
+    """The GEANT4 ``events`` tree of ``n_events`` events (illustrative
+    inputs, not a calibration): per event a Poisson number of hits (mean
+    ``mean_hits``) on ``pmthitID`` uniform in ``first_channel`` ..
+    ``first_channel + n_channels - 1``, ``pmthitTime`` in seconds from an
+    exponential of ``tau_ns`` cut below 1 us, except that every
+    ``tail_every``-th event moves ``tail_fraction`` of its hits uniformly
+    into ``tail_ns`` (so ``utils.optical_adjustment`` splits it),
+    ``pmthitEnergy`` uniform in 2.0-4.1 eV (302-620 nm) and the primary
+    position ``xp_pri`` / ``yp_pri`` / ``zp_pri`` in mm, uniform in a
+    cylinder of radius 600 mm and depth 1,400 mm.  The dtypes are those
+    of the GEANT4 files (int32 ids, float64 times, float32 energies and
+    positions)."""
+    rng = np.random.default_rng(seed)
+    n_hits = rng.poisson(mean_hits, n_events)
+    ids = np.empty(n_events, object)
+    times = np.empty(n_events, object)
+    energies = np.empty(n_events, object)
+    cut = 1.0 - np.exp(-1_000.0 / tau_ns)
+    for i, n in enumerate(n_hits):
+        ids[i] = rng.integers(first_channel, first_channel + n_channels,
+                              n).astype(np.int32)
+        t = -tau_ns * np.log1p(-cut * rng.random(n))
+        if tail_every and i % tail_every == tail_every - 1:
+            late = rng.random(n) < tail_fraction
+            t[late] = rng.uniform(*tail_ns, int(late.sum()))
+        times[i] = t * 1e-9
+        energies[i] = rng.uniform(2.0, 4.1, n).astype(np.float32)
+    r = 600.0 * np.sqrt(rng.random(n_events))
+    phi = rng.uniform(-np.pi, np.pi, n_events)
+    return SyntheticG4File(dict(
+        eventid=np.arange(n_events, dtype=np.int32),
+        pmthitID=ids, pmthitTime=times, pmthitEnergy=energies,
+        xp_pri=(r * np.cos(phi)).astype(np.float32),
+        yp_pri=(r * np.sin(phi)).astype(np.float32),
+        zp_pri=rng.uniform(-1_400.0, 0.0, n_events).astype(np.float32)))
+
+
+def synthetic_nv_pmt_qe(channels, qe_percent: float = 30.0,
+                        wavelengths=(300.0, 600.0)) -> dict:
+    """An in-memory ``nv_pmt_qe`` entry (the layout of the nVeto QE
+    resource file): a flat ``qe_percent`` between the two wavelengths (nm)
+    on each of ``channels``, 0 outside (illustrative, not a
+    calibration)."""
+    lo, hi = wavelengths
+    return dict(nv_pmt_qe_wavelength=[lo - 1.0, lo, hi, hi + 1.0],
+                nv_pmt_qe={str(int(c)): [0.0, qe_percent, qe_percent, 0.0]
+                           for c in channels})
