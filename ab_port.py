@@ -4,7 +4,8 @@
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
                            pmt_truth_layouts|photon_times|step_block|
-                           garfield|s1_delays|s1_times]]
+                           garfield|s1_delays|s1_times|record_rows]]
+        [--configs [NAME,...]] [--busy]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -41,13 +42,31 @@ the NEST S1 delays on the detector_physics one, each also on a copy whose
 instruction 100 holds 10^5 photons (``s1_delays_measure``), and ``--only
 s1_times`` only the S1 photon times on the default S1 batch, its copy
 whose instruction 100 holds 10^5 photons, and the timing_models and
-detector_physics S1 batches given their delays (``s1_times_measure``).
+detector_physics S1 batches given their delays (``s1_times_measure``),
+and ``--only record_rows`` the record rows (K4r) on the default run's
+first round and that round's copy into the record arena
+(``record_rows_measure``; a checkout without K4r has no such row).
+
+With ``--configs`` each process runs, with this tree's
+``chip_smoke.config_runs`` on the tree's own package, each of the ten
+configurations of ``chip_smoke.RUN_CONFIGS`` (or the comma-separated
+names given) on its 512-event workload, a warm-up then a timed run, and
+prints per configuration the wall seconds, events/s, records, the raw
+data's Timers, the peak device memory and VmRSS after the run.  With
+``--busy`` each process runs the default configuration once to warm up
+and prints ``chip_smoke.device_busy`` of one more run: the device's busy
+share of a warm run's wall time.
 """
 import argparse
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+#: chip_smoke.RUN_CONFIGS (this script does not import chip_smoke)
+RUN_CONFIGS = ('default', 'realistic', 'detector_physics', 'he_full_grid',
+               'timing_models', 'per_pmt_truth', 'xenon1t_full_grid',
+               'field_maps', 'optical_nveto', 'optical_tpc')
 
 CODE = r'''
 import json, sys, time
@@ -99,6 +118,31 @@ print(json.dumps({'smi': smi, 'rows': {
     k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
 '''
 
+RUNS_CODE = r'''
+import importlib.util, json, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import torch
+from wfsim_tpu_torch import Simulator, _build, default_config
+from wfsim_tpu_torch.interface import bench_instructions
+_build.build()
+smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                      '--format=csv,noheader'], capture_output=True,
+                     text=True).stdout.strip()
+dev = torch.device('cuda:0')
+if sys.argv[3] == 'busy':
+    inst = bench_instructions(512, 2000, 300)
+    cfg = default_config(seed=1234, chunk_size=100)
+    run = lambda: Simulator(cfg, device=dev).get_arrays(inst)
+    run()
+    out = dict(busy=cs.device_busy(run))
+else:
+    out = dict(runs=cs.config_runs(dev, smi, sys.argv[3].split(',')))
+print(json.dumps(dict(smi=smi, **out)))
+'''
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -109,25 +153,38 @@ def main():
     ap.add_argument('--only', choices=('all', 'ap_diffuse', 'lumi_summaries',
                                        'pmt_truth', 'pmt_truth_layouts',
                                        'photon_times', 'step_block',
-                                       'garfield', 's1_delays', 's1_times'),
+                                       'garfield', 's1_delays', 's1_times',
+                                       'record_rows'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
                          'K8 row-truth and K16 rows only, those two '
                          'kernels under each layout, the K13a and K9 '
                          'rows only, the K14 rows only, the K13c rows '
-                         'only, the K15 and K13b rows only, or the K9 S1 '
-                         'rows only')
+                         'only, the K15 and K13b rows only, the K9 S1 '
+                         'rows only, or the K4r row only')
+    ap.add_argument('--configs', nargs='?', const='all', default=None,
+                    help='run the configurations (all of RUN_CONFIGS, or '
+                         'the comma-separated names), not the bench runs')
+    ap.add_argument('--busy', action='store_true',
+                    help="measure the default run's device busy share")
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     trees = {'other': args.other.resolve(), 'this': here}
     for label in ('other', 'this', 'this', 'other'):
         root = trees[label]
-        cmd = ([sys.executable, '-c', KERNEL_CODE, str(root),
-                str(here / 'chip_smoke.py'), args.only] if args.kernels else
-               [sys.executable, '-c', CODE, str(root), str(args.runs)])
-        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
+        smoke = str(here / 'chip_smoke.py')
         if args.kernels:
+            cmd = [sys.executable, '-c', KERNEL_CODE, str(root), smoke,
+                   args.only]
+        elif args.configs or args.busy:
+            names = ('busy' if args.busy else ','.join(RUN_CONFIGS)
+                     if args.configs == 'all' else args.configs)
+            cmd = [sys.executable, '-c', RUNS_CODE, str(root), smoke, names]
+        else:
+            cmd = [sys.executable, '-c', CODE, str(root), str(args.runs)]
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
+        if args.kernels or args.configs or args.busy:
             sys.stderr.write(r.stdout)
         if r.returncode:
             sys.stderr.write(r.stdout + r.stderr[-4000:])

@@ -18,6 +18,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    device='cuda').get_arrays(inst)`` on the 512-event bench workload, once
    to warm up and once timed with the kernels' launch counts reset just
    before; checks the truth and the strax invariants of the records;
+   then the device's busy share of a warm run (device_busy: the union of
+   the profiler's device records over the median wall of three runs);
 5. cross-check: one window batch of that workload digitized on the card and
    by the twins on the CPU, records bitwise equal.
 
@@ -150,6 +152,21 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     the bound (K15: the classes, the edges, the draws of each photon's
     class and the delays; K13b: the per-instruction inputs, the edges, u,
     the table rows of the batch's corners and the delays).
+
+3u. the record rows (K4r: a round's records as strax raw_record rows in
+    their sorted slots) on the default run's first round (~282 k records
+    in 342 windows, sorted by ``round_order`` on the card): bitwise
+    against its twin and against the library composition (the rows built
+    in torch, then one ``index_select``: two calls), no read-back,
+    ``ms``, ``device_ms``, ``host_us`` over 1,000 calls, the twin's time,
+    the bound (each record's samples, meta, window and permutation entry
+    read once, the windows' edges, 244 bytes a row written once), the
+    sort's and ``round_records``' times; then the round's rows into the
+    host three ways (the record arena's, through its pinned staging
+    buffer; into a page-locked base; a pageable synchronous copy), each
+    bitwise.
+    K4r launches once a digitize round on every configuration
+    (EXPECTED_LAUNCHES).
 
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
@@ -390,12 +407,13 @@ garfield times around one gather ``table[row_of_photon, cols]``).  The phase-2
 line times ``stream_of``, which every wrapper calls.
 
 Every configuration's 512-event run must give EXPECTED_RECORDS, the
-channel draw, the map lookup, the ZLE and record-pack entries, the
-luminescence tables, the PMT-afterpulse and photon-summary entries, the
-diffused pattern, the S2 electron and photon times and the gas-gap times
-their EXPECTED_LAUNCHES (field_maps: the map lookup, the luminescence
-tables with gas gaps and the diffused pattern; the optical runs: the PMT
-response, the ZLE and record-pack entries and K11 or K16), and the default run
+channel draw, the map lookup, the ZLE, record-pack and record-row
+entries, the luminescence tables, the PMT-afterpulse and photon-summary
+entries, the diffused pattern, the S2 electron and photon times and the
+gas-gap times their EXPECTED_LAUNCHES (field_maps: the map lookup, the
+luminescence tables with gas gaps and the diffused pattern; the optical
+runs: the PMT response, the ZLE, record-pack and record-row entries and
+K11 or K16; the record rows on every run), and the default run
 DEFAULT_DIGEST: a change that keeps every kernel's output keeps them.
 
 The second-to-last line is the JSON kernel table, the last line
@@ -426,9 +444,11 @@ PHYSICS_KERNELS = ('wfsim_channel_draw', 'wfsim_lumi_tables',
 #: the ZLE (K3) and record-pack (K4) entries: each once a digitize batch
 ZLE_PACK_KERNELS = ('wfsim_zle_intervals', 'wfsim_pack_record_counts',
                     'wfsim_pack_records')
+#: the record rows (K4r): once a digitize round with records
+ROUND_KERNELS = ('wfsim_record_rows',)
 #: the kernel entries each main path must launch
 DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *ZLE_PACK_KERNELS,
-                        'wfsim_grid_lookup') + PHYSICS_KERNELS
+                        *ROUND_KERNELS, 'wfsim_grid_lookup') + PHYSICS_KERNELS
 #: the PMT-afterpulse generator's entries (K11): each once a call
 AP_KERNELS = ('wfsim_pmt_ap_select', 'wfsim_pmt_ap_rows', 'wfsim_pmt_ap_emit')
 #: the photon summaries' entries (K11 summaries): each once a call
@@ -466,7 +486,8 @@ X1T_PATH_KERNELS = FULL_GRID_PATH_KERNELS + ('wfsim_pmt_row_truth_per_pmt',)
 #: and the digitizer (K1+K2, K3, K4); the nVeto run adds the PMT
 #: afterpulses (K11), the XENONnT run the per-PMT truth (K16)
 OPTICAL_PATH_KERNELS = ('wfsim_pmt_photon_pass', 'wfsim_pmt_row_truth',
-                        'wfsim_superpose_adc', *ZLE_PACK_KERNELS)
+                        'wfsim_superpose_adc', *ZLE_PACK_KERNELS,
+                        *ROUND_KERNELS)
 OPTICAL_CONFIGS = dict(
     optical_nveto=dict(detector='XENONnT_neutron_veto', first_channel=2000,
                        n_channels=120, mean_hits=3000, tau_ns=200.0,
@@ -678,6 +699,55 @@ def host_us(fn, calls=2000):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / calls * 1e6
+
+
+def busy_union(intervals):
+    """The length of the union of ``(start, end)`` intervals."""
+    total = 0.0
+    lo = hi = None
+    for a, b in sorted(intervals):
+        if hi is None or a > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + (0.0 if hi is None else hi - lo)
+
+
+def device_busy(fn, walls=3):
+    """The device's busy share of one call of ``fn`` (a warm run): the
+    union of the intervals of the device records (kernels, copies, sets)
+    of a ``torch.profiler`` session around one call, over the median host
+    wall time of ``walls`` calls without the profiler; also over the
+    profiled call's own wall.  Returns dict(share, share_profiled, busy_s,
+    copy_s, wall_s, wall_profiled_s, records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    times = []
+    for _ in range(walls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and 'Activity Buffer' not in e.name]
+    busy = busy_union((e.time_range.start, e.time_range.end)
+                      for e in evs) / 1e6
+    copy = busy_union((e.time_range.start, e.time_range.end)
+                      for e in evs if 'Memcpy' in e.name) / 1e6
+    return dict(share=busy / wall, share_profiled=busy / wall_p,
+                busy_s=busy, copy_s=copy, wall_s=wall,
+                wall_profiled_s=wall_p, records=len(evs))
 
 
 def s2_like_arena(rng, n_win, n_ch, n_samples, n_mean=4600, sigma=1500):
@@ -1270,7 +1340,7 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         if n_type[1] != 512 or n_type[2] != 512 or n_type[4] <= 0:
             raise AssertionError(f'truth rows by type {n_type}')
         n_photons = int(truth['n_photon'].sum())
-        expect_records('he_full_grid', len(rr), len(rr_he))
+        expect_records('he_full_grid', len(rr), len(rr_he), launches=launches)
         print(f'[full] events/s {512 / wall:.2f} wall {wall:.3f} s records '
               f'{len(rr) + len(rr_he) + len(rr_aq)} photons {n_photons} '
               f'peak_mem {peak / 2 ** 20:.1f} MiB ({smi})')
@@ -1366,7 +1436,7 @@ def phase_timing_models(dev, smi):
             raise AssertionError('timing_models raw_records violate the '
                                  'strax invariants')
         n_photons = int(truth['n_photon'].sum())
-        expect_records('timing_models', len(rr))
+        expect_records('timing_models', len(rr), launches=launches)
         print(f'[timing] events/s {512 / wall:.2f} wall {wall:.3f} s '
               f'records {len(rr)} photons {n_photons} peak_mem '
               f'{peak / 2 ** 20:.1f} MiB ({smi})')
@@ -1591,27 +1661,31 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         xenon1t_full_grid=567_294, field_maps=696_517,
                         optical_nveto=126_763, optical_tpc=110_106)
 #: the launches of the channel draw, the map lookup, (one a digitize
-#: batch) the ZLE and record-pack entries, (one a simulation batch) the
-#: luminescence tables, the PMT-afterpulse and photon-summary entries and
-#: the diffused pattern on those runs
+#: batch) the ZLE and record-pack entries, (one a digitize round) the
+#: record rows, (one a simulation batch) the luminescence tables, the
+#: PMT-afterpulse and photon-summary entries and the diffused pattern on
+#: those runs
+ROUNDS = dict.fromkeys(ROUND_KERNELS, 3)
 EXPECTED_LAUNCHES = dict(
     default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12,
                  wfsim_lumi_tables=3, wfsim_s2_electron_times=3,
                  wfsim_s2_photon_times=3,
-                 **dict.fromkeys(ZLE_PACK_KERNELS, 15)),
+                 **dict.fromkeys(ZLE_PACK_KERNELS, 15), **ROUNDS),
     realistic=dict(**dict.fromkeys(AP_KERNELS, 9),
-                   **dict.fromkeys(SUMMARY_KERNELS, 3)),
+                   **dict.fromkeys(SUMMARY_KERNELS, 3), **ROUNDS),
     detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3,
                           wfsim_lumi_gasgap_times=3,
-                          wfsim_s2_photon_times=3),
+                          wfsim_s2_photon_times=3, **ROUNDS),
+    he_full_grid=ROUNDS, timing_models=ROUNDS, per_pmt_truth=ROUNDS,
+    xenon1t_full_grid=ROUNDS,
     field_maps=dict(wfsim_grid_lookup=57, wfsim_lumi_tables=3,
-                    wfsim_pattern_diffuse=3),
+                    wfsim_pattern_diffuse=3, **ROUNDS),
     optical_nveto=dict(wfsim_pmt_photon_pass=6, wfsim_pmt_row_truth=6,
                        **dict.fromkeys(AP_KERNELS, 6),
-                       **dict.fromkeys(ZLE_PACK_KERNELS, 9)),
+                       **dict.fromkeys(ZLE_PACK_KERNELS, 9), **ROUNDS),
     optical_tpc=dict(wfsim_pmt_photon_pass=6, wfsim_pmt_row_truth=6,
                      wfsim_pmt_row_truth_per_pmt=6,
-                     **dict.fromkeys(ZLE_PACK_KERNELS, 10)))
+                     **dict.fromkeys(ZLE_PACK_KERNELS, 10), **ROUNDS))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
     '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
@@ -2189,6 +2263,271 @@ def zle_pack_measure(dev, smi, max_syncs=(0, 1)):
                   f'({smi})')
         del ph, sargs, grid, zk, zr, pk, pr, zargs, pargs, k3, p3, k4, p4
         del works
+    return res
+
+
+def first_round(cfg, inst, dev):
+    """The first digitize round of ``cfg``'s run on ``inst``: a RawData
+    that simulated the first super-batch and planned its round, and the
+    round's ``(window ids, rec_data, rec_meta)`` per batch, its windows'
+    left edges, largest window and grid rows (``round_order``'s
+    arguments)."""
+    import torch
+    from wfsim_tpu_torch.pipeline.digitize import (full_grid, gather_digitize,
+                                                   pack_records)
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    rd = RawData(cfg, device=dev)
+    arrival = rd._arrival_times(inst)
+    order, safe_t = rd._split_super_batches(
+        arrival, np.argsort(arrival, kind='stable'))[0]
+    rd.simulate(inst, order)
+    wins, arena, batches = rd.plan_digitize(safe_t)
+    c = rd.const
+    parts = []
+    for batch, T_cap, pieces, nix in batches:
+        g = gather_digitize(rd.params, c, *arena,
+                            torch.as_tensor(pieces, device=dev),
+                            torch.as_tensor(nix, device=dev),
+                            n_samples=T_cap, max_intervals=64)
+        parts.append((batch, *pack_records(g['data'], g['left_all'],
+                                           g['starts'], g['ends'],
+                                           g['counts'])))
+    return rd, dict(parts=parts, win_left=[w['win_left'] for w in wins],
+                    n_samples=max(b[1] for b in batches),
+                    n_rows=(c.n_channels_total if full_grid(rd.params, c)
+                            else c.n_tpc_pmts))
+
+
+def arena_copy_measure(rows, reps=5):
+    """Seconds of one round's rows from the card into the host, median of
+    ``reps``, three ways: the record arena's (a fresh RecordArena: put,
+    the copy into a pinned staging buffer on the copy stream, wait, the
+    host copy into the base), with the host seconds of ``put`` alone (what
+    stays on the host before the next super-batch); a fresh base of the
+    arena's size page-locked (``cudaHostRegister``) so that the copy lands
+    in it, then released; and the pageable synchronous copy
+    ``dest.copy_(rows)`` into a fresh numpy array.  Each result is held to
+    the rows' bytes."""
+    import torch
+    from wfsim_tpu_torch.pipeline.arena import RECORD_DTYPE, RecordArena
+    cudart = torch.cuda.cudart()
+    want = rows.cpu().numpy().tobytes()
+    n = int(rows.shape[0])
+
+    def staging():
+        copy = RecordArena().put(rows)
+        return copy, lambda: RecordArena.wait(copy)
+
+    def registered():
+        base = np.empty(max(n, RecordArena.chunk_rows), RECORD_DTYPE)
+        if int(cudart.cudaHostRegister(base.ctypes.data, base.nbytes, 0)):
+            raise RuntimeError('cudaHostRegister failed')
+        dest = base[:n]
+        stream = torch.cuda.Stream(rows.device)
+        stream.wait_stream(torch.cuda.current_stream(rows.device))
+        with torch.cuda.stream(stream):
+            torch.from_numpy(dest.view(np.int16).reshape(rows.shape)).copy_(
+                rows, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+
+        def finish():
+            event.synchronize()
+            if int(cudart.cudaHostUnregister(base.ctypes.data)):
+                raise RuntimeError('cudaHostUnregister failed')
+            return dest
+        return None, finish
+
+    def pageable():
+        dest = np.empty(n, RECORD_DTYPE)
+        torch.from_numpy(dest.view(np.int16).reshape(rows.shape)).copy_(rows)
+        return None, lambda: dest
+    res = {}
+    for mode, start in (('staging', staging), ('registered', registered),
+                        ('pageable', pageable)):
+        total, put = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _copy, finish = start()
+            t1 = time.perf_counter()
+            got = finish()
+            total.append(time.perf_counter() - t0)
+            put.append(t1 - t0)
+            if got.view(np.int16).tobytes() != want:
+                raise AssertionError(f'the round\'s copy ({mode}) differs')
+            del got, finish, _copy
+        res[mode] = dict(s=statistics.median(total),
+                         put_s=statistics.median(put))
+    return res
+
+
+def record_rows_measure(dev, smi, max_syncs=0):
+    """Phase 3u: the record rows (K4r) on the first round of the default
+    run (its records from the card's K4 in the round's sorted order,
+    ``round_order``): bitwise against its twin and against the library
+    composition (the rows built in torch in batch order, ``rows_of``,
+    then one ``index_select`` by the permutation: two calls), no read-back
+    (at most ``max_syncs``; None counts them without a limit), ``ms``,
+    ``device_ms``, ``host_us`` over 1,000 calls, the twin's time, the
+    bound (each record's samples, meta, window and permutation entry read
+    once, the windows' edges, 244 bytes a row written once; the count of
+    samples, meta and rows alone printed beside), the sort's and the
+    whole ``round_records``' times, and the round's copy into the record
+    arena three ways (arena_copy_measure).  Returns {'record_rows':
+    measurements}."""
+    import torch
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.pipeline.arena import RecordArena
+    from wfsim_tpu_torch.pipeline.digitize import (
+        record_rows, record_rows_ref, round_order, round_records, rows_of)
+    cfg = default_config(seed=1234, chunk_size=100)
+    rd, rnd = first_round(cfg, bench_instructions(512, 2000, 300), dev)
+    dt = rd.const.sample_duration
+    kw = dict(n_samples=rnd['n_samples'], n_rows=rnd['n_rows'])
+    o = round_order(list(rnd['parts']), rnd['win_left'], **kw)
+    args = (o['data'], o['meta'], o['win'], o['win_left'], o['perm'], dt)
+    n, n_win = int(o['perm'].shape[0]), len(rnd['win_left'])
+    kernel = lambda: record_rows(*args)                 # noqa: E731
+    plain = lambda: record_rows_ref(*args)              # noqa: E731
+    library = lambda: rows_of(*args[:4], dt).index_select(  # noqa: E731
+        0, o['perm'])
+    out = kernel()
+    err = max_diff(out, plain())
+    lib_diff = max_diff(library(), out)
+    n_sync, where = count_syncs(kernel)
+    if err or lib_diff or (max_syncs is not None and n_sync > max_syncs):
+        raise AssertionError(f'record_rows differs from its twin ({err}) or '
+                             f'the library ({lib_diff}), or reads back '
+                             f'{n_sync} times ({where})')
+    n_bytes = n * (220 + 24 + 4 + 8 + 244) + n_win * 8
+    b_rows = n * (220 + 24 + 244)
+    dev_ms, by_name = bounded_device_ms('record_rows', kernel,
+                                        ('record_rows',),
+                                        bound(n_bytes)[0])
+    sort_ms = cuda_ms(lambda: torch.sort(o['key'], stable=True), reps=10)
+    round_ms = cuda_ms(lambda: round_records(list(rnd['parts']),
+                                             rnd['win_left'], dt=dt, **kw),
+                       reps=10)
+    m = dict(err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+             plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+             bytes=n_bytes, ops32=0, ops64=0,
+             library_ms=cuda_ms(library, reps=10), library_diff=lib_diff,
+             library_call='rows_of + index_select (two calls)',
+             library_calls=2, syncs=n_sync, records=n, windows=n_win,
+             sort_ms=sort_ms, round_records_ms=round_ms,
+             bound_rows_ms=bound(b_rows)[0],
+             copy=arena_copy_measure(out),
+             arena_base_rows=max(n, RecordArena.chunk_rows))
+    b_ms, b_by = bound(n_bytes)
+    dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.6f} ms '
+             + str({k[:60]: round(v, 6) for k, v in by_name.items()}))
+    print(f'[rows] record_rows: the default run\'s first round, {n} '
+          f'records in {n_win} windows of {len(rnd["parts"])} batches, '
+          f'max|diff| {err} (library {lib_diff}), host syncs {n_sync}: '
+          f'{m["ms"]:.4f} ms, device {dev_s}, host {m["host_us"]:.2f} us a '
+          f'call, plain twin {m["plain_ms"]:.4f} ms, library (two calls) '
+          f'{m["library_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} (samples, '
+          f'meta and rows alone: {m["bound_rows_ms"]:.6f} ms); the sort '
+          f'{sort_ms:.4f} ms, round_records {round_ms:.4f} ms ({smi})')
+    for mode, c in m['copy'].items():
+        put = f', before the wait {c["put_s"]:.6f} s'
+        print(f'[rows] the round\'s {n * 244 / 2 ** 20:.1f} MiB to the host, '
+              f'{mode}: {c["s"]:.6f} s ({n * 244 / c["s"] / 1e9:.2f} GB/s'
+              f'{put}; arena base {m["arena_base_rows"]} rows) ({smi})')
+    return {'record_rows': m}
+
+
+#: the ten configurations of a 512-event run (PERF.md §4), in the order
+#: config_runs takes them
+RUN_CONFIGS = ('default', 'realistic', 'detector_physics', 'he_full_grid',
+               'timing_models', 'per_pmt_truth', 'xenon1t_full_grid',
+               'field_maps', 'optical_nveto', 'optical_tpc')
+
+
+def config_run(name, dev, tmp):
+    """A callable that runs configuration ``name`` (RUN_CONFIGS; its files
+    written into ``tmp``) once on its 512-event workload through the entry
+    a user calls, and returns (records per output, the raw data's
+    Timers summary)."""
+    from wfsim_tpu_torch import Simulator, default_config
+    from wfsim_tpu_torch import config as cf
+    from wfsim_tpu_torch import interface as itf
+    from wfsim_tpu_torch.resources import synthetic as syn
+    inst = itf.bench_instructions(512, 2000, 300)
+    realism = dict(enable_noise=True, enable_pmt_afterpulses=True,
+                   enable_electron_afterpulses=True)
+    if name.startswith('optical_'):
+        from wfsim_tpu_torch.pipeline.chunker import ChunkRawRecords
+        from wfsim_tpu_torch.pipeline.optical import RawDataOptical
+        cfg, ins, ch, t, _t_read = optical_inputs(name)
+
+        def run():
+            sim = ChunkRawRecords(cfg, device=dev,
+                                  rawdata_generator=RawDataOptical,
+                                  channels=ch, timings=t)
+            n = sum(len(o['raw_records']) for o in sim(ins))
+            return (n,), sim.rawdata.diag.summary()
+        return run
+    if name == 'detector_physics':
+        over = cf.detector_physics_overrides(syn.write_pattern_map(
+            Path(tmp) / 's2_pattern_map.json', 1234))
+    elif name == 'he_full_grid':
+        syn.write_production_files(tmp, 1234)
+        over = cf.he_full_grid_overrides(tmp)
+    elif name == 'timing_models':
+        over = cf.timing_models_overrides(syn.write_garfield_table(
+            Path(tmp) / 'garfield.npz', 1234))
+    elif name == 'field_maps':
+        syn.write_field_maps(tmp, 1234)
+        over = cf.field_maps_overrides(tmp)
+    else:
+        over = dict(default={}, realistic=realism,
+                    per_pmt_truth=dict(per_pmt_truth=True, **realism),
+                    xenon1t_full_grid=dict(
+                        detector='XENON1T',
+                        high_energy_deamplification_factor=1.0,
+                        per_pmt_truth=True, **realism))[name]
+    cfg = default_config(seed=1234, chunk_size=100, **over)
+    if name == 'detector_physics':
+        inst = itf.detector_physics_instructions(512, 2000, 300)
+    elif name == 'timing_models':
+        inst = itf.timing_models_instructions(512, 2000, 300)
+
+    def run():
+        sim = Simulator(cfg, device=dev)
+        out = sim.get_arrays(inst)
+        n = tuple(len(out[k]) for k in ('raw_records', 'raw_records_he')
+                  if k in out and (k == 'raw_records' or len(out[k])))
+        return n, sim.sim.rawdata.diag.summary()
+    return run
+
+
+def config_runs(dev, smi, names=RUN_CONFIGS):
+    """Each configuration of ``names``: a warm-up run, then a timed one
+    with the peak device memory reset before it; returns {name: wall_s,
+    ev_s, records, the Timers, peak device MiB, VmRSS MiB after the run
+    (its arrays dropped)}."""
+    import torch
+    res = {}
+    tmp = tempfile.mkdtemp(prefix='wfsim_runs_')
+    try:
+        for name in names:
+            run = config_run(name, dev, tmp)
+            run()                                           # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            records, diag = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res[name] = dict(wall_s=wall, ev_s=512 / wall, records=records,
+                             peak_mib=torch.cuda.max_memory_allocated(dev)
+                             / 2 ** 20, rss_mib=rss_mib(), timers=diag)
+            print(f'[runs] {name}: {json.dumps(res[name])} ({smi})')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return res
 
 
@@ -3831,7 +4170,8 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
           f'and the bottom fields (areas rel. diff. {rel:.3g})')
     if not same:
         raise AssertionError('per-PMT truth changed the records')
-    expect_records('per_pmt_truth', len(out['raw_records']))
+    expect_records('per_pmt_truth', len(out['raw_records']),
+                   launches=launches_p)
     print(f'[per-pmt] events/s {n_ev / wall:.2f} wall {wall:.3f} s records '
           f'{len(out["raw_records"])} truth rows {len(truth)} peak_mem '
           f'{peak / 2 ** 20:.1f} MiB ({smi})')
@@ -3917,7 +4257,7 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
         raise AssertionError('XENON1T records differ between the grid '
                              'without HE rows and the slim grid, or with '
                              'per-PMT truth off')
-    expect_records('xenon1t_full_grid', len(rr))
+    expect_records('xenon1t_full_grid', len(rr), launches=launches_x)
     print(f'[x1t] events/s {n_ev / wall:.2f} wall {wall:.3f} s records '
           f'{len(rr)} truth rows {len(truth)} peak_mem '
           f'{peak / 2 ** 20:.1f} MiB ({smi})')
@@ -4692,6 +5032,14 @@ def main():
     main_digest = arrays_digest(out)
     expect_records('default', len(rr), launches=launches,
                    digest=run_digest(out))
+    from wfsim_tpu_torch import Simulator
+    busy = device_busy(lambda: Simulator(cfg, device=dev).get_arrays(inst))
+    print(f'[main] device busy share {busy["share"]:.4f} of a warm run\'s '
+          f'{busy["wall_s"]:.3f} s (median of 3 runs; '
+          f'{busy["share_profiled"]:.4f} of the profiled run\'s '
+          f'{busy["wall_profiled_s"]:.3f} s): device '
+          f'busy {busy["busy_s"]:.4f} s, copies {busy["copy_s"]:.4f} s, '
+          f'{busy["records"]} device records ({smi})')
 
     # ---- 5. one window batch: card against the CPU twins -------------------
     rd = RawData(cfg, device=dev)
@@ -4843,6 +5191,9 @@ def main():
 
     # ---- 3k. the ZLE interval search and the record pack on four grids -----
     ztimes = zle_pack_measure(dev, smi)
+
+    # ---- 3u. the record rows (K4r) and the round's copy to the arena ----------
+    rtimes = record_rows_measure(dev, smi)
 
     # ---- 3l. the PMT-afterpulse generator and the diffused pattern ----------
     atimes = ap_diffuse_measure(dev, smi)
@@ -5004,6 +5355,13 @@ def main():
                  launches_f if m['shape'] == 'full' else launches, m)
         rows[-1].update(syncs=m['syncs'], records=m['records'],
                         in_window=m['in_window'])
+    for row, m in rtimes.items():
+        measured(row, 'pack_records.cu', 'wfsim_tpu/pipeline/rawdata.py:1785',
+                 list(ROUND_KERNELS), launches, m)
+        rows[-1].update({k: m[k] for k in (
+            'syncs', 'records', 'windows', 'library_call', 'library_calls',
+            'library_diff', 'sort_ms', 'round_records_ms', 'bound_rows_ms',
+            'copy', 'arena_base_rows')})
     for row, m in atimes.items():
         if row.startswith('pmt_afterpulse'):
             measured(row, 'pmt_afterpulse.cu',

@@ -41,6 +41,9 @@ from .test_torch_s1_delays_redesign import (S1_DELAY_CASES, custom_case,
 from .test_torch_s1_times_redesign import CASES as S1_TIME_CASES
 from .test_torch_s1_times_redesign import MODELS as S1_TIME_MODELS
 from .test_torch_s1_times_redesign import s1_case
+from .test_torch_record_arena import (DT, ROW_CASES, SPLITS,
+                                      digitized_rounds, photon_buffers,
+                                      PULSE_STARTS, row_case, torch_parts)
 from .test_torch_pmt_truth_order import (
     SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
     photon_terms, truth_case)
@@ -1164,6 +1167,89 @@ def test_superpose_status_word_raises(dev):
     n, err, lines = _syncs(superpose_adc_full, *args, errors=errors,
                            **dict(kw, deamp=2000))
     assert n == 1 and isinstance(err, OverflowError), lines
+
+
+# ---------------------------------------------------------------------------
+# the record rows (K4r) on the cases of tests/test_torch_record_arena.py,
+# the record arena's copies, and rounds of a fixed pulse set
+
+
+@pytest.mark.parametrize('name', ROW_CASES)
+def test_round_records_match_twin(dev, name):
+    """A round's sorted raw_record rows on the card bitwise those of the
+    CPU twin, per-window counts equal; record_rows reads nothing back and
+    launches once (none without records); round_records reads back once
+    (the counts)."""
+    from wfsim_tpu_torch.pipeline.digitize import round_records, record_rows
+    case = row_case(name)
+    kw = dict(dt=DT, n_samples=case['n_samples'], n_rows=case['n_rows'])
+    k = _build.KERNELS['wfsim_record_rows']
+    before = k.launches
+    n, (rows, counts), lines = _syncs(round_records, torch_parts(case, dev),
+                                      case['win_left'], **kw)
+    assert n == 1, lines
+    ref, counts_ref = round_records(torch_parts(case), case['win_left'], **kw)
+    assert rows.shape == ref.shape
+    assert rows.cpu().numpy().tobytes() == ref.numpy().tobytes()
+    np.testing.assert_array_equal(counts, counts_ref)
+    assert k.launches == before + (len(ref) > 0)
+    if len(ref):
+        data = torch.cat([d for _, d, _ in torch_parts(case, dev)])
+        meta = torch.cat([m for _, _, m in torch_parts(case, dev)])
+        win = torch.as_tensor(np.concatenate(
+            [np.asarray(b, np.int32)[m[:, 0]] for b, _, m in case['parts']]),
+            device=dev)
+        wl = torch.as_tensor(case['win_left'], device=dev)
+        perm = torch.randperm(len(ref), device=dev)
+        n, out, lines = _syncs(record_rows, data, meta, win, wl, perm, DT)
+        assert n == 0, lines
+        assert torch.equal(out.cpu(), record_rows(
+            data.cpu(), meta.cpu(), win.cpu(), wl.cpu(), perm.cpu(), DT))
+
+
+def test_record_arena_copies_on_the_card(dev, monkeypatch):
+    """Two rounds' rows copied on the copy stream through pinned staging
+    into one arena base: bytes equal to the rows, both slices views of one
+    base, each round's rows dropped at once (record_stream keeps them for
+    the copy); a round past the base starts a new one."""
+    from wfsim_tpu_torch.pipeline.arena import RecordArena
+    from wfsim_tpu_torch.pipeline.digitize import round_records
+    monkeypatch.setattr(RecordArena, 'chunk_rows', 0)
+    want, copies = [], []
+    arena = None
+    for name in ('bench-like batches', 'one channel of many records',
+                 'bench-like batches'):
+        case = row_case(name)
+        rows = round_records(torch_parts(case, dev), case['win_left'], dt=DT,
+                             n_samples=case['n_samples'],
+                             n_rows=case['n_rows'])[0]
+        want.append(rows.cpu().numpy().tobytes())
+        if arena is None:
+            RecordArena.note_chunk(2 * len(rows) + 5000)
+            arena = RecordArena()
+        copies.append(arena.put(rows))
+        del rows
+        torch.empty(10 ** 8, dtype=torch.uint8, device=dev).fill_(7)
+    got = [RecordArena.wait(c) for c in copies]
+    assert [g.view(np.int16).tobytes() for g in got] == want
+    assert got[0].base is got[1].base and got[2].base is not got[0].base
+    assert np.shares_memory(got[0].base, got[1])
+
+
+def test_rounds_on_the_card_match_the_cpu(dev):
+    """The fixed pulse set digitized in three rounds on the card and on
+    the CPU: every window's records bitwise equal; K4r launched once a
+    round."""
+    pulse_set = (PULSE_STARTS, photon_buffers())
+    k = _build.KERNELS['wfsim_record_rows']
+    before = k.launches
+    _rd, card = digitized_rounds(pulse_set, SPLITS[2], device=dev)
+    assert k.launches == before + sum(1 for r in card if r[1])
+    _rd, cpu = digitized_rounds(pulse_set, SPLITS[2])
+    assert len(card) == len(cpu)
+    for (_p, wa, ra), (_q, wb, rb) in zip(card, cpu):
+        assert [w['win_left'] for w in wa] == [w['win_left'] for w in wb]
+        assert [r.tobytes() for r in ra] == [r.tobytes() for r in rb]
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 the records named after the measured entry and refuses a session where
 the profiler dropped or added one of them; ``below_bound`` refuses a
 device time below the row's bound; ``bounded_device_ms`` takes such a
-session again before it refuses.  The records are made up here (the
-profiler runs only on the card)."""
+session again before it refuses; ``busy_union``, the device's busy time
+of ``device_busy``, counts overlapping records once.  The records are
+made up here (the profiler runs only on the card)."""
 import importlib.util
 from pathlib import Path
 
@@ -103,3 +104,14 @@ def test_bounded_device_ms_takes_a_session_again(smoke, monkeypatch, times,
             smoke.bounded_device_ms('row', None, NAMES, 0.005628)
         return
     assert smoke.bounded_device_ms('row', None, NAMES, 0.005628)[0] == want
+
+
+@pytest.mark.parametrize('intervals,want', [
+    ([], 0.0),
+    ([(0, 10)], 10.0),
+    ([(0, 10), (5, 12), (20, 25)], 17.0),     # overlap counted once
+    ([(20, 25), (0, 10), (2, 3)], 15.0),      # unsorted, nested
+    ([(0, 10), (10, 12)], 12.0),              # touching
+])
+def test_busy_union(smoke, intervals, want):
+    assert smoke.busy_union(iter(intervals)) == want

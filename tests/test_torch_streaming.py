@@ -118,7 +118,7 @@ def port_round_windows(splits, with_records=True):
                                      int(t[-1]) + base, base))
             added += 1
         if with_records:
-            w, recs = rd._dispatch_digitize(safe_t)
+            w, recs = rd._collect_round(rd._dispatch_digitize(safe_t))
             wins.extend(dict(x, records=r) for x, r in zip(w, recs))
         else:
             wins.append([(x['win_left'], x['win_right'], x['flush'])

@@ -32,6 +32,24 @@
 // Records come out in the twin's (window, row, interval, record_i) order:
 // the output is bitwise pack_records_ref's, the first R rows of wfsim_tpu's
 // pack_records.
+//
+// wfsim_record_rows (K4r) lays a round's records out as strax raw_record
+// rows in their sorted slots.
+//
+// Replaces: the per-round record fill of wfsim_tpu/pipeline/rawdata.py:1785-1818
+// (_collect_digitize_work: one np.lexsort((C, S, W)), then every record's
+// header and samples written into its sorted slot of the host arena; a
+// host loop there, not a TPU kernel).  Here the (window, start, channel)
+// order is one torch.sort of packed keys on the card, and this kernel
+// writes output row i from record perm[i]: the 244-byte row of
+// raw_record_dtype(110) as 61 32-bit words, [time (int64), length,
+// dt | channel << 16, pulse_length, record_i | baseline << 16, the 110
+// samples as 55 pairs], time = (win_left[win[r]] + start) * dt and
+// baseline 0.  A warp a row: lane q writes word q and q + 32, so a row's
+// stores are one contiguous run and its sample loads one contiguous run
+// of the source row (rows 4-byte aligned: 220 and 244 are multiples of
+// 4).  Bound by bytes: the records' samples and meta read once, the rows
+// written once.  The output is bitwise record_rows_ref's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -180,6 +198,47 @@ __global__ void pack_records_kernel(
   }
 }
 
+constexpr int kMetaWords = 6;
+constexpr int kRowWords = 61;     // raw_record_dtype(110).itemsize / 4
+constexpr int kHeadWords = 6;     // the row's header before its samples
+static_assert(kHeadWords + kSpr / 2 == kRowWords, "raw_record row layout");
+
+__global__ void record_rows_kernel(
+    const short* __restrict__ data, const int* __restrict__ meta,
+    const int* __restrict__ win, const long long* __restrict__ win_left,
+    const long long* __restrict__ perm, int n, int dt,
+    unsigned* __restrict__ out) {
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (row >= n) return;
+  const int lane = threadIdx.x & 31;
+  const long long src = perm[row];
+  const unsigned* d = reinterpret_cast<const unsigned*>(data) + src * (kSpr / 2);
+  const int* m = meta + src * kMetaWords;
+  unsigned* o = out + static_cast<long long>(row) * kRowWords;
+  for (int q = lane; q < kRowWords; q += 32) {
+    unsigned v;
+    if (q >= kHeadWords) {
+      v = __ldg(d + q - kHeadWords);
+    } else if (q < 2) {
+      const long long t =
+          (__ldg(win_left + __ldg(win + src)) + __ldg(m + 2)) *
+          static_cast<long long>(dt);
+      v = q == 0 ? static_cast<unsigned>(t)
+                 : static_cast<unsigned>(static_cast<unsigned long long>(t) >> 32);
+    } else if (q == 2) {
+      v = static_cast<unsigned>(__ldg(m + 3));                      // length
+    } else if (q == 3) {
+      v = static_cast<unsigned short>(dt)                           // dt
+          | static_cast<unsigned>(static_cast<unsigned short>(__ldg(m + 1))) << 16;
+    } else if (q == 4) {
+      v = static_cast<unsigned>(__ldg(m + 4));                      // pulse_length
+    } else {
+      v = static_cast<unsigned short>(__ldg(m + 5));                // record_i, baseline 0
+    }
+    o[q] = v;
+  }
+}
+
 int blocks_for(int n_rows) {
   return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
@@ -214,5 +273,21 @@ extern "C" int wfsim_pack_records(
       static_cast<const int*>(ends), static_cast<const int*>(counts),
       static_cast<const int*>(row_csum), n_rows, static_cast<short*>(rec_data),
       static_cast<int*>(rec_meta));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wfsim_record_rows(
+    const void* data, const void* meta, const void* win,
+    const void* win_left, const void* perm, int n, int dt, void* out,
+    void* stream) {
+  if (n <= 0 || (reinterpret_cast<uintptr_t>(data) & 3) ||
+      (reinterpret_cast<uintptr_t>(out) & 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  record_rows_kernel<<<blocks_for(n), 32 * kWarpsPerBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const short*>(data), static_cast<const int*>(meta),
+      static_cast<const int*>(win), static_cast<const long long*>(win_left),
+      static_cast<const long long*>(perm), n, dt,
+      static_cast<unsigned*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,7 @@ from ..config import finalize_config
 from ..dtypes import (raw_record_dtype, instruction_dtype,
                       extra_truth_dtype_per_pmt, sort_by_time,
                       concat_records, DEFAULT_RECORD_LENGTH)
+from .arena import RecordArena
 from .rawdata import RawData
 
 log = logging.getLogger('wfsim_tpu_torch.interface')
@@ -32,9 +33,11 @@ class ChunkRawRecords:
         self.config = finalize_config(dict(config))
         self.rawdata = rawdata_generator(self.config, device=device,
                                          mesh=mesh, **kwargs)
-        # per-window record arrays accumulate by reference and concatenate
-        # once per chunk (the reference stages through a 5M-row buffer,
-        # strax_interface.py:360)
+        # per-window record arrays (views of the raw data's record arena)
+        # accumulate by reference and concatenate once per chunk, a view
+        # where the chunk's windows lie in one arena base (the reference
+        # stages through a 5M-row buffer, strax_interface.py:360); each
+        # chunk's rows size the arena's next base (RecordArena.note_chunk)
         self.record_chunks: list = []
         self.record_buffer_rows = 5_000_000
         truth_per_n_pmts = (self._n_channels if self.config.get('per_pmt_truth')
@@ -155,6 +158,7 @@ class ChunkRawRecords:
                                      side='right'))
         leftover = records[n_keep:].copy()
         records = records[:n_keep]
+        RecordArena.note_chunk(len(records))
         self.record_chunks = [leftover] if len(leftover) else []
         self.blevel = len(leftover)
         self.rawdata.diag.seconds['final_records'] += \

@@ -7,10 +7,15 @@ dense pack_records, :469-519; reference: wfsim/core/rawdata.py:204-311,
 A batch of B windows is one grid of B*C rows (window w, TPC channel c ->
 row w*C + c).  The glue here is plain torch: gathering each window's
 photons from the arena through its piece table, the per-row extents, the
-row sort, and the cumsum of the rows' record counts.  The three device
+row sort, the cumsum of the rows' record counts, and a round's record
+order (:func:`round_records`: one sort of packed keys, the stand-in for
+wfsim_tpu's host ``np.lexsort``, rawdata.py:1785).  The four device
 passes are hand-written kernels with plain twins:
 ``ops.waveform.superpose_adc`` (or ``superpose_adc_full`` on the full
-digitizer grid), ``ops.zle.zle_all_channels`` and :func:`pack_records`.
+digitizer grid), ``ops.zle.zle_all_channels``, :func:`pack_records` and
+:func:`record_rows`, which writes a round's records as strax raw_record
+rows in their sorted slots (wfsim_tpu rawdata.py:1790-1816), so one
+device-to-host copy gives the final bytes.
 
 Two grids, chosen where wfsim_tpu chooses them (digitize.py:290): the slim
 grid of the C TPC rows, and the full digitizer grid of
@@ -29,18 +34,22 @@ strip/re-add pair (the residual grid and ``add_noise_host``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .._build import Kernel, P, I, ptr, stream_of
+from .._build import Kernel, P, I, check_tensor, ptr, stream_of
 from ..ops.waveform import superpose_adc, superpose_adc_full
 from ..ops.zle import zle_all_channels
 
 __all__ = ['gather_digitize', 'digitize_window', 'window_photons',
            'full_grid', 'full_grid_rows', 'he_on', 'pack_records',
-           'pack_records_ref',
-           'SAMPLES_PER_RECORD']
+           'pack_records_ref', 'record_rows', 'record_rows_ref', 'rows_of',
+           'round_order', 'round_records', 'SAMPLES_PER_RECORD',
+           'ROW_WORDS16']
 
 SAMPLES_PER_RECORD = 110
+#: int16 words of a strax raw_record row (raw_record_dtype(110): 244 bytes)
+ROW_WORDS16 = 122
 
 
 def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
@@ -329,3 +338,135 @@ def pack_records(data, left_all, starts, ends, counts):
             ptr(counts), ptr(row_csum), R, ptr(rec_data), ptr(rec_meta),
             stream_of(dev))
     return rec_data, rec_meta
+
+
+def rows_of(data, meta, win, win_left, dt: int):
+    """Records as (N, 122) int16 raw_record rows in their given order
+    (the rows the record_rows kernel writes, before any permutation)."""
+    n = int(data.shape[0])
+    if n == 0:
+        return torch.empty((0, ROW_WORDS16), dtype=torch.int16,
+                           device=data.device)
+
+    def words(x):
+        return x.contiguous().view(torch.int16).reshape(n, -1)
+    t = (win_left[win.to(torch.int64)] + meta[:, 2].to(torch.int64)) * dt
+    return torch.cat([
+        words(t), words(meta[:, 3]),
+        torch.full((n, 1), dt, dtype=torch.int16, device=data.device),
+        meta[:, 1:2].to(torch.int16), words(meta[:, 4]),
+        meta[:, 5:6].to(torch.int16),
+        torch.zeros((n, 1), dtype=torch.int16, device=data.device),
+        data], dim=1)
+
+
+def record_rows_ref(data, meta, win, win_left, perm, dt: int):
+    """Plain twin of the record_rows kernel: (N, 122) int16 rows, row i
+    the raw_record_dtype(110) bytes of record ``perm[i]``: time
+    ``(win_left[win[r]] + start) * dt`` (int64), length, dt, channel,
+    pulse_length, record_i, baseline 0, the samples."""
+    return rows_of(data[perm], meta[perm], win[perm], win_left, dt)
+
+
+_rows_kernel = Kernel('wfsim_record_rows', [P, P, P, P, P, I, I, P, P])
+
+
+def record_rows(data, meta, win, win_left, perm, dt: int):
+    """A round's records as strax raw_record rows in the order ``perm``
+    (K4r).  CPU tensors go to :func:`record_rows_ref`; CUDA tensors launch
+    ``wfsim_record_rows`` (``csrc/pack_records.cu``), which reads nothing
+    back.
+
+    :param data/meta: (N, 110) int16 and (N, 6) int32, :func:`pack_records`'
+        outputs of the round's batches one after another
+    :param win: (N,) int32 each record's window in the round
+    :param win_left: (W,) int64 each window's left edge (samples)
+    :param perm: (N,) int64 the record of each output row
+    :returns: (N, 122) int16, the rows' bytes
+    """
+    n = int(perm.shape[0])
+    dev = data.device
+    for name, x, dtype, shape in (
+            ('data', data, torch.int16, (n, SAMPLES_PER_RECORD)),
+            ('meta', meta, torch.int32, (n, 6)), ('win', win, torch.int32, (n,)),
+            ('win_left', win_left, torch.int64, tuple(win_left.shape[:1])),
+            ('perm', perm, torch.int64, (n,))):
+        check_tensor(name, x, dtype, shape, dev)
+    if dev.type == 'cpu':
+        return record_rows_ref(data, meta, win, win_left, perm, dt)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'record_rows on {dev}')
+    out = torch.empty((n, ROW_WORDS16), dtype=torch.int16, device=dev)
+    if n:
+        _rows_kernel(ptr(data), ptr(meta), ptr(win), ptr(win_left),
+                     ptr(perm), n, int(dt), ptr(out), stream_of(dev))
+    return out
+
+
+def round_order(parts, win_left, *, n_samples: int, n_rows: int):
+    """The record_rows inputs of one digitize round: its records in the
+    (window, start, channel) order of wfsim_tpu's ``np.lexsort((C, S,
+    W))`` (rawdata.py:1785), stable over the batches in turn, from one
+    sort of packed keys on the device.
+
+    :param parts: list of per digitize batch ``(window ids, rec_data,
+        rec_meta)``: the round's window of each batch window (a host int
+        array) and :func:`pack_records`' outputs; emptied once they are
+        copied, so that the batches' outputs are not held beside the
+        round's rows
+    :param win_left: (W,) int64 host array of the windows' left edges
+    :param n_samples: the round's largest window length: every record
+        starts below it
+    :param n_rows: the grid rows a window (records' channels lie below)
+    :returns: dict of data, meta, win, win_left, perm (record_rows'
+        arguments), the sorted keys ``key`` and ``shift``, the bits below
+        a key's window field
+    """
+    dev = parts[0][1].device
+    n_win = len(win_left)
+    # packed keys (window, start, channel): each field's width from its
+    # bound on the host; a round whose keys do not fit raises
+    bits_c = max(int(n_rows - 1).bit_length(), 1)
+    bits_s = max(int(n_samples - 1).bit_length(), 1)
+    bits_w = max(int(n_win - 1).bit_length(), 1)
+    if bits_w + bits_s + bits_c > 63:
+        raise OverflowError(f'record keys of {n_win} windows x {n_samples} '
+                            f'samples x {n_rows} rows need '
+                            f'{bits_w + bits_s + bits_c} bits')
+    # the windows' left edges and each batch's window ids go to the
+    # device in one copy (pinned on the card: no sync)
+    host = torch.from_numpy(np.concatenate(
+        [np.asarray(win_left, np.int64)]
+        + [np.asarray(b, np.int64) for b, _, _ in parts]))
+    if dev.type == 'cuda':
+        host = host.pin_memory()
+    host = host.to(dev, non_blocking=True)
+    first = np.cumsum([n_win] + [len(b) for b, _, _ in parts])
+    data = torch.cat([d for _, d, _ in parts])
+    meta = torch.cat([m for _, _, m in parts])
+    win = torch.cat([host[int(o) + m[:, 0].to(torch.int64)]
+                     for o, (_, _, m) in zip(first, parts)]).to(torch.int32)
+    parts.clear()
+    key = ((win.to(torch.int64) << (bits_s + bits_c))
+           | (meta[:, 2].to(torch.int64) << bits_c)
+           | meta[:, 1].to(torch.int64))
+    key, perm = torch.sort(key, stable=True)
+    return dict(data=data, meta=meta, win=win, win_left=host[:n_win],
+                perm=perm, key=key, shift=bits_s + bits_c)
+
+
+def round_records(parts, win_left, *, dt: int, n_samples: int, n_rows: int):
+    """One digitize round's records as strax raw_record rows, time-sorted
+    (:func:`round_order`, then :func:`record_rows`; ``parts`` is emptied).
+
+    :returns: ``(rows, counts)``: the (N, 122) int16 rows on the device
+        and each window's record count (a (W,) int64 numpy array; the
+        round's one read-back)
+    """
+    o = round_order(parts, win_left, n_samples=n_samples, n_rows=n_rows)
+    rows = record_rows(o.pop('data'), o.pop('meta'), o['win'], o['win_left'],
+                       o['perm'], dt)
+    # each window's first row: a search of the sorted keys
+    bounds = torch.searchsorted(o['key'], torch.arange(
+        len(win_left) + 1, device=o['key'].device) << o['shift'])
+    return rows, np.diff(bounds.cpu().numpy())

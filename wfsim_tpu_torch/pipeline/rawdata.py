@@ -33,20 +33,28 @@ B) the pending pulses are grouped into digitization windows with the
 C) the round's windows are bucketed by their power-of-two length
    ``T_cap`` and digitized in batches from a device photon arena of the
    buffers their pulses use (``gather_digitize`` -> ``pack_records``, on
-   the slim or the full digitizer grid); the records come back to the host
-   as strax ``raw_records`` and the windows are yielded.  A buffer that no
-   pending pulse uses any more is dropped.
+   the slim or the full digitizer grid); the round's records are sorted
+   on the device and written as strax ``raw_records`` rows into their
+   sorted slots (``round_records``), which go with one device-to-host
+   copy into the next slice of the host record arena (``arena.
+   RecordArena``; wfsim_tpu ``_collect_digitize_work``), so each window's
+   records are a view.  A buffer that no pending pulse uses any more is
+   dropped.
 
-So device and host memory hold one super-batch and what is still pending,
-not the run.  The host numpy generator (``self.rng``) is used in one
-fixed order: per super-batch, secondary-instruction synthesis, then the
-noise offsets of the round's windows in time order, so a rerun with the
-same seed is identical.  The batch counter advances in the host's batch
-order (wfsim_tpu's ``fold_in(key, counter)``, rawdata.py:295-297), so a
-batch's draws depend neither on the batches drawn before it nor on the
-device that runs it; batches are formed within super-batches, so the
-draws depend on ``pipeline_depth`` (PARITY.md deviation 5 is the same
-for wfsim_tpu).
+The run is one round deep (wfsim_tpu's collector thread, rawdata.py:1004,
+:1027): round k's copy runs on a copy stream while super-batch k+1 is
+simulated and its round dispatched; then the host waits on round k's
+copy, yields its windows and hands super-batch k+1's truth rows over.  So
+device and host memory hold two rounds' records, one super-batch's
+photons and what is still pending, not the run.  The host numpy
+generator (``self.rng``) is used in one fixed order: per super-batch,
+secondary-instruction synthesis, then the noise offsets of the round's
+windows in time order, so a rerun with the same seed is identical.  The
+batch counter advances in the host's batch order (wfsim_tpu's
+``fold_in(key, counter)``, rawdata.py:295-297), so a batch's draws depend
+neither on the batches drawn before it nor on the device that runs it;
+batches are formed within super-batches, so the draws depend on
+``pipeline_depth`` (PARITY.md deviation 5 is the same for wfsim_tpu).
 
 With ``mesh`` (a ``DeviceMesh`` with an ``'events'`` dim, see
 ``parallel.sharding.make_mesh``) the same run is SPMD over the ranks of
@@ -64,11 +72,10 @@ the same batches.
 In eager PyTorch every photon count is known before its buffer is
 allocated, so wfsim_tpu's demand pre-pass (``s1_photon_demand`` /
 ``s2_photon_demand``) and its capacity retries fall away.  Left out as
-wfsim_tpu relay and XLA machinery: the overlap of one super-batch's
-device work with another's host work (its five-stage rotation and its
-collector thread), sliced host copies, the packed device fetches, the
-device-ceiling bench mode, the PRNG implementation switch and key-split
-plumbing.
+wfsim_tpu relay and XLA machinery: its five-stage rotation (one round
+deep here), sliced host copies, the packed device fetches and their
+encoded transport, the device-ceiling bench mode, the PRNG implementation
+switch and key-split plumbing.
 
 Absolute times are int64 on the host; the device sees int32 offsets from
 per-batch and per-window bases.
@@ -83,7 +90,6 @@ import torch
 
 from ..config import finalize_config, PIPELINE_DEFAULTS
 from ..diagnostics import Timers
-from ..dtypes import raw_record_dtype, DEFAULT_RECORD_LENGTH
 from ..models.afterpulse import (pmt_ap_draws, pmt_afterpulse_photons,
                                  summary_draws, photon_summaries,
                                  generate_pi_el_instructions,
@@ -94,8 +100,9 @@ from ..models.s1 import simulate_s1, s1_models
 from ..models.s2 import simulate_s2, check_supported, s2_time_mode
 from ..resources.loader import load_config
 from ..parallel.sharding import EventsComm, seeded_generator
-from .digitize import (gather_digitize, pack_records, noise_on, full_grid,
-                       SAMPLES_PER_RECORD)
+from .arena import RecordArena
+from .digitize import (gather_digitize, pack_records, round_records,
+                       noise_on, full_grid, SAMPLES_PER_RECORD)
 
 log = logging.getLogger('wfsim_tpu_torch.core')
 
@@ -187,10 +194,12 @@ class RawData:
         self._reset_pending()
 
     def _reset_pending(self):
-        """No photon buffer (by id) and no pulse pending."""
+        """No photon buffer (by id), no pulse pending and a fresh record
+        arena."""
         self._buffers: ty.Dict[int, dict] = {}
         self._buf_ctr = 0
         self._pulses: ty.List[_Pulse] = []
+        self._arena = RecordArena()
 
     def _add_buffer(self, photons) -> int:
         bid = self._buf_ctr
@@ -543,11 +552,12 @@ class RawData:
     def iter_windows(self, instructions, truth_buffer=None, **kwargs):
         """Yield per digitization window a dict with win_left / win_right
         (absolute samples), ``flush`` and a time-sorted strax raw_record
-        array, super-batch by super-batch (see the module docstring).  The
-        truth rows (dicts) of a super-batch go to ``truth_buffer`` (a list
-        they are appended to, a callable taking them, or a structured array
-        with a ``fill`` field whose free rows they fill) before any window
-        of its round is yielded."""
+        array (a view of the record arena), super-batch by super-batch,
+        one round deep (see the module docstring).  The truth rows (dicts)
+        of a super-batch go to ``truth_buffer`` (a list they are appended
+        to, a callable taking them, or a structured array with a ``fill``
+        field whose free rows they fill) after the previous round's
+        windows and before any window of its own round is yielded."""
         if truth_buffer is None:
             truth_buffer = []
         self.source_finished = False
@@ -558,18 +568,27 @@ class RawData:
             else 0)
         arrival = self._arrival_times(instructions)
         order = np.argsort(arrival, kind='stable')
+        prev = None
         for order_k, safe_t in self._split_super_batches(arrival, order):
-            self._drain_truth(truth_buffer,
-                              self.simulate(instructions, order_k))
+            truth = self.simulate(instructions, order_k)
             with self.diag.phase('digitize'):
-                wins, records = self._dispatch_digitize(safe_t)
-            for w, recs in zip(wins, records):
-                self.instruction_event_number = min(p.event_number
-                                                    for p in w['grp'])
-                yield dict(win_left=w['win_left'], win_right=w['win_right'],
-                           flush=w['flush'], records=recs)
-            del wins, records     # the caller holds what it keeps
+                rnd = self._dispatch_digitize(safe_t)
+            if prev is not None:
+                yield from self._yield_round(prev)
+            self._drain_truth(truth_buffer, truth)
+            prev = rnd
+        if prev is not None:
+            yield from self._yield_round(prev)
         self.source_finished = True
+
+    def _yield_round(self, rnd):
+        """Yield a dispatched round's windows (:meth:`_collect_round`)."""
+        wins, records = self._collect_round(rnd)
+        for w, recs in zip(wins, records):
+            self.instruction_event_number = min(p.event_number
+                                                for p in w['grp'])
+            yield dict(win_left=w['win_left'], win_right=w['win_right'],
+                       flush=w['flush'], records=recs)
 
     def _split_super_batches(self, arrival, order):
         """Cut the arrival-ordered instructions into super-batches; returns
@@ -805,21 +824,24 @@ class RawData:
         return wins, arena, batches
 
     def _dispatch_digitize(self, safe_t=np.inf):
-        """Digitize one round (:meth:`plan_digitize`); returns its windows
-        and, per window, its time-sorted records."""
+        """Digitize one round (:meth:`plan_digitize`): its batches, then its
+        records as sorted strax rows (``round_records``) on their way into
+        the record arena (:meth:`arena.RecordArena.put`).  Returns the
+        round for :meth:`_collect_round`: ``(wins, copy, counts)`` with
+        each window's record count, or None without windows."""
         with self.diag.phase('digitize_plan'):
             wins, arena, batches = self.plan_digitize(safe_t)
         if not wins:
-            return [], []
+            return None
         max_itv = int(self.config.get('zle_max_intervals', 64))
-        parts = []
-        with self.diag.phase('digitize_batches'):     # ends in host copies
+        c = self.const
+        with self.diag.phase('digitize_batches'):     # ends in a read-back
             done = {}
             for j, (_batch, T_cap, pieces, nix) in enumerate(batches):
                 if self._owner(j) != self._rank:
                     continue
                 res = gather_digitize(
-                    self.params, self.const, *arena,
+                    self.params, c, *arena,
                     torch.as_tensor(pieces, device=self.device),
                     torch.as_tensor(nix, device=self.device),
                     n_samples=T_cap, max_intervals=max_itv)
@@ -828,15 +850,31 @@ class RawData:
                     res['counts'])
             if self.comm is not None:
                 done = self._share_records(done, len(batches))
-            for j, (batch, _T, _p, _n) in enumerate(batches):
-                rec_data, rec_meta = done.pop(j)
-                parts.append((batch, rec_data.cpu().numpy(),
-                              rec_meta.cpu().numpy()))
+            rows, counts = round_records(
+                [(batch, *done.pop(j)) for j, (batch, *_r) in
+                 enumerate(batches)],
+                [w['win_left'] for w in wins], dt=c.sample_duration,
+                n_samples=max(b[1] for b in batches),
+                n_rows=(c.n_channels_total if full_grid(self.params, c)
+                        else c.n_tpc_pmts))
         self.diag.add('rounds', 1)
         self.diag.add('digitize_calls', len(batches))
         self.diag.add('windows', len(wins))
+        self.diag.add('records', len(rows))
         with self.diag.phase('digitize_host_records'):
-            return wins, self._host_records(wins, parts)
+            return wins, self._arena.put(rows), counts
+
+    def _collect_round(self, rnd):
+        """Wait for a dispatched round's copy; returns its windows and,
+        per window, its time-sorted records (views of the arena)."""
+        if rnd is None:
+            return [], []
+        wins, copy, counts = rnd
+        with self.diag.phase('digitize_host_records'):
+            recs = self._arena.wait(copy)
+            bounds = np.concatenate([[0], np.cumsum(counts)])
+            return wins, [recs[bounds[i]:bounds[i + 1]]
+                          for i in range(len(wins))]
 
     def _share_records(self, done, n_batches):
         """Every digitize batch's (rec_data, rec_meta) on every rank: the
@@ -862,26 +900,3 @@ class RawData:
                     rec_meta, (n, 6), torch.int32, owner)
                 out[j] = (rec_data.view(torch.int16), rec_meta)
         return out
-
-    def _host_records(self, wins, parts):
-        """strax raw_records per window of one round, time-sorted: (window,
-        start, channel) order (wfsim_tpu _collect_digitize_work)."""
-        dt = self.const.sample_duration
-        spr = DEFAULT_RECORD_LENGTH
-        W = np.concatenate([b[m[:, 0]] for b, _, m in parts])
-        meta = np.concatenate([m for _, _, m in parts])
-        data = np.concatenate([d for _, d, _ in parts])
-        order = np.lexsort((meta[:, 1], meta[:, 2], W))
-        W, meta, data = W[order], meta[order], data[order]
-        win_left = np.asarray([w['win_left'] for w in wins], np.int64)
-        recs = np.zeros(len(W), raw_record_dtype(spr))
-        recs['time'] = (win_left[W] + meta[:, 2].astype(np.int64)) * dt
-        recs['length'] = meta[:, 3]
-        recs['dt'] = dt
-        recs['channel'] = meta[:, 1]
-        recs['pulse_length'] = meta[:, 4]
-        recs['record_i'] = meta[:, 5]
-        recs['data'] = data
-        bounds = np.searchsorted(W, np.arange(len(wins) + 1))
-        self.diag.add('records', len(recs))
-        return [recs[bounds[i]:bounds[i + 1]] for i in range(len(wins))]
