@@ -367,7 +367,19 @@ exercised here):
     exact or within rtol 1e-12;
 4t. the legacy pulse generator ``RawData.__call__`` over one super-batch
     of the default configuration (60 bench events): its pulses, cut back
-    into records, are exactly the records of the same run.
+    into records, are exactly the records of the same run;
+4v. what wfsim_tpu runs and the port once refused: the default
+    configuration's 512 events with one instruction of each type 0, 3, 5
+    and 7 at the time and place of every S1 (2,048 more instructions,
+    which join no batch; the super-batch cuts of the known ones do not
+    move, tests/test_torch_surface_gaps.py), warm-up then timed with the
+    launch counts reset: no truth row of those types, and the default
+    run's records, launches and DEFAULT_DIGEST; then the realistic
+    configuration with ``noise_file``, ``photon_ap_cdfs``,
+    ``photon_area_distribution`` and ``ele_ap_pdfs`` naming files that
+    resolve nowhere (an empty ``url_base`` directory, the fetch off): the
+    synthetic assets, so the realistic run's records and launches and the
+    digest of phase 4b's arrays.
 
 Last, the stream (4s): the default configuration on 10,000 bench events
 (20,000 instructions) with ``pipeline_depth`` = ceil(instructions / 1024),
@@ -4904,6 +4916,55 @@ def phase_legacy_pulses(dev, smi):
                              'records of one super-batch')
 
 
+def phase_gaps(realistic_digest, dev, smi):
+    """Phase 4v (see the module docstring): unknown instruction types on
+    the default run, resource names found nowhere on the realistic run."""
+    import os
+    from wfsim_tpu_torch import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    inst = bench_instructions(512, 2000, 300)
+    s1 = inst[inst['type'] == 1]
+    extra = np.repeat(s1, 4)
+    extra['type'] = np.tile([0, 3, 5, 7], len(s1))
+    mixed = np.concatenate([inst, extra])
+    cfg = default_config(seed=1234, chunk_size=100)
+    out, wall, launches, _peak, _sim = timed_run(cfg, mixed, dev)
+    rr, truth = out['raw_records'], out['truth']
+    n_type = {int(t): int((truth['type'] == t).sum())
+              for t in np.unique(truth['type'])}
+    print(f'[gaps] default + {len(extra)} instructions of types 0, 3, 5, 7: '
+          f'truth rows by type {n_type}, records {len(rr)}, wall {wall:.3f} '
+          f's, events/s {512 / wall:.2f} ({smi})')
+    if n_type != {1: 512, 2: 512}:
+        raise AssertionError(f'unknown types: truth rows by type {n_type}')
+    expect_records('default', len(rr), launches=launches,
+                   digest=run_digest(out))
+
+    os.environ.pop('WFSIM_TPU_ALLOW_DOWNLOAD', None)
+    empty = tempfile.mkdtemp(prefix='wfsim_smoke_nowhere_')
+    try:
+        names = dict(noise_file='noise_nowhere.npz',
+                     photon_ap_cdfs='pmt_ap_nowhere.json.gz',
+                     photon_area_distribution='spe_nowhere.csv',
+                     ele_ap_pdfs='ele_ap_nowhere.pkl')
+        cfg_r = default_config(seed=1234, chunk_size=100, enable_noise=True,
+                               enable_pmt_afterpulses=True,
+                               enable_electron_afterpulses=True,
+                               url_base=empty, **names)
+        out, wall, launches, _peak, _sim = timed_run(cfg_r, inst, dev)
+    finally:
+        shutil.rmtree(empty, ignore_errors=True)
+    rr = out['raw_records']
+    digest = run_digest(out)
+    print(f'[gaps] realistic with {sorted(names)} found nowhere: records '
+          f'{len(rr)}, digest {digest} (phase 4b: {realistic_digest}), wall '
+          f'{wall:.3f} s, events/s {512 / wall:.2f} ({smi})')
+    expect_records('realistic', len(rr), launches=launches)
+    if digest != realistic_digest:
+        raise AssertionError('realistic run with resource names found '
+                             'nowhere differs from phase 4b\'s')
+
+
 def main():
     t_start = time.perf_counter()
     if not (ROOT / 'wfsim_tpu_torch' / '_build.py').exists():
@@ -5146,6 +5207,7 @@ def main():
     if not (15900 < quiet.mean() < 16100 and quiet.std() > 0.5):
         raise AssertionError('no noise on quiet in-window samples')
     expect_records('realistic', len(rr), launches=launches_r)
+    realistic_digest = run_digest(out)
     print(f'[realistic] events/s {512 / wall_r:.2f} wall {wall_r:.3f} s '
           f'records {len(rr)} photons {n_photons} peak_mem '
           f'{peak_r / 2 ** 20:.1f} MiB ({smi})')
@@ -5292,6 +5354,9 @@ def main():
     # ---- 4r / 5r. the optical configurations; 4t. the legacy pulses ---------
     launches_o = phase_optical(dev, smi)
     phase_legacy_pulses(dev, smi)
+
+    # ---- 4v. unknown instruction types; resource names found nowhere -------
+    phase_gaps(realistic_digest, dev, smi)
 
     # ---- 3g / 4g / 3h / 4h / 5h. per_pmt_truth and xenon1t_full_grid -------
     xtimes, launches_p, launches_x = phase_per_pmt_x1t(B, T, K, inst, dev,

@@ -125,27 +125,30 @@ def test_params_from_numpy_refuses_unported_fields():
 
 
 def test_unported_resources_raise():
-    """Electron-afterpulse files are not ported; a resource file that
-    resolves nowhere raises FileNotFoundError (wfsim_tpu falls back to the
-    synthetic asset).  Gas-gap warping and COMSOL, which raised before
-    they were ported, now load (a constant gas gap, no COMSOL map) and
-    build."""
-    with pytest.raises(NotImplementedError):
-        load_config(default_config(enable_electron_afterpulses=True,
-                                   ele_ap_pdfs='ele_ap.pkl'))
+    """A map file that resolves nowhere raises FileNotFoundError, as in
+    wfsim_tpu; a noise, PMT-afterpulse, SPE or electron-afterpulse file
+    that resolves nowhere takes the synthetic asset, as there.  Gas-gap
+    warping and COMSOL, which raised before they were ported, now load (a
+    constant gas gap, no COMSOL map) and build."""
     for entry in (dict(enable_gas_gap_warping=True),
                   dict(field_distortion_model='comsol')):
         cfg = default_config(**entry)
         params = build_params(cfg, load_config(cfg), 'cpu')
         assert (params.gas_gap_map is None) == ('comsol' in str(entry))
         assert params.fd_comsol is None
-    for entry in (dict(enable_noise=True, noise_file='noise.npz'),
-                  dict(enable_pmt_afterpulses=True,
-                       photon_ap_cdfs='pmt_ap.json.gz'),
-                  dict(photon_area_distribution='spe.csv'),
-                  dict(s1_pattern_map='map.json')):
-        with pytest.raises(FileNotFoundError):
-            load_config(default_config(**entry))
+    with pytest.raises(FileNotFoundError):
+        load_config(default_config(s1_pattern_map='map.json'))
+    on = dict(enable_noise=True, enable_pmt_afterpulses=True,
+              enable_electron_afterpulses=True)
+    unset = load_config(default_config(**on))
+    nowhere = load_config(default_config(
+        **on, noise_file='noise.npz', photon_ap_cdfs='pmt_ap.json.gz',
+        photon_area_distribution='spe.csv', ele_ap_pdfs='ele_ap.pkl'))
+    assert np.array_equal(nowhere.noise_bank, unset.noise_bank)
+    assert np.array_equal(nowhere.uniform_to_pe, unset.uniform_to_pe)
+    assert sorted(nowhere.uniform_to_pmt_ap) == sorted(unset.uniform_to_pmt_ap)
+    a, b = nowhere.uniform_to_ele_ap, unset.uniform_to_ele_ap
+    assert a.n == b.n and np.array_equal(a.bin_centers, b.bin_centers)
 
 
 def test_package_imports_neither_jax_nor_wfsim_tpu():

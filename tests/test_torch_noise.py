@@ -206,10 +206,11 @@ def test_overlay_is_the_only_difference_to_the_noise_free_grid(setups):
 
 
 def test_unported_noise_paths_raise(setups):
-    """What still raises on the noise path: a missing noise_ix, a noise
-    file found nowhere.  A bank wider than the TPC takes the full
-    digitizer grid; so does XENON1T, as the grid without HE rows (its 248
-    TPC rows, then zero rows: no noise past the TPC)."""
+    """What still raises on the noise path: a missing noise_ix.  A noise
+    file found nowhere takes the synthetic bank, as in wfsim_tpu.  A bank
+    wider than the TPC takes the full digitizer grid; so does XENON1T, as
+    the grid without HE rows (its 248 TPC rows, then zero rows: no noise
+    past the TPC)."""
     (_, _, _), (c, pt, kt) = setups
     args = (torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
             torch.ones(1), torch.tensor([[[0, 1, 0]]]),
@@ -220,9 +221,11 @@ def test_unported_noise_paths_raise(setups):
                                                           dtype=torch.int16))
     assert gather_digitize(wide, kt, *args, n_samples=512)['data'].shape \
         == (1, 801, 512)
-    with pytest.raises(FileNotFoundError):
-        load_config(default_config(enable_noise=True,
-                                   noise_file='noise_bank.npz'))
+    nowhere = load_config(default_config(enable_noise=True,
+                                         noise_file='noise_bank.npz'))
+    assert np.array_equal(nowhere.noise_bank,
+                          load_config(default_config(
+                              enable_noise=True)).noise_bank)
     x1t = dataclasses.replace(kt, detector='XENON1T', n_tpc_pmts=248,
                               n_top_pmts=127, he_channel_start=0,
                               he_channel_end=-1, high_energy_deamp_int=1)

@@ -9,7 +9,8 @@ least ``pipeline_min_batch``), and the run streams one super-batch at a
 time:
 
 A) same-type batches (S1, S2, and the electron-afterpulse kinds pi_el and
-   pe_el, which share the S2 chain) of the super-batch are simulated on
+   pe_el, which share the S2 chain; an instruction of any other type is
+   skipped, as wfsim_tpu skips it) of the super-batch are simulated on
    the device, each with a ``torch.Generator`` of its own, seeded from
    (``config['seed']``, the batch's counter); their photons stay on the
    device as buffers and their truth rows come back to the host.  With
@@ -217,18 +218,19 @@ class RawData:
 
     def _sim_batch_list(self, instructions, order):
         """Arrival-ordered same-chain batches bounded by instruction count,
-        summed amplitude and int32 time span (wfsim_tpu _sim_batch_list)."""
+        summed amplitude and int32 time span (wfsim_tpu _sim_batch_list).
+        An instruction of a type outside :data:`KIND_OF_TYPE` joins no
+        batch, so it has no photons and no truth row (wfsim_tpu
+        rawdata.py:1116-1121); it still counts in the super-batch cuts and
+        the chunker's first boundary, as there."""
         MAX_BATCH_INST = 1024
         MAX_BATCH_AMP = {'s1': 3_000_000, 's2': 200_000}
         MAX_SPAN_NS = int(15e8)
         batches: ty.Dict[str, list] = {k: [] for k in TYPE_OF_KIND}
         for i in order:
             k = KIND_OF_TYPE.get(int(instructions['type'][i]))
-            if k is None:
-                raise NotImplementedError(
-                    f'instruction type {int(instructions["type"][i])}: the '
-                    f'port simulates types {sorted(KIND_OF_TYPE)} only')
-            batches[k].append(i)
+            if k is not None:     # other types are skipped, as in wfsim_tpu
+                batches[k].append(i)
         batch_list = []
         for kind, idxs in batches.items():
             if not idxs:

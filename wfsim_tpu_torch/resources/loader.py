@@ -12,26 +12,34 @@ speed, survival probability, radial and azimuthal diffusion; a constant
 dummy becomes four constant maps) with the ``norm_drift_velocity``
 scaling, the longitudinal-diffusion map, the S1 and S2 optical
 propagation splines, the nVeto PMT quantum efficiencies and, when
-enabled, the PMT-afterpulse CDFs and the noise bank (a resource file
-or the synthetic asset), the synthetic electron-afterpulse PMF and
-the ``garfield`` wire-distance luminescence table (an in-memory
+enabled, the PMT-afterpulse CDFs, the electron-afterpulse delay PMF and the
+noise bank (a resource file, an in-memory entry or the synthetic
+asset) and the ``garfield`` wire-distance luminescence table (an in-memory
 ``{'t', 'x'}`` table or a file, of whose liquid levels ``ll`` the
 nearest one is taken) (wfsim_tpu/resources/loader.py:141-575).  Every
 map is a :class:`~wfsim_tpu_torch.ops.interp.GridMap` of host float32
 tensors; the device copy is made by ``models.params.build_params``.
 
-Files resolve from an absolute path or a local search directory
-(``url_base`` when it is a directory, ``$WFSIM_TPU_AUX_DIR``); the remote
-fetch of wfsim_tpu is not ported, so a file found nowhere raises
-``FileNotFoundError``, where wfsim_tpu falls back to the synthetic asset.
-Electron-afterpulse files (pickles of a class object) are not read: they
-raise ``NotImplementedError``.
+Files resolve as in wfsim_tpu: an absolute path, else a local search
+directory (``url_base`` when it is a directory, ``$WFSIM_TPU_AUX_DIR``),
+else, only where ``WFSIM_TPU_ALLOW_DOWNLOAD=1``, the remote fetch
+(straxen's ``MongoDownloader`` where straxen is installed, then an http
+``url_base``, then the public GitHub raw bases) into a persistent cache
+(``$WFSIM_TPU_DOWNLOAD_CACHE``, by default ``~/.cache/wfsim_tpu_aux``).
+A ``noise_file``, ``photon_ap_cdfs``, ``photon_area_distribution`` or
+``ele_ap_pdfs`` name that resolves nowhere takes the synthetic asset, and
+an ``nv_pmt_qe`` name none (QE 100 %), as in wfsim_tpu; a map file or a
+``garfield`` table found nowhere raises ``FileNotFoundError``, as there.
+An ``ele_ap_pdfs`` file is read by extension (a pickle holds the
+reference's histogram object) and used through its ``n``,
+``bin_centers`` and ``get_random``, as the synthetic PMF is.
 """
 from __future__ import annotations
 
 import functools
 import gzip
 import json
+import logging
 import os
 import os.path as osp
 import pickle
@@ -46,6 +54,8 @@ from . import synthetic as synth
 __all__ = ['Resource', 'load_config', 'make_map', 'make_patternmap',
            'DummyMap', 'MultiMap', 'get_file_path',
            'interpolating_map_to_grid', 'garfield_table']
+
+log = logging.getLogger('wfsim_tpu_torch.resource')
 
 
 def load_config(config) -> 'Resource':
@@ -70,10 +80,72 @@ def _search_dirs(config):
     return dirs
 
 
+#: GitHub raw bases the reference falls back to for named public aux files
+#: (reference load_resource.py:178-196; wfsim_tpu loader.py:89-95)
+_GITHUB_RAW_BASES = (
+    'https://raw.githubusercontent.com/XENONnT/private_nt_aux_files/master/sim_files/',  # noqa: E501
+    'https://raw.githubusercontent.com/XENONnT/WFSim/master/files/',
+    'https://raw.githubusercontent.com/XENON1T/WFSim/master/files/',
+)
+
+
+def _download_cache_dir():
+    """The persistent cache of fetched files (wfsim_tpu loader.py:98)."""
+    d = os.environ.get('WFSIM_TPU_DOWNLOAD_CACHE') or osp.join(
+        osp.expanduser('~'), '.cache', 'wfsim_tpu_aux')
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _fetch_remote(config, fname):
+    """The remote fetch of a named file (wfsim_tpu loader.py:105-138;
+    reference load_resource.py:131-196), off unless
+    ``WFSIM_TPU_ALLOW_DOWNLOAD=1``: the cached copy, else straxen's
+    ``MongoDownloader`` (where straxen is installed), else each base in
+    turn, an http ``url_base`` first, into the cache.  Returns the local
+    path or None."""
+    if os.environ.get('WFSIM_TPU_ALLOW_DOWNLOAD') != '1':
+        return None
+    cache = _download_cache_dir()
+    cached = osp.join(cache, fname)
+    if osp.exists(cached):
+        return cached
+    try:
+        from straxen import MongoDownloader
+    except ImportError:
+        MongoDownloader = None
+    if MongoDownloader is not None:
+        try:
+            path = MongoDownloader().download_single(fname)
+        except Exception as exc:     # no database access: try the bases
+            log.info('straxen MongoDownloader: %s: %s', fname, exc)
+        else:
+            if path and osp.exists(path):
+                return path
+    bases = []
+    ub = config.get('url_base', '')
+    if isinstance(ub, str) and ub.startswith('http'):
+        bases.append(ub if ub.endswith('/') else ub + '/')
+    bases += list(_GITHUB_RAW_BASES)
+    import urllib.request
+    tmp = cached + '.part'
+    for base in bases:
+        try:
+            urllib.request.urlretrieve(base + fname, tmp)
+        except (OSError, ValueError) as exc:
+            log.info('fetch of %s from %s failed: %s', fname, base, exc)
+            continue
+        os.replace(tmp, cached)
+        log.info('downloaded %s from %s', fname, base)
+        return cached
+    return None
+
+
 def get_file_path(config, fname):
     """Resolve a resource file name to a local path, or None: an absolute
-    path, else the local ``url_base`` directory, else $WFSIM_TPU_AUX_DIR
-    (wfsim_tpu loader.py:141 without its remote fetch)."""
+    path, else the local ``url_base`` directory, else $WFSIM_TPU_AUX_DIR,
+    else the opt-in remote fetch (:func:`_fetch_remote`; wfsim_tpu
+    loader.py:141-156)."""
     if not fname or not isinstance(fname, str):
         return None
     if fname.startswith('/'):
@@ -82,7 +154,7 @@ def get_file_path(config, fname):
         p = osp.join(d, fname)
         if osp.exists(p):
             return p
-    return None
+    return _fetch_remote(config, fname)
 
 
 def _read_any(path):
@@ -389,20 +461,23 @@ class Resource:
 
         # nVeto PMT quantum efficiencies (wfsim_tpu loader.py:545-550): a
         # resource file or an in-memory dict, read by
-        # ``interface.instructions.read_optical``
+        # ``interface.instructions.read_optical``; a name found nowhere
+        # gives none (every QE 100 %)
         self.nv_pmt_qe = None
         if config.get('detector') == 'XENONnT_neutron_veto':
             entry = config.get('nv_pmt_qe')
-            if _names_file(config, 'nv_pmt_qe'):
-                self.nv_pmt_qe = _read_any(_required_path(config, 'nv_pmt_qe'))
+            path = _file_of(config, 'nv_pmt_qe', 'no QE table (QE 100 %)')
+            if path:
+                self.nv_pmt_qe = _read_any(path)
             elif isinstance(entry, dict):
                 self.nv_pmt_qe = entry
 
         # SPE gain table (wfsim_tpu loader.py:552-562): a measured
         # spectrum csv, else the synthetic spectrum
-        if _names_file(config, 'photon_area_distribution'):
-            self.uniform_to_pe = spe_table_from_csv(
-                _required_path(config, 'photon_area_distribution'), n_pmts)
+        path = _file_of(config, 'photon_area_distribution',
+                        'synthetic_spe_distribution')
+        if path:
+            self.uniform_to_pe = spe_table_from_csv(path, n_pmts)
         else:
             charge, pdfs = synth.synthetic_spe_distribution(n_pmts)
             self.uniform_to_pe = build_uniform_to_pe(charge, pdfs)
@@ -413,9 +488,9 @@ class Resource:
         self.uniform_to_pmt_ap = None
         if config.get('enable_pmt_afterpulses', False):
             entry = config.get('photon_ap_cdfs')
-            if _names_file(config, 'photon_ap_cdfs'):
-                self.uniform_to_pmt_ap = _read_pmt_ap(
-                    _required_path(config, 'photon_ap_cdfs'))
+            path = _file_of(config, 'photon_ap_cdfs', 'synthetic_pmt_ap_cdfs')
+            if path:
+                self.uniform_to_pmt_ap = _read_pmt_ap(path)
             elif isinstance(entry, dict):
                 self.uniform_to_pmt_ap = entry
             else:
@@ -423,20 +498,19 @@ class Resource:
         self.uniform_to_ele_ap = None
         if config.get('enable_electron_afterpulses', False):
             entry = config.get('ele_ap_pdfs')
-            if _names_file(config, 'ele_ap_pdfs'):
-                raise NotImplementedError(
-                    f'ele_ap_pdfs={entry!r}: electron-afterpulse files are '
-                    f'pickles of a class object, which the port does not '
-                    f'read; leave it unset for the synthetic asset')
-            self.uniform_to_ele_ap = (
-                entry if entry is not None and not isinstance(entry, str)
-                else synth.synthetic_ele_ap_pmf())
+            path = _file_of(config, 'ele_ap_pdfs', 'synthetic_ele_ap_pmf')
+            if path:
+                self.uniform_to_ele_ap = _read_any(path)
+            elif entry is not None and not isinstance(entry, str):
+                self.uniform_to_ele_ap = entry
+            else:
+                self.uniform_to_ele_ap = synth.synthetic_ele_ap_pmf()
         self.noise_bank = None
         if config.get('enable_noise', False):
-            if _names_file(config, 'noise_file'):
+            path = _file_of(config, 'noise_file', 'synthetic_noise')
+            if path:
                 self.noise_bank = noise_bank_from_file(
-                    _required_path(config, 'noise_file'),
-                    int(config.get('n_digitizer_channels', n_pmts)))
+                    path, int(config.get('n_digitizer_channels', n_pmts)))
             else:
                 self.noise_bank = synthetic_noise_bank(n_pmts)
 
@@ -515,21 +589,17 @@ def _pattern_sum(g: GridMap, pmt_mask) -> GridMap:
                    g.lows.clone(), g.highs.clone())
 
 
-def _names_file(config, key) -> bool:
+def _file_of(config, key, instead):
+    """The local path of the file that ``config[key]`` names, or None where
+    it names none or the name resolves nowhere; the latter is logged with
+    ``instead``, what the caller takes in its place (wfsim_tpu's
+    fallback)."""
     entry = config.get(key)
-    return isinstance(entry, str) and bool(entry)
-
-
-def _required_path(config, key):
-    """The local path of the file that ``config[key]`` names; raises
-    ``FileNotFoundError`` where it resolves nowhere."""
-    entry = config[key]
+    if not isinstance(entry, str) or not entry:
+        return None
     path = get_file_path(config, entry)
     if path is None:
-        raise FileNotFoundError(
-            f'{key}={entry!r}: resource file not found locally. Set url_base '
-            f'to a local directory or $WFSIM_TPU_AUX_DIR, or leave it unset '
-            f'for the synthetic asset.')
+        log.info('%s=%r resolves nowhere; using %s', key, entry, instead)
     return path
 
 
