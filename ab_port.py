@@ -4,7 +4,8 @@
     python3 ab_port.py OTHER_TREE [--runs 3]
         [--kernels [--only ap_diffuse|lumi_summaries|pmt_truth|
                            pmt_truth_layouts|photon_times|step_block|
-                           garfield|s1_delays|s1_times|record_rows]]
+                           garfield|s1_delays|s1_times|record_rows|
+                           window_rows]]
         [--configs [NAME,...]] [--busy]
 
 Runs the 512-event bench workload in the default and the realistic
@@ -45,7 +46,10 @@ whose instruction 100 holds 10^5 photons, and the timing_models and
 detector_physics S1 batches given their delays (``s1_times_measure``),
 and ``--only record_rows`` the record rows (K4r) on the default run's
 first round and that round's copy into the record arena
-(``record_rows_measure``; a checkout without K4r has no such row).
+(``record_rows_measure``; a checkout without K4r has no such row), and
+``--only window_rows`` the arena gather and channel extents (K17) on the
+bench batch, its skewed copy and the default run's largest digitize batch
+(``window_rows_measure``; a checkout without K17 has no such row).
 
 With ``--configs`` each process runs, with this tree's
 ``chip_smoke.config_runs`` on the tree's own package, each of the ten
@@ -113,7 +117,7 @@ rows = (cs.kernel_rows(dev, smi) if sys.argv[3] == 'all' else
 keep = ('ms', 'device_ms', 'split', 'host_us', 'plain_ms', 'library_ms',
         'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
         'library_diff', 'syncs', 'photons', 'seq_rows', 'second_pass',
-        'rows', 'bytes_old')
+        'rows', 'bytes_old', 'device_call_ms', 'kept', 'windows')
 print(json.dumps({'smi': smi, 'rows': {
     k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
 '''
@@ -154,7 +158,7 @@ def main():
                                        'pmt_truth', 'pmt_truth_layouts',
                                        'photon_times', 'step_block',
                                        'garfield', 's1_delays', 's1_times',
-                                       'record_rows'),
+                                       'record_rows', 'window_rows'),
                     default='all',
                     help='with --kernels: every row, the K11 and K12b rows '
                          'only, the K6 and K11-summaries rows only, the '
@@ -162,7 +166,8 @@ def main():
                          'kernels under each layout, the K13a and K9 '
                          'rows only, the K14 rows only, the K13c rows '
                          'only, the K15 and K13b rows only, the K9 S1 '
-                         'rows only, or the K4r row only')
+                         'rows only, the K4r row only, or the K17 rows '
+                         'only')
     ap.add_argument('--configs', nargs='?', const='all', default=None,
                     help='run the configurations (all of RUN_CONFIGS, or '
                          'the comma-separated names), not the bench runs')

@@ -66,6 +66,21 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     their meta, the row inputs and the slots in use for K4.  Each K3 and
     K4 entry launches once a digitize batch on the default run.
 
+3w. the arena gather and channel extents (K17, ``window_photons``: a
+    batch's photons through its piece table in row order with each row's
+    extents) on the 3j bench batch, its skewed copy (window 0 one S2 of
+    10^6 photons) and the default run's largest digitize batch (its real
+    arena, pieces and dropped photons): bitwise against its twin on every
+    output, one launch and no read-back a call (counted, then once under
+    ``set_sync_debug_mode('error')``); ``ms``, ``device_ms`` (its two
+    passes; the call's device records with the table's copy beside),
+    ``host_us`` over 1,000 calls, the twin's time, the bound (each table
+    photon's channel, time and gain read once, the kept photons' time and
+    gain written once, the table and the rows' outputs) and, as library
+    call, one stable ``torch.sort`` of the batch's row keys alone.  K17
+    launches once a digitize batch on every configuration, as the ZLE
+    (expect_records; EXPECTED_LAUNCHES).
+
 3l. the PMT-afterpulse generator (K11: select, one cumsum, rows, one
     read-back, emit) on the 3b shape (1.5 M photons over 512 truth rows)
     and on a skewed copy whose truth row 100 holds 10^6 of them, and the
@@ -418,8 +433,9 @@ channel block of the step the same around its int32 epilogue, the
 garfield times around one gather ``table[row_of_photon, cols]``).  The phase-2
 line times ``stream_of``, which every wrapper calls.
 
-Every configuration's 512-event run must give EXPECTED_RECORDS, the
-channel draw, the map lookup, the ZLE, record-pack and record-row
+Every configuration's 512-event run must give EXPECTED_RECORDS, K17
+once a digitize batch, the channel draw, the map lookup, the ZLE,
+record-pack and record-row
 entries, the luminescence tables, the PMT-afterpulse and photon-summary
 entries, the diffused pattern, the S2 electron and photon times and the
 gas-gap times their EXPECTED_LAUNCHES (field_maps: the map lookup, the
@@ -458,9 +474,12 @@ ZLE_PACK_KERNELS = ('wfsim_zle_intervals', 'wfsim_pack_record_counts',
                     'wfsim_pack_records')
 #: the record rows (K4r): once a digitize round with records
 ROUND_KERNELS = ('wfsim_record_rows',)
+#: the arena gather and channel extents (K17): once a digitize batch
+WINDOW_KERNELS = ('wfsim_window_rows',)
 #: the kernel entries each main path must launch
-DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *ZLE_PACK_KERNELS,
-                        *ROUND_KERNELS, 'wfsim_grid_lookup') + PHYSICS_KERNELS
+DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *WINDOW_KERNELS,
+                        *ZLE_PACK_KERNELS, *ROUND_KERNELS,
+                        'wfsim_grid_lookup') + PHYSICS_KERNELS
 #: the PMT-afterpulse generator's entries (K11): each once a call
 AP_KERNELS = ('wfsim_pmt_ap_select', 'wfsim_pmt_ap_rows', 'wfsim_pmt_ap_emit')
 #: the photon summaries' entries (K11 summaries): each once a call
@@ -498,8 +517,8 @@ X1T_PATH_KERNELS = FULL_GRID_PATH_KERNELS + ('wfsim_pmt_row_truth_per_pmt',)
 #: and the digitizer (K1+K2, K3, K4); the nVeto run adds the PMT
 #: afterpulses (K11), the XENONnT run the per-PMT truth (K16)
 OPTICAL_PATH_KERNELS = ('wfsim_pmt_photon_pass', 'wfsim_pmt_row_truth',
-                        'wfsim_superpose_adc', *ZLE_PACK_KERNELS,
-                        *ROUND_KERNELS)
+                        'wfsim_superpose_adc', *WINDOW_KERNELS,
+                        *ZLE_PACK_KERNELS, *ROUND_KERNELS)
 OPTICAL_CONFIGS = dict(
     optical_nveto=dict(detector='XENONnT_neutron_veto', first_channel=2000,
                        n_channels=120, mean_hits=3000, tau_ns=200.0,
@@ -1373,8 +1392,7 @@ def phase_full_grid(sargs, skw, ph, B, T, K, inst, dev, smi):
         for name, d, ar in (('cuda', dev, arena_d),
                             ('cpu', torch.device('cpu'), arena_c)):
             prm = build_params(cfg, load_config(cfg), d)
-            g = gather_digitize(prm, const, *ar,
-                                torch.as_tensor(pieces, device=d),
+            g = gather_digitize(prm, const, *ar, pieces,
                                 torch.as_tensor(nix_b, device=d),
                                 n_samples=T_cap, max_intervals=K)
             rec = pack_records(g['data'], g['left_all'], g['starts'],
@@ -1673,7 +1691,7 @@ EXPECTED_RECORDS = dict(default=840_728, realistic=867_836,
                         xenon1t_full_grid=567_294, field_maps=696_517,
                         optical_nveto=126_763, optical_tpc=110_106)
 #: the launches of the channel draw, the map lookup, (one a digitize
-#: batch) the ZLE and record-pack entries, (one a digitize round) the
+#: batch) K17, the ZLE and record-pack entries, (one a digitize round) the
 #: record rows, (one a simulation batch) the luminescence tables, the
 #: PMT-afterpulse and photon-summary entries and the diffused pattern on
 #: those runs
@@ -1682,22 +1700,30 @@ EXPECTED_LAUNCHES = dict(
     default=dict(wfsim_channel_draw=6, wfsim_grid_lookup=12,
                  wfsim_lumi_tables=3, wfsim_s2_electron_times=3,
                  wfsim_s2_photon_times=3,
-                 **dict.fromkeys(ZLE_PACK_KERNELS, 15), **ROUNDS),
+                 **dict.fromkeys(WINDOW_KERNELS + ZLE_PACK_KERNELS, 15),
+                 **ROUNDS),
     realistic=dict(**dict.fromkeys(AP_KERNELS, 9),
-                   **dict.fromkeys(SUMMARY_KERNELS, 3), **ROUNDS),
+                   **dict.fromkeys(SUMMARY_KERNELS, 3),
+                   **dict.fromkeys(WINDOW_KERNELS, 22), **ROUNDS),
     detector_physics=dict(wfsim_grid_lookup=30, wfsim_pattern_diffuse=3,
                           wfsim_lumi_gasgap_times=3,
-                          wfsim_s2_photon_times=3, **ROUNDS),
-    he_full_grid=ROUNDS, timing_models=ROUNDS, per_pmt_truth=ROUNDS,
-    xenon1t_full_grid=ROUNDS,
+                          wfsim_s2_photon_times=3,
+                          **dict.fromkeys(WINDOW_KERNELS, 15), **ROUNDS),
+    he_full_grid=dict(**dict.fromkeys(WINDOW_KERNELS, 23), **ROUNDS),
+    timing_models=dict(**dict.fromkeys(WINDOW_KERNELS, 13), **ROUNDS),
+    per_pmt_truth=dict(**dict.fromkeys(WINDOW_KERNELS, 22), **ROUNDS),
+    xenon1t_full_grid=dict(**dict.fromkeys(WINDOW_KERNELS, 23), **ROUNDS),
     field_maps=dict(wfsim_grid_lookup=57, wfsim_lumi_tables=3,
-                    wfsim_pattern_diffuse=3, **ROUNDS),
+                    wfsim_pattern_diffuse=3,
+                    **dict.fromkeys(WINDOW_KERNELS, 15), **ROUNDS),
     optical_nveto=dict(wfsim_pmt_photon_pass=6, wfsim_pmt_row_truth=6,
                        **dict.fromkeys(AP_KERNELS, 6),
-                       **dict.fromkeys(ZLE_PACK_KERNELS, 9), **ROUNDS),
+                       **dict.fromkeys(WINDOW_KERNELS + ZLE_PACK_KERNELS, 9),
+                       **ROUNDS),
     optical_tpc=dict(wfsim_pmt_photon_pass=6, wfsim_pmt_row_truth=6,
                      wfsim_pmt_row_truth_per_pmt=6,
-                     **dict.fromkeys(ZLE_PACK_KERNELS, 10), **ROUNDS))
+                     **dict.fromkeys(WINDOW_KERNELS + ZLE_PACK_KERNELS, 10),
+                     **ROUNDS))
 #: run_digest of the default run's arrays on that card
 DEFAULT_DIGEST = (
     '0a865a49983e43b443ffbd1579cd7ef589ce90090fa452211babf6fb6df94264')
@@ -1716,6 +1742,14 @@ def expect_records(name, *records, launches=None, digest=None):
     second pass."""
     expect_no_sequential_rows(name)
     expect_no_second_pass(name)
+    # K17 once a digitize batch, as the ZLE (on every configuration)
+    batches = launches['wfsim_zle_intervals']
+    print(f'[expect] {name}: digitize batches {batches}, K17 launches '
+          f'{launches["wfsim_window_rows"]}')
+    if batches <= 0 or launches['wfsim_window_rows'] != batches:
+        raise AssertionError(f'{name}: K17 launched '
+                             f'{launches["wfsim_window_rows"]} times in '
+                             f'{batches} digitize batches')
     want = EXPECTED_RECORDS[name]
     want = want if isinstance(want, tuple) else (want,)
     got = {e: launches[e] for e in EXPECTED_LAUNCHES.get(name, {})}
@@ -2038,8 +2072,7 @@ def superpose_measure(dev, smi, max_syncs=1):
             B = len(pieces)
             ph = window_photons(const, *(torch.as_tensor(a, device=dev)
                                          for a in (t_np, ch_np, g_np)),
-                                torch.as_tensor(pieces, device=dev),
-                                n_samples=T)
+                                pieces, n_samples=T)
             sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
                      ph['ch_left'], ph['ch_right'], ph['has'])
             kw = dict(current_2_adc=const.current_2_adc,
@@ -2150,6 +2183,111 @@ def superpose_measure(dev, smi, max_syncs=1):
     return res
 
 
+def default_batch(cfg, inst, dev):
+    """The largest digitize batch (by photons) of ``cfg``'s run on
+    ``inst`` simulated in one pass: (photon arena on the card, host piece
+    table, n_samples, windows)."""
+    from wfsim_tpu_torch.pipeline.rawdata import RawData
+    rd = RawData(cfg, device=dev)
+    rd.simulate(inst)
+    _wins, arena, batches = rd.plan_digitize()
+    batch, T_cap, pieces, _nix = max(
+        batches, key=lambda b: int(b[2][:, :, 1].sum()))
+    return arena, pieces, T_cap, len(batch)
+
+
+def window_rows_measure(dev, smi, max_syncs=0):
+    """Phase 3w: the arena gather and channel extents (K17,
+    ``window_photons``) on the bench batch of 3j, its skewed copy (window 0
+    one S2 of 10^6 photons) and the default run's largest digitize batch
+    (its real arena, pieces and dropped photons): bitwise against its twin
+    ``window_photons_ref`` (every output), one launch and no read-back a
+    call (at most ``max_syncs``; None counts them without a limit), then
+    once under ``set_sync_debug_mode('error')``; ``ms``, ``device_ms`` (the
+    kernels' records) and the call's device time with its table copy,
+    ``host_us`` over 1,000 calls, the twin's time, the bound (each table
+    photon's channel, time and gain read once, the kept photons' time and
+    gain slots written once, the piece table and the rows' outputs) and
+    the library call: one stable ``torch.sort`` of the batch's row keys
+    alone (window * C + channel of the kept photons in arena order).
+    Returns {row: measurements}."""
+    import torch
+    from wfsim_tpu_torch import _build
+    from wfsim_tpu_torch.config import default_config
+    from wfsim_tpu_torch.interface import bench_instructions
+    from wfsim_tpu_torch.models.params import build_constants
+    from wfsim_tpu_torch.pipeline import digitize as dg
+    cfg = default_config(seed=1234, chunk_size=100)
+    const = build_constants(cfg)
+    C = const.n_tpc_pmts
+    batches = {}
+    for shape in ('bench', 'skewed'):
+        t_np, ch_np, g_np, pieces, T = superpose_arena(shape, C, 20261016)
+        batches[shape] = ([torch.as_tensor(a, device=dev)
+                           for a in (t_np, ch_np, g_np)], pieces, T,
+                          len(pieces))
+    batches['default'] = default_batch(cfg, bench_instructions(512, 2000, 300),
+                                       dev)
+    res = {}
+    for shape, (arena, pieces, T, B) in batches.items():
+        row = 'window_rows' + ('' if shape == 'bench' else f'_{shape}')
+        n = int(pieces[:, :, 1].sum())
+        P = pieces.shape[1]
+        kernel = lambda a=arena, p=pieces, T=T: (       # noqa: E731
+            dg.window_photons(const, *a, p, n_samples=T))
+        plain = lambda a=arena, p=pieces, T=T: (        # noqa: E731
+            dg.window_photons_ref(const, *a, p, n_samples=T))
+        out, ref = kernel(), plain()
+        err = max(max_diff(out[k], ref[k]) for k in ref)
+        same = all(torch.equal(out[k], ref[k]) for k in ref)
+        n_sync, where = count_syncs(kernel)
+        # the row keys of the kept photons in arena order (the library's)
+        idx = np.concatenate([np.arange(lo, lo + c) for lo, c, _o in
+                              pieces.reshape(-1, 3)] + [np.zeros(0, int)])
+        win = np.repeat(np.arange(B), pieces[:, :, 1].sum(axis=1))
+        ch_b = arena[1][torch.as_tensor(idx, device=dev)]
+        keys = (torch.as_tensor(win, device=dev) * C + ch_b)[ch_b >= 0]
+        n_keep = int(keys.shape[0])
+        library = lambda k=keys: torch.sort(k, stable=True)  # noqa: E731
+        k_launch = _build.KERNELS['wfsim_window_rows']
+        before = k_launch.launches
+        kernel()
+        launched = k_launch.launches - before
+        print(f'[window] {row}: {B} windows, {n} photons in {P} pieces a '
+              f'window at most ({n_keep} kept, largest window '
+              f'{int(pieces[:, :, 1].sum(axis=1).max())}), T {T}, max|diff| '
+              f'{err} (bitwise {same}), launches a call {launched}, host '
+              f'syncs a call {n_sync} {where}')
+        if (not same or launched != 1 or (
+                max_syncs is not None and n_sync > max_syncs)):
+            raise AssertionError(f'{row}: K17 differs from its twin, '
+                                 f'launches {launched} times or reads back '
+                                 f'{n_sync} times')
+        if shape == 'bench':
+            sync_free('window_photons', kernel)
+        R = B * C
+        n_bytes = 12 * n + 8 * n_keep + 4 * (R + 1) + 9 * R + 24 * B * P
+        b_ms, b_by = bound(n_bytes)
+        call_ms, split = device_ms(kernel)
+        dev_ms = bounded_device_ms(row, kernel, ('window_rows',), b_ms)[0]
+        m = res[row] = dict(
+            err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+            device_call_ms=call_ms, split=split,
+            plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+            bytes=n_bytes, ops32=0, ops64=0, library_ms=cuda_ms(library),
+            library_call='torch.sort(row keys, stable=True)', syncs=n_sync,
+            photons=n, kept=n_keep, windows=B, shape=shape)
+        dev_s = ('not measured' if call_ms is None else f'{call_ms:.6f} ms '
+                 + str({k[:60]: round(v, 6) for k, v in split.items()}))
+        print(f'[window] {row}: {m["ms"]:.4f} ms, device {fmt_ms(dev_ms)} '
+              f'(the call: {dev_s}), host {m["host_us"]:.2f} us a call, '
+              f'plain twin {m["plain_ms"]:.4f} ms, library (stable sort of '
+              f'{n_keep} row keys) {m["library_ms"]:.4f} ms, bound '
+              f'{b_ms:.6f} ms by {b_by} ({smi})')
+        del out, ref, kernel, plain, library, keys
+    return res
+
+
 #: the ZLE and record-pack rows' grids: the three superposition batches
 #: on the slim grid (the default path's) and the bench batch on the full
 #: XENONnT grid (801 rows a window, the 801-wide bank, ZLE's nonneg mode)
@@ -2190,7 +2328,7 @@ def zle_pack_measure(dev, smi, max_syncs=(0, 1)):
         B = len(pieces)
         ph = window_photons(const, *(torch.as_tensor(a, device=dev)
                                      for a in (t_np, ch_np, g_np)),
-                            torch.as_tensor(pieces, device=dev), n_samples=T)
+                            pieces, n_samples=T)
         sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
                  ph['ch_left'], ph['ch_right'], ph['has'])
         skw = dict(current_2_adc=const.current_2_adc,
@@ -2297,8 +2435,7 @@ def first_round(cfg, inst, dev):
     c = rd.const
     parts = []
     for batch, T_cap, pieces, nix in batches:
-        g = gather_digitize(rd.params, c, *arena,
-                            torch.as_tensor(pieces, device=dev),
+        g = gather_digitize(rd.params, c, *arena, pieces,
                             torch.as_tensor(nix, device=dev),
                             n_samples=T_cap, max_intervals=64)
         parts.append((batch, *pack_records(g['data'], g['left_all'],
@@ -4098,7 +4235,8 @@ def per_pmt_library(params, const, ph, row_edges):
 
 def kernel_rows(dev, smi):
     """The rows ``ab_port.py --kernels`` compares between two checkouts:
-    the superposition rows on every batch (superpose_measure), the ZLE and
+    the superposition rows on every batch (superpose_measure), K17 on
+    its three batches (window_rows_measure), the ZLE and
     record-pack rows on every grid (zle_pack_measure), K16 on 494 channels
     with its library computation (per_pmt_kernel_check), the K11 and K12b
     rows (ap_diffuse_measure), the K6 and K11-summaries rows
@@ -4109,6 +4247,7 @@ def kernel_rows(dev, smi):
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     res = superpose_measure(dev, smi, max_syncs=None)
+    res.update(window_rows_measure(dev, smi, max_syncs=None))
     res.update(zle_pack_measure(dev, smi, max_syncs=None))
     cfg = default_config(seed=1234, chunk_size=100, per_pmt_truth=True,
                          enable_noise=True, enable_pmt_afterpulses=True,
@@ -4207,7 +4346,7 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     t_np, ch_np, g_np, pieces = s2_like_arena(rng, B, C, T)
     ph = window_photons(const, *(torch.as_tensor(a, device=dev)
                                  for a in (t_np, ch_np, g_np)),
-                        torch.as_tensor(pieces, device=dev), n_samples=T)
+                        pieces, n_samples=T)
     sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
              ph['ch_left'], ph['ch_right'], ph['has'])
     L = int(params.noise_bank.shape[1])
@@ -4287,7 +4426,7 @@ def phase_per_pmt_x1t(B, T, K, inst, dev, smi):
     for d, ar in ((dev, arena_d), (torch.device('cpu'),
                                    [a.cpu() for a in arena_d])):
         prm = build_params(cfg_x, load_config(cfg_x), d)
-        g = gather_digitize(prm, const, *ar, torch.as_tensor(pieces, device=d),
+        g = gather_digitize(prm, const, *ar, pieces,
                             torch.as_tensor(nix_b, device=d),
                             n_samples=T_cap, max_intervals=K)
         if tuple(g['data'].shape) != (len(batch), R, T_cap):
@@ -5016,8 +5155,7 @@ def main():
     rng = np.random.default_rng(20261016)
     t_np, ch_np, g_np, pieces = s2_like_arena(rng, B, C, T)
     arena = [torch.as_tensor(a, device=dev) for a in (t_np, ch_np, g_np)]
-    ph = window_photons(const, *arena, torch.as_tensor(pieces, device=dev),
-                        n_samples=T)
+    ph = window_photons(const, *arena, pieces, n_samples=T)
     print(f'[kernels] B={B} rows={B * C} T={T} photons={len(t_np)}')
     sargs = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
              ph['ch_left'], ph['ch_right'], ph['has'])
@@ -5113,7 +5251,7 @@ def main():
     for name, d, ar in (('cuda', dev, arena_d), ('cpu', torch.device('cpu'),
                                                  arena_c)):
         prm = build_params(cfg, load_config(cfg), d)
-        g = gather_digitize(prm, const, *ar, torch.as_tensor(pieces, device=d),
+        g = gather_digitize(prm, const, *ar, pieces,
                             n_samples=T_cap, max_intervals=K)
         rec = pack_records(g['data'], g['left_all'], g['starts'], g['ends'],
                            g['counts'])
@@ -5231,8 +5369,7 @@ def main():
     for name, d, ar in (('cuda', dev, arena_d), ('cpu', torch.device('cpu'),
                                                  arena_c)):
         prm = build_params(cfg_r, load_config(cfg_r), d)
-        g = gather_digitize(prm, const_r, *ar,
-                            torch.as_tensor(pieces, device=d),
+        g = gather_digitize(prm, const_r, *ar, pieces,
                             torch.as_tensor(nix, device=d),
                             n_samples=T_cap, max_intervals=K)
         rec = pack_records(g['data'], g['left_all'], g['starts'], g['ends'],
@@ -5250,6 +5387,9 @@ def main():
 
     # ---- 3j. the superposition entries on three window batches ------------
     stimes = superpose_measure(dev, smi)
+
+    # ---- 3w. the arena gather and channel extents (K17) on three batches ---
+    wtimes = window_rows_measure(dev, smi)
 
     # ---- 3k. the ZLE interval search and the record pack on four grids -----
     ztimes = zle_pack_measure(dev, smi)
@@ -5406,6 +5546,14 @@ def main():
                         library_diff=m['library_diff'],
                         library_peak_mib=m['library_peak_mib'],
                         syncs=m['syncs'], photons=m['photons'])
+    for row, m in wtimes.items():
+        measured(row, 'window_rows.cu',
+                 'wfsim_tpu/pipeline/digitize.py:224-260; '
+                 'wfsim_tpu/pipeline/digitize.py:270-284',
+                 list(WINDOW_KERNELS), launches, m)
+        rows[-1].update({k: m[k] for k in (
+            'syncs', 'photons', 'kept', 'windows', 'device_call_ms',
+            'library_call')})
     for row, m in ztimes.items():
         name = row.removesuffix('_' + m['shape'])
         cu, rep, entries = {

@@ -47,6 +47,7 @@ from .test_torch_record_arena import (DT, ROW_CASES, SPLITS,
 from .test_torch_pmt_truth_order import (
     SECOND_PASS, TRUTH_CASES, emulate_per_pmt, emulate_row_truth,
     photon_terms, truth_case)
+from .test_torch_window_rows import WINDOW_CASES, window_case
 from .test_torch_zle_pack_redesign import (ZLE_PACK_CASES, pack_args,
                                            zle_args, zle_pack_case)
 
@@ -143,6 +144,104 @@ def test_wrappers_count_launches_and_check_inputs(setup, dev):
     with pytest.raises(TypeError):
         superpose_adc(*bad, **kw)
     assert k.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# K17: the arena gather and channel extents (window_rows.cu)
+
+
+def window_rows_check(const, t, ch, g, pieces, T):
+    """window_photons on the card (given the host table) bitwise
+    window_photons_ref on the card, one launch, no host sync, one slot of
+    ``t`` a photon of the table; returns the kernel's outputs."""
+    from wfsim_tpu_torch.pipeline.digitize import window_photons_ref
+    k = _build.KERNELS['wfsim_window_rows']
+    p = pieces.cpu().numpy() if isinstance(pieces, torch.Tensor) else pieces
+    n = int(p[:, :, 1].sum())
+    before = k.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = window_photons(const, t, ch, g, p, n_samples=T)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    ref = window_photons_ref(const, t, ch, g, p, n_samples=T)
+    for key in ('t', 'gain', 'row_ptr', 'ch_left', 'ch_right', 'has'):
+        assert got[key].dtype == ref[key].dtype, key
+        assert torch.equal(got[key], ref[key]), key
+    assert got['t'].shape == (n,)
+    return got
+
+
+@pytest.mark.parametrize('T', [512, 1000, 2048])
+def test_window_rows_matches_twin(setup, dev, T):
+    c, params, const = setup
+    (t, ch, g), pieces = arena(T, 5, 60, T, 3000, dev)
+    ph = window_rows_check(const, t, ch, g, pieces, T)
+    assert int(ph['row_ptr'][-1]) < t.shape[0]       # channel -1 dropped
+
+
+@pytest.mark.parametrize('name', WINDOW_CASES)
+def test_window_rows_cases(setup, dev, name):
+    c, params, const = setup
+    t, ch, g, pieces, T = window_case(name)
+    window_rows_check(const, *(torch.as_tensor(a, device=dev)
+                               for a in (t, ch, g)), pieces, T)
+
+
+def test_window_rows_long_window_and_wide_batch(setup, dev):
+    """One window of 10^6 photons in five pieces (123 segments), and a
+    batch of 128 windows of 3,000 photons on 494 channels."""
+    c, params, const = setup
+    rng = np.random.default_rng(5)
+    n = 1_000_000
+    t = torch.as_tensor(rng.integers(0, 20_000, n + 10).astype(np.int32),
+                        device=dev)
+    ch = torch.as_tensor(rng.integers(-1, 494, n + 10).astype(np.int32),
+                         device=dev)
+    g = torch.as_tensor(rng.uniform(1e5, 8e6, n + 10).astype(np.float32),
+                        device=dev)
+    cuts = [0, 1, 300_000, 300_007, 750_000, n]
+    pieces = np.zeros((1, 6, 3), np.int64)
+    for i in range(5):
+        pieces[0, i] = (10 + cuts[i], cuts[i + 1] - cuts[i], 40 * i)
+    ph = window_rows_check(const, t, ch, g, pieces, 2048)
+    assert int((ph['row_ptr'][1:] - ph['row_ptr'][:-1]).max()) > 1900
+    (t, ch, g), pieces = arena(128, 128, 494, 2048, 3000, dev)
+    window_rows_check(const, t, ch, g, pieces, 2048)
+
+
+@pytest.mark.parametrize('detector', ['XENONnT', 'XENON1T'])
+def test_window_rows_full_grid_configs(dev, detector):
+    """The constants of the full-grid configurations (factor 1: the
+    XENONnT grid, and XENON1T's 248 TPC channels)."""
+    c = default_config(detector=detector,
+                       high_energy_deamplification_factor=1.0)
+    const = build_constants(c)
+    C = const.n_tpc_pmts
+    (t, ch, g), pieces = arena(17, 16, C, 2048, 4600, dev)
+    ph = window_rows_check(const, t, ch, g, pieces, 2048)
+    assert ph['has'].shape == (16 * C,)
+
+
+def test_window_rows_drops_channels_past_c(setup, dev):
+    """Photons whose channel is C or more are dropped on the card as in
+    the twin, as photons of channel -1 are: bitwise the twin, and equal
+    to the outputs with those channels set to -1."""
+    c, params, const = setup
+    C = const.n_tpc_pmts
+    t, ch, g, pieces, T = window_case('pieces')
+    used = np.flatnonzero(ch >= 0)[::5]
+    bad, minus = ch.copy(), ch.copy()
+    bad[used] = C + np.arange(len(used)) % 3 * 500
+    minus[used] = -1
+    got, ref = (window_rows_check(const, *(torch.as_tensor(a, device=dev)
+                                           for a in (t, x, g)), pieces, T)
+                for x in (bad, minus))
+    for key in ('t', 'gain', 'row_ptr', 'ch_left', 'ch_right', 'has'):
+        assert torch.equal(got[key], ref[key]), key
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +623,7 @@ def full_grid_inputs(seed, dev, neg_frac, neg_scale, T=1024, B=4, per=1500):
         pieces[w, 0] = (w * per, 0 if w == 2 else per, 0)
     ph = window_photons(const, *(torch.as_tensor(a, device=dev)
                                  for a in (t, ch, g)),
-                        torch.as_tensor(pieces, device=dev), n_samples=T)
+                        pieces, n_samples=T)
     bank = torch.as_tensor(np.ascontiguousarray(
         synthetic_noise(801, 5000, seed=3).T.astype(np.int16)), device=dev)
     nix = torch.tensor([5000 - 100, 0, 17, 2500], dtype=torch.int32,
@@ -892,7 +991,7 @@ def no_he_inputs(seed, dev, bank_width, T=1024, B=4, per=1500):
         pieces[w, 0] = (w * per, 0 if w == 2 else per, 0)
     ph = window_photons(const, *(torch.as_tensor(a, device=dev)
                                  for a in (t, ch, g)),
-                        torch.as_tensor(pieces, device=dev), n_samples=T)
+                        pieces, n_samples=T)
     bank = nix = None
     if bank_width:
         bank = torch.as_tensor(np.ascontiguousarray(synthetic_noise(
@@ -1053,7 +1152,7 @@ def superpose_inputs(case, grid, dev):
     params = build_params(c, load_config(c), dev)
     ph = window_photons(const, *(torch.as_tensor(a, device=dev)
                                  for a in (t, ch, g)),
-                        torch.as_tensor(pieces, device=dev), n_samples=T)
+                        pieces, n_samples=T)
     args = (ph['t'], ph['gain'], ph['row_ptr'], params.templates,
             ph['ch_left'], ph['ch_right'], ph['has'])
     C = const.n_tpc_pmts

@@ -187,7 +187,8 @@ def test_waveform_twin_matches_float64_oracle(setups):
 
 def test_window_photons_extents(setups):
     """Row windows: [min sample - 102, max sample + 120] clipped to the grid,
-    has only for rows with photons, photons sorted by row."""
+    has only for rows with photons, photons sorted by row on
+    [0, row_ptr[-1]) and a zero slot for the dropped photon past them."""
     (_, _, _), (c, _, kt) = setups
     t = torch.tensor([5000, 100, 7000, 6000], dtype=torch.int32)
     ch = torch.tensor([3, 3, 7, -1], dtype=torch.int32)
@@ -197,7 +198,10 @@ def test_window_photons_extents(setups):
     assert ph['has'].nonzero().squeeze(1).tolist() == [3, 7]
     assert ph['ch_left'][3] == 0 and ph['ch_right'][3] == 500 + 120
     assert ph['ch_left'][7] == 700 - 102 and ph['ch_right'][7] == 700 + 120
-    assert ph['t'].tolist() == [5000, 100, 7000]
+    n = int(ph['row_ptr'][-1])
+    assert n == 3 and ph['t'].shape == (4,) and ph['gain'].shape == (4,)
+    assert ph['t'][:n].tolist() == [5000, 100, 7000]
+    assert ph['t'][n:].tolist() == [0] and ph['gain'][n:].tolist() == [0.0]
     assert ph['row_ptr'][3:9].tolist() == [0, 2, 2, 2, 2, 3]
 
 

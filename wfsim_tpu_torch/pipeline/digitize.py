@@ -5,17 +5,17 @@ dense pack_records, :469-519; reference: wfsim/core/rawdata.py:204-311,
 398-458).
 
 A batch of B windows is one grid of B*C rows (window w, TPC channel c ->
-row w*C + c).  The glue here is plain torch: gathering each window's
-photons from the arena through its piece table, the per-row extents, the
-row sort, the cumsum of the rows' record counts, and a round's record
-order (:func:`round_records`: one sort of packed keys, the stand-in for
-wfsim_tpu's host ``np.lexsort``, rawdata.py:1785).  The four device
-passes are hand-written kernels with plain twins:
-``ops.waveform.superpose_adc`` (or ``superpose_adc_full`` on the full
-digitizer grid), ``ops.zle.zle_all_channels``, :func:`pack_records` and
-:func:`record_rows`, which writes a round's records as strax raw_record
-rows in their sorted slots (wfsim_tpu rawdata.py:1790-1816), so one
-device-to-host copy gives the final bytes.
+row w*C + c).  The five device passes are hand-written kernels with plain
+twins: :func:`window_photons` (K17), which gathers each window's photons
+from the arena through its piece table in row order with the per-row
+extents, ``ops.waveform.superpose_adc`` (or ``superpose_adc_full`` on the
+full digitizer grid), ``ops.zle.zle_all_channels``, :func:`pack_records`
+and :func:`record_rows`, which writes a round's records as strax
+raw_record rows in their sorted slots (wfsim_tpu rawdata.py:1790-1816),
+so one device-to-host copy gives the final bytes.  The glue left in plain
+torch is the cumsum of the rows' record counts and a round's record order
+(:func:`round_records`: one sort of packed keys, the stand-in for
+wfsim_tpu's host ``np.lexsort``, rawdata.py:1785).
 
 Two grids, chosen where wfsim_tpu chooses them (digitize.py:290): the slim
 grid of the C TPC rows, and the full digitizer grid of
@@ -42,6 +42,7 @@ from ..ops.waveform import superpose_adc, superpose_adc_full
 from ..ops.zle import zle_all_channels
 
 __all__ = ['gather_digitize', 'digitize_window', 'window_photons',
+           'window_photons_ref', 'window_rows_plan', 'WINDOW_SEGMENT',
            'full_grid', 'full_grid_rows', 'he_on', 'pack_records',
            'pack_records_ref', 'record_rows', 'record_rows_ref', 'rows_of',
            'round_order', 'round_records', 'SAMPLES_PER_RECORD',
@@ -52,34 +53,79 @@ SAMPLES_PER_RECORD = 110
 ROW_WORDS16 = 122
 
 
-def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
-                   n_samples: int):
-    """The superposition inputs of a window batch: its photons gathered
-    from the arena through the piece table and sorted by row
-    (row = window * C + channel), plus each row's window.
+#: photons a block of the window_rows kernel (K17) takes at most: the host
+#: cuts each window's photons into segments of this many, in arena order
+WINDOW_SEGMENT = 8192
 
-    :param arena_t/ch/gain: (A,) int32 / int32 / float32 photon arena;
-        times are ns relative to each buffer's base, channel -1 marks a
-        photon that was dropped
-    :param pieces: (B, P, 3) ``[arena_lo, count, t_offset]`` per window
-        piece (count 0 marks padding); ``t_offset`` moves a piece's times
-        into its window's frame
-    :returns: dict of t, gain (sorted by row, arena order within a row),
-        row_ptr (B*C + 1,) int32, ch_left/ch_right (B*C,) int32, has bool
-    """
+
+def _piece_table(pieces) -> np.ndarray:
+    """A batch's piece table as a (B, P, 3) int64 numpy array on the host
+    (from numpy or a tensor; a CUDA tensor is read back: pass the host
+    table to keep a batch's dispatch free of syncs)."""
+    if isinstance(pieces, torch.Tensor):
+        pieces = pieces.detach().cpu().numpy()
+    p = np.asarray(pieces, dtype=np.int64)
+    if p.ndim != 3 or p.shape[2] != 3:
+        raise ValueError(f'pieces: need (B, P, 3), got {p.shape}')
+    return p
+
+
+def _check_pieces(p, n_arena: int):
+    """Raise unless every piece has a count >= 0 and every piece with
+    photons lies inside the arena's ``n_arena`` photons."""
+    lo, cnt = p[:, :, 0], p[:, :, 1]
+    used = cnt > 0
+    if (cnt < 0).any() or (used & ((lo < 0) | (lo + cnt > n_arena))).any():
+        raise ValueError(f'pieces: counts must be >= 0 and pieces with '
+                         f'photons lie in the arena of {n_arena}')
+
+
+def window_rows_plan(p, segment: int = WINDOW_SEGMENT):
+    """The window_rows kernel's plan of a (B, P, 3) host piece table:
+    ``(pstart, plan)``, each piece's first photon within its window (B, P)
+    and per segment ``[window, the window's first segment, the window's
+    segments, first photon in the window, photons]`` (n_seg, 5), int64.
+    Each window's photons (its pieces' one after another) are cut into
+    segments of at most ``segment``; a window without photons has one
+    empty segment."""
+    B = p.shape[0]
+    cnt = p[:, :, 1]
+    pstart = np.cumsum(cnt, axis=1) - cnt
+    n_win = cnt.sum(axis=1)
+    n_seg = np.maximum(1, -(-n_win // segment))
+    s0 = np.cumsum(n_seg) - n_seg
+    w = np.repeat(np.arange(B), n_seg)
+    j0 = (np.arange(int(n_seg.sum())) - s0[w]) * segment
+    plan = np.stack([w, s0[w], n_seg[w], j0,
+                     np.minimum(segment, n_win[w] - j0)], axis=1)
+    return pstart.astype(np.int64), plan.astype(np.int64)
+
+
+def _i32(x: int) -> int:
+    """``x`` modulo 2^32 as a signed int32 (torch's int32 arithmetic)."""
+    return (int(x) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def window_photons_ref(const, arena_t, arena_ch, arena_gain, pieces, *,
+                       n_samples: int):
+    """Plain twin of the window_rows kernel (arguments and result as
+    :func:`window_photons`), in torch on the arena's device: each row's
+    photons gathered and ordered by one stable sort of their rows."""
     dev = arena_t.device
-    B = int(pieces.shape[0])
+    p = _piece_table(pieces)
+    _check_pieces(p, int(arena_t.shape[0]))
+    B = p.shape[0]
     T = n_samples
     dt = const.sample_duration
     C = const.n_tpc_pmts
     R = B * C
+    n_ph = int(p[:, :, 1].sum())
 
-    pieces = pieces.to(dev, torch.int64).reshape(-1, 3)
+    pieces = torch.as_tensor(p, device=dev).reshape(-1, 3)
     lo, cnt, toff = pieces[:, 0], pieces[:, 1], pieces[:, 2]
     w_of_piece = torch.arange(B, device=dev).repeat_interleave(
         pieces.shape[0] // max(B, 1))
     first = torch.cumsum(cnt, dim=0) - cnt
-    n_ph = int(cnt.sum())
     aidx = torch.arange(n_ph, device=dev) + torch.repeat_interleave(
         lo - first, cnt)
     t = (arena_t[aidx].to(torch.int64)
@@ -87,7 +133,7 @@ def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
     ch = arena_ch[aidx]
     gain = arena_gain[aidx]
     w = torch.repeat_interleave(w_of_piece, cnt)
-    keep = ch >= 0
+    keep = (ch >= 0) & (ch < C)
     t, ch, gain, w = t[keep], ch[keep], gain[keep], w[keep]
     rows = w * C + ch.to(torch.int64)
 
@@ -108,8 +154,97 @@ def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
     row_ptr = torch.zeros(R + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(torch.bincount(rows_sorted, minlength=R),
                                dim=0).to(torch.int32)
-    return dict(t=t[order].contiguous(), gain=gain[order].contiguous(),
-                row_ptr=row_ptr, ch_left=ch_left, ch_right=ch_right, has=has)
+    n_keep = int(order.shape[0])
+    t_out = torch.zeros(n_ph, dtype=torch.int32, device=dev)
+    gain_out = torch.zeros(n_ph, dtype=torch.float32, device=dev)
+    t_out[:n_keep] = t[order]
+    gain_out[:n_keep] = gain[order]
+    return dict(t=t_out, gain=gain_out, row_ptr=row_ptr, ch_left=ch_left,
+                ch_right=ch_right, has=has)
+
+
+_window_kernel = Kernel('wfsim_window_rows',
+                        [P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P, P,
+                         P, P, P, P, P, P])
+
+
+def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
+                   n_samples: int):
+    """The superposition inputs of a window batch: its photons gathered
+    from the arena through the piece table, those with a channel kept, in
+    row order (row = window * C + channel; arena order within a row), plus
+    each row's extents.
+
+    CPU tensors go to :func:`window_photons_ref`; CUDA tensors launch the
+    hand-written kernel (``csrc/window_rows.cu``, K17: two passes of a
+    block per segment of a window's photons, planned on the host from the
+    piece table), which reads nothing back: with the host's piece table
+    and an arena on the card, the call does not sync.
+
+    :param arena_t/ch/gain: (A,) int32 / int32 / float32 photon arena;
+        times are ns relative to each buffer's base, channel -1 marks a
+        photon that was dropped (as does any channel outside [0, C), on
+        the card and in the twin alike)
+    :param pieces: (B, P, 3) ``[arena_lo, count, t_offset]`` per window
+        piece (count 0 marks padding); ``t_offset`` moves a piece's times
+        into its window's frame.  A numpy array or a tensor; the card's
+        plan is made from it on the host (a CUDA tensor is read back)
+    :returns: dict of t, gain, one slot a photon of the table: the kept
+        photons in row order on ``[0, row_ptr[-1])``, zeros past them;
+        row_ptr (B*C + 1,) int32, ch_left/ch_right (B*C,) int32, has bool
+    """
+    dev = arena_t.device
+    p = _piece_table(pieces)
+    total = int(p[:, :, 1].sum())
+    if dev.type == 'cpu':
+        return window_photons_ref(const, arena_t, arena_ch, arena_gain, p,
+                                  n_samples=n_samples)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'window_photons on {dev}')
+    A = int(arena_t.shape[0])
+    for name, x, dtype in (('arena_t', arena_t, torch.int32),
+                           ('arena_ch', arena_ch, torch.int32),
+                           ('arena_gain', arena_gain, torch.float32)):
+        check_tensor(name, x, dtype, (A,), dev)
+    _check_pieces(p, A)
+    B, n_pieces = p.shape[:2]
+    C = const.n_tpc_pmts
+    if not 0 < C <= 1024:
+        raise ValueError(f'window_photons on the card takes 1 to 1,024 '
+                         f'channels a window, not {C}')
+    if total >= 2 ** 31:
+        raise OverflowError(f'{total} photons in one batch')
+    R = B * C
+    out = dict(t=torch.empty(total, dtype=torch.int32, device=dev),
+               gain=torch.empty(total, dtype=torch.float32, device=dev),
+               row_ptr=(torch.empty if B else torch.zeros)(
+                   R + 1, dtype=torch.int32, device=dev),
+               ch_left=torch.empty(R, dtype=torch.int32, device=dev),
+               ch_right=torch.empty(R, dtype=torch.int32, device=dev),
+               has=torch.empty(R, dtype=torch.bool, device=dev))
+    if B == 0:
+        return out
+    pstart, plan = window_rows_plan(p)
+    n_seg = int(plan.shape[0])
+    # the table, the piece starts and the plan in one copy (pinned: no sync)
+    host = torch.from_numpy(np.concatenate(
+        [p.reshape(-1), pstart.reshape(-1), plan.reshape(-1)])).pin_memory()
+    tab = host.to(dev, non_blocking=True)
+    n_p = B * n_pieces
+    scratch = torch.empty(n_seg * (3 * C + 1), dtype=torch.int32, device=dev)
+    left_pad = _i32(const.samples_to_store_before
+                    + const.samples_before_pulse_center
+                    + const.trigger_window)
+    right_pad = _i32(const.samples_to_store_after
+                     + const.samples_after_pulse_center
+                     + const.trigger_window)
+    _window_kernel(ptr(arena_t), ptr(arena_ch), ptr(arena_gain), ptr(tab),
+                   ptr(tab[3 * n_p:]), n_pieces, ptr(tab[4 * n_p:]), n_seg, B,
+                   C, n_samples, const.sample_duration, left_pad, right_pad,
+                   total, ptr(scratch), ptr(out['t']), ptr(out['gain']),
+                   ptr(out['row_ptr']), ptr(out['ch_left']),
+                   ptr(out['ch_right']), ptr(out['has']), stream_of(dev))
+    return out
 
 
 def noise_on(params, const) -> bool:
@@ -154,7 +289,9 @@ def gather_digitize(params, const, arena_t, arena_ch, arena_gain, pieces,
                     noise_ix=None, *, n_samples: int, max_intervals: int = 64,
                     full: bool | None = None):
     """Digitize a batch of B windows straight from the device photon arena
-    (arguments as :func:`window_photons`).
+    (arguments as :func:`window_photons`; pass the host piece table, as the
+    pipeline does, and a dispatch reads nothing back before the
+    superposition).
 
     :param noise_ix: (B,) int32 host-drawn noise-bank offset per window
         (required with noise on, ignored otherwise)
@@ -231,12 +368,11 @@ def digitize_window(params, const, t, ch, gain, valid, noise_ix=None, *,
     """
     dev = t.device
     ch = torch.where(valid, ch, -1).to(torch.int32)
-    pieces = torch.tensor([[[0, int(t.shape[0]), 0]]], dtype=torch.int64,
-                          device=dev)
+    pieces = np.asarray([[[0, int(t.shape[0]), 0]]], dtype=np.int64)
     nix = (None if noise_ix is None else
            torch.as_tensor(noise_ix, dtype=torch.int32, device=dev).reshape(1))
-    out = gather_digitize(params, const, t.to(torch.int32), ch,
-                          gain.to(torch.float32), pieces, nix,
+    out = gather_digitize(params, const, t.to(torch.int32).contiguous(), ch,
+                          gain.to(torch.float32).contiguous(), pieces, nix,
                           n_samples=n_samples, max_intervals=max_intervals,
                           full=True)
     return dict(data=out['data'][0], ch_mask=out['has'][0],

@@ -298,6 +298,14 @@ class RawData:
     def _owner(self, i: int) -> int:
         return 0 if self.comm is None else self.comm.owner(i)
 
+    def _to_device(self, x):
+        """A host array on the device, through pinned memory on a card
+        (the copy is queued on the stream: no sync)."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == 'cuda':
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     @property
     def _rank(self) -> int:
         return 0 if self.comm is None else self.comm.rank
@@ -842,10 +850,11 @@ class RawData:
             for j, (_batch, T_cap, pieces, nix) in enumerate(batches):
                 if self._owner(j) != self._rank:
                     continue
+                # the host piece table: K17 plans on the host and reads
+                # nothing back; the noise offsets go through pinned memory,
+                # so the dispatch does not sync
                 res = gather_digitize(
-                    self.params, c, *arena,
-                    torch.as_tensor(pieces, device=self.device),
-                    torch.as_tensor(nix, device=self.device),
+                    self.params, c, *arena, pieces, self._to_device(nix),
                     n_samples=T_cap, max_intervals=max_itv)
                 done[j] = pack_records(
                     res['data'], res['left_all'], res['starts'], res['ends'],
