@@ -6,7 +6,7 @@
                            pmt_truth_layouts|photon_times|step_block|
                            garfield|s1_delays|s1_times|record_rows|
                            window_rows]]
-        [--configs [NAME,...]] [--busy]
+        [--own] [--configs [NAME,...]] [--busy]
 
 Runs the 512-event bench workload in the default and the realistic
 configuration in four fresh processes, in turns: OTHER_TREE, this tree,
@@ -50,6 +50,9 @@ first round and that round's copy into the record arena
 ``--only window_rows`` the arena gather and channel extents (K17) on the
 bench batch, its skewed copy and the default run's largest digitize batch
 (``window_rows_measure``; a checkout without K17 has no such row).
+With ``--own`` each tree is measured by its own ``chip_smoke.py`` (for
+rows whose measurement changed with the kernels, as ``record_rows``
+did when the round ordering became a kernel).
 
 With ``--configs`` each process runs, with this tree's
 ``chip_smoke.config_runs`` on the tree's own package, each of the ten
@@ -117,7 +120,8 @@ rows = (cs.kernel_rows(dev, smi) if sys.argv[3] == 'all' else
 keep = ('ms', 'device_ms', 'split', 'host_us', 'plain_ms', 'library_ms',
         'library_call', 'library_calls', 'bytes', 'ops32', 'ops64',
         'library_diff', 'syncs', 'photons', 'seq_rows', 'second_pass',
-        'rows', 'bytes_old', 'device_call_ms', 'kept', 'windows')
+        'rows', 'bytes_old', 'device_call_ms', 'kept', 'windows', 'records',
+        'max_window', 'sort_ms', 'round_records_ms', 'bound_rows_ms')
 print(json.dumps({'smi': smi, 'rows': {
     k: {x: v[x] for x in keep if x in v} for k, v in rows.items()}}))
 '''
@@ -168,6 +172,8 @@ def main():
                          'only, the K15 and K13b rows only, the K9 S1 '
                          'rows only, the K4r row only, or the K17 rows '
                          'only')
+    ap.add_argument('--own', action='store_true',
+                    help="with --kernels: each tree's own chip_smoke.py")
     ap.add_argument('--configs', nargs='?', const='all', default=None,
                     help='run the configurations (all of RUN_CONFIGS, or '
                          'the comma-separated names), not the bench runs')
@@ -178,7 +184,7 @@ def main():
     trees = {'other': args.other.resolve(), 'this': here}
     for label in ('other', 'this', 'this', 'other'):
         root = trees[label]
-        smoke = str(here / 'chip_smoke.py')
+        smoke = str((root if args.own else here) / 'chip_smoke.py')
         if args.kernels:
             cmd = [sys.executable, '-c', KERNEL_CODE, str(root), smoke,
                    args.only]

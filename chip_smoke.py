@@ -73,13 +73,14 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     arena, pieces and dropped photons): bitwise against its twin on every
     output, one launch and no read-back a call (counted, then once under
     ``set_sync_debug_mode('error')``); ``ms``, ``device_ms`` (its two
-    passes; the call's device records with the table's copy beside),
-    ``host_us`` over 1,000 calls, the twin's time, the bound (each table
-    photon's channel, time and gain read once, the kept photons' time and
-    gain written once, the table and the rows' outputs) and, as library
-    call, one stable ``torch.sort`` of the batch's row keys alone.  K17
-    launches once a digitize batch on every configuration, as the ZLE
-    (expect_records; EXPECTED_LAUNCHES).
+    passes, count and place; the call's device records with the table's
+    copy beside), ``host_us`` over 1,000 calls, the twin's time, the bound
+    (each table photon's channel, time and gain read once, the kept
+    photons' time and gain written once, the table and the rows' outputs)
+    and, as library call, one stable ``torch.sort`` of the batch's row
+    keys alone; each device time beside the first design's
+    (PARENT_DEVICE_MS).  K17 launches once a digitize batch on every
+    configuration, as the ZLE (expect_records; EXPECTED_LAUNCHES).
 
 3l. the PMT-afterpulse generator (K11: select, one cumsum, rows, one
     read-back, emit) on the 3b shape (1.5 M photons over 512 truth rows)
@@ -168,20 +169,34 @@ afterpulses; the JAX package's ``bench.py`` "production realism" line):
     class and the delays; K13b: the per-instruction inputs, the edges, u,
     the table rows of the batch's corners and the delays).
 
-3u. the record rows (K4r: a round's records as strax raw_record rows in
-    their sorted slots) on the default run's first round (~282 k records
-    in 342 windows, sorted by ``round_order`` on the card): bitwise
-    against its twin and against the library composition (the rows built
-    in torch, then one ``index_select``: two calls), no read-back,
-    ``ms``, ``device_ms``, ``host_us`` over 1,000 calls, the twin's time,
-    the bound (each record's samples, meta, window and permutation entry
-    read once, the windows' edges, 244 bytes a row written once), the
-    sort's and ``round_records``' times; then the round's rows into the
-    host three ways (the record arena's, through its pinned staging
-    buffer; into a page-locked base; a pageable synchronous copy), each
-    bitwise.
-    K4r launches once a digitize round on every configuration
-    (EXPECTED_LAUNCHES).
+3u. the round ordering (``round_order``, csrc/round_order.cu: the
+    windows' counts by a search of each batch's window column, then a
+    block a window, and one more for each 4,096 records of a longer
+    window, ranking its records by (start, channel)) and the
+    record rows (K4r: a round's records as strax raw_record rows in their
+    sorted slots, read from the batches where they lie) on the default
+    run's first round (~282 k records in 342 windows): the ordering's
+    perm, windows and counts bitwise against its plain version (the
+    packed-key ``torch.sort``), K4r bitwise against its twin and against
+    the library composition (the rows built in torch, then one
+    ``index_select``: two calls), no read-back in either, ``ms``,
+    ``device_ms``, ``host_us`` over 1,000 calls, the plain versions'
+    times, the bounds (the ordering: each record's window, start and
+    channel read once, its place and window written once; K4r: each
+    record's samples, meta, window and permutation entry read once, the
+    windows' edges, 244 bytes a row written once), the library sort's and
+    ``round_records``' times, each device time beside its parent's
+    (PARENT_DEVICE_MS); then the round's rows into the host three ways
+    (the record arena's, through its pinned staging buffer; into a
+    page-locked base; a pageable synchronous copy), each bitwise; then
+    the ordering on a round with a window of 10^5 records and on the
+    he_full_grid run's first round, bitwise, its device time beside the
+    library sort's, with each round's largest window and start and the
+    windows on each of the kernel's paths (order_round_measure).
+    The ordering and K4r launch once a digitize round on every
+    configuration (EXPECTED_LAUNCHES); config_runs (``ab_port.py
+    --configs``) prints each configuration's rounds' windows the same way
+    from its warm-up run (``[windows]``).
 
 Then the physics passes (S1, S2 and the PMT response) of the default
 configuration, on the bench workload's 512 S1 and 512 S2 instructions as
@@ -472,10 +487,18 @@ PHYSICS_KERNELS = ('wfsim_channel_draw', 'wfsim_lumi_tables',
 #: the ZLE (K3) and record-pack (K4) entries: each once a digitize batch
 ZLE_PACK_KERNELS = ('wfsim_zle_intervals', 'wfsim_pack_record_counts',
                     'wfsim_pack_records')
-#: the record rows (K4r): once a digitize round with records
-ROUND_KERNELS = ('wfsim_record_rows',)
+#: the round ordering and the record rows (K4r): once a digitize round
+#: with records
+ROUND_KERNELS = ('wfsim_round_order', 'wfsim_record_rows')
 #: the arena gather and channel extents (K17): once a digitize batch
 WINDOW_KERNELS = ('wfsim_window_rows',)
+#: the first designs' device ms on phase 3w's and 3u's rows (PERF.md §6:
+#: K17 as first written, K4r as first written, and the stable torch.sort
+#: of packed keys that ordered a round before round_order.cu), printed
+#: beside this run's
+PARENT_DEVICE_MS = dict(window_rows=0.0310, window_rows_skewed=0.0828,
+                        window_rows_default=0.0333, record_rows=0.0927,
+                        round_order=0.165)
 #: the kernel entries each main path must launch
 DEFAULT_PATH_KERNELS = ('wfsim_superpose_adc', *WINDOW_KERNELS,
                         *ZLE_PACK_KERNELS, *ROUND_KERNELS,
@@ -591,17 +614,28 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20, warmup=3, names=None):
+#: bytes written before each call of a cold session (device_ms): 2.5 times
+#: the H100's 50 MB L2, so no line of the call's inputs is left in it
+L2_FLUSH_BYTES = 128 << 20
+
+
+def device_ms(fn, reps=20, warmup=3, names=None, cold=False):
     """Median device time of one call of ``fn`` in ms and the device time
     per call of each kernel it launches, by name: the CUPTI records of a
     ``torch.profiler`` session over ``reps`` calls, each followed by a
     sync, cut into calls (see cut_calls; with ``names``, a tuple of
     substrings, only the records whose names hold one of them, see
-    named_calls).  (None, {}) where they do not cut cleanly: no estimate
-    is made."""
+    named_calls).  ``cold`` (only with ``names``, which leave the flush's
+    records out) writes L2_FLUSH_BYTES before each call, so the call reads
+    its inputs from HBM and its writes evict dirty lines.  (None, {})
+    where they do not cut cleanly: no estimate is made."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    if cold and names is None:
+        raise ValueError('a cold session needs names (the flush is left out)')
+    flush = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                         device='cuda') if cold else None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -615,6 +649,8 @@ def device_ms(fn, reps=20, warmup=3, names=None):
                 x.fill_(0.0)
             torch.cuda.synchronize()
         for _ in range(reps):
+            if flush is not None:
+                flush.fill_(1)
             fn()
             torch.cuda.synchronize()
     recs = [(e.name, e.time_range.elapsed_us()) for e in sorted(
@@ -687,17 +723,26 @@ def bounded_device_ms(name, fn, names, b_ms, tries=3):
     """``device_ms(fn, names=names)``, the session taken again (up to
     ``tries`` sessions) where it gives no time or one below the bound
     ``b_ms``: in this long process CUPTI sometimes drops records of a
-    session (PERF.md §7).  Raises (below_bound) where every session that
-    gave a time gave one below the bound; (None, {}) where none gave one."""
+    session (PERF.md §7).  The bound is HBM's; a call whose bytes fit the
+    50 MB L2 can beat it on the inputs its warm-up left there, so after a
+    time below the bound the sessions are cold (device_ms).  Raises
+    (below_bound) where every session that gave a time gave one below the
+    bound; (None, {}) where none gave one."""
     low = None
+    cold = False
     for _ in range(tries):
-        dev_ms, by_name = device_ms(fn, names=names)
+        dev_ms, by_name = device_ms(fn, names=names, cold=cold)
         if dev_ms is not None and dev_ms >= b_ms:
+            if cold:
+                print(f'[profiler] {name}: device time {dev_ms:.6f} ms with '
+                      f'the L2 flushed before each call')
             return dev_ms, by_name
         if dev_ms is not None:
             low = dev_ms
             print(f'[profiler] {name}: device time {dev_ms:.6f} ms below '
-                  f'its bound {b_ms:.6f} ms: the session is taken again')
+                  f'its bound {b_ms:.6f} ms: the session is taken again '
+                  f'with the L2 flushed before each call')
+            cold = True
     below_bound(name, low, b_ms)
     return None, {}
 
@@ -2280,7 +2325,8 @@ def window_rows_measure(dev, smi, max_syncs=0):
         dev_s = ('not measured' if call_ms is None else f'{call_ms:.6f} ms '
                  + str({k[:60]: round(v, 6) for k, v in split.items()}))
         print(f'[window] {row}: {m["ms"]:.4f} ms, device {fmt_ms(dev_ms)} '
-              f'(the call: {dev_s}), host {m["host_us"]:.2f} us a call, '
+              f'(first design {PARENT_DEVICE_MS[row]} ms; the call: '
+              f'{dev_s}), host {m["host_us"]:.2f} us a call, '
               f'plain twin {m["plain_ms"]:.4f} ms, library (stable sort of '
               f'{n_keep} row keys) {m["library_ms"]:.4f} ms, bound '
               f'{b_ms:.6f} ms by {b_by} ({smi})')
@@ -2512,36 +2558,91 @@ def arena_copy_measure(rows, reps=5):
 
 
 def record_rows_measure(dev, smi, max_syncs=0):
-    """Phase 3u: the record rows (K4r) on the first round of the default
-    run (its records from the card's K4 in the round's sorted order,
-    ``round_order``): bitwise against its twin and against the library
-    composition (the rows built in torch in batch order, ``rows_of``,
-    then one ``index_select`` by the permutation: two calls), no read-back
-    (at most ``max_syncs``; None counts them without a limit), ``ms``,
-    ``device_ms``, ``host_us`` over 1,000 calls, the twin's time, the
-    bound (each record's samples, meta, window and permutation entry read
-    once, the windows' edges, 244 bytes a row written once; the count of
-    samples, meta and rows alone printed beside), the sort's and the
-    whole ``round_records``' times, and the round's copy into the record
-    arena three ways (arena_copy_measure).  Returns {'record_rows':
-    measurements}."""
+    """Phase 3u: the round ordering (``round_order``, csrc/round_order.cu)
+    and the record rows (K4r) on the first round of the default run (its
+    records from the card's K4).  The ordering: perm, win and counts
+    bitwise against its plain version (``round_order_ref``: the packed
+    keys and one stable ``torch.sort``, then ``searchsorted``), no
+    read-back (at most ``max_syncs``; None counts them without a limit),
+    ``ms``, ``device_ms``, ``host_us`` over 1,000 calls, the plain
+    version's time, the bound (each record's window, start and channel
+    read once, its place and window written once, the windows' counts
+    and bases) and the library call: the stable sort of the packed keys
+    alone.  K4r, on the batches' records where they lie (no concatenation)
+    in the kernel's order: bitwise against its twin and against the
+    library composition (the rows built in torch, then one
+    ``index_select``: two calls), no read-back, the same times, the bound
+    (each record's samples, meta, window and permutation entry read once,
+    the windows' edges, 244 bytes a row written once) and
+    ``round_records``' time; then the round's rows into the host three
+    ways (arena_copy_measure).  Each device time is printed beside its
+    parent's (PARENT_DEVICE_MS).  Returns {'round_order': ...,
+    'record_rows': ...}."""
     import torch
+    from wfsim_tpu_torch import _build
     from wfsim_tpu_torch.config import default_config
     from wfsim_tpu_torch.interface import bench_instructions
     from wfsim_tpu_torch.pipeline.arena import RecordArena
     from wfsim_tpu_torch.pipeline.digitize import (
-        record_rows, record_rows_ref, round_order, round_records, rows_of)
+        record_rows, record_rows_ref, round_order, round_order_ref,
+        round_records, rows_of)
     cfg = default_config(seed=1234, chunk_size=100)
     rd, rnd = first_round(cfg, bench_instructions(512, 2000, 300), dev)
     dt = rd.const.sample_duration
     kw = dict(n_samples=rnd['n_samples'], n_rows=rnd['n_rows'])
-    o = round_order(list(rnd['parts']), rnd['win_left'], **kw)
-    args = (o['data'], o['meta'], o['win'], o['win_left'], o['perm'], dt)
+    res = {}
+
+    # the ordering
+    order = lambda: round_order(list(rnd['parts']),  # noqa: E731
+                                rnd['win_left'], **kw)
+    order_ref = lambda: round_order_ref(list(rnd['parts']),  # noqa: E731
+                                        rnd['win_left'], **kw)
+    o, ref = order(), order_ref()
     n, n_win = int(o['perm'].shape[0]), len(rnd['win_left'])
+    same = all(torch.equal(o[k], ref[k]) for k in ('perm', 'win', 'counts'))
+    err = max(max_diff(o[k], ref[k]) for k in ('perm', 'win', 'counts'))
+    n_sync, where = count_syncs(order)
+    k_order = _build.KERNELS['wfsim_round_order']
+    before = k_order.launches
+    order()
+    launched = k_order.launches - before
+    if not same or launched != 1 or (
+            max_syncs is not None and n_sync > max_syncs):
+        raise AssertionError(f'round_order differs from its plain version '
+                             f'({err}), launches {launched} times or reads '
+                             f'back {n_sync} times ({where})')
+    sync_free('round_order', order)
+    key = ref['key']
+    o_bytes = n * (12 + 8 + 4) + n_win * 16
+    ob_ms, ob_by = bound(o_bytes)
+    dev_ms, by_name = bounded_device_ms('round_order', order,
+                                        ('round_count', 'round_sort'), ob_ms)
+    m = res['round_order'] = dict(
+        err=err, ms=cuda_ms(order), device_ms=dev_ms,
+        plain_ms=cuda_ms(order_ref, reps=10), host_us=host_us(order, 1000),
+        bytes=o_bytes, ops32=0, ops64=0,
+        library_ms=cuda_ms(lambda: torch.sort(key, stable=True), reps=10),
+        library_call='torch.sort(packed keys, stable=True)', syncs=n_sync,
+        records=n, windows=n_win, split=by_name,
+        max_window=int(ref['counts'].max()))
+    dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.6f} ms '
+             + str({k[:60]: round(v, 6) for k, v in by_name.items()}))
+    print(f'[rows] round_order: the default run\'s first round, {n} records '
+          f'in {n_win} windows (largest {m["max_window"]}) of '
+          f'{len(rnd["parts"])} batches, bitwise {same}, launches a call '
+          f'{launched}, host syncs {n_sync}: {m["ms"]:.4f} ms, device {dev_s} '
+          f'(parent\'s sort {PARENT_DEVICE_MS["round_order"]} ms), host '
+          f'{m["host_us"]:.2f} us a call, plain version {m["plain_ms"]:.4f} '
+          f'ms, library (stable sort of the packed keys) '
+          f'{m["library_ms"]:.4f} ms, bound {ob_ms:.6f} ms by {ob_by} ({smi})')
+
+    # the record rows
+    args = (o['data'], o['meta'], o['win'], o['win_left'], o['perm'], dt)
     kernel = lambda: record_rows(*args)                 # noqa: E731
     plain = lambda: record_rows_ref(*args)              # noqa: E731
-    library = lambda: rows_of(*args[:4], dt).index_select(  # noqa: E731
-        0, o['perm'])
+    data, meta = torch.cat(o['data']), torch.cat(o['meta'])
+    library = lambda: rows_of(data, meta, o['win'],  # noqa: E731
+                              o['win_left'], dt).index_select(0, o['perm'])
     out = kernel()
     err = max_diff(out, plain())
     lib_diff = max_diff(library(), out)
@@ -2555,37 +2656,177 @@ def record_rows_measure(dev, smi, max_syncs=0):
     dev_ms, by_name = bounded_device_ms('record_rows', kernel,
                                         ('record_rows',),
                                         bound(n_bytes)[0])
-    sort_ms = cuda_ms(lambda: torch.sort(o['key'], stable=True), reps=10)
     round_ms = cuda_ms(lambda: round_records(list(rnd['parts']),
                                              rnd['win_left'], dt=dt, **kw),
                        reps=10)
-    m = dict(err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
-             plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
-             bytes=n_bytes, ops32=0, ops64=0,
-             library_ms=cuda_ms(library, reps=10), library_diff=lib_diff,
-             library_call='rows_of + index_select (two calls)',
-             library_calls=2, syncs=n_sync, records=n, windows=n_win,
-             sort_ms=sort_ms, round_records_ms=round_ms,
-             bound_rows_ms=bound(b_rows)[0],
-             copy=arena_copy_measure(out),
-             arena_base_rows=max(n, RecordArena.chunk_rows))
+    m = res['record_rows'] = dict(
+        err=err, ms=cuda_ms(kernel), device_ms=dev_ms,
+        plain_ms=cuda_ms(plain, reps=5), host_us=host_us(kernel, 1000),
+        bytes=n_bytes, ops32=0, ops64=0,
+        library_ms=cuda_ms(library, reps=10), library_diff=lib_diff,
+        library_call='rows_of + index_select (two calls)',
+        library_calls=2, syncs=n_sync, records=n, windows=n_win,
+        sort_ms=res['round_order']['library_ms'], round_records_ms=round_ms,
+        bound_rows_ms=bound(b_rows)[0], copy=arena_copy_measure(out),
+        arena_base_rows=max(n, RecordArena.chunk_rows))
+    del data, meta
     b_ms, b_by = bound(n_bytes)
     dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.6f} ms '
              + str({k[:60]: round(v, 6) for k, v in by_name.items()}))
-    print(f'[rows] record_rows: the default run\'s first round, {n} '
-          f'records in {n_win} windows of {len(rnd["parts"])} batches, '
-          f'max|diff| {err} (library {lib_diff}), host syncs {n_sync}: '
-          f'{m["ms"]:.4f} ms, device {dev_s}, host {m["host_us"]:.2f} us a '
-          f'call, plain twin {m["plain_ms"]:.4f} ms, library (two calls) '
-          f'{m["library_ms"]:.4f} ms, bound {b_ms:.6f} ms by {b_by} (samples, '
-          f'meta and rows alone: {m["bound_rows_ms"]:.6f} ms); the sort '
-          f'{sort_ms:.4f} ms, round_records {round_ms:.4f} ms ({smi})')
+    print(f'[rows] record_rows: the same round, max|diff| {err} (library '
+          f'{lib_diff}), host syncs {n_sync}: {m["ms"]:.4f} ms, device '
+          f'{dev_s} (parent {PARENT_DEVICE_MS["record_rows"]} ms), host '
+          f'{m["host_us"]:.2f} us a call, plain twin {m["plain_ms"]:.4f} ms, '
+          f'library (two calls) {m["library_ms"]:.4f} ms, bound {b_ms:.6f} '
+          f'ms by {b_by} (samples, meta and rows alone: '
+          f'{m["bound_rows_ms"]:.6f} ms); round_records {round_ms:.4f} ms '
+          f'({smi})')
     for mode, c in m['copy'].items():
         put = f', before the wait {c["put_s"]:.6f} s'
         print(f'[rows] the round\'s {n * 244 / 2 ** 20:.1f} MiB to the host, '
               f'{mode}: {c["s"]:.6f} s ({n * 244 / c["s"] / 1e9:.2f} GB/s'
               f'{put}; arena base {m["arena_base_rows"]} rows) ({smi})')
-    return {'record_rows': m}
+    del o, ref, rd, rnd, out, args
+
+    # the ordering on a window of 10^5 records and on a full-grid round
+    rounds = res['round_order']['rounds'] = {}
+    rounds['window_1e5'] = order_round_measure(
+        'a round with a window of 10^5 records', long_round(100_000, dev),
+        smi)
+    tmp = tempfile.mkdtemp(prefix='wfsim_3u_')
+    try:
+        from wfsim_tpu_torch import config as cf
+        from wfsim_tpu_torch.resources import synthetic as syn
+        syn.write_production_files(tmp, 1234)
+        cfg = default_config(seed=1234, chunk_size=100,
+                             **cf.he_full_grid_overrides(tmp))
+        _rd, rnd = first_round(cfg, bench_instructions(512, 2000, 300), dev)
+        rounds['he_full_grid'] = order_round_measure(
+            'the he_full_grid run\'s first round', rnd, smi)
+        del _rd, rnd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def long_round(n_long, dev, seed=5):
+    """round_order's arguments for a round of three windows in two
+    batches as K4 writes them (window by window, channel by channel,
+    starts unique and increasing within a channel, T 2^17, 494 rows):
+    window 1 holds ``n_long`` records or a few more, windows 0 and 2 a
+    few hundred each."""
+    import torch
+    rng = np.random.default_rng(seed)
+    T, C = 2 ** 17, 494
+    per = -(-n_long // C)
+
+    def window(n_ch, k):
+        st = np.sort(np.stack([rng.choice(T, k, replace=False)
+                               for _ in range(n_ch)]), axis=1).reshape(-1)
+        return np.repeat(np.arange(n_ch), k), st
+    rows = {0: window(100, 3), 1: window(C, per), 2: window(100, 2)}
+    parts = []
+    for batch in (np.array([0, 2]), np.array([1])):
+        meta = np.concatenate([np.stack(
+            [np.full(len(rows[int(w)][0]), bi), *rows[int(w)],
+             rng.integers(1, 111, len(rows[int(w)][0])),
+             rng.integers(1, 900, len(rows[int(w)][0])),
+             rng.integers(0, 9, len(rows[int(w)][0]))], axis=1)
+            for bi, w in enumerate(batch)]).astype(np.int32)
+        data = rng.integers(-2 ** 15, 2 ** 15, (len(meta), 110),
+                            dtype=np.int16)
+        parts.append((batch, torch.as_tensor(data, device=dev),
+                      torch.as_tensor(meta, device=dev)))
+    return dict(parts=parts, win_left=[10 ** 9, 2 * 10 ** 9, 3 * 10 ** 9],
+                n_samples=T, n_rows=C)
+
+
+def order_round_measure(label, rnd, smi):
+    """The round ordering on one more round (``rnd`` as first_round gives
+    it): perm, win and counts bitwise its plain version, its device time
+    and the library's (the stable sort of the packed keys alone) in the
+    same process, with the round's largest window (records) and largest
+    start, and the windows that take each of the kernel's paths (counting:
+    at most 4,096 records whose starts lie below 4,096; coarse: the other
+    windows of at most 4,096 records, their starts shifted into 4,096
+    bins; chunked: longer)."""
+    import torch
+    from wfsim_tpu_torch.pipeline.digitize import round_order, round_order_ref
+    kw = dict(n_samples=rnd['n_samples'], n_rows=rnd['n_rows'])
+    order = lambda: round_order(list(rnd['parts']),  # noqa: E731
+                                rnd['win_left'], **kw)
+    o = order()
+    ref = round_order_ref(list(rnd['parts']), rnd['win_left'], **kw)
+    err = max(max_diff(o[k], ref[k]) for k in ('perm', 'win', 'counts'))
+    if err:
+        raise AssertionError(f'round_order differs from its plain version '
+                             f'on {label} ({err})')
+    n, n_win = int(o['perm'].shape[0]), len(rnd['win_left'])
+    top = torch.full((n_win,), -1, dtype=torch.int64, device=o['win'].device)
+    top.scatter_reduce_(0, o['win'].to(torch.int64),
+                        torch.cat([m for _, _, m in rnd['parts']])[:, 2].to(
+                            torch.int64), 'amax')
+    cnt, top = ref['counts'].cpu().numpy(), top.cpu().numpy()
+    paths = dict(counting=int(((cnt > 0) & (cnt <= 4096) & (top < 4096)).sum()),
+                 coarse=int(((cnt <= 4096) & (top >= 4096)).sum()),
+                 chunked=int((cnt > 4096).sum()))
+    o_bytes = n * (12 + 8 + 4) + n_win * 16
+    ob_ms, ob_by = bound(o_bytes)
+    dev_ms, by_name = bounded_device_ms('round_order', order,
+                                        ('round_count', 'round_sort'), ob_ms)
+    key = ref['key']
+    m = dict(records=n, windows=n_win, max_window=int(cnt.max()),
+             max_start=int(top.max()), paths=paths, ms=cuda_ms(order),
+             device_ms=dev_ms, bound_ms=ob_ms, bound_by=ob_by,
+             library_ms=cuda_ms(lambda: torch.sort(key, stable=True),
+                                reps=10))
+    dev_s = ('not measured' if dev_ms is None else f'{dev_ms:.6f} ms '
+             + str({k[:60]: round(v, 6) for k, v in by_name.items()}))
+    print(f'[rows] round_order on {label}: {n} records in {n_win} windows '
+          f'(largest {m["max_window"]} records, largest start '
+          f'{m["max_start"]}; windows by path {paths}), bitwise the plain '
+          f'version: {m["ms"]:.4f} ms, device {dev_s}, library (stable sort '
+          f'of the packed keys) {m["library_ms"]:.4f} ms, bound '
+          f'{ob_ms:.6f} ms by {ob_by} ({smi})')
+    return m
+
+
+def round_windows(stats):
+    """Wrap the pipeline's round_records so that each round's batch
+    windows' record counts and largest starts are appended to ``stats``
+    (one read-back a batch: for a warm-up run, never a timed one);
+    returns a function that restores it."""
+    import torch
+    from wfsim_tpu_torch.pipeline import rawdata
+    orig = rawdata.round_records
+
+    def wrapped(parts, win_left, **kw):
+        for batch, _d, m in parts:
+            idx = m[:, 0].to(torch.int64)
+            top = torch.full((len(batch),), -1, dtype=torch.int32,
+                             device=m.device)
+            top.scatter_reduce_(0, idx, m[:, 2], 'amax')
+            stats.append((torch.bincount(idx, minlength=len(batch)).cpu()
+                          .numpy(), top.cpu().numpy()))
+        return orig(parts, win_left, **kw)
+    rawdata.round_records = wrapped
+
+    def restore():
+        rawdata.round_records = orig
+    return restore
+
+
+def window_summary(stats):
+    """Windows, the largest window's records, the largest start and the
+    windows of each path of round_order.cu (as order_round_measure) over
+    a run's ``round_windows`` stats."""
+    cnt = np.concatenate([c for c, _ in stats] or [np.zeros(0, np.int64)])
+    top = np.concatenate([t for _, t in stats] or [np.zeros(0, np.int32)])
+    return dict(windows=len(cnt), max_window=int(cnt.max(initial=0)),
+                max_start=int(top.max(initial=-1)),
+                counting=int(((cnt > 0) & (cnt <= 4096) & (top < 4096)).sum()),
+                coarse=int(((cnt <= 4096) & (top >= 4096)).sum()),
+                chunked=int((cnt > 4096).sum()))
 
 
 #: the ten configurations of a 512-event run (PERF.md §4), in the order
@@ -2664,7 +2905,14 @@ def config_runs(dev, smi, names=RUN_CONFIGS):
     try:
         for name in names:
             run = config_run(name, dev, tmp)
-            run()                                           # warm-up
+            stats = []
+            restore = round_windows(stats)
+            try:
+                run()                                       # warm-up
+            finally:
+                restore()
+            wsum = window_summary(stats)
+            print(f'[windows] {name}: round windows {wsum} ({smi})')
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
@@ -2673,7 +2921,8 @@ def config_runs(dev, smi, names=RUN_CONFIGS):
             wall = time.perf_counter() - t0
             res[name] = dict(wall_s=wall, ev_s=512 / wall, records=records,
                              peak_mib=torch.cuda.max_memory_allocated(dev)
-                             / 2 ** 20, rss_mib=rss_mib(), timers=diag)
+                             / 2 ** 20, rss_mib=rss_mib(), timers=diag,
+                             round_windows=wsum)
             print(f'[runs] {name}: {json.dumps(res[name])} ({smi})')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5568,13 +5817,21 @@ def main():
                  launches_f if m['shape'] == 'full' else launches, m)
         rows[-1].update(syncs=m['syncs'], records=m['records'],
                         in_window=m['in_window'])
-    for row, m in rtimes.items():
-        measured(row, 'pack_records.cu', 'wfsim_tpu/pipeline/rawdata.py:1785',
-                 list(ROUND_KERNELS), launches, m)
-        rows[-1].update({k: m[k] for k in (
-            'syncs', 'records', 'windows', 'library_call', 'library_calls',
-            'library_diff', 'sort_ms', 'round_records_ms', 'bound_rows_ms',
-            'copy', 'arena_base_rows')})
+    m = rtimes['round_order']
+    measured('round_order', 'round_order.cu',
+             'wfsim_tpu/pipeline/rawdata.py:1780', ['wfsim_round_order'],
+             launches, m)
+    rows[-1].update({k: m[k] for k in (
+        'syncs', 'records', 'windows', 'library_call', 'split',
+        'max_window', 'rounds')})
+    m = rtimes['record_rows']
+    measured('record_rows', 'pack_records.cu',
+             'wfsim_tpu/pipeline/rawdata.py:1785', ['wfsim_record_rows'],
+             launches, m)
+    rows[-1].update({k: m[k] for k in (
+        'syncs', 'records', 'windows', 'library_call', 'library_calls',
+        'library_diff', 'sort_ms', 'round_records_ms', 'bound_rows_ms',
+        'copy', 'arena_base_rows')})
     for row, m in atimes.items():
         if row.startswith('pmt_afterpulse'):
             measured(row, 'pmt_afterpulse.cu',

@@ -41,6 +41,8 @@ from .test_torch_s1_delays_redesign import (S1_DELAY_CASES, custom_case,
 from .test_torch_s1_times_redesign import CASES as S1_TIME_CASES
 from .test_torch_s1_times_redesign import MODELS as S1_TIME_MODELS
 from .test_torch_s1_times_redesign import s1_case
+from .test_torch_round_order import (ORDER_CASES, any_case,
+                                     long_round_case)
 from .test_torch_record_arena import (DT, ROW_CASES, SPLITS,
                                       digitized_rounds, photon_buffers,
                                       PULSE_STARTS, row_case, torch_parts)
@@ -224,6 +226,17 @@ def test_window_rows_full_grid_configs(dev, detector):
     (t, ch, g), pieces = arena(17, 16, C, 2048, 4600, dev)
     ph = window_rows_check(const, t, ch, g, pieces, 2048)
     assert ph['has'].shape == (16 * C,)
+
+
+@pytest.mark.parametrize('C', [1, 127, 1023])
+def test_window_rows_odd_channel_counts(setup, dev, C):
+    """An odd channel count: the place pass's staged (time, gain) pairs
+    start on an 8-byte boundary whatever C is."""
+    import dataclasses
+    c, params, const = setup
+    const = dataclasses.replace(const, n_tpc_pmts=C)
+    (t, ch, g), pieces = arena(C, 24, C, 2048, 9000, dev)
+    window_rows_check(const, t, ch, g, pieces, 2048)
 
 
 def test_window_rows_drops_channels_past_c(setup, dev):
@@ -1349,6 +1362,83 @@ def test_rounds_on_the_card_match_the_cpu(dev):
     for (_p, wa, ra), (_q, wb, rb) in zip(card, cpu):
         assert [w['win_left'] for w in wa] == [w['win_left'] for w in wb]
         assert [r.tobytes() for r in ra] == [r.tobytes() for r in rb]
+
+
+# ---------------------------------------------------------------------------
+# the round ordering (round_order.cu) on the cases of
+# tests/test_torch_round_order.py and tests/test_torch_record_arena.py
+
+
+def round_order_check(case, dev):
+    """round_order on the card: perm, win and counts bitwise the plain
+    version's on the card (the packed-key sort), one launch and no host
+    sync; round_records then bitwise the CPU's with one read-back a round
+    (the counts).  Returns the card's counts."""
+    from wfsim_tpu_torch.pipeline.digitize import (round_order,
+                                                   round_order_ref,
+                                                   round_records)
+    kw = dict(n_samples=case['n_samples'], n_rows=case['n_rows'])
+    k = _build.KERNELS['wfsim_round_order']
+    before = k.launches
+    n, o, lines = _syncs(round_order, torch_parts(case, dev),
+                         case['win_left'], **kw)
+    assert n == 0, lines
+    assert k.launches == before + 1
+    ref = round_order_ref(torch_parts(case, dev), case['win_left'], **kw)
+    for key in ('perm', 'win', 'counts'):
+        assert torch.equal(o[key], ref[key]), key
+    rows_k = _build.KERNELS['wfsim_record_rows']
+    before = rows_k.launches
+    n, (rows, counts), lines = _syncs(round_records, torch_parts(case, dev),
+                                      case['win_left'], dt=DT, **kw)
+    assert n == 1, lines
+    assert rows_k.launches == before + (len(rows) > 0)
+    rows_c, counts_c = round_records(torch_parts(case), case['win_left'],
+                                     dt=DT, **kw)
+    assert rows.cpu().numpy().tobytes() == rows_c.numpy().tobytes()
+    np.testing.assert_array_equal(counts, counts_c)
+    return counts
+
+
+@pytest.mark.parametrize('name', ORDER_CASES + ROW_CASES)
+def test_round_order_matches_twin(dev, name):
+    round_order_check(any_case(name), dev)
+
+
+def test_round_with_a_window_of_1e5_records(dev):
+    """A window of 100,282 records: 25 chunks of 4,096, each sorted and
+    ranked against the window's other records on a block of its own."""
+    counts = round_order_check(long_round_case(100_000), dev)
+    assert counts.tolist()[1] >= 100_000
+
+
+def test_round_order_checks(dev):
+    """The card's ordering takes each round window in exactly one batch,
+    and keys of (start, channel) in 32 bits; else it raises before a
+    launch."""
+    from wfsim_tpu_torch.pipeline.digitize import round_order
+    case = any_case('several batches')
+    kw = dict(n_samples=case['n_samples'], n_rows=case['n_rows'])
+    k = _build.KERNELS['wfsim_round_order']
+    before = k.launches
+    parts = torch_parts(case, dev)
+    parts[0] = (np.asarray(parts[0][0]) + 1, *parts[0][1:])
+    with pytest.raises(ValueError, match='once'):
+        round_order(parts, case['win_left'], **kw)
+    with pytest.raises(OverflowError, match='32 bits'):
+        round_order(torch_parts(case, dev), case['win_left'],
+                    n_samples=2 ** 23, n_rows=2 ** 10)
+    assert k.launches == before
+
+
+def test_empty_round(dev):
+    """A round of one window and no record: the ordering launches, the
+    rows kernel does not, counts [0], one read-back."""
+    case = long_round_case(100_000)
+    case['parts'] = [(np.array([0]), np.zeros((0, 110), np.int16),
+                      np.zeros((0, 6), np.int32))]
+    case['win_left'] = case['win_left'][:1]
+    assert round_order_check(case, dev).tolist() == [0]
 
 
 # ---------------------------------------------------------------------------

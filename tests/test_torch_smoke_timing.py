@@ -94,16 +94,30 @@ def test_below_bound(smoke):
 def test_bounded_device_ms_takes_a_session_again(smoke, monkeypatch, times,
                                                  want):
     """A profiler session that gives no time, or one below the row's
-    bound, is taken again (up to three sessions); only times below the
-    bound raise."""
+    bound, is taken again (up to three sessions), cold (the L2 flushed)
+    from the first time below the bound on; only times below the bound
+    raise."""
     left = list(times)
-    monkeypatch.setattr(smoke, 'device_ms', lambda fn, names=None: (
-        left.pop(0), {}))
+    colds = []
+
+    def fake(fn, names=None, cold=False):
+        colds.append(cold)
+        return left.pop(0), {}
+    monkeypatch.setattr(smoke, 'device_ms', fake)
     if want == 'raises':
         with pytest.raises(AssertionError, match='below its bound'):
             smoke.bounded_device_ms('row', None, NAMES, 0.005628)
-        return
-    assert smoke.bounded_device_ms('row', None, NAMES, 0.005628)[0] == want
+    else:
+        assert smoke.bounded_device_ms('row', None, NAMES,
+                                       0.005628)[0] == want
+    low = [t is not None and t < 0.005628 for t in times[:len(colds)]]
+    assert colds == [any(low[:i]) for i in range(len(colds))]
+
+
+def test_cold_session_needs_names(smoke):
+    """A cold session's flush is left out only by a names filter."""
+    with pytest.raises(ValueError, match='needs names'):
+        smoke.device_ms(lambda: None, cold=True)
 
 
 @pytest.mark.parametrize('intervals,want', [

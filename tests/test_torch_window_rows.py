@@ -12,14 +12,16 @@ Tolerances, per quantity:
   (an in-window sample holds baseline + ADC > 0, one outside it the ADC
   <= 0; no sample reaches 0 at these gains); the grid, ZLE intervals and
   records bitwise (as tests/test_torch_digitize.py, tie samples 0);
-- the emulation (the host plan, per segment counts, minima and maxima,
-  the window bases, the block scan over channels, each sub-tile's ranks
-  within a warp plus the counts of the warps before it) against the
+- the emulation (the host plan, per segment counts, minima and maxima, a
+  window of one segment taken at once, the chain of group, window and
+  batch scans for longer ones, each warp's run of its segment with its
+  offsets from a scan over the warps and the channels and its ranks
+  within 32-photon steps, the segment staged in row order) against the
   twin: every output exact, under the kernel's segment of 8,192 photons
-  and under short segments that cut windows into many;
+  and under short segments that cut windows into many groups;
 - the plan: every window's photons covered once, in order, by segments
-  of at most the segment length; a window without photons has one empty
-  segment;
+  of at most the segment length, in groups that stay inside a window; a
+  window without photons has one empty segment;
 - a channel at or past C is dropped, as channel -1 is, by the twin and
   the emulation alike (exact);
 - the pipeline hands each batch's host piece table to
@@ -37,12 +39,15 @@ from wfsim_tpu_torch import _build
 from wfsim_tpu_torch.config import default_config
 from wfsim_tpu_torch.models.params import build_constants
 from wfsim_tpu_torch.pipeline import digitize as dg
-from wfsim_tpu_torch.pipeline.digitize import (WINDOW_SEGMENT, window_photons,
-                                               window_photons_ref,
-                                               window_rows_plan)
+from wfsim_tpu_torch.pipeline.digitize import (
+    WINDOW_GROUP, WINDOW_SEGMENT, window_photons, window_photons_ref,
+    window_rows_plan)
 
-#: threads a block of the kernel (csrc/window_rows.cu kThreads)
-THREADS = 256
+#: threads, warps and photons a thread of a block of the kernel
+#: (csrc/window_rows.cu kThreads, kPer)
+THREADS = 512
+WARPS = THREADS // 32
+PER = 16
 
 WINDOW_CASES = ('pieces', 'ties', 'empty', 'skewed')
 #: the cases wfsim_tpu's gather_digitize runs too (one compile each)
@@ -108,31 +113,47 @@ def wrap32(x):
 
 def emulate_window_rows(const, t, ch, g, pieces, n_samples,
                         segment=WINDOW_SEGMENT):
-    """csrc/window_rows.cu in numpy: the host plan, the count pass (a
-    segment's per-channel counts, minima and maxima of t // dt, its kept
-    total) and the place pass (the window's base from the totals of the
-    segments before it, each channel's window total and its count in the
-    window's earlier segments, the block scan over channels, then each
-    sub-tile of 256 photons: a photon's slot is its channel's cursor plus
-    the count of its channel in the warps before its warp plus its rank
-    among the lower lanes of its warp); returns window_photons' dict as
-    numpy arrays."""
+    """csrc/window_rows.cu in numpy: the host plan (segments of
+    ``segment`` photons, grouped by WINDOW_GROUP within a window), the
+    count pass (a segment's per-channel counts, minima and maxima of
+    t // dt; a window of one segment takes its extents, row offsets and
+    total from them at once, a longer one through its chain of scans: the
+    last segment of a group turns the segments' counts into prefixes
+    within the group, the last group of the window the groups' into
+    prefixes within the window, with the extents and row offsets; the
+    last window the windows' totals into bases), then the place pass
+    (each warp a contiguous run of PER x 32 photons of its segment: its
+    channel counts, their prefix over the warps, the segment's channel
+    offsets, each photon's slot in the segment its channel's offset plus
+    the warps' before it plus its rank among the lower lanes of its
+    32-photon step; the slot's destination its channel's first for the
+    segment plus its place in the channel's run); returns
+    window_photons' dict as numpy arrays."""
     C, dt, T = const.n_tpc_pmts, const.sample_duration, n_samples
     left_pad = (const.samples_to_store_before
                 + const.samples_before_pulse_center + const.trigger_window)
     right_pad = (const.samples_to_store_after
                  + const.samples_after_pulse_center + const.trigger_window)
     B = pieces.shape[0]
+    G = WINDOW_GROUP
     n_out = int(pieces[:, :, 1].sum())
     pstart, plan = window_rows_plan(pieces, segment)
     n_seg = len(plan)
+    n_grp = int(plan[-1, 5] + -(-plan[-1, 2] // G))
     big = 2 ** 30
-    cnt = np.zeros((n_seg, C), np.int64)
-    mn = np.full((n_seg, C), big, np.int64)
-    mx = np.full((n_seg, C), -big, np.int64)
 
-    def photons(s):
-        w, _s0, _nw, j0, ln = plan[s]
+    def segment_of(s):
+        w, s0, nw, j0, ln, g0 = (int(x) for x in plan[s])
+        k = s - s0
+        gs0 = s0 + (k // G) * G
+        return dict(w=w, nw=nw, k=k, g=g0 + k // G, gs0=gs0,
+                    gn=min(G, s0 + nw - gs0), wg0=g0, wgn=-(-nw // G), j0=j0,
+                    len=ln)
+
+    def photons(sg):
+        # every piece of the window staged; a photon's piece the last
+        # whose start is <= its index in the window
+        w, j0, ln = sg['w'], sg['j0'], sg['len']
         j = j0 + np.arange(ln)
         pc = np.searchsorted(pstart[w], j, side='right') - 1
         a = pieces[w, pc, 0] + j - pstart[w, pc]
@@ -140,58 +161,99 @@ def emulate_window_rows(const, t, ch, g, pieces, n_samples,
         return (np.where((c >= 0) & (c < C), c, -1),
                 wrap32(t[a].astype(np.int64) + pieces[w, pc, 2]), g[a])
 
-    for s in range(n_seg):
-        c, tt, _g = photons(s)
-        k = c >= 0
-        np.add.at(cnt[s], c[k], 1)
-        np.minimum.at(mn[s], c[k], tt[k] // dt)
-        np.maximum.at(mx[s], c[k], tt[k] // dt)
-    seg_total = cnt.sum(axis=1)
+    def extents(w, lo, hi):
+        rows = w * C + np.arange(C)
+        has[rows] = hi >= lo
+        left[rows] = np.clip(wrap32(lo - left_pad), 0, T - 1)
+        right[rows] = np.clip(wrap32(hi + right_pad), 0, T - 1)
 
-    out_t = np.full(n_out, -1, np.int32)
-    out_g = np.full(n_out, np.nan, np.float32)
+    segs = [segment_of(s) for s in range(n_seg)]
+    sc = np.zeros((n_seg, C), np.int64)
+    smn = np.full((n_seg, C), big, np.int64)
+    smx = np.full((n_seg, C), -big, np.int64)
+    for s, sg in enumerate(segs):
+        c, tt, _g = photons(sg)
+        k = c >= 0
+        np.add.at(sc[s], c[k], 1)
+        np.minimum.at(smn[s], c[k], tt[k] // dt)
+        np.maximum.at(smx[s], c[k], tt[k] // dt)
     row_ptr = np.full(B * C + 1, -1, np.int64)
     left = np.full(B * C, -1, np.int64)
     right = np.full(B * C, -1, np.int64)
     has = np.zeros(B * C, bool)
-    total = int(seg_total.sum())
-    warp = np.arange(THREADS) // 32
-    for s in range(n_seg):
-        w, s0, nw, _j0, ln = plan[s]
-        k = s - s0
-        before = int(seg_total[:s0].sum())
-        tot = cnt[s0:s0 + nw].sum(axis=0)
-        pre = cnt[s0:s0 + k].sum(axis=0)
-        off = before + np.cumsum(tot) - tot
-        cursor = off + pre
-        if k == 0:
-            rows = w * C + np.arange(C)
-            lo, hi = mn[s0:s0 + nw].min(axis=0), mx[s0:s0 + nw].max(axis=0)
-            row_ptr[rows] = off
-            has[rows] = hi >= lo
-            left[rows] = np.clip(wrap32(lo - left_pad), 0, T - 1)
-            right[rows] = np.clip(wrap32(hi + right_pad), 0, T - 1)
-            if w == B - 1:
-                row_ptr[B * C] = before + tot.sum()
-        c_all, t_all, g_all = photons(s)
-        # a tile of the kernel is sub-tiles of THREADS consecutive
-        # photons, taken in order
-        for base in range(0, ln, THREADS):
-            c = np.full(THREADS, -1)
-            n = min(THREADS, ln - base)
-            c[:n] = c_all[base:base + n]
-            same = c[:, None] == c[None, :]
-            earlier = np.arange(THREADS)[None, :] < np.arange(THREADS)[:, None]
-            in_warp = warp[:, None] == warp[None, :]
-            rank = (same & earlier & in_warp).sum(axis=1)
-            warps_before = (same & (warp[None, :] < warp[:, None])).sum(axis=1)
-            for i in np.nonzero(c >= 0)[0]:
-                pos = cursor[c[i]] + warps_before[i] + rank[i]
-                out_t[pos] = t_all[base + i]
-                out_g[pos] = g_all[base + i]
-            np.add.at(cursor, c[c >= 0], 1)
-    out_t[total:] = 0
-    out_g[total:] = 0.0
+    rowoff = np.zeros((B, C), np.int64)
+    wtot = np.zeros(B, np.int64)
+    gc = np.zeros((n_grp, C), np.int64)
+    gmn = np.full((n_grp, C), big, np.int64)
+    gmx = np.full((n_grp, C), -big, np.int64)
+    # windows of one segment: at once
+    for s, sg in enumerate(segs):
+        if sg['nw'] == 1:
+            extents(sg['w'], smn[s], smx[s])
+            wtot[sg['w']] = sc[s].sum()
+    # the last segment of each group of a longer window
+    for sg in segs:
+        if sg['nw'] == 1 or sg['k'] % G:
+            continue
+        rng = slice(sg['gs0'], sg['gs0'] + sg['gn'])
+        v = sc[rng].copy()
+        sc[rng] = np.cumsum(v, axis=0) - v
+        gc[sg['g']] = v.sum(axis=0)
+        gmn[sg['g']] = smn[rng].min(axis=0)
+        gmx[sg['g']] = smx[rng].max(axis=0)
+    # the last group of each longer window
+    for sg in segs:
+        if sg['nw'] == 1 or sg['k']:
+            continue
+        w, rng = sg['w'], slice(sg['wg0'], sg['wg0'] + sg['wgn'])
+        v = gc[rng].copy()
+        gc[rng] = np.cumsum(v, axis=0) - v
+        tot = v.sum(axis=0)
+        extents(w, gmn[rng].min(axis=0), gmx[rng].max(axis=0))
+        rowoff[w] = np.cumsum(tot) - tot
+        wtot[w] = tot.sum()
+    # the last window
+    wbase = np.concatenate([[0], np.cumsum(wtot)])
+    kept = int(wbase[B])
+
+    out_t = np.full(n_out, -1, np.int32)
+    out_g = np.full(n_out, np.nan, np.float32)
+    run = PER * 32
+    for s, sg in enumerate(segs):
+        w = sg['w']
+        c_all, t_all, g_all = photons(sg)
+        ln = sg['len']
+        cnt = np.zeros((WARPS, C), np.int64)
+        for k in range(WARPS):
+            c = c_all[k * run:min(ln, (k + 1) * run)]
+            np.add.at(cnt[k], c[c >= 0], 1)
+        tot = cnt.sum(axis=0)
+        first = np.cumsum(tot) - tot
+        cur = np.cumsum(cnt, axis=0) - cnt
+        if sg['nw'] == 1:
+            delta = np.full(C, wbase[w])
+            if sg['k'] == 0:
+                row_ptr[w * C:(w + 1) * C] = wbase[w] + first
+        else:
+            delta = wbase[w] + rowoff[w] + gc[sg['g']] + sc[s] - first
+            if sg['k'] == 0:
+                row_ptr[w * C:(w + 1) * C] = wbase[w] + rowoff[w]
+        if sg['k'] == 0 and w == B - 1:
+            row_ptr[B * C] = kept
+        for k in range(WARPS):
+            for base in range(k * run, min(ln, (k + 1) * run), 32):
+                c = np.full(32, -1)
+                c[:min(32, ln - base)] = c_all[base:min(base + 32, ln)]
+                same = c[:, None] == c[None, :]
+                lower = np.arange(32)[None, :] < np.arange(32)[:, None]
+                rank = (same & lower).sum(axis=1)
+                for i in np.nonzero(c >= 0)[0]:
+                    slot = first[c[i]] + cur[k, c[i]] + rank[i]
+                    out_t[delta[c[i]] + slot] = t_all[base + i]
+                    out_g[delta[c[i]] + slot] = g_all[base + i]
+                np.add.at(cur[k], c[c >= 0], 1)
+    out_t[kept:] = 0
+    out_g[kept:] = 0.0
     return dict(t=out_t, gain=out_g, row_ptr=row_ptr, ch_left=left,
                 ch_right=right, has=has)
 
@@ -300,12 +362,20 @@ def test_twin_matches_wfsim_tpu(const, jax_setups, name):
 
 @pytest.mark.parametrize('name', WINDOW_CASES)
 def test_plan_covers_each_window_once(name):
+    """Each window's segments are consecutive, cover its photons once in
+    order with at most ``segment`` each (one empty segment for a window
+    without photons), and their groups of WINDOW_GROUP stay inside the
+    window."""
     pieces = window_case(name)[3]
+    B = len(pieces)
     for segment in (WINDOW_SEGMENT, 100, 1):
         pstart, plan = window_rows_plan(pieces, segment)
         n_win = pieces[:, :, 1].sum(axis=1)
-        assert np.array_equal(pstart[:, 0], np.zeros(len(pieces)))
-        for w in range(len(pieces)):
+        assert np.array_equal(pstart[:, 0], np.zeros(B))
+        assert np.array_equal(pstart[:, 1:],
+                              np.cumsum(pieces[:, :-1, 1], axis=1))
+        g_next = 0
+        for w in range(B):
             mine = plan[plan[:, 0] == w]
             s0, nw = mine[0, 1], mine[0, 2]
             assert len(mine) == nw and (mine[:, 1] == s0).all()
@@ -316,6 +386,8 @@ def test_plan_covers_each_window_once(name):
                 [[0], np.cumsum(mine[:-1, 4])]))
             assert mine[:, 4].sum() == n_win[w]
             assert n_win[w] or (nw == 1 and mine[0, 4] == 0)
+            assert (mine[:, 5] == g_next).all()
+            g_next += -(-nw // WINDOW_GROUP)
 
 
 def test_empty_batch(const):
@@ -418,3 +490,6 @@ def test_emulated_block_is_the_kernels():
     src = (Path(dg.__file__).resolve().parents[1] / 'csrc'
            / 'window_rows.cu').read_text()
     assert f'constexpr int kThreads = {THREADS};' in src
+    assert f'constexpr int kPer = {PER};' in src
+    assert f'constexpr int kGroup = {WINDOW_GROUP};' in src
+    assert THREADS * PER == WINDOW_SEGMENT

@@ -39,17 +39,30 @@
 // Replaces: the per-round record fill of wfsim_tpu/pipeline/rawdata.py:1785-1818
 // (_collect_digitize_work: one np.lexsort((C, S, W)), then every record's
 // header and samples written into its sorted slot of the host arena; a
-// host loop there, not a TPU kernel).  Here the (window, start, channel)
-// order is one torch.sort of packed keys on the card, and this kernel
-// writes output row i from record perm[i]: the 244-byte row of
-// raw_record_dtype(110) as 61 32-bit words, [time (int64), length,
-// dt | channel << 16, pulse_length, record_i | baseline << 16, the 110
-// samples as 55 pairs], time = (win_left[win[r]] + start) * dt and
-// baseline 0.  A warp a row: lane q writes word q and q + 32, so a row's
-// stores are one contiguous run and its sample loads one contiguous run
-// of the source row (rows 4-byte aligned: 220 and 244 are multiples of
-// 4).  Bound by bytes: the records' samples and meta read once, the rows
-// written once.  The output is bitwise record_rows_ref's.
+// host loop there, not a TPU kernel).  The order comes from
+// round_order.cu; this kernel writes output row i from record perm[i]:
+// the 244-byte row of raw_record_dtype(110) as 61 32-bit words, [time
+// (int64), length, dt | channel << 16, pulse_length, record_i | baseline
+// << 16, the 110 samples as 55 pairs], time = (win_left[win[r]] + start)
+// * dt and baseline 0.  The records stay in their digitize batches'
+// (rec_data, rec_meta) pairs, read through a table of the batches'
+// pointers and first records: the round's samples are not copied into
+// one tensor first.
+//
+// What bounds it on the H100: bytes.  The records' samples and meta, the
+// window and the permutation read once, the rows written once.  The first
+// design (a warp a row: perm, then the source row, then win and win_left
+// in a chain of dependent loads, two 4-byte words a lane) kept too few
+// bytes in flight and ran at 45 % of that bound (NVIDIA H100 80GB HBM3,
+// 700.00 W).  Here a block takes a
+// tile of kTileRows consecutive output rows: its threads load the tile's
+// perm entries at once (coalesced) and find each record's batch in a
+// shared copy of the table; then every thread loads its share of the
+// tile's samples (kDataLoads independent 4-byte loads, all in flight
+// before the first store) while the tile's headers are built beside them;
+// the tile, staged in shared memory, is written with 16-byte stores (4
+// rows are 976 bytes, 61 x 16, and a tile starts at a multiple of 4 rows).
+// The output is bitwise record_rows_ref's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -203,40 +216,104 @@ constexpr int kRowWords = 61;     // raw_record_dtype(110).itemsize / 4
 constexpr int kHeadWords = 6;     // the row's header before its samples
 static_assert(kHeadWords + kSpr / 2 == kRowWords, "raw_record row layout");
 
-__global__ void record_rows_kernel(
-    const short* __restrict__ data, const int* __restrict__ meta,
-    const int* __restrict__ win, const long long* __restrict__ win_left,
-    const long long* __restrict__ perm, int n, int dt,
-    unsigned* __restrict__ out) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= n) return;
-  const int lane = threadIdx.x & 31;
-  const long long src = perm[row];
-  const unsigned* d = reinterpret_cast<const unsigned*>(data) + src * (kSpr / 2);
-  const int* m = meta + src * kMetaWords;
-  unsigned* o = out + static_cast<long long>(row) * kRowWords;
-  for (int q = lane; q < kRowWords; q += 32) {
-    unsigned v;
-    if (q >= kHeadWords) {
-      v = __ldg(d + q - kHeadWords);
-    } else if (q < 2) {
-      const long long t =
-          (__ldg(win_left + __ldg(win + src)) + __ldg(m + 2)) *
-          static_cast<long long>(dt);
-      v = q == 0 ? static_cast<unsigned>(t)
-                 : static_cast<unsigned>(static_cast<unsigned long long>(t) >> 32);
-    } else if (q == 2) {
-      v = static_cast<unsigned>(__ldg(m + 3));                      // length
-    } else if (q == 3) {
-      v = static_cast<unsigned short>(dt)                           // dt
-          | static_cast<unsigned>(static_cast<unsigned short>(__ldg(m + 1))) << 16;
-    } else if (q == 4) {
-      v = static_cast<unsigned>(__ldg(m + 4));                      // pulse_length
-    } else {
-      v = static_cast<unsigned short>(__ldg(m + 5));                // record_i, baseline 0
-    }
-    o[q] = v;
+constexpr int kTileRows = 32;           // output rows a block of K4r
+constexpr int kRowThreads = 256;
+constexpr int kDataWords = kSpr / 2;     // 55 sample pairs a row
+constexpr int kDataLoads =
+    (kTileRows * kDataWords + kRowThreads - 1) / kRowThreads;
+constexpr int kStagedBatches = 64;       // batches whose table is staged
+static_assert(kTileRows % 4 == 0, "tiles of whole 16-byte groups of rows");
+
+// the batch of record g: the last whose first record is <= g
+__device__ __forceinline__ int batch_of(const long long* first, int n_batch,
+                                        long long g) {
+  int lo = 0, hi = n_batch;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first[mid] <= g) lo = mid; else hi = mid;
   }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+record_rows_kernel(const long long* __restrict__ table, int n_batch,
+                   const int* __restrict__ win,
+                   const long long* __restrict__ win_left,
+                   const long long* __restrict__ perm, int n, int dt,
+                   unsigned* __restrict__ out) {
+  __shared__ __align__(16) unsigned tile[kTileRows * kRowWords];
+  __shared__ const unsigned* src[kTileRows];
+  __shared__ const int* src_meta[kTileRows];
+  __shared__ long long rec[kTileRows];
+  __shared__ long long first[kStagedBatches + 1];
+  // table: (n_batch + 1) first records, then each batch's rec_data and
+  // rec_meta pointers
+  const long long* tfirst = table;
+  const long long* tdata = table + n_batch + 1;
+  const long long* tmeta = tdata + n_batch;
+  const bool staged = n_batch <= kStagedBatches;
+  if (staged)
+    for (int i = threadIdx.x; i <= n_batch; i += kRowThreads)
+      first[i] = __ldg(tfirst + i);
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const int nr = static_cast<int>(min(static_cast<long long>(kTileRows),
+                                      n - row0));
+  __syncthreads();
+  if (threadIdx.x < nr) {
+    const long long g = __ldg(perm + row0 + threadIdx.x);
+    const int j = staged ? batch_of(first, n_batch, g)
+                         : batch_of(tfirst, n_batch, g);
+    const long long loc = g - (staged ? first[j] : __ldg(tfirst + j));
+    src[threadIdx.x] = reinterpret_cast<const unsigned*>(__ldg(tdata + j)) +
+                       loc * kDataWords;
+    src_meta[threadIdx.x] =
+        reinterpret_cast<const int*>(__ldg(tmeta + j)) + loc * kMetaWords;
+    rec[threadIdx.x] = g;
+  }
+  __syncthreads();
+  // the samples: kDataLoads words a thread, all loaded before any is
+  // staged
+  unsigned v[kDataLoads];
+#pragma unroll
+  for (int u = 0; u < kDataLoads; ++u) {
+    const int i = threadIdx.x + u * kRowThreads;
+    const int r = i / kDataWords;
+    v[u] = r < nr ? __ldg(src[r] + (i - r * kDataWords)) : 0u;
+  }
+  // the headers, a thread a row
+  if (threadIdx.x < nr) {
+    const int* m = src_meta[threadIdx.x];
+    const int2 m01 = __ldg(reinterpret_cast<const int2*>(m));
+    const int2 m23 = __ldg(reinterpret_cast<const int2*>(m + 2));
+    const int2 m45 = __ldg(reinterpret_cast<const int2*>(m + 4));
+    const long long t =
+        (__ldg(win_left + __ldg(win + rec[threadIdx.x])) + m23.x) *
+        static_cast<long long>(dt);
+    unsigned* h = tile + threadIdx.x * kRowWords;
+    h[0] = static_cast<unsigned>(t);
+    h[1] = static_cast<unsigned>(static_cast<unsigned long long>(t) >> 32);
+    h[2] = static_cast<unsigned>(m23.y);                      // length
+    h[3] = static_cast<unsigned short>(dt)                    // dt
+           | static_cast<unsigned>(static_cast<unsigned short>(m01.y)) << 16;
+    h[4] = static_cast<unsigned>(m45.x);                      // pulse_length
+    h[5] = static_cast<unsigned short>(m45.y);  // record_i, baseline 0
+  }
+#pragma unroll
+  for (int u = 0; u < kDataLoads; ++u) {
+    const int i = threadIdx.x + u * kRowThreads;
+    const int r = i / kDataWords;
+    if (r < nr) tile[r * kRowWords + kHeadWords + (i - r * kDataWords)] = v[u];
+  }
+  __syncthreads();
+  // the tile's rows: 16-byte stores over whole groups of 4 rows, 4-byte
+  // stores for a last partial group
+  unsigned* o = out + row0 * kRowWords;
+  const int words = nr * kRowWords;
+  const int vec = (nr / 4) * kRowWords;    // 4 rows: kRowWords uint4
+  for (int i = threadIdx.x; i < vec; i += kRowThreads)
+    reinterpret_cast<uint4*>(o)[i] = reinterpret_cast<const uint4*>(tile)[i];
+  for (int i = 4 * vec + threadIdx.x; i < words; i += kRowThreads)
+    o[i] = tile[i];
 }
 
 int blocks_for(int n_rows) {
@@ -276,16 +353,18 @@ extern "C" int wfsim_pack_records(
   return static_cast<int>(cudaGetLastError());
 }
 
+// table: int64 on the card, the (n_batch + 1) first records of the
+// batches whose (rec_data, rec_meta) hold the round's records one after
+// another (the last entry n), then their n_batch rec_data pointers and
+// n_batch rec_meta pointers; out 16-byte aligned.
 extern "C" int wfsim_record_rows(
-    const void* data, const void* meta, const void* win,
-    const void* win_left, const void* perm, int n, int dt, void* out,
-    void* stream) {
-  if (n <= 0 || (reinterpret_cast<uintptr_t>(data) & 3) ||
-      (reinterpret_cast<uintptr_t>(out) & 3))
+    const void* table, int n_batch, const void* win, const void* win_left,
+    const void* perm, int n, int dt, void* out, void* stream) {
+  if (n <= 0 || n_batch <= 0 || (reinterpret_cast<uintptr_t>(out) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  record_rows_kernel<<<blocks_for(n), 32 * kWarpsPerBlock, 0,
+  record_rows_kernel<<<(n + kTileRows - 1) / kTileRows, kRowThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const short*>(data), static_cast<const int*>(meta),
+      static_cast<const long long*>(table), n_batch,
       static_cast<const int*>(win), static_cast<const long long*>(win_left),
       static_cast<const long long*>(perm), n, dt,
       static_cast<unsigned*>(out));

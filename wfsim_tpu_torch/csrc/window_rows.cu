@@ -15,52 +15,60 @@
 //
 // What bounds it on the H100: bytes.  Each photon's channel, time and
 // gain are read once and its time and gain written once (~20 bytes a
-// photon), the piece table and the per-row arrays besides: a few
-// microseconds at the main path's sizes, under the cost of a launch.  The
-// work is latency: two passes over the photons whose placement is stable.
+// photon), the piece table and the per-row arrays besides: 0.5-6 us at
+// 3.35 TB/s at the main path's sizes, under the cost of a launch.  The
+// work is latency: a stable placement over a batch that the host does not
+// size, so the design counts dependent round trips to device memory.  The
+// first design (a block a segment of up to 8,192 photons, each photon's
+// piece by a binary search of dependent loads, a device-memory round trip
+// and two barriers a 256-photon sub-tile, every block summing the counts
+// of all segments before it) took 12-66x its bound on NVIDIA H100 80GB
+// HBM3 at 700.00 W.  This one:
 //
-// The host cuts every window's photons (its pieces' photons one after
-// another, in table order) into segments of at most WINDOW_SEGMENT
-// photons (pipeline/digitize.py; at least one segment a window, empty for
-// a window without photons) and
-// hands over the plan [window, first segment of the window, segments of
-// the window, first photon, length] per segment.  A block a segment, two
-// launches:
+// - a block takes a segment of up to kSeg = 8,192 of a window's photons
+//   (the host's plan; at least one segment a window) and holds them in
+//   registers, kPer a thread, loaded in one round trip after the
+//   segment's pieces are staged in shared memory (each photon's piece a
+//   search of those few);
+// - a window of one segment (the default run's largest batch has none
+//   longer than 4,709 photons) needs no table: its block has the
+//   window's counts, extents and row offsets;
+//   a longer window's segments write per-channel counts, minima and
+//   maxima, and "last block done" scans turn them into bases, linear in
+//   the segments: the last segment of a group of G = 16 scans the group,
+//   the last group of a window scans the groups (extents, row offsets);
+//   the last window of the batch scans the windows' totals into bases;
+// - the place pass counts each warp's run of the segment by channel
+//   (shared atomics, from registers), scans the warps and the channels in
+//   shared memory into each warp's cursors, ranks each photon among the
+//   lower lanes of its step (the lanes of its channel from eleven
+//   ballots) and stages the segment's time, gain and destination in row
+//   order in shared memory; the segment is then written out with
+//   neighbouring threads on neighbouring addresses (one contiguous run
+//   for a window of one segment, a run a channel otherwise);
+// - a segment that lies inside one piece (the common case) finds its
+//   photons' arena indices by one add.
 //
-// 1. count: the block's photons, kPerThread a thread a tile of kTile, each
-//    photon's piece by a binary search of the window's piece starts, add
-//    to the segment's per-channel count, min and max of t // dt in shared
-//    memory (integer atomics: order-free); the segment's (C,) counts,
-//    minima and maxima and its kept total go to the scratch;
-// 2. place: the window's base is the sum of the kept totals of the
-//    segments before the window's first; each channel's total over the
-//    window's segments and its count in the segments before this one give,
-//    after a block scan over the channels, where this segment's photons of
-//    each channel start.  The window's first segment writes the rows'
-//    row_ptr and extents (min and max over the window's segments).  Then
-//    the photons again in arena order, a tile at a time: within a warp a
-//    photon's rank among the photons of its channel is the count of lower
-//    lanes with the same channel (__match_any_sync), a warp adds the
-//    counts of the warps before it (a (warps, C) table in shared memory),
-//    and each channel's cursor moves by the tile's count.  So each row
-//    holds its photons in arena order: bitwise window_photons_ref.
-//
-// t and gain have one slot a photon of the table (the host's total): the
-// kept photons fill [0, row_ptr[B * C]) and the rest is zeroed, so nothing
-// is read back.  Photons with a channel outside [0, C) are dropped, as
-// window_photons_ref drops them.
+// Two launches, no read-back.  So each row holds its photons in arena
+// order: bitwise window_photons_ref.  t and gain have one slot a photon of
+// the table (the host's total): the kept photons fill [0, row_ptr[B * C])
+// and the rest is zeroed.  Photons with a channel outside [0, C) are
+// dropped, as window_photons_ref drops them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 4;                   // photons a thread a tile
-constexpr int kTile = kThreads * kPerThread;
+constexpr int kPer = 16;                        // photons a thread
+constexpr int kSeg = kThreads * kPer;           // photons a segment at most
 constexpr int kMaxChannels = 1024;
 constexpr int kChPerThread = kMaxChannels / kThreads;
-constexpr int kPlan = 5;                        // words a segment's plan
+constexpr int kGroup = 16;                      // segments a group
+constexpr int kScanLoads = 8;                   // scan rows in flight
+constexpr int kStage = 256;                     // pieces staged a block
+constexpr int kPlan = 6;                        // words a segment's plan
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -70,11 +78,27 @@ struct Batch {
   const float* gain;
   const long long* pieces;    // (B, P, 3) [arena_lo, count, t_offset]
   const long long* pstart;    // (B, P) each piece's first photon in its window
-  const long long* plan;      // (n_seg, kPlan)
+  const long long* plan;      // (n_seg, kPlan) see Segment
+  int n_win;                  // B
   int n_pieces;               // P
   int n_seg;
+  int n_grp;
   int n_ch;                   // C
   int dt;
+};
+
+// the per-segment, per-group and per-window tables (written before read;
+// the segment and group tables only for windows of more than one segment)
+struct Tables {
+  int* sc;      // (n_seg, C) a segment's counts, then their prefix in the group
+  int* smn;     // (n_seg, C) a segment's minima of t // dt
+  int* smx;     // (n_seg, C) and maxima
+  int* gc;      // (n_grp, C) a group's totals, then their prefix in the window
+  int* gmn;     // (n_grp, C)
+  int* gmx;     // (n_grp, C)
+  int* rowoff;  // (B, C) each row's first slot within its window
+  int* wtot;    // (B,) each window's kept photons
+  int* wbase;   // (B + 1,) each window's first slot; wbase[B] the kept total
 };
 
 // int32 add and subtract that wrap modulo 2^32, as torch's do
@@ -95,24 +119,6 @@ __device__ __forceinline__ int floor_div(int t, int dt) {
   return (t % dt < 0) ? q - 1 : q;
 }
 
-// photon j of window w (j below the window's total): its arena index and
-// its piece's t_offset.  The piece is the last whose start is <= j: pieces
-// without photons share their start with the next piece, so it holds j.
-__device__ __forceinline__ long long arena_index(const Batch& b, int w,
-                                                 long long j,
-                                                 long long& toff) {
-  const long long* ps = b.pstart + static_cast<long long>(w) * b.n_pieces;
-  int lo = 0, hi = b.n_pieces;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(ps + mid) <= j) lo = mid; else hi = mid;
-  }
-  const long long* pc =
-      b.pieces + (static_cast<long long>(w) * b.n_pieces + lo) * 3;
-  toff = __ldg(pc + 2);
-  return __ldg(pc) + (j - __ldg(ps + lo));
-}
-
 // int64 arena time plus t_offset, cast to int32 (wrapping, as the twin's
 // .to(torch.int32))
 __device__ __forceinline__ int shifted_time(int t, long long toff) {
@@ -120,8 +126,12 @@ __device__ __forceinline__ int shifted_time(int t, long long toff) {
       static_cast<unsigned long long>(static_cast<long long>(t) + toff)));
 }
 
+// a block's segment, from the host's plan [window, its first segment, its
+// segments, first photon, photons, its first group]: index k in the
+// window, group g (first segment g_s0, segments g_n), the window's groups
+// (first w_g0, count w_gn)
 struct Segment {
-  int w, s0, nw, len;
+  int w, s0, nw, k, g, g_s0, g_n, w_g0, w_gn, len;
   long long j0;
 };
 
@@ -133,32 +143,151 @@ __device__ __forceinline__ Segment segment_of(const Batch& b, int s) {
   g.nw = static_cast<int>(__ldg(p + 2));
   g.j0 = __ldg(p + 3);
   g.len = static_cast<int>(__ldg(p + 4));
+  g.w_g0 = static_cast<int>(__ldg(p + 5));
+  g.k = s - g.s0;
+  g.g = g.w_g0 + g.k / kGroup;
+  g.g_s0 = g.s0 + (g.k / kGroup) * kGroup;
+  g.g_n = min(kGroup, g.s0 + g.nw - g.g_s0);
+  g.w_gn = (g.nw + kGroup - 1) / kGroup;
   return g;
 }
 
-// the sums of a and c over the block, in every thread
-__device__ __forceinline__ void block_sum2(int& a, int& c, int* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(kFull, a, o);
-    c += __shfl_xor_sync(kFull, c, o);
+// The pieces that hold the segment's photons, staged once a block: every
+// piece of the window where it has at most kStage (their starts, arena_lo
+// - start and t_offset); else the window's starts are searched in device
+// memory.  A photon's piece is the last whose start is <= its index in
+// the window (pieces without photons share their start with the next).
+struct Pieces {
+  long long start[kStage];
+  long long delta[kStage];
+  long long toff[kStage];
+  // the segment inside one piece (the common case): its arena_lo - start
+  // and t_offset, so that a photon's index is one add
+  long long one_delta, one_toff;
+  int one;
+};
+
+// photon j of the segment's window: its arena index and its piece's
+// t_offset
+__device__ __forceinline__ long long arena_index(const Batch& b,
+                                                 const Segment& g,
+                                                 const Pieces& sp, long long j,
+                                                 long long& toff) {
+  if (b.n_pieces <= kStage) {
+    int lo = 0, hi = b.n_pieces;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (sp.start[mid] <= j) lo = mid; else hi = mid;
+    }
+    toff = sp.toff[lo];
+    return sp.delta[lo] + j;
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    red[warp] = a;
-    red[kWarps + warp] = c;
+  const long long* ps = b.pstart + static_cast<long long>(g.w) * b.n_pieces;
+  int lo = 0, hi = b.n_pieces;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(ps + mid) <= j) lo = mid; else hi = mid;
+  }
+  const long long* pc =
+      b.pieces + (static_cast<long long>(g.w) * b.n_pieces + lo) * 3;
+  toff = __ldg(pc + 2);
+  return __ldg(pc) + (j - __ldg(ps + lo));
+}
+
+__device__ void stage_pieces(const Batch& b, const Segment& g, Pieces& sp) {
+  // a piece start strictly inside the segment: more than one piece
+  int inside = b.n_pieces > kStage;
+  if (b.n_pieces <= kStage) {
+    const long long row = static_cast<long long>(g.w) * b.n_pieces;
+    for (int i = threadIdx.x; i < b.n_pieces; i += kThreads) {
+      const long long* pc = b.pieces + (row + i) * 3;
+      const long long st = __ldg(b.pstart + row + i);
+      sp.start[i] = st;
+      sp.delta[i] = __ldg(pc) - st;
+      sp.toff[i] = __ldg(pc + 2);
+      inside |= st > g.j0 && st < g.j0 + g.len;
+    }
+  }
+  inside = __syncthreads_or(inside);
+  if (threadIdx.x == 0) {
+    sp.one = !inside && g.len > 0;
+    if (sp.one) {
+      long long toff;
+      sp.one_delta = arena_index(b, g, sp, g.j0, toff) - g.j0;
+      sp.one_toff = toff;
+    }
   }
   __syncthreads();
-  a = 0;
-  c = 0;
-  for (int i = 0; i < kWarps; ++i) {
-    a += red[i];
-    c += red[kWarps + i];
+}
+
+// the segment's photons of this thread (slots q, see slot): channel (-1
+// past the segment), time and, with kGain, gain; loads all issued before
+// any is used
+template <bool kGain>
+__device__ __forceinline__ void load_photons(const Batch& b, const Segment& g,
+                                             const Pieces& sp, int* chv,
+                                             int* tv, float* gv);
+
+// the segment's photon of thread slot q: index in the segment (warp w
+// takes the contiguous run [w * 32 kPer, (w + 1) * 32 kPer), step q its
+// photons w * 32 kPer + 32 q + lane)
+__device__ __forceinline__ int slot(int q) {
+  return (threadIdx.x >> 5) * (32 * kPer) + 32 * q + (threadIdx.x & 31);
+}
+
+template <bool kGain>
+__device__ __forceinline__ void load_photons(const Batch& b, const Segment& g,
+                                             const Pieces& sp, int* chv,
+                                             int* tv, float* gv) {
+  if (sp.one) {
+    const long long a0 = sp.one_delta + g.j0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int i = min(slot(q), g.len - 1);
+      chv[q] = __ldg(b.ch + a0 + i);
+      tv[q] = __ldg(b.t + a0 + i);
+      if (kGain) gv[q] = __ldg(b.gain + a0 + i);
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      if (slot(q) >= g.len) chv[q] = -1;
+      tv[q] = shifted_time(tv[q], sp.one_toff);
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = slot(q);
+    chv[q] = -1;
+    tv[q] = 0;
+    if (kGain) gv[q] = 0.0f;
+    if (i < g.len) {
+      long long toff;
+      const long long a = arena_index(b, g, sp, g.j0 + i, toff);
+      chv[q] = __ldg(b.ch + a);
+      tv[q] = shifted_time(__ldg(b.t + a), toff);
+      if (kGain) gv[q] = __ldg(b.gain + a);
+    }
   }
 }
 
-// the sum of v over the threads before this one
-__device__ __forceinline__ int block_exclusive_scan(int v, int* red) {
+// the lanes of the warp whose channel equals this lane's (-1 alike), as
+// __match_any_sync(kFull, c) gives them, from one ballot a bit of the
+// channel (11 bits: channels below 1,024 and -1)
+__device__ __forceinline__ unsigned lanes_alike(int c) {
+  unsigned same = kFull;
+#pragma unroll
+  for (int bit = 0; bit < 11; ++bit) {
+    const bool on = (c >> bit) & 1;
+    const unsigned m = __ballot_sync(kFull, on);
+    same &= on ? m : ~m;
+  }
+  return same;
+}
+
+// the sum of v over the threads before this one, and the block's total
+__device__ __forceinline__ int block_exclusive_scan(int v, int& total,
+                                                    int* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int incl = v;
   for (int o = 1; o < 32; o <<= 1) {
@@ -169,16 +298,108 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* red) {
   if (lane == 31) red[warp] = incl;
   __syncthreads();
   int before = 0;
-  for (int i = 0; i < warp; ++i) before += red[i];
+  total = 0;
+  for (int i = 0; i < kWarps; ++i) {
+    const int r = red[i];
+    if (i < warp) before += r;
+    total += r;
+  }
   return before + incl - v;
 }
 
+// cnt[c] -> its exclusive prefix over the channels (thread t takes the
+// channels t * per ..); returns the block's total in every thread
+__device__ int channel_scan(int* cnt, int C, int* red) {
+  const int per = (C + kThreads - 1) / kThreads;
+  int v[kChPerThread];
+  int mine = 0;
+#pragma unroll
+  for (int u = 0; u < kChPerThread; ++u) {
+    const int c = threadIdx.x * per + u;
+    v[u] = (u < per && c < C) ? cnt[c] : 0;
+    mine += v[u];
+  }
+  int total;
+  int off = block_exclusive_scan(mine, total, red);
+#pragma unroll
+  for (int u = 0; u < kChPerThread; ++u) {
+    const int c = threadIdx.x * per + u;
+    if (u < per && c < C) cnt[c] = off;
+    off += v[u];
+  }
+  __syncthreads();
+  return total;
+}
+
+// True in every thread of the one block that is the n-th to arrive at
+// counter *ctr (after its writes are fenced); that block sets the counter
+// back to 0, so every launch leaves the scratch as it found it
+__device__ __forceinline__ bool last_to_arrive(unsigned* ctr, unsigned n,
+                                               int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned prev = atomicAdd(ctr, 1u);
+    *flag = prev == n - 1;
+    if (prev == n - 1) *ctr = 0u;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// a row's extents from its minimum and maximum of t // dt
+__device__ __forceinline__ void write_extents(
+    long long row, int lo, int hi, int n_samples, int left_pad, int right_pad,
+    int* ch_left, int* ch_right, unsigned char* has) {
+  has[row] = hi >= lo ? 1 : 0;
+  ch_left[row] = clamp_to(wrap_sub(lo, left_pad), n_samples - 1);
+  ch_right[row] = clamp_to(wrap_add(hi, right_pad), n_samples - 1);
+}
+
+// Rows r0 .. r0 + n - 1 of the (rows, C) tables of counts, minima and
+// maxima, at channel c (written by other blocks: read past L1): the
+// counts become their exclusive prefix; returns their total, with the
+// minimum lo and maximum hi
+__device__ int scan_rows(int* v_tab, const int* lo_tab, const int* hi_tab,
+                         int r0, int n, int C, int c, int& lo, int& hi) {
+  int run = 0;
+  lo = kBig;
+  hi = -kBig;
+  for (int q0 = 0; q0 < n; q0 += kScanLoads) {
+    int v[kScanLoads], l[kScanLoads], h[kScanLoads];
+#pragma unroll
+    for (int q = 0; q < kScanLoads; ++q) {
+      if (q0 + q < n) {
+        const long long o = static_cast<long long>(r0 + q0 + q) * C + c;
+        v[q] = __ldcg(v_tab + o);
+        l[q] = __ldcg(lo_tab + o);
+        h[q] = __ldcg(hi_tab + o);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kScanLoads; ++q) {
+      if (q0 + q < n) {
+        v_tab[static_cast<long long>(r0 + q0 + q) * C + c] = run;
+        run += v[q];
+        lo = min(lo, l[q]);
+        hi = max(hi, h[q]);
+      }
+    }
+  }
+  return run;
+}
+
 __global__ void __launch_bounds__(kThreads)
-window_rows_count_kernel(Batch b, int* __restrict__ seg_cnt,
-                         int* __restrict__ seg_min, int* __restrict__ seg_max,
-                         int* __restrict__ seg_total) {
-  extern __shared__ int sh[];
-  __shared__ int red[2 * kWarps];
+window_rows_count_kernel(Batch b, Tables tb, unsigned* __restrict__ ctr,
+                         int n_samples, int left_pad, int right_pad,
+                         int* __restrict__ ch_left, int* __restrict__ ch_right,
+                         unsigned char* __restrict__ has) {
+  extern __shared__ __align__(16) int sh[];
+  __shared__ Pieces sp;
+  __shared__ int red[kWarps];
+  __shared__ int flag;
   const int C = b.n_ch;
   int* cnt = sh;
   int* mn = sh + C;
@@ -188,219 +409,259 @@ window_rows_count_kernel(Batch b, int* __restrict__ seg_cnt,
     mn[c] = kBig;
     mx[c] = -kBig;
   }
-  __syncthreads();
-  const Segment g = segment_of(b, blockIdx.x);
-  for (int base = 0; base < g.len; base += kTile) {
-    int chv[kPerThread], tv[kPerThread];
+  const int s = blockIdx.x;
+  const Segment g = segment_of(b, s);
+  stage_pieces(b, g, sp);      // ends in a barrier
+  int chv[kPer], tv[kPer];
+  load_photons<false>(b, g, sp, chv, tv, nullptr);
 #pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int i = base + q * kThreads + threadIdx.x;
-      chv[q] = -1;
-      tv[q] = 0;
-      if (i < g.len) {
-        long long toff;
-        const long long a = arena_index(b, g.w, g.j0 + i, toff);
-        chv[q] = __ldg(b.ch + a);
-        tv[q] = shifted_time(__ldg(b.t + a), toff);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int c = chv[q];
-      if (c >= 0 && c < C) {
-        const int s = floor_div(tv[q], b.dt);
-        atomicAdd(cnt + c, 1);
-        atomicMin(mn + c, s);
-        atomicMax(mx + c, s);
-      }
+  for (int q = 0; q < kPer; ++q) {
+    const int c = chv[q];
+    if (c >= 0 && c < C) {
+      const int v = floor_div(tv[q], b.dt);
+      atomicAdd(cnt + c, 1);
+      atomicMin(mn + c, v);
+      atomicMax(mx + c, v);
     }
   }
   __syncthreads();
-  int kept = 0, unused = 0;
-  const long long row0 = static_cast<long long>(blockIdx.x) * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    seg_cnt[row0 + c] = cnt[c];
-    seg_min[row0 + c] = mn[c];
-    seg_max[row0 + c] = mx[c];
-    kept += cnt[c];
+  const long long ro = static_cast<long long>(g.w) * C;
+  // (ctr: a counter a group, then a window, then one for the batch)
+  if (g.nw == 1) {
+    // the window is this segment: its extents and total, no table
+    for (int c = threadIdx.x; c < C; c += kThreads)
+      write_extents(ro + c, mn[c], mx[c], n_samples, left_pad, right_pad,
+                    ch_left, ch_right, has);
+    const int total = channel_scan(cnt, C, red);
+    if (threadIdx.x == 0) tb.wtot[g.w] = total;
+  } else {
+    const long long so = static_cast<long long>(s) * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      tb.sc[so + c] = cnt[c];
+      tb.smn[so + c] = mn[c];
+      tb.smx[so + c] = mx[c];
+    }
+    // the last segment of the group: the segments' counts become their
+    // prefix within the group; the group's totals, minima and maxima
+    if (!last_to_arrive(ctr + g.g, g.g_n, &flag)) return;
+    const long long go = static_cast<long long>(g.g) * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      int l, h;
+      tb.gc[go + c] = scan_rows(tb.sc, tb.smn, tb.smx, g.g_s0, g.g_n, C, c, l,
+                                h);
+      tb.gmn[go + c] = l;
+      tb.gmx[go + c] = h;
+    }
+    // the last group of the window: the groups' totals become their
+    // prefix within the window; each row's extents and offset
+    if (!last_to_arrive(ctr + b.n_grp + g.w, g.w_gn, &flag)) return;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      int l, h;
+      cnt[c] = scan_rows(tb.gc, tb.gmn, tb.gmx, g.w_g0, g.w_gn, C, c, l, h);
+      write_extents(ro + c, l, h, n_samples, left_pad, right_pad, ch_left,
+                    ch_right, has);
+    }
+    __syncthreads();
+    const int total = channel_scan(cnt, C, red);
+    for (int c = threadIdx.x; c < C; c += kThreads) tb.rowoff[ro + c] = cnt[c];
+    if (threadIdx.x == 0) tb.wtot[g.w] = total;
   }
-  block_sum2(kept, unused, red);
-  if (threadIdx.x == 0) seg_total[blockIdx.x] = kept;
+
+  // the last window: the windows' bases
+  if (!last_to_arrive(ctr + b.n_grp + b.n_win, b.n_win, &flag)) return;
+  int carry = 0;
+  for (int w0 = 0; w0 < b.n_win; w0 += kThreads) {
+    const int w = w0 + threadIdx.x;
+    const int v = w < b.n_win ? __ldcg(tb.wtot + w) : 0;
+    int sum;
+    const int before = block_exclusive_scan(v, sum, red);
+    if (w < b.n_win) tb.wbase[w] = carry + before;
+    carry += sum;
+  }
+  if (threadIdx.x == 0) tb.wbase[b.n_win] = carry;
+}
+
+// the place pass's dynamic shared memory: the warps' counts (kWarps, C),
+// each channel's first slot in the segment and its destination's offset
+// (C each), then, from the next even word (the 8-byte pairs' alignment),
+// the staged segment (kSeg (time, gain) pairs and kSeg destinations)
+__host__ __device__ constexpr int place_staged_word(int C) {
+  return ((kWarps + 2) * C + 1) & ~1;
+}
+__host__ __device__ constexpr int place_smem_words(int C) {
+  return place_staged_word(C) + 3 * kSeg;
 }
 
 __global__ void __launch_bounds__(kThreads)
-window_rows_place_kernel(Batch b, const int* __restrict__ seg_cnt,
-                         const int* __restrict__ seg_min,
-                         const int* __restrict__ seg_max,
-                         const int* __restrict__ seg_total, int n_win,
-                         int n_samples, int left_pad, int right_pad,
-                         int n_out, int* __restrict__ t_out,
-                         float* __restrict__ gain_out,
-                         int* __restrict__ row_ptr, int* __restrict__ ch_left,
-                         int* __restrict__ ch_right,
-                         unsigned char* __restrict__ has) {
-  extern __shared__ int sh[];
-  __shared__ int red[2 * kWarps];
+window_rows_place_kernel(Batch b, Tables tb, int n_out,
+                         int* __restrict__ t_out, float* __restrict__ gain_out,
+                         int* __restrict__ row_ptr) {
+  extern __shared__ __align__(16) int sh[];
+  __shared__ Pieces sp;
+  __shared__ int red[kWarps];
   const int C = b.n_ch;
-  int* cursor = sh;            // (C,) the next slot of each channel's row
-  int* wcnt = sh + C;          // (kWarps, C) a sub-tile's counts by warp
+  int* wcnt = sh;                    // (kWarps, C)
+  int* first = sh + kWarps * C;      // (C,) a channel's first slot here
+  int* delta = first + C;            // (C,) its destination minus that slot
+  int2* st_tg = reinterpret_cast<int2*>(sh + place_staged_word(C));
+  int* st_pos = reinterpret_cast<int*>(st_tg + kSeg);          // (kSeg,)
   const int s = blockIdx.x;
   const Segment g = segment_of(b, s);
-  const int k = s - g.s0;
   for (int i = threadIdx.x; i < kWarps * C; i += kThreads) wcnt[i] = 0;
-
-  // the window's base: the kept photons of the windows before it
-  int before = 0, total = 0;
-  for (int i = threadIdx.x; i < b.n_seg; i += kThreads) {
-    const int v = __ldg(seg_total + i);
-    total += v;
-    if (i < g.s0) before += v;
+  const int wb = __ldg(tb.wbase + g.w);
+  const int kept = __ldg(tb.wbase + b.n_win);
+  const long long ro = static_cast<long long>(g.w) * C;
+  // each channel's destination for this segment's first photon of it,
+  // less the segment's slots before that photon's (set after the scan);
+  // a window of one segment: its base
+  if (g.nw == 1) {
+    for (int c = threadIdx.x; c < C; c += kThreads) delta[c] = wb;
+  } else {
+    const long long go = static_cast<long long>(g.g) * C;
+    const long long so = static_cast<long long>(s) * C;
+    for (int c = threadIdx.x; c < C; c += kThreads)
+      delta[c] = wb + __ldg(tb.rowoff + ro + c) + __ldg(tb.gc + go + c) +
+                 __ldg(tb.sc + so + c);
   }
-  block_sum2(before, total, red);
-
-  // each channel's photons in the window and in its segments before this
-  // one; thread t takes the channels t * per .. t * per + per - 1
-  const int per = (C + kThreads - 1) / kThreads;
-  int tot[kChPerThread], pre[kChPerThread], lo[kChPerThread],
-      hi[kChPerThread];
-  int mine = 0;
-#pragma unroll
-  for (int u = 0; u < kChPerThread; ++u) {
-    tot[u] = 0;
-    pre[u] = 0;
-    lo[u] = kBig;
-    hi[u] = -kBig;
-    const int c = threadIdx.x * per + u;
-    if (u < per && c < C) {
-      for (int kk = 0; kk < g.nw; ++kk) {
-        const long long o = static_cast<long long>(g.s0 + kk) * C + c;
-        const int v = __ldg(seg_cnt + o);
-        tot[u] += v;
-        if (kk < k) pre[u] += v;
-        if (k == 0) {
-          lo[u] = min(lo[u], __ldg(seg_min + o));
-          hi[u] = max(hi[u], __ldg(seg_max + o));
-        }
-      }
-    }
-    mine += tot[u];
-  }
-  const int first = block_exclusive_scan(mine, red);
-  int off = before + first;
-#pragma unroll
-  for (int u = 0; u < kChPerThread; ++u) {
-    const int c = threadIdx.x * per + u;
-    if (u < per && c < C) {
-      cursor[c] = off + pre[u];
-      if (k == 0) {
-        const long long row = static_cast<long long>(g.w) * C + c;
-        row_ptr[row] = off;
-        has[row] = hi[u] >= lo[u] ? 1 : 0;
-        ch_left[row] = clamp_to(wrap_sub(lo[u], left_pad), n_samples - 1);
-        ch_right[row] = clamp_to(wrap_add(hi[u], right_pad), n_samples - 1);
-      }
-      off += tot[u];
-    }
-  }
-  if (k == 0 && g.w == n_win - 1 && threadIdx.x == kThreads - 1)
-    row_ptr[static_cast<long long>(n_win) * C] = before + first + mine;
   // the slots past the kept photons: zero, shared among the blocks
-  for (long long i = total + static_cast<long long>(s) * kThreads +
-                     threadIdx.x;
+  for (long long i = kept + static_cast<long long>(s) * kThreads + threadIdx.x;
        i < n_out; i += static_cast<long long>(b.n_seg) * kThreads) {
     t_out[i] = 0;
     gain_out[i] = 0.0f;
   }
-  __syncthreads();
-
+  stage_pieces(b, g, sp);      // ends in a barrier
+  int chv[kPer], tv[kPer];
+  float gv[kPer];
+  load_photons<true>(b, g, sp, chv, tv, gv);
+  // each warp's counts of its run, by channel (order-free)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  for (int base = 0; base < g.len; base += kTile) {
-    int key[kPerThread], tv[kPerThread];
-    float gv[kPerThread];
+  int* mine = wcnt + warp * C;
 #pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int i = base + q * kThreads + threadIdx.x;
-      key[q] = -1;
-      tv[q] = 0;
-      gv[q] = 0.0f;
-      if (i < g.len) {
-        long long toff;
-        const long long a = arena_index(b, g.w, g.j0 + i, toff);
-        const int c = __ldg(b.ch + a);
-        key[q] = (c >= 0 && c < C) ? c : -1;
-        tv[q] = shifted_time(__ldg(b.t + a), toff);
-        gv[q] = __ldg(b.gain + a);
-      }
-    }
-    // sub-tile q: the photons base + q * kThreads + [0, kThreads), in
-    // order; lane order within a warp, warp order within the sub-tile
+  for (int q = 0; q < kPer; ++q) {
+    const int c = chv[q];
+    if (c >= 0 && c < C) atomicAdd(mine + c, 1);
+    else chv[q] = -1;
+  }
+  __syncthreads();
+  // a channel's count in the segment; the warps' counts become their
+  // prefix within the channel
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    int run = 0;
 #pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int c = key[q];
-      const unsigned same = __match_any_sync(kFull, c);
-      const int rank = __popc(same & below);
-      const bool lead = c >= 0 && rank == 0;
-      if (lead) wcnt[warp * C + c] = __popc(same);
-      __syncthreads();
-      if (c >= 0) {
-        int pos = cursor[c] + rank;
-        for (int v = 0; v < warp; ++v) pos += wcnt[v * C + c];
-        t_out[pos] = tv[q];
-        gain_out[pos] = gv[q];
-      }
-      __syncthreads();
-      if (lead) {
-        atomicAdd(cursor + c, __popc(same));
-        wcnt[warp * C + c] = 0;
-      }
-      __syncwarp();
+    for (int k = 0; k < kWarps; ++k) {
+      const int v = wcnt[k * C + c];
+      wcnt[k * C + c] = run;
+      run += v;
     }
+    first[c] = run;
+  }
+  __syncthreads();
+  const int n_kept = channel_scan(first, C, red);
+  // the warps' cursors: the channel's first slot in the segment plus the
+  // counts of the warps before
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const int f = first[c];
+    if (g.k == 0)
+      row_ptr[ro + c] = g.nw == 1 ? wb + f : wb + __ldg(tb.rowoff + ro + c);
+    if (g.nw != 1) delta[c] -= f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) wcnt[k * C + c] += f;
+  }
+  if (g.k == 0 && g.w == b.n_win - 1 && threadIdx.x == 0)
+    row_ptr[static_cast<long long>(b.n_win) * C] = kept;
+  __syncthreads();
+  // the segment in row order in shared memory: a photon's slot is its
+  // warp's cursor for its channel plus its rank among the lower lanes of
+  // its step; a window of one segment is one run from its base, a longer
+  // one's slots keep their destinations
+  const bool one_run = g.nw == 1;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int c = chv[q];
+    const unsigned same = lanes_alike(c);
+    if (c >= 0) {
+      const int l = mine[c] + __popc(same & below);
+      st_tg[l] = make_int2(tv[q], __float_as_int(gv[q]));
+      if (!one_run) st_pos[l] = delta[c] + l;
+    }
+    __syncwarp();
+    if (c >= 0 && (same & below) == 0) mine[c] += __popc(same);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < n_kept; l += kThreads) {
+    const int pos = one_run ? wb + l : st_pos[l];
+    const int2 v = st_tg[l];
+    t_out[pos] = v.x;
+    gain_out[pos] = __int_as_float(v.y);
   }
 }
 
 }  // namespace
 
-// The batch's rows: out t, gain (n_out,), row_ptr (n_win * n_ch + 1,),
-// ch_left, ch_right (n_win * n_ch,) int32 and has (n_win * n_ch,) bool.
-// scratch holds n_seg * (3 * n_ch + 1) int32 (written before it is read).
-// left_pad / right_pad: what the extents subtract from the row's first
-// sample and add to its last before the clip to [0, n_samples - 1].
+// The batch's rows, all in one int32 buffer `work` carved in this order:
+// t (n_out), gain (n_out, float32), row_ptr (B * C + 1), ch_left,
+// ch_right (B * C), has (B * C bytes, padded to whole words), then the
+// tables: sc, smn, smx (n_seg * C each), gc, gmn, gmx (n_grp * C each),
+// rowoff (B * C), wtot (B), wbase (B + 1).  `table` is the host plan, one
+// int64 array: pieces (B * P * 3), pstart (B * P), the segments' plans
+// (n_seg * 6).  `ctr` is n_grp + B + 1 zeroed 32-bit words, left zero.
+// seg_len must be the kernel's segment (kSeg).  left_pad / right_pad: what
+// the extents subtract from the row's first sample and add to its last
+// before the clip to [0, n_samples - 1].
 extern "C" int wfsim_window_rows(
-    const void* t, const void* ch, const void* gain, const void* pieces,
-    const void* pstart, int n_pieces, const void* plan, int n_seg, int n_win,
-    int n_ch, int n_samples, int dt, int left_pad, int right_pad, int n_out,
-    void* scratch, void* t_out, void* gain_out, void* row_ptr, void* ch_left,
-    void* ch_right, void* has, void* stream) {
-  if (n_win <= 0 || n_seg < n_win || n_ch <= 0 || n_ch > kMaxChannels ||
-      n_pieces < 0 || n_samples <= 0 || dt <= 0 || n_out < 0)
+    const void* t, const void* ch, const void* gain, const void* table,
+    int n_win, int n_pieces, int n_seg, int n_grp, int n_ch, int seg_len,
+    int n_samples, int dt, int left_pad, int right_pad, int n_out,
+    void* work, void* ctr, void* stream) {
+  if (n_win <= 0 || n_seg < n_win || n_grp < 0 || n_ch <= 0 ||
+      n_ch > kMaxChannels || n_pieces < 0 || n_samples <= 0 || dt <= 0 ||
+      n_out < 0 || seg_len != kSeg)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int place_bytes = place_smem_words(n_ch) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_rows_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      place_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long R = static_cast<long long>(n_win) * n_ch;
   Batch b;
   b.t = static_cast<const int*>(t);
   b.ch = static_cast<const int*>(ch);
   b.gain = static_cast<const float*>(gain);
-  b.pieces = static_cast<const long long*>(pieces);
-  b.pstart = static_cast<const long long*>(pstart);
-  b.plan = static_cast<const long long*>(plan);
+  b.pieces = static_cast<const long long*>(table);
+  b.pstart = b.pieces + 3LL * n_win * n_pieces;
+  b.plan = b.pstart + static_cast<long long>(n_win) * n_pieces;
+  b.n_win = n_win;
   b.n_pieces = n_pieces;
   b.n_seg = n_seg;
+  b.n_grp = n_grp;
   b.n_ch = n_ch;
   b.dt = dt;
-  int* seg_cnt = static_cast<int*>(scratch);
-  int* seg_min = seg_cnt + static_cast<long long>(n_seg) * n_ch;
-  int* seg_max = seg_min + static_cast<long long>(n_seg) * n_ch;
-  int* seg_total = seg_max + static_cast<long long>(n_seg) * n_ch;
+  int* w = static_cast<int*>(work);
+  int* t_out = w;
+  float* gain_out = reinterpret_cast<float*>(w + n_out);
+  int* row_ptr = w + 2LL * n_out;
+  int* ch_left = row_ptr + R + 1;
+  int* ch_right = ch_left + R;
+  unsigned char* has = reinterpret_cast<unsigned char*>(ch_right + R);
+  Tables tb;
+  tb.sc = ch_right + R + (R + 3) / 4;
+  tb.smn = tb.sc + static_cast<long long>(n_seg) * n_ch;
+  tb.smx = tb.smn + static_cast<long long>(n_seg) * n_ch;
+  tb.gc = tb.smx + static_cast<long long>(n_seg) * n_ch;
+  tb.gmn = tb.gc + static_cast<long long>(n_grp) * n_ch;
+  tb.gmx = tb.gmn + static_cast<long long>(n_grp) * n_ch;
+  tb.rowoff = tb.gmx + static_cast<long long>(n_grp) * n_ch;
+  tb.wtot = tb.rowoff + R;
+  tb.wbase = tb.wtot + n_win;
   window_rows_count_kernel<<<n_seg, kThreads, 3 * n_ch * sizeof(int), st>>>(
-      b, seg_cnt, seg_min, seg_max, seg_total);
-  cudaError_t err = cudaGetLastError();
+      b, tb, static_cast<unsigned*>(ctr), n_samples, left_pad, right_pad,
+      ch_left, ch_right, has);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_rows_place_kernel<<<n_seg, kThreads,
-                             (1 + kWarps) * n_ch * sizeof(int), st>>>(
-      b, seg_cnt, seg_min, seg_max, seg_total, n_win, n_samples, left_pad,
-      right_pad, n_out, static_cast<int*>(t_out),
-      static_cast<float*>(gain_out), static_cast<int*>(row_ptr),
-      static_cast<int*>(ch_left), static_cast<int*>(ch_right),
-      static_cast<unsigned char*>(has));
+  window_rows_place_kernel<<<n_seg, kThreads, place_bytes, st>>>(
+      b, tb, n_out, t_out, gain_out, row_ptr);
   return static_cast<int>(cudaGetLastError());
 }

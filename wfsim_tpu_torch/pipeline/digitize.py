@@ -5,17 +5,17 @@ dense pack_records, :469-519; reference: wfsim/core/rawdata.py:204-311,
 398-458).
 
 A batch of B windows is one grid of B*C rows (window w, TPC channel c ->
-row w*C + c).  The five device passes are hand-written kernels with plain
+row w*C + c).  The device passes are hand-written kernels with plain
 twins: :func:`window_photons` (K17), which gathers each window's photons
 from the arena through its piece table in row order with the per-row
 extents, ``ops.waveform.superpose_adc`` (or ``superpose_adc_full`` on the
-full digitizer grid), ``ops.zle.zle_all_channels``, :func:`pack_records`
-and :func:`record_rows`, which writes a round's records as strax
-raw_record rows in their sorted slots (wfsim_tpu rawdata.py:1790-1816),
-so one device-to-host copy gives the final bytes.  The glue left in plain
-torch is the cumsum of the rows' record counts and a round's record order
-(:func:`round_records`: one sort of packed keys, the stand-in for
-wfsim_tpu's host ``np.lexsort``, rawdata.py:1785).
+full digitizer grid), ``ops.zle.zle_all_channels``, :func:`pack_records`,
+and once a round :func:`round_order`, which orders the round's records as
+wfsim_tpu's host ``np.lexsort`` does (rawdata.py:1780), and
+:func:`record_rows`, which writes them as strax raw_record rows in their
+sorted slots (wfsim_tpu rawdata.py:1790-1816), so one device-to-host copy
+gives the final bytes.  The glue left in plain torch is the cumsum of
+the rows' record counts.
 
 Two grids, chosen where wfsim_tpu chooses them (digitize.py:290): the slim
 grid of the C TPC rows, and the full digitizer grid of
@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import Kernel, P, I, check_tensor, ptr, stream_of
+from .._build import Kernel, P, I, check_tensor, ptr, scratch, stream_of
 from ..ops.waveform import superpose_adc, superpose_adc_full
 from ..ops.zle import zle_all_channels
 
@@ -45,7 +45,8 @@ __all__ = ['gather_digitize', 'digitize_window', 'window_photons',
            'window_photons_ref', 'window_rows_plan', 'WINDOW_SEGMENT',
            'full_grid', 'full_grid_rows', 'he_on', 'pack_records',
            'pack_records_ref', 'record_rows', 'record_rows_ref', 'rows_of',
-           'round_order', 'round_records', 'SAMPLES_PER_RECORD',
+           'round_order', 'round_order_ref', 'round_records',
+           'SAMPLES_PER_RECORD',
            'ROW_WORDS16']
 
 SAMPLES_PER_RECORD = 110
@@ -56,6 +57,8 @@ ROW_WORDS16 = 122
 #: photons a block of the window_rows kernel (K17) takes at most: the host
 #: cuts each window's photons into segments of this many, in arena order
 WINDOW_SEGMENT = 8192
+#: consecutive segments of a window that K17's count pass scans as a group
+WINDOW_GROUP = 16
 
 
 def _piece_table(pieces) -> np.ndarray:
@@ -74,8 +77,8 @@ def _check_pieces(p, n_arena: int):
     """Raise unless every piece has a count >= 0 and every piece with
     photons lies inside the arena's ``n_arena`` photons."""
     lo, cnt = p[:, :, 0], p[:, :, 1]
-    used = cnt > 0
-    if (cnt < 0).any() or (used & ((lo < 0) | (lo + cnt > n_arena))).any():
+    # a piece with photons outside [0, n_arena), or a negative count
+    if ((cnt < 0) | ((cnt > 0) & ((lo < 0) | (lo > n_arena - cnt)))).any():
         raise ValueError(f'pieces: counts must be >= 0 and pieces with '
                          f'photons lie in the arena of {n_arena}')
 
@@ -84,21 +87,25 @@ def window_rows_plan(p, segment: int = WINDOW_SEGMENT):
     """The window_rows kernel's plan of a (B, P, 3) host piece table:
     ``(pstart, plan)``, each piece's first photon within its window (B, P)
     and per segment ``[window, the window's first segment, the window's
-    segments, first photon in the window, photons]`` (n_seg, 5), int64.
-    Each window's photons (its pieces' one after another) are cut into
-    segments of at most ``segment``; a window without photons has one
-    empty segment."""
+    segments, first photon in the window, photons, the window's first
+    group]`` (n_seg, 6), int64.  Each window's photons (its pieces' one
+    after another) are cut into segments of at most ``segment``; a window
+    without photons has one empty segment; every WINDOW_GROUP consecutive
+    segments of a window form a group."""
     B = p.shape[0]
     cnt = p[:, :, 1]
-    pstart = np.cumsum(cnt, axis=1) - cnt
-    n_win = cnt.sum(axis=1)
+    pstart = np.cumsum(cnt, axis=1)
+    n_win = pstart[:, -1].copy() if cnt.shape[1] else np.zeros(B, np.int64)
+    pstart -= cnt
     n_seg = np.maximum(1, -(-n_win // segment))
     s0 = np.cumsum(n_seg) - n_seg
+    n_grp = -(-n_seg // WINDOW_GROUP)
     w = np.repeat(np.arange(B), n_seg)
     j0 = (np.arange(int(n_seg.sum())) - s0[w]) * segment
     plan = np.stack([w, s0[w], n_seg[w], j0,
-                     np.minimum(segment, n_win[w] - j0)], axis=1)
-    return pstart.astype(np.int64), plan.astype(np.int64)
+                     np.minimum(segment, n_win[w] - j0),
+                     (np.cumsum(n_grp) - n_grp)[w]], axis=1)
+    return pstart, plan.astype(np.int64)
 
 
 def _i32(x: int) -> int:
@@ -164,8 +171,8 @@ def window_photons_ref(const, arena_t, arena_ch, arena_gain, pieces, *,
 
 
 _window_kernel = Kernel('wfsim_window_rows',
-                        [P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P, P,
-                         P, P, P, P, P, P])
+                        [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P,
+                         P])
 
 
 def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
@@ -176,10 +183,11 @@ def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
     each row's extents.
 
     CPU tensors go to :func:`window_photons_ref`; CUDA tensors launch the
-    hand-written kernel (``csrc/window_rows.cu``, K17: two passes of a
-    block per segment of a window's photons, planned on the host from the
-    piece table), which reads nothing back: with the host's piece table
-    and an arena on the card, the call does not sync.
+    hand-written kernel (``csrc/window_rows.cu``, K17: a count pass and a
+    place pass of a block per segment of up to WINDOW_SEGMENT of a
+    window's photons, planned on the host from the piece table), which
+    reads nothing back: with the host's piece table and an arena on the
+    card, the call does not sync.
 
     :param arena_t/ch/gain: (A,) int32 / int32 / float32 photon arena;
         times are ns relative to each buffer's base, channel -1 marks a
@@ -192,10 +200,11 @@ def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
     :returns: dict of t, gain, one slot a photon of the table: the kept
         photons in row order on ``[0, row_ptr[-1])``, zeros past them;
         row_ptr (B*C + 1,) int32, ch_left/ch_right (B*C,) int32, has bool
+        (on the card, views of one allocation that also holds the
+        kernel's tables)
     """
     dev = arena_t.device
     p = _piece_table(pieces)
-    total = int(p[:, :, 1].sum())
     if dev.type == 'cpu':
         return window_photons_ref(const, arena_t, arena_ch, arena_gain, p,
                                   n_samples=n_samples)
@@ -212,38 +221,47 @@ def window_photons(const, arena_t, arena_ch, arena_gain, pieces, *,
     if not 0 < C <= 1024:
         raise ValueError(f'window_photons on the card takes 1 to 1,024 '
                          f'channels a window, not {C}')
+    pstart, plan = window_rows_plan(p)
+    total = int(plan[:, 4].sum())
     if total >= 2 ** 31:
         raise OverflowError(f'{total} photons in one batch')
     R = B * C
-    out = dict(t=torch.empty(total, dtype=torch.int32, device=dev),
-               gain=torch.empty(total, dtype=torch.float32, device=dev),
-               row_ptr=(torch.empty if B else torch.zeros)(
-                   R + 1, dtype=torch.int32, device=dev),
-               ch_left=torch.empty(R, dtype=torch.int32, device=dev),
-               ch_right=torch.empty(R, dtype=torch.int32, device=dev),
-               has=torch.empty(R, dtype=torch.bool, device=dev))
+    n_seg = len(plan)
+    n_grp = int(plan[-1, 5] + -(-plan[-1, 2] // WINDOW_GROUP)) if B else 0
+    # one allocation: the outputs, then the kernel's tables (one split;
+    # the kernel takes the allocation's start, which an empty t has not)
+    n_tab = 3 * (n_seg + n_grp) * C + R + 2 * B + 1
+    work = torch.empty(2 * total + 3 * R + 1 + (R + 3) // 4 + n_tab,
+                       dtype=torch.int32, device=dev)
+    t, gain, row_ptr, ch_left, ch_right, has, _tables = work.split(
+        [total, total, R + 1, R, R, (R + 3) // 4, n_tab])
+    out = dict(t=t, gain=gain.view(torch.float32), row_ptr=row_ptr,
+               ch_left=ch_left, ch_right=ch_right,
+               has=has.view(torch.bool)[:R])
     if B == 0:
+        row_ptr.zero_()
         return out
-    pstart, plan = window_rows_plan(p)
-    n_seg = int(plan.shape[0])
-    # the table, the piece starts and the plan in one copy (pinned: no sync)
-    host = torch.from_numpy(np.concatenate(
-        [p.reshape(-1), pstart.reshape(-1), plan.reshape(-1)])).pin_memory()
-    tab = host.to(dev, non_blocking=True)
+    # the plan to the card in one copy through pinned memory (no sync)
     n_p = B * n_pieces
-    scratch = torch.empty(n_seg * (3 * C + 1), dtype=torch.int32, device=dev)
+    host = torch.empty(4 * n_p + plan.size, dtype=torch.int64,
+                       pin_memory=True)
+    h = host.numpy()
+    h[:3 * n_p] = p.reshape(-1)
+    h[3 * n_p:4 * n_p] = pstart.reshape(-1)
+    h[4 * n_p:] = plan.reshape(-1)
+    tab = host.to(dev, non_blocking=True)
+    stream = stream_of(dev)
+    ctr = scratch(dev, stream, (n_grp + B + 2) // 2)
     left_pad = _i32(const.samples_to_store_before
                     + const.samples_before_pulse_center
                     + const.trigger_window)
     right_pad = _i32(const.samples_to_store_after
                      + const.samples_after_pulse_center
                      + const.trigger_window)
-    _window_kernel(ptr(arena_t), ptr(arena_ch), ptr(arena_gain), ptr(tab),
-                   ptr(tab[3 * n_p:]), n_pieces, ptr(tab[4 * n_p:]), n_seg, B,
-                   C, n_samples, const.sample_duration, left_pad, right_pad,
-                   total, ptr(scratch), ptr(out['t']), ptr(out['gain']),
-                   ptr(out['row_ptr']), ptr(out['ch_left']),
-                   ptr(out['ch_right']), ptr(out['has']), stream_of(dev))
+    _window_kernel(ptr(arena_t), ptr(arena_ch), ptr(arena_gain), ptr(tab), B,
+                   n_pieces, n_seg, n_grp, C, WINDOW_SEGMENT, n_samples,
+                   const.sample_duration, left_pad, right_pad, total,
+                   ptr(work), ptr(ctr), stream)
     return out
 
 
@@ -496,72 +514,89 @@ def rows_of(data, meta, win, win_left, dt: int):
         data], dim=1)
 
 
+def _batches(x):
+    """A round's records of one kind as a list of per-batch tensors."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 def record_rows_ref(data, meta, win, win_left, perm, dt: int):
     """Plain twin of the record_rows kernel: (N, 122) int16 rows, row i
     the raw_record_dtype(110) bytes of record ``perm[i]``: time
     ``(win_left[win[r]] + start) * dt`` (int64), length, dt, channel,
-    pulse_length, record_i, baseline 0, the samples."""
+    pulse_length, record_i, baseline 0, the samples (``data`` and
+    ``meta`` as :func:`record_rows` takes them)."""
+    data, meta = (torch.cat(_batches(x)) for x in (data, meta))
     return rows_of(data[perm], meta[perm], win[perm], win_left, dt)
 
 
-_rows_kernel = Kernel('wfsim_record_rows', [P, P, P, P, P, I, I, P, P])
+_rows_kernel = Kernel('wfsim_record_rows', [P, I, P, P, P, I, I, P, P])
+
+
+def _row_table(data, meta):
+    """K4r's batch table as an int64 numpy array: the batches' first
+    records (and the total), then their rec_data and rec_meta pointers."""
+    n = [int(d.shape[0]) for d in data]
+    return np.concatenate([[0], np.cumsum(n), [ptr(d) for d in data],
+                           [ptr(m) for m in meta]]).astype(np.int64)
+
+
+def _to_card(arr, dev):
+    """A host int64 array on the card through pinned memory (no sync)."""
+    host = torch.empty(len(arr), dtype=torch.int64, pin_memory=True)
+    host.numpy()[:] = arr
+    return host.to(dev, non_blocking=True)
 
 
 def record_rows(data, meta, win, win_left, perm, dt: int):
     """A round's records as strax raw_record rows in the order ``perm``
     (K4r).  CPU tensors go to :func:`record_rows_ref`; CUDA tensors launch
-    ``wfsim_record_rows`` (``csrc/pack_records.cu``), which reads nothing
-    back.
+    ``wfsim_record_rows`` (``csrc/pack_records.cu``), which reads the
+    batches where they lie (no concatenation) and reads nothing back.
 
-    :param data/meta: (N, 110) int16 and (N, 6) int32, :func:`pack_records`'
-        outputs of the round's batches one after another
+    :param data/meta: :func:`pack_records`' (n_j, 110) int16 and (n_j, 6)
+        int32 outputs of the round's batches, each a list in the round's
+        order or one tensor; record r is row r of their concatenation
     :param win: (N,) int32 each record's window in the round
     :param win_left: (W,) int64 each window's left edge (samples)
     :param perm: (N,) int64 the record of each output row
     :returns: (N, 122) int16, the rows' bytes
     """
+    data, meta = _batches(data), _batches(meta)
     n = int(perm.shape[0])
-    dev = data.device
+    dev = perm.device
+    if len(data) != len(meta):
+        raise ValueError(f'{len(data)} rec_data but {len(meta)} rec_meta')
+    for d, m in zip(data, meta):
+        k = int(d.shape[0])
+        check_tensor('data', d, torch.int16, (k, SAMPLES_PER_RECORD), dev)
+        check_tensor('meta', m, torch.int32, (k, 6), dev)
     for name, x, dtype, shape in (
-            ('data', data, torch.int16, (n, SAMPLES_PER_RECORD)),
-            ('meta', meta, torch.int32, (n, 6)), ('win', win, torch.int32, (n,)),
+            ('win', win, torch.int32, (n,)),
             ('win_left', win_left, torch.int64, tuple(win_left.shape[:1])),
             ('perm', perm, torch.int64, (n,))):
         check_tensor(name, x, dtype, shape, dev)
+    if sum(int(d.shape[0]) for d in data) != n:
+        raise ValueError(f'perm has {n} entries for '
+                         f'{sum(int(d.shape[0]) for d in data)} records')
     if dev.type == 'cpu':
         return record_rows_ref(data, meta, win, win_left, perm, dt)
     if dev.type != 'cuda':
         raise NotImplementedError(f'record_rows on {dev}')
     out = torch.empty((n, ROW_WORDS16), dtype=torch.int16, device=dev)
     if n:
-        _rows_kernel(ptr(data), ptr(meta), ptr(win), ptr(win_left),
+        if any(ptr(d) % 4 or ptr(m) % 8 for d, m in zip(data, meta)
+               if d.shape[0]):
+            raise ValueError('record_rows: rec_data must be 4-byte and '
+                             'rec_meta 8-byte aligned')
+        table = _to_card(_row_table(data, meta), dev)
+        _rows_kernel(ptr(table), len(data), ptr(win), ptr(win_left),
                      ptr(perm), n, int(dt), ptr(out), stream_of(dev))
     return out
 
 
-def round_order(parts, win_left, *, n_samples: int, n_rows: int):
-    """The record_rows inputs of one digitize round: its records in the
-    (window, start, channel) order of wfsim_tpu's ``np.lexsort((C, S,
-    W))`` (rawdata.py:1785), stable over the batches in turn, from one
-    sort of packed keys on the device.
-
-    :param parts: list of per digitize batch ``(window ids, rec_data,
-        rec_meta)``: the round's window of each batch window (a host int
-        array) and :func:`pack_records`' outputs; emptied once they are
-        copied, so that the batches' outputs are not held beside the
-        round's rows
-    :param win_left: (W,) int64 host array of the windows' left edges
-    :param n_samples: the round's largest window length: every record
-        starts below it
-    :param n_rows: the grid rows a window (records' channels lie below)
-    :returns: dict of data, meta, win, win_left, perm (record_rows'
-        arguments), the sorted keys ``key`` and ``shift``, the bits below
-        a key's window field
-    """
-    dev = parts[0][1].device
-    n_win = len(win_left)
-    # packed keys (window, start, channel): each field's width from its
-    # bound on the host; a round whose keys do not fit raises
+def _key_bits(n_win: int, n_samples: int, n_rows: int):
+    """The bits of a round's packed keys' (window, start, channel) fields,
+    each from its bound; a round whose keys do not fit 63 bits raises."""
     bits_c = max(int(n_rows - 1).bit_length(), 1)
     bits_s = max(int(n_samples - 1).bit_length(), 1)
     bits_w = max(int(n_win - 1).bit_length(), 1)
@@ -569,26 +604,122 @@ def round_order(parts, win_left, *, n_samples: int, n_rows: int):
         raise OverflowError(f'record keys of {n_win} windows x {n_samples} '
                             f'samples x {n_rows} rows need '
                             f'{bits_w + bits_s + bits_c} bits')
+    return bits_w, bits_s, bits_c
+
+
+def round_order_ref(parts, win_left, *, n_samples: int, n_rows: int):
+    """Plain twin of :func:`round_order` (same arguments; ``parts`` is
+    emptied): the round's records concatenated, their windows, and one
+    stable sort of packed (window, start, channel) keys on the records'
+    device; the windows' counts by a search of the sorted keys.  Returns
+    :func:`round_order`'s dict plus the sorted keys ``key`` and ``shift``,
+    the bits below a key's window field."""
+    dev = parts[0][1].device
+    n_win = len(win_left)
+    _bits_w, bits_s, bits_c = _key_bits(n_win, n_samples, n_rows)
     # the windows' left edges and each batch's window ids go to the
     # device in one copy (pinned on the card: no sync)
-    host = torch.from_numpy(np.concatenate(
-        [np.asarray(win_left, np.int64)]
-        + [np.asarray(b, np.int64) for b, _, _ in parts]))
-    if dev.type == 'cuda':
-        host = host.pin_memory()
-    host = host.to(dev, non_blocking=True)
+    host = np.concatenate([np.asarray(win_left, np.int64)]
+                          + [np.asarray(b, np.int64) for b, _, _ in parts])
+    host = (_to_card(host, dev) if dev.type == 'cuda'
+            else torch.from_numpy(host))
     first = np.cumsum([n_win] + [len(b) for b, _, _ in parts])
     data = torch.cat([d for _, d, _ in parts])
     meta = torch.cat([m for _, _, m in parts])
     win = torch.cat([host[int(o) + m[:, 0].to(torch.int64)]
                      for o, (_, _, m) in zip(first, parts)]).to(torch.int32)
     parts.clear()
-    key = ((win.to(torch.int64) << (bits_s + bits_c))
+    shift = bits_s + bits_c
+    key = ((win.to(torch.int64) << shift)
            | (meta[:, 2].to(torch.int64) << bits_c)
            | meta[:, 1].to(torch.int64))
     key, perm = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(key, torch.arange(
+        n_win + 1, device=dev) << shift)
     return dict(data=data, meta=meta, win=win, win_left=host[:n_win],
-                perm=perm, key=key, shift=bits_s + bits_c)
+                perm=perm, counts=bounds[1:] - bounds[:-1], key=key,
+                shift=shift)
+
+
+_order_kernel = Kernel('wfsim_round_order', [P, I, I, I, I, P, P, P, P, P])
+
+
+def round_order(parts, win_left, *, n_samples: int, n_rows: int):
+    """The record_rows inputs of one digitize round: its records in the
+    (window, start, channel) order of wfsim_tpu's ``np.lexsort((C, S,
+    W))`` (rawdata.py:1780), stable over the batches in turn, and each
+    window's record count.
+
+    CPU tensors go to :func:`round_order_ref` (one sort of packed keys);
+    CUDA tensors launch ``wfsim_round_order`` (``csrc/round_order.cu``: the
+    windows' counts by a search of each batch's window column, then a
+    block a window ranking its records by (start, channel), and a block
+    for each further 4,096 records of a longer window), which reads
+    nothing back and leaves the batches' records where they lie.
+
+    :param parts: list of per digitize batch ``(window ids, rec_data,
+        rec_meta)``: the round's window of each batch window (a host int
+        array; every round window in one batch) and :func:`pack_records`'
+        outputs; emptied, so that the caller does not hold the batches'
+        outputs beside the round's rows
+    :param win_left: (W,) int64 host array of the windows' left edges
+    :param n_samples: the round's largest window length: every record
+        starts below it
+    :param n_rows: the grid rows a window (records' channels lie below)
+    :returns: dict of data, meta (lists of the batches' tensors on the
+        card, concatenated on the CPU), win (N,) int32 each record's
+        window, win_left (W,) int64, perm (N,) int64 (record_rows'
+        arguments) and counts (W,) int64 each window's records
+    """
+    dev = parts[0][1].device
+    if dev.type == 'cpu':
+        return round_order_ref(parts, win_left, n_samples=n_samples,
+                               n_rows=n_rows)
+    if dev.type != 'cuda':
+        raise NotImplementedError(f'round_order on {dev}')
+    n_win = len(win_left)
+    _bits_w, bits_s, bits_c = _key_bits(n_win, n_samples, n_rows)
+    if bits_s + bits_c > 32:
+        raise OverflowError(f'round_order on the card keys (start, channel) '
+                            f'in 32 bits: {n_samples} samples x {n_rows} '
+                            f'rows need {bits_s + bits_c}')
+    ids = [np.asarray(b, np.int64) for b, _, _ in parts]
+    wids = np.concatenate(ids)
+    if not np.array_equal(np.sort(wids), np.arange(n_win)):
+        raise ValueError(f'the batches\' windows must be each of the '
+                         f'{n_win} round windows once')
+    data = [d for _, d, _ in parts]
+    meta = [m for _, _, m in parts]
+    parts.clear()
+    for d, m in zip(data, meta):
+        k = int(d.shape[0])
+        check_tensor('rec_data', d, torch.int16, (k, SAMPLES_PER_RECORD), dev)
+        check_tensor('rec_meta', m, torch.int32, (k, 6), dev)
+    n_b = len(data)
+    n_rec = [int(d.shape[0]) for d in data]
+    first = np.concatenate([[0], np.cumsum(n_rec)])
+    N = int(first[-1])
+    if N >= 2 ** 31:
+        raise OverflowError(f'{N} records in one round')
+    # one copy to the card: win_left, the ordering's table (per batch
+    # [rec_data, rec_meta, first record, records], each batch's first
+    # window entry, the entries' round windows)
+    bt = np.stack([[ptr(d) for d in data], [ptr(m) for m in meta],
+                   first[:-1], n_rec], axis=1).reshape(-1)
+    qoff = np.concatenate([[0], np.cumsum([len(b) for b in ids])])
+    tab = _to_card(np.concatenate([np.asarray(win_left, np.int64), bt, qoff,
+                                   wids]), dev)
+    # one allocation: the counts, the kernel's tables, perm, win
+    n_work = 8 * n_win + 2
+    work = torch.empty(n_work + N + (N + 1) // 2, dtype=torch.int64,
+                       device=dev)
+    perm = work[n_work:n_work + N]
+    win = work[n_work + N:].view(torch.int32)[:N]
+    stream = stream_of(dev)
+    _order_kernel(ptr(tab[n_win:]), n_b, n_win, bits_c, N, ptr(work),
+                  ptr(perm), ptr(win), ptr(scratch(dev, stream, 1)), stream)
+    return dict(data=data, meta=meta, win=win, win_left=tab[:n_win],
+                perm=perm, counts=work[:n_win])
 
 
 def round_records(parts, win_left, *, dt: int, n_samples: int, n_rows: int):
@@ -602,7 +733,4 @@ def round_records(parts, win_left, *, dt: int, n_samples: int, n_rows: int):
     o = round_order(parts, win_left, n_samples=n_samples, n_rows=n_rows)
     rows = record_rows(o.pop('data'), o.pop('meta'), o['win'], o['win_left'],
                        o['perm'], dt)
-    # each window's first row: a search of the sorted keys
-    bounds = torch.searchsorted(o['key'], torch.arange(
-        len(win_left) + 1, device=o['key'].device) << o['shift'])
-    return rows, np.diff(bounds.cpu().numpy())
+    return rows, o['counts'].cpu().numpy().astype(np.int64)
